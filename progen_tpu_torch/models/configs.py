@@ -1,0 +1,50 @@
+"""The model configs (ported from progen_tpu/models/configs.py)."""
+
+from __future__ import annotations
+
+from progen_tpu_torch.models.progen import ProGenConfig
+
+# Reference repo's default toy config.
+DEFAULT = ProGenConfig(
+    num_tokens=256, dim=128, depth=3, heads=3, dim_head=32,
+    window_size=512, seq_len=1024, ff_glu=True, global_mlp_depth=2,
+)
+
+# ProGen-tiny.
+TINY = ProGenConfig(
+    num_tokens=256, dim=512, depth=12, heads=8, dim_head=64,
+    window_size=256, seq_len=1024, ff_glu=True, global_mlp_depth=2,
+)
+
+# ProGen-small (~150M).
+SMALL = ProGenConfig(
+    num_tokens=256, dim=1024, depth=12, heads=8, dim_head=128,
+    window_size=256, seq_len=1024, ff_glu=True, global_mlp_depth=2,
+)
+
+# ProGen-base (~760M).
+BASE = ProGenConfig(
+    num_tokens=256, dim=1536, depth=24, heads=12, dim_head=128,
+    window_size=512, seq_len=2048, ff_glu=True, global_mlp_depth=2,
+)
+
+# ProGen-large (1.2B).
+LARGE = ProGenConfig(
+    num_tokens=256, dim=1536, depth=36, heads=12, dim_head=128,
+    window_size=512, seq_len=1024, ff_glu=True, global_mlp_depth=2,
+)
+
+# ProGen-XL (~6B).
+XL = ProGenConfig(
+    num_tokens=256, dim=4096, depth=32, heads=32, dim_head=128,
+    window_size=512, seq_len=4096, ff_glu=True, global_mlp_depth=2,
+)
+
+CONFIGS = {
+    "default": DEFAULT,
+    "tiny": TINY,
+    "small": SMALL,
+    "base": BASE,
+    "large": LARGE,
+    "xl": XL,
+}
