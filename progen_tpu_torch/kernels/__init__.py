@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("local_attention_fwd", "sgu_fwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -54,8 +54,7 @@ def library_path(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, float]:
     """Build every library of ``names`` that is not built yet, one ``nvcc``
     each, all started together.  Returns the seconds each took (0.0 for one
-    already built).  The compiler's report (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside each library as ``.log``."""
+    already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -75,7 +74,6 @@ def build(names=SOURCES) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         report, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(report)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{report}")
@@ -84,13 +82,6 @@ def build(names=SOURCES) -> dict[str, float]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return seconds
-
-
-def build_report(name: str) -> str:
-    """The compiler's report from the build of ``name`` ("" if it was built
-    by another process and left no log)."""
-    log = library_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,8 +2,9 @@
 
 These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  Run them
 on the card with ``python -m pytest tests/test_torch_cuda.py -m gpu``.
-f32 is held at 1e-4 (summation order), bf16 at 0.05 (the JAX package's
-bf16 bar)."""
+f32 is held at 1e-4 (summation order).  bf16 SGU outputs are O(1) and are
+held at 0.05 (the JAX package's bf16 bar); bf16 attention outputs are
+averages of many values, well below 1, and are held at 1e-2."""
 
 import pytest
 import torch
@@ -20,6 +21,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+TOL_ATTN_OUT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -29,8 +31,8 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, want, dtype):
-    tol = TOL[dtype]
+def _close(got, want, dtype, tol=TOL):
+    tol = tol[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
@@ -49,7 +51,7 @@ def test_attention_kernel_matches_plain(gen, dtype, b, h, n, d, wsz):
     torch.cuda.synchronize()
     assert cuda_attention.launches == before + 1
     want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True)
-    _close(out, want, dtype)
+    _close(out, want, dtype, TOL_ATTN_OUT)
     _close(lse, want_lse, torch.float32)
 
 

@@ -14,6 +14,8 @@ from progen_tpu.core.precision import make_policy as jax_policy
 from progen_tpu.decode import make_chunked_sampler as jax_chunked_sampler
 from progen_tpu.decode import make_prefiller as jax_prefiller
 from progen_tpu.decode import teacher_forced_logits as jax_teacher_forced
+from progen_tpu.decode.incremental import LocalAttentionDecode as JaxAttnDecode
+from progen_tpu.decode.incremental import SGUDecode as JaxSGUDecode
 from progen_tpu.decode.sampler import gumbel_topk_sample as jax_gumbel_topk
 from progen_tpu.decode.sampler import truncate_after_eos as jax_truncate
 from progen_tpu.models import ProGen as JaxProGen
@@ -30,6 +32,7 @@ from progen_tpu_torch.decode import (
     teacher_forced_logits,
     truncate_after_eos,
 )
+from progen_tpu_torch.decode.incremental import local_attention_decode, sgu_decode
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 
 torch.set_num_threads(1)
@@ -38,6 +41,11 @@ CFG = ProGenConfig(num_tokens=32, dim=32, seq_len=32, depth=3, window_size=8,
                    global_mlp_depth=2, heads=2, dim_head=16, ff_mult=2)
 F32 = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=0.05, atol=0.05)
+# The SGU gate cache is a LayerNorm output of the layers' bf16 residual
+# stream: values near the row mean keep the rounding differences of every
+# layer below at full size.  On these inputs JAX's own bf16 gate cache
+# differs from its f32 one by up to 0.07, so it is held at twice BF16.
+BF16_GATE = dict(rtol=0.1, atol=0.1)
 
 
 @pytest.fixture(scope="module")
@@ -85,18 +93,21 @@ def test_harvest_at_ragged_lengths_matches_jax(flax_params, mixed):
     got_logits, got = make_prefiller(_port(flax_params, mixed))(
         torch.from_numpy(tokens), torch.from_numpy(lengths), decode_len)
     tol = BF16 if mixed else F32
+    dtype = torch.bfloat16 if mixed else torch.float32
     np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits), **tol)
-    if mixed:
-        return
     for name in ("attn_prev", "ff_prev", "k", "v"):
         for i, (g, w) in enumerate(zip(got[name], want[name])):
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol,
+            assert g.dtype == dtype, f"{name}[{i}]"
+            np.testing.assert_allclose(g.float().numpy(),
+                                       np.asarray(w, np.float32), **tol,
                                        err_msg=f"{name}[{i}]")
     assert set(got["sgu_gate"]) == set(want["sgu_gate"]) == {"1", "2"}
     for key, g in got["sgu_gate"].items():
         assert g.shape == (3, decode_len, CFG.dim * CFG.ff_mult // 2)
-        np.testing.assert_allclose(g.numpy(), np.asarray(want["sgu_gate"][key]),
-                                   **tol)
+        assert g.dtype == dtype
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(want["sgu_gate"][key], np.float32),
+                                   **(BF16_GATE if mixed else F32))
         assert not g[0, 5:].any()  # rows past the prime stay zero
 
 
@@ -110,6 +121,93 @@ def test_decode_step_matches_the_parallel_forward_and_jax(flax_params):
     want = jax_teacher_forced(CFG, flax_params, jnp.asarray(tokens, jnp.int32),
                               jax_policy(False))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_bf16_decode_step_matches_the_parallel_forward_and_jax(flax_params):
+    """The main path's dtype: bf16 compute, f32 params and logits."""
+    tokens = _tokens(1, (2, 16), low=0)
+    model = _port(flax_params, mixed=True)
+    got = teacher_forced_logits(model, torch.from_numpy(tokens))
+    assert got.dtype == torch.float32
+    with torch.no_grad():
+        parallel = model(torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), parallel.numpy(), **BF16)
+    want = jax_teacher_forced(CFG, flax_params, jnp.asarray(tokens, jnp.int32),
+                              jax_policy(True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BF16)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+
+
+def _jax_bf16(a):
+    return jnp.asarray(np.asarray(a, np.float32), jnp.bfloat16)
+
+
+def _assert_same_bf16(got, want, what):
+    np.testing.assert_array_equal(got.detach().float().numpy(),
+                                  np.asarray(want, np.float32), err_msg=what)
+
+
+# The bf16 decode ops below are held to JAX's bit for bit: on the CPU both
+# round in the same places, and a lost cast (probabilities to bf16, the
+# f32 logits, the SGU's f32 mix and bias before its cast) moves an output by
+# one bf16 ulp, which any tolerance would hide.
+
+
+def test_bf16_attention_decode_step_matches_jax_bit_for_bit(flax_params):
+    rng = np.random.default_rng(8)
+    b, w, ring = 2, CFG.window_size, 2 * CFG.window_size
+    pos = np.array([5, 21])  # window 0 (phantom slots) and window 2
+    s = np.arange(ring)[None]
+    p_s = pos[:, None] - np.mod(pos[:, None] - s, ring)
+    valid = p_s >= (pos // w * w)[:, None] - w
+    x, prev = rng.normal(size=(2, b, CFG.dim))
+    k_cache, v_cache = rng.normal(size=(2, b, CFG.heads, ring, CFG.dim_head))
+    angle = rng.uniform(0, 6, size=(b, CFG.dim_head))
+    sin, cos = np.sin(angle), np.cos(angle)
+    block = _port(flax_params, mixed=True).attn[0]
+    jax_block = JaxAttnDecode(dim=CFG.dim, window_size=w, heads=CFG.heads,
+                              dim_head=CFG.dim_head, shift=block.shift,
+                              policy=jax_policy(True))
+    want = jax_block.apply(
+        {"params": flax_params["params"]["attn0"]}, *map(_jax_bf16, (
+            x, sin, cos)), jnp.asarray(pos % ring), jnp.asarray(valid),
+        *map(_jax_bf16, (prev, k_cache, v_cache)))
+    k_t, v_t = _bf16(k_cache), _bf16(v_cache)
+    out, new_prev = local_attention_decode(
+        block, _bf16(x), _bf16(sin), _bf16(cos), torch.from_numpy(pos % ring),
+        torch.from_numpy(valid), _bf16(prev), k_t, v_t)
+    for name, g, w_ in zip(("out", "prev", "k", "v"),
+                           (out, new_prev, k_t, v_t), want):
+        assert g.dtype == torch.bfloat16, name
+        _assert_same_bf16(g, w_, name)
+
+
+def test_bf16_sgu_decode_step_matches_jax_bit_for_bit(flax_params):
+    rng = np.random.default_rng(9)
+    hidden = CFG.dim * CFG.ff_mult
+    n = CFG.seq_len
+    # weights far from the init scale, so the mix is not ~ the bias
+    sgu = {**flax_params["params"]["ff1"]["sgu"],
+           "spatial_weights": rng.normal(0, 0.3, (n, n)).astype(np.float32),
+           "spatial_biases": rng.normal(size=(n, 1)).astype(np.float32)}
+    params = {"params": {**flax_params["params"],
+                         "ff1": {**flax_params["params"]["ff1"], "sgu": sgu}}}
+    pos = np.array([5, 21])
+    x = rng.normal(size=(2, hidden))
+    gate_cache = rng.normal(size=(2, n, hidden // 2))
+    jax_block = JaxSGUDecode(seq_len=n, dim_out=hidden // 2,
+                             policy=jax_policy(True))
+    want, want_cache = jax_block.apply({"params": sgu}, _jax_bf16(x),
+                                       jnp.asarray(pos), _jax_bf16(gate_cache))
+    cache = _bf16(gate_cache)
+    out = sgu_decode(_port(params, mixed=True).ff[1].sgu, _bf16(x),
+                     torch.from_numpy(pos), cache)
+    assert out.dtype == cache.dtype == torch.bfloat16
+    _assert_same_bf16(out, want, "out")
+    _assert_same_bf16(cache, want_cache, "gate cache")
 
 
 def test_decode_step_takes_per_row_positions(flax_params):
