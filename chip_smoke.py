@@ -10,15 +10,22 @@ non-zero without its last line:
 1. device: the card's name and power limit, CUDA and nvcc versions;
 2. build: the hand-written CUDA kernels, built from ``kernels/csrc`` by nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   ProGen-small shapes, with CUDA-event times of the kernel, the plain
-   version and one PyTorch library call computing the same function;
-4. main path: ProGen-small (weights drawn from a seed, bf16 compute) serves
-   four primes through the chunked sampler (one parallel prefill through the
-   kernels, then cached decode steps); the kernels' launch counts over that
-   run, prefill logits through the kernels against the plain versions, the
-   cached decode step against the parallel forward in f32, and the bf16
-   decode against the f32 answer beside the bf16 forward;
-5. the ``kernels`` line; then the card's ``nvidia-smi`` name and power limit
+   ProGen-small shapes (serving shapes for the forward kernels, training
+   shapes for the backward ones), with CUDA-event times of the kernel, the
+   plain version and one PyTorch library call computing the same function;
+4. serving path: ProGen-small (weights drawn from a seed, bf16 compute)
+   serves four primes through the chunked sampler (one parallel prefill
+   through the kernels, then cached decode steps); the kernels' launch
+   counts over that run, prefill logits through the kernels against the
+   plain versions, the cached decode step against the parallel forward in
+   f32, and the bf16 decode against the f32 answer beside the bf16 forward;
+5. training path: ProGen-small (bf16 compute, f32 parameters) takes
+   optimizer steps on synthetic rows through ``train/step.py``, with every
+   kernel's launches per step, a finite and falling loss, step time,
+   tokens/s, MFU and peak memory; then one f32 step through the kernels
+   against the same step through the plain versions (loss and every
+   gradient), and the parameters after three steps;
+6. the ``kernels`` line; then the card's ``nvidia-smi`` name and power limit
    and, last, ``{"ok": true, "device": {...}}``.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
@@ -27,6 +34,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,6 +47,7 @@ import torch.nn.functional as F
 
 from progen_tpu_torch import kernels
 from progen_tpu_torch.core.precision import make_policy
+from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.data.tokenizer import encode_tokens
 from progen_tpu_torch.decode.prefill import pad_prime_length
 from progen_tpu_torch.decode.sampler import (
@@ -48,12 +57,16 @@ from progen_tpu_torch.decode.sampler import (
 from progen_tpu_torch.models.configs import SMALL
 from progen_tpu_torch.models.progen import ProGen
 from progen_tpu_torch.ops import cuda_attention, cuda_sgu
+from progen_tpu_torch.observe.flops import H100_PEAK_BF16_FLOPS, mfu, model_flops_per_token
 from progen_tpu_torch.ops.local_attention import (
     concat_previous_window,
     local_attention,
+    local_attention_bwd,
     window_mask,
 )
-from progen_tpu_torch.ops.sgu import gated_mix
+from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
+from progen_tpu_torch.train.optimizer import make_optimizer
+from progen_tpu_torch.train.step import make_train_functions
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -71,6 +84,32 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 TOL_ATTN_OUT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_MODEL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+# The backward kernels' gradients are sums of up to B*d = 16384 terms
+# (K2-dW) whose size grows with the shape, so they are held at
+# tol * max|plain| + tol * |plain|: an f32 sum of many O(1) terms carries
+# an absolute rounding error of its largest partial sums, not of each
+# output; bf16 also rounds p, ds and dout * res before the second products
+# (a bf16 ulp, 0.4%, in other places than the plain version's einsums).
+TOL_GRAD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# That bar alone lets a kernel drop part of its work: one of K2-dW's 256
+# channel steps is ~0.06 of its RMS per element, under 2e-2 of the largest
+# entry.  So the RMS error is also held at 1e-2 of the plain version's RMS
+# in bf16 (both sides round the same bf16 operands; they differ in
+# summation order and in a rare bf16 rounding flip) and 1e-4 in f32.
+TOL_GRAD_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The f32 train step through the kernels against the plain versions:
+# every gradient leaf at 1e-3 of its largest magnitude (12 layers of
+# summation-order differences), the loss at 1e-4 relative; after three
+# Adam steps each leaf's update (p3 - p0) at 1e-2 of its RMS, and no
+# element farther than 6 * lr (a gradient element within rounding of zero
+# may take Adam's +-lr step either way).
+TOL_TRAIN_GRAD = 1e-3
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_UPDATE_RMS = 1e-2
+TRAIN_BATCH = 8
+TRAIN_STEPS = 12    # optimizer steps of the training path (accumulation 1)
+TRAIN_WARMUP = 2    # steps left out of the median step time
+TRAIN_LR = 2e-4
 # How much farther from the f32 answer the bf16 decode may be than the bf16
 # parallel forward (two paths with equal bf16 rounding sit at a ratio ~1).
 DECODE_VS_FORWARD_RATIO = 1.5
@@ -253,7 +292,173 @@ def check_kernels() -> list[dict]:
     return rows
 
 
-# -- phase 4: the main path ---------------------------------------------------
+def close_scaled(got: torch.Tensor, want: torch.Tensor, dtype) -> dict:
+    """``compare`` with ``TOL_GRAD * max|want|`` added to the absolute bar,
+    and the RMS error held at ``TOL_GRAD_RMS`` of the plain version's RMS."""
+    tol = TOL_GRAD[dtype]
+    want = want.float()
+    scale = float(want.abs().max())
+    result = compare(got, want, tol)
+    diff = got.float() - want
+    rms_want = float(want.pow(2).mean().sqrt())
+    rms_err = float(diff.pow(2).mean().sqrt())
+    result["ok"] = (bool((diff.abs() <= tol * scale + tol * want.abs()).all())
+                    and rms_err <= TOL_GRAD_RMS[dtype] * rms_want)
+    result.update(max_abs_want=scale, rms_err=rms_err, rms_want=rms_want,
+                  tol_rms=TOL_GRAD_RMS[dtype])
+    return result
+
+
+def real_visible(n: int, wsz: int) -> int:
+    """Visible (query, key) pairs per (b, h), the phantom window's left out:
+    the backward kernels' work (phantom keys are zeros: nothing to dq, and
+    their dk/dv are dropped)."""
+    return sum(min(wsz + i % wsz + 1, i + 1) for i in range(n))
+
+
+def attention_bwd_case(gen, b, h, n, d, wsz, dtype):
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
+    dd = (do.float() * out.float()).sum(-1)
+    dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz)
+    dk, dv = cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz)
+    torch.cuda.synchronize()
+    want = local_attention_bwd(q, k, v, out, lse, do, wsz)
+    res = {name: close_scaled(g, w, dtype)
+           for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    fields = {"shape": [b, h, n, d], "window": wsz, "dtype": str(dtype), **res}
+    emit("kernel_check", kernel="local_attention_bwd", **fields)
+    require(all(r["ok"] for r in res.values()),
+            f"local_attention_bwd disagrees with its plain version: {fields}")
+    return (q, k, v, do, out, lse, dd), res
+
+
+def sgu_bwd_case(gen, b, n, d, dtype):
+    res, gate, dout = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
+                       for _ in range(3))
+    w = (torch.randn(n, n, device="cuda", generator=gen) * 0.05).to(dtype)
+    dgate = cuda_sgu.spatial_gate_dgate(w, dout, res)
+    dw = cuda_sgu.spatial_gate_dw(dout, res, gate)
+    torch.cuda.synchronize()
+    checks = {"dgate": close_scaled(dgate, spatial_gate_dgate(w, dout, res), dtype),
+              "dw": close_scaled(dw, spatial_gate_dw(dout, res, gate), dtype)}
+    upper = int(torch.count_nonzero(torch.triu(dw, 1)))
+    fields = {"shape": [b, n, d], "dtype": str(dtype), **checks,
+              "dw_nonzero_above_diagonal": upper}
+    emit("kernel_check", kernel="sgu_bwd", **fields)
+    require(checks["dgate"]["ok"] and checks["dw"]["ok"] and upper == 0,
+            f"sgu_bwd disagrees with its plain version: {fields}")
+    return (res, gate, dout, w), checks
+
+
+def check_backward_kernels() -> list[dict]:
+    """K1-dq, K1-dkv, K2-dgate and K2-dW against their plain versions, at
+    the training path's shapes, the single-window phantom case and a
+    ragged n, in bf16 and f32; timed in bf16 at the training shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    c = SMALL
+    d, h, wsz, b = c.dim_head, c.heads, c.window_size, TRAIN_BATCH
+    rows = []
+
+    errs = {"dq": [], "dk": [], "dv": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        inputs, res = attention_bwd_case(gen, b, h, c.seq_len, d, wsz, dtype)
+        if dtype == torch.bfloat16:
+            timed, timed_res = inputs, res
+        phantom = attention_bwd_case(gen, 2, h, wsz, d, wsz, dtype)[1]  # one window
+        for name in errs:
+            errs[name] += [res[name]["max_abs_err"], phantom[name]["max_abs_err"]]
+    q, k, v, do, out, lse, dd = timed
+    n = q.shape[2]
+    ms_dq = time_ms(lambda: cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz))
+    ms_dkv = time_ms(lambda: cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz))
+    plain_ms = time_ms(lambda: local_attention_bwd(q, k, v, out, lse, do, wsz), iters=5)
+    library_ms = sdpa_backward_ms(q, k, v, do, wsz)
+    esize = q.element_size()
+    pairs = real_visible(n, wsz) * b * h
+    vec = b * h * n * d * esize       # one (B, H, L, D) tensor
+    rowvec = 4.0 * b * h * n          # one (B, H, L) f32 tensor
+    for name, ms, flops, nbytes, line, grads in (
+            ("local_attention_bwd_dq", ms_dq, 6.0 * d * pairs, 5 * vec + 2 * rowvec,
+             126, ("dq",)),
+            ("local_attention_bwd_dkv", ms_dkv, 8.0 * d * pairs, 6 * vec + 2 * rowvec,
+             152, ("dk", "dv"))):
+        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "progen_tpu_torch/kernels/csrc/local_attention_bwd.cu",
+            "replaces": f"progen_tpu/ops/pallas_attention.py:{line}",
+            "launches": None,
+            "max_abs_err": max(timed_res[g]["max_abs_err"] for g in grads),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "plain_and_library_compute": "dq, dk and dv in one call",
+            "timed_shape": [b, h, n, d], "timed_dtype": str(q.dtype),
+            "bytes": nbytes, "flops": flops,
+            "max_abs_err_all_checks": max(e for g in grads for e in errs[g]),
+        })
+        emit("kernel_time", **rows[-1])
+
+    half = c.dim * c.ff_mult // 2
+    errs = {"dgate": [], "dw": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        inputs, res = sgu_bwd_case(gen, b, c.seq_len, half, dtype)
+        if dtype == torch.bfloat16:
+            timed, timed_res = inputs, res
+        ragged = sgu_bwd_case(gen, b, 1000, half, dtype)[1]
+        for name in errs:
+            errs[name] += [res[name]["max_abs_err"], ragged[name]["max_abs_err"]]
+    res, gate, dout, w = timed
+    b, n, dd_ = gate.shape
+    esize = gate.element_size()
+    tri = n * (n + 1) / 2
+    flops = 2.0 * b * dd_ * tri + 1.0 * b * n * dd_
+    dmix_flat = lambda: (dout * res).transpose(0, 1).reshape(n, b * dd_)
+    gate_flat = gate.transpose(0, 1).reshape(n, b * dd_)
+    for name, fn, plain, library, nbytes, line in (
+            ("sgu_bwd_dgate", lambda: cuda_sgu.spatial_gate_dgate(w, dout, res),
+             lambda: spatial_gate_dgate(w, dout, res),
+             lambda: torch.matmul(torch.tril(w).T, dout * res),
+             (3.0 * b * n * dd_ + tri) * esize, 150),
+            ("sgu_bwd_dw", lambda: cuda_sgu.spatial_gate_dw(dout, res, gate),
+             lambda: spatial_gate_dw(dout, res, gate),
+             lambda: torch.tril(dmix_flat() @ gate_flat.T),
+             (3.0 * b * n * dd_ + n * n) * esize, 170)):
+        key = name.split("_")[-1]
+        bound_ms, bound_by = bound(nbytes, flops, gate.dtype)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "progen_tpu_torch/kernels/csrc/sgu_bwd.cu",
+            "replaces": f"progen_tpu/ops/pallas_sgu.py:{line}",
+            "launches": None, "max_abs_err": timed_res[key]["max_abs_err"],
+            "ms": time_ms(fn), "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": time_ms(library),
+            "timed_shape": [b, n, dd_], "timed_dtype": str(gate.dtype),
+            "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs[key]),
+        })
+        emit("kernel_time", **rows[-1])
+    return rows
+
+
+def sdpa_backward_ms(q, k, v, do, wsz) -> float:
+    """One backward of ``scaled_dot_product_attention`` on the masked
+    ``[prev ‖ own]`` layout, dq, dk and dv together."""
+    b, h, n, d = q.shape
+    w = n // wsz
+    qw = q.reshape(b, h * w, wsz, d).detach().requires_grad_()
+    kw = concat_previous_window(k.reshape(b, h, w, wsz, d)).reshape(
+        b, h * w, 2 * wsz, d).detach().requires_grad_()
+    vw = concat_previous_window(v.reshape(b, h, w, wsz, d)).reshape(
+        b, h * w, 2 * wsz, d).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qw, kw, vw, attn_mask=window_mask(wsz, q.device),
+                                         scale=d ** -0.5)
+    dow = do.reshape(b, h * w, wsz, d)
+    return time_ms(lambda: torch.autograd.grad(out, (qw, kw, vw), dow,
+                                               retain_graph=True))
+
+
+# -- phase 4: the serving path ------------------------------------------------
 
 
 def plain_versions():
@@ -263,6 +468,32 @@ def plain_versions():
                                return_lse=True)
     return (mock.patch.object(cuda_attention, "local_attention_fwd", attention),
             mock.patch.object(cuda_sgu, "spatial_gate_fwd", gated_mix))
+
+
+def plain_backward_versions():
+    """Patch each backward kernel wrapper to its plain version."""
+    return (mock.patch.object(cuda_attention, "local_attention_bwd", local_attention_bwd),
+            mock.patch.object(cuda_sgu, "spatial_gate_dgate", spatial_gate_dgate),
+            mock.patch.object(cuda_sgu, "spatial_gate_dw", spatial_gate_dw))
+
+
+COUNTERS = {
+    "local_attention_fwd": (cuda_attention, "launches"),
+    "local_attention_bwd_dq": (cuda_attention, "dq_launches"),
+    "local_attention_bwd_dkv": (cuda_attention, "dkv_launches"),
+    "sgu_fwd": (cuda_sgu, "launches"),
+    "sgu_bwd_dgate": (cuda_sgu, "dgate_launches"),
+    "sgu_bwd_dw": (cuda_sgu, "dw_launches"),
+}
+
+
+def reset_counts() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict[str, int]:
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
 def serve(model) -> dict:
@@ -294,8 +525,7 @@ def serve(model) -> dict:
     answers = []
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    cuda_attention.launches = 0
-    cuda_sgu.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for text in primes:
         tokens = torch.tensor([encode_tokens(text)] * SAMPLES_PER_PRIME,
@@ -308,8 +538,7 @@ def serve(model) -> dict:
                          cuda_sgu.launches - before[1]]))
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"local_attention_fwd": cuda_attention.launches,
-                "sgu_fwd": cuda_sgu.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     for (text, seq, chunks, per_prefill), secs in zip(answers, prefill_s):
@@ -327,8 +556,9 @@ def serve(model) -> dict:
              chunks=chunks, prefill_ms=secs * 1e3,
              sample=[int(t) for t in seq[0, p:p + 16]])
     prefills = len(primes)
-    want = {"local_attention_fwd": c.depth * prefills,
-            "sgu_fwd": c.global_mlp_depth * prefills}
+    want = {name: 0 for name in COUNTERS}
+    want.update(local_attention_fwd=c.depth * prefills,
+                sgu_fwd=c.global_mlp_depth * prefills)
     require(launches == want, f"kernel launches {launches}, want {want}")
     decode_s = total_s - sum(prefill_s)
     tokens = steps[0] * SAMPLES_PER_PRIME
@@ -420,6 +650,114 @@ def check_bf16_decode_against_f32(model, reference) -> dict:
     return result
 
 
+# -- phase 5: the training path -----------------------------------------------
+
+
+def train_batches(c, batch: int, steps: int, seed: int) -> list[torch.Tensor]:
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(synthetic_uniref_batch(rng, batch, c.seq_len)).cuda()
+            for _ in range(steps)]
+
+
+def train(model) -> dict:
+    """TRAIN_STEPS optimizer steps of ``model`` on synthetic rows through
+    ``train/step.py``; the launch counts are set to 0 just before and read
+    just after."""
+    c = model.config
+    fns = make_train_functions(model.train(), make_optimizer(TRAIN_LR))
+    state = fns.init_state()
+    batches = train_batches(c, TRAIN_BATCH, TRAIN_STEPS, SEED)
+    losses, grad_norms, step_s = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = fns.train_step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        grad_norms.append(float(metrics["grad_norm"]))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
+                "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
+                "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
+    want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+    require(launches == want, f"training launches {launches}, want {want}")
+    require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
+            f"non-finite training loss or grad norm: {losses}, {grad_norms}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    step_ms = float(np.median(step_s[TRAIN_WARMUP:])) * 1e3
+    tokens = TRAIN_BATCH * c.seq_len
+    params = sum(p.numel() for p in model.parameters())
+    rate = tokens / (step_ms / 1e3)
+    return {"launches": launches, "launches_per_step": per_step,
+            "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
+            "params": params, "losses": losses, "grad_norms": grad_norms,
+            "step_ms_median": step_ms, "step_ms": [s * 1e3 for s in step_s],
+            "tokens_per_s": rate,
+            "mfu": mfu(rate, model_flops_per_token(c, params)),
+            "mfu_peak_flops": H100_PEAK_BF16_FLOPS, "peak_bytes": peak}
+
+
+def check_train_against_plain() -> dict:
+    """At f32, ProGen-small, batch 2: one train step through the kernels
+    against the same step through the plain versions (loss and every
+    gradient leaf), then each leaf's update after three steps."""
+    c = SMALL
+    batches = train_batches(c, 2, 3, SEED + 4)
+    runs = []
+    for plain in (False, True):
+        model = ProGen(c, make_policy(False), device="cuda", seed=SEED)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        fns = make_train_functions(model, make_optimizer(TRAIN_LR))
+        state = fns.init_state()
+        patches = (*plain_versions(), *plain_backward_versions()) if plain else ()
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            losses, grads = [], None
+            for batch in batches:
+                state, metrics = fns.train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+                if grads is None:
+                    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        updates = {n: p.detach() - p0[n] for n, p in model.named_parameters()}
+        runs.append((losses, grads, updates))
+        del model, state, fns, p0
+    (losses, grads, updates), (want_losses, want_grads, want_updates) = runs
+
+    grad_err = {}
+    for name, g in grads.items():
+        scale = float(want_grads[name].abs().max())
+        grad_err[name] = float((g - want_grads[name]).abs().max()) / max(scale, 1e-30)
+    update_err, update_max = {}, 0.0
+    for name, u in updates.items():
+        diff = u - want_updates[name]
+        rms = float(want_updates[name].pow(2).mean().sqrt())
+        update_err[name] = float(diff.pow(2).mean().sqrt()) / max(rms, 1e-30)
+        update_max = max(update_max, float(diff.abs().max()))
+    loss_err = abs(losses[0] - want_losses[0]) / abs(want_losses[0])
+    worst_grad = max(grad_err, key=grad_err.get)
+    worst_update = max(update_err, key=update_err.get)
+    result = {"dtype": "torch.float32", "batch": 2, "steps": 3,
+              "losses": losses, "plain_losses": want_losses,
+              "loss_rel_err": loss_err, "loss_tol": TOL_TRAIN_LOSS,
+              "grad_leaves": len(grad_err), "worst_grad_leaf": worst_grad,
+              "worst_grad_rel_err": grad_err[worst_grad], "grad_tol": TOL_TRAIN_GRAD,
+              "worst_update_leaf": worst_update,
+              "worst_update_rms_rel_err": update_err[worst_update],
+              "update_rms_tol": TOL_TRAIN_UPDATE_RMS,
+              "update_max_abs_err": update_max, "update_max_tol": 6 * TRAIN_LR}
+    require(loss_err <= TOL_TRAIN_LOSS and grad_err[worst_grad] <= TOL_TRAIN_GRAD
+            and update_err[worst_update] <= TOL_TRAIN_UPDATE_RMS
+            and update_max <= 6 * TRAIN_LR,
+            f"the train step through the kernels disagrees with plain: {result}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU",
@@ -439,7 +777,7 @@ def main() -> int:
     built = kernels.build()
     emit("build", seconds=time.perf_counter() - t0, per_source=built)
 
-    rows = check_kernels()
+    rows = check_kernels() + check_backward_kernels()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
     served = serve(model)
@@ -452,8 +790,17 @@ def main() -> int:
     emit("bf16_decode_vs_f32", **check_bf16_decode_against_f32(model, reference))
     del model, reference
 
+    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)
+    trained = train(model)
+    emit("train", config="small", dtype="bf16 compute, f32 params", **trained)
+    del model
+    emit("train_vs_plain", **check_train_against_plain())
+
     for row in rows:
-        row["launches"] = served["launches"][row["name"]]
+        by_path = {"serve": served["launches"][row["name"]],
+                   "train": trained["launches"][row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -83,6 +83,15 @@ def params_to_flax(state: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+def grads_to_flax(model: torch.nn.Module) -> dict:
+    """``model``'s parameter gradients as the flax tree
+    :func:`params_to_flax` makes of its parameters (an absent gradient is
+    zeros)."""
+    return params_to_flax({
+        name: p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, p in model.named_parameters()})
+
+
 def save_npz(path, model: torch.nn.Module) -> None:
     """Write ``model``'s parameters as flat flax keys in flax layout."""
     flat = _flatten(params_to_flax(model.state_dict()))

@@ -33,6 +33,7 @@
 
 #include <math.h>
 
+#include "attention_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -41,131 +42,24 @@ using namespace nvcuda;
 using progen::bf16;
 using progen::from_f;
 using progen::Pad;
+using namespace progen::attention;
 
-constexpr int BM = 64;              // query rows per block
 constexpr int BN = 64;              // keys per tile
-constexpr int WARPS = BM / 16;      // one warp per 16 query rows
-constexpr int THREADS = WARPS * 32;
 constexpr float M_INIT = -1e30f;    // finite, so exp(M_INIT - M_INIT) = 1
 
-// Shared-memory layout, in elements; every region is a multiple of 32 bytes
-// so that WMMA fragment pointers stay 256-bit aligned.
+// Shared-memory layout, in bytes from the start.
 template <typename T, int D>
-struct Layout {
-  static constexpr int LDT = D + Pad<T>::v;   // q, k, v rows (T)
-  static constexpr int LDP = BN + Pad<T>::v;  // probability rows (T)
-  static constexpr int LDS = BN + 4;          // score rows (f32)
-  static constexpr int LDO = D + 4;           // output accumulator rows (f32)
+struct Layout : Tile<T, D, BN> {
+  using L = Tile<T, D, BN>;
   static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(T) * BM * LDT;
-  static constexpr size_t v = k + sizeof(T) * BN * LDT;
-  static constexpr size_t p = v + sizeof(T) * BN * LDT;
-  static constexpr size_t s = p + sizeof(T) * BM * LDP;
-  static constexpr size_t o = s + sizeof(float) * BM * LDS;
-  static constexpr size_t l = o + sizeof(float) * BM * LDO;
+  static constexpr size_t k = q + sizeof(T) * BM * L::LDT;
+  static constexpr size_t v = k + sizeof(T) * BN * L::LDT;
+  static constexpr size_t p = v + sizeof(T) * BN * L::LDT;
+  static constexpr size_t s = p + sizeof(T) * BM * L::LDP;
+  static constexpr size_t o = s + sizeof(float) * BM * L::LDS;
+  static constexpr size_t l = o + sizeof(float) * BM * L::LDO;
   static constexpr size_t bytes = l + sizeof(float) * BM;
 };
-
-// Copy rows [r0, r0 + 64) of a (rows, D) matrix into shared memory with
-// 16-byte vectors; rows outside [0, rows) are zeros.
-template <typename T, int D>
-__device__ void load_rows(T* dst, const T* src, int r0, int rows) {
-  constexpr int LDT = Layout<T, D>::LDT;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += THREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VEC;
-    const int g = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (g >= 0 && g < rows) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(g) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
-  }
-}
-
-// S[16 rows of this warp][64 keys] = Q_rows . K_tile^T (unscaled, f32).
-template <int D>
-__device__ void warp_scores(const bf16* qs, const bf16* ks, float* ss, int warp) {
-  using L = Layout<bf16, D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, qs + warp * 16 * L::LDT + kk, L::LDT);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, ks + j * 16 * L::LDT + kk, L::LDT);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
-    wmma::store_matrix_sync(ss + warp * 16 * L::LDS + j * 16, acc[j], L::LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ void warp_scores(const float* qs, const float* ks, float* ss, int warp) {
-  using L = Layout<float, D>;
-  const int lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1);
-  const int h = lane & 1;  // this lane's keys: h, h + 2, h + 4, ...
-  float acc[BN / 2];
-#pragma unroll
-  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    const float qv = qs[r * L::LDT + d];
-#pragma unroll
-    for (int j = 0; j < BN / 2; ++j) acc[j] += qv * ks[(h + 2 * j) * L::LDT + d];
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 2; ++j) ss[r * L::LDS + h + 2 * j] = acc[j];
-}
-
-// O[16 rows of this warp][D] += P_rows . V_tile.
-template <int D>
-__device__ void warp_accumulate(const bf16* ps, const bf16* vs, float* os, int warp) {
-  using L = Layout<bf16, D>;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    float* out = os + warp * 16 * L::LDO + j * 16;
-    wmma::load_matrix_sync(acc, out, L::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BN; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, ps + warp * 16 * L::LDP + kk, L::LDP);
-      wmma::load_matrix_sync(b, vs + kk * L::LDT + j * 16, L::LDT);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(out, acc, L::LDO, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ void warp_accumulate(const float* ps, const float* vs, float* os, int warp) {
-  using L = Layout<float, D>;
-  const int lane = threadIdx.x & 31;
-  const int r = warp * 16 + (lane >> 1);
-  const int h = lane & 1;  // this lane's columns: h, h + 2, h + 4, ...
-  float acc[D / 2];
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = os[r * L::LDO + h + 2 * j];
-  for (int c = 0; c < BN; ++c) {
-    const float pv = ps[r * L::LDP + c];
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] += pv * vs[c * L::LDT + h + 2 * j];
-  }
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) os[r * L::LDO + h + 2 * j] = acc[j];
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -187,7 +81,7 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BM;
   const size_t base = static_cast<size_t>(blockIdx.y) * seq * D;
 
-  load_rows<T, D>(qs, q + base, q0, seq);
+  load_rows<T, D, BM>(qs, q + base, q0, seq);
   for (int idx = threadIdx.x; idx < BM * L::LDO; idx += THREADS) os[idx] = 0.0f;
 
   // this lane's query row and its visible keys, in extended coordinates
@@ -205,11 +99,11 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_last = min(q0 + BM, seq) - 1 + wsz;
   for (int kt = k_first; kt <= k_last; kt += BN) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_rows<T, D>(ks, k + base, kt - wsz, seq);
-    load_rows<T, D>(vs, v + base, kt - wsz, seq);
+    load_rows<T, D, BN>(ks, k + base, kt - wsz, seq);
+    load_rows<T, D, BN>(vs, v + base, kt - wsz, seq);
     __syncthreads();
 
-    warp_scores<D>(qs, ks, ss, warp);
+    warp_dot_t<D, BN>(qs, ks, ss, warp);
     __syncwarp();
 
     float tile_max = -INFINITY;
@@ -239,7 +133,7 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < D / 2; ++j) os[r * L::LDO + h + 2 * j] *= alpha;
     __syncwarp();
 
-    warp_accumulate<D>(ps, vs, os, warp);
+    warp_accumulate<D, BN>(ps, vs, os, warp);
   }
 
   __syncwarp();

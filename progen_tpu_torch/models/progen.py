@@ -9,8 +9,9 @@ of both blocks; rotary on q, k AND v; GEGLU feed-forward with the tanh GELU
 ``global_mlp_depth`` layers; bare residual adds; logits cast to the output
 dtype.
 
-The sequence mixing goes through the kernel wrappers, ``ops/cuda_attention``
-and ``ops/cuda_sgu``: on the card the hand-written CUDA kernels, on the CPU
+The sequence mixing goes through the kernels' autograd functions,
+``ops/cuda_attention.local_attention`` and ``ops/cuda_sgu.gated_mix``: on
+the card the hand-written CUDA kernels, forward and backward, on the CPU
 their plain versions.  Where the flax model ``sow``s decode caches, this one
 fills the ``cache`` dict that ``forward(..., return_cache=True)`` returns,
 keyed like flax's ``"cache"`` collection (without its one-element tuples).
@@ -136,8 +137,7 @@ class LocalAttention(nn.Module):
         if cache is not None:
             cache["k"] = k  # post-rotary k/v: what the decode rings hold
             cache["v"] = v
-        out, _ = cuda_attention.local_attention_fwd(
-            q, k, v, self.window_size, d ** -0.5)
+        out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
         out = out.transpose(1, 2).reshape(b, n, h * d)
         return self.to_out(out)
 
@@ -169,7 +169,7 @@ class SGU(nn.Module):
         cd = self.compute_dtype
         w = self.spatial_weights[:n, :n].to(cd).contiguous()
         b = self.spatial_biases[:n].to(cd).contiguous()
-        x = cuda_sgu.spatial_gate_fwd(res.contiguous(), gate.contiguous(), w, b)
+        x = cuda_sgu.gated_mix(res.contiguous(), gate.contiguous(), w, b)
         return self.proj_out(x)
 
 

@@ -1,11 +1,20 @@
-"""Windowed local attention forward: the hand-written CUDA kernel and its
-wrapper (the port of ``progen_tpu/ops/pallas_attention.py:_fwd_kernel``).
+"""Windowed local attention: the hand-written CUDA kernels, their wrappers
+and the autograd function the model calls (the port of
+``progen_tpu/ops/pallas_attention.py``: ``_fwd_kernel``, ``_dq_kernel`` and
+``_dkv_kernel``).
 
-``local_attention_fwd`` takes a CPU tensor through the plain version
-(``ops/local_attention.py``) and a CUDA tensor through the kernel
-(``kernels/csrc/local_attention_fwd.cu``), which it builds at first use.
-On a CUDA tensor it launches the kernel or raises; it never falls back.
-``launches`` counts the kernel's launches and nothing else.
+``local_attention_fwd`` and ``local_attention_bwd`` take a CPU tensor
+through the plain versions (``ops/local_attention.py``) and a CUDA tensor
+through the kernels (``kernels/csrc/local_attention_fwd.cu`` and
+``local_attention_bwd.cu``; ``local_attention_bwd_dq`` and
+``local_attention_bwd_dkv`` launch one backward kernel each), which they
+build at first use.  On a CUDA tensor they launch the kernels or raise;
+they never fall back.  ``launches``, ``dq_launches`` and ``dkv_launches``
+count the launches of K1-fwd, K1-dq and K1-dkv, and nothing else.
+
+:func:`local_attention` is what the model calls: K1-fwd once, and under
+autograd K1-dq and K1-dkv in the backward, from the saved q, k, v, out and
+the forward's lse.
 """
 
 from __future__ import annotations
@@ -15,28 +24,31 @@ import ctypes
 import torch
 
 from progen_tpu_torch import kernels
-from progen_tpu_torch.ops.local_attention import local_attention
+from progen_tpu_torch.ops.local_attention import local_attention as plain_fwd
+from progen_tpu_torch.ops.local_attention import local_attention_bwd as plain_bwd
 
 KERNEL = "local_attention_fwd"
+BWD = "local_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DIM_HEADS = (32, 64, 128)
 
 launches = 0
-_fn = None
+dq_launches = 0
+dkv_launches = 0
+_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = getattr(kernels.load(KERNEL), KERNEL)
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+def _kernel_fn(name: str, library: str, n_tensors: int):
+    if name not in _fns:
+        fn = getattr(kernels.load(library), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_tensors + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def _check(q, k, v, window_size):
+def _check(q, k, v, window_size, *more):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, L, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -44,15 +56,16 @@ def _check(q, k, v, window_size):
     if window_size <= 0 or n % window_size != 0:
         raise ValueError(f"sequence length {n} must be divisible by window "
                          f"{window_size}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the kernel takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    tensors = (q, k, v, *more)
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"the kernel takes float32 or bfloat16 tensors of one "
+                         f"dtype, got {[t.dtype for t in tensors]}")
     if d not in DIM_HEADS:
         raise ValueError(f"the kernel takes dim_head in {DIM_HEADS}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the kernel takes contiguous q, k, v")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous tensors")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("the kernel's tensors must be on one device")
 
 
 def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,13 +76,13 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return local_attention(q, k, v, window_size=window_size, scale=scale,
-                               return_lse=True)
+        return plain_fwd(q, k, v, window_size=window_size, scale=scale,
+                         return_lse=True)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window_size)
     b, h, n, d = q.shape
-    fn = _kernel_fn()
+    fn = _kernel_fn(KERNEL, KERNEL, 5)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -79,3 +92,108 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     launches += 1
     return out, lse
+
+
+def _check_rows(q, *rows):
+    """The backward kernels' per-row f32 inputs, on q's CUDA device."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the backward kernels take CUDA tensors, got {q.device}")
+    b, h, n = q.shape[:3]
+    for t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, n) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"lse and D must be contiguous float32 ({b}, {h}, {n}) "
+                             f"tensors on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
+                           scale: float | None = None) -> torch.Tensor:
+    """K1-dq on CUDA tensors: ``dq`` ``(B, H, L, D)`` in q's dtype, from the
+    forward's f32 ``lse`` and ``dd = rowsum(do * out)`` in f32, ``(B, H, L)``
+    each."""
+    global dq_launches
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    _check(q, k, v, window_size, do)
+    _check_rows(q, lse, dd)
+    fn = _kernel_fn(f"{BWD}_dq", BWD, 7)
+    b, h, n, d = q.shape
+    dq = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b * h, n, d,
+             window_size, float(scale), DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD}_dq launch failed with CUDA error {err}")
+    dq_launches += 1
+    return dq
+
+
+def local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size: int,
+                            scale: float | None = None):
+    """K1-dkv on CUDA tensors: ``(dk, dv)`` of the real keys, each
+    ``(B, H, L, D)`` in q's dtype; arguments as for
+    :func:`local_attention_bwd_dq`."""
+    global dkv_launches
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    _check(q, k, v, window_size, do)
+    _check_rows(q, lse, dd)
+    fn = _kernel_fn(f"{BWD}_dkv", BWD, 8)
+    b, h, n, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
+             n, d, window_size, float(scale), DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD}_dkv launch failed with CUDA error {err}")
+    dkv_launches += 1
+    return dk, dv
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        window_size: int, scale: float | None = None):
+    """Gradients ``(dq, dk, dv)``, each ``(B, H, L, D)`` in q's dtype, from
+    the forward's ``out`` and f32 ``lse`` and the cotangent ``do``:
+    ``D = rowsum(do * out)`` in f32 (a plain reduction, as in the TPU
+    package), then K1-dq and K1-dkv."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return plain_bwd(q, k, v, out, lse, do, window_size, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, k, v, window_size, out, do)
+    _check_rows(q, lse)
+    dd = (do.float() * out.float()).sum(-1)
+    dq = local_attention_bwd_dq(q, k, v, do, lse, dd, window_size, scale)
+    dk, dv = local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size, scale)
+    return dq, dk, dv
+
+
+class LocalAttentionFn(torch.autograd.Function):
+    """K1-fwd forward; K1-dq and K1-dkv backward from the saved q, k, v,
+    out and lse (``pallas_attention.py``'s ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window_size, scale):
+        out, lse = local_attention_fwd(q, k, v, window_size, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window_size, ctx.scale = window_size, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = local_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         ctx.window_size, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window_size: int, scale: float | None = None) -> torch.Tensor:
+    """Windowed attention over ``(B, H, L, D)`` with a backward through the
+    kernels.  Under ``torch.no_grad()`` it runs K1-fwd once and nothing
+    else."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return LocalAttentionFn.apply(q, k, v, window_size, scale)

@@ -1,9 +1,9 @@
 """Windowed causal local attention, plain PyTorch
 (ported from progen_tpu/ops/local_attention.py).
 
-This is the plain version of the windowed-attention kernel
-(``ops/cuda_attention.py``): the CPU path, and what the kernel is held
-against on the card.
+This is the plain version of the windowed-attention kernels
+(``ops/cuda_attention.py``), forward and backward: the CPU path, and what
+the kernels are held against on the card.
 
 * ``L % window_size == 0``; the sequence is cut into ``L / wsz`` windows;
 * keys/values get a ZERO window prepended, and each query window attends
@@ -61,3 +61,50 @@ def local_attention(q, k, v, *, window_size: int, scale: float | None = None,
     if return_lse:
         return out, torch.logsumexp(sim, dim=-1).reshape(b, h, n)
     return out
+
+
+def local_attention_bwd(q, k, v, out, lse, do, window_size: int,
+                        scale: float | None = None):
+    """Gradients ``(dq, dk, dv)`` of :func:`local_attention`, from the
+    forward's ``out`` and f32 ``lse`` and the output cotangent ``do``.
+
+    The flash-style backward of ``progen_tpu/ops/pallas_attention.py``:
+    ``D = rowsum(do * out)`` in f32, probabilities recomputed as
+    ``exp(s - lse)``, ``ds = p * (do . v^T - D)``; ``p`` is cast to do's
+    dtype before ``p^T . do`` and ``ds`` to k's (q's) dtype before
+    ``ds . k`` (``ds^T . q``), every product accumulates in f32, and each
+    gradient is cast once.  A key window gets its gradient from two query
+    windows, its own (causal) and the next (fully visible); the phantom
+    window's share is dropped, as ``jnp.pad``'s VJP drops it."""
+    b, h, n, d = q.shape
+    wsz = window_size
+    w = n // wsz
+    scale = d ** -0.5 if scale is None else scale
+
+    qw = q.reshape(b, h, w, wsz, d)
+    dow = do.reshape(b, h, w, wsz, d)
+    kw = concat_previous_window(k.reshape(b, h, w, wsz, d))
+    vw = concat_previous_window(v.reshape(b, h, w, wsz, d))
+    dd = (do.float() * out.float()).sum(-1).reshape(b, h, w, wsz, 1)
+
+    sim = torch.einsum("bhwid,bhwjd->bhwij", qw.float(), kw.float()) * scale
+    sim = sim.masked_fill(~window_mask(wsz, q.device), ATTN_MASK_VALUE)
+    p = torch.exp(sim - lse.reshape(b, h, w, wsz, 1))
+    dp = torch.einsum("bhwid,bhwjd->bhwij", dow.float(), vw.float())
+    ds = p * (dp - dd)
+
+    dq = torch.einsum("bhwij,bhwjd->bhwid", ds.to(k.dtype).float(),
+                      kw.float()) * scale
+    dkw = torch.einsum("bhwij,bhwid->bhwjd", ds.to(q.dtype).float(),
+                       qw.float())
+    dvw = torch.einsum("bhwij,bhwid->bhwjd", p.to(do.dtype).float(),
+                       dow.float())
+
+    def fold(t):
+        # key window m: own half of query window m + previous half of m+1
+        own, prev = t[..., wsz:, :], t[..., :wsz, :]
+        return own + F.pad(prev[:, :, 1:], (0, 0, 0, 0, 0, 1))
+
+    dk = (fold(dkw) * scale).to(k.dtype).reshape(b, h, n, d)
+    dv = fold(dvw).to(v.dtype).reshape(b, h, n, d)
+    return dq.to(q.dtype).reshape(b, h, n, d), dk, dv

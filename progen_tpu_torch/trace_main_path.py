@@ -1,16 +1,19 @@
-"""Where the serving path's time goes on the card.
+"""Where the serving and training paths' time goes on the card.
 
     python -m progen_tpu_torch.trace_main_path
 
 Runs ProGen-small (weights from seed 0, bf16 compute) through one prefill of
 a batch of 2 primes of 300 residues + BOS and 64 cached decode steps, after
-two warm-ups of both.  Each phase runs twice: once bare, timed on the host
-clock (ended by a synchronize), and once under ``torch.profiler`` with CPU
-and CUDA activity, whose device-side kernel events give the device busy
-time (their summed durations; one stream, so they do not overlap) and the
-launch count.  Prints one JSON line per phase: wall time, device busy time,
-the idle share ``1 - busy / wall`` and the kernels that took the most
-device time.  Needs a GPU.
+two warm-ups of both; then training steps at batch 8 on synthetic rows
+(f32 parameters), after two warm-up steps.  Each phase runs five times bare,
+timed on the host clock (ended by a synchronize), then five times under
+``torch.profiler`` with CPU and CUDA activity, whose device-side kernel
+events give the device busy time (their summed durations; one stream, so
+they do not overlap) and the launch count.  Prints one JSON line per phase:
+the medians and ranges of the wall time, the device busy time and the
+launches, the idle share ``1 - busy / wall``, the device time by kind (the
+port's kernels, matrix products, everything else) and the kernels that took
+the most device time.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -25,21 +28,41 @@ from torch.profiler import ProfilerActivity, profile
 
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import make_policy
+from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.decode.prefill import pad_prime_length
 from progen_tpu_torch.decode.sampler import make_chunked_sampler
 from progen_tpu_torch.models.configs import SMALL
 from progen_tpu_torch.models.progen import ProGen
+from progen_tpu_torch.train.optimizer import make_optimizer
+from progen_tpu_torch.train.step import make_train_functions
 
 PRIME_LEN = 300
 STEPS = 64
+TRAIN_BATCH = 8
+REPEATS = 5  # rounds per phase: host-clock walls vary from run to run
+# kernel-name fragments of the port's own kernels and of cuBLAS's products
+PORT_KERNELS = ("local_attention_", "sgu_")
+MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def _traced(fn, device) -> dict:
+def _kind(name: str) -> str:
+    if any(k in name for k in PORT_KERNELS):
+        return "port_kernels"
+    if any(k in name.lower() for k in MATMUL_KERNELS):
+        return "matmul"
+    return "other"
+
+
+def _wall_ms(fn, device) -> float:
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _profiled(fn, device) -> dict[str, list]:
+    """One run under the profiler: its device kernels' ``{name: [calls, us]}``."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
@@ -49,16 +72,40 @@ def _traced(fn, device) -> dict:
             entry = per_name.setdefault(e.name, [0, 0.0])
             entry[0] += 1
             entry[1] += e.time_range.elapsed_us()
-    busy_us = sum(us for _, us in per_name.values())
+    return per_name
+
+
+def _median_and_range(values) -> tuple[float, list]:
+    return float(np.median(values)), [min(values), max(values)]
+
+
+def _traced(fn, device) -> dict:
+    """``REPEATS`` bare runs on the host clock, then ``REPEATS`` runs under
+    the profiler (kept apart, so that no bare run pays for the profiler's
+    teardown): medians with their ``[min, max]`` range.  The idle share is
+    ``1 - median busy / median wall``; its range takes the walls' range.
+    The by-kind split and the top kernels come from the profiled run of
+    median device time."""
+    walls = [_wall_ms(fn, device) for _ in range(REPEATS)]
+    rounds = [_profiled(fn, device) for _ in range(REPEATS)]
+    busy = [sum(us for _, us in r.values()) / 1e3 for r in rounds]
+    out = {}
+    out["wall_ms"], out["wall_ms_range"] = _median_and_range(walls)
+    out["device_busy_ms"], out["device_busy_ms_range"] = _median_and_range(busy)
+    out["idle_share"] = 1.0 - out["device_busy_ms"] / out["wall_ms"]
+    out["idle_share_range"] = [1.0 - out["device_busy_ms"] / w for w in out["wall_ms_range"]]
+    out["device_launches"], out["device_launches_range"] = _median_and_range(
+        [sum(n for n, _ in r.values()) for r in rounds])
+    out["repeats"] = REPEATS
+    per_name = rounds[int(np.argsort(busy)[REPEATS // 2])]
+    by_kind: dict[str, float] = {}
+    for name, (_, us) in per_name.items():
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + us / 1e3
     top = sorted(per_name.items(), key=lambda kv: kv[1][1], reverse=True)
-    return {
-        "wall_ms": wall * 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "idle_share": 1.0 - busy_us / 1e6 / wall,
-        "device_launches": sum(n for n, _ in per_name.values()),
-        "top": [{"name": name[:80], "calls": n, "device_ms": us / 1e3}
-                for name, (n, us) in top[:10]],
-    }
+    out["device_ms_by_kind"] = by_kind
+    out["top"] = [{"name": name[:80], "calls": n, "device_ms": us / 1e3}
+                  for name, (n, us) in top[:10]]
+    return out
 
 
 def main() -> None:
@@ -94,6 +141,24 @@ def main() -> None:
     result["per_step_wall_ms"] = result["wall_ms"] / steps
     result["per_step_device_ms"] = result["device_busy_ms"] / steps
     print(json.dumps({"phase": "decode", **meta, "steps": steps, **result}))
+    del model, sampler, caches
+
+    model = ProGen(config, make_policy(), device=device, seed=0)
+    fns = make_train_functions(model, make_optimizer())
+    state = fns.init_state()
+    rng = np.random.default_rng(0)
+    batch = torch.from_numpy(
+        synthetic_uniref_batch(rng, TRAIN_BATCH, config.seq_len)).to(device)
+    for _ in range(2):  # warm-up
+        state, _ = fns.train_step(state, batch)
+
+    def step():
+        nonlocal state
+        state, _ = fns.train_step(state, batch)
+
+    print(json.dumps({"phase": "train_step", "config": "small", "batch": TRAIN_BATCH,
+                      "seq_len": config.seq_len, "device": meta["device"],
+                      **_traced(step, device)}))
 
 
 if __name__ == "__main__":

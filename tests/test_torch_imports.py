@@ -1,14 +1,18 @@
 """The port stands alone: no module of ``progen_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and the
-port's sampling CLI runs on the CPU when asked to."""
+port's sampling and training CLIs run on the CPU when asked to."""
 
 import ast
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
 import torch
 
 from progen_tpu_torch import sample
+from progen_tpu_torch.train import cli as train_cli
 
 torch.set_num_threads(1)
 
@@ -38,6 +42,8 @@ def test_scan_sees_the_whole_port():
     assert "chip_smoke.py" in names
     assert "progen_tpu_torch/models/progen.py" in names
     assert "progen_tpu_torch/ops/cuda_attention.py" in names
+    assert "progen_tpu_torch/train/step.py" in names
+    assert "progen_tpu_torch/train/cli.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -71,3 +77,26 @@ def test_sample_cli_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sample.main(["--config", "default", "--prime", "MKV"])
+
+
+def test_train_cli_takes_steps_on_cpu():
+    """``python -m progen_tpu_torch.train`` on the CPU: two steps of the
+    default config, one JSON line each."""
+    run = subprocess.run(
+        [sys.executable, "-m", "progen_tpu_torch.train", "--model_name", "default",
+         "--batch_size", "1", "--grad_accum_every", "1", "--max_steps", "2",
+         "--log_every", "1", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
+    records = [json.loads(line) for line in run.stdout.splitlines()]
+    assert [r["step"] for r in records] == [1, 2]
+    for r in records:
+        assert set(r) == {"step", "loss", "grad_norm", "lr", "step_ms",
+                          "tokens_per_s", "mfu"}
+        assert 0 < r["loss"] < 10 and r["grad_norm"] > 0
+        assert r["lr"] == 2e-4 and r["mfu"] is None  # no device number on the CPU
+
+
+def test_train_cli_needs_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--model_name", "default", "--max_steps", "1"])

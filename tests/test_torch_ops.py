@@ -171,8 +171,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_build(monkeypatch):
     monkeypatch.setattr(kernels, "nvcc_path", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
     monkeypatch.setattr(kernels, "_loaded", {})
-    monkeypatch.setattr(cuda_attention, "_fn", None)
-    monkeypatch.setattr(cuda_sgu, "_fn", None)
+    monkeypatch.setattr(cuda_attention, "_fns", {})
+    monkeypatch.setattr(cuda_sgu, "_fns", {})
     monkeypatch.setattr(kernels, "BUILD_DIR", kernels.BUILD_DIR / "absent")
     with FakeTensorMode():
         q = torch.empty(1, 2, 16, 32, device="cuda")
