@@ -25,8 +25,24 @@ non-zero without its last line:
    tokens/s, MFU and peak memory; then one f32 step through the kernels
    against the same step through the plain versions (loss and every
    gradient), and the parameters after three steps;
-6. the ``kernels`` line; then the card's ``nvidia-smi`` name and power limit
+6. paged gate mix: K3 and K3-q8 against their plain versions at the
+   engine's shapes (8 rows at ragged positions, partly-NULL tables, garbage
+   in the dump page and past each row's position; f32, bf16 and int8 pools,
+   int8 weights; a page size that overhangs the weight square);
+7. engine path: ProGen-small (bf16) answers 12 requests through the
+   continuous-batching ``ServingEngine`` with 8 slots, dense, paged and
+   paged with 8-bit pages, then paged again with a pool small enough to
+   force pauses and evictions; each run's launch counts (K3 or K3-q8 twice
+   per decode step, K1-fwd/K2-fwd 12/2 per admit program), pages returned,
+   prefix-cache hits, tokens/s and peak memory; 32 teacher-forced paged
+   steps through K3 and K3-q8 against the same steps through the plain
+   version; and, in f32 and greedy, the paged engine's tokens against the
+   dense engine's;
+8. the ``kernels`` line; then the card's ``nvidia-smi`` name and power limit
    and, last, ``{"ok": true, "device": {...}}``.
+
+Every earlier phase runs at the depth and the step count it always had;
+the whole takes about four minutes on an H100, the build included.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -35,6 +51,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -49,6 +66,8 @@ from progen_tpu_torch import kernels
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.data.tokenizer import encode_tokens
+from progen_tpu_torch.decode import incremental
+from progen_tpu_torch.decode.engine import Request, ServingEngine
 from progen_tpu_torch.decode.prefill import pad_prime_length
 from progen_tpu_torch.decode.sampler import (
     make_chunked_sampler,
@@ -56,7 +75,8 @@ from progen_tpu_torch.decode.sampler import (
 )
 from progen_tpu_torch.models.configs import SMALL
 from progen_tpu_torch.models.progen import ProGen
-from progen_tpu_torch.ops import cuda_attention, cuda_sgu
+from progen_tpu_torch.ops import cuda_attention, cuda_paged_gate_mix, cuda_sgu
+from progen_tpu_torch.ops import paged_gate_mix as plain_paged
 from progen_tpu_torch.observe.flops import H100_PEAK_BF16_FLOPS, mfu, model_flops_per_token
 from progen_tpu_torch.ops.local_attention import (
     concat_previous_window,
@@ -64,6 +84,7 @@ from progen_tpu_torch.ops.local_attention import (
     local_attention_bwd,
     window_mask,
 )
+from progen_tpu_torch.ops.quant import quantize_rows, quantize_w
 from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.step import make_train_functions
@@ -113,6 +134,20 @@ TRAIN_LR = 2e-4
 # How much farther from the f32 answer the bf16 decode may be than the bf16
 # parallel forward (two paths with equal bf16 rounding sit at a ratio ~1).
 DECODE_VS_FORWARD_RATIO = 1.5
+# The paged gate mix and its plain version multiply the same f32 values (a
+# bf16 or int8 operand widens exactly) and differ only in the order of up to
+# 1024 additions: every case, whatever the pool's and the weights' types, is
+# held at 1e-5 * (1 + |plain|), the JAX package's bar for its own kernel
+# (tests/test_paged.py); 3.1e-6 measured on an H100, on outputs up to 6.5.
+TOL_PAGED = 1e-5
+PAGED_POS = (0, 15, 16, 300, 511, 777, 1022, 1023)
+ENGINE_SLOTS = 8
+ENGINE_CHUNK = 32
+ENGINE_PAGE = 16
+ENGINE_REQUESTS = 12
+ENGINE_TIGHT_PAGES = 2 + 96    # pool pages of the tight run, 2 reserved
+ENGINE_TOKEN_MATCH = 0.98      # the JAX package's accuracy gate (bench_serving.py)
+SPIN_CYCLES = 40_000_000       # ~20 ms of device spin ahead of a timed run
 SEED = 0
 PRIME_LENGTHS = (37, 200, 300, 511)
 SAMPLES_PER_PRIME = 2
@@ -131,12 +166,16 @@ def smi_name_power() -> str:
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after warm-up."""
+    """Mean CUDA-event time of ``fn`` over ``iters`` calls, after warm-up.
+    The stream first spins for ~20 ms, so the host has every call enqueued
+    before the first one starts: a kernel that runs shorter than the host
+    takes to launch it would otherwise be timed at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -484,6 +523,8 @@ COUNTERS = {
     "sgu_fwd": (cuda_sgu, "launches"),
     "sgu_bwd_dgate": (cuda_sgu, "dgate_launches"),
     "sgu_bwd_dw": (cuda_sgu, "dw_launches"),
+    "paged_gate_mix": (cuda_paged_gate_mix, "launches"),
+    "paged_gate_mix_q8": (cuda_paged_gate_mix, "q8_launches"),
 }
 
 
@@ -684,7 +725,7 @@ def train(model) -> dict:
     per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
                 "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
                 "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
-    want = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+    want = {name: per_step.get(name, 0) * TRAIN_STEPS for name in COUNTERS}
     require(launches == want, f"training launches {launches}, want {want}")
     require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
             f"non-finite training loss or grad norm: {losses}, {grad_norms}")
@@ -757,6 +798,313 @@ def check_train_against_plain() -> dict:
             f"the train step through the kernels disagrees with plain: {result}")
     return result
 
+# -- phase 6: the paged gate mix against its plain version --------------------
+
+
+def paged_case(gen, n, d, ps, pos, pool_dtype) -> dict:
+    """A pool of random rows (garbage in the dump page and in every row past
+    a request's position; page 0 zeros), tables that name random pages up to
+    each row's last page and NULL beyond, and the int8 twins of the weights
+    (per row) and of the pool (per pool row)."""
+    batch = len(pos)
+    ppr = -(-n // ps)
+    num_pages = 2 + batch * ppr
+    pool = torch.randn(num_pages, ps, d, device="cuda", generator=gen)
+    pool[0] = 0.0
+    perm = (torch.randperm(num_pages - 2, device="cuda", generator=gen) + 2).int()
+    table = torch.zeros(batch, ppr, dtype=torch.int32, device="cuda")
+    for b, p in enumerate(pos):
+        used = p // ps + 1
+        table[b, :used] = perm[b * ppr: b * ppr + used]
+    w = torch.randn(n, n, device="cuda", generator=gen) * 0.05
+    bias = torch.randn(n, 1, device="cuda", generator=gen)
+    wq, ws = quantize_w(w, channel_axis=0)
+    pq, pscale = quantize_rows(pool)
+    return {"w": w, "bias": bias, "pool": pool.to(pool_dtype), "table": table,
+            "pos": torch.tensor(pos, dtype=torch.int32, device="cuda"),
+            "wq": wq, "ws": ws, "pq": pq, "pscale": pscale, "n": n, "d": d,
+            "ps": ps, "rows_read": sum(p + 1 for p in pos)}
+
+
+PAGED_VARIANTS = {
+    # name -> (weights, pool, w_scale, pool_scale) keys of a paged case
+    "f32_w": ("w", "pool", None, None),
+    "int8_w_int8_pool": ("wq", "pq", "ws", "pscale"),
+    "int8_w_bf16_pool": ("wq", "pool", "ws", None),
+    "f32_w_int8_pool": ("w", "pq", None, "pscale"),
+}
+
+
+def paged_args(case: dict, variant: str):
+    w, pool, ws, pscale = PAGED_VARIANTS[variant]
+    return ((case[w], case["bias"], case[pool], case["table"], case["pos"]),
+            {"n_rows": case["n"], "w_scale": case[ws] if ws else None,
+             "pool_scale": case[pscale] if pscale else None})
+
+
+def paged_check(case: dict, variant: str, kernel: str) -> float:
+    args, kwargs = paged_args(case, variant)
+    got = cuda_paged_gate_mix.paged_gate_mix(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = plain_paged.paged_gate_mix(*args, **kwargs)
+    diff = (got - want).abs()
+    ok = bool((diff <= TOL_PAGED * (1 + want.abs())).all())
+    fields = {"variant": variant, "pool_dtype": str(args[2].dtype),
+              "shape": {"B": len(case["pos"]), "n": case["n"], "d": case["d"],
+                        "page_size": case["ps"]},
+              "max_abs_err": float(diff.max()), "max_abs_out": float(want.abs().max()),
+              "tol": TOL_PAGED, "ok": ok}
+    emit("kernel_check", kernel=kernel, **fields)
+    require(bool(torch.isfinite(got).all()) and ok,
+            f"{kernel} disagrees with its plain version: {fields}")
+    return fields["max_abs_err"]
+
+
+def paged_row(name: str, line: int, case: dict, variant: str, errs: list) -> dict:
+    """Times of one variant of the paged gate mix at the engine's shapes,
+    beside its bytes bound: the pool rows, weights and scales that THIS
+    run's positions make it read, each once, plus the table, the positions,
+    the bias entries and the f32 output."""
+    args, kwargs = paged_args(case, variant)
+    w, bias, pool, table, pos = args
+    batch, d, n, rows = len(case["pos"]), case["d"], case["n"], case["rows_read"]
+    nbytes = (rows * d * pool.element_size() + rows * w.element_size()
+              + table.numel() * 4 + batch * 4 + batch * 4 + batch * d * 4)
+    if kwargs["pool_scale"] is not None:
+        nbytes += rows * 4
+    if kwargs["w_scale"] is not None:
+        nbytes += batch * 4
+    flops = 2.0 * rows * d
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # f32 FMAs
+
+    def library():
+        # gather the rows, then one batched product
+        dt = torch.float32 if pool.dtype == torch.int8 else pool.dtype
+        rows_ = pool[table.long()].reshape(batch, -1, d)[:, :n].to(dt)
+        if kwargs["pool_scale"] is not None:
+            rows_ = rows_ * kwargs["pool_scale"][table.long()].reshape(batch, -1)[:, :n, None]
+        w_rows = w[pos.long()].float()
+        if kwargs["w_scale"] is not None:
+            w_rows = w_rows * kwargs["w_scale"][pos.long()][:, None]
+        w_rows = w_rows * (torch.arange(n, device="cuda")[None, :] <= pos[:, None])
+        return torch.bmm(w_rows[:, None, :].to(dt), rows_)[:, 0].float() + bias[pos.long()]
+
+    ms = time_ms(lambda: cuda_paged_gate_mix.paged_gate_mix(*args, **kwargs))
+    row = {
+        "name": name, "route": "cuda",
+        "source": "progen_tpu_torch/kernels/csrc/paged_gate_mix.cu",
+        "replaces": f"progen_tpu/ops/pallas_paged_attention.py:{line}",
+        "launches": None, "max_abs_err": errs[0], "ms": ms,
+        "plain_ms": time_ms(lambda: plain_paged.paged_gate_mix(*args, **kwargs)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library),
+        "library": "gather + torch.bmm",
+        "timed_shape": {"B": batch, "n": n, "d": d, "page_size": case["ps"],
+                        "pos": list(case["pos"].tolist())},
+        "timed_dtype": f"weights {w.dtype}, pool {pool.dtype}",
+        "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
+    }
+    emit("kernel_time", **row)
+    return row
+
+
+def check_paged_kernels() -> list[dict]:
+    """K3 and K3-q8 against the plain paged gate mix at the engine's shapes
+    (ProGen-small: n = seq_len, d = hidden / 2, page 16, 8 rows at ragged
+    positions) and at page 24 with n = 1000 (the pages overhang the weight
+    square); timed at the engine's shapes with a bf16 pool (K3) and with
+    int8 weights and an int8 pool (K3-q8)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    c = SMALL
+    half = c.dim * c.ff_mult // 2
+    ragged = (0, 23, 24, 300, 511, 777, 998, 999)
+    cases = {dt: paged_case(gen, c.seq_len, half, ENGINE_PAGE, PAGED_POS, dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    overhang = {dt: paged_case(gen, 1000, half, 24, ragged, dt)
+                for dt in (torch.bfloat16, torch.float32)}
+    k3 = [paged_check(case, "f32_w", "paged_gate_mix")
+          for case in (cases[torch.bfloat16], cases[torch.float32],
+                       overhang[torch.bfloat16], overhang[torch.float32])]
+    q8 = [paged_check(case, variant, "paged_gate_mix_q8")
+          for variant in ("int8_w_int8_pool", "int8_w_bf16_pool", "f32_w_int8_pool")
+          for case in (cases[torch.bfloat16], overhang[torch.bfloat16])]
+    return [paged_row("paged_gate_mix", 54, cases[torch.bfloat16], "f32_w", k3),
+            paged_row("paged_gate_mix_q8", 81, cases[torch.bfloat16],
+                      "int8_w_int8_pool", q8)]
+
+
+# -- phase 7: the engine path -------------------------------------------------
+
+
+def engine_requests(c, greedy: bool = False) -> list[dict]:
+    """12 requests from the seed: prime lengths 37-511, ``max_new_tokens``
+    64-192, half greedy and half top-k 25 at temperature 1, each its own
+    seed.  Requests 8 and 9 share their first 256 residues with requests 0
+    and 1 (one long-prime pair each side of the first admission), so the
+    paged engine's prefix cache has something to find."""
+    rng = np.random.default_rng(SEED + 6)
+    out = []
+    for i in range(ENGINE_REQUESTS):
+        n = int(rng.integers(257, 512)) if i in (0, 1, 8, 9) else int(rng.integers(37, 512))
+        tokens = [0] + encode_tokens("".join(rng.choice(list(AMINO), size=n - 1)))
+        out.append({"uid": i, "tokens": tokens,
+                    "max_new_tokens": int(rng.integers(64, 193)),
+                    "top_k": None if i % 2 == 0 else 25,
+                    "temperature": 0.0 if (greedy or i % 2 == 0) else 1.0,
+                    "seed": 1000 + i})
+    for late, early in ((8, 0), (9, 1)):
+        out[late]["tokens"][:256] = out[early]["tokens"][:256]
+    return out
+
+
+def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
+    """Answer ``requests`` through a ``ServingEngine`` over ``model``; the
+    launch counts are set to 0 just before and read just after.  Checks what
+    every engine run must show; returns (tokens by uid, launches, engine)."""
+    c = model.config
+    engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                           max_len=c.seq_len, page_size=ENGINE_PAGE, **engine_kwargs)
+    admits = [0]
+    admit = engine._admit
+
+    def counted_admit(*args):
+        admits[0] += 1
+        return admit(*args)
+
+    engine._admit = counted_admit
+    gc.collect()  # an engine holds bound methods of itself: free the last one's state
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in requests:
+        engine.submit(Request(**r))
+    done = engine.run_until_idle(max_chunks=400)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    require(sorted(comp.uid for comp in done) == list(range(len(requests))),
+            f"{phase}: not every request was answered exactly once")
+    require(all(comp.status == "ok" for comp in done),
+            f"{phase}: statuses {[comp.status for comp in done]}")
+    by_uid = {comp.uid: comp for comp in done}
+    for r in requests:
+        toks = by_uid[r["uid"]].tokens
+        require(1 <= len(toks) <= r["max_new_tokens"]
+                and bool(((toks >= 0) & (toks < c.num_tokens)).all()),
+                f"{phase}: request {r['uid']} got {len(toks)} tokens")
+    steps = engine.chunks_run * ENGINE_CHUNK
+    paged = engine_kwargs.get("paged", False)
+    q8 = engine_kwargs.get("quantize") == "weights+pages"
+    want = {name: 0 for name in COUNTERS}
+    want.update(local_attention_fwd=c.depth * admits[0],
+                sgu_fwd=c.global_mlp_depth * admits[0])
+    if paged:
+        want["paged_gate_mix_q8" if q8 else "paged_gate_mix"] = c.global_mlp_depth * steps
+    require(launches == want, f"{phase}: kernel launches {launches}, want {want}")
+    generated = sum(len(comp.tokens) for comp in done)
+    fields = {"config": "small", "dtype": str(model.policy.compute_dtype),
+              "requests": len(requests), "slots": ENGINE_SLOTS, "chunk": ENGINE_CHUNK,
+              "launches": launches, "admit_programs": admits[0],
+              "chunks_run": engine.chunks_run, "decode_steps": steps,
+              "generated_tokens": generated, "total_s": total_s,
+              "tokens_per_s": generated / total_s,
+              "stage_seconds": dict(engine.stage_seconds),
+              "finish_reasons": sorted(comp.finish_reason for comp in done),
+              "latency_s_median": float(np.median([comp.latency for comp in done])),
+              "peak_bytes": peak, **{k: v for k, v in engine_kwargs.items()}}
+    if paged:
+        cache = engine.cache_status()
+        require(cache["free_pages"] + cache["cached_pages"] == cache["capacity"],
+                f"{phase}: pages were not all returned: {cache}")
+        fields.update(cache=cache, pause_events=engine.pause_events,
+                      evictions=engine.evictions)
+    require(engine.robustness_counters()["fallback_activations"] == 0,
+            f"{phase}: a fallback was activated")
+    emit(phase, **fields)
+    return {u: comp.tokens.tolist() for u, comp in by_uid.items()}, launches, engine
+
+
+def token_match(got: dict, want: dict) -> float:
+    """Share of ``want``'s tokens that ``got`` has at the same place."""
+    same = sum(a == b for u in want for a, b in zip(got[u], want[u]))
+    return same / sum(len(v) for v in want.values())
+
+
+def check_engine_steps_against_plain(model, quantize) -> dict:
+    """From one admitted state of the paged engine, 32 teacher-forced decode
+    steps through the paged kernel against the same steps with the mix
+    swapped for its plain version: every step's logits."""
+    c = model.config
+    engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                           max_len=c.seq_len, paged=True, page_size=ENGINE_PAGE,
+                           quantize=quantize)
+    for r in engine_requests(c)[:ENGINE_SLOTS]:
+        engine.submit(Request(**r))
+    engine._admit_pending()
+    engine._ensure_chunk_pages()
+    require(not engine._paused.any(), "the full pool paused a slot")
+    table = torch.as_tensor(engine._page_table, device="cuda")
+    live = torch.ones(ENGINE_SLOTS, dtype=torch.bool, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    forced = torch.tensor(rng.integers(1, c.num_tokens, size=(ENGINE_CHUNK, ENGINE_SLOTS)),
+                          device="cuda")
+    runs = []
+    for plain in (False, True):
+        st = engine._working_copy(engine.state)
+        patch = (mock.patch.object(incremental, "paged_gate_mix",
+                                   plain_paged.paged_gate_mix)
+                 if plain else contextlib.nullcontext())
+        reset_counts()
+        with patch:
+            logits = [engine._step_model(forced[j], st["pos"] + j, st["caches"],
+                                         table, live)[0] for j in range(ENGINE_CHUNK)]
+        counts = read_counts()
+        key = "paged_gate_mix_q8" if quantize else "paged_gate_mix"
+        require(counts[key] == (0 if plain else c.global_mlp_depth * ENGINE_CHUNK),
+                f"engine_vs_plain launched {counts}")
+        runs.append(torch.stack(logits))
+    got, want = runs
+    dtype = model.policy.compute_dtype
+    result = compare(got, want, TOL_MODEL[dtype])
+    result.update(dtype=str(dtype), quantize=quantize, steps=ENGINE_CHUNK,
+                  rows=ENGINE_SLOTS, max_abs_logit=float(want.abs().max()),
+                  positions=[int(p) for p in engine.state["pos"]])
+    require(bool(torch.isfinite(got).all()), "non-finite engine logits")
+    require(result["ok"], f"paged steps through the kernel disagree with plain: {result}")
+    return result
+
+
+def check_paged_engine_against_dense(reference) -> dict:
+    """In f32 and greedy, the 12 requests through the paged engine (K3)
+    against the dense engine: the only difference is K3's summation order.
+    Reports the share of equal tokens and, at the first difference, the
+    margin between the two best logits there."""
+    c = reference.config
+    requests = engine_requests(c, greedy=True)
+    dense, _, _ = run_engine("engine_dense_f32", reference, requests)
+    paged, _, _ = run_engine("engine_paged_f32", reference, requests, paged=True)
+    share = token_match(paged, dense)
+    result = {"dtype": "torch.float32", "token_match": share,
+              "min_token_match": ENGINE_TOKEN_MATCH, "first_difference": None}
+    for r in requests:
+        a, b = paged[r["uid"]], dense[r["uid"]]
+        at = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if at is None:
+            continue
+        prefix = r["tokens"] + b[:at]
+        p_pad = pad_prime_length(len(prefix), c.window_size, c.seq_len)
+        tokens = torch.tensor([prefix + [0] * (p_pad - len(prefix))], device="cuda")
+        with torch.no_grad():
+            top = reference(tokens)[0, len(prefix) - 1].float().topk(2).values
+        result["first_difference"] = {
+            "uid": r["uid"], "generated_index": at, "paged": a[at], "dense": b[at],
+            "top2_logit_margin": float(top[0] - top[1])}
+        break
+    require(share >= ENGINE_TOKEN_MATCH, f"paged engine vs dense engine: {result}")
+    return result
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -777,7 +1125,7 @@ def main() -> int:
     built = kernels.build()
     emit("build", seconds=time.perf_counter() - t0, per_source=built)
 
-    rows = check_kernels() + check_backward_kernels()
+    rows = check_kernels() + check_backward_kernels() + check_paged_kernels()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
     served = serve(model)
@@ -788,7 +1136,31 @@ def main() -> int:
     emit("prefill_vs_plain", **check_prefill_against_plain(reference))
     emit("decode_vs_forward", **check_decode_against_forward(reference))
     emit("bf16_decode_vs_f32", **check_bf16_decode_against_f32(model, reference))
+
+    requests = engine_requests(SMALL)
+    engine_launches = {}
+    _, engine_launches["engine_dense"], _ = run_engine("engine_dense", model, requests)
+    full, engine_launches["engine_paged"], engine = run_engine(
+        "engine_paged", model, requests, paged=True)
+    require(engine.prefix_hits > 0, "the prefix cache found nothing to share")
+    _, engine_launches["engine_paged_q8"], engine = run_engine(
+        "engine_paged_q8", model, requests, paged=True, quantize="weights+pages")
+    require(engine.prefix_hits > 0, "the prefix cache found nothing to share (q8)")
+    tight, engine_launches["engine_tight_pool"], engine = run_engine(
+        "engine_tight_pool", model, requests, paged=True, num_pages=ENGINE_TIGHT_PAGES)
+    require(engine.pause_events > 0 and engine.evictions > 0,
+            f"the tight pool did not pause and evict: {engine.pause_events} pauses, "
+            f"{engine.evictions} evictions")
+    share = token_match(tight, full)
+    emit("engine_tight_vs_full", token_match=share, min_token_match=ENGINE_TOKEN_MATCH)
+    require(share >= ENGINE_TOKEN_MATCH, "pauses and evictions changed the tokens")
+    del engine
+    emit("engine_vs_plain", **check_engine_steps_against_plain(model, None))
+    emit("engine_vs_plain", **check_engine_steps_against_plain(model, "weights+pages"))
+    emit("engine_vs_plain", **check_engine_steps_against_plain(reference, None))
+    emit("engine_paged_vs_dense", **check_paged_engine_against_dense(reference))
     del model, reference
+    gc.collect()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)
     trained = train(model)
@@ -798,7 +1170,9 @@ def main() -> int:
 
     for row in rows:
         by_path = {"serve": served["launches"][row["name"]],
-                   "train": trained["launches"][row["name"]]}
+                   "train": trained["launches"][row["name"]],
+                   **{phase: counts[row["name"]]
+                      for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,6 +10,11 @@ spatial_weights, spatial_biases, proj_out/...}}``, ``norm_out/scale``,
 ``(in, out)``, ``nn.Linear`` weights ``(out, in)``) and ``embedding``
 becomes ``weight``.  Everything else keeps its name and layout.
 
+A QUANTIZED tree (``{"params": int8 leaves, "qscale": scales}``, what
+``ops/quant.py:quantize_params`` returns on either side) maps the same way
+onto a ``ProGen(weights="int8")`` state dict: ``kernel_scale`` becomes
+``weight_scale`` and ``spatial_weights_scale`` keeps its name.
+
 ``save_npz``/``load_npz`` store the flat flax keys (``"attn0/to_qkv/kernel"``)
 in flax layout with numpy alone, so either framework can write the file.
 """
@@ -44,6 +49,8 @@ def _torch_name(path: tuple) -> tuple[str, bool]:
     leaf = path[-1]
     if leaf == "kernel":
         return ".".join(parts + ["weight"]), True
+    if leaf == "kernel_scale":
+        return ".".join(parts + ["weight_scale"]), False
     if leaf == "embedding":
         return ".".join(parts + ["weight"]), False
     return ".".join(parts + [leaf]), False
@@ -51,11 +58,14 @@ def _torch_name(path: tuple) -> tuple[str, bool]:
 
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """The flax parameter tree (with or without its ``"params"`` level) as a
-    ``ProGen`` state dict of f32-or-param-dtype CPU tensors."""
+    ``ProGen`` state dict of CPU tensors in the leaves' own dtypes.  With a
+    ``"qscale"`` level beside ``"params"`` (a quantized tree) the scales
+    join the state dict of a ``ProGen(weights="int8")``."""
+    scales = tree.get("qscale", {}) if "params" in tree else {}
     if "params" in tree and isinstance(tree["params"], dict):
         tree = tree["params"]
     state = {}
-    for path, value in _flatten(tree).items():
+    for path, value in {**_flatten(tree), **_flatten(scales)}.items():
         name, transpose = _torch_name(path)
         value = np.ascontiguousarray(value.T if transpose else value)
         state[name] = torch.from_numpy(value.copy())

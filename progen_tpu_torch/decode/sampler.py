@@ -3,10 +3,13 @@
 
 Top-k Gumbel-max sampling in f32 (greedy at ``temperature=0``), masked
 entries ``-inf``; truncation after the second zero (position 0's BOS/pad
-counts as the first).  The Gumbel noise comes from an explicit
-``torch.Generator``: it is NOT the JAX key chain, so sampled tokens match
-the JAX package only where the noise is handed over (``noise=``) or the
-decode is greedy.
+counts as the first).  ``ChunkedSampler`` draws its Gumbel noise from an
+explicit ``torch.Generator``: that is NOT the JAX key chain, so its sampled
+tokens match the JAX package only where the noise is handed over
+(``noise=``) or the decode is greedy.  The serving engine's per-row
+sampling (:func:`gumbel_topk_sample_batched`, :func:`split_keys_batched`)
+runs on the JAX key chain itself (``decode/rng.py``) and gives JAX's
+tokens.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from progen_tpu_torch.decode import rng
 from progen_tpu_torch.decode.incremental import ProGenDecodeStep, init_caches
 from progen_tpu_torch.decode.prefill import make_prefiller, pad_prime_length
 from progen_tpu_torch.models.progen import ProGen
@@ -58,6 +62,41 @@ def gumbel_topk_sample(logits: torch.Tensor, top_k: int | None,
     if noise is None:
         noise = gumbel_noise(logits.shape, generator, logits.device)
     return torch.argmax(logits + noise.float(), dim=-1)
+
+
+def gumbel_topk_sample_batched(keys: torch.Tensor, logits: torch.Tensor,
+                               top_k: torch.Tensor, temperature: torch.Tensor,
+                               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-row sampling for the serving engine: each row has its own key,
+    top-k and temperature.
+
+    ``keys``: ``(B, 2)`` raw key data (``decode/rng.py``); ``logits``:
+    ``(B, V)``; ``top_k``: ``(B,)`` int, ``0`` disables top-k for that row;
+    ``temperature``: ``(B,)`` f32, ``0.0`` means greedy for that row.  All
+    in f32 (bf16 logits under a tiny temperature overflow to inf, and the
+    ``-inf`` top-k mask then gives NaN rows); the temperature is floored at
+    1e-8; the per-row k-th value comes from a full ascending sort.
+    ``mask`` (optional ``(B, V)`` bool) is applied before the greedy argmax,
+    so greedy rows respect it too."""
+    logits = logits.float()
+    if mask is not None:
+        logits = apply_logit_mask(logits, mask)
+    v = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / temperature.clamp_min(1e-8)[:, None]
+    k_eff = torch.where(top_k > 0, top_k.clamp(1, v), v)
+    srt = torch.sort(scaled, dim=-1).values  # ascending
+    kth = torch.gather(srt, 1, (v - k_eff)[:, None].long())
+    masked = apply_logit_mask(scaled, scaled >= kth)
+    sampled = torch.argmax(masked + rng.gumbel(keys, v), dim=-1)
+    return torch.where(temperature == 0.0, greedy, sampled)
+
+
+def split_keys_batched(key_data: torch.Tensor):
+    """Advance a batch of raw keys ``(B, 2)`` one split: returns
+    ``(next_key_data, subkeys)``, as the JAX engine's key chain does."""
+    pair = rng.split(key_data)
+    return pair[:, 0], pair[:, 1]
 
 
 def truncate_after_eos(seq: torch.Tensor, pad_id: int = 0) -> torch.Tensor:

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("local_attention_fwd", "local_attention_bwd", "sgu_fwd", "sgu_bwd")
+SOURCES = ("local_attention_fwd", "local_attention_bwd", "sgu_fwd", "sgu_bwd",
+           "paged_gate_mix")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

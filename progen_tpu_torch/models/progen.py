@@ -18,6 +18,12 @@ keyed like flax's ``"cache"`` collection (without its one-element tuples).
 
 Dense layers are ``nn.Linear`` (weight ``(out, in)``, the transpose of a
 flax kernel; ``compat/convert.py`` carries weights across).
+
+``weights="int8"`` is the serving-only quantized mode (``ops/quant.py``):
+every dense site but ``to_logits`` holds an int8 weight and an f32 scale per
+output channel, and the SGU an int8 ``spatial_weights`` with an f32 scale per
+ROW.  Quantized tensors are buffers, not parameters; they start as zeros
+(scales as ones) and are loaded from ``quantize_params``' output.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch import nn
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import Policy, make_policy
 from progen_tpu_torch.ops import cuda_attention, cuda_sgu
+from progen_tpu_torch.ops.quant import int8_matmul
 from progen_tpu_torch.ops.rotary import apply_rotary_pos_emb, fixed_pos_embedding
 from progen_tpu_torch.ops.shift import shift_tokens
 
@@ -103,11 +110,45 @@ class Dense(nn.Linear):
         return y if self.bias is None else y + self.bias.to(cd)
 
 
+class QuantDense(nn.Module):
+    """Drop-in for :class:`Dense` under ``weights="int8"``: ``weight`` is an
+    int8 buffer ``(out, in)`` and ``weight_scale`` an f32 buffer ``(out,)``;
+    the product runs int8-as-compute-dtype, is scaled per channel in f32,
+    cast to the compute dtype, and only then gets its bias."""
+
+    def __init__(self, din: int, dout: int, *, bias: bool, policy: Policy,
+                 device=None):
+        super().__init__()
+        self.in_features, self.out_features = din, dout
+        self.compute_dtype = policy.compute_dtype
+        self.register_buffer("weight", torch.zeros(
+            dout, din, dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones(
+            dout, dtype=torch.float32, device=device))
+        self.bias = (nn.Parameter(torch.zeros(
+            dout, dtype=policy.param_dtype, device=device)) if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        y = int8_matmul(x.to(cd), self.weight.T, self.weight_scale).to(cd)
+        return y if self.bias is None else y + self.bias.to(cd)
+
+
+def _dense(din: int, dout: int, *, bias: bool, policy: Policy, device=None,
+           weights: str = "bf16") -> nn.Module:
+    if weights == "int8":
+        return QuantDense(din, dout, bias=bias, policy=policy, device=device)
+    if weights != "bf16":
+        raise ValueError(f"unknown weights mode {weights!r}; use 'bf16' or 'int8'")
+    return Dense(din, dout, bias=bias, policy=policy, device=device)
+
+
 class LocalAttention(nn.Module):
     """Pre-LN windowed attention block: fused bias-free QKV projection,
     output projection with bias."""
 
-    def __init__(self, config: ProGenConfig, policy: Policy, device=None):
+    def __init__(self, config: ProGenConfig, policy: Policy, device=None,
+                 weights: str = "bf16"):
         super().__init__()
         c = config
         inner = c.heads * c.dim_head
@@ -116,10 +157,10 @@ class LocalAttention(nn.Module):
         self.dim_head = c.dim_head
         self.shift = c.shift_tokens
         self.norm = LayerNorm(c.dim, policy, device=device)
-        self.to_qkv = Dense(c.dim, 3 * inner, bias=False, policy=policy,
-                            device=device)
-        self.to_out = Dense(inner, c.dim, bias=True, policy=policy,
-                            device=device)
+        self.to_qkv = _dense(c.dim, 3 * inner, bias=False, policy=policy,
+                             device=device, weights=weights)
+        self.to_out = _dense(inner, c.dim, bias=True, policy=policy,
+                             device=device, weights=weights)
 
     def forward(self, x, sin, cos, cache: dict | None = None):
         b, n, _ = x.shape
@@ -147,16 +188,26 @@ class SGU(nn.Module):
     the LayerNormed gate half, then a projection."""
 
     def __init__(self, seq_len: int, dim_out: int, policy: Policy,
-                 device=None):
+                 device=None, weights: str = "bf16"):
         super().__init__()
         self.compute_dtype = policy.compute_dtype
         self.norm = LayerNorm(dim_out, policy, device=device)
-        self.spatial_weights = nn.Parameter(torch.empty(
-            seq_len, seq_len, dtype=policy.param_dtype, device=device))
+        if weights == "int8":
+            # int8 per-row spatial weights under the same name; the f32 row
+            # scale is folded back in f32 before the mix (which contracts
+            # over COLUMNS, so one scale per row is exact up to rounding)
+            self.register_buffer("spatial_weights", torch.zeros(
+                seq_len, seq_len, dtype=torch.int8, device=device))
+            self.register_buffer("spatial_weights_scale", torch.ones(
+                seq_len, dtype=torch.float32, device=device))
+        else:
+            self.spatial_weights = nn.Parameter(torch.empty(
+                seq_len, seq_len, dtype=policy.param_dtype, device=device))
+            self.spatial_weights_scale = None
         self.spatial_biases = nn.Parameter(torch.ones(
             seq_len, 1, dtype=policy.param_dtype, device=device))
-        self.proj_out = Dense(dim_out, dim_out, bias=True, policy=policy,
-                              device=device)
+        self.proj_out = _dense(dim_out, dim_out, bias=True, policy=policy,
+                               device=device, weights=weights)
 
     def forward(self, x, cache: dict | None = None):
         res, gate = x.chunk(2, dim=-1)
@@ -167,7 +218,10 @@ class SGU(nn.Module):
         # and columns: exact, since row m only reads columns <= m < L
         n = gate.shape[-2]
         cd = self.compute_dtype
-        w = self.spatial_weights[:n, :n].to(cd).contiguous()
+        w = self.spatial_weights[:n, :n]
+        if self.spatial_weights_scale is not None:
+            w = w.float() * self.spatial_weights_scale[:n, None]
+        w = w.to(cd).contiguous()
         b = self.spatial_biases[:n].to(cd).contiguous()
         x = cuda_sgu.gated_mix(res.contiguous(), gate.contiguous(), w, b)
         return self.proj_out(x)
@@ -177,21 +231,21 @@ class FeedForward(nn.Module):
     """Pre-LN MLP: GEGLU, or GELU then the SGU in the gMLP layers."""
 
     def __init__(self, config: ProGenConfig, use_sgu: bool, policy: Policy,
-                 device=None):
+                 device=None, weights: str = "bf16"):
         super().__init__()
         c = config
         self.glu = c.ff_glu and not use_sgu
         self.shift = c.shift_tokens
         hidden = c.dim * c.ff_mult * (2 if self.glu else 1)
         self.norm = LayerNorm(c.dim, policy, device=device)
-        self.proj_in = Dense(c.dim, hidden, bias=True, policy=policy,
-                             device=device)
-        self.sgu = (SGU(c.seq_len, hidden // 2, policy, device=device)
-                    if use_sgu else None)
+        self.proj_in = _dense(c.dim, hidden, bias=True, policy=policy,
+                              device=device, weights=weights)
+        self.sgu = (SGU(c.seq_len, hidden // 2, policy, device=device,
+                        weights=weights) if use_sgu else None)
         # GLU and the SGU each halve the hidden width
         width = hidden // 2 if (self.glu or use_sgu) else hidden
-        self.proj_out = Dense(width, c.dim, bias=True, policy=policy,
-                              device=device)
+        self.proj_out = _dense(width, c.dim, bias=True, policy=policy,
+                               device=device, weights=weights)
 
     def forward(self, x, cache: dict | None = None):
         x = self.norm(x)
@@ -217,23 +271,27 @@ class ProGen(nn.Module):
     """Embed -> depth x [LocalAttention, FeedForward] -> LN + logits head.
 
     ``device=None`` means ``cuda`` (raising without a card); the tests pass
-    ``device="cpu"``.  Parameters start as the JAX package's initialisers
+    ``device="cpu"``.  ``weights="int8"`` builds the quantized serving model
+    (see the module docstring).  Parameters start as the JAX package's initialisers
     draw them (:meth:`init_weights`), from ``seed``.
     """
 
     def __init__(self, config: ProGenConfig, policy: Policy | None = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, weights: str = "bf16"):
         super().__init__()
         c = config
         self.config = c
         self.policy = policy or make_policy()
+        self.weights = weights
         dev = resolve_device(device)
         self.embed = nn.Embedding(c.num_tokens, c.dim, device=dev,
                                   dtype=self.policy.param_dtype)
         self.attn = nn.ModuleList(
-            LocalAttention(c, self.policy, device=dev) for _ in range(c.depth))
+            LocalAttention(c, self.policy, device=dev, weights=weights)
+            for _ in range(c.depth))
         self.ff = nn.ModuleList(
-            FeedForward(c, c.layer_uses_gmlp(i), self.policy, device=dev)
+            FeedForward(c, c.layer_uses_gmlp(i), self.policy, device=dev,
+                        weights=weights)
             for i in range(c.depth))
         self.norm_out = LayerNorm(c.dim, self.policy, device=dev)
         self.to_logits = Dense(c.dim, c.num_tokens, bias=True,
@@ -262,6 +320,8 @@ class ProGen(nn.Module):
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, SGU):
+                if module.spatial_weights_scale is not None:
+                    continue  # int8: zeros until quantized weights are loaded
                 n = module.spatial_weights.shape[0]
                 bound = 1e-3 / n
                 w = torch.empty(module.spatial_weights.shape)

@@ -4,8 +4,11 @@
 
 Runs ProGen-small (weights from seed 0, bf16 compute) through one prefill of
 a batch of 2 primes of 300 residues + BOS and 64 cached decode steps, after
-two warm-ups of both; then training steps at batch 8 on synthetic rows
-(f32 parameters), after two warm-up steps.  Each phase runs five times bare,
+two warm-ups of both; then one decode chunk (32 steps) of the
+``ServingEngine`` with 8 slots, all live, after 8 primes of 300 residues +
+BOS were admitted and two warm-up chunks, dense, paged and paged with 8-bit
+pages; then training steps at batch 8 on synthetic rows (f32 parameters),
+after two warm-up steps.  Each phase runs five times bare,
 timed on the host clock (ended by a synchronize), then five times under
 ``torch.profiler`` with CPU and CUDA activity, whose device-side kernel
 events give the device busy time (their summed durations; one stream, so
@@ -29,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
+from progen_tpu_torch.decode.engine import Request, ServingEngine
 from progen_tpu_torch.decode.prefill import pad_prime_length
 from progen_tpu_torch.decode.sampler import make_chunked_sampler
 from progen_tpu_torch.models.configs import SMALL
@@ -39,9 +43,11 @@ from progen_tpu_torch.train.step import make_train_functions
 PRIME_LEN = 300
 STEPS = 64
 TRAIN_BATCH = 8
+ENGINE_SLOTS = 8
+ENGINE_CHUNK = 32
 REPEATS = 5  # rounds per phase: host-clock walls vary from run to run
 # kernel-name fragments of the port's own kernels and of cuBLAS's products
-PORT_KERNELS = ("local_attention_", "sgu_")
+PORT_KERNELS = ("local_attention_", "sgu_", "paged_gate_mix")
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
@@ -141,7 +147,33 @@ def main() -> None:
     result["per_step_wall_ms"] = result["wall_ms"] / steps
     result["per_step_device_ms"] = result["device_busy_ms"] / steps
     print(json.dumps({"phase": "decode", **meta, "steps": steps, **result}))
-    del model, sampler, caches
+    del sampler, caches
+
+    for mode, kwargs in (("dense", {}), ("paged", {"paged": True}),
+                         ("paged_q8", {"paged": True, "quantize": "weights+pages"})):
+        engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                               max_len=config.seq_len, page_size=16, **kwargs)
+        for i in range(ENGINE_SLOTS):
+            # budgets no row can exhaust within the traced chunks; half the
+            # rows greedy, half top-k 25 at temperature 1
+            engine.submit(Request(
+                uid=i, tokens=[0] + rng.integers(1, config.num_tokens, PRIME_LEN).tolist(),
+                max_new_tokens=700, top_k=25 if i % 2 else None,
+                temperature=1.0 if i % 2 else 0.0, seed=i))
+        engine._admit_pending()
+        for _ in range(2):  # warm-up
+            engine._dispatch_chunk()
+        result = _traced(engine._dispatch_chunk, device)
+        result["per_step_wall_ms"] = result["wall_ms"] / ENGINE_CHUNK
+        result["per_step_device_ms"] = result["device_busy_ms"] / ENGINE_CHUNK
+        result["launches_per_step"] = result["device_launches"] / ENGINE_CHUNK
+        live = int((engine.state["active"] & ~engine.state["done"]).sum())
+        print(json.dumps({"phase": "engine_chunk", "mode": mode, "config": "small",
+                          "slots": ENGINE_SLOTS, "steps": ENGINE_CHUNK,
+                          "live_rows_at_end": live, "prime_len": p_len,
+                          "device": meta["device"], **result}))
+        del engine
+    del model
 
     model = ProGen(config, make_policy(), device=device, seed=0)
     fns = make_train_functions(model, make_optimizer())

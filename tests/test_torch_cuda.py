@@ -6,15 +6,23 @@ f32 is held at 1e-4 (summation order).  bf16 SGU outputs are O(1) and are
 held at 0.05 (the JAX package's bf16 bar); bf16 attention outputs are
 averages of many values, well below 1, and are held at 1e-2.  bf16
 attention gradients are held at 2e-2 of their largest magnitude (their
-size depends on the shape), plus 2e-2 relative."""
+size depends on the shape), plus 2e-2 relative.  The paged gate mix
+differs from its plain version only in summation order (the products are
+exact in f32): f32 pools at 1e-5 * (1 + |plain|), bf16 and int8 at 2e-3 of
+the largest output."""
 
 import pytest
 import torch
 
+import numpy as np
+
 from progen_tpu_torch.core.precision import make_policy
+from progen_tpu_torch.decode.engine import Request, ServingEngine
 from progen_tpu_torch.decode.prefill import make_prefiller
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
-from progen_tpu_torch.ops import cuda_attention, cuda_sgu
+from progen_tpu_torch.ops import cuda_attention, cuda_paged_gate_mix, cuda_sgu
+from progen_tpu_torch.ops import paged_gate_mix as plain_paged
+from progen_tpu_torch.ops.quant import quantize_rows, quantize_w
 from progen_tpu_torch.ops.local_attention import local_attention, local_attention_bwd
 from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
 from progen_tpu_torch.train.optimizer import make_optimizer
@@ -168,3 +176,119 @@ def test_train_step_goes_through_the_kernels(gen):
     for name, g in grads[0].items():
         torch.testing.assert_close(g, grads[1][name], rtol=1e-4, atol=1e-4,
                                    msg=name)
+
+
+def _paged_case(gen, n, d, ps, pos, pool_dtype):
+    """A pool with garbage in the dump page and in every row past ``pos`` of
+    each last page, tables that are NULL past the last page, and the q8
+    twins of the weights and the pool."""
+    batch = len(pos)
+    ppr = -(-n // ps)
+    num_pages = 2 + batch * ppr
+    pool = torch.randn(num_pages, ps, d, device="cuda", generator=gen)
+    pool[0] = 0.0
+    table = torch.zeros(batch, ppr, dtype=torch.int32, device="cuda")
+    perm = (torch.randperm(num_pages - 2, device="cuda", generator=gen) + 2).int()
+    for b, p in enumerate(pos):
+        used = p // ps + 1
+        table[b, :used] = perm[b * ppr: b * ppr + used]
+    w = torch.randn(n, n, device="cuda", generator=gen) * 0.05
+    bias = torch.randn(n, 1, device="cuda", generator=gen)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    wq, ws = quantize_w(w, channel_axis=0)
+    pq, pscale = quantize_rows(pool)
+    return {"w": w, "bias": bias, "pool": pool.to(pool_dtype), "table": table,
+            "pos": pos_t, "wq": wq, "ws": ws, "pq": pq, "pscale": pscale,
+            "n_rows": n}
+
+
+def _close_paged(got, want):
+    # both sides multiply the same f32 values (bf16 and int8 widen exactly)
+    # and differ in summation order only, whatever the operand types
+    assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,ps,pos", [
+    (64, 128, 8, [0, 7, 8, 33, 63]),
+    (100, 72, 24, [5, 99, 47]),          # pages overhang the weight square
+    (256, 2048, 16, [0, 15, 16, 100, 255, 200, 31, 32]),
+])
+def test_paged_gate_mix_kernel_matches_plain(gen, dtype, n, d, ps, pos):
+    c = _paged_case(gen, n, d, ps, pos, dtype)
+    before = cuda_paged_gate_mix.launches, cuda_paged_gate_mix.q8_launches
+    got = cuda_paged_gate_mix.paged_gate_mix(c["w"], c["bias"], c["pool"], c["table"],
+                                             c["pos"], n_rows=n)
+    torch.cuda.synchronize()
+    assert (cuda_paged_gate_mix.launches, cuda_paged_gate_mix.q8_launches) == \
+        (before[0] + 1, before[1])
+    want = plain_paged.paged_gate_mix(c["w"], c["bias"], c["pool"], c["table"],
+                                      c["pos"], n_rows=n)
+    assert got.dtype == torch.float32 and got.shape == (len(pos), d)
+    _close_paged(got, want)
+
+
+@pytest.mark.parametrize("case", ["w8_p8", "w8_bf16", "f32_p8"])
+@pytest.mark.parametrize("n,d,ps,pos", [
+    (64, 128, 8, [0, 7, 8, 33, 63]),
+    (100, 72, 24, [5, 99, 47]),
+    (256, 2048, 16, [0, 15, 16, 100, 255, 200, 31, 32]),
+])
+def test_paged_gate_mix_q8_kernel_matches_plain(gen, case, n, d, ps, pos):
+    c = _paged_case(gen, n, d, ps, pos, torch.bfloat16)
+    args = {"w8_p8": (c["wq"], c["pq"], c["ws"], c["pscale"]),
+            "w8_bf16": (c["wq"], c["pool"], c["ws"], None),
+            "f32_p8": (c["w"], c["pq"], None, c["pscale"])}[case]
+    w, pool, w_scale, pool_scale = args
+    before = cuda_paged_gate_mix.launches, cuda_paged_gate_mix.q8_launches
+    got = cuda_paged_gate_mix.paged_gate_mix(
+        w, c["bias"], pool, c["table"], c["pos"], n_rows=n, w_scale=w_scale,
+        pool_scale=pool_scale)
+    torch.cuda.synchronize()
+    assert (cuda_paged_gate_mix.launches, cuda_paged_gate_mix.q8_launches) == \
+        (before[0], before[1] + 1)
+    want = plain_paged.paged_gate_mix(
+        w, c["bias"], pool, c["table"], c["pos"], n_rows=n, w_scale=w_scale,
+        pool_scale=pool_scale)
+    _close_paged(got, want)
+
+
+def test_paged_gate_mix_refuses_what_the_kernel_does_not_take(gen):
+    c = _paged_case(gen, 64, 128, 8, [3, 40], torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_paged_gate_mix.paged_gate_mix(c["w"], c["bias"], c["pool"],
+                                           c["table"].long(), c["pos"], n_rows=64)
+    with pytest.raises(ValueError, match="w_scale"):
+        cuda_paged_gate_mix.paged_gate_mix(c["wq"], c["bias"], c["pool"],
+                                           c["table"], c["pos"], n_rows=64)
+
+
+@pytest.mark.parametrize("quantize", [None, "weights+pages"])
+def test_engine_chunk_goes_through_the_paged_kernel(gen, quantize):
+    cfg = ProGenConfig(num_tokens=32, dim=64, seq_len=64, depth=3,
+                       window_size=16, global_mlp_depth=2, heads=2,
+                       dim_head=32, ff_mult=2)
+    rng = np.random.default_rng(0)
+    requests = [dict(uid=i, tokens=[int(t) for t in rng.integers(1, 32, size=5 + 3 * i)],
+                     max_new_tokens=9, temperature=0.0) for i in range(3)]
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        engine = ServingEngine(ProGen(cfg, make_policy(False), device=device),
+                               num_slots=2, chunk_size=4, max_len=64, paged=True,
+                               page_size=8, quantize=quantize)
+        before = cuda_paged_gate_mix.launches, cuda_paged_gate_mix.q8_launches
+        for r in requests:
+            engine.submit(Request(**r))
+        done = engine.run_until_idle()
+        launched = (cuda_paged_gate_mix.launches - before[0],
+                    cuda_paged_gate_mix.q8_launches - before[1])
+        steps = engine.chunks_run * engine.chunk_size * cfg.global_mlp_depth
+        want = ((0, 0) if device == "cpu" else
+                (0, steps) if quantize else (steps, 0))
+        assert launched == want
+        assert all(c.ok for c in done) and len(done) == 3
+        tokens[device] = {c.uid: c.tokens.tolist() for c in done}
+    same = sum(a == b for u in tokens["cpu"]
+               for a, b in zip(tokens["cpu"][u], tokens["cuda"][u]))
+    total = sum(len(v) for v in tokens["cpu"].values())
+    assert same / total >= 0.9  # summation order may flip a near-tie

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``progen_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and the
-port's sampling and training CLIs run on the CPU when asked to."""
+port's sampling, serving and training CLIs run on the CPU when asked to."""
 
 import ast
 import json
@@ -44,6 +44,10 @@ def test_scan_sees_the_whole_port():
     assert "progen_tpu_torch/ops/cuda_attention.py" in names
     assert "progen_tpu_torch/train/step.py" in names
     assert "progen_tpu_torch/train/cli.py" in names
+    for new in ("decode/engine.py", "decode/rng.py", "decode/paging.py", "decode/qos.py",
+                "ops/quant.py", "ops/paged_gate_mix.py", "ops/cuda_paged_gate_mix.py",
+                "resilience/faults.py", "resilience/retry.py", "observe/robustness.py"):
+        assert f"progen_tpu_torch/{new}" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -77,6 +81,34 @@ def test_sample_cli_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sample.main(["--config", "default", "--prime", "MKV"])
+
+
+SERVE = ["--serve", "--config", "default", "--seed", "0", "--prime", "MKV|MALWTR|M",
+         "--top_k", "25", "--seq_len", "24", "--slots", "2", "--chunk", "4"]
+
+
+@pytest.mark.parametrize("mode", [[], ["--paged", "--page_size", "4"],
+                                  ["--paged", "--page_size", "4", "--quantize",
+                                   "weights+pages"]],
+                         ids=["dense", "paged", "paged_q8"])
+def test_serve_cli_answers_every_prime_on_cpu(capsys, mode):
+    records = sample.main(SERVE + mode + ["--device", "cpu"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert lines == records and [r["uid"] for r in records] == [0, 1, 2]
+    assert [r["prime"] for r in records] == ["MKV", "MALWTR", "M"]
+    for r in records:
+        assert r["status"] == "ok" and r["finish_reason"] in ("eos", "length")
+        assert 1 <= len(r["tokens"]) <= 24 - len(r["prime"]) - 1
+    if not mode:  # seeded weights and per-request keys: the same again, paged too
+        capsys.readouterr()
+        again = sample.main(SERVE + ["--paged", "--page_size", "4", "--device", "cpu"])
+        assert [r["tokens"] for r in again] == [r["tokens"] for r in records]
+
+
+def test_serve_cli_needs_a_card_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample.main(SERVE)
 
 
 def test_train_cli_takes_steps_on_cpu():
