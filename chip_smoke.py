@@ -13,6 +13,8 @@ non-zero without its last line:
    ProGen-small shapes (serving shapes for the forward kernels, training
    shapes for the backward ones), with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function;
+   K2-dgate and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each
+   run twice for the same bits;
 4. serving path: ProGen-small (weights drawn from a seed, bf16 compute)
    serves four primes through the chunked sampler (one parallel prefill
    through the kernels, then cached decode steps); the kernels' launch
@@ -383,10 +385,13 @@ def sgu_bwd_case(gen, b, n, d, dtype):
     checks = {"dgate": close_scaled(dgate, spatial_gate_dgate(w, dout, res), dtype),
               "dw": close_scaled(dw, spatial_gate_dw(dout, res, gate), dtype)}
     upper = int(torch.count_nonzero(torch.triu(dw, 1)))
+    # no atomics and a fixed order of every sum: a second run, same bits
+    same = (torch.equal(cuda_sgu.spatial_gate_dgate(w, dout, res), dgate)
+            and torch.equal(cuda_sgu.spatial_gate_dw(dout, res, gate), dw))
     fields = {"shape": [b, n, d], "dtype": str(dtype), **checks,
-              "dw_nonzero_above_diagonal": upper}
+              "dw_nonzero_above_diagonal": upper, "second_run_same_bits": same}
     emit("kernel_check", kernel="sgu_bwd", **fields)
-    require(checks["dgate"]["ok"] and checks["dw"]["ok"] and upper == 0,
+    require(checks["dgate"]["ok"] and checks["dw"]["ok"] and upper == 0 and same,
             f"sgu_bwd disagrees with its plain version: {fields}")
     return (res, gate, dout, w), checks
 
@@ -441,13 +446,19 @@ def check_backward_kernels() -> list[dict]:
 
     half = c.dim * c.ff_mult // 2
     errs = {"dgate": [], "dw": []}
+    # besides the training shape: batch 1, a ragged n, n = 100 (under one
+    # tile, W padded to 16-byte rows), d = 520 (a ragged channel step)
+    edges = ((1, c.seq_len, half), (b, 1000, half), (3, 100, 520), (2, 1000, 520))
     for dtype in (torch.bfloat16, torch.float32):
         inputs, res = sgu_bwd_case(gen, b, c.seq_len, half, dtype)
         if dtype == torch.bfloat16:
             timed, timed_res = inputs, res
-        ragged = sgu_bwd_case(gen, b, 1000, half, dtype)[1]
         for name in errs:
-            errs[name] += [res[name]["max_abs_err"], ragged[name]["max_abs_err"]]
+            errs[name].append(res[name]["max_abs_err"])
+        for shape in edges:
+            edge = sgu_bwd_case(gen, *shape, dtype)[1]
+            for name in errs:
+                errs[name].append(edge[name]["max_abs_err"])
     res, gate, dout, w = timed
     b, n, dd_ = gate.shape
     esize = gate.element_size()
@@ -476,6 +487,11 @@ def check_backward_kernels() -> list[dict]:
             "timed_shape": [b, n, dd_], "timed_dtype": str(gate.dtype),
             "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs[key]),
         })
+        if key == "dw":  # the split reduction's plan and workspace at this shape
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            splits, _ = cuda_sgu.dw_split(b, n, dd_, sms)
+            rows[-1].update(splits=splits, sms=sms,
+                            workspace_bytes=4 * cuda_sgu.dw_workspace_numel(n, splits))
         emit("kernel_time", **rows[-1])
     return rows
 

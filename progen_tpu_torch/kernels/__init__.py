@@ -85,6 +85,23 @@ def build(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
+def resource_report(name: str) -> str:
+    """What ptxas says of each kernel of ``csrc/<name>.cu`` built with the
+    library's flags: registers, shared memory, spills (``-Xptxas -v``).
+    Builds into a scratch file under ``kernels/_build/``, removed after."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"ptxas-{name}.{os.getpid()}.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     if name not in _loaded:

@@ -8,8 +8,9 @@ CPU tensor through the plain versions (``ops/sgu.py``) and a CUDA tensor
 through the kernels (``kernels/csrc/sgu_fwd.cu`` and ``sgu_bwd.cu``), which
 they build at first use.  On a CUDA tensor they launch the kernels or
 raise; they never fall back.  ``launches``, ``dgate_launches`` and
-``dw_launches`` count the launches of K2-fwd, K2-dgate and K2-dW, and
-nothing else.
+``dw_launches`` count the calls that launch K2-fwd, K2-dgate and K2-dW, and
+nothing else (in bf16 a K2-dW call is two launches: the split partial
+products, then their ordered sum, see :func:`dw_split`).
 
 :func:`gated_mix` is what the model calls: K2-fwd once, and under autograd
 the backward of ``pallas_sgu.py:316-335``: d_res is K2-fwd again with dout
@@ -34,6 +35,12 @@ launches = 0
 dgate_launches = 0
 dw_launches = 0
 _fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+# K2-dW's bf16 tiling (kernels/csrc/sgu_bwd.cu): 128 x 128 tiles of the
+# lower triangle, 64 channels per step of the (batch, channel) axis
+DW_TILE = 128
+DW_STEP = 64
 
 
 def _kernel_fn(name: str, library: str, n_tensors: int):
@@ -62,6 +69,12 @@ def _check_rows(*tensors):
         raise ValueError("the kernel takes contiguous tensors")
     if any(t.device != first.device for t in tensors):
         raise ValueError("the kernel's tensors must be on one device")
+
+
+def _check_aligned(*tensors):
+    """TMA copies and 16-byte vector loads need 16-byte-aligned tensors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the kernel takes tensors whose data is 16-byte aligned")
 
 
 def _check_weights(weights, rows, biases=None):
@@ -113,6 +126,20 @@ def spatial_gate_fwd(res: torch.Tensor, gate: torch.Tensor,
     return out
 
 
+def _padded_weights(weights: torch.Tensor) -> torch.Tensor:
+    """``weights`` with its rows ``ceil8(n)`` elements apart, as K2-dgate
+    reads them (TMA needs 16-byte row strides): itself when ``n % 8 == 0``,
+    else a zero-padded ``(n, ceil8(n))`` copy (the zeros lie outside the
+    ``(n, n)`` square the kernel reads)."""
+    n = weights.shape[0]
+    if n % 8 == 0:
+        return weights
+    padded = torch.zeros((n, -(-n // 8) * 8), dtype=weights.dtype,
+                         device=weights.device)
+    padded[:, :n] = weights
+    return padded
+
+
 def spatial_gate_dgate(weights: torch.Tensor, dout: torch.Tensor,
                        res: torch.Tensor) -> torch.Tensor:
     """``tril(weights)^T . (dout * res)``, ``(..., n, d)`` in dout's dtype."""
@@ -121,12 +148,39 @@ def spatial_gate_dgate(weights: torch.Tensor, dout: torch.Tensor,
         return plain.spatial_gate_dgate(weights, dout, res)
     _check_rows(dout, res)
     _check_weights(weights, dout)
+    _check_aligned(weights, dout, res)
     fn = _kernel_fn(f"{BWD}_dgate", BWD, 4)
+    w = _padded_weights(weights)
     dgate = torch.empty_like(dout)
-    _run(fn, f"{BWD}_dgate", (weights.data_ptr(), dout.data_ptr(),
+    _run(fn, f"{BWD}_dgate", (w.data_ptr(), dout.data_ptr(),
                               res.data_ptr(), dgate.data_ptr()), dout)
     dgate_launches += 1
     return dgate
+
+
+def dw_split(batch: int, n: int, d: int, sms: int) -> tuple[int, list[range]]:
+    """How bf16 K2-dW splits its reduction axis over the card's ``sms``
+    streaming multiprocessors.
+
+    The axis is ``batch * ceil(d / 64)`` steps of 64 channels of one batch
+    row (step ``j``: row ``j // ceil(d / 64)``).  Each of the ``T`` tiles of
+    the lower triangle (128 x 128) gets ``splits`` blocks, one per range of
+    steps, so ``T * splits`` blocks fill the SMs in one wave; split ``s``
+    takes steps ``[s * steps // splits, (s + 1) * steps // splits)``, the
+    formula the kernel uses.  Returns ``(splits, ranges)``."""
+    side = -(-n // DW_TILE)
+    tiles = side * (side + 1) // 2
+    steps = batch * -(-d // DW_STEP)
+    splits = max(1, min(steps, sms // tiles))
+    return splits, [range(s * steps // splits, (s + 1) * steps // splits)
+                    for s in range(splits)]
+
+
+def dw_workspace_numel(n: int, splits: int) -> int:
+    """f32 entries of bf16 K2-dW's workspace: one partial 128 x 128 tile per
+    (split, tile of the lower triangle)."""
+    side = -(-n // DW_TILE)
+    return splits * side * (side + 1) // 2 * DW_TILE * DW_TILE
 
 
 def spatial_gate_dw(dout: torch.Tensor, res: torch.Tensor,
@@ -137,11 +191,25 @@ def spatial_gate_dw(dout: torch.Tensor, res: torch.Tensor,
     if _device(gate) == "cpu":
         return plain.spatial_gate_dw(dout, res, gate)
     _check_rows(dout, res, gate)
-    fn = _kernel_fn(f"{BWD}_dw", BWD, 4)
-    n = gate.shape[-2]
+    _check_aligned(dout, res, gate)
+    n, d = gate.shape[-2], gate.shape[-1]
+    batch = gate.numel() // (n * d)
+    f32 = gate.dtype == torch.float32
+    fn = _kernel_fn(f"{BWD}_dw" if f32 else f"{BWD}_dw_split", BWD, 4 if f32 else 5)
     dw = torch.empty((n, n), dtype=gate.dtype, device=gate.device)
-    _run(fn, f"{BWD}_dw", (dout.data_ptr(), res.data_ptr(), gate.data_ptr(),
-                           dw.data_ptr()), gate)
+    stream = torch.cuda.current_stream(gate.device).cuda_stream
+    if f32:
+        err = fn(dout.data_ptr(), res.data_ptr(), gate.data_ptr(), dw.data_ptr(),
+                 batch, n, d, DTYPES[gate.dtype], stream)
+    else:
+        sms = torch.cuda.get_device_properties(gate.device).multi_processor_count
+        splits, _ = dw_split(batch, n, d, sms)
+        work = torch.empty(dw_workspace_numel(n, splits), dtype=torch.float32,
+                           device=gate.device)
+        err = fn(dout.data_ptr(), res.data_ptr(), gate.data_ptr(), work.data_ptr(),
+                 dw.data_ptr(), batch, n, d, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD}_dw launch failed with CUDA error {err}")
     dw_launches += 1
     return dw
 

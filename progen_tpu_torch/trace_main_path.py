@@ -1,6 +1,6 @@
 """Where the serving and training paths' time goes on the card.
 
-    python -m progen_tpu_torch.trace_main_path
+    python -m progen_tpu_torch.trace_main_path [--phases serve engine train]
 
 Runs ProGen-small (weights from seed 0, bf16 compute) through one prefill of
 a batch of 2 primes of 300 residues + BOS and 64 cached decode steps, after
@@ -15,12 +15,15 @@ events give the device busy time (their summed durations; one stream, so
 they do not overlap) and the launch count.  Prints one JSON line per phase:
 the medians and ranges of the wall time, the device busy time and the
 launches, the idle share ``1 - busy / wall``, the device time by kind (the
-port's kernels, matrix products, everything else) and the kernels that took
-the most device time.  Needs a GPU.
+port's kernels, matrix products, everything else), the kernels that took
+the most device time and each of the port's kernels.  ``--phases`` picks the parts to run (``serve``: the
+prefill and the decode steps; ``engine``: the three engine chunks;
+``train``: the train step), all three by default.  Needs a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -111,12 +114,27 @@ def _traced(fn, device) -> dict:
     out["device_ms_by_kind"] = by_kind
     out["top"] = [{"name": name[:80], "calls": n, "device_ms": us / 1e3}
                   for name, (n, us) in top[:10]]
+    out["port_kernels"] = [{"name": name[:80], "calls": n, "device_ms": us / 1e3}
+                           for name, (n, us) in top if _kind(name) == "port_kernels"]
     return out
 
 
-def main() -> None:
+PHASES = ("serve", "engine", "train")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", nargs="+", choices=PHASES, default=list(PHASES))
+    phases = parser.parse_args(argv).phases
     device = resolve_device("cuda")
     config = SMALL
+    if "serve" in phases or "engine" in phases:
+        _trace_serving(device, config, phases)
+    if "train" in phases:
+        _trace_train(device, config)
+
+
+def _trace_serving(device, config, phases) -> None:
     model = ProGen(config, make_policy(), device=device, seed=0).eval()
     sampler = make_chunked_sampler(model)
     rng = np.random.default_rng(0)
@@ -141,13 +159,16 @@ def main() -> None:
     _, caches = prefill()
     meta = {"config": "small", "batch": 2, "prime_len": p_len,
             "p_pad": p_pad, "device": torch.cuda.get_device_name(device)}
-    print(json.dumps({"phase": "prefill", **meta, **_traced(prefill, device)}))
-    steps = decode_len - p_len
-    result = _traced(lambda: decode(caches), device)
-    result["per_step_wall_ms"] = result["wall_ms"] / steps
-    result["per_step_device_ms"] = result["device_busy_ms"] / steps
-    print(json.dumps({"phase": "decode", **meta, "steps": steps, **result}))
+    if "serve" in phases:
+        print(json.dumps({"phase": "prefill", **meta, **_traced(prefill, device)}))
+        steps = decode_len - p_len
+        result = _traced(lambda: decode(caches), device)
+        result["per_step_wall_ms"] = result["wall_ms"] / steps
+        result["per_step_device_ms"] = result["device_busy_ms"] / steps
+        print(json.dumps({"phase": "decode", **meta, "steps": steps, **result}))
     del sampler, caches
+    if "engine" not in phases:
+        return
 
     for mode, kwargs in (("dense", {}), ("paged", {"paged": True}),
                          ("paged_q8", {"paged": True, "quantize": "weights+pages"})):
@@ -173,8 +194,9 @@ def main() -> None:
                           "live_rows_at_end": live, "prime_len": p_len,
                           "device": meta["device"], **result}))
         del engine
-    del model
 
+
+def _trace_train(device, config) -> None:
     model = ProGen(config, make_policy(), device=device, seed=0)
     fns = make_train_functions(model, make_optimizer())
     state = fns.init_state()
@@ -189,7 +211,8 @@ def main() -> None:
         state, _ = fns.train_step(state, batch)
 
     print(json.dumps({"phase": "train_step", "config": "small", "batch": TRAIN_BATCH,
-                      "seq_len": config.seq_len, "device": meta["device"],
+                      "seq_len": config.seq_len,
+                      "device": torch.cuda.get_device_name(device),
                       **_traced(step, device)}))
 
 

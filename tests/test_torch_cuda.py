@@ -134,8 +134,19 @@ def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,d", [(2, 100, 16), (1, 130, 64), (3, 256, 136)])
-def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d):
+@pytest.mark.parametrize("b,n,d,small", [
+    (2, 100, 16, True),     # n < one tile and n % 8 != 0: W padded
+    (1, 130, 64, True),
+    (3, 256, 136, True),    # d not a multiple of the 128-channel tile
+    (1, 100, 8, False),     # one 64-channel step, most of it zeros
+    (3, 100, 520, False),   # d = 520: a ragged last channel step
+    (2, 1000, 520, False),  # ragged n at full length
+    (1, 1024, 2048, False),  # batch 1 at ProGen-small's width
+])
+def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d, small):
+    """Each at the scaled bars of the other backward kernels; the small
+    cases also at the plain 1e-4 / 0.05 bars they always had.  Two runs give
+    the same bits; d_W's strict upper triangle is exactly 0."""
     res, gate, dout = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
     w = (torch.randn(n, n, device="cuda", generator=gen) * 0.05).to(dtype)
@@ -145,10 +156,17 @@ def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d):
     torch.cuda.synchronize()
     assert (cuda_sgu.dgate_launches, cuda_sgu.dw_launches) == \
         (before[0] + 1, before[1] + 1)
-    _close(dgate, spatial_gate_dgate(w, dout, res), dtype)
-    _close(dw, spatial_gate_dw(dout, res, gate), dtype)
-    assert dw.dtype == dtype
+    want_dgate = spatial_gate_dgate(w, dout, res)
+    want_dw = spatial_gate_dw(dout, res, gate)
+    _close_scaled(dgate, want_dgate, dtype)
+    _close_scaled(dw, want_dw, dtype)
+    if small:
+        _close(dgate, want_dgate, dtype)
+        _close(dw, want_dw, dtype)
+    assert dgate.dtype == dw.dtype == dtype
     assert torch.count_nonzero(torch.triu(dw, 1)) == 0
+    assert torch.equal(cuda_sgu.spatial_gate_dgate(w, dout, res), dgate)
+    assert torch.equal(cuda_sgu.spatial_gate_dw(dout, res, gate), dw)
 
 
 def test_train_step_goes_through_the_kernels(gen):

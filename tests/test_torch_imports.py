@@ -132,3 +132,17 @@ def test_train_cli_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--model_name", "default", "--max_steps", "1"])
+
+
+@pytest.mark.parametrize("phases", [["train"], ["serve", "engine"]])
+def test_trace_needs_a_card(monkeypatch, phases):
+    from progen_tpu_torch import trace_main_path
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trace_main_path.main(["--phases", *phases])
+
+
+def test_trace_refuses_an_unknown_phase():
+    from progen_tpu_torch import trace_main_path
+    with pytest.raises(SystemExit):
+        trace_main_path.main(["--phases", "decode_only"])

@@ -234,3 +234,75 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         cuda_sgu.spatial_gate_dw(rows, rows, odd)
     with pytest.raises(ValueError, match="weights"):
         cuda_sgu.spatial_gate_dgate(w8, rows, rows)
+
+
+def _misaligned_cuda(shape, dtype):
+    """A contiguous fake CUDA view one element past a 16-byte boundary."""
+    numel = int(np.prod(shape))
+    with FakeTensorMode():
+        base = torch.empty(numel + 1, device="cuda", dtype=dtype)
+        return base.as_strided(shape, torch.empty(shape).stride(), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgu_backward_wrappers_refuse_misaligned_tensors(dtype):
+    rows, w = _fake_cuda((2, 16, 8), (16, 16), dtype=dtype)
+    bad_rows = _misaligned_cuda((2, 16, 8), dtype)
+    bad_w = _misaligned_cuda((16, 16), dtype)
+    assert bad_rows.is_contiguous() and bad_rows.data_ptr() % 16 != 0
+    before = cuda_sgu.dgate_launches, cuda_sgu.dw_launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_sgu.spatial_gate_dgate(w, rows, bad_rows)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_sgu.spatial_gate_dgate(bad_w, rows, rows)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_sgu.spatial_gate_dw(rows, rows, bad_rows)
+    assert (cuda_sgu.dgate_launches, cuda_sgu.dw_launches) == before
+
+
+@pytest.mark.parametrize("batch,d", [(1, 8), (1, 520), (8, 2048), (2, 8192)])
+@pytest.mark.parametrize("n", [100, 1000, 1024, 4096])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_dw_split_covers_the_reduction_axis_once(batch, d, n, sms):
+    """B * d in {8, 520, 16384}: every (batch row, channel) pair lies in
+    exactly one split's steps, no split is empty, and the blocks fill the
+    SMs without a second wave where the axis is long enough."""
+    splits, ranges = cuda_sgu.dw_split(batch, n, d, sms)
+    chunks = -(-d // cuda_sgu.DW_STEP)
+    seen = np.zeros((batch, d), dtype=int)
+    for steps in ranges:
+        assert len(steps) > 0
+        for j in steps:
+            c0 = (j % chunks) * cuda_sgu.DW_STEP
+            seen[j // chunks, c0:c0 + cuda_sgu.DW_STEP] += 1
+    assert (seen == 1).all()
+    assert splits == len(ranges)
+    side = -(-n // cuda_sgu.DW_TILE)
+    tiles = side * (side + 1) // 2
+    assert tiles * splits <= max(sms, tiles)
+    assert splits == min(batch * chunks, max(1, sms // tiles))
+    assert cuda_sgu.dw_workspace_numel(n, splits) == splits * tiles * 128 * 128
+
+
+def test_dw_split_at_progen_small_is_one_wave_of_three_splits():
+    splits, ranges = cuda_sgu.dw_split(8, 1024, 2048, 132)
+    assert splits == 3 and [len(r) for r in ranges] == [85, 85, 86]
+    assert cuda_sgu.dw_workspace_numel(1024, splits) * 4 == 7_077_888
+
+
+@pytest.mark.parametrize("n", [64, 100, 130])
+def test_dgate_weights_are_padded_to_16_byte_rows(n):
+    w = torch.from_numpy(np.random.default_rng(n).normal(size=(n, n)).astype(np.float32))
+    padded = cuda_sgu._padded_weights(w)
+    assert padded.shape == (n, -(-n // 8) * 8)
+    assert torch.equal(padded[:, :n], w)
+    assert not padded[:, n:].any()
+    if n % 8 == 0:
+        assert padded is w
+
+
+def test_resource_report_needs_nvcc(monkeypatch):
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.resource_report("sgu_bwd")
