@@ -13,8 +13,12 @@ non-zero without its last line:
    ProGen-small shapes (serving shapes for the forward kernels, training
    shapes for the backward ones), with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function;
-   K2-dgate and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each
-   run twice for the same bits;
+   K1-dq and K1-dkv also at the phantom window alone, ProGen-tiny's head,
+   ProGen-base's window, a window of 128 (all on the Hopper "wgmma" route
+   in bf16) and on the WMMA route (f32, dim_head 32, a window of 64), each
+   run twice for the same bits and held to the route it must take; K2-dgate
+   and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each run twice
+   for the same bits;
 4. serving path: ProGen-small (weights drawn from a seed, bf16 compute)
    serves four primes through the chunked sampler (one parallel prefill
    through the kernels, then cached decode steps); the kernels' launch
@@ -23,7 +27,8 @@ non-zero without its last line:
    f32, and the bf16 decode against the f32 answer beside the bf16 forward;
 5. training path: ProGen-small (bf16 compute, f32 parameters) takes
    optimizer steps on synthetic rows through ``train/step.py``, with every
-   kernel's launches per step, a finite and falling loss, step time,
+   kernel's launches per step (every K1 backward launch on the Hopper
+   kernels), a finite and falling loss, step time,
    tokens/s, MFU and peak memory; then one f32 step through the kernels
    against the same step through the plain versions (loss and every
    gradient), and the parameters after three steps;
@@ -357,20 +362,31 @@ def real_visible(n: int, wsz: int) -> int:
     return sum(min(wsz + i % wsz + 1, i + 1) for i in range(n))
 
 
-def attention_bwd_case(gen, b, h, n, d, wsz, dtype):
+def attention_bwd_case(gen, b, h, n, d, wsz, dtype, route):
+    """K1-dq and K1-dkv against the plain backward; ``route`` is the one the
+    shape must take (``cuda_attention.bwd_route``), and a second run must
+    give the same bits (no atomics)."""
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
     dd = (do.float() * out.float()).sum(-1)
+    before = dict(cuda_attention.bwd_route_launches)
     dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz)
     dk, dv = cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz)
     torch.cuda.synchronize()
+    routed = {r: cuda_attention.bwd_route_launches[r] - before[r] for r in before}
     want = local_attention_bwd(q, k, v, out, lse, do, wsz)
     res = {name: close_scaled(g, w, dtype)
            for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
-    fields = {"shape": [b, h, n, d], "window": wsz, "dtype": str(dtype), **res}
+    again = (cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz),
+             *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz))
+    same = all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
+    fields = {"shape": [b, h, n, d], "window": wsz, "dtype": str(dtype),
+              "route": cuda_attention.bwd_route(dtype, d, wsz), "want_route": route,
+              "launches_by_route": routed, **res, "second_run_same_bits": same}
     emit("kernel_check", kernel="local_attention_bwd", **fields)
-    require(all(r["ok"] for r in res.values()),
+    require(all(r["ok"] for r in res.values()) and same
+            and routed == {"wgmma": 0, "wmma": 0, route: 2},
             f"local_attention_bwd disagrees with its plain version: {fields}")
     return (q, k, v, do, out, lse, dd), res
 
@@ -396,23 +412,42 @@ def sgu_bwd_case(gen, b, n, d, dtype):
     return (res, gate, dout, w), checks
 
 
+# K1's backward cases (b, h, n, d, wsz): in bf16 the first five take the
+# Hopper kernels (the "wgmma" route), the last two the WMMA kernels; f32
+# takes the WMMA kernels at the training shape and the phantom window.
+K1_BWD_CASES = (
+    (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
+    (2, 8, 256, 128, 256),              # one window: the phantom window only
+    (2, 8, 1024, 64, 256),              # ProGen-tiny's head
+    (1, 12, 2048, 128, 512),            # ProGen-base's window
+    (1, 3, 512, 128, 128),              # the smallest window the route takes
+    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
+    (2, 8, 1024, 128, 64),              # a window under 128: WMMA
+)
+K1_BWD_F32_CASES = K1_BWD_CASES[:2]
+
+
 def check_backward_kernels() -> list[dict]:
     """K1-dq, K1-dkv, K2-dgate and K2-dW against their plain versions, at
-    the training path's shapes, the single-window phantom case and a
-    ragged n, in bf16 and f32; timed in bf16 at the training shapes."""
+    the training path's shapes, the single-window phantom case and other
+    configs' heads and windows (K1), a ragged n and d (K2), in bf16 and f32;
+    timed in bf16 at the training shapes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     c = SMALL
     d, h, wsz, b = c.dim_head, c.heads, c.window_size, TRAIN_BATCH
     rows = []
 
     errs = {"dq": [], "dk": [], "dv": []}
-    for dtype in (torch.bfloat16, torch.float32):
-        inputs, res = attention_bwd_case(gen, b, h, c.seq_len, d, wsz, dtype)
-        if dtype == torch.bfloat16:
-            timed, timed_res = inputs, res
-        phantom = attention_bwd_case(gen, 2, h, wsz, d, wsz, dtype)[1]  # one window
-        for name in errs:
-            errs[name] += [res[name]["max_abs_err"], phantom[name]["max_abs_err"]]
+    for dtype, cases in ((torch.bfloat16, K1_BWD_CASES),
+                         (torch.float32, K1_BWD_F32_CASES)):
+        for case in cases:
+            route = ("wgmma" if dtype == torch.bfloat16 and case[4] % 128 == 0
+                     and case[3] in (64, 128) else "wmma")
+            inputs, res = attention_bwd_case(gen, *case, dtype, route)
+            if dtype == torch.bfloat16 and case == K1_BWD_CASES[0]:
+                timed, timed_res = inputs, res
+            for name in errs:
+                errs[name].append(res[name]["max_abs_err"])
     q, k, v, do, out, lse, dd = timed
     n = q.shape[2]
     ms_dq = time_ms(lambda: cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz))
@@ -431,6 +466,7 @@ def check_backward_kernels() -> list[dict]:
         bound_ms, bound_by = bound(nbytes, flops, q.dtype)
         rows.append({
             "name": name, "route": "cuda",
+            "bwd_route": cuda_attention.bwd_route(q.dtype, d, wsz),
             "source": "progen_tpu_torch/kernels/csrc/local_attention_bwd.cu",
             "replaces": f"progen_tpu/ops/pallas_attention.py:{line}",
             "launches": None,
@@ -728,6 +764,7 @@ def train(model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts()
+    cuda_attention.bwd_route_launches = {"wgmma": 0, "wmma": 0}
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = fns.train_step(state, batch)
@@ -736,6 +773,7 @@ def train(model) -> dict:
         grad_norms.append(float(metrics["grad_norm"]))
     torch.cuda.synchronize()
     launches = read_counts()
+    routes = dict(cuda_attention.bwd_route_launches)
     peak = torch.cuda.max_memory_allocated()
 
     per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
@@ -743,6 +781,9 @@ def train(model) -> dict:
                 "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
     want = {name: per_step.get(name, 0) * TRAIN_STEPS for name in COUNTERS}
     require(launches == want, f"training launches {launches}, want {want}")
+    # every K1 backward launch of the bf16 step on the Hopper kernels
+    want_routes = {"wgmma": 2 * c.depth * TRAIN_STEPS, "wmma": 0}
+    require(routes == want_routes, f"K1 backward routes {routes}, want {want_routes}")
     require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
             f"non-finite training loss or grad norm: {losses}, {grad_norms}")
     require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -751,6 +792,7 @@ def train(model) -> dict:
     params = sum(p.numel() for p in model.parameters())
     rate = tokens / (step_ms / 1e3)
     return {"launches": launches, "launches_per_step": per_step,
+            "k1_bwd_launches_by_route": routes,
             "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
             "params": params, "losses": losses, "grad_norms": grad_norms,
             "step_ms_median": step_ms, "step_ms": [s * 1e3 for s in step_s],

@@ -102,6 +102,13 @@ def resource_report(name: str) -> str:
     return proc.stdout + proc.stderr
 
 
+def check_aligned(*tensors) -> None:
+    """TMA copies and 16-byte vector loads need 16-byte-aligned tensors:
+    raise ``ValueError`` for any other."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the kernel takes tensors whose data is 16-byte aligned")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     if name not in _loaded:

@@ -12,6 +12,14 @@ build at first use.  On a CUDA tensor they launch the kernels or raise;
 they never fall back.  ``launches``, ``dq_launches`` and ``dkv_launches``
 count the launches of K1-fwd, K1-dq and K1-dkv, and nothing else.
 
+The backward kernels have two routes, chosen before the launch by
+:func:`bwd_route` from the dtype, ``dim_head`` and the window alone: bf16
+with ``dim_head`` 64 or 128 and windows that are multiples of 128 take the
+Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32, ``dim_head``
+32 and other windows take the WMMA kernels (``"wmma"``).  A failure on one
+route raises; it never tries the other.  ``bwd_route_launches`` counts the
+backward launches of each route.
+
 :func:`local_attention` is what the model calls: K1-fwd once, and under
 autograd K1-dq and K1-dkv in the backward, from the saved q, k, v, out and
 the forward's lse.
@@ -32,9 +40,17 @@ BWD = "local_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DIM_HEADS = (32, 64, 128)
 
+# the bf16 backward kernels' tiling (local_attention_bwd.cu, namespace wg): a
+# block owns 128 rows of one window, two warpgroups of 64, and streams
+# 64-row tiles of the other side
+BWD_ROWS = 128
+BWD_TILE = 64
+WGMMA_DIM_HEADS = (64, 128)
+
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+bwd_route_launches = {"wgmma": 0, "wmma": 0}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -94,6 +110,44 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def bwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
+    """Which backward kernels take these shapes: ``"wgmma"`` (the Hopper
+    kernels) for bf16, ``dim_head`` in (64, 128) and a window that is a
+    multiple of 128; ``"wmma"`` for everything else the kernels take."""
+    if (dtype == torch.bfloat16 and dim_head in WGMMA_DIM_HEADS
+            and window_size > 0 and window_size % BWD_ROWS == 0):
+        return "wgmma"
+    return "wmma"
+
+
+def k1_bwd_tiles(n: int, window_size: int, side: str) -> list[tuple[int, int, str]]:
+    """The bf16 backward kernels' tile walk, the formulas of
+    ``local_attention_bwd.cu`` (``wg::dq_tiles``, ``dq_kind``, ``dkv_tiles``,
+    ``dkv_kind``): for each block, in order, each of its two warpgroups'
+    ``(r0, t0, kind)`` with every streamed tile, ``kind`` one of ``"full"``,
+    ``"diagonal"`` (causal mask inside the tile) and ``"skipped"``.
+    ``side="dq"``: rows r0.. are queries, tiles t0.. keys; ``side="dkv"``:
+    rows are keys, tiles queries (K1-dkv walks them twice, once for dv and
+    once for dk).  Every tile is 64 rows."""
+    if side not in ("dq", "dkv"):
+        raise ValueError(f"side must be 'dq' or 'dkv', got {side!r}")
+    wsz, pairs = window_size, []
+    for b0 in range(0, n, BWD_ROWS):
+        if side == "dq":
+            first = max(0, (b0 // wsz - 1) * wsz)
+            tiles = (b0 + BWD_TILE - first) // BWD_TILE + 1
+        else:
+            first = b0
+            tiles = (min((b0 // wsz + 2) * wsz, n) - b0) // BWD_TILE
+        for it in range(tiles):
+            t0 = first + BWD_TILE * it
+            for r0 in (b0, b0 + BWD_TILE):
+                below = t0 < r0 if side == "dq" else t0 > r0
+                kind = "full" if below else "diagonal" if t0 == r0 else "skipped"
+                pairs.append((r0, t0, kind))
+    return pairs
+
+
 def _check_rows(q, *rows):
     """The backward kernels' per-row f32 inputs, on q's CUDA device."""
     if q.device.type != "cuda":
@@ -116,16 +170,20 @@ def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     _check(q, k, v, window_size, do)
     _check_rows(q, lse, dd)
-    fn = _kernel_fn(f"{BWD}_dq", BWD, 7)
+    kernels.check_aligned(q, k, v, do, lse, dd)
     b, h, n, d = q.shape
+    route = bwd_route(q.dtype, d, window_size)
+    name = f"{BWD}_dq" if route == "wmma" else f"{BWD}_dq_wgmma"
+    fn = _kernel_fn(name, BWD, 7)
     dq = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b * h, n, d,
              window_size, float(scale), DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{BWD}_dq launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dq_launches += 1
+    bwd_route_launches[route] += 1
     return dq
 
 
@@ -138,16 +196,20 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size: int,
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     _check(q, k, v, window_size, do)
     _check_rows(q, lse, dd)
-    fn = _kernel_fn(f"{BWD}_dkv", BWD, 8)
+    kernels.check_aligned(q, k, v, do, lse, dd)
     b, h, n, d = q.shape
+    route = bwd_route(q.dtype, d, window_size)
+    name = f"{BWD}_dkv" if route == "wmma" else f"{BWD}_dkv_wgmma"
+    fn = _kernel_fn(name, BWD, 8)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
              n, d, window_size, float(scale), DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{BWD}_dkv launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dkv_launches += 1
+    bwd_route_launches[route] += 1
     return dk, dv
 
 

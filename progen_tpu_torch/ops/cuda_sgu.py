@@ -71,12 +71,6 @@ def _check_rows(*tensors):
         raise ValueError("the kernel's tensors must be on one device")
 
 
-def _check_aligned(*tensors):
-    """TMA copies and 16-byte vector loads need 16-byte-aligned tensors."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the kernel takes tensors whose data is 16-byte aligned")
-
-
 def _check_weights(weights, rows, biases=None):
     n = rows.shape[-2]
     if tuple(weights.shape) != (n, n):
@@ -148,7 +142,7 @@ def spatial_gate_dgate(weights: torch.Tensor, dout: torch.Tensor,
         return plain.spatial_gate_dgate(weights, dout, res)
     _check_rows(dout, res)
     _check_weights(weights, dout)
-    _check_aligned(weights, dout, res)
+    kernels.check_aligned(weights, dout, res)
     fn = _kernel_fn(f"{BWD}_dgate", BWD, 4)
     w = _padded_weights(weights)
     dgate = torch.empty_like(dout)
@@ -191,7 +185,7 @@ def spatial_gate_dw(dout: torch.Tensor, res: torch.Tensor,
     if _device(gate) == "cpu":
         return plain.spatial_gate_dw(dout, res, gate)
     _check_rows(dout, res, gate)
-    _check_aligned(dout, res, gate)
+    kernels.check_aligned(dout, res, gate)
     n, d = gate.shape[-2], gate.shape[-1]
     batch = gate.numel() // (n * d)
     f32 = gate.dtype == torch.float32

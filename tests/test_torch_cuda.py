@@ -111,26 +111,41 @@ def _close_scaled(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,n,d,wsz", [
-    (2, 3, 16, 32, 8),      # windows smaller than a 64-row tile
-    (1, 2, 64, 64, 64),     # single window: the phantom window only
-    (2, 2, 192, 128, 64),
-    (1, 1, 40, 32, 40),     # a tile that overhangs the sequence
-    (1, 2, 512, 128, 256),  # ProGen-small's window
+@pytest.mark.parametrize("b,h,n,d,wsz,bf16_route", [
+    (2, 3, 16, 32, 8, "wmma"),      # windows smaller than a 64-row tile
+    (1, 2, 64, 64, 64, "wmma"),     # single window: the phantom window only
+    (2, 2, 192, 128, 64, "wmma"),
+    (1, 1, 40, 32, 40, "wmma"),     # a tile that overhangs the sequence
+    (1, 2, 512, 128, 256, "wgmma"),  # ProGen-small's window
+    (8, 8, 1024, 128, 256, "wgmma"),  # ProGen-small's training shape
+    (2, 8, 256, 128, 256, "wgmma"),   # one window: the phantom window only
+    (2, 8, 1024, 64, 256, "wgmma"),   # ProGen-tiny's head
+    (1, 12, 2048, 128, 512, "wgmma"),  # ProGen-base's window
+    (1, 3, 512, 128, 128, "wgmma"),   # the smallest window the wgmma route takes
 ])
-def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz):
+def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf16_route):
+    """Each case on the route it must take (f32 always on the WMMA
+    kernels); a second run gives the same bits (no atomics)."""
+    route = bf16_route if dtype == torch.bfloat16 else "wmma"
+    assert cuda_attention.bwd_route(dtype, d, wsz) == route
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
-    before = cuda_attention.dq_launches, cuda_attention.dkv_launches
+    before = (cuda_attention.dq_launches, cuda_attention.dkv_launches,
+              dict(cuda_attention.bwd_route_launches))
     got = cuda_attention.local_attention_bwd(q, k, v, out, lse, do, wsz)
     torch.cuda.synchronize()
     assert (cuda_attention.dq_launches, cuda_attention.dkv_launches) == \
         (before[0] + 1, before[1] + 1)
+    routed = {r: cuda_attention.bwd_route_launches[r] - before[2][r] for r in before[2]}
+    assert routed == {"wgmma": 0, "wmma": 0, route: 2}
     want = local_attention_bwd(q, k, v, out, lse, do, wsz)
     for g, w in zip(got, want):
         assert g.dtype == dtype
         _close_scaled(g, w, dtype)
+    again = cuda_attention.local_attention_bwd(q, k, v, out, lse, do, wsz)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

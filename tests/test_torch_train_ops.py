@@ -6,7 +6,9 @@ interpreter, and the SGU backward against ``jax.vjp`` of the interpreted
 Pallas op and of the XLA composition.  f32 is held at rtol/atol 1e-5; bf16
 at 0.05 relative plus 2e-2 of the gradient's largest magnitude, since the
 gradients' size depends on the shape.  Also: the backward wrappers raise on
-CUDA tensors they cannot take, and never fall back."""
+CUDA tensors they cannot take (misaligned ones too), and never fall back;
+the attention backward's route for every shipped config; and the Hopper
+kernels' tile walk against the visibility mask."""
 
 import functools
 
@@ -22,6 +24,8 @@ from progen_tpu.ops.pallas_attention import _backward_ext, _forward_ext
 from progen_tpu.ops.pallas_sgu import pallas_spatial_gate
 from progen_tpu.ops.sgu import spatial_gate as jax_spatial_gate
 from progen_tpu_torch import kernels
+from progen_tpu_torch.kernels import ablate
+from progen_tpu_torch.models.configs import CONFIGS
 from progen_tpu_torch.ops import cuda_attention, cuda_sgu
 from progen_tpu_torch.ops.local_attention import local_attention, local_attention_bwd
 
@@ -306,3 +310,118 @@ def test_resource_report_needs_nvcc(monkeypatch):
         RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.resource_report("sgu_bwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_bwd_route_of_every_shipped_config(config, dtype):
+    """bf16 takes the Hopper kernels wherever dim_head is 64 or 128 and the
+    window a multiple of 128 (every config but ``default``); f32 always
+    takes the WMMA kernels."""
+    c = CONFIGS[config]
+    want = "wgmma" if dtype == torch.bfloat16 and config != "default" else "wmma"
+    assert cuda_attention.bwd_route(dtype, c.dim_head, c.window_size) == want
+
+
+@pytest.mark.parametrize("dtype,d,wsz,want", [
+    (torch.bfloat16, 32, 256, "wmma"),    # dim_head 32
+    (torch.bfloat16, 128, 8, "wmma"),     # windows under one block of rows
+    (torch.bfloat16, 128, 40, "wmma"),
+    (torch.bfloat16, 64, 64, "wmma"),
+    (torch.bfloat16, 128, 192, "wmma"),   # not a multiple of 128
+    (torch.bfloat16, 64, 128, "wgmma"),   # the smallest window taken
+    (torch.bfloat16, 128, 384, "wgmma"),
+    (torch.float32, 128, 256, "wmma"),    # f32: the comparison path
+    (torch.float32, 64, 512, "wmma"),
+])
+def test_bwd_route_of_odd_shapes(dtype, d, wsz, want):
+    assert cuda_attention.bwd_route(dtype, d, wsz) == want
+
+
+def _visible(n, wsz):
+    """(query, real key) visibility: own window up to the query, and all of
+    the previous window (window 0's is the phantom, which has no real keys)."""
+    i = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    return (j <= i) & (j >= (i // wsz - 1) * wsz)
+
+
+@pytest.mark.parametrize("side", ["dq", "dkv"])
+@pytest.mark.parametrize("n,wsz", [(256, 128), (256, 256), (1024, 128), (1024, 256),
+                                   (1024, 512), (2048, 128), (2048, 256), (2048, 512)])
+def test_k1_bwd_tile_walk_covers_each_visible_pair_once(n, wsz, side):
+    """The Hopper kernels' tile walk, the diagonal tiles masked, visits every
+    visible (query, real key) pair exactly once and no other, never reaches
+    past the sequence, and does real_visible's count of pairs."""
+    import chip_smoke
+
+    seen = np.zeros((n, n), dtype=int)  # [query, key]
+    tri = np.tril(np.ones((64, 64), dtype=int))  # [query, key]: key <= query
+    pairs = cuda_attention.k1_bwd_tiles(n, wsz, side)
+    for r0, t0, kind in pairs:
+        assert kind in ("full", "diagonal", "skipped")
+        assert 0 <= t0 and t0 + 64 <= n and r0 + 64 <= n
+        if kind == "skipped":
+            continue
+        tile = np.ones((64, 64), dtype=int) if kind == "full" else tri
+        if side == "dq":  # rows are queries, the streamed tile keys
+            seen[r0:r0 + 64, t0:t0 + 64] += tile
+        else:             # rows are keys, the streamed tile queries
+            seen[t0:t0 + 64, r0:r0 + 64] += tile
+    visible = _visible(n, wsz)
+    assert seen.max() == 1
+    assert (seen.astype(bool) == visible).all()
+    assert int(seen.sum()) == chip_smoke.real_visible(n, wsz)
+    assert len(pairs) % 2 == 0  # both warpgroups of a block meet every tile
+
+
+def test_k1_bwd_tile_walk_at_progen_small():
+    """88 of 96 (warpgroup, tile) pairs per (b, h) do work at n = 1024,
+    wsz = 256 on either side; 44 of them are diagonal or full in dq's own
+    window."""
+    for side in ("dq", "dkv"):
+        kinds = [kind for _, _, kind in cuda_attention.k1_bwd_tiles(1024, 256, side)]
+        assert len(kinds) == 96
+        assert kinds.count("skipped") == 8 and kinds.count("diagonal") == 16
+
+
+@pytest.mark.parametrize("route,dtype,d,wsz", [
+    ("wgmma", torch.bfloat16, 128, 128),
+    ("wgmma", torch.bfloat16, 64, 256),
+    ("wmma", torch.float32, 128, 128),
+    ("wmma", torch.bfloat16, 32, 64),
+])
+@pytest.mark.parametrize("bad", ["q", "do", "lse"])
+def test_attention_backward_wrappers_refuse_misaligned_tensors(route, dtype, d, wsz, bad):
+    """TMA copies and 16-byte loads need 16-byte-aligned tensors: a view one
+    element off is refused before any launch, on either route."""
+    assert cuda_attention.bwd_route(dtype, d, wsz) == route
+    shape = (1, 2, 256, d)
+    q, = _fake_cuda(shape, dtype=dtype)
+    lse, = _fake_cuda(shape[:3])
+    args = {"q": q, "do": q, "lse": lse}
+    args[bad] = _misaligned_cuda(shape[:3] if bad == "lse" else shape,
+                                 torch.float32 if bad == "lse" else dtype)
+    assert args[bad].is_contiguous() and args[bad].data_ptr() % 16 != 0
+    before = (cuda_attention.dq_launches, cuda_attention.dkv_launches,
+              dict(cuda_attention.bwd_route_launches))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_attention.local_attention_bwd_dq(args["q"], q, q, args["do"], args["lse"],
+                                              lse, wsz)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_attention.local_attention_bwd_dkv(args["q"], q, q, args["do"], args["lse"],
+                                               lse, wsz)
+    assert (cuda_attention.dq_launches, cuda_attention.dkv_launches,
+            cuda_attention.bwd_route_launches) == before
+
+
+@pytest.mark.parametrize("variant", sorted(ablate.VARIANTS))
+def test_k1_bwd_ablation_variants_apply_to_the_source(variant):
+    """Each ablation of the Hopper K1 backward finds every place it edits
+    in the kernels' source (a source edit that moves one fails here, not on
+    the card), and only the whole source comes back unchanged."""
+    source = ablate.SOURCE.read_text()
+    kernels_part = ablate.variant_source(variant).split(ablate.KERNELS_START, 1)[1]
+    assert (kernels_part == source.split(ablate.KERNELS_START, 1)[1]) == (variant == "whole")
+    for _, new, count in ablate.VARIANTS[variant]:
+        assert kernels_part.count(new) >= count
