@@ -10,10 +10,16 @@ non-zero without its last line:
 1. device: the card's name and power limit, CUDA and nvcc versions;
 2. build: the hand-written CUDA kernels, built from ``kernels/csrc`` by nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   ProGen-small shapes (serving shapes for the forward kernels, training
-   shapes for the backward ones), with CUDA-event times of the kernel, the
-   plain version and one PyTorch library call computing the same function;
-   K1-dq and K1-dkv also at the phantom window alone, ProGen-tiny's head,
+   ProGen-small shapes (serving and training shapes for the forward
+   kernels, training shapes for the backward ones), with CUDA-event times
+   of the kernel, the plain version and one PyTorch library call computing
+   the same function; K1-fwd also at the phantom window alone, the main
+   path's largest prefill, ProGen-tiny's head, ProGen-base's window, a
+   window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
+   route (f32, dim_head 32, a window of 64); K2-fwd in bf16 (the "wgmma"
+   route) at both weight scales, batch 1 and 8, n = 1000, 512 and 100, and
+   in f32; each forward case held to its route and run twice for the same
+   bits; K1-dq and K1-dkv also at the phantom window alone, ProGen-tiny's head,
    ProGen-base's window, a window of 128 (all on the Hopper "wgmma" route
    in bf16) and on the WMMA route (f32, dim_head 32, a window of 64), each
    run twice for the same bits and held to the route it must take; K2-dgate
@@ -22,12 +28,13 @@ non-zero without its last line:
 4. serving path: ProGen-small (weights drawn from a seed, bf16 compute)
    serves four primes through the chunked sampler (one parallel prefill
    through the kernels, then cached decode steps); the kernels' launch
-   counts over that run, prefill logits through the kernels against the
+   counts over that run (every K1-fwd and K2-fwd launch on the Hopper
+   route), prefill logits through the kernels against the
    plain versions, the cached decode step against the parallel forward in
    f32, and the bf16 decode against the f32 answer beside the bf16 forward;
 5. training path: ProGen-small (bf16 compute, f32 parameters) takes
    optimizer steps on synthetic rows through ``train/step.py``, with every
-   kernel's launches per step (every K1 backward launch on the Hopper
+   kernel's launches per step (every K1 and K2-fwd launch on the Hopper
    kernels), a finite and falling loss, step time,
    tokens/s, MFU and peak memory; then one f32 step through the kernels
    against the same step through the plain versions (loss and every
@@ -40,7 +47,8 @@ non-zero without its last line:
    continuous-batching ``ServingEngine`` with 8 slots, dense, paged and
    paged with 8-bit pages, then paged again with a pool small enough to
    force pauses and evictions; each run's launch counts (K3 or K3-q8 twice
-   per decode step, K1-fwd/K2-fwd 12/2 per admit program), pages returned,
+   per decode step, K1-fwd/K2-fwd 12/2 per admit program, on the Hopper
+   route in bf16 and the first kernels in f32), pages returned,
    prefix-cache hits, tokens/s and peak memory; 32 teacher-forced paged
    steps through K3 and K3-q8 against the same steps through the plain
    version; and, in f32 and greedy, the paged engine's tokens against the
@@ -218,23 +226,39 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 def attention_case(gen, b, h, n, d, wsz, dtype):
+    """K1-fwd against its plain version; the launch must take the route
+    the shape is meant for (the Hopper kernel for bf16, dim_head 64/128 and
+    windows that are multiples of 128) and a second run must give the same
+    bits (no atomics)."""
+    route = ("wgmma" if dtype == torch.bfloat16 and d in (64, 128) and wsz % 128 == 0
+             else "wmma")
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
+    before = dict(cuda_attention.fwd_route_launches)
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
     torch.cuda.synchronize()
+    routed = {r: cuda_attention.fwd_route_launches[r] - before[r] for r in before}
     ref_out, ref_lse = local_attention(q, k, v, window_size=wsz,
                                        return_lse=True)
     res_out = compare(out, ref_out, TOL_ATTN_OUT[dtype])
     res_lse = compare(lse, ref_lse, TOL[torch.float32])
+    again = cuda_attention.local_attention_fwd(q, k, v, wsz)
+    same = torch.equal(again[0], out) and torch.equal(again[1], lse)
     fields = {"shape": [b, h, n, d], "window": wsz, "dtype": str(dtype),
-              "out": res_out, "lse": res_lse}
+              "route": cuda_attention.fwd_route(dtype, d, wsz), "want_route": route,
+              "launches_by_route": routed, "out": res_out, "lse": res_lse,
+              "second_run_same_bits": same}
     emit("kernel_check", kernel="local_attention_fwd", **fields)
-    require(res_out["ok"] and res_lse["ok"],
+    require(res_out["ok"] and res_lse["ok"] and same
+            and routed == {"wgmma": 0, "wmma": 0, route: 1},
             f"local_attention_fwd disagrees with its plain version: {fields}")
     return (q, k, v), max(res_out["max_abs_err"], res_lse["max_abs_err"])
 
 
 def sgu_case(gen, b, n, d, weights, dtype):
+    """K2-fwd against its plain version, on the route of its dtype (the
+    Hopper kernel for bf16), a second run the same bits."""
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
     res, gate = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                  for _ in range(2))
     if weights == "init":  # the model's init scale U(+-1e-3/n): mix ~ bias
@@ -243,36 +267,60 @@ def sgu_case(gen, b, n, d, weights, dtype):
         w = torch.randn(n, n, device="cuda", generator=gen) * 0.05
     w = w.to(dtype)
     bias = torch.ones(n, 1, device="cuda", dtype=dtype)
+    before = dict(cuda_sgu.fwd_route_launches)
     out = cuda_sgu.spatial_gate_fwd(res, gate, w, bias)
     torch.cuda.synchronize()
+    routed = {r: cuda_sgu.fwd_route_launches[r] - before[r] for r in before}
     result = compare(out, gated_mix(res, gate, w, bias), TOL[dtype])
+    same = torch.equal(cuda_sgu.spatial_gate_fwd(res, gate, w, bias), out)
     fields = {"shape": [b, n, d], "weights": weights, "dtype": str(dtype),
-              "out": result}
+              "route": cuda_sgu.fwd_route(dtype), "want_route": route,
+              "launches_by_route": routed, "out": result, "second_run_same_bits": same}
     emit("kernel_check", kernel="sgu_fwd", **fields)
-    require(result["ok"], f"sgu_fwd disagrees with its plain version: {fields}")
+    require(result["ok"] and same and routed == {"wgmma": 0, "fma": 0, route: 1},
+            f"sgu_fwd disagrees with its plain version: {fields}")
     return (res, gate, w, bias), result["max_abs_err"]
 
 
-def check_kernels() -> list[dict]:
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    c = SMALL
-    d, h, wsz = c.dim_head, c.heads, c.window_size
-    rows = []
+# K1-fwd's cases (b, h, n, d, wsz): in bf16 the first seven take the Hopper
+# kernel (the "wgmma" route), the last two the WMMA kernel; f32 takes the
+# WMMA kernel at the serving shape, the phantom window and the largest
+# prefill.  The first two are timed (serving and training shapes).
+K1_FWD_CASES = (
+    (4, 8, 1024, 128, 256),             # ProGen-small's serving shape
+    (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
+    (4, 8, 256, 128, 256),              # one window: the phantom window only
+    (SAMPLES_PER_PRIME, 8, 512, 128, 256),  # the main path's largest prefill
+    (2, 8, 1024, 64, 256),              # ProGen-tiny's head
+    (1, 12, 2048, 128, 512),            # ProGen-base's window
+    (1, 3, 512, 128, 128),              # the smallest window the route takes
+    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
+    (2, 8, 1024, 128, 64),              # a window under 128: WMMA
+)
+K1_FWD_F32_CASES = (K1_FWD_CASES[0], K1_FWD_CASES[2], K1_FWD_CASES[3])
+# K2-fwd's cases (b, n, d, weights) at ProGen-small's gMLP width d = 2048
+# unless given: both weight scales, batch 1 and 8, a ragged n (1000), the
+# main path's largest prefill (512), n = 100 under one tile with d = 520
+# (W padded to 16-byte rows on the Hopper route).  The second and third
+# are timed (serving and training shapes).
+K2_FWD_CASES = (
+    (4, 1024, None, "init"),
+    (4, 1024, None, "normal"),
+    (TRAIN_BATCH, 1024, None, "normal"),
+    (1, 1024, None, "normal"),
+    (4, 1000, None, "normal"),
+    (SAMPLES_PER_PRIME, 512, None, "normal"),
+    (3, 100, 520, "normal"),
+)
+K2_FWD_F32_CASES = (K2_FWD_CASES[0], K2_FWD_CASES[1], K2_FWD_CASES[4], K2_FWD_CASES[5])
 
-    # K1: ProGen-small prefill of four full-length rows, the single-window
-    # phantom case, and the largest prefill the main path runs (B=2, L=512)
-    errs = []
-    timed = None
-    for dtype in (torch.bfloat16, torch.float32):
-        inputs, err = attention_case(gen, 4, h, c.seq_len, d, wsz, dtype)
-        if dtype == torch.bfloat16:
-            timed, timed_err = inputs, err
-        errs.append(err)
-        errs.append(attention_case(gen, 4, h, wsz, d, wsz, dtype)[1])
-        errs.append(attention_case(gen, SAMPLES_PER_PRIME, h, 2 * wsz, d, wsz,
-                                   dtype)[1])
-    q, k, v = timed
-    b, _, n, _ = q.shape
+
+def attention_fwd_row(inputs, err, errs) -> dict:
+    """CUDA-event times of K1-fwd, its plain version and one SDPA call on
+    the masked ``[prev ‖ own]`` layout, with the bound, on ``inputs``."""
+    q, k, v = inputs
+    b, h, n, d = q.shape
+    wsz = SMALL.window_size
     w = n // wsz
     qw = q.reshape(b, h * w, wsz, d)
     kw = concat_previous_window(k.reshape(b, h, w, wsz, d)).reshape(b, h * w, 2 * wsz, d)
@@ -288,32 +336,23 @@ def check_kernels() -> list[dict]:
     flops = 4.0 * d * visible * b * h
     nbytes = 4.0 * b * h * n * d * esize + 4.0 * b * h * n
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
-    rows.append({
+    return {
         "name": "local_attention_fwd", "route": "cuda",
+        "fwd_route": cuda_attention.fwd_route(q.dtype, d, wsz),
         "source": "progen_tpu_torch/kernels/csrc/local_attention_fwd.cu",
         "replaces": "progen_tpu/ops/pallas_attention.py:65",
-        "launches": None, "max_abs_err": timed_err, "ms": ms,
+        "launches": None, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "timed_shape": [b, h, n, d], "timed_dtype": str(q.dtype),
-        "max_abs_err_all_checks": max(errs),
-    })
-    emit("kernel_time", **rows[-1])
+        "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
+    }
 
-    # K2: ProGen-small gMLP layer (n = seq_len, d = hidden/2) at the init
-    # scale and at N(0, 0.05), a ragged n, and the main path's largest prefill
-    half = c.dim * c.ff_mult // 2
-    errs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        errs.append(sgu_case(gen, 4, c.seq_len, half, "init", dtype)[1])
-        inputs, err = sgu_case(gen, 4, c.seq_len, half, "normal", dtype)
-        if dtype == torch.bfloat16:
-            timed, timed_err = inputs, err
-        errs.append(err)
-        errs.append(sgu_case(gen, 4, 1000, half, "normal", dtype)[1])
-        errs.append(sgu_case(gen, SAMPLES_PER_PRIME, 2 * wsz, half, "normal",
-                             dtype)[1])
-    res, gate, wts, bias = timed
+
+def sgu_fwd_row(inputs, err, errs) -> dict:
+    """CUDA-event times of K2-fwd, its plain version and the library call
+    ``res * (matmul(tril(W), gate) + b)``, with the bound, on ``inputs``."""
+    res, gate, wts, bias = inputs
     b, n, dd = gate.shape
     ms = time_ms(lambda: cuda_sgu.spatial_gate_fwd(res, gate, wts, bias))
     plain_ms = time_ms(lambda: gated_mix(res, gate, wts, bias))
@@ -324,17 +363,46 @@ def check_kernels() -> list[dict]:
     flops = 2.0 * b * dd * tri + 2.0 * b * n * dd
     nbytes = (3.0 * b * n * dd + tri + n) * esize
     bound_ms, bound_by = bound(nbytes, flops, gate.dtype)
-    rows.append({
-        "name": "sgu_fwd", "route": "cuda",
+    return {
+        "name": "sgu_fwd", "route": "cuda", "fwd_route": cuda_sgu.fwd_route(gate.dtype),
         "source": "progen_tpu_torch/kernels/csrc/sgu_fwd.cu",
         "replaces": "progen_tpu/ops/pallas_sgu.py:128",
-        "launches": None, "max_abs_err": timed_err, "ms": ms,
+        "launches": None, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "timed_shape": [b, n, dd], "timed_dtype": str(gate.dtype),
-        "max_abs_err_all_checks": max(errs),
-    })
-    emit("kernel_time", **rows[-1])
+        "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
+    }
+
+
+def check_kernels() -> list[dict]:
+    """K1-fwd and K2-fwd against their plain versions in every case above,
+    each timed at the serving shape (the row of the ``kernels`` line) and
+    at the training shape (under ``at_train_shape``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    half = SMALL.dim * SMALL.ff_mult // 2
+    rows = []
+    for case_fn, row_fn, cases, f32_cases, timed in (
+            (attention_case, attention_fwd_row, K1_FWD_CASES, K1_FWD_F32_CASES, (0, 1)),
+            (sgu_case, sgu_fwd_row,
+             [(b, n, d or half, w) for b, n, d, w in K2_FWD_CASES],
+             [(b, n, d or half, w) for b, n, d, w in K2_FWD_F32_CASES], (1, 2))):
+        errs, kept = [], {}
+        for dtype, todo in ((torch.bfloat16, cases), (torch.float32, f32_cases)):
+            for i, case in enumerate(todo):
+                inputs, err = case_fn(gen, *case, dtype)
+                errs.append(err)
+                if dtype == torch.bfloat16 and i in timed:
+                    kept[i] = (inputs, err)
+                else:
+                    del inputs
+        serving, training = (row_fn(*kept[i], errs) for i in timed)
+        emit("kernel_time", **serving)
+        emit("kernel_time", **training)
+        serving["at_train_shape"] = {key: training[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
+            "max_abs_err")}
+        rows.append(serving)
     return rows
 
 
@@ -580,9 +648,35 @@ COUNTERS = {
 }
 
 
+# launches by route ("wgmma": the Hopper kernels, "wmma" and "fma": the
+# first ones)
+ROUTE_COUNTERS = {
+    "local_attention_fwd": (cuda_attention, "fwd_route_launches"),
+    "local_attention_bwd": (cuda_attention, "bwd_route_launches"),
+    "sgu_fwd": (cuda_sgu, "fwd_route_launches"),
+}
+
+
 def reset_counts() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
+    for module, attr in ROUTE_COUNTERS.values():
+        setattr(module, attr, dict.fromkeys(getattr(module, attr), 0))
+
+
+def read_routes() -> dict[str, dict[str, int]]:
+    return {name: dict(getattr(module, attr))
+            for name, (module, attr) in ROUTE_COUNTERS.items()}
+
+
+def require_forward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
+    """Every K1-fwd and K2-fwd launch of a run went through the Hopper
+    kernels (``hopper``, bf16 at ProGen-small) or through the first ones."""
+    for name, first in (("local_attention_fwd", "wmma"), ("sgu_fwd", "fma")):
+        route = "wgmma" if hopper else first
+        want = {**dict.fromkeys(routes[name], 0), route: launches[name]}
+        require(routes[name] == want,
+                f"{what}: {name} launches by route {routes[name]}, want {want}")
 
 
 def read_counts() -> dict[str, int]:
@@ -632,7 +726,9 @@ def serve(model) -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read_counts()
+    routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
+    require_forward_routes(routes, launches, True, "main path")
 
     for (text, seq, chunks, per_prefill), secs in zip(answers, prefill_s):
         p = len(text) + 1  # + BOS
@@ -655,7 +751,9 @@ def serve(model) -> dict:
     require(launches == want, f"kernel launches {launches}, want {want}")
     decode_s = total_s - sum(prefill_s)
     tokens = steps[0] * SAMPLES_PER_PRIME
-    return {"launches": launches, "prefills": prefills,
+    return {"launches": launches, "fwd_launches_by_route": {
+                k: routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
+            "prefills": prefills,
             "prefill_ms": [s * 1e3 for s in prefill_s],
             "decode_steps": steps[0], "decode_tokens": tokens,
             "decode_tokens_per_s": tokens / decode_s, "total_s": total_s,
@@ -764,7 +862,6 @@ def train(model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts()
-    cuda_attention.bwd_route_launches = {"wgmma": 0, "wmma": 0}
     for batch in batches:
         t0 = time.perf_counter()
         state, metrics = fns.train_step(state, batch)
@@ -773,7 +870,8 @@ def train(model) -> dict:
         grad_norms.append(float(metrics["grad_norm"]))
     torch.cuda.synchronize()
     launches = read_counts()
-    routes = dict(cuda_attention.bwd_route_launches)
+    all_routes = read_routes()
+    routes = all_routes["local_attention_bwd"]
     peak = torch.cuda.max_memory_allocated()
 
     per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
@@ -784,6 +882,8 @@ def train(model) -> dict:
     # every K1 backward launch of the bf16 step on the Hopper kernels
     want_routes = {"wgmma": 2 * c.depth * TRAIN_STEPS, "wmma": 0}
     require(routes == want_routes, f"K1 backward routes {routes}, want {want_routes}")
+    # and every K1-fwd and K2-fwd launch (d_res included) on the Hopper kernels
+    require_forward_routes(all_routes, launches, True, "train")
     require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
             f"non-finite training loss or grad norm: {losses}, {grad_norms}")
     require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -793,6 +893,8 @@ def train(model) -> dict:
     rate = tokens / (step_ms / 1e3)
     return {"launches": launches, "launches_per_step": per_step,
             "k1_bwd_launches_by_route": routes,
+            "fwd_launches_by_route": {k: all_routes[k]
+                                      for k in ("local_attention_fwd", "sgu_fwd")},
             "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
             "params": params, "losses": losses, "grad_norms": grad_norms,
             "step_ms_median": step_ms, "step_ms": [s * 1e3 for s in step_s],
@@ -1040,7 +1142,11 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read_counts()
+    routes = read_routes()
     peak = torch.cuda.max_memory_allocated()
+    # bf16 admit programs run the Hopper forward kernels, f32 the first ones
+    require_forward_routes(routes, launches,
+                           model.policy.compute_dtype == torch.bfloat16, phase)
 
     require(sorted(comp.uid for comp in done) == list(range(len(requests))),
             f"{phase}: not every request was answered exactly once")
@@ -1065,6 +1171,8 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
     fields = {"config": "small", "dtype": str(model.policy.compute_dtype),
               "requests": len(requests), "slots": ENGINE_SLOTS, "chunk": ENGINE_CHUNK,
               "launches": launches, "admit_programs": admits[0],
+              "fwd_launches_by_route": {k: routes[k]
+                                        for k in ("local_attention_fwd", "sgu_fwd")},
               "chunks_run": engine.chunks_run, "decode_steps": steps,
               "generated_tokens": generated, "total_s": total_s,
               "tokens_per_s": generated / total_s,

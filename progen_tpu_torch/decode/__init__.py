@@ -9,6 +9,7 @@ from progen_tpu_torch.decode.sampler import (
     apply_logit_mask,
     gumbel_topk_sample,
     make_chunked_sampler,
+    make_sampler,
     teacher_forced_logits,
     truncate_after_eos,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "init_caches",
     "make_chunked_sampler",
     "make_prefiller",
+    "make_sampler",
     "pad_prime_length",
     "teacher_forced_logits",
     "truncate_after_eos",

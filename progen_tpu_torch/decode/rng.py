@@ -21,7 +21,9 @@ What is reproduced (JAX 0.9 names): ``threefry2x32`` (the 20-round hash),
 ``(0, 0), (0, 1)``), ``random_bits`` (``_threefry_random_bits_partitionable``
 at 32 bits for shape ``(n,)``: counters ``(0, i)``, the two output words
 XORed), ``uniform`` (``_uniform``: 23 mantissa bits under exponent 0) and
-``gumbel`` (the default ``"low"`` mode of ``_gumbel``).
+``gumbel`` (the default ``"low"`` mode of ``_gumbel``).  :class:`KeySeq`
+is ``progen_tpu/core/rng.py``'s host-side key sequence on this chain, and
+:func:`split_key` the scalar ``split`` it and the sampler walk on the host.
 """
 
 from __future__ import annotations
@@ -96,3 +98,29 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,), float32)`` per key:
     ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
     return -torch.log(-torch.log(uniform(keys, n, _F32_TINY, 1.0)))
+
+
+def split_key(key_data: tuple[int, int]) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``jax.random.split`` of one key held as two Python ints: the
+    ``(key, subkey)`` pair, hashed on the host with no tensor and no device
+    (the hash is the same integer arithmetic on ints)."""
+    k1, k2 = key_data
+    a0, b0 = threefry2x32(k1, k2, 0, 0)
+    a1, b1 = threefry2x32(k1, k2, 0, 1)
+    return (a0, b0), (a1, b1)
+
+
+class KeySeq:
+    """``progen_tpu.core.rng.KeySeq`` on the raw key data: ``KeySeq(seed)``
+    starts at ``key(seed)`` and each ``next`` returns ``split(key)[1]`` as an
+    int64 ``(2,)`` tensor on the CPU, keeping ``split(key)[0]``."""
+
+    def __init__(self, seed: int):
+        self._key = (0, int(seed) & _MASK)
+
+    def __next__(self) -> torch.Tensor:
+        self._key, sub = split_key(self._key)
+        return torch.tensor(sub, dtype=torch.int64)
+
+    def __iter__(self):
+        return self

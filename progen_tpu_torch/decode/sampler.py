@@ -3,13 +3,15 @@
 
 Top-k Gumbel-max sampling in f32 (greedy at ``temperature=0``), masked
 entries ``-inf``; truncation after the second zero (position 0's BOS/pad
-counts as the first).  ``ChunkedSampler`` draws its Gumbel noise from an
-explicit ``torch.Generator``: that is NOT the JAX key chain, so its sampled
-tokens match the JAX package only where the noise is handed over
-(``noise=``) or the decode is greedy.  The serving engine's per-row
-sampling (:func:`gumbel_topk_sample_batched`, :func:`split_keys_batched`)
-runs on the JAX key chain itself (``decode/rng.py``) and gives JAX's
-tokens.
+counts as the first).  ``ChunkedSampler`` given a ``key`` (raw key data,
+``decode/rng.py``) walks the JAX key chain and gives the tokens of the JAX
+package's ``make_sampler`` and ``make_chunked_sampler`` for that key: it
+burns the splits the sequential sampler spends on the prime, then splits
+once a step and draws each step's ``(B, V)`` noise from one subkey, as
+``jax.random.gumbel(sub, (B, V))`` does.  Given a ``torch.Generator``
+instead it draws its noise from that (not JAX's stream).  The serving
+engine's per-row sampling (:func:`gumbel_topk_sample_batched`,
+:func:`split_keys_batched`) runs on the JAX key chain too.
 """
 
 from __future__ import annotations
@@ -38,6 +40,14 @@ def gumbel_noise(shape, generator: torch.Generator | None = None,
     return -torch.log(-torch.log(u))
 
 
+def key_gumbel(key_data: tuple[int, int], shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` for one key held as two
+    ints: the bits run over the flattened shape, as JAX's partitionable
+    threefry draws them."""
+    keys = torch.tensor(key_data, dtype=torch.int64, device=device)
+    return rng.gumbel(keys, int(torch.Size(shape).numel())).reshape(shape)
+
+
 def gumbel_topk_sample(logits: torch.Tensor, top_k: int | None,
                        temperature: float = 1.0, *,
                        generator: torch.Generator | None = None,
@@ -46,7 +56,8 @@ def gumbel_topk_sample(logits: torch.Tensor, top_k: int | None,
     """Sample token ids ``(B,)`` from logits ``(B, V)``, in f32 throughout.
 
     ``noise`` (optional, ``(B, V)``) replaces the Gumbel draw from
-    ``generator``, so a test can hand over the exact draw JAX made.
+    ``generator``, so the caller can hand over the exact draw JAX makes
+    (:func:`key_gumbel`).
     ``mask`` (optional bool): tokens with a false entry are never emitted,
     greedy included.
     """
@@ -111,9 +122,11 @@ class ChunkedSampler:
     in chunks of ``chunk_size`` cached steps; between chunks the host checks
     whether every row has emitted EOS and stops if so, so cost tracks the
     emitted tokens.  ``last_num_chunks`` holds the chunks the latest call
-    ran.  Call it as ``sampler(prime, length, generator=..., top_k=...,
+    ran.  Call it as ``sampler(prime, length, key=..., top_k=...,
     add_bos=..., temperature=...)`` with ``prime`` ``(B, P)`` int on the
-    model's device; it returns ``(B, length)`` EOS-truncated sequences.
+    model's device and ``key`` raw key data ``(2,)`` (``rng.KeySeq``), or
+    with ``generator=`` a ``torch.Generator`` in place of the key; it
+    returns ``(B, length)`` EOS-truncated sequences.
     """
 
     def __init__(self, model: ProGen, chunk_size: int = 64):
@@ -125,17 +138,19 @@ class ChunkedSampler:
 
     @torch.no_grad()
     def __call__(self, prime: torch.Tensor, length: int, *,
+                 key: torch.Tensor | None = None,
                  generator: torch.Generator | None = None,
                  top_k: int | None = None, add_bos: bool = False,
                  temperature: float = 1.0) -> torch.Tensor:
+        if key is not None and generator is not None:
+            raise ValueError("give a key or a generator, not both")
         config = self.model.config
         if prime.dim() != 2:
             raise ValueError(f"prime must be (B, P), got {tuple(prime.shape)}")
         b, p = prime.shape
         prime = prime.long()
         if add_bos:
-            prime = torch.cat([torch.zeros_like(prime[:, :1]),
-                               prime[:, :length - 1]], dim=1)
+            prime = torch.cat([prime.new_zeros((b, 1)), prime[:, :length - 1]], dim=1)
             p = min(p + 1, length)
         start_pos = p
         if not (0 < start_pos <= length <= config.seq_len):
@@ -149,9 +164,24 @@ class ChunkedSampler:
                              device=prime.device)
         last_logits, caches = self.prefill(tokens, lengths, decode_len=length)
 
+        chain = None
+        if key is not None:
+            # the key chain on the host: burn the splits the sequential
+            # sampler spends on positions 0 .. start_pos - 2, whose writes
+            # fall inside the prime
+            chain = tuple(int(x) for x in key.tolist())
+            for _ in range(start_pos - 1):
+                chain = rng.split_key(chain)[0]
+
         def sample(logits):
+            nonlocal chain
+            noise = None
+            if chain is not None:  # one split a step, greedy or not
+                chain, sub = rng.split_key(chain)
+                if temperature != 0.0:
+                    noise = key_gumbel(sub, logits.shape, logits.device)
             return gumbel_topk_sample(logits, top_k, temperature,
-                                      generator=generator)
+                                      generator=generator, noise=noise)
 
         seq = torch.zeros(b, length, dtype=torch.long, device=prime.device)
         seq[:, :start_pos] = prime
@@ -181,6 +211,14 @@ class ChunkedSampler:
 
 def make_chunked_sampler(model: ProGen, chunk_size: int = 64) -> ChunkedSampler:
     """The JAX package's name for ``ChunkedSampler(model, chunk_size)``."""
+    return ChunkedSampler(model, chunk_size)
+
+
+def make_sampler(model: ProGen, chunk_size: int = 64) -> ChunkedSampler:
+    """The JAX package's name for its sequential sampler.  The port serves
+    it through :class:`ChunkedSampler`, which gives the sequential
+    sampler's tokens for the same key (the JAX package's own contract for
+    ``make_chunked_sampler``) and stops early once every row has ended."""
     return ChunkedSampler(model, chunk_size)
 
 

@@ -116,6 +116,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// `p` rounded up to the next 1024-byte boundary: where a block's dynamic
+// shared memory starts its 128-byte-swizzled tiles (the swizzle's atom).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
 // Orders this thread's ordinary shared-memory writes before later reads and
 // writes of the async proxy (wgmma operands, TMA copies).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -333,6 +340,27 @@ inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (batch, n, d) bf16 rows, d contiguous, as a 3-D tensor map of (64
+// channels, `rows` positions, 1 batch row) boxes.
+inline bool bf16_rows_map(CUtensorMap* map, const void* base, int batch, int n, int d,
+                          int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(n) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return bf16_tensor_map(map, base, 3, dims, strides, box);
+}
+
+// An (n, n) bf16 matrix whose rows lie ceil8(n) elements apart (16-byte
+// strides, as TMA needs) as a tensor map of (64, 64) boxes.
+inline bool bf16_square_map(CUtensorMap* map, const void* base, int n) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>((n + 7) / 8 * 8) * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return bf16_tensor_map(map, base, 2, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -92,11 +92,6 @@ __device__ __forceinline__ uint4 mul_vec(uint4 a, uint4 b) {
   return out;
 }
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
 // -- bf16 d_W: split reduction over (batch, channel) ---------------------------
 
 namespace dwk {
@@ -506,28 +501,14 @@ sgu_dw_f32_kernel(const float* __restrict__ dout, const float* __restrict__ res,
 
 // -- launchers -------------------------------------------------------------------
 
-// (batch, n, d) bf16 rows as a 3-D tensor map of (64 channels, `rows`
-// positions, 1 batch row) boxes.
-bool rows_map(CUtensorMap* map, const void* base, int batch, int n, int d, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(n) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  return bf16_tensor_map(map, base, 3, dims, strides, box);
-}
-
 int ceil8(int n) { return (n + 7) / 8 * 8; }
 
 cudaError_t launch_dgate_bf16(const void* w, const void* dout, const void* res, void* dgate,
                               int batch, int n, int d, cudaStream_t stream) {
   CUtensorMap w_map, dout_map, res_map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ceil8(n)) * 2};
-  const cuuint32_t box[2] = {64, 64};
-  if (!bf16_tensor_map(&w_map, w, 2, dims, strides, box) ||
-      !rows_map(&dout_map, dout, batch, n, d, dgk::STEP) ||
-      !rows_map(&res_map, res, batch, n, d, dgk::STEP)) {
+  if (!bf16_square_map(&w_map, w, n) ||
+      !bf16_rows_map(&dout_map, dout, batch, n, d, dgk::STEP) ||
+      !bf16_rows_map(&res_map, res, batch, n, d, dgk::STEP)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(sgu_dgate_kernel,
@@ -563,9 +544,9 @@ cudaError_t launch_dw_bf16(const void* dout, const void* res, const void* gate, 
   const int steps = batch * chunks;
   if (splits < 1 || splits > steps) return cudaErrorInvalidValue;
   CUtensorMap dout_map, res_map, gate_map;
-  if (!rows_map(&dout_map, dout, batch, n, d, dwk::TILE) ||
-      !rows_map(&res_map, res, batch, n, d, dwk::TILE) ||
-      !rows_map(&gate_map, gate, batch, n, d, dwk::TILE)) {
+  if (!bf16_rows_map(&dout_map, dout, batch, n, d, dwk::TILE) ||
+      !bf16_rows_map(&res_map, res, batch, n, d, dwk::TILE) ||
+      !bf16_rows_map(&gate_map, gate, batch, n, d, dwk::TILE)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(sgu_dw_partial_kernel,

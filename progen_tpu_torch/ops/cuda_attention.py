@@ -12,13 +12,14 @@ build at first use.  On a CUDA tensor they launch the kernels or raise;
 they never fall back.  ``launches``, ``dq_launches`` and ``dkv_launches``
 count the launches of K1-fwd, K1-dq and K1-dkv, and nothing else.
 
-The backward kernels have two routes, chosen before the launch by
-:func:`bwd_route` from the dtype, ``dim_head`` and the window alone: bf16
-with ``dim_head`` 64 or 128 and windows that are multiples of 128 take the
-Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32, ``dim_head``
-32 and other windows take the WMMA kernels (``"wmma"``).  A failure on one
-route raises; it never tries the other.  ``bwd_route_launches`` counts the
-backward launches of each route.
+Every kernel has two routes, chosen before the launch by :func:`fwd_route`
+and :func:`bwd_route` from the dtype, ``dim_head`` and the window alone:
+bf16 with ``dim_head`` 64 or 128 and windows that are multiples of 128 take
+the Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32,
+``dim_head`` 32 and other windows take the WMMA kernels (``"wmma"``).  A
+failure on one route raises; it never tries the other.
+``fwd_route_launches`` and ``bwd_route_launches`` count the launches of each
+route.
 
 :func:`local_attention` is what the model calls: K1-fwd once, and under
 autograd K1-dq and K1-dkv in the backward, from the saved q, k, v, out and
@@ -40,14 +41,15 @@ BWD = "local_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DIM_HEADS = (32, 64, 128)
 
-# the bf16 backward kernels' tiling (local_attention_bwd.cu, namespace wg): a
-# block owns 128 rows of one window, two warpgroups of 64, and streams
-# 64-row tiles of the other side
+# the bf16 Hopper kernels' tiling (attention_wgmma.cuh): a block owns 128
+# rows of one window, two warpgroups of 64, and streams 64-row tiles of the
+# other side
 BWD_ROWS = 128
 BWD_TILE = 64
 WGMMA_DIM_HEADS = (64, 128)
 
 launches = 0
+fwd_route_launches = {"wgmma": 0, "wmma": 0}
 dq_launches = 0
 dkv_launches = 0
 bwd_route_launches = {"wgmma": 0, "wmma": 0}
@@ -98,15 +100,20 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window_size)
     b, h, n, d = q.shape
-    fn = _kernel_fn(KERNEL, KERNEL, 5)
+    route = fwd_route(q.dtype, d, window_size)
+    name = KERNEL if route == "wmma" else f"{KERNEL}_wgmma"
+    if route == "wgmma":
+        kernels.check_aligned(q, k, v)
+    fn = _kernel_fn(name, KERNEL, 5)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), b * h, n, d, window_size, float(scale),
              DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     launches += 1
+    fwd_route_launches[route] += 1
     return out, lse
 
 
@@ -120,9 +127,45 @@ def bwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
     return "wmma"
 
 
+def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
+    """Which K1-fwd kernel takes these shapes: the same rule as
+    :func:`bwd_route` (the Hopper forward walks what K1-dq walks)."""
+    return bwd_route(dtype, dim_head, window_size)
+
+
+def k1_fwd_tiles(n: int, window_size: int) -> list[tuple[int, list[tuple[int, int, str]]]]:
+    """The bf16 K1-fwd kernel's blocks and walks, the formulas of
+    ``local_attention_fwd.cu`` (``fwg::block_row``) and
+    ``attention_wgmma.cuh`` (``dq_first``, ``dq_tiles``, ``dq_kind``): for
+    each block of one (b, h) in launch order, longest walk first, its first
+    query row ``b0`` and, for each streamed 64-key tile ``t0`` in order and
+    each of its two warpgroups' rows ``r0``, ``(r0, t0, kind)``.  Rows of
+    window 0 also count the phantom window's ``wsz`` zero logits, as an
+    exact term.  A block at place p of window w >= 1 walks
+    ``wsz / 64 + 2 p + 2`` tiles, one of window 0 ``2 p + 2``."""
+    wsz, wins, places = window_size, n // window_size, window_size // BWD_ROWS
+    later = (wins - 1) * places  # blocks outside window 0
+    blocks = []
+    for rank in range(n // BWD_ROWS):
+        if rank < later:
+            b0 = ((wins - 1 - rank % (wins - 1)) * wsz
+                  + (places - 1 - rank // (wins - 1)) * BWD_ROWS)
+        else:
+            b0 = (places - 1 - (rank - later)) * BWD_ROWS
+        first = max(0, (b0 // wsz - 1) * wsz)
+        walk = []
+        for it in range((b0 + BWD_TILE - first) // BWD_TILE + 1):
+            t0 = first + BWD_TILE * it
+            for r0 in (b0, b0 + BWD_TILE):
+                kind = "full" if t0 < r0 else "diagonal" if t0 == r0 else "skipped"
+                walk.append((r0, t0, kind))
+        blocks.append((b0, walk))
+    return blocks
+
+
 def k1_bwd_tiles(n: int, window_size: int, side: str) -> list[tuple[int, int, str]]:
     """The bf16 backward kernels' tile walk, the formulas of
-    ``local_attention_bwd.cu`` (``wg::dq_tiles``, ``dq_kind``, ``dkv_tiles``,
+    ``attention_wgmma.cuh`` (``dq_tiles``, ``dq_kind``, ``dkv_tiles``,
     ``dkv_kind``): for each block, in order, each of its two warpgroups'
     ``(r0, t0, kind)`` with every streamed tile, ``kind`` one of ``"full"``,
     ``"diagonal"`` (causal mask inside the tile) and ``"skipped"``.

@@ -12,6 +12,11 @@ raise; they never fall back.  ``launches``, ``dgate_launches`` and
 nothing else (in bf16 a K2-dW call is two launches: the split partial
 products, then their ordered sum, see :func:`dw_split`).
 
+K2-fwd has two routes, chosen before the launch by :func:`fwd_route` from
+the dtype alone: bf16 takes the Hopper kernel (a TMA ring into ``wgmma``,
+``"wgmma"``), f32 the first kernel (FMA loops, ``"fma"``).
+``fwd_route_launches`` counts the launches of each.
+
 :func:`gated_mix` is what the model calls: K2-fwd once, and under autograd
 the backward of ``pallas_sgu.py:316-335``: d_res is K2-fwd again with dout
 in place of res, d_gate is K2-dgate, d_W is K2-dW and d_b a plain f32
@@ -32,6 +37,7 @@ BWD = "sgu_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+fwd_route_launches = {"wgmma": 0, "fma": 0}
 dgate_launches = 0
 dw_launches = 0
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -41,6 +47,12 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 # lower triangle, 64 channels per step of the (batch, channel) axis
 DW_TILE = 128
 DW_STEP = 64
+# bf16 K2-fwd's tiling (kernels/csrc/sgu_fwd.cu, namespace fw): a block owns
+# 128 output rows (two warpgroups of 64) and 128 channels of one batch row
+# and walks 64-deep steps of k
+FWD_ROWS = 128
+FWD_COLS = 128
+FWD_STEP = 64
 
 
 def _kernel_fn(name: str, library: str, n_tensors: int):
@@ -112,19 +124,54 @@ def spatial_gate_fwd(res: torch.Tensor, gate: torch.Tensor,
         return plain.gated_mix(res, gate, weights, biases)
     _check_rows(res, gate)
     _check_weights(weights, gate, biases)
-    fn = _kernel_fn(KERNEL, KERNEL, 5)
+    route = fwd_route(gate.dtype)
+    name = KERNEL if route == "fma" else f"{KERNEL}_wgmma"
+    if route == "wgmma":
+        weights = _padded_weights(weights)
+        kernels.check_aligned(res, gate, weights)
+    fn = _kernel_fn(name, KERNEL, 5)
     out = torch.empty_like(gate)
-    _run(fn, KERNEL, (res.data_ptr(), gate.data_ptr(), weights.data_ptr(),
-                      biases.data_ptr(), out.data_ptr()), gate)
+    _run(fn, name, (res.data_ptr(), gate.data_ptr(), weights.data_ptr(),
+                    biases.data_ptr(), out.data_ptr()), gate)
     launches += 1
+    fwd_route_launches[route] += 1
     return out
+
+
+def fwd_route(dtype: torch.dtype) -> str:
+    """Which K2-fwd kernel takes this dtype: ``"wgmma"`` (the Hopper
+    kernel) for bf16, ``"fma"`` (the first kernel) for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def k2_fwd_tiles(batch: int, n: int, d: int) -> list[tuple[int, int, int, list]]:
+    """The bf16 K2-fwd kernel's blocks and walks, the formulas of
+    ``sgu_fwd.cu`` (``fw::block_tile`` and the step kinds): for each block
+    in launch order, longest walk first, ``(b, m0, c0, walk)`` with ``walk``
+    the ``(r0, k0, kind)`` of each 64-deep step ``k0`` and each of its two
+    warpgroups' rows ``r0``, ``kind`` one of ``"full"``, ``"diagonal"``
+    (the strict upper part of W's box zeroed) and ``"skipped"``."""
+    row_tiles, col_tiles = -(-n // FWD_ROWS), -(-d // FWD_COLS)
+    blocks = []
+    for blk in range(batch * row_tiles * col_tiles):
+        ct, rest = blk % col_tiles, blk // col_tiles
+        b, mi = rest % batch, row_tiles - 1 - rest // batch
+        m0 = mi * FWD_ROWS
+        walk = []
+        for it in range(-(-min(m0 + FWD_ROWS, n) // FWD_STEP)):
+            k0 = it * FWD_STEP
+            for r0 in (m0, m0 + FWD_STEP):
+                kind = "full" if k0 < r0 else "diagonal" if k0 == r0 else "skipped"
+                walk.append((r0, k0, kind))
+        blocks.append((b, m0, ct * FWD_COLS, walk))
+    return blocks
 
 
 def _padded_weights(weights: torch.Tensor) -> torch.Tensor:
     """``weights`` with its rows ``ceil8(n)`` elements apart, as K2-dgate
-    reads them (TMA needs 16-byte row strides): itself when ``n % 8 == 0``,
-    else a zero-padded ``(n, ceil8(n))`` copy (the zeros lie outside the
-    ``(n, n)`` square the kernel reads)."""
+    and bf16 K2-fwd read them (TMA needs 16-byte row strides): itself when
+    ``n % 8 == 0``, else a zero-padded ``(n, ceil8(n))`` copy (the zeros
+    lie outside the ``(n, n)`` square the kernel reads)."""
     n = weights.shape[0]
     if n % 8 == 0:
         return weights

@@ -1,9 +1,13 @@
 """Sampling CLI of the port: prefill a prime, decode in early-exit chunks,
 print the samples.
 
-    python -m progen_tpu_torch.sample --config small --seed 0 --prime MKV \\
+    python -m progen_tpu_torch.sample --config small --seed 42 --prime MKV \\
         --num_samples 4 --top_k 25 --temperature 1.0 --seq_len 1024 \\
-        --chunk 64 [--params weights.npz] [--device cuda]
+        --chunk 32 [--params weights.npz] [--device cuda]
+
+The noise walks the JAX key chain from ``KeySeq(--seed)``, as the JAX
+package's ``sample.py`` does, so the same weights, prime and seed give its
+samples; ``--seed`` and ``--chunk`` default to its 42 and 32.
 
 With ``--serve`` the primes (``--prime "MKV|MAL|..."``, or ``--num_samples``
 copies of one prime) go through the continuous-batching ``ServingEngine``
@@ -30,7 +34,8 @@ from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.tokenizer import decode_tokens, encode_tokens
 from progen_tpu_torch.decode.engine import Request, ServingEngine
-from progen_tpu_torch.decode.sampler import make_chunked_sampler
+from progen_tpu_torch.decode.rng import KeySeq
+from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.configs import CONFIGS
 from progen_tpu_torch.models.progen import ProGen
 
@@ -38,7 +43,7 @@ from progen_tpu_torch.models.progen import ProGen
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", default="small", choices=sorted(CONFIGS))
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--prime", default="")
     p.add_argument("--num_samples", type=int, default=1)
     p.add_argument("--top_k", type=int, default=25)
@@ -46,7 +51,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seq_len", type=int, default=None,
                    help="decode length, at most the config's seq_len "
                         "(the default)")
-    p.add_argument("--chunk", type=int, default=64,
+    p.add_argument("--chunk", type=int, default=32,
                    help="decode steps between early-exit checks")
     p.add_argument("--params", default=None,
                    help=".npz of flat flax parameter keys")
@@ -110,9 +115,8 @@ def main(argv=None) -> list:
                          device=device).repeat(args.num_samples, 1)
     add_bos = bool(prime_tokens)
     prime_length = len(prime_tokens) + 1
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    sampler = make_chunked_sampler(model, chunk_size=args.chunk)
-    sampled = sampler(prime, seq_len, generator=generator, top_k=args.top_k,
+    sampler = make_sampler(model, chunk_size=args.chunk)
+    sampled = sampler(prime, seq_len, key=next(KeySeq(args.seed)), top_k=args.top_k,
                       add_bos=add_bos, temperature=args.temperature)
 
     texts = []

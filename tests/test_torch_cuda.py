@@ -83,6 +83,70 @@ def test_sgu_kernel_matches_plain(gen, dtype, b, n, d):
     _close(out, gated_mix(res, gate, w, bias), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,d,wsz,bf16_route", [
+    (4, 8, 1024, 128, 256, "wgmma"),   # ProGen-small's serving shape
+    (8, 8, 1024, 128, 256, "wgmma"),   # ProGen-small's training shape
+    (4, 8, 256, 128, 256, "wgmma"),    # one window: the phantom window only
+    (2, 8, 1024, 64, 256, "wgmma"),    # ProGen-tiny's head
+    (1, 12, 2048, 128, 512, "wgmma"),  # ProGen-base's window
+    (1, 3, 512, 128, 128, "wgmma"),    # the smallest window the wgmma route takes
+    (2, 3, 1024, 32, 512, "wmma"),     # ProGen-default's head
+    (2, 8, 1024, 128, 64, "wmma"),     # a window under 128
+])
+def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
+        gen, dtype, b, h, n, d, wsz, bf16_route):
+    """K1-fwd on the route each case must take (f32 always on the WMMA
+    kernel), against the plain version; a second run gives the same bits."""
+    route = bf16_route if dtype == torch.bfloat16 else "wmma"
+    assert cuda_attention.fwd_route(dtype, d, wsz) == route
+    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    before = dict(cuda_attention.fwd_route_launches)
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
+    torch.cuda.synchronize()
+    routed = {r: cuda_attention.fwd_route_launches[r] - before[r] for r in before}
+    assert routed == {"wgmma": 0, "wmma": 0, route: 1}
+    want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True)
+    _close(out, want, dtype, TOL_ATTN_OUT)
+    _close(lse, want_lse, torch.float32)
+    again, again_lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
+    assert torch.equal(again, out) and torch.equal(again_lse, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,weights", [
+    (4, 1024, 2048, "init"),     # ProGen-small's gMLP at the init scale
+    (4, 1024, 2048, "normal"),   # ... and with a mix far from the bias
+    (8, 1024, 2048, "normal"),   # the training shape
+    (1, 1024, 2048, "normal"),   # batch 1
+    (4, 1000, 2048, "normal"),   # a ragged n: W padded to 16-byte rows
+    (2, 512, 2048, "normal"),    # the main path's largest prefill
+    (3, 100, 520, "normal"),     # under one tile, a ragged channel tile
+])
+def test_sgu_kernel_takes_its_route_and_gives_the_same_bits(gen, dtype, b, n, d, weights):
+    """K2-fwd on the route of its dtype (bf16 on the Hopper kernel, f32 on
+    the FMA one), against the plain version; a second run gives the same
+    bits."""
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert cuda_sgu.fwd_route(dtype) == route
+    res, gate = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
+                 for _ in range(2))
+    if weights == "init":
+        w = (torch.rand(n, n, device="cuda", generator=gen) * 2 - 1) * (1e-3 / n)
+    else:
+        w = torch.randn(n, n, device="cuda", generator=gen) * 0.05
+    w = w.to(dtype)
+    bias = torch.randn(n, 1, device="cuda", generator=gen).to(dtype)
+    before = dict(cuda_sgu.fwd_route_launches)
+    out = cuda_sgu.spatial_gate_fwd(res, gate, w, bias)
+    torch.cuda.synchronize()
+    routed = {r: cuda_sgu.fwd_route_launches[r] - before[r] for r in before}
+    assert routed == {"wgmma": 0, "fma": 0, route: 1}
+    _close(out, gated_mix(res, gate, w, bias), dtype)
+    assert torch.equal(cuda_sgu.spatial_gate_fwd(res, gate, w, bias), out)
+
+
 def test_prefill_goes_through_the_kernels(gen):
     cfg = ProGenConfig(num_tokens=32, dim=64, seq_len=64, depth=3,
                        window_size=16, global_mlp_depth=2, heads=2,

@@ -415,13 +415,20 @@ def test_attention_backward_wrappers_refuse_misaligned_tensors(route, dtype, d, 
             cuda_attention.bwd_route_launches) == before
 
 
-@pytest.mark.parametrize("variant", sorted(ablate.VARIANTS))
+def check_ablation_applies(source: str, variant: str) -> None:
+    """An ablation finds every place it edits in the kernels' source (a
+    source edit that moves one fails here, not on the card), and only the
+    whole source comes back unchanged."""
+    start, _, variants = ablate.SOURCES[source]
+    text = (kernels.CSRC / f"{source}.cu").read_text()
+    part = ablate.variant_source(source, variant).split(start, 1)[1]
+    assert (part == text.split(start, 1)[1]) == (variant == "whole")
+    for edit in variants[variant]:
+        new, count = (edit[1], edit[2]) if isinstance(edit[2], int) else (edit[2], 1)
+        assert part.count(new) >= count
+
+
+@pytest.mark.parametrize("variant", sorted(ablate.SOURCES["local_attention_bwd"][2]))
 def test_k1_bwd_ablation_variants_apply_to_the_source(variant):
-    """Each ablation of the Hopper K1 backward finds every place it edits
-    in the kernels' source (a source edit that moves one fails here, not on
-    the card), and only the whole source comes back unchanged."""
-    source = ablate.SOURCE.read_text()
-    kernels_part = ablate.variant_source(variant).split(ablate.KERNELS_START, 1)[1]
-    assert (kernels_part == source.split(ablate.KERNELS_START, 1)[1]) == (variant == "whole")
-    for _, new, count in ablate.VARIANTS[variant]:
-        assert kernels_part.count(new) >= count
+    """Each ablation of the Hopper K1 backward applies to its source."""
+    check_ablation_applies("local_attention_bwd", variant)
