@@ -42,13 +42,17 @@ non-zero without its last line:
 6. paged gate mix: K3 and K3-q8 against their plain versions at the
    engine's shapes (8 rows at ragged positions, partly-NULL tables, garbage
    in the dump page and past each row's position; f32, bf16 and int8 pools,
-   int8 weights; a page size that overhangs the weight square);
+   int8 weights; a page size that overhangs the weight square; one row at
+   position 1023, eight at 0, eight at 1023, table entries outside the
+   pool), every case held to its route (the bulk kernel at the engine's
+   shapes) and run twice for the same bits; timed warm and with L2 cold,
+   beside the first kernel (the simt route) at the same shape;
 7. engine path: ProGen-small (bf16) answers 12 requests through the
    continuous-batching ``ServingEngine`` with 8 slots, dense, paged and
    paged with 8-bit pages, then paged again with a pool small enough to
    force pauses and evictions; each run's launch counts (K3 or K3-q8 twice
-   per decode step, K1-fwd/K2-fwd 12/2 per admit program, on the Hopper
-   route in bf16 and the first kernels in f32), pages returned,
+   per decode step, all on the bulk route, K1-fwd/K2-fwd 12/2 per admit
+   program, on the Hopper route in bf16 and the first kernels in f32), pages returned,
    prefix-cache hits, tokens/s and peak memory; 32 teacher-forced paged
    steps through K3 and K3-q8 against the same steps through the plain
    version; and, in f32 and greedy, the paged engine's tokens against the
@@ -66,6 +70,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import subprocess
@@ -163,6 +168,7 @@ ENGINE_REQUESTS = 12
 ENGINE_TIGHT_PAGES = 2 + 96    # pool pages of the tight run, 2 reserved
 ENGINE_TOKEN_MATCH = 0.98      # the JAX package's accuracy gate (bench_serving.py)
 SPIN_CYCLES = 40_000_000       # ~20 ms of device spin ahead of a timed run
+FLUSH_BYTES = 256 << 20        # written before each cold call: five times L2
 SEED = 0
 PRIME_LENGTHS = (37, 200, 300, 511)
 SAMPLES_PER_PRIME = 2
@@ -197,6 +203,28 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms_cold(fn, iters: int = 20) -> float:
+    """Median CUDA-event time of ``fn`` with the 50 MB L2 cold, as a decode
+    step finds it (the model passes through L2 between two calls): each of
+    ``iters`` calls follows a write of a 256 MB buffer and is bracketed by
+    its own event pair, the median of the pairs is returned.  After one
+    warm-up call, everything is enqueued behind a ~20 ms device spin, so
+    the host's pace does not enter."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for i, (start, end) in enumerate(pairs):
+        flush.fill_(i & 1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in pairs]))
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
@@ -648,12 +676,13 @@ COUNTERS = {
 }
 
 
-# launches by route ("wgmma": the Hopper kernels, "wmma" and "fma": the
-# first ones)
+# launches by route ("wgmma" and "bulk": the Hopper kernels, "wmma", "fma"
+# and "simt": the first ones)
 ROUTE_COUNTERS = {
     "local_attention_fwd": (cuda_attention, "fwd_route_launches"),
     "local_attention_bwd": (cuda_attention, "bwd_route_launches"),
     "sgu_fwd": (cuda_sgu, "fwd_route_launches"),
+    "paged_gate_mix": (cuda_paged_gate_mix, "route_launches"),
 }
 
 
@@ -961,11 +990,16 @@ def check_train_against_plain() -> dict:
 # -- phase 6: the paged gate mix against its plain version --------------------
 
 
-def paged_case(gen, n, d, ps, pos, pool_dtype) -> dict:
+def paged_case(gen, n, d, ps, pos, pool_dtype, outside: bool = False) -> dict:
     """A pool of random rows (garbage in the dump page and in every row past
     a request's position; page 0 zeros), tables that name random pages up to
     each row's last page and NULL beyond, and the int8 twins of the weights
-    (per row) and of the pool (per pool row)."""
+    (per row) and of the pool (per pool row).  ``outside``: every table
+    entry past a row's last page names a page past the pool, and one used
+    entry of each of the first two rows names one outside it (-1 and
+    num_pages + 7), which the kernels skip; the plain version, which
+    gathers every entry, is given NULL in their place (the zero page adds
+    what a skipped page adds)."""
     batch = len(pos)
     ppr = -(-n // ps)
     num_pages = 2 + batch * ppr
@@ -976,11 +1010,19 @@ def paged_case(gen, n, d, ps, pos, pool_dtype) -> dict:
     for b, p in enumerate(pos):
         used = p // ps + 1
         table[b, :used] = perm[b * ppr: b * ppr + used]
+    plain_table = table.clone()
+    if outside:
+        for b, p in enumerate(pos):
+            table[b, p // ps + 1:] = num_pages + b
+        for b, bad in ((0, -1), (1, num_pages + 7)):
+            table[b, pos[b] // ps] = bad
+            plain_table[b, pos[b] // ps] = 0
     w = torch.randn(n, n, device="cuda", generator=gen) * 0.05
     bias = torch.randn(n, 1, device="cuda", generator=gen)
     wq, ws = quantize_w(w, channel_axis=0)
     pq, pscale = quantize_rows(pool)
     return {"w": w, "bias": bias, "pool": pool.to(pool_dtype), "table": table,
+            "plain_table": plain_table,
             "pos": torch.tensor(pos, dtype=torch.int32, device="cuda"),
             "wq": wq, "ws": ws, "pq": pq, "pscale": pscale, "n": n, "d": d,
             "ps": ps, "rows_read": sum(p + 1 for p in pos)}
@@ -1002,21 +1044,35 @@ def paged_args(case: dict, variant: str):
              "pool_scale": case[pscale] if pscale else None})
 
 
-def paged_check(case: dict, variant: str, kernel: str) -> float:
+def paged_check(name: str, case: dict, variant: str, kernel: str,
+                want_route: str | None = "bulk") -> float:
+    """One case through the wrapper, twice: both launches on ``want_route``
+    (or on the route ``cuda_paged_gate_mix.route`` names, for None), the
+    same bits both times, and 1e-5 * (1 + |plain|) from the plain version
+    (given ``plain_table``)."""
     args, kwargs = paged_args(case, variant)
+    route = want_route or cuda_paged_gate_mix.route(args[2].dtype, case["d"])
+    before = dict(cuda_paged_gate_mix.route_launches)
     got = cuda_paged_gate_mix.paged_gate_mix(*args, **kwargs)
+    again = cuda_paged_gate_mix.paged_gate_mix(*args, **kwargs)
     torch.cuda.synchronize()
-    want = plain_paged.paged_gate_mix(*args, **kwargs)
+    routed = {r: cuda_paged_gate_mix.route_launches[r] - before[r] for r in before}
+    want = plain_paged.paged_gate_mix(*args[:3], case["plain_table"], *args[4:], **kwargs)
     diff = (got - want).abs()
     ok = bool((diff <= TOL_PAGED * (1 + want.abs())).all())
-    fields = {"variant": variant, "pool_dtype": str(args[2].dtype),
+    fields = {"case": name, "variant": variant, "pool_dtype": str(args[2].dtype),
               "shape": {"B": len(case["pos"]), "n": case["n"], "d": case["d"],
                         "page_size": case["ps"]},
+              "mix_route": route, "launches_by_route": routed,
+              "same_bits_on_rerun": bool(torch.equal(got, again)),
               "max_abs_err": float(diff.max()), "max_abs_out": float(want.abs().max()),
               "tol": TOL_PAGED, "ok": ok}
     emit("kernel_check", kernel=kernel, **fields)
     require(bool(torch.isfinite(got).all()) and ok,
             f"{kernel} disagrees with its plain version: {fields}")
+    require(routed == {**dict.fromkeys(before, 0), route: 2},
+            f"{kernel} {name}: launches by route {routed}, want 2 on {route}")
+    require(fields["same_bits_on_rerun"], f"{kernel} {name}: a rerun changed the bits")
     return fields["max_abs_err"]
 
 
@@ -1049,14 +1105,20 @@ def paged_row(name: str, line: int, case: dict, variant: str, errs: list) -> dic
         w_rows = w_rows * (torch.arange(n, device="cuda")[None, :] <= pos[:, None])
         return torch.bmm(w_rows[:, None, :].to(dt), rows_)[:, 0].float() + bias[pos.long()]
 
-    ms = time_ms(lambda: cuda_paged_gate_mix.paged_gate_mix(*args, **kwargs))
+    mix_route = cuda_paged_gate_mix.route(pool.dtype, d)
+    kernel = lambda: cuda_paged_gate_mix.paged_gate_mix(*args, **kwargs)
+    simt = lambda: cuda_paged_gate_mix.launch("simt", *args, w_scale=kwargs["w_scale"],
+                                              pool_scale=kwargs["pool_scale"])
     row = {
-        "name": name, "route": "cuda",
+        "name": name, "route": "cuda", "mix_route": mix_route,
         "source": "progen_tpu_torch/kernels/csrc/paged_gate_mix.cu",
         "replaces": f"progen_tpu/ops/pallas_paged_attention.py:{line}",
-        "launches": None, "max_abs_err": errs[0], "ms": ms,
+        "launches": None, "max_abs_err": errs[0], "ms": time_ms(kernel),
+        "ms_cold": time_ms_cold(kernel),
+        "simt_ms": time_ms(simt), "simt_ms_cold": time_ms_cold(simt),
         "plain_ms": time_ms(lambda: plain_paged.paged_gate_mix(*args, **kwargs)),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": time_ms(library),
+        "library_ms_cold": time_ms_cold(library),
         "library": "gather + torch.bmm",
         "timed_shape": {"B": batch, "n": n, "d": d, "page_size": case["ps"],
                         "pos": list(case["pos"].tolist())},
@@ -1070,9 +1132,18 @@ def paged_row(name: str, line: int, case: dict, variant: str, errs: list) -> dic
 def check_paged_kernels() -> list[dict]:
     """K3 and K3-q8 against the plain paged gate mix at the engine's shapes
     (ProGen-small: n = seq_len, d = hidden / 2, page 16, 8 rows at ragged
-    positions) and at page 24 with n = 1000 (the pages overhang the weight
-    square); timed at the engine's shapes with a bf16 pool (K3) and with
-    int8 weights and an int8 pool (K3-q8)."""
+    positions; then one row at 1023, eight rows at 0, eight at 1023, and
+    table entries outside the pool), all on the bulk route, and at page 24
+    with n = 1000 (the pages overhang the weight square) on the route
+    ``route`` names; every case twice, for the same bits.  Timed at the
+    engine's shapes with a bf16 pool (K3) and with int8 weights and an int8
+    pool (K3-q8), warm and cold, beside the first (simt) kernel."""
+    plan = (ctypes.c_int * 6)()
+    kernels.load(cuda_paged_gate_mix.LIBRARY).paged_gate_mix_bulk_plan(plan)
+    mirror = [getattr(cuda_paged_gate_mix, k) for k in (
+        "SPLIT_ROWS", "SPLIT_ROWS_INT8", "SLAB_BYTES", "STAGE_ROWS", "GROUPS", "CLUSTER")]
+    require(list(plan) == mirror,
+            f"the bulk kernel's plan {list(plan)} is not the wrapper's mirror {mirror}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     c = SMALL
     half = c.dim * c.ff_mult // 2
@@ -1081,12 +1152,24 @@ def check_paged_kernels() -> list[dict]:
              for dt in (torch.bfloat16, torch.float32)}
     overhang = {dt: paged_case(gen, 1000, half, 24, ragged, dt)
                 for dt in (torch.bfloat16, torch.float32)}
-    k3 = [paged_check(case, "f32_w", "paged_gate_mix")
-          for case in (cases[torch.bfloat16], cases[torch.float32],
-                       overhang[torch.bfloat16], overhang[torch.float32])]
-    q8 = [paged_check(case, variant, "paged_gate_mix_q8")
+    edge = {name: paged_case(gen, c.seq_len, half, ENGINE_PAGE, pos, torch.bfloat16,
+                             outside=name == "outside_the_pool")
+            for name, pos in (("one_row_at_1023", (1023,)), ("all_at_0", (0,) * 8),
+                              ("all_at_1023", (1023,) * 8),
+                              ("outside_the_pool", PAGED_POS))}
+    k3 = [paged_check(name, case, "f32_w", "paged_gate_mix", want_route)
+          for name, case, want_route in (
+              ("engine_bf16", cases[torch.bfloat16], "bulk"),
+              ("engine_f32", cases[torch.float32], "bulk"),
+              ("overhang_bf16", overhang[torch.bfloat16], None),
+              ("overhang_f32", overhang[torch.float32], None),
+              *((name, case, "bulk") for name, case in edge.items()))]
+    q8 = [paged_check(name, case, variant, "paged_gate_mix_q8", want_route)
           for variant in ("int8_w_int8_pool", "int8_w_bf16_pool", "f32_w_int8_pool")
-          for case in (cases[torch.bfloat16], overhang[torch.bfloat16])]
+          for name, case, want_route in (
+              ("engine_bf16", cases[torch.bfloat16], "bulk"),
+              ("overhang_bf16", overhang[torch.bfloat16], None),
+              *((name, case, "bulk") for name, case in edge.items()))]
     return [paged_row("paged_gate_mix", 54, cases[torch.bfloat16], "f32_w", k3),
             paged_row("paged_gate_mix_q8", 81, cases[torch.bfloat16],
                       "int8_w_int8_pool", q8)]
@@ -1119,7 +1202,8 @@ def engine_requests(c, greedy: bool = False) -> list[dict]:
 def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
     """Answer ``requests`` through a ``ServingEngine`` over ``model``; the
     launch counts are set to 0 just before and read just after.  Checks what
-    every engine run must show; returns (tokens by uid, launches, engine)."""
+    every engine run must show; returns (tokens by uid, launches and the
+    paged gate mix's launches by route, engine)."""
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, page_size=ENGINE_PAGE, **engine_kwargs)
@@ -1147,6 +1231,10 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
     # bf16 admit programs run the Hopper forward kernels, f32 the first ones
     require_forward_routes(routes, launches,
                            model.policy.compute_dtype == torch.bfloat16, phase)
+    mixes = launches["paged_gate_mix"] + launches["paged_gate_mix_q8"]
+    require(routes["paged_gate_mix"] == {"bulk": mixes, "simt": 0},
+            f"{phase}: paged gate mix launches by route {routes['paged_gate_mix']}, "
+            f"want all {mixes} on bulk")
 
     require(sorted(comp.uid for comp in done) == list(range(len(requests))),
             f"{phase}: not every request was answered exactly once")
@@ -1173,6 +1261,7 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
               "launches": launches, "admit_programs": admits[0],
               "fwd_launches_by_route": {k: routes[k]
                                         for k in ("local_attention_fwd", "sgu_fwd")},
+              "mix_launches_by_route": routes["paged_gate_mix"],
               "chunks_run": engine.chunks_run, "decode_steps": steps,
               "generated_tokens": generated, "total_s": total_s,
               "tokens_per_s": generated / total_s,
@@ -1189,6 +1278,7 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
     require(engine.robustness_counters()["fallback_activations"] == 0,
             f"{phase}: a fallback was activated")
     emit(phase, **fields)
+    launches = {**launches, "paged_gate_mix_by_route": routes["paged_gate_mix"]}
     return {u: comp.tokens.tolist() for u, comp in by_uid.items()}, launches, engine
 
 
@@ -1228,8 +1318,10 @@ def check_engine_steps_against_plain(model, quantize) -> dict:
                                          table, live)[0] for j in range(ENGINE_CHUNK)]
         counts = read_counts()
         key = "paged_gate_mix_q8" if quantize else "paged_gate_mix"
-        require(counts[key] == (0 if plain else c.global_mlp_depth * ENGINE_CHUNK),
-                f"engine_vs_plain launched {counts}")
+        want = 0 if plain else c.global_mlp_depth * ENGINE_CHUNK
+        require(counts[key] == want
+                and read_routes()["paged_gate_mix"] == {"bulk": want, "simt": 0},
+                f"engine_vs_plain launched {counts}, {read_routes()['paged_gate_mix']}")
         runs.append(torch.stack(logits))
     got, want = runs
     dtype = model.policy.compute_dtype
@@ -1341,6 +1433,11 @@ def main() -> int:
                       for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if row["name"].startswith("paged_gate_mix"):  # the engine's, by route
+            row["launches_by_route"] = {
+                route: sum(counts["paged_gate_mix_by_route"][route]
+                           for counts in engine_launches.values() if counts[row["name"]])
+                for route in cuda_paged_gate_mix.route_launches}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

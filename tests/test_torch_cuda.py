@@ -11,10 +11,14 @@ differs from its plain version only in summation order (the products are
 exact in f32): f32 pools at 1e-5 * (1 + |plain|), bf16 and int8 at 2e-3 of
 the largest output."""
 
+import ctypes
+
 import pytest
 import torch
 
 import numpy as np
+
+from progen_tpu_torch import kernels
 
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.decode.engine import Request, ServingEngine
@@ -348,6 +352,111 @@ def test_paged_gate_mix_q8_kernel_matches_plain(gen, case, n, d, ps, pos):
         w, c["bias"], pool, c["table"], c["pos"], n_rows=n, w_scale=w_scale,
         pool_scale=pool_scale)
     _close_paged(got, want)
+
+
+PAGED_POS = (0, 15, 16, 300, 511, 777, 1022, 1023)
+# the smoke's cases at the engine's shapes (n = 1024, d = 2048, page 16),
+# and its overhang case (n = 1000, page 24)
+K3_CASES = {
+    "engine_ragged": (1024, 16, PAGED_POS),
+    "one_row_at_1023": (1024, 16, (1023,)),
+    "all_at_0": (1024, 16, (0,) * 8),
+    "all_at_1023": (1024, 16, (1023,) * 8),
+    "outside_the_pool": (1024, 16, PAGED_POS),
+    "overhang": (1000, 24, (0, 23, 24, 300, 511, 777, 998, 999)),
+}
+K3_VARIANTS = {  # weights, pool, w_scale, pool_scale keys of a paged case
+    "f32_w": ("w", "pool", None, None),
+    "w8_p8": ("wq", "pq", "ws", "pscale"),
+    "w8_bf16": ("wq", "pool", "ws", None),
+    "f32_p8": ("w", "pq", None, "pscale"),
+}
+
+
+def _k3_args(c, variant):
+    return tuple(c[k] if k else None for k in K3_VARIANTS[variant])
+
+
+@pytest.mark.parametrize("variant", sorted(K3_VARIANTS))
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_paged_gate_mix_bulk_route(gen, case, variant):
+    """Each case twice through the wrapper: both launches on the bulk route,
+    the same bits, 1e-5 * (1 + |plain|) from the plain version.  Table
+    entries outside the pool (past each row's last page, and one used entry
+    in each of the first two rows) are skipped: the plain version, which
+    gathers every entry, gets NULL there."""
+    n, ps, pos = K3_CASES[case]
+    c = _paged_case(gen, n, 2048, ps, list(pos), torch.bfloat16)
+    plain_table = c["table"].clone()
+    if case == "outside_the_pool":
+        num_pages = c["pool"].shape[0]
+        for b, p in enumerate(pos):
+            c["table"][b, p // ps + 1:] = num_pages + b
+        for b, bad in ((0, -1), (1, num_pages + 7)):
+            c["table"][b, pos[b] // ps] = bad
+            plain_table[b, pos[b] // ps] = 0
+    w, pool, w_scale, pool_scale = _k3_args(c, variant)
+    before = dict(cuda_paged_gate_mix.route_launches)
+    got, again = (cuda_paged_gate_mix.paged_gate_mix(
+        w, c["bias"], pool, c["table"], c["pos"], n_rows=n, w_scale=w_scale,
+        pool_scale=pool_scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert cuda_paged_gate_mix.route_launches == {**before, "bulk": before["bulk"] + 2}
+    assert torch.equal(got, again)
+    want = plain_paged.paged_gate_mix(w, c["bias"], pool, plain_table, c["pos"], n_rows=n,
+                                      w_scale=w_scale, pool_scale=pool_scale)
+    _close_paged(got, want)
+
+
+@pytest.mark.parametrize("variant", ["f32_w", "w8_p8"])
+def test_paged_gate_mix_replays_in_a_cuda_graph(gen, variant):
+    """One K3 (K3-q8) call captured in a CUDA graph, replayed after ``pos``
+    and ``table`` change in place: each replay gives an eager call's bits
+    on the new values, so the grid reads no position on the host and the
+    tickets set themselves back to zero."""
+    n, ps = 1024, 16
+    c = _paged_case(gen, n, 2048, ps, list(PAGED_POS), torch.bfloat16)
+    w, pool, w_scale, pool_scale = _k3_args(c, variant)
+    table, pos = c["table"].clone(), c["pos"].clone()
+
+    def call():
+        return cuda_paged_gate_mix.paged_gate_mix(w, c["bias"], pool, table, pos,
+                                                  n_rows=n, w_scale=w_scale,
+                                                  pool_scale=pool_scale)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = call()
+    rng = np.random.default_rng(3)
+    ppr, num_pages = n // ps, pool.shape[0]
+    for new_pos in ((1023, 0, 512, 7, 1023, 300, 64, 999), (5,) * 8, (1023,) * 8):
+        perm = rng.permutation(num_pages - 2) + 2
+        new_table = np.zeros((8, ppr), np.int32)
+        for b, p in enumerate(new_pos):
+            new_table[b, :p // ps + 1] = perm[b * ppr: b * ppr + p // ps + 1]
+        table.copy_(torch.from_numpy(new_table))
+        pos.copy_(torch.tensor(new_pos, dtype=torch.int32))
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(static, eager)
+        _close_paged(static, plain_paged.paged_gate_mix(
+            w, c["bias"], pool, table, pos, n_rows=n, w_scale=w_scale,
+            pool_scale=pool_scale))
+
+
+def test_the_bulk_kernels_plan_matches_the_wrappers_mirror(gen):
+    """``k3_splits`` and ``k3_grid`` mirror the plan the library was built
+    with."""
+    plan = (ctypes.c_int * 6)()
+    kernels.load("paged_gate_mix").paged_gate_mix_bulk_plan(plan)
+    assert list(plan) == [getattr(cuda_paged_gate_mix, k) for k in (
+        "SPLIT_ROWS", "SPLIT_ROWS_INT8", "SLAB_BYTES", "STAGE_ROWS", "GROUPS", "CLUSTER")]
 
 
 def test_paged_gate_mix_refuses_what_the_kernel_does_not_take(gen):
