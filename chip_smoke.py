@@ -57,11 +57,28 @@ non-zero without its last line:
    steps through K3 and K3-q8 against the same steps through the plain
    version; and, in f32 and greedy, the paged engine's tokens against the
    dense engine's;
-8. the ``kernels`` line; then the card's ``nvidia-smi`` name and power limit
-   and, last, ``{"ok": true, "device": {...}}``.
+8. trainer path: ProGen-small (bf16, batch 8, accumulation 1) trains
+   through ``train/trainer.py`` on ``train_data_synth/`` (four GZIP tfrecord
+   shards, 1900 records; 100 valid records): (a) 8 uninterrupted steps with
+   background checkpoints and validation every 4 and a sample at 8, the
+   batches fed by the prefetcher; (b) 4 steps into a fresh store, then a
+   new ``Trainer`` resumes to 8, and its losses and final parameters must
+   equal (a)'s bit for bit; (c) (a)'s stored parameters, restored into a
+   fresh model, give its prefill logits bit for bit.  Every train step's
+   launches (the bare step's), all on the Hopper kernels; step time,
+   tokens/s, MFU, the host's time per batch against the loop's wait for
+   it, the snapshot's, host copy's, write's and restore's times,
+   checkpoint bytes and peak memory; (d) the same Trainer with no hooks at
+   prefetch depths 0 and 2 in turns (step time, the loop's wait, whether
+   the batch was queued when the loop took it); and the reader's time to
+   its first batch after resume skips up to 200,000 records.  It runs in a
+   temporary directory it deletes;
+9. the ``kernels`` line, a short ``trainer_summary`` line; then the card's
+   ``nvidia-smi`` name and power limit and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Every earlier phase runs at the depth and the step count it always had;
-the whole takes about four minutes on an H100, the build included.
+the whole takes about six minutes on an H100, the build included.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -71,11 +88,16 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import json
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -84,7 +106,9 @@ import torch.nn.functional as F
 
 from progen_tpu_torch import kernels
 from progen_tpu_torch.core.precision import make_policy
+from progen_tpu_torch.data.prefetch import DevicePrefetcher
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
+from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
 from progen_tpu_torch.data.tokenizer import encode_tokens
 from progen_tpu_torch.decode import incremental
 from progen_tpu_torch.decode.engine import Request, ServingEngine
@@ -105,9 +129,12 @@ from progen_tpu_torch.ops.local_attention import (
     window_mask,
 )
 from progen_tpu_torch.ops.quant import quantize_rows, quantize_w
+from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
+from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.step import make_train_functions
+from progen_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -151,6 +178,16 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 12    # optimizer steps of the training path (accumulation 1)
 TRAIN_WARMUP = 2    # steps left out of the median step time
 TRAIN_LR = 2e-4
+TRAINER_DATA = Path(__file__).resolve().parent / "train_data_synth"
+TRAINER_STEPS = 8   # optimizer steps of run (a); run (b) stops at half, then resumes
+TRAINER_EVERY = 4   # checkpoint and validation cadence of the trainer phase
+TRAINER_HOST_BATCHES = 20  # batches timed on the host alone
+FEED_DEPTHS = (0, 2, 0, 2)  # the feed comparison's prefetch depths, in turns
+FEED_STEPS = 12     # steps of each run of the feed comparison
+# Resume skips timed on the reader alone: none, the largest an unshuffled
+# resume takes on this corpus (it wraps the cursor), and looped skips as far
+# as a large corpus's cursor would go, unshuffled and shuffled.
+RESUME_SKIPS = ((0, 0), (1899, 0), (200_000, 0), (20_000, 64))
 # How much farther from the f32 answer the bf16 decode may be than the bf16
 # parallel forward (two paths with equal bf16 rounding sit at a ratio ~1).
 DECODE_VS_FORWARD_RATIO = 1.5
@@ -987,6 +1024,257 @@ def check_train_against_plain() -> dict:
             f"the train step through the kernels disagrees with plain: {result}")
     return result
 
+# -- phase 8: the Trainer over tfrecords, checkpoints and resume ---------------
+
+
+def trainer_config(max_steps: int, **overrides) -> TrainerConfig:
+    return dataclasses.replace(TrainerConfig(
+        seed=SEED, batch_size=TRAIN_BATCH, grad_accum_every=1, learning_rate=TRAIN_LR,
+        validate_every=TRAINER_EVERY, checkpoint_every=TRAINER_EVERY,
+        sample_every=TRAINER_STEPS, checkpoint_keep_n=1, mixed_precision=True,
+        prefetch_depth=2, background_checkpoint=True, log_every=1, max_steps=max_steps),
+        **overrides)
+
+
+def run_trainer(c, ckpt: Path, runs: Path, max_steps: int, device, **overrides):
+    """One ``Trainer`` over ``train_data_synth/`` to ``max_steps``, resuming
+    from ``ckpt`` when it holds a checkpoint; returns the trainer, its
+    result, each train step's kernel launches and the tracker's rows."""
+    trainer = Trainer(c, trainer_config(max_steps, **overrides), str(TRAINER_DATA),
+                      str(ckpt), tracker=Tracker(out_dir=str(runs)), device=device)
+    per_step = []
+    real_step = trainer.fns.train_step
+
+    def counted_step(state, batch):
+        before = read_counts()
+        out = real_step(state, batch)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    trainer.fns = dataclasses.replace(trainer.fns, train_step=counted_step)
+    result = trainer.run()
+    trainer.tracker.finish()
+    rows = [json.loads(line) for f in runs.glob("*/metrics.jsonl")
+            for line in f.read_text().splitlines()]
+    return trainer, result, per_step, rows
+
+
+def host_batch_ms(c) -> float:
+    """Host milliseconds to read, check and collate one batch of the
+    trainer's stream (no device work)."""
+    _, get_train = iterator_from_tfrecords_folder(str(TRAINER_DATA), "train")
+    it = get_train(seq_len=c.seq_len, batch_size=TRAIN_BATCH, loop=True)
+    next(it)  # the open
+    t0 = time.perf_counter()
+    for _ in range(TRAINER_HOST_BATCHES):
+        next(it)
+    return (time.perf_counter() - t0) / TRAINER_HOST_BATCHES * 1e3
+
+
+def resume_open_seconds(c) -> list[dict]:
+    """Seconds from asking the reader for a stream at each of RESUME_SKIPS
+    to its first batch, and the seconds a skipped record costs."""
+    _, get_train = iterator_from_tfrecords_folder(str(TRAINER_DATA), "train")
+    out = []
+    for skip, shuffle in RESUME_SKIPS:
+        t0 = time.perf_counter()
+        next(get_train(seq_len=c.seq_len, batch_size=TRAIN_BATCH, skip=skip, loop=True,
+                       shuffle_buffer=shuffle, seed=SEED))
+        out.append({"skip": skip, "shuffle_buffer": shuffle,
+                    "seconds": time.perf_counter() - t0})
+    base = out[0]["seconds"]  # skip 0: the open and one batch
+    for row in out:
+        if row["skip"]:
+            row["us_per_skipped_record"] = (row["seconds"] - base) / row["skip"] * 1e6
+    return out
+
+
+class TimedPrefetcher(DevicePrefetcher):
+    """The trainer's feed, noting for each batch the loop takes whether it
+    was queued already and how many ms the take lasted."""
+
+    takes: list = []
+
+    def __next__(self):
+        queued = self._q.qsize() > 0
+        t0 = time.perf_counter()
+        out = super().__next__()
+        TimedPrefetcher.takes.append((queued, (time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def feed_comparison(c, root: Path, device) -> list[dict]:
+    """The Trainer with no hooks for FEED_STEPS steps at each prefetch depth
+    of FEED_DEPTHS, in turns: the median step and the loop's median wait
+    for a batch; with the prefetcher, the share of takes that found a batch
+    queued and the median take then."""
+    out = []
+    with mock.patch.object(trainer_module, "DevicePrefetcher", TimedPrefetcher):
+        for i, depth in enumerate(FEED_DEPTHS):
+            TimedPrefetcher.takes = []
+            never = 10 * FEED_STEPS
+            trainer, _, _, rows = run_trainer(
+                c, root / f"ck_feed{i}", root / f"runs_feed{i}", FEED_STEPS, device,
+                prefetch_depth=depth, checkpoint_every=never, validate_every=never,
+                sample_every=never, background_checkpoint=False)
+            del trainer
+            shutil.rmtree(root / f"ck_feed{i}")
+            gc.collect()
+            step = [r["step_ms"] for r in rows if "step_ms" in r][TRAIN_WARMUP:]
+            wait = [r["data_wait_ms"] for r in rows if "data_wait_ms" in r][TRAIN_WARMUP:]
+            row = {"prefetch_depth": depth, "step_ms_median": float(np.median(step)),
+                   "data_wait_ms_median": float(np.median(wait))}
+            takes = TimedPrefetcher.takes[TRAIN_WARMUP:]
+            if takes:
+                queued = [ms for ready, ms in takes if ready]
+                row["queued_share"] = len(queued) / len(takes)
+                row["take_ms_median_when_queued"] = (float(np.median(queued))
+                                                     if queued else None)
+            out.append(row)
+    return out
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def trainer_phase(c=SMALL, device="cuda") -> dict:
+    """The ``Trainer`` path: (a) TRAINER_STEPS uninterrupted steps with
+    background checkpoints, validation and a sample; (c) its last
+    checkpoint's params, restored into a fresh model, give the in-memory
+    model's prefill logits bit for bit; (b) half the steps into a fresh
+    store, then a new ``Trainer`` resumes to TRAINER_STEPS: its losses and
+    final params equal (a)'s bit for bit.  The launch counts are set to 0
+    just before (a) and read just after.  Runs in a temporary directory it
+    deletes."""
+    half = TRAINER_STEPS // 2
+    cuda = torch.device(device).type == "cuda"
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-trainer-"))
+    sigterm = signal.getsignal(signal.SIGTERM)  # each Trainer takes SIGTERM
+    try:
+        free_bytes = shutil.disk_usage(root).free
+        host_ms = host_batch_ms(c)
+        resume_open = resume_open_seconds(c)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        a, out_a, per_step_a, rows_a = run_trainer(c, root / "ck_a", root / "runs_a",
+                                                   TRAINER_STEPS, device)
+        seconds_a = time.perf_counter() - t0
+        launches, routes = read_counts(), read_routes()
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        saved_steps = a.store.all_steps()
+        ckpt_bytes = dir_bytes(a.store.step_dir(saved_steps[-1]))
+        losses_a = {r["step"]: r["loss"] for r in rows_a if "loss" in r}
+        final_a = {k: v.detach().cpu() for k, v in out_a["state"].params.items()}
+
+        # (c) the stored params through restore_params into a fresh model
+        _, get_valid = iterator_from_tfrecords_folder(str(TRAINER_DATA), "valid")
+        rows = next(get_valid(seq_len=c.seq_len, batch_size=2))
+        tokens = torch.from_numpy(rows[:, :2 * c.window_size]).to(device)
+        fresh = ProGen(c, make_policy(True), device=device, seed=SEED + 1).eval()
+        t1 = time.perf_counter()
+        fresh.load_state_dict(a.store.restore_params(map_location=device))
+        if cuda:
+            torch.cuda.synchronize()
+        restore_params_s = time.perf_counter() - t1
+        with torch.no_grad():
+            logits_restored, logits_live = fresh(tokens), a.model.eval()(tokens)
+        restored_equal = bool(torch.equal(logits_restored, logits_live))
+        ckpt_log_a = a.checkpoint_log
+        del a, out_a, fresh, logits_restored, logits_live
+        shutil.rmtree(root / "ck_a")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (b) half, then a new Trainer resumes over the same store
+        b1, out_b1, per_step_b1, _ = run_trainer(c, root / "ck_b", root / "runs_b1", half,
+                                                 device)
+        ckpt_log_b = b1.checkpoint_log
+        del b1, out_b1
+        gc.collect()
+        b2, out_b2, per_step_b2, rows_b2 = run_trainer(c, root / "ck_b", root / "runs_b2",
+                                                       TRAINER_STEPS, device)
+        losses_b2 = {r["step"]: r["loss"] for r in rows_b2 if "loss" in r}
+        final_b2 = {k: v.detach().cpu() for k, v in out_b2["state"].params.items()}
+        restore_s = b2.restore_seconds
+        ckpt_log_b += b2.checkpoint_log
+        del b2, out_b2
+        differ = [k for k in final_a if not torch.equal(final_a[k], final_b2[k])]
+        want_losses = {s: losses_a[s] for s in range(half + 1, TRAINER_STEPS + 1)}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        feed = feed_comparison(c, root, device)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+
+    step_ms = [r["step_ms"] for r in rows_a if "step_ms" in r]
+    data_wait = [r["data_wait_ms"] for r in rows_a if "data_wait_ms" in r]
+    steady = slice(TRAIN_WARMUP, None)
+    result = {
+        "steps": TRAINER_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
+        "checkpoint_every": TRAINER_EVERY, "validate_every": TRAINER_EVERY,
+        "sample_every": TRAINER_STEPS, "resumed_at": half,
+        "run_a_seconds": seconds_a, "losses": [losses_a[s] for s in sorted(losses_a)],
+        "step_ms": step_ms, "step_ms_median": float(np.median(step_ms[steady])),
+        "tokens_per_s": TRAIN_BATCH * c.seq_len / (float(np.median(step_ms[steady])) / 1e3),
+        "mfu": mfu(TRAIN_BATCH * c.seq_len / (float(np.median(step_ms[steady])) / 1e3),
+                   model_flops_per_token(c, sum(p.numel() for p in final_a.values()))),
+        # the meter's window at the last logged step (hooks excluded, the
+        # steps a background save slows included)
+        "meter_tokens_per_s": next((r["tokens_per_sec_per_chip"] for r in reversed(rows_a)
+                                    if "tokens_per_sec_per_chip" in r), None),
+        "meter_mfu": next((r["mfu"] for r in reversed(rows_a) if "mfu" in r), None),
+        "host_batch_ms": host_ms, "data_wait_ms": data_wait,
+        "data_wait_ms_median": float(np.median(data_wait[steady])),
+        "prefetch_hides_host": bool(np.median(data_wait[steady]) < 0.5 * host_ms),
+        "feed": feed, "resume_open": resume_open,
+        "checkpoints_a": ckpt_log_a, "checkpoints_b": ckpt_log_b,
+        "saved_steps_a": saved_steps, "checkpoint_bytes": ckpt_bytes,
+        "disk_free_bytes": free_bytes, "restore_state_s": restore_s,
+        "restore_params_s": restore_params_s, "peak_bytes": peak,
+        "launches": launches, "routes": routes,
+        "per_step_launches": per_step_a + per_step_b1 + per_step_b2,
+        "resumed_losses": [losses_b2.get(s) for s in sorted(want_losses)],
+        "resumed_losses_equal": losses_b2 == want_losses,
+        "resumed_params_equal": not differ, "resumed_params_differ": differ[:8],
+        "restored_logits_equal": restored_equal,
+    }
+    require(result["resumed_losses_equal"],
+            f"resumed losses {losses_b2} differ from the uninterrupted {want_losses}")
+    require(not differ, f"resumed final params differ from the uninterrupted: {differ[:8]}")
+    require(restored_equal, "restored params give other prefill logits")
+    require(all(np.isfinite(result["losses"])), f"non-finite losses {result['losses']}")
+    return result
+
+
+def require_trainer_launches(result: dict, c) -> None:
+    """Every train step of the trainer ran each K1/K2 kernel as often as
+    the bare train step does, every K1 launch and every K2-fwd launch on
+    the Hopper kernels."""
+    per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
+                "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
+                "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
+    want = {name: per_step.get(name, 0) for name in COUNTERS}
+    bad = [i for i, got in enumerate(result["per_step_launches"]) if got != want]
+    require(not bad, f"trainer steps {bad} launched other than {want}")
+    launches, routes = result["launches"], result["routes"]
+    require(all(launches[k] > 0 for k in per_step),
+            f"a kernel of the trainer path was not launched: {launches}")
+    want_bwd = {"wgmma": 2 * c.depth * TRAINER_STEPS, "wmma": 0}
+    require(routes["local_attention_bwd"] == want_bwd,
+            f"trainer K1 backward routes {routes['local_attention_bwd']}, want {want_bwd}")
+    require_forward_routes(routes, launches, True, "trainer")
+
+
 # -- phase 6: the paged gate mix against its plain version --------------------
 
 
@@ -1425,10 +1713,18 @@ def main() -> int:
     emit("train", config="small", dtype="bf16 compute, f32 params", **trained)
     del model
     emit("train_vs_plain", **check_train_against_plain())
+    gc.collect()
+    trainer = trainer_phase()
+    require_trainer_launches(trainer, SMALL)
+    emit("trainer", config="small", dtype="bf16 compute, f32 params", nvidia_smi=smi,
+         **{k: v for k, v in trainer.items() if k != "per_step_launches"},
+         launches_per_step=trainer["per_step_launches"][0],
+         steps_with_these_launches=len(trainer["per_step_launches"]))
 
     for row in rows:
         by_path = {"serve": served["launches"][row["name"]],
                    "train": trained["launches"][row["name"]],
+                   "trainer": trainer["launches"][row["name"]],
                    **{phase: counts[row["name"]]
                       for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())
@@ -1439,6 +1735,11 @@ def main() -> int:
                            for counts in engine_launches.values() if counts[row["name"]])
                 for route in cuda_paged_gate_mix.route_launches}
     print(json.dumps({"kernels": rows}), flush=True)
+    emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (
+        "step_ms_median", "tokens_per_s", "mfu", "host_batch_ms", "data_wait_ms_median",
+        "feed", "resume_open", "checkpoint_bytes", "restore_state_s", "restore_params_s",
+        "peak_bytes", "resumed_losses_equal", "resumed_params_equal",
+        "restored_logits_equal")})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

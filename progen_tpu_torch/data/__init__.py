@@ -1,3 +1,10 @@
+from progen_tpu_torch.data.tfrecord import (
+    collate,
+    count_sequences,
+    iterator_from_tfrecords_folder,
+    shard_filename,
+    write_tfrecord,
+)
 from progen_tpu_torch.data.tokenizer import (
     OFFSET,
     PAD_ID,
@@ -6,4 +13,6 @@ from progen_tpu_torch.data.tokenizer import (
     encode_tokens,
 )
 
-__all__ = ["OFFSET", "PAD_ID", "VOCAB_SIZE", "decode_tokens", "encode_tokens"]
+__all__ = ["OFFSET", "PAD_ID", "VOCAB_SIZE", "collate", "count_sequences",
+           "decode_tokens", "encode_tokens", "iterator_from_tfrecords_folder",
+           "shard_filename", "write_tfrecord"]

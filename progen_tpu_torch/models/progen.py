@@ -69,6 +69,9 @@ class ProGenConfig:
         clean = {k: v for k, v in d.items() if k not in _IGNORED_CONFIG_KEYS}
         return cls(**clean)
 
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
     def layer_uses_gmlp(self, i: int) -> bool:
         """Layer i (0-based) uses the SGU/gMLP feed-forward iff it is among
         the last ``global_mlp_depth`` layers."""

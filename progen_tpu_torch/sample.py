@@ -17,9 +17,16 @@ completion is printed as one JSON line:
     python -m progen_tpu_torch.sample --serve --prime "MKV|MALW" --slots 8 \
         --chunk 32 [--paged --page_size 16] [--quantize weights+pages]
 
-Without ``--params`` the weights are drawn from ``--seed``.  ``--params``
-takes an ``.npz`` of flat flax keys (``compat/convert.py``).  The device is
-``cuda`` unless ``--device cpu`` is given.
+``--checkpoint_path`` samples from the newest checkpoint of a store the
+port's ``Trainer`` wrote: the model config comes from its metadata and the
+parameters from its params file (the optimizer's is not read):
+
+    python -m progen_tpu_torch.sample --checkpoint_path ./ckpts --prime MKV
+
+Otherwise ``--params`` takes an ``.npz`` of flat flax keys
+(``compat/convert.py``), and without either the weights are drawn from
+``--seed``.  Compute is bf16 over f32 parameters, as the JAX CLI's.  The
+device is ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import json
 
 import torch
 
+from progen_tpu_torch.checkpoint.store import CheckpointStore
 from progen_tpu_torch.compat.convert import load_npz
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import make_policy
@@ -37,7 +45,7 @@ from progen_tpu_torch.decode.engine import Request, ServingEngine
 from progen_tpu_torch.decode.rng import KeySeq
 from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.configs import CONFIGS
-from progen_tpu_torch.models.progen import ProGen
+from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -53,6 +61,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(the default)")
     p.add_argument("--chunk", type=int, default=32,
                    help="decode steps between early-exit checks")
+    p.add_argument("--checkpoint_path", default=None,
+                   help="sample from the newest checkpoint of this store")
     p.add_argument("--params", default=None,
                    help=".npz of flat flax parameter keys")
     p.add_argument("--device", default="cuda")
@@ -98,12 +108,22 @@ def main(argv=None) -> list:
     """Run the CLI; returns the decoded samples it printed (with
     ``--serve``: the completion records)."""
     args = parse_args(argv)
+    if args.checkpoint_path and args.params:
+        raise SystemExit("give --checkpoint_path or --params, not both")
     device = resolve_device(args.device)
     config = CONFIGS[args.config]
+    if args.checkpoint_path:
+        store = CheckpointStore(args.checkpoint_path)
+        meta = store.restore_meta()
+        if meta is None:
+            raise SystemExit(f"no checkpoints found at {args.checkpoint_path}")
+        config = ProGenConfig.from_dict(meta["model_config"])
+        print(f"trained for {max(meta['next_seq_index'], 0)} sequences")
     seq_len = min(args.seq_len or config.seq_len, config.seq_len)
-    model = ProGen(config, make_policy(), device=device,
-                   seed=args.seed)
-    if args.params:
+    model = ProGen(config, make_policy(True), device=device, seed=args.seed)
+    if args.checkpoint_path:
+        model.load_state_dict(store.restore_params(map_location=device))
+    elif args.params:
         load_npz(args.params, model)
     model.eval()
     if args.serve:

@@ -1,15 +1,29 @@
-"""Training CLI of the port: train ProGen on synthetic Uniref50-shaped rows.
+"""Training CLI of the port, with the flags of the JAX package's ``train.py``
+that the port's ``Trainer`` honours.
 
-    python -m progen_tpu_torch.train --model_name small --batch_size 8 \\
-        --grad_accum_every 1 --mixed_precision --max_steps 20 --log_every 1
+    python -m progen_tpu_torch.train --data_path ./train_data \\
+        --checkpoint_path ./ckpts --model_name small --batch_size 8 \\
+        --grad_accum_every 1 --mixed_precision --checkpoint_every 1000
 
-Takes the model and optimizer flags of the JAX package's ``train.py``.  The
-rows are made from ``--seed`` (``data/synthetic.py``), as the JAX package's
-bench makes them.  Not accepted yet: the data path, checkpoint, validation,
-sampling, hook, logging-service, remat, kernel-choice and mesh flags.
-Prints one JSON line per logged step: step, loss, grad_norm, lr, step_ms,
-tokens_per_s and mfu (against the H100's bf16 peak; null off the card).
-The device is ``cuda`` unless ``--device cpu`` is given.
+trains on GZIP tfrecords (``python -m progen_tpu_torch.generate_data``
+writes them) through :class:`~progen_tpu_torch.train.trainer.Trainer`: it
+validates, samples and checkpoints at its cadences and, run again with the
+same ``--checkpoint_path``, resumes from the newest checkpoint at the exact
+record cursor (the stored model config wins over ``--model_name``).
+``--new`` wipes the checkpoints after a y/n confirm.  The model config is
+``{--config_path}/{--model_name}.toml``.  One JSON line is printed per
+logged step (step, loss, grad_norm, lr, step_ms, data_wait_ms,
+tokens_per_sec_per_chip and, on the card, mfu against the H100's bf16
+peak) and per hook.
+
+Without ``--data_path`` it trains on synthetic Uniref50-shaped rows made
+from ``--seed`` (``data/synthetic.py``) for ``--max_steps`` micro-batches
+(10 by default), with no checkpoints, and prints one JSON line per logged
+step: step, loss, grad_norm, lr, step_ms, tokens_per_s and mfu.
+
+Not accepted: the mesh, sharding-strategy, remat, superstep, statusz,
+kernel-choice, profiling-service and wandb flags.  The device is ``cuda``
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -17,28 +31,39 @@ from __future__ import annotations
 import argparse
 import json
 import time
+import tomllib
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from progen_tpu_torch.checkpoint.store import CheckpointStore
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.models.configs import CONFIGS
-from progen_tpu_torch.models.progen import ProGen
+from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
+from progen_tpu_torch.observe.tracker import Tracker
+from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.schedule import SCHEDULES, make_lr_schedule
 from progen_tpu_torch.train.step import make_train_functions
+from progen_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+SYNTHETIC_STEPS = 10
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model_name", default="default", choices=sorted(CONFIGS))
+    p.add_argument("--config_path", default="./configs/model",
+                   help="folder of {model_name}.toml model configs")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--grad_accum_every", type=int, default=4)
+    p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--learning_rate", type=float, default=2e-4)
     p.add_argument("--lr_schedule", default="constant", choices=SCHEDULES,
                    help="cosine and linear need --schedule_steps or "
@@ -53,24 +78,109 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_grad_norm", type=float, default=0.5)
     p.add_argument("--mixed_precision", action="store_true",
                    help="bf16 compute, f32 parameters")
-    p.add_argument("--max_steps", type=int, default=10,
-                   help="micro-batches to train on (there is no data path "
-                        "yet, so no epochs)")
+    p.add_argument("--data_path", default=None,
+                   help="folder of *.train/*.valid.tfrecord.gz shards; "
+                        "without it, synthetic rows and no checkpoints")
+    p.add_argument("--checkpoint_path", default="./ckpts")
+    p.add_argument("--checkpoint_every", type=int, default=1000)
+    p.add_argument("--checkpoint_keep_n", type=int, default=500)
+    p.add_argument("--new", action="store_true",
+                   help="clear every checkpoint first (asks y/n)")
+    p.add_argument("--validate_every", type=int, default=100)
+    p.add_argument("--sample_every", type=int, default=500)
+    p.add_argument("--prime_length", type=int, default=25)
+    p.add_argument("--shuffle_buffer", type=int, default=0,
+                   help="seeded sliding-buffer record shuffle (0 = off); "
+                        "resume replays the interrupted order exactly")
+    p.add_argument("--prefetch_depth", type=int, default=0,
+                   help="batches a worker thread makes and copies to the "
+                        "device ahead of the step (0 = synchronous feed)")
+    p.add_argument("--background_checkpoint", action="store_true", default=True,
+                   help="checkpoint from a device snapshot on a background "
+                        "thread (one state-sized copy of device memory)")
+    p.add_argument("--no_background_checkpoint", dest="background_checkpoint",
+                   action="store_false")
+    p.add_argument("--run_attempts", type=int, default=3,
+                   help="tries of the train loop: a transient failure "
+                        "re-restores from the newest checkpoint (1 = fail fast)")
+    p.add_argument("--watchdog_timeout", type=float, default=None,
+                   help="seconds without a step before the watchdog dumps "
+                        "every thread's stack and exits 42 (unset = off)")
+    p.add_argument("--warm_sampler", action="store_true", default=True,
+                   help="one short sampler call before the loop (skipped "
+                        "when no sample hook can fire)")
+    p.add_argument("--no_warm_sampler", dest="warm_sampler", action="store_false")
+    p.add_argument("--runs_dir", default="./runs",
+                   help="where the tracker writes metrics.jsonl per run")
+    p.add_argument("--inject-faults", dest="inject_faults", default=None,
+                   help="arm the fault-injection harness, e.g. "
+                        "'ckpt.save:io_error:times=2;train.step:preempt:at=5'")
+    p.add_argument("--max_steps", type=int, default=None,
+                   help="optimizer steps to stop at (synthetic rows: "
+                        f"micro-batches, {SYNTHETIC_STEPS} by default)")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> list[dict]:
-    """Run the CLI; returns the records it printed."""
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+def _load_model_config(config_path: str, model_name: str) -> dict:
+    path = Path(config_path) / f"{model_name}.toml"
+    if not path.exists():
+        raise SystemExit(f"path to your model config {path} does not exist")
+    return tomllib.loads(path.read_text())
+
+
+def train_tfrecords(args, device: torch.device) -> dict:
+    """The ``Trainer`` over ``--data_path``; returns its result."""
+    if args.inject_faults:
+        faults.configure(args.inject_faults, seed=args.seed)
+    store = CheckpointStore(args.checkpoint_path, args.checkpoint_keep_n)
+    if args.new:
+        answer = input("are you sure you want to clear all your checkpoints "
+                       "and restart training? [y/N]: ")
+        if answer.strip().lower() not in ("y", "yes"):
+            raise SystemExit(0)
+        store.reset()
+    # the checkpoint's model config wins on resume
+    meta = store.restore_meta()
+    model_kwargs = (_load_model_config(args.config_path, args.model_name)
+                    if meta is None else meta["model_config"])
+    cfg = TrainerConfig(
+        seed=args.seed, batch_size=args.batch_size,
+        grad_accum_every=args.grad_accum_every, epochs=args.epochs,
+        learning_rate=args.learning_rate, lr_schedule=args.lr_schedule,
+        warmup_steps=args.warmup_steps, schedule_steps=args.schedule_steps,
+        lr_min_ratio=args.lr_min_ratio, weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm, validate_every=args.validate_every,
+        sample_every=args.sample_every, checkpoint_every=args.checkpoint_every,
+        checkpoint_keep_n=args.checkpoint_keep_n, prime_length=args.prime_length,
+        mixed_precision=args.mixed_precision, shuffle_buffer=args.shuffle_buffer,
+        prefetch_depth=args.prefetch_depth,
+        background_checkpoint=args.background_checkpoint,
+        log_every=args.log_every, max_steps=args.max_steps,
+        run_attempts=args.run_attempts, watchdog_timeout=args.watchdog_timeout,
+        warm_sampler=args.warm_sampler)
+    tracker = Tracker(out_dir=args.runs_dir, run_id=(meta or {}).get("run_id"),
+                      config={**model_kwargs,
+                              **{k: v for k, v in vars(args).items() if k != "new"}})
+    trainer = Trainer(ProGenConfig.from_dict(model_kwargs), cfg, args.data_path,
+                      args.checkpoint_path, tracker=tracker, device=device)
+    try:
+        return trainer.run()
+    finally:
+        tracker.finish()
+
+
+def train_synthetic(args, device: torch.device) -> list[dict]:
+    """``--max_steps`` micro-batches of synthetic rows; returns the records
+    it printed."""
+    max_steps = args.max_steps or SYNTHETIC_STEPS
     config = CONFIGS[args.model_name]
     model = ProGen(config, make_policy(args.mixed_precision), device=device,
                    seed=args.seed)
     schedule = make_lr_schedule(
         args.lr_schedule, args.learning_rate, warmup_steps=args.warmup_steps,
-        decay_steps=args.schedule_steps or args.max_steps,
+        decay_steps=args.schedule_steps or max_steps,
         min_lr_ratio=args.lr_min_ratio)
     optimizer = make_optimizer(schedule, args.weight_decay, args.max_grad_norm,
                                args.grad_accum_every)
@@ -82,7 +192,7 @@ def main(argv=None) -> list[dict]:
     tokens_per_step = args.batch_size * config.seq_len
 
     records = []
-    for _ in range(args.max_steps):
+    for _ in range(max_steps):
         batch = torch.from_numpy(
             synthetic_uniref_batch(rng, args.batch_size, config.seq_len)).to(device)
         if device.type == "cuda":
@@ -91,7 +201,7 @@ def main(argv=None) -> list[dict]:
         state, metrics = fns.train_step(state, batch)
         loss = float(metrics["loss"])  # waits for the step
         seconds = time.perf_counter() - t0
-        if state.step % args.log_every and state.step != args.max_steps:
+        if state.step % args.log_every and state.step != max_steps:
             continue
         rate = tokens_per_step / seconds
         record = {
@@ -104,3 +214,13 @@ def main(argv=None) -> list[dict]:
         print(json.dumps(record), flush=True)
         records.append(record)
     return records
+
+
+def main(argv=None):
+    """Run the CLI: the ``Trainer``'s result with ``--data_path``, else the
+    synthetic run's printed records."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    if args.data_path is not None:
+        return train_tfrecords(args, device)
+    return train_synthetic(args, device)

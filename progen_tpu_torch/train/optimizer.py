@@ -47,6 +47,43 @@ class OptState:
     mini_step: int = 0
     acc_grads: Params | None = None
 
+    def state_dict(self) -> dict:
+        """The state by name, sharing its tensors (what a checkpoint
+        stores)."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": self.mu, "nu": self.nu, "acc_grads": self.acc_grads}
+
+    @torch.no_grad()
+    def load_state_dict(self, saved: dict) -> "OptState":
+        """Copy ``saved``'s tensors into this state's, in place on their
+        devices, and return the state at ``saved``'s counts.  Raises when
+        the names, shapes or the accumulator's presence differ."""
+        for field in ("mu", "nu", "acc_grads"):
+            mine, theirs = getattr(self, field), saved[field]
+            if (mine is None) != (theirs is None):
+                raise ValueError(
+                    f"stored optimizer state {'has' if theirs is not None else 'lacks'} "
+                    f"{field}: was it saved with another grad_accum_every?")
+            if mine is not None:
+                copy_into(mine, theirs, f"opt_state.{field}")
+        return dataclasses.replace(self, count=int(saved["count"]),
+                                   mini_step=int(saved["mini_step"]))
+
+
+@torch.no_grad()
+def copy_into(dst: Params, src: Params, what: str) -> None:
+    """``dst[k].copy_(src[k])`` for every name; the names and shapes must
+    match."""
+    if set(dst) != set(src):
+        raise ValueError(f"{what}: stored names differ: missing "
+                         f"{sorted(set(dst) - set(src))}, unexpected "
+                         f"{sorted(set(src) - set(dst))}")
+    for name, t in dst.items():
+        if t.shape != src[name].shape:
+            raise ValueError(f"{what}.{name}: stored shape "
+                             f"{tuple(src[name].shape)}, want {tuple(t.shape)}")
+        t.copy_(src[name])
+
 
 def decay_mask(params: Params) -> dict[str, bool]:
     """True where weight decay applies: every parameter with ndim > 1."""

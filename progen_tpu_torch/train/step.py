@@ -3,8 +3,12 @@
 One ``train_step`` is forward, loss, backward (through the kernels'
 autograd functions on the card), then the optimizer: clip, AdamW and the
 parameter update, or only the accumulation on a micro-step that does not
-end an effective batch.  PyTorch runs eagerly, so there is no jit and no
-mesh; ``train_multi_step`` (JAX's K-step ``lax.scan``) is not ported yet.
+end an effective batch.  The optimizer writes the parameters, the moments
+and the accumulator IN PLACE, so a state kept across later steps must be a
+copy (the trainer's background checkpoint snapshots it first).  The
+``Trainer`` (``train/trainer.py``) drives these steps over tfrecords.
+PyTorch runs eagerly, so there is no jit and no mesh; ``train_multi_step``
+(JAX's K-step ``lax.scan``) is not ported yet.
 """
 
 from __future__ import annotations

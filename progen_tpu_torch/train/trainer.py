@@ -1,0 +1,580 @@
+"""The training loop of the port (ported from progen_tpu/train/trainer.py, the
+per-step path): tfrecords -> the train step -> periodic validation,
+sampling and checkpoints -> resume at the exact record cursor.
+
+* ``restore_or_init`` restores the newest checkpoint (a stored model config
+  that differs from the requested one raises) or draws fresh weights;
+* the epoch/step loop runs ``grad_accum_every`` micro-steps per optimizer
+  step and fetches the loss to the host only every ``log_every`` steps;
+* hooks at the JAX package's cadences: log, checkpoint, validate, sample;
+  the throughput meter is rebased after them and the watchdog beats each
+  step and after them;
+* a SIGTERM makes the loop save at the next step boundary and return
+  ``preempted: True``; ``max_steps`` ends with a save that waits;
+* ``run`` retries the loop ``run_attempts`` times: a transient failure
+  re-restores from the newest checkpoint.
+
+Traps kept from the JAX package: ``TrainState.step`` counts MICRO-steps,
+``global_step = step // grad_accum_every``; the stored cursor grows by the
+effective batch and is never wrapped, and the resume skip is the cursor
+modulo the corpus unshuffled but the whole cursor shuffled (a seeded
+shuffle orders every pass differently).
+
+The port's optimizer updates params, moments and accumulator IN PLACE, so
+a background checkpoint first takes a snapshot: a device clone of the state
+made before the next step is launched; a thread copies the clone into
+pinned host memory on a side stream (after an event that marks the clone
+done) and writes it.  A periodic save that finds the previous one still writing is
+skipped; an exit or preemption save joins it and writes.  A failed write
+surfaces (a ``RetryError`` from the store) when the thread is joined.
+
+Fields of :class:`TrainerConfig` the port cannot honour yet (the mesh and
+sharding strategies, remat, ``superstep > 1``, the statusz server, and
+attention/SGU implementations other than the port's kernels) are refused
+by name when set away from their defaults.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import signal
+import threading
+import time
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from progen_tpu_torch.checkpoint.store import CheckpointStore
+from progen_tpu_torch.core.device import resolve_device
+from progen_tpu_torch.core.precision import make_policy
+from progen_tpu_torch.data.prefetch import DevicePrefetcher
+from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
+from progen_tpu_torch.data.tokenizer import decode_tokens
+from progen_tpu_torch.decode.rng import KeySeq
+from progen_tpu_torch.decode.sampler import make_sampler
+from progen_tpu_torch.models.progen import ProGen, ProGenConfig
+from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
+from progen_tpu_torch.observe.meter import ThroughputMeter, profile_trace
+from progen_tpu_torch.observe.tracker import Tracker
+from progen_tpu_torch.resilience import faults
+from progen_tpu_torch.resilience.retry import RetryError, default_classifier
+from progen_tpu_torch.resilience.watchdog import FlightRecorder, Watchdog
+from progen_tpu_torch.train.optimizer import make_optimizer
+from progen_tpu_torch.train.schedule import make_lr_schedule
+from progen_tpu_torch.train.step import TrainState, make_train_functions
+
+# TrainerConfig fields the port refuses away from their defaults
+NOT_PORTED = ("strategies", "mesh", "remat", "superstep", "statusz_port",
+              "attn_impl", "sgu_impl")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    seed: int = 42
+    batch_size: int = 4            # micro-batch
+    grad_accum_every: int = 4
+    epochs: int = 100
+    learning_rate: float = 2e-4
+    weight_decay: float = 1e-3
+    max_grad_norm: float = 0.5
+    validate_every: int = 100
+    sample_every: int = 500
+    checkpoint_every: int = 1000
+    checkpoint_keep_n: int = 500
+    prime_length: int = 25
+    mixed_precision: bool = True
+    # seeded sliding-buffer record shuffle (0 = off); resume is exact
+    # because the cursor skip applies to the shuffle's output
+    shuffle_buffer: int = 0
+    lr_schedule: str = "constant"  # "constant" | "cosine" | "linear"
+    warmup_steps: int = 0
+    schedule_steps: int | None = None  # decay horizon; defaults to max_steps
+    lr_min_ratio: float = 0.1
+    # not ported yet: refused by name unless left at these values
+    strategies: Sequence[str] = ("dp",)
+    mesh: Any = None
+    remat: bool = False
+    remat_policy: str = "full"
+    attn_impl: str = "kernel"      # the port's K1 kernels (plain on the CPU)
+    sgu_impl: str = "kernel"       # the port's K2 kernels (plain on the CPU)
+    superstep: int = 1
+    statusz_port: int | None = None
+    # batches made and copied to the device ahead of the step by a worker
+    # thread (0 = synchronous).  0 by default, unlike the JAX package's 2:
+    # the worker's batch work holds the GIL against the loop's launches, so
+    # on the card it hid nothing (PERF.md)
+    prefetch_depth: int = 0
+    # checkpoint from a device snapshot on a background thread
+    background_checkpoint: bool = True
+    log_every: int = 10
+    sample_top_k: int = 25
+    profile_dir: str | None = None
+    max_steps: int | None = None
+    # one short sampler call before the loop, so the first sample hook
+    # does not stall the loop; skipped when no sample hook can fire
+    warm_sampler: bool = True
+    # tries of the train loop: a transient failure re-restores from the
+    # newest checkpoint and continues (1 = fail fast)
+    run_attempts: int = 1
+    # seconds without a completed step before the watchdog dumps all
+    # thread stacks and the flight recorder and exits 42 (None = off)
+    watchdog_timeout: float | None = None
+    watchdog_dir: str | None = None   # default: the tracker's run dir
+    flight_recorder_n: int = 64
+
+
+def _refuse_unported(cfg: TrainerConfig) -> None:
+    defaults = TrainerConfig()
+    for name in NOT_PORTED:
+        value, default = getattr(cfg, name), getattr(defaults, name)
+        if name == "strategies":
+            value, default = tuple(value), tuple(default)
+        if value != default:
+            raise ValueError(
+                f"TrainerConfig.{name}={value!r} is not ported yet (the port "
+                f"supports only {default!r})")
+
+
+def _map_state(fn, state: TrainState) -> TrainState:
+    """``state`` with ``fn`` applied to every tensor of the params, the
+    moments and the accumulator."""
+    each = lambda d: None if d is None else {k: fn(v) for k, v in d.items()}
+    opt = state.opt_state
+    return TrainState(state.step, each(state.params), dataclasses.replace(
+        opt, mu=each(opt.mu), nu=each(opt.nu), acc_grads=each(opt.acc_grads)))
+
+
+def _snapshot(state: TrainState) -> TrainState:
+    """A copy of ``state`` on its device: the next step updates the live
+    tensors in place."""
+    with torch.no_grad():
+        return _map_state(lambda t: t.detach().clone(), state)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into pinned host memory on the current stream (the
+    caller synchronises it)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+
+class Trainer:
+    def __init__(
+        self,
+        model_config: ProGenConfig,
+        cfg: TrainerConfig,
+        data_path: str,
+        checkpoint_path: str,
+        tracker: Tracker | None = None,
+        device: torch.device | str | None = None,
+    ):
+        _refuse_unported(cfg)
+        self.model_config = model_config
+        self.cfg = cfg
+        self.data_path = data_path
+        self.device = resolve_device(device)
+        self.policy = make_policy(cfg.mixed_precision)
+        self.model = ProGen(model_config, self.policy, device=self.device,
+                            seed=cfg.seed)
+        self.lr_schedule = make_lr_schedule(
+            cfg.lr_schedule, cfg.learning_rate, warmup_steps=cfg.warmup_steps,
+            decay_steps=cfg.schedule_steps or cfg.max_steps,
+            min_lr_ratio=cfg.lr_min_ratio)
+        self.optimizer = make_optimizer(
+            self.lr_schedule, cfg.weight_decay, cfg.max_grad_norm,
+            cfg.grad_accum_every)
+        self.fns = make_train_functions(self.model, self.optimizer)
+        self.store = CheckpointStore(checkpoint_path, cfg.checkpoint_keep_n)
+        self.tracker = tracker or Tracker(disabled=True)
+        self.sampler = make_sampler(self.model)
+        self.keys = KeySeq(cfg.seed)
+        # 12 sync intervals: long enough to be sustained, short enough to
+        # slide past cold-start artifacts
+        self.meter = ThroughputMeter(window=12)
+        self._preempt_requested = False
+        self._ckpt_thread: threading.Thread | None = None
+        self._ckpt_error: BaseException | None = None
+        # what each save cost: step, snapshot ms (host and device), the
+        # host copy's and the write's seconds, whether it was written
+        self.checkpoint_log: list[dict] = []
+        self.restore_seconds: float | None = None
+        self._recorder = FlightRecorder(cfg.flight_recorder_n)
+        self._watchdog: Watchdog | None = None
+        try:
+            signal.signal(signal.SIGTERM, self._request_preempt_checkpoint)
+        except ValueError:
+            pass  # not the main thread (e.g. under a test runner)
+
+    def _request_preempt_checkpoint(self, signum=None, frame=None) -> None:
+        self._preempt_requested = True
+
+    def _emit(self, **record: Any) -> None:
+        print(json.dumps(record), flush=True)
+
+    def _note_phase(self, name: str, t0: float, **fields: Any) -> None:
+        """One loop phase -> a flight-recorder event, so a watchdog trip
+        shows the recent phase history."""
+        self._recorder.record(name, dur_s=round(time.perf_counter() - t0, 6), **fields)
+
+    def _to_device(self, np_batch) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(np_batch)).to(self.device)
+
+    def _warm_sampler(self, global_step: int) -> None:
+        """One short sampler call (the prefill and a decode step) before the
+        loop when a sample hook can fire in this run, so the first hook does
+        not stall the loop on first-launch costs (the kernels' build,
+        allocations)."""
+        cfg = self.cfg
+        next_hook = (global_step // cfg.sample_every + 1) * cfg.sample_every
+        if not cfg.warm_sampler or (cfg.max_steps is not None
+                                    and next_hook > cfg.max_steps):
+            return
+        prime = torch.zeros((1, cfg.prime_length), dtype=torch.long,
+                            device=self.device)
+        self.sampler(prime, cfg.prime_length + 1,
+                     key=torch.zeros(2, dtype=torch.int64), top_k=cfg.sample_top_k)
+
+    # -- state ---------------------------------------------------------------
+
+    def restore_or_init(self):
+        """Returns ``(state, start_seq_index, run_id)``: the newest
+        checkpoint when there is one (its model config must equal the
+        requested one), else fresh weights drawn from ``cfg.seed``."""
+        meta = self.store.restore_meta()
+        if meta is None:
+            next(self.keys)  # the JAX trainer draws its init key here
+            return self.fns.init_state(seed=self.cfg.seed), 0, None
+        stored_cfg = ProGenConfig.from_dict(meta["model_config"])
+        if stored_cfg != self.model_config:
+            raise ValueError(
+                "checkpoint model config differs from requested config; "
+                f"rebuild the Trainer with the stored config: {stored_cfg}")
+        t0 = time.perf_counter()
+        state = self.store.restore_state(self.fns.init_state())
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.restore_seconds = time.perf_counter() - t0
+        return state, meta["next_seq_index"], meta.get("run_id")
+
+    # -- loop ----------------------------------------------------------------
+
+    def run(self) -> dict[str, Any]:
+        """Up to ``cfg.run_attempts`` tries of the train loop.  A TRANSIENT
+        failure (I/O retry exhaustion, an injected fault) re-restores from
+        the newest checkpoint, at worst replaying the steps since the last
+        save; fatal errors and the last attempt's failure propagate."""
+        attempts = max(1, self.cfg.run_attempts)
+        for attempt in range(1, attempts + 1):
+            try:
+                return self._run_attempt()
+            except Exception as e:
+                transient = isinstance(e, RetryError) or default_classifier(e)
+                if attempt >= attempts or not transient:
+                    raise
+                self._recorder.record("run-retry", attempt=attempt, error=repr(e))
+                self._emit(event="run_retry", attempt=attempt, attempts=attempts,
+                           error=repr(e))
+                try:
+                    self._join_checkpoint_thread()
+                except Exception:
+                    pass  # the save that failed is why we are here
+
+    def _run_attempt(self) -> dict[str, Any]:
+        cfg = self.cfg
+        seq_len = self.model_config.seq_len
+        total_train, get_train = iterator_from_tfrecords_folder(self.data_path, "train")
+        total_valid, get_valid = iterator_from_tfrecords_folder(self.data_path, "valid")
+        if total_train <= 0:
+            raise ValueError(f"no protein sequences found for training in {self.data_path}")
+        if total_valid <= 0:
+            raise ValueError(f"no protein sequences found for validation in {self.data_path}")
+
+        state, start_seq_index, _ = self.restore_or_init()
+        # unshuffled passes are identical, so the wrapped position is an
+        # exact skip; a shuffled stream orders each pass differently, so it
+        # skips the whole un-wrapped cursor
+        epoch_position = start_seq_index % total_train
+        skip = start_seq_index if cfg.shuffle_buffer else epoch_position
+        effective_batch = cfg.batch_size * cfg.grad_accum_every
+
+        train_it = get_train(seq_len=seq_len, batch_size=cfg.batch_size, skip=skip,
+                             loop=True, shuffle_buffer=cfg.shuffle_buffer,
+                             seed=cfg.seed)
+        if cfg.prefetch_depth > 0:
+            train_it = DevicePrefetcher(train_it, device=self.device,
+                                        depth=cfg.prefetch_depth)
+        valid_it = get_valid(seq_len=seq_len, batch_size=cfg.batch_size, loop=True)
+        # TrainState.step counts MICRO-steps; global_step optimizer steps
+        global_step = state.step // cfg.grad_accum_every
+        watchdog = None
+        try:
+            num_params = sum(p.numel() for p in state.params.values())
+            self._emit(params=num_params, seq_len=seq_len, num_sequences=total_train,
+                       start_seq_index=start_seq_index)
+            self._warm_sampler(global_step)
+            if cfg.watchdog_timeout:
+                out_dir = cfg.watchdog_dir or str(getattr(self.tracker, "_dir", None) or ".")
+                watchdog = Watchdog(cfg.watchdog_timeout, out_dir=out_dir,
+                                    recorder=self._recorder,
+                                    label=f"train from step {global_step}")
+                watchdog.start()
+            self._watchdog = watchdog
+            return self._run_loop(state, train_it, valid_it, total_train,
+                                  epoch_position, effective_batch, global_step,
+                                  start_seq_index)
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+            self._watchdog = None
+            if isinstance(train_it, DevicePrefetcher):
+                train_it.close()
+            # an exception must not abandon the checkpoint thread mid-write
+            self._join_checkpoint_thread()
+
+    def _run_loop(self, state, train_it, valid_it, total_train, epoch_position,
+                  effective_batch, global_step, seq_cursor):
+        cfg = self.cfg
+        seq_len = self.model_config.seq_len
+        num_params = sum(p.numel() for p in state.params.values())
+        flops_per_token = model_flops_per_token(self.model_config, num_params)
+        prefetched = isinstance(train_it, DevicePrefetcher)
+        watchdog = self._watchdog
+        last_loss = None
+        pending_tokens = pending_steps = 0
+        data_wait = 0.0
+        since = time.perf_counter()
+
+        with profile_trace(cfg.profile_dir):
+            for epoch in range(1, cfg.epochs + 1):
+                self._emit(epoch=epoch)
+                epoch_start = epoch_position if epoch == 1 else 0
+                steps_per_epoch = max(1, (total_train - epoch_start) // effective_batch)
+                for i in range(steps_per_epoch):
+                    if watchdog is not None:
+                        watchdog.beat(f"step {global_step + 1}")
+                    faults.inject("train.step")
+                    # the attempt's first step launches every kernel for the
+                    # first time (the build, on the card): a stall the
+                    # watchdog must not book as a hang
+                    grace = (watchdog.paused() if watchdog is not None
+                             and epoch == 1 and i == 0 else contextlib.nullcontext())
+                    t0 = time.perf_counter()
+                    with grace:
+                        for _ in range(cfg.grad_accum_every):
+                            tw = time.perf_counter()
+                            batch = next(train_it)
+                            if not prefetched:
+                                batch = self._to_device(batch)
+                            data_wait += time.perf_counter() - tw
+                            state, metrics = self.fns.train_step(state, batch)
+                    global_step += 1
+                    self._note_phase("train.step_dispatch", t0, step=global_step)
+                    # monotonic, never wrapped: the stored cursor must name
+                    # the position in the multi-epoch STREAM
+                    seq_cursor += effective_batch
+                    pending_tokens += effective_batch * seq_len
+                    pending_steps += 1
+
+                    will_hook = (global_step % cfg.checkpoint_every == 0
+                                 or global_step % cfg.validate_every == 0
+                                 or global_step % cfg.sample_every == 0)
+                    if global_step % cfg.log_every == 0:
+                        t0 = time.perf_counter()
+                        last_loss = float(metrics["loss"])  # waits for the step
+                        now = time.perf_counter()
+                        self.meter.tick(pending_tokens)
+                        log = {"loss": last_loss,
+                               "grad_norm": float(metrics["grad_norm"]),
+                               "lr": float(metrics["lr"]),
+                               "step_ms": (now - since) / pending_steps * 1e3,
+                               "data_wait_ms": data_wait / pending_steps * 1e3}
+                        since, pending_tokens, pending_steps, data_wait = now, 0, 0, 0.0
+                        tps = self.meter.tokens_per_sec_per_chip
+                        if tps is not None:
+                            log["tokens_per_sec_per_chip"] = tps
+                            if self.device.type == "cuda":
+                                log["mfu"] = mfu(tps, flops_per_token)
+                        self.tracker.log(log, global_step)
+                        self._recorder.record("step", step=global_step, **log)
+                        self._note_phase("train.log", t0, step=global_step)
+                        self._emit(step=global_step, **log)
+
+                    if will_hook and pending_tokens:
+                        # sync and tick BEFORE the hooks, so their wall time
+                        # is never rated against these steps' tokens
+                        float(metrics["grad_norm"])
+                        self.meter.tick(pending_tokens)
+                        pending_tokens = 0
+
+                    hooks_ran = False
+                    if global_step % cfg.checkpoint_every == 0:
+                        t0 = time.perf_counter()
+                        self._checkpoint(state, seq_cursor)
+                        self._note_phase("train.checkpoint", t0, step=global_step)
+                        hooks_ran = True
+
+                    if global_step % cfg.validate_every == 0:
+                        t0 = time.perf_counter()
+                        vmetrics = self.fns.eval_step(state, self._to_device(next(valid_it)))
+                        vloss = float(vmetrics["loss"])
+                        self.tracker.log({"valid_loss": vloss}, global_step)
+                        self._note_phase("train.validate", t0, step=global_step, loss=vloss)
+                        self._emit(step=global_step, valid_loss=vloss)
+                        hooks_ran = True
+
+                    if global_step % cfg.sample_every == 0:
+                        self._sample_and_log(next(valid_it), global_step)
+                        hooks_ran = True
+
+                    if hooks_ran:
+                        # hook time is neither training time nor a stall
+                        self.meter.rebase()
+                        since, pending_steps, data_wait = time.perf_counter(), 0, 0.0
+                        if watchdog is not None:
+                            watchdog.beat(f"hooks at step {global_step}")
+
+                    if self._preempt_requested or self.store.reached_preemption(global_step):
+                        # the process exits right after: the save must commit
+                        self._checkpoint(state, seq_cursor, wait=True)
+                        self._emit(step=global_step, preempted=True,
+                                   next_seq_index=seq_cursor)
+                        return {"state": state, "loss": last_loss,
+                                "step": global_step, "preempted": True}
+
+                    if cfg.max_steps is not None and global_step >= cfg.max_steps:
+                        self._checkpoint(state, seq_cursor, wait=True)
+                        return self._finish(state, last_loss, global_step)
+        return self._finish(state, last_loss, global_step)
+
+    def _finish(self, state, last_loss, global_step: int) -> dict[str, Any]:
+        """The full-validation loss at the end of training, logged and
+        returned."""
+        self._join_checkpoint_thread()
+        valid_loss = self.evaluate(state)
+        if valid_loss is not None:
+            self.tracker.log({"full_valid_loss": valid_loss}, global_step)
+            self._emit(step=global_step, full_valid_loss=valid_loss)
+        return {"state": state, "loss": last_loss, "step": global_step,
+                "valid_loss": valid_loss}
+
+    def evaluate(self, state) -> float | None:
+        """Mean per-row loss over the ENTIRE validation split, one pass.
+        The final partial batch is zero-padded to the batch size and the
+        pad rows are masked out by the step's ``real_rows``, so the mean is
+        exact over all records."""
+        cfg = self.cfg
+        total_valid, get_valid = iterator_from_tfrecords_folder(self.data_path, "valid")
+        if total_valid == 0:
+            return None
+        it = get_valid(seq_len=self.model_config.seq_len,
+                       batch_size=cfg.batch_size, loop=False)
+        loss_sum, rows = 0.0, 0
+        for _ in range(-(-total_valid // cfg.batch_size)):
+            np_batch = next(it)
+            if np_batch.shape[0] < cfg.batch_size:
+                pad = np.zeros((cfg.batch_size - np_batch.shape[0], np_batch.shape[1]),
+                               np_batch.dtype)
+                np_batch = np.concatenate([np_batch, pad])
+            metrics = self.fns.eval_step(state, self._to_device(np_batch))
+            per_row = metrics["per_row_loss"].cpu().numpy()
+            real = metrics["real_rows"].cpu().numpy()
+            loss_sum += float((per_row * real).sum())
+            rows += int(real.sum())
+        return loss_sum / rows if rows else None
+
+    # -- hooks ---------------------------------------------------------------
+
+    def _join_checkpoint_thread(self) -> None:
+        """Wait for the background save; re-raise what it raised."""
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+        error, self._ckpt_error = self._ckpt_error, None
+        if error is not None:
+            raise error
+
+    def _checkpoint(self, state, next_seq_index: int, wait: bool = False) -> None:
+        step = state.step
+        run_id = self.tracker.run_id
+        model_config = self.model_config.to_dict()
+        cuda = self.device.type == "cuda"
+
+        def write(snapshot, stats: dict) -> bool:
+            # save() skips a step already in the store, so an exit or
+            # preemption save after a same-step periodic one costs nothing
+            self._recorder.record("checkpoint-start", step=step,
+                                  next_seq_index=next_seq_index)
+            t0 = time.perf_counter()
+            saved = self.store.save(step, snapshot, next_seq_index=next_seq_index,
+                                    model_config=model_config, run_id=run_id)
+            stats.update(write_s=time.perf_counter() - t0, saved=bool(saved))
+            self.checkpoint_log.append(stats)
+            self._recorder.record("checkpoint-done", step=step, saved=bool(saved))
+            if saved:
+                self._emit(step=step // self.cfg.grad_accum_every, checkpoint=step,
+                           next_seq_index=next_seq_index)
+            return saved
+
+        if not self.cfg.background_checkpoint or wait:
+            self._join_checkpoint_thread()
+            write(state, {"step": step, "background": False})
+            return
+
+        # one save in flight at a time (bounds the extra device memory to
+        # one snapshot); a PERIODIC save that finds it still writing is
+        # skipped, not queued: waiting would stall training on the write
+        if self._ckpt_thread is not None and self._ckpt_thread.is_alive():
+            self._emit(step=step // self.cfg.grad_accum_every,
+                       checkpoint_skipped=step, reason="previous save still writing")
+            return
+        self._join_checkpoint_thread()
+        t0 = time.perf_counter()
+        if cuda:
+            begin, ready = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            begin.record()
+        snapshot = _snapshot(state)
+        if cuda:
+            ready.record()
+        stats = {"step": step, "background": True,
+                 "snapshot_host_ms": (time.perf_counter() - t0) * 1e3}
+
+        def background() -> None:
+            try:
+                host = snapshot
+                t1 = time.perf_counter()
+                if cuda:
+                    # copy into pinned memory on a side stream, after the
+                    # clone and nothing else: later steps on the main
+                    # stream run meanwhile
+                    copy_stream = torch.cuda.Stream(self.device)
+                    with torch.cuda.stream(copy_stream):
+                        copy_stream.wait_event(ready)
+                        host = _map_state(_pinned_copy, snapshot)
+                    copy_stream.synchronize()
+                    stats["snapshot_device_ms"] = begin.elapsed_time(ready)
+                stats["fetch_s"] = time.perf_counter() - t1
+                write(host, stats)
+            except BaseException as e:  # re-raised by _join_checkpoint_thread
+                self._ckpt_error = e
+
+        self._ckpt_thread = threading.Thread(target=background,
+                                             name="progen-checkpoint", daemon=True)
+        self._ckpt_thread.start()
+
+    def _sample_and_log(self, valid_batch, step: int) -> None:
+        """Prime with the first ``prime_length`` tokens of a validation row,
+        decode to ``seq_len`` on the JAX key chain, log."""
+        cfg = self.cfg
+        prime = torch.as_tensor(np.asarray(valid_batch[:1, :cfg.prime_length]),
+                                dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        sampled = self.sampler(prime, self.model_config.seq_len, key=next(self.keys),
+                               top_k=cfg.sample_top_k)
+        prime_str = decode_tokens(prime[0].cpu().numpy())
+        sampled_str = decode_tokens(sampled[0, cfg.prime_length:].cpu().numpy())
+        self._note_phase("train.sample", t0, step=step)
+        self._emit(step=step, prime=prime_str, sample=sampled_str,
+                   sample_s=time.perf_counter() - t0)
+        self.tracker.log_sample(prime_str, sampled_str, step)

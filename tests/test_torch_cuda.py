@@ -498,3 +498,56 @@ def test_engine_chunk_goes_through_the_paged_kernel(gen, quantize):
                for a, b in zip(tokens["cpu"][u], tokens["cuda"][u]))
     total = sum(len(v) for v in tokens["cpu"].values())
     assert same / total >= 0.9  # summation order may flip a near-tie
+
+
+def test_prefetcher_copies_batches_on_a_side_stream(gen):
+    """Batches copied on the prefetcher's stream are whole when a kernel of
+    the consumer's stream reads them, also behind a long device spin."""
+    from progen_tpu_torch.data.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 255, (8, 1025)).astype(np.int32) for _ in range(6)]
+    pf = DevicePrefetcher(iter(batches), device="cuda", depth=2)
+    sums = []
+    for got in pf:
+        torch.cuda._sleep(1_000_000)
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        sums.append(got.long().sum(dim=1))
+    torch.cuda.synchronize()
+    for s, want in zip(sums, batches):
+        assert s.cpu().tolist() == want.astype(np.int64).sum(axis=1).tolist()
+
+
+def test_trainer_resumes_bit_exact_on_the_card(gen, tmp_path):
+    """A small f32 model through the Trainer on the card: 4 steps with
+    background checkpoints, against 2 steps and a resumed 2; the stored
+    params load into a fresh model that gives the same logits."""
+    from progen_tpu_torch.data.tfrecord import shard_filename, write_tfrecord
+    from progen_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = ProGenConfig(num_tokens=256, dim=64, seq_len=64, depth=3, window_size=16,
+                       global_mlp_depth=2, heads=2, dim_head=32, ff_mult=2)
+    rng = np.random.default_rng(1)
+    mk = lambda: bytes(rng.integers(65, 90, rng.integers(6, 60), dtype=np.uint8))
+    write_tfrecord(tmp_path / shard_filename(0, 40, "train"), [mk() for _ in range(40)])
+    write_tfrecord(tmp_path / shard_filename(0, 5, "valid"), [mk() for _ in range(5)])
+
+    def run(ckpt, max_steps):
+        tc = TrainerConfig(batch_size=2, grad_accum_every=2, learning_rate=1e-3,
+                           mixed_precision=False, checkpoint_every=2, validate_every=2,
+                           sample_every=1000, log_every=1, max_steps=max_steps)
+        t = Trainer(cfg, tc, str(tmp_path), str(tmp_path / ckpt), device="cuda")
+        return t, t.run()
+
+    full_t, full = run("full", 4)
+    run("split", 2)
+    split_t, split = run("split", 4)
+    assert split_t.restore_seconds is not None
+    for k, v in full["state"].params.items():
+        assert torch.equal(v, split["state"].params[k]), k
+    assert [s["background"] for s in full_t.checkpoint_log][:1] == [True]
+    fresh = ProGen(cfg, make_policy(False), device="cuda", seed=5)
+    fresh.load_state_dict(full_t.store.restore_params(map_location="cuda"))
+    tokens = torch.randint(1, 255, (2, 64), device="cuda", generator=gen)
+    with torch.no_grad():
+        assert torch.equal(fresh(tokens), full_t.model(tokens))

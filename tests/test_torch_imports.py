@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``progen_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and the
+``chip_smoke.py`` imports JAX, flax, optax, orbax, TensorFlow,
+``google_crc32c``, safetensors, click or the JAX package, and the
 port's sampling, serving and training CLIs run on the CPU when asked to."""
 
 import ast
@@ -17,7 +18,8 @@ from progen_tpu_torch.train import cli as train_cli
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "progen_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "progen_tpu", "tensorflow",
+             "google_crc32c", "safetensors", "click", "etils"}
 
 
 def _port_files():
@@ -46,7 +48,10 @@ def test_scan_sees_the_whole_port():
     assert "progen_tpu_torch/train/cli.py" in names
     for new in ("decode/engine.py", "decode/rng.py", "decode/paging.py", "decode/qos.py",
                 "ops/quant.py", "ops/paged_gate_mix.py", "ops/cuda_paged_gate_mix.py",
-                "resilience/faults.py", "resilience/retry.py", "observe/robustness.py"):
+                "resilience/faults.py", "resilience/retry.py", "observe/robustness.py",
+                "data/tfrecord.py", "data/prefetch.py", "data/fasta.py", "generate_data.py",
+                "checkpoint/store.py", "observe/meter.py", "observe/tracker.py",
+                "resilience/watchdog.py", "train/trainer.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
