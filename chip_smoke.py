@@ -56,7 +56,15 @@ non-zero without its last line:
    prefix-cache hits, tokens/s and peak memory; 32 teacher-forced paged
    steps through K3 and K3-q8 against the same steps through the plain
    version; and, in f32 and greedy, the paged engine's tokens against the
-   dense engine's;
+   dense engine's.  Then the engine's other modes on the same 12 requests,
+   each held to the plain engine's tokens in its mode (at least 0.98 of
+   them equal): speculative decoding (spec_k 4) paged with a
+   ``draft_config_for`` draft (random weights from the seed) and dense with
+   the identity draft (more than one token a round), prefill disaggregated
+   (paged), and both with int8 weights and 8-bit pages; each run's
+   acceptance counters, prefill and merge seconds, handoff stats and
+   launches (the draft's K1-fwd/K2-fwd in every prefill program, on the
+   Hopper route; K3 or K3-q8 twice per verify step);
 8. trainer path: ProGen-small (bf16, batch 8, accumulation 1) trains
    through ``train/trainer.py`` on ``train_data_synth/`` (four GZIP tfrecord
    shards, 1900 records; 100 valid records): (a) 8 uninterrupted steps with
@@ -78,7 +86,7 @@ non-zero without its last line:
    ``{"ok": true, "device": {...}}``.
 
 Every earlier phase runs at the depth and the step count it always had;
-the whole takes about six minutes on an H100, the build included.
+the whole takes about eight minutes on an H100, the build included.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -117,7 +125,7 @@ from progen_tpu_torch.decode.sampler import (
     make_chunked_sampler,
     teacher_forced_logits,
 )
-from progen_tpu_torch.models.configs import SMALL
+from progen_tpu_torch.models.configs import SMALL, draft_config_for
 from progen_tpu_torch.models.progen import ProGen
 from progen_tpu_torch.ops import cuda_attention, cuda_paged_gate_mix, cuda_sgu
 from progen_tpu_torch.ops import paged_gate_mix as plain_paged
@@ -204,6 +212,7 @@ ENGINE_PAGE = 16
 ENGINE_REQUESTS = 12
 ENGINE_TIGHT_PAGES = 2 + 96    # pool pages of the tight run, 2 reserved
 ENGINE_TOKEN_MATCH = 0.98      # the JAX package's accuracy gate (bench_serving.py)
+ENGINE_SPEC_K = 4              # draft tokens a speculative round (the CLI's default)
 SPIN_CYCLES = 40_000_000       # ~20 ms of device spin ahead of a timed run
 FLUSH_BYTES = 256 << 20        # written before each cold call: five times L2
 SEED = 0
@@ -1487,22 +1496,29 @@ def engine_requests(c, greedy: bool = False) -> list[dict]:
     return out
 
 
-def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
+def run_engine(phase: str, model, requests: list[dict], want: dict | None = None,
+               **engine_kwargs):
     """Answer ``requests`` through a ``ServingEngine`` over ``model``; the
     launch counts are set to 0 just before and read just after.  Checks what
-    every engine run must show; returns (tokens by uid, launches and the
-    paged gate mix's launches by route, engine)."""
+    every engine run must show, and with ``want`` (the plain engine's tokens
+    in the same mode) the share of equal tokens; returns (tokens by uid,
+    launches and the paged gate mix's launches by route, engine)."""
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, page_size=ENGINE_PAGE, **engine_kwargs)
+    # every program that runs the prefill forward: the admit programs and,
+    # disaggregated, the prefill worker's calls
     admits = [0]
-    admit = engine._admit
 
-    def counted_admit(*args):
-        admits[0] += 1
-        return admit(*args)
+    def counted(program):
+        def call(*args):
+            admits[0] += 1
+            return program(*args)
+        return call
 
-    engine._admit = counted_admit
+    engine._admit = counted(engine._admit)
+    if engine.disagg:
+        engine._prefill_worker = counted(engine._prefill_worker)
     gc.collect()  # an engine holds bound methods of itself: free the last one's state
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1534,29 +1550,46 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
         require(1 <= len(toks) <= r["max_new_tokens"]
                 and bool(((toks >= 0) & (toks < c.num_tokens)).all()),
                 f"{phase}: request {r['uid']} got {len(toks)} tokens")
-    steps = engine.chunks_run * ENGINE_CHUNK
+    # target steps: a plain chunk is ENGINE_CHUNK of them, a speculative one
+    # its rounds of spec_k + 1 verify steps (the draft's steps are dense)
+    per_chunk = (engine._spec_rounds * (engine.spec_k + 1) if engine.spec
+                 else ENGINE_CHUNK)
+    steps = engine.chunks_run * per_chunk
     paged = engine_kwargs.get("paged", False)
     q8 = engine_kwargs.get("quantize") == "weights+pages"
-    want = {name: 0 for name in COUNTERS}
-    want.update(local_attention_fwd=c.depth * admits[0],
-                sgu_fwd=c.global_mlp_depth * admits[0])
+    # each prefill program runs the target's forward, and the draft's too
+    depth, gmlp = c.depth, c.global_mlp_depth
+    if engine.spec:
+        depth += engine.draft_config.depth
+        gmlp += engine.draft_config.global_mlp_depth
+    expected = {name: 0 for name in COUNTERS}
+    expected.update(local_attention_fwd=depth * admits[0], sgu_fwd=gmlp * admits[0])
     if paged:
-        want["paged_gate_mix_q8" if q8 else "paged_gate_mix"] = c.global_mlp_depth * steps
-    require(launches == want, f"{phase}: kernel launches {launches}, want {want}")
+        expected["paged_gate_mix_q8" if q8 else "paged_gate_mix"] = \
+            c.global_mlp_depth * steps
+    require(launches == expected,
+            f"{phase}: kernel launches {launches}, want {expected}")
     generated = sum(len(comp.tokens) for comp in done)
     fields = {"config": "small", "dtype": str(model.policy.compute_dtype),
               "requests": len(requests), "slots": ENGINE_SLOTS, "chunk": ENGINE_CHUNK,
-              "launches": launches, "admit_programs": admits[0],
+              "launches": launches, "prefill_programs": admits[0],
               "fwd_launches_by_route": {k: routes[k]
                                         for k in ("local_attention_fwd", "sgu_fwd")},
               "mix_launches_by_route": routes["paged_gate_mix"],
               "chunks_run": engine.chunks_run, "decode_steps": steps,
+              "target_steps_per_chunk": per_chunk,
               "generated_tokens": generated, "total_s": total_s,
               "tokens_per_s": generated / total_s,
               "stage_seconds": dict(engine.stage_seconds),
               "finish_reasons": sorted(comp.finish_reason for comp in done),
               "latency_s_median": float(np.median([comp.latency for comp in done])),
-              "peak_bytes": peak, **{k: v for k, v in engine_kwargs.items()}}
+              "peak_bytes": peak,
+              **{k: (v.config.to_dict() if k == "draft_params" else v)
+                 for k, v in engine_kwargs.items()}}
+    if engine.spec:
+        fields["spec"] = engine.spec_counters()
+    if engine.disagg:
+        fields["handoff"] = engine.robustness_counters()["handoff"]
     if paged:
         cache = engine.cache_status()
         require(cache["free_pages"] + cache["cached_pages"] == cache["capacity"],
@@ -1565,9 +1598,62 @@ def run_engine(phase: str, model, requests: list[dict], **engine_kwargs):
                       evictions=engine.evictions)
     require(engine.robustness_counters()["fallback_activations"] == 0,
             f"{phase}: a fallback was activated")
+    tokens = {u: comp.tokens.tolist() for u, comp in by_uid.items()}
+    if want is not None:
+        fields["token_match_vs_plain"] = token_match(tokens, want)
+        fields["min_token_match"] = ENGINE_TOKEN_MATCH
     emit(phase, **fields)
+    if want is not None:
+        require(fields["token_match_vs_plain"] >= ENGINE_TOKEN_MATCH,
+                f"{phase}: {fields['token_match_vs_plain']} of the plain engine's "
+                f"tokens, want >= {ENGINE_TOKEN_MATCH}")
     launches = {**launches, "paged_gate_mix_by_route": routes["paged_gate_mix"]}
-    return {u: comp.tokens.tolist() for u, comp in by_uid.items()}, launches, engine
+    return tokens, launches, engine
+
+
+def engine_modes(model, requests, dense: dict, paged: dict, q8: dict) -> dict:
+    """Speculative decoding and disaggregated prefill at ProGen-small, each
+    held to the plain engine's tokens in its mode (``dense``, ``paged``,
+    ``q8``): the ``draft_config_for`` draft (random weights from the seed)
+    and the identity draft, spec_k 4.  Returns each phase's launches."""
+    draft = ProGen(draft_config_for(model.config), make_policy(True), device="cuda",
+                   seed=SEED).eval()
+    out = {}
+    _, out["engine_spec_paged"], engine = run_engine(
+        "engine_spec_paged", model, requests, want=paged, paged=True, spec=True,
+        spec_k=ENGINE_SPEC_K, draft_params=draft)
+    require(engine.draft_config.dim == model.config.dim // 4, "not the draft config")
+    _, out["engine_spec_identity"], engine = run_engine(
+        "engine_spec_identity", model, requests, want=dense, spec=True,
+        spec_k=ENGINE_SPEC_K)
+    counters = engine.spec_counters()
+    require(counters["accepted_tokens_per_round"] > 1.0
+            and counters["accepted_tokens_per_slot_round"] > 1.0,
+            f"the identity draft accepted nothing: {counters}")
+    _, out["engine_disagg_paged"], engine = run_engine(
+        "engine_disagg_paged", model, requests, want=paged, paged=True, disagg=True)
+    handoff = engine.robustness_counters()["handoff"]
+    require(handoff["puts"] == handoff["gets"] > 0 and engine.stage_seconds["merge_s"] > 0,
+            f"engine_disagg_paged: handoff {handoff}")
+    _, out["engine_spec_disagg_q8"], engine = run_engine(
+        "engine_spec_disagg_q8", model, requests, want=q8, paged=True,
+        quantize="weights+pages", spec=True, spec_k=ENGINE_SPEC_K, disagg=True)
+    del engine, draft
+    return out
+
+
+def engine_modes_alone() -> dict:
+    """The speculative and disaggregated engine phases with what they need
+    (the build, the model, the plain dense, paged and 8-bit runs), on their
+    own: ``python3 -c "import chip_smoke as cs; cs.engine_modes_alone()"``."""
+    kernels.build()
+    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
+    requests = engine_requests(SMALL)
+    dense, _, _ = run_engine("engine_dense", model, requests)
+    paged, _, _ = run_engine("engine_paged", model, requests, paged=True)
+    q8, _, _ = run_engine("engine_paged_q8", model, requests, paged=True,
+                          quantize="weights+pages")
+    return engine_modes(model, requests, dense, paged, q8)
 
 
 def token_match(got: dict, want: dict) -> float:
@@ -1685,13 +1771,14 @@ def main() -> int:
 
     requests = engine_requests(SMALL)
     engine_launches = {}
-    _, engine_launches["engine_dense"], _ = run_engine("engine_dense", model, requests)
+    dense, engine_launches["engine_dense"], _ = run_engine("engine_dense", model, requests)
     full, engine_launches["engine_paged"], engine = run_engine(
         "engine_paged", model, requests, paged=True)
     require(engine.prefix_hits > 0, "the prefix cache found nothing to share")
-    _, engine_launches["engine_paged_q8"], engine = run_engine(
+    q8, engine_launches["engine_paged_q8"], engine = run_engine(
         "engine_paged_q8", model, requests, paged=True, quantize="weights+pages")
     require(engine.prefix_hits > 0, "the prefix cache found nothing to share (q8)")
+    engine_launches.update(engine_modes(model, requests, dense, full, q8))
     tight, engine_launches["engine_tight_pool"], engine = run_engine(
         "engine_tight_pool", model, requests, paged=True, num_pages=ENGINE_TIGHT_PAGES)
     require(engine.pause_events > 0 and engine.evictions > 0,

@@ -46,7 +46,8 @@ bit-matched to the dense step.
 
 Robustness: every phase runs behind a named fault-injection point
 (``serve.submit`` / ``serve.admit`` / ``serve.prefill`` /
-``serve.decode_chunk`` / ``serve.harvest`` / ``serve.page_alloc``).  Each
+``serve.decode_chunk``, ``serve.verify`` under speculation /
+``serve.handoff`` / ``serve.harvest`` / ``serve.page_alloc``).  Each
 dispatch works on a COPY of the state it mutates and ``self.state`` is
 replaced only on success, so a transient fault is contained by re-running
 the dispatch; a fatal fault sheds only the requests whose work was lost, as
@@ -61,8 +62,30 @@ if transient, else the in-flight batch is shed).  Nothing gives way to the
 plain version on the card; ``robustness_counters()["fallback_activations"]``
 stays in the record and reads 0.
 
-Not ported yet (each raises ``NotImplementedError``): speculative decoding,
-disaggregated prefill and handoff, LoRA banks, meshes, the embed endpoint,
+**Speculative decoding** (``spec=True``): a draft model proposes
+``spec_k`` tokens a round and the target verifies them (``decode/spec.py``);
+every emitted token is sampled from the target's logits with the slot's own
+key chain, so the output is token-identical to plain decoding for any
+draft.  A chunk is ``max(1, chunk_size // (spec_k + 1))`` rounds.  Without
+``draft_params`` and ``draft_config`` the draft is the target itself (the
+IDENTITY draft, sharing its possibly quantized weights); ``draft_params`` is
+a ``ProGen`` of the draft config (``models/configs.py:draft_config_for``).
+The draft's caches are dense per slot, in paged mode too.
+
+**Disaggregated prefill** (``disagg=True``): prefill runs as its own worker
+over FIFO batches of up to ``prefill_batch`` requests sharing a bucket and
+produces cache handles into a bounded queue of ``handoff_depth``
+(``decode/handoff.py``); the decode stage admits by merging handles into
+free slots.  ``step()`` runs the decode chunk before the round's prefill,
+so in-flight decode does not wait behind a long prefill.
+
+The JAX engine's state is a value and its rejected speculative steps are
+merged away; here the caches are written in place, so every step that must
+leave a row untouched passes ``write_ok`` and the draft proposes on a clone
+of its caches.
+
+Not ported yet (each raises ``NotImplementedError``): remote prefill (the
+handoff's wire format), LoRA banks, meshes, the embed endpoint,
 ``submit_fork``, snapshot/restore, weight reload, warm-up, the watchdog.
 """
 
@@ -79,9 +102,11 @@ import torch.nn.functional as F
 from progen_tpu_torch.compat.convert import params_from_flax, params_to_flax
 from progen_tpu_torch.core.precision import Policy
 from progen_tpu_torch.decode import rng
+from progen_tpu_torch.decode.handoff import Handle, HandoffQueue
 from progen_tpu_torch.decode.incremental import (
     ProGenDecodeStep,
     ProGenPagedDecodeStep,
+    copy_caches,
     init_caches,
     init_gate_pool,
     init_gate_scale,
@@ -99,12 +124,14 @@ from progen_tpu_torch.decode.prefill import (
     harvest_caches,
     harvest_gate_pages,
     pad_prime_length,
+    scatter_gate_rows,
 )
 from progen_tpu_torch.decode.qos import QoSQueue
 from progen_tpu_torch.decode.sampler import (
     gumbel_topk_sample_batched,
     split_keys_batched,
 )
+from progen_tpu_torch.decode.spec import check_draft_config, spec_round
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 from progen_tpu_torch.observe.robustness import RobustnessCounters
 from progen_tpu_torch.ops.quant import quantize_params
@@ -127,14 +154,8 @@ _MAX_DEFER_STREAK = 16
 # constructor arguments of the JAX engine whose modes are not ported yet,
 # with the ROADMAP.md item that holds each
 _NOT_PORTED = {
-    "spec": "speculative decoding (ROADMAP.md Queue 1, engine modes: spec)",
-    "draft_config": "speculative decoding (ROADMAP.md Queue 1, engine modes: spec)",
-    "draft_params": "speculative decoding (ROADMAP.md Queue 1, engine modes: spec)",
-    "spec_k": "speculative decoding (ROADMAP.md Queue 1, engine modes: spec)",
-    "disagg": "disaggregated prefill and handoff (ROADMAP.md Queue 1, engine modes: disagg)",
-    "prefill_batch": "disaggregated prefill and handoff (ROADMAP.md Queue 1, engine modes: disagg)",
-    "handoff_depth": "disaggregated prefill and handoff (ROADMAP.md Queue 1, engine modes: disagg)",
-    "remote_prefill": "disaggregated prefill and handoff (ROADMAP.md Queue 1, engine modes: disagg)",
+    "remote_prefill": "remote prefill over the handoff's wire format "
+                      "(ROADMAP.md Queue 1, the multi-process fleet)",
     "lora_bank": "LoRA adapter banks (ROADMAP.md Queue 1, engine modes: lora_bank)",
     "mesh": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
     "strategies": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
@@ -231,6 +252,21 @@ def _merge(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Te
     return torch.where(mask.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
 
 
+def _tree_map(fn: Callable, new, old):
+    """``fn(new_leaf, old_leaf)`` over two cache trees of one structure
+    (dicts and lists of tensors)."""
+    if isinstance(new, dict):
+        return {k: _tree_map(fn, v, old[k]) for k, v in new.items()}
+    if isinstance(new, list):
+        return [_tree_map(fn, n, o) for n, o in zip(new, old)]
+    return fn(new, old)
+
+
+# the per-row entries of the slot state besides the caches and ``active``
+_ROW_KEYS = ("seq", "pos", "start", "stop", "done", "keys", "top_k", "temp",
+             "lmask")
+
+
 class ServingEngine:
     """Slot-based continuous-batching engine over a fixed device batch.
 
@@ -252,6 +288,12 @@ class ServingEngine:
     (exhaustion escapes as :class:`RetryError`); ``qos_weights`` maps tenant
     to relative share for the scheduling queue (``decode/qos.py``), which is
     exact FIFO by default.
+
+    ``spec=True`` (``spec_k``, ``draft_config``, ``draft_params``) and
+    ``disagg=True`` (``prefill_batch``, ``handoff_depth``): see the module
+    docstring.  ``draft_config`` without ``draft_params`` draws the draft's
+    weights from ``seed``; an explicit draft keeps its own weights (full
+    precision unless given quantized), the identity draft the target's.
     """
 
     def __init__(self, model: ProGen | ProGenConfig, *,
@@ -262,7 +304,13 @@ class ServingEngine:
                  prefix_cache: bool = True, max_queue: int | None = None,
                  shed_policy: str = "reject", fault_retries: int = 3,
                  qos_weights: dict | None = None, quantize: str | None = None,
+                 spec: bool = False, spec_k: int = 4,
+                 draft_config: ProGenConfig | None = None,
+                 draft_params: ProGen | None = None, disagg: bool = False,
+                 prefill_batch: int | None = None, handoff_depth: int = 2,
                  **not_ported):
+        if spec and "lora_bank" in not_ported:
+            raise ValueError("lora_bank does not compose with spec=True")
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f"ServingEngine got an unexpected argument {name!r}")
@@ -301,7 +349,8 @@ class ServingEngine:
         # dispatch wall per stage: the host's time in the guarded call.  The
         # device may still be running when a decode chunk's dispatch returns;
         # the harvest that follows waits for it.
-        self.stage_seconds = {"prefill_s": 0.0, "decode_chunk_s": 0.0}
+        self.stage_seconds = {"prefill_s": 0.0, "merge_s": 0.0,
+                              "decode_chunk_s": 0.0}
 
         if quantize not in (None, "weights", "weights+pages"):
             raise ValueError(f"quantize {quantize!r}: want None, "
@@ -314,8 +363,29 @@ class ServingEngine:
         if quantize and model.weights != "int8":
             model = self._quantize_variables(model)
         self.model = model
-        self._max_advance = chunk_size
         self._rows = torch.arange(num_slots, device=self.device)
+
+        self.spec = spec
+        if spec:
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            self.spec_k = int(spec_k)
+            self._draft = self._draft_model(draft_config, draft_params, seed)
+            self.draft_config = self._draft.config
+            check_draft_config(config, self.draft_config)
+            self._draft_step = ProGenDecodeStep(self._draft)
+            # rounds per chunk: a fully-accepted round advances k + 1
+            # positions, so the chunk's budget is kept in emitted tokens
+            self._spec_rounds = max(1, chunk_size // (self.spec_k + 1))
+            self._max_advance = self._spec_rounds * (self.spec_k + 1)
+            # summed on the device; spec_counters() fetches them once
+            self._spec_emitted = torch.zeros((), dtype=torch.long, device=self.device)
+            self._spec_verify_rounds = torch.zeros((), dtype=torch.long,
+                                                   device=self.device)
+            self._spec_slot_rounds = torch.zeros((), dtype=torch.long,
+                                                 device=self.device)
+        else:
+            self._max_advance = chunk_size
 
         self.paged = paged
         if paged:
@@ -336,13 +406,42 @@ class ServingEngine:
             self.prefix_lookups = 0
             self._step_model = ProGenPagedDecodeStep(
                 model, n_rows=self.max_len, gate_dtype=self.gate_dtype)
-            self._decode_chunk = self._decode_chunk_paged_impl
+            self._decode_chunk = (self._decode_chunk_spec_paged_impl if spec
+                                  else self._decode_chunk_paged_impl)
             self._admit = self._admit_paged_impl
         else:
             self._step_model = ProGenDecodeStep(model)
-            self._decode_chunk = self._decode_chunk_impl
+            self._decode_chunk = (self._decode_chunk_spec_impl if spec
+                                  else self._decode_chunk_impl)
             self._admit = self._admit_impl
+        self.disagg = disagg
+        if disagg:
+            self.prefill_batch = max(1, min(prefill_batch or num_slots, num_slots))
+            self._handoff = HandoffQueue(handoff_depth)
+            self._prefill_worker = self._prefill_worker_impl
+            self._merge = self._merge_impl
+        else:
+            self._handoff = None
         self.state = self._init_state()
+
+    def _draft_model(self, draft_config, draft_params, seed: int) -> ProGen:
+        """The speculative draft: the target itself when neither argument
+        is given, a model of ``draft_config`` with weights drawn from
+        ``seed``, or the given ``draft_params`` model."""
+        if draft_params is None:
+            if draft_config is None:
+                return self.model  # the identity draft
+            return ProGen(draft_config, self.policy, device=self.device,
+                          seed=seed).eval()
+        if draft_config is not None and draft_config != draft_params.config:
+            raise ValueError("draft_config differs from draft_params.config")
+        if draft_params.device != self.device:
+            raise ValueError(f"the draft is on {draft_params.device}, the "
+                             f"target on {self.device}")
+        if draft_params.policy.compute_dtype != self.policy.compute_dtype:
+            raise ValueError("the draft must compute in the target's dtype "
+                             "(the engine keeps its caches)")
+        return draft_params.eval()
 
     # ---------------------------------------------------------------- state
 
@@ -359,7 +458,7 @@ class ServingEngine:
                 caches["sgu_pool_scale"] = init_gate_scale(
                     self.config, self._pool.num_pages, self.page_size, device=dev)
         zeros = lambda dtype: torch.zeros(s, dtype=dtype, device=dev)
-        return {
+        state = {
             "seq": torch.zeros(s, L, dtype=torch.long, device=dev),
             "caches": caches,
             "pos": zeros(torch.long),      # index of the newest token
@@ -375,21 +474,23 @@ class ServingEngine:
             "lmask": torch.ones(s, L, self.config.num_tokens, dtype=torch.bool,
                                 device=dev),
         }
+        if self.spec:
+            # the draft's caches stay DENSE per slot, paged mode included:
+            # the draft is small, paging it would buy nothing
+            state["draft_caches"] = init_caches(self.draft_config, s, self.policy,
+                                                decode_len=L, device=dev)
+        return state
 
     @staticmethod
     def _working_copy(state: dict) -> dict:
         """A state whose in-place updates leave ``state`` untouched: the
         buffers a decode chunk writes into are copied, the rest is shared
         (the chunk replaces those entries, it never writes into them)."""
-        caches = state["caches"]
-        copied = {"attn_prev": list(caches["attn_prev"]),
-                  "ff_prev": list(caches["ff_prev"]),
-                  "k": [t.clone() for t in caches["k"]],
-                  "v": [t.clone() for t in caches["v"]]}
-        for name in ("sgu_gate", "sgu_pool", "sgu_pool_scale"):
-            if name in caches:
-                copied[name] = {k: t.clone() for k, t in caches[name].items()}
-        return {**state, "seq": state["seq"].clone(), "caches": copied}
+        out = {**state, "seq": state["seq"].clone(),
+               "caches": copy_caches(state["caches"])}
+        if "draft_caches" in state:
+            out["draft_caches"] = copy_caches(state["draft_caches"])
+        return out
 
     def _set_inactive(self, slots) -> None:
         act = self.state["active"].clone()
@@ -463,9 +564,11 @@ class ServingEngine:
 
     # ------------------------------------------------------------- decoding
 
-    def _advance(self, st: dict, live: torch.Tensor, logits: torch.Tensor) -> None:
+    def _advance(self, st: dict, live: torch.Tensor, logits: torch.Tensor):
         """Sample each row's next token from ``logits`` and advance the live
-        rows of ``st`` one position (shared tail of both chunk bodies)."""
+        rows of ``st`` one position (the shared tail of every chunk body).
+        Returns ``(nxt, done_now)``: the sampled tokens, and the live rows
+        whose stop rule fired at this step."""
         rows, pos = self._rows, st["pos"]
         kd, sub = split_keys_batched(st["keys"])
         writepos = (pos + 1).clamp(0, self.max_len - 1)
@@ -476,12 +579,13 @@ class ServingEngine:
         val = torch.where(live, nxt, st["seq"][rows, writepos])
         st["seq"][rows, writepos] = val
         new_pos = torch.where(live, pos + 1, pos)
-        st["done"] = st["done"] | (live & ((val == EOS_ID)
-                                           | (new_pos + 1 >= st["stop"])))
+        done_now = live & ((val == EOS_ID) | (new_pos + 1 >= st["stop"]))
+        st["done"] = st["done"] | done_now
         # a slot's key advances only on its own live steps, so a request's
         # trajectory is independent of its neighbours (and of pauses)
         st["keys"] = torch.where(live[:, None], kd, st["keys"])
         st["pos"] = new_pos
+        return nxt, done_now
 
     @torch.no_grad()
     def _decode_chunk_impl(self, state: dict) -> dict:
@@ -493,24 +597,27 @@ class ServingEngine:
             self._advance(st, live, logits)
         return st
 
-    def _prefill(self, state, tokens, lengths, stops, seeds, top_k, temp, mask,
-                 lmask, with_sgu: bool):
-        """The shared body of both admit programs: one parallel forward of
-        ``tokens (S, P_pad)``, the harvested rings and carries, each row's
-        first sampled token, and the merged small state (rows outside
-        ``mask`` carry dummy primes and are discarded)."""
+    def _prefill_rows(self, tokens, lengths, stops, seeds, top_k, temp, lmask,
+                      with_sgu: bool):
+        """One parallel forward of ``tokens (S, P_pad)`` (and of the draft's,
+        under speculation) and each row's decode state, with no slot state
+        in scope: the shared body of both admit programs and the prefill
+        worker.  Returns ``(rows, sown)``: ``rows`` holds the ``_ROW_KEYS``
+        entries, the harvested ``caches`` (rings, carries and, with
+        ``with_sgu``, the dense gate rows) and, under speculation, the
+        draft's ``draft_caches``; ``sown`` the target forward's
+        intermediates."""
         dev, L = self.device, self.max_len
         as_t = lambda a, dtype: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
         tokens = as_t(tokens, torch.long)
         lengths, stops = as_t(lengths, torch.long), as_t(stops, torch.long)
         seeds, top_k = as_t(seeds.astype(np.int64), torch.long), as_t(top_k, torch.long)
-        temp, mask = as_t(temp, torch.float32), as_t(mask, torch.bool)
-        lmask = as_t(lmask, torch.bool)
+        temp, lmask = as_t(temp, torch.float32), as_t(lmask, torch.bool)
         rows = self._rows
 
         logits, sown = self.model(tokens, return_cache=True)
-        caches_new = harvest_caches(self.config, sown, lengths, self.policy, L,
-                                    with_sgu=with_sgu)
+        caches = harvest_caches(self.config, sown, lengths, self.policy, L,
+                                with_sgu=with_sgu)
         last = logits[rows, lengths - 1].float()
         split = rng.split(rng.key(seeds))
         # the first generated token writes at position ``lengths``: its mask
@@ -523,36 +630,43 @@ class ServingEngine:
         tok_L = tokens[:, :L] if p_pad >= L else F.pad(tokens, (0, L - p_pad))
         seq = tok_L * (torch.arange(L, device=dev)[None, :] < lengths[:, None])
         seq[rows, lengths] = first
-        done = (first == EOS_ID) | (lengths + 1 >= stops)
-        small = {
-            "seq": _merge(mask, seq, state["seq"]),
-            "pos": _merge(mask, lengths, state["pos"]),
-            "start": _merge(mask, lengths, state["start"]),
-            "stop": _merge(mask, stops, state["stop"]),
-            "active": _merge(mask, torch.ones_like(mask), state["active"]),
-            "done": _merge(mask, done, state["done"]),
-            "keys": _merge(mask, split[:, 0], state["keys"]),
-            "top_k": _merge(mask, top_k, state["top_k"]),
-            "temp": _merge(mask, temp, state["temp"]),
-            "lmask": _merge(mask, lmask, state["lmask"]),
-        }
-        old = state["caches"]
-        rings = {k: [_merge(mask, n, o) for n, o in zip(caches_new[k], old[k])]
-                 for k in self._RING_KEYS}
-        return small, rings, caches_new, sown, lengths, mask
+        out = {"seq": seq, "caches": caches, "pos": lengths, "start": lengths,
+               "stop": stops, "done": (first == EOS_ID) | (lengths + 1 >= stops),
+               "keys": split[:, 0], "top_k": top_k, "temp": temp, "lmask": lmask}
+        if self.spec:
+            # one padded prime batch primes both models (they share the
+            # window, so the bucket suits both); the draft's gate rows stay
+            # dense
+            _, dsown = self._draft(tokens, return_cache=True)
+            out["draft_caches"] = harvest_caches(self.draft_config, dsown,
+                                                 lengths, self.policy, L)
+        return out, sown
+
+    def _merge_rows(self, state: dict, rows: dict, mask: torch.Tensor,
+                    take: Callable) -> dict:
+        """The slot state with the rows where ``mask`` taken from ``rows``
+        (``take(new, old)`` picks per leaf) and marked active; the target's
+        caches are left to the caller."""
+        out = {k: take(rows[k], state[k]) for k in _ROW_KEYS}
+        out["active"] = state["active"] | mask
+        if self.spec:
+            out["draft_caches"] = _tree_map(take, rows["draft_caches"],
+                                            state["draft_caches"])
+        return out
 
     @torch.no_grad()
     def _admit_impl(self, state, tokens, lengths, stops, seeds, top_k, temp,
                     mask, lmask) -> dict:
         """Prefill ``tokens (S, P_pad)`` in one parallel forward and merge
-        the rows where ``mask`` into ``state``.  ``lmask (S, L, V)`` is each
-        row's logit mask indexed by write position."""
-        small, rings, caches_new, _, _, mask = self._prefill(
-            state, tokens, lengths, stops, seeds, top_k, temp, mask, lmask,
-            with_sgu=True)
-        gates = {k: _merge(mask, caches_new["sgu_gate"][k], old)
-                 for k, old in state["caches"]["sgu_gate"].items()}
-        return {**small, "caches": {**rings, "sgu_gate": gates}}
+        the rows where ``mask`` into ``state`` (rows outside ``mask`` carry
+        dummy primes and are discarded).  ``lmask (S, L, V)`` is each row's
+        logit mask indexed by write position."""
+        rows, _ = self._prefill_rows(tokens, lengths, stops, seeds, top_k, temp,
+                                     lmask, with_sgu=True)
+        mask = torch.as_tensor(mask, device=self.device)
+        take = lambda new, old: _merge(mask, new, old)
+        return {**self._merge_rows(state, rows, mask, take),
+                "caches": _tree_map(take, rows["caches"], state["caches"])}
 
     # -------------------------------------------------------- paged decoding
 
@@ -581,20 +695,135 @@ class ServingEngine:
         as in the dense path, but gate rows scatter straight into the page
         pool through the WRITE table (``wtable``: private pages only;
         prefix-shared and dummy rows go to the dump page)."""
-        small, rings, _, sown, lengths, _ = self._prefill(
-            state, tokens, lengths, stops, seeds, top_k, temp, mask, lmask,
-            with_sgu=False)
+        rows, sown = self._prefill_rows(tokens, lengths, stops, seeds, top_k,
+                                        temp, lmask, with_sgu=False)
+        mask = torch.as_tensor(mask, device=self.device)
+        take = lambda new, old: _merge(mask, new, old)
         old = state["caches"]
         wtable = torch.as_tensor(wtable, device=self.device)
         if self.gate_dtype == "int8":
             pool_new, scale_new = harvest_gate_pages(
-                self.config, sown, lengths, old["sgu_pool"], wtable,
+                self.config, sown, rows["pos"], old["sgu_pool"], wtable,
                 self.policy, pool_scale=old["sgu_pool_scale"])
             pools = {"sgu_pool": pool_new, "sgu_pool_scale": scale_new}
         else:
             pools = {"sgu_pool": harvest_gate_pages(
-                self.config, sown, lengths, old["sgu_pool"], wtable, self.policy)}
-        return {**small, "caches": {**rings, **pools}}
+                self.config, sown, rows["pos"], old["sgu_pool"], wtable,
+                self.policy)}
+        rings = {k: _tree_map(take, rows["caches"][k], old[k])
+                 for k in self._RING_KEYS}
+        return {**self._merge_rows(state, rows, mask, take),
+                "caches": {**rings, **pools}}
+
+    # --------------------------------------------------- speculative decoding
+
+    def _spec_chunk(self, st: dict, target_step: Callable, paused=None) -> dict:
+        """``_spec_rounds`` speculative rounds over the working state ``st``
+        (``decode/spec.py``); returns the emitted tokens, the rounds in
+        which some slot was live and the live slots over the rounds, summed
+        on the device."""
+        def draft_step(tok, pos, dc, live):
+            return self._draft_step(tok, pos, dc, live)[0]
+
+        emitted = torch.zeros((), dtype=torch.long, device=self.device)
+        rounds = torch.zeros((), dtype=torch.long, device=self.device)
+        slot_rounds = torch.zeros((), dtype=torch.long, device=self.device)
+        for _ in range(self._spec_rounds):
+            live0 = st["active"] & ~st["done"]
+            if paused is not None:
+                live0 = live0 & ~paused
+            em = spec_round(st, spec_k=self.spec_k, max_len=self.max_len,
+                            target_step=target_step, draft_step=draft_step,
+                            advance=self._advance, live0=live0)
+            emitted = emitted + em.sum()
+            rounds = rounds + live0.any().long()
+            slot_rounds = slot_rounds + live0.sum()
+        return {"emitted": emitted, "rounds": rounds, "slot_rounds": slot_rounds}
+
+    @torch.no_grad()
+    def _decode_chunk_spec_impl(self, state: dict):
+        """Speculative twin of ``_decode_chunk_impl``: the chunk is
+        ``_spec_rounds`` propose/verify/commit rounds in place of
+        ``chunk_size`` single-token target steps.  A verify step that is not
+        live writes nothing (``write_ok``), where the JAX chunk merges the
+        old caches back.  Returns ``(state, stats)``."""
+        st = self._working_copy(state)
+
+        def target_step(tok, pos, caches, live):
+            return self._step_model(tok, pos, caches, live)[0]
+
+        return st, self._spec_chunk(st, target_step)
+
+    @torch.no_grad()
+    def _decode_chunk_spec_paged_impl(self, state: dict, table, paused):
+        """Speculative + paged: every write of a verify step, pool rows
+        included, is masked inside the step (``write_ok=live``)."""
+        table = torch.as_tensor(table, device=self.device)
+        paused = torch.as_tensor(paused, device=self.device)
+        st = self._working_copy(state)
+
+        def target_step(tok, pos, caches, live):
+            return self._step_model(tok, pos, caches, table, live)[0]
+
+        return st, self._spec_chunk(st, target_step, paused)
+
+    # ------------------------------------------------- disaggregated serving
+
+    @torch.no_grad()
+    def _prefill_worker_impl(self, tokens, lengths, stops, seeds, top_k, temp,
+                             lmask) -> dict:
+        """Prefill stage of disaggregated serving: the admit programs' math
+        with NO slot state in scope; the product is a handle's state of
+        ``(num_slots, ...)`` slabs the merge later gathers into slots.  Gate
+        rows stay dense here even in paged mode (the worker cannot know
+        which pool pages they will land in; the merge scatters them through
+        a row-indexed write table)."""
+        rows, _ = self._prefill_rows(tokens, lengths, stops, seeds, top_k, temp,
+                                     lmask, with_sgu=True)
+        return rows
+
+    @torch.no_grad()
+    def _merge_impl(self, state: dict, hstate: dict, src, mask,
+                    row_wtable=None) -> dict:
+        """Decode-side half of the handoff: gather handle rows into slot
+        state.  ``src (S,)`` gives each slot its handle row (any value where
+        ``mask`` is false), ``mask (S,)`` the slots being admitted.  A
+        gather by a host-inverted mapping, not a scatter of handle rows: no
+        duplicate-index hazard, and dead rows vanish for free.  The handle
+        is only read, never cloned: its tensors are the sources of the
+        gather and are released with the handle once the merge has landed
+        (the counterpart of the JAX merge's donation).  In paged mode the
+        handle's dense gate slabs scatter into the pool through
+        ``row_wtable (S, ppr)``, a handle-ROW-indexed write table (DUMP for
+        unused rows), quantized there under 8-bit pages."""
+        dev = self.device
+        src = torch.as_tensor(src, device=dev).long().clamp(0, self.num_slots - 1)
+        mask = torch.as_tensor(mask, device=dev)
+        take = lambda h, old: _merge(mask, h.index_select(0, src), old)
+        h_caches, old = hstate["caches"], state["caches"]
+        if self.paged:
+            row_wtable = torch.as_tensor(row_wtable, device=dev)
+            gates = h_caches["sgu_gate"]
+            if self.gate_dtype == "int8":
+                pool, scale = scatter_gate_rows(
+                    self.config, gates, hstate["start"], old["sgu_pool"],
+                    row_wtable, pool_scale=old["sgu_pool_scale"])
+                pools = {"sgu_pool": pool, "sgu_pool_scale": scale}
+            else:
+                pools = {"sgu_pool": scatter_gate_rows(
+                    self.config, gates, hstate["start"], old["sgu_pool"],
+                    row_wtable)}
+            caches = {**{k: _tree_map(take, h_caches[k], old[k])
+                         for k in self._RING_KEYS}, **pools}
+        else:
+            caches = _tree_map(take, h_caches, old)
+        return {**self._merge_rows(state, hstate, mask, take), "caches": caches}
+
+    def _prefill_worker_call(self, *args):
+        return self._prefill_worker(*args)
+
+    def _merge_call(self, hstate, *args):
+        return self._merge(self.state, hstate, *args)
 
     # ----------------------------------------------------------------- API
 
@@ -681,7 +910,10 @@ class ServingEngine:
     @property
     def has_work(self) -> bool:
         """True while anything remains for ``step()`` to do or report."""
-        return bool(len(self._queue) + len(self._inflight) + len(self._pending))
+        n = len(self._queue) + len(self._inflight) + len(self._pending)
+        if self.disagg:
+            n += len(self._handoff)
+        return n > 0
 
     # ---------------------------------------------------------- shedding
 
@@ -837,14 +1069,19 @@ class ServingEngine:
                 "temp": np.ones((s,), np.float32),
                 "mask": np.zeros((s,), bool)}
 
-    def _fill_admit_row(self, a: dict, slot: int, r: Request) -> None:
+    def _fill_row(self, a: dict, row: int, r: Request) -> None:
+        """Row ``row`` of the admit or prefill-worker arguments ``a`` from
+        request ``r``."""
         t = np.asarray(r.tokens, np.int32)
-        a["tokens"][slot, : len(t)] = t
-        a["lengths"][slot] = len(t)
-        a["stops"][slot] = min(len(t) + r.max_new_tokens, self.max_len)
-        a["seeds"][slot] = np.uint32(int(r.seed) & 0xFFFFFFFF)
-        a["top_k"][slot] = 0 if r.top_k is None else int(r.top_k)
-        a["temp"][slot] = float(r.temperature)
+        a["tokens"][row, : len(t)] = t
+        a["lengths"][row] = len(t)
+        a["stops"][row] = min(len(t) + r.max_new_tokens, self.max_len)
+        a["seeds"][row] = np.uint32(int(r.seed) & 0xFFFFFFFF)
+        a["top_k"][row] = 0 if r.top_k is None else int(r.top_k)
+        a["temp"][row] = float(r.temperature)
+
+    def _fill_admit_row(self, a: dict, slot: int, r: Request) -> None:
+        self._fill_row(a, slot, r)
         a["mask"][slot] = True
         self._inflight[slot] = r
         self._admit_order[slot] = self._admit_seq
@@ -978,6 +1215,137 @@ class ServingEngine:
         now = time.perf_counter()
         for _, r in batch:
             self._ttft.setdefault(r.uid, now)
+
+    # ------------------------------------------- disaggregated admission
+
+    def _prefill_round(self) -> None:
+        """Prefill stage of a disaggregated step: run the worker over a FIFO
+        prefix of the queue sharing the head's bucket and push the handle.
+        A full handoff queue skips the round entirely (backpressure:
+        prefilled caches are the expensive thing to hold, so the wait is
+        absorbed by the cheap token queue instead)."""
+        if not self._queue or self._handoff.full():
+            return
+        try:
+            self._guard("serve.admit")
+        except _ContainedFault:
+            # the same livelock breaker as inline admission: shed the head
+            self._shed(self._queue.popleft(), FAILED_FAULT)
+            return
+        p_pad = self._bucket([(0, self._queue[0])])
+        batch: list[Request] = []
+        while (self._queue and len(batch) < self.prefill_batch
+               and self._bucket([(0, self._queue[0])]) == p_pad):
+            batch.append(self._queue.popleft())
+        a = self._admit_arrays(p_pad)
+        del a["mask"]
+        for row, r in enumerate(batch):
+            self._fill_row(a, row, r)
+        # handle-ROW-indexed, like every other slab the worker produces
+        lmask = self._build_lmask(list(enumerate(batch)))
+        t0 = time.perf_counter()
+        try:
+            h = self._guard("serve.prefill", self._prefill_worker_call,
+                            *a.values(), lmask)
+            self._note_stage("prefill_s", t0)
+        except _ContainedFault:
+            for r in batch:
+                self._shed(r, FAILED_FAULT)
+            return
+        except RetryError:
+            for r in reversed(batch):
+                self._queue.appendleft(r)
+            raise
+        # the worker samples each request's first token, so the handle
+        # landing IS first-token time (the merge only moves sampled state)
+        now = time.perf_counter()
+        for r in batch:
+            self._ttft.setdefault(r.uid, now)
+        self._handoff.put(Handle(requests=batch, state=h, p_pad=p_pad))
+
+    def _admit_from_handoff(self) -> None:
+        """Decode-side admission: move queued handles into free slots
+        through the merge.  The head handle DEFERS (never reorders) while
+        slots or pages are short, as inline paged admission does."""
+        while self._handoff:
+            h = self._handoff.peek()
+            now = time.perf_counter()
+            expired: list[Request] = []
+            live_rows: list[tuple[int, Request]] = []
+            for row, r in enumerate(h.requests):
+                d = self._deadline_of(r)
+                if d is not None and now > d:
+                    expired.append(r)
+                else:
+                    live_rows.append((row, r))
+            free = [i for i in range(self.num_slots) if i not in self._inflight]
+            if len(free) < len(live_rows):
+                return
+            if self.paged and live_rows:
+                need = sum(pages_for_span(len(r.tokens), self.page_size)
+                           for _, r in live_rows)
+                if not self._pool.can_allocate(need):
+                    return
+            self._handoff.get()  # the handle peeked above, now committed
+            if live_rows:
+                self._merge_handle(h, free, live_rows)
+            for r in expired:
+                self._shed(r, SHED_DEADLINE)
+
+    def _merge_handle(self, h: Handle, free: list, live_rows: list) -> None:
+        """Merge ``live_rows`` of handle ``h`` into the ``free`` slots, in
+        order.  A contained fault sheds them; a transient one that persists
+        requeues the whole handle at the front and escapes."""
+        src = np.zeros((self.num_slots,), np.int32)
+        mask = np.zeros((self.num_slots,), bool)
+        extra: tuple = ()
+        pending_prefix: list[tuple[tuple, int]] = []
+        placed: list[tuple[int, Request]] = []
+        if self.paged:
+            # the merge scatters the handle's dense gate slabs through a
+            # handle-ROW-indexed write table; the page plan is slot-indexed,
+            # so plan into a slot scratch row and copy it across
+            row_wtable = np.full((self.num_slots, self.pages_per_row), DUMP_PAGE,
+                                 np.int32)
+            scratch = np.full_like(row_wtable, DUMP_PAGE)
+        for slot, (row, r) in zip(free, live_rows):
+            src[slot] = row
+            mask[slot] = True
+            self._inflight[slot] = r
+            self._admit_order[slot] = self._admit_seq
+            self._admit_seq += 1
+            placed.append((slot, r))
+            if self.paged:
+                self._host_stop[slot] = min(len(r.tokens) + r.max_new_tokens,
+                                            self.max_len)
+                self._paused[slot] = False
+                self._plan_slot_pages(slot, r, h.p_pad, scratch, pending_prefix)
+                row_wtable[row] = scratch[slot]
+        if self.paged:
+            extra = (row_wtable,)
+        t0 = time.perf_counter()
+        try:
+            self.state = self._guard("serve.handoff", self._merge_call, h.state,
+                                     src, mask, *extra)
+            self._note_stage("merge_s", t0)
+        except (_ContainedFault, RetryError) as e:
+            for slot, r in placed:
+                self._inflight.pop(slot, None)
+                self._release_slot(slot)
+                if isinstance(e, _ContainedFault):
+                    self._shed(r, FAILED_FAULT)
+            if isinstance(e, RetryError):
+                # the merge only reads the handle, so it replays whole; its
+                # expired rows were not shed yet and replay exactly once
+                self._handoff.requeue(h)
+                raise
+            return
+        h.state = {}  # its tensors now live on in the slot state only
+        for key, pid in pending_prefix:
+            self._pool.register_prefix(key, pid)
+        merged = time.perf_counter()
+        for _, r in live_rows:
+            self._ttft.setdefault(r.uid, merged)
 
     # ------------------------------------------------------------- pages
 
@@ -1149,13 +1517,20 @@ class ServingEngine:
             args = (self._page_table.copy(), self._paused.copy())
         else:
             args = ()
+        point = "serve.verify" if self.spec else "serve.decode_chunk"
         t0 = time.perf_counter()
         try:
-            out = self._guard("serve.decode_chunk", self._chunk_call, *args)
+            out = self._guard(point, self._chunk_call, *args)
         except _ContainedFault:
             self._fail_inflight()
             return
         self._note_stage("decode_chunk_s", t0)
+        if self.spec:
+            out, stats = out
+            # summed on the device; spec_counters() fetches them once
+            self._spec_emitted = self._spec_emitted + stats["emitted"]
+            self._spec_verify_rounds = self._spec_verify_rounds + stats["rounds"]
+            self._spec_slot_rounds = self._spec_slot_rounds + stats["slot_rounds"]
         self.state = out
         self.chunks_run += 1
 
@@ -1178,14 +1553,48 @@ class ServingEngine:
         completed = self._drain_pending()
         self._shed_expired()
         if not self._draining:
-            self._admit_pending()
+            if self.disagg:
+                self._admit_from_handoff()
+            else:
+                self._admit_pending()
         completed += self._drain_pending()
         completed += self._harvest_done()  # instant EOS/length at admission
         if self._inflight:
             self._dispatch_chunk()
             completed += self._drain_pending()
             completed += self._harvest_done()
+        if self.disagg and not self._draining:
+            # prefill AFTER the decode chunk: in-flight decode never waits
+            # behind a long prefill; with no slot in flight there is nothing
+            # to protect, so admit at once rather than a step later
+            self._prefill_round()
+            if not self._inflight and self._handoff:
+                self._admit_from_handoff()
+                completed += self._drain_pending()
+                completed += self._harvest_done()
         return completed
+
+    def admit_handle(self, handle: Handle) -> bool:
+        """Push a prefill product into the bounded handoff queue beside the
+        in-process path; False when the queue is at depth (the caller keeps
+        the handle and retries after a ``step()`` frees room)."""
+        if not self.disagg:
+            raise RuntimeError("admit_handle() requires disagg=True")
+        if self._handoff.full():
+            return False
+        return self._handoff.put(handle)
+
+    def run_prefill_round(self) -> Handle | None:
+        """Run one prefill round and POP the handle it produced instead of
+        leaving it queued (a prefill-only caller ships it elsewhere); None
+        when the queue was empty or the round shed."""
+        if not self.disagg:
+            raise RuntimeError("run_prefill_round() requires disagg=True")
+        before = len(self._handoff)
+        self._prefill_round()
+        if len(self._handoff) > before:
+            return self._handoff.get()
+        return None
 
     def run_until_idle(self, max_chunks: int | None = None) -> list[Completion]:
         """Drain the queue and all in-flight slots; returns completions
@@ -1234,6 +1643,8 @@ class ServingEngine:
             "chunks_run": self.chunks_run,
             "paged": self.paged,
             "quantize": self.quantize,
+            "disagg": self.disagg,
+            "spec": self.spec,
             "stage_seconds": {k: round(v, 6)
                               for k, v in self.stage_seconds.items()},
             "qos": self.qos_status(),
@@ -1284,4 +1695,30 @@ class ServingEngine:
             out["prefix_hits"] = self.prefix_hits
             out["prefix_lookups"] = self.prefix_lookups
             out["pool"] = self._pool.stats()
+        if self.disagg:
+            out["handoff"] = self._handoff.stats()
         return out
+
+    def spec_counters(self) -> dict:
+        """Speculation counters, ONE device fetch (call it off the hot path:
+        the chunks sum the counts on the device).  As the JAX engine's:
+        ``accepted_tokens_per_round`` is the tokens emitted, summed over the
+        slots, per round in which some slot was live.  The port adds
+        ``spec_slot_rounds`` (live slots summed over rounds) and
+        ``accepted_tokens_per_slot_round``, the tokens one live slot gains a
+        round (1.0: no proposal accepted; ``spec_k + 1``: all)."""
+        if not self.spec:
+            return {}
+        (counts,) = _host_fetch(torch.stack([self._spec_emitted,
+                                             self._spec_verify_rounds,
+                                             self._spec_slot_rounds]))
+        emitted, rounds, slot_rounds = (int(c) for c in counts)
+        return {
+            "spec_k": self.spec_k,
+            "spec_emitted_tokens": emitted,
+            "spec_verify_rounds": rounds,
+            "spec_slot_rounds": slot_rounds,
+            "accepted_tokens_per_slot_round":
+                (emitted / slot_rounds) if slot_rounds else 0.0,
+            "accepted_tokens_per_round": (emitted / rounds) if rounds else 0.0,
+        }

@@ -33,7 +33,8 @@ K3-q8 kernel).  It takes a ``write_ok`` mask and DROPS every write of a row
 that is not live: the pool scatter goes to the dump page, and the k/v ring
 and the token-shift carries keep their old values.  A paused row's carries
 still hold position ``pos - 1``; a discarded step that overwrote them would
-corrupt the real step after the pause.
+corrupt the real step after the pause.  The dense step takes the same
+optional mask (the speculative verify and draft-commit steps).
 """
 
 from __future__ import annotations
@@ -129,6 +130,21 @@ def init_gate_scale(config: ProGenConfig, num_pages: int, page_size: int,
             for i in range(config.depth) if config.layer_uses_gmlp(i)}
 
 
+def copy_caches(caches: dict) -> dict:
+    """A copy of ``caches`` whose in-place updates by a step leave
+    ``caches`` untouched: the tensors a step writes into (k/v rings, gate
+    caches, pools) are cloned, the carry lists are new lists (a step
+    replaces their entries, it never writes into them)."""
+    out = {"attn_prev": list(caches["attn_prev"]),
+           "ff_prev": list(caches["ff_prev"]),
+           "k": [t.clone() for t in caches["k"]],
+           "v": [t.clone() for t in caches["v"]]}
+    for name in ("sgu_gate", "sgu_pool", "sgu_pool_scale"):
+        if name in caches:
+            out[name] = {k: t.clone() for k, t in caches[name].items()}
+    return out
+
+
 def _keep_live(new, old, write_ok):
     """``new`` for rows where ``write_ok``, else ``old``."""
     if write_ok is None:
@@ -163,16 +179,18 @@ def local_attention_decode(block: LocalAttention, x, sin_row, cos_row, slot,
     return block.to_out(out), new_prev
 
 
-def sgu_decode(block: SGU, x, pos, gate_cache):
+def sgu_decode(block: SGU, x, pos, gate_cache, write_ok=None):
     """One-position spatial gate (the JAX ``SGUDecode``): write this
     position's normed gate row into ``gate_cache`` in place, contract the
     cache with weight row ``pos`` (f32 weights masked to ``n <= pos``, f32
-    product, ``+ bias`` in f32, cast), then ``res * mixed``."""
+    product, ``+ bias`` in f32, cast), then ``res * mixed``.  Rows where
+    ``write_ok`` is false keep their cache row (their output is not to be
+    used)."""
     res, gate = x.chunk(2, dim=-1)
     gate = block.norm(gate)
     n_cache = gate_cache.shape[1]
     rows = torch.arange(x.shape[0], device=x.device)
-    gate_cache[rows, pos] = gate
+    gate_cache[rows, pos] = _keep_live(gate, gate_cache[rows, pos], write_ok)
     w_rows = block.spatial_weights[pos].float()[:, :n_cache]  # (B, n_cache)
     if block.spatial_weights_scale is not None:
         # int8 weights: each batch row reads weight row pos[b] and its scale
@@ -223,16 +241,22 @@ def feed_forward_decode(block: FeedForward, x, pos, prev, gate_cache,
     if block.sgu is not None and paged is not None:
         h = sgu_decode_paged(block.sgu, h, pos, write_ok=write_ok, **paged)
     elif block.sgu is not None:
-        h = sgu_decode(block.sgu, h, pos, gate_cache)
+        h = sgu_decode(block.sgu, h, pos, gate_cache, write_ok)
     return block.proj_out(h), new_prev
 
 
 class ProGenDecodeStep:
     """One decode step of ``model``:
-    ``(tok (B,), pos, caches) -> (logits (B, V), caches)``.
+    ``(tok (B,), pos, caches[, write_ok]) -> (logits (B, V), caches)``.
 
     ``pos`` is an int or a ``(B,)`` tensor (each row at its own position).
-    The rotary tables are built once, for all ``seq_len`` positions.
+    ``write_ok`` ``(B,)`` bool, when given: rows where it is false write
+    NOTHING (ring slot, carries and gate-cache row keep their values) and
+    their logits are not to be used.  The JAX step needs no such mask, its
+    caches are values and a caller merges the old ones back; the caches here
+    are written in place, so a step that must leave a row untouched (a
+    rejected speculative step) has to say so.  The rotary tables are built
+    once, for all ``seq_len`` positions.
     """
 
     def __init__(self, model: ProGen):
@@ -242,8 +266,9 @@ class ProGenDecodeStep:
                                                  device=model.device)
 
     @torch.no_grad()
-    def __call__(self, tok: torch.Tensor, pos, caches: dict):
-        return self._run(tok, pos, caches)
+    def __call__(self, tok: torch.Tensor, pos, caches: dict,
+                 write_ok: torch.Tensor | None = None):
+        return self._run(tok, pos, caches, write_ok=write_ok)
 
     def _paged_layer(self, i: int, caches: dict, pos32, table) -> dict | None:
         """What a gMLP layer of the paged step reads in place of a dense

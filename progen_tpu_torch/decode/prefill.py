@@ -159,6 +159,55 @@ def harvest_gate_pages(config: ProGenConfig, sown: dict,
     return new_pool
 
 
+def scatter_gate_rows(config: ProGenConfig, gate_rows: dict,
+                      lengths: torch.Tensor, pool: dict, wtable: torch.Tensor,
+                      pool_scale: dict | None = None):
+    """Scatter DENSE per-row gate slabs into a copy of the page pool.
+
+    The disaggregated admission path (``decode/handoff.py``): the prefill
+    worker hands off ``(B, n_rows, half)`` gate slabs per gMLP layer (keyed
+    ``str(i)`` like the dense cache), and the decode stage's merge scatters
+    each handle row ``i < lengths[b]`` to page ``wtable[b, i // page_size]``
+    at offset ``i % page_size``: the contract of :func:`harvest_gate_pages`,
+    with the slab in place of the prefill's intermediates.  ``wtable`` rows
+    for prefix-shared pages, unadmitted handle rows and pad tails hold
+    ``DUMP_PAGE``.
+
+    The slabs ride the handoff in the compute dtype whatever the pool's
+    format; with ``pool_scale`` the rows are quantized here, at the pool
+    boundary, and the call returns ``(new_pool, new_scale)``.  The given
+    pools are left untouched."""
+    new_pool = dict(pool)
+    new_scale = dict(pool_scale) if pool_scale is not None else None
+    lengths = lengths.long()
+    wtable = wtable.long()
+    for i in range(config.depth):
+        if not config.layer_uses_gmlp(i):
+            continue
+        gate = gate_rows[str(i)]  # (B, n_rows, half)
+        b, n_rows, half = gate.shape
+        layer_pool = pool[str(i)].clone()  # (num_pages, page_size, half)
+        page_size = layer_pool.shape[1]
+        rows = torch.arange(n_rows, device=gate.device)
+        page_idx = (rows // page_size).clamp_max(wtable.shape[1] - 1)
+        tgt = wtable[:, page_idx]  # (B, n_rows)
+        tgt = torch.where(rows[None, :] < lengths[:, None], tgt, DUMP_PAGE)
+        tgt = tgt.reshape(-1)
+        off = (rows % page_size).expand(b, n_rows).reshape(-1)
+        if new_scale is None:
+            layer_pool[tgt, off] = gate.to(layer_pool.dtype).reshape(-1, half)
+        else:
+            q, s = quantize_rows(gate)
+            layer_pool[tgt, off] = q.reshape(-1, half)
+            layer_scale = pool_scale[str(i)].clone()
+            layer_scale[tgt, off] = s.reshape(-1)
+            new_scale[str(i)] = layer_scale
+        new_pool[str(i)] = layer_pool
+    if new_scale is not None:
+        return new_pool, new_scale
+    return new_pool
+
+
 def make_prefiller(model: ProGen):
     """Build ``prefill(tokens, lengths, decode_len) -> (last_logits, caches)``.
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import dataclasses
+
 from progen_tpu_torch.models.progen import ProGenConfig
 
 # Reference repo's default toy config.
@@ -48,3 +50,25 @@ CONFIGS = {
     "large": LARGE,
     "xl": XL,
 }
+
+
+def draft_config_for(target: ProGenConfig, *, dim: int | None = None,
+                     depth: int | None = None, heads: int | None = None,
+                     dim_head: int | None = None) -> ProGenConfig:
+    """A small draft config for speculative decoding against ``target``.
+
+    The draft shares ``num_tokens`` (it proposes tokens in the target's
+    vocabulary), ``window_size`` (one padded prime batch prefills both
+    models, at window-aligned buckets) and ``seq_len`` (positions mean the
+    same to both).  What only sets capacity shrinks: by default a
+    quarter-width, two-layer model with half the heads and one gMLP layer.
+    """
+    depth = depth if depth is not None else min(2, target.depth)
+    return dataclasses.replace(
+        target,
+        dim=dim if dim is not None else max(8, target.dim // 4),
+        depth=depth,
+        heads=heads if heads is not None else max(1, target.heads // 2),
+        dim_head=dim_head if dim_head is not None else target.dim_head,
+        global_mlp_depth=min(1, depth),
+    )

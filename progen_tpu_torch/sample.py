@@ -15,7 +15,12 @@ instead, each BOS-prefixed with its own seed (``--seed + i``), and every
 completion is printed as one JSON line:
 
     python -m progen_tpu_torch.sample --serve --prime "MKV|MALW" --slots 8 \
-        --chunk 32 [--paged --page_size 16] [--quantize weights+pages]
+        --chunk 32 [--paged --page_size 16] [--quantize weights+pages] \
+        [--spec --spec_k 4] [--disagg]
+
+``--spec`` decodes speculatively with the identity draft (the model drafts
+for itself, as the JAX CLI's does), ``--disagg`` prefills in a separate
+worker stage behind a bounded handoff queue; both give the same tokens.
 
 ``--checkpoint_path`` samples from the newest checkpoint of a store the
 port's ``Trainer`` wrote: the model config comes from its metadata and the
@@ -75,6 +80,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--quantize", default=None,
                    choices=["weights", "weights+pages"],
                    help="engine: int8 weights, and 8-bit gate pages")
+    p.add_argument("--spec", action="store_true",
+                   help="engine: speculative decoding with the identity draft")
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="engine: draft tokens proposed per round (with --spec)")
+    p.add_argument("--disagg", action="store_true",
+                   help="engine: prefill in its own stage, handles merged "
+                        "into slots through a bounded queue")
     return p.parse_args(argv)
 
 
@@ -85,7 +97,8 @@ def serve(args, model, seq_len: int) -> list[dict]:
               else [args.prime] * args.num_samples)
     engine = ServingEngine(model, num_slots=args.slots, chunk_size=args.chunk,
                            max_len=seq_len, paged=args.paged,
-                           page_size=args.page_size, quantize=args.quantize)
+                           page_size=args.page_size, quantize=args.quantize,
+                           spec=args.spec, spec_k=args.spec_k, disagg=args.disagg)
     for i, prime in enumerate(primes):
         tokens = [0] + encode_tokens(prime)  # BOS-prefixed, like add_bos
         engine.submit(Request(

@@ -18,7 +18,10 @@ launches, the idle share ``1 - busy / wall``, the device time by kind (the
 port's kernels, matrix products, everything else), the kernels that took
 the most device time and each of the port's kernels.  ``--phases`` picks the parts to run (``serve``: the
 prefill and the decode steps; ``engine``: the three engine chunks;
-``train``: the train step), all three by default.  Needs a GPU.
+``spec``: one speculative chunk, six rounds of ``spec_k`` 4, dense with
+the identity draft and paged with a ``draft_config_for`` draft, per round
+and per emitted token beside the per-step numbers; ``train``: the train
+step), all but ``spec`` by default.  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.decode.engine import Request, ServingEngine
 from progen_tpu_torch.decode.prefill import pad_prime_length
 from progen_tpu_torch.decode.sampler import make_chunked_sampler
-from progen_tpu_torch.models.configs import SMALL
+from progen_tpu_torch.models.configs import SMALL, draft_config_for
 from progen_tpu_torch.models.progen import ProGen
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.step import make_train_functions
@@ -48,6 +51,7 @@ STEPS = 64
 TRAIN_BATCH = 8
 ENGINE_SLOTS = 8
 ENGINE_CHUNK = 32
+SPEC_K = 4
 REPEATS = 5  # rounds per phase: host-clock walls vary from run to run
 # kernel-name fragments of the port's own kernels and of cuBLAS's products
 PORT_KERNELS = ("local_attention_", "sgu_", "paged_gate_mix")
@@ -119,16 +123,17 @@ def _traced(fn, device) -> dict:
     return out
 
 
-PHASES = ("serve", "engine", "train")
+PHASES = ("serve", "engine", "spec", "train")
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", nargs="+", choices=PHASES, default=list(PHASES))
+    parser.add_argument("--phases", nargs="+", choices=PHASES,
+                        default=["serve", "engine", "train"])
     phases = parser.parse_args(argv).phases
     device = resolve_device("cuda")
     config = SMALL
-    if "serve" in phases or "engine" in phases:
+    if {"serve", "engine", "spec"} & set(phases):
         _trace_serving(device, config, phases)
     if "train" in phases:
         _trace_train(device, config)
@@ -167,11 +172,17 @@ def _trace_serving(device, config, phases) -> None:
         result["per_step_device_ms"] = result["device_busy_ms"] / steps
         print(json.dumps({"phase": "decode", **meta, "steps": steps, **result}))
     del sampler, caches
-    if "engine" not in phases:
-        return
-
-    for mode, kwargs in (("dense", {}), ("paged", {"paged": True}),
-                         ("paged_q8", {"paged": True, "quantize": "weights+pages"})):
+    modes = []
+    if "engine" in phases:
+        modes += [("dense", {}), ("paged", {"paged": True}),
+                  ("paged_q8", {"paged": True, "quantize": "weights+pages"})]
+    if "spec" in phases:
+        draft = ProGen(draft_config_for(config), make_policy(), device=device,
+                       seed=0).eval()
+        modes += [("spec_identity", {"spec": True, "spec_k": SPEC_K}),
+                  ("spec_draft_paged", {"paged": True, "spec": True, "spec_k": SPEC_K,
+                                        "draft_params": draft})]
+    for mode, kwargs in modes:
         engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                                max_len=config.seq_len, page_size=16, **kwargs)
         for i in range(ENGINE_SLOTS):
@@ -184,13 +195,30 @@ def _trace_serving(device, config, phases) -> None:
         engine._admit_pending()
         for _ in range(2):  # warm-up
             engine._dispatch_chunk()
+        before = engine.spec_counters()
         result = _traced(engine._dispatch_chunk, device)
-        result["per_step_wall_ms"] = result["wall_ms"] / ENGINE_CHUNK
-        result["per_step_device_ms"] = result["device_busy_ms"] / ENGINE_CHUNK
-        result["launches_per_step"] = result["device_launches"] / ENGINE_CHUNK
+        # target steps a chunk: a speculative chunk's rounds verify k + 1 each
+        steps = (engine._spec_rounds * (SPEC_K + 1)) if engine.spec else ENGINE_CHUNK
+        result["per_step_wall_ms"] = result["wall_ms"] / steps
+        result["per_step_device_ms"] = result["device_busy_ms"] / steps
+        result["launches_per_step"] = result["device_launches"] / steps
+        if engine.spec:
+            after = engine.spec_counters()
+            chunks = 2 * REPEATS
+            emitted = (after["spec_emitted_tokens"] - before["spec_emitted_tokens"]) / chunks
+            slot_rounds = (after["spec_slot_rounds"] - before["spec_slot_rounds"]) / chunks
+            rounds = engine._spec_rounds
+            result.update(
+                rounds_per_chunk=rounds, emitted_tokens_per_chunk=emitted,
+                accepted_tokens_per_slot_round=emitted / slot_rounds,
+                per_round_wall_ms=result["wall_ms"] / rounds,
+                per_round_device_ms=result["device_busy_ms"] / rounds,
+                launches_per_round=result["device_launches"] / rounds,
+                wall_ms_per_emitted_token=result["wall_ms"] / emitted,
+                draft={k: getattr(engine.draft_config, k) for k in ("dim", "depth", "heads")})
         live = int((engine.state["active"] & ~engine.state["done"]).sum())
         print(json.dumps({"phase": "engine_chunk", "mode": mode, "config": "small",
-                          "slots": ENGINE_SLOTS, "steps": ENGINE_CHUNK,
+                          "slots": ENGINE_SLOTS, "steps": steps,
                           "live_rows_at_end": live, "prime_len": p_len,
                           "device": meta["device"], **result}))
         del engine

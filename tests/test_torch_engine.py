@@ -377,9 +377,15 @@ def test_a_fatal_prefill_fault_sheds_exactly_its_batch(model):
 
 
 def test_modes_that_are_not_ported_are_refused_by_name(model):
-    for name in ("spec", "disagg", "lora_bank", "mesh", "watchdog", "paged_impl"):
+    for name in ("remote_prefill", "lora_bank", "mesh", "watchdog", "paged_impl"):
         with pytest.raises(NotImplementedError, match=name):
             ServingEngine(model, **ENGINE, **{name: True})
+    with pytest.raises(NotImplementedError, match="remote_prefill"):
+        ServingEngine(model, **ENGINE, disagg=True, remote_prefill=True)
+    for name in ("spec", "disagg"):  # ported: accepted
+        eng = ServingEngine(model, **ENGINE, **{name: True})
+        assert getattr(eng, name) and eng.status()[name]
+        assert name not in engine_module._NOT_PORTED
     with pytest.raises(TypeError, match="slots"):
         ServingEngine(model, **ENGINE, slots=3)
     with pytest.raises(ValueError, match="paged=True"):
