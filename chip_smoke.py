@@ -81,12 +81,47 @@ non-zero without its last line:
    the batch was queued when the loop took it); and the reader's time to
    its first batch after resume skips up to 200,000 records.  It runs in a
    temporary directory it deletes;
-9. the ``kernels`` line, a short ``trainer_summary`` line; then the card's
+9. served workloads: ProGen-small (bf16) with a LoRA bank of 4 tenants at
+   rank 8 (random from the seed) serves one mixed queue through the paged
+   engine (8 slots, chunk 32, page 16): 4 generate requests on tenant 0, 3
+   LoRA requests on tenants 1-3, 2 infill requests under a scaffold (a
+   64-residue prime, free positions, allowed sets, frozen residues), a
+   best-of-4 fork off a 256-token prime and 4 embeds of 37-511 residues.
+   The tenant-0 tokens must equal a bankless engine's on the same queue
+   (where the forks go in one by one, uid + k and seed + k), every infill
+   token must be allowed and every frozen position forced, the followers
+   must be admitted as prefix hits on the leader's prime pages, the
+   embeddings must equal ``make_embedder``'s bit for bit and the plain
+   versions' within 0.05 of each row's largest value, and each row's pooled
+   final hidden states no farther from the f32 model's than the plain
+   versions' are, within half again (RMS and max); launches per program
+   (K1-fwd/K2-fwd 12/2 per admit and per embed program, K3 twice per
+   decode step, all on the Hopper routes); tokens/s and median latency per
+   workload, ``embed_s``, embed ms per bucket, the decode step's launches
+   and device time (``torch.profiler``) and wall with and without the bank,
+   peak memory.
+   Then 32 teacher-forced paged steps with the bank through K3 and K3-q8
+   against the plain mix, and in f32 and greedy the paged LoRA engine's
+   tokens against the dense one's;
+10. LoRA training: ``LoRAProGen`` at ProGen-small, rank 8, bf16, batch
+   8 x 1024, lr 1e-3, 6 steps through ``train/lora.py``: launches per step
+   12/12/12/4/2/2 on the Hopper kernels, a finite loss, the base
+   bit-unchanged and every adapter moved, step time and tokens/s beside
+   the full train step's, peak memory; then in f32 the trained adapters,
+   through ``bank_from_trained``, as the engine's tenant 1: its prefill
+   logits against the training forward's at 1e-5 (this pins the bank's
+   layout: both sides run the same kernels); then one f32 LoRA step
+   through the kernels against the same step through the plain versions
+   (every gradient), the loss at each of three steps, and the largest
+   difference in any update;
+11. the ``kernels`` line, a short ``trainer_summary`` line; then the card's
    ``nvidia-smi`` name and power limit and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every earlier phase runs at the depth and the step count it always had;
-the whole takes about eight minutes on an H100, the build included.
+the whole takes seven to ten minutes on an H100 (by the host's pace), the
+build included.
+``engine_workloads_alone()`` runs phases 9 and 10 on their own.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -120,7 +155,7 @@ from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
 from progen_tpu_torch.data.tokenizer import encode_tokens
 from progen_tpu_torch.decode import incremental
 from progen_tpu_torch.decode.engine import Request, ServingEngine
-from progen_tpu_torch.decode.prefill import pad_prime_length
+from progen_tpu_torch.decode.prefill import make_embedder, make_prefiller, pad_prime_length
 from progen_tpu_torch.decode.sampler import (
     make_chunked_sampler,
     teacher_forced_logits,
@@ -142,7 +177,14 @@ from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.step import make_train_functions
+from progen_tpu_torch.train.lora import LoRAProGen, extract_adapters, lora_train_functions
 from progen_tpu_torch.train.trainer import Trainer, TrainerConfig
+from progen_tpu_torch.workloads import (
+    ScaffoldSpec,
+    bank_from_trained,
+    bank_num_tenants,
+    random_lora_bank,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
@@ -197,7 +239,9 @@ FEED_STEPS = 12     # steps of each run of the feed comparison
 # as a large corpus's cursor would go, unshuffled and shuffled.
 RESUME_SKIPS = ((0, 0), (1899, 0), (200_000, 0), (20_000, 64))
 # How much farther from the f32 answer the bf16 decode may be than the bf16
-# parallel forward (two paths with equal bf16 rounding sit at a ratio ~1).
+# parallel forward, and the bf16 hidden states through the kernels than
+# through the plain versions (two paths with equal bf16 rounding sit at a
+# ratio ~1).
 DECODE_VS_FORWARD_RATIO = 1.5
 # The paged gate mix and its plain version multiply the same f32 values (a
 # bf16 or int8 operand widens exactly) and differ only in the order of up to
@@ -215,6 +259,22 @@ ENGINE_TOKEN_MATCH = 0.98      # the JAX package's accuracy gate (bench_serving.
 ENGINE_SPEC_K = 4              # draft tokens a speculative round (the CLI's default)
 SPIN_CYCLES = 40_000_000       # ~20 ms of device spin ahead of a timed run
 FLUSH_BYTES = 256 << 20        # written before each cold call: five times L2
+# The served workloads: a bank of 4 tenants (0 = the base) at rank 8, a
+# best-of-4 fork; LoRA training at rank 8, lr 1e-3, 6 steps.  Embeddings
+# through the kernels are held to the plain versions' at 0.05 of each row's
+# largest plain value (an f32 mean of up to 512 bf16 rows; K2-fwd's own bf16
+# bar), and the hidden states they pool no farther from the f32 model's than
+# the plain versions' are, within DECODE_VS_FORWARD_RATIO (a mean dilutes an
+# error confined to a few positions); the trained bank served as tenant 1 to the training forward's f32 logits
+# at 1e-5 (the same kernels on the same shapes: only the bank's stacking
+# differs).
+LORA_TENANTS = 4
+LORA_RANK = 8
+WORKLOAD_FORKS = 4
+LORA_TRAIN_STEPS = 6
+LORA_TRAIN_LR = 1e-3
+TOL_EMBED = 0.05
+TOL_LORA_SERVE = 1e-5
 SEED = 0
 PRIME_LENGTHS = (37, 200, 300, 511)
 SAMPLES_PER_PRIME = 2
@@ -978,17 +1038,30 @@ def train(model) -> dict:
             "mfu_peak_flops": H100_PEAK_BF16_FLOPS, "peak_bytes": peak}
 
 
-def check_train_against_plain() -> dict:
+def check_train_against_plain(lora: bool = False) -> dict:
     """At f32, ProGen-small, batch 2: one train step through the kernels
     against the same step through the plain versions (loss and every
-    gradient leaf), then each leaf's update after three steps."""
+    gradient leaf), then each leaf's update after three steps.  With
+    ``lora``, the same for ``LoRAProGen`` at rank 8 through
+    ``train/lora.py`` (the frozen base's gradients included; its updates
+    are zero on both sides), but the loss is held at every step and the
+    updates by their largest difference only: ``b`` starts at zero, so
+    Adam's first steps move each factor element by about +-lr whatever its
+    gradient's size, and an element whose gradient sits within rounding of
+    zero steps either way: one such element is 1.1% of the RMS of a leaf of
+    8192, where the base model's leaves are large enough to absorb it."""
     c = SMALL
     batches = train_batches(c, 2, 3, SEED + 4)
+    lr = LORA_TRAIN_LR if lora else TRAIN_LR
     runs = []
     for plain in (False, True):
-        model = ProGen(c, make_policy(False), device="cuda", seed=SEED)
+        if lora:
+            model = LoRAProGen(c, LORA_RANK, make_policy(False), device="cuda", seed=SEED)
+            fns = lora_train_functions(model, learning_rate=lr)
+        else:
+            model = ProGen(c, make_policy(False), device="cuda", seed=SEED)
+            fns = make_train_functions(model, make_optimizer(lr))
         p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
-        fns = make_train_functions(model, make_optimizer(TRAIN_LR))
         state = fns.init_state()
         patches = (*plain_versions(), *plain_backward_versions()) if plain else ()
         with contextlib.ExitStack() as stack:
@@ -1015,21 +1088,24 @@ def check_train_against_plain() -> dict:
         rms = float(want_updates[name].pow(2).mean().sqrt())
         update_err[name] = float(diff.pow(2).mean().sqrt()) / max(rms, 1e-30)
         update_max = max(update_max, float(diff.abs().max()))
-    loss_err = abs(losses[0] - want_losses[0]) / abs(want_losses[0])
+    held = len(losses) if lora else 1
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[:held], want_losses[:held]))
     worst_grad = max(grad_err, key=grad_err.get)
     worst_update = max(update_err, key=update_err.get)
-    result = {"dtype": "torch.float32", "batch": 2, "steps": 3,
+    result = {"model": "LoRAProGen rank 8" if lora else "ProGen",
+              "dtype": "torch.float32", "batch": 2, "steps": 3,
               "losses": losses, "plain_losses": want_losses,
-              "loss_rel_err": loss_err, "loss_tol": TOL_TRAIN_LOSS,
+              "loss_rel_err": loss_err, "loss_steps_held": held,
+              "loss_tol": TOL_TRAIN_LOSS,
               "grad_leaves": len(grad_err), "worst_grad_leaf": worst_grad,
               "worst_grad_rel_err": grad_err[worst_grad], "grad_tol": TOL_TRAIN_GRAD,
               "worst_update_leaf": worst_update,
               "worst_update_rms_rel_err": update_err[worst_update],
-              "update_rms_tol": TOL_TRAIN_UPDATE_RMS,
-              "update_max_abs_err": update_max, "update_max_tol": 6 * TRAIN_LR}
+              "update_rms_tol": None if lora else TOL_TRAIN_UPDATE_RMS,
+              "update_max_abs_err": update_max, "update_max_tol": 6 * lr}
     require(loss_err <= TOL_TRAIN_LOSS and grad_err[worst_grad] <= TOL_TRAIN_GRAD
-            and update_err[worst_update] <= TOL_TRAIN_UPDATE_RMS
-            and update_max <= 6 * TRAIN_LR,
+            and (lora or update_err[worst_update] <= TOL_TRAIN_UPDATE_RMS)
+            and update_max <= 6 * lr,
             f"the train step through the kernels disagrees with plain: {result}")
     return result
 
@@ -1506,19 +1582,7 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, page_size=ENGINE_PAGE, **engine_kwargs)
-    # every program that runs the prefill forward: the admit programs and,
-    # disaggregated, the prefill worker's calls
-    admits = [0]
-
-    def counted(program):
-        def call(*args):
-            admits[0] += 1
-            return program(*args)
-        return call
-
-    engine._admit = counted(engine._admit)
-    if engine.disagg:
-        engine._prefill_worker = counted(engine._prefill_worker)
+    programs = count_programs(engine)
     gc.collect()  # an engine holds bound methods of itself: free the last one's state
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1563,7 +1627,9 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
         depth += engine.draft_config.depth
         gmlp += engine.draft_config.global_mlp_depth
     expected = {name: 0 for name in COUNTERS}
-    expected.update(local_attention_fwd=depth * admits[0], sgu_fwd=gmlp * admits[0])
+    # and each embedding program the target's alone
+    expected.update(local_attention_fwd=depth * programs["prefill"] + c.depth * programs["embed"],
+                    sgu_fwd=gmlp * programs["prefill"] + c.global_mlp_depth * programs["embed"])
     if paged:
         expected["paged_gate_mix_q8" if q8 else "paged_gate_mix"] = \
             c.global_mlp_depth * steps
@@ -1572,7 +1638,7 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
     generated = sum(len(comp.tokens) for comp in done)
     fields = {"config": "small", "dtype": str(model.policy.compute_dtype),
               "requests": len(requests), "slots": ENGINE_SLOTS, "chunk": ENGINE_CHUNK,
-              "launches": launches, "prefill_programs": admits[0],
+              "launches": launches, "prefill_programs": programs["prefill"],
               "fwd_launches_by_route": {k: routes[k]
                                         for k in ("local_attention_fwd", "sgu_fwd")},
               "mix_launches_by_route": routes["paged_gate_mix"],
@@ -1583,9 +1649,7 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
               "stage_seconds": dict(engine.stage_seconds),
               "finish_reasons": sorted(comp.finish_reason for comp in done),
               "latency_s_median": float(np.median([comp.latency for comp in done])),
-              "peak_bytes": peak,
-              **{k: (v.config.to_dict() if k == "draft_params" else v)
-                 for k, v in engine_kwargs.items()}}
+              "peak_bytes": peak, **describe(engine_kwargs)}
     if engine.spec:
         fields["spec"] = engine.spec_counters()
     if engine.disagg:
@@ -1609,6 +1673,38 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
                 f"tokens, want >= {ENGINE_TOKEN_MATCH}")
     launches = {**launches, "paged_gate_mix_by_route": routes["paged_gate_mix"]}
     return tokens, launches, engine
+
+
+def count_programs(engine) -> dict[str, int]:
+    """Count, from now on, the engine's programs that run the parallel
+    forward: ``prefill`` (the admit programs and, disaggregated, the
+    prefill worker's calls) and ``embed`` (the embedding programs)."""
+    programs = {"prefill": 0, "embed": 0}
+
+    def counted(kind, program):
+        def call(*args):
+            programs[kind] += 1
+            return program(*args)
+        return call
+
+    engine._admit = counted("prefill", engine._admit)
+    if engine.disagg:
+        engine._prefill_worker = counted("prefill", engine._prefill_worker)
+    engine._embedder = counted("embed", engine._embedder)
+    return programs
+
+
+def describe(engine_kwargs: dict) -> dict:
+    """The engine's arguments as JSON: a draft by its config, a LoRA bank by
+    its tenants and rank."""
+    out = {}
+    for k, v in engine_kwargs.items():
+        if k == "draft_params":
+            v = v.config.to_dict()
+        elif k == "lora_bank" and v is not None:
+            v = {"tenants": bank_num_tenants(v), "rank": int(v["attn0"]["qkv"]["a"].shape[-1])}
+        out[k] = v
+    return out
 
 
 def engine_modes(model, requests, dense: dict, paged: dict, q8: dict) -> dict:
@@ -1662,15 +1758,17 @@ def token_match(got: dict, want: dict) -> float:
     return same / sum(len(v) for v in want.values())
 
 
-def check_engine_steps_against_plain(model, quantize) -> dict:
+def check_engine_steps_against_plain(model, quantize, bank=None) -> dict:
     """From one admitted state of the paged engine, 32 teacher-forced decode
     steps through the paged kernel against the same steps with the mix
-    swapped for its plain version: every step's logits."""
+    swapped for its plain version: every step's logits.  With a LoRA
+    ``bank`` the slots run tenants ``slot % T`` and every step adds their
+    adapters."""
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, paged=True, page_size=ENGINE_PAGE,
-                           quantize=quantize)
-    for r in engine_requests(c)[:ENGINE_SLOTS]:
+                           quantize=quantize, lora_bank=bank)
+    for r in with_tenants(engine_requests(c)[:ENGINE_SLOTS], bank):
         engine.submit(Request(**r))
     engine._admit_pending()
     engine._ensure_chunk_pages()
@@ -1689,7 +1787,8 @@ def check_engine_steps_against_plain(model, quantize) -> dict:
         reset_counts()
         with patch:
             logits = [engine._step_model(forced[j], st["pos"] + j, st["caches"],
-                                         table, live)[0] for j in range(ENGINE_CHUNK)]
+                                         table, live, engine._bank, st.get("tenant"))[0]
+                      for j in range(ENGINE_CHUNK)]
         counts = read_counts()
         key = "paged_gate_mix_q8" if quantize else "paged_gate_mix"
         want = 0 if plain else c.global_mlp_depth * ENGINE_CHUNK
@@ -1702,23 +1801,28 @@ def check_engine_steps_against_plain(model, quantize) -> dict:
     result = compare(got, want, TOL_MODEL[dtype])
     result.update(dtype=str(dtype), quantize=quantize, steps=ENGINE_CHUNK,
                   rows=ENGINE_SLOTS, max_abs_logit=float(want.abs().max()),
+                  lora_tenants=bank_num_tenants(bank) if bank else 0,
                   positions=[int(p) for p in engine.state["pos"]])
     require(bool(torch.isfinite(got).all()), "non-finite engine logits")
     require(result["ok"], f"paged steps through the kernel disagree with plain: {result}")
     return result
 
 
-def check_paged_engine_against_dense(reference) -> dict:
+def check_paged_engine_against_dense(reference, bank=None) -> dict:
     """In f32 and greedy, the 12 requests through the paged engine (K3)
     against the dense engine: the only difference is K3's summation order.
     Reports the share of equal tokens and, at the first difference, the
-    margin between the two best logits there."""
+    margin between the two best logits there.  With a LoRA ``bank`` request
+    ``i`` runs tenant ``i % T`` on both engines."""
     c = reference.config
-    requests = engine_requests(c, greedy=True)
-    dense, _, _ = run_engine("engine_dense_f32", reference, requests)
-    paged, _, _ = run_engine("engine_paged_f32", reference, requests, paged=True)
+    requests = with_tenants(engine_requests(c, greedy=True), bank)
+    tag, extra = ("_lora", {"lora_bank": bank}) if bank else ("", {})
+    dense, _, _ = run_engine(f"engine{tag}_dense_f32", reference, requests, **extra)
+    paged, _, _ = run_engine(f"engine{tag}_paged_f32", reference, requests, paged=True,
+                             **extra)
     share = token_match(paged, dense)
     result = {"dtype": "torch.float32", "token_match": share,
+              "lora_tenants": bank_num_tenants(bank) if bank else 0,
               "min_token_match": ENGINE_TOKEN_MATCH, "first_difference": None}
     for r in requests:
         a, b = paged[r["uid"]], dense[r["uid"]]
@@ -1728,14 +1832,457 @@ def check_paged_engine_against_dense(reference) -> dict:
         prefix = r["tokens"] + b[:at]
         p_pad = pad_prime_length(len(prefix), c.window_size, c.seq_len)
         tokens = torch.tensor([prefix + [0] * (p_pad - len(prefix))], device="cuda")
+        ad = None
+        if bank:
+            ad = {"adapters": bank, "tenant": torch.tensor([r["tenant"]], device="cuda")}
         with torch.no_grad():
-            top = reference(tokens)[0, len(prefix) - 1].float().topk(2).values
+            top = reference(tokens, **(ad or {}))[0, len(prefix) - 1].float().topk(2).values
         result["first_difference"] = {
             "uid": r["uid"], "generated_index": at, "paged": a[at], "dense": b[at],
             "top2_logit_margin": float(top[0] - top[1])}
         break
     require(share >= ENGINE_TOKEN_MATCH, f"paged engine vs dense engine: {result}")
     return result
+
+
+# -- phase 9: the served workloads and LoRA training -------------------------
+
+
+def with_tenants(requests: list[dict], bank) -> list[dict]:
+    """Request ``i`` on tenant ``i % T`` of ``bank`` (unchanged without)."""
+    if not bank:
+        return requests
+    t = bank_num_tenants(bank)
+    return [{**r, "tenant": i % t} for i, r in enumerate(requests)]
+
+
+def residues(rng, n: int) -> list[int]:
+    return encode_tokens("".join(rng.choice(list(AMINO), size=n)))
+
+
+def workload_queue(c) -> dict:
+    """The engine_workloads phase's mixed queue, from the seed: 4 generate
+    requests on tenant 0 and 3 LoRA requests on tenants 1-3 (primes 37-511
+    residues, 64-128 new tokens, greedy and top-k 25 in turns); 2 infill
+    requests (one greedy, one sampled) over a scaffold of a 64-residue prime
+    and 48 designed positions (free over the amino acids, hydrophobic sets,
+    a frozen G every 8th); a best-of-4 fork off a 256-token prime; and 4
+    embeds of 37, 200, 300 and 511 residues.  Every prime starts with BOS."""
+    rng = np.random.default_rng(SEED + 8)
+    plain = []
+    for i in range(7):
+        n = int(rng.integers(37, 512))
+        plain.append({"uid": i, "tokens": [0] + residues(rng, n),
+                      "max_new_tokens": int(rng.integers(64, 129)),
+                      "top_k": None if i % 2 == 0 else 25,
+                      "temperature": 0.0 if i % 2 == 0 else 1.0, "seed": 2000 + i,
+                      "tenant": max(0, i - 3)})
+    amino = sorted(set(encode_tokens(AMINO)))
+    design = []
+    for g in range(48):
+        if g % 8 == 7:
+            design.append(encode_tokens("G")[0])
+        elif g % 4 == 1:
+            design.append(tuple(encode_tokens("AILMFVW")))
+        else:
+            design.append(None)
+    scaffold = ScaffoldSpec(template=[0] + residues(rng, 64) + design,
+                            vocab=c.num_tokens, alphabet=amino)
+    infill = [{"uid": 7 + j, "seed": 2100 + j, "top_k": None if j == 0 else 25,
+               "temperature": 0.0 if j == 0 else 1.0, "workload": "infill",
+               **scaffold.request_kwargs()} for j in range(2)]
+    fork = {"uid": 10, "tokens": [0] + residues(rng, 255), "max_new_tokens": 64,
+            "top_k": 25, "temperature": 1.0, "seed": 3000}
+    embeds = [{"uid": 20 + j, "tokens": [0] + residues(rng, n), "workload": "embed"}
+              for j, n in enumerate((37, 200, 300, 511))]
+    return {"plain": plain, "infill": infill, "fork": fork, "embeds": embeds,
+            "scaffold": scaffold}
+
+
+def run_workloads(phase: str, model, queue: dict, bank, forked: bool) -> tuple:
+    """One paged engine (with ``bank``, or bankless with every tenant set to
+    0) answers the whole ``queue``; the fork is ``submit_fork``ed when
+    ``forked``, else its four requests are submitted one by one (uid + k,
+    seed + k).  The launch counts are set to 0 just before and read just
+    after, and held to the programs run.  Returns (completions by uid, the
+    phase's fields, launches, the engine)."""
+    c = model.config
+    engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                           max_len=c.seq_len, page_size=ENGINE_PAGE, paged=True,
+                           lora_bank=bank)
+    programs = count_programs(engine)
+    untenanted = lambda r: r if bank else {**r, "tenant": 0}
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in queue["plain"] + queue["infill"]:
+        engine.submit(Request(**untenanted(r)))
+    fork = queue["fork"]
+    if forked:
+        engine.submit_fork(Request(**fork), WORKLOAD_FORKS)
+    else:
+        for k in range(WORKLOAD_FORKS):
+            engine.submit(Request(**{**fork, "uid": fork["uid"] + k, "seed": fork["seed"] + k}))
+    for r in queue["embeds"]:
+        engine.submit_embed(Request(**r))
+    done, holders, forks_in_flight = [], 0, 0
+    fork_uids = set(range(fork["uid"], fork["uid"] + WORKLOAD_FORKS))
+    prime_pages = None  # the leader's full prime pages, once it is admitted
+    while engine.has_work:
+        done += engine.step()
+        in_flight = {r.uid: slot for slot, r in engine._inflight.items()}
+        forks_in_flight = max(forks_in_flight, len(fork_uids & set(in_flight)))
+        if prime_pages is None and fork["uid"] in in_flight:
+            pages = engine._slot_pages[in_flight[fork["uid"]]].pages
+            prime_pages = pages[: len(fork["tokens"]) // ENGINE_PAGE]
+        if prime_pages:
+            # requests holding every prime page (the index holds one reference)
+            holders = max(holders, min(engine._pool._ref.get(pid, 0)
+                                       for pid in prime_pages) - 1)
+        require(engine.chunks_run < 400, f"{phase}: the engine did not drain")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+
+    by_uid = {comp.uid: comp for comp in done}
+    want_uids = ([r["uid"] for r in queue["plain"] + queue["infill"] + queue["embeds"]]
+                 + sorted(fork_uids))
+    require(sorted(by_uid) == sorted(want_uids) and len(done) == len(want_uids),
+            f"{phase}: answered {sorted(comp.uid for comp in done)}")
+    require(all(comp.status == "ok" for comp in done),
+            f"{phase}: statuses {[comp.status for comp in done]}")
+    steps = engine.chunks_run * ENGINE_CHUNK
+    expected = {name: 0 for name in COUNTERS}
+    fwd_programs = programs["prefill"] + programs["embed"]
+    expected.update(local_attention_fwd=c.depth * fwd_programs,
+                    sgu_fwd=c.global_mlp_depth * fwd_programs,
+                    paged_gate_mix=c.global_mlp_depth * steps)
+    require(launches == expected, f"{phase}: kernel launches {launches}, want {expected}")
+    require_forward_routes(routes, launches, model.policy.compute_dtype == torch.bfloat16,
+                           phase)
+    require(routes["paged_gate_mix"] == {"bulk": launches["paged_gate_mix"], "simt": 0},
+            f"{phase}: paged gate mix launches by route {routes['paged_gate_mix']}")
+    cache = engine.cache_status()
+    require(cache["free_pages"] + cache["cached_pages"] == cache["capacity"],
+            f"{phase}: pages were not all returned: {cache}")
+
+    classes = {"generate": [r["uid"] for r in queue["plain"][:4]],
+               "lora": [r["uid"] for r in queue["plain"][4:]],
+               "infill": [r["uid"] for r in queue["infill"]],
+               "fork": sorted(fork_uids), "embed": [r["uid"] for r in queue["embeds"]]}
+    per_class = {}
+    for name, uids in classes.items():
+        comps = [by_uid[u] for u in uids]
+        toks = sum(len(comp.tokens) for comp in comps)
+        per_class[name] = {"requests": len(uids), "generated_tokens": toks,
+                           "prime_tokens": sum(len(comp.prime) for comp in comps),
+                           "tokens_per_s": toks / total_s,
+                           "latency_s_median": float(np.median([comp.latency for comp in comps]))}
+    fields = {"config": "small", "dtype": str(model.policy.compute_dtype),
+              "lora": describe({"lora_bank": bank})["lora_bank"] if bank else None,
+              "forked": forked, "launches": launches,
+              "prefill_programs": programs["prefill"], "embed_programs": programs["embed"],
+              "fwd_launches_by_route": {k: routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
+              "mix_launches_by_route": routes["paged_gate_mix"],
+              "chunks_run": engine.chunks_run, "decode_steps": steps, "total_s": total_s,
+              "tokens_per_s": sum(len(comp.tokens) for comp in done) / total_s,
+              "per_workload": per_class, "stage_seconds": dict(engine.stage_seconds),
+              "prefix_hits": engine.prefix_hits, "max_prime_page_holders": holders,
+              "max_forks_in_flight": forks_in_flight, "peak_bytes": peak}
+    return by_uid, fields, {**launches, "paged_gate_mix_by_route": routes["paged_gate_mix"]}, engine
+
+
+def embed_batches(queue: dict, c) -> list[tuple[list[int], int]]:
+    """The engine's embedding rounds for ``queue``: FIFO runs of one bucket
+    of up to ``ENGINE_SLOTS`` requests, as (uids, padded length)."""
+    out: list[tuple[list[int], int]] = []
+    for r in queue["embeds"]:
+        p_pad = pad_prime_length(len(r["tokens"]), c.window_size, c.seq_len, bucket=True)
+        if out and out[-1][1] == p_pad and len(out[-1][0]) < ENGINE_SLOTS:
+            out[-1][0].append(r["uid"])
+        else:
+            out.append(([r["uid"]], p_pad))
+    return out
+
+
+def check_embeddings(model, reference, queue: dict, got: dict) -> dict:
+    """The engine's embeddings against ``make_embedder`` on the same padded
+    batches (bit for bit) and against the same batches through the plain
+    K1-fwd and K2-fwd (each row's ``max|d| <= 0.05 max|plain row|``).
+
+    A mean over up to 511 positions dilutes an error confined to a few, so
+    the final hidden states that are pooled (every real position of a row)
+    are held too: the kernels' bf16 and the plain versions' bf16 round in
+    different places, so neither is the other's reference; the f32 model of
+    the same weights through the plain versions is.  Each row's hidden
+    states through the kernels must stay as close to it as the plain
+    versions' do, within half again, in RMS and in max error."""
+    require(all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                  reference.parameters())),
+            "the f32 reference does not hold the bf16 model's weights")
+    c = model.config
+    tokens_of = {r["uid"]: r["tokens"] for r in queue["embeds"]}
+    embed = make_embedder(model)
+    rows, ms, hidden = [], {}, []
+    for uids, p_pad in embed_batches(queue, c):
+        tokens = torch.zeros(ENGINE_SLOTS, p_pad, dtype=torch.long, device="cuda")
+        lengths = torch.ones(ENGINE_SLOTS, dtype=torch.long, device="cuda")
+        for row, u in enumerate(uids):
+            tokens[row, : len(tokens_of[u])] = torch.tensor(tokens_of[u])
+            lengths[row] = len(tokens_of[u])
+        vecs = embed(tokens, lengths)
+        with torch.no_grad():
+            states = model.final_hidden(tokens)
+        with contextlib.ExitStack() as stack:
+            for patch in plain_versions():
+                stack.enter_context(patch)
+            plain = embed(tokens, lengths)
+            with torch.no_grad():
+                plain_states = model.final_hidden(tokens)
+                want_states = reference.final_hidden(tokens)
+        for row, u in enumerate(uids):
+            require(np.array_equal(vecs[row].cpu().numpy(), got[u].embedding),
+                    f"embedding {u}: the engine's differs from make_embedder's")
+            rows.append((float((vecs[row] - plain[row]).abs().max()),
+                         float(plain[row].abs().max())))
+            n = len(tokens_of[u])
+            hidden.append({"uid": u, "kernels_vs_f32": errors(states[row, :n],
+                                                             want_states[row, :n]),
+                           "plain_vs_f32": errors(plain_states[row, :n],
+                                                  want_states[row, :n]),
+                           "kernels_vs_plain": errors(states[row, :n],
+                                                      plain_states[row, :n])})
+        ms[p_pad] = time_ms(lambda: embed(tokens, lengths), warmup=1, iters=5)
+    worst, scale = max(rows, key=lambda r: r[0] / max(r[1], 1e-30))
+    hidden_ok = all(h["kernels_vs_f32"][k] <= DECODE_VS_FORWARD_RATIO * h["plain_vs_f32"][k]
+                    for h in hidden for k in h["kernels_vs_f32"])
+    result = {"batches": [[uids, p_pad] for uids, p_pad in embed_batches(queue, c)],
+              "worst_row_max_abs_err_vs_plain": worst, "worst_row_max_abs_plain": scale,
+              "tol": TOL_EMBED * scale, "final_hidden": hidden,
+              "final_hidden_max_ratio": DECODE_VS_FORWARD_RATIO,
+              "embed_ms_by_bucket": ms, "bit_equal_to_embedder": True}
+    require(worst <= TOL_EMBED * scale and hidden_ok, f"embeddings vs plain: {result}")
+    return result
+
+
+def decode_step_cost(model, bank) -> dict:
+    """Launches and wall time of one paged decode step with and without the
+    bank, from one admitted state: 32 teacher-forced steps timed on the host
+    clock (four runs in turns, medians), and two steps each under
+    ``torch.profiler``, whose device kernels are counted."""
+    c = model.config
+    engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                           max_len=c.seq_len, paged=True, page_size=ENGINE_PAGE,
+                           lora_bank=bank)
+    for r in with_tenants(engine_requests(c)[:ENGINE_SLOTS], bank):
+        engine.submit(Request(**r))
+    engine._admit_pending()
+    engine._ensure_chunk_pages()
+    table = torch.as_tensor(engine._page_table, device="cuda")
+    live = torch.ones(ENGINE_SLOTS, dtype=torch.bool, device="cuda")
+    forced = torch.randint(1, c.num_tokens, (ENGINE_CHUNK, ENGINE_SLOTS), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+
+    def steps(with_bank: bool, n: int):
+        st = engine._working_copy(engine.state)
+        ad = (engine._bank, st["tenant"]) if with_bank else ()
+        for j in range(n):
+            engine._step_model(forced[j], st["pos"] + j, st["caches"], table, live, *ad)
+
+    walls = {True: [], False: []}
+    for with_bank in (False, True) * 4:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(with_bank, ENGINE_CHUNK)
+        torch.cuda.synchronize()
+        walls[with_bank].append((time.perf_counter() - t0) * 1e3 / ENGINE_CHUNK)
+    launches, device_ms = {}, {}
+    for with_bank in (False, True):
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            steps(with_bank, 2)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches[with_bank] = len(kernels) / 2
+        device_ms[with_bank] = sum(e.time_range.elapsed_us() for e in kernels) / 2e3
+    require(launches[False] > 0, "the profiler saw no kernel of the decode step")
+    return {"launches_per_step": launches[False], "launches_per_step_with_bank": launches[True],
+            "device_ms_per_step": device_ms[False],
+            "device_ms_per_step_with_bank": device_ms[True],
+            "wall_ms_per_step": float(np.median(walls[False])),
+            "wall_ms_per_step_with_bank": float(np.median(walls[True])),
+            "wall_ms_runs": walls[False], "wall_ms_runs_with_bank": walls[True]}
+
+
+def engine_workloads(model, reference) -> dict:
+    """The served workloads at ProGen-small through one paged engine with a
+    LoRA bank (T = 4, rank 8, random from the seed), 8 slots, chunk 32,
+    page 16: the mixed queue of ``workload_queue``.  Checks: the tenant-0
+    requests' tokens (generate, infill, the forks) equal a bankless
+    engine's on the same queue (the forks submitted there one by one, uid +
+    k and seed + k); every infill token allowed, every frozen position
+    forced; the followers admitted as prefix hits on the leader's 16 prime
+    pages; the embeddings bit-equal to ``make_embedder``'s and near the
+    plain versions'; 32 teacher-forced paged steps with the bank on K3 and
+    K3-q8 against the plain mix; in f32 and greedy, paged LoRA tokens
+    against dense LoRA's; last, the paged decode step's launches and wall
+    with and without the bank.  Returns each engine run's launches."""
+    c = model.config
+    bank = random_lora_bank(c, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
+    queue = workload_queue(c)
+    got, fields, launches, engine = run_workloads("engine_workloads", model, queue, bank, True)
+    base, base_fields, base_launches, _ = run_workloads(
+        "engine_workloads_bankless", model, queue, None, False)
+    fork = queue["fork"]
+    tenant0 = ([r["uid"] for r in queue["plain"] if r["tenant"] == 0]
+               + [r["uid"] for r in queue["infill"]]
+               + list(range(fork["uid"], fork["uid"] + WORKLOAD_FORKS)))
+    differ = [u for u in tenant0 if got[u].tokens.tolist() != base[u].tokens.tolist()]
+    lora_moved = [r["uid"] for r in queue["plain"] if r["tenant"]
+                  and got[r["uid"]].tokens.tolist() != base[r["uid"]].tokens.tolist()]
+    mask = queue["scaffold"].logit_mask()
+    frozen = [g for g in range(mask.shape[0]) if mask[g].sum() == 1]
+    infill_ok = all(mask[g, t] for r in queue["infill"]
+                    for g, t in enumerate(got[r["uid"]].tokens.tolist()))
+    forced_ok = all(got[r["uid"]].tokens[g] == int(np.flatnonzero(mask[g])[0])
+                    for r in queue["infill"] for g in frozen
+                    if g < len(got[r["uid"]].tokens))
+    prime_pages = len(fork["tokens"]) // ENGINE_PAGE
+    embeds_equal = all(np.array_equal(got[r["uid"]].embedding, base[r["uid"]].embedding)
+                       for r in queue["embeds"])
+    fields.update(tenant0_requests=len(tenant0), tenant0_differ_from_bankless=differ,
+                  lora_requests_moved=lora_moved, infill_tokens_allowed=infill_ok,
+                  infill_frozen_forced=forced_ok, infill_frozen_positions=len(frozen),
+                  fork_prime_pages=prime_pages, embeddings_equal_bankless=embeds_equal,
+                  bankless_tokens_per_s=base_fields["tokens_per_s"],
+                  bankless_per_workload=base_fields["per_workload"],
+                  bankless_chunks_run=base_fields["chunks_run"],
+                  bankless_stage_seconds=base_fields["stage_seconds"],
+                  embeddings=check_embeddings(model, reference, queue, got), nvidia_smi=smi_name_power())
+    emit("engine_workloads", **fields)
+    require(not differ, f"tenant-0 tokens differ from the bankless engine's: {differ}")
+    require(lora_moved, "no adapter moved a LoRA request's tokens")
+    require(infill_ok and forced_ok, "an infill token escaped its scaffold")
+    require(fields["prefix_hits"] >= (WORKLOAD_FORKS - 1) * prime_pages
+            and fields["max_prime_page_holders"] > 1,
+            f"the forks did not share the leader's {prime_pages} prime pages: {fields}")
+    require(embeds_equal, "the bank changed an embedding")
+    del engine
+    emit("engine_workloads_vs_plain", **check_engine_steps_against_plain(model, None, bank))
+    emit("engine_workloads_vs_plain",
+         **check_engine_steps_against_plain(model, "weights+pages", bank))
+    emit("engine_lora_paged_vs_dense", **check_paged_engine_against_dense(reference, bank))
+    # last: the profiler's tracing must not slow any run the phase times
+    emit("engine_lora_decode_step", nvidia_smi=smi_name_power(),
+         **decode_step_cost(model, bank))
+    return {"engine_workloads": launches, "engine_workloads_bankless": base_launches}
+
+
+def lora_train(full_step_ms: float | None) -> dict:
+    """``LoRAProGen`` at ProGen-small, rank 8, bf16 compute: LORA_TRAIN_STEPS
+    steps at batch 8 x 1024, lr 1e-3, through ``train/lora.py``; the launch
+    counts are set to 0 just before and read after every step.  Then, in
+    f32, ``bank_from_trained`` -> the engine's bank as tenant 1 -> the
+    prefill's last logits against the training forward's (the wrapper's
+    forward: its two-tenant bank of the trained factors, every row tenant
+    1, through the f32 base).  Two ProGen-small models are built, each
+    drawn on the host, the smoke's slowest set-up."""
+    c = SMALL
+    model = LoRAProGen(c, LORA_RANK, make_policy(True), device="cuda", seed=SEED)
+    fns = lora_train_functions(model.train(), learning_rate=LORA_TRAIN_LR)
+    state = fns.init_state()
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    batches = train_batches(c, TRAIN_BATCH, LORA_TRAIN_STEPS, SEED + 9)
+    losses, grad_norms, step_s, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    for batch in batches:
+        prior = read_counts()
+        t0 = time.perf_counter()
+        state, metrics = fns.train_step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        grad_norms.append(float(metrics["grad_norm"]))
+        per_step.append({k: v - prior[k] for k, v in read_counts().items()})
+    torch.cuda.synchronize()
+    launches, routes = read_counts(), read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in COUNTERS}
+    want.update(local_attention_fwd=c.depth, local_attention_bwd_dq=c.depth,
+                local_attention_bwd_dkv=c.depth, sgu_fwd=2 * c.global_mlp_depth,
+                sgu_bwd_dgate=c.global_mlp_depth, sgu_bwd_dw=c.global_mlp_depth)
+    require(all(s == want for s in per_step), f"LoRA train steps launched {per_step}, want {want}")
+    want_bwd = {"wgmma": 2 * c.depth * LORA_TRAIN_STEPS, "wmma": 0}
+    require(routes["local_attention_bwd"] == want_bwd,
+            f"LoRA K1 backward routes {routes['local_attention_bwd']}, want {want_bwd}")
+    require_forward_routes(routes, launches, True, "lora_train")
+    require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
+            f"non-finite LoRA loss or grad norm: {losses}, {grad_norms}")
+    base_same = all(torch.equal(p, before[k]) for k, p in state.params.items()
+                    if k.startswith("base."))
+    moved = [k for k, p in state.params.items()
+             if not k.startswith("base.") and not torch.equal(p, before[k])]
+    require(base_same, "a frozen base parameter changed")
+    require(len(moved) == 2 * len(model.sites), f"adapters that moved: {moved}")
+    del before
+
+    trained = extract_adapters(state.params, c)
+    base = ProGen(c, make_policy(False), device="cuda")
+    base.load_state_dict({k[len("base."):]: v for k, v in model.state_dict().items()
+                          if k.startswith("base.")})
+    two_tenant = {layer: {name: {k: f.detach().clone() for k, f in site.items()}
+                          for name, site in sites.items()}
+                  for layer, sites in model.adapters().items()}
+    del model, state, fns
+    gc.collect()
+    engine = ServingEngine(base.eval(), num_slots=2, chunk_size=ENGINE_CHUNK,
+                           lora_bank=bank_from_trained(c, LORA_RANK, [trained]))
+    tokens = batches[0][:2, :-1]
+    lengths = torch.tensor([c.seq_len, 700], device="cuda")
+    with torch.no_grad():  # LoRAProGen.forward in f32
+        train_logits = base(tokens, adapters=two_tenant,
+                            tenant=torch.ones(2, dtype=torch.long, device="cuda"))
+    want_last = train_logits[torch.arange(2, device="cuda"), lengths - 1]
+    last, _ = make_prefiller(engine.model)(tokens, lengths, c.seq_len, adapters=engine._bank,
+                                           tenant=torch.ones(2, dtype=torch.long, device="cuda"))
+    serve = compare(last, want_last, TOL_LORA_SERVE)
+    step_ms = float(np.median(step_s[TRAIN_WARMUP:])) * 1e3
+    result = {"config": "small", "dtype": "bf16 compute, f32 params", "rank": LORA_RANK,
+              "adapter_params": sum(int(t.numel()) for s in trained.values()
+                                    for f in s.values() for t in f.values()),
+              "steps": LORA_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
+              "lr": LORA_TRAIN_LR, "losses": losses, "grad_norms": grad_norms,
+              "launches": launches, "launches_per_step": per_step[0],
+              "k1_bwd_launches_by_route": routes["local_attention_bwd"],
+              "fwd_launches_by_route": {k: routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
+              "base_bit_unchanged": base_same, "adapters_moved": len(moved),
+              "step_ms_median": step_ms, "step_ms": [t * 1e3 for t in step_s],
+              "full_train_step_ms_median": full_step_ms,
+              "tokens_per_s": TRAIN_BATCH * c.seq_len / (step_ms / 1e3), "peak_bytes": peak,
+              "serve_vs_train_f32": serve, "nvidia_smi": smi_name_power()}
+    emit("lora_train", **result)
+    require(serve["ok"], f"tenant 1 of the trained bank disagrees with training: {serve}")
+    return result
+
+
+def engine_workloads_alone() -> dict:
+    """The two workload phases (engine_workloads, lora_train) with what they
+    need (the build, the bf16 and f32 models), on their own:
+    ``python3 -c "import chip_smoke as cs; cs.engine_workloads_alone()"``."""
+    kernels.build()
+    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
+    reference = ProGen(SMALL, make_policy(False), device="cuda", seed=SEED).eval()
+    out = engine_workloads(model, reference)
+    del model, reference
+    gc.collect()
+    out["lora_train"] = lora_train(None)["launches"]
+    gc.collect()
+    emit("lora_train_vs_plain", **check_train_against_plain(lora=True))
+    return out
 
 
 def main() -> int:
@@ -1792,6 +2339,7 @@ def main() -> int:
     emit("engine_vs_plain", **check_engine_steps_against_plain(model, "weights+pages"))
     emit("engine_vs_plain", **check_engine_steps_against_plain(reference, None))
     emit("engine_paged_vs_dense", **check_paged_engine_against_dense(reference))
+    engine_launches.update(engine_workloads(model, reference))
     del model, reference
     gc.collect()
 
@@ -1800,6 +2348,10 @@ def main() -> int:
     emit("train", config="small", dtype="bf16 compute, f32 params", **trained)
     del model
     emit("train_vs_plain", **check_train_against_plain())
+    gc.collect()
+    lora = lora_train(trained["step_ms_median"])
+    gc.collect()
+    emit("lora_train_vs_plain", **check_train_against_plain(lora=True))
     gc.collect()
     trainer = trainer_phase()
     require_trainer_launches(trainer, SMALL)
@@ -1812,6 +2364,7 @@ def main() -> int:
         by_path = {"serve": served["launches"][row["name"]],
                    "train": trained["launches"][row["name"]],
                    "trainer": trainer["launches"][row["name"]],
+                   "lora_train": lora["launches"][row["name"]],
                    **{phase: counts[row["name"]]
                       for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())

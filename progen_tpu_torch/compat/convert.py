@@ -15,6 +15,14 @@ A QUANTIZED tree (``{"params": int8 leaves, "qscale": scales}``, what
 onto a ``ProGen(weights="int8")`` state dict: ``kernel_scale`` becomes
 ``weight_scale`` and ``spatial_weights_scale`` keeps its name.
 
+A LoRA bank (``{layer: {site: {"a": (T, din, r), "b": (T, r, dout)}}}``)
+has the same layout on both sides: :func:`bank_from_numpy` only re-types
+it.  The JAX ``LoRAProGen``'s parameters (a ``"base"`` subtree beside
+``{layer}_{site}_a``/``_b`` factors) map onto the port's ``LoRAProGen``
+by :func:`lora_params_from_flax`: the base through
+:func:`params_from_flax` under the ``base.`` prefix, the factors as they
+are (their layout is ``(d_in, r)`` / ``(r, d_out)`` on both sides).
+
 ``save_npz``/``load_npz`` store the flat flax keys (``"attn0/to_qkv/kernel"``)
 in flax layout with numpy alone, so either framework can write the file.
 """
@@ -69,6 +77,28 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
         name, transpose = _torch_name(path)
         value = np.ascontiguousarray(value.T if transpose else value)
         state[name] = torch.from_numpy(value.copy())
+    return state
+
+
+def bank_from_numpy(bank: dict, device="cpu") -> dict[str, dict]:
+    """A LoRA bank of array-likes (numpy or JAX arrays) as the port's bank
+    of f32 tensors on ``device``."""
+    return {layer: {name: {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                           for k, v in site.items()}
+                    for name, site in sites.items()}
+            for layer, sites in bank.items()}
+
+
+def lora_params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``LoRAProGen``'s parameter tree (with or without its
+    ``"params"`` level) as the port's ``LoRAProGen`` state dict of CPU
+    tensors."""
+    if "params" in tree and isinstance(tree["params"], dict):
+        tree = tree["params"]
+    state = {f"base.{k}": v for k, v in params_from_flax(tree["base"]).items()}
+    for name, value in tree.items():
+        if name != "base":
+            state[name] = torch.from_numpy(np.array(value))
     return state
 
 

@@ -1,9 +1,26 @@
+from progen_tpu_torch.decode.engine import (
+    FAILED_FAULT,
+    SHED_DEADLINE,
+    SHED_QUEUE_FULL,
+    STATUS_OK,
+    Completion,
+    Request,
+    ServingEngine,
+)
 from progen_tpu_torch.decode.handoff import Handle, HandoffQueue
-from progen_tpu_torch.decode.incremental import ProGenDecodeStep, init_caches
+from progen_tpu_torch.decode.incremental import (
+    ProGenDecodeStep,
+    ProGenPagedDecodeStep,
+    init_caches,
+    init_gate_pool,
+)
 from progen_tpu_torch.decode.prefill import (
     harvest_caches,
+    harvest_gate_pages,
+    make_embedder,
     make_prefiller,
     pad_prime_length,
+    prime_buckets,
     scatter_gate_rows,
 )
 from progen_tpu_torch.decode.sampler import (
@@ -23,18 +40,30 @@ from progen_tpu_torch.decode.spec import (
 
 __all__ = [
     "ChunkedSampler",
+    "Completion",
+    "FAILED_FAULT",
     "Handle",
     "HandoffQueue",
     "ProGenDecodeStep",
+    "ProGenPagedDecodeStep",
+    "Request",
+    "SHED_DEADLINE",
+    "SHED_QUEUE_FULL",
+    "STATUS_OK",
+    "ServingEngine",
     "apply_logit_mask",
     "check_draft_config",
     "gumbel_topk_sample",
     "harvest_caches",
+    "harvest_gate_pages",
     "init_caches",
+    "init_gate_pool",
     "make_chunked_sampler",
+    "make_embedder",
     "make_prefiller",
     "make_sampler",
     "pad_prime_length",
+    "prime_buckets",
     "scatter_gate_rows",
     "spec_acceptance",
     "spec_round",

@@ -84,15 +84,28 @@ merged away; here the caches are written in place, so every step that must
 leave a row untouched passes ``write_ok`` and the draft proposes on a clone
 of its caches.
 
-Not ported yet (each raises ``NotImplementedError``): remote prefill (the
-handoff's wire format), LoRA banks, meshes, the embed endpoint,
-``submit_fork``, snapshot/restore, weight reload, warm-up, the watchdog.
+**Served workloads** (``workloads/``): a LoRA bank (``lora_bank``) gives
+every request a ``tenant``, and each decode and prefill row adds its own
+tenant's low-rank delta (tenant 0 is the base model, bit for bit); the bank
+composes with dense, paged, 8-bit and disaggregated serving, not with
+speculation.  ``submit_embed`` queues an embedding request, served after the
+decode chunk by the base model's pooled forward (``decode/prefill.py:
+make_embedder``) in FIFO batches of one bucket; it takes no slot.
+``submit_fork`` is best-of-N off one prime: on a paged engine with the
+prefix cache the followers wait until the leader's prefix pages are
+published and are admitted as prefix hits.  A ``logit_mask``
+(``workloads/infill.py:ScaffoldSpec``) constrains each generated position.
+
+Not ported yet (each raises ``NotImplementedError`` or is absent): remote
+prefill (the handoff's wire format), meshes, snapshot/restore, weight
+reload, warm-up, the watchdog.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -123,6 +136,7 @@ from progen_tpu_torch.decode.paging import (
 from progen_tpu_torch.decode.prefill import (
     harvest_caches,
     harvest_gate_pages,
+    make_embedder,
     pad_prime_length,
     scatter_gate_rows,
 )
@@ -137,6 +151,7 @@ from progen_tpu_torch.observe.robustness import RobustnessCounters
 from progen_tpu_torch.ops.quant import quantize_params
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.retry import RetryError, default_classifier
+from progen_tpu_torch.workloads.lora import cast_bank, validate_lora_bank
 
 EOS_ID = 0
 
@@ -156,7 +171,6 @@ _MAX_DEFER_STREAK = 16
 _NOT_PORTED = {
     "remote_prefill": "remote prefill over the handoff's wire format "
                       "(ROADMAP.md Queue 1, the multi-process fleet)",
-    "lora_bank": "LoRA adapter banks (ROADMAP.md Queue 1, engine modes: lora_bank)",
     "mesh": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
     "strategies": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
     "params_shardings": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
@@ -191,7 +205,10 @@ class Request:
     generated position ``g`` to its true entries.  ``priority`` picks the
     scheduling class (higher is more urgent; a high-priority arrival may
     preempt a lower-priority in-flight request, whose replay is bit-exact).
-    ``tenant`` must be 0: LoRA banks are not ported.
+    ``tenant`` selects a row of the engine's LoRA bank (0 = the base model;
+    nonzero needs a ``lora_bank``).  ``workload`` names the request class
+    (``"generate"``, ``"infill"``, ``"embed"``); the engine routes by the
+    method a request is submitted through, not by this field.
     """
 
     uid: Any
@@ -207,6 +224,7 @@ class Request:
     logit_mask: Any = None
     tenant: int = 0
     priority: int = 0
+    workload: str = "generate"
 
 
 @dataclasses.dataclass
@@ -215,7 +233,9 @@ class Completion:
     included when the model emitted one).  ``status`` is ``STATUS_OK`` for
     served requests (``finish_reason`` ``"eos"`` or ``"length"``) or a shed
     type, mirrored into ``finish_reason``.  ``first_token_time`` is the
-    instant the admission dispatch returned (None for sheds before it)."""
+    instant the admission dispatch returned (None for sheds before it and
+    for embeddings).  An embedding completion has ``finish_reason
+    "embed"``, no tokens and its ``(dim,)`` f32 ``embedding``."""
 
     uid: Any
     prime: np.ndarray
@@ -225,6 +245,7 @@ class Completion:
     finish_time: float
     status: str = STATUS_OK
     first_token_time: float | None = None
+    embedding: np.ndarray | None = None
 
     @property
     def latency(self) -> float:
@@ -263,6 +284,7 @@ def _tree_map(fn: Callable, new, old):
 
 
 # the per-row entries of the slot state besides the caches and ``active``
+# (and ``tenant``, under a LoRA bank)
 _ROW_KEYS = ("seq", "pos", "start", "stop", "done", "keys", "top_k", "temp",
              "lmask")
 
@@ -289,11 +311,14 @@ class ServingEngine:
     to relative share for the scheduling queue (``decode/qos.py``), which is
     exact FIFO by default.
 
-    ``spec=True`` (``spec_k``, ``draft_config``, ``draft_params``) and
-    ``disagg=True`` (``prefill_batch``, ``handoff_depth``): see the module
-    docstring.  ``draft_config`` without ``draft_params`` draws the draft's
-    weights from ``seed``; an explicit draft keeps its own weights (full
-    precision unless given quantized), the identity draft the target's.
+    ``spec=True`` (``spec_k``, ``draft_config``, ``draft_params``),
+    ``disagg=True`` (``prefill_batch``, ``handoff_depth``) and ``lora_bank``
+    (``workloads/lora.py``; validated, then cast once to the compute dtype
+    on the engine's device; under ``quantize`` the base turns int8 and the
+    bank stays full precision): see the module docstring.  ``draft_config``
+    without ``draft_params`` draws the draft's weights from ``seed``; an
+    explicit draft keeps its own weights (full precision unless given
+    quantized), the identity draft the target's.
     """
 
     def __init__(self, model: ProGen | ProGenConfig, *,
@@ -308,8 +333,9 @@ class ServingEngine:
                  draft_config: ProGenConfig | None = None,
                  draft_params: ProGen | None = None, disagg: bool = False,
                  prefill_batch: int | None = None, handoff_depth: int = 2,
-                 **not_ported):
-        if spec and "lora_bank" in not_ported:
+                 lora_bank: dict | None = None, **not_ported):
+        if spec and lora_bank is not None:
+            # the draft and commit steps carry no tenant state (as in JAX)
             raise ValueError("lora_bank does not compose with spec=True")
         for name in not_ported:
             if name not in _NOT_PORTED:
@@ -348,9 +374,13 @@ class ServingEngine:
         self._defer_streak: dict[str, int] = {}
         # dispatch wall per stage: the host's time in the guarded call.  The
         # device may still be running when a decode chunk's dispatch returns;
-        # the harvest that follows waits for it.
+        # the harvest that follows waits for it.  embed_s includes the fetch
+        # of the vectors, so it holds the device's time too.
         self.stage_seconds = {"prefill_s": 0.0, "merge_s": 0.0,
-                              "decode_chunk_s": 0.0}
+                              "decode_chunk_s": 0.0, "embed_s": 0.0}
+        # best-of-N forks (submit_fork): leader uid -> held followers
+        self._fork_wait: dict[Any, list[Request]] = {}
+        self.fork_groups = 0
 
         if quantize not in (None, "weights", "weights+pages"):
             raise ValueError(f"quantize {quantize!r}: want None, "
@@ -364,6 +394,20 @@ class ServingEngine:
             model = self._quantize_variables(model)
         self.model = model
         self._rows = torch.arange(num_slots, device=self.device)
+
+        self.lora = lora_bank is not None
+        self._bank = None
+        self.num_tenants = 1
+        self._row_keys = _ROW_KEYS
+        if self.lora:
+            self.num_tenants = validate_lora_bank(config, lora_bank)
+            self._bank = cast_bank(lora_bank, self.policy.compute_dtype, self.device)
+            self._row_keys = _ROW_KEYS + ("tenant",)
+        # embeddings: a request class of its own, served by the base model's
+        # pooled forward in batches of up to num_slots rows; no slot taken
+        self._embed_queue: deque[Request] = deque()
+        self.embed_batch = num_slots
+        self._embedder = make_embedder(model)
 
         self.spec = spec
         if spec:
@@ -474,6 +518,8 @@ class ServingEngine:
             "lmask": torch.ones(s, L, self.config.num_tokens, dtype=torch.bool,
                                 device=dev),
         }
+        if self.lora:
+            state["tenant"] = zeros(torch.long)  # the row's bank row
         if self.spec:
             # the draft's caches stay DENSE per slot, paged mode included:
             # the draft is small, paging it would buy nothing
@@ -593,12 +639,14 @@ class ServingEngine:
         for _ in range(self.chunk_size):
             live = st["active"] & ~st["done"]
             tok = st["seq"][self._rows, st["pos"]]
-            logits, _ = self._step_model(tok, st["pos"], st["caches"])
+            logits, _ = self._step_model(tok, st["pos"], st["caches"],
+                                         adapters=self._bank,
+                                         tenant=st.get("tenant"))
             self._advance(st, live, logits)
         return st
 
-    def _prefill_rows(self, tokens, lengths, stops, seeds, top_k, temp, lmask,
-                      with_sgu: bool):
+    def _prefill_rows(self, tokens, lengths, stops, seeds, top_k, temp, tenant,
+                      lmask, with_sgu: bool):
         """One parallel forward of ``tokens (S, P_pad)`` (and of the draft's,
         under speculation) and each row's decode state, with no slot state
         in scope: the shared body of both admit programs and the prefill
@@ -606,7 +654,7 @@ class ServingEngine:
         entries, the harvested ``caches`` (rings, carries and, with
         ``with_sgu``, the dense gate rows) and, under speculation, the
         draft's ``draft_caches``; ``sown`` the target forward's
-        intermediates."""
+        intermediates.  ``tenant`` is read under a LoRA bank only."""
         dev, L = self.device, self.max_len
         as_t = lambda a, dtype: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
         tokens = as_t(tokens, torch.long)
@@ -615,7 +663,9 @@ class ServingEngine:
         temp, lmask = as_t(temp, torch.float32), as_t(lmask, torch.bool)
         rows = self._rows
 
-        logits, sown = self.model(tokens, return_cache=True)
+        tenant = as_t(tenant, torch.long) if self.lora else None
+        logits, sown = self.model(tokens, return_cache=True, adapters=self._bank,
+                                  tenant=tenant)
         caches = harvest_caches(self.config, sown, lengths, self.policy, L,
                                 with_sgu=with_sgu)
         last = logits[rows, lengths - 1].float()
@@ -633,6 +683,8 @@ class ServingEngine:
         out = {"seq": seq, "caches": caches, "pos": lengths, "start": lengths,
                "stop": stops, "done": (first == EOS_ID) | (lengths + 1 >= stops),
                "keys": split[:, 0], "top_k": top_k, "temp": temp, "lmask": lmask}
+        if self.lora:
+            out["tenant"] = tenant
         if self.spec:
             # one padded prime batch primes both models (they share the
             # window, so the bucket suits both); the draft's gate rows stay
@@ -647,7 +699,7 @@ class ServingEngine:
         """The slot state with the rows where ``mask`` taken from ``rows``
         (``take(new, old)`` picks per leaf) and marked active; the target's
         caches are left to the caller."""
-        out = {k: take(rows[k], state[k]) for k in _ROW_KEYS}
+        out = {k: take(rows[k], state[k]) for k in self._row_keys}
         out["active"] = state["active"] | mask
         if self.spec:
             out["draft_caches"] = _tree_map(take, rows["draft_caches"],
@@ -656,13 +708,14 @@ class ServingEngine:
 
     @torch.no_grad()
     def _admit_impl(self, state, tokens, lengths, stops, seeds, top_k, temp,
-                    mask, lmask) -> dict:
+                    tenant, mask, lmask) -> dict:
         """Prefill ``tokens (S, P_pad)`` in one parallel forward and merge
         the rows where ``mask`` into ``state`` (rows outside ``mask`` carry
         dummy primes and are discarded).  ``lmask (S, L, V)`` is each row's
-        logit mask indexed by write position."""
+        logit mask indexed by write position; ``tenant (S,)`` each row's
+        bank row (read under a LoRA bank only)."""
         rows, _ = self._prefill_rows(tokens, lengths, stops, seeds, top_k, temp,
-                                     lmask, with_sgu=True)
+                                     tenant, lmask, with_sgu=True)
         mask = torch.as_tensor(mask, device=self.device)
         take = lambda new, old: _merge(mask, new, old)
         return {**self._merge_rows(state, rows, mask, take),
@@ -684,19 +737,20 @@ class ServingEngine:
         for _ in range(self.chunk_size):
             live = st["active"] & ~st["done"] & ~paused
             tok = st["seq"][self._rows, st["pos"]]
-            logits, _ = self._step_model(tok, st["pos"], st["caches"], table, live)
+            logits, _ = self._step_model(tok, st["pos"], st["caches"], table, live,
+                                         self._bank, st.get("tenant"))
             self._advance(st, live, logits)
         return st
 
     @torch.no_grad()
     def _admit_paged_impl(self, state, tokens, lengths, stops, seeds, top_k,
-                          temp, mask, lmask, wtable) -> dict:
+                          temp, tenant, mask, lmask, wtable) -> dict:
         """Paged twin of ``_admit_impl``: rings and carries harvest and merge
         as in the dense path, but gate rows scatter straight into the page
         pool through the WRITE table (``wtable``: private pages only;
         prefix-shared and dummy rows go to the dump page)."""
         rows, sown = self._prefill_rows(tokens, lengths, stops, seeds, top_k,
-                                        temp, lmask, with_sgu=False)
+                                        temp, tenant, lmask, with_sgu=False)
         mask = torch.as_tensor(mask, device=self.device)
         take = lambda new, old: _merge(mask, new, old)
         old = state["caches"]
@@ -771,15 +825,17 @@ class ServingEngine:
 
     @torch.no_grad()
     def _prefill_worker_impl(self, tokens, lengths, stops, seeds, top_k, temp,
-                             lmask) -> dict:
+                             tenant, lmask) -> dict:
         """Prefill stage of disaggregated serving: the admit programs' math
         with NO slot state in scope; the product is a handle's state of
         ``(num_slots, ...)`` slabs the merge later gathers into slots.  Gate
         rows stay dense here even in paged mode (the worker cannot know
         which pool pages they will land in; the merge scatters them through
-        a row-indexed write table)."""
+        a row-indexed write table).  Under a LoRA bank the handle carries
+        each row's ``tenant``, so the decode side gathers the right
+        factors."""
         rows, _ = self._prefill_rows(tokens, lengths, stops, seeds, top_k, temp,
-                                     lmask, with_sgu=True)
+                                     tenant, lmask, with_sgu=True)
         return rows
 
     @torch.no_grad()
@@ -861,10 +917,15 @@ class ServingEngine:
                     f"request {request.uid!r}: logit_mask has an all-False "
                     f"row; every constrained position needs >= 1 allowed token")
             request.logit_mask = m
-        if int(request.tenant) != 0:
+        tenant = int(request.tenant)
+        if tenant != 0 and not self.lora:
             raise ValueError(
-                f"request {request.uid!r}: tenant={int(request.tenant)} but "
-                f"the engine holds no lora_bank (not ported)")
+                f"request {request.uid!r}: tenant={tenant} but the engine "
+                f"was built without a lora_bank")
+        if not (0 <= tenant < self.num_tenants):
+            raise ValueError(
+                f"request {request.uid!r}: tenant {tenant} outside the "
+                f"bank's [0, {self.num_tenants})")
         if self.paged:
             stop = min(n + request.max_new_tokens, self.max_len)
             worst = pages_for_span(stop - 1, self.page_size)
@@ -899,9 +960,98 @@ class ServingEngine:
                 return
         self._queue.append(request)
 
+    def submit_embed(self, request: Request) -> None:
+        """Queue an EMBEDDING request: one prefill-shaped forward of the base
+        model, its final hidden state mean-pooled, no decode slot taken.
+        The shed rules of :meth:`submit`; ``max_new_tokens``, ``top_k``,
+        ``temperature`` and ``seed`` are ignored (nothing is sampled)."""
+        n = len(request.tokens)
+        if n < 1:
+            raise ValueError(f"request {request.uid!r}: empty prime")
+        if n > self.config.seq_len:
+            raise ValueError(
+                f"request {request.uid!r}: prime length {n} exceeds "
+                f"seq_len {self.config.seq_len}")
+        if request.logit_mask is not None:
+            raise ValueError(
+                f"request {request.uid!r}: embed requests take no "
+                f"logit_mask (nothing is sampled)")
+        if int(request.tenant) != 0:
+            raise ValueError(
+                f"request {request.uid!r}: embed requests run the base "
+                f"model (tenant must be 0)")
+        try:
+            self._guard("serve.submit")
+        except (_ContainedFault, RetryError):
+            self._shed(request, FAILED_FAULT)
+            return
+        deadline = self._deadline_of(request)
+        if deadline is not None and time.perf_counter() > deadline:
+            self._shed(request, SHED_DEADLINE)
+            return
+        if (self.max_queue is not None
+                and len(self._embed_queue) >= self.max_queue):
+            if self.shed_policy == "shed-oldest":
+                self._shed(self._embed_queue.popleft(), SHED_QUEUE_FULL)
+            else:
+                self._shed(request, SHED_QUEUE_FULL)
+                return
+        self._embed_queue.append(request)
+
+    def submit_fork(self, request: Request, n_samples: int) -> list:
+        """Best-of-N: fork ``n_samples`` trajectories off one prime.  Fork
+        ``k`` is ``request`` with ``uid + k`` and ``seed + k``, so each
+        completion equals that request submitted alone.  The caller owns the
+        uid space: ``uid .. uid + n - 1`` must be unused.
+
+        On a paged engine with the prefix cache, and a prime of at least one
+        page, the leader (fork 0) is submitted now and the followers are
+        held until it leaves the queue (admitted, so its prefix pages are
+        published, or shed); they are then admitted as prefix-cache hits, so
+        N samples hold one copy of the prime's full pages.  Otherwise every
+        fork is submitted at once.  Returns the fork uids in order."""
+        if n_samples < 1:
+            raise ValueError(f"request {request.uid!r}: n_samples must "
+                             f"be >= 1, got {n_samples}")
+        if not isinstance(request.uid, int):
+            raise ValueError(f"request {request.uid!r}: submit_fork "
+                             f"derives fork uids by offset; uid must "
+                             f"be an int")
+        forks = [dataclasses.replace(request, uid=request.uid + k,
+                                     seed=request.seed + k)
+                 for k in range(n_samples)]
+        self.fork_groups += 1
+        share = (self.paged and self._pool.prefix_caching and n_samples > 1
+                 and len(request.tokens) >= self.page_size)
+        self.submit(forks[0])
+        if share:
+            self._fork_wait[forks[0].uid] = forks[1:]
+        else:
+            for f in forks[1:]:
+                self.submit(f)
+        return [f.uid for f in forks]
+
+    def _release_forks(self) -> None:
+        """Submit the held followers of every leader that has left the queue
+        (its admission committed the prefix registrations, or it was shed
+        and the followers go on unshared).  Runs at the top of
+        :meth:`step`, so followers land one admission round behind their
+        leader."""
+        if not self._fork_wait:
+            return
+        queued = {r.uid for r in self._queue}
+        for uid in [u for u in self._fork_wait if u not in queued]:
+            for f in self._fork_wait.pop(uid):
+                self.submit(f)
+
     @property
     def pending(self) -> int:
-        return len(self._queue)
+        return (len(self._queue) + len(self._embed_queue)
+                + sum(len(v) for v in self._fork_wait.values()))
+
+    @property
+    def embed_pending(self) -> int:
+        return len(self._embed_queue)
 
     @property
     def num_active(self) -> int:
@@ -910,7 +1060,8 @@ class ServingEngine:
     @property
     def has_work(self) -> bool:
         """True while anything remains for ``step()`` to do or report."""
-        n = len(self._queue) + len(self._inflight) + len(self._pending)
+        n = (len(self._queue) + len(self._embed_queue) + len(self._inflight)
+             + len(self._pending) + sum(len(v) for v in self._fork_wait.values()))
         if self.disagg:
             n += len(self._handoff)
         return n > 0
@@ -965,12 +1116,13 @@ class ServingEngine:
         prefill) and cancel expired in-flight slots (their partial tokens
         ride along in the shed completion)."""
         now = time.perf_counter()
-        expired_q = [r for r in self._queue
-                     if self._deadline_of(r) is not None
-                     and now > self._deadline_of(r)]
-        for r in expired_q:
-            self._queue.remove(r)
-            self._shed(r, SHED_DEADLINE)
+        for q in (self._queue, self._embed_queue):
+            expired_q = [r for r in q
+                         if self._deadline_of(r) is not None
+                         and now > self._deadline_of(r)]
+            for r in expired_q:
+                q.remove(r)
+                self._shed(r, SHED_DEADLINE)
         slots = [s for s, r in self._inflight.items()
                  if self._deadline_of(r) is not None
                  and now > self._deadline_of(r)]
@@ -1067,6 +1219,7 @@ class ServingEngine:
                 "seeds": np.zeros((s,), np.uint32),
                 "top_k": np.zeros((s,), np.int32),
                 "temp": np.ones((s,), np.float32),
+                "tenant": np.zeros((s,), np.int32),
                 "mask": np.zeros((s,), bool)}
 
     def _fill_row(self, a: dict, row: int, r: Request) -> None:
@@ -1079,6 +1232,7 @@ class ServingEngine:
         a["seeds"][row] = np.uint32(int(r.seed) & 0xFFFFFFFF)
         a["top_k"][row] = 0 if r.top_k is None else int(r.top_k)
         a["temp"][row] = float(r.temperature)
+        a["tenant"][row] = int(r.tenant)
 
     def _fill_admit_row(self, a: dict, slot: int, r: Request) -> None:
         self._fill_row(a, slot, r)
@@ -1347,6 +1501,69 @@ class ServingEngine:
         for _, r in live_rows:
             self._ttft.setdefault(r.uid, merged)
 
+    # ---------------------------------------------------------- embeddings
+
+    def _embed_call(self, tokens, lengths):
+        """The embedding program on one padded bucket: the BASE model (int8
+        under ``quantize``), no adapters, no sampling, no slot state."""
+        dev = self.device
+        return self._embedder(torch.as_tensor(tokens, device=dev).long(),
+                              torch.as_tensor(lengths, device=dev).long())
+
+    def _embed_round(self) -> None:
+        """Serve one batch of embedding requests: a FIFO prefix of the embed
+        queue sharing the head's prefill bucket, padded to ``embed_batch``
+        rows with 1-token dummies, one pooled forward, completions with the
+        ``(dim,)`` vector attached."""
+        if not self._embed_queue:
+            return
+        try:
+            self._guard("serve.admit")
+        except _ContainedFault:
+            self._shed(self._embed_queue.popleft(), FAILED_FAULT)
+            return
+        bucket = lambda r: self._bucket([(0, r)])
+        p_pad = bucket(self._embed_queue[0])
+        batch: list[Request] = []
+        while (self._embed_queue and len(batch) < self.embed_batch
+               and bucket(self._embed_queue[0]) == p_pad):
+            batch.append(self._embed_queue.popleft())
+        tokens = np.zeros((self.embed_batch, p_pad), np.int32)
+        lengths = np.ones((self.embed_batch,), np.int32)  # dummy rows
+        for row, r in enumerate(batch):
+            tokens[row, : len(r.tokens)] = np.asarray(r.tokens, np.int32)
+            lengths[row] = len(r.tokens)
+        t0 = time.perf_counter()
+        try:
+            vecs = self._guard("serve.embed", self._embed_call, tokens, lengths)
+        except _ContainedFault:
+            for r in batch:
+                self._shed(r, FAILED_FAULT)
+            return
+        except RetryError:
+            for r in reversed(batch):
+                self._embed_queue.appendleft(r)
+            raise
+        (vecs,) = _host_fetch(vecs)
+        self._note_stage("embed_s", t0)
+        now = time.perf_counter()
+        for row, r in enumerate(batch):
+            comp = Completion(
+                uid=r.uid, prime=np.asarray(r.tokens, np.int32),
+                tokens=np.zeros((0,), np.int32), finish_reason="embed",
+                submit_time=r.submit_time, finish_time=now,
+                embedding=vecs[row])
+            self.completions.append(comp)
+            self._pending.append(comp)
+            if r.on_complete is not None:
+                r.on_complete(comp)
+
+    def run_embed_round(self) -> None:
+        """Serve one embedding batch, if one is queued (for a caller that
+        drives prefill work without ``step()``); its completions are
+        returned by the next ``step()``."""
+        self._embed_round()
+
     # ------------------------------------------------------------- pages
 
     def _plan_slot_pages(self, slot: int, r: Request, p_pad: int,
@@ -1546,12 +1763,14 @@ class ServingEngine:
         self._set_inactive(slots)
 
     def step(self) -> list[Completion]:
-        """One engine iteration: shed expired requests, admit queued ones
-        into free slots, decode one chunk, harvest newly finished slots.
+        """One engine iteration: shed expired requests, release held fork
+        followers, admit queued ones into free slots, decode one chunk,
+        harvest newly finished slots, serve one embedding batch.
         The return includes typed SHED completions recorded since the last
         step (queue-full sheds from ``submit()``, for one)."""
         completed = self._drain_pending()
         self._shed_expired()
+        self._release_forks()
         if not self._draining:
             if self.disagg:
                 self._admit_from_handoff()
@@ -1563,6 +1782,11 @@ class ServingEngine:
             self._dispatch_chunk()
             completed += self._drain_pending()
             completed += self._harvest_done()
+        if self._embed_queue and not self._draining:
+            # after the decode chunk, as the disaggregated prefill round:
+            # in-flight decode never waits behind prefill-shaped work
+            self._embed_round()
+            completed += self._drain_pending()
         if self.disagg and not self._draining:
             # prefill AFTER the decode chunk: in-flight decode never waits
             # behind a long prefill; with no slot in flight there is nothing
@@ -1638,6 +1862,8 @@ class ServingEngine:
             "slots": {"total": self.num_slots, "active": active,
                       "free": self.num_slots - active},
             "queue_depth": len(self._queue),
+            "embed_queue_depth": len(self._embed_queue),
+            "fork_groups": self.fork_groups,
             "pending_completions": len(self._pending),
             "inflight_uids": sorted(r.uid for r in list(self._inflight.values())),
             "chunks_run": self.chunks_run,
@@ -1645,6 +1871,7 @@ class ServingEngine:
             "quantize": self.quantize,
             "disagg": self.disagg,
             "spec": self.spec,
+            "lora_tenants": self.num_tenants if self.lora else 0,
             "stage_seconds": {k: round(v, 6)
                               for k, v in self.stage_seconds.items()},
             "qos": self.qos_status(),

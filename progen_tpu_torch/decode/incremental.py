@@ -35,6 +35,11 @@ and the token-shift carries keep their old values.  A paused row's carries
 still hold position ``pos - 1``; a discarded step that overwrote them would
 corrupt the real step after the pause.  The dense step takes the same
 optional mask (the speculative verify and draft-commit steps).
+
+Both steps take an optional LoRA bank (``adapters``, ``workloads/lora.py``)
+and a ``(B,)`` ``tenant`` vector: each row adds its own tenant's delta at
+every adapter site, as the parallel forward does; tenant-0 rows keep the
+bankless step's bits.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from progen_tpu_torch.models.progen import (
     LocalAttention,
     ProGen,
     ProGenConfig,
+    apply_lora,
 )
 from progen_tpu_torch.ops.cuda_paged_gate_mix import paged_gate_mix, write_gate_row
 from progen_tpu_torch.ops.local_attention import ATTN_MASK_VALUE
@@ -153,19 +159,24 @@ def _keep_live(new, old, write_ok):
 
 
 def local_attention_decode(block: LocalAttention, x, sin_row, cos_row, slot,
-                           valid, prev, k_cache, v_cache, write_ok=None):
+                           valid, prev, k_cache, v_cache, write_ok=None,
+                           adapters=None, tenant=None):
     """One-position attention of ``block`` against its k/v ring (the JAX
     ``LocalAttentionDecode``).  Writes this position's k/v into ring slot
     ``slot`` in place; returns ``(out, new_prev)``.  With ``write_ok``
     ``(B,)`` bool, rows where it is false write nothing: their ring slot and
-    their carry stay as they were (and their output is not to be used)."""
+    their carry stay as they were (and their output is not to be used).
+    ``adapters`` is the layer's ``{"qkv", "out"}`` sites."""
     b = x.shape[0]
     h, d = block.heads, block.dim_head
     normed = block.norm(x)
     new_prev = _keep_live(normed, prev, write_ok)
     if block.shift:
         normed = _shift_with_carry(normed, prev)
-    q, k, v = block.to_qkv(normed).chunk(3, dim=-1)
+    qkv = block.to_qkv(normed)
+    if adapters is not None:  # the delta reads the SHIFTED input
+        qkv = apply_lora(qkv, normed, adapters["qkv"], tenant)
+    q, k, v = qkv.chunk(3, dim=-1)
     q, k, v = (_rotate_at(t.reshape(b, h, d), sin_row, cos_row)
                for t in (q, k, v))
     rows = torch.arange(b, device=x.device)
@@ -176,10 +187,23 @@ def local_attention_decode(block: LocalAttention, x, sin_row, cos_row, slot,
     attn = torch.softmax(sim, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhs,bhsd->bhd", attn.float(), v_cache.float())
     out = out.to(v_cache.dtype).reshape(b, h * d)
-    return block.to_out(out), new_prev
+    proj = block.to_out(out)
+    if adapters is not None:
+        proj = apply_lora(proj, out, adapters["out"], tenant)
+    return proj, new_prev
 
 
-def sgu_decode(block: SGU, x, pos, gate_cache, write_ok=None):
+def _proj_out(block: SGU, x, adapters, tenant):
+    """The SGU's output projection of the gated mix ``x``, plus the LoRA
+    delta of its site when ``adapters`` is given."""
+    y = block.proj_out(x)
+    if adapters is not None:
+        y = apply_lora(y, x, adapters, tenant)
+    return y
+
+
+def sgu_decode(block: SGU, x, pos, gate_cache, write_ok=None, adapters=None,
+               tenant=None):
     """One-position spatial gate (the JAX ``SGUDecode``): write this
     position's normed gate row into ``gate_cache`` in place, contract the
     cache with weight row ``pos`` (f32 weights masked to ``n <= pos``, f32
@@ -199,11 +223,11 @@ def sgu_decode(block: SGU, x, pos, gate_cache, write_ok=None):
     w_rows = w_rows * causal.float()
     mixed = torch.einsum("bnd,bn->bd", gate_cache.float(), w_rows)
     mixed = (mixed + block.spatial_biases.float()[pos]).to(res.dtype)
-    return block.proj_out(res * mixed)
+    return _proj_out(block, res * mixed, adapters, tenant)
 
 
 def sgu_decode_paged(block: SGU, x, pos, pos32, pool, table, write_ok, n_rows,
-                     pool_scale=None):
+                     pool_scale=None, adapters=None, tenant=None):
     """One-position spatial gate against the global page pool (the JAX
     ``SGUDecodePaged``): scatter this position's normed gate row into the
     row's current page (rows with ``write_ok`` false go to the dump page;
@@ -219,15 +243,16 @@ def sgu_decode_paged(block: SGU, x, pos, pos32, pool, table, write_ok, n_rows,
                            table, pos32, n_rows=n_rows,
                            w_scale=block.spatial_weights_scale,
                            pool_scale=pool_scale)
-    return block.proj_out(res * mixed.to(res.dtype))
+    return _proj_out(block, res * mixed.to(res.dtype), adapters, tenant)
 
 
 def feed_forward_decode(block: FeedForward, x, pos, prev, gate_cache,
-                        write_ok=None, paged=None):
+                        write_ok=None, paged=None, adapters=None, tenant=None):
     """One-position feed-forward (the JAX ``FeedForwardDecode`` and
     ``FeedForwardDecodePaged``); returns ``(out, new_prev)``.  ``paged``
     (a gMLP layer of the paged step) holds ``pos32``, ``pool``, ``table``,
-    ``n_rows`` and ``pool_scale`` in place of ``gate_cache``."""
+    ``n_rows`` and ``pool_scale`` in place of ``gate_cache``.  ``adapters``
+    is the layer's ``{"sgu"}`` site (gMLP layers only)."""
     normed = block.norm(x)
     new_prev = _keep_live(normed, prev, write_ok)
     if block.shift:
@@ -238,16 +263,19 @@ def feed_forward_decode(block: FeedForward, x, pos, prev, gate_cache,
         h = h * F.gelu(gate, approximate="tanh")
     else:
         h = F.gelu(h, approximate="tanh")
+    site = None if adapters is None else adapters["sgu"]
     if block.sgu is not None and paged is not None:
-        h = sgu_decode_paged(block.sgu, h, pos, write_ok=write_ok, **paged)
+        h = sgu_decode_paged(block.sgu, h, pos, write_ok=write_ok, **paged,
+                             adapters=site, tenant=tenant)
     elif block.sgu is not None:
-        h = sgu_decode(block.sgu, h, pos, gate_cache, write_ok)
+        h = sgu_decode(block.sgu, h, pos, gate_cache, write_ok, site, tenant)
     return block.proj_out(h), new_prev
 
 
 class ProGenDecodeStep:
     """One decode step of ``model``:
-    ``(tok (B,), pos, caches[, write_ok]) -> (logits (B, V), caches)``.
+    ``(tok (B,), pos, caches[, write_ok, adapters, tenant]) -> (logits (B, V),
+    caches)``.
 
     ``pos`` is an int or a ``(B,)`` tensor (each row at its own position).
     ``write_ok`` ``(B,)`` bool, when given: rows where it is false write
@@ -267,15 +295,18 @@ class ProGenDecodeStep:
 
     @torch.no_grad()
     def __call__(self, tok: torch.Tensor, pos, caches: dict,
-                 write_ok: torch.Tensor | None = None):
-        return self._run(tok, pos, caches, write_ok=write_ok)
+                 write_ok: torch.Tensor | None = None, adapters: dict | None = None,
+                 tenant: torch.Tensor | None = None):
+        return self._run(tok, pos, caches, write_ok=write_ok, adapters=adapters,
+                         tenant=tenant)
 
     def _paged_layer(self, i: int, caches: dict, pos32, table) -> dict | None:
         """What a gMLP layer of the paged step reads in place of a dense
         gate cache; ``None`` here: this step keeps dense caches."""
         return None
 
-    def _run(self, tok, pos, caches, table=None, write_ok=None):
+    def _run(self, tok, pos, caches, table=None, write_ok=None, adapters=None,
+             tenant=None):
         model = self.model
         cfg, pol = model.config, model.policy
         wsz = cfg.window_size
@@ -293,17 +324,23 @@ class ProGenDecodeStep:
         w_start = ((pos // wsz) * wsz)[:, None]
         valid = p_s >= w_start - wsz  # no p_s >= 0 clause: phantom window
 
+        if adapters is not None and tenant is None:
+            raise ValueError("adapters require a (B,) tenant-id tensor")
         for i in range(cfg.depth):
+            attn_ad = ff_ad = None
+            if adapters is not None:
+                attn_ad, ff_ad = adapters.get(f"attn{i}"), adapters.get(f"ff{i}")
             attn_out, caches["attn_prev"][i] = local_attention_decode(
                 model.attn[i], x, sin_row, cos_row, slot, valid,
                 caches["attn_prev"][i], caches["k"][i], caches["v"][i],
-                write_ok)
+                write_ok, attn_ad, tenant)
             x = x + attn_out
             paged = (self._paged_layer(i, caches, pos32, table)
                      if cfg.layer_uses_gmlp(i) else None)
             ff_out, caches["ff_prev"][i] = feed_forward_decode(
                 model.ff[i], x, pos, caches["ff_prev"][i],
-                caches.get("sgu_gate", {}).get(str(i)), write_ok, paged)
+                caches.get("sgu_gate", {}).get(str(i)), write_ok, paged,
+                ff_ad, tenant)
             x = x + ff_out
         logits = model.to_logits(model.norm_out(x))
         return pol.cast_to_output(logits), caches
@@ -311,7 +348,7 @@ class ProGenDecodeStep:
 
 class ProGenPagedDecodeStep(ProGenDecodeStep):
     """One paged decode step of ``model``: ``(tok (B,), pos, caches, table,
-    write_ok) -> (logits (B, V), caches)``.
+    write_ok[, adapters, tenant]) -> (logits (B, V), caches)``.
 
     The same step as :class:`ProGenDecodeStep`, except that the gMLP layers
     read and write the global gate-row pool (``caches["sgu_pool"]``, with
@@ -333,8 +370,9 @@ class ProGenPagedDecodeStep(ProGenDecodeStep):
 
     @torch.no_grad()
     def __call__(self, tok: torch.Tensor, pos, caches: dict, table: torch.Tensor,
-                 write_ok: torch.Tensor):
-        return self._run(tok, pos, caches, table, write_ok)
+                 write_ok: torch.Tensor, adapters: dict | None = None,
+                 tenant: torch.Tensor | None = None):
+        return self._run(tok, pos, caches, table, write_ok, adapters, tenant)
 
     def _paged_layer(self, i, caches, pos32, table):
         scale = (caches["sgu_pool_scale"][str(i)]

@@ -16,6 +16,10 @@ step needs is harvested from the forward's intermediates:
 ``lengths`` is per row, so one padded ``(B, P_pad)`` call primes rows of
 different prime lengths.  ``P_pad`` is a multiple of ``window_size`` and
 ``<= seq_len``; the right-pad tokens never reach a harvested value.
+
+:func:`make_embedder` is the embeddings endpoint's program on the same
+ragged contract: one forward to the final hidden states, mean-pooled over
+each row's real positions.
 """
 
 from __future__ import annotations
@@ -209,29 +213,67 @@ def scatter_gate_rows(config: ProGenConfig, gate_rows: dict,
 
 
 def make_prefiller(model: ProGen):
-    """Build ``prefill(tokens, lengths, decode_len) -> (last_logits, caches)``.
+    """Build ``prefill(tokens, lengths, decode_len, adapters=None,
+    tenant=None) -> (last_logits, caches)``.
 
     ``tokens``: ``(B, P_pad)`` int prime tokens, right-padded, ``P_pad`` a
     multiple of ``window_size`` and ``<= seq_len`` (:func:`pad_prime_length`).
     ``lengths``: ``(B,)`` real prime lengths.  ``decode_len``: positions the
-    decode will visit (sizes the SGU caches).  ``last_logits`` ``(B, V)`` f32
-    are the logits at each row's last prime position.
+    decode will visit (sizes the SGU caches).  ``adapters`` (a LoRA bank)
+    with ``tenant (B,)`` runs each row as its tenant.  ``last_logits``
+    ``(B, V)`` f32 are the logits at each row's last prime position.
     """
     config = model.config
 
     @torch.no_grad()
-    def prefill(tokens: torch.Tensor, lengths, decode_len: int):
-        b, p_pad = tokens.shape
-        if p_pad % config.window_size != 0 or p_pad > config.seq_len:
-            raise ValueError(
-                f"padded prime length {p_pad} must be a multiple of "
-                f"window_size {config.window_size} and <= seq_len "
-                f"{config.seq_len}")
+    def prefill(tokens: torch.Tensor, lengths, decode_len: int,
+                adapters: dict | None = None, tenant=None):
+        _check_padded(config, tokens)
         lengths = torch.as_tensor(lengths, dtype=torch.long,
                                   device=tokens.device)
-        logits, sown = model(tokens, return_cache=True)
+        if tenant is not None:
+            tenant = torch.as_tensor(tenant, dtype=torch.long,
+                                     device=tokens.device)
+        logits, sown = model(tokens, return_cache=True, adapters=adapters,
+                             tenant=tenant)
         caches = harvest_caches(config, sown, lengths, model.policy,
                                 decode_len)
         return _take_row(logits, lengths - 1).float(), caches
 
     return prefill
+
+
+def make_embedder(model: ProGen):
+    """Build ``embed(tokens, lengths) -> (B, dim) f32``: the embeddings
+    endpoint's program.
+
+    One forward of ``model`` to its final post-norm hidden states
+    (``ProGen.final_hidden``: no logits head, no per-layer caches), cast to
+    f32 and mean-pooled over each row's real positions ``< lengths[b]``
+    (divided by ``max(lengths, 1)``); the window-aligned pad tail never
+    contributes.  Same ragged ``(B, P_pad)`` + ``lengths`` contract as
+    :func:`make_prefiller`.  Always the base model: no adapters.
+    """
+    config = model.config
+
+    @torch.no_grad()
+    def embed(tokens: torch.Tensor, lengths) -> torch.Tensor:
+        _check_padded(config, tokens)
+        p_pad = tokens.shape[1]
+        lengths = torch.as_tensor(lengths, dtype=torch.long,
+                                  device=tokens.device)
+        h = model.final_hidden(tokens).float()
+        keep = torch.arange(p_pad, device=tokens.device)[None, :] < lengths[:, None]
+        pooled = torch.sum(h * keep[:, :, None].float(), dim=1)
+        return pooled / lengths.clamp_min(1).float()[:, None]
+
+    return embed
+
+
+def _check_padded(config: ProGenConfig, tokens: torch.Tensor) -> None:
+    p_pad = tokens.shape[1]
+    if p_pad % config.window_size != 0 or p_pad > config.seq_len:
+        raise ValueError(
+            f"padded prime length {p_pad} must be a multiple of "
+            f"window_size {config.window_size} and <= seq_len "
+            f"{config.seq_len}")

@@ -19,6 +19,10 @@ keyed like flax's ``"cache"`` collection (without its one-element tuples).
 Dense layers are ``nn.Linear`` (weight ``(out, in)``, the transpose of a
 flax kernel; ``compat/convert.py`` carries weights across).
 
+Multi-tenant LoRA (``workloads/lora.py``): ``forward(..., adapters=bank,
+tenant=ids)`` adds each row's own tenant's low-rank delta at every adapter
+site (:func:`apply_lora`); tenant-0 rows keep the base model's bits.
+
 ``weights="int8"`` is the serving-only quantized mode (``ops/quant.py``):
 every dense site but ``to_logits`` holds an int8 weight and an f32 scale per
 output channel, and the SGU an int8 ``spatial_weights`` with an f32 scale per
@@ -76,6 +80,31 @@ class ProGenConfig:
         """Layer i (0-based) uses the SGU/gMLP feed-forward iff it is among
         the last ``global_mlp_depth`` layers."""
         return (self.depth - i) <= self.global_mlp_depth
+
+
+def lora_delta(x: torch.Tensor, site: dict, tenant: torch.Tensor) -> torch.Tensor:
+    """Batched multi-tenant LoRA delta for one adapter site.
+
+    ``x``: the dense layer's input ``(B, ..., Din)``; ``site``: stacked
+    per-tenant factors ``{"a": (T, Din, r), "b": (T, r, Dout)}`` (any
+    scale already folded into ``b``); ``tenant``: ``(B,)`` int tenant ids.
+    Each row gathers ITS tenant's factors, cast to the activations' dtype,
+    so one step serves every tenant in the batch."""
+    a = site["a"].index_select(0, tenant).to(x.dtype)
+    b = site["b"].index_select(0, tenant).to(x.dtype)
+    h = torch.einsum("b...d,bdr->b...r", x, a)
+    return torch.einsum("b...r,bro->b...o", h, b)
+
+
+def apply_lora(base: torch.Tensor, x: torch.Tensor, site: dict,
+               tenant: torch.Tensor) -> torch.Tensor:
+    """``base + lora_delta`` for rows with ``tenant > 0``; rows with tenant
+    0 return ``base`` BIT-identically.  The guard is a ``where`` on the
+    output, not a zero delta: ``base + 0.0`` turns ``-0.0`` outputs into
+    ``+0.0``."""
+    delta = lora_delta(x, site, tenant)
+    live = (tenant > 0).reshape((-1,) + (1,) * (base.dim() - 1))
+    return torch.where(live, base + delta, base)
 
 
 class LayerNorm(nn.Module):
@@ -165,7 +194,8 @@ class LocalAttention(nn.Module):
         self.to_out = _dense(inner, c.dim, bias=True, policy=policy,
                              device=device, weights=weights)
 
-    def forward(self, x, sin, cos, cache: dict | None = None):
+    def forward(self, x, sin, cos, cache: dict | None = None,
+                adapters: dict | None = None, tenant=None):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         x = self.norm(x)
@@ -173,7 +203,10 @@ class LocalAttention(nn.Module):
             cache["prev"] = x  # post-norm PRE-shift: the decode shift carry
         if self.shift:
             x = shift_tokens(x)
-        q, k, v = self.to_qkv(x).chunk(3, dim=-1)
+        qkv = self.to_qkv(x)
+        if adapters is not None:  # the delta reads the SHIFTED input
+            qkv = apply_lora(qkv, x, adapters["qkv"], tenant)
+        q, k, v = qkv.chunk(3, dim=-1)
         q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in (q, k, v))
         # rotary on q, k AND v
         q, k, v = (apply_rotary_pos_emb(t, sin, cos).contiguous()
@@ -183,7 +216,10 @@ class LocalAttention(nn.Module):
             cache["v"] = v
         out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
         out = out.transpose(1, 2).reshape(b, n, h * d)
-        return self.to_out(out)
+        y = self.to_out(out)
+        if adapters is not None:
+            y = apply_lora(y, out, adapters["out"], tenant)
+        return y
 
 
 class SGU(nn.Module):
@@ -212,7 +248,9 @@ class SGU(nn.Module):
         self.proj_out = _dense(dim_out, dim_out, bias=True, policy=policy,
                                device=device, weights=weights)
 
-    def forward(self, x, cache: dict | None = None):
+    def forward(self, x, cache: dict | None = None, adapters: dict | None = None,
+                tenant=None):
+        """``adapters`` is this SGU's one site, ``{"a", "b"}``."""
         res, gate = x.chunk(2, dim=-1)
         gate = self.norm(gate)
         if cache is not None:
@@ -227,7 +265,10 @@ class SGU(nn.Module):
         w = w.to(cd).contiguous()
         b = self.spatial_biases[:n].to(cd).contiguous()
         x = cuda_sgu.gated_mix(res.contiguous(), gate.contiguous(), w, b)
-        return self.proj_out(x)
+        y = self.proj_out(x)
+        if adapters is not None:  # the delta reads the gated mix
+            y = apply_lora(y, x, adapters, tenant)
+        return y
 
 
 class FeedForward(nn.Module):
@@ -250,7 +291,8 @@ class FeedForward(nn.Module):
         self.proj_out = _dense(width, c.dim, bias=True, policy=policy,
                                device=device, weights=weights)
 
-    def forward(self, x, cache: dict | None = None):
+    def forward(self, x, cache: dict | None = None, adapters: dict | None = None,
+                tenant=None):
         x = self.norm(x)
         if cache is not None:
             cache["prev"] = x
@@ -266,7 +308,8 @@ class FeedForward(nn.Module):
             sub = None
             if cache is not None:
                 sub = cache["sgu"] = {}
-            x = self.sgu(x, sub)
+            x = self.sgu(x, sub, None if adapters is None else adapters["sgu"],
+                         tenant)
         return self.proj_out(x)
 
 
@@ -337,14 +380,36 @@ class ProGen(nn.Module):
         w.normal_(0.0, math.sqrt(1.0 / self.config.dim), generator=gen)
         self.embed.weight.copy_(w)
 
-    def forward(self, tokens: torch.Tensor, return_cache: bool = False):
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
+                adapters: dict | None = None, tenant: torch.Tensor | None = None):
         """``tokens (B, L)`` int -> logits ``(B, L, V)`` in the output dtype;
         with ``return_cache=True``, ``(logits, cache)`` where ``cache`` holds
         per layer the intermediates prefill harvests: ``cache["attn{i}"]``
         has ``prev`` (post-norm, pre-shift), ``k`` and ``v`` (post-rotary,
         ``(B, H, L, Dh)``); ``cache["ff{i}"]`` has ``prev`` and, in the gMLP
-        layers, ``sgu: {gate}`` (the normed gate)."""
+        layers, ``sgu: {gate}`` (the normed gate).  ``adapters`` (a LoRA
+        bank, ``workloads/lora.py``) with ``tenant (B,)`` adds each row's
+        tenant's delta at every adapter site."""
+        cache: dict[str, dict] | None = {} if return_cache else None
+        x = self._trunk(tokens, cache, adapters, tenant)
+        logits = self.policy.cast_to_output(self.to_logits(self.norm_out(x)))
+        if return_cache:
+            return logits, cache
+        return logits
+
+    def final_hidden(self, tokens: torch.Tensor, adapters: dict | None = None,
+                     tenant: torch.Tensor | None = None) -> torch.Tensor:
+        """The final post-``norm_out`` hidden states ``(B, L, dim)`` in the
+        compute dtype: the embeddings path, with no logits head and no
+        per-layer caches."""
+        return self.norm_out(self._trunk(tokens, None, adapters, tenant))
+
+    def _trunk(self, tokens, cache, adapters, tenant) -> torch.Tensor:
+        """Embed and run every block; the residual stream before
+        ``norm_out``.  Fills ``cache`` when given."""
         cfg = self.config
+        if adapters is not None and tenant is None:
+            raise ValueError("adapters require a (B,) tenant-id tensor")
         if tokens.dim() != 2:
             raise ValueError(
                 f"ProGen takes batched (B, L) int tokens, got shape "
@@ -359,15 +424,14 @@ class ProGen(nn.Module):
         x = F.embedding(tokens, self.embed.weight.to(cd))
         # rotary tables computed once, shared by all layers; f32, cast inside
         sin, cos = fixed_pos_embedding(n, cfg.dim_head, device=tokens.device)
-        cache: dict[str, dict] | None = {} if return_cache else None
         for i in range(cfg.depth):
             attn_c = ff_c = None
             if cache is not None:
                 attn_c = cache[f"attn{i}"] = {}
                 ff_c = cache[f"ff{i}"] = {}
-            x = x + self.attn[i](x, sin, cos, attn_c)
-            x = x + self.ff[i](x, ff_c)
-        logits = self.policy.cast_to_output(self.to_logits(self.norm_out(x)))
-        if return_cache:
-            return logits, cache
-        return logits
+            attn_ad = ff_ad = None
+            if adapters is not None:
+                attn_ad, ff_ad = adapters.get(f"attn{i}"), adapters.get(f"ff{i}")
+            x = x + self.attn[i](x, sin, cos, attn_c, attn_ad, tenant)
+            x = x + self.ff[i](x, ff_c, ff_ad, tenant)
+        return x

@@ -22,6 +22,20 @@ completion is printed as one JSON line:
 for itself, as the JAX CLI's does), ``--disagg`` prefills in a separate
 worker stage behind a bounded handoff queue; both give the same tokens.
 
+Two serving workloads ride ``--serve`` (one at a time):
+
+* ``--embed``: each prime is embedded (``engine.submit_embed``: one
+  forward, the final hidden state mean-pooled) and printed as
+  ``[embed, dim=..., norm=...]`` with its first 8 values;
+* ``--infill TEMPLATE``: constrained infilling.  Plain characters are
+  frozen scaffold positions, ``?`` a free position, ``[ILV]`` a position
+  restricted to that set; ``--num_samples`` samples decode under the
+  scaffold's logit mask (``workloads/infill.py``), so a constrained
+  position emits only an allowed residue.
+
+    python -m progen_tpu_torch.sample --serve --embed --prime "MKV|MALW"
+    python -m progen_tpu_torch.sample --serve --infill "MKV??[ILV]G?" --num_samples 2
+
 ``--checkpoint_path`` samples from the newest checkpoint of a store the
 port's ``Trainer`` wrote: the model config comes from its metadata and the
 parameters from its params file (the optimizer's is not read):
@@ -39,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from progen_tpu_torch.checkpoint.store import CheckpointStore
@@ -51,6 +66,7 @@ from progen_tpu_torch.decode.rng import KeySeq
 from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.configs import CONFIGS
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
+from progen_tpu_torch.workloads.infill import ScaffoldSpec
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -87,26 +103,80 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--disagg", action="store_true",
                    help="engine: prefill in its own stage, handles merged "
                         "into slots through a bounded queue")
-    return p.parse_args(argv)
+    p.add_argument("--embed", action="store_true",
+                   help="with --serve: embed each prime (mean-pooled final "
+                        "hidden state) instead of decoding")
+    p.add_argument("--infill", default=None, metavar="TEMPLATE",
+                   help="with --serve: constrained infilling; plain characters "
+                        "are frozen, '?' is free, '[ILV]' allows that set")
+    args = p.parse_args(argv)
+    if (args.embed or args.infill is not None) and not args.serve:
+        p.error("--embed/--infill are serving workloads; add --serve")
+    if args.embed and args.infill is not None:
+        p.error("pick ONE of --embed / --infill")
+    return args
+
+
+def scaffold_from_template(template: str, vocab: int) -> ScaffoldSpec:
+    """The ``--infill`` template as a scaffold: BOS (token 0) primes it,
+    a plain character is frozen, ``?`` free, ``[...]`` an allowed set."""
+    segs, i = [], 0
+    while i < len(template):
+        if template[i] == "[":
+            j = template.index("]", i)
+            segs.append(template[i + 1:j])
+            i = j + 1
+        else:
+            segs.append(template[i])
+            i += 1
+
+    def entry(seg):
+        if seg == "?":
+            return None
+        if len(seg) > 1:  # a bracket set
+            return tuple(encode_tokens(c)[0] for c in seg)
+        return encode_tokens(seg)[0]
+
+    return ScaffoldSpec(template=[0] + [entry(s) for s in segs], vocab=vocab)
 
 
 def serve(args, model, seq_len: int) -> list[dict]:
-    """Answer the primes through the engine; prints and returns one record
-    per completion, in uid order."""
+    """Answer the primes (or the ``--infill`` samples, or the ``--embed``
+    requests) through the engine; prints and returns one record per
+    completion, in uid order."""
     primes = (args.prime.split("|") if "|" in args.prime
               else [args.prime] * args.num_samples)
     engine = ServingEngine(model, num_slots=args.slots, chunk_size=args.chunk,
                            max_len=seq_len, paged=args.paged,
                            page_size=args.page_size, quantize=args.quantize,
                            spec=args.spec, spec_k=args.spec_k, disagg=args.disagg)
-    for i, prime in enumerate(primes):
+    knobs = dict(top_k=args.top_k or None, temperature=args.temperature)
+    if args.infill is not None:
+        scaffold = scaffold_from_template(args.infill, model.config.num_tokens)
+        primes = [args.infill] * args.num_samples
+        for i in range(args.num_samples):
+            engine.submit(Request(uid=i, seed=args.seed + i, workload="infill",
+                                  **knobs, **scaffold.request_kwargs()))
+    for i, prime in enumerate(primes if args.infill is None else ()):
         tokens = [0] + encode_tokens(prime)  # BOS-prefixed, like add_bos
-        engine.submit(Request(
-            uid=i, tokens=tokens, max_new_tokens=seq_len - len(tokens),
-            top_k=args.top_k or None, temperature=args.temperature,
-            seed=args.seed + i))
+        request = Request(uid=i, tokens=tokens, max_new_tokens=seq_len - len(tokens),
+                          seed=args.seed + i, **knobs,
+                          workload="embed" if args.embed else "generate")
+        if args.embed:
+            engine.submit_embed(request)
+        else:
+            engine.submit(request)
     records = []
     for comp in sorted(engine.run_until_idle(), key=lambda c: c.uid):
+        if comp.embedding is not None:
+            v = comp.embedding
+            records.append({"uid": comp.uid, "prime": primes[comp.uid],
+                            "embedding": [float(x) for x in v],
+                            "status": comp.status, "latency_s": comp.latency})
+            print(f"\n {primes[comp.uid]} \n", "*" * 40,
+                  f"[embed, dim={v.shape[0]}, norm={float(np.linalg.norm(v)):.4f}, "
+                  f"{comp.latency:.2f}s]\n", np.round(v[:8], 4).tolist(), flush=True)
+            continue
         records.append({
             "uid": comp.uid, "prime": primes[comp.uid],
             "text": decode_tokens(comp.tokens),

@@ -19,6 +19,11 @@ round differently:
 
 Parameters, moments and the accumulator are updated IN PLACE (the state
 holds the same tensors from step to step), which saves a copy of each.
+
+The frozen-base LoRA optimizer (``train/lora.py``, optax's
+``multi_transform(adamw, set_to_zero)``) is this class with no clip
+(``max_grad_norm=None``) and ``frozen`` naming the base: a frozen
+parameter has no moments and no accumulator and is never written.
 """
 
 from __future__ import annotations
@@ -97,25 +102,36 @@ def global_norm(tensors: Params) -> torch.Tensor:
 
 class Optimizer:
     """``init(params) -> OptState`` and ``update(grads, state, params) ->
-    OptState``, which writes the new parameters into ``params``."""
+    OptState``, which writes the new parameters into ``params``.
+
+    ``max_grad_norm=None`` turns the clip off; ``frozen(name)`` marks
+    parameters the optimizer never touches (their gradients are ignored,
+    as optax's ``set_to_zero`` discards them)."""
 
     def __init__(self, learning_rate: float | Callable[[int], float] = 2e-4,
-                 weight_decay: float = 1e-3, max_grad_norm: float = 0.5,
+                 weight_decay: float = 1e-3, max_grad_norm: float | None = 0.5,
                  grad_accum_every: int = 1, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, frozen: Callable[[str], bool] | None = None):
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.grad_accum_every = max(1, int(grad_accum_every))
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.frozen = frozen or (lambda name: False)
+
+    def trainable(self, params: Params) -> Params:
+        """The entries of ``params`` the optimizer updates."""
+        return {k: p for k, p in params.items() if not self.frozen(k)}
 
     def init(self, params: Params) -> OptState:
+        params = self.trainable(params)
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
         acc = zeros() if self.grad_accum_every > 1 else None
         return OptState(count=0, mu=zeros(), nu=zeros(), acc_grads=acc)
 
     def update(self, grads: Params, state: OptState, params: Params) -> OptState:
         k = self.grad_accum_every
+        grads = {name: grads[name] for name in self.trainable(grads)}
         if k == 1:
             self._apply(grads, state, params)
             return dataclasses.replace(state, count=state.count + 1)
@@ -133,18 +149,22 @@ class Optimizer:
 
     @torch.no_grad()
     def _apply(self, grads: Params, state: OptState, params: Params) -> None:
-        """One clip + AdamW step from ``grads`` at Adam count ``state.count``."""
+        """One clip + AdamW step from ``grads`` at Adam count ``state.count``
+        (over the trainable parameters, the names of ``grads``)."""
         b1, b2 = self.b1, self.b2
-        norm = global_norm(grads)
-        keep = norm < self.max_grad_norm
+        clip = self.max_grad_norm is not None
+        if clip:
+            norm = global_norm(grads)
+            keep = norm < self.max_grad_norm
         count = state.count + 1
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
         step_size = -lr_at(self.learning_rate, state.count)
-        decay = decay_mask(params)
-        for name, p in params.items():
-            g = grads[name]
-            g = torch.where(keep, g, (g / norm) * self.max_grad_norm)
+        decay = decay_mask(grads)
+        for name, g in grads.items():
+            p = params[name]
+            if clip:
+                g = torch.where(keep, g, (g / norm) * self.max_grad_norm)
             mu, nu = state.mu[name], state.nu[name]
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)

@@ -46,6 +46,7 @@ from progen_tpu_torch.decode.incremental import (
 )
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 from progen_tpu_torch.resilience import RetryError, faults
+from progen_tpu_torch.workloads import random_lora_bank
 
 torch.set_num_threads(1)
 
@@ -377,7 +378,7 @@ def test_a_fatal_prefill_fault_sheds_exactly_its_batch(model):
 
 
 def test_modes_that_are_not_ported_are_refused_by_name(model):
-    for name in ("remote_prefill", "lora_bank", "mesh", "watchdog", "paged_impl"):
+    for name in ("remote_prefill", "mesh", "watchdog", "paged_impl"):
         with pytest.raises(NotImplementedError, match=name):
             ServingEngine(model, **ENGINE, **{name: True})
     with pytest.raises(NotImplementedError, match="remote_prefill"):
@@ -386,15 +387,20 @@ def test_modes_that_are_not_ported_are_refused_by_name(model):
         eng = ServingEngine(model, **ENGINE, **{name: True})
         assert getattr(eng, name) and eng.status()[name]
         assert name not in engine_module._NOT_PORTED
+    eng = ServingEngine(model, **ENGINE,  # ported: accepted
+                        lora_bank=random_lora_bank(CFG, 2, 1, device="cpu"))
+    assert eng.lora and eng.status()["lora_tenants"] == 2
+    assert "lora_bank" not in engine_module._NOT_PORTED
     with pytest.raises(TypeError, match="slots"):
         ServingEngine(model, **ENGINE, slots=3)
     with pytest.raises(ValueError, match="paged=True"):
         ServingEngine(model, **ENGINE, quantize="weights+pages")
     with pytest.raises(ValueError, match="quantize"):
         ServingEngine(model, **ENGINE, quantize="int4")
-    for missing in ("snapshot", "restore", "submit_fork", "submit_embed",
-                    "reload_weights", "aot_warmup"):
+    for missing in ("snapshot", "restore", "reload_weights", "aot_warmup"):
         assert not hasattr(ServingEngine, missing)
+    for ported in ("submit_fork", "submit_embed", "run_embed_round"):
+        assert hasattr(ServingEngine, ported)
     assert sorted(engine_module._NOT_PORTED) == sorted(set(engine_module._NOT_PORTED))
 
 

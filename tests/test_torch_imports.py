@@ -51,7 +51,8 @@ def test_scan_sees_the_whole_port():
                 "resilience/faults.py", "resilience/retry.py", "observe/robustness.py",
                 "data/tfrecord.py", "data/prefetch.py", "data/fasta.py", "generate_data.py",
                 "checkpoint/store.py", "observe/meter.py", "observe/tracker.py",
-                "resilience/watchdog.py", "train/trainer.py"):
+                "resilience/watchdog.py", "train/trainer.py", "train/lora.py",
+                "workloads/__init__.py", "workloads/lora.py", "workloads/infill.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
