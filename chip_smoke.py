@@ -114,9 +114,33 @@ non-zero without its last line:
    through the kernels against the same step through the plain versions
    (every gradient), the loss at each of three steps, and the largest
    difference in any update;
-11. the ``kernels`` line, a short ``trainer_summary`` line; then the card's
-   ``nvidia-smi`` name and power limit and, last,
-   ``{"ok": true, "device": {...}}``.
+11. across ranks (``parallel``): (a) K1-fwd, K1-dq and K1-dkv with a random
+   nonzero halo (``pallas_local_attention_ext``'s entry) against the plain
+   version with the same halo, ``dk_halo``/``dv_halo`` included: bf16 on the
+   Hopper route at the training shape (B 8, H 8, L 1024, D 128, window 256)
+   and at ProGen-base's window, bf16 on the WMMA route (dim_head 32; a
+   window of 64) and f32 (WMMA) at the training shape, each run twice for
+   the same bits, held to its route and at K1's bars; at the training shape
+   in bf16 and in f32, timed with and without the halo, with their bounds,
+   the plain version and SDPA on the ``[halo ‖ own]`` layout; (b) the
+   split-sequence identity at full width: L = 1024 as two halves of 512
+   through the kernels, the left half's last window the right half's halo,
+   against the whole sequence (out concatenated; dq concatenated, dk/dv
+   with the right half's halo gradients added to the left half's last
+   window); (c) the Trainer over ``train_data_synth/`` at ProGen-small,
+   batch 8, 4 steps: without a mesh in f32 and in bf16 compute, then on a
+   mesh of one rank (NCCL, ``-1,1,1,1``) in f32 under ``dp`` and under
+   ``fsdp`` (K1 on the WMMA route) and in bf16 compute under ``fsdp`` (K1
+   on the Hopper route): each meshed run's losses against the unmeshed
+   run's of its precision (1e-4 relative in f32, 1e-2 in bf16), every
+   step's launches (12/12/12 of K1 through the halo entry, 4/2/2 of K2)
+   and their routes, step time, tokens/s and peak memory beside the card's
+   name and power limit.  The card is one H100 and NCCL refuses two ranks
+   on one GPU, so (b) is the on-card witness of what ``sp`` does across
+   ranks; the CPU tests run the ranks;
+12. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
+   ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
+   limit and, last, ``{"ok": true, "device": {...}}``.
 
 Every earlier phase runs at the depth and the step count it always had;
 the whole takes seven to ten minutes on an H100 (by the host's pace), the
@@ -145,9 +169,11 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from progen_tpu_torch import kernels
+from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.prefetch import DevicePrefetcher
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
@@ -557,10 +583,13 @@ def close_scaled(got: torch.Tensor, want: torch.Tensor, dtype) -> dict:
     return result
 
 
-def real_visible(n: int, wsz: int) -> int:
+def real_visible(n: int, wsz: int, halo: bool = False) -> int:
     """Visible (query, key) pairs per (b, h), the phantom window's left out:
     the backward kernels' work (phantom keys are zeros: nothing to dq, and
-    their dk/dv are dropped)."""
+    their dk/dv are dropped).  With a halo window 0's previous window is
+    real keys: every row sees wsz + i % wsz + 1 of them."""
+    if halo:
+        return sum(wsz + i % wsz + 1 for i in range(n))
     return sum(min(wsz + i % wsz + 1, i + 1) for i in range(n))
 
 
@@ -756,9 +785,9 @@ def sdpa_backward_ms(q, k, v, do, wsz) -> float:
 
 def plain_versions():
     """Patch each kernel wrapper to its plain version (the reference run)."""
-    def attention(q, k, v, window_size, scale=None):
+    def attention(q, k, v, window_size, scale=None, k_halo=None, v_halo=None):
         return local_attention(q, k, v, window_size=window_size, scale=scale,
-                               return_lse=True)
+                               return_lse=True, k_halo=k_halo, v_halo=v_halo)
     return (mock.patch.object(cuda_attention, "local_attention_fwd", attention),
             mock.patch.object(cuda_sgu, "spatial_gate_fwd", gated_mix))
 
@@ -774,6 +803,9 @@ COUNTERS = {
     "local_attention_fwd": (cuda_attention, "launches"),
     "local_attention_bwd_dq": (cuda_attention, "dq_launches"),
     "local_attention_bwd_dkv": (cuda_attention, "dkv_launches"),
+    "local_attention_fwd_halo": (cuda_attention, "halo_launches"),
+    "local_attention_bwd_dq_halo": (cuda_attention, "halo_dq_launches"),
+    "local_attention_bwd_dkv_halo": (cuda_attention, "halo_dkv_launches"),
     "sgu_fwd": (cuda_sgu, "launches"),
     "sgu_bwd_dgate": (cuda_sgu, "dgate_launches"),
     "sgu_bwd_dw": (cuda_sgu, "dw_launches"),
@@ -2285,6 +2317,329 @@ def engine_workloads_alone() -> dict:
     return out
 
 
+# -- phase 11: across ranks ----------------------------------------------------
+
+# K1 with a halo (b, h, n, d, wsz), dtype, timed: bf16 on the Hopper route
+# at the training shape and ProGen-base's window, on the WMMA route at
+# dim_head 32 and a window of 64; f32 (WMMA) at the training shape, the
+# meshed f32 Trainer's own.  The two at the training shape are timed: each
+# is the route of one of the meshed Trainer's runs.
+HALO_CASES = (
+    ((TRAIN_BATCH, 8, 1024, 128, 256), torch.bfloat16, True),
+    ((1, 12, 2048, 128, 512), torch.bfloat16, False),
+    ((2, 3, 1024, 32, 512), torch.bfloat16, False),
+    ((2, 8, 1024, 128, 64), torch.bfloat16, False),
+    ((TRAIN_BATCH, 8, 1024, 128, 256), torch.float32, True),
+)
+PARALLEL_STEPS = 4        # the meshed Trainer's steps in each run
+PARALLEL_TOL_LOSS = {False: 1e-4,  # f32: the f32 train step's bar (TOL_TRAIN_LOSS)
+                     True: 1e-2}   # bf16 compute: a mean over 8 x 1024 bf16 logits
+HALO_COUNTERS = ("local_attention_fwd_halo", "local_attention_bwd_dq_halo",
+                 "local_attention_bwd_dkv_halo")
+# the halo rows' names by the dtype (and so the route) they time
+HALO_ROW_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def halo_inputs(gen, b, h, n, d, wsz, dtype):
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    kh, vh = (torch.randn(b, h, wsz, d, device="cuda", generator=gen).to(dtype)
+              for _ in range(2))
+    return q, k, v, do, kh, vh
+
+
+def halo_kernels(q, k, v, do, kh, vh, wsz):
+    """K1-fwd, K1-dq and K1-dkv: out, lse, dq, dk, dv and, with a halo,
+    dk_halo, dv_halo."""
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
+    dd = (do.float() * out.float()).sum(-1)
+    dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None, kh, vh)
+    return (out, lse, dq,
+            *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz, None, kh, vh))
+
+
+def halo_case(gen, shape, dtype) -> tuple:
+    """The three kernels with a random halo against the plain version with
+    the same halo, on the route the shape must take, twice for the same
+    bits; returns the inputs and the errors."""
+    b, h, n, d, wsz = shape
+    route = ("wgmma" if dtype == torch.bfloat16 and d in (64, 128) and wsz % 128 == 0
+             else "wmma")
+    inputs = halo_inputs(gen, *shape, dtype)
+    q, k, v, do, kh, vh = inputs
+    before = read_routes()
+    got = halo_kernels(*inputs, wsz)
+    torch.cuda.synchronize()
+    after = read_routes()
+    routed = {name: {r: after[name][r] - before[name][r] for r in after[name]}
+              for name in ("local_attention_fwd", "local_attention_bwd")}
+    want_out, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
+                                         k_halo=kh, v_halo=vh)
+    want = local_attention_bwd(q, k, v, got[0], got[1], do, wsz, k_halo=kh, v_halo=vh)
+    res = {"out": compare(got[0], want_out, TOL_ATTN_OUT[dtype]),
+           "lse": compare(got[1], want_lse, TOL[torch.float32]),
+           **{name: close_scaled(g, w, dtype) for name, g, w in
+              zip(("dq", "dk", "dv", "dk_halo", "dv_halo"), got[2:], want)}}
+    same = all(torch.equal(a, g) for a, g in zip(halo_kernels(*inputs, wsz), got))
+    want_routes = {name: {**dict.fromkeys(routed[name], 0), route: n_}
+                   for name, n_ in (("local_attention_fwd", 1), ("local_attention_bwd", 2))}
+    fields = {"shape": list(shape), "dtype": str(dtype), "route": route,
+              "launches_by_route": routed, **res, "second_run_same_bits": same}
+    emit("kernel_check", kernel="local_attention_halo", **fields)
+    require(all(r["ok"] for r in res.values()) and same and routed == want_routes,
+            f"K1 with a halo disagrees with its plain version: {fields}")
+    return inputs, {name: r["max_abs_err"] for name, r in res.items()}
+
+
+def split_sequence_identity(gen) -> dict:
+    """ProGen-small's training shape, L = 1024 as two halves of 512 through
+    the kernels, the right half haloed by the left half's last window,
+    against the whole sequence at K1's bars."""
+    b, h, n, d, wsz = TRAIN_BATCH, 8, SMALL.seq_len, SMALL.dim_head, SMALL.window_size
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    half = n // 2
+    whole = halo_kernels(q, k, v, do, None, None, wsz)
+    left = halo_kernels(*(t[:, :, :half].contiguous() for t in (q, k, v, do)), None, None, wsz)
+    kh, vh = (t[:, :, half - wsz:half].contiguous() for t in (k, v))
+    right = halo_kernels(*(t[:, :, half:].contiguous() for t in (q, k, v, do)), kh, vh, wsz)
+    torch.cuda.synchronize()
+    dk_l, dv_l = left[3].clone(), left[4].clone()
+    dk_l[:, :, -wsz:] += right[5]
+    dv_l[:, :, -wsz:] += right[6]
+    dtype = torch.bfloat16
+    res = {"out": compare(torch.cat([left[0], right[0]], 2), whole[0], TOL_ATTN_OUT[dtype]),
+           "lse": compare(torch.cat([left[1], right[1]], 2), whole[1], TOL[torch.float32]),
+           "dq": close_scaled(torch.cat([left[2], right[2]], 2), whole[2], dtype),
+           "dk": close_scaled(torch.cat([dk_l, right[3]], 2), whole[3], dtype),
+           "dv": close_scaled(torch.cat([dv_l, right[4]], 2), whole[4], dtype)}
+    res["out_bits_equal"] = torch.equal(torch.cat([left[0], right[0]], 2), whole[0])
+    res["dq_bits_equal"] = torch.equal(torch.cat([left[2], right[2]], 2), whole[2])
+    require(all(r["ok"] for name, r in res.items() if isinstance(r, dict)),
+            f"the split sequence disagrees with the whole: {res}")
+    return {"shape": [b, h, n, d], "window": wsz, "halves": 2, **res}
+
+
+def halo_rows(inputs, errs: dict, all_errs: dict) -> list[dict]:
+    """CUDA-event times of the three kernels with a halo at one timed case's
+    shape and dtype, beside the same kernels without it (the phantom
+    window: what the halo costs a launch), their bounds, the plain version
+    and SDPA on the ``[halo ‖ own]`` layout (forward; backward, dq, dk and
+    dv in one call)."""
+    q, k, v, do, kh, vh = inputs
+    b, h, n, d = q.shape
+    wsz = kh.shape[2]
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
+    dd = (do.float() * out.float()).sum(-1)
+    w = n // wsz
+    qw = q.reshape(b, h * w, wsz, d)
+    kw = concat_previous_window(k.reshape(b, h, w, wsz, d), kh).reshape(b, h * w, 2 * wsz, d)
+    vw = concat_previous_window(v.reshape(b, h, w, wsz, d), vh).reshape(b, h * w, 2 * wsz, d)
+    mask = window_mask(wsz, q.device)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qw, kw, vw, attn_mask=mask,
+                                                              scale=d ** -0.5))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qw, kw, vw))
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=d ** -0.5)
+    dow = do.reshape(b, h * w, wsz, d)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dow, retain_graph=True))
+    plain_fwd = time_ms(lambda: local_attention(q, k, v, window_size=wsz, return_lse=True,
+                                                k_halo=kh, v_halo=vh))
+    plain_bwd = time_ms(lambda: local_attention_bwd(q, k, v, out, lse, do, wsz,
+                                                    k_halo=kh, v_halo=vh), iters=5)
+    esize = q.element_size()
+    pairs = real_visible(n, wsz, halo=True) * b * h
+    vec = b * h * n * d * esize
+    halo = b * h * wsz * d * esize  # one halo tensor
+    rowvec = 4.0 * b * h * n
+    suffix = HALO_ROW_SUFFIX[q.dtype]
+    fwd = cuda_attention.local_attention_fwd
+    dq = cuda_attention.local_attention_bwd_dq
+    dkv = cuda_attention.local_attention_bwd_dkv
+    rows = []
+    for name, fn, flops, nbytes, grads, plain_ms, library_ms in (
+            ("local_attention_fwd_halo",
+             lambda *halo: fwd(q, k, v, wsz, None, *halo),
+             4.0 * d * pairs, 4 * vec + 2 * halo + rowvec, ("out", "lse"), plain_fwd, sdpa_fwd),
+            ("local_attention_bwd_dq_halo",
+             lambda *halo: dq(q, k, v, do, lse, dd, wsz, None, *halo),
+             6.0 * d * pairs, 5 * vec + 2 * halo + 2 * rowvec, ("dq",), plain_bwd, sdpa_bwd),
+            ("local_attention_bwd_dkv_halo",
+             lambda *halo: dkv(q, k, v, do, lse, dd, wsz, None, *halo),
+             8.0 * d * pairs, 6 * vec + 4 * halo + 2 * rowvec,
+             ("dk", "dv", "dk_halo", "dv_halo"), plain_bwd, sdpa_bwd)):
+        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+        source = "local_attention_fwd.cu" if name.startswith("local_attention_fwd") \
+            else "local_attention_bwd.cu"
+        rows.append({
+            "name": name + suffix, "route": "cuda",
+            "k1_route": cuda_attention.fwd_route(q.dtype, d, wsz),
+            "source": f"progen_tpu_torch/kernels/csrc/{source}",
+            "replaces": "progen_tpu/ops/pallas_attention.py:258",
+            "launches": None, "max_abs_err": max(errs[g] for g in grads),
+            "ms": time_ms(lambda: fn(kh, vh)), "ms_without_halo": time_ms(lambda: fn(None, None)),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "timed_shape": [b, h, n, d], "window": wsz, "timed_dtype": str(q.dtype),
+            "bytes": nbytes, "flops": flops,
+            "max_abs_err_all_checks": max(e for g in grads for e in all_errs[q.dtype][g]),
+        })
+        if name != "local_attention_fwd_halo":
+            rows[-1]["plain_and_library_compute"] = "dq, dk and dv in one call"
+        emit("kernel_time", **rows[-1])
+    return rows
+
+
+def meshed_trainer(c, root: Path, label: str, mixed_precision: bool = False,
+                   **overrides) -> dict:
+    """The Trainer for PARALLEL_STEPS steps (f32, or bf16 compute with
+    ``mixed_precision``), no hooks but the final save and validation; its
+    losses, per-step launches, step time, tokens/s and peak memory.  The
+    Trainer's SIGTERM handler (a bound method) is dropped after the run, so
+    that nothing of it outlives the run."""
+    never = 10 * PARALLEL_STEPS
+    sigterm = signal.getsignal(signal.SIGTERM)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    trainer, out, per_step, rows = run_trainer(
+        c, root / f"ck_{label}", root / f"runs_{label}", PARALLEL_STEPS, "cuda",
+        mixed_precision=mixed_precision, prefetch_depth=0, checkpoint_every=never,
+        validate_every=never, sample_every=never, **overrides)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [r["step_ms"] for r in rows if "step_ms" in r]
+    median = float(np.median(step_ms[1:]))
+    saved = trainer.store.all_steps()
+    signal.signal(signal.SIGTERM, sigterm)
+    del trainer, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / f"ck_{label}", ignore_errors=True)
+    return {"losses": [r["loss"] for r in rows if "loss" in r], "step_ms": step_ms,
+            "step_ms_median": median, "tokens_per_s": TRAIN_BATCH * c.seq_len / (median / 1e3),
+            "peak_bytes": peak, "start_bytes": start, "peak_above_start_bytes": peak - start,
+            "per_step_launches": per_step, "saved_steps": saved,
+            "dtype": "bf16 compute, f32 params" if mixed_precision else "f32"}
+
+
+# the meshed runs: label, strategy, bf16 compute; the f32 pair is held to
+# the f32 unmeshed run, the bf16 one to the bf16 unmeshed run
+MESHED_RUNS = (("dp", "dp", False), ("fsdp", "fsdp", False), ("fsdp_bf16", "fsdp", True))
+
+
+def parallel_phase(smi: str) -> tuple[list[dict], dict]:
+    """Phase 11: (a) the halo kernels against the plain version, (b) the
+    split-sequence identity, (c) the Trainer on a mesh of one rank against
+    the Trainer without one, in f32 (``dp``, ``fsdp``: K1 on the WMMA
+    route) and in bf16 compute (``fsdp``: K1 on the Hopper route).  The
+    launch counts are set to 0 just before each precision's meshed runs and
+    read just after; each timed halo row takes the launches of its route's
+    runs.  Returns the six halo rows and the phase's result."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    names = ("out", "lse", "dq", "dk", "dv", "dk_halo", "dv_halo")
+    errs = {dtype: {name: [] for name in names} for dtype in HALO_ROW_SUFFIX}
+    timed_cases = []
+    for shape, dtype, timed in HALO_CASES:
+        inputs, case_errs = halo_case(gen, shape, dtype)
+        for name, e in case_errs.items():
+            errs[dtype][name].append(e)
+        if timed:
+            timed_cases.append((inputs, case_errs))
+        del inputs
+    rows = [row for inputs, case_errs in timed_cases
+            for row in halo_rows(inputs, case_errs, errs)]
+    del timed_cases
+    split = split_sequence_identity(gen)
+    emit("split_sequence", **split)
+
+    c = SMALL
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-parallel-"))
+    sigterm = signal.getsignal(signal.SIGTERM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    unmeshed, meshed, by_precision = {}, {}, {}
+    try:
+        for bf16 in (False, True):
+            unmeshed[bf16] = meshed_trainer(c, root, f"unmeshed_{int(bf16)}", bf16)
+        initialize_distributed("cuda")  # a world of one, NCCL
+        for bf16 in (False, True):
+            reset_counts()
+            for label, strategy, run_bf16 in MESHED_RUNS:
+                if run_bf16 == bf16:
+                    meshed[label] = meshed_trainer(c, root, label, bf16,
+                                                   mesh=MeshConfig(-1, 1, 1, 1),
+                                                   strategies=(strategy,))
+            by_precision[bf16] = {"launches": read_counts(), "routes": read_routes()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
+                "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
+                "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth,
+                **dict.fromkeys(HALO_COUNTERS, c.depth)}
+    want = {name: per_step.get(name, 0) for name in COUNTERS}
+    launches = {name: sum(p["launches"][name] for p in by_precision.values())
+                for name in COUNTERS}
+    result = {"split_sequence": split, "launches": launches, "nvidia_smi": smi,
+              "batch": TRAIN_BATCH, "seq_len": c.seq_len, "steps": PARALLEL_STEPS,
+              "unmeshed": unmeshed[False], "unmeshed_bf16": unmeshed[True],
+              "launches_by_precision": {("bf16" if bf16 else "f32"): p["launches"]
+                                        for bf16, p in by_precision.items()}}
+    for label, _, bf16 in MESHED_RUNS:
+        run, base = meshed[label], unmeshed[bf16]
+        rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"])]
+        run["loss_rel_err"] = max(rel)
+        run["loss_rel_bar"] = PARALLEL_TOL_LOSS[bf16]
+        result[label] = run
+        require(len(run["losses"]) == PARALLEL_STEPS == len(base["losses"])
+                and run["loss_rel_err"] <= PARALLEL_TOL_LOSS[bf16],
+                f"the meshed Trainer ({label}) lost {run['losses']}, the unmeshed one "
+                f"{base['losses']}")
+        bad = [i for i, got in enumerate(run["per_step_launches"]) if got != want]
+        require(not bad, f"meshed ({label}) steps {bad} launched other than {want}")
+        require(run["saved_steps"] == [PARALLEL_STEPS],
+                f"meshed ({label}) saved {run['saved_steps']}")
+    for bf16, p in by_precision.items():
+        what = f"the meshed Trainer ({'bf16' if bf16 else 'f32'})"
+        require(all(p["launches"][name] > 0 for name in HALO_COUNTERS),
+                f"{what} did not launch the halo kernels: {p['launches']}")
+        require_forward_routes(p["routes"], p["launches"], bf16, what)
+        bwd = p["launches"]["local_attention_bwd_dq"] + p["launches"]["local_attention_bwd_dkv"]
+        route = "wgmma" if bf16 else "wmma"
+        want_bwd = {**dict.fromkeys(p["routes"]["local_attention_bwd"], 0), route: bwd}
+        require(p["routes"]["local_attention_bwd"] == want_bwd,
+                f"{what}: K1's backward by route {p['routes']['local_attention_bwd']}, "
+                f"want {want_bwd}")
+    for row in rows:
+        bf16 = not row["name"].endswith(HALO_ROW_SUFFIX[torch.float32])
+        counter = row["name"].removesuffix(HALO_ROW_SUFFIX[torch.float32])
+        row["launches"] = by_precision[bf16]["launches"][counter]
+        row["launches_by_path"] = {"parallel_bf16" if bf16 else "parallel_f32": row["launches"]}
+    return rows, result
+
+
+def parallel_summary(result: dict) -> dict:
+    """The phase's result without the per-step launch lists (the first step's
+    stands for every step, all having been checked equal)."""
+    return {**{k: ({key: val for key, val in v.items() if key != "per_step_launches"}
+                   if isinstance(v, dict) and "per_step_launches" in v else v)
+               for k, v in result.items()},
+            "launches_per_step": {label: result[label]["per_step_launches"][0]
+                                  for label, _, _ in MESHED_RUNS}}
+
+
+def parallel_alone() -> dict:
+    """Phase 11 on its own, with the build:
+    ``python3 -c "import chip_smoke as cs; cs.parallel_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    rows, result = parallel_phase(smi_name_power())
+    emit("parallel", **parallel_summary(result))
+    print(json.dumps({"kernels": rows}), flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU",
@@ -2359,12 +2714,16 @@ def main() -> int:
          **{k: v for k, v in trainer.items() if k != "per_step_launches"},
          launches_per_step=trainer["per_step_launches"][0],
          steps_with_these_launches=len(trainer["per_step_launches"]))
+    gc.collect()
+    halo_kernel_rows, parallel = parallel_phase(smi)
+    emit("parallel", config="small", **parallel_summary(parallel))
 
     for row in rows:
         by_path = {"serve": served["launches"][row["name"]],
                    "train": trained["launches"][row["name"]],
                    "trainer": trainer["launches"][row["name"]],
                    "lora_train": lora["launches"][row["name"]],
+                   "parallel": parallel["launches"][row["name"]],
                    **{phase: counts[row["name"]]
                       for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())
@@ -2374,12 +2733,19 @@ def main() -> int:
                 route: sum(counts["paged_gate_mix_by_route"][route]
                            for counts in engine_launches.values() if counts[row["name"]])
                 for route in cuda_paged_gate_mix.route_launches}
+    rows += halo_kernel_rows
     print(json.dumps({"kernels": rows}), flush=True)
     emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (
         "step_ms_median", "tokens_per_s", "mfu", "host_batch_ms", "data_wait_ms_median",
         "feed", "resume_open", "checkpoint_bytes", "restore_state_s", "restore_params_s",
         "peak_bytes", "resumed_losses_equal", "resumed_params_equal",
-        "restored_logits_equal")})
+        "restored_logits_equal")},
+         parallel={label: {k: parallel[label][k] for k in (
+             "step_ms_median", "tokens_per_s", "peak_above_start_bytes", "loss_rel_err")}
+             for label, _, _ in MESHED_RUNS},
+         **{label: {k: parallel[label][k] for k in ("step_ms_median", "tokens_per_s",
+                                                    "peak_above_start_bytes")}
+            for label in ("unmeshed", "unmeshed_bf16")})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -287,9 +287,9 @@ SOURCES = {
 # source -> its entry points and their tensor-pointer counts (and, for the
 # paged gate mix, its int counts)
 ENTRIES = {
-    "local_attention_bwd": (("local_attention_bwd_dq_wgmma", 7),
-                            ("local_attention_bwd_dkv_wgmma", 8)),
-    "local_attention_fwd": (("local_attention_fwd_wgmma", 5),),
+    "local_attention_bwd": (("local_attention_bwd_dq_wgmma", 9),
+                            ("local_attention_bwd_dkv_wgmma", 12)),
+    "local_attention_fwd": (("local_attention_fwd_wgmma", 7),),
     "sgu_fwd": (("sgu_fwd_wgmma", 5),),
     "paged_gate_mix": (("paged_gate_mix_bulk", 8, 8), ("paged_gate_mix_q8_bulk", 10, 9),
                        ("paged_gate_mix", 6, 7), ("paged_gate_mix_q8", 8, 8)),
@@ -427,14 +427,16 @@ def time_bwd(lib, gen) -> list[dict]:
     out, lse = cuda_attention.local_attention_fwd(q, k, v, WINDOW)
     dd = (do.float() * out.float()).sum(-1)
     grads = [torch.empty_like(q) for _ in range(3)]
-    args = [t.data_ptr() for t in (q, k, v, do, lse, dd)]
+    # no halo: the phantom window
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+            *(t.data_ptr() for t in (do, lse, dd))]
     rest = (8 * HEADS, SEQ, DIM_HEAD, WINDOW, DIM_HEAD ** -0.5, 1,
             torch.cuda.current_stream().cuda_stream)
     return [{"shape": list(q.shape), "window": WINDOW,
              "dq_ms": time_ms(lambda: check(lib.local_attention_bwd_dq_wgmma(
                  *args, grads[0].data_ptr(), *rest))),
              "dkv_ms": time_ms(lambda: check(lib.local_attention_bwd_dkv_wgmma(
-                 *args, grads[1].data_ptr(), grads[2].data_ptr(), *rest)))}]
+                 *args, grads[1].data_ptr(), grads[2].data_ptr(), None, None, *rest)))}]
 
 
 def time_fwd(lib, gen) -> list[dict]:
@@ -443,7 +445,8 @@ def time_fwd(lib, gen) -> list[dict]:
         q, k, v, _ = attention_inputs(gen, batch)
         out = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
+                lse.data_ptr(),
                 batch * HEADS, SEQ, DIM_HEAD, WINDOW, DIM_HEAD ** -0.5, 1,
                 torch.cuda.current_stream().cuda_stream)
         check(lib.local_attention_fwd_wgmma(*args))

@@ -33,9 +33,12 @@ struct Tile {
 };
 
 // Copy rows [r0, r0 + ROWS) of a (rows, D) matrix into shared memory with
-// 16-byte vectors; rows outside [0, rows) are zeros.
+// 16-byte vectors; rows outside [0, rows) are zeros, except that rows
+// [-halo_rows, 0) come from `halo` (halo_rows, D) when it is not null (a
+// context-parallel halo in place of the phantom window's zeros).
 template <typename T, int D, int ROWS>
-__device__ void load_rows(T* dst, const T* src, int r0, int rows) {
+__device__ void load_rows(T* dst, const T* src, int r0, int rows,
+                          const T* halo = nullptr, int halo_rows = 0) {
   constexpr int LDT = D + Pad<T>::v;
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
@@ -46,6 +49,8 @@ __device__ void load_rows(T* dst, const T* src, int r0, int rows) {
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (g >= 0 && g < rows) {
       val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(g) * D + c);
+    } else if (halo != nullptr && g < 0 && g >= -halo_rows) {
+      val = *reinterpret_cast<const uint4*>(halo + static_cast<size_t>(g + halo_rows) * D + c);
     }
     *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
   }

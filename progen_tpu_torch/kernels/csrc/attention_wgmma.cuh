@@ -32,15 +32,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 // rows [b0, b0 + 128) of one window (wsz % 128 == 0) and streams 64-row
 // tiles t0 of the other side: K1-fwd and K1-dq stream the keys from the
 // previous window's first (none for window 0: the phantom's keys are
-// zeros) to b0 + 64; K1-dkv streams the queries from b0 to the end of the
-// next window (once for each of its two passes).  A warpgroup's rows
+// zeros; with a halo, window 0's previous window is the halo, rows
+// t0 in [-wsz, 0)) to b0 + 64; K1-dkv streams the queries from b0 to the
+// end of the next window (once for each of its two passes), and a block of
+// halo keys (b0 < 0) the queries of window 0.  A warpgroup's rows
 // r0 = b0 + 64 g meet a tile as full, diagonal (the causal mask, applied in
 // registers) or skipped (no visible pair).
 enum Kind { FULL = 0, DIAGONAL = 1, SKIPPED = 2 };
 
-__device__ __forceinline__ int dq_first(int b0, int wsz) { return max(0, (b0 / wsz - 1) * wsz); }
-__device__ __forceinline__ int dq_tiles(int b0, int wsz) {
-  return (b0 + TROWS - dq_first(b0, wsz)) / TROWS + 1;
+__device__ __forceinline__ int dq_first(int b0, int wsz, bool halo = false) {
+  return halo ? (b0 / wsz - 1) * wsz : max(0, (b0 / wsz - 1) * wsz);
+}
+__device__ __forceinline__ int dq_tiles(int b0, int wsz, bool halo = false) {
+  return (b0 + TROWS - dq_first(b0, wsz, halo)) / TROWS + 1;
 }
 __device__ __forceinline__ int dq_kind(int r0, int t0) {
   return t0 < r0 ? FULL : (t0 == r0 ? DIAGONAL : SKIPPED);

@@ -16,6 +16,15 @@
 // dropped (jnp.pad's VJP drops them), so the kernels write (B*H, L, D)
 // gradients of the real keys only.
 //
+// With a halo (k_halo, v_halo: (B*H, wsz, D), the left neighbour's last
+// window under context parallelism, pallas_local_attention_ext's first
+// window of k_ext/v_ext) window 0's previous window is the halo: K1-dq reads
+// it as it reads any key window, and K1-dkv runs wsz / 128 (wgmma) or
+// ceil(wsz / 64) (wmma) more blocks per sequence, for the halo's keys, whose
+// users are the queries of window 0 (all of them, no mask); they write
+// dk_halo and dv_halo (B*H, wsz, D), which the caller sends back to the
+// neighbour.  A null halo takes the same instructions as before it existed.
+//
 // What bounds them on this card: at ProGen-small (B = 8, H = 8, L = 1024,
 // D = 128, wsz = 256) each reads q, k, v, dout (and writes one or two
 // gradients) once, 84.4 and 101.2 MB in bf16, for 16.1 and 21.5 GFLOP of
@@ -123,7 +132,8 @@ struct DqLayout {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 local_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const T* __restrict__ v, const T* __restrict__ k_halo,
+                          const T* __restrict__ v_halo, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dd,
                           T* __restrict__ dq, int seq, int wsz, float scale) {
   using L = BwdTile<T, D>;
@@ -143,6 +153,9 @@ local_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BM;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * seq;
   const size_t base = row0 * D;
+  const size_t hbase = static_cast<size_t>(blockIdx.y) * wsz * D;
+  const T* kh = k_halo != nullptr ? k_halo + hbase : nullptr;
+  const T* vh = v_halo != nullptr ? v_halo + hbase : nullptr;
 
   load_rows<T, D, BM>(qs, q + base, q0, seq);
   load_rows<T, D, BM>(dos, dout + base, q0, seq);
@@ -163,8 +176,8 @@ local_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_last = min(q0 + BM, seq) - 1 + wsz;
   for (int kt = k_first; kt <= k_last; kt += L::BN) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_rows<T, D, L::BN>(ks, k + base, kt - wsz, seq);
-    load_rows<T, D, L::BN>(vs, v + base, kt - wsz, seq);
+    load_rows<T, D, L::BN>(ks, k + base, kt - wsz, seq, kh, wsz);
+    load_rows<T, D, L::BN>(vs, v + base, kt - wsz, seq, vh, wsz);
     __syncthreads();
 
     warp_dot_t<D, L::BN>(qs, ks, ss, warp);
@@ -211,10 +224,11 @@ struct DkvLayout {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 local_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const T* __restrict__ v, const T* __restrict__ k_halo,
+                           const T* __restrict__ v_halo, const T* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ dd,
-                           T* __restrict__ dk, T* __restrict__ dv, int seq, int wsz,
-                           float scale) {
+                           T* __restrict__ dk, T* __restrict__ dv, T* __restrict__ dk_halo,
+                           T* __restrict__ dv_halo, int seq, int wsz, float scale) {
   using L = BwdTile<T, D>;
   using S = DkvLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -233,27 +247,38 @@ local_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * BM;
+  // blocks past the sequence's own own the halo's keys, rows [-wsz, 0)
+  const int own_blocks = (seq + BM - 1) / BM;
+  const bool hb = static_cast<int>(blockIdx.x) >= own_blocks;
+  const int k0 = hb ? (static_cast<int>(blockIdx.x) - own_blocks) * BM - wsz
+                    : static_cast<int>(blockIdx.x) * BM;
   const size_t row0 = static_cast<size_t>(blockIdx.y) * seq;
   const size_t base = row0 * D;
+  const size_t hbase = static_cast<size_t>(blockIdx.y) * wsz * D;
 
-  load_rows<T, D, BM>(ks, k + base, k0, seq);
-  load_rows<T, D, BM>(vs, v + base, k0, seq);
+  if (hb) {
+    load_rows<T, D, BM>(ks, k_halo + hbase, k0 + wsz, wsz);
+    load_rows<T, D, BM>(vs, v_halo + hbase, k0 + wsz, wsz);
+  } else {
+    load_rows<T, D, BM>(ks, k + base, k0, seq);
+    load_rows<T, D, BM>(vs, v + base, k0, seq);
+  }
   for (int idx = threadIdx.x; idx < BM * L::LDO; idx += THREADS) {
     dks[idx] = 0.0f;
     dvs[idx] = 0.0f;
   }
 
   // this lane's key row j: its users are the queries i >= j of its own
-  // window (causal) and every query of the next window
+  // window (causal) and every query of the next window; a halo key's are
+  // the queries of window 0
   const int r = warp * 16 + (lane >> 1);
   const int h = lane & 1;
   const int j = k0 + r;
-  const bool live = j < seq;
-  const int i_end_j = (j / wsz + 2) * wsz;
+  const bool live = hb ? j < 0 : j < seq;
+  const int i_end_j = hb ? wsz : (j / wsz + 2) * wsz;
 
-  const int i_end = min(((min(k0 + BM, seq) - 1) / wsz + 2) * wsz, seq);
-  for (int it = k0; it < i_end; it += L::BN) {
+  const int i_end = hb ? wsz : min(((min(k0 + BM, seq) - 1) / wsz + 2) * wsz, seq);
+  for (int it = hb ? 0 : k0; it < i_end; it += L::BN) {
     __syncthreads();  // every warp is done with the previous q/dout tile
     load_rows<T, D, L::BN>(qs, q + base, it, seq);
     load_rows<T, D, L::BN>(dos, dout + base, it, seq);
@@ -285,8 +310,13 @@ local_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     warp_accumulate<D, L::BN>(dss, qs, dks, warp);
   }
   __syncwarp();
-  store_rows<T, D>(dk + base, dks, k0, seq, scale, warp);
-  store_rows<T, D>(dv + base, dvs, k0, seq, 1.0f, warp);
+  if (hb) {
+    store_rows<T, D>(dk_halo + hbase, dks, k0 + wsz, wsz, scale, warp);
+    store_rows<T, D>(dv_halo + hbase, dvs, k0 + wsz, wsz, 1.0f, warp);
+  } else {
+    store_rows<T, D>(dk + base, dks, k0, seq, scale, warp);
+    store_rows<T, D>(dv + base, dvs, k0, seq, 1.0f, warp);
+  }
 }
 
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
@@ -365,7 +395,8 @@ __device__ __forceinline__ void store_fragment(bf16* __restrict__ dst,
 }  // namespace wg
 
 // K1-dq, bf16: block (b0 / 128, b*h) owns query rows [b0, b0 + 128).  The
-// producer loads the block's q and dout once and streams k and v tiles; a
+// producer loads the block's q and dout once and streams k and v tiles
+// (window 0's previous-window tiles from the halo's maps when `halo` is set); a
 // consumer warpgroup forms s = q.k^T and dp = dout.v^T for its 64 rows by
 // wgmma from shared memory, p and ds in registers, and dq += ds.k with ds
 // as the register A operand; dq stays in registers for the whole walk.
@@ -375,8 +406,11 @@ local_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
                                 const __grid_constant__ CUtensorMap do_map,
+                                const __grid_constant__ CUtensorMap kh_map,
+                                const __grid_constant__ CUtensorMap vh_map,
                                 const float* __restrict__ lse, const float* __restrict__ dd,
-                                bf16* __restrict__ dq, int seq, int wsz, float scale) {
+                                bf16* __restrict__ dq, int seq, int wsz, float scale,
+                                int halo) {
   using namespace wg;
   using S = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -387,8 +421,9 @@ local_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int b0 = blockIdx.x * ROWS;
   const int row0 = blockIdx.y * seq;
-  const int first = dq_first(b0, wsz);
-  const int tiles = dq_tiles(b0, wsz);
+  const int hrow0 = blockIdx.y * wsz;  // this sequence's halo rows
+  const int first = dq_first(b0, wsz, halo);
+  const int tiles = dq_tiles(b0, wsz, halo);
   const int group = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   init_barriers(full, empty, resident);
@@ -402,12 +437,17 @@ local_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         load_tile<D>(res + S::TILE, &do_map, resident, row0 + b0 + TROWS * g);
       }
       for (int it = 0; it < tiles; ++it) {
-        const int s = it % STAGES;
+        const int s = it % STAGES, t0 = first + TROWS * it;
         mbar_wait_or_trap(&empty[s], ((it / STAGES) & 1) ^ 1);
         unsigned char* buf = smem + S::RING + s * S::STAGE;
         mbar_expect_tx(&full[s], S::STAGE);
-        load_tile<D>(buf, &k_map, &full[s], row0 + first + TROWS * it);
-        load_tile<D>(buf + S::TILE, &v_map, &full[s], row0 + first + TROWS * it);
+        if (t0 < 0) {  // window 0's previous window: the halo
+          load_tile<D>(buf, &kh_map, &full[s], hrow0 + wsz + t0);
+          load_tile<D>(buf + S::TILE, &vh_map, &full[s], hrow0 + wsz + t0);
+        } else {
+          load_tile<D>(buf, &k_map, &full[s], row0 + t0);
+          load_tile<D>(buf + S::TILE, &v_map, &full[s], row0 + t0);
+        }
       }
     }
     return;
@@ -484,15 +524,21 @@ local_attention_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // warpgroup first forms s^T = k.q^T for its 64 keys and p^T in registers,
 // and dv += p^T.dout with p^T as the register A operand; it writes dv, then
 // forms s^T and dp^T = v.dout^T, ds^T in registers, and dk += ds^T.q.
+// With `halo` set, the blocks past the sequence's own (b0 < 0) own the
+// halo's key rows, loaded from its maps, stream the queries of window 0
+// (every pair visible) and write dk_halo and dv_halo.
 template <int D>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
                                  const __grid_constant__ CUtensorMap do_map,
+                                 const __grid_constant__ CUtensorMap kh_map,
+                                 const __grid_constant__ CUtensorMap vh_map,
                                  const float* __restrict__ lse, const float* __restrict__ dd,
-                                 bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
-                                 int wsz, float scale) {
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 bf16* __restrict__ dk_halo, bf16* __restrict__ dv_halo,
+                                 int seq, int wsz, float scale) {
   using namespace wg;
   using S = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -501,9 +547,15 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* empty = full + STAGES;
   uint64_t* resident = empty + STAGES;
 
-  const int b0 = blockIdx.x * ROWS;
+  // blocks past the sequence's own own the halo's keys, rows [-wsz, 0)
+  const int own_blocks = seq / ROWS;
+  const bool hb = static_cast<int>(blockIdx.x) >= own_blocks;
+  const int b0 = hb ? (static_cast<int>(blockIdx.x) - own_blocks) * ROWS - wsz
+                    : static_cast<int>(blockIdx.x) * ROWS;
   const int row0 = blockIdx.y * seq;
-  const int tiles = dkv_tiles(b0, wsz, seq);
+  const int hrow0 = blockIdx.y * wsz;
+  const int q_first = hb ? 0 : b0;  // the first query tile of the walk
+  const int tiles = hb ? wsz / TROWS : dkv_tiles(b0, wsz, seq);
   const int group = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   init_barriers(full, empty, resident);
@@ -513,11 +565,14 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_expect_tx(resident, 4 * S::TILE);
       for (int g = 0; g < 2; ++g) {
         unsigned char* res = smem + S::RES + g * 2 * S::TILE;
-        load_tile<D>(res, &k_map, resident, row0 + b0 + TROWS * g);
-        load_tile<D>(res + S::TILE, &v_map, resident, row0 + b0 + TROWS * g);
+        const CUtensorMap* km = hb ? &kh_map : &k_map;
+        const CUtensorMap* vm = hb ? &vh_map : &v_map;
+        const int at = (hb ? hrow0 + wsz : row0) + b0 + TROWS * g;
+        load_tile<D>(res, km, resident, at);
+        load_tile<D>(res + S::TILE, vm, resident, at);
       }
       for (int j = 0; j < 2 * tiles; ++j) {  // both passes' tiles, in order
-        const int s = j % STAGES, row = row0 + b0 + TROWS * (j % tiles);
+        const int s = j % STAGES, row = row0 + q_first + TROWS * (j % tiles);
         mbar_wait_or_trap(&empty[s], ((j / STAGES) & 1) ^ 1);
         unsigned char* buf = smem + S::RING + s * S::STAGE;
         float* rowv = reinterpret_cast<float*>(smem + S::ROWVALS + s * ROWV);
@@ -537,7 +592,9 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float scale2 = scale * LOG2E;
   unsigned char* ks = smem + S::RES + group * 2 * S::TILE;
   const unsigned char* vs = ks + S::TILE;
-  const size_t row = static_cast<size_t>(row0) + r0;
+  const size_t row = static_cast<size_t>(hb ? hrow0 + wsz : row0) + r0;
+  bf16* dk_out = hb ? dk_halo : dk;
+  bf16* dv_out = hb ? dv_halo : dv;
   mbar_wait_or_trap(resident, 0);
 
   // fragment element 4 i + 2 h + x: key row lr + 8 h, query column
@@ -549,7 +606,7 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
     for (int it = 0; it < tiles; ++it) {
       const int s = it % STAGES;
-      const int kind = dkv_kind(r0, b0 + TROWS * it);
+      const int kind = dkv_kind(r0, q_first + TROWS * it);
       mbar_wait_or_trap(&full[s], (it / STAGES) & 1);
       const unsigned char* qs = smem + S::RING + s * S::STAGE;
       const float* rowv = reinterpret_cast<const float*>(smem + S::ROWVALS + s * ROWV);
@@ -589,7 +646,7 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       if (tid == 0) mbar_arrive(&empty[s]);  // a skipping warpgroup arrives too
     }
-    store_fragment<D>(dv, acc, 1.0f, row);
+    store_fragment<D>(dv_out, acc, 1.0f, row);
   }
   {  // pass 2: dk
     float acc[D / 2];
@@ -597,7 +654,7 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
     for (int it = 0; it < tiles; ++it) {
       const int j = tiles + it, s = j % STAGES;
-      const int kind = dkv_kind(r0, b0 + TROWS * it);
+      const int kind = dkv_kind(r0, q_first + TROWS * it);
       mbar_wait_or_trap(&full[s], (j / STAGES) & 1);
       const unsigned char* qs = smem + S::RING + s * S::STAGE;
       const float* rowv = reinterpret_cast<const float*>(smem + S::ROWVALS + s * ROWV);
@@ -642,16 +699,26 @@ local_attention_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       if (tid == 0) mbar_arrive(&empty[s]);
     }
-    store_tile<D>(dk, acc, scale, row, ks, 1 + group);
+    store_tile<D>(dk_out, acc, scale, row, ks, 1 + group);
   }
 }
 
 // -- launch -------------------------------------------------------------------
 
+// The halo of one launch: k and v (bh, wsz, D) in, dk and dv (K1-dkv) out;
+// all null for the phantom window.
+struct Halo {
+  const void* k;
+  const void* v;
+  void* dk;
+  void* dv;
+  bool on() const { return k != nullptr; }
+};
+
 template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* dd, void* dq, int bh, int seq,
-                      int wsz, float scale, cudaStream_t stream) {
+cudaError_t launch_dq(const void* q, const void* k, const void* v, Halo halo,
+                      const void* dout, const void* lse, const void* dd, void* dq, int bh,
+                      int seq, int wsz, float scale, cudaStream_t stream) {
   constexpr size_t bytes = DqLayout<T, D>::bytes;
   auto kernel = local_attention_dq_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -660,52 +727,56 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   dim3 grid((seq + BM - 1) / BM, bh);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(halo.k), static_cast<const T*>(halo.v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<T*>(dq), seq, wsz, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* dd, void* dk, void* dv, int bh,
-                       int seq, int wsz, float scale, cudaStream_t stream) {
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, Halo halo,
+                       const void* dout, const void* lse, const void* dd, void* dk, void* dv,
+                       int bh, int seq, int wsz, float scale, cudaStream_t stream) {
   constexpr size_t bytes = DkvLayout<T, D>::bytes;
   auto kernel = local_attention_dkv_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  dim3 grid((seq + BM - 1) / BM, bh);
+  dim3 grid((seq + BM - 1) / BM + (halo.on() ? (wsz + BM - 1) / BM : 0), bh);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(halo.k), static_cast<const T*>(halo.v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<T*>(dk), static_cast<T*>(dv), seq,
-      wsz, scale);
+      static_cast<const float*>(dd), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<T*>(halo.dk), static_cast<T*>(halo.dv), seq, wsz, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* dd, void* dq, int bh, int seq,
-                        int dim_head, int wsz, float scale, cudaStream_t s) {
+cudaError_t dispatch_dq(const void* q, const void* k, const void* v, Halo halo,
+                        const void* dout, const void* lse, const void* dd, void* dq, int bh,
+                        int seq, int dim_head, int wsz, float scale, cudaStream_t s) {
   switch (dim_head) {
-    case 32: return launch_dq<T, 32>(q, k, v, dout, lse, dd, dq, bh, seq, wsz, scale, s);
-    case 64: return launch_dq<T, 64>(q, k, v, dout, lse, dd, dq, bh, seq, wsz, scale, s);
-    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, dd, dq, bh, seq, wsz, scale, s);
+    case 32: return launch_dq<T, 32>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s);
+    case 64: return launch_dq<T, 64>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s);
+    case 128:
+      return launch_dq<T, 128>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* dd, void* dk, void* dv, int bh,
-                         int seq, int dim_head, int wsz, float scale, cudaStream_t s) {
+cudaError_t dispatch_dkv(const void* q, const void* k, const void* v, Halo halo,
+                         const void* dout, const void* lse, const void* dd, void* dk,
+                         void* dv, int bh, int seq, int dim_head, int wsz, float scale,
+                         cudaStream_t s) {
   switch (dim_head) {
     case 32:
-      return launch_dkv<T, 32>(q, k, v, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+      return launch_dkv<T, 32>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
     case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+      return launch_dkv<T, 64>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
     case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+      return launch_dkv<T, 128>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -714,46 +785,64 @@ bool bad_shape(int bh, int seq, int wsz) {
   return bh <= 0 || bh > 65535 || seq <= 0 || wsz <= 0 || seq % wsz != 0;
 }
 
-bool maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
-          const void* dout, int bh, int seq, int d) {
+// k and v of a halo come together; K1-dkv's halo also needs dk and dv.
+bool bad_halo(Halo halo, bool dkv) {
+  if ((halo.k == nullptr) != (halo.v == nullptr)) return true;
+  return dkv && halo.on() && (halo.dk == nullptr || halo.dv == nullptr);
+}
+
+// The maps of q, k, v and dout (bh * seq rows), then of the halo's k and v
+// (bh * wsz rows; k's and v's own when there is no halo, never read).
+bool maps(CUtensorMap (&m)[6], const void* q, const void* k, const void* v, Halo halo,
+          const void* dout, int bh, int seq, int wsz, int d) {
   using progen::attention::wgmma::tile_map;
   const long long rows = static_cast<long long>(bh) * seq;
-  return tile_map(&m[0], q, rows, d) && tile_map(&m[1], k, rows, d) &&
-         tile_map(&m[2], v, rows, d) && tile_map(&m[3], dout, rows, d);
+  if (!(tile_map(&m[0], q, rows, d) && tile_map(&m[1], k, rows, d) &&
+        tile_map(&m[2], v, rows, d) && tile_map(&m[3], dout, rows, d))) {
+    return false;
+  }
+  m[4] = m[1];
+  m[5] = m[2];
+  const long long halo_rows = static_cast<long long>(bh) * wsz;
+  return !halo.on() ||
+         (tile_map(&m[4], halo.k, halo_rows, d) && tile_map(&m[5], halo.v, halo_rows, d));
 }
 
 template <int D>
-cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* dd, void* dq, int bh, int seq,
-                            int wsz, float scale, cudaStream_t stream) {
-  CUtensorMap m[4];
-  if (!maps(m, q, k, v, dout, bh, seq, D)) return cudaErrorInvalidValue;
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, Halo halo,
+                            const void* dout, const void* lse, const void* dd, void* dq,
+                            int bh, int seq, int wsz, float scale, cudaStream_t stream) {
+  CUtensorMap m[6];
+  if (!maps(m, q, k, v, halo, dout, bh, seq, wsz, D)) return cudaErrorInvalidValue;
   constexpr size_t bytes = wg::Layout<D>::SMEM;
   auto kernel = local_attention_dq_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<dim3(seq / wg::ROWS, bh), wg::THREADS, bytes, stream>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<bf16*>(dq), seq, wsz, scale);
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<bf16*>(dq), seq, wsz, scale,
+      halo.on() ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* dd, void* dk, void* dv, int bh,
-                             int seq, int wsz, float scale, cudaStream_t stream) {
-  CUtensorMap m[4];
-  if (!maps(m, q, k, v, dout, bh, seq, D)) return cudaErrorInvalidValue;
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, Halo halo,
+                             const void* dout, const void* lse, const void* dd, void* dk,
+                             void* dv, int bh, int seq, int wsz, float scale,
+                             cudaStream_t stream) {
+  CUtensorMap m[6];
+  if (!maps(m, q, k, v, halo, dout, bh, seq, wsz, D)) return cudaErrorInvalidValue;
   constexpr size_t bytes = wg::Layout<D>::SMEM;
   auto kernel = local_attention_dkv_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(seq / wg::ROWS, bh), wg::THREADS, bytes, stream>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
-      wsz, scale);
+  const int blocks = (seq + (halo.on() ? wsz : 0)) / wg::ROWS;
+  kernel<<<dim3(blocks, bh), wg::THREADS, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<bf16*>(halo.dk), static_cast<bf16*>(halo.dv), seq, wsz, scale);
   return cudaGetLastError();
 }
 
@@ -768,38 +857,51 @@ bool bad_wgmma_shape(int bh, int seq, int dim_head, int wsz, int dtype) {
 }  // namespace
 
 // q, k, v, dout, dq: (bh, seq, dim_head) contiguous, dtype 0 = float32,
-// 1 = bfloat16; lse (the forward's) and dd = rowsum(dout * out): (bh, seq)
-// float32.  Returns the CUDA error code of the launch (0 = ok).
+// 1 = bfloat16; k_halo, v_halo: (bh, wsz, dim_head), both null (the phantom
+// window) or neither; lse (the forward's) and dd = rowsum(dout * out):
+// (bh, seq) float32.  Returns the CUDA error code of the launch (0 = ok).
 extern "C" int local_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* k_halo, const void* v_halo,
                                       const void* dout, const void* lse, const void* dd,
                                       void* dq, int bh, int seq, int dim_head, int wsz,
                                       float scale, int dtype, void* stream) {
-  if (bad_shape(bh, seq, wsz)) return static_cast<int>(cudaErrorInvalidValue);
+  const Halo halo{k_halo, v_halo, nullptr, nullptr};
+  if (bad_shape(bh, seq, wsz) || bad_halo(halo, false)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_dq<float>(q, k, v, dout, lse, dd, dq, bh, seq, dim_head, wsz, scale, s);
+    err = dispatch_dq<float>(q, k, v, halo, dout, lse, dd, dq, bh, seq, dim_head, wsz,
+                             scale, s);
   } else if (dtype == 1) {
-    err = dispatch_dq<bf16>(q, k, v, dout, lse, dd, dq, bh, seq, dim_head, wsz, scale, s);
+    err = dispatch_dq<bf16>(q, k, v, halo, dout, lse, dd, dq, bh, seq, dim_head, wsz,
+                            scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// As above, writing dk and dv, (bh, seq, dim_head) each, of the real keys.
+// As above, writing dk and dv, (bh, seq, dim_head) each, of the real keys,
+// and with a halo dk_halo and dv_halo, (bh, wsz, dim_head) each, of its keys.
 extern "C" int local_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* k_halo, const void* v_halo,
                                        const void* dout, const void* lse, const void* dd,
-                                       void* dk, void* dv, int bh, int seq, int dim_head,
-                                       int wsz, float scale, int dtype, void* stream) {
-  if (bad_shape(bh, seq, wsz)) return static_cast<int>(cudaErrorInvalidValue);
+                                       void* dk, void* dv, void* dk_halo, void* dv_halo,
+                                       int bh, int seq, int dim_head, int wsz, float scale,
+                                       int dtype, void* stream) {
+  const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
+  if (bad_shape(bh, seq, wsz) || bad_halo(halo, true)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_dkv<float>(q, k, v, dout, lse, dd, dk, dv, bh, seq, dim_head, wsz,
+    err = dispatch_dkv<float>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, dim_head, wsz,
                               scale, s);
   } else if (dtype == 1) {
-    err = dispatch_dkv<bf16>(q, k, v, dout, lse, dd, dk, dv, bh, seq, dim_head, wsz,
+    err = dispatch_dkv<bf16>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, dim_head, wsz,
                              scale, s);
   } else {
     err = cudaErrorInvalidValue;
@@ -811,32 +913,37 @@ extern "C" int local_attention_bwd_dkv(const void* q, const void* k, const void*
 // wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
 // local_attention_bwd_dq.  Returns the CUDA error code of the launch.
 extern "C" int local_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                            const void* k_halo, const void* v_halo,
                                             const void* dout, const void* lse,
                                             const void* dd, void* dq, int bh, int seq,
                                             int dim_head, int wsz, float scale, int dtype,
                                             void* stream) {
-  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype)) {
+  const Halo halo{k_halo, v_halo, nullptr, nullptr};
+  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype) || bad_halo(halo, false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dim_head == 64
-      ? launch_dq_wgmma<64>(q, k, v, dout, lse, dd, dq, bh, seq, wsz, scale, s)
-      : launch_dq_wgmma<128>(q, k, v, dout, lse, dd, dq, bh, seq, wsz, scale, s);
+      ? launch_dq_wgmma<64>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s)
+      : launch_dq_wgmma<128>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }
 
 // The wgmma route of K1-dkv, as above.
 extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                             const void* k_halo, const void* v_halo,
                                              const void* dout, const void* lse,
-                                             const void* dd, void* dk, void* dv, int bh,
-                                             int seq, int dim_head, int wsz, float scale,
-                                             int dtype, void* stream) {
-  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype)) {
+                                             const void* dd, void* dk, void* dv,
+                                             void* dk_halo, void* dv_halo, int bh, int seq,
+                                             int dim_head, int wsz, float scale, int dtype,
+                                             void* stream) {
+  const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
+  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype) || bad_halo(halo, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dim_head == 64
-      ? launch_dkv_wgmma<64>(q, k, v, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
-      : launch_dkv_wgmma<128>(q, k, v, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+      ? launch_dkv_wgmma<64>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
+      : launch_dkv_wgmma<128>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }

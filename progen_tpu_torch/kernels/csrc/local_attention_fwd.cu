@@ -9,6 +9,12 @@
 // which accumulates in f32.  Writes out (B*H, L, D) in the input dtype and
 // the per-row logsumexp lse (B*H, L) in f32, which the backward reads.
 //
+// With a halo (k_halo, v_halo: (B*H, wsz, D), the left neighbour's last
+// window under context parallelism; pallas_local_attention_ext's k_ext/v_ext
+// first window) window 0's previous window is the halo instead of the
+// phantom: its wsz logits are real.  A null halo is the phantom, and takes
+// the same instructions as before the halo existed.
+//
 // What bounds it on this card: at ProGen-small (D = 128, wsz = 256) a row
 // does 4*D*(wsz + i%wsz + 1) flops, ~196k on average, over 4*D*2 bytes of
 // q/k/v/out in bf16: ~190 flops per byte, under the H100's ~295 flops/byte
@@ -45,7 +51,7 @@
 // rows); each warp owns 16 rows.  The block walks 64-key tiles over the
 // extended key range [window start of its first row - wsz, its last row];
 // a key tile row before position 0 is loaded as zeros (the phantom
-// window).  Keys above a row's diagonal are skipped rather than filled
+// window) or from the halo.  Keys above a row's diagonal are skipped rather than filled
 // with -1e10; the two are exact equals, since every row keeps at least wsz
 // visible logits and exp(-1e10 - max) is 0 in f32.  Scores go to shared
 // memory, the online softmax runs per row in f32 (two lanes per row), and
@@ -93,7 +99,8 @@ struct Layout : Tile<T, D, BN> {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
+                           const T* __restrict__ v, const T* __restrict__ k_halo,
+                           const T* __restrict__ v_halo, T* __restrict__ out,
                            float* __restrict__ lse, int seq, int wsz, float scale) {
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -109,12 +116,16 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * BM;
   const size_t base = static_cast<size_t>(blockIdx.y) * seq * D;
+  const size_t hbase = static_cast<size_t>(blockIdx.y) * wsz * D;
+  const T* kh = k_halo != nullptr ? k_halo + hbase : nullptr;
+  const T* vh = v_halo != nullptr ? v_halo + hbase : nullptr;
 
   load_rows<T, D, BM>(qs, q + base, q0, seq);
   for (int idx = threadIdx.x; idx < BM * L::LDO; idx += THREADS) os[idx] = 0.0f;
 
   // this lane's query row and its visible keys, in extended coordinates
-  // (extended key e is sequence position e - wsz; e < wsz is the phantom)
+  // (extended key e is sequence position e - wsz; e < wsz is the phantom,
+  // or the halo)
   const int r = warp * 16 + (lane >> 1);
   const int h = lane & 1;
   const int i = q0 + r;
@@ -128,8 +139,8 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_last = min(q0 + BM, seq) - 1 + wsz;
   for (int kt = k_first; kt <= k_last; kt += BN) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_rows<T, D, BN>(ks, k + base, kt - wsz, seq);
-    load_rows<T, D, BN>(vs, v + base, kt - wsz, seq);
+    load_rows<T, D, BN>(ks, k + base, kt - wsz, seq, kh, wsz);
+    load_rows<T, D, BN>(vs, v + base, kt - wsz, seq, vh, wsz);
     __syncthreads();
 
     warp_dot_t<D, BN>(qs, ks, ss, warp);
@@ -183,8 +194,9 @@ local_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
-                   int bh, int seq, int wsz, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* k_halo,
+                   const void* v_halo, void* out, void* lse, int bh, int seq, int wsz,
+                   float scale, cudaStream_t stream) {
   constexpr size_t bytes = Layout<T, D>::bytes;
   auto kernel = local_attention_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -193,18 +205,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
   dim3 grid((seq + BM - 1) / BM, bh);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), seq, wsz, scale);
+      static_cast<const T*>(k_halo), static_cast<const T*>(v_halo), static_cast<T*>(out),
+      static_cast<float*>(lse), seq, wsz, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, void* lse,
-                     int bh, int seq, int dim_head, int wsz, float scale,
-                     cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* kh,
+                     const void* vh, void* out, void* lse, int bh, int seq, int dim_head,
+                     int wsz, float scale, cudaStream_t stream) {
   switch (dim_head) {
-    case 32: return launch<T, 32>(q, k, v, out, lse, bh, seq, wsz, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, bh, seq, wsz, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, bh, seq, wsz, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, kh, vh, out, lse, bh, seq, wsz, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, kh, vh, out, lse, bh, seq, wsz, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, kh, vh, out, lse, bh, seq, wsz, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -254,7 +267,8 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 
 // K1-fwd, bf16: block blk owns query rows [b0, b0 + 128) of row block
 // blk / bh (fwg::block_row) of sequence blk % bh.  The producer loads the
-// block's q once and streams the k and v tiles of the walk; a consumer
+// block's q once and streams the k and v tiles of the walk (window 0's
+// previous-window tiles from the halo's maps when `halo` is set); a consumer
 // warpgroup forms s = q.k^T for its 64 rows by wgmma from shared memory, p
 // in registers by an online softmax, and o += p.v with p as the register A
 // operand; o stays in registers for the whole walk.
@@ -263,8 +277,10 @@ __global__ void __launch_bounds__(fwg::THREADS, 1)
 local_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap kh_map,
+                                 const __grid_constant__ CUtensorMap vh_map,
                                  bf16* __restrict__ out, float* __restrict__ lse, int bh,
-                                 int seq, int wsz, float scale) {
+                                 int seq, int wsz, float scale, int halo) {
   using namespace fwg;
   using S = fwg::Layout<D>;  // the wmma route's Layout is another
   extern __shared__ unsigned char smem_raw[];
@@ -275,8 +291,9 @@ local_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int b0 = block_row(blockIdx.x / bh, seq, wsz);
   const int row0 = (blockIdx.x % bh) * seq;
-  const int first = dq_first(b0, wsz);
-  const int tiles = dq_tiles(b0, wsz);
+  const int hrow0 = (blockIdx.x % bh) * wsz;  // this sequence's halo rows
+  const int first = dq_first(b0, wsz, halo);
+  const int tiles = dq_tiles(b0, wsz, halo);
   const int group = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   init_barriers(full, empty, resident);
@@ -288,12 +305,17 @@ local_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         load_tile<D>(smem + S::RES + g * S::TILE, &q_map, resident, row0 + b0 + TROWS * g);
       }
       for (int it = 0; it < tiles; ++it) {
-        const int s = it % STAGES;
+        const int s = it % STAGES, t0 = first + TROWS * it;
         mbar_wait_or_trap(&empty[s], ((it / STAGES) & 1) ^ 1);
         unsigned char* buf = smem + S::RING + s * S::STAGE;
         mbar_expect_tx(&full[s], S::STAGE);
-        load_tile<D>(buf, &k_map, &full[s], row0 + first + TROWS * it);
-        load_tile<D>(buf + S::TILE, &v_map, &full[s], row0 + first + TROWS * it);
+        if (t0 < 0) {  // window 0's previous window: the halo
+          load_tile<D>(buf, &kh_map, &full[s], hrow0 + wsz + t0);
+          load_tile<D>(buf + S::TILE, &vh_map, &full[s], hrow0 + wsz + t0);
+        } else {
+          load_tile<D>(buf, &k_map, &full[s], row0 + t0);
+          load_tile<D>(buf + S::TILE, &v_map, &full[s], row0 + t0);
+        }
       }
     }
     return;
@@ -303,7 +325,7 @@ local_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int lane = tid % 32;
   const int lr = 16 * (tid / 32) + lane / 4;  // this thread's rows: lr, lr + 8
   const float scale2 = scale * LOG2E;         // logits in log2 units
-  const bool phantom = b0 < wsz;              // window 0: wsz zero logits too
+  const bool phantom = b0 < wsz && !halo;     // window 0: wsz zero logits too
   unsigned char* qs = smem + S::RES + group * S::TILE;
   // the running max of each row (log2 units), and this thread's share of
   // each row's denominator at that max
@@ -416,13 +438,22 @@ local_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
-                         int bh, int seq, int wsz, float scale, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* k_halo,
+                         const void* v_halo, void* out, void* lse, int bh, int seq, int wsz,
+                         float scale, cudaStream_t stream) {
   using progen::attention::wgmma::tile_map;
   const long long rows = static_cast<long long>(bh) * seq;
-  CUtensorMap q_map, k_map, v_map;
+  const long long halo_rows = static_cast<long long>(bh) * wsz;
+  const int halo = k_halo != nullptr;
+  CUtensorMap q_map, k_map, v_map, kh_map, vh_map;
   if (!tile_map(&q_map, q, rows, D) || !tile_map(&k_map, k, rows, D) ||
       !tile_map(&v_map, v, rows, D)) {
+    return cudaErrorInvalidValue;
+  }
+  kh_map = k_map;  // never read without a halo
+  vh_map = v_map;
+  if (halo && (!tile_map(&kh_map, k_halo, halo_rows, D) ||
+               !tile_map(&vh_map, v_halo, halo_rows, D))) {
     return cudaErrorInvalidValue;
   }
   constexpr size_t bytes = fwg::Layout<D>::SMEM;
@@ -431,26 +462,31 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<(seq / fwg::ROWS) * bh, fwg::THREADS, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(out), static_cast<float*>(lse), bh, seq, wsz,
-      scale);
+      q_map, k_map, v_map, kh_map, vh_map, static_cast<bf16*>(out), static_cast<float*>(lse),
+      bh, seq, wsz, scale, halo);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out: (bh, seq, dim_head) contiguous, dtype 0 = float32, 1 = bfloat16;
-// lse: (bh, seq) float32.  Returns the CUDA error code of the launch (0 = ok).
+// k_halo, v_halo: (bh, wsz, dim_head), both null (the phantom window) or
+// neither; lse: (bh, seq) float32.  Returns the CUDA error code of the
+// launch (0 = ok).
 extern "C" int local_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, void* lse, int bh, int seq,
-                                   int dim_head, int wsz, float scale, int dtype,
-                                   void* stream) {
-  if (bh <= 0 || seq <= 0 || wsz <= 0 || seq % wsz != 0) return cudaErrorInvalidValue;
+                                   const void* k_halo, const void* v_halo, void* out,
+                                   void* lse, int bh, int seq, int dim_head, int wsz,
+                                   float scale, int dtype, void* stream) {
+  if (bh <= 0 || seq <= 0 || wsz <= 0 || seq % wsz != 0 ||
+      (k_halo == nullptr) != (v_halo == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(q, k, v, out, lse, bh, seq, dim_head, wsz, scale, s);
+    err = dispatch<float>(q, k, v, k_halo, v_halo, out, lse, bh, seq, dim_head, wsz, scale, s);
   } else if (dtype == 1) {
-    err = dispatch<bf16>(q, k, v, out, lse, bh, seq, dim_head, wsz, scale, s);
+    err = dispatch<bf16>(q, k, v, k_halo, v_halo, out, lse, bh, seq, dim_head, wsz, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -461,17 +497,18 @@ extern "C" int local_attention_fwd(const void* q, const void* k, const void* v,
 // wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
 // local_attention_fwd.  Returns the CUDA error code of the launch (0 = ok).
 extern "C" int local_attention_fwd_wgmma(const void* q, const void* k, const void* v,
-                                         void* out, void* lse, int bh, int seq,
-                                         int dim_head, int wsz, float scale, int dtype,
-                                         void* stream) {
+                                         const void* k_halo, const void* v_halo, void* out,
+                                         void* lse, int bh, int seq, int dim_head, int wsz,
+                                         float scale, int dtype, void* stream) {
   if (bh <= 0 || seq <= 0 || wsz <= 0 || seq % wsz != 0 || dtype != 1 ||
+      (k_halo == nullptr) != (v_halo == nullptr) ||
       wsz % fwg::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
       static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dim_head == 64
-      ? launch_wgmma<64>(q, k, v, out, lse, bh, seq, wsz, scale, s)
-      : launch_wgmma<128>(q, k, v, out, lse, bh, seq, wsz, scale, s);
+      ? launch_wgmma<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
+      : launch_wgmma<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }

@@ -23,6 +23,15 @@ Multi-tenant LoRA (``workloads/lora.py``): ``forward(..., adapters=bank,
 tenant=ids)`` adds each row's own tenant's low-rank delta at every adapter
 site (:func:`apply_lora`); tenant-0 rows keep the base model's bits.
 
+Under a mesh (``mesh=``, a ``DeviceMesh`` of ``core/mesh.py``; placed by
+``parallel/sharding.parallelize``) each rank runs its slice, routed as JAX
+routes it (``progen_tpu/models/progen.py:48-52,215-233,330-361``): the
+attention through ``parallel/context.sharded_local_attention`` (the K1 kernels
+with a halo, under every mesh), the SGU through ``cp_spatial_gate`` when the
+sequence is split over ``seq`` and ``sharded_spatial_gate`` otherwise.  A
+sequence split also needs what JAX's GSPMD gives for free: the token shift's
+row from the left neighbour and rotary at global positions.
+
 ``weights="int8"`` is the serving-only quantized mode (``ops/quant.py``):
 every dense site but ``to_logits`` holds an int8 weight and an f32 scale per
 output channel, and the SGU an int8 ``spatial_weights`` with an f32 scale per
@@ -33,19 +42,24 @@ ROW.  Quantized tensors are buffers, not parameters; they start as zeros
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from progen_tpu_torch.core.device import resolve_device
+from progen_tpu_torch.core.mesh import mesh_sizes
 from progen_tpu_torch.core.precision import Policy, make_policy
 from progen_tpu_torch.ops import cuda_attention, cuda_sgu
 from progen_tpu_torch.ops.quant import int8_matmul
 from progen_tpu_torch.ops.rotary import apply_rotary_pos_emb, fixed_pos_embedding
-from progen_tpu_torch.ops.shift import shift_tokens
+from progen_tpu_torch.ops.shift import shift_split, shift_tokens
+from progen_tpu_torch.parallel import context
+from progen_tpu_torch.parallel.sharding import load_full
 
 # kwargs the reference accepts but never reads, plus CLI-level kwargs
 _IGNORED_CONFIG_KEYS = ("clamp_gate", "attn_dim", "mixed_precision")
@@ -166,6 +180,23 @@ class QuantDense(nn.Module):
         return y if self.bias is None else y + self.bias.to(cd)
 
 
+def seq_split(mesh) -> tuple[int, int]:
+    """``(slices, this rank's slice)`` of the sequence over ``mesh``'s
+    ``seq`` dim; ``(1, 0)`` without a mesh."""
+    if mesh is None or mesh_sizes(mesh)["seq"] == 1:
+        return 1, 0
+    return mesh_sizes(mesh)["seq"], mesh.get_local_rank("seq")
+
+
+def _shift(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The token shift of a rank's slice: position 0 takes the left
+    neighbour's last row under a sequence split."""
+    if seq_split(mesh)[0] == 1:
+        return shift_tokens(x)
+    prev = context.left_halo(x[..., -1:, :shift_split(x.shape[-1])], mesh)
+    return shift_tokens(x, prev)
+
+
 def _dense(din: int, dout: int, *, bias: bool, policy: Policy, device=None,
            weights: str = "bf16") -> nn.Module:
     if weights == "int8":
@@ -195,14 +226,14 @@ class LocalAttention(nn.Module):
                              device=device, weights=weights)
 
     def forward(self, x, sin, cos, cache: dict | None = None,
-                adapters: dict | None = None, tenant=None):
+                adapters: dict | None = None, tenant=None, mesh=None):
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         x = self.norm(x)
         if cache is not None:
             cache["prev"] = x  # post-norm PRE-shift: the decode shift carry
         if self.shift:
-            x = shift_tokens(x)
+            x = _shift(x, mesh)
         qkv = self.to_qkv(x)
         if adapters is not None:  # the delta reads the SHIFTED input
             qkv = apply_lora(qkv, x, adapters["qkv"], tenant)
@@ -214,7 +245,11 @@ class LocalAttention(nn.Module):
         if cache is not None:
             cache["k"] = k  # post-rotary k/v: what the decode rings hold
             cache["v"] = v
-        out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
+        if mesh is not None:
+            out = context.sharded_local_attention(
+                q, k, v, mesh=mesh, window_size=self.window_size, scale=d ** -0.5)
+        else:
+            out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
         out = out.transpose(1, 2).reshape(b, n, h * d)
         y = self.to_out(out)
         if adapters is not None:
@@ -249,26 +284,50 @@ class SGU(nn.Module):
                                device=device, weights=weights)
 
     def forward(self, x, cache: dict | None = None, adapters: dict | None = None,
-                tenant=None):
+                tenant=None, mesh=None):
         """``adapters`` is this SGU's one site, ``{"a", "b"}``."""
         res, gate = x.chunk(2, dim=-1)
         gate = self.norm(gate)
         if cache is not None:
             cache["gate"] = gate  # normed gate rows: the decode gate cache
-        # an input shorter than seq_len (a prefill) uses the leading L rows
-        # and columns: exact, since row m only reads columns <= m < L
         n = gate.shape[-2]
         cd = self.compute_dtype
-        w = self.spatial_weights[:n, :n]
-        if self.spatial_weights_scale is not None:
-            w = w.float() * self.spatial_weights_scale[:n, None]
-        w = w.to(cd).contiguous()
-        b = self.spatial_biases[:n].to(cd).contiguous()
-        x = cuda_sgu.gated_mix(res.contiguous(), gate.contiguous(), w, b)
+        slices, me = seq_split(mesh)
+        if slices > 1:
+            x = res * context.cp_spatial_gate(gate, *self._rows(n, slices, me, cd),
+                                              mesh=mesh)
+        else:
+            # an input shorter than seq_len (a prefill) uses the leading L
+            # rows and columns: exact, since row m only reads columns <= m < L
+            w = self.spatial_weights[:n, :n]
+            if self.spatial_weights_scale is not None:
+                w = w.float() * self.spatial_weights_scale[:n, None]
+            w = w.to(cd).contiguous()
+            b = self.spatial_biases[:n].to(cd).contiguous()
+            mix = cuda_sgu.gated_mix if mesh is None else functools.partial(
+                context.sharded_spatial_gate, mesh=mesh)
+            x = mix(res.contiguous(), gate.contiguous(), w, b)
         y = self.proj_out(x)
         if adapters is not None:  # the delta reads the gated mix
             y = apply_lora(y, x, adapters, tenant)
         return y
+
+
+    def _rows(self, n: int, slices: int, me: int, cd: torch.dtype):
+        """This rank's rows of the spatial weights and biases in the compute
+        dtype, for a slice of ``n`` of the ``seq_len`` positions: a DTensor's
+        own shard (``parallelize`` row-shards them over ``seq``), else the
+        rows sliced from the whole."""
+        if n * slices != self.spatial_biases.shape[0] or self.spatial_weights_scale is not None:
+            raise ValueError(
+                f"context-parallel SGU requires the full seq_len "
+                f"{self.spatial_biases.shape[0]} in bf16/f32 weights, got {slices} "
+                f"slices of {n}")
+        rows = slice(me * n, (me + 1) * n)
+        w, b = self.spatial_weights, self.spatial_biases
+        w = w.to_local() if isinstance(w, DTensor) else w[rows]
+        b = b.to_local() if isinstance(b, DTensor) else b[rows]
+        return w.to(cd), b.to(cd)
 
 
 class FeedForward(nn.Module):
@@ -292,12 +351,12 @@ class FeedForward(nn.Module):
                                device=device, weights=weights)
 
     def forward(self, x, cache: dict | None = None, adapters: dict | None = None,
-                tenant=None):
+                tenant=None, mesh=None):
         x = self.norm(x)
         if cache is not None:
             cache["prev"] = x
         if self.shift:
-            x = shift_tokens(x)
+            x = _shift(x, mesh)
         x = self.proj_in(x)
         if self.glu:
             x, gate = x.chunk(2, dim=-1)
@@ -309,7 +368,7 @@ class FeedForward(nn.Module):
             if cache is not None:
                 sub = cache["sgu"] = {}
             x = self.sgu(x, sub, None if adapters is None else adapters["sgu"],
-                         tenant)
+                         tenant, mesh)
         return self.proj_out(x)
 
 
@@ -319,16 +378,19 @@ class ProGen(nn.Module):
     ``device=None`` means ``cuda`` (raising without a card); the tests pass
     ``device="cpu"``.  ``weights="int8"`` builds the quantized serving model
     (see the module docstring).  Parameters start as the JAX package's initialisers
-    draw them (:meth:`init_weights`), from ``seed``.
+    draw them (:meth:`init_weights`), from ``seed``.  ``mesh`` routes the
+    sequence mixing over a ``DeviceMesh`` (the module docstring); the token
+    input is then a rank's slice.
     """
 
     def __init__(self, config: ProGenConfig, policy: Policy | None = None,
-                 device=None, seed: int = 0, weights: str = "bf16"):
+                 device=None, seed: int = 0, weights: str = "bf16", mesh=None):
         super().__init__()
         c = config
         self.config = c
         self.policy = policy or make_policy()
         self.weights = weights
+        self.mesh = mesh
         dev = resolve_device(device)
         self.embed = nn.Embedding(c.num_tokens, c.dim, device=dev,
                                   dtype=self.policy.param_dtype)
@@ -354,7 +416,8 @@ class ProGen(nn.Module):
         lecun-normal (truncated at 2 std) dense kernels, zero dense biases,
         ``N(0, 1/dim)`` embedding, ``U(+-1e-3/n)`` spatial weights, ones for
         spatial biases and norm scales.  Drawn on the CPU from ``seed``, so
-        every device gets the same weights."""
+        every device gets the same weights, and a sharded parameter its
+        part of them."""
         gen = torch.Generator().manual_seed(seed)
         for module in self.modules():
             if isinstance(module, Dense):
@@ -362,7 +425,7 @@ class ProGen(nn.Module):
                 w = torch.empty(module.weight.shape)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=gen)
-                module.weight.copy_(w)
+                load_full(module.weight, w)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, SGU):
@@ -372,13 +435,13 @@ class ProGen(nn.Module):
                 bound = 1e-3 / n
                 w = torch.empty(module.spatial_weights.shape)
                 w.uniform_(-bound, bound, generator=gen)
-                module.spatial_weights.copy_(w)
+                load_full(module.spatial_weights, w)
                 module.spatial_biases.fill_(1.0)
             elif isinstance(module, LayerNorm):
                 module.scale.fill_(1.0)
         w = torch.empty(self.embed.weight.shape)
         w.normal_(0.0, math.sqrt(1.0 / self.config.dim), generator=gen)
-        self.embed.weight.copy_(w)
+        load_full(self.embed.weight, w)
 
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
                 adapters: dict | None = None, tenant: torch.Tensor | None = None):
@@ -415,15 +478,18 @@ class ProGen(nn.Module):
                 f"ProGen takes batched (B, L) int tokens, got shape "
                 f"{tuple(tokens.shape)}")
         n = tokens.shape[1]
-        if cfg.global_mlp_depth > 0 and n > cfg.seq_len:
+        slices, me = seq_split(self.mesh)
+        if cfg.global_mlp_depth > 0 and n * slices > cfg.seq_len:
             raise ValueError(
                 f"input length {n} > config.seq_len {cfg.seq_len}: the gMLP "
                 "layers' learned (seq_len, seq_len) spatial weights have no "
                 "rows past seq_len")
         cd = self.policy.compute_dtype
         x = F.embedding(tokens, self.embed.weight.to(cd))
-        # rotary tables computed once, shared by all layers; f32, cast inside
-        sin, cos = fixed_pos_embedding(n, cfg.dim_head, device=tokens.device)
+        # rotary tables computed once, shared by all layers; f32, cast inside;
+        # a slice of the sequence takes its rows at their global positions
+        sin, cos = fixed_pos_embedding(n * slices, cfg.dim_head, device=tokens.device)
+        sin, cos = sin[me * n:(me + 1) * n], cos[me * n:(me + 1) * n]
         for i in range(cfg.depth):
             attn_c = ff_c = None
             if cache is not None:
@@ -432,6 +498,6 @@ class ProGen(nn.Module):
             attn_ad = ff_ad = None
             if adapters is not None:
                 attn_ad, ff_ad = adapters.get(f"attn{i}"), adapters.get(f"ff{i}")
-            x = x + self.attn[i](x, sin, cos, attn_c, attn_ad, tenant)
-            x = x + self.ff[i](x, ff_c, ff_ad, tenant)
+            x = x + self.attn[i](x, sin, cos, attn_c, attn_ad, tenant, self.mesh)
+            x = x + self.ff[i](x, ff_c, ff_ad, tenant, self.mesh)
         return x

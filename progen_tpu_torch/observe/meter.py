@@ -1,8 +1,8 @@
 """Throughput metering and the profiler hook (ported from
 progen_tpu/observe/meter.py).
 
-:class:`ThroughputMeter` is copied without JAX: the port runs one process
-on one card, so the per-chip rate is the rate.  :func:`profile_trace`
+:class:`ThroughputMeter` is copied without JAX; its per-chip rate divides
+by ``chips``, the ranks that share the ticked tokens (one per card).  :func:`profile_trace`
 records a ``torch.profiler`` trace (CPU and, on a card, CUDA activity) of
 the enclosed steps and writes it as a Chrome trace.
 """
@@ -27,8 +27,9 @@ class ThroughputMeter:
     enqueue, not the execution.
     """
 
-    def __init__(self, window: int = 50):
+    def __init__(self, window: int = 50, chips: int = 1):
         self._window = window
+        self._chips = chips
         self._anchor: float | None = None
         # (duration, tokens, steps) per sync interval — durations are
         # stored, not absolute times, so rebase() can cut hook time out of
@@ -75,7 +76,8 @@ class ThroughputMeter:
 
     @property
     def tokens_per_sec_per_chip(self) -> float | None:
-        return self.tokens_per_sec  # one process, one card
+        rate = self.tokens_per_sec
+        return None if rate is None else rate / self._chips
 
     def snapshot(self) -> dict:
         """Flat dict of the current rates, for publishing into the metrics

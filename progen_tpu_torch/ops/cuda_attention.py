@@ -24,6 +24,16 @@ route.
 :func:`local_attention` is what the model calls: K1-fwd once, and under
 autograd K1-dq and K1-dkv in the backward, from the saved q, k, v, out and
 the forward's lse.
+
+Every entry takes an optional halo, ``k_halo``/``v_halo`` ``(B, H, wsz, D)``:
+window 0's previous window in place of the phantom zeros (the port of
+``pallas_local_attention_ext``, ``pallas_attention.py:258``; the left
+neighbour's last window under context parallelism, ``parallel/context.py``).
+It is one more source of the same three kernels, not another kernel: K1-dkv
+then also writes the halo's ``dk_halo``/``dv_halo``, which
+:class:`LocalAttentionFn` returns as the halo's gradients.
+``halo_launches``, ``halo_dq_launches`` and ``halo_dkv_launches`` count the
+launches that took a halo (they are in the three counts above too).
 """
 
 from __future__ import annotations
@@ -52,6 +62,9 @@ launches = 0
 fwd_route_launches = {"wgmma": 0, "wmma": 0}
 dq_launches = 0
 dkv_launches = 0
+halo_launches = 0
+halo_dq_launches = 0
+halo_dkv_launches = 0
 bwd_route_launches = {"wgmma": 0, "wmma": 0}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -64,6 +77,25 @@ def _kernel_fn(name: str, library: str, n_tensors: int):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+def _check_halo(q, window_size, k_halo, v_halo) -> None:
+    """A halo is two contiguous ``(B, H, wsz, D)`` tensors of q's dtype on
+    q's device, or none."""
+    if (k_halo is None) != (v_halo is None):
+        raise ValueError("k_halo and v_halo come together")
+    if k_halo is None:
+        return
+    want = (*q.shape[:2], window_size, q.shape[3])
+    for t in (k_halo, v_halo):
+        if (tuple(t.shape) != want or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"the halo must be contiguous {want} {q.dtype} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _check(q, k, v, window_size, *more):
@@ -87,32 +119,37 @@ def _check(q, k, v, window_size, *more):
 
 
 def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window_size: int, scale: float | None = None):
+                        window_size: int, scale: float | None = None,
+                        k_halo: torch.Tensor | None = None,
+                        v_halo: torch.Tensor | None = None):
     """Windowed attention over ``(B, H, L, D)`` -> ``(out, lse)``: ``out``
     ``(B, H, L, D)`` in q's dtype and the per-row logsumexp ``lse``
-    ``(B, H, L)`` in f32."""
-    global launches
+    ``(B, H, L)`` in f32; window 0's previous window is the halo when one is
+    given, else the phantom zeros."""
+    global launches, halo_launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return plain_fwd(q, k, v, window_size=window_size, scale=scale,
-                         return_lse=True)
+                         return_lse=True, k_halo=k_halo, v_halo=v_halo)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window_size)
+    _check_halo(q, window_size, k_halo, v_halo)
     b, h, n, d = q.shape
     route = fwd_route(q.dtype, d, window_size)
     name = KERNEL if route == "wmma" else f"{KERNEL}_wgmma"
     if route == "wgmma":
-        kernels.check_aligned(q, k, v)
-    fn = _kernel_fn(name, KERNEL, 5)
+        kernels.check_aligned(q, k, v, *(t for t in (k_halo, v_halo) if t is not None))
+    fn = _kernel_fn(name, KERNEL, 7)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b * h, n, d, window_size, float(scale),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_halo), _ptr(v_halo),
+             out.data_ptr(), lse.data_ptr(), b * h, n, d, window_size, float(scale),
              DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     launches += 1
+    halo_launches += k_halo is not None
     fwd_route_launches[route] += 1
     return out, lse
 
@@ -133,7 +170,8 @@ def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
     return bwd_route(dtype, dim_head, window_size)
 
 
-def k1_fwd_tiles(n: int, window_size: int) -> list[tuple[int, list[tuple[int, int, str]]]]:
+def k1_fwd_tiles(n: int, window_size: int,
+                 halo: bool = False) -> list[tuple[int, list[tuple[int, int, str]]]]:
     """The bf16 K1-fwd kernel's blocks and walks, the formulas of
     ``local_attention_fwd.cu`` (``fwg::block_row``) and
     ``attention_wgmma.cuh`` (``dq_first``, ``dq_tiles``, ``dq_kind``): for
@@ -142,7 +180,9 @@ def k1_fwd_tiles(n: int, window_size: int) -> list[tuple[int, list[tuple[int, in
     each of its two warpgroups' rows ``r0``, ``(r0, t0, kind)``.  Rows of
     window 0 also count the phantom window's ``wsz`` zero logits, as an
     exact term.  A block at place p of window w >= 1 walks
-    ``wsz / 64 + 2 p + 2`` tiles, one of window 0 ``2 p + 2``."""
+    ``wsz / 64 + 2 p + 2`` tiles, one of window 0 ``2 p + 2``.  With a
+    ``halo`` window 0 walks the halo's tiles first (``t0`` in ``[-wsz, 0)``),
+    as many tiles as any other window."""
     wsz, wins, places = window_size, n // window_size, window_size // BWD_ROWS
     later = (wins - 1) * places  # blocks outside window 0
     blocks = []
@@ -152,7 +192,7 @@ def k1_fwd_tiles(n: int, window_size: int) -> list[tuple[int, list[tuple[int, in
                   + (places - 1 - rank // (wins - 1)) * BWD_ROWS)
         else:
             b0 = (places - 1 - (rank - later)) * BWD_ROWS
-        first = max(0, (b0 // wsz - 1) * wsz)
+        first = (b0 // wsz - 1) * wsz if halo else max(0, (b0 // wsz - 1) * wsz)
         walk = []
         for it in range((b0 + BWD_TILE - first) // BWD_TILE + 1):
             t0 = first + BWD_TILE * it
@@ -163,7 +203,8 @@ def k1_fwd_tiles(n: int, window_size: int) -> list[tuple[int, list[tuple[int, in
     return blocks
 
 
-def k1_bwd_tiles(n: int, window_size: int, side: str) -> list[tuple[int, int, str]]:
+def k1_bwd_tiles(n: int, window_size: int, side: str,
+                 halo: bool = False) -> list[tuple[int, int, str]]:
     """The bf16 backward kernels' tile walk, the formulas of
     ``attention_wgmma.cuh`` (``dq_tiles``, ``dq_kind``, ``dkv_tiles``,
     ``dkv_kind``): for each block, in order, each of its two warpgroups'
@@ -171,14 +212,22 @@ def k1_bwd_tiles(n: int, window_size: int, side: str) -> list[tuple[int, int, st
     ``"diagonal"`` (causal mask inside the tile) and ``"skipped"``.
     ``side="dq"``: rows r0.. are queries, tiles t0.. keys; ``side="dkv"``:
     rows are keys, tiles queries (K1-dkv walks them twice, once for dv and
-    once for dk).  Every tile is 64 rows."""
+    once for dk).  Every tile is 64 rows.  With a ``halo`` the halo's rows
+    are ``[-wsz, 0)``: K1-dq's window-0 blocks stream them first, and K1-dkv
+    runs ``wsz / 128`` more blocks after the others, for the halo's keys,
+    which stream the queries of window 0."""
     if side not in ("dq", "dkv"):
         raise ValueError(f"side must be 'dq' or 'dkv', got {side!r}")
     wsz, pairs = window_size, []
-    for b0 in range(0, n, BWD_ROWS):
+    blocks = list(range(0, n, BWD_ROWS))
+    if halo and side == "dkv":
+        blocks += list(range(-wsz, 0, BWD_ROWS))
+    for b0 in blocks:
         if side == "dq":
-            first = max(0, (b0 // wsz - 1) * wsz)
+            first = (b0 // wsz - 1) * wsz if halo else max(0, (b0 // wsz - 1) * wsz)
             tiles = (b0 + BWD_TILE - first) // BWD_TILE + 1
+        elif b0 < 0:
+            first, tiles = 0, wsz // BWD_TILE
         else:
             first = b0
             tiles = (min((b0 // wsz + 2) * wsz, n) - b0) // BWD_TILE
@@ -205,100 +254,120 @@ def _check_rows(q, *rows):
 
 
 def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None, k_halo=None,
+                           v_halo=None) -> torch.Tensor:
     """K1-dq on CUDA tensors: ``dq`` ``(B, H, L, D)`` in q's dtype, from the
     forward's f32 ``lse`` and ``dd = rowsum(do * out)`` in f32, ``(B, H, L)``
-    each."""
-    global dq_launches
+    each; the halo as the forward took it."""
+    global dq_launches, halo_dq_launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     _check(q, k, v, window_size, do)
     _check_rows(q, lse, dd)
-    kernels.check_aligned(q, k, v, do, lse, dd)
+    _check_halo(q, window_size, k_halo, v_halo)
+    halo = [t for t in (k_halo, v_halo) if t is not None]
+    kernels.check_aligned(q, k, v, do, lse, dd, *halo)
     b, h, n, d = q.shape
     route = bwd_route(q.dtype, d, window_size)
     name = f"{BWD}_dq" if route == "wmma" else f"{BWD}_dq_wgmma"
-    fn = _kernel_fn(name, BWD, 7)
+    fn = _kernel_fn(name, BWD, 9)
     dq = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b * h, n, d,
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_halo), _ptr(v_halo),
+             do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b * h, n, d,
              window_size, float(scale), DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dq_launches += 1
+    halo_dq_launches += bool(halo)
     bwd_route_launches[route] += 1
     return dq
 
 
 def local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size: int,
-                            scale: float | None = None):
+                            scale: float | None = None, k_halo=None, v_halo=None):
     """K1-dkv on CUDA tensors: ``(dk, dv)`` of the real keys, each
-    ``(B, H, L, D)`` in q's dtype; arguments as for
+    ``(B, H, L, D)`` in q's dtype, and with a halo also ``(dk_halo,
+    dv_halo)``, each ``(B, H, wsz, D)``; arguments as for
     :func:`local_attention_bwd_dq`."""
-    global dkv_launches
+    global dkv_launches, halo_dkv_launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     _check(q, k, v, window_size, do)
     _check_rows(q, lse, dd)
-    kernels.check_aligned(q, k, v, do, lse, dd)
+    _check_halo(q, window_size, k_halo, v_halo)
+    halo = [t for t in (k_halo, v_halo) if t is not None]
+    kernels.check_aligned(q, k, v, do, lse, dd, *halo)
     b, h, n, d = q.shape
     route = bwd_route(q.dtype, d, window_size)
     name = f"{BWD}_dkv" if route == "wmma" else f"{BWD}_dkv_wgmma"
-    fn = _kernel_fn(name, BWD, 8)
+    fn = _kernel_fn(name, BWD, 12)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h,
-             n, d, window_size, float(scale), DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    dk_halo = torch.empty_like(k_halo) if halo else None
+    dv_halo = torch.empty_like(v_halo) if halo else None
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_halo), _ptr(v_halo),
+             do.data_ptr(), lse.data_ptr(), dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _ptr(dk_halo), _ptr(dv_halo), b * h, n, d, window_size, float(scale),
+             DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dkv_launches += 1
+    halo_dkv_launches += bool(halo)
     bwd_route_launches[route] += 1
-    return dk, dv
+    return (dk, dv, dk_halo, dv_halo) if halo else (dk, dv)
 
 
 def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        window_size: int, scale: float | None = None):
+                        window_size: int, scale: float | None = None,
+                        k_halo: torch.Tensor | None = None,
+                        v_halo: torch.Tensor | None = None):
     """Gradients ``(dq, dk, dv)``, each ``(B, H, L, D)`` in q's dtype, from
     the forward's ``out`` and f32 ``lse`` and the cotangent ``do``:
     ``D = rowsum(do * out)`` in f32 (a plain reduction, as in the TPU
-    package), then K1-dq and K1-dkv."""
+    package), then K1-dq and K1-dkv.  With a halo, ``(dq, dk, dv, dk_halo,
+    dv_halo)``."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
-        return plain_bwd(q, k, v, out, lse, do, window_size, scale)
+        return plain_bwd(q, k, v, out, lse, do, window_size, scale,
+                         k_halo=k_halo, v_halo=v_halo)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window_size, out, do)
     _check_rows(q, lse)
     dd = (do.float() * out.float()).sum(-1)
-    dq = local_attention_bwd_dq(q, k, v, do, lse, dd, window_size, scale)
-    dk, dv = local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size, scale)
-    return dq, dk, dv
+    dq = local_attention_bwd_dq(q, k, v, do, lse, dd, window_size, scale, k_halo, v_halo)
+    return (dq, *local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size, scale,
+                                         k_halo, v_halo))
 
 
 class LocalAttentionFn(torch.autograd.Function):
     """K1-fwd forward; K1-dq and K1-dkv backward from the saved q, k, v,
-    out and lse (``pallas_attention.py``'s ``custom_vjp``)."""
+    out and lse (``pallas_attention.py``'s ``custom_vjp``); with a halo the
+    backward also returns its gradients (``pallas_local_attention_ext``'s
+    ``dk_ext``/``dv_ext`` first window)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window_size, scale):
-        out, lse = local_attention_fwd(q, k, v, window_size, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, window_size, scale, k_halo=None, v_halo=None):
+        out, lse = local_attention_fwd(q, k, v, window_size, scale, k_halo, v_halo)
+        ctx.save_for_backward(q, k, v, out, lse, k_halo, v_halo)
         ctx.window_size, ctx.scale = window_size, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = local_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         ctx.window_size, ctx.scale)
-        return dq, dk, dv, None, None
+        q, k, v, out, lse, k_halo, v_halo = ctx.saved_tensors
+        grads = local_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                    ctx.window_size, ctx.scale, k_halo, v_halo)
+        dk_halo, dv_halo = grads[3:] if k_halo is not None else (None, None)
+        return (*grads[:3], None, None, dk_halo, dv_halo)
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window_size: int, scale: float | None = None) -> torch.Tensor:
+                    window_size: int, scale: float | None = None,
+                    k_halo: torch.Tensor | None = None,
+                    v_halo: torch.Tensor | None = None) -> torch.Tensor:
     """Windowed attention over ``(B, H, L, D)`` with a backward through the
-    kernels.  Under ``torch.no_grad()`` it runs K1-fwd once and nothing
-    else."""
+    kernels; ``k_halo``/``v_halo`` ``(B, H, wsz, D)`` as window 0's previous
+    window, whose gradients flow back through them.  Under
+    ``torch.no_grad()`` it runs K1-fwd once and nothing else."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return LocalAttentionFn.apply(q, k, v, window_size, scale)
+    return LocalAttentionFn.apply(q, k, v, window_size, scale, k_halo, v_halo)

@@ -12,6 +12,13 @@ the kernels are held against on the card.
 * mask ``tril(ones(wsz, 2*wsz), k=wsz)``, masked logits ``-1e10``;
 * scale ``dim_head ** -0.5``; f32 logits and softmax, probabilities cast
   to ``v.dtype`` before the second product, which accumulates in f32.
+
+With ``k_halo``/``v_halo`` ``(B, H, wsz, Dh)`` window 0's previous window is
+that halo instead of the zero window: the left neighbour's last window under
+context parallelism (``parallel/context.py``), the first window of
+``pallas_local_attention_ext``'s ``k_ext``/``v_ext``
+(``progen_tpu/ops/pallas_attention.py:258``), whose backward also returns the
+halo's gradients.  No halo is the zero window, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -28,30 +35,46 @@ def window_mask(window_size: int, device=None) -> torch.Tensor:
                       device=device).tril(window_size)
 
 
-def concat_previous_window(t: torch.Tensor) -> torch.Tensor:
-    """``(..., W, n, d) -> (..., W, 2n, d)``: prepend a zero window, then
-    pair each window with its predecessor."""
-    t = F.pad(t, (0, 0, 0, 0, 1, 0))
+def concat_previous_window(t: torch.Tensor, halo: torch.Tensor | None = None) -> torch.Tensor:
+    """``(..., W, n, d) -> (..., W, 2n, d)``: prepend ``halo`` ``(..., n, d)``
+    as window -1 (a zero window without one), then pair each window with its
+    predecessor."""
+    if halo is None:
+        t = F.pad(t, (0, 0, 0, 0, 1, 0))
+    else:
+        t = torch.cat((halo.unsqueeze(-3), t), dim=-3)
     return torch.cat((t[..., :-1, :, :], t[..., 1:, :, :]), dim=-2)
 
 
+def _check_halo(q, k_halo, v_halo, window_size: int) -> None:
+    if (k_halo is None) != (v_halo is None):
+        raise ValueError("k_halo and v_halo come together")
+    if k_halo is not None:
+        want = (*q.shape[:2], window_size, q.shape[3])
+        if tuple(k_halo.shape) != want or tuple(v_halo.shape) != want:
+            raise ValueError(f"the halo must be {want}, got {tuple(k_halo.shape)} "
+                             f"and {tuple(v_halo.shape)}")
+
+
 def local_attention(q, k, v, *, window_size: int, scale: float | None = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, k_halo=None, v_halo=None):
     """Windowed attention over ``(B, H, L, Dh)`` tensors -> ``(B, H, L, Dh)``.
 
     ``return_lse=True`` also returns the per-row f32 logsumexp ``(B, H, L)``
     of the scaled, masked logits, which the kernel writes for the backward.
+    ``k_halo``/``v_halo`` ``(B, H, wsz, Dh)``: window 0's previous window.
     """
     b, h, n, d = q.shape
     wsz = window_size
     if n % wsz != 0:
         raise ValueError(f"sequence length {n} must be divisible by window {wsz}")
+    _check_halo(q, k_halo, v_halo, wsz)
     w = n // wsz
     scale = d ** -0.5 if scale is None else scale
 
     qw = q.reshape(b, h, w, wsz, d)
-    kw = concat_previous_window(k.reshape(b, h, w, wsz, d))
-    vw = concat_previous_window(v.reshape(b, h, w, wsz, d))
+    kw = concat_previous_window(k.reshape(b, h, w, wsz, d), k_halo)
+    vw = concat_previous_window(v.reshape(b, h, w, wsz, d), v_halo)
 
     sim = torch.einsum("bhwid,bhwjd->bhwij", qw.float(), kw.float()) * scale
     sim = sim.masked_fill(~window_mask(wsz, q.device), ATTN_MASK_VALUE)
@@ -64,9 +87,10 @@ def local_attention(q, k, v, *, window_size: int, scale: float | None = None,
 
 
 def local_attention_bwd(q, k, v, out, lse, do, window_size: int,
-                        scale: float | None = None):
+                        scale: float | None = None, k_halo=None, v_halo=None):
     """Gradients ``(dq, dk, dv)`` of :func:`local_attention`, from the
-    forward's ``out`` and f32 ``lse`` and the output cotangent ``do``.
+    forward's ``out`` and f32 ``lse`` and the output cotangent ``do``; with
+    a halo ``(dq, dk, dv, dk_halo, dv_halo)``.
 
     The flash-style backward of ``progen_tpu/ops/pallas_attention.py``:
     ``D = rowsum(do * out)`` in f32, probabilities recomputed as
@@ -75,16 +99,18 @@ def local_attention_bwd(q, k, v, out, lse, do, window_size: int,
     ``ds . k`` (``ds^T . q``), every product accumulates in f32, and each
     gradient is cast once.  A key window gets its gradient from two query
     windows, its own (causal) and the next (fully visible); the phantom
-    window's share is dropped, as ``jnp.pad``'s VJP drops it."""
+    window's share is dropped, as ``jnp.pad``'s VJP drops it; a halo's is
+    the previous half of query window 0's."""
     b, h, n, d = q.shape
     wsz = window_size
+    _check_halo(q, k_halo, v_halo, wsz)
     w = n // wsz
     scale = d ** -0.5 if scale is None else scale
 
     qw = q.reshape(b, h, w, wsz, d)
     dow = do.reshape(b, h, w, wsz, d)
-    kw = concat_previous_window(k.reshape(b, h, w, wsz, d))
-    vw = concat_previous_window(v.reshape(b, h, w, wsz, d))
+    kw = concat_previous_window(k.reshape(b, h, w, wsz, d), k_halo)
+    vw = concat_previous_window(v.reshape(b, h, w, wsz, d), v_halo)
     dd = (do.float() * out.float()).sum(-1).reshape(b, h, w, wsz, 1)
 
     sim = torch.einsum("bhwid,bhwjd->bhwij", qw.float(), kw.float()) * scale
@@ -107,4 +133,9 @@ def local_attention_bwd(q, k, v, out, lse, do, window_size: int,
 
     dk = (fold(dkw) * scale).to(k.dtype).reshape(b, h, n, d)
     dv = fold(dvw).to(v.dtype).reshape(b, h, n, d)
-    return dq.to(q.dtype).reshape(b, h, n, d), dk, dv
+    dq = dq.to(q.dtype).reshape(b, h, n, d)
+    if k_halo is None:
+        return dq, dk, dv
+    dk_halo = (dkw[:, :, 0, :wsz] * scale).to(k.dtype)
+    dv_halo = dvw[:, :, 0, :wsz].to(v.dtype)
+    return dq, dk, dv, dk_halo, dv_halo

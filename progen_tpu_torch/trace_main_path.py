@@ -21,21 +21,26 @@ prefill and the decode steps; ``engine``: the three engine chunks;
 ``spec``: one speculative chunk, six rounds of ``spec_k`` 4, dense with
 the identity draft and paged with a ``draft_config_for`` draft, per round
 and per emitted token beside the per-step numbers; ``train``: the train
-step), all but ``spec`` by default.  Needs a GPU.
+step; ``mesh``: the train step without a mesh and on a mesh of one rank
+under ``dp`` and ``fsdp``, in f32 and in bf16 compute), all but ``spec`` and ``mesh`` by default.
+Needs a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from progen_tpu_torch.core.device import resolve_device
+from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed, make_mesh
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.decode.engine import Request, ServingEngine
@@ -123,7 +128,7 @@ def _traced(fn, device) -> dict:
     return out
 
 
-PHASES = ("serve", "engine", "spec", "train")
+PHASES = ("serve", "engine", "spec", "train", "mesh")
 
 
 def main(argv=None) -> None:
@@ -137,6 +142,8 @@ def main(argv=None) -> None:
         _trace_serving(device, config, phases)
     if "train" in phases:
         _trace_train(device, config)
+    if "mesh" in phases:
+        _trace_mesh(device, config)
 
 
 def _trace_serving(device, config, phases) -> None:
@@ -224,9 +231,10 @@ def _trace_serving(device, config, phases) -> None:
         del engine
 
 
-def _trace_train(device, config) -> None:
-    model = ProGen(config, make_policy(), device=device, seed=0)
-    fns = make_train_functions(model, make_optimizer())
+def _trace_train(device, config, mixed_precision: bool = True, mesh=None,
+                 strategies=("dp",), label: str = "train_step") -> None:
+    model = ProGen(config, make_policy(mixed_precision), device=device, seed=0)
+    fns = make_train_functions(model, make_optimizer(), mesh=mesh, strategies=strategies)
     state = fns.init_state()
     rng = np.random.default_rng(0)
     batch = torch.from_numpy(
@@ -238,10 +246,30 @@ def _trace_train(device, config) -> None:
         nonlocal state
         state, _ = fns.train_step(state, batch)
 
-    print(json.dumps({"phase": "train_step", "config": "small", "batch": TRAIN_BATCH,
+    print(json.dumps({"phase": label, "config": "small", "batch": TRAIN_BATCH,
                       "seq_len": config.seq_len,
+                      "dtype": "bf16 compute, f32 params" if mixed_precision else "f32",
                       "device": torch.cuda.get_device_name(device),
-                      **_traced(step, device)}))
+                      **_traced(step, device)}), flush=True)
+
+
+def _trace_mesh(device, config) -> None:
+    """The train step without a mesh, then on a mesh of one rank (NCCL)
+    under ``dp`` and ``fsdp``, in f32 and in bf16 compute: what the meshed
+    step adds."""
+    initialize_distributed(device)  # a world of one
+    try:
+        for mixed in (False, True):
+            dtype = "bf16" if mixed else "f32"
+            _trace_train(device, config, mixed, label=f"train_step_{dtype}_unmeshed")
+            for strategy in ("dp", "fsdp"):
+                mesh = make_mesh(MeshConfig(-1, 1, 1, 1), "cuda")
+                _trace_train(device, config, mixed, mesh, (strategy,),
+                             label=f"train_step_{dtype}_{strategy}_world1")
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

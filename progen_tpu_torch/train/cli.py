@@ -21,24 +21,42 @@ from ``--seed`` (``data/synthetic.py``) for ``--max_steps`` micro-batches
 (10 by default), with no checkpoints, and prints one JSON line per logged
 step: step, loss, grad_norm, lr, step_ms, tokens_per_s and mfu.
 
-Not accepted: the mesh, sharding-strategy, remat, superstep, statusz,
-kernel-choice, profiling-service and wandb flags.  The device is ``cuda``
-unless ``--device cpu`` is given.
+With ``--data_path`` the Trainer runs over a mesh, ``--mesh data,fsdp,
+tensor,seq`` (``-1,1,1,1`` by default: every rank on the data axis) under
+``--strategies`` (``dp`` by default; ``fsdp`` and ``sp`` too, comma
+separated), one process per card:
+
+    torchrun --nproc_per_node 8 -m progen_tpu_torch.train --data_path ... \
+        --mesh 1,8,1,1 --strategies fsdp
+
+or started by hand with ``RANK`` and ``WORLD_SIZE`` set and
+``--init_method file:///shared/path`` (or ``MASTER_ADDR``/``MASTER_PORT``);
+without them it is a world of one.  Rank 0 alone prompts for
+``--new``, prints and writes the tracker and the checkpoints.  Tensor
+parallelism (``tp``, a tensor axis > 1) is refused (``ROADMAP.md``).
+
+Not accepted: the remat, superstep, statusz, kernel-choice,
+profiling-service and wandb flags.  The device is ``cuda`` unless
+``--device cpu`` is given (then the ranks meet over gloo).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import sys
 import time
 import tomllib
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from progen_tpu_torch.checkpoint.store import CheckpointStore
 from progen_tpu_torch.core.device import resolve_device
+from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.models.configs import CONFIGS
@@ -119,8 +137,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="optimizer steps to stop at (synthetic rows: "
                         f"micro-batches, {SYNTHETIC_STEPS} by default)")
     p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--mesh", default="-1,1,1,1",
+                   help="the Trainer's mesh axis sizes data,fsdp,tensor,seq "
+                        "(-1 = the remaining ranks)")
+    p.add_argument("--strategies", default="dp",
+                   help="comma list of sharding strategies: dp, fsdp, sp")
+    p.add_argument("--init_method", default=None,
+                   help="where ranks started by hand meet (file:// or tcp://), "
+                        "with RANK and WORLD_SIZE set; torchrun's env:// otherwise")
     p.add_argument("--device", default="cuda")
-    return p.parse_args(argv)
+    # "--mesh -1,1,1,1" as train.py takes it: argparse reads a value that
+    # starts with "-" as an option unless it is glued on
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for i in range(len(argv) - 1):
+        if argv[i] == "--mesh":
+            argv[i:i + 2] = [f"--mesh={argv[i + 1]}"]
+            break
+    args = p.parse_args(argv)
+    try:
+        args.mesh = MeshConfig.parse(args.mesh)
+    except ValueError as e:
+        p.error(f"--mesh: {e}")
+    args.strategies = tuple(args.strategies.split(","))
+    return args
 
 
 def _load_model_config(config_path: str, model_name: str) -> dict:
@@ -134,13 +173,21 @@ def train_tfrecords(args, device: torch.device) -> dict:
     """The ``Trainer`` over ``--data_path``; returns its result."""
     if args.inject_faults:
         faults.configure(args.inject_faults, seed=args.seed)
+    if not dist.is_initialized():  # torchrun's environment, or a world of one
+        initialize_distributed(device, init_method=args.init_method)
+    rank = dist.get_rank()
     store = CheckpointStore(args.checkpoint_path, args.checkpoint_keep_n)
     if args.new:
-        answer = input("are you sure you want to clear all your checkpoints "
-                       "and restart training? [y/N]: ")
-        if answer.strip().lower() not in ("y", "yes"):
+        wipe = [False]
+        if rank == 0:
+            answer = input("are you sure you want to clear all your checkpoints "
+                           "and restart training? [y/N]: ")
+            wipe[0] = answer.strip().lower() in ("y", "yes")
+            if wipe[0]:
+                store.reset()
+        dist.broadcast_object_list(wipe, src=0)
+        if not wipe[0]:
             raise SystemExit(0)
-        store.reset()
     # the checkpoint's model config wins on resume
     meta = store.restore_meta()
     model_kwargs = (_load_model_config(args.config_path, args.model_name)
@@ -159,10 +206,11 @@ def train_tfrecords(args, device: torch.device) -> dict:
         background_checkpoint=args.background_checkpoint,
         log_every=args.log_every, max_steps=args.max_steps,
         run_attempts=args.run_attempts, watchdog_timeout=args.watchdog_timeout,
-        warm_sampler=args.warm_sampler)
+        warm_sampler=args.warm_sampler, mesh=args.mesh, strategies=args.strategies)
+    config = {k: v for k, v in vars(args).items() if k != "new"}
+    config["mesh"] = ",".join(str(v) for v in dataclasses.astuple(args.mesh))
     tracker = Tracker(out_dir=args.runs_dir, run_id=(meta or {}).get("run_id"),
-                      config={**model_kwargs,
-                              **{k: v for k, v in vars(args).items() if k != "new"}})
+                      config={**model_kwargs, **config}, disabled=rank != 0)
     trainer = Trainer(ProGenConfig.from_dict(model_kwargs), cfg, args.data_path,
                       args.checkpoint_path, tracker=tracker, device=device)
     try:
@@ -221,6 +269,11 @@ def main(argv=None):
     synthetic run's printed records."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if args.data_path is not None:
+    if args.data_path is None:
+        return train_synthetic(args, device)
+    owned = not dist.is_initialized()
+    try:
         return train_tfrecords(args, device)
-    return train_synthetic(args, device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()

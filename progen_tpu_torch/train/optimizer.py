@@ -20,6 +20,12 @@ round differently:
 Parameters, moments and the accumulator are updated IN PLACE (the state
 holds the same tensors from step to step), which saves a copy of each.
 
+Under a mesh (``parallel/sharding.py``) the state's tensors may be
+DTensors (FSDP2 shards, parameters row-sharded over ``seq``): every update
+runs on each rank's own shard, and :func:`global_norm` counts each distinct
+element once over all ranks, so the clip fires at the norm of the whole
+gradient (a replicated gradient counted once, shards summed).
+
 The frozen-base LoRA optimizer (``train/lora.py``, optax's
 ``multi_transform(adamw, set_to_zero)``) is this class with no clip
 (``max_grad_norm=None``) and ``frozen`` naming the base: a frozen
@@ -34,6 +40,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from progen_tpu_torch.parallel.sharding import global_sum_of_squares, load_full, local
 from progen_tpu_torch.train.schedule import lr_at
 
 Params = dict[str, torch.Tensor]
@@ -77,8 +84,8 @@ class OptState:
 
 @torch.no_grad()
 def copy_into(dst: Params, src: Params, what: str) -> None:
-    """``dst[k].copy_(src[k])`` for every name; the names and shapes must
-    match."""
+    """``dst[k].copy_(src[k])`` for every name (a sharded ``dst[k]`` takes
+    its part of the whole ``src[k]``); the names and shapes must match."""
     if set(dst) != set(src):
         raise ValueError(f"{what}: stored names differ: missing "
                          f"{sorted(set(dst) - set(src))}, unexpected "
@@ -87,7 +94,7 @@ def copy_into(dst: Params, src: Params, what: str) -> None:
         if t.shape != src[name].shape:
             raise ValueError(f"{what}.{name}: stored shape "
                              f"{tuple(src[name].shape)}, want {tuple(t.shape)}")
-        t.copy_(src[name])
+        load_full(t, src[name])
 
 
 def decay_mask(params: Params) -> dict[str, bool]:
@@ -96,8 +103,9 @@ def decay_mask(params: Params) -> dict[str, bool]:
 
 
 def global_norm(tensors: Params) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over every tensor, in f32, on their device."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors.values()))
+    """``sqrt(sum of squares)`` over every tensor, in f32, on their device;
+    over the whole of each sharded tensor, on every rank."""
+    return torch.sqrt(global_sum_of_squares(tensors))
 
 
 class Optimizer:
@@ -138,7 +146,7 @@ class Optimizer:
         acc = state.acc_grads
         with torch.no_grad():
             for name, g in grads.items():
-                a = acc[name]
+                a, g = local(acc[name]), local(g)
                 a.copy_(a + (g - a) / (state.mini_step + 1))
         if state.mini_step < k - 1:
             return dataclasses.replace(state, mini_step=state.mini_step + 1)
@@ -162,10 +170,10 @@ class Optimizer:
         step_size = -lr_at(self.learning_rate, state.count)
         decay = decay_mask(grads)
         for name, g in grads.items():
-            p = params[name]
+            p, g = local(params[name]), local(g)
             if clip:
                 g = torch.where(keep, g, (g / norm) * self.max_grad_norm)
-            mu, nu = state.mu[name], state.nu[name]
+            mu, nu = local(state.mu[name]), local(state.nu[name])
             mu.copy_((1 - b1) * g + b1 * mu)
             nu.copy_((1 - b2) * (g * g) + b2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)

@@ -28,10 +28,22 @@ done) and writes it.  A periodic save that finds the previous one still writing 
 skipped; an exit or preemption save joins it and writes.  A failed write
 surfaces (a ``RetryError`` from the store) when the thread is joined.
 
-Fields of :class:`TrainerConfig` the port cannot honour yet (the mesh and
-sharding strategies, remat, ``superstep > 1``, the statusz server, and
-attention/SGU implementations other than the port's kernels) are refused
-by name when set away from their defaults.
+Across ranks (``mesh``, a ``core/mesh.MeshConfig``, and ``strategies``
+``dp``, ``fsdp`` and ``sp``; one process per card, started by ``torchrun``
+or given a process group first): every rank builds the model from the same
+seed, then ``parallel/sharding.parallelize`` places it, and each rank reads
+its own batch shard of the records (``process_batch_shards``: ``batch_size``
+rows per shard, so the shards' rows together are the global batch, as in
+JAX).  Only rank 0 writes the tracker, prints and samples; a checkpoint is
+gathered one whole tensor at a time into rank 0's host memory and written
+by rank 0 alone, in the store's one layout, so it restores at any world
+size and without a mesh.
+
+Fields of :class:`TrainerConfig` the port cannot honour yet (remat,
+``superstep > 1``, the statusz server, and attention/SGU implementations
+other than the port's kernels) are refused by name when set away from their
+defaults; so are tensor parallelism (``"tp"`` in ``strategies`` or a mesh
+tensor axis > 1) and strategies without a mesh.
 """
 
 from __future__ import annotations
@@ -46,9 +58,17 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from progen_tpu_torch.checkpoint.store import CheckpointStore
 from progen_tpu_torch.core.device import resolve_device
+from progen_tpu_torch.core.mesh import (
+    MeshConfig,
+    initialize_distributed,
+    make_mesh,
+    mesh_sizes,
+    process_batch_shards,
+)
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.prefetch import DevicePrefetcher
 from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
@@ -59,6 +79,7 @@ from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
 from progen_tpu_torch.observe.meter import ThroughputMeter, profile_trace
 from progen_tpu_torch.observe.tracker import Tracker
+from progen_tpu_torch.parallel.sharding import check_strategies, full_tensor
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.retry import RetryError, default_classifier
 from progen_tpu_torch.resilience.watchdog import FlightRecorder, Watchdog
@@ -67,8 +88,9 @@ from progen_tpu_torch.train.schedule import make_lr_schedule
 from progen_tpu_torch.train.step import TrainState, make_train_functions
 
 # TrainerConfig fields the port refuses away from their defaults
-NOT_PORTED = ("strategies", "mesh", "remat", "superstep", "statusz_port",
-              "attn_impl", "sgu_impl")
+NOT_PORTED = ("remat", "superstep", "statusz_port", "attn_impl", "sgu_impl")
+# fields some of whose values the port refuses: tensor parallelism
+PARTLY_PORTED = ("strategies", "mesh")
 
 
 @dataclasses.dataclass
@@ -93,9 +115,11 @@ class TrainerConfig:
     warmup_steps: int = 0
     schedule_steps: int | None = None  # decay horizon; defaults to max_steps
     lr_min_ratio: float = 0.1
-    # not ported yet: refused by name unless left at these values
+    # across ranks: a MeshConfig (None: one process, no mesh) and the
+    # strategies "dp", "fsdp", "sp" ("tp" is refused)
     strategies: Sequence[str] = ("dp",)
-    mesh: Any = None
+    mesh: MeshConfig | None = None
+    # not ported yet: refused by name unless left at these values
     remat: bool = False
     remat_policy: str = "full"
     attn_impl: str = "kernel"      # the port's K1 kernels (plain on the CPU)
@@ -130,12 +154,18 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
     defaults = TrainerConfig()
     for name in NOT_PORTED:
         value, default = getattr(cfg, name), getattr(defaults, name)
-        if name == "strategies":
-            value, default = tuple(value), tuple(default)
         if value != default:
             raise ValueError(
                 f"TrainerConfig.{name}={value!r} is not ported yet (the port "
                 f"supports only {default!r})")
+    tp = "tensor parallelism is not ported yet; see ROADMAP.md, Queue 1"
+    if "tp" in tuple(cfg.strategies):
+        raise ValueError(f"TrainerConfig.strategies={tuple(cfg.strategies)!r}: {tp}")
+    if cfg.mesh is not None and cfg.mesh.tensor not in (1, -1):
+        raise ValueError(f"TrainerConfig.mesh={cfg.mesh!r}: {tp}")
+    if cfg.mesh is None and tuple(cfg.strategies) != ("dp",):
+        raise ValueError(f"TrainerConfig.strategies={tuple(cfg.strategies)!r} needs "
+                         "TrainerConfig.mesh")
 
 
 def _map_state(fn, state: TrainState) -> TrainState:
@@ -160,6 +190,25 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
+def _gathered_to_host(state: TrainState, keep: bool) -> TrainState | None:
+    """``state`` whole in host memory on the rank that ``keep``s it, None on
+    the others.  One tensor at a time is gathered and copied out (on a card
+    into pinned memory, on the current stream: the caller waits for it), so
+    the device holds the shards and one whole tensor, whatever the model's
+    size.  Collectives: every rank calls it, at the same step."""
+    def whole(t):
+        t = t.detach()
+        out = full_tensor(t)
+        if not keep:
+            return None
+        if out.is_cuda:
+            return _pinned_copy(out)
+        return out.clone() if out is t else out
+    with torch.no_grad():
+        host = _map_state(whole, state)
+    return host if keep else None
+
+
 class Trainer:
     def __init__(
         self,
@@ -175,6 +224,24 @@ class Trainer:
         self.cfg = cfg
         self.data_path = data_path
         self.device = resolve_device(device)
+        self.mesh = None
+        self.rank, self.world = 0, 1
+        self.data_shard_count, self.data_shard_index = 1, 0
+        if cfg.mesh is not None:
+            if not dist.is_initialized():  # torchrun's environment, or one rank
+                initialize_distributed(self.device)
+            self.mesh = make_mesh(cfg.mesh, self.device.type)
+            check_strategies(cfg.strategies, self.mesh)
+            seq = mesh_sizes(self.mesh)["seq"]
+            if seq > 1 and "sp" not in cfg.strategies:
+                raise ValueError(
+                    f"mesh has seq axis {seq} but 'sp' is not in strategies "
+                    f"{tuple(cfg.strategies)} — the seq devices would replicate "
+                    "work; add 'sp' or set MeshConfig(seq=1)")
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
+            # the batch shards over ('data', 'fsdp'): a seq group's ranks
+            # read identical rows
+            self.data_shard_count, self.data_shard_index = process_batch_shards(self.mesh)
         self.policy = make_policy(cfg.mixed_precision)
         self.model = ProGen(model_config, self.policy, device=self.device,
                             seed=cfg.seed)
@@ -185,14 +252,20 @@ class Trainer:
         self.optimizer = make_optimizer(
             self.lr_schedule, cfg.weight_decay, cfg.max_grad_norm,
             cfg.grad_accum_every)
-        self.fns = make_train_functions(self.model, self.optimizer)
+        self.fns = make_train_functions(self.model, self.optimizer, mesh=self.mesh,
+                                        strategies=cfg.strategies)
         self.store = CheckpointStore(checkpoint_path, cfg.checkpoint_keep_n)
-        self.tracker = tracker or Tracker(disabled=True)
-        self.sampler = make_sampler(self.model)
+        # one writer: rank 0
+        self.tracker = (tracker if self.rank == 0 else None) or Tracker(disabled=True)
+        # under a mesh rank 0 samples from a whole copy of the parameters
+        # (gathered at each sample hook) in a model of its own, built at the
+        # first sample (or its warm-up)
+        self.sample_model = self.model if self.mesh is None else None
+        self.sampler = make_sampler(self.model) if self.mesh is None else None
         self.keys = KeySeq(cfg.seed)
         # 12 sync intervals: long enough to be sustained, short enough to
         # slide past cold-start artifacts
-        self.meter = ThroughputMeter(window=12)
+        self.meter = ThroughputMeter(window=12, chips=self.world)
         self._preempt_requested = False
         self._ckpt_thread: threading.Thread | None = None
         self._ckpt_error: BaseException | None = None
@@ -211,7 +284,8 @@ class Trainer:
         self._preempt_requested = True
 
     def _emit(self, **record: Any) -> None:
-        print(json.dumps(record), flush=True)
+        if self.rank == 0:
+            print(json.dumps(record), flush=True)
 
     def _note_phase(self, name: str, t0: float, **fields: Any) -> None:
         """One loop phase -> a flight-recorder event, so a watchdog trip
@@ -228,13 +302,22 @@ class Trainer:
         allocations)."""
         cfg = self.cfg
         next_hook = (global_step // cfg.sample_every + 1) * cfg.sample_every
-        if not cfg.warm_sampler or (cfg.max_steps is not None
-                                    and next_hook > cfg.max_steps):
+        if not cfg.warm_sampler or self.rank != 0 or (
+                cfg.max_steps is not None and next_hook > cfg.max_steps):
             return
         prime = torch.zeros((1, cfg.prime_length), dtype=torch.long,
                             device=self.device)
-        self.sampler(prime, cfg.prime_length + 1,
-                     key=torch.zeros(2, dtype=torch.int64), top_k=cfg.sample_top_k)
+        self._sampler()(prime, cfg.prime_length + 1,
+                        key=torch.zeros(2, dtype=torch.int64), top_k=cfg.sample_top_k)
+
+    def _sampler(self):
+        """The sampler; under a mesh rank 0's, of a model of its own that is
+        built here at first use."""
+        if self.sampler is None:
+            self.sample_model = ProGen(self.model_config, self.policy, device=self.device,
+                                       seed=self.cfg.seed).eval()
+            self.sampler = make_sampler(self.sample_model)
+        return self.sampler
 
     # -- state ---------------------------------------------------------------
 
@@ -297,15 +380,19 @@ class Trainer:
         # skips the whole un-wrapped cursor
         epoch_position = start_seq_index % total_train
         skip = start_seq_index if cfg.shuffle_buffer else epoch_position
-        effective_batch = cfg.batch_size * cfg.grad_accum_every
+        # the global effective batch: every batch shard's micro-batches
+        effective_batch = cfg.batch_size * cfg.grad_accum_every * self.data_shard_count
+        shard = {"process_count": self.data_shard_count,
+                 "process_index": self.data_shard_index}
 
         train_it = get_train(seq_len=seq_len, batch_size=cfg.batch_size, skip=skip,
                              loop=True, shuffle_buffer=cfg.shuffle_buffer,
-                             seed=cfg.seed)
+                             seed=cfg.seed, **shard)
         if cfg.prefetch_depth > 0:
             train_it = DevicePrefetcher(train_it, device=self.device,
                                         depth=cfg.prefetch_depth)
-        valid_it = get_valid(seq_len=seq_len, batch_size=cfg.batch_size, loop=True)
+        valid_it = get_valid(seq_len=seq_len, batch_size=cfg.batch_size, loop=True,
+                             **shard)
         # TrainState.step counts MICRO-steps; global_step optimizer steps
         global_step = state.step // cfg.grad_accum_every
         watchdog = None
@@ -435,7 +522,7 @@ class Trainer:
                         if watchdog is not None:
                             watchdog.beat(f"hooks at step {global_step}")
 
-                    if self._preempt_requested or self.store.reached_preemption(global_step):
+                    if self._preempted(global_step, will_hook or global_step % cfg.log_every == 0):
                         # the process exits right after: the save must commit
                         self._checkpoint(state, seq_cursor, wait=True)
                         self._emit(step=global_step, preempted=True,
@@ -447,6 +534,19 @@ class Trainer:
                         self._checkpoint(state, seq_cursor, wait=True)
                         return self._finish(state, last_loss, global_step)
         return self._finish(state, last_loss, global_step)
+
+    def _preempted(self, global_step: int, synced: bool) -> bool:
+        """A preemption was asked for.  Under a mesh on any rank, so that
+        they save together; asked only at steps that wait for the device
+        anyway (``synced``: logged or hooked ones), as the vote does."""
+        asked = self._preempt_requested or self.store.reached_preemption(global_step)
+        if self.mesh is None:
+            return asked
+        if not synced:
+            return False
+        flag = torch.tensor([int(asked)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def _finish(self, state, last_loss, global_step: int) -> dict[str, Any]:
         """The full-validation loss at the end of training, logged and
@@ -463,16 +563,21 @@ class Trainer:
         """Mean per-row loss over the ENTIRE validation split, one pass.
         The final partial batch is zero-padded to the batch size and the
         pad rows are masked out by the step's ``real_rows``, so the mean is
-        exact over all records."""
+        exact over all records.  Under a mesh each batch shard reads its
+        records, every rank takes as many batches as the largest shard
+        (all-zero ones past its end) and the sums meet over the shards."""
         cfg = self.cfg
         total_valid, get_valid = iterator_from_tfrecords_folder(self.data_path, "valid")
         if total_valid == 0:
             return None
-        it = get_valid(seq_len=self.model_config.seq_len,
-                       batch_size=cfg.batch_size, loop=False)
+        it = get_valid(seq_len=self.model_config.seq_len, batch_size=cfg.batch_size,
+                       loop=False, process_count=self.data_shard_count,
+                       process_index=self.data_shard_index)
+        width = self.model_config.seq_len + 1
         loss_sum, rows = 0.0, 0
-        for _ in range(-(-total_valid // cfg.batch_size)):
-            np_batch = next(it)
+        per_shard = -(-total_valid // self.data_shard_count)
+        for _ in range(-(-per_shard // cfg.batch_size)):
+            np_batch = next(it, np.zeros((0, width), np.int32))
             if np_batch.shape[0] < cfg.batch_size:
                 pad = np.zeros((cfg.batch_size - np_batch.shape[0], np_batch.shape[1]),
                                np_batch.dtype)
@@ -482,6 +587,12 @@ class Trainer:
             real = metrics["real_rows"].cpu().numpy()
             loss_sum += float((per_row * real).sum())
             rows += int(real.sum())
+        if self.mesh is not None:
+            sums = torch.tensor([loss_sum, rows], dtype=torch.float64, device=self.device)
+            for axis in ("data", "fsdp"):  # a seq group's ranks hold the same rows
+                if mesh_sizes(self.mesh)[axis] > 1:
+                    dist.all_reduce(sums, group=self.mesh.get_group(axis))
+            loss_sum, rows = float(sums[0]), int(sums[1])
         return loss_sum / rows if rows else None
 
     # -- hooks ---------------------------------------------------------------
@@ -500,6 +611,19 @@ class Trainer:
         run_id = self.tracker.run_id
         model_config = self.model_config.to_dict()
         cuda = self.device.type == "cuda"
+        in_background = self.cfg.background_checkpoint and not wait
+        stats = {"step": step, "background": in_background}
+        ready = None  # a card's copy is done when this event is
+        if self.mesh is not None:
+            # every rank gathers; rank 0 writes its host copy (a snapshot)
+            t0 = time.perf_counter()
+            state = _gathered_to_host(state, keep=self.rank == 0)
+            stats["gather_host_ms"] = (time.perf_counter() - t0) * 1e3
+            if self.rank != 0:
+                return
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
 
         def write(snapshot, stats: dict) -> bool:
             # save() skips a step already in the store, so an exit or
@@ -517,9 +641,11 @@ class Trainer:
                            next_seq_index=next_seq_index)
             return saved
 
-        if not self.cfg.background_checkpoint or wait:
+        if not in_background:
             self._join_checkpoint_thread()
-            write(state, {"step": step, "background": False})
+            if ready is not None:
+                ready.synchronize()
+            write(state, stats)
             return
 
         # one save in flight at a time (bounds the extra device memory to
@@ -530,21 +656,23 @@ class Trainer:
                        checkpoint_skipped=step, reason="previous save still writing")
             return
         self._join_checkpoint_thread()
-        t0 = time.perf_counter()
-        if cuda:
-            begin, ready = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            begin.record()
-        snapshot = _snapshot(state)
-        if cuda:
-            ready.record()
-        stats = {"step": step, "background": True,
-                 "snapshot_host_ms": (time.perf_counter() - t0) * 1e3}
+        snapshot = state
+        if self.mesh is None:
+            t0 = time.perf_counter()
+            if cuda:
+                begin = torch.cuda.Event(enable_timing=True)
+                ready = torch.cuda.Event(enable_timing=True)
+                begin.record()
+            snapshot = _snapshot(state)
+            if cuda:
+                ready.record()
+            stats["snapshot_host_ms"] = (time.perf_counter() - t0) * 1e3
 
         def background() -> None:
             try:
                 host = snapshot
                 t1 = time.perf_counter()
-                if cuda:
+                if cuda and self.mesh is None:
                     # copy into pinned memory on a side stream, after the
                     # clone and nothing else: later steps on the main
                     # stream run meanwhile
@@ -554,6 +682,8 @@ class Trainer:
                         host = _map_state(_pinned_copy, snapshot)
                     copy_stream.synchronize()
                     stats["snapshot_device_ms"] = begin.elapsed_time(ready)
+                elif ready is not None:
+                    ready.synchronize()
                 stats["fetch_s"] = time.perf_counter() - t1
                 write(host, stats)
             except BaseException as e:  # re-raised by _join_checkpoint_thread
@@ -565,13 +695,28 @@ class Trainer:
 
     def _sample_and_log(self, valid_batch, step: int) -> None:
         """Prime with the first ``prime_length`` tokens of a validation row,
-        decode to ``seq_len`` on the JAX key chain, log."""
+        decode to ``seq_len`` on the JAX key chain, log.  Under a mesh every
+        rank gathers the parameters and rank 0 samples from them."""
         cfg = self.cfg
+        if self.mesh is not None:
+            # every rank gathers one whole parameter at a time; rank 0
+            # copies each into its sampling model
+            mine = {}
+            if self.rank == 0:
+                self._sampler()  # builds the sampling model at first use
+                mine = dict(self.sample_model.named_parameters())
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    whole = full_tensor(p.detach())
+                    if mine:
+                        mine[name].copy_(whole)
+            if self.rank != 0:
+                return
         prime = torch.as_tensor(np.asarray(valid_batch[:1, :cfg.prime_length]),
                                 dtype=torch.long, device=self.device)
         t0 = time.perf_counter()
-        sampled = self.sampler(prime, self.model_config.seq_len, key=next(self.keys),
-                               top_k=cfg.sample_top_k)
+        sampled = self._sampler()(prime, self.model_config.seq_len, key=next(self.keys),
+                                  top_k=cfg.sample_top_k)
         prime_str = decode_tokens(prime[0].cpu().numpy())
         sampled_str = decode_tokens(sampled[0, cfg.prime_length:].cpu().numpy())
         self._note_phase("train.sample", t0, step=step)

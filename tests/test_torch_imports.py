@@ -1,7 +1,9 @@
-"""The port stands alone: no module of ``progen_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, flax, optax, orbax, TensorFlow,
-``google_crc32c``, safetensors, click or the JAX package, and the
-port's sampling, serving and training CLIs run on the CPU when asked to."""
+"""The port stands alone: no module of ``progen_tpu_torch``, not
+``chip_smoke.py`` and not the ranks' worker of the multi-rank tests
+(``tests/_torch_parallel_worker.py``) imports JAX, flax, optax, orbax,
+TensorFlow, ``google_crc32c``, safetensors, click or the JAX package, and
+the port's sampling, serving and training CLIs run on the CPU when asked
+to."""
 
 import ast
 import json
@@ -23,7 +25,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "progen_tpu", "tensorflo
 
 
 def _port_files():
-    return sorted((ROOT / "progen_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "progen_tpu_torch").rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_parallel_worker.py"])
 
 
 def _imported_roots(path: Path):
@@ -52,7 +55,9 @@ def test_scan_sees_the_whole_port():
                 "data/tfrecord.py", "data/prefetch.py", "data/fasta.py", "generate_data.py",
                 "checkpoint/store.py", "observe/meter.py", "observe/tracker.py",
                 "resilience/watchdog.py", "train/trainer.py", "train/lora.py",
-                "workloads/__init__.py", "workloads/lora.py", "workloads/infill.py"):
+                "workloads/__init__.py", "workloads/lora.py", "workloads/infill.py",
+                "core/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
+                "parallel/context.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
