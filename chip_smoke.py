@@ -138,14 +138,38 @@ non-zero without its last line:
    name and power limit.  The card is one H100 and NCCL refuses two ranks
    on one GPU, so (b) is the on-card witness of what ``sp`` does across
    ranks; the CPU tests run the ranks;
-12. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
+12. the engine's resume and operations (``engine_lifecycle``, run after
+   phase 9 on its model): ProGen-small (bf16, 8 slots, chunk 32) on the 12
+   requests of phase 7, dense, paged, 8-bit pages, speculative (identity
+   draft), disaggregated (paged) and a workloads mode (paged, a LoRA bank
+   of 4 tenants, an infill, an embed, a fork, a request shed at submit, a
+   600-residue prime in a cold admit bucket, 8 priority requests that
+   preempt); every engine beats one watchdog of 30 s, which must not trip.
+   (a) in every mode a snapshot after 2 steps, restored on a fresh engine,
+   replays to the uninterrupted run's answers token for token (the
+   uninterrupted runs of phase 7 where there is one); (b) dense and paged,
+   ``run_with_restarts`` through a decode fault with no in-place retry
+   builds 2 engines and gives the same answers; (c) dense and 8-bit, a
+   reload at idle from weights P0 to P1 gives a fresh P1 engine's answers
+   (its serving weights bit-equal under 8-bit pages), every completion of
+   generation 1; (e) tracing on changes no token, the merged trace holds
+   every ``serve.*`` span and event name and ``engine.decode_chunk_s``
+   counts every chunk; (f) a ``Trainer`` with ``statusz_port=0`` takes 3
+   steps and answers /healthz and /metricsz (``train_loss``) on loopback;
+   (g) after each engine and Trainer is closed and deleted the live memory
+   is back within 256 MB of the phase's start.  Snapshot and restore ms
+   and bytes, the replay's extra launches by kernel, tokens/s with tracing
+   off and on and the live bytes after each delete, beside the card's name
+   and power limit;
+13. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
 
 Every earlier phase runs at the depth and the step count it always had;
-the whole takes seven to ten minutes on an H100 (by the host's pace), the
+the whole takes nine to twelve minutes on an H100 (by the host's pace), the
 build included.
-``engine_workloads_alone()`` runs phases 9 and 10 on their own.
+``engine_workloads_alone()`` runs phases 9 and 10 on their own,
+``engine_lifecycle_alone()`` phase 12.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -164,6 +188,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from pathlib import Path
 from unittest import mock
 
@@ -180,7 +205,7 @@ from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
 from progen_tpu_torch.data.tokenizer import encode_tokens
 from progen_tpu_torch.decode import incremental
-from progen_tpu_torch.decode.engine import Request, ServingEngine
+from progen_tpu_torch.decode.engine import Request, ServingEngine, run_with_restarts
 from progen_tpu_torch.decode.prefill import make_embedder, make_prefiller, pad_prime_length
 from progen_tpu_torch.decode.sampler import (
     make_chunked_sampler,
@@ -198,8 +223,12 @@ from progen_tpu_torch.ops.local_attention import (
     window_mask,
 )
 from progen_tpu_torch.ops.quant import quantize_rows, quantize_w
+from progen_tpu_torch.observe.metrics import get_registry
+from progen_tpu_torch.observe.trace import configure_tracing, merge_trace_dir, trace_dump_path
 from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
+from progen_tpu_torch.resilience import faults
+from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.step import make_train_functions
@@ -1158,7 +1187,8 @@ def run_trainer(c, ckpt: Path, runs: Path, max_steps: int, device, **overrides):
     from ``ckpt`` when it holds a checkpoint; returns the trainer, its
     result, each train step's kernel launches and the tracker's rows."""
     trainer = Trainer(c, trainer_config(max_steps, **overrides), str(TRAINER_DATA),
-                      str(ckpt), tracker=Tracker(out_dir=str(runs)), device=device)
+                      str(ckpt), tracker=Tracker(out_dir=str(runs), use_wandb=False),
+                      device=device)
     per_step = []
     real_step = trainer.fns.train_step
 
@@ -1739,11 +1769,14 @@ def describe(engine_kwargs: dict) -> dict:
     return out
 
 
-def engine_modes(model, requests, dense: dict, paged: dict, q8: dict) -> dict:
+def engine_modes(model, requests, dense: dict, paged: dict, q8: dict,
+                 runs: dict | None = None) -> dict:
     """Speculative decoding and disaggregated prefill at ProGen-small, each
     held to the plain engine's tokens in its mode (``dense``, ``paged``,
     ``q8``): the ``draft_config_for`` draft (random weights from the seed)
-    and the identity draft, spec_k 4.  Returns each phase's launches."""
+    and the identity draft, spec_k 4.  Returns each phase's launches; fills
+    ``runs`` with the identity-draft and disaggregated runs (tokens,
+    launches) by phase."""
     draft = ProGen(draft_config_for(model.config), make_policy(True), device="cuda",
                    seed=SEED).eval()
     out = {}
@@ -1751,15 +1784,19 @@ def engine_modes(model, requests, dense: dict, paged: dict, q8: dict) -> dict:
         "engine_spec_paged", model, requests, want=paged, paged=True, spec=True,
         spec_k=ENGINE_SPEC_K, draft_params=draft)
     require(engine.draft_config.dim == model.config.dim // 4, "not the draft config")
-    _, out["engine_spec_identity"], engine = run_engine(
+    tokens, out["engine_spec_identity"], engine = run_engine(
         "engine_spec_identity", model, requests, want=dense, spec=True,
         spec_k=ENGINE_SPEC_K)
+    if runs is not None:
+        runs["engine_spec_identity"] = (tokens, out["engine_spec_identity"])
     counters = engine.spec_counters()
     require(counters["accepted_tokens_per_round"] > 1.0
             and counters["accepted_tokens_per_slot_round"] > 1.0,
             f"the identity draft accepted nothing: {counters}")
-    _, out["engine_disagg_paged"], engine = run_engine(
+    tokens, out["engine_disagg_paged"], engine = run_engine(
         "engine_disagg_paged", model, requests, want=paged, paged=True, disagg=True)
+    if runs is not None:
+        runs["engine_disagg_paged"] = (tokens, out["engine_disagg_paged"])
     handoff = engine.robustness_counters()["handoff"]
     require(handoff["puts"] == handoff["gets"] > 0 and engine.stage_seconds["merge_s"] > 0,
             f"engine_disagg_paged: handoff {handoff}")
@@ -2317,6 +2354,423 @@ def engine_workloads_alone() -> dict:
     return out
 
 
+# -- phase 12: the engine's resume and operations ------------------------------
+
+LIFECYCLE_WATCHDOG_S = 30.0        # no step may take longer (cold dispatches exempt)
+LIFECYCLE_SNAPSHOT_STEPS = 2       # steps before the mid-run snapshot
+LIFECYCLE_FAULT = "serve.decode_chunk:unavailable:at=2"
+LIFECYCLE_TRAINER_STEPS = 3
+LIFECYCLE_MEMORY_SLACK = 256 << 20  # live bytes allowed above the phase's start
+LIFECYCLE_TRACE_CAPACITY = 1 << 16
+# the engine's span and event names the phase's trace must hold
+SERVE_SPANS = ("serve.submit", "serve.submit_embed", "serve.submit_fork",
+               "serve.admit_prefill", "serve.prefill", "serve.merge",
+               "serve.decode_chunk", "serve.harvest", "serve.embed", "serve.shed",
+               "serve.preempt")
+# the modes, and which of them the restart (b) and the reload (c) run in:
+# the restart's fault plan hits serve.decode_chunk, which a speculative
+# engine does not pass (it verifies); the reload is held bit for bit under
+# 8-bit pages and plain
+LIFECYCLE_MODES = ("dense", "paged", "weights+pages", "spec", "disagg", "workloads")
+LIFECYCLE_RESTARTS = ("dense", "paged")
+LIFECYCLE_RELOADS = ("dense", "weights+pages")
+
+
+def lifecycle_engine_kwargs(mode: str, bank) -> dict:
+    return {"dense": {}, "paged": {"paged": True},
+            "weights+pages": {"paged": True, "quantize": "weights+pages"},
+            "spec": {"spec": True, "spec_k": ENGINE_SPEC_K},
+            "disagg": {"paged": True, "disagg": True},
+            "workloads": {"paged": True, "lora_bank": bank}}[mode]
+
+
+def lifecycle_queue(c, requests: list[dict], bank) -> dict:
+    """What each mode serves: the 12 ``engine_requests`` (``first``); in the
+    workloads mode on tenants ``i % 4``, with a masked infill request, an
+    embed, a best-of-2 fork off a 64-residue prime, a request whose deadline
+    is spent at submit (shed), a 600-residue prime (an admit bucket of 1024,
+    cold for every engine before) and, once every slot is busy, 8 short
+    requests of priority 1 (``late``: they preempt).  There every generate
+    request's mask forbids EOS, so each runs its length and the slots fill
+    at the first step."""
+    if bank is None:
+        return {"first": requests, "embeds": [], "forks": [], "late": []}
+    rng = np.random.default_rng(SEED + 12)
+
+    def no_eos(r: dict) -> dict:
+        mask = np.ones((r["max_new_tokens"], c.num_tokens), bool)
+        mask[:, 0] = False
+        return {**r, "logit_mask": mask}
+
+    scaffold = ScaffoldSpec(
+        template=[0] + residues(rng, 48)
+        + [None if g % 3 else tuple(encode_tokens("AILMFVW")) for g in range(40)],
+        vocab=c.num_tokens, alphabet=sorted(set(encode_tokens(AMINO))))
+    first = [no_eos(r) for r in with_tenants(requests, bank)] + [
+        {"uid": 12, "seed": 4000, "top_k": 25, "temperature": 1.0, "tenant": 1,
+         "workload": "infill", **scaffold.request_kwargs()},
+        {"uid": 13, "tokens": [0] + residues(rng, 99), "max_new_tokens": 64,
+         "seed": 4001, "ttl": -1.0},
+        no_eos({"uid": 14, "tokens": [0] + residues(rng, 599), "max_new_tokens": 48,
+                "top_k": 25, "seed": 4002, "tenant": 2})]
+    return {"first": first,
+            "embeds": [{"uid": 15, "tokens": [0] + residues(rng, 300), "workload": "embed"}],
+            "forks": [no_eos({"uid": 16, "tokens": [0] + residues(rng, 63),
+                              "max_new_tokens": 48, "top_k": 25, "temperature": 1.0,
+                              "seed": 4003})],
+            "late": [no_eos({"uid": 18 + j, "tokens": [0] + residues(rng, 40),
+                             "max_new_tokens": 8, "seed": 4004 + j, "priority": 1,
+                             "tenant": 3})
+                     for j in range(ENGINE_SLOTS)],
+            "scaffold": scaffold}
+
+
+def lifecycle_drive(engine, queue: dict, steps: int | None = None) -> list:
+    """Submit ``queue`` and step ``engine`` to idle, or ``steps`` steps; the
+    ``late`` requests go in at the first step boundary where every slot is
+    busy (so the next step preempts for them), and the steps are counted
+    from there.  Returns the completions."""
+    for r in queue["first"]:
+        engine.submit(Request(**r))
+    for r in queue["embeds"]:
+        engine.submit_embed(Request(**r))
+    for r in queue["forks"]:
+        engine.submit_fork(Request(**r), 2)
+    done, late, taken = [], list(queue["late"]), 0
+    while engine.has_work or late:
+        done += engine.step()
+        if late and (engine.num_active >= engine.num_slots or not engine.has_work):
+            for r in late:
+                engine.submit(Request(**r))
+            late = []
+        require(engine.chunks_run <= 400, "engine_lifecycle: a run took over 400 chunks")
+        if steps is not None and not late:
+            taken += 1
+            if taken >= steps:
+                break
+    return done
+
+
+def lifecycle_answers(completions) -> dict:
+    """Completions by uid: tokens, status, and an embedding's bytes."""
+    return {comp.uid: (comp.tokens.tolist(), comp.status,
+                       None if comp.embedding is None else comp.embedding.tobytes())
+            for comp in completions}
+
+
+class Lifecycle:
+    """The phase's shared state: the model, the watchdog every engine beats,
+    the memory the phase began at and each delete's live bytes, the launch
+    counts of each run."""
+
+    def __init__(self, model, watchdog, bank):
+        self.model, self.watchdog, self.bank = model, watchdog, bank
+        self.c = model.config
+        self.start_bytes = torch.cuda.memory_allocated()
+        self.after_delete: list[dict] = []
+
+    def engine(self, mode: str, model=None, **kw) -> ServingEngine:
+        """An engine of ``mode`` over ``model`` (the phase's by default; a
+        config with ``seed``: weights of its own)."""
+        return ServingEngine(model or self.model, num_slots=ENGINE_SLOTS,
+                             chunk_size=ENGINE_CHUNK, max_len=self.c.seq_len,
+                             page_size=ENGINE_PAGE, watchdog=self.watchdog,
+                             **lifecycle_engine_kwargs(mode, self.bank), **kw)
+
+    def deleted(self, what: str) -> None:
+        """After an engine or Trainer is closed and its last reference
+        dropped: the live bytes must be back within the slack of the start."""
+        gc.collect()
+        live = torch.cuda.memory_allocated()
+        self.after_delete.append({"after": what, "live_bytes": live,
+                                  "above_start_bytes": live - self.start_bytes})
+        require(live - self.start_bytes <= LIFECYCLE_MEMORY_SLACK,
+                f"engine_lifecycle: {live - self.start_bytes} bytes above the phase's "
+                f"start after deleting {what} (slack {LIFECYCLE_MEMORY_SLACK})")
+
+    def run(self, mode: str, queue: dict, label: str = "uninterrupted run") -> dict:
+        """One uninterrupted run: answers, launches, tokens/s, chunks and the
+        decode-chunk histogram's count over it, the admit buckets."""
+        hist = get_registry().histogram("engine.decode_chunk_s")
+        engine = self.engine(mode)
+        torch.cuda.synchronize()
+        before, count0, t0 = read_counts(), hist.count, time.perf_counter()
+        done = lifecycle_drive(engine, queue)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        after = read_counts()
+        out = {"answers": lifecycle_answers(done),
+               "launches": {k: after[k] - before[k] for k in after},
+               "tokens_per_s": sum(len(comp.tokens) for comp in done) / seconds,
+               "seconds": seconds, "chunks_run": engine.chunks_run,
+               "histogram_count": hist.count - count0,
+               "admit_buckets": sorted(k[1] for k in engine._compiled_keys
+                                       if k[0] == "admit")}
+        engine.close()
+        del engine
+        self.deleted(f"{mode}: {label}")
+        return out
+
+    def snapshot_replay(self, mode: str, queue: dict, ref: dict, path: Path):
+        """(a): LIFECYCLE_SNAPSHOT_STEPS steps, a snapshot to ``path``, a
+        fresh engine restores it and replays; the completions before plus
+        the replay must equal the uninterrupted run's.  Returns the fields
+        and the replay's engine (idle, for the reload)."""
+        before = read_counts()
+        engine = self.engine(mode)
+        lifecycle_drive(engine, queue, steps=LIFECYCLE_SNAPSHOT_STEPS)
+        t0 = time.perf_counter()
+        snap = engine.snapshot(str(path))
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        pre = lifecycle_answers(engine.completions)
+        in_flight = engine.num_active
+        engine.close()
+        del engine
+        self.deleted(f"{mode}: the snapshotted engine")
+        fresh = self.engine(mode)
+        t0 = time.perf_counter()
+        restored = fresh.restore(str(path))
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        post = lifecycle_answers(fresh.run_until_idle(max_chunks=400))
+        after = read_counts()
+        require(restored == len(snap["requests"]) > 0 and not set(pre) & set(post),
+                f"{mode}: restored {restored} of {len(snap['requests'])}; "
+                f"answered twice: {set(pre) & set(post)}")
+        differ = sorted(u for u in ref["answers"] if {**pre, **post}.get(u) != ref["answers"][u])
+        launches = {k: after[k] - before[k] for k in after}
+        fields = {"snapshot_ms": snapshot_ms, "snapshot_bytes": path.stat().st_size,
+                  "snapshot_requests": len(snap["requests"]), "in_flight_at_snapshot": in_flight,
+                  "completed_before_snapshot": len(pre), "restore_ms": restore_ms,
+                  "replay_launches": launches,
+                  "replay_extra_launches": {k: launches[k] - ref["launches"][k]
+                                            for k in ("local_attention_fwd", "sgu_fwd",
+                                                      "paged_gate_mix", "paged_gate_mix_q8")},
+                  "replay_differs": differ}
+        require(not differ and set({**pre, **post}) == set(ref["answers"]),
+                f"{mode}: the snapshot's replay differs from the uninterrupted run at {differ}")
+        return fields, fresh
+
+    def restart(self, mode: str, queue: dict, ref: dict) -> dict:
+        """(b): ``run_with_restarts`` through LIFECYCLE_FAULT with no in-place
+        retry: two engines built, the uninterrupted run's answers."""
+        built = []
+
+        def factory():
+            built.append(self.engine(mode, fault_retries=0))
+            return built[-1]
+
+        faults.configure(LIFECYCLE_FAULT)
+        try:
+            done = run_with_restarts(factory, [Request(**r) for r in queue["first"]],
+                                     attempts=3, max_chunks=400)
+        finally:
+            faults.reset()
+        engines = len(built)
+        del built
+        self.deleted(f"{mode}: run_with_restarts' engines")
+        differ = sorted(u for u, a in lifecycle_answers(done).items()
+                        if a != ref["answers"][u])
+        require(engines == 2 and not differ
+                and set(lifecycle_answers(done)) == set(ref["answers"]),
+                f"{mode}: run_with_restarts built {engines} engines, differs at {differ}")
+        return {"engines_built": engines, "restart_differs": differ}
+
+    def reload(self, mode: str, engine, queue: dict, fresh_p1: dict,
+               p1_state: dict, p1_model_state: dict | None) -> dict:
+        """(c): the idle ``engine`` reloads P1; its answers must be a fresh
+        P1 engine's (``fresh_p1``), every completion of generation 1, and
+        under ``quantize`` its serving weights bit-equal to the fresh one's
+        (``p1_model_state``)."""
+        t0 = time.perf_counter()
+        generation = engine.reload_weights(params=p1_state)
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        done = lifecycle_drive(engine, queue)
+        answers = lifecycle_answers(done)
+        differ = sorted(u for u in fresh_p1["answers"] if answers.get(u) != fresh_p1["answers"][u])
+        weights_equal = None
+        if p1_model_state is not None:
+            weights_equal = all(torch.equal(v, p1_model_state[k].to(v.device))
+                                for k, v in engine.model.state_dict().items())
+        generations = sorted({comp.generation for comp in done})
+        engine.close()
+        require(generation == 1 and generations == [1] and not differ
+                and weights_equal in (None, True),
+                f"{mode}: reload generation {generation} {generations}, differs from a "
+                f"fresh P1 engine at {differ}, weights equal {weights_equal}")
+        return {"reload_ms": reload_ms, "reload_differs": differ,
+                "reload_weights_bit_equal": weights_equal}
+
+
+def engine_lifecycle(model, requests: list[dict], refs: dict | None = None) -> dict:
+    """Phase 12: the engine's resume and operations at ProGen-small (bf16, 8
+    slots, chunk 32, page 16) on ``requests`` (the 12 ``engine_requests``),
+    dense, paged, 8-bit pages, speculative (identity draft), disaggregated
+    (paged) and the workloads mode (paged, a LoRA bank of 4 tenants, an
+    infill, an embed, a fork, a shed, a cold bucket and a late priority).
+    ``refs`` holds earlier phases' uninterrupted runs by mode (answers and
+    launches); a mode without one runs it here.  Checks: (a) a snapshot after
+    two steps restored on a fresh engine replays to the uninterrupted
+    answers; (b) ``run_with_restarts`` through a decode fault builds 2
+    engines and gives the same answers (dense, paged); (c) ``reload_weights``
+    at idle from P0 to P1 gives a fresh P1 engine's answers, the serving
+    weights bit-equal under 8-bit pages, generation 1 (dense, 8-bit); (d) a
+    watchdog of 30 s beaten by every engine never trips; (e) tracing on
+    changes no token, the trace holds every engine span name, and the
+    decode-chunk histogram counts every chunk; (f) a Trainer with
+    ``statusz_port=0`` answers /healthz and /metricsz with ``train_loss``;
+    (g) after each engine and Trainer is closed and deleted, the live
+    memory is back within 256 MB of the phase's start.  The launch counts
+    are set to 0 just before and read just after; returns them."""
+    refs = dict(refs or {})
+    smi = smi_name_power()
+    c = model.config
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-lifecycle-"))
+    trips = []
+    watchdog = Watchdog(LIFECYCLE_WATCHDOG_S, out_dir=str(root / "watchdog"),
+                        exit_fn=trips.append, label="engine_lifecycle")
+    bank = random_lora_bank(c, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
+    queues = {mode: lifecycle_queue(c, requests, bank if mode == "workloads" else None)
+              for mode in LIFECYCLE_MODES}
+    sigterm = signal.getsignal(signal.SIGTERM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    life = Lifecycle(model, watchdog, bank)
+    t0 = time.perf_counter()
+    reset_counts()
+    watchdog.start()
+    try:
+        # (e) first, tracing off: the paged run timed without spans, and
+        # against the earlier phase's paged run (the same answers)
+        off = life.run("paged", queues["paged"], label="tracing off")
+        if "paged" in refs:
+            require(off["answers"] == refs["paged"]["answers"],
+                    "engine_lifecycle: the paged run differs from the engine_paged phase's")
+        refs["paged"] = off
+        tracer = configure_tracing(enabled=True, capacity=LIFECYCLE_TRACE_CAPACITY,
+                                   process="smoke")
+        tracer.clear()
+        on = life.run("paged", queues["paged"], label="tracing on")
+        require(on["answers"] == off["answers"], "engine_lifecycle: tracing changed the tokens")
+        require(on["histogram_count"] == on["chunks_run"] > 0,
+                f"engine_lifecycle: engine.decode_chunk_s counted {on['histogram_count']} "
+                f"of {on['chunks_run']} chunks")
+        emit("engine_lifecycle_tracing", nvidia_smi=smi, tokens_per_s_tracing_off=off["tokens_per_s"],
+             tokens_per_s_tracing_on=on["tokens_per_s"], chunks_run=on["chunks_run"],
+             decode_chunk_histogram_count=on["histogram_count"], seconds_off=off["seconds"],
+             seconds_on=on["seconds"])
+
+        # weights P1: fresh engines that build their own from another seed
+        p1_state, fresh_p1 = None, {}
+        for mode in LIFECYCLE_RELOADS:
+            engine = life.engine(mode, c, policy=make_policy(True), device="cuda",
+                                 seed=SEED + 1)
+            if p1_state is None:
+                require(not engine.quantize, "the first fresh P1 engine must hold P1 whole")
+                p1_state = {k: v.detach().cpu() for k, v in engine.model.state_dict().items()}
+            fresh_p1[mode] = {"answers": lifecycle_answers(lifecycle_drive(engine, queues[mode])),
+                              "weights": ({k: v.cpu() for k, v in engine.model.state_dict().items()}
+                                          if engine.quantize else None)}
+            engine.close()
+            del engine
+            life.deleted(f"{mode}: a fresh engine on P1")
+
+        for mode in LIFECYCLE_MODES:
+            if mode not in refs:
+                refs[mode] = life.run(mode, queues[mode])
+            ref = refs[mode]
+            fields, engine = life.snapshot_replay(mode, queues[mode], ref,
+                                                  root / f"snapshot_{mode}.json")
+            if mode in LIFECYCLE_RELOADS:
+                fields.update(life.reload(mode, engine, queues[mode], fresh_p1[mode],
+                                          p1_state, fresh_p1[mode]["weights"]))
+            engine.close()
+            del engine
+            life.deleted(f"{mode}: the replay's engine")
+            if mode in LIFECYCLE_RESTARTS:
+                fields.update(life.restart(mode, queues[mode], ref))
+            if mode == "workloads":
+                require(1024 in ref["admit_buckets"],
+                        f"no cold admit bucket of 1024: {ref['admit_buckets']}")
+            emit("engine_lifecycle", mode=mode, nvidia_smi=smi, **fields)
+        del p1_state, fresh_p1
+        engine_launches, routes = read_counts(), read_routes()
+        require_forward_routes(routes, engine_launches, True, "engine_lifecycle")
+        mixes = engine_launches["paged_gate_mix"] + engine_launches["paged_gate_mix_q8"]
+        require(routes["paged_gate_mix"] == {"bulk": mixes, "simt": 0} and mixes > 0,
+                f"engine_lifecycle: paged gate mix launches by route {routes['paged_gate_mix']}")
+
+        # (e) the trace of every run since tracing went on
+        (root / "trace").mkdir()
+        tracer.dump(trace_dump_path(str(root / "trace"), "smoke"))
+        configure_tracing(enabled=False, process="main")
+        trace_file = merge_trace_dir(str(root / "trace"))
+        names = {e["name"] for e in json.loads(Path(trace_file).read_text())["traceEvents"]}
+        missing = sorted(set(SERVE_SPANS) - names)
+        tracer.clear()
+        require(not missing, f"engine_lifecycle: the trace lacks {missing}")
+
+        statusz = lifecycle_statusz(c, root, life)
+    finally:
+        watchdog.stop()
+        configure_tracing(enabled=False, process="main")
+        faults.reset()
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+    require(not watchdog.tripped and not trips, f"engine_lifecycle: the watchdog tripped {trips}")
+    launches = read_counts()
+    emit("engine_lifecycle_summary", nvidia_smi=smi, seconds=time.perf_counter() - t0,
+         modes=list(LIFECYCLE_MODES),
+         watchdog_timeout_s=LIFECYCLE_WATCHDOG_S, watchdog_tripped=False,
+         trace_span_names=sorted(n for n in names if n.startswith("serve.")),
+         statusz=statusz, start_bytes=life.start_bytes, after_delete=life.after_delete,
+         launches=launches)
+    return {"engine_lifecycle": {**launches,
+                                 "paged_gate_mix_by_route": routes["paged_gate_mix"]}}
+
+
+def lifecycle_statusz(c, root: Path, life: Lifecycle) -> dict:
+    """(f): a Trainer with ``statusz_port=0`` takes LIFECYCLE_TRAINER_STEPS
+    steps over ``train_data_synth/``; /healthz and /metricsz answer on
+    loopback, /metricsz with ``train_loss``; then it is closed and
+    deleted."""
+    never = 100 * LIFECYCLE_TRAINER_STEPS
+    trainer = Trainer(c, trainer_config(
+        LIFECYCLE_TRAINER_STEPS, statusz_port=0, prefetch_depth=0, warm_sampler=False,
+        checkpoint_every=never, validate_every=never, sample_every=never),
+        str(TRAINER_DATA), str(root / "ck"),
+        tracker=Tracker(out_dir=str(root / "runs"), use_wandb=False), device="cuda")
+    try:
+        out = trainer.run()
+        base = f"http://127.0.0.1:{trainer.statusz_port}"
+        with urllib.request.urlopen(f"{base}/healthz", timeout=10) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(f"{base}/metricsz", timeout=10) as resp:
+            metrics = resp.read().decode()
+    finally:
+        trainer.close()
+        trainer.tracker.finish()
+    loss = [line for line in metrics.splitlines() if line.startswith("train_loss ")]
+    require(health["status"] == "ok" and health["last_step"]["step"] == LIFECYCLE_TRAINER_STEPS
+            and loss == [f"train_loss {out['loss']!r}"],
+            f"engine_lifecycle: statusz answered {health} and {loss}")
+    fields = {"port": trainer.statusz_port, "healthz_last_step": health["last_step"]["step"],
+              "metricsz_train_loss": loss[0], "metricsz_lines": len(metrics.splitlines())}
+    del trainer, out
+    shutil.rmtree(root / "ck", ignore_errors=True)
+    life.deleted("the statusz Trainer")
+    return fields
+
+
+def engine_lifecycle_alone() -> dict:
+    """The engine_lifecycle phase with what it needs (the build, the model,
+    the uninterrupted runs), on its own:
+    ``python3 -c "import chip_smoke as cs; cs.engine_lifecycle_alone()"``."""
+    kernels.build()
+    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
+    return engine_lifecycle(model, engine_requests(SMALL))
+
+
 # -- phase 11: across ranks ----------------------------------------------------
 
 # K1 with a halo (b, h, n, d, wsz), dtype, timed: bf16 on the Hopper route
@@ -2673,6 +3127,7 @@ def main() -> int:
 
     requests = engine_requests(SMALL)
     engine_launches = {}
+    runs = {}  # uninterrupted engine runs the lifecycle phase replays against
     dense, engine_launches["engine_dense"], _ = run_engine("engine_dense", model, requests)
     full, engine_launches["engine_paged"], engine = run_engine(
         "engine_paged", model, requests, paged=True)
@@ -2680,7 +3135,7 @@ def main() -> int:
     q8, engine_launches["engine_paged_q8"], engine = run_engine(
         "engine_paged_q8", model, requests, paged=True, quantize="weights+pages")
     require(engine.prefix_hits > 0, "the prefix cache found nothing to share (q8)")
-    engine_launches.update(engine_modes(model, requests, dense, full, q8))
+    engine_launches.update(engine_modes(model, requests, dense, full, q8, runs))
     tight, engine_launches["engine_tight_pool"], engine = run_engine(
         "engine_tight_pool", model, requests, paged=True, num_pages=ENGINE_TIGHT_PAGES)
     require(engine.pause_events > 0 and engine.evictions > 0,
@@ -2695,7 +3150,18 @@ def main() -> int:
     emit("engine_vs_plain", **check_engine_steps_against_plain(reference, None))
     emit("engine_paged_vs_dense", **check_paged_engine_against_dense(reference))
     engine_launches.update(engine_workloads(model, reference))
-    del model, reference
+    del reference
+    gc.collect()
+    refs = {mode: {"answers": {u: (t, "ok", None) for u, t in tokens.items()},
+                   "launches": launches}
+            for mode, (tokens, launches) in (
+                ("dense", (dense, engine_launches["engine_dense"])),
+                ("paged", (full, engine_launches["engine_paged"])),
+                ("weights+pages", (q8, engine_launches["engine_paged_q8"])),
+                ("spec", runs["engine_spec_identity"]),
+                ("disagg", runs["engine_disagg_paged"]))}
+    engine_launches.update(engine_lifecycle(model, requests, refs))
+    del model, refs
     gc.collect()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)

@@ -6,6 +6,7 @@ from progen_tpu_torch.decode.engine import (
     Completion,
     Request,
     ServingEngine,
+    run_with_restarts,
 )
 from progen_tpu_torch.decode.handoff import Handle, HandoffQueue
 from progen_tpu_torch.decode.incremental import (
@@ -64,6 +65,7 @@ __all__ = [
     "make_sampler",
     "pad_prime_length",
     "prime_buckets",
+    "run_with_restarts",
     "scatter_gate_rows",
     "spec_acceptance",
     "spec_round",

@@ -96,14 +96,33 @@ prefix cache the followers wait until the leader's prefix pages are
 published and are admitted as prefix hits.  A ``logit_mask``
 (``workloads/infill.py:ScaffoldSpec``) constrains each generated position.
 
+**Operations**: :meth:`ServingEngine.snapshot` writes the unfinished
+requests as host-side JSON (the JAX engine's format, so a snapshot crosses
+between the packages) and :meth:`ServingEngine.restore` replays them on a
+fresh engine from the prime: a trajectory depends only on (weights, prime,
+seed, knobs), so the replay is token-identical.  :func:`run_with_restarts`
+serves across engine crashes by snapshot, fresh engine, restore.
+:meth:`ServingEngine.reload_weights` swaps the served weights (or the LoRA
+bank) in place and bumps ``generation``, which every completion carries.  A
+``watchdog`` gets a beat per ``step()`` and is paused around each program's
+first dispatch (a bucket's first launches, and the kernels' first-use
+build).  Every guarded dispatch feeds ``stage_seconds``, the ``engine.*_s``
+histograms of the process metrics registry (``observe/metrics.py``) and the
+process tracer (``observe/trace.py``: a no-op unless tracing is on); each
+``step()`` refreshes the queue, in-flight and cache gauges.
+:meth:`ServingEngine.close` releases the engine's device state.
+
 Not ported yet (each raises ``NotImplementedError`` or is absent): remote
-prefill (the handoff's wire format), meshes, snapshot/restore, weight
-reload, warm-up, the watchdog.
+prefill (the handoff's wire format), meshes, ahead-of-time warm-up.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
+import os
+import sys
 import time
 from collections import deque
 from typing import Any, Callable, Sequence
@@ -147,10 +166,14 @@ from progen_tpu_torch.decode.sampler import (
 )
 from progen_tpu_torch.decode.spec import check_draft_config, spec_round
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
+from progen_tpu_torch.observe import metrics as _metrics
+from progen_tpu_torch.observe import trace as _obs_trace
 from progen_tpu_torch.observe.robustness import RobustnessCounters
 from progen_tpu_torch.ops.quant import quantize_params
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.retry import RetryError, default_classifier
+from progen_tpu_torch.resilience.watchdog import Watchdog
+from progen_tpu_torch.workloads.infill import mask_from_wire, mask_to_wire
 from progen_tpu_torch.workloads.lora import cast_bank, validate_lora_bank
 
 EOS_ID = 0
@@ -174,7 +197,6 @@ _NOT_PORTED = {
     "mesh": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
     "strategies": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
     "params_shardings": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
-    "watchdog": "the watchdog (ROADMAP.md Queue 1, engine modes: watchdog)",
     "paged_impl": "an impl switch: the port has none, a CUDA tensor always "
                   "takes the hand-written kernel (PERF.md, the dropped degrade path)",
 }
@@ -235,7 +257,9 @@ class Completion:
     type, mirrored into ``finish_reason``.  ``first_token_time`` is the
     instant the admission dispatch returned (None for sheds before it and
     for embeddings).  An embedding completion has ``finish_reason
-    "embed"``, no tokens and its ``(dim,)`` f32 ``embedding``."""
+    "embed"``, no tokens and its ``(dim,)`` f32 ``embedding``.
+    ``generation`` is the engine's weight generation when the request
+    finished (``reload_weights`` bumps it; 0 for a never-reloaded engine)."""
 
     uid: Any
     prime: np.ndarray
@@ -246,6 +270,7 @@ class Completion:
     status: str = STATUS_OK
     first_token_time: float | None = None
     embedding: np.ndarray | None = None
+    generation: int = 0
 
     @property
     def latency(self) -> float:
@@ -319,6 +344,13 @@ class ServingEngine:
     without ``draft_params`` draws the draft's weights from ``seed``; an
     explicit draft keeps its own weights (full precision unless given
     quantized), the identity draft the target's.
+
+    ``watchdog`` (``resilience/watchdog.py``) gets a beat per ``step()`` and
+    is paused around the first dispatch of each program (an admit or
+    prefill bucket, the decode chunk, the merge, an embed bucket).  The
+    port's compile, the kernels' ``nvcc`` build at first use, happens
+    inside such a first dispatch: a program that launches a kernel does so
+    on its first dispatch.
     """
 
     def __init__(self, model: ProGen | ProGenConfig, *,
@@ -333,7 +365,8 @@ class ServingEngine:
                  draft_config: ProGenConfig | None = None,
                  draft_params: ProGen | None = None, disagg: bool = False,
                  prefill_batch: int | None = None, handoff_depth: int = 2,
-                 lora_bank: dict | None = None, **not_ported):
+                 lora_bank: dict | None = None, watchdog: Watchdog | None = None,
+                 **not_ported):
         if spec and lora_bank is not None:
             # the draft and commit steps carry no tenant state (as in JAX)
             raise ValueError("lora_bank does not compose with spec=True")
@@ -343,6 +376,9 @@ class ServingEngine:
             raise NotImplementedError(
                 f"ServingEngine({name}=...): the port does not have "
                 f"{_NOT_PORTED[name]}")
+        # whether the served model is the engine's own (built here, or the
+        # int8 copy under ``quantize``): reload_weights writes only into one
+        self._owns_model = isinstance(model, ProGenConfig)
         if isinstance(model, ProGenConfig):
             model = ProGen(model, policy, device=device, seed=seed)
         model = model.eval()
@@ -368,6 +404,10 @@ class ServingEngine:
         self.max_queue = max_queue
         self.shed_policy = shed_policy
         self.fault_retries = fault_retries
+        self._watchdog = watchdog
+        # program keys whose first dispatch has run (the watchdog is paused
+        # around each key's first one)
+        self._compiled_keys: set[tuple] = set()
         self.robust = RobustnessCounters()
         self._pending: list[Completion] = []   # sheds awaiting step() return
         self._draining = False
@@ -378,6 +418,16 @@ class ServingEngine:
         # of the vectors, so it holds the device's time too.
         self.stage_seconds = {"prefill_s": 0.0, "merge_s": 0.0,
                               "decode_chunk_s": 0.0, "embed_s": 0.0}
+        # the same deltas feed the process tracer (no-op unless enabled)
+        # and the process metrics registry's per-stage histograms
+        self._tracer = _obs_trace.get_tracer()
+        registry = _metrics.get_registry()
+        self._stage_hist = {stage: registry.histogram(f"engine.{stage}")
+                            for stage in self.stage_seconds}
+        self._qos_gauge_keys: set = set()
+        # weight generation: bumped by reload_weights(); completions carry
+        # the generation current when they finish
+        self.generation = 0
         # best-of-N forks (submit_fork): leader uid -> held followers
         self._fork_wait: dict[Any, list[Request]] = {}
         self.fork_groups = 0
@@ -390,8 +440,14 @@ class ServingEngine:
                              "(the 8-bit gate format is a page format)")
         self.quantize = quantize
         self.gate_dtype = "int8" if quantize == "weights+pages" else "bf16"
-        if quantize and model.weights != "int8":
+        # reload_weights() takes weights in the layout the engine was given
+        # (full precision, quantized at the door under ``quantize``)
+        self._weights_spec = {k: (tuple(v.shape), v.dtype)
+                              for k, v in model.state_dict().items()}
+        self._requantize = bool(quantize) and model.weights != "int8"
+        if self._requantize:
             model = self._quantize_variables(model)
+            self._owns_model = True
         self.model = model
         self._rows = torch.arange(num_slots, device=self.device)
 
@@ -407,7 +463,6 @@ class ServingEngine:
         # pooled forward in batches of up to num_slots rows; no slot taken
         self._embed_queue: deque[Request] = deque()
         self.embed_batch = num_slots
-        self._embedder = make_embedder(model)
 
         self.spec = spec
         if spec:
@@ -448,16 +503,14 @@ class ServingEngine:
             self.pause_events = 0
             self.prefix_hits = 0
             self.prefix_lookups = 0
-            self._step_model = ProGenPagedDecodeStep(
-                model, n_rows=self.max_len, gate_dtype=self.gate_dtype)
             self._decode_chunk = (self._decode_chunk_spec_paged_impl if spec
                                   else self._decode_chunk_paged_impl)
             self._admit = self._admit_paged_impl
         else:
-            self._step_model = ProGenDecodeStep(model)
             self._decode_chunk = (self._decode_chunk_spec_impl if spec
                                   else self._decode_chunk_impl)
             self._admit = self._admit_impl
+        self._bind_model(model)
         self.disagg = disagg
         if disagg:
             self.prefill_batch = max(1, min(prefill_batch or num_slots, num_slots))
@@ -467,6 +520,15 @@ class ServingEngine:
         else:
             self._handoff = None
         self.state = self._init_state()
+
+    def _bind_model(self, model: ProGen) -> None:
+        """Serve ``model``: the decode step and the embedding program run
+        it (the admit programs and the prefill worker read ``self.model``)."""
+        self.model = model
+        self._step_model = (ProGenPagedDecodeStep(model, n_rows=self.max_len,
+                                                  gate_dtype=self.gate_dtype)
+                            if self.paged else ProGenDecodeStep(model))
+        self._embedder = make_embedder(model)
 
     def _draft_model(self, draft_config, draft_params, seed: int) -> ProGen:
         """The speculative draft: the target itself when neither argument
@@ -545,22 +607,39 @@ class ServingEngine:
 
     # ------------------------------------------------------ fault containment
 
-    def _note_stage(self, stage: str, t0: float) -> None:
-        self.stage_seconds[stage] += time.perf_counter() - t0
+    def _note_stage(self, stage: str, span: str, t0: float, **args) -> None:
+        """Fold one guarded dispatch into every observability surface at
+        once: ``stage_seconds``, the registry's ``engine.<stage>``
+        histogram and the trace ring (a no-op unless tracing is on)."""
+        dt = time.perf_counter() - t0
+        self.stage_seconds[stage] += dt
+        self._stage_hist[stage].observe(dt)
+        self._tracer.add(span, t0, dt, **args)
 
-    def _guard(self, point: str, fn: Callable | None = None, *args):
+    def _guard(self, point: str, fn: Callable | None = None, *args,
+               key: tuple | None = None):
         """Run ``faults.inject(point)`` + ``fn(*args)`` with transient
         faults retried in place (no backoff: the retried work is an
         in-process dispatch on a copy of the state, so re-running it is safe
         and deterministic).  Non-transient faults raise
         :class:`_ContainedFault` for the caller's shed rule; transient
-        exhaustion raises :class:`RetryError`."""
+        exhaustion raises :class:`RetryError`.  ``key`` names the program
+        ``fn`` dispatches: its first dispatch pauses the watchdog."""
         last: BaseException | None = None
         attempts = max(0, self.fault_retries) + 1
         for attempt in range(attempts):
             try:
                 faults.inject(point)
-                out = None if fn is None else fn(*args)
+                if fn is None:
+                    out = None
+                elif (self._watchdog is not None and key is not None
+                        and key not in self._compiled_keys):
+                    with self._watchdog.paused():
+                        out = fn(*args)
+                else:
+                    out = fn(*args)
+                if key is not None:
+                    self._compiled_keys.add(key)
                 if attempt:
                     self.robust.faults_contained += attempt
                 return out
@@ -590,22 +669,26 @@ class ServingEngine:
         return self._decode_chunk(self.state, *args)
 
     @staticmethod
-    def _quantize_variables(model: ProGen) -> ProGen:
-        """The int8 serving model of a full-precision ``model``: dense
-        weights and SGU spatial weights become int8 buffers with f32 scales
-        (``ops/quant.py:quantize_params`` on the flax-layout tree), the rest
-        is carried over."""
-        tree = params_to_flax(model.state_dict())
+    def _quantize_state(state: dict) -> dict:
+        """The int8 serving state dict of a full-precision ``ProGen`` state
+        dict: dense weights and SGU spatial weights become int8 with f32
+        scales (``ops/quant.py:quantize_params`` on the flax-layout tree),
+        the rest is carried over."""
+        tree = params_to_flax(state)
 
         def tensors(node):
             return {k: tensors(v) if isinstance(v, dict) else torch.from_numpy(v)
                     for k, v in node.items()}
 
         qtree, scales = quantize_params(tensors(tree))
+        return params_from_flax({"params": qtree, "qscale": scales})
+
+    @classmethod
+    def _quantize_variables(cls, model: ProGen) -> ProGen:
+        """The int8 serving model of a full-precision ``model``."""
         quantized = ProGen(model.config, model.policy, device=model.device,
                            weights="int8")
-        quantized.load_state_dict(
-            params_from_flax({"params": qtree, "qscale": scales}))
+        quantized.load_state_dict(cls._quantize_state(model.state_dict()))
         return quantized.eval()
 
     # ------------------------------------------------------------- decoding
@@ -959,6 +1042,8 @@ class ServingEngine:
                 self._shed(request, SHED_QUEUE_FULL)
                 return
         self._queue.append(request)
+        self._tracer.event("serve.submit", trace=request.uid,
+                           queue=len(self._queue))
 
     def submit_embed(self, request: Request) -> None:
         """Queue an EMBEDDING request: one prefill-shaped forward of the base
@@ -997,6 +1082,8 @@ class ServingEngine:
                 self._shed(request, SHED_QUEUE_FULL)
                 return
         self._embed_queue.append(request)
+        self._tracer.event("serve.submit_embed", trace=request.uid,
+                           queue=len(self._embed_queue))
 
     def submit_fork(self, request: Request, n_samples: int) -> list:
         """Best-of-N: fork ``n_samples`` trajectories off one prime.  Fork
@@ -1029,7 +1116,16 @@ class ServingEngine:
         else:
             for f in forks[1:]:
                 self.submit(f)
+        self._tracer.event("serve.submit_fork", trace=request.uid,
+                           n_samples=n_samples)
         return [f.uid for f in forks]
+
+    def forget_ttft(self, uids) -> None:
+        """Drop the first-token stamps of requests that leave this engine
+        for another (a prefill-only caller hands off and never harvests),
+        so the stamp map cannot grow without bound."""
+        for u in uids:
+            self._ttft.pop(u, None)
 
     def _release_forks(self) -> None:
         """Submit the held followers of every leader that has left the queue
@@ -1091,9 +1187,11 @@ class ServingEngine:
             tokens=np.asarray([] if tokens is None else tokens, np.int32),
             finish_reason=status, status=status,
             submit_time=r.submit_time, finish_time=time.perf_counter(),
-            first_token_time=self._ttft.pop(r.uid, None))
+            first_token_time=self._ttft.pop(r.uid, None),
+            generation=self.generation)
         self.completions.append(comp)
         self._pending.append(comp)
+        self._tracer.event("serve.shed", trace=r.uid, status=status)
         if r.on_complete is not None:
             r.on_complete(comp)
         return comp
@@ -1175,6 +1273,7 @@ class ServingEngine:
         self._set_inactive([slot])
         self._queue.append(r)
         self.robust.preemptions += 1
+        self._tracer.event("serve.preempt", trace=r.uid, slot=slot)
 
     def _admit_pending(self) -> None:
         if not self._queue:
@@ -1258,11 +1357,14 @@ class ServingEngine:
             self._fill_admit_row(a, slot, r)
         lmask = self._build_lmask(batch)
 
+        p_pad = a["tokens"].shape[1]
         t0 = time.perf_counter()
         try:
             self.state = self._guard(
-                "serve.prefill", self._admit_call, *a.values(), lmask)
-            self._note_stage("prefill_s", t0)
+                "serve.prefill", self._admit_call, *a.values(), lmask,
+                key=("admit", p_pad))
+            self._note_stage("prefill_s", "serve.admit_prefill", t0,
+                             uids=[r.uid for _, r in batch], p_pad=p_pad)
         except _ContainedFault:
             # the batch's prefill never merged: undo the bookkeeping and
             # shed exactly the requests whose work was lost
@@ -1347,8 +1449,10 @@ class ServingEngine:
         t0 = time.perf_counter()
         try:
             self.state = self._guard(
-                "serve.prefill", self._admit_call, *a.values(), lmask, wtable)
-            self._note_stage("prefill_s", t0)
+                "serve.prefill", self._admit_call, *a.values(), lmask, wtable,
+                key=("admit", p_pad))
+            self._note_stage("prefill_s", "serve.admit_prefill", t0,
+                             uids=[r.uid for _, r in batch], p_pad=p_pad)
         except _ContainedFault:
             # prefill never merged: the planned pages hold nothing.  Free
             # them (no prefix registration was committed, so the index
@@ -1400,8 +1504,9 @@ class ServingEngine:
         t0 = time.perf_counter()
         try:
             h = self._guard("serve.prefill", self._prefill_worker_call,
-                            *a.values(), lmask)
-            self._note_stage("prefill_s", t0)
+                            *a.values(), lmask, key=("prefill", p_pad))
+            self._note_stage("prefill_s", "serve.prefill", t0,
+                             uids=[r.uid for r in batch], p_pad=p_pad)
         except _ContainedFault:
             for r in batch:
                 self._shed(r, FAILED_FAULT)
@@ -1480,8 +1585,9 @@ class ServingEngine:
         t0 = time.perf_counter()
         try:
             self.state = self._guard("serve.handoff", self._merge_call, h.state,
-                                     src, mask, *extra)
-            self._note_stage("merge_s", t0)
+                                     src, mask, *extra, key=("merge",))
+            self._note_stage("merge_s", "serve.merge", t0,
+                             uids=[r.uid for _, r in live_rows])
         except (_ContainedFault, RetryError) as e:
             for slot, r in placed:
                 self._inflight.pop(slot, None)
@@ -1535,7 +1641,8 @@ class ServingEngine:
             lengths[row] = len(r.tokens)
         t0 = time.perf_counter()
         try:
-            vecs = self._guard("serve.embed", self._embed_call, tokens, lengths)
+            vecs = self._guard("serve.embed", self._embed_call, tokens, lengths,
+                               key=("embed", p_pad))
         except _ContainedFault:
             for r in batch:
                 self._shed(r, FAILED_FAULT)
@@ -1545,14 +1652,15 @@ class ServingEngine:
                 self._embed_queue.appendleft(r)
             raise
         (vecs,) = _host_fetch(vecs)
-        self._note_stage("embed_s", t0)
+        self._note_stage("embed_s", "serve.embed", t0,
+                         uids=[r.uid for r in batch], p_pad=p_pad)
         now = time.perf_counter()
         for row, r in enumerate(batch):
             comp = Completion(
                 uid=r.uid, prime=np.asarray(r.tokens, np.int32),
                 tokens=np.zeros((0,), np.int32), finish_reason="embed",
                 submit_time=r.submit_time, finish_time=now,
-                embedding=vecs[row])
+                embedding=vecs[row], generation=self.generation)
             self.completions.append(comp)
             self._pending.append(comp)
             if r.on_complete is not None:
@@ -1563,6 +1671,12 @@ class ServingEngine:
         drives prefill work without ``step()``); its completions are
         returned by the next ``step()``."""
         self._embed_round()
+
+    def drain_sheds(self) -> list[Completion]:
+        """Collect the typed shed completions recorded since the last call
+        (submit-time sheds, failed prefill rounds), for a caller that runs
+        prefill or embedding rounds without ``step()``."""
+        return self._drain_pending()
 
     # ------------------------------------------------------------- pages
 
@@ -1691,6 +1805,7 @@ class ServingEngine:
             self._defer("harvest", e)
             return []
         self._defer_streak.pop("harvest", None)
+        t0 = time.perf_counter()
         # two-phase fetch: one small transfer of the per-slot flags gates
         # the call (the common case is "nothing finished"); the sequence
         # buffer only crosses when some slot actually completed
@@ -1714,12 +1829,15 @@ class ServingEngine:
             comp = Completion(
                 uid=r.uid, prime=np.asarray(r.tokens, np.int32), tokens=toks,
                 finish_reason=reason, submit_time=r.submit_time,
-                finish_time=now, first_token_time=self._ttft.pop(r.uid, None))
+                finish_time=now, first_token_time=self._ttft.pop(r.uid, None),
+                generation=self.generation)
             out.append(comp)
             if r.on_complete is not None:
                 r.on_complete(comp)
         self._set_inactive(ready)
         self.completions.extend(out)
+        self._tracer.add("serve.harvest", t0, time.perf_counter() - t0,
+                         uids=[c.uid for c in out])
         return out
 
     def _dispatch_chunk(self) -> None:
@@ -1737,11 +1855,12 @@ class ServingEngine:
         point = "serve.verify" if self.spec else "serve.decode_chunk"
         t0 = time.perf_counter()
         try:
-            out = self._guard(point, self._chunk_call, *args)
+            out = self._guard(point, self._chunk_call, *args, key=("chunk",))
         except _ContainedFault:
             self._fail_inflight()
             return
-        self._note_stage("decode_chunk_s", t0)
+        self._note_stage("decode_chunk_s", "serve.decode_chunk", t0,
+                         uids=[r.uid for r in self._inflight.values()])
         if self.spec:
             out, stats = out
             # summed on the device; spec_counters() fetches them once
@@ -1768,7 +1887,11 @@ class ServingEngine:
         harvest newly finished slots, serve one embedding batch.
         The return includes typed SHED completions recorded since the last
         step (queue-full sheds from ``submit()``, for one)."""
+        if self.state is None:
+            raise RuntimeError("the engine is closed")
         completed = self._drain_pending()
+        if self._watchdog is not None:
+            self._watchdog.beat("serve.step")
         self._shed_expired()
         self._release_forks()
         if not self._draining:
@@ -1796,6 +1919,11 @@ class ServingEngine:
                 self._admit_from_handoff()
                 completed += self._drain_pending()
                 completed += self._harvest_done()
+        # refresh the per-class and per-tenant gauges once per step, so a
+        # registry snapshot carries current depths
+        self.qos_status()
+        if self.paged:
+            self._publish_cache_gauges()
         return completed
 
     def admit_handle(self, handle: Handle) -> bool:
@@ -1852,6 +1980,194 @@ class ServingEngine:
             self._draining = False
         return out
 
+    # ----------------------------------------------------------- lifecycle
+
+    def snapshot(self, path: str | None = None) -> dict:
+        """Host-side request state, enough to REPLAY every unfinished request
+        on a fresh engine: prime, sampling knobs, seed, logit mask, tenant,
+        priority and the remaining deadline budget.  No device cache is
+        kept: a trajectory depends only on (weights, prime, seed, knobs), so
+        a replay from the prime is token-identical and the snapshot restores
+        onto an engine of any shape.  ``generated`` (the tokens so far) is
+        for observability, not for resumption.
+
+        In-flight slots come first (one host fetch of the slot state,
+        copied), then the handoff queue's requests, the queue, held fork
+        followers and embedding requests.  The format is the JAX engine's,
+        so a snapshot of either package restores on the other.  With
+        ``path`` it is also written as JSON (an atomic rename)."""
+        entries = []
+        if self._inflight:
+            active, seq, pos, start = _host_fetch(
+                self.state["active"], self.state["seq"], self.state["pos"],
+                self.state["start"])
+            for slot in sorted(self._inflight):
+                r = self._inflight[slot]
+                gen = (seq[slot, start[slot]: pos[slot] + 1].tolist()
+                       if active[slot] else [])
+                entries.append(self._snap_request(r, gen))
+        if self.disagg:
+            # handed-off but unmerged requests replay from the prime like
+            # queued ones (their caches are rebuilt, token-identical)
+            for h in self._handoff:
+                for r in h.requests:
+                    entries.append(self._snap_request(r, []))
+        for r in self._queue:
+            entries.append(self._snap_request(r, []))
+        for followers in self._fork_wait.values():
+            for r in followers:  # held fork followers are queue-like
+                entries.append(self._snap_request(r, []))
+        for r in self._embed_queue:
+            e = self._snap_request(r, [])
+            e["workload"] = "embed"
+            entries.append(e)
+        snap = {"version": 1, "kind": "serving_snapshot", "requests": entries}
+        if path is not None:
+            tmp = f"{path}.tmp"
+            with open(tmp, "w") as fh:
+                json.dump(snap, fh)
+            os.replace(tmp, path)
+        return snap
+
+    def _snap_request(self, r: Request, generated) -> dict:
+        entry = {
+            "uid": r.uid,
+            "tokens": [int(t) for t in r.tokens],
+            "max_new_tokens": int(r.max_new_tokens),
+            "top_k": None if r.top_k is None else int(r.top_k),
+            "temperature": float(r.temperature),
+            "seed": int(r.seed),
+            "generated": [int(t) for t in generated],
+        }
+        if r.logit_mask is not None:
+            entry["logit_mask"] = mask_to_wire(r.logit_mask)
+        if int(r.tenant) != 0:
+            entry["tenant"] = int(r.tenant)
+        if int(r.priority) != 0:
+            entry["priority"] = int(r.priority)
+        deadline = self._deadline_of(r)
+        if deadline is not None:
+            # perf_counter instants do not survive a process restart; the
+            # REMAINING budget does
+            entry["deadline_remaining"] = max(0.0, deadline - time.perf_counter())
+        return entry
+
+    def restore(self, snap, *, on_complete=None) -> int:
+        """Resubmit every request of a :meth:`snapshot` (a dict or a JSON
+        path) onto this idle engine; returns the number accepted.  Deadlines
+        resume with their remaining budget.  Restored requests go through
+        ``submit()`` (``submit_embed()`` for embeddings), so queue bounds and
+        spent budgets shed exactly as live traffic would."""
+        if isinstance(snap, (str, os.PathLike)):
+            with open(snap) as fh:
+                snap = json.load(fh)
+        if snap.get("kind") != "serving_snapshot":
+            raise ValueError("not a serving snapshot")
+        if (self._inflight or self._queue or self._embed_queue or self._fork_wait
+                or (self.disagg and self._handoff)):
+            raise RuntimeError("restore() requires an idle engine")
+        now = time.perf_counter()
+        accepted = 0
+        for e in snap["requests"]:
+            lmask = None
+            if e.get("logit_mask") is not None:
+                lmask = mask_from_wire(e["logit_mask"], self.config.num_tokens)
+            r = Request(
+                uid=e["uid"], tokens=e["tokens"],
+                max_new_tokens=e["max_new_tokens"], top_k=e["top_k"],
+                temperature=e["temperature"], seed=e["seed"],
+                on_complete=on_complete, submit_time=now, logit_mask=lmask,
+                tenant=int(e.get("tenant", 0)), priority=int(e.get("priority", 0)))
+            if "deadline_remaining" in e:
+                r.deadline = now + e["deadline_remaining"]
+            if e.get("workload") == "embed":
+                r.workload = "embed"
+                self.submit_embed(r)
+            else:
+                self.submit(r)
+            accepted += 1
+        return accepted
+
+    def reload_weights(self, params=None, lora_bank=None, *,
+                       generation: int | None = None) -> int:
+        """Swap the served weights in place: no slot is dropped.  ``params``
+        is a ``ProGen`` or its state dict, in the layout the engine was given
+        (full precision, quantized here under ``quantize`` exactly as at
+        construction, so the result is bit-equal to a fresh engine on the
+        same weights); ``lora_bank`` a bank of the engine's shape.  The
+        weights are written into the engine's own model: a model the caller
+        passed in is copied first and keeps its weights.  In-flight
+        slots continue on the new weights from their next step.  Under
+        speculation only the target is swapped: the identity draft is first
+        given its own copy of the old weights (the JAX engine keeps them as
+        its draft), an explicit draft keeps its own.  Returns the new
+        generation (``generation`` when given, else the old one + 1), which
+        the completions finishing after the swap carry."""
+        if params is None and lora_bank is None:
+            raise ValueError("reload_weights needs params and/or lora_bank")
+        if lora_bank is not None and not self.lora:
+            raise ValueError("engine was built without a LoRA bank; the "
+                             "bank's shape is baked into its programs")
+
+        def check(new: dict, spec: dict, what: str) -> None:
+            if sorted(new) != sorted(spec):
+                raise ValueError(f"reload_weights: {what} tree structure "
+                                 "does not match the serving tree")
+            for k, v in new.items():
+                shape, dtype = spec[k]
+                if tuple(v.shape) != shape or v.dtype != dtype:
+                    raise ValueError(
+                        f"reload_weights: {what} leaf mismatch "
+                        f"{tuple(v.shape)}/{v.dtype} vs {shape}/{dtype}")
+
+        if params is not None:
+            state = params.state_dict() if isinstance(params, torch.nn.Module) \
+                else dict(params)
+            check(state, self._weights_spec, "params")
+        if lora_bank is not None:
+            validate_lora_bank(self.config, lora_bank)
+            bank = cast_bank(lora_bank, self.policy.compute_dtype, self.device)
+            flat = lambda b: {f"{layer}.{site}.{k}": t for layer, sites in b.items()
+                              for site, ts in sites.items() for k, t in ts.items()}
+            check(flat(bank), {k: (tuple(t.shape), t.dtype)
+                               for k, t in flat(self._bank).items()}, "lora_bank")
+        if params is not None:
+            if not self._owns_model:
+                # the engine serves the caller's model: write into a copy,
+                # so the caller's keeps its weights (an identity draft goes
+                # on drafting with them)
+                self._bind_model(copy.deepcopy(self.model))
+                self._owns_model = True
+            elif self.spec and self._draft is self.model:
+                # the identity draft keeps the weights it was built on
+                self._draft = copy.deepcopy(self.model)
+                self._draft_step = ProGenDecodeStep(self._draft)
+            if self._requantize:
+                state = self._quantize_state(state)
+            with torch.no_grad():
+                self.model.load_state_dict(state)
+        if lora_bank is not None:
+            self._bank = bank
+        self.generation = (int(generation) if generation is not None
+                           else self.generation + 1)
+        return self.generation
+
+    def close(self) -> None:
+        """Release the engine's device state: the slot state with its caches
+        and page pool, queued handles, the models and the LoRA bank; and drop
+        the engine's references to its own bound methods, so that dropping
+        the last reference to it frees it at once.  Host records
+        (completions, counters, ``status()``) stay readable; ``step()``
+        raises.  Safe to call twice."""
+        self.state = None
+        if self._handoff is not None:
+            for h in self._handoff:
+                h.state = {}
+        for name in ("_decode_chunk", "_admit", "_prefill_worker", "_merge"):
+            self.__dict__.pop(name, None)
+        self.model = self._draft = self._step_model = self._embedder = None
+        self._draft_step = self._bank = None
+
     # -------------------------------------------------------------- status
 
     def status(self) -> dict:
@@ -1893,11 +2209,31 @@ class ServingEngine:
             "cached_pages": pool["cached_pages"],
             "free_pages": pool["free_pages"],
             "capacity": pool["capacity"],
+            "fork_groups": self.fork_groups,
         }
+
+    def prefix_digest(self) -> dict | None:
+        """Compact advertisement of this engine's cached prefixes for
+        routing across engines; None on dense engines, which cache
+        nothing."""
+        if not self.paged:
+            return None
+        return self._pool.prefix_digest()
+
+    def _publish_cache_gauges(self) -> None:
+        """Mirror the cache counters into registry gauges."""
+        registry = _metrics.get_registry()
+        registry.gauge("engine.prefix_hits").set(self.prefix_hits)
+        registry.gauge("engine.prefix_lookups").set(self.prefix_lookups)
+        registry.gauge("engine.prefix_pages_shared").set(self._pool.shared_pages)
+        registry.gauge("engine.pool_free_pages").set(self._pool.free_pages)
+        registry.gauge("engine.pool_pages_in_use").set(
+            self._pool.capacity - self._pool.free_pages)
 
     def qos_status(self) -> dict:
         """Per-class and per-tenant queue and in-flight occupancy, and the
-        scheduler's cumulative tallies."""
+        scheduler's cumulative tallies.  Also refreshes the labeled registry
+        gauges, so a scrape sees current depths."""
         out = dict(self._queue.stats())
         inflight_by_class: dict = {}
         inflight_by_tenant: dict = {}
@@ -1907,7 +2243,28 @@ class ServingEngine:
         out["inflight_by_class"] = inflight_by_class
         out["inflight_by_tenant"] = inflight_by_tenant
         out["preemptions"] = self.robust.preemptions
+        self._publish_qos_gauges(out)
         return out
+
+    def _publish_qos_gauges(self, qos: dict) -> None:
+        """Mirror the per-class and per-tenant occupancy into labeled
+        registry gauges.  Label keys ever seen are set again on every
+        refresh, so a drained class reads 0 and not its last value."""
+        registry = _metrics.get_registry()
+        fresh: set = set()
+        for name, label, table in (
+                ("engine.queue_depth", "priority", qos["queue_by_class"]),
+                ("engine.queue_depth", "tenant", qos["queue_by_tenant"]),
+                ("engine.inflight", "priority", qos["inflight_by_class"]),
+                ("engine.inflight", "tenant", qos["inflight_by_tenant"])):
+            for key, n in table.items():
+                gname = _metrics.labeled(name, **{label: key})
+                registry.gauge(gname).set(n)
+                fresh.add(gname)
+        for gname in self._qos_gauge_keys - fresh:
+            registry.gauge(gname).set(0)
+        self._qos_gauge_keys |= fresh
+        registry.gauge("engine.preemptions").set(self.robust.preemptions)
 
     def robustness_counters(self) -> dict:
         """Shed and containment tallies, faults fired by the armed plan, QoS
@@ -1921,6 +2278,7 @@ class ServingEngine:
             out["pause_events"] = self.pause_events
             out["prefix_hits"] = self.prefix_hits
             out["prefix_lookups"] = self.prefix_lookups
+            out["fork_groups"] = self.fork_groups
             out["pool"] = self._pool.stats()
         if self.disagg:
             out["handoff"] = self._handoff.stats()
@@ -1949,3 +2307,44 @@ class ServingEngine:
                 (emitted / slot_rounds) if slot_rounds else 0.0,
             "accepted_tokens_per_round": (emitted / rounds) if rounds else 0.0,
         }
+
+
+def run_with_restarts(engine_factory, requests=(), *, attempts: int = 3,
+                      snapshot_path: str | None = None,
+                      max_chunks: int | None = None,
+                      classifier=default_classifier) -> list[Completion]:
+    """Serve ``requests`` to completion across engine crashes, as the
+    trainer's ``run_attempts`` resume loop does for training.
+
+    When a transient failure escapes the engine's in-place containment (a
+    :class:`RetryError`, or anything ``classifier`` calls transient), the
+    unfinished requests are snapshotted (also to ``snapshot_path``), the
+    engine is closed, a FRESH one is built by ``engine_factory()``, the
+    snapshot is restored onto it and serving resumes.  Completions
+    harvested before a crash are final (the snapshot leaves them out, so
+    nothing is served twice); replayed requests are token-identical to an
+    uninterrupted run.  Non-transient failures and the last attempt's
+    failure re-raise.  Every engine built here is closed on the way out."""
+    out: list[Completion] = []
+    engine = engine_factory()
+    try:
+        for r in requests:
+            engine.submit(r)
+        for attempt in range(1, max(1, attempts) + 1):
+            try:
+                out.extend(engine.run_until_idle(max_chunks=max_chunks))
+                return out
+            except Exception as e:
+                if attempt >= attempts or not classifier(e):
+                    raise
+                out.extend(engine.completions[:])
+                snap = engine.snapshot(snapshot_path)
+                print(f"serving: attempt {attempt} crashed ({e!r}); "
+                      f"restarting and replaying {len(snap['requests'])} "
+                      f"request(s)", file=sys.stderr, flush=True)
+                engine.close()
+                engine = engine_factory()
+                engine.restore(snap)
+        return out
+    finally:
+        engine.close()

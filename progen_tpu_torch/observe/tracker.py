@@ -11,6 +11,7 @@ process, which is process 0 and writes.
 from __future__ import annotations
 
 import json
+import threading
 import time
 import uuid
 from pathlib import Path
@@ -24,6 +25,27 @@ def _wandb_or_none():
         return wandb
     except Exception:
         return None
+
+
+def _wandb_init(wandb, kwargs: dict):
+    """``wandb.init(**kwargs)`` on a thread of its own; None when it fails.
+    A failing init leaves its exception's traceback in wandb's own state,
+    and a traceback holds every frame below it: called from the caller's
+    thread, that pinned the caller's frames and with them whatever their
+    locals held (a whole Trainer on the card, until the process ended).
+    The thread's stack ends here."""
+    out = [None]
+
+    def run():
+        try:
+            out[0] = wandb.init(**kwargs)
+        except Exception:
+            pass
+
+    t = threading.Thread(target=run, name="progen-wandb-init", daemon=True)
+    t.start()
+    t.join()
+    return out[0]
 
 
 class Tracker:
@@ -54,10 +76,7 @@ class Tracker:
             kwargs = {"project": project, "config": config or {}}
             if run_id is not None:
                 kwargs.update(id=run_id, resume="allow")
-            try:
-                self._wandb_run = wandb.init(**kwargs)
-            except Exception:
-                self._wandb_run = None
+            self._wandb_run = _wandb_init(wandb, kwargs)
 
     def log(self, metrics: dict[str, Any], step: int) -> None:
         if self.disabled:

@@ -17,8 +17,9 @@ watchdog turns "hangs forever" into "exits nonzero with a diagnosis":
 Both pieces are pure stdlib, so data-prep workers and tests can use them
 too.  ``exit_fn`` is injectable for in-process tests.
 
-Copied from progen_tpu/resilience/watchdog.py, without the dump of the
-span tracer's ring (the port has no span tracer yet).
+Copied from progen_tpu/resilience/watchdog.py (standard library only): a
+trip also dumps the process tracer's span ring when the process is tracing
+(``observe/trace.py``).
 """
 
 from __future__ import annotations
@@ -204,6 +205,22 @@ class Watchdog:
             except Exception as e:
                 print(f"watchdog: flight-recorder dump failed ({e!r})",
                       file=sys.stderr)
+        # the span ring rides along when this process is tracing: the
+        # last N spans before the stall are exactly the diagnosis a hung
+        # serve/train loop needs (import stays lazy: observe.trace is
+        # stdlib, but the observe package itself is not)
+        try:
+            from progen_tpu_torch.observe.trace import get_tracer
+
+            tracer = get_tracer()
+            if tracer.enabled and tracer.ring():
+                trace_path = os.path.join(
+                    self.out_dir, f"watchdog_trace_{stamp}.json")
+                tracer.dump(trace_path)
+                self.artifacts.append(trace_path)
+        except Exception as e:
+            print(f"watchdog: trace-ring dump failed ({e!r})",
+                  file=sys.stderr)
         print(
             f"watchdog [{self.label}]: stalled for {age:.1f}s "
             f"(> {self.timeout:.1f}s); dumped {self.artifacts} — exiting "

@@ -22,6 +22,19 @@ completion is printed as one JSON line:
 for itself, as the JAX CLI's does), ``--disagg`` prefills in a separate
 worker stage behind a bounded handoff queue; both give the same tokens.
 
+The served requests go through ``run_with_restarts``: a transient failure
+that escapes the engine's in-place retries snapshots the unfinished requests
+(to ``--snapshot_path`` too, as JSON), builds a fresh engine and replays
+them, token-identical, up to ``--serve_attempts`` tries in all (3; 1 = fail
+fast).  ``--watchdog_timeout S`` exits the process with a dump of every
+thread's stack when no engine step completes for S seconds (each program's
+first dispatch, with the kernels' build, is exempt).  ``--trace`` records
+the engine's spans and writes them, merged, as a Perfetto ``trace.json``
+under ``--trace_out``:
+
+    python -m progen_tpu_torch.sample --serve --prime "MKV|MALW" \
+        --serve_attempts 2 --snapshot_path snap.json --trace --trace_out traces
+
 Two serving workloads ride ``--serve`` (one at a time):
 
 * ``--embed``: each prime is embedded (``engine.submit_embed``: one
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -61,11 +75,18 @@ from progen_tpu_torch.compat.convert import load_npz
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.tokenizer import decode_tokens, encode_tokens
-from progen_tpu_torch.decode.engine import Request, ServingEngine
+from progen_tpu_torch.decode.engine import Request, ServingEngine, run_with_restarts
 from progen_tpu_torch.decode.rng import KeySeq
 from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.configs import CONFIGS
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
+from progen_tpu_torch.observe.trace import (
+    configure_tracing,
+    get_tracer,
+    merge_trace_dir,
+    trace_dump_path,
+)
+from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.workloads.infill import ScaffoldSpec
 
 
@@ -109,7 +130,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--infill", default=None, metavar="TEMPLATE",
                    help="with --serve: constrained infilling; plain characters "
                         "are frozen, '?' is free, '[ILV]' allows that set")
+    p.add_argument("--serve_attempts", type=int, default=3,
+                   help="engine: tries of the serve loop; a transient failure "
+                        "snapshots the unfinished requests, builds a fresh "
+                        "engine and replays them (1 = fail fast)")
+    p.add_argument("--snapshot_path", default=None, metavar="FILE",
+                   help="engine: where a crash's snapshot is written (JSON)")
+    p.add_argument("--watchdog_timeout", type=float, default=None,
+                   help="engine: seconds without a completed step before the "
+                        "watchdog dumps every thread's stack and exits (unset: "
+                        "off); first dispatches and the kernels' build are exempt")
+    p.add_argument("--trace", action="store_true",
+                   help="record the engine's spans and merge them into a "
+                        "Perfetto trace.json under --trace_out")
+    p.add_argument("--trace_out", default="trace_out", metavar="DIR",
+                   help="directory of the span dump and trace.json (with --trace)")
+    p.add_argument("--aot_warmup", action="store_true",
+                   help="not ported yet: ahead-of-time warm-up of the engine's "
+                        "programs (ROADMAP.md Queue 1)")
     args = p.parse_args(argv)
+    if args.aot_warmup:
+        p.error("--aot_warmup is not ported yet (ROADMAP.md Queue 1)")
     if (args.embed or args.infill is not None) and not args.serve:
         p.error("--embed/--infill are serving workloads; add --serve")
     if args.embed and args.infill is not None:
@@ -146,28 +187,55 @@ def serve(args, model, seq_len: int) -> list[dict]:
     completion, in uid order."""
     primes = (args.prime.split("|") if "|" in args.prime
               else [args.prime] * args.num_samples)
-    engine = ServingEngine(model, num_slots=args.slots, chunk_size=args.chunk,
-                           max_len=seq_len, paged=args.paged,
-                           page_size=args.page_size, quantize=args.quantize,
-                           spec=args.spec, spec_k=args.spec_k, disagg=args.disagg)
     knobs = dict(top_k=args.top_k or None, temperature=args.temperature)
+    requests = []
     if args.infill is not None:
         scaffold = scaffold_from_template(args.infill, model.config.num_tokens)
         primes = [args.infill] * args.num_samples
         for i in range(args.num_samples):
-            engine.submit(Request(uid=i, seed=args.seed + i, workload="infill",
-                                  **knobs, **scaffold.request_kwargs()))
+            requests.append(Request(uid=i, seed=args.seed + i, workload="infill",
+                                    **knobs, **scaffold.request_kwargs()))
     for i, prime in enumerate(primes if args.infill is None else ()):
         tokens = [0] + encode_tokens(prime)  # BOS-prefixed, like add_bos
-        request = Request(uid=i, tokens=tokens, max_new_tokens=seq_len - len(tokens),
-                          seed=args.seed + i, **knobs,
-                          workload="embed" if args.embed else "generate")
+        requests.append(Request(uid=i, tokens=tokens,
+                                max_new_tokens=seq_len - len(tokens),
+                                seed=args.seed + i, **knobs,
+                                workload="embed" if args.embed else "generate"))
+    if args.trace:
+        os.makedirs(args.trace_out, exist_ok=True)
+        configure_tracing(enabled=True, process="serve")
+    watchdog = None
+    if args.watchdog_timeout:
+        watchdog = Watchdog(args.watchdog_timeout, out_dir=".", label="serve").start()
+
+    def engine_factory():
+        return ServingEngine(model, num_slots=args.slots, chunk_size=args.chunk,
+                             max_len=seq_len, paged=args.paged,
+                             page_size=args.page_size, quantize=args.quantize,
+                             spec=args.spec, spec_k=args.spec_k, disagg=args.disagg,
+                             watchdog=watchdog)
+
+    try:
         if args.embed:
-            engine.submit_embed(request)
+            engine = engine_factory()
+            try:
+                for r in requests:
+                    engine.submit_embed(r)
+                completions = engine.run_until_idle()
+            finally:
+                engine.close()
         else:
-            engine.submit(request)
+            completions = run_with_restarts(engine_factory, requests,
+                                            attempts=args.serve_attempts,
+                                            snapshot_path=args.snapshot_path)
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+    if args.trace:
+        get_tracer().dump(trace_dump_path(args.trace_out, "serve"))
+        print(json.dumps({"trace": merge_trace_dir(args.trace_out)}), flush=True)
     records = []
-    for comp in sorted(engine.run_until_idle(), key=lambda c: c.uid):
+    for comp in sorted(completions, key=lambda c: c.uid):
         if comp.embedding is not None:
             v = comp.embedding
             records.append({"uid": comp.uid, "prime": primes[comp.uid],

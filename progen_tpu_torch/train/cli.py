@@ -35,8 +35,12 @@ without them it is a world of one.  Rank 0 alone prompts for
 ``--new``, prints and writes the tracker and the checkpoints.  Tensor
 parallelism (``tp``, a tensor axis > 1) is refused (``ROADMAP.md``).
 
-Not accepted: the remat, superstep, statusz, kernel-choice,
-profiling-service and wandb flags.  The device is ``cuda`` unless
+``--statusz [PORT]`` serves ``/healthz /statusz /metricsz /tracez
+/flightz`` on a loopback port of rank 0 (a bare ``--statusz`` takes an
+ephemeral port, printed as a JSON line).
+
+Not accepted: the remat, superstep, kernel-choice, profiling-service and
+wandb flags.  The device is ``cuda`` unless
 ``--device cpu`` is given (then the ranks meet over gloo).
 """
 
@@ -124,6 +128,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--watchdog_timeout", type=float, default=None,
                    help="seconds without a step before the watchdog dumps "
                         "every thread's stack and exits 42 (unset = off)")
+    p.add_argument("--statusz", dest="statusz_port", type=int, nargs="?", const=0,
+                   default=None, metavar="PORT",
+                   help="serve /healthz /statusz /metricsz /tracez /flightz on this "
+                        "loopback port (a bare --statusz: an ephemeral port, printed "
+                        "at startup); the handlers read host state only")
     p.add_argument("--warm_sampler", action="store_true", default=True,
                    help="one short sampler call before the loop (skipped "
                         "when no sample hook can fire)")
@@ -159,6 +168,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     except ValueError as e:
         p.error(f"--mesh: {e}")
     args.strategies = tuple(args.strategies.split(","))
+    if args.statusz_port is not None and args.data_path is None:
+        p.error("--statusz serves the Trainer's state: it needs --data_path")
     return args
 
 
@@ -206,7 +217,8 @@ def train_tfrecords(args, device: torch.device) -> dict:
         background_checkpoint=args.background_checkpoint,
         log_every=args.log_every, max_steps=args.max_steps,
         run_attempts=args.run_attempts, watchdog_timeout=args.watchdog_timeout,
-        warm_sampler=args.warm_sampler, mesh=args.mesh, strategies=args.strategies)
+        warm_sampler=args.warm_sampler, mesh=args.mesh, strategies=args.strategies,
+        statusz_port=args.statusz_port)
     config = {k: v for k, v in vars(args).items() if k != "new"}
     config["mesh"] = ",".join(str(v) for v in dataclasses.astuple(args.mesh))
     tracker = Tracker(out_dir=args.runs_dir, run_id=(meta or {}).get("run_id"),
@@ -216,6 +228,7 @@ def train_tfrecords(args, device: torch.device) -> dict:
     try:
         return trainer.run()
     finally:
+        trainer.close()
         tracker.finish()
 
 

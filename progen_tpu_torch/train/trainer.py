@@ -39,11 +39,23 @@ gathered one whole tensor at a time into rank 0's host memory and written
 by rank 0 alone, in the store's one layout, so it restores at any world
 size and without a mesh.
 
+Observability: each loop phase is a span of the process tracer
+(``observe/trace.py``, a no-op unless tracing is on) and a flight-recorder
+event; each logged step publishes the ``train.*`` health gauges into the
+process metrics registry from the host floats the log already fetched.
+``statusz_port`` serves ``/healthz /statusz /metricsz /tracez /flightz``
+on a loopback port from rank 0 (``observe/statusz.py``; 0 = an ephemeral
+port, printed as a JSON line).
+
+:meth:`Trainer.close` stops the statusz server, gives SIGTERM back to the
+handler it had before the Trainer took it, and drops the Trainer's model,
+step functions and sampler: the caller calls it on every way out.
+
 Fields of :class:`TrainerConfig` the port cannot honour yet (remat,
-``superstep > 1``, the statusz server, and attention/SGU implementations
-other than the port's kernels) are refused by name when set away from their
-defaults; so are tensor parallelism (``"tp"`` in ``strategies`` or a mesh
-tensor axis > 1) and strategies without a mesh.
+``superstep > 1``, and attention/SGU implementations other than the port's
+kernels) are refused by name when set away from their defaults; so are
+tensor parallelism (``"tp"`` in ``strategies`` or a mesh tensor axis > 1)
+and strategies without a mesh.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import signal
 import threading
 import time
@@ -78,6 +91,9 @@ from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
 from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
 from progen_tpu_torch.observe.meter import ThroughputMeter, profile_trace
+from progen_tpu_torch.observe.metrics import get_registry
+from progen_tpu_torch.observe.statusz import StatuszServer
+from progen_tpu_torch.observe.trace import get_tracer
 from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.parallel.sharding import check_strategies, full_tensor
 from progen_tpu_torch.resilience import faults
@@ -88,7 +104,7 @@ from progen_tpu_torch.train.schedule import make_lr_schedule
 from progen_tpu_torch.train.step import TrainState, make_train_functions
 
 # TrainerConfig fields the port refuses away from their defaults
-NOT_PORTED = ("remat", "superstep", "statusz_port", "attn_impl", "sgu_impl")
+NOT_PORTED = ("remat", "superstep", "attn_impl", "sgu_impl")
 # fields some of whose values the port refuses: tensor parallelism
 PARTLY_PORTED = ("strategies", "mesh")
 
@@ -125,6 +141,9 @@ class TrainerConfig:
     attn_impl: str = "kernel"      # the port's K1 kernels (plain on the CPU)
     sgu_impl: str = "kernel"       # the port's K2 kernels (plain on the CPU)
     superstep: int = 1
+    # live introspection: /healthz /statusz /metricsz /tracez /flightz on a
+    # loopback port of rank 0 (0 = ephemeral; None = off).  The handlers
+    # read host state only, never the device
     statusz_port: int | None = None
     # batches made and copied to the device ahead of the step by a worker
     # thread (0 = synchronous).  0 by default, unlike the JAX package's 2:
@@ -274,11 +293,54 @@ class Trainer:
         self.checkpoint_log: list[dict] = []
         self.restore_seconds: float | None = None
         self._recorder = FlightRecorder(cfg.flight_recorder_n)
+        # the process tracer (enabled by the entry point): every loop phase
+        # is a span as well as a flight-recorder event
+        self._tracer = get_tracer()
         self._watchdog: Watchdog | None = None
+        self._statusz: StatuszServer | None = None
+        self.statusz_port: int | None = None
+        if cfg.statusz_port is not None and self.rank == 0:
+            self._statusz = StatuszServer(
+                role="trainer", port=cfg.statusz_port,
+                providers={"health": self._statusz_health,
+                           "status": self._statusz_status,
+                           "flight": self._recorder.snapshot})
+            self.statusz_port = self._statusz.start()
+            self._emit(statusz=f"http://127.0.0.1:{self.statusz_port}")
+        self._took_sigterm = False
         try:
-            signal.signal(signal.SIGTERM, self._request_preempt_checkpoint)
+            self._prev_sigterm = signal.signal(signal.SIGTERM,
+                                               self._request_preempt_checkpoint)
+            self._took_sigterm = True
         except ValueError:
             pass  # not the main thread (e.g. under a test runner)
+
+    def close(self) -> None:
+        """Release what the Trainer holds beyond its results: stop the
+        statusz server, wait for a background save, give SIGTERM back to
+        the handler it had before this Trainer (the bound handler held the
+        whole Trainer), and drop the model, the step functions, the sampler
+        and the optimizer.  A state that ``run()`` returned stays the
+        caller's.  Safe to call twice."""
+        if self._statusz is not None:
+            self._statusz.stop()
+            self._statusz = None
+        try:
+            self._join_checkpoint_thread()
+        finally:
+            if self._took_sigterm and (signal.getsignal(signal.SIGTERM)
+                                       == self._request_preempt_checkpoint):
+                try:
+                    # None stands for a handler not set from Python:
+                    # the default is the nearest
+                    signal.signal(signal.SIGTERM, self._prev_sigterm
+                                  if self._prev_sigterm is not None else signal.SIG_DFL)
+                except ValueError:
+                    pass  # not the main thread
+            self._took_sigterm = False
+            self._prev_sigterm = None
+            self.model = self.sample_model = self.sampler = None
+            self.fns = self.optimizer = None
 
     def _request_preempt_checkpoint(self, signum=None, frame=None) -> None:
         self._preempt_requested = True
@@ -288,9 +350,42 @@ class Trainer:
             print(json.dumps(record), flush=True)
 
     def _note_phase(self, name: str, t0: float, **fields: Any) -> None:
-        """One loop phase -> a flight-recorder event, so a watchdog trip
-        shows the recent phase history."""
-        self._recorder.record(name, dur_s=round(time.perf_counter() - t0, 6), **fields)
+        """One loop phase -> a trace span AND a flight-recorder event, so a
+        watchdog trip shows the recent phase history whether or not the
+        process is tracing (the recorder is always on)."""
+        dur = time.perf_counter() - t0
+        self._tracer.add(name, t0, dur, **fields)
+        self._recorder.record(name, dur_s=round(dur, 6), **fields)
+
+    def _statusz_health(self) -> dict:
+        last_step = None
+        for e in reversed(self._recorder.snapshot()):
+            if e.get("kind") == "step":
+                last_step = e
+                break
+        return {"last_step": last_step,
+                "watchdog": self._watchdog is not None,
+                "preempt_requested": self._preempt_requested}
+
+    def _statusz_status(self) -> dict:
+        return {"model": self.model_config.to_dict(),
+                "superstep": self.cfg.superstep,
+                "batch_size": self.cfg.batch_size,
+                "max_steps": self.cfg.max_steps,
+                "recent": self._recorder.snapshot()[-16:]}
+
+    def _publish_train_health(self, log: dict, step: int) -> None:
+        """Training-health gauges in the process registry, from the host
+        floats of the logged step (no extra device sync): ``train.step``,
+        ``train.loss``, ``train.grad_norm``, ``train.lr`` and the
+        ``train.nonfinite_steps`` counter."""
+        registry = get_registry()
+        registry.gauge("train.step").set(step)
+        registry.gauge("train.loss").set(log["loss"])
+        registry.gauge("train.grad_norm").set(log["grad_norm"])
+        registry.gauge("train.lr").set(log["lr"])
+        if not (math.isfinite(log["loss"]) and math.isfinite(log["grad_norm"])):
+            registry.counter("train.nonfinite_steps").inc()
 
     def _to_device(self, np_batch) -> torch.Tensor:
         return torch.from_numpy(np.asarray(np_batch)).to(self.device)
@@ -486,6 +581,7 @@ class Trainer:
                         self.tracker.log(log, global_step)
                         self._recorder.record("step", step=global_step, **log)
                         self._note_phase("train.log", t0, step=global_step)
+                        self._publish_train_health(log, global_step)
                         self._emit(step=global_step, **log)
 
                     if will_hook and pending_tokens:

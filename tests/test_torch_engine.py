@@ -378,9 +378,11 @@ def test_a_fatal_prefill_fault_sheds_exactly_its_batch(model):
 
 
 def test_modes_that_are_not_ported_are_refused_by_name(model):
-    for name in ("remote_prefill", "mesh", "watchdog", "paged_impl"):
+    for name in ("remote_prefill", "mesh", "paged_impl"):
         with pytest.raises(NotImplementedError, match=name):
             ServingEngine(model, **ENGINE, **{name: True})
+    assert "watchdog" not in engine_module._NOT_PORTED  # ported: accepted
+    assert ServingEngine(model, **ENGINE, watchdog=None)._watchdog is None
     with pytest.raises(NotImplementedError, match="remote_prefill"):
         ServingEngine(model, **ENGINE, disagg=True, remote_prefill=True)
     for name in ("spec", "disagg"):  # ported: accepted
@@ -397,9 +399,10 @@ def test_modes_that_are_not_ported_are_refused_by_name(model):
         ServingEngine(model, **ENGINE, quantize="weights+pages")
     with pytest.raises(ValueError, match="quantize"):
         ServingEngine(model, **ENGINE, quantize="int4")
-    for missing in ("snapshot", "restore", "reload_weights", "aot_warmup"):
-        assert not hasattr(ServingEngine, missing)
-    for ported in ("submit_fork", "submit_embed", "run_embed_round"):
+    assert not hasattr(ServingEngine, "aot_warmup")
+    for ported in ("submit_fork", "submit_embed", "run_embed_round", "snapshot",
+                   "restore", "reload_weights", "drain_sheds", "forget_ttft",
+                   "prefix_digest", "close"):
         assert hasattr(ServingEngine, ported)
     assert sorted(engine_module._NOT_PORTED) == sorted(set(engine_module._NOT_PORTED))
 

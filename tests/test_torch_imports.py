@@ -57,7 +57,8 @@ def test_scan_sees_the_whole_port():
                 "resilience/watchdog.py", "train/trainer.py", "train/lora.py",
                 "workloads/__init__.py", "workloads/lora.py", "workloads/infill.py",
                 "core/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
-                "parallel/context.py"):
+                "parallel/context.py", "observe/metrics.py", "observe/trace.py",
+                "observe/statusz.py", "observe/__init__.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 

@@ -323,8 +323,7 @@ def test_full_validation_eval_is_exact(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("strategies", ("dp", "tp")), ("mesh", MeshConfig(data=1, fsdp=1, tensor=2, seq=1)),
-    ("remat", True), ("superstep", 4), ("statusz_port", 0), ("attn_impl", "xla"),
-    ("sgu_impl", "xla"),
+    ("remat", True), ("superstep", 4), ("attn_impl", "xla"), ("sgu_impl", "xla"),
 ])
 def test_fields_not_ported_are_refused_by_name(data_dir, tmp_path, field, value):
     """Modes not ported are refused by name; of the mesh and strategies
@@ -332,6 +331,28 @@ def test_fields_not_ported_are_refused_by_name(data_dir, tmp_path, field, value)
     assert field in trainer_mod.NOT_PORTED + trainer_mod.PARTLY_PORTED
     with pytest.raises(ValueError, match=f"TrainerConfig.{field}="):
         _trainer(data_dir, tmp_path / "ck", 1, **{field: value})
+
+
+def test_statusz_port_starts_the_server(data_dir, tmp_path):
+    """``statusz_port`` (ported): 0 binds an ephemeral loopback port whose
+    /healthz answers; ``close()`` stops it and gives SIGTERM back."""
+    import urllib.error
+    import urllib.request
+
+    assert "statusz_port" not in trainer_mod.NOT_PORTED + trainer_mod.PARTLY_PORTED
+    before = signal.getsignal(signal.SIGTERM)
+    t = _trainer(data_dir, tmp_path / "ck", 1, statusz_port=0)
+    try:
+        assert t.statusz_port and t.statusz_port > 0
+        with urllib.request.urlopen(f"http://127.0.0.1:{t.statusz_port}/healthz",
+                                    timeout=10) as resp:
+            body = json.loads(resp.read())
+        assert body["status"] == "ok" and body["role"] == "trainer"
+    finally:
+        t.close()
+    assert signal.getsignal(signal.SIGTERM) == before
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(f"http://127.0.0.1:{t.statusz_port}/healthz", timeout=2)
 
 
 class _CountingSampler:
