@@ -161,15 +161,33 @@ non-zero without its last line:
    and bytes, the replay's extra launches by kernel, tokens/s with tracing
    off and on and the live bytes after each delete, beside the card's name
    and power limit;
-13. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
+13. captured programs (``engine_graphs``, run after phase 9 on its model):
+   ``ServingEngine.aot_warmup`` makes every program of the engine's grid
+   one captured CUDA graph.  K1-fwd, K2-fwd, K3 and K3-q8 are each captured
+   alone at the engine's shapes and replayed three times with new data in
+   their inputs (K3 and K3-q8: new positions, tables and pool rows), each
+   replay bit-equal to an eager launch; then the 12 requests of phase 7
+   through a warmed engine, dense, paged, 8-bit pages, speculative paged
+   (the ``draft_config_for`` draft) and disaggregated paged, and the
+   workloads queue of phase 9 (the embedding programs warmed too): tokens,
+   statuses and embeddings identical to the eager runs', the launches the
+   smoke's formula (a replay counts what its capture launched); the
+   programs, warm-up seconds and bytes the grid holds, the host's launches
+   per warmed chunk, tokens/s and the time from the first submit to the
+   first chunk, eager and warmed.  On the paged engine a reload P0 -> P1
+   captures the grid again and answers as a fresh warmed engine on P1, an
+   injected decode fault changes nothing, and after the engines are closed
+   and deleted the live memory is back within 256 MB of the phase's start;
+14. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
 
 Every earlier phase runs at the depth and the step count it always had;
-the whole takes nine to twelve minutes on an H100 (by the host's pace), the
-build included.
+the whole takes eleven to thirteen minutes on an H100 (by the host's pace),
+the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
-``engine_lifecycle_alone()`` phase 12.
+``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
+with the eager runs it compares against.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -204,7 +222,7 @@ from progen_tpu_torch.data.prefetch import DevicePrefetcher
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
 from progen_tpu_torch.data.tokenizer import encode_tokens
-from progen_tpu_torch.decode import incremental
+from progen_tpu_torch.decode import graphs, incremental
 from progen_tpu_torch.decode.engine import Request, ServingEngine, run_with_restarts
 from progen_tpu_torch.decode.prefill import make_embedder, make_prefiller, pad_prime_length
 from progen_tpu_torch.decode.sampler import (
@@ -1634,16 +1652,59 @@ def engine_requests(c, greedy: bool = False) -> list[dict]:
     return out
 
 
+# each run_engine phase's emitted fields, by phase (engine_graphs reads the
+# eager runs' beside its warmed ones)
+ENGINE_FIELDS: dict[str, dict] = {}
+
+
+def warm_up(engine, embed: bool = False) -> dict:
+    """``engine.aot_warmup``: its programs and seconds, the bytes the
+    captured grid holds (allocated: the static buffers and outputs;
+    reserved: with the graphs' private pools, the allocator's cache emptied
+    before and after), and the launches the host makes per call of the
+    decode chunk (copies in, the replay, clones out).  Every program must
+    be a captured graph."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    stats = engine.aot_warmup(embed=embed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    require(all(p.captured for p in engine._aot.values()),
+            f"a program of {sorted(engine._aot)} was not captured")
+    return {**stats, "keys": [list(k) for k in sorted(engine._aot)],
+            "allocated_bytes": torch.cuda.memory_allocated() - allocated,
+            "reserved_bytes": torch.cuda.memory_reserved() - reserved,
+            "chunk_host_launches": engine._aot[("chunk",)].host_launches}
+
+
+def drive(engine, phase: str, t0: float) -> tuple[list, float]:
+    """Step ``engine`` until it has no work; returns its completions and the
+    seconds from ``t0`` (before the first submit) to the end of its first
+    decode chunk, synchronized."""
+    done, first_chunk_s = [], None
+    while engine.has_work:
+        done += engine.step()
+        if first_chunk_s is None and engine.chunks_run:
+            torch.cuda.synchronize()
+            first_chunk_s = time.perf_counter() - t0
+        require(engine.chunks_run <= 400, f"{phase}: the engine did not drain")
+    return done, first_chunk_s
+
+
 def run_engine(phase: str, model, requests: list[dict], want: dict | None = None,
-               **engine_kwargs):
-    """Answer ``requests`` through a ``ServingEngine`` over ``model``; the
-    launch counts are set to 0 just before and read just after.  Checks what
+               aot: bool = False, **engine_kwargs):
+    """Answer ``requests`` through a ``ServingEngine`` over ``model`` (with
+    ``aot``, warmed first: every program a captured CUDA graph); the launch
+    counts are set to 0 just before and read just after.  Checks what
     every engine run must show, and with ``want`` (the plain engine's tokens
     in the same mode) the share of equal tokens; returns (tokens by uid,
     launches and the paged gate mix's launches by route, engine)."""
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, page_size=ENGINE_PAGE, **engine_kwargs)
+    warmed = warm_up(engine) if aot else None
     programs = count_programs(engine)
     gc.collect()  # an engine holds bound methods of itself: free the last one's state
     torch.cuda.reset_peak_memory_stats()
@@ -1652,7 +1713,7 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
     t0 = time.perf_counter()
     for r in requests:
         engine.submit(Request(**r))
-    done = engine.run_until_idle(max_chunks=400)
+    done, first_chunk_s = drive(engine, phase, t0)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = read_counts()
@@ -1707,11 +1768,13 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
               "chunks_run": engine.chunks_run, "decode_steps": steps,
               "target_steps_per_chunk": per_chunk,
               "generated_tokens": generated, "total_s": total_s,
-              "tokens_per_s": generated / total_s,
+              "tokens_per_s": generated / total_s, "first_chunk_s": first_chunk_s,
               "stage_seconds": dict(engine.stage_seconds),
               "finish_reasons": sorted(comp.finish_reason for comp in done),
               "latency_s_median": float(np.median([comp.latency for comp in done])),
               "peak_bytes": peak, **describe(engine_kwargs)}
+    if warmed is not None:
+        fields["aot_warmup"] = warmed
     if engine.spec:
         fields["spec"] = engine.spec_counters()
     if engine.disagg:
@@ -1729,6 +1792,7 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
         fields["token_match_vs_plain"] = token_match(tokens, want)
         fields["min_token_match"] = ENGINE_TOKEN_MATCH
     emit(phase, **fields)
+    ENGINE_FIELDS[phase] = fields
     if want is not None:
         require(fields["token_match_vs_plain"] >= ENGINE_TOKEN_MATCH,
                 f"{phase}: {fields['token_match_vs_plain']} of the plain engine's "
@@ -1738,21 +1802,22 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
 
 
 def count_programs(engine) -> dict[str, int]:
-    """Count, from now on, the engine's programs that run the parallel
-    forward: ``prefill`` (the admit programs and, disaggregated, the
-    prefill worker's calls) and ``embed`` (the embedding programs)."""
+    """Count, from now on, the engine's dispatches of the programs that run
+    the parallel forward, eager or warmed (a replay of the captured
+    program): ``prefill`` (the admit programs and, disaggregated, the
+    prefill worker's) and ``embed`` (the embedding programs)."""
     programs = {"prefill": 0, "embed": 0}
 
-    def counted(kind, program):
+    def counted(kind, dispatch):
         def call(*args):
             programs[kind] += 1
-            return program(*args)
+            return dispatch(*args)
         return call
 
-    engine._admit = counted("prefill", engine._admit)
+    engine._admit_call = counted("prefill", engine._admit_call)
     if engine.disagg:
-        engine._prefill_worker = counted("prefill", engine._prefill_worker)
-    engine._embedder = counted("embed", engine._embedder)
+        engine._prefill_worker_call = counted("prefill", engine._prefill_worker_call)
+    engine._embed_call = counted("embed", engine._embed_call)
     return programs
 
 
@@ -1775,15 +1840,17 @@ def engine_modes(model, requests, dense: dict, paged: dict, q8: dict,
     held to the plain engine's tokens in its mode (``dense``, ``paged``,
     ``q8``): the ``draft_config_for`` draft (random weights from the seed)
     and the identity draft, spec_k 4.  Returns each phase's launches; fills
-    ``runs`` with the identity-draft and disaggregated runs (tokens,
-    launches) by phase."""
+    ``runs`` with the paged and identity-draft speculative runs and the
+    disaggregated one (tokens, launches) by phase."""
     draft = ProGen(draft_config_for(model.config), make_policy(True), device="cuda",
                    seed=SEED).eval()
     out = {}
-    _, out["engine_spec_paged"], engine = run_engine(
+    tokens, out["engine_spec_paged"], engine = run_engine(
         "engine_spec_paged", model, requests, want=paged, paged=True, spec=True,
         spec_k=ENGINE_SPEC_K, draft_params=draft)
     require(engine.draft_config.dim == model.config.dim // 4, "not the draft config")
+    if runs is not None:
+        runs["engine_spec_paged"] = (tokens, out["engine_spec_paged"])
     tokens, out["engine_spec_identity"], engine = run_engine(
         "engine_spec_identity", model, requests, want=dense, spec=True,
         spec_k=ENGINE_SPEC_K)
@@ -1968,17 +2035,20 @@ def workload_queue(c) -> dict:
             "scaffold": scaffold}
 
 
-def run_workloads(phase: str, model, queue: dict, bank, forked: bool) -> tuple:
+def run_workloads(phase: str, model, queue: dict, bank, forked: bool,
+                  aot: bool = False) -> tuple:
     """One paged engine (with ``bank``, or bankless with every tenant set to
     0) answers the whole ``queue``; the fork is ``submit_fork``ed when
     ``forked``, else its four requests are submitted one by one (uid + k,
-    seed + k).  The launch counts are set to 0 just before and read just
-    after, and held to the programs run.  Returns (completions by uid, the
-    phase's fields, launches, the engine)."""
+    seed + k).  With ``aot`` the engine is warmed first, the embedding
+    programs included.  The launch counts are set to 0 just before and read
+    just after, and held to the programs run.  Returns (completions by uid,
+    the phase's fields, launches, the engine)."""
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, page_size=ENGINE_PAGE, paged=True,
                            lora_bank=bank)
+    warmed = warm_up(engine, embed=True) if aot else None
     programs = count_programs(engine)
     untenanted = lambda r: r if bank else {**r, "tenant": 0}
     gc.collect()
@@ -1996,11 +2066,14 @@ def run_workloads(phase: str, model, queue: dict, bank, forked: bool) -> tuple:
             engine.submit(Request(**{**fork, "uid": fork["uid"] + k, "seed": fork["seed"] + k}))
     for r in queue["embeds"]:
         engine.submit_embed(Request(**r))
-    done, holders, forks_in_flight = [], 0, 0
+    done, holders, forks_in_flight, first_chunk_s = [], 0, 0, None
     fork_uids = set(range(fork["uid"], fork["uid"] + WORKLOAD_FORKS))
     prime_pages = None  # the leader's full prime pages, once it is admitted
     while engine.has_work:
         done += engine.step()
+        if first_chunk_s is None and engine.chunks_run:
+            torch.cuda.synchronize()
+            first_chunk_s = time.perf_counter() - t0
         in_flight = {r.uid: slot for slot, r in engine._inflight.items()}
         forks_in_flight = max(forks_in_flight, len(fork_uids & set(in_flight)))
         if prime_pages is None and fork["uid"] in in_flight:
@@ -2058,6 +2131,7 @@ def run_workloads(phase: str, model, queue: dict, bank, forked: bool) -> tuple:
               "mix_launches_by_route": routes["paged_gate_mix"],
               "chunks_run": engine.chunks_run, "decode_steps": steps, "total_s": total_s,
               "tokens_per_s": sum(len(comp.tokens) for comp in done) / total_s,
+              "first_chunk_s": first_chunk_s, "aot_warmup": warmed,
               "per_workload": per_class, "stage_seconds": dict(engine.stage_seconds),
               "prefix_hits": engine.prefix_hits, "max_prime_page_holders": holders,
               "max_forks_in_flight": forks_in_flight, "peak_bytes": peak}
@@ -2186,7 +2260,7 @@ def decode_step_cost(model, bank) -> dict:
             "wall_ms_runs": walls[False], "wall_ms_runs_with_bank": walls[True]}
 
 
-def engine_workloads(model, reference) -> dict:
+def engine_workloads(model, reference, runs: dict | None = None) -> dict:
     """The served workloads at ProGen-small through one paged engine with a
     LoRA bank (T = 4, rank 8, random from the seed), 8 slots, chunk 32,
     page 16: the mixed queue of ``workload_queue``.  Checks: the tenant-0
@@ -2198,11 +2272,14 @@ def engine_workloads(model, reference) -> dict:
     plain versions'; 32 teacher-forced paged steps with the bank on K3 and
     K3-q8 against the plain mix; in f32 and greedy, paged LoRA tokens
     against dense LoRA's; last, the paged decode step's launches and wall
-    with and without the bank.  Returns each engine run's launches."""
+    with and without the bank.  Returns each engine run's launches; fills
+    ``runs`` with the banked run (completions by uid, fields)."""
     c = model.config
     bank = random_lora_bank(c, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
     queue = workload_queue(c)
     got, fields, launches, engine = run_workloads("engine_workloads", model, queue, bank, True)
+    if runs is not None:
+        runs["engine_workloads"] = (got, fields)
     base, base_fields, base_launches, _ = run_workloads(
         "engine_workloads_bankless", model, queue, None, False)
     fork = queue["fork"]
@@ -2778,6 +2855,253 @@ def engine_lifecycle_alone() -> dict:
 # dim_head 32 and a window of 64; f32 (WMMA) at the training shape, the
 # meshed f32 Trainer's own.  The two at the training shape are timed: each
 # is the route of one of the meshed Trainer's runs.
+GRAPH_REPLAYS = 3                  # replays of each kernel's captured launch
+GRAPHS_FAULT = "serve.decode_chunk:io_error:at=1"
+# mode -> the eager run's phase and the engine's arguments (the draft is
+# filled in by the phase)
+GRAPH_MODES = {
+    "dense": ("engine_dense", {}),
+    "paged": ("engine_paged", {"paged": True}),
+    "weights+pages": ("engine_paged_q8", {"paged": True, "quantize": "weights+pages"}),
+    "spec_paged": ("engine_spec_paged", {"paged": True, "spec": True,
+                                         "spec_k": ENGINE_SPEC_K}),
+    "disagg_paged": ("engine_disagg_paged", {"paged": True, "disagg": True}),
+}
+
+
+def capture_replay_check(kernel: str, call, refill) -> dict:
+    """One launch of ``call()`` captured alone in a CUDA graph (after an
+    eager warm-up on the capture's stream), then ``GRAPH_REPLAYS`` times:
+    ``refill(k)`` writes new data into the captured inputs in place, the
+    graph replays, and an eager launch on the same inputs must give the
+    replay's bits."""
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+    stream = graphs.capture_stream("cuda")  # the engine's: one cuBLAS workspace
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static = as_tuple(call())
+    equal = []
+    for k in range(GRAPH_REPLAYS):
+        refill(k)
+        graph.replay()
+        eager = as_tuple(call())
+        torch.cuda.synchronize()
+        equal.append(all(torch.equal(a, b) for a, b in zip(static, eager)))
+    fields = {"kernel": kernel, "replays": GRAPH_REPLAYS, "bit_equal": equal}
+    emit("graph_capture_check", **fields)
+    require(all(equal), f"{kernel}: a replay differs from an eager launch: {equal}")
+    return fields
+
+
+def graph_capture_checks(gen) -> list[dict]:
+    """K1-fwd, K2-fwd, K3 and K3-q8 each captured alone at the engine's
+    shapes (an admit program of bucket 512 at 8 slots: K1-fwd (8, 8, 512,
+    128) bf16 over windows of 256, K2-fwd (8, 512, 2048) bf16; the paged
+    decode step's K3 over a bf16 pool with f32 weights and K3-q8 over int8
+    ones, 8 rows, n = 1024, page 16) and replayed with new data: new inputs
+    for K1 and K2, new positions, tables and pool rows for K3 and K3-q8."""
+    c, bf16 = SMALL, torch.bfloat16
+
+    def renew(*tensors):
+        def refill(_):
+            for t in tensors:
+                t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(t.dtype))
+        return refill
+
+    out = []
+    q, k, v = (torch.randn(ENGINE_SLOTS, c.heads, 512, c.dim_head, device="cuda",
+                           generator=gen).to(bf16) for _ in range(3))
+    out.append(capture_replay_check(
+        "local_attention_fwd",
+        lambda: cuda_attention.local_attention_fwd(q, k, v, c.window_size), renew(q, k, v)))
+    half = c.dim * c.ff_mult // 2
+    res, gate = (torch.randn(ENGINE_SLOTS, 512, half, device="cuda",
+                             generator=gen).to(bf16) for _ in range(2))
+    w = (torch.randn(512, 512, device="cuda", generator=gen) * 0.05).to(bf16)
+    bias = torch.ones(512, 1, device="cuda", dtype=bf16)
+    out.append(capture_replay_check(
+        "sgu_fwd", lambda: cuda_sgu.spatial_gate_fwd(res, gate, w, bias),
+        renew(res, gate, w)))
+    rng = np.random.default_rng(SEED + 13)
+    for name, variant in (("paged_gate_mix", "f32_w"), ("paged_gate_mix_q8", "int8_w_int8_pool")):
+        case = paged_case(gen, c.seq_len, half, ENGINE_PAGE, list(PAGED_POS), bf16)
+        args, kw = paged_args(case, variant)
+        pool, table, pos = args[2], case["table"], case["pos"]
+        num_pages, ppr = pool.shape[0], table.shape[1]
+
+        def refill(_, pool=pool, table=table, pos=pos, num_pages=num_pages, ppr=ppr):
+            new_pos = rng.integers(0, c.seq_len, size=len(PAGED_POS))
+            perm = rng.permutation(num_pages - 2) + 2
+            new_table = np.zeros((len(PAGED_POS), ppr), np.int32)
+            for b, p in enumerate(new_pos):
+                new_table[b, : p // ENGINE_PAGE + 1] = perm[b * ppr: b * ppr + p // ENGINE_PAGE + 1]
+            table.copy_(torch.from_numpy(new_table))
+            pos.copy_(torch.from_numpy(new_pos.astype(np.int32)))
+            if pool.dtype == torch.int8:
+                pool.copy_(torch.randint(-127, 128, pool.shape, device="cuda", generator=gen,
+                                         dtype=torch.int8))
+            else:
+                pool.copy_(torch.randn(pool.shape, device="cuda", generator=gen).to(pool.dtype))
+
+        out.append(capture_replay_check(
+            name, lambda args=args, kw=kw: cuda_paged_gate_mix.paged_gate_mix(*args, **kw),
+            refill))
+    return out
+
+
+def graph_engine(model, **kwargs) -> ServingEngine:
+    """A warmed engine of the smoke's shape over ``model``."""
+    engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                           max_len=model.config.seq_len, page_size=ENGINE_PAGE, **kwargs)
+    warm_up(engine)
+    return engine
+
+
+def graph_answers(engine, requests: list[dict], phase: str) -> dict:
+    """``requests`` answered by ``engine``: tokens by uid, every status ok."""
+    for r in requests:
+        engine.submit(Request(**r))
+    done, _ = drive(engine, phase, time.perf_counter())
+    require(all(comp.status == "ok" for comp in done)
+            and sorted(comp.uid for comp in done) == sorted(r["uid"] for r in requests),
+            f"{phase}: statuses {[(comp.uid, comp.status) for comp in done]}")
+    return {comp.uid: comp.tokens.tolist() for comp in done}
+
+
+def graph_vs_eager(graphed: dict, eager: dict) -> dict:
+    """The warmed run's warm-up and its tokens/s and time to the first
+    chunk beside the eager run's (``run_engine``/``run_workloads`` fields)."""
+    warm = graphed["aot_warmup"]
+    return {"programs": warm["programs"], "warmup_s": warm["seconds"],
+            "allocated_bytes": warm["allocated_bytes"], "reserved_bytes": warm["reserved_bytes"],
+            "chunk_host_launches": warm["chunk_host_launches"],
+            "chunks_run": graphed["chunks_run"],
+            "tokens_per_s": {"eager": eager["tokens_per_s"], "graphed": graphed["tokens_per_s"]},
+            "first_chunk_s": {"eager": eager["first_chunk_s"],
+                              "graphed": graphed["first_chunk_s"],
+                              "graphed_with_warmup": warm["seconds"] + graphed["first_chunk_s"]}}
+
+
+def engine_graphs(model, requests: list[dict], eager: dict, workloads: tuple) -> dict:
+    """``ServingEngine.aot_warmup`` at ProGen-small (bf16, 8 slots, chunk
+    32, page 16): every program of the grid one captured CUDA graph, each
+    dispatch one replay.  First K1-fwd, K2-fwd, K3 and K3-q8 each captured
+    alone and replayed with new data, bit-equal to eager launches.  Then in
+    every mode (dense, paged, 8-bit pages, speculative paged with the
+    ``draft_config_for`` draft, disaggregated paged) the smoke's 12
+    requests through a warmed engine: the tokens identical to the eager
+    run's in the same mode (``eager``: tokens by phase), the launches the
+    smoke's formula; and the workloads queue (a bank of 4 tenants, the
+    embedding programs warmed) identical to the eager run's (``workloads``:
+    completions by uid, fields): tokens, statuses and embeddings.  On the
+    paged engine: a reload P0 -> P1 captures the grid again and answers as
+    a fresh warmed engine on P1; an injected decode fault is retried and
+    changes nothing; after every engine is closed and deleted the live
+    memory is back within 256 MB of the phase's start.  Returns each
+    warmed run's launches."""
+    c = model.config
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    checks = graph_capture_checks(gen)
+    draft = ProGen(draft_config_for(c), make_policy(True), device="cuda", seed=SEED).eval()
+    launches, summary = {}, {}
+    for mode, (eager_phase, kwargs) in GRAPH_MODES.items():
+        phase = f"engine_graphs_{mode.replace('+', '_')}"
+        kwargs = {**kwargs, "draft_params": draft} if kwargs.get("spec") else kwargs
+        tokens, launches[phase], engine = run_engine(phase, model, requests, aot=True, **kwargs)
+        differ = [u for u in eager[eager_phase] if tokens.get(u) != eager[eager_phase][u]]
+        require(not differ, f"{phase}: tokens of {differ} differ from the eager engine's")
+        summary[mode] = graph_vs_eager(ENGINE_FIELDS[phase], ENGINE_FIELDS[eager_phase])
+        engine.close()
+        del engine
+    del draft
+
+    got_eager, eager_fields = workloads
+    queue = workload_queue(c)
+    bank = random_lora_bank(c, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
+    got, fields, launches["engine_graphs_workloads"], engine = run_workloads(
+        "engine_graphs_workloads", model, queue, bank, True, aot=True)
+    same = lambda a, b: (a.tokens.tolist() == b.tokens.tolist() and a.status == b.status
+                         and (a.embedding is None) == (b.embedding is None)
+                         and (a.embedding is None or np.array_equal(a.embedding, b.embedding)))
+    differ = [u for u in got_eager if not same(got[u], got_eager[u])]
+    emit("engine_graphs_workloads", **fields, differ_from_eager=differ)
+    require(not differ, f"engine_graphs_workloads: {differ} differ from the eager run")
+    summary["workloads"] = graph_vs_eager(fields, eager_fields)
+    engine.close()
+    del engine, bank
+
+    # on the paged engine: a reload, a fault
+    paged = eager["engine_paged"]
+    p1 = ProGen(c, make_policy(True), device="cuda", seed=SEED + 1).eval()
+    engine = graph_engine(model, paged=True)
+    t0 = time.perf_counter()
+    engine.reload_weights(p1.state_dict())  # the caller's model: a copy, the grid again
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+    require(all(p.captured for p in engine._aot.values()), "a program was not captured again")
+    reloaded = graph_answers(engine, requests, "engine_graphs_reload")
+    engine.close()
+    fresh = graph_engine(p1, paged=True)
+    on_p1 = graph_answers(fresh, requests, "engine_graphs_fresh_p1")
+    fresh.close()
+    del engine, fresh, p1
+    require(reloaded == on_p1, "after a reload the warmed engine differs from a fresh one on P1")
+    require(reloaded != paged, "the reload changed no token")
+
+    faults.configure(GRAPHS_FAULT, seed=0)
+    try:
+        engine = graph_engine(model, paged=True)
+        faulted = graph_answers(engine, requests, "engine_graphs_fault")
+        contained = engine.robust.faults_contained
+    finally:
+        faults.reset()
+    engine.close()
+    del engine
+    require(contained >= 1 and faulted == paged,
+            f"the injected decode fault: {contained} contained, answers equal "
+            f"{faulted == paged}")
+
+    gc.collect()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    require(live - start_bytes <= LIFECYCLE_MEMORY_SLACK,
+            f"engine_graphs: {live - start_bytes} bytes live above the phase's start")
+    emit("engine_graphs", nvidia_smi=smi_name_power(), modes=summary, capture_checks=checks,
+         reload={"seconds": reload_s, "answers_equal_fresh_p1": True},
+         fault={"plan": GRAPHS_FAULT, "faults_contained": contained, "answers_equal": True},
+         live_above_start_bytes=live - start_bytes, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def engine_graphs_alone() -> dict:
+    """The engine_graphs phase with the eager runs it compares against, on
+    its own: ``python3 -c "import chip_smoke as cs; cs.engine_graphs_alone()"``."""
+    kernels.build()
+    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
+    requests = engine_requests(SMALL)
+    draft = ProGen(draft_config_for(SMALL), make_policy(True), device="cuda", seed=SEED).eval()
+    eager = {}
+    for mode, (phase, kwargs) in GRAPH_MODES.items():
+        kwargs = {**kwargs, "draft_params": draft} if kwargs.get("spec") else kwargs
+        eager[phase], _, engine = run_engine(phase, model, requests, **kwargs)
+        engine.close()
+    del draft, engine
+    bank = random_lora_bank(SMALL, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
+    got, fields, _, engine = run_workloads("engine_workloads", model, workload_queue(SMALL),
+                                           bank, True)
+    engine.close()
+    del engine, bank
+    return engine_graphs(model, requests, eager, (got, fields))
+
+
 HALO_CASES = (
     ((TRAIN_BATCH, 8, 1024, 128, 256), torch.bfloat16, True),
     ((1, 12, 2048, 128, 512), torch.bfloat16, False),
@@ -3149,8 +3473,14 @@ def main() -> int:
     emit("engine_vs_plain", **check_engine_steps_against_plain(model, "weights+pages"))
     emit("engine_vs_plain", **check_engine_steps_against_plain(reference, None))
     emit("engine_paged_vs_dense", **check_paged_engine_against_dense(reference))
-    engine_launches.update(engine_workloads(model, reference))
+    engine_launches.update(engine_workloads(model, reference, runs))
     del reference
+    gc.collect()
+    eager = {"engine_dense": dense, "engine_paged": full, "engine_paged_q8": q8,
+             "engine_spec_paged": runs["engine_spec_paged"][0],
+             "engine_disagg_paged": runs["engine_disagg_paged"][0]}
+    engine_launches.update(engine_graphs(model, requests, eager, runs.pop("engine_workloads")))
+    del eager
     gc.collect()
     refs = {mode: {"answers": {u: (t, "ok", None) for u, t in tokens.items()},
                    "launches": launches}

@@ -112,12 +112,24 @@ process tracer (``observe/trace.py``: a no-op unless tracing is on); each
 ``step()`` refreshes the queue, in-flight and cache gauges.
 :meth:`ServingEngine.close` releases the engine's device state.
 
-Not ported yet (each raises ``NotImplementedError`` or is absent): remote
-prefill (the handoff's wire format), meshes, ahead-of-time warm-up.
+**Warm-up** (:meth:`ServingEngine.aot_warmup`): every program of the
+engine's grid (an admit or prefill-worker program per prime bucket, the
+merge, the decode chunk, an embedding program per bucket) becomes one
+captured CUDA graph (``decode/graphs.py``), and from then on each dispatch
+of a warmed program is one replay, as the JAX engine dispatches its
+compiled executables.  An engine that is not warmed runs every program
+eagerly, as the JAX engine runs its lazy ``jit``.  The program bodies take
+device tensors; the host's numpy arguments are staged by the dispatch (a
+copy into a warmed program's static buffers, or onto the device for an
+eager call), never inside a body.
+
+Not ported yet (each raises ``NotImplementedError``): remote prefill (the
+handoff's wire format), meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -134,6 +146,7 @@ import torch.nn.functional as F
 from progen_tpu_torch.compat.convert import params_from_flax, params_to_flax
 from progen_tpu_torch.core.precision import Policy
 from progen_tpu_torch.decode import rng
+from progen_tpu_torch.decode.graphs import CapturedProgram, flatten, unflatten
 from progen_tpu_torch.decode.handoff import Handle, HandoffQueue
 from progen_tpu_torch.decode.incremental import (
     ProGenDecodeStep,
@@ -157,6 +170,7 @@ from progen_tpu_torch.decode.prefill import (
     harvest_gate_pages,
     make_embedder,
     pad_prime_length,
+    prime_buckets,
     scatter_gate_rows,
 )
 from progen_tpu_torch.decode.qos import QoSQueue
@@ -308,6 +322,13 @@ def _tree_map(fn: Callable, new, old):
     return fn(new, old)
 
 
+def _on_device(tree, device):
+    """``tree`` with every numpy array copied onto ``device`` (its tensors
+    are there already): the host staging of an eager dispatch."""
+    leaves, spec = flatten(tree)
+    return unflatten(spec, [torch.as_tensor(a, device=device) for a in leaves])
+
+
 # the per-row entries of the slot state besides the caches and ``active``
 # (and ``tenant``, under a LoRA bank)
 _ROW_KEYS = ("seq", "pos", "start", "stop", "done", "keys", "top_k", "temp",
@@ -350,7 +371,8 @@ class ServingEngine:
     prefill bucket, the decode chunk, the merge, an embed bucket).  The
     port's compile, the kernels' ``nvcc`` build at first use, happens
     inside such a first dispatch: a program that launches a kernel does so
-    on its first dispatch.
+    on its first dispatch.  :meth:`aot_warmup` captures the grid ahead of
+    serving instead (and counts as those first dispatches).
     """
 
     def __init__(self, model: ProGen | ProGenConfig, *,
@@ -408,6 +430,8 @@ class ServingEngine:
         # program keys whose first dispatch has run (the watchdog is paused
         # around each key's first one)
         self._compiled_keys: set[tuple] = set()
+        # warmed programs by key (aot_warmup): each dispatch is one replay
+        self._aot: dict[tuple, CapturedProgram] = {}
         self.robust = RobustnessCounters()
         self._pending: list[Completion] = []   # sheds awaiting step() return
         self._draining = False
@@ -662,11 +686,21 @@ class ServingEngine:
                 f"serve.{phase} failed {streak} consecutive rounds: the "
                 f"fault is not transient and not shedding") from cause
 
+    def _dispatch(self, key: tuple, body: Callable, *args):
+        """Run program ``key``: its captured program once warmed (the
+        arguments copied into its static buffers), else ``body`` eagerly on
+        the arguments staged onto the device."""
+        program = self._aot.get(key)
+        if program is not None:
+            return program(*args)
+        return body(*_on_device(args, self.device))
+
     def _admit_call(self, *args):
-        return self._admit(self.state, *args)
+        return self._dispatch(("admit", args[0].shape[1]), self._admit,
+                              self.state, *args)
 
     def _chunk_call(self, *args):
-        return self._decode_chunk(self.state, *args)
+        return self._dispatch(("chunk",), self._decode_chunk, self.state, *args)
 
     @staticmethod
     def _quantize_state(state: dict) -> dict:
@@ -737,16 +771,15 @@ class ServingEngine:
         entries, the harvested ``caches`` (rings, carries and, with
         ``with_sgu``, the dense gate rows) and, under speculation, the
         draft's ``draft_caches``; ``sown`` the target forward's
-        intermediates.  ``tenant`` is read under a LoRA bank only."""
+        intermediates.  ``tenant`` is read under a LoRA bank only.  The
+        arguments are device tensors of the host arrays' dtypes
+        (``_admit_arrays``)."""
         dev, L = self.device, self.max_len
-        as_t = lambda a, dtype: torch.as_tensor(np.asarray(a), device=dev).to(dtype)
-        tokens = as_t(tokens, torch.long)
-        lengths, stops = as_t(lengths, torch.long), as_t(stops, torch.long)
-        seeds, top_k = as_t(seeds.astype(np.int64), torch.long), as_t(top_k, torch.long)
-        temp, lmask = as_t(temp, torch.float32), as_t(lmask, torch.bool)
+        tokens, lengths, stops = tokens.long(), lengths.long(), stops.long()
+        seeds, top_k, temp = seeds.long(), top_k.long(), temp.float()
         rows = self._rows
 
-        tenant = as_t(tenant, torch.long) if self.lora else None
+        tenant = tenant.long() if self.lora else None
         logits, sown = self.model(tokens, return_cache=True, adapters=self._bank,
                                   tenant=tenant)
         caches = harvest_caches(self.config, sown, lengths, self.policy, L,
@@ -799,7 +832,6 @@ class ServingEngine:
         bank row (read under a LoRA bank only)."""
         rows, _ = self._prefill_rows(tokens, lengths, stops, seeds, top_k, temp,
                                      tenant, lmask, with_sgu=True)
-        mask = torch.as_tensor(mask, device=self.device)
         take = lambda new, old: _merge(mask, new, old)
         return {**self._merge_rows(state, rows, mask, take),
                 "caches": _tree_map(take, rows["caches"], state["caches"])}
@@ -814,8 +846,6 @@ class ServingEngine:
         ``paused`` mask ride in as data.  Paused rows run the step but are
         fully masked: sequence, position and key freeze, and the step drops
         their pool, ring and carry writes (``write_ok``)."""
-        table = torch.as_tensor(table, device=self.device)
-        paused = torch.as_tensor(paused, device=self.device)
         st = self._working_copy(state)
         for _ in range(self.chunk_size):
             live = st["active"] & ~st["done"] & ~paused
@@ -834,10 +864,8 @@ class ServingEngine:
         prefix-shared and dummy rows go to the dump page)."""
         rows, sown = self._prefill_rows(tokens, lengths, stops, seeds, top_k,
                                         temp, tenant, lmask, with_sgu=False)
-        mask = torch.as_tensor(mask, device=self.device)
         take = lambda new, old: _merge(mask, new, old)
         old = state["caches"]
-        wtable = torch.as_tensor(wtable, device=self.device)
         if self.gate_dtype == "int8":
             pool_new, scale_new = harvest_gate_pages(
                 self.config, sown, rows["pos"], old["sgu_pool"], wtable,
@@ -895,8 +923,6 @@ class ServingEngine:
     def _decode_chunk_spec_paged_impl(self, state: dict, table, paused):
         """Speculative + paged: every write of a verify step, pool rows
         included, is masked inside the step (``write_ok=live``)."""
-        table = torch.as_tensor(table, device=self.device)
-        paused = torch.as_tensor(paused, device=self.device)
         st = self._working_copy(state)
 
         def target_step(tok, pos, caches, live):
@@ -935,13 +961,10 @@ class ServingEngine:
         handle's dense gate slabs scatter into the pool through
         ``row_wtable (S, ppr)``, a handle-ROW-indexed write table (DUMP for
         unused rows), quantized there under 8-bit pages."""
-        dev = self.device
-        src = torch.as_tensor(src, device=dev).long().clamp(0, self.num_slots - 1)
-        mask = torch.as_tensor(mask, device=dev)
+        src = src.long().clamp(0, self.num_slots - 1)
         take = lambda h, old: _merge(mask, h.index_select(0, src), old)
         h_caches, old = hstate["caches"], state["caches"]
         if self.paged:
-            row_wtable = torch.as_tensor(row_wtable, device=dev)
             gates = h_caches["sgu_gate"]
             if self.gate_dtype == "int8":
                 pool, scale = scatter_gate_rows(
@@ -959,10 +982,11 @@ class ServingEngine:
         return {**self._merge_rows(state, hstate, mask, take), "caches": caches}
 
     def _prefill_worker_call(self, *args):
-        return self._prefill_worker(*args)
+        return self._dispatch(("prefill", args[0].shape[1]), self._prefill_worker,
+                              *args)
 
     def _merge_call(self, hstate, *args):
-        return self._merge(self.state, hstate, *args)
+        return self._dispatch(("merge",), self._merge, self.state, hstate, *args)
 
     # ----------------------------------------------------------------- API
 
@@ -1315,7 +1339,7 @@ class ServingEngine:
         return {"tokens": np.zeros((s, p_pad), np.int32),
                 "lengths": np.ones((s,), np.int32),
                 "stops": np.full((s,), 2, np.int32),
-                "seeds": np.zeros((s,), np.uint32),
+                "seeds": np.zeros((s,), np.int64),  # uint32 values
                 "top_k": np.zeros((s,), np.int32),
                 "temp": np.ones((s,), np.float32),
                 "tenant": np.zeros((s,), np.int32),
@@ -1328,7 +1352,7 @@ class ServingEngine:
         a["tokens"][row, : len(t)] = t
         a["lengths"][row] = len(t)
         a["stops"][row] = min(len(t) + r.max_new_tokens, self.max_len)
-        a["seeds"][row] = np.uint32(int(r.seed) & 0xFFFFFFFF)
+        a["seeds"][row] = int(r.seed) & 0xFFFFFFFF
         a["top_k"][row] = 0 if r.top_k is None else int(r.top_k)
         a["temp"][row] = float(r.temperature)
         a["tenant"][row] = int(r.tenant)
@@ -1609,12 +1633,14 @@ class ServingEngine:
 
     # ---------------------------------------------------------- embeddings
 
-    def _embed_call(self, tokens, lengths):
+    def _embed_impl(self, tokens, lengths):
         """The embedding program on one padded bucket: the BASE model (int8
         under ``quantize``), no adapters, no sampling, no slot state."""
-        dev = self.device
-        return self._embedder(torch.as_tensor(tokens, device=dev).long(),
-                              torch.as_tensor(lengths, device=dev).long())
+        return self._embedder(tokens.long(), lengths.long())
+
+    def _embed_call(self, tokens, lengths):
+        return self._dispatch(("embed", tokens.shape[1]), self._embed_impl,
+                              tokens, lengths)
 
     def _embed_round(self) -> None:
         """Serve one batch of embedding requests: a FIFO prefix of the embed
@@ -2102,7 +2128,10 @@ class ServingEngine:
         given its own copy of the old weights (the JAX engine keeps them as
         its draft), an explicit draft keeps its own.  Returns the new
         generation (``generation`` when given, else the old one + 1), which
-        the completions finishing after the swap carry."""
+        the completions finishing after the swap carry.  A swap that
+        rebinds a model, the draft or the bank (rather than writing into
+        the tensors served) captures every warmed program again before it
+        returns."""
         if params is None and lora_bank is None:
             raise ValueError("reload_weights needs params and/or lora_bank")
         if lora_bank is not None and not self.lora:
@@ -2131,35 +2160,106 @@ class ServingEngine:
                               for site, ts in sites.items() for k, t in ts.items()}
             check(flat(bank), {k: (tuple(t.shape), t.dtype)
                                for k, t in flat(self._bank).items()}, "lora_bank")
+        # whether a model, the draft or the bank the programs read is
+        # replaced by another tensor (not written in place)
+        rebound = lora_bank is not None
         if params is not None:
             if not self._owns_model:
                 # the engine serves the caller's model: write into a copy,
                 # so the caller's keeps its weights (an identity draft goes
                 # on drafting with them)
                 self._bind_model(copy.deepcopy(self.model))
-                self._owns_model = True
+                self._owns_model = rebound = True
             elif self.spec and self._draft is self.model:
                 # the identity draft keeps the weights it was built on
                 self._draft = copy.deepcopy(self.model)
                 self._draft_step = ProGenDecodeStep(self._draft)
+                rebound = True
             if self._requantize:
                 state = self._quantize_state(state)
             with torch.no_grad():
                 self.model.load_state_dict(state)
         if lora_bank is not None:
             self._bank = bank
+        if rebound:
+            # a warmed program holds the addresses it was captured with: it
+            # is captured again before the first request on the new weights
+            for program in self._aot.values():
+                program.recapture()
         self.generation = (int(generation) if generation is not None
                            else self.generation + 1)
         return self.generation
 
+    def aot_warmup(self, max_prime: int | None = None, *,
+                   embed: bool = False) -> dict:
+        """Capture the engine's whole program grid ahead of serving, each
+        program as one CUDA graph (``decode/graphs.py``): an admit program
+        per prime bucket (``window * 2^k`` up to ``max_prime``, default
+        ``max_len - 1``), or a prefill-worker program per bucket and the
+        merge when disaggregated, and the decode chunk; with ``embed=True``
+        an embedding program per bucket too.  From then on every dispatch
+        of those programs is one replay, so serving launches no program
+        from Python and builds nothing.  A program already warmed is not
+        captured again.  The grid and the return value are the JAX
+        method's: ``{"programs": captured now, "seconds": wall}``.  On the
+        CPU the programs stage their arguments the same way and call their
+        bodies (there is no graph).  A capture that fails raises."""
+        t0 = time.perf_counter()
+        s, L = self.num_slots, self.max_len
+        cap = min(max_prime or L - 1, L - 1)
+        buckets = prime_buckets(self.config.window_size, self.config.seq_len, cap)
+        lmask = np.ones((s, L, self.config.num_tokens), bool)
+        # paged: a write table that sends every row to the dump page
+        wtable = ((np.full((s, self.pages_per_row), DUMP_PAGE, np.int32),)
+                  if self.paged else ())
+        programs = 0
+
+        def capture(key, body, *args):
+            nonlocal programs
+            if key in self._aot:
+                return
+            self._aot[key] = CapturedProgram(body, *args, device=self.device)
+            self._compiled_keys.add(key)
+            programs += 1
+
+        paused = (self._watchdog.paused() if self._watchdog is not None
+                  else contextlib.nullcontext())
+        with paused:
+            for p_pad in buckets:
+                if embed:
+                    capture(("embed", p_pad), self._embed_impl,
+                            np.zeros((self.embed_batch, p_pad), np.int32),
+                            np.ones((self.embed_batch,), np.int32))
+                a = self._admit_arrays(p_pad)
+                if self.disagg:
+                    del a["mask"]
+                    capture(("prefill", p_pad), self._prefill_worker, *a.values(), lmask)
+                    continue
+                capture(("admit", p_pad), self._admit, self.state, *a.values(), lmask,
+                        *wtable)
+            if self.disagg and ("merge",) not in self._aot:
+                # the handle's shape does not depend on the bucket (it is
+                # harvested to max_len): any bucket's worker makes one
+                a = self._admit_arrays(buckets[0])
+                del a["mask"]
+                handle = self._prefill_worker_call(*a.values(), lmask)
+                capture(("merge",), self._merge, self.state, handle,
+                        np.zeros((s,), np.int32), np.zeros((s,), bool), *wtable)
+            chunk_args = ((self._page_table.copy(), self._paused.copy())
+                          if self.paged else ())
+            capture(("chunk",), self._decode_chunk, self.state, *chunk_args)
+        return {"programs": programs, "seconds": time.perf_counter() - t0}
+
     def close(self) -> None:
         """Release the engine's device state: the slot state with its caches
-        and page pool, queued handles, the models and the LoRA bank; and drop
-        the engine's references to its own bound methods, so that dropping
-        the last reference to it frees it at once.  Host records
+        and page pool, queued handles, the captured programs, the models and
+        the LoRA bank; and drop the engine's references to its own bound
+        methods, so that dropping the last reference to it frees it at
+        once.  Host records
         (completions, counters, ``status()``) stay readable; ``step()``
         raises.  Safe to call twice."""
         self.state = None
+        self._aot = {}  # the captured graphs, their pools and static buffers
         if self._handoff is not None:
             for h in self._handoff:
                 h.state = {}

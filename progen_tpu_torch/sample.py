@@ -35,6 +35,14 @@ under ``--trace_out``:
     python -m progen_tpu_torch.sample --serve --prime "MKV|MALW" \
         --serve_attempts 2 --snapshot_path snap.json --trace --trace_out traces
 
+``--aot_warmup`` warms every engine ``run_with_restarts`` builds before it
+serves (``ServingEngine.aot_warmup``, with ``--embed`` the embedding
+programs too): on the card each program of the engine's grid becomes one
+captured CUDA graph and every dispatch one replay, with the same tokens.
+It prints ``aot warmup: N programs in S s`` to stderr for each engine:
+
+    python -m progen_tpu_torch.sample --serve --aot_warmup --prime "MKV|MALW" --paged
+
 Two serving workloads ride ``--serve`` (one at a time):
 
 * ``--embed``: each prime is embedded (``engine.submit_embed``: one
@@ -66,6 +74,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -146,11 +155,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--trace_out", default="trace_out", metavar="DIR",
                    help="directory of the span dump and trace.json (with --trace)")
     p.add_argument("--aot_warmup", action="store_true",
-                   help="not ported yet: ahead-of-time warm-up of the engine's "
-                        "programs (ROADMAP.md Queue 1)")
+                   help="engine: capture every program of the engine's grid "
+                        "(admit or prefill and merge per bucket, the decode "
+                        "chunk, with --embed the embed programs) as a CUDA "
+                        "graph before serving")
     args = p.parse_args(argv)
-    if args.aot_warmup:
-        p.error("--aot_warmup is not ported yet (ROADMAP.md Queue 1)")
+    if args.aot_warmup and not args.serve:
+        p.error("--aot_warmup warms the engine; add --serve")
     if (args.embed or args.infill is not None) and not args.serve:
         p.error("--embed/--infill are serving workloads; add --serve")
     if args.embed and args.infill is not None:
@@ -209,11 +220,16 @@ def serve(args, model, seq_len: int) -> list[dict]:
         watchdog = Watchdog(args.watchdog_timeout, out_dir=".", label="serve").start()
 
     def engine_factory():
-        return ServingEngine(model, num_slots=args.slots, chunk_size=args.chunk,
-                             max_len=seq_len, paged=args.paged,
-                             page_size=args.page_size, quantize=args.quantize,
-                             spec=args.spec, spec_k=args.spec_k, disagg=args.disagg,
-                             watchdog=watchdog)
+        engine = ServingEngine(model, num_slots=args.slots, chunk_size=args.chunk,
+                               max_len=seq_len, paged=args.paged,
+                               page_size=args.page_size, quantize=args.quantize,
+                               spec=args.spec, spec_k=args.spec_k,
+                               disagg=args.disagg, watchdog=watchdog)
+        if args.aot_warmup:
+            stats = engine.aot_warmup(embed=args.embed)
+            print(f"aot warmup: {stats['programs']} programs in "
+                  f"{stats['seconds']:.1f} s", file=sys.stderr, flush=True)
+        return engine
 
     try:
         if args.embed:

@@ -23,7 +23,16 @@ the identity draft and paged with a ``draft_config_for`` draft, per round
 and per emitted token beside the per-step numbers; ``train``: the train
 step; ``mesh``: the train step without a mesh and on a mesh of one rank
 under ``dp`` and ``fsdp``, in f32 and in bf16 compute), all but ``spec`` and ``mesh`` by default.
+With ``--aot_warmup`` each engine chunk is traced twice, eager and then
+warmed (``ServingEngine.aot_warmup``: the chunk one captured CUDA graph,
+replayed), each line with ``host_launches``: the CUDA runtime calls the
+host made that put work on the device (kernel and graph launches, copies,
+memsets), a step's and a round's beside the device's kernels.  Every line
+also has ``event_span_ms``, the stream's span between CUDA events around a
+bare run (the device's busy and idle time together).
 Needs a GPU.
+
+    python -m progen_tpu_torch.trace_main_path --phases engine spec --aot_warmup
 """
 
 from __future__ import annotations
@@ -61,6 +70,9 @@ REPEATS = 5  # rounds per phase: host-clock walls vary from run to run
 # kernel-name fragments of the port's own kernels and of cuBLAS's products
 PORT_KERNELS = ("local_attention_", "sgu_", "paged_gate_mix")
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+# the CUDA runtime and driver calls that put work on the device
+HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpy", "cudaMemset")
 
 
 def _kind(name: str) -> str:
@@ -71,26 +83,35 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def _wall_ms(fn, device) -> float:
+def _wall_ms(fn, device) -> tuple[float, float]:
+    """Host-clock ms of ``fn`` ended by a synchronize, and the device's span
+    of its stream between two CUDA events (busy and idle)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
+    start.record()
     fn()
+    end.record()
     torch.cuda.synchronize(device)
-    return (time.perf_counter() - t0) * 1e3
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
 
 
-def _profiled(fn, device) -> dict[str, list]:
-    """One run under the profiler: its device kernels' ``{name: [calls, us]}``."""
+def _profiled(fn, device) -> tuple[dict[str, list], int]:
+    """One run under the profiler: its device kernels' ``{name: [calls,
+    us]}`` and the host's launching runtime calls (``HOST_LAUNCHES``)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
     per_name: dict[str, list] = {}
+    host = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             entry = per_name.setdefault(e.name, [0, 0.0])
             entry[0] += 1
             entry[1] += e.time_range.elapsed_us()
-    return per_name
+        elif e.name.startswith(HOST_LAUNCHES):
+            host += 1
+    return per_name, host
 
 
 def _median_and_range(values) -> tuple[float, list]:
@@ -104,16 +125,18 @@ def _traced(fn, device) -> dict:
     ``1 - median busy / median wall``; its range takes the walls' range.
     The by-kind split and the top kernels come from the profiled run of
     median device time."""
-    walls = [_wall_ms(fn, device) for _ in range(REPEATS)]
-    rounds = [_profiled(fn, device) for _ in range(REPEATS)]
+    walls, spans = zip(*(_wall_ms(fn, device) for _ in range(REPEATS)))
+    rounds, hosts = zip(*(_profiled(fn, device) for _ in range(REPEATS)))
     busy = [sum(us for _, us in r.values()) / 1e3 for r in rounds]
     out = {}
     out["wall_ms"], out["wall_ms_range"] = _median_and_range(walls)
+    out["event_span_ms"], out["event_span_ms_range"] = _median_and_range(spans)
     out["device_busy_ms"], out["device_busy_ms_range"] = _median_and_range(busy)
     out["idle_share"] = 1.0 - out["device_busy_ms"] / out["wall_ms"]
     out["idle_share_range"] = [1.0 - out["device_busy_ms"] / w for w in out["wall_ms_range"]]
     out["device_launches"], out["device_launches_range"] = _median_and_range(
         [sum(n for n, _ in r.values()) for r in rounds])
+    out["host_launches"], out["host_launches_range"] = _median_and_range(hosts)
     out["repeats"] = REPEATS
     per_name = rounds[int(np.argsort(busy)[REPEATS // 2])]
     by_kind: dict[str, float] = {}
@@ -135,18 +158,22 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", nargs="+", choices=PHASES,
                         default=["serve", "engine", "train"])
-    phases = parser.parse_args(argv).phases
+    parser.add_argument("--aot_warmup", action="store_true",
+                        help="trace each engine chunk eager and then warmed "
+                             "(one captured CUDA graph)")
+    args = parser.parse_args(argv)
+    phases = args.phases
     device = resolve_device("cuda")
     config = SMALL
     if {"serve", "engine", "spec"} & set(phases):
-        _trace_serving(device, config, phases)
+        _trace_serving(device, config, phases, args.aot_warmup)
     if "train" in phases:
         _trace_train(device, config)
     if "mesh" in phases:
         _trace_mesh(device, config)
 
 
-def _trace_serving(device, config, phases) -> None:
+def _trace_serving(device, config, phases, aot_warmup: bool = False) -> None:
     model = ProGen(config, make_policy(), device=device, seed=0).eval()
     sampler = make_chunked_sampler(model)
     rng = np.random.default_rng(0)
@@ -190,45 +217,65 @@ def _trace_serving(device, config, phases) -> None:
                   ("spec_draft_paged", {"paged": True, "spec": True, "spec_k": SPEC_K,
                                         "draft_params": draft})]
     for mode, kwargs in modes:
-        engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
-                               max_len=config.seq_len, page_size=16, **kwargs)
-        for i in range(ENGINE_SLOTS):
-            # budgets no row can exhaust within the traced chunks; half the
-            # rows greedy, half top-k 25 at temperature 1
-            engine.submit(Request(
-                uid=i, tokens=[0] + rng.integers(1, config.num_tokens, PRIME_LEN).tolist(),
-                max_new_tokens=700, top_k=25 if i % 2 else None,
-                temperature=1.0 if i % 2 else 0.0, seed=i))
-        engine._admit_pending()
-        for _ in range(2):  # warm-up
-            engine._dispatch_chunk()
-        before = engine.spec_counters()
-        result = _traced(engine._dispatch_chunk, device)
-        # target steps a chunk: a speculative chunk's rounds verify k + 1 each
-        steps = (engine._spec_rounds * (SPEC_K + 1)) if engine.spec else ENGINE_CHUNK
-        result["per_step_wall_ms"] = result["wall_ms"] / steps
-        result["per_step_device_ms"] = result["device_busy_ms"] / steps
-        result["launches_per_step"] = result["device_launches"] / steps
-        if engine.spec:
-            after = engine.spec_counters()
-            chunks = 2 * REPEATS
-            emitted = (after["spec_emitted_tokens"] - before["spec_emitted_tokens"]) / chunks
-            slot_rounds = (after["spec_slot_rounds"] - before["spec_slot_rounds"]) / chunks
-            rounds = engine._spec_rounds
-            result.update(
-                rounds_per_chunk=rounds, emitted_tokens_per_chunk=emitted,
-                accepted_tokens_per_slot_round=emitted / slot_rounds,
-                per_round_wall_ms=result["wall_ms"] / rounds,
-                per_round_device_ms=result["device_busy_ms"] / rounds,
-                launches_per_round=result["device_launches"] / rounds,
-                wall_ms_per_emitted_token=result["wall_ms"] / emitted,
-                draft={k: getattr(engine.draft_config, k) for k in ("dim", "depth", "heads")})
-        live = int((engine.state["active"] & ~engine.state["done"]).sum())
-        print(json.dumps({"phase": "engine_chunk", "mode": mode, "config": "small",
-                          "slots": ENGINE_SLOTS, "steps": steps,
-                          "live_rows_at_end": live, "prime_len": p_len,
-                          "device": meta["device"], **result}))
-        del engine
+        primes = [[0] + rng.integers(1, config.num_tokens, PRIME_LEN).tolist()
+                  for _ in range(ENGINE_SLOTS)]
+        for dispatch in ("eager", "warmed") if aot_warmup else ("eager",):
+            # a fresh engine each: both traces start from the same positions
+            engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                                   max_len=config.seq_len, page_size=16, **kwargs)
+            extra = {}
+            if dispatch == "warmed":
+                t0 = time.perf_counter()
+                extra["aot_warmup"] = engine.aot_warmup()
+                extra["aot_warmup_wall_s"] = time.perf_counter() - t0
+            for i, tokens in enumerate(primes):
+                # budgets no row can exhaust within the traced chunks; half the
+                # rows greedy, half top-k 25 at temperature 1
+                engine.submit(Request(
+                    uid=i, tokens=tokens, max_new_tokens=700, top_k=25 if i % 2 else None,
+                    temperature=1.0 if i % 2 else 0.0, seed=i))
+            engine._admit_pending()
+            for _ in range(2):  # warm-up
+                engine._dispatch_chunk()
+            result = _trace_chunk(engine, device)
+            live = int((engine.state["active"] & ~engine.state["done"]).sum())
+            print(json.dumps({"phase": "engine_chunk", "mode": mode, "dispatch": dispatch,
+                              "config": "small", "slots": ENGINE_SLOTS,
+                              "live_rows_at_end": live, "prime_len": p_len,
+                              "device": meta["device"], **extra, **result}), flush=True)
+            engine.close()
+            del engine
+            gc.collect()
+
+
+def _trace_chunk(engine, device) -> dict:
+    """One engine chunk, traced (``_traced``), per target step and, under
+    speculation, per round and per emitted token."""
+    before = engine.spec_counters()
+    result = _traced(engine._dispatch_chunk, device)
+    # target steps a chunk: a speculative chunk's rounds verify k + 1 each
+    steps = (engine._spec_rounds * (SPEC_K + 1)) if engine.spec else ENGINE_CHUNK
+    result["steps"] = steps
+    result["per_step_wall_ms"] = result["wall_ms"] / steps
+    result["per_step_device_ms"] = result["device_busy_ms"] / steps
+    result["launches_per_step"] = result["device_launches"] / steps
+    result["host_launches_per_step"] = result["host_launches"] / steps
+    if engine.spec:
+        after = engine.spec_counters()
+        chunks = 2 * REPEATS
+        emitted = (after["spec_emitted_tokens"] - before["spec_emitted_tokens"]) / chunks
+        slot_rounds = (after["spec_slot_rounds"] - before["spec_slot_rounds"]) / chunks
+        rounds = engine._spec_rounds
+        result.update(
+            rounds_per_chunk=rounds, emitted_tokens_per_chunk=emitted,
+            accepted_tokens_per_slot_round=emitted / slot_rounds,
+            per_round_wall_ms=result["wall_ms"] / rounds,
+            per_round_device_ms=result["device_busy_ms"] / rounds,
+            launches_per_round=result["device_launches"] / rounds,
+            host_launches_per_round=result["host_launches"] / rounds,
+            wall_ms_per_emitted_token=result["wall_ms"] / emitted,
+            draft={k: getattr(engine.draft_config, k) for k in ("dim", "depth", "heads")})
+    return result
 
 
 def _trace_train(device, config, mixed_precision: bool = True, mesh=None,

@@ -551,3 +551,39 @@ def test_trainer_resumes_bit_exact_on_the_card(gen, tmp_path):
     tokens = torch.randint(1, 255, (2, 64), device="cuda", generator=gen)
     with torch.no_grad():
         assert torch.equal(fresh(tokens), full_t.model(tokens))
+
+
+@pytest.mark.parametrize("quantize", [None, "weights+pages"])
+def test_a_warmed_paged_engine_gives_the_eager_engines_tokens(gen, quantize):
+    """``aot_warmup`` captures each program as a CUDA graph; the warmed
+    engine's tokens equal the eager engine's on the card, token for token,
+    and the kernels' counters advance by the same launches (the replays
+    add what their captures counted)."""
+    cfg = ProGenConfig(num_tokens=32, dim=64, seq_len=64, depth=3,
+                       window_size=16, global_mlp_depth=2, heads=2,
+                       dim_head=32, ff_mult=2)
+    model = ProGen(cfg, make_policy(False), device="cuda", seed=2)
+    rng = np.random.default_rng(0)
+    requests = [dict(uid=i, tokens=[int(t) for t in rng.integers(1, 32, size=5 + 7 * i)],
+                     max_new_tokens=12, top_k=None if i % 2 else 8,
+                     temperature=0.0 if i % 2 else 1.0, seed=i) for i in range(5)]
+    runs = {}
+    for warm in (False, True):
+        engine = ServingEngine(model, num_slots=2, chunk_size=4, max_len=64, paged=True,
+                               page_size=8, quantize=quantize)
+        if warm:
+            stats = engine.aot_warmup()
+            assert stats["programs"] == 4  # admits at 16, 32, 64 and the chunk
+            assert all(p.captured for p in engine._aot.values())
+        before = (cuda_attention.launches, cuda_sgu.launches,
+                  cuda_paged_gate_mix.launches + cuda_paged_gate_mix.q8_launches)
+        for r in requests:
+            engine.submit(Request(**r))
+        done = engine.run_until_idle()
+        torch.cuda.synchronize()
+        after = (cuda_attention.launches, cuda_sgu.launches,
+                 cuda_paged_gate_mix.launches + cuda_paged_gate_mix.q8_launches)
+        assert all(c.ok for c in done) and len(done) == 5
+        runs[warm] = ({c.uid: c.tokens.tolist() for c in done},
+                      tuple(a - b for a, b in zip(after, before)), engine.chunks_run)
+    assert runs[True] == runs[False]

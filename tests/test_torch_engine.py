@@ -399,10 +399,12 @@ def test_modes_that_are_not_ported_are_refused_by_name(model):
         ServingEngine(model, **ENGINE, quantize="weights+pages")
     with pytest.raises(ValueError, match="quantize"):
         ServingEngine(model, **ENGINE, quantize="int4")
-    assert not hasattr(ServingEngine, "aot_warmup")
+    # ported: present and not refused (tests/test_torch_graphs.py holds it
+    # to the JAX engine's)
+    assert ServingEngine(model, **ENGINE).aot_warmup(max_prime=1)["programs"] == 2
     for ported in ("submit_fork", "submit_embed", "run_embed_round", "snapshot",
                    "restore", "reload_weights", "drain_sheds", "forget_ttft",
-                   "prefix_digest", "close"):
+                   "prefix_digest", "close", "aot_warmup"):
         assert hasattr(ServingEngine, ported)
     assert sorted(engine_module._NOT_PORTED) == sorted(set(engine_module._NOT_PORTED))
 

@@ -657,6 +657,19 @@ def test_sample_cli_restarts_snapshots_and_traces(tmp_path, capsys):
     assert {"serve.submit", "serve.admit_prefill", "serve.decode_chunk"} <= names
 
 
-def test_sample_cli_refuses_aot_warmup():
+def test_sample_cli_refuses_aot_warmup(capsys):
+    """``--aot_warmup`` without ``--serve`` is refused (it warms the
+    engine); with ``--serve`` the engine is warmed (one admit program for
+    the one bucket, 512, and the decode chunk) and answers as an unwarmed
+    engine does."""
     with pytest.raises(SystemExit):
-        sample.main(["--serve", "--aot_warmup", "--config", "default", "--device", "cpu"])
+        sample.main(["--aot_warmup", "--config", "default", "--device", "cpu"])
+    base = ["--serve", "--config", "default", "--device", "cpu", "--prime", "MKV|MALWTR|M",
+            "--seq_len", "24", "--slots", "2", "--chunk", "4"]
+    want = sample.main(base)
+    capsys.readouterr()
+    got = sample.main(["--serve", "--aot_warmup", "--config", "default", "--device", "cpu",
+                       *base[5:]])
+    assert "aot warmup: 2 programs in" in capsys.readouterr().err
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "latency_s"} for r in recs]
+    assert strip(got) == strip(want) and len(got) == 3
