@@ -70,14 +70,14 @@ non-zero without its last line:
    shards, 1900 records; 100 valid records): (a) 8 uninterrupted steps with
    background checkpoints and validation every 4 and a sample at 8, the
    batches fed by the prefetcher; (b) 4 steps into a fresh store, then a
-   new ``Trainer`` resumes to 8, and its losses and final parameters must
+   new ``Trainer`` resumes to 8 (no sample hook), and its losses and final parameters must
    equal (a)'s bit for bit; (c) (a)'s stored parameters, restored into a
    fresh model, give its prefill logits bit for bit.  Every train step's
    launches (the bare step's), all on the Hopper kernels; step time,
    tokens/s, MFU, the host's time per batch against the loop's wait for
    it, the snapshot's, host copy's, write's and restore's times,
    checkpoint bytes and peak memory; (d) the same Trainer with no hooks at
-   prefetch depths 0 and 2 in turns (step time, the loop's wait, whether
+   prefetch depths 0 and 2 (step time, the loop's wait, whether
    the batch was queued when the loop took it); and the reader's time to
    its first batch after resume skips up to 200,000 records.  It runs in a
    temporary directory it deletes;
@@ -139,15 +139,15 @@ non-zero without its last line:
    on one GPU, so (b) is the on-card witness of what ``sp`` does across
    ranks; the CPU tests run the ranks;
 12. the engine's resume and operations (``engine_lifecycle``, run after
-   phase 9 on its model): ProGen-small (bf16, 8 slots, chunk 32) on the 12
-   requests of phase 7, dense, paged, 8-bit pages, speculative (identity
+   phase 13): ProGen-small at half depth (6 layers; bf16, 8 slots, chunk
+   32) on the 12 requests of phase 7, dense, paged, 8-bit pages, speculative (identity
    draft), disaggregated (paged) and a workloads mode (paged, a LoRA bank
    of 4 tenants, an infill, an embed, a fork, a request shed at submit, a
    600-residue prime in a cold admit bucket, 8 priority requests that
    preempt); every engine beats one watchdog of 30 s, which must not trip.
    (a) in every mode a snapshot after 2 steps, restored on a fresh engine,
    replays to the uninterrupted run's answers token for token (the
-   uninterrupted runs of phase 7 where there is one); (b) dense and paged,
+   phase's own uninterrupted runs); (b) dense and paged,
    ``run_with_restarts`` through a decode fault with no in-place retry
    builds 2 engines and gives the same answers; (c) dense and 8-bit, a
    reload at idle from weights P0 to P1 gives a fresh P1 engine's answers
@@ -178,16 +178,41 @@ non-zero without its last line:
    captures the grid again and answers as a fresh warmed engine on P1, an
    injected decode fault changes nothing, and after the engines are closed
    and deleted the live memory is back within 256 MB of the phase's start;
-14. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
+14. the Trainer's superstep and remat (``trainer_superstep``, after phase
+   8): K1-fwd, K1-dq, K1-dkv, K2-fwd, K2-dgate and K2-dW each captured
+   alone at the train step's shapes (bf16, batch 8) and replayed three
+   times with new data, bit-equal to eager launches; ``train_multi_step``
+   (one captured optimizer step, replayed) against the eager steps from one
+   init, K 4 at accumulation 1 and K 2 at accumulation 2, two dispatches
+   each, and ``LoRAProGen`` rank 8 (K 2, accumulation 2, the base
+   bit-unchanged): every loss, grad norm, lr, parameter, moment and the
+   accumulator bit-equal, or within the eager runs' own spread (printed);
+   remat ``full``, ``dots``, ``attn`` in f32 against no remat (bit-equal,
+   else JAX's bar) and in bf16 their peak memory, step ms and launches a
+   step against the formula (K1-fwd 24/24/12, K2-fwd 6); the ``Trainer``
+   with ``superstep=4`` over ``train_data_synth/`` (validate 3, checkpoint
+   4, log 2) to 4, then resumed to 6, its params bit-equal to
+   ``superstep=1`` straight to 6, spans 2, 1, 1, 2 and every dispatch's
+   launches the formula; 16 steps at superstep 4 and at 1 (step ms,
+   tokens/s, peak memory), a superstep of two steps traced against two
+   eager steps (wall, device ms, idle share, device and host launches), the
+   capture's seconds and the bytes its pool holds; live memory within
+   256 MB of the phase's start after the Trainers are deleted;
+15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
 
-Every earlier phase runs at the depth and the step count it always had;
-the whole takes eleven to thirteen minutes on an H100 (by the host's pace),
-the build included.
+Every earlier phase runs at the depth and the step count it always had,
+but for three cuts made with phase 14 to keep the whole near 900 s: phase
+12 at half depth, the resumed runs of phase 8 without a sample hook and
+its feed comparison at prefetch depths 0 and 2 once each (0, 2, 0, 2
+before).
+The whole takes twelve to seventeen minutes on an H100 (by the host's
+pace), the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
 ``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
-with the eager runs it compares against.
+with the eager runs it compares against, ``trainer_superstep_alone()``
+phase 14.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -248,7 +273,10 @@ from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.train import trainer as trainer_module
+from progen_tpu_torch import trace_main_path
+from progen_tpu_torch.train.loss import batch_loss
 from progen_tpu_torch.train.optimizer import make_optimizer
+from progen_tpu_torch.train.schedule import make_lr_schedule
 from progen_tpu_torch.train.step import make_train_functions
 from progen_tpu_torch.train.lora import LoRAProGen, extract_adapters, lora_train_functions
 from progen_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -305,7 +333,7 @@ TRAINER_DATA = Path(__file__).resolve().parent / "train_data_synth"
 TRAINER_STEPS = 8   # optimizer steps of run (a); run (b) stops at half, then resumes
 TRAINER_EVERY = 4   # checkpoint and validation cadence of the trainer phase
 TRAINER_HOST_BATCHES = 20  # batches timed on the host alone
-FEED_DEPTHS = (0, 2, 0, 2)  # the feed comparison's prefetch depths, in turns
+FEED_DEPTHS = (0, 2)  # the feed comparison's prefetch depths (0, 2, 0, 2 before phase 14)
 FEED_STEPS = 12     # steps of each run of the feed comparison
 # Resume skips timed on the reader alone: none, the largest an unshuffled
 # resume takes on this corpus (it wraps the cursor), and looped skips as far
@@ -1271,7 +1299,7 @@ class TimedPrefetcher(DevicePrefetcher):
 
 def feed_comparison(c, root: Path, device) -> list[dict]:
     """The Trainer with no hooks for FEED_STEPS steps at each prefetch depth
-    of FEED_DEPTHS, in turns: the median step and the loop's median wait
+    of FEED_DEPTHS: the median step and the loop's median wait
     for a batch; with the prefetcher, the share of takes that found a batch
     queued and the median take then."""
     out = []
@@ -1359,13 +1387,17 @@ def trainer_phase(c=SMALL, device="cuda") -> dict:
             torch.cuda.empty_cache()
 
         # (b) half, then a new Trainer resumes over the same store
+        # no sample hook in (b): the sample of (a) is the phase's; the
+        # resume is about the train state
+        never = 10 * TRAINER_STEPS
         b1, out_b1, per_step_b1, _ = run_trainer(c, root / "ck_b", root / "runs_b1", half,
-                                                 device)
+                                                 device, sample_every=never)
         ckpt_log_b = b1.checkpoint_log
         del b1, out_b1
         gc.collect()
         b2, out_b2, per_step_b2, rows_b2 = run_trainer(c, root / "ck_b", root / "runs_b2",
-                                                       TRAINER_STEPS, device)
+                                                       TRAINER_STEPS, device,
+                                                       sample_every=never)
         losses_b2 = {r["step"]: r["loss"] for r in rows_b2 if "loss" in r}
         final_b2 = {k: v.detach().cpu() for k, v in out_b2["state"].params.items()}
         restore_s = b2.restore_seconds
@@ -2437,6 +2469,10 @@ LIFECYCLE_WATCHDOG_S = 30.0        # no step may take longer (cold dispatches ex
 LIFECYCLE_SNAPSHOT_STEPS = 2       # steps before the mid-run snapshot
 LIFECYCLE_FAULT = "serve.decode_chunk:unavailable:at=2"
 LIFECYCLE_TRAINER_STEPS = 3
+# the phase's ProGen-small depth: 12 (the whole model) before phase 14 came,
+# cut to half to keep the whole smoke near 900 s; it runs its own
+# uninterrupted runs
+LIFECYCLE_DEPTH = 6
 LIFECYCLE_MEMORY_SLACK = 256 << 20  # live bytes allowed above the phase's start
 LIFECYCLE_TRACE_CAPACITY = 1 << 16
 # the engine's span and event names the phase's trace must hold
@@ -2839,13 +2875,19 @@ def lifecycle_statusz(c, root: Path, life: Lifecycle) -> dict:
     return fields
 
 
+def lifecycle_model() -> ProGen:
+    """The engine_lifecycle phase's model: ProGen-small at LIFECYCLE_DEPTH
+    layers (bf16, seed 0)."""
+    config = dataclasses.replace(SMALL, depth=LIFECYCLE_DEPTH)
+    return ProGen(config, make_policy(True), device="cuda", seed=SEED).eval()
+
+
 def engine_lifecycle_alone() -> dict:
-    """The engine_lifecycle phase with what it needs (the build, the model,
-    the uninterrupted runs), on its own:
+    """The engine_lifecycle phase with what it needs (the build, the model),
+    on its own:
     ``python3 -c "import chip_smoke as cs; cs.engine_lifecycle_alone()"``."""
     kernels.build()
-    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
-    return engine_lifecycle(model, engine_requests(SMALL))
+    return engine_lifecycle(lifecycle_model(), engine_requests(SMALL))
 
 
 # -- phase 11: across ranks ----------------------------------------------------
@@ -3100,6 +3142,462 @@ def engine_graphs_alone() -> dict:
     engine.close()
     del engine, bank
     return engine_graphs(model, requests, eager, (got, fields))
+
+
+SUPERSTEP_K = 4                   # the superstep Trainer's span
+SUPERSTEP_SCHEDULE = dict(name="constant", base_lr=TRAIN_LR, warmup_steps=32)
+SUPERSTEP_RUNS = ((4, 1, 2), (2, 2, 2))  # (K, accumulation, dispatches) against eager steps
+SUPERSTEP_TIMED_STEPS = 16        # steps of each timed Trainer run
+SUPERSTEP_TRACES = 3              # bare and profiled runs of each traced span
+SUPERSTEP_TRACED_STEPS = 2        # steps of each traced span (the profiler is slow)
+SUPERSTEP_CADENCES = dict(validate_every=3, checkpoint_every=4, log_every=2,
+                          sample_every=1000)  # tests/test_trainer_e2e.py:261
+REMAT_POLICIES = (None, "full", "dots", "attn")
+REMAT_RUNS_F32 = (None, None, "full", "dots", "attn")  # no remat twice: its own spread
+REMAT_TIMED_STEPS = 4             # bf16 steps timed per policy, after one warm-up
+TOL_REMAT_LOSS = 1e-6             # JAX's remat bars (tests/test_model.py:125-147)
+TOL_REMAT_GRAD = (1e-5, 1e-6)     # rtol, atol
+
+
+def remat_launch_formula(c, policy) -> dict:
+    """Each kernel's launches a train step (accumulation 1) under a remat
+    policy: K1-fwd once a layer, again in the backward under ``full`` and
+    ``dots`` (``attn`` keeps its lse); K2-fwd twice a gMLP layer (forward,
+    d_res), once more under every policy (the feed-forward is replayed)."""
+    g = c.global_mlp_depth
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(local_attention_fwd=c.depth * (2 if policy in ("full", "dots") else 1),
+                local_attention_bwd_dq=c.depth, local_attention_bwd_dkv=c.depth,
+                sgu_fwd=2 * g + (g if policy else 0), sgu_bwd_dgate=g, sgu_bwd_dw=g)
+    return want
+
+
+def training_capture_checks(gen) -> list[dict]:
+    """K1-fwd, K1-dq, K1-dkv, K2-fwd, K2-dgate and K2-dW each captured alone
+    at the train step's shapes in bf16 (K1: (8, 8, 1024, 128) over windows
+    of 256; K2: (8, 1024, 2048), the (1024, 1024) weights) and replayed
+    GRAPH_REPLAYS times with new data, each replay bit-equal to an eager
+    launch.  K1's backward inputs get the lse and D of a forward on the new
+    data (eager, before the replay)."""
+    c, bf16 = SMALL, torch.bfloat16
+    b, h, n, d, wsz = TRAIN_BATCH, c.heads, c.seq_len, c.dim_head, c.window_size
+    rnd = lambda *shape: torch.randn(*shape, device="cuda", generator=gen).to(bf16)
+    q, k, v, do = (rnd(b, h, n, d) for _ in range(4))
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
+    dd = (do.float() * out.float()).sum(-1)
+
+    def refill_attention(_):
+        for t in (q, k, v, do):
+            t.copy_(rnd(*t.shape))
+        o, new_lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
+        lse.copy_(new_lse)
+        dd.copy_((do.float() * o.float()).sum(-1))
+
+    half = c.dim * c.ff_mult // 2
+    res, gate, dout = (rnd(b, n, half) for _ in range(3))
+    w = (torch.randn(n, n, device="cuda", generator=gen) * 0.05).to(bf16)
+    bias = torch.ones(n, 1, device="cuda", dtype=bf16)
+
+    def refill_sgu(_):
+        for t in (res, gate, dout, w):
+            t.copy_(rnd(*t.shape) * (0.05 if t is w else 1.0))
+
+    return [
+        capture_replay_check("local_attention_fwd",
+                             lambda: cuda_attention.local_attention_fwd(q, k, v, wsz),
+                             refill_attention),
+        capture_replay_check("local_attention_bwd_dq", lambda: cuda_attention.
+                             local_attention_bwd_dq(q, k, v, do, lse, dd, wsz),
+                             refill_attention),
+        capture_replay_check("local_attention_bwd_dkv", lambda: cuda_attention.
+                             local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz),
+                             refill_attention),
+        capture_replay_check("sgu_fwd", lambda: cuda_sgu.spatial_gate_fwd(res, gate, w, bias),
+                             refill_sgu),
+        capture_replay_check("sgu_bwd_dgate", lambda: cuda_sgu.spatial_gate_dgate(w, dout, res),
+                             refill_sgu),
+        capture_replay_check("sgu_bwd_dw", lambda: cuda_sgu.spatial_gate_dw(dout, res, gate),
+                             refill_sgu),
+    ]
+
+
+def superstep_model(lora: bool):
+    """ProGen-small (or ``LoRAProGen`` rank 8) in bf16 compute from the
+    smoke's seed, and a copy of its initial parameters."""
+    if lora:
+        model = LoRAProGen(SMALL, LORA_RANK, make_policy(True), device="cuda", seed=SEED)
+    else:
+        model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)
+    return model, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def superstep_fns(model, initial: dict, accum: int):
+    """``model`` back at ``initial``, fresh train functions (no captured
+    step) with a warmup schedule (the lr moves every step), a fresh state."""
+    model.load_state_dict(initial)
+    schedule = make_lr_schedule(**SUPERSTEP_SCHEDULE)
+    if isinstance(model, LoRAProGen):
+        fns = lora_train_functions(model, learning_rate=schedule, grad_accum_every=accum)
+    else:
+        fns = make_train_functions(model, make_optimizer(schedule, grad_accum_every=accum))
+    return fns, fns.init_state()
+
+
+def state_tensors(state) -> dict:
+    """Clones of every tensor of a train state, by kind and name."""
+    opt = state.opt_state
+    out = {f"params.{k}": v for k, v in state.params.items()}
+    for kind in ("mu", "nu", "acc_grads"):
+        out.update({f"{kind}.{k}": v for k, v in (getattr(opt, kind) or {}).items()})
+    return {k: t.detach().clone() for k, t in out.items()}
+
+
+def superstep_vs_eager(k: int, accum: int, dispatches: int, lora: bool = False,
+                       eager_twice: bool = False) -> dict:
+    """From one init, ``dispatches`` calls of ``train_multi_step`` over
+    ``(k, accum, 8, 1025)`` superbatches against the same micro-batches
+    through ``train_step`` (with ``eager_twice`` twice, to show the eager
+    steps agree with themselves): every loss, grad norm and lr, every
+    parameter, both moments and the accumulator bit-equal, or else within
+    the eager runs' own spread (printed); LoRA's base bit-unchanged."""
+    micro = train_batches(SMALL, TRAIN_BATCH, dispatches * k * accum, SEED + 21)
+    supers = [torch.stack(micro[i * k * accum:(i + 1) * k * accum]).reshape(
+        k, accum, TRAIN_BATCH, -1) for i in range(dispatches)]
+    runs = []
+    model, initial = superstep_model(lora)
+    for fused in (False, False, True) if eager_twice else (False, True):
+        fns, state = superstep_fns(model, initial, accum)
+        base = ({n: p.detach().clone() for n, p in state.params.items() if n.startswith("base.")}
+                if lora and fused else None)
+        metrics = []
+        if fused:
+            for sb in supers:
+                state, m = fns.train_multi_step(state, sb)
+                metrics.append(m)
+            flat = {key: torch.cat([m[key].reshape(-1) for m in metrics])
+                    for key in ("loss", "grad_norm", "lr")}
+        else:
+            for batch in micro:
+                state, m = fns.train_step(state, batch)
+                metrics.append(m)
+            flat = {key: torch.stack([m[key] for m in metrics]) for key in ("loss", "grad_norm")}
+            flat["lr"] = torch.stack([m["lr"] for m in metrics])[accum - 1::accum]
+        torch.cuda.synchronize()
+        tensors = state_tensors(state)
+        if base is not None:
+            require(all(torch.equal(state.params[n], t) for n, t in base.items()),
+                    "a frozen base parameter changed in the LoRA superstep")
+        runs.append((flat, tensors))
+        del fns, state, metrics
+        gc.collect()
+    del model, initial
+
+    def differ(a, b) -> dict:
+        (fa, ta), (fb, tb) = a, b
+        out = {key: float((fa[key].float() - fb[key].float()).abs().max()) for key in fa}
+        out["state"] = max(float((ta[n].float() - tb[n].float()).abs().max()) for n in ta)
+        out["state_tensors_differ"] = sum(not torch.equal(ta[n], tb[n]) for n in ta)
+        return out
+
+    eager_spread = differ(runs[0], runs[1]) if eager_twice else None
+    fused_vs_eager = differ(runs[-1], runs[0])
+    bit_equal = fused_vs_eager["state_tensors_differ"] == 0 and all(
+        v == 0.0 for key, v in fused_vs_eager.items() if key != "state_tensors_differ")
+    within_spread = eager_spread is not None and all(
+        fused_vs_eager[key] <= eager_spread[key] for key in eager_spread)
+    result = {"model": f"LoRAProGen rank {LORA_RANK}" if lora else "ProGen", "k": k,
+              "accum": accum, "dispatches": dispatches, "bit_equal": bit_equal,
+              "eager_vs_eager": eager_spread, "superstep_vs_eager": fused_vs_eager,
+              "losses": runs[-1][0]["loss"].tolist(), "lrs": runs[-1][0]["lr"].tolist(),
+              "state_tensors": len(runs[0][1])}
+    emit("superstep_vs_eager", **result)
+    require(bit_equal or within_spread,
+            f"the superstep differs from the eager steps beyond their spread: {result}")
+    return result
+
+
+def remat_checks(c=SMALL) -> dict:
+    """Each remat policy at batch 8: in f32 the loss and every gradient
+    against no remat (bit-equal, else JAX's bar: loss 1e-6 relative,
+    gradients 1e-5 / 1e-6), and no remat against itself (its own spread);
+    in bf16 compute the peak memory, the eager step's ms (median of
+    REMAT_TIMED_STEPS after one), each kernel's launches a step against
+    :func:`remat_launch_formula`, and the ms of a step replayed from its
+    capture."""
+    batch = train_batches(c, TRAIN_BATCH, 1, SEED + 22)[0]
+    f32, want_grads, want_loss = {}, None, None
+    model = ProGen(c, make_policy(False), device="cuda", seed=SEED)
+    for policy in REMAT_RUNS_F32:
+        model.remat, model.remat_policy = policy is not None, policy
+        model.zero_grad(set_to_none=True)
+        loss = batch_loss(model(batch[:, :-1]), batch[:, 1:])
+        loss.backward()
+        loss = loss.detach()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if want_grads is None:
+            want_loss, want_grads = loss, grads
+            continue
+        rtol, atol = TOL_REMAT_GRAD
+        bit = torch.equal(loss, want_loss) and all(torch.equal(g, want_grads[n])
+                                                   for n, g in grads.items())
+        loss_err = float((loss - want_loss).abs() / want_loss.abs())
+        grad_ok = all(bool(((g - want_grads[n]).abs() <= atol + rtol * want_grads[n].abs()).all())
+                      for n, g in grads.items())
+        errs = {n: float((g - want_grads[n]).abs().max()) for n, g in grads.items()}
+        worst = max(errs, key=errs.get)
+        f32[policy or "none_again"] = {
+            "bit_equal": bit, "bar": "bit-equal" if bit else "JAX's rtol/atol",
+            "loss_rel_err": loss_err, "grad_max_abs_err": errs[worst], "worst_leaf": worst,
+            "leaves_differ": sum(e > 0 for e in errs.values()), "leaves": len(errs)}
+        require(bit or (loss_err <= TOL_REMAT_LOSS and grad_ok),
+                f"remat {policy}: gradients off no remat's beyond JAX's bar: "
+                f"{f32[policy or 'none_again']}")
+        del grads
+    del want_grads, model
+    gc.collect()
+
+    bf16 = {}
+    batches = train_batches(c, TRAIN_BATCH, REMAT_TIMED_STEPS + 1, SEED + 23)
+    model, initial = superstep_model(False)
+    for policy in REMAT_POLICIES:
+        model.remat, model.remat_policy = policy is not None, policy
+        model.load_state_dict(initial)
+        model.zero_grad(set_to_none=True)
+        fns = make_train_functions(model, make_optimizer(TRAIN_LR))
+        state = fns.init_state()
+        state, _ = fns.train_step(state, batches[0])  # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_step, step_ms = [], []
+        for b in batches[1:]:
+            prior = read_counts()
+            t0 = time.perf_counter()
+            state, m = fns.train_step(state, b)
+            float(m["loss"])  # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: v - prior[k] for k, v in read_counts().items()})
+        want = remat_launch_formula(c, policy)
+        bf16[policy or "none"] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                                  "step_ms_median": float(np.median(step_ms)),
+                                  "step_ms": step_ms, "launches_per_step": per_step[0],
+                                  "formula": want}
+        require(all(p == want for p in per_step),
+                f"remat {policy}: launches a step {per_step}, want {want}")
+        # the same steps as replays of the captured step: the device's cost
+        superbatch = torch.stack(batches[1:]).reshape(len(batches) - 1, 1, TRAIN_BATCH, -1)
+        state, _ = fns.train_multi_step(state, superbatch[:1])  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fns.train_multi_step(state, superbatch)
+        float(m["loss"][-1, -1])
+        bf16[policy or "none"]["captured_step_ms"] = ((time.perf_counter() - t0) * 1e3
+                                                      / len(superbatch))
+        del fns, state, m
+        gc.collect()
+    model.remat = False
+    model.zero_grad(set_to_none=True)
+    del model, initial
+    gc.collect()
+    return {"f32_vs_no_remat": f32, "bf16": bf16}
+
+
+def superstep_trainer(c, root: Path, name: str, max_steps: int, superstep: int,
+                      count: bool = True, **overrides):
+    """A ``Trainer`` with ``superstep`` over ``train_data_synth/``; with
+    ``count``, each dispatch's span and launches (a synchronize around
+    each: not for the timed runs)."""
+    trainer = Trainer(c, trainer_config(max_steps, superstep=superstep, prefetch_depth=0,
+                                        checkpoint_keep_n=2, **overrides),
+                      str(TRAINER_DATA), str(root / f"ck_{name}"),
+                      tracker=Tracker(out_dir=str(root / f"runs_{name}"), use_wandb=False),
+                      device="cuda")
+    dispatches = []
+    key = "train_multi_step" if superstep > 1 else "train_step"
+    real = getattr(trainer.fns, key)
+
+    def counted(state, batch):
+        before = read_counts()
+        out = real(state, batch)
+        dispatches.append({"span": batch.shape[0] if superstep > 1 else 1,
+                           "launches": {k: v - before[k] for k, v in read_counts().items()}})
+        return out
+
+    if count:
+        trainer.fns = dataclasses.replace(trainer.fns, **{key: counted})
+    result = trainer.run()
+    trainer.tracker.finish()
+    rows = [json.loads(line) for f in (root / f"runs_{name}").glob("*/metrics.jsonl")
+            for line in f.read_text().splitlines()]
+    return trainer, result, dispatches, rows
+
+
+def superstep_timing(c) -> dict:
+    """A superstep of SUPERSTEP_TRACED_STEPS replays against as many eager
+    steps, at batch 8 in bf16, traced (``trace_main_path._traced``: wall,
+    device ms, idle share, device and host launches, per step); the
+    capture's seconds and the bytes its pool holds."""
+    model, initial = superstep_model(False)
+    fns, state = superstep_fns(model, initial, 1)
+    del initial
+    steps = SUPERSTEP_TRACED_STEPS
+    batches = train_batches(c, TRAIN_BATCH, steps, SEED + 24)
+    superbatch = torch.stack(batches).reshape(steps, 1, TRAIN_BATCH, -1)
+    for b in batches[:2]:  # eager warm-up: the build, cuBLAS, the allocator
+        state, _ = fns.train_step(state, b)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    state, _ = fns.train_multi_step(state, superbatch[:1])  # the warm-up step + the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    program = fns.captured_program()
+    held = {"allocated_bytes": torch.cuda.memory_allocated() - alloc0,
+            "reserved_bytes": torch.cuda.memory_reserved() - reserved0}
+
+    def eager():
+        nonlocal state
+        for b in batches:
+            state, _ = fns.train_step(state, b)
+
+    def replayed():
+        nonlocal state
+        state, _ = fns.train_multi_step(state, superbatch)
+
+    out = {}
+    for label, fn in (("eager", eager), ("captured", replayed)):
+        traced = trace_main_path._traced(fn, torch.device("cuda"), repeats=SUPERSTEP_TRACES)
+        out[label] = {"step_ms": traced["wall_ms"] / steps,
+                      "device_ms": traced["device_busy_ms"] / steps,
+                      "idle_share": traced["idle_share"],
+                      "device_launches": traced["device_launches"] / steps,
+                      "host_launches": traced["host_launches"] / steps,
+                      "event_span_ms": traced["event_span_ms"] / steps,
+                      "tokens_per_s": TRAIN_BATCH * c.seq_len / (traced["wall_ms"] / steps / 1e3)}
+    require(program is fns.captured_program(), "the superstep captured again on one state")
+    out.update(capture_s=capture_s, pool=held, program_host_launches=program.host_launches)
+    del model, fns, state, program
+    gc.collect()
+    return out
+
+
+def trainer_superstep(c=SMALL) -> dict:
+    """The Trainer's superstep and remat at ProGen-small, batch 8 (bf16
+    compute unless said): (1) the six training kernels captured alone and
+    replayed with new data, bit-equal to eager launches; (2) from one
+    init, ``train_multi_step`` against the eager steps, K 4 at accumulation
+    1 (the eager steps twice: their own spread) and K 2 at accumulation 2,
+    two dispatches each, and LoRA (rank 8, K 2, accumulation 2): bit-equal
+    (or within the eager steps' own spread);
+    (3) remat: f32 gradients against no remat per policy, bf16 peak memory,
+    step ms and launches against the formula; (4) the Trainer with
+    ``superstep=4`` over ``train_data_synth/`` (validate 3, checkpoint 4,
+    log 2): to 4, then a resume to 6, bit-equal to ``superstep=1`` straight
+    to 6, every dispatch's launches the formula; then SUPERSTEP_TIMED_STEPS
+    steps at superstep 1 and 4, and one superstep traced against the eager
+    steps; (5) after the Trainers are closed and deleted, the live
+    memory within 256 MB of the phase's start.  The launch counts are set
+    to 0 just before (4)'s Trainers and read after them.  Runs in a
+    temporary directory it deletes."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    seconds = {}
+    t0 = time.perf_counter()
+    checks = training_capture_checks(torch.Generator(device="cuda").manual_seed(SEED + 20))
+    seconds["capture_checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    equal = [superstep_vs_eager(k, accum, n, eager_twice=i == 0)
+             for i, (k, accum, n) in enumerate(SUPERSTEP_RUNS)]
+    equal.append(superstep_vs_eager(2, 2, 2, lora=True))
+    seconds["superstep_vs_eager"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat = remat_checks(c)
+    seconds["remat"] = time.perf_counter() - t0
+    emit("remat", nvidia_smi=smi_name_power(), **remat)
+    t0 = time.perf_counter()
+
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-superstep-"))
+    sigterm = signal.getsignal(signal.SIGTERM)
+    step_launches = remat_launch_formula(c, None)
+    try:
+        reset_counts()
+        ref, out_ref, _, _ = superstep_trainer(c, root, "ref", 6, 1, **SUPERSTEP_CADENCES)
+        want = {k: v.detach().clone() for k, v in out_ref["state"].params.items()}
+        ref.close()
+        del ref, out_ref
+        gc.collect()
+        t1, out1, d1, _ = superstep_trainer(c, root, "fused", 4, SUPERSTEP_K,
+                                            **SUPERSTEP_CADENCES)
+        t1.close()
+        del t1, out1
+        gc.collect()
+        t2, out2, d2, rows2 = superstep_trainer(c, root, "fused", 6, SUPERSTEP_K,
+                                                **SUPERSTEP_CADENCES)
+        got = {k: v.detach() for k, v in out2["state"].params.items()}
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        t2.close()
+        del t2, out2, got, want
+        gc.collect()
+        torch.cuda.synchronize()
+        launches, routes = read_counts(), read_routes()
+        spans = [d["span"] for d in d1 + d2]
+        bad = [d for d in d1 + d2 if d["launches"] != {
+            k: v * d["span"] for k, v in step_launches.items()}]
+        require(spans == [2, 1, 1, 2], f"superstep spans {spans}, want [2, 1, 1, 2]")
+        require(not bad, f"superstep dispatches launched other than the formula: {bad[:2]}")
+        require(not differ, f"the resumed superstep run's params differ: {differ[:8]}")
+        require_forward_routes(routes, launches, True, "trainer_superstep")
+
+        timed = {}
+        never = 10 * SUPERSTEP_TIMED_STEPS
+        for i, k in enumerate((1, SUPERSTEP_K)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t, _, _, rows = superstep_trainer(
+                c, root, f"timed{i}", SUPERSTEP_TIMED_STEPS, k, count=False,
+                checkpoint_every=never, validate_every=never, sample_every=never,
+                log_every=SUPERSTEP_K, background_checkpoint=False)
+            step_ms = [r["step_ms"] for r in rows if "step_ms" in r]
+            timed.setdefault(f"superstep_{k}", []).append({
+                "step_ms": step_ms, "step_ms_median_after_first": float(np.median(step_ms[1:])),
+                "tokens_per_s": TRAIN_BATCH * c.seq_len / (float(np.median(step_ms[1:])) / 1e3),
+                "peak_bytes": torch.cuda.max_memory_allocated()})
+            t.close()
+            del t
+            gc.collect()
+            shutil.rmtree(root / f"ck_timed{i}", ignore_errors=True)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+    seconds["trainer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    traced = superstep_timing(c)
+    seconds["traced"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    result = {"config": "small", "batch": TRAIN_BATCH, "capture_checks": checks,
+              "superstep_vs_eager": equal, "remat": remat,
+              "trainer": {"k": SUPERSTEP_K, **SUPERSTEP_CADENCES, "spans": spans,
+                          "resumed_params_equal": True, "timed": timed, "traced": traced},
+              "launches": launches, "routes": routes, "nvidia_smi": smi_name_power(),
+              "live_above_start_bytes": live - start_bytes,
+              "seconds": time.perf_counter() - t_phase, "seconds_by_part": seconds}
+    emit("trainer_superstep", **result)
+    require(live - start_bytes <= LIFECYCLE_MEMORY_SLACK,
+            f"trainer_superstep: {live - start_bytes} bytes live above the phase's start")
+    return result
+
+
+def trainer_superstep_alone() -> dict:
+    """The trainer_superstep phase on its own:
+    ``python3 -c "import chip_smoke as cs; cs.trainer_superstep_alone()"``."""
+    kernels.build()
+    return trainer_superstep()
 
 
 HALO_CASES = (
@@ -3482,16 +3980,9 @@ def main() -> int:
     engine_launches.update(engine_graphs(model, requests, eager, runs.pop("engine_workloads")))
     del eager
     gc.collect()
-    refs = {mode: {"answers": {u: (t, "ok", None) for u, t in tokens.items()},
-                   "launches": launches}
-            for mode, (tokens, launches) in (
-                ("dense", (dense, engine_launches["engine_dense"])),
-                ("paged", (full, engine_launches["engine_paged"])),
-                ("weights+pages", (q8, engine_launches["engine_paged_q8"])),
-                ("spec", runs["engine_spec_identity"]),
-                ("disagg", runs["engine_disagg_paged"]))}
-    engine_launches.update(engine_lifecycle(model, requests, refs))
-    del model, refs
+    del model
+    gc.collect()
+    engine_launches.update(engine_lifecycle(lifecycle_model(), requests))
     gc.collect()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)
@@ -3511,6 +4002,8 @@ def main() -> int:
          launches_per_step=trainer["per_step_launches"][0],
          steps_with_these_launches=len(trainer["per_step_launches"]))
     gc.collect()
+    superstep = trainer_superstep()
+    gc.collect()
     halo_kernel_rows, parallel = parallel_phase(smi)
     emit("parallel", config="small", **parallel_summary(parallel))
 
@@ -3518,6 +4011,7 @@ def main() -> int:
         by_path = {"serve": served["launches"][row["name"]],
                    "train": trained["launches"][row["name"]],
                    "trainer": trainer["launches"][row["name"]],
+                   "trainer_superstep": superstep["launches"][row["name"]],
                    "lora_train": lora["launches"][row["name"]],
                    "parallel": parallel["launches"][row["name"]],
                    **{phase: counts[row["name"]]

@@ -13,8 +13,13 @@ event (so no kernel reads the batch before the copy lands) and calls
 memory to another tensor while a step queued on the consumer's stream may
 still read it).  Elsewhere the worker applies ``to_device``.
 
-``SuperbatchStager`` (the fused multi-step loop's feed) is not ported: it
-waits for ``train_multi_step``.
+:class:`SuperbatchStager` feeds the superstep loop
+(``train/step.py:train_multi_step``): a ``DevicePrefetcher`` with an
+identity transform keeps the host micro-batches pulled ahead, and each
+``get(k)`` stacks the next ``k * accum`` of them into one fresh
+``(k, accum, B, L)`` array.  On a card the stack is written straight into
+pinned host memory and copied with ``non_blocking=True``, so the copy runs
+while the replays already queued on the stream run.
 """
 
 from __future__ import annotations
@@ -149,3 +154,58 @@ class DevicePrefetcher:
                 RuntimeWarning,
                 stacklevel=2,
             )
+
+
+class SuperbatchStager:
+    """Stage ``(k, accum, B, L)`` superbatches for the superstep loop
+    (ported from ``progen_tpu/data/prefetch.py:SuperbatchStager``).
+
+    A background thread keeps up to ``depth`` supersteps' worth of host
+    micro-batches pulled ahead (a :class:`DevicePrefetcher` with an identity
+    transform as the host-side buffer); :meth:`get` stacks the next
+    ``k * accum`` of them into one new array and hands it to ``to_device``,
+    or with ``device`` (instead of ``to_device``) copies it there: to a
+    CUDA device from pinned memory without waiting, to the CPU as a tensor.
+    Every ``get`` returns a fresh buffer.
+
+    ``k`` may vary per call (the trainer shrinks the span before a hook
+    boundary) up to the ``k_max`` the stager was sized for.
+    """
+
+    def __init__(self, iterator: Iterator[Any], to_device: Callable[[Any], Any] | None = None,
+                 accum: int = 1, k_max: int = 1, depth: int = 2,
+                 device: torch.device | str | None = None):
+        if accum < 1:
+            raise ValueError(f"accum must be >= 1, got {accum}")
+        if k_max < 1:
+            raise ValueError(f"k_max must be >= 1, got {k_max}")
+        if (to_device is None) == (device is None):
+            raise ValueError("give exactly one of to_device and device")
+        self._accum = accum
+        self._k_max = k_max
+        self._to_device = to_device
+        self._device = None if device is None else torch.device(device)
+        self._host = DevicePrefetcher(iterator, lambda batch: batch,  # host-side buffering only
+                                      depth=max(1, depth) * k_max * accum)
+
+    def get(self, k: int):
+        """The next ``k`` optimizer steps' data as one ``(k, accum, B, L)``
+        array on the device (its copy may still be in flight on a card).
+        Raises ``StopIteration`` when the wrapped iterator cannot supply a
+        full superbatch (the trainer feeds a looping stream, so this only
+        surfaces on finite iterators)."""
+        if not 1 <= k <= self._k_max:
+            raise ValueError(f"k must be in [1, {self._k_max}], got {k}")
+        micro = [np.asarray(next(self._host)) for _ in range(k * self._accum)]
+        shape = (k, self._accum) + micro[0].shape
+        if self._device is None:
+            return self._to_device(np.stack(micro).reshape(shape))
+        if self._device.type != "cuda":
+            return torch.from_numpy(np.stack(micro).reshape(shape)).to(self._device)
+        pinned = torch.empty(shape, dtype=torch.from_numpy(micro[0]).dtype, pin_memory=True)
+        np.stack(micro, out=pinned.numpy().reshape((-1,) + micro[0].shape))
+        return pinned.to(self._device, non_blocking=True)
+
+    def close(self) -> None:
+        """Stop the host prefetch worker and drop buffered batches."""
+        self._host.close()

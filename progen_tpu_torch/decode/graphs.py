@@ -52,6 +52,13 @@ On the CPU there is no graph: the same staging runs and the body is called
 on the static buffers in place of the replay, so the flattening, the copies
 and the clones are what the CPU tests exercise.  A capture or replay that
 fails raises; nothing falls back to an eager call.
+
+A body that writes tensors it closes over (the train step's optimizer
+updates the parameters and moments in place, ``train/step.py``) cannot
+take a warm-up call that is thrown away: ``take_warmup=True`` makes the
+warm-up a real call on the example arguments, whose result the caller takes
+from :attr:`CapturedProgram.warmup_out` in place of calling the program
+for those arguments.
 """
 
 from __future__ import annotations
@@ -177,11 +184,14 @@ class CapturedProgram:
     warmed up by one eager call on the side stream and captured once, on
     the CPU it is called on every call.  ``launches`` is the counters'
     change one replay stands for (empty on the CPU, where the body counts
-    for itself)."""
+    for itself).  ``take_warmup``: keep the warm-up call's result as
+    :attr:`warmup_out` (None on the CPU, where nothing is warmed up)."""
 
-    def __init__(self, fn: Callable, *example_args, device):
+    def __init__(self, fn: Callable, *example_args, device, take_warmup: bool = False):
         self.fn = fn
         self.device = torch.device(device)
+        self._take_warmup = take_warmup
+        self.warmup_out = None
         leaves, self._in_spec = flatten(example_args)
         self._static = [torch.empty(tuple(t.shape), dtype=t.dtype, device=self.device)
                         for t in map(_as_tensor, leaves)]
@@ -221,8 +231,15 @@ class CapturedProgram:
         stream = capture_stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self.fn(*self._args())
-        torch.cuda.current_stream(self.device).wait_stream(stream)
+            out = self.fn(*self._args())
+        current = torch.cuda.current_stream(self.device)
+        current.wait_stream(stream)
+        if self._take_warmup:
+            leaves, _ = flatten(out)
+            for t in leaves:  # made on the side stream, read on this one
+                t.record_stream(current)
+            self.warmup_out = out
+        del out
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         try:

@@ -32,6 +32,35 @@ sequence is split over ``seq`` and ``sharded_spatial_gate`` otherwise.  A
 sequence split also needs what JAX's GSPMD gives for free: the token shift's
 row from the left neighbour and rotary at global positions.
 
+``remat=True`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant, no RNG stash: the forward draws
+no random numbers), a memory trade that changes no number: the recomputed
+block runs the same kernels on the same inputs.  ``remat_policy`` says what
+the forward keeps (JAX's ``nn.remat`` policies,
+``progen_tpu/models/progen.py:437-459``):
+
+* ``"full"``: only each block's input; the backward replays the whole
+  block, K1-fwd and K2-fwd included;
+* ``"dots"``: a selective checkpoint (``create_selective_checkpoint_contexts``)
+  that keeps the outputs of ``aten.mm``, ``aten.addmm`` and ``aten.bmm``,
+  the projections, and replays the rest, the kernels included.  JAX's
+  ``dots_with_no_batch_dims_saveable`` keeps only products without batch
+  dimensions; ``aten.bmm`` (the LoRA deltas' einsums) has one and is kept
+  here all the same, and a product is seen by the op it dispatches to, not
+  by its ``dot_general`` dimensions;
+* ``"attn"``: the post-rotary q, k, v and the attention output (JAX's
+  ``save_only_these_names``), with K1-fwd's ``lse``: the attention block's
+  norm -> shift -> qkv -> rotary and its output projection are two
+  checkpointed pieces around K1, which stays outside them, so its autograd
+  function keeps q, k, v, out and lse and the backward runs no K1-fwd; the
+  feed-forward block is replayed whole.  Unlike XLA, which replays only the
+  norm and the shift there, the replay of the first piece also recomputes
+  the qkv product and the rotary (a selective checkpoint replays every op
+  it does not keep).
+
+An unknown policy raises ``ValueError`` naming ``remat_policy``.  Remat
+applies where gradients are recorded and no decode cache is filled.
+
 ``weights="int8"`` is the serving-only quantized mode (``ops/quant.py``):
 every dense site but ``to_logits`` holds an int8 weight and an f32 scale per
 output channel, and the SGU an int8 ``spatial_weights`` with an f32 scale per
@@ -50,6 +79,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from progen_tpu_torch.core.device import resolve_device
 from progen_tpu_torch.core.mesh import mesh_sizes
@@ -66,6 +100,24 @@ _IGNORED_CONFIG_KEYS = ("clamp_gate", "attn_dim", "mixed_precision")
 # flax's truncated-normal correction: the std of N(0, 1) cut at +-2
 _TRUNC_STD = 0.87962566103423978
 _NORM_EPS = 1e-5  # Haiku's LayerNorm default, kept by the JAX package
+REMAT_POLICIES = ("full", "dots", "attn")
+# the products the "dots" policy keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under a non-reentrant checkpoint: ``"dots"`` keeps the
+    products' outputs (:data:`_DOTS`), any other policy only the inputs."""
+    context = {}
+    if policy == "dots":
+        context["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                  _keep_dots)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **context)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,7 +278,25 @@ class LocalAttention(nn.Module):
                              device=device, weights=weights)
 
     def forward(self, x, sin, cos, cache: dict | None = None,
-                adapters: dict | None = None, tenant=None, mesh=None):
+                adapters: dict | None = None, tenant=None, mesh=None,
+                remat: str | None = None):
+        """``remat="attn"``: the pieces before and after K1 each under a
+        checkpoint, K1 outside them (the module docstring)."""
+        qkv_in = (x, sin, cos, cache, adapters, tenant, mesh)
+        q, k, v = (remat_call(self._qkv, *qkv_in) if remat == "attn"
+                   else self._qkv(*qkv_in))
+        d = self.dim_head
+        if mesh is not None:
+            out = context.sharded_local_attention(
+                q, k, v, mesh=mesh, window_size=self.window_size, scale=d ** -0.5)
+        else:
+            out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
+        if remat == "attn":
+            return remat_call(self._out, out, adapters, tenant)
+        return self._out(out, adapters, tenant)
+
+    def _qkv(self, x, sin, cos, cache, adapters, tenant, mesh):
+        """The post-rotary q, k, v, each ``(B, H, L, Dh)`` contiguous."""
         b, n, _ = x.shape
         h, d = self.heads, self.dim_head
         x = self.norm(x)
@@ -245,11 +315,11 @@ class LocalAttention(nn.Module):
         if cache is not None:
             cache["k"] = k  # post-rotary k/v: what the decode rings hold
             cache["v"] = v
-        if mesh is not None:
-            out = context.sharded_local_attention(
-                q, k, v, mesh=mesh, window_size=self.window_size, scale=d ** -0.5)
-        else:
-            out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
+        return q, k, v
+
+    def _out(self, out, adapters, tenant):
+        """The output projection of the attention's ``(B, H, L, Dh)``."""
+        b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)
         y = self.to_out(out)
         if adapters is not None:
@@ -380,17 +450,24 @@ class ProGen(nn.Module):
     (see the module docstring).  Parameters start as the JAX package's initialisers
     draw them (:meth:`init_weights`), from ``seed``.  ``mesh`` routes the
     sequence mixing over a ``DeviceMesh`` (the module docstring); the token
-    input is then a rank's slice.
+    input is then a rank's slice.  ``remat``/``remat_policy``: recompute
+    each block in the backward (the module docstring).
     """
 
     def __init__(self, config: ProGenConfig, policy: Policy | None = None,
-                 device=None, seed: int = 0, weights: str = "bf16", mesh=None):
+                 device=None, seed: int = 0, weights: str = "bf16", mesh=None,
+                 remat: bool = False, remat_policy: str = "full"):
         super().__init__()
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; use 'full', "
+                             "'dots' or 'attn'")
         c = config
         self.config = c
         self.policy = policy or make_policy()
         self.weights = weights
         self.mesh = mesh
+        self.remat = remat
+        self.remat_policy = remat_policy
         dev = resolve_device(device)
         self.embed = nn.Embedding(c.num_tokens, c.dim, device=dev,
                                   dtype=self.policy.param_dtype)
@@ -490,6 +567,8 @@ class ProGen(nn.Module):
         # a slice of the sequence takes its rows at their global positions
         sin, cos = fixed_pos_embedding(n * slices, cfg.dim_head, device=tokens.device)
         sin, cos = sin[me * n:(me + 1) * n], cos[me * n:(me + 1) * n]
+        remat = (self.remat_policy if self.remat and cache is None
+                 and torch.is_grad_enabled() else None)
         for i in range(cfg.depth):
             attn_c = ff_c = None
             if cache is not None:
@@ -498,6 +577,16 @@ class ProGen(nn.Module):
             attn_ad = ff_ad = None
             if adapters is not None:
                 attn_ad, ff_ad = adapters.get(f"attn{i}"), adapters.get(f"ff{i}")
-            x = x + self.attn[i](x, sin, cos, attn_c, attn_ad, tenant, self.mesh)
-            x = x + self.ff[i](x, ff_c, ff_ad, tenant, self.mesh)
+            attn_args = (x, sin, cos, attn_c, attn_ad, tenant, self.mesh)
+            if remat == "attn":
+                x = x + self.attn[i](*attn_args, remat="attn")
+            elif remat is not None:
+                x = x + remat_call(self.attn[i], *attn_args, policy=remat)
+            else:
+                x = x + self.attn[i](*attn_args)
+            ff_args = (x, ff_c, ff_ad, tenant, self.mesh)
+            if remat is not None:  # "attn" keeps nothing of the feed-forward
+                x = x + remat_call(self.ff[i], *ff_args, policy=remat)
+            else:
+                x = x + self.ff[i](*ff_args)
         return x

@@ -30,9 +30,13 @@ host made that put work on the device (kernel and graph launches, copies,
 memsets), a step's and a round's beside the device's kernels.  Every line
 also has ``event_span_ms``, the stream's span between CUDA events around a
 bare run (the device's busy and idle time together).
+With ``--superstep K`` the train step is traced twice, eager and then
+captured (``train_multi_step``: one captured optimizer step replayed K
+times a traced run), each line per optimizer step.
 Needs a GPU.
 
     python -m progen_tpu_torch.trace_main_path --phases engine spec --aot_warmup
+    python -m progen_tpu_torch.trace_main_path --phases train --superstep 4
 """
 
 from __future__ import annotations
@@ -118,15 +122,15 @@ def _median_and_range(values) -> tuple[float, list]:
     return float(np.median(values)), [min(values), max(values)]
 
 
-def _traced(fn, device) -> dict:
-    """``REPEATS`` bare runs on the host clock, then ``REPEATS`` runs under
+def _traced(fn, device, repeats: int = REPEATS) -> dict:
+    """``repeats`` bare runs on the host clock, then ``repeats`` runs under
     the profiler (kept apart, so that no bare run pays for the profiler's
     teardown): medians with their ``[min, max]`` range.  The idle share is
     ``1 - median busy / median wall``; its range takes the walls' range.
     The by-kind split and the top kernels come from the profiled run of
     median device time."""
-    walls, spans = zip(*(_wall_ms(fn, device) for _ in range(REPEATS)))
-    rounds, hosts = zip(*(_profiled(fn, device) for _ in range(REPEATS)))
+    walls, spans = zip(*(_wall_ms(fn, device) for _ in range(repeats)))
+    rounds, hosts = zip(*(_profiled(fn, device) for _ in range(repeats)))
     busy = [sum(us for _, us in r.values()) / 1e3 for r in rounds]
     out = {}
     out["wall_ms"], out["wall_ms_range"] = _median_and_range(walls)
@@ -137,8 +141,8 @@ def _traced(fn, device) -> dict:
     out["device_launches"], out["device_launches_range"] = _median_and_range(
         [sum(n for n, _ in r.values()) for r in rounds])
     out["host_launches"], out["host_launches_range"] = _median_and_range(hosts)
-    out["repeats"] = REPEATS
-    per_name = rounds[int(np.argsort(busy)[REPEATS // 2])]
+    out["repeats"] = repeats
+    per_name = rounds[int(np.argsort(busy)[repeats // 2])]
     by_kind: dict[str, float] = {}
     for name, (_, us) in per_name.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + us / 1e3
@@ -161,6 +165,9 @@ def main(argv=None) -> None:
     parser.add_argument("--aot_warmup", action="store_true",
                         help="trace each engine chunk eager and then warmed "
                              "(one captured CUDA graph)")
+    parser.add_argument("--superstep", type=int, default=1,
+                        help="trace the train step eager and as K replays of the "
+                             "captured optimizer step (train_multi_step)")
     args = parser.parse_args(argv)
     phases = args.phases
     device = resolve_device("cuda")
@@ -168,7 +175,7 @@ def main(argv=None) -> None:
     if {"serve", "engine", "spec"} & set(phases):
         _trace_serving(device, config, phases, args.aot_warmup)
     if "train" in phases:
-        _trace_train(device, config)
+        _trace_train(device, config, superstep=args.superstep)
     if "mesh" in phases:
         _trace_mesh(device, config)
 
@@ -279,7 +286,10 @@ def _trace_chunk(engine, device) -> dict:
 
 
 def _trace_train(device, config, mixed_precision: bool = True, mesh=None,
-                 strategies=("dp",), label: str = "train_step") -> None:
+                 strategies=("dp",), label: str = "train_step", superstep: int = 1) -> None:
+    """The train step at batch 8 after two warm-up steps; with ``superstep``
+    > 1 also one ``train_multi_step`` of K optimizer steps (its capture
+    first), each line per optimizer step."""
     model = ProGen(config, make_policy(mixed_precision), device=device, seed=0)
     fns = make_train_functions(model, make_optimizer(), mesh=mesh, strategies=strategies)
     state = fns.init_state()
@@ -293,11 +303,29 @@ def _trace_train(device, config, mixed_precision: bool = True, mesh=None,
         nonlocal state
         state, _ = fns.train_step(state, batch)
 
-    print(json.dumps({"phase": label, "config": "small", "batch": TRAIN_BATCH,
-                      "seq_len": config.seq_len,
-                      "dtype": "bf16 compute, f32 params" if mixed_precision else "f32",
-                      "device": torch.cuda.get_device_name(device),
-                      **_traced(step, device)}), flush=True)
+    def replays():
+        nonlocal state
+        state, _ = fns.train_multi_step(state, superbatch)
+
+    meta = {"config": "small", "batch": TRAIN_BATCH, "seq_len": config.seq_len,
+            "dtype": "bf16 compute, f32 params" if mixed_precision else "f32",
+            "device": torch.cuda.get_device_name(device)}
+    runs = [("eager", step, 1, {})]
+    if superstep > 1:
+        superbatch = batch.expand(superstep, 1, *batch.shape).contiguous()
+        t0 = time.perf_counter()
+        state, _ = fns.train_multi_step(state, superbatch[:1])  # the capture
+        torch.cuda.synchronize(device)
+        runs.append(("captured", replays, superstep,
+                     {"capture_s": time.perf_counter() - t0,
+                      "program_host_launches": fns.captured_program().host_launches}))
+    for dispatch, fn, steps, extra in runs:
+        result = _traced(fn, device)
+        per_step = {f"per_step_{k}": result[k] / steps
+                    for k in ("wall_ms", "device_busy_ms", "device_launches", "host_launches")}
+        dispatch_field = {"dispatch": dispatch, "steps": steps} if superstep > 1 else {}
+        print(json.dumps({"phase": label, **dispatch_field, **meta, **extra, **result,
+                          **per_step}), flush=True)
 
 
 def _trace_mesh(device, config) -> None:

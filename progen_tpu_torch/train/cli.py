@@ -39,9 +39,19 @@ parallelism (``tp``, a tensor axis > 1) is refused (``ROADMAP.md``).
 /flightz`` on a loopback port of rank 0 (a bare ``--statusz`` takes an
 ephemeral port, printed as a JSON line).
 
-Not accepted: the remat, superstep, kernel-choice, profiling-service and
-wandb flags.  The device is ``cuda`` unless
-``--device cpu`` is given (then the ranks meet over gloo).
+``--remat`` recomputes each block in the backward pass under
+``--remat_policy`` (``full``, ``dots`` or ``attn``, ``models/progen.py``).
+``--superstep K`` advances up to K optimizer steps per
+``train_multi_step``: on the card one captured CUDA graph of the optimizer
+step, replayed K times (``train/step.py``); spans shrink to land on hook
+boundaries.  With ``--data_path`` a superstep trains without a mesh: a world
+of one under ``dp`` is the one-device step, and more ranks are refused (the
+meshed step runs per step).  Without ``--data_path`` each dispatch takes up
+to K optimizer steps of synthetic rows and prints one line.
+
+Not accepted: the kernel-choice, profiling-service and wandb flags.  The
+device is ``cuda`` unless ``--device cpu`` is given (then the ranks meet
+over gloo).
 """
 
 from __future__ import annotations
@@ -69,7 +79,8 @@ from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
 from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.train.optimizer import make_optimizer
-from progen_tpu_torch.train.schedule import SCHEDULES, make_lr_schedule
+from progen_tpu_torch.models.progen import REMAT_POLICIES
+from progen_tpu_torch.train.schedule import SCHEDULES, lr_at, make_lr_schedule
 from progen_tpu_torch.train.step import make_train_functions
 from progen_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -100,6 +111,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_grad_norm", type=float, default=0.5)
     p.add_argument("--mixed_precision", action="store_true",
                    help="bf16 compute, f32 parameters")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize blocks in backward (saves device memory)")
+    p.add_argument("--remat_policy", default="full", choices=REMAT_POLICIES,
+                   help="full: recompute everything; dots: save matmul outputs, "
+                        "recompute the rest; attn: save the attention path "
+                        "(q/k/v + out), replay the feed-forward")
+    p.add_argument("--superstep", type=int, default=1,
+                   help="up to K optimizer steps per train_multi_step (one "
+                        "captured CUDA graph of the step, replayed; 1 = per-step "
+                        "dispatch); spans shrink to land on hook boundaries")
     p.add_argument("--data_path", default=None,
                    help="folder of *.train/*.valid.tfrecord.gz shards; "
                         "without it, synthetic rows and no checkpoints")
@@ -203,6 +224,9 @@ def train_tfrecords(args, device: torch.device) -> dict:
     meta = store.restore_meta()
     model_kwargs = (_load_model_config(args.config_path, args.model_name)
                     if meta is None else meta["model_config"])
+    mesh = args.mesh
+    if args.superstep > 1 and dist.get_world_size() == 1 and args.strategies == ("dp",):
+        mesh = None  # dp over one rank is the one-device step, which the superstep runs
     cfg = TrainerConfig(
         seed=args.seed, batch_size=args.batch_size,
         grad_accum_every=args.grad_accum_every, epochs=args.epochs,
@@ -217,8 +241,9 @@ def train_tfrecords(args, device: torch.device) -> dict:
         background_checkpoint=args.background_checkpoint,
         log_every=args.log_every, max_steps=args.max_steps,
         run_attempts=args.run_attempts, watchdog_timeout=args.watchdog_timeout,
-        warm_sampler=args.warm_sampler, mesh=args.mesh, strategies=args.strategies,
-        statusz_port=args.statusz_port)
+        warm_sampler=args.warm_sampler, mesh=mesh, strategies=args.strategies,
+        statusz_port=args.statusz_port, remat=args.remat, remat_policy=args.remat_policy,
+        superstep=args.superstep)
     config = {k: v for k, v in vars(args).items() if k != "new"}
     config["mesh"] = ",".join(str(v) for v in dataclasses.astuple(args.mesh))
     tracker = Tracker(out_dir=args.runs_dir, run_id=(meta or {}).get("run_id"),
@@ -233,18 +258,19 @@ def train_tfrecords(args, device: torch.device) -> dict:
 
 
 def train_synthetic(args, device: torch.device) -> list[dict]:
-    """``--max_steps`` micro-batches of synthetic rows; returns the records
-    it printed."""
+    """``--max_steps`` micro-batches of synthetic rows, a span of up to
+    ``--superstep`` optimizer steps per dispatch; returns the records it
+    printed."""
     max_steps = args.max_steps or SYNTHETIC_STEPS
+    accum = args.grad_accum_every
     config = CONFIGS[args.model_name]
     model = ProGen(config, make_policy(args.mixed_precision), device=device,
-                   seed=args.seed)
+                   seed=args.seed, remat=args.remat, remat_policy=args.remat_policy)
     schedule = make_lr_schedule(
         args.lr_schedule, args.learning_rate, warmup_steps=args.warmup_steps,
         decay_steps=args.schedule_steps or max_steps,
         min_lr_ratio=args.lr_min_ratio)
-    optimizer = make_optimizer(schedule, args.weight_decay, args.max_grad_norm,
-                               args.grad_accum_every)
+    optimizer = make_optimizer(schedule, args.weight_decay, args.max_grad_norm, accum)
     fns = make_train_functions(model, optimizer)
     state = fns.init_state()
     num_params = sum(p.numel() for p in model.parameters())
@@ -252,23 +278,40 @@ def train_synthetic(args, device: torch.device) -> list[dict]:
     rng = np.random.default_rng(args.seed)
     tokens_per_step = args.batch_size * config.seq_len
 
+    def rows(n: int) -> torch.Tensor:
+        return torch.from_numpy(np.stack([
+            synthetic_uniref_batch(rng, args.batch_size, config.seq_len)
+            for _ in range(n)])).to(device)
+
     records = []
-    for _ in range(max_steps):
-        batch = torch.from_numpy(
-            synthetic_uniref_batch(rng, args.batch_size, config.seq_len)).to(device)
+    while state.step < max_steps:
+        # a superstep takes whole optimizer steps from a step boundary
+        k = min(args.superstep, (max_steps - state.step) // accum)
+        if k > 1 and state.opt_state.mini_step == 0:
+            batch = rows(k * accum).reshape(k, accum, args.batch_size, -1)
+        else:
+            k, batch = 0, rows(1)[0]
+        count = state.opt_state.count
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        state, metrics = fns.train_step(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
+        if k:
+            state, metrics = fns.train_multi_step(state, batch)
+            metrics = {key: metrics[key][-1, -1] for key in ("loss", "grad_norm")}
+            count += k - 1
+        else:
+            state, metrics = fns.train_step(state, batch)
+        loss = float(metrics["loss"])  # waits for the steps
         seconds = time.perf_counter() - t0
-        if state.step % args.log_every and state.step != max_steps:
+        micro = max(1, k * accum)
+        if state.step // args.log_every == (state.step - micro) // args.log_every \
+                and state.step != max_steps:
             continue
-        rate = tokens_per_step / seconds
+        rate = tokens_per_step * micro / seconds
         record = {
             "step": state.step, "loss": loss,
             "grad_norm": float(metrics["grad_norm"]),
-            "lr": metrics["lr"], "step_ms": seconds * 1e3,
+            "lr": lr_at(schedule, count), "step_ms": seconds / micro * 1e3,
             "tokens_per_s": rate,
             "mfu": mfu(rate, flops_per_token) if device.type == "cuda" else None,
         }

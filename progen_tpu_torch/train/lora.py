@@ -23,8 +23,11 @@ Serving hand-off: :func:`extract_adapters` pulls the trained factor tree out
 of the wrapper's parameters; ``workloads/lora.bank_from_trained`` stacks one
 such tree per tenant into the engine's serving bank.
 
-The K-step fused superstep (JAX's ``train_multi_step``) is not ported: the
-port trains per step.
+The superstep (``train_multi_step``, ``train/step.py``) runs the same way:
+on the card one captured optimizer step, replayed; the frozen base is read
+by the graph (the forward and the discarded gradients) and never written,
+and it has no moments, so the graph's writes are the factors', their
+moments' and the accumulator's.
 """
 
 from __future__ import annotations

@@ -20,6 +20,15 @@ round differently:
 Parameters, moments and the accumulator are updated IN PLACE (the state
 holds the same tensors from step to step), which saves a copy of each.
 
+The scalars that depend on Adam's count (the learning rate, the step size
+``-lr`` and the bias corrections ``1 - b1**t`` and ``1 - b2**t``) reach the
+update as one f32 tensor on the parameters' device, :meth:`Optimizer.scalars`,
+computed on the host from the count in ``np.float32`` arithmetic.  The
+update's device work therefore reads no Python number that changes from
+step to step, so one CUDA graph of it serves every step
+(``train/step.py:train_multi_step``); a graph would freeze such a number at
+the value of the step it was captured at.
+
 Under a mesh (``parallel/sharding.py``) the state's tensors may be
 DTensors (FSDP2 shards, parameters row-sharded over ``seq``): every update
 runs on each rank's own shard, and :func:`global_norm` counts each distinct
@@ -131,17 +140,35 @@ class Optimizer:
         """The entries of ``params`` the optimizer updates."""
         return {k: p for k, p in params.items() if not self.frozen(k)}
 
+    def scalars(self, count: int) -> np.ndarray:
+        """The update's count-dependent scalars at Adam count ``count`` (the
+        count BEFORE the update, what the schedule reads), as ``(4,)`` f32:
+        ``[lr, -lr, 1 - b1**(count+1), 1 - b2**(count+1)]``: the learning
+        rate, the step size and the two bias corrections; the schedule's
+        value is rounded to f32 once."""
+        t = np.float32(count + 1)
+        lr = np.float32(lr_at(self.learning_rate, count))
+        return np.array([lr, -lr, np.float32(1) - np.float32(self.b1) ** t,
+                         np.float32(1) - np.float32(self.b2) ** t], np.float32)
+
     def init(self, params: Params) -> OptState:
         params = self.trainable(params)
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
         acc = zeros() if self.grad_accum_every > 1 else None
         return OptState(count=0, mu=zeros(), nu=zeros(), acc_grads=acc)
 
-    def update(self, grads: Params, state: OptState, params: Params) -> OptState:
+    def update(self, grads: Params, state: OptState, params: Params,
+               scalars: torch.Tensor | None = None) -> OptState:
+        """One micro-batch's gradients into ``state`` and ``params``;
+        ``scalars``: :meth:`scalars` of ``state.count`` as a tensor on the
+        parameters' device (made here when None)."""
         k = self.grad_accum_every
         grads = {name: grads[name] for name in self.trainable(grads)}
+        if scalars is None:
+            device = local(next(iter(params.values()))).device
+            scalars = torch.from_numpy(self.scalars(state.count)).to(device)
         if k == 1:
-            self._apply(grads, state, params)
+            self._apply(grads, state, params, scalars)
             return dataclasses.replace(state, count=state.count + 1)
         acc = state.acc_grads
         with torch.no_grad():
@@ -150,24 +177,22 @@ class Optimizer:
                 a.copy_(a + (g - a) / (state.mini_step + 1))
         if state.mini_step < k - 1:
             return dataclasses.replace(state, mini_step=state.mini_step + 1)
-        self._apply(acc, state, params)
+        self._apply(acc, state, params, scalars)
         for a in acc.values():
             a.zero_()
         return dataclasses.replace(state, count=state.count + 1, mini_step=0)
 
     @torch.no_grad()
-    def _apply(self, grads: Params, state: OptState, params: Params) -> None:
-        """One clip + AdamW step from ``grads`` at Adam count ``state.count``
+    def _apply(self, grads: Params, state: OptState, params: Params,
+               scalars: torch.Tensor) -> None:
+        """One clip + AdamW step from ``grads`` with the count's ``scalars``
         (over the trainable parameters, the names of ``grads``)."""
         b1, b2 = self.b1, self.b2
         clip = self.max_grad_norm is not None
         if clip:
             norm = global_norm(grads)
             keep = norm < self.max_grad_norm
-        count = state.count + 1
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        step_size = -lr_at(self.learning_rate, state.count)
+        step_size, bc1, bc2 = scalars[1], scalars[2], scalars[3]
         decay = decay_mask(grads)
         for name, g in grads.items():
             p, g = local(params[name]), local(g)

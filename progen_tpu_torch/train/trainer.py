@@ -51,11 +51,23 @@ port, printed as a JSON line).
 handler it had before the Trainer took it, and drops the Trainer's model,
 step functions and sampler: the caller calls it on every way out.
 
-Fields of :class:`TrainerConfig` the port cannot honour yet (remat,
-``superstep > 1``, and attention/SGU implementations other than the port's
-kernels) are refused by name when set away from their defaults; so are
-tensor parallelism (``"tp"`` in ``strategies`` or a mesh tensor axis > 1)
-and strategies without a mesh.
+The superstep (``superstep > 1``, the port of JAX's ``_run_loop_superstep``):
+a :class:`~progen_tpu_torch.data.prefetch.SuperbatchStager` stacks each
+span's micro-batches, and ``train_multi_step`` advances a SPAN of optimizer
+steps at once, on the card as replays of one captured optimizer step
+(``train/step.py``).  :func:`superstep_span` sizes each span to end on the
+nearest hook boundary, so every log, checkpoint, validation, sample and
+epoch boundary fires at the same ``global_step`` as in the per-step loop;
+the metrics stay on the device and are fetched once per logged span.  The
+first span of an attempt captures the step (the kernels' build and the
+capture), under the watchdog's grace; a retry that restores the state
+again captures again (the graph holds the state's addresses).
+
+Fields of :class:`TrainerConfig` the port does not honour (attention/SGU
+implementations other than the port's kernels) are refused by name when set
+away from their defaults; so are tensor parallelism (``"tp"`` in
+``strategies`` or a mesh tensor axis > 1), strategies without a mesh, and
+``superstep > 1`` under a mesh.
 """
 
 from __future__ import annotations
@@ -83,7 +95,7 @@ from progen_tpu_torch.core.mesh import (
     process_batch_shards,
 )
 from progen_tpu_torch.core.precision import make_policy
-from progen_tpu_torch.data.prefetch import DevicePrefetcher
+from progen_tpu_torch.data.prefetch import DevicePrefetcher, SuperbatchStager
 from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
 from progen_tpu_torch.data.tokenizer import decode_tokens
 from progen_tpu_torch.decode.rng import KeySeq
@@ -104,9 +116,29 @@ from progen_tpu_torch.train.schedule import make_lr_schedule
 from progen_tpu_torch.train.step import TrainState, make_train_functions
 
 # TrainerConfig fields the port refuses away from their defaults
-NOT_PORTED = ("remat", "superstep", "attn_impl", "sgu_impl")
-# fields some of whose values the port refuses: tensor parallelism
-PARTLY_PORTED = ("strategies", "mesh")
+NOT_PORTED = ("attn_impl", "sgu_impl")
+# fields some of whose values the port refuses: tensor parallelism, and a
+# superstep under a mesh
+PARTLY_PORTED = ("strategies", "mesh", "superstep")
+
+
+def superstep_span(global_step: int, k_max: int, cadences: Sequence[int],
+                   remaining: int) -> int:
+    """Optimizer steps the next superstep may cover (copied from
+    ``progen_tpu/train/trainer.py:superstep_span``): the distance from
+    ``global_step`` to the NEAREST hook boundary among ``cadences``
+    (every-N step counts; a hook fires when ``global_step % every == 0``),
+    capped by ``k_max`` and the ``remaining`` epoch/max_steps budget.
+
+    Always >= 1.  A span never crosses a boundary, and it ENDS exactly on
+    the nearest boundary whenever that is within ``k_max`` steps, so every
+    hook fires at the same global_step as the per-step loop, never skipped
+    and never doubled."""
+    span = min(k_max, remaining)
+    for every in cadences:
+        if every and every > 0:
+            span = min(span, every - global_step % every)
+    return max(1, span)
 
 
 @dataclasses.dataclass
@@ -135,11 +167,15 @@ class TrainerConfig:
     # strategies "dp", "fsdp", "sp" ("tp" is refused)
     strategies: Sequence[str] = ("dp",)
     mesh: MeshConfig | None = None
-    # not ported yet: refused by name unless left at these values
+    # recompute each block in the backward: "full", "dots" or "attn"
+    # (models/progen.py)
     remat: bool = False
     remat_policy: str = "full"
+    # not ported: refused by name unless left at these values
     attn_impl: str = "kernel"      # the port's K1 kernels (plain on the CPU)
     sgu_impl: str = "kernel"       # the port's K2 kernels (plain on the CPU)
+    # up to this many optimizer steps per train_multi_step (1 = per step);
+    # spans shrink to land on hook boundaries
     superstep: int = 1
     # live introspection: /healthz /statusz /metricsz /tracez /flightz on a
     # loopback port of rank 0 (0 = ephemeral; None = off).  The handlers
@@ -177,6 +213,12 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
             raise ValueError(
                 f"TrainerConfig.{name}={value!r} is not ported yet (the port "
                 f"supports only {default!r})")
+    if cfg.superstep < 1:
+        raise ValueError(f"TrainerConfig.superstep={cfg.superstep!r}: must be >= 1")
+    if cfg.superstep > 1 and cfg.mesh is not None:
+        raise ValueError(f"TrainerConfig.superstep={cfg.superstep!r} under a mesh is not "
+                         "ported yet (the meshed step runs per step); see ROADMAP.md, "
+                         "Queue 1")
     tp = "tensor parallelism is not ported yet; see ROADMAP.md, Queue 1"
     if "tp" in tuple(cfg.strategies):
         raise ValueError(f"TrainerConfig.strategies={tuple(cfg.strategies)!r}: {tp}")
@@ -263,7 +305,7 @@ class Trainer:
             self.data_shard_count, self.data_shard_index = process_batch_shards(self.mesh)
         self.policy = make_policy(cfg.mixed_precision)
         self.model = ProGen(model_config, self.policy, device=self.device,
-                            seed=cfg.seed)
+                            seed=cfg.seed, remat=cfg.remat, remat_policy=cfg.remat_policy)
         self.lr_schedule = make_lr_schedule(
             cfg.lr_schedule, cfg.learning_rate, warmup_steps=cfg.warmup_steps,
             decay_steps=cfg.schedule_steps or cfg.max_steps,
@@ -483,7 +525,13 @@ class Trainer:
         train_it = get_train(seq_len=seq_len, batch_size=cfg.batch_size, skip=skip,
                              loop=True, shuffle_buffer=cfg.shuffle_buffer,
                              seed=cfg.seed, **shard)
-        if cfg.prefetch_depth > 0:
+        if cfg.superstep > 1:
+            # the stager owns the iterator and stacks each span's
+            # micro-batches, copying the next while the replays run
+            train_it = SuperbatchStager(train_it, device=self.device,
+                                        accum=cfg.grad_accum_every, k_max=cfg.superstep,
+                                        depth=max(1, cfg.prefetch_depth))
+        elif cfg.prefetch_depth > 0:
             train_it = DevicePrefetcher(train_it, device=self.device,
                                         depth=cfg.prefetch_depth)
         valid_it = get_valid(seq_len=seq_len, batch_size=cfg.batch_size, loop=True,
@@ -510,69 +558,109 @@ class Trainer:
             if watchdog is not None:
                 watchdog.stop()
             self._watchdog = None
-            if isinstance(train_it, DevicePrefetcher):
+            if isinstance(train_it, (DevicePrefetcher, SuperbatchStager)):
                 train_it.close()
             # an exception must not abandon the checkpoint thread mid-write
             self._join_checkpoint_thread()
 
+    def _dispatch(self, state, train_it, span: int):
+        """``span`` optimizer steps: ``grad_accum_every`` train steps each
+        (``span`` is 1), or one ``train_multi_step`` over the stager's next
+        superbatch.  Returns the state, the last micro-step's ``loss``,
+        ``grad_norm`` and ``lr`` on the device, and the seconds spent waiting
+        for data."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        if cfg.superstep > 1:
+            superbatch = train_it.get(span)
+            waited = time.perf_counter() - t0
+            state, metrics = self.fns.train_multi_step(state, superbatch)
+            return state, {"loss": metrics["loss"][-1, -1],
+                           "grad_norm": metrics["grad_norm"][-1, -1],
+                           "lr": metrics["lr"][-1]}, waited
+        waited = 0.0
+        for _ in range(cfg.grad_accum_every):
+            tw = time.perf_counter()
+            batch = next(train_it)
+            if not isinstance(train_it, DevicePrefetcher):
+                batch = self._to_device(batch)
+            waited += time.perf_counter() - tw
+            state, metrics = self.fns.train_step(state, batch)
+        return state, metrics, waited
+
     def _run_loop(self, state, train_it, valid_it, total_train, epoch_position,
                   effective_batch, global_step, seq_cursor):
+        """The epoch/step loop.  Each turn advances a span of optimizer
+        steps: one step in the per-step loop, up to ``superstep`` in the
+        superstep loop (:func:`superstep_span`: a span ends on the nearest
+        hook boundary, so every hook fires at the step the per-step loop
+        fires it at)."""
         cfg = self.cfg
         seq_len = self.model_config.seq_len
         num_params = sum(p.numel() for p in state.params.values())
         flops_per_token = model_flops_per_token(self.model_config, num_params)
-        prefetched = isinstance(train_it, DevicePrefetcher)
         watchdog = self._watchdog
+        cadences = (cfg.log_every, cfg.checkpoint_every, cfg.validate_every,
+                    cfg.sample_every)
         last_loss = None
-        pending_tokens = pending_steps = 0
+        pending_tokens = pending_steps = meter_steps = 0
         data_wait = 0.0
         since = time.perf_counter()
+        first = True
 
         with profile_trace(cfg.profile_dir):
             for epoch in range(1, cfg.epochs + 1):
                 self._emit(epoch=epoch)
                 epoch_start = epoch_position if epoch == 1 else 0
                 steps_per_epoch = max(1, (total_train - epoch_start) // effective_batch)
-                for i in range(steps_per_epoch):
+                done = 0
+                while done < steps_per_epoch:
+                    remaining = steps_per_epoch - done
+                    if cfg.max_steps is not None:
+                        remaining = min(remaining, cfg.max_steps - global_step)
+                    span = superstep_span(global_step, cfg.superstep, cadences, remaining)
                     if watchdog is not None:
-                        watchdog.beat(f"step {global_step + 1}")
-                    faults.inject("train.step")
-                    # the attempt's first step launches every kernel for the
-                    # first time (the build, on the card): a stall the
-                    # watchdog must not book as a hang
-                    grace = (watchdog.paused() if watchdog is not None
-                             and epoch == 1 and i == 0 else contextlib.nullcontext())
+                        watchdog.beat(f"step {global_step + 1}" if span == 1
+                                      else f"steps {global_step + 1}..{global_step + span}")
+                    # one inject per optimizer step, before its dispatch
+                    for _ in range(span):
+                        faults.inject("train.step")
+                    # the attempt's first dispatch launches every kernel for
+                    # the first time (the build, on the card) and captures
+                    # the superstep's graph: a stall the watchdog must not
+                    # book as a hang
+                    grace = (watchdog.paused() if watchdog is not None and first
+                             else contextlib.nullcontext())
+                    first = False
                     t0 = time.perf_counter()
                     with grace:
-                        for _ in range(cfg.grad_accum_every):
-                            tw = time.perf_counter()
-                            batch = next(train_it)
-                            if not prefetched:
-                                batch = self._to_device(batch)
-                            data_wait += time.perf_counter() - tw
-                            state, metrics = self.fns.train_step(state, batch)
-                    global_step += 1
-                    self._note_phase("train.step_dispatch", t0, step=global_step)
+                        state, metrics, waited = self._dispatch(state, train_it, span)
+                    data_wait += waited
+                    done += span
+                    global_step += span
+                    self._note_phase("train.step_dispatch", t0, step=global_step, span=span)
                     # monotonic, never wrapped: the stored cursor must name
                     # the position in the multi-epoch STREAM
-                    seq_cursor += effective_batch
-                    pending_tokens += effective_batch * seq_len
-                    pending_steps += 1
+                    seq_cursor += effective_batch * span
+                    pending_tokens += effective_batch * seq_len * span
+                    pending_steps += span
+                    meter_steps += span
 
                     will_hook = (global_step % cfg.checkpoint_every == 0
                                  or global_step % cfg.validate_every == 0
                                  or global_step % cfg.sample_every == 0)
                     if global_step % cfg.log_every == 0:
                         t0 = time.perf_counter()
-                        last_loss = float(metrics["loss"])  # waits for the step
+                        last_loss = float(metrics["loss"])  # waits for the steps
                         now = time.perf_counter()
-                        self.meter.tick(pending_tokens)
+                        self.meter.tick(pending_tokens, steps=meter_steps)
                         log = {"loss": last_loss,
                                "grad_norm": float(metrics["grad_norm"]),
                                "lr": float(metrics["lr"]),
                                "step_ms": (now - since) / pending_steps * 1e3,
                                "data_wait_ms": data_wait / pending_steps * 1e3}
                         since, pending_tokens, pending_steps, data_wait = now, 0, 0, 0.0
+                        meter_steps = 0
                         tps = self.meter.tokens_per_sec_per_chip
                         if tps is not None:
                             log["tokens_per_sec_per_chip"] = tps
@@ -588,8 +676,8 @@ class Trainer:
                         # sync and tick BEFORE the hooks, so their wall time
                         # is never rated against these steps' tokens
                         float(metrics["grad_norm"])
-                        self.meter.tick(pending_tokens)
-                        pending_tokens = 0
+                        self.meter.tick(pending_tokens, steps=meter_steps)
+                        pending_tokens = meter_steps = 0
 
                     hooks_ran = False
                     if global_step % cfg.checkpoint_every == 0:

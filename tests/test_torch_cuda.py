@@ -587,3 +587,103 @@ def test_a_warmed_paged_engine_gives_the_eager_engines_tokens(gen, quantize):
         runs[warm] = ({c.uid: c.tokens.tolist() for c in done},
                       tuple(a - b for a, b in zip(after, before)), engine.chunks_run)
     assert runs[True] == runs[False]
+
+
+SUPERSTEP_CFG = ProGenConfig(num_tokens=256, dim=64, seq_len=64, depth=3, window_size=16,
+                             global_mlp_depth=2, heads=2, dim_head=32, ff_mult=2)
+
+
+def _state_tensors(state) -> dict:
+    opt = state.opt_state
+    out = {f"params.{k}": v for k, v in state.params.items()}
+    for kind in ("mu", "nu", "acc_grads"):
+        out.update({f"{kind}.{k}": v for k, v in (getattr(opt, kind) or {}).items()})
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("accum,k", [(1, 4), (2, 2)])
+def test_the_captured_optimizer_step_is_the_eager_steps(gen, dtype, accum, k):
+    """``train_multi_step`` on the card (one captured optimizer step,
+    replayed) against the same micro-batches through ``train_step``, two
+    dispatches from one init: every loss, grad norm and lr, every parameter,
+    both moments and the accumulator bit for bit; the kernels' counters
+    advance by the eager steps' launches; a new state (other tensors) is
+    captured again."""
+    from progen_tpu_torch.train.schedule import make_lr_schedule
+
+    cfg, mixed = SUPERSTEP_CFG, dtype == "bf16"
+    micros = torch.randint(1, 256, (2, k, accum, 2, cfg.seq_len + 1), device="cuda",
+                           generator=gen)
+
+    def fns_and_state():
+        model = ProGen(cfg, make_policy(mixed), device="cuda", seed=3)
+        fns = make_train_functions(model, make_optimizer(
+            make_lr_schedule("constant", 1e-3, warmup_steps=32), grad_accum_every=accum))
+        return fns, fns.init_state()
+
+    def counts():
+        return (cuda_attention.launches, cuda_attention.dq_launches,
+                cuda_attention.dkv_launches, cuda_sgu.launches,
+                cuda_sgu.dgate_launches, cuda_sgu.dw_launches)
+
+    fns, state = fns_and_state()
+    eager, before = [], counts()
+    for sb in micros:
+        for i in range(k):
+            for a in range(accum):
+                state, m = fns.train_step(state, sb[i, a])
+                eager.append({key: m[key].clone() for key in ("loss", "grad_norm", "lr")})
+    torch.cuda.synchronize()
+    eager_launches = tuple(a - b for a, b in zip(counts(), before))
+    want = _state_tensors(state)
+
+    fns, state = fns_and_state()
+    fused, before = [], counts()
+    for sb in micros:
+        state, m = fns.train_multi_step(state, sb)
+        fused.append(m)
+    torch.cuda.synchronize()
+    assert fns.captured_program().captured
+    assert tuple(a - b for a, b in zip(counts(), before)) == eager_launches
+    assert eager_launches == tuple(n * 2 * k * accum for n in (3, 3, 3, 4, 2, 2))
+    loss = torch.cat([m["loss"].reshape(-1) for m in fused])
+    assert torch.equal(loss, torch.stack([e["loss"] for e in eager]))
+    norms = torch.cat([m["grad_norm"].reshape(-1) for m in fused])
+    assert torch.equal(norms, torch.stack([e["grad_norm"] for e in eager]))
+    lrs = torch.cat([m["lr"] for m in fused])
+    assert torch.equal(lrs, torch.stack([e["lr"] for e in eager])[accum - 1::accum])
+    got = _state_tensors(state)
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+    program = fns.captured_program()
+    state = fns.init_state()  # new moments: other addresses
+    fns.train_multi_step(state, micros[0])
+    assert fns.captured_program() is not program
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "attn"])
+def test_remat_gives_the_same_gradients_on_the_card(gen, policy):
+    """Each remat policy through the kernels: loss and every gradient
+    equal the step without remat, in f32, bit for bit; K1-fwd launched
+    twice a layer under full and dots, once under attn."""
+    from progen_tpu_torch.train.loss import batch_loss
+
+    cfg = SUPERSTEP_CFG
+    batch = torch.randint(1, 256, (2, cfg.seq_len + 1), device="cuda", generator=gen)
+    out = {}
+    for remat in (False, True):
+        model = ProGen(cfg, make_policy(False), device="cuda", seed=4, remat=remat,
+                       remat_policy=policy)
+        before = cuda_attention.launches
+        loss = batch_loss(model(batch[:, :-1]), batch[:, 1:])
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                      cuda_attention.launches - before)
+    assert torch.equal(out[True][0], out[False][0])
+    for name, g in out[False][1].items():
+        assert torch.equal(out[True][1][name], g), name
+    assert out[False][2] == cfg.depth
+    assert out[True][2] == cfg.depth * (1 if policy == "attn" else 2)

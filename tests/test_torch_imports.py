@@ -58,7 +58,8 @@ def test_scan_sees_the_whole_port():
                 "workloads/__init__.py", "workloads/lora.py", "workloads/infill.py",
                 "core/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
                 "parallel/context.py", "observe/metrics.py", "observe/trace.py",
-                "observe/statusz.py", "observe/__init__.py"):
+                "observe/statusz.py", "observe/__init__.py", "compat/reference.py",
+                "convert_checkpoint.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
@@ -138,6 +139,24 @@ def test_train_cli_takes_steps_on_cpu():
                           "tokens_per_s", "mfu"}
         assert 0 < r["loss"] < 10 and r["grad_norm"] > 0
         assert r["lr"] == 2e-4 and r["mfu"] is None  # no device number on the CPU
+
+
+def test_train_cli_takes_supersteps_with_remat_on_cpu():
+    """``--superstep 2 --remat`` on the CPU: four micro-batches in two
+    spans of two optimizer steps, one JSON line per span; the losses are
+    the per-step run's."""
+    def run(*extra):
+        out = subprocess.run(
+            [sys.executable, "-m", "progen_tpu_torch.train", "--model_name", "default",
+             "--batch_size", "1", "--grad_accum_every", "1", "--max_steps", "4",
+             "--log_every", "1", "--device", "cpu", *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
+        return [json.loads(line) for line in out.stdout.splitlines()]
+
+    fused = run("--superstep", "2", "--remat", "--remat_policy", "attn")
+    assert [r["step"] for r in fused] == [2, 4]
+    per_step = {r["step"]: r["loss"] for r in run()}
+    assert [r["loss"] for r in fused] == [per_step[2], per_step[4]]
 
 
 def test_train_cli_needs_a_card_unless_told_cpu(monkeypatch):

@@ -323,14 +323,18 @@ def test_full_validation_eval_is_exact(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("strategies", ("dp", "tp")), ("mesh", MeshConfig(data=1, fsdp=1, tensor=2, seq=1)),
-    ("remat", True), ("superstep", 4), ("attn_impl", "xla"), ("sgu_impl", "xla"),
+    ("superstep", 4), ("attn_impl", "xla"), ("sgu_impl", "xla"),
 ])
 def test_fields_not_ported_are_refused_by_name(data_dir, tmp_path, field, value):
     """Modes not ported are refused by name; of the mesh and strategies
-    (ported: dp, fsdp, sp), tensor parallelism is."""
+    (ported: dp, fsdp, sp), tensor parallelism is; a superstep is refused
+    under a mesh (before any process group is made)."""
     assert field in trainer_mod.NOT_PORTED + trainer_mod.PARTLY_PORTED
+    kw = {field: value}
+    if field == "superstep":
+        kw["mesh"] = MeshConfig(data=-1, fsdp=1, tensor=1, seq=1)
     with pytest.raises(ValueError, match=f"TrainerConfig.{field}="):
-        _trainer(data_dir, tmp_path / "ck", 1, **{field: value})
+        _trainer(data_dir, tmp_path / "ck", 1, **kw)
 
 
 def test_statusz_port_starts_the_server(data_dir, tmp_path):

@@ -13,7 +13,8 @@ progen_tpu_torch.train`` as two ``gloo`` ranks started by hand (``RANK``,
 * the checkpoint, gathered and written by rank 0, restores with no mesh
   and takes one more step;
 * the ragged corpus of ``tests/test_trainer_e2e.py:78`` (18 records, a
-  global batch of 8) crosses its epoch boundaries across the ranks.
+  global batch of 8) crosses its epoch boundaries across the ranks;
+* ``--remat`` under ``fsdp`` takes the same steps as ``fsdp`` without it.
 """
 
 import json
@@ -50,7 +51,7 @@ def _write_data(d: Path, rng, train: tuple, valid: int, lengths=(6, 40)) -> Path
 
 
 def _run_ranks(tmp: Path, name: str, data: Path, strategy: str, batch: int, steps: int,
-               sample_every: int):
+               sample_every: int, extra: tuple = ()):
     """Start two ranks of the CLI; returns each rank's stdout lines."""
     (tmp / "models").mkdir(exist_ok=True)
     (tmp / "models" / "default.toml").write_text("".join(
@@ -63,7 +64,7 @@ def _run_ranks(tmp: Path, name: str, data: Path, strategy: str, batch: int, step
             "--sample_every", str(sample_every), "--prime_length", "4",
             "--max_steps", str(steps), "--mesh", "-1,1,1,1" if strategy == "dp" else "1,-1,1,1",
             "--strategies", strategy, "--init_method", f"file://{tmp / f'store_{name}'}",
-            "--device", "cpu"]
+            "--device", "cpu", *extra]
     procs = [subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
                                               "OMP_NUM_THREADS": "1"})
@@ -79,10 +80,12 @@ def worlds(tmp_path_factory):
     rng = np.random.default_rng(0)
     data = _write_data(tmp / "data", rng, (30, 18), 7)
     ragged = _write_data(tmp / "ragged", np.random.default_rng(1), (18,), 3, (6, 14))
-    runs = {name: _run_ranks(tmp, name, d, strategy, batch, steps, every)
-            for name, d, strategy, batch, steps, every in (
-                ("dp", data, "dp", 2, STEPS, STEPS), ("fsdp", data, "fsdp", 2, STEPS, STEPS),
-                ("ragged", ragged, "dp", 4, 5, 1000))}
+    runs = {name: _run_ranks(tmp, name, d, strategy, batch, steps, every, extra)
+            for name, d, strategy, batch, steps, every, extra in (
+                ("dp", data, "dp", 2, STEPS, STEPS, ()),
+                ("fsdp", data, "fsdp", 2, STEPS, STEPS, ()),
+                ("fsdp_remat", data, "fsdp", 2, STEPS, STEPS, ("--remat",)),
+                ("ragged", ragged, "dp", 4, 5, 1000, ()))}
     one = Trainer(CFG, TrainerConfig(
         batch_size=4, grad_accum_every=1, learning_rate=1e-3, validate_every=1000,
         sample_every=1000, checkpoint_every=1000, prime_length=4, mixed_precision=False,
@@ -143,6 +146,16 @@ def test_the_checkpoint_restores_with_no_mesh(worlds, strategy):
     assert state.step == STEPS and start == 4 * STEPS
     result = t.run()
     assert result["step"] == STEPS + 1 and np.isfinite(result["loss"])
+
+
+def test_remat_under_fsdp_takes_the_steps_without_it(worlds):
+    """``--remat`` (policy ``full``) composes with FSDP2 across two ranks:
+    the same losses as the ranks without remat, 1e-6 relative."""
+    tmp, _, _, _, _ = worlds
+    got, want = _losses(tmp / "runs_fsdp_remat"), _losses(tmp / "runs_fsdp")
+    assert set(got) == set(want) == set(range(1, STEPS + 1))
+    for step in want:
+        assert got[step] == pytest.approx(want[step], rel=1e-6), (step, got, want)
 
 
 def test_a_ragged_corpus_crosses_epochs_across_ranks(worlds):
