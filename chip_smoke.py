@@ -127,7 +127,8 @@ non-zero without its last line:
    through the kernels, the left half's last window the right half's halo,
    against the whole sequence (out concatenated; dq concatenated, dk/dv
    with the right half's halo gradients added to the left half's last
-   window); (c) the Trainer over ``train_data_synth/`` at ProGen-small,
+   window); (c) the Trainer over ``train_data_synth/`` at ProGen-small
+   (the f32 runs at 6 of its 12 layers since phase 16),
    batch 8, 4 steps: without a mesh in f32 and in bf16 compute, then on a
    mesh of one rank (NCCL, ``-1,1,1,1``) in f32 under ``dp`` and under
    ``fsdp`` (K1 on the WMMA route) and in bf16 compute under ``fsdp`` (K1
@@ -198,6 +199,24 @@ non-zero without its last line:
    eager steps (wall, device ms, idle share, device and host launches), the
    capture's seconds and the bytes its pool holds; live memory within
    256 MB of the phase's start after the Trainers are deleted;
+16. the memory planner, tensor parallelism and the superstep on a mesh
+   (``trainer_mesh``, after phase 11): (a) ``train/memory.plan`` against
+   ``max_memory_allocated`` above the start, within 5%: the four remat
+   policies at batch 8 (phase 14's peaks), no remat at batch 40 (> 40 GB),
+   the points the activation model was fitted to (batch 16 under each
+   policy, 48 under ``full``, 32 under ``attn``), the Trainer with its
+   background checkpoint's snapshot and ``superstep=4`` (its replays
+   allocate nothing: the bytes at the snapshot plus the graph pool's free
+   bytes); a batch-96 Trainer refused before a byte is allocated; the
+   serving plan against a paged engine's state bytes; (b) the Trainer on a
+   world-1 NCCL mesh under ``("fsdp", "tp")`` and ``("dp", "tp", "sp")``,
+   f32 (6 layers) and bf16 compute, 4 steps, its losses against phase 11's
+   unmeshed runs at phase 11's meshed readings (f32 1.3e-6, bf16 4e-4), its peak
+   against the plan within 5%; (c) the Trainer at ``superstep=4`` (6
+   layers, bf16 compute) on the mesh under ``dp`` and ``fsdp``, bit-equal to the
+   per-step meshed run (logged losses and grad norms, every parameter),
+   the captured ``fsdp`` step traced against its eager step, and K1 with a
+   halo captured alone and replayed with new data, bit-equal;
 15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
@@ -206,13 +225,14 @@ Every earlier phase runs at the depth and the step count it always had,
 but for three cuts made with phase 14 to keep the whole near 900 s: phase
 12 at half depth, the resumed runs of phase 8 without a sample hook and
 its feed comparison at prefetch depths 0 and 2 once each (0, 2, 0, 2
-before).
+before); and one made with phase 16: phase 11's f32 Trainer runs at 6
+layers (the K1 WMMA route's f32 step is the phase's time).
 The whole takes twelve to seventeen minutes on an H100 (by the host's
 pace), the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
 ``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
 with the eager runs it compares against, ``trainer_superstep_alone()``
-phase 14.
+phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -241,7 +261,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from progen_tpu_torch import kernels
-from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed
+from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed, make_mesh
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.prefetch import DevicePrefetcher
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
@@ -274,7 +294,11 @@ from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch import trace_main_path
+from progen_tpu_torch.parallel.sharding import full_tensor
+from progen_tpu_torch.train import memory as memory_module
 from progen_tpu_torch.train.loss import batch_loss
+from progen_tpu_torch.train.memory import device_hbm_bytes, serving_plan
+from progen_tpu_torch.train.memory import plan as memory_plan
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.schedule import make_lr_schedule
 from progen_tpu_torch.train.step import make_train_functions
@@ -3358,7 +3382,12 @@ def remat_checks(c=SMALL) -> dict:
 
     bf16 = {}
     batches = train_batches(c, TRAIN_BATCH, REMAT_TIMED_STEPS + 1, SEED + 23)
+    gc.collect()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
     model, initial = superstep_model(False)
+    # the copy of the initial parameters is the smoke's, not the step's
+    initial_bytes = sum(t.numel() * t.element_size() for t in initial.values())
     for policy in REMAT_POLICIES:
         model.remat, model.remat_policy = policy is not None, policy
         model.load_state_dict(initial)
@@ -3378,7 +3407,9 @@ def remat_checks(c=SMALL) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             per_step.append({k: v - prior[k] for k, v in read_counts().items()})
         want = remat_launch_formula(c, policy)
-        bf16[policy or "none"] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+        peak = torch.cuda.max_memory_allocated()
+        bf16[policy or "none"] = {"peak_bytes": peak,
+                                  "peak_above_start_bytes": peak - start - initial_bytes,
                                   "step_ms_median": float(np.median(step_ms)),
                                   "step_ms": step_ms, "launches_per_step": per_step[0],
                                   "formula": want}
@@ -3608,6 +3639,7 @@ HALO_CASES = (
     ((TRAIN_BATCH, 8, 1024, 128, 256), torch.float32, True),
 )
 PARALLEL_STEPS = 4        # the meshed Trainer's steps in each run
+PARALLEL_F32_DEPTH = 6    # the f32 runs' depth (ProGen-small's 12 before phase 16)
 PARALLEL_TOL_LOSS = {False: 1e-4,  # f32: the f32 train step's bar (TOL_TRAIN_LOSS)
                      True: 1e-2}   # bf16 compute: a mean over 8 x 1024 bf16 logits
 HALO_COUNTERS = ("local_attention_fwd_halo", "local_attention_bwd_dq_halo",
@@ -3796,6 +3828,21 @@ def meshed_trainer(c, root: Path, label: str, mixed_precision: bool = False,
             "dtype": "bf16 compute, f32 params" if mixed_precision else "f32"}
 
 
+def parallel_config(bf16: bool):
+    """ProGen-small for the bf16 runs, at PARALLEL_F32_DEPTH layers for the
+    f32 ones (K1 on its slow WMMA route: the phase's time)."""
+    return SMALL if bf16 else dataclasses.replace(SMALL, depth=PARALLEL_F32_DEPTH)
+
+
+def meshed_launches(c) -> dict:
+    """Each kernel's launches in one meshed train step of ``c``."""
+    per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
+                "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
+                "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth,
+                **dict.fromkeys(HALO_COUNTERS, c.depth)}
+    return {name: per_step.get(name, 0) for name in COUNTERS}
+
+
 # the meshed runs: label, strategy, bf16 compute; the f32 pair is held to
 # the f32 unmeshed run, the bf16 one to the bf16 unmeshed run
 MESHED_RUNS = (("dp", "dp", False), ("fsdp", "fsdp", False), ("fsdp_bf16", "fsdp", True))
@@ -3834,13 +3881,14 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
     unmeshed, meshed, by_precision = {}, {}, {}
     try:
         for bf16 in (False, True):
-            unmeshed[bf16] = meshed_trainer(c, root, f"unmeshed_{int(bf16)}", bf16)
+            unmeshed[bf16] = meshed_trainer(parallel_config(bf16), root,
+                                            f"unmeshed_{int(bf16)}", bf16)
         initialize_distributed("cuda")  # a world of one, NCCL
         for bf16 in (False, True):
             reset_counts()
             for label, strategy, run_bf16 in MESHED_RUNS:
                 if run_bf16 == bf16:
-                    meshed[label] = meshed_trainer(c, root, label, bf16,
+                    meshed[label] = meshed_trainer(parallel_config(bf16), root, label, bf16,
                                                    mesh=MeshConfig(-1, 1, 1, 1),
                                                    strategies=(strategy,))
             by_precision[bf16] = {"launches": read_counts(), "routes": read_routes()}
@@ -3849,15 +3897,11 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
             dist.destroy_process_group()
         signal.signal(signal.SIGTERM, sigterm)
         shutil.rmtree(root, ignore_errors=True)
-    per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
-                "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
-                "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth,
-                **dict.fromkeys(HALO_COUNTERS, c.depth)}
-    want = {name: per_step.get(name, 0) for name in COUNTERS}
     launches = {name: sum(p["launches"][name] for p in by_precision.values())
                 for name in COUNTERS}
     result = {"split_sequence": split, "launches": launches, "nvidia_smi": smi,
               "batch": TRAIN_BATCH, "seq_len": c.seq_len, "steps": PARALLEL_STEPS,
+              "depth": {"f32": PARALLEL_F32_DEPTH, "bf16": c.depth},
               "unmeshed": unmeshed[False], "unmeshed_bf16": unmeshed[True],
               "launches_by_precision": {("bf16" if bf16 else "f32"): p["launches"]
                                         for bf16, p in by_precision.items()}}
@@ -3871,6 +3915,7 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
                 and run["loss_rel_err"] <= PARALLEL_TOL_LOSS[bf16],
                 f"the meshed Trainer ({label}) lost {run['losses']}, the unmeshed one "
                 f"{base['losses']}")
+        want = meshed_launches(parallel_config(bf16))
         bad = [i for i, got in enumerate(run["per_step_launches"]) if got != want]
         require(not bad, f"meshed ({label}) steps {bad} launched other than {want}")
         require(run["saved_steps"] == [PARALLEL_STEPS],
@@ -3913,6 +3958,404 @@ def parallel_alone() -> dict:
     rows, result = parallel_phase(smi_name_power())
     emit("parallel", **parallel_summary(result))
     print(json.dumps({"kernels": rows}), flush=True)
+    return result
+
+
+# the trainer_mesh phase: the memory planner against the card, tensor
+# parallelism and the superstep on a world-1 mesh
+MEMORY_BIG_BATCH = 40          # ProGen-small, no remat: a peak above 40 GB
+MEMORY_OVER_BATCH = 96         # a plan over 80 GB, refused before any allocation
+# more (batch, policy) points: with batch 8 and MEMORY_BIG_BATCH, the
+# points the activation model's factors were fitted to (memory_fit_alone)
+MEMORY_FIT_BATCHES = ((16, None), (16, "full"), (16, "attn"), (16, "dots"), (48, "full"),
+                      (32, "attn"))
+TOL_MEMORY_PLAN = 0.05         # plan against the measured peak
+MESH_SUPERSTEP_STEPS = 8       # each superstep Trainer's steps (spans of 4, log 4)
+MESH_SUPERSTEP_DEPTH = 6       # their ProGen-small's layers (bf16 compute)
+# the tp runs: label, strategies, bf16 compute; each held to the unmeshed run
+# of its precision at the readings of phase 11's meshed runs
+TP_RUNS = (("fsdp_tp", ("fsdp", "tp"), False), ("dp_tp_sp", ("dp", "tp", "sp"), False),
+           ("fsdp_tp_bf16", ("fsdp", "tp"), True), ("dp_tp_sp_bf16", ("dp", "tp", "sp"), True))
+TP_TOL_LOSS = {False: 1.3e-6, True: 4.0e-4}   # phase 11's meshed f32 / bf16 readings
+
+
+def step_peak(c, batch: int, policy=None, steps: int = 2) -> dict:
+    """``steps`` eager bf16 train steps of a fresh model at ``batch``: the
+    peak of ``max_memory_allocated`` above the bytes live before the model
+    was built."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = ProGen(c, make_policy(True), device="cuda", seed=SEED,
+                   remat=policy is not None, remat_policy=policy or "full")
+    fns = make_train_functions(model, make_optimizer(TRAIN_LR))
+    state = fns.init_state()
+    for b in train_batches(c, batch, steps, SEED + 30):
+        state, m = fns.train_step(state, b)
+    float(m["loss"])
+    peak = torch.cuda.max_memory_allocated() - start
+    del model, fns, state, m
+    gc.collect()
+    return {"peak_above_start_bytes": peak}
+
+
+def memory_point(label: str, measured: int, **plan_kw) -> dict:
+    """One calibration point: the plan's total and terms beside the
+    measured peak above the start."""
+    p = memory_plan(SMALL, **plan_kw)
+    terms = {k: getattr(p, k) for k in (
+        "params_bytes", "moments_bytes", "accumulator_bytes", "grad_bytes",
+        "activation_bytes", "cast_bytes", "logits_bytes", "unshard_bytes",
+        "snapshot_bytes", "superbatch_bytes")}
+    return {"point": label, **{k: v for k, v in plan_kw.items()},
+            "measured_bytes": measured, "plan_bytes": p.total_bytes,
+            "plan_over_measured": p.total_bytes / measured, "terms": terms}
+
+
+def memory_calibration(remat: dict | None, root: Path, fit: bool = False) -> dict:
+    """(a) The plan against ``max_memory_allocated`` above the start: the
+    four remat policies at batch 8 (``trainer_superstep``'s peaks, or
+    measured here), no remat at MEMORY_BIG_BATCH, the Trainer with its
+    background checkpoint's snapshot and ``superstep=4``; a Trainer whose
+    plan is over the card refused before anything is allocated; the serving
+    plan against a paged engine's own state bytes.  ``fit``: also the
+    MEMORY_FIT_BATCHES points."""
+    c = SMALL
+    points = []
+    for policy in REMAT_POLICIES:
+        name = policy or "none"
+        measured = (remat["bf16"][name]["peak_above_start_bytes"] if remat is not None
+                    else step_peak(c, TRAIN_BATCH, policy)["peak_above_start_bytes"])
+        points.append(memory_point(f"batch 8, remat {name}", measured,
+                                   batch_size=TRAIN_BATCH, remat=policy is not None,
+                                   remat_policy=policy or "full"))
+    for batch, policy in ((MEMORY_BIG_BATCH, None), *(MEMORY_FIT_BATCHES if fit else ())):
+        points.append(memory_point(
+            f"batch {batch}, remat {policy or 'none'}",
+            step_peak(c, batch, policy)["peak_above_start_bytes"],
+            batch_size=batch, remat=policy is not None, remat_policy=policy or "full"))
+    # the Trainer: a background checkpoint at step 4 whose snapshot lives
+    # through the next span, superstep 4 (captured).  The span's replays
+    # run in the graph's private pool, which allocates nothing: the card
+    # holds the bytes allocated when the snapshot is made plus the pool's
+    # reserved bytes that no live tensor holds (the step's working set)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    at_snapshot = []
+    real_snapshot = trainer_module._snapshot
+
+    def snapshot(state):
+        out = real_snapshot(state)
+        torch.cuda.synchronize()
+        at_snapshot.append(torch.cuda.memory_allocated())
+        return out
+
+    never = 100
+    with mock.patch.object(trainer_module, "_snapshot", snapshot):
+        t, out, _, _ = superstep_trainer(c, root, "memory", 8, SUPERSTEP_K, count=False,
+                                         checkpoint_every=4, validate_every=never,
+                                         sample_every=never, log_every=4,
+                                         background_checkpoint=True)
+    peak_allocated = torch.cuda.max_memory_allocated() - start
+    pool = t.fns.captured_program()._graph.pool()
+    segments = [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool)]
+    pool_free = sum(seg["total_size"] - seg["allocated_size"] for seg in segments)
+    peak = max(peak_allocated, max(at_snapshot) - start + pool_free)
+    saved = [s for s in t.checkpoint_log if s.get("background")]
+    t.close()
+    del t, out
+    gc.collect()
+    shutil.rmtree(root / "ck_memory", ignore_errors=True)
+    points.append(memory_point("Trainer, snapshot, superstep 4", peak,
+                               batch_size=TRAIN_BATCH, checkpoint_snapshot=True,
+                               superstep_k=SUPERSTEP_K))
+    points[-1].update(background_saves=len(saved), peak_allocated_bytes=peak_allocated,
+                      allocated_at_snapshots=[b - start for b in at_snapshot],
+                      graph_pool_free_bytes=pool_free,
+                      graph_pool_reserved_bytes=sum(seg["total_size"] for seg in segments))
+    # a configuration over the card: refused before anything is allocated
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    refused = None
+    try:
+        Trainer(c, trainer_config(1, batch_size=MEMORY_OVER_BATCH), str(TRAINER_DATA),
+                str(root / "ck_over"), device="cuda")
+    except ValueError as e:
+        refused = str(e)
+    after = torch.cuda.memory_allocated()
+    over = memory_plan(c, batch_size=MEMORY_OVER_BATCH, checkpoint_snapshot=True)
+    refusal = {"batch": MEMORY_OVER_BATCH, "plan_bytes": over.total_bytes,
+               "card_bytes": device_hbm_bytes(), "refused": refused is not None,
+               "message_head": (refused or "").splitlines()[0] if refused else None,
+               "allocated_before": before, "allocated_after": after}
+    # the serving plan against a paged engine's state (no request run)
+    model = ProGen(c, make_policy(True), device="cuda", seed=SEED).eval()
+    engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                           paged=True, page_size=ENGINE_PAGE)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in graphs.flatten(engine.state)[0])
+    seq = engine.state["seq"]
+    sp = serving_plan(c, num_slots=ENGINE_SLOTS, max_len=engine.max_len, paged=True,
+                      page_size=ENGINE_PAGE, num_pages=engine._pool.num_pages)
+    scalars = state_bytes - sum(t.numel() * t.element_size() for t in (
+        *graphs.flatten(engine.state["caches"])[0], seq, engine.state["lmask"]))
+    serving = {"mode": "paged", "slots": ENGINE_SLOTS, "page": ENGINE_PAGE,
+               "state_bytes": state_bytes, "plan_bytes": sp.total_bytes,
+               "table_bytes_on_host": sp.table_bytes,
+               "seq_int64_extra_bytes": seq.numel() * (seq.element_size() - 4),
+               "slot_scalar_bytes": scalars,
+               "plan_vs_state_minus_int64_and_scalars": sp.total_bytes - sp.table_bytes
+               - (state_bytes - seq.numel() * (seq.element_size() - 4) - scalars),
+               "weight_bytes_full": sp.weight_bytes_full,
+               "engine_workloads_peak_bytes_pr10": 3_104_229_376}
+    engine.close()
+    del engine, model
+    gc.collect()
+    worst = max(abs(p["plan_over_measured"] - 1) for p in points)
+    return {"points": points, "worst_rel_err": worst, "tol": TOL_MEMORY_PLAN,
+            "over_card": refusal, "serving": serving,
+            "act_efficiency": dict(memory_module.ACT_EFFICIENCY)}
+
+
+def require_memory(mem: dict) -> None:
+    bad = [p for p in mem["points"] if abs(p["plan_over_measured"] - 1) > TOL_MEMORY_PLAN]
+    require(not bad, f"the memory plan is off the measured peak by more than "
+            f"{TOL_MEMORY_PLAN}: {[(p['point'], p['plan_over_measured']) for p in bad]}")
+    require(any(p["measured_bytes"] > 40e9 for p in mem["points"]),
+            "no calibration point above 40 GB")
+    over = mem["over_card"]
+    require(over["refused"] and over["allocated_after"] == over["allocated_before"],
+            f"the over-card Trainer was not refused before allocating: {over}")
+    require(mem["serving"]["plan_vs_state_minus_int64_and_scalars"] == 0,
+            f"the serving plan differs from the engine's state: {mem['serving']}")
+
+
+def mesh_trainer_params(trainer, out) -> dict:
+    """The final parameters of a (meshed) Trainer's run, whole."""
+    pieces = trainer._pieces
+    return {n: full_tensor(p.detach(), pieces(n)).clone()
+            for n, p in out["state"].params.items()}
+
+
+def mesh_superstep_runs(c, root: Path) -> dict:
+    """(c) On a world-1 mesh under ``dp`` and ``fsdp`` (bf16 compute,
+    ProGen-small at MESH_SUPERSTEP_DEPTH layers): the Trainer with
+    ``superstep=4`` against the per-step Trainer on the same mesh,
+    MESH_SUPERSTEP_STEPS steps logged every 4: the logged losses and grad
+    norms and every final parameter bit-equal; the spans and the route."""
+    never = 100
+    c = dataclasses.replace(c, depth=MESH_SUPERSTEP_DEPTH)
+    out = {}
+    for strategy in ("dp", "fsdp"):
+        runs = {}
+        for k in (1, SUPERSTEP_K):
+            label = f"mesh_{strategy}_{k}"
+            t, res, dispatches, rows = superstep_trainer(
+                c, root, label, MESH_SUPERSTEP_STEPS, k, checkpoint_every=never,
+                validate_every=never, sample_every=never, log_every=SUPERSTEP_K,
+                background_checkpoint=False, mesh=MeshConfig(-1, 1, 1, 1),
+                strategies=(strategy,))
+            runs[k] = {"params": mesh_trainer_params(t, res),
+                       "logged": [(r["step"], r["loss"], r["grad_norm"]) for r in rows
+                                  if "loss" in r],
+                       "spans": [d["span"] for d in dispatches],
+                       "route": t.fns.superstep_route}
+            t.close()
+            del t, res
+            gc.collect()
+            shutil.rmtree(root / f"ck_{label}", ignore_errors=True)
+        one, fused = runs[1], runs[SUPERSTEP_K]
+        differ = [n for n in one["params"] if not torch.equal(one["params"][n],
+                                                              fused["params"][n])]
+        out[strategy] = {"route": fused["route"], "spans": fused["spans"],
+                         "logged_per_step": one["logged"], "logged_superstep": fused["logged"],
+                         "params_differ": differ, "params": len(one["params"]),
+                         "bit_equal": not differ and one["logged"] == fused["logged"]}
+        emit("mesh_superstep", strategy=strategy, **{k: v for k, v in out[strategy].items()})
+        require(out[strategy]["bit_equal"],
+                f"the meshed superstep ({strategy}) differs from its per-step run: "
+                f"{out[strategy]}")
+        require(fused["spans"] == [SUPERSTEP_K] * (MESH_SUPERSTEP_STEPS // SUPERSTEP_K),
+                f"meshed superstep spans {fused['spans']}")
+        del runs
+    return out
+
+
+def halo_capture_checks(gen) -> list[dict]:
+    """K1-fwd, K1-dq and K1-dkv with a halo, each captured alone at the
+    training shape (bf16, batch 8) and replayed with new data, bit-equal to
+    eager launches."""
+    c, bf16 = SMALL, torch.bfloat16
+    wsz = c.window_size
+    q, k, v, do, kh, vh = halo_inputs(gen, TRAIN_BATCH, c.heads, c.seq_len, c.dim_head,
+                                      wsz, bf16)
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
+    dd = (do.float() * out.float()).sum(-1)
+
+    def refill(_):
+        for t in (q, k, v, do, kh, vh):
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(bf16))
+        o, new_lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
+        lse.copy_(new_lse)
+        dd.copy_((do.float() * o.float()).sum(-1))
+
+    return [
+        capture_replay_check("local_attention_fwd_halo", lambda: cuda_attention.
+                             local_attention_fwd(q, k, v, wsz, None, kh, vh), refill),
+        capture_replay_check("local_attention_bwd_dq_halo", lambda: cuda_attention.
+                             local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None, kh, vh),
+                             refill),
+        capture_replay_check("local_attention_bwd_dkv_halo", lambda: cuda_attention.
+                             local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz, None, kh, vh),
+                             refill),
+    ]
+
+
+def trainer_mesh_phase(smi: str, unmeshed: dict | None = None, remat: dict | None = None
+                       ) -> dict:
+    """Phase 16 (after ``parallel``): (a) the memory plan against the card
+    (:func:`memory_calibration`); (b) the Trainer on a world-1 NCCL mesh
+    under ``("fsdp", "tp")`` and ``("dp", "tp", "sp")``, f32 and bf16
+    compute, PARALLEL_STEPS steps, its losses against the unmeshed run of
+    its precision (``unmeshed``: the parallel phase's, else run here) at PR
+    11's meshed bars; (c) the superstep on the mesh under ``dp`` and
+    ``fsdp`` bit-equal to the per-step meshed run, the captured meshed step
+    traced against its eager step, and K1 with a halo captured alone.  The
+    launch counts are set to 0 just before (b) and read just after (c)'s
+    Trainers."""
+    t_phase = time.perf_counter()
+    c = SMALL
+    seconds = {}
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-mesh-"))
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        t0 = time.perf_counter()
+        mem = memory_calibration(remat, root)
+        seconds["memory"] = time.perf_counter() - t0
+        emit("memory_plan", nvidia_smi=smi, **mem)
+        require_memory(mem)
+        if unmeshed is None:
+            unmeshed = {bf16: meshed_trainer(parallel_config(bf16), root,
+                                             f"unmeshed_{int(bf16)}", bf16)
+                        for bf16 in (False, True)}
+        initialize_distributed("cuda")  # a world of one, NCCL
+        tp, by_precision = {}, {}
+        for precision in (False, True):  # the counts of each precision's runs
+            t0 = time.perf_counter()
+            reset_counts()
+            for label, strategies, bf16 in TP_RUNS:
+                if bf16 != precision:
+                    continue
+                run = meshed_trainer(parallel_config(bf16), root, label, bf16,
+                                     mesh=MeshConfig(-1, 1, 1, 1), strategies=strategies)
+                base = unmeshed[bf16]
+                run["loss_rel_err"] = max(abs(a - b) / abs(b)
+                                          for a, b in zip(run["losses"], base["losses"]))
+                run["loss_rel_bar"] = TP_TOL_LOSS[bf16]
+                run["unmeshed_step_ms_median"] = base["step_ms_median"]
+                tp[label] = run
+                require(len(run["losses"]) == PARALLEL_STEPS
+                        and run["loss_rel_err"] <= TP_TOL_LOSS[bf16],
+                        f"the tp Trainer ({label}) lost {run['losses']}, the unmeshed one "
+                        f"{base['losses']}")
+                want = meshed_launches(parallel_config(bf16))
+                require(all(got == want for got in run["per_step_launches"]),
+                        f"the tp Trainer ({label}) launched other than {want} a step")
+                # the meshed Trainer's peak: one more calibration point
+                run["plan_bytes"] = memory_plan(
+                    parallel_config(bf16), batch_size=TRAIN_BATCH,
+                    mesh_shape=dict.fromkeys(("data", "fsdp", "tensor", "seq"), 1),
+                    strategies=strategies, mixed_precision=bf16).total_bytes
+                run["plan_over_measured"] = run["plan_bytes"] / run["peak_above_start_bytes"]
+                require(abs(run["plan_over_measured"] - 1) <= TOL_MEMORY_PLAN,
+                        f"the plan of the tp Trainer ({label}) is off its peak: "
+                        f"{run['plan_bytes']} against {run['peak_above_start_bytes']}")
+            seconds[f"tp_{'bf16' if precision else 'f32'}"] = time.perf_counter() - t0
+            if precision:
+                t0 = time.perf_counter()
+                superstep = mesh_superstep_runs(c, root)
+                seconds["superstep"] = time.perf_counter() - t0
+            by_precision[precision] = {"launches": read_counts(), "routes": read_routes()}
+        launches = {name: sum(p["launches"][name] for p in by_precision.values())
+                    for name in COUNTERS}
+        t0 = time.perf_counter()
+        traced = {}
+        for strategy in ("fsdp",):  # FSDP2's host work: what the capture removes
+            mesh = make_mesh(MeshConfig(-1, 1, 1, 1), "cuda")
+            traced[strategy] = trace_main_path._trace_train(
+                torch.device("cuda"), c, True, mesh, (strategy,),
+                label=f"train_step_bf16_{strategy}_world1", superstep=SUPERSTEP_TRACED_STEPS,
+                repeats=SUPERSTEP_TRACES)
+            gc.collect()
+            torch.cuda.empty_cache()
+        seconds["traced"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        signal.signal(signal.SIGTERM, sigterm)
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    halo_checks = halo_capture_checks(torch.Generator(device="cuda").manual_seed(SEED + 31))
+    seconds["halo_capture"] = time.perf_counter() - t0
+    require(all(launches[name] > 0 for name in COUNTERS
+                if not name.startswith("paged_gate_mix")),
+            f"trainer_mesh did not launch every training kernel: {launches}")
+    for precision, p in by_precision.items():
+        require_forward_routes(p["routes"], p["launches"], precision,
+                               f"trainer_mesh ({'bf16' if precision else 'f32'})")
+    result = {"config": "small", "batch": TRAIN_BATCH, "memory": mem, "tp": tp,
+              "superstep": superstep, "traced": traced, "halo_capture_checks": halo_checks,
+              "launches": launches, "nvidia_smi": smi,
+              "launches_by_precision": {("bf16" if k else "f32"): p["launches"]
+                                        for k, p in by_precision.items()},
+              "seconds": time.perf_counter() - t_phase, "seconds_by_part": seconds}
+    return result
+
+
+def trainer_mesh_summary(result: dict) -> dict:
+    """The phase's result without the per-step launch lists and traces'
+    detail."""
+    tp = {label: {k: v for k, v in run.items() if k != "per_step_launches"}
+          for label, run in result["tp"].items()}
+    traced = {s: [{k: r[k] for k in ("dispatch", "per_step_wall_ms", "per_step_device_busy_ms",
+                                     "idle_share", "per_step_device_launches",
+                                     "per_step_host_launches", "event_span_ms", "steps")
+                   if k in r} for r in rows]
+              for s, rows in result["traced"].items()}
+    return {**{k: v for k, v in result.items() if k not in ("tp", "traced")},
+            "tp": tp, "traced": traced}
+
+
+def memory_fit_alone() -> dict:
+    """The memory calibration of phase 16 with the points the activation
+    model's factors were fitted to (MEMORY_FIT_BATCHES), measured here:
+    ``python3 -c "import chip_smoke as cs; cs.memory_fit_alone()"``."""
+    emit("build", per_source=kernels.build())
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-memory-"))
+    try:
+        mem = memory_calibration(None, root, fit=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("memory_plan", nvidia_smi=smi_name_power(), **mem)
+    require_memory(mem)
+    return mem
+
+
+def trainer_mesh_alone() -> dict:
+    """Phase 16 on its own, with the build and its own unmeshed runs:
+    ``python3 -c "import chip_smoke as cs; cs.trainer_mesh_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    result = trainer_mesh_phase(smi_name_power())
+    emit("trainer_mesh", **trainer_mesh_summary(result))
     return result
 
 
@@ -4006,6 +4449,11 @@ def main() -> int:
     gc.collect()
     halo_kernel_rows, parallel = parallel_phase(smi)
     emit("parallel", config="small", **parallel_summary(parallel))
+    gc.collect()
+    mesh = trainer_mesh_phase(smi, unmeshed={False: parallel["unmeshed"],
+                                             True: parallel["unmeshed_bf16"]},
+                              remat=superstep["remat"])
+    emit("trainer_mesh", **trainer_mesh_summary(mesh))
 
     for row in rows:
         by_path = {"serve": served["launches"][row["name"]],
@@ -4014,6 +4462,7 @@ def main() -> int:
                    "trainer_superstep": superstep["launches"][row["name"]],
                    "lora_train": lora["launches"][row["name"]],
                    "parallel": parallel["launches"][row["name"]],
+                   "trainer_mesh": mesh["launches"][row["name"]],
                    **{phase: counts[row["name"]]
                       for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())
@@ -4023,6 +4472,12 @@ def main() -> int:
                 route: sum(counts["paged_gate_mix_by_route"][route]
                            for counts in engine_launches.values() if counts[row["name"]])
                 for route in cuda_paged_gate_mix.route_launches}
+    for row in halo_kernel_rows:
+        counter = row["name"].removesuffix(HALO_ROW_SUFFIX[torch.float32])
+        bf16 = counter == row["name"]
+        row["launches_by_path"]["trainer_mesh"] = (
+            mesh["launches_by_precision"]["bf16" if bf16 else "f32"][counter])
+        row["launches"] = sum(row["launches_by_path"].values())
     rows += halo_kernel_rows
     print(json.dumps({"kernels": rows}), flush=True)
     emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (

@@ -215,11 +215,12 @@ class CheckpointStore:
 
         return self._restore(step, "ckpt.restore_params", load)
 
-    def restore_state(self, state: Any, step: int | None = None):
+    def restore_state(self, state: Any, step: int | None = None, pieces=None):
         """The full train state, copied IN PLACE into ``state``'s tensors (a
         ``TrainState`` whose params are the live model's), on their device;
         returns the restored ``TrainState`` at the stored step, or None for
-        an empty store."""
+        an empty store.  ``pieces(name)``: the packed pieces of a parameter
+        sharded over a tensor axis (``parallel/sharding.py``)."""
         device = next(iter(state.params.values())).device
 
         def load(d: Path):
@@ -233,9 +234,9 @@ class CheckpointStore:
         if out is None:
             return None
         params, opt_state, meta = out
-        copy_into(state.params, params, "params")
+        copy_into(state.params, params, "params", pieces)
         return TrainState(step=int(meta["train_step"]), params=state.params,
-                          opt_state=state.opt_state.load_state_dict(opt_state))
+                          opt_state=state.opt_state.load_state_dict(opt_state, pieces))
 
     def close(self) -> None:
         """Nothing to release: every write has committed when ``save``

@@ -6,8 +6,8 @@ ranks with four named dims
 
 * ``data`` -- data parallelism (batch split, parameters replicated);
 * ``fsdp`` -- batch split and parameters sharded (FSDP2, ZeRO-3 style);
-* ``tensor`` -- tensor parallelism, not ported: a mesh with ``tensor > 1``
-  is refused (``ROADMAP.md``, Queue 1);
+* ``tensor`` -- tensor parallelism (megatron-style): the heads and mlp
+  channels split over ranks (``parallel/tensor.py``);
 * ``seq`` -- sequence (context) parallelism: activations split along L, the
   windowed attention's halo and the SGU's gather (``parallel/context.py``).
 
@@ -28,8 +28,6 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 MESH_AXES = ("data", "fsdp", "tensor", "seq")
-TP_REFUSED = ("tensor parallelism (a mesh tensor axis > 1, strategy 'tp') is not "
-              "ported yet; see ROADMAP.md, Queue 1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,11 +136,7 @@ def make_mesh(config: MeshConfig | None = None,
         raise RuntimeError("make_mesh needs a process group: call "
                            "initialize_distributed() first")
     config = config or MeshConfig()
-    if config.tensor > 1:
-        raise ValueError(TP_REFUSED)
     sizes = config.resolve(dist.get_world_size())
-    if sizes[2] > 1:
-        raise ValueError(TP_REFUSED)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, sizes, mesh_dim_names=MESH_AXES)

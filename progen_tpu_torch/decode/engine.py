@@ -208,9 +208,9 @@ _MAX_DEFER_STREAK = 16
 _NOT_PORTED = {
     "remote_prefill": "remote prefill over the handoff's wire format "
                       "(ROADMAP.md Queue 1, the multi-process fleet)",
-    "mesh": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
-    "strategies": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
-    "params_shardings": "meshes and tensor parallelism (ROADMAP.md Queue 1, engine modes: mesh)",
+    "mesh": "an engine per rank, fed in lockstep (ROADMAP.md Queue 1, the multi-process fleet)",
+    "strategies": "an engine per rank, fed in lockstep (ROADMAP.md Queue 1, the multi-process fleet)",
+    "params_shardings": "an engine per rank, fed in lockstep (ROADMAP.md Queue 1, the multi-process fleet)",
     "paged_impl": "an impl switch: the port has none, a CUDA tensor always "
                   "takes the hand-written kernel (PERF.md, the dropped degrade path)",
 }

@@ -30,7 +30,16 @@ attention through ``parallel/context.sharded_local_attention`` (the K1 kernels
 with a halo, under every mesh), the SGU through ``cp_spatial_gate`` when the
 sequence is split over ``seq`` and ``sharded_spatial_gate`` otherwise.  A
 sequence split also needs what JAX's GSPMD gives for free: the token shift's
-row from the left neighbour and rotary at global positions.
+row from the left neighbour and rotary at global positions.  Under ``tp``
+(the mesh's ``tensor`` dim) each rank runs its heads and its mlp channels
+(``parallel/tensor.py``): the attention and the feed-forward block enter
+their column-parallel projections through ``copy_to``, their row-parallel
+output projections (``to_out``, ``ff.proj_out``) sum over the tensor ranks
+before the bias is added once, the SGU's LayerNorm takes its statistics over
+every rank's gate channels, the spatial mix (K2) runs on the rank's
+channels, and the gated product is gathered before ``sgu.proj_out``, which
+reads every channel.  K1 and K2 run on the rank's heads and channels, each a
+contiguous tensor.
 
 ``remat=True`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant, no RNG stash: the forward draws
@@ -92,8 +101,8 @@ from progen_tpu_torch.ops import cuda_attention, cuda_sgu
 from progen_tpu_torch.ops.quant import int8_matmul
 from progen_tpu_torch.ops.rotary import apply_rotary_pos_emb, fixed_pos_embedding
 from progen_tpu_torch.ops.shift import shift_split, shift_tokens
-from progen_tpu_torch.parallel import context
-from progen_tpu_torch.parallel.sharding import load_full
+from progen_tpu_torch.parallel import context, tensor
+from progen_tpu_torch.parallel.sharding import load_full, local
 
 # kwargs the reference accepts but never reads, plus CLI-level kwargs
 _IGNORED_CONFIG_KEYS = ("clamp_gate", "attn_dim", "mixed_precision")
@@ -184,17 +193,38 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(
             torch.ones(dim, dtype=policy.param_dtype, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None, channels: slice | None = None
+                ) -> torch.Tensor:
+        """``group``: ``x`` holds this rank's ``channels`` of the normed
+        width, split over a tensor group; the statistics are then taken
+        over every rank's channels and the rank's part of the scale is
+        used."""
         xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + _NORM_EPS) * self.scale.float()
+        scale = self.scale
+        if group is None:
+            mean = xf.mean(-1, keepdim=True)
+            var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        else:
+            sums = tensor.sum_over(torch.cat(
+                (xf.sum(-1, keepdim=True), (xf * xf).sum(-1, keepdim=True)), -1), group)
+            sums = sums / scale.shape[0]
+            mean, var = sums[..., :1], (sums[..., 1:] - sums[..., :1] ** 2).clamp_min(0.0)
+            scale = tensor.copy_to(scale, group)[channels]
+        mul = torch.rsqrt(var + _NORM_EPS) * scale.float()
         return ((xf - mean) * mul).to(self.compute_dtype)
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` computing in the compute dtype, bias added after the
-    product's rounding, as flax's ``Dense(dtype=...)`` does."""
+    product's rounding, as flax's ``Dense(dtype=...)`` does.
+
+    ``packed``: how many equal pieces its output is made of (``[q|k|v]``,
+    ``[x|gate]``), which tensor parallelism keeps together per rank
+    (``parallel/sharding.py``).  Under ``tp`` the weight is a rank's part
+    (its local shard); ``reduce_group`` makes it row-parallel: the partial
+    products are summed over the group before the bias is added."""
+
+    packed = 1
 
     def __init__(self, din: int, dout: int, *, bias: bool, policy: Policy,
                  device=None):
@@ -202,10 +232,10 @@ class Dense(nn.Linear):
                          dtype=policy.param_dtype)
         self.compute_dtype = policy.compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reduce_group=None) -> torch.Tensor:
         cd = self.compute_dtype
-        y = F.linear(x.to(cd), self.weight.to(cd))
-        return y if self.bias is None else y + self.bias.to(cd)
+        y = tensor.reduce_from(F.linear(x.to(cd), local(self.weight).to(cd)), reduce_group)
+        return y if self.bias is None else y + local(self.bias).to(cd)
 
 
 class QuantDense(nn.Module):
@@ -226,7 +256,9 @@ class QuantDense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(
             dout, dtype=policy.param_dtype, device=device)) if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reduce_group=None) -> torch.Tensor:
+        if reduce_group is not None:
+            raise ValueError("int8 serving weights are not sharded over a tensor axis")
         cd = self.compute_dtype
         y = int8_matmul(x.to(cd), self.weight.T, self.weight_scale).to(cd)
         return y if self.bias is None else y + self.bias.to(cd)
@@ -274,6 +306,7 @@ class LocalAttention(nn.Module):
         self.norm = LayerNorm(c.dim, policy, device=device)
         self.to_qkv = _dense(c.dim, 3 * inner, bias=False, policy=policy,
                              device=device, weights=weights)
+        self.to_qkv.packed = 3  # [q|k|v]
         self.to_out = _dense(inner, c.dim, bias=True, policy=policy,
                              device=device, weights=weights)
 
@@ -292,18 +325,21 @@ class LocalAttention(nn.Module):
         else:
             out = cuda_attention.local_attention(q, k, v, self.window_size, d ** -0.5)
         if remat == "attn":
-            return remat_call(self._out, out, adapters, tenant)
-        return self._out(out, adapters, tenant)
+            return remat_call(self._out, out, adapters, tenant, mesh)
+        return self._out(out, adapters, tenant, mesh)
 
     def _qkv(self, x, sin, cos, cache, adapters, tenant, mesh):
-        """The post-rotary q, k, v, each ``(B, H, L, Dh)`` contiguous."""
+        """The post-rotary q, k, v of this rank's heads, each ``(B, H, L,
+        Dh)`` contiguous."""
         b, n, _ = x.shape
-        h, d = self.heads, self.dim_head
+        ranks, group = tensor.tensor_split(mesh)
+        h, d = self.heads // ranks, self.dim_head
         x = self.norm(x)
         if cache is not None:
             cache["prev"] = x  # post-norm PRE-shift: the decode shift carry
         if self.shift:
             x = _shift(x, mesh)
+        x = tensor.copy_to(x, group)
         qkv = self.to_qkv(x)
         if adapters is not None:  # the delta reads the SHIFTED input
             qkv = apply_lora(qkv, x, adapters["qkv"], tenant)
@@ -317,11 +353,12 @@ class LocalAttention(nn.Module):
             cache["v"] = v
         return q, k, v
 
-    def _out(self, out, adapters, tenant):
-        """The output projection of the attention's ``(B, H, L, Dh)``."""
+    def _out(self, out, adapters, tenant, mesh=None):
+        """The output projection of the attention's ``(B, H, L, Dh)`` (a
+        rank's heads under ``tp``: row-parallel)."""
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)
-        y = self.to_out(out)
+        y = self.to_out(out, reduce_group=tensor.tensor_split(mesh)[1])
         if adapters is not None:
             y = apply_lora(y, out, adapters["out"], tenant)
         return y
@@ -355,28 +392,33 @@ class SGU(nn.Module):
 
     def forward(self, x, cache: dict | None = None, adapters: dict | None = None,
                 tenant=None, mesh=None):
-        """``adapters`` is this SGU's one site, ``{"a", "b"}``."""
+        """``adapters`` is this SGU's one site, ``{"a", "b"}``.  Under
+        ``tp`` ``x`` holds this rank's ``[res|gate]`` channels."""
         res, gate = x.chunk(2, dim=-1)
-        gate = self.norm(gate)
+        _, group = tensor.tensor_split(mesh)
+        gate = self.norm(gate, group, tensor.rank_slice(self.norm.scale.shape[0], mesh))
         if cache is not None:
             cache["gate"] = gate  # normed gate rows: the decode gate cache
         n = gate.shape[-2]
         cd = self.compute_dtype
         slices, me = seq_split(mesh)
         if slices > 1:
-            x = res * context.cp_spatial_gate(gate, *self._rows(n, slices, me, cd),
-                                              mesh=mesh)
+            w, b = (tensor.copy_to(t, group) for t in self._rows(n, slices, me, cd))
+            x = res * context.cp_spatial_gate(gate, w, b, mesh=mesh)
         else:
             # an input shorter than seq_len (a prefill) uses the leading L
             # rows and columns: exact, since row m only reads columns <= m < L
-            w = self.spatial_weights[:n, :n]
+            # under sp with one seq rank the weights are a DTensor of one shard
+            w = tensor.copy_to(local(self.spatial_weights), group)[:n, :n]
             if self.spatial_weights_scale is not None:
                 w = w.float() * self.spatial_weights_scale[:n, None]
             w = w.to(cd).contiguous()
-            b = self.spatial_biases[:n].to(cd).contiguous()
+            b = tensor.copy_to(local(self.spatial_biases), group)[:n].to(cd).contiguous()
             mix = cuda_sgu.gated_mix if mesh is None else functools.partial(
                 context.sharded_spatial_gate, mesh=mesh)
             x = mix(res.contiguous(), gate.contiguous(), w, b)
+        # sgu.proj_out reads every channel: a rank's are gathered
+        x = tensor.gather_from(x, group)
         y = self.proj_out(x)
         if adapters is not None:  # the delta reads the gated mix
             y = apply_lora(y, x, adapters, tenant)
@@ -413,6 +455,8 @@ class FeedForward(nn.Module):
         self.norm = LayerNorm(c.dim, policy, device=device)
         self.proj_in = _dense(c.dim, hidden, bias=True, policy=policy,
                               device=device, weights=weights)
+        if self.glu or use_sgu:
+            self.proj_in.packed = 2  # [x|gate], [res|gate]
         self.sgu = (SGU(c.seq_len, hidden // 2, policy, device=device,
                         weights=weights) if use_sgu else None)
         # GLU and the SGU each halve the hidden width
@@ -427,7 +471,8 @@ class FeedForward(nn.Module):
             cache["prev"] = x
         if self.shift:
             x = _shift(x, mesh)
-        x = self.proj_in(x)
+        _, group = tensor.tensor_split(mesh)
+        x = self.proj_in(tensor.copy_to(x, group))
         if self.glu:
             x, gate = x.chunk(2, dim=-1)
             x = x * F.gelu(gate, approximate="tanh")
@@ -439,7 +484,7 @@ class FeedForward(nn.Module):
                 sub = cache["sgu"] = {}
             x = self.sgu(x, sub, None if adapters is None else adapters["sgu"],
                          tenant, mesh)
-        return self.proj_out(x)
+        return self.proj_out(x, reduce_group=group)
 
 
 class ProGen(nn.Module):
@@ -502,7 +547,7 @@ class ProGen(nn.Module):
                 w = torch.empty(module.weight.shape)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=gen)
-                load_full(module.weight, w)
+                load_full(module.weight, w, module.packed)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, SGU):
@@ -550,6 +595,8 @@ class ProGen(nn.Module):
         cfg = self.config
         if adapters is not None and tenant is None:
             raise ValueError("adapters require a (B,) tenant-id tensor")
+        if adapters is not None and tensor.tensor_split(self.mesh)[0] > 1:
+            raise ValueError("LoRA adapters are not sharded over a tensor axis")
         if tokens.dim() != 2:
             raise ValueError(
                 f"ProGen takes batched (B, L) int tokens, got shape "

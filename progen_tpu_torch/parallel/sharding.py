@@ -14,15 +14,30 @@ per parameter (:data:`PARAM_AXES`) and carries them out itself:
   each parameter on the dim the table names (``embed``, ``vocab``,
   ``spatial_row``, ``mlp_in``; dim 0 where it names none, since FSDP2 shards
   every parameter it manages);
+* ``tp`` -- the ``qkv`` and ``mlp`` dims over ``tensor``, as ``DTensor``
+  parameters on the mesh's ``tensor`` dim: ``to_qkv`` and ``ff.proj_in``
+  column-parallel, ``attn.to_out`` and ``ff.proj_out`` row-parallel,
+  ``sgu.proj_out`` ``("mlp_in", "mlp")`` (its output channels); the model
+  runs each rank's heads and channels with the collectives of
+  ``parallel/tensor.py``.  Composed with ``fsdp`` FSDP2 shards each rank's
+  part further (2-D sharding);
 * ``sp`` -- activations split along the sequence over ``seq`` (the model's
   own business, ``models/progen.py``); the SGU's spatial weights and biases
   row-sharded over ``seq``, as ``DTensor`` parameters.  ``sp`` is merged
   first, so ``spatial_row -> seq`` beats ``fsdp``'s ``spatial_row -> fsdp``.
 
-``tp`` stays a table (``logical_rules`` reads it) but is refused as a
-placement, naming ``ROADMAP.md``.  Every rank builds the model with the same
-full values (the same seed, or the same converted parameters) BEFORE
-:func:`parallelize` shards it.
+**Packed projections under ``tp``.**  ``to_qkv``'s output is ``[q|k|v]``
+and a GEGLU's or an SGU layer's ``proj_in`` output ``[x|gate]``
+(``[res|gate]``): a contiguous split of such a dim would give rank 0 all of
+q and half of k.  So a packed parameter is held on the device in a
+rank-grouped layout, ``[q_0|k_0|v_0|q_1|k_1|v_1|...]``, whose contiguous
+shards are each rank's matching pieces (``Dense.packed`` names the pieces).
+:func:`full_tensor` and :func:`load_full` take the pieces and undo or make
+that layout, so a checkpoint keeps the store's one layout and restores at
+any world size and without a mesh.
+
+Every rank builds the model with the same full values (the same seed, or the
+same converted parameters) BEFORE :func:`parallelize` shards it.
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
-from progen_tpu_torch.core.mesh import MESH_AXES, TP_REFUSED, mesh_sizes, process_batch_shards
+from progen_tpu_torch.core.mesh import MESH_AXES, mesh_sizes, process_batch_shards
 
 # Each rule set: logical axis -> mesh axis (or tuple of mesh axes, or None).
 RULE_SETS: dict[str, list[tuple[str, Any]]] = {
@@ -63,7 +78,7 @@ RULE_SETS: dict[str, list[tuple[str, Any]]] = {
         ("spatial_row", "seq"),
     ],
 }
-STRATEGIES = ("dp", "fsdp", "sp")  # the ones the port places
+STRATEGIES = ("dp", "fsdp", "tp", "sp")  # the ones the port places
 
 
 def logical_rules(strategies: Sequence[str] = ("dp",)) -> list[tuple[str, Any]]:
@@ -187,12 +202,15 @@ def param_placements(name: str, mesh: DeviceMesh, strategies: Sequence[str]) -> 
 @dataclasses.dataclass
 class ParallelPlan:
     """What :func:`parallelize` did to a model: its mesh and strategies,
-    the parameters FSDP2 manages and the ones sharded over ``seq``."""
+    the parameters FSDP2 manages, the ones sharded over ``seq``, and the
+    pieces of each packed parameter sharded over ``tensor``
+    (``{name: pieces}``)."""
 
     mesh: DeviceMesh
     strategies: tuple[str, ...]
     fsdp_params: frozenset[str]
     seq_params: frozenset[str]
+    packed: dict = dataclasses.field(default_factory=dict)
 
     def size(self, axis: str) -> int:
         return mesh_sizes(self.mesh)[axis]
@@ -200,16 +218,25 @@ class ParallelPlan:
     def group(self, axis: str):
         return self.mesh.get_group(axis)
 
+    def pieces(self, name: str) -> int:
+        """The packed pieces of parameter (or gradient, moment) ``name``."""
+        return self.packed.get(name, 1)
+
 
 def check_strategies(strategies: Sequence[str], mesh: DeviceMesh) -> tuple[str, ...]:
-    """The strategies as a tuple; ``tp``, a tensor axis and names the port
-    does not know raise."""
+    """The strategies as a tuple; names the port does not know raise, and
+    so does a tensor axis > 1 without ``tp`` (its ranks would replicate
+    work, as the JAX Trainer says)."""
     strategies = tuple(strategies)
-    if "tp" in strategies or mesh_sizes(mesh)["tensor"] > 1:
-        raise ValueError(TP_REFUSED)
     unknown = [s for s in strategies if s not in STRATEGIES]
     if unknown:
         raise ValueError(f"unknown strategies {unknown}; the port places {STRATEGIES}")
+    tensor = mesh_sizes(mesh)["tensor"]
+    if tensor > 1 and "tp" not in strategies:
+        raise ValueError(
+            f"mesh has tensor axis {tensor} but 'tp' is not in strategies "
+            f"{strategies} — the tensor devices would replicate work; add 'tp' "
+            "or set MeshConfig(tensor=1)")
     return strategies
 
 
@@ -225,23 +252,34 @@ def _fsdp_dim(placement, param: torch.Tensor, shards: int) -> Shard:
 def parallelize(model: torch.nn.Module, mesh: DeviceMesh,
                 strategies: Sequence[str] = ("dp",)) -> ParallelPlan:
     """Place ``model``'s parameters on ``mesh`` under ``strategies``, in
-    place, and hand the model the mesh (its sequence mixing then runs
-    through ``parallel/context.py``).  Every rank must hold the same full
-    values first."""
+    place, and hand the model the mesh (its sequence mixing and, under
+    ``tp``, its heads and channels then run through ``parallel/context.py``
+    and ``parallel/tensor.py``).  Every rank must hold the same full values
+    first."""
     from torch.distributed.fsdp import fully_shard
 
     strategies = check_strategies(strategies, mesh)
     seq_at, fsdp_at = MESH_AXES.index("seq"), MESH_AXES.index("fsdp")
+    tensor_at = MESH_AXES.index("tensor")
     placements = {n: param_placements(n, mesh, strategies)
                   for n, _ in model.named_parameters()}
     seq_params: set[str] = set()
+    packed: dict[str, int] = {}
     for module_name, module in list(model.named_modules()):
         for attr, p in list(module.named_parameters(recurse=False)):
             name = f"{module_name}.{attr}" if module_name else attr
             if placements[name][seq_at].is_shard():  # sp's spatial_row -> seq
                 seq_params.add(name)
                 sharded = distribute_tensor(p.data, mesh["seq"], [placements[name][seq_at]])
-                setattr(module, attr, torch.nn.Parameter(sharded))
+            elif placements[name][tensor_at].is_shard():  # tp's qkv, mlp -> tensor
+                pieces = getattr(module, "packed", 1)
+                if pieces > 1:
+                    packed[name] = pieces
+                full = regroup(p.data, pieces, mesh_sizes(mesh)["tensor"])
+                sharded = distribute_tensor(full, mesh["tensor"], [placements[name][tensor_at]])
+            else:
+                continue
+            setattr(module, attr, torch.nn.Parameter(sharded))
     fsdp_params: set[str] = set()
     if "fsdp" in strategies:
         shards = mesh_sizes(mesh)["fsdp"]
@@ -255,9 +293,33 @@ def parallelize(model: torch.nn.Module, mesh: DeviceMesh,
         fully_shard(model, **kwargs)
         fsdp_params = {n for n in by_id.values() if n not in seq_params}
     model.mesh = mesh
-    plan = ParallelPlan(mesh, strategies, frozenset(fsdp_params), frozenset(seq_params))
+    plan = ParallelPlan(mesh, strategies, frozenset(fsdp_params), frozenset(seq_params),
+                        packed)
     model.parallel_plan = plan
     return plan
+
+
+def regroup(t: torch.Tensor, pieces: int, parts: int, inverse: bool = False) -> torch.Tensor:
+    """``t`` packed as ``pieces`` equal pieces along dim 0 (``[q|k|v]``),
+    reordered into ``parts`` rank groups, ``[q_0|k_0|v_0|q_1|...]``, whose
+    contiguous ``parts``-way split gives each rank its matching pieces;
+    ``inverse`` undoes it.  The identity for one piece or one part."""
+    if pieces == 1 or parts == 1:
+        return t
+    rows = t.shape[0] // (pieces * parts)
+    outer = (parts, pieces) if inverse else (pieces, parts)
+    return t.reshape(*outer, rows, *t.shape[1:]).transpose(0, 1).reshape(t.shape)
+
+
+def _tensor_parts(t: torch.Tensor) -> int:
+    """How many ways a DTensor is sharded over the mesh's ``tensor`` dim."""
+    if not isinstance(t, DTensor):
+        return 1
+    names = t.device_mesh.mesh_dim_names or ()
+    if "tensor" not in names:
+        return 1
+    at = names.index("tensor")
+    return t.device_mesh.size(at) if t.placements[at].is_shard() else 1
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -324,11 +386,14 @@ def batch_mean(t: torch.Tensor, plan: ParallelPlan) -> torch.Tensor:
 
 
 def sharded_dims(t: torch.Tensor) -> tuple[str, ...]:
-    """The mesh axes a DTensor is sharded over (none for a plain tensor)."""
+    """The mesh axes a DTensor is sharded over (none for a plain tensor);
+    FSDP2's strided shard of a tensor-sharded dim counts (it answers False
+    to ``is_shard()``)."""
     if not isinstance(t, DTensor):
         return ()
     names = t.device_mesh.mesh_dim_names
-    return tuple(n for n, pl in zip(names, t.placements) if pl.is_shard())
+    return tuple(n for n, pl in zip(names, t.placements)
+                 if not (pl.is_replicate() or pl.is_partial()))
 
 
 def global_sum_of_squares(tensors: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -352,18 +417,24 @@ def _mesh_of(t: torch.Tensor):
     return t.device_mesh if isinstance(t, DTensor) else None
 
 
-def full_tensor(t: torch.Tensor) -> torch.Tensor:
+def full_tensor(t: torch.Tensor, pieces: int = 1) -> torch.Tensor:
     """The whole value of ``t`` on every rank (a collective for a DTensor:
-    every rank must call it, in the same order)."""
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    every rank must call it, in the same order), in the store's layout:
+    a packed tensor's ``pieces`` (:attr:`ParallelPlan.packed`) are put back
+    in order."""
+    if not isinstance(t, DTensor):
+        return t
+    return regroup(t.full_tensor(), pieces, _tensor_parts(t), inverse=True)
 
 
 @torch.no_grad()
-def load_full(dst: torch.Tensor, full: torch.Tensor) -> None:
-    """Copy the whole value ``full`` into ``dst``, a DTensor's local shard
-    taking its own part."""
+def load_full(dst: torch.Tensor, full: torch.Tensor, pieces: int = 1) -> None:
+    """Copy the whole value ``full`` (the store's layout) into ``dst``, a
+    DTensor's local shard taking its own part (a packed one in its rank's
+    layout)."""
     if isinstance(dst, DTensor):
-        part = distribute_tensor(full.to(dst.device), dst.device_mesh, dst.placements)
+        full = regroup(full.to(dst.device), pieces, _tensor_parts(dst))
+        part = distribute_tensor(full, dst.device_mesh, dst.placements)
         local(dst).copy_(local(part))
     else:
         dst.copy_(full)

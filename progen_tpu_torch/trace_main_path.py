@@ -22,7 +22,9 @@ prefill and the decode steps; ``engine``: the three engine chunks;
 the identity draft and paged with a ``draft_config_for`` draft, per round
 and per emitted token beside the per-step numbers; ``train``: the train
 step; ``mesh``: the train step without a mesh and on a mesh of one rank
-under ``dp`` and ``fsdp``, in f32 and in bf16 compute), all but ``spec`` and ``mesh`` by default.
+under each set of ``--strategies`` (``dp`` and ``fsdp`` by default; ``tp``,
+``fsdp,tp``, ``dp,tp,sp`` ...), in f32 and in bf16 compute), all but
+``spec`` and ``mesh`` by default.
 With ``--aot_warmup`` each engine chunk is traced twice, eager and then
 warmed (``ServingEngine.aot_warmup``: the chunk one captured CUDA graph,
 replayed), each line with ``host_launches``: the CUDA runtime calls the
@@ -32,11 +34,14 @@ also has ``event_span_ms``, the stream's span between CUDA events around a
 bare run (the device's busy and idle time together).
 With ``--superstep K`` the train step is traced twice, eager and then
 captured (``train_multi_step``: one captured optimizer step replayed K
-times a traced run), each line per optimizer step.
+times a traced run), each line per optimizer step; under ``mesh`` the
+meshed step too (its collectives inside the graph).
 Needs a GPU.
 
     python -m progen_tpu_torch.trace_main_path --phases engine spec --aot_warmup
     python -m progen_tpu_torch.trace_main_path --phases train --superstep 4
+    python -m progen_tpu_torch.trace_main_path --phases mesh --strategies fsdp tp \
+        fsdp,tp --superstep 4
 """
 
 from __future__ import annotations
@@ -168,6 +173,9 @@ def main(argv=None) -> None:
     parser.add_argument("--superstep", type=int, default=1,
                         help="trace the train step eager and as K replays of the "
                              "captured optimizer step (train_multi_step)")
+    parser.add_argument("--strategies", nargs="+", default=["dp", "fsdp"],
+                        help="the mesh phase's strategy sets, each comma separated "
+                             "(e.g. dp fsdp tp fsdp,tp dp,tp,sp)")
     args = parser.parse_args(argv)
     phases = args.phases
     device = resolve_device("cuda")
@@ -177,7 +185,8 @@ def main(argv=None) -> None:
     if "train" in phases:
         _trace_train(device, config, superstep=args.superstep)
     if "mesh" in phases:
-        _trace_mesh(device, config)
+        _trace_mesh(device, config, tuple(tuple(s.split(",")) for s in args.strategies),
+                    args.superstep)
 
 
 def _trace_serving(device, config, phases, aot_warmup: bool = False) -> None:
@@ -286,10 +295,12 @@ def _trace_chunk(engine, device) -> dict:
 
 
 def _trace_train(device, config, mixed_precision: bool = True, mesh=None,
-                 strategies=("dp",), label: str = "train_step", superstep: int = 1) -> None:
+                 strategies=("dp",), label: str = "train_step", superstep: int = 1,
+                 repeats: int = REPEATS) -> list[dict]:
     """The train step at batch 8 after two warm-up steps; with ``superstep``
     > 1 also one ``train_multi_step`` of K optimizer steps (its capture
-    first), each line per optimizer step."""
+    first, on a mesh with the mesh's collectives), each line per optimizer
+    step.  Returns the printed lines."""
     model = ProGen(config, make_policy(mixed_precision), device=device, seed=0)
     fns = make_train_functions(model, make_optimizer(), mesh=mesh, strategies=strategies)
     state = fns.init_state()
@@ -319,28 +330,37 @@ def _trace_train(device, config, mixed_precision: bool = True, mesh=None,
         runs.append(("captured", replays, superstep,
                      {"capture_s": time.perf_counter() - t0,
                       "program_host_launches": fns.captured_program().host_launches}))
+    lines = []
     for dispatch, fn, steps, extra in runs:
-        result = _traced(fn, device)
+        result = _traced(fn, device, repeats)
         per_step = {f"per_step_{k}": result[k] / steps
-                    for k in ("wall_ms", "device_busy_ms", "device_launches", "host_launches")}
+                    for k in ("wall_ms", "device_busy_ms", "device_launches", "host_launches",
+                              "event_span_ms")}
         dispatch_field = {"dispatch": dispatch, "steps": steps} if superstep > 1 else {}
-        print(json.dumps({"phase": label, **dispatch_field, **meta, **extra, **result,
-                          **per_step}), flush=True)
+        lines.append({"phase": label, **dispatch_field, **meta, **extra, **result,
+                      **per_step})
+        print(json.dumps(lines[-1]), flush=True)
+    del model, fns, state
+    return lines
 
 
-def _trace_mesh(device, config) -> None:
+def _trace_mesh(device, config, strategy_sets=(("dp",), ("fsdp",)),
+                superstep: int = 1) -> None:
     """The train step without a mesh, then on a mesh of one rank (NCCL)
-    under ``dp`` and ``fsdp``, in f32 and in bf16 compute: what the meshed
-    step adds."""
+    under each of ``strategy_sets``, in f32 and in bf16 compute: what the
+    meshed step adds; with ``superstep`` > 1 each also as replays of its
+    captured optimizer step."""
     initialize_distributed(device)  # a world of one
     try:
         for mixed in (False, True):
             dtype = "bf16" if mixed else "f32"
-            _trace_train(device, config, mixed, label=f"train_step_{dtype}_unmeshed")
-            for strategy in ("dp", "fsdp"):
+            _trace_train(device, config, mixed, label=f"train_step_{dtype}_unmeshed",
+                         superstep=superstep)
+            for strategies in strategy_sets:
                 mesh = make_mesh(MeshConfig(-1, 1, 1, 1), "cuda")
-                _trace_train(device, config, mixed, mesh, (strategy,),
-                             label=f"train_step_{dtype}_{strategy}_world1")
+                _trace_train(device, config, mixed, mesh, strategies,
+                             label=f"train_step_{dtype}_{'_'.join(strategies)}_world1",
+                             superstep=superstep)
                 gc.collect()
                 torch.cuda.empty_cache()
     finally:

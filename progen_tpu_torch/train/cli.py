@@ -23,7 +23,7 @@ step: step, loss, grad_norm, lr, step_ms, tokens_per_s and mfu.
 
 With ``--data_path`` the Trainer runs over a mesh, ``--mesh data,fsdp,
 tensor,seq`` (``-1,1,1,1`` by default: every rank on the data axis) under
-``--strategies`` (``dp`` by default; ``fsdp`` and ``sp`` too, comma
+``--strategies`` (``dp`` by default; ``fsdp``, ``tp`` and ``sp`` too, comma
 separated), one process per card:
 
     torchrun --nproc_per_node 8 -m progen_tpu_torch.train --data_path ... \
@@ -33,7 +33,11 @@ or started by hand with ``RANK`` and ``WORLD_SIZE`` set and
 ``--init_method file:///shared/path`` (or ``MASTER_ADDR``/``MASTER_PORT``);
 without them it is a world of one.  Rank 0 alone prompts for
 ``--new``, prints and writes the tracker and the checkpoints.  Tensor
-parallelism (``tp``, a tensor axis > 1) is refused (``ROADMAP.md``).
+parallelism splits the heads and mlp channels over the tensor axis
+(``--mesh 1,1,2,1 --strategies tp``; composed with ``fsdp`` as 2-D
+sharding).  The Trainer plans the step's memory first and refuses a
+configuration that cannot fit the card (``PROGEN_SKIP_MEMORY_CHECK=1``
+skips the check).
 
 ``--statusz [PORT]`` serves ``/healthz /statusz /metricsz /tracez
 /flightz`` on a loopback port of rank 0 (a bare ``--statusz`` takes an
@@ -44,10 +48,9 @@ ephemeral port, printed as a JSON line).
 ``--superstep K`` advances up to K optimizer steps per
 ``train_multi_step``: on the card one captured CUDA graph of the optimizer
 step, replayed K times (``train/step.py``); spans shrink to land on hook
-boundaries.  With ``--data_path`` a superstep trains without a mesh: a world
-of one under ``dp`` is the one-device step, and more ranks are refused (the
-meshed step runs per step).  Without ``--data_path`` each dispatch takes up
-to K optimizer steps of synthetic rows and prints one line.
+boundaries.  With ``--data_path`` the superstep runs the meshed step under
+any ``--mesh`` and ``--strategies``.  Without ``--data_path`` each dispatch
+takes up to K optimizer steps of synthetic rows and prints one line.
 
 Not accepted: the kernel-choice, profiling-service and wandb flags.  The
 device is ``cuda`` unless ``--device cpu`` is given (then the ranks meet
@@ -171,7 +174,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="the Trainer's mesh axis sizes data,fsdp,tensor,seq "
                         "(-1 = the remaining ranks)")
     p.add_argument("--strategies", default="dp",
-                   help="comma list of sharding strategies: dp, fsdp, sp")
+                   help="comma list of sharding strategies: dp, fsdp, tp, sp")
     p.add_argument("--init_method", default=None,
                    help="where ranks started by hand meet (file:// or tcp://), "
                         "with RANK and WORLD_SIZE set; torchrun's env:// otherwise")
@@ -224,9 +227,6 @@ def train_tfrecords(args, device: torch.device) -> dict:
     meta = store.restore_meta()
     model_kwargs = (_load_model_config(args.config_path, args.model_name)
                     if meta is None else meta["model_config"])
-    mesh = args.mesh
-    if args.superstep > 1 and dist.get_world_size() == 1 and args.strategies == ("dp",):
-        mesh = None  # dp over one rank is the one-device step, which the superstep runs
     cfg = TrainerConfig(
         seed=args.seed, batch_size=args.batch_size,
         grad_accum_every=args.grad_accum_every, epochs=args.epochs,
@@ -241,7 +241,7 @@ def train_tfrecords(args, device: torch.device) -> dict:
         background_checkpoint=args.background_checkpoint,
         log_every=args.log_every, max_steps=args.max_steps,
         run_attempts=args.run_attempts, watchdog_timeout=args.watchdog_timeout,
-        warm_sampler=args.warm_sampler, mesh=mesh, strategies=args.strategies,
+        warm_sampler=args.warm_sampler, mesh=args.mesh, strategies=args.strategies,
         statusz_port=args.statusz_port, remat=args.remat, remat_policy=args.remat_policy,
         superstep=args.superstep)
     config = {k: v for k, v in vars(args).items() if k != "new"}

@@ -75,10 +75,11 @@ class OptState:
                 "mu": self.mu, "nu": self.nu, "acc_grads": self.acc_grads}
 
     @torch.no_grad()
-    def load_state_dict(self, saved: dict) -> "OptState":
+    def load_state_dict(self, saved: dict, pieces=None) -> "OptState":
         """Copy ``saved``'s tensors into this state's, in place on their
-        devices, and return the state at ``saved``'s counts.  Raises when
-        the names, shapes or the accumulator's presence differ."""
+        devices, and return the state at ``saved``'s counts (``pieces``: as
+        :func:`copy_into`'s).  Raises when the names, shapes or the
+        accumulator's presence differ."""
         for field in ("mu", "nu", "acc_grads"):
             mine, theirs = getattr(self, field), saved[field]
             if (mine is None) != (theirs is None):
@@ -86,15 +87,16 @@ class OptState:
                     f"stored optimizer state {'has' if theirs is not None else 'lacks'} "
                     f"{field}: was it saved with another grad_accum_every?")
             if mine is not None:
-                copy_into(mine, theirs, f"opt_state.{field}")
+                copy_into(mine, theirs, f"opt_state.{field}", pieces)
         return dataclasses.replace(self, count=int(saved["count"]),
                                    mini_step=int(saved["mini_step"]))
 
 
 @torch.no_grad()
-def copy_into(dst: Params, src: Params, what: str) -> None:
+def copy_into(dst: Params, src: Params, what: str, pieces=None) -> None:
     """``dst[k].copy_(src[k])`` for every name (a sharded ``dst[k]`` takes
-    its part of the whole ``src[k]``); the names and shapes must match."""
+    its part of the whole ``src[k]``; ``pieces(k)``: the packed pieces of a
+    tensor-sharded one); the names and shapes must match."""
     if set(dst) != set(src):
         raise ValueError(f"{what}: stored names differ: missing "
                          f"{sorted(set(dst) - set(src))}, unexpected "
@@ -103,7 +105,7 @@ def copy_into(dst: Params, src: Params, what: str) -> None:
         if t.shape != src[name].shape:
             raise ValueError(f"{what}.{name}: stored shape "
                              f"{tuple(src[name].shape)}, want {tuple(t.shape)}")
-        load_full(t, src[name])
+        load_full(t, src[name], 1 if pieces is None else pieces(name))
 
 
 def decay_mask(params: Params) -> dict[str, bool]:

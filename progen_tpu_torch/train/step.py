@@ -38,11 +38,19 @@ learning rate each optimizer step's update was scaled with.  A superstep
 starts on an optimizer-step boundary (``mini_step == 0``).
 
 Under a mesh (``mesh``, ``strategies``) every rank runs the step on its
-rows of the global batch (``parallel/sharding.batch_sharding``), and on its
-slice of their sequence under ``sp``; the gradients are reduced over the
-ranks before the clip (``parallel/sharding.reduce_gradients``), so every
-rank takes the one-device step of the global batch.  The metrics are the
-global batch's on every rank.
+rows of the global batch (``parallel/sharding.batch_sharding``), on its
+slice of their sequence under ``sp`` and on its heads and channels under
+``tp``; the gradients are reduced over the ranks before the clip
+(``parallel/sharding.reduce_gradients``), so every rank takes the
+one-device step of the global batch.  The metrics are the global batch's on
+every rank.
+
+``train_multi_step`` under a mesh runs the same body: on the card the
+captured optimizer step holds the mesh's collectives (NCCL, initialised by
+the span's first, eager, step before the capture) and the step keys its
+graph on the addresses of each rank's local shards; on the CPU (``gloo``)
+the body runs in a loop.  :func:`superstep_route` names the route, chosen
+by the device before the first dispatch.
 """
 
 from __future__ import annotations
@@ -57,11 +65,19 @@ from progen_tpu_torch.decode.graphs import CapturedProgram
 from progen_tpu_torch.parallel.sharding import (
     ParallelPlan,
     batch_mean,
+    local,
     parallelize,
     reduce_gradients,
 )
 from progen_tpu_torch.train.loss import batch_loss, cross_entropy
 from progen_tpu_torch.train.optimizer import OptState, Optimizer, Params, global_norm
+
+
+def superstep_route(device: torch.device | str) -> str:
+    """How ``train_multi_step`` advances a span: ``"graph"`` on the card
+    (one captured optimizer step replayed, under every mesh and strategy)
+    and ``"loop"`` off it (the body in a loop)."""
+    return "graph" if torch.device(device).type == "cuda" else "loop"
 
 
 @dataclasses.dataclass
@@ -81,13 +97,16 @@ class TrainFunctions:
     superbatch)``; ``batch`` is the data pipeline's ``(B, seq_len + 1)``
     int tokens, ``superbatch`` ``(K, accum, B, seq_len + 1)``.
     ``captured_program()`` is the optimizer step's ``CapturedProgram``
-    (None until ``train_multi_step`` has captured one on the card)."""
+    (None until ``train_multi_step`` has captured one on the card);
+    ``superstep_route`` is :func:`superstep_route` of the model's
+    device."""
 
     init_state: Callable
     train_step: Callable
     eval_step: Callable
     train_multi_step: Callable | None = None
     captured_program: Callable | None = None
+    superstep_route: str = "loop"
 
 
 def _inputs(batch: torch.Tensor, plan: ParallelPlan | None):
@@ -175,16 +194,17 @@ def make_train_functions(model: torch.nn.Module, optimizer: Optimizer, mesh=None
 
     def state_key(state: TrainState, tokens: torch.Tensor) -> tuple:
         """What a captured step is valid for: the tokens' shape and the
-        addresses of every tensor the optimizer step reads or writes."""
+        addresses of every tensor the optimizer step reads or writes (a
+        DTensor's local shard)."""
         opt = state.opt_state
         tensors = [*state.params.values(), *opt.mu.values(), *opt.nu.values(),
                    *(opt.acc_grads or {}).values()]
-        return (tuple(tokens.shape), tokens.dtype, tuple(t.data_ptr() for t in tensors))
+        return (tuple(tokens.shape), tokens.dtype,
+                tuple(local(t).data_ptr() for t in tensors))
+
+    route = superstep_route(model.device)
 
     def train_multi_step(state: TrainState, superbatch: torch.Tensor):
-        if plan is not None:
-            raise ValueError("train_multi_step under a mesh is not ported yet "
-                             "(ROADMAP.md, Queue 1)")
         superbatch = torch.as_tensor(superbatch, device=model.device)
         if superbatch.dim() != 4 or superbatch.shape[1] != accum:
             raise ValueError(f"the superbatch must be (K, {accum}, B, L + 1), got "
@@ -196,7 +216,7 @@ def make_train_functions(model: torch.nn.Module, optimizer: Optimizer, mesh=None
         k = superbatch.shape[0]
         scalars = to_device(np.stack([optimizer.scalars(opt.count + i) for i in range(k)]))
         rows = []
-        if model.device.type != "cuda":
+        if route == "loop":
             for i in range(k):
                 rows.append(optimizer_step(state)(superbatch[i], scalars[i]))
         else:
@@ -230,4 +250,5 @@ def make_train_functions(model: torch.nn.Module, optimizer: Optimizer, mesh=None
 
     return TrainFunctions(init_state=init_state, train_step=train_step,
                           eval_step=eval_step, train_multi_step=train_multi_step,
-                          captured_program=lambda: captured.get("program"))
+                          captured_program=lambda: captured.get("program"),
+                          superstep_route=route)

@@ -29,15 +29,23 @@ skipped; an exit or preemption save joins it and writes.  A failed write
 surfaces (a ``RetryError`` from the store) when the thread is joined.
 
 Across ranks (``mesh``, a ``core/mesh.MeshConfig``, and ``strategies``
-``dp``, ``fsdp`` and ``sp``; one process per card, started by ``torchrun``
-or given a process group first): every rank builds the model from the same
-seed, then ``parallel/sharding.parallelize`` places it, and each rank reads
+``dp``, ``fsdp``, ``tp`` and ``sp``; one process per card, started by
+``torchrun`` or given a process group first): every rank builds the model
+from the same seed, then ``parallel/sharding.parallelize`` places it, and
+each rank reads
 its own batch shard of the records (``process_batch_shards``: ``batch_size``
 rows per shard, so the shards' rows together are the global batch, as in
 JAX).  Only rank 0 writes the tracker, prints and samples; a checkpoint is
 gathered one whole tensor at a time into rank 0's host memory and written
-by rank 0 alone, in the store's one layout, so it restores at any world
-size and without a mesh.
+by rank 0 alone, in the store's one layout (a packed ``tp`` parameter's
+pieces put back in order), so it restores at any world size and without a
+mesh.
+
+Before it builds the model the Trainer plans the step's memory
+(``train/memory.py``, the JAX Trainer's arguments) and raises the plan's
+``check_fits`` error when the plan does not fit the rank's card; there is
+no gate off the card, and ``PROGEN_SKIP_MEMORY_CHECK=1`` skips it.  The plan
+is ``self.memory_plan`` (None when skipped).
 
 Observability: each loop phase is a span of the process tracer
 (``observe/trace.py``, a no-op unless tracing is on) and a flight-recorder
@@ -61,13 +69,14 @@ epoch boundary fires at the same ``global_step`` as in the per-step loop;
 the metrics stay on the device and are fetched once per logged span.  The
 first span of an attempt captures the step (the kernels' build and the
 capture), under the watchdog's grace; a retry that restores the state
-again captures again (the graph holds the state's addresses).
+again captures again (the graph holds the state's addresses).  Under a mesh
+the superstep runs the meshed step (``train/step.py:superstep_route``: the
+captured graph on the card, the body in a loop on the CPU); the first line
+the Trainer prints names the route.
 
 Fields of :class:`TrainerConfig` the port does not honour (attention/SGU
 implementations other than the port's kernels) are refused by name when set
-away from their defaults; so are tensor parallelism (``"tp"`` in
-``strategies`` or a mesh tensor axis > 1), strategies without a mesh, and
-``superstep > 1`` under a mesh.
+away from their defaults; so are strategies without a mesh.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import signal
 import threading
 import time
@@ -107,19 +117,22 @@ from progen_tpu_torch.observe.metrics import get_registry
 from progen_tpu_torch.observe.statusz import StatuszServer
 from progen_tpu_torch.observe.trace import get_tracer
 from progen_tpu_torch.observe.tracker import Tracker
-from progen_tpu_torch.parallel.sharding import check_strategies, full_tensor
+from progen_tpu_torch.parallel.sharding import (
+    check_strategies,
+    full_tensor,
+    validate_tp_divisibility,
+)
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.retry import RetryError, default_classifier
 from progen_tpu_torch.resilience.watchdog import FlightRecorder, Watchdog
+from progen_tpu_torch.train.memory import check_fits, device_hbm_bytes
+from progen_tpu_torch.train.memory import plan as memory_plan
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.schedule import make_lr_schedule
 from progen_tpu_torch.train.step import TrainState, make_train_functions
 
 # TrainerConfig fields the port refuses away from their defaults
 NOT_PORTED = ("attn_impl", "sgu_impl")
-# fields some of whose values the port refuses: tensor parallelism, and a
-# superstep under a mesh
-PARTLY_PORTED = ("strategies", "mesh", "superstep")
 
 
 def superstep_span(global_step: int, k_max: int, cadences: Sequence[int],
@@ -164,7 +177,7 @@ class TrainerConfig:
     schedule_steps: int | None = None  # decay horizon; defaults to max_steps
     lr_min_ratio: float = 0.1
     # across ranks: a MeshConfig (None: one process, no mesh) and the
-    # strategies "dp", "fsdp", "sp" ("tp" is refused)
+    # strategies "dp", "fsdp", "tp", "sp"
     strategies: Sequence[str] = ("dp",)
     mesh: MeshConfig | None = None
     # recompute each block in the backward: "full", "dots" or "attn"
@@ -215,15 +228,6 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
                 f"supports only {default!r})")
     if cfg.superstep < 1:
         raise ValueError(f"TrainerConfig.superstep={cfg.superstep!r}: must be >= 1")
-    if cfg.superstep > 1 and cfg.mesh is not None:
-        raise ValueError(f"TrainerConfig.superstep={cfg.superstep!r} under a mesh is not "
-                         "ported yet (the meshed step runs per step); see ROADMAP.md, "
-                         "Queue 1")
-    tp = "tensor parallelism is not ported yet; see ROADMAP.md, Queue 1"
-    if "tp" in tuple(cfg.strategies):
-        raise ValueError(f"TrainerConfig.strategies={tuple(cfg.strategies)!r}: {tp}")
-    if cfg.mesh is not None and cfg.mesh.tensor not in (1, -1):
-        raise ValueError(f"TrainerConfig.mesh={cfg.mesh!r}: {tp}")
     if cfg.mesh is None and tuple(cfg.strategies) != ("dp",):
         raise ValueError(f"TrainerConfig.strategies={tuple(cfg.strategies)!r} needs "
                          "TrainerConfig.mesh")
@@ -251,22 +255,26 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
-def _gathered_to_host(state: TrainState, keep: bool) -> TrainState | None:
+def _gathered_to_host(state: TrainState, keep: bool, pieces) -> TrainState | None:
     """``state`` whole in host memory on the rank that ``keep``s it, None on
-    the others.  One tensor at a time is gathered and copied out (on a card
-    into pinned memory, on the current stream: the caller waits for it), so
-    the device holds the shards and one whole tensor, whatever the model's
-    size.  Collectives: every rank calls it, at the same step."""
-    def whole(t):
+    the others; ``pieces(name)``: a packed parameter's pieces (its moments'
+    and accumulator's too).  One tensor at a time is gathered and copied out
+    (on a card into pinned memory, on the current stream: the caller waits
+    for it), so the device holds the shards and one whole tensor, whatever
+    the model's size.  Collectives: every rank calls it, at the same step."""
+    def whole(name, t):
         t = t.detach()
-        out = full_tensor(t)
+        out = full_tensor(t, pieces(name))
         if not keep:
             return None
         if out.is_cuda:
             return _pinned_copy(out)
         return out.clone() if out is t else out
+    each = lambda d: None if d is None else {k: whole(k, v) for k, v in d.items()}
+    opt = state.opt_state
     with torch.no_grad():
-        host = _map_state(whole, state)
+        host = TrainState(state.step, each(state.params), dataclasses.replace(
+            opt, mu=each(opt.mu), nu=each(opt.nu), acc_grads=each(opt.acc_grads)))
     return host if keep else None
 
 
@@ -293,6 +301,10 @@ class Trainer:
                 initialize_distributed(self.device)
             self.mesh = make_mesh(cfg.mesh, self.device.type)
             check_strategies(cfg.strategies, self.mesh)
+            # a tensor size that cannot divide the model's sharded dims
+            # fails here with the actual mistake
+            validate_tp_divisibility(model_config, mesh_sizes(self.mesh)["tensor"],
+                                     cfg.strategies)
             seq = mesh_sizes(self.mesh)["seq"]
             if seq > 1 and "sp" not in cfg.strategies:
                 raise ValueError(
@@ -304,6 +316,28 @@ class Trainer:
             # read identical rows
             self.data_shard_count, self.data_shard_index = process_batch_shards(self.mesh)
         self.policy = make_policy(cfg.mixed_precision)
+        # fail fast, before anything is placed on the card, on a
+        # configuration whose planned memory does not fit the rank's card
+        self.memory_plan = None
+        if os.environ.get("PROGEN_SKIP_MEMORY_CHECK") != "1":
+            self.memory_plan = memory_plan(
+                model_config,
+                batch_size=cfg.batch_size * self.data_shard_count,
+                mesh_shape=mesh_sizes(self.mesh) if self.mesh is not None else None,
+                strategies=cfg.strategies, remat=cfg.remat, remat_policy=cfg.remat_policy,
+                attn_impl=cfg.attn_impl, sgu_impl=cfg.sgu_impl,
+                mixed_precision=cfg.mixed_precision,
+                grad_accum_every=cfg.grad_accum_every,
+                # the state clone a background save makes (without a mesh: a
+                # meshed save gathers one tensor at a time to the host)
+                checkpoint_snapshot=cfg.background_checkpoint and self.mesh is None,
+                superstep_k=cfg.superstep)
+            kind = (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else None)
+            err = check_fits(self.memory_plan, device_hbm_bytes(self.device),
+                             device_kind=kind)
+            if err is not None:
+                raise ValueError(err)
         self.model = ProGen(model_config, self.policy, device=self.device,
                             seed=cfg.seed, remat=cfg.remat, remat_policy=cfg.remat_policy)
         self.lr_schedule = make_lr_schedule(
@@ -447,6 +481,11 @@ class Trainer:
         self._sampler()(prime, cfg.prime_length + 1,
                         key=torch.zeros(2, dtype=torch.int64), top_k=cfg.sample_top_k)
 
+    def _pieces(self, name: str) -> int:
+        """The packed pieces of parameter ``name`` under ``tp`` (1 else)."""
+        plan = getattr(self.model, "parallel_plan", None)
+        return 1 if plan is None else plan.pieces(name)
+
     def _sampler(self):
         """The sampler; under a mesh rank 0's, of a model of its own that is
         built here at first use."""
@@ -472,7 +511,7 @@ class Trainer:
                 "checkpoint model config differs from requested config; "
                 f"rebuild the Trainer with the stored config: {stored_cfg}")
         t0 = time.perf_counter()
-        state = self.store.restore_state(self.fns.init_state())
+        state = self.store.restore_state(self.fns.init_state(), pieces=self._pieces)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.restore_seconds = time.perf_counter() - t0
@@ -542,7 +581,9 @@ class Trainer:
         try:
             num_params = sum(p.numel() for p in state.params.values())
             self._emit(params=num_params, seq_len=seq_len, num_sequences=total_train,
-                       start_seq_index=start_seq_index)
+                       start_seq_index=start_seq_index,
+                       superstep_route=(self.fns.superstep_route if cfg.superstep > 1
+                                        else None))
             self._warm_sampler(global_step)
             if cfg.watchdog_timeout:
                 out_dir = cfg.watchdog_dir or str(getattr(self.tracker, "_dir", None) or ".")
@@ -801,7 +842,7 @@ class Trainer:
         if self.mesh is not None:
             # every rank gathers; rank 0 writes its host copy (a snapshot)
             t0 = time.perf_counter()
-            state = _gathered_to_host(state, keep=self.rank == 0)
+            state = _gathered_to_host(state, keep=self.rank == 0, pieces=self._pieces)
             stats["gather_host_ms"] = (time.perf_counter() - t0) * 1e3
             if self.rank != 0:
                 return
@@ -891,7 +932,7 @@ class Trainer:
                 mine = dict(self.sample_model.named_parameters())
             with torch.no_grad():
                 for name, p in self.model.named_parameters():
-                    whole = full_tensor(p.detach())
+                    whole = full_tensor(p.detach(), self._pieces(name))
                     if mine:
                         mine[name].copy_(whole)
             if self.rank != 0:

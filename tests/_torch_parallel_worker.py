@@ -4,11 +4,12 @@
 
 starts WORLD ranks with ``torch.multiprocessing``, their process group at
 ``file://STORE``, and runs every case of the job on the meshes
-(1,1,1,4), (2,1,1,2), (1,4,1,1), (4,1,1,1) and (1,2,1,2): the sequence-parallel
-attention (forward, its gradients through the halo, partial windows
-refused) and SGU mix, the sharded SGU's weight gradients, and one f32 train
-step of the whole model per strategy (its parameters after the step and
-their reduced gradients).  Rank 0 writes every result, whole
+(1,1,1,4), (2,1,1,2), (1,4,1,1), (4,1,1,1), (1,2,1,2), (1,1,4,1), (1,2,2,1)
+and (1,1,2,2): the sequence-parallel attention (forward, its gradients
+through the halo, partial windows refused) and SGU mix, the sharded SGU's
+weight gradients, and one f32 train step of the whole model per strategy
+(its parameters after the step and their reduced gradients; the ``tp``
+meshes on the job's ``train_tp`` model, whose heads divide by 4).  Rank 0 writes every result, whole
 (gathered over the ranks), to OUT.npz.  It imports torch and the port only:
 no JAX and no ``conftest.py``, so its ranks start in seconds.
 """
@@ -28,9 +29,13 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 MESHES = {"seq4": (1, 1, 1, 4), "dp2_sp2": (2, 1, 1, 2), "fsdp4": (1, 4, 1, 1),
-          "dp4": (4, 1, 1, 1), "fsdp2_sp2": (1, 2, 1, 2)}
-TRAIN_STEPS = {"dp2_sp2": ("dp", "sp"), "fsdp4": ("fsdp",), "dp4": ("dp",),
-               "fsdp2_sp2": ("fsdp", "sp")}
+          "dp4": (4, 1, 1, 1), "fsdp2_sp2": (1, 2, 1, 2), "tp4": (1, 1, 4, 1),
+          "fsdp2_tp2": (1, 2, 2, 1), "tp2_sp2": (1, 1, 2, 2)}
+# label -> (strategies, the job's model and batch)
+TRAIN_STEPS = {"dp2_sp2": (("dp", "sp"), "train"), "fsdp4": (("fsdp",), "train"),
+               "dp4": (("dp",), "train"), "fsdp2_sp2": (("fsdp", "sp"), "train"),
+               "tp4": (("tp",), "train_tp"), "fsdp2_tp2": (("fsdp", "tp"), "train_tp"),
+               "tp2_sp2": (("tp", "sp"), "train_tp")}
 
 
 def gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -113,29 +118,31 @@ def sharded_sgu_case(job, mesh, label, out):
         out["sgu/seq_refused"] = np.array(str(e))
 
 
-def train_step_case(job, mesh, label, strategies, out):
+def train_step_case(job, mesh, label, strategies, out, key="train"):
     from progen_tpu_torch.core.precision import make_policy
     from progen_tpu_torch.models.progen import ProGen, ProGenConfig
     from progen_tpu_torch.parallel.sharding import batch_sharding, full_tensor
     from progen_tpu_torch.train.optimizer import make_optimizer
     from progen_tpu_torch.train.step import make_train_functions
 
-    cfg = ProGenConfig(**json.loads(str(job["train/config"])))
+    cfg = ProGenConfig(**json.loads(str(job[f"{key}/config"])))
     model = ProGen(cfg, make_policy(False), device="cpu")
-    init = {k[len("train/params/"):]: torch.from_numpy(v) for k, v in job.items()
-            if k.startswith("train/params/")}
+    init = {k[len(f"{key}/params/"):]: torch.from_numpy(v) for k, v in job.items()
+            if k.startswith(f"{key}/params/")}
     model.load_state_dict(init)
     fns = make_train_functions(model, make_optimizer(float(job["train/lr"])), mesh=mesh,
                                strategies=strategies)
     state = fns.init_state()
-    batch = batch_sharding(mesh, torch.from_numpy(job["train/batch"]))
+    batch = batch_sharding(mesh, torch.from_numpy(job[f"{key}/batch"]))
     state, metrics = fns.train_step(state, batch)
     out[f"train/{label}/loss"] = metrics["loss"]
     out[f"train/{label}/grad_norm"] = metrics["grad_norm"]
+    plan = model.parallel_plan
     for name, p in state.params.items():  # every rank gathers, in one order
-        out[f"train/{label}/params/{name}"] = full_tensor(p.detach())
+        pieces = plan.pieces(name)
+        out[f"train/{label}/params/{name}"] = full_tensor(p.detach(), pieces)
         # the gradient reduced over the ranks, before the clip
-        out[f"train/{label}/grads/{name}"] = full_tensor(p.grad)
+        out[f"train/{label}/grads/{name}"] = full_tensor(p.grad, pieces)
 
 
 MESH_CACHE: dict = {}
@@ -155,8 +162,8 @@ def rank_main(rank: int, job_path: str, out_path: str, world: int, store: str) -
     gate_cases(job, MESH_CACHE["seq4"], out)
     for label in ("fsdp4", "dp4"):
         sharded_sgu_case(job, MESH_CACHE[label], label, out)
-    for label, strategies in TRAIN_STEPS.items():
-        train_step_case(job, MESH_CACHE[label], label, strategies, out)
+    for label, (strategies, key) in TRAIN_STEPS.items():
+        train_step_case(job, MESH_CACHE[label], label, strategies, out, key)
     dist.barrier()
     if rank == 0:
         np.savez(out_path, **{k: v.detach().numpy() if torch.is_tensor(v) else v

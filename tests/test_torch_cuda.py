@@ -687,3 +687,73 @@ def test_remat_gives_the_same_gradients_on_the_card(gen, policy):
         assert torch.equal(out[True][1][name], g), name
     assert out[False][2] == cfg.depth
     assert out[True][2] == cfg.depth * (1 if policy == "attn" else 2)
+
+
+def test_the_memory_plan_is_the_cards_peak(gen):
+    """ProGen-small, bf16 compute, batch 8, no remat: two eager train steps'
+    ``max_memory_allocated`` above the bytes live before the model within
+    5% of ``train/memory.plan`` (``chip_smoke.py``'s bar)."""
+    import gc
+
+    from progen_tpu_torch.models.configs import SMALL
+    from progen_tpu_torch.train.memory import plan
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = ProGen(SMALL, make_policy(True), device="cuda", seed=0)
+    fns = make_train_functions(model, make_optimizer())
+    state = fns.init_state()
+    batch = torch.randint(1, 255, (8, SMALL.seq_len + 1), device="cuda", generator=gen)
+    for _ in range(2):
+        state, m = fns.train_step(state, batch)
+    float(m["loss"])
+    peak = torch.cuda.max_memory_allocated() - start
+    want = plan(SMALL, batch_size=8).total_bytes
+    assert abs(want / peak - 1) <= 0.05, (want, peak)
+
+
+@pytest.mark.parametrize("strategies", [("dp",), ("fsdp",), ("fsdp", "tp")])
+def test_the_captured_meshed_step_is_the_eager_steps(gen, strategies):
+    """On a world-1 NCCL mesh, bf16 compute, batch 2 of a 4-layer model:
+    ``train_multi_step`` of 3 steps (one captured optimizer step with the
+    mesh's collectives, replayed) against 3 eager meshed steps from the same
+    init: every loss, grad norm and parameter bit-equal."""
+    import torch.distributed as dist
+
+    from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed, make_mesh
+    from progen_tpu_torch.parallel.sharding import full_tensor
+
+    cfg = ProGenConfig(num_tokens=256, dim=256, seq_len=256, depth=4, window_size=128,
+                       global_mlp_depth=1, heads=2, dim_head=64)
+    batches = torch.randint(1, 255, (3, 2, cfg.seq_len + 1), device="cuda", generator=gen)
+    initialize_distributed("cuda")
+    try:
+        runs = []
+        for fused in (False, True):
+            model = ProGen(cfg, make_policy(True), device="cuda", seed=0)
+            fns = make_train_functions(model, make_optimizer(), mesh=make_mesh(MeshConfig()),
+                                       strategies=strategies)
+            state = fns.init_state()
+            if fused:
+                assert fns.superstep_route == "graph"
+                state, m = fns.train_multi_step(state, batches[:, None])
+                losses, norms = m["loss"].reshape(-1), m["grad_norm"].reshape(-1)
+            else:
+                rows = []
+                for b in batches:
+                    state, m = fns.train_step(state, b)
+                    rows.append(m)
+                losses = torch.stack([r["loss"] for r in rows])
+                norms = torch.stack([r["grad_norm"] for r in rows])
+            pieces = model.parallel_plan.pieces
+            runs.append((losses, norms, {n: full_tensor(p.detach(), pieces(n)).clone()
+                                         for n, p in state.params.items()}))
+            del model, fns, state
+        (l0, g0, p0), (l1, g1, p1) = runs
+        assert torch.equal(l0, l1) and torch.equal(g0, g1)
+        assert all(torch.equal(p0[n], p1[n]) for n in p0)
+    finally:
+        dist.destroy_process_group()

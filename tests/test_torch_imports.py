@@ -59,7 +59,7 @@ def test_scan_sees_the_whole_port():
                 "core/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
                 "parallel/context.py", "observe/metrics.py", "observe/trace.py",
                 "observe/statusz.py", "observe/__init__.py", "compat/reference.py",
-                "convert_checkpoint.py"):
+                "convert_checkpoint.py", "train/memory.py", "parallel/tensor.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 

@@ -5,8 +5,8 @@ this process: ``MeshConfig.parse``/``resolve``, ``auto_factorize``,
 on the cases of ``tests/test_mesh_sharding.py:20-50,143-226``; every
 parameter's mesh axes under each strategy mix against flax's
 ``logical_to_mesh_axes`` over the JAX model's own logical specs; and, in a
-process group of one, ``make_mesh``/``single_device_mesh`` and the refusal
-of tensor parallelism."""
+process group of one, ``make_mesh``/``single_device_mesh`` and the checks
+of the strategies against the mesh."""
 
 import types
 
@@ -164,9 +164,41 @@ def test_meshes_in_a_world_of_one(world_of_one):
     assert mesh.process_batch_shards(m) == (1, 0)
     assert sharding.param_placements("embed.weight", m, ("fsdp",))[1] == sharding.Shard(1)
     assert sharding.param_placements("embed.weight", m, ("dp",)) == sharding.replicated(m)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    # a tensor axis is ported: it needs its ranks, and 'tp' with it
+    with pytest.raises(ValueError, match="needs 2 devices"):
         mesh.make_mesh(mesh.MeshConfig(data=1, tensor=2), "cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        sharding.check_strategies(("dp", "tp"), m)
+    assert sharding.check_strategies(("dp", "tp"), m) == ("dp", "tp")
+    assert sharding.param_placements("attn.0.to_qkv.weight", m, ("tp",))[2] == sharding.Shard(0)
+    assert sharding.param_placements("ff.0.proj_out.weight", m, ("tp",))[2] == sharding.Shard(1)
     with pytest.raises(ValueError, match="unknown strategies"):
         sharding.check_strategies(("zero",), m)
+
+
+@pytest.mark.parametrize("strategies", [("dp", "tp", "sp"), ("fsdp", "tp"), ("tp",),
+                                        ("dp", "sp")])
+def test_a_world_of_one_takes_the_unmeshed_step(world_of_one, strategies):
+    """On a mesh of one rank every strategy mix, ``tp`` with a tensor axis
+    of 1 and ``sp`` with a seq axis of 1 included (the SGU's weights then a
+    DTensor of one shard), takes the unmeshed f32 step: the loss and every
+    updated parameter at 1e-6."""
+    from progen_tpu_torch.core.precision import make_policy
+    from progen_tpu_torch.parallel.sharding import full_tensor
+    from progen_tpu_torch.train.optimizer import make_optimizer
+    from progen_tpu_torch.train.step import make_train_functions
+
+    torch.set_num_threads(1)
+    cfg = ProGenConfig(**CFG)
+    batch = torch.from_numpy(np.random.default_rng(0).integers(
+        1, 60, (2, cfg.seq_len + 1)))
+    got, want = [], []
+    for out, m in ((want, None), (got, mesh.make_mesh(mesh.MeshConfig(), "cpu"))):
+        model = ProGen(cfg, make_policy(False), device="cpu", seed=0)
+        fns = make_train_functions(model, make_optimizer(1e-3), mesh=m,
+                                   strategies=strategies if m is not None else ("dp",))
+        state, metrics = fns.train_step(fns.init_state(), batch)
+        pieces = model.parallel_plan.pieces if m is not None else (lambda name: 1)
+        out.append(float(metrics["loss"]))
+        out.append({n: full_tensor(p.detach(), pieces(n)) for n, p in state.params.items()})
+    assert got[0] == pytest.approx(want[0], rel=1e-6)
+    for name, value in want[1].items():
+        torch.testing.assert_close(got[1][name], value, rtol=1e-6, atol=1e-6)

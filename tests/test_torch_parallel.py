@@ -4,7 +4,8 @@ CPU ``gloo`` world of 4 ranks started once for the module
 (``tests/_torch_parallel_worker.py``, which imports neither JAX nor this
 directory's ``conftest.py``; its process group meets at a ``file://`` store
 under ``tmp_path``).  On the meshes (1,1,1,4), (2,1,1,2), (1,4,1,1),
-(4,1,1,1) and (1,2,1,2):
+(4,1,1,1), (1,2,1,2), (1,1,4,1), (1,2,2,1) and (1,1,2,2), in the order
+(data, fsdp, tensor, seq):
 
 * the sequence-parallel windowed attention against ``local_attention`` on
   the whole sequence, and the gradients through its halo (the cases of
@@ -15,8 +16,15 @@ under ``tmp_path``).  On the meshes (1,1,1,4), (2,1,1,2), (1,4,1,1),
   (``tests/test_pallas_sgu.py:129``); a ``seq`` split refused;
 * one f32 train step of the whole model under ``("dp", "sp")``,
   ``("fsdp",)``, ``("dp",)`` and ``("fsdp", "sp")`` (the SGU weights
-  sharded over ``seq`` and left out of FSDP2) against JAX's single-device
-  step from the
+  sharded over ``seq`` and left out of FSDP2), and under ``("tp",)``,
+  ``("fsdp", "tp")`` (2-D: FSDP2 over each rank's tensor shard) and
+  ``("tp", "sp")`` on a model whose 4 heads divide over 4 tensor ranks (the
+  packed ``to_qkv`` and ``proj_in`` in their rank-grouped layout, the SGU's
+  LayerNorm over split channels, its gathered ``proj_out`` input, the
+  row-parallel sums: what ``tests/test_train.py:98``,
+  ``tests/test_context_parallel.py:130``, ``tests/test_model_pallas.py:37``
+  and ``tests/test_mesh_sharding.py:44-60,222-226`` hold on 8 JAX devices),
+  against JAX's single-device step from the
   same numpy parameters and batch, at JAX's own bars: loss rtol 1e-5,
   ``grad_norm`` 1e-4, parameters rtol 1e-4 / atol 1e-5
   (``tests/test_context_parallel.py:108-116``), and every parameter's
@@ -57,8 +65,10 @@ GATE_CASES = [16, 32]
 CFG = dict(num_tokens=64, dim=16, seq_len=32, depth=2, window_size=8,
            global_mlp_depth=1, heads=2, dim_head=8, ff_mult=2)
 LR = 1e-3
-TRAIN = {"dp2_sp2": ("dp", "sp"), "fsdp4": ("fsdp",), "dp4": ("dp",),
-         "fsdp2_sp2": ("fsdp", "sp")}
+# the tp meshes' model: 4 heads, so (1,1,4,1) divides them
+TP_CFG = dict(CFG, heads=4, dim_head=4)
+TRAIN = {"dp2_sp2": "train", "fsdp4": "train", "dp4": "train", "fsdp2_sp2": "train",
+         "tp4": "train_tp", "fsdp2_tp2": "train_tp", "tp2_sp2": "train_tp"}
 F32 = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -97,7 +107,17 @@ def _references(rng):
                          argnums=(0, 1))(w, bias)
     want["sgu/dw"], want["sgu/dbias"] = np.asarray(dw), np.asarray(dbias)
 
-    cfg = JaxProGenConfig(**CFG)
+    job["train/lr"] = np.array(LR)
+    for key, config in (("train", CFG), ("train_tp", TP_CFG)):
+        _train_reference(rng, key, config, job, want)
+    return job, want
+
+
+def _train_reference(rng, key, config, job, want):
+    """JAX's one-device f32 train step of ``config`` from its own init on a
+    batch with pad tails: the job's parameters and batch under ``key``, and
+    the loss, grad norm, gradients and updated parameters."""
+    cfg = JaxProGenConfig(**config)
     model = JaxProGen(config=cfg, policy=jax_policy(False))
     fns = jax_make_train_functions(model, jax_make_optimizer(LR),
                                    jnp.zeros((4, cfg.seq_len), jnp.int32))
@@ -110,16 +130,14 @@ def _references(rng):
     grads = jax.grad(lambda p: jax_batch_loss(model.apply({"params": p}, batch[:, :-1]),
                                               batch[:, 1:]))(unbox(state.params))
     state, metrics = fns.train_step(state, jnp.asarray(batch))
-    job.update({f"train/params/{k}": v.numpy() for k, v in init.items()})
-    job.update({"train/config": np.array(json.dumps(CFG)), "train/lr": np.array(LR),
-                "train/batch": batch})
-    want["train/loss"] = float(metrics["loss"])
-    want["train/grad_norm"] = float(metrics["grad_norm"])
-    want["train/grads"] = {k: v.numpy() for k, v in params_from_flax(
+    job.update({f"{key}/params/{k}": v.numpy() for k, v in init.items()})
+    job.update({f"{key}/config": np.array(json.dumps(config)), f"{key}/batch": batch})
+    want[f"{key}/loss"] = float(metrics["loss"])
+    want[f"{key}/grad_norm"] = float(metrics["grad_norm"])
+    want[f"{key}/grads"] = {k: v.numpy() for k, v in params_from_flax(
         jax.tree.map(np.asarray, grads)).items()}
-    want["train/params"] = {k: v.numpy() for k, v in params_from_flax(
+    want[f"{key}/params"] = {k: v.numpy() for k, v in params_from_flax(
         jax.tree.map(np.asarray, unbox(state.params))).items()}
-    return job, want
 
 
 @pytest.fixture(scope="module")
@@ -178,14 +196,15 @@ def test_sharded_sgu_weight_gradients_sum_over_the_batch(world, mesh):
 @pytest.mark.parametrize("label", list(TRAIN))
 def test_train_step_across_ranks_matches_jax_one_device(world, label):
     got, want = world
-    np.testing.assert_allclose(float(got[f"train/{label}/loss"]), want["train/loss"],
+    key = TRAIN[label]
+    np.testing.assert_allclose(float(got[f"train/{label}/loss"]), want[f"{key}/loss"],
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(float(got[f"train/{label}/grad_norm"]),
-                               want["train/grad_norm"], rtol=1e-4, atol=1e-5)
+                               want[f"{key}/grad_norm"], rtol=1e-4, atol=1e-5)
     prefix = f"train/{label}/params/"
     names = {k[len(prefix):] for k in got if k.startswith(prefix)}
-    assert names == set(want["train/params"])
-    for name, value in want["train/params"].items():
+    assert names == set(want[f"{key}/params"])
+    for name, value in want[f"{key}/params"].items():
         np.testing.assert_allclose(got[prefix + name], value, rtol=1e-4, atol=1e-5,
                                    err_msg=f"{label}: {name}")
 
@@ -197,8 +216,8 @@ def test_gradients_across_ranks_match_jax_per_leaf(world, label):
     got, want = world
     prefix = f"train/{label}/grads/"
     names = {k[len(prefix):] for k in got if k.startswith(prefix)}
-    assert names == set(want["train/grads"])
-    for name, value in want["train/grads"].items():
+    assert names == set(want[f"{TRAIN[label]}/grads"])
+    for name, value in want[f"{TRAIN[label]}/grads"].items():
         np.testing.assert_allclose(got[prefix + name], value, rtol=1e-4,
                                    atol=1e-4 * np.abs(value).max(),
                                    err_msg=f"{label}: d{name}")

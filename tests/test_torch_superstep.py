@@ -458,3 +458,114 @@ def test_superstep_run_crosses_hooks_and_resumes_bit_exact(data_dir, tmp_path):
     want = {r["step"]: r["valid_loss"] for r in ref_rows if "valid_loss" in r}
     got = {r["step"]: r["valid_loss"] for r in fused_rows if "valid_loss" in r}
     assert sorted(got) == sorted(want) == [3, 6] and got[3] == want[3]
+
+
+# -- the superstep under a mesh (tests/test_multihost.py:215 on the port) ------
+
+MESH_CADENCES = ("--log_every", "2", "--checkpoint_every", "3", "--validate_every", "3",
+                 "--sample_every", "1000")
+MESHES = {"dp": ("-1,1,1,1", "dp"), "fsdp_tp": ("1,1,2,1", "fsdp,tp")}
+BATCH_SHARDS = {"dp": 2, "fsdp_tp": 1}  # the rows of a step: 2 a shard
+
+
+def _two_ranks(tmp, data_dir, name, mesh, strategies, max_steps, superstep, ckpt=None):
+    """Two gloo ranks of the train CLI (``RANK``/``WORLD_SIZE``, a
+    ``file://`` store); returns the started processes."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    models = tmp / "models"
+    models.mkdir(exist_ok=True)
+    (models / "default.toml").write_text("".join(
+        f"{k} = {json.dumps(v)}\n" for k, v in TRAINER_CFG.to_dict().items()))
+    args = [sys.executable, "-m", "progen_tpu_torch.train", "--data_path", str(data_dir),
+            "--checkpoint_path", str(tmp / f"ck_{ckpt or name}"), "--config_path", str(models),
+            "--runs_dir", str(tmp / f"runs_{name}"), "--batch_size", "2",
+            "--grad_accum_every", "1", "--learning_rate", "1e-3", *MESH_CADENCES,
+            "--prime_length", "4", "--max_steps", str(max_steps), "--mesh", mesh,
+            "--strategies", strategies, "--superstep", str(superstep),
+            "--init_method", f"file://{tmp / f'store_{name}'}", "--device", "cpu"]
+    return [subprocess.Popen(args, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+                                             "OMP_NUM_THREADS": "1"})
+            for r in range(2)]
+
+
+def _wait(procs) -> list[list[str]]:
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    return [o.splitlines() for o, _ in outs]
+
+
+@pytest.fixture(scope="module")
+def meshed_supersteps(data_dir, tmp_path_factory):
+    """On a two-rank gloo world under ``dp`` and under ``fsdp,tp``: 4 steps
+    per step; 4 steps at superstep 2; 3 steps at superstep 2 and a resume
+    to 4.  Log 2, checkpoint and validation 3: spans 2, 1, 1."""
+    tmp = tmp_path_factory.mktemp("meshed_superstep")
+    runs = {}
+    for label, (mesh, strategies) in MESHES.items():
+        for name, steps, k in (("per_step", 4, 1), ("fused", 4, 2), ("split", 3, 2)):
+            runs[label, name] = _two_ranks(tmp, data_dir, f"{label}_{name}", mesh, strategies,
+                                           steps, k)
+    out = {key: _wait(procs) for key, procs in runs.items()}
+    for label, (mesh, strategies) in MESHES.items():
+        out[label, "resumed"] = _wait(_two_ranks(tmp, data_dir, f"{label}_resumed", mesh,
+                                                 strategies, 4, 2, ckpt=f"{label}_split"))
+    return tmp, out
+
+
+def _records(lines) -> list[dict]:
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+@pytest.mark.parametrize("label", list(MESHES))
+def test_meshed_superstep_equals_per_step_bit_for_bit(meshed_supersteps, label):
+    """``superstep=2`` on the mesh takes the per-step meshed run's steps:
+    every logged loss and grad norm and the validation equal, and the
+    gathered checkpoints at steps 3 and 4 (params and both moments) equal
+    bit for bit; the route is the body in a loop (gloo)."""
+    from progen_tpu_torch.checkpoint.store import CheckpointStore
+
+    tmp, out = meshed_supersteps
+    per, fused = _records(out[label, "per_step"][0]), _records(out[label, "fused"][0])
+    pick = lambda rs, key: {r["step"]: (r[key], r.get("grad_norm")) for r in rs if key in r}
+    assert pick(fused, "loss") == pick(per, "loss") and sorted(pick(per, "loss")) == [2, 4]
+    assert pick(fused, "valid_loss") == pick(per, "valid_loss")
+    assert sorted(pick(per, "valid_loss")) == [3]
+    assert fused[0]["superstep_route"] == "loop" and per[0]["superstep_route"] is None
+    assert out[label, "per_step"][1] == out[label, "fused"][1] == []  # rank 1 prints nothing
+    for step in (3, 4):
+        a = CheckpointStore(str(tmp / f"ck_{label}_per_step")).step_dir(step)
+        b = CheckpointStore(str(tmp / f"ck_{label}_fused")).step_dir(step)
+        for f in ("params.pt", "opt_state.pt"):
+            want, got = (torch.load(d / f, weights_only=True) for d in (a, b))
+            if f == "opt_state.pt":
+                assert (got["count"], got["mini_step"]) == (want["count"], want["mini_step"])
+                want, got = ({**want["mu"], **{f"nu.{k}": v for k, v in want["nu"].items()}},
+                             {**got["mu"], **{f"nu.{k}": v for k, v in got["nu"].items()}})
+            assert set(got) == set(want)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (label, step, f, k)
+
+
+@pytest.mark.parametrize("label", list(MESHES))
+def test_meshed_superstep_resumes_bit_for_bit(meshed_supersteps, label):
+    """Stopped at the step-3 checkpoint and resumed on the mesh, the
+    superstep lands on the per-step run's step-4 state bit for bit."""
+    from progen_tpu_torch.checkpoint.store import CheckpointStore
+
+    tmp, out = meshed_supersteps
+    resumed = _records(out[label, "resumed"][0])
+    assert resumed[0]["start_seq_index"] == 3 * 2 * BATCH_SHARDS[label]
+    assert [r["step"] for r in resumed if "loss" in r] == [4]
+    a = CheckpointStore(str(tmp / f"ck_{label}_per_step")).step_dir(4)
+    b = CheckpointStore(str(tmp / f"ck_{label}_split")).step_dir(4)
+    want, got = (torch.load(d / "params.pt", weights_only=True) for d in (a, b))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), (label, k)

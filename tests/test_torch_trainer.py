@@ -321,18 +321,14 @@ def test_full_validation_eval_is_exact(tmp_path):
     assert got == pytest.approx(np.mean(per_row), rel=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("strategies", ("dp", "tp")), ("mesh", MeshConfig(data=1, fsdp=1, tensor=2, seq=1)),
-    ("superstep", 4), ("attn_impl", "xla"), ("sgu_impl", "xla"),
-])
+@pytest.mark.parametrize("field,value", [("attn_impl", "xla"), ("sgu_impl", "xla")])
 def test_fields_not_ported_are_refused_by_name(data_dir, tmp_path, field, value):
-    """Modes not ported are refused by name; of the mesh and strategies
-    (ported: dp, fsdp, sp), tensor parallelism is; a superstep is refused
-    under a mesh (before any process group is made)."""
-    assert field in trainer_mod.NOT_PORTED + trainer_mod.PARTLY_PORTED
+    """Modes not ported are refused by name (before any process group is
+    made): only the attention and SGU implementations, which are not to be
+    ported; every mesh, strategy and superstep is."""
+    assert trainer_mod.NOT_PORTED == ("attn_impl", "sgu_impl")
+    assert not hasattr(trainer_mod, "PARTLY_PORTED")
     kw = {field: value}
-    if field == "superstep":
-        kw["mesh"] = MeshConfig(data=-1, fsdp=1, tensor=1, seq=1)
     with pytest.raises(ValueError, match=f"TrainerConfig.{field}="):
         _trainer(data_dir, tmp_path / "ck", 1, **kw)
 
@@ -343,7 +339,7 @@ def test_statusz_port_starts_the_server(data_dir, tmp_path):
     import urllib.error
     import urllib.request
 
-    assert "statusz_port" not in trainer_mod.NOT_PORTED + trainer_mod.PARTLY_PORTED
+    assert "statusz_port" not in trainer_mod.NOT_PORTED
     before = signal.getsignal(signal.SIGTERM)
     t = _trainer(data_dir, tmp_path / "ck", 1, statusz_port=0)
     try:

@@ -1,8 +1,11 @@
 """The port's train CLI across ranks on the CPU: ``python -m
 progen_tpu_torch.train`` as two ``gloo`` ranks started by hand (``RANK``,
-``WORLD_SIZE`` and a ``file://`` store under ``tmp_path``), under ``dp`` and
-``fsdp``, three steps on the test's own tfrecords, as
-``tests/test_multihost.py:163-212`` runs the JAX trainer on two processes:
+``WORLD_SIZE`` and a ``file://`` store under ``tmp_path``), under ``dp``,
+``fsdp``, ``tp`` (``--mesh 1,1,2,1``: both ranks read the same rows, each
+holds half of the heads and mlp channels) and ``fsdp,tp`` (the same mesh:
+FSDP2 over each rank's tensor shard), three steps on the test's own
+tfrecords, as ``tests/test_multihost.py:163-212`` runs the JAX trainer on
+two processes:
 
 * each rank reads its round-robin share of the records, so the ranks' rows
   together are the one-process global batch (a permutation of it) and the
@@ -10,8 +13,9 @@ progen_tpu_torch.train`` as two ``gloo`` ranks started by hand (``RANK``,
   is a row mean);
 * exactly one run directory, written by rank 0 alone, which also printed
   every record and the sample;
-* the checkpoint, gathered and written by rank 0, restores with no mesh
-  and takes one more step;
+* the checkpoint, gathered and written by rank 0 (a packed ``tp``
+  parameter's pieces back in order), restores with no mesh, takes one more
+  step and equals the one-rank state;
 * the ragged corpus of ``tests/test_trainer_e2e.py:78`` (18 records, a
   global batch of 8) crosses its epoch boundaries across the ranks;
 * ``--remat`` under ``fsdp`` takes the same steps as ``fsdp`` without it.
@@ -50,6 +54,10 @@ def _write_data(d: Path, rng, train: tuple, valid: int, lengths=(6, 40)) -> Path
     return d
 
 
+# strategy -> the two ranks' mesh (data, fsdp, tensor, seq)
+MESH = {"dp": "-1,1,1,1", "fsdp": "1,-1,1,1", "tp": "1,1,2,1", "fsdp,tp": "1,1,2,1"}
+
+
 def _run_ranks(tmp: Path, name: str, data: Path, strategy: str, batch: int, steps: int,
                sample_every: int, extra: tuple = ()):
     """Start two ranks of the CLI; returns each rank's stdout lines."""
@@ -62,7 +70,7 @@ def _run_ranks(tmp: Path, name: str, data: Path, strategy: str, batch: int, step
             "--grad_accum_every", "1", "--learning_rate", "1e-3", "--log_every", "1",
             "--checkpoint_every", str(steps), "--validate_every", "1000",
             "--sample_every", str(sample_every), "--prime_length", "4",
-            "--max_steps", str(steps), "--mesh", "-1,1,1,1" if strategy == "dp" else "1,-1,1,1",
+            "--max_steps", str(steps), "--mesh", MESH[strategy],
             "--strategies", strategy, "--init_method", f"file://{tmp / f'store_{name}'}",
             "--device", "cpu", *extra]
     procs = [subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -84,6 +92,9 @@ def worlds(tmp_path_factory):
             for name, d, strategy, batch, steps, every, extra in (
                 ("dp", data, "dp", 2, STEPS, STEPS, ()),
                 ("fsdp", data, "fsdp", 2, STEPS, STEPS, ()),
+                # one batch shard: each rank reads the global batch
+                ("tp", data, "tp", 4, STEPS, STEPS, ()),
+                ("fsdp,tp", data, "fsdp,tp", 4, STEPS, STEPS, ()),
                 ("fsdp_remat", data, "fsdp", 2, STEPS, STEPS, ("--remat",)),
                 ("ragged", ragged, "dp", 4, 5, 1000, ()))}
     one = Trainer(CFG, TrainerConfig(
@@ -110,7 +121,7 @@ def _losses(runs: Path) -> dict[int, float]:
     return {r["step"]: r["loss"] for r in rows if "loss" in r}
 
 
-@pytest.mark.parametrize("strategy", ["dp", "fsdp"])
+@pytest.mark.parametrize("strategy", ["dp", "fsdp", "tp", "fsdp,tp"])
 def test_two_ranks_take_the_one_rank_steps(worlds, strategy):
     tmp, _, out, one, _ = worlds
     got = _losses(tmp / f"runs_{strategy}")
@@ -119,7 +130,7 @@ def test_two_ranks_take_the_one_rank_steps(worlds, strategy):
         assert got[step] == pytest.approx(one[step], rel=2e-4), (step, got, one)
 
 
-@pytest.mark.parametrize("strategy", ["dp", "fsdp"])
+@pytest.mark.parametrize("strategy", ["dp", "fsdp", "tp", "fsdp,tp"])
 def test_rank_zero_is_the_one_writer(worlds, strategy):
     tmp, _, out, _, _ = worlds
     run_dirs = list((tmp / f"runs_{strategy}").iterdir())
@@ -132,7 +143,7 @@ def test_rank_zero_is_the_one_writer(worlds, strategy):
     assert any("sample" in r for r in records) and "full_valid_loss" in records[-1]
 
 
-@pytest.mark.parametrize("strategy", ["dp", "fsdp"])
+@pytest.mark.parametrize("strategy", ["dp", "fsdp", "tp", "fsdp,tp"])
 def test_the_checkpoint_restores_with_no_mesh(worlds, strategy):
     tmp, data, _, _, _ = worlds
     ckpt = tmp / f"ck_{strategy}"
@@ -166,7 +177,7 @@ def test_a_ragged_corpus_crosses_epochs_across_ranks(worlds):
     assert all(np.isfinite(r["loss"]) for r in records if "loss" in r)
 
 
-@pytest.mark.parametrize("strategy", ["dp", "fsdp"])
+@pytest.mark.parametrize("strategy", ["dp", "fsdp", "tp", "fsdp,tp"])
 def test_the_gathered_checkpoint_is_the_one_rank_state(worlds, strategy):
     """Every tensor that rank 0 gathered and wrote (the parameters and both
     moments, after the last step) against the one-rank Trainer's at the
