@@ -140,8 +140,8 @@ non-zero without its last line:
    on one GPU, so (b) is the on-card witness of what ``sp`` does across
    ranks; the CPU tests run the ranks;
 12. the engine's resume and operations (``engine_lifecycle``, run after
-   phase 13): ProGen-small at half depth (6 layers; bf16, 8 slots, chunk
-   32) on the 12 requests of phase 7, dense, paged, 8-bit pages, speculative (identity
+   phase 13): ProGen-small at a quarter depth (3 layers since phase 17; bf16, 8 slots, chunk
+   32) on the 12 requests of phase 7 cut to 64 new tokens, dense, paged, 8-bit pages, speculative (identity
    draft), disaggregated (paged) and a workloads mode (paged, a LoRA bank
    of 4 tenants, an infill, an embed, a fork, a request shed at submit, a
    600-residue prime in a cold admit bucket, 8 priority requests that
@@ -187,14 +187,15 @@ non-zero without its last line:
    init, K 4 at accumulation 1 and K 2 at accumulation 2, two dispatches
    each, and ``LoRAProGen`` rank 8 (K 2, accumulation 2, the base
    bit-unchanged): every loss, grad norm, lr, parameter, moment and the
-   accumulator bit-equal, or within the eager runs' own spread (printed);
-   remat ``full``, ``dots``, ``attn`` in f32 against no remat (bit-equal,
-   else JAX's bar) and in bf16 their peak memory, step ms and launches a
+   accumulator bit-equal (the embedding's weight gradient is a one-hot
+   product, so the f32 step is deterministic);
+   remat ``full``, ``dots``, ``attn`` in f32 bit-equal to no remat
+   and in bf16 their peak memory, step ms and launches a
    step against the formula (K1-fwd 24/24/12, K2-fwd 6); the ``Trainer``
-   with ``superstep=4`` over ``train_data_synth/`` (validate 3, checkpoint
+   (6 layers since phase 17) with ``superstep=4`` over ``train_data_synth/`` (validate 3, checkpoint
    4, log 2) to 4, then resumed to 6, its params bit-equal to
    ``superstep=1`` straight to 6, spans 2, 1, 1, 2 and every dispatch's
-   launches the formula; 16 steps at superstep 4 and at 1 (step ms,
+   launches the formula; 8 steps (16 before phase 17) at superstep 4 and at 1 (step ms,
    tokens/s, peak memory), a superstep of two steps traced against two
    eager steps (wall, device ms, idle share, device and host launches), the
    capture's seconds and the bytes its pool holds; live memory within
@@ -217,6 +218,31 @@ non-zero without its last line:
    per-step meshed run (logged losses and grad norms, every parameter),
    the captured ``fsdp`` step traced against its eager step, and K1 with a
    halo captured alone and replayed with new data, bit-equal;
+17. decode under a mesh (``decode_mesh``, after phase 16): ProGen-small at
+   full width and depth on world-1 NCCL meshes under ``(fsdp, tp)`` and
+   ``(dp, tp, sp)``.  In bf16 compute: the prefill's logits against the
+   unmeshed model's (0.1; f32 1e-3), a decode step on the unmeshed
+   prefill's caches bit-equal to the unmeshed step; the sampler on phase
+   4's first prime and noise (2 samples to 512) under both meshes, under
+   ``(fsdp, tp)`` twice bit-equal, prefill ms and decode tokens/s beside
+   the unmeshed sampler's on the same prime and length, the rank's
+   parameter bytes and a decode step's peak; the engine under ``(fsdp,
+   tp)`` on phase 7's 12 requests cut to 64 new tokens, dense, paged and
+   8-bit, eager and warmed by ``aot_warmup``, warmed bit-equal to eager,
+   tokens/s beside the unmeshed engine's.  The bf16 tokens are
+   held, at least 0.98, to unmeshed runs whose K1 takes its halo entry
+   with the zero window, as every meshed prefill does; against the plain
+   unmeshed runs they are printed, not held: the halo entry is one bf16
+   ulp from the plain launch and random weights' near-tied logits turn
+   that into other tokens.  In f32 (the halo entry gives the plain
+   launch's logits) the prefill's logits are held at 1e-3.  Two ranks on
+   the one card meeting over gloo (``(1, 1, 2, 1)`` under ``tp``, f32: the
+   sampler on the first prime to 128, a paged and an 8-bit engine on two
+   requests, at a rank's real shapes, both ranks' tokens equal, at least
+   0.98 of the unmeshed tokens); K1 with the zero halo (B 4, H 4), K2-fwd
+   on 1024 channels, K3 and K3-q8 at d 1024 against their plain versions
+   and timed in bf16, rows of the ``kernels`` line with the two f32 ranks'
+   launches (``launches_of`` says so);
 15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
@@ -225,14 +251,20 @@ Every earlier phase runs at the depth and the step count it always had,
 but for three cuts made with phase 14 to keep the whole near 900 s: phase
 12 at half depth, the resumed runs of phase 8 without a sample hook and
 its feed comparison at prefetch depths 0 and 2 once each (0, 2, 0, 2
-before); and one made with phase 16: phase 11's f32 Trainer runs at 6
-layers (the K1 WMMA route's f32 step is the phase's time).
-The whole takes twelve to seventeen minutes on an H100 (by the host's
+before); one made with phase 16: phase 11's f32 Trainer runs at 6
+layers (the K1 WMMA route's f32 step is the phase's time); and five made
+with phase 17: phase 12 at 3 layers and its requests cut to 64 new tokens
+(64-192 before), phase 14's Trainers at 6 layers and its timed runs at 8
+steps, one traced repeat in phases 14 and 16 (three before), and phase
+14's superstep and remat checks one eager run fewer each (the f32 step is
+deterministic: no spread to measure).
+The whole takes fifteen to twenty minutes on an H100 (by the host's
 pace), the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
 ``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
 with the eager runs it compares against, ``trainer_superstep_alone()``
-phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs.
+phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs,
+``decode_mesh_alone()`` phase 17 with its own unmeshed runs.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -243,8 +275,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import gc
 import json
+import queue as queue_module
 import shutil
 import signal
 import subprocess
@@ -272,6 +306,7 @@ from progen_tpu_torch.decode.engine import Request, ServingEngine, run_with_rest
 from progen_tpu_torch.decode.prefill import make_embedder, make_prefiller, pad_prime_length
 from progen_tpu_torch.decode.sampler import (
     make_chunked_sampler,
+    make_sampler,
     teacher_forced_logits,
 )
 from progen_tpu_torch.models.configs import SMALL, draft_config_for
@@ -294,7 +329,8 @@ from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch import trace_main_path
-from progen_tpu_torch.parallel.sharding import full_tensor
+from progen_tpu_torch.parallel.decode import decode_mesh as decode_view
+from progen_tpu_torch.parallel.sharding import full_tensor, local, parallelize
 from progen_tpu_torch.train import memory as memory_module
 from progen_tpu_torch.train.loss import batch_loss
 from progen_tpu_torch.train.memory import device_hbm_bytes, serving_plan
@@ -956,7 +992,6 @@ def serve(model) -> dict:
     rng = np.random.default_rng(SEED)
     primes = ["".join(rng.choice(list(AMINO), size=p)) for p in PRIME_LENGTHS]
     sampler = make_chunked_sampler(model, chunk_size=64)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     prefill_s = []
     steps = [0]
@@ -980,10 +1015,12 @@ def serve(model) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for text in primes:
+    for i, text in enumerate(primes):
         tokens = torch.tensor([encode_tokens(text)] * SAMPLES_PER_PRIME,
                               device="cuda")
         before = cuda_attention.launches, cuda_sgu.launches
+        # a generator per prime: the decode_mesh phase draws the same noise
+        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
         seq = sampler(tokens, c.seq_len, generator=gen, top_k=25,
                       add_bos=True, temperature=1.0)
         answers.append((text, seq, sampler.last_num_chunks,
@@ -1019,6 +1056,7 @@ def serve(model) -> dict:
     tokens = steps[0] * SAMPLES_PER_PRIME
     return {"launches": launches, "fwd_launches_by_route": {
                 k: routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
+            "tokens": [seq for _, seq, _, _ in answers],
             "prefills": prefills,
             "prefill_ms": [s * 1e3 for s in prefill_s],
             "decode_steps": steps[0], "decode_tokens": tokens,
@@ -1687,6 +1725,11 @@ def check_paged_kernels() -> list[dict]:
 # -- phase 7: the engine path -------------------------------------------------
 
 
+def capped(requests: list[dict], new_tokens: int) -> list[dict]:
+    """``requests`` with at most ``new_tokens`` new tokens each."""
+    return [{**r, "max_new_tokens": min(r["max_new_tokens"], new_tokens)} for r in requests]
+
+
 def engine_requests(c, greedy: bool = False) -> list[dict]:
     """12 requests from the seed: prime lengths 37-511, ``max_new_tokens``
     64-192, half greedy and half top-k 25 at temperature 1, each its own
@@ -1750,13 +1793,39 @@ def drive(engine, phase: str, t0: float) -> tuple[list, float]:
 
 
 def run_engine(phase: str, model, requests: list[dict], want: dict | None = None,
-               aot: bool = False, **engine_kwargs):
+               aot: bool = False, zero_halo: bool = False, **engine_kwargs):
     """Answer ``requests`` through a ``ServingEngine`` over ``model`` (with
-    ``aot``, warmed first: every program a captured CUDA graph); the launch
-    counts are set to 0 just before and read just after.  Checks what
-    every engine run must show, and with ``want`` (the plain engine's tokens
-    in the same mode) the share of equal tokens; returns (tokens by uid,
-    launches and the paged gate mix's launches by route, engine)."""
+    ``aot``, warmed first: every program a captured CUDA graph; with
+    ``zero_halo``, K1 through its halo entry, :func:`k1_zero_halo`); the
+    launch counts are set to 0 just before and read just after.  Checks
+    what every engine run must show, and with ``want`` (the plain engine's
+    tokens in the same mode) the share of equal tokens; returns (tokens by
+    uid, launches and the paged gate mix's launches by route, engine)."""
+    with k1_zero_halo() if zero_halo else contextlib.nullcontext():
+        return _run_engine(phase, model, requests, want, aot, zero_halo, **engine_kwargs)
+
+
+@contextlib.contextmanager
+def k1_zero_halo():
+    """K1 through its halo entry with the zero window wherever the model
+    calls it without a halo: the unmeshed forward then launches K1 as a
+    meshed prefill does (``parallel/context.py:sharded_local_attention``),
+    a reference that differs from the meshed decode only by the mesh."""
+    plain = cuda_attention.local_attention
+
+    def haloed(q, k, v, window_size, scale=None, k_halo=None, v_halo=None):
+        if k_halo is None:
+            b, h, _, d = k.shape
+            k_halo = v_halo = torch.zeros(b, h, window_size, d, dtype=k.dtype,
+                                          device=k.device)
+        return plain(q, k, v, window_size, scale, k_halo, v_halo)
+
+    with mock.patch.object(cuda_attention, "local_attention", haloed):
+        yield
+
+
+def _run_engine(phase: str, model, requests: list[dict], want: dict | None,
+                aot: bool, zero_halo: bool, **engine_kwargs):
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
                            max_len=c.seq_len, page_size=ENGINE_PAGE, **engine_kwargs)
@@ -1812,6 +1881,8 @@ def run_engine(phase: str, model, requests: list[dict], want: dict | None = None
     if paged:
         expected["paged_gate_mix_q8" if q8 else "paged_gate_mix"] = \
             c.global_mlp_depth * steps
+    if engine_kwargs.get("mesh") is not None or zero_halo:  # K1 through its halo entry
+        expected["local_attention_fwd_halo"] = expected["local_attention_fwd"]
     require(launches == expected,
             f"{phase}: kernel launches {launches}, want {expected}")
     generated = sum(len(comp.tokens) for comp in done)
@@ -1886,6 +1957,10 @@ def describe(engine_kwargs: dict) -> dict:
             v = v.config.to_dict()
         elif k == "lora_bank" and v is not None:
             v = {"tenants": bank_num_tenants(v), "rank": int(v["attn0"]["qkv"]["a"].shape[-1])}
+        elif k == "mesh":
+            v = dict(zip(v.mesh_dim_names, v.mesh.shape))
+        elif k == "params_shardings":
+            v = {"strategies": v.strategies}
         out[k] = v
     return out
 
@@ -2496,7 +2571,8 @@ LIFECYCLE_TRAINER_STEPS = 3
 # the phase's ProGen-small depth: 12 (the whole model) before phase 14 came,
 # cut to half to keep the whole smoke near 900 s; it runs its own
 # uninterrupted runs
-LIFECYCLE_DEPTH = 6
+LIFECYCLE_DEPTH = 3
+LIFECYCLE_NEW_TOKENS = 64  # its cap on the requests' new tokens (64-192 in phase 7)
 LIFECYCLE_MEMORY_SLACK = 256 << 20  # live bytes allowed above the phase's start
 LIFECYCLE_TRACE_CAPACITY = 1 << 16
 # the engine's span and event names the phase's trace must hold
@@ -2761,6 +2837,7 @@ def engine_lifecycle(model, requests: list[dict], refs: dict | None = None) -> d
     refs = dict(refs or {})
     smi = smi_name_power()
     c = model.config
+    requests = capped(requests, LIFECYCLE_NEW_TOKENS)
     root = Path(tempfile.mkdtemp(prefix="progen-smoke-lifecycle-"))
     trips = []
     watchdog = Watchdog(LIFECYCLE_WATCHDOG_S, out_dir=str(root / "watchdog"),
@@ -3171,13 +3248,14 @@ def engine_graphs_alone() -> dict:
 SUPERSTEP_K = 4                   # the superstep Trainer's span
 SUPERSTEP_SCHEDULE = dict(name="constant", base_lr=TRAIN_LR, warmup_steps=32)
 SUPERSTEP_RUNS = ((4, 1, 2), (2, 2, 2))  # (K, accumulation, dispatches) against eager steps
-SUPERSTEP_TIMED_STEPS = 16        # steps of each timed Trainer run
-SUPERSTEP_TRACES = 3              # bare and profiled runs of each traced span
+SUPERSTEP_TIMED_STEPS = 8         # steps of each timed Trainer run (16 before phase 17)
+SUPERSTEP_TRAINER_DEPTH = 6       # the superstep Trainers' layers (12 before phase 17)
+SUPERSTEP_TRACES = 1              # bare and profiled runs of each traced span (3 before phase 17)
 SUPERSTEP_TRACED_STEPS = 2        # steps of each traced span (the profiler is slow)
 SUPERSTEP_CADENCES = dict(validate_every=3, checkpoint_every=4, log_every=2,
                           sample_every=1000)  # tests/test_trainer_e2e.py:261
 REMAT_POLICIES = (None, "full", "dots", "attn")
-REMAT_RUNS_F32 = (None, None, "full", "dots", "attn")  # no remat twice: its own spread
+REMAT_RUNS_F32 = (None, "full", "dots", "attn")  # no remat once: its step is deterministic
 REMAT_TIMED_STEPS = 4             # bf16 steps timed per policy, after one warm-up
 TOL_REMAT_LOSS = 1e-6             # JAX's remat bars (tests/test_model.py:125-147)
 TOL_REMAT_GRAD = (1e-5, 1e-6)     # rtol, atol
@@ -3276,20 +3354,19 @@ def state_tensors(state) -> dict:
     return {k: t.detach().clone() for k, t in out.items()}
 
 
-def superstep_vs_eager(k: int, accum: int, dispatches: int, lora: bool = False,
-                       eager_twice: bool = False) -> dict:
+def superstep_vs_eager(k: int, accum: int, dispatches: int, lora: bool = False) -> dict:
     """From one init, ``dispatches`` calls of ``train_multi_step`` over
     ``(k, accum, 8, 1025)`` superbatches against the same micro-batches
-    through ``train_step`` (with ``eager_twice`` twice, to show the eager
-    steps agree with themselves): every loss, grad norm and lr, every
-    parameter, both moments and the accumulator bit-equal, or else within
-    the eager runs' own spread (printed); LoRA's base bit-unchanged."""
+    through ``train_step``: every loss, grad norm and lr, every parameter,
+    both moments and the accumulator bit-equal (the step is deterministic:
+    the embedding's weight gradient is a one-hot product); LoRA's base
+    bit-unchanged."""
     micro = train_batches(SMALL, TRAIN_BATCH, dispatches * k * accum, SEED + 21)
     supers = [torch.stack(micro[i * k * accum:(i + 1) * k * accum]).reshape(
         k, accum, TRAIN_BATCH, -1) for i in range(dispatches)]
     runs = []
     model, initial = superstep_model(lora)
-    for fused in (False, False, True) if eager_twice else (False, True):
+    for fused in (False, True):
         fns, state = superstep_fns(model, initial, accum)
         base = ({n: p.detach().clone() for n, p in state.params.items() if n.startswith("base.")}
                 if lora and fused else None)
@@ -3323,28 +3400,24 @@ def superstep_vs_eager(k: int, accum: int, dispatches: int, lora: bool = False,
         out["state_tensors_differ"] = sum(not torch.equal(ta[n], tb[n]) for n in ta)
         return out
 
-    eager_spread = differ(runs[0], runs[1]) if eager_twice else None
     fused_vs_eager = differ(runs[-1], runs[0])
     bit_equal = fused_vs_eager["state_tensors_differ"] == 0 and all(
         v == 0.0 for key, v in fused_vs_eager.items() if key != "state_tensors_differ")
-    within_spread = eager_spread is not None and all(
-        fused_vs_eager[key] <= eager_spread[key] for key in eager_spread)
     result = {"model": f"LoRAProGen rank {LORA_RANK}" if lora else "ProGen", "k": k,
               "accum": accum, "dispatches": dispatches, "bit_equal": bit_equal,
-              "eager_vs_eager": eager_spread, "superstep_vs_eager": fused_vs_eager,
+              "superstep_vs_eager": fused_vs_eager,
               "losses": runs[-1][0]["loss"].tolist(), "lrs": runs[-1][0]["lr"].tolist(),
               "state_tensors": len(runs[0][1])}
     emit("superstep_vs_eager", **result)
-    require(bit_equal or within_spread,
-            f"the superstep differs from the eager steps beyond their spread: {result}")
+    require(bit_equal, f"the superstep differs from the eager steps: {result}")
     return result
 
 
 def remat_checks(c=SMALL) -> dict:
     """Each remat policy at batch 8: in f32 the loss and every gradient
-    against no remat (bit-equal, else JAX's bar: loss 1e-6 relative,
-    gradients 1e-5 / 1e-6), and no remat against itself (its own spread);
-    in bf16 compute the peak memory, the eager step's ms (median of
+    bit-equal to no remat's (JAX's bar, loss 1e-6 relative and gradients
+    1e-5 / 1e-6, is printed beside); in bf16 compute the peak memory, the
+    eager step's ms (median of
     REMAT_TIMED_STEPS after one), each kernel's launches a step against
     :func:`remat_launch_formula`, and the ms of a step replayed from its
     capture."""
@@ -3369,13 +3442,11 @@ def remat_checks(c=SMALL) -> dict:
                       for n, g in grads.items())
         errs = {n: float((g - want_grads[n]).abs().max()) for n, g in grads.items()}
         worst = max(errs, key=errs.get)
-        f32[policy or "none_again"] = {
-            "bit_equal": bit, "bar": "bit-equal" if bit else "JAX's rtol/atol",
+        f32[policy] = {
+            "bit_equal": bit, "within_jax_bar": loss_err <= TOL_REMAT_LOSS and grad_ok,
             "loss_rel_err": loss_err, "grad_max_abs_err": errs[worst], "worst_leaf": worst,
             "leaves_differ": sum(e > 0 for e in errs.values()), "leaves": len(errs)}
-        require(bit or (loss_err <= TOL_REMAT_LOSS and grad_ok),
-                f"remat {policy}: gradients off no remat's beyond JAX's bar: "
-                f"{f32[policy or 'none_again']}")
+        require(bit, f"remat {policy}: gradients not bit-equal to no remat's: {f32[policy]}")
         del grads
     del want_grads, model
     gc.collect()
@@ -3519,11 +3590,11 @@ def trainer_superstep(c=SMALL) -> dict:
     compute unless said): (1) the six training kernels captured alone and
     replayed with new data, bit-equal to eager launches; (2) from one
     init, ``train_multi_step`` against the eager steps, K 4 at accumulation
-    1 (the eager steps twice: their own spread) and K 2 at accumulation 2,
-    two dispatches each, and LoRA (rank 8, K 2, accumulation 2): bit-equal
-    (or within the eager steps' own spread);
-    (3) remat: f32 gradients against no remat per policy, bf16 peak memory,
-    step ms and launches against the formula; (4) the Trainer with
+    1 and K 2 at accumulation 2, two dispatches each, and LoRA (rank 8, K 2,
+    accumulation 2): bit-equal;
+    (3) remat: f32 gradients bit-equal to no remat per policy, bf16 peak memory,
+    step ms and launches against the formula; (4) the Trainer (at
+    SUPERSTEP_TRAINER_DEPTH layers) with
     ``superstep=4`` over ``train_data_synth/`` (validate 3, checkpoint 4,
     log 2): to 4, then a resume to 6, bit-equal to ``superstep=1`` straight
     to 6, every dispatch's launches the formula; then SUPERSTEP_TIMED_STEPS
@@ -3541,8 +3612,7 @@ def trainer_superstep(c=SMALL) -> dict:
     checks = training_capture_checks(torch.Generator(device="cuda").manual_seed(SEED + 20))
     seconds["capture_checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    equal = [superstep_vs_eager(k, accum, n, eager_twice=i == 0)
-             for i, (k, accum, n) in enumerate(SUPERSTEP_RUNS)]
+    equal = [superstep_vs_eager(k, accum, n) for k, accum, n in SUPERSTEP_RUNS]
     equal.append(superstep_vs_eager(2, 2, 2, lora=True))
     seconds["superstep_vs_eager"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3553,6 +3623,8 @@ def trainer_superstep(c=SMALL) -> dict:
 
     root = Path(tempfile.mkdtemp(prefix="progen-smoke-superstep-"))
     sigterm = signal.getsignal(signal.SIGTERM)
+    full = c
+    c = dataclasses.replace(c, depth=SUPERSTEP_TRAINER_DEPTH)  # the Trainers' model
     step_launches = remat_launch_formula(c, None)
     try:
         reset_counts()
@@ -3606,6 +3678,7 @@ def trainer_superstep(c=SMALL) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     seconds["trainer"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    c = full
     traced = superstep_timing(c)
     seconds["traced"] = time.perf_counter() - t0
     gc.collect()
@@ -3613,7 +3686,8 @@ def trainer_superstep(c=SMALL) -> dict:
     live = torch.cuda.memory_allocated()
     result = {"config": "small", "batch": TRAIN_BATCH, "capture_checks": checks,
               "superstep_vs_eager": equal, "remat": remat,
-              "trainer": {"k": SUPERSTEP_K, **SUPERSTEP_CADENCES, "spans": spans,
+              "trainer": {"k": SUPERSTEP_K, "depth": SUPERSTEP_TRAINER_DEPTH,
+                          **SUPERSTEP_CADENCES, "spans": spans,
                           "resumed_params_equal": True, "timed": timed, "traced": traced},
               "launches": launches, "routes": routes, "nvidia_smi": smi_name_power(),
               "live_above_start_bytes": live - start_bytes,
@@ -4333,6 +4407,532 @@ def trainer_mesh_summary(result: dict) -> dict:
             "tp": tp, "traced": traced}
 
 
+# -- phase 17: decode under a mesh ----------------------------------------------
+
+# the world-1 meshes of the phase: label, strategies
+DECODE_MESH_RUNS = (("fsdp_tp", ("fsdp", "tp")), ("dp_tp_sp", ("dp", "tp", "sp")))
+DECODE_MESH_MODES = (("dense", {}), ("paged", {"paged": True}),
+                     ("paged_q8", {"paged": True, "quantize": "weights+pages"}))
+RANK_TENSOR = 2  # the tensor split whose rank shapes the kernels are held at
+TWO_RANK_SECONDS = 300  # the two gloo ranks' budget, their start included
+TWO_RANK_LENGTH = 128   # the two ranks' sampler: the first prime to this length
+DECODE_MESH_LENGTH = 512  # the meshed samplers' length (the first prime; 1024 in phase 4)
+DECODE_MESH_NEW_TOKENS = 64  # the meshed engines' cap on phase 7's requests (64-192 there)
+
+
+def mesh_model(dtype_bf16: bool, strategies):
+    """ProGen-small (seed SEED) placed on a world-1 NCCL mesh under
+    ``strategies``; returns the model, its mesh and its plan."""
+    mesh = make_mesh(MeshConfig(1, 1, 1, 1), "cuda")
+    model = ProGen(SMALL, make_policy(dtype_bf16), device="cuda", seed=SEED).eval()
+    plan = parallelize(model, mesh, strategies)
+    return model, mesh, plan
+
+
+def mesh_primes() -> list[str]:
+    rng = np.random.default_rng(SEED)
+    return ["".join(rng.choice(list(AMINO), size=p)) for p in PRIME_LENGTHS]
+
+
+def sample_primes(sampler, primes: list[str], length: int | None = None
+                  ) -> tuple[list, dict]:
+    """Each prime, SAMPLES_PER_PRIME rows of it, to ``length`` (default
+    ``seq_len``) through ``sampler`` as phase 4 samples it (a generator
+    seeded SEED + i per prime, top-k 25, temperature 1: a shorter length
+    gives the prefix of the longer run); the tokens and the run's seconds
+    and decode steps."""
+    c = sampler.model.config
+    length = length or c.seq_len
+    out, steps = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, text in enumerate(primes):
+        tokens = torch.tensor([encode_tokens(text)] * SAMPLES_PER_PRIME, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+        out.append(sampler(tokens, length, generator=gen, top_k=25, add_bos=True,
+                           temperature=1.0))
+        start = len(text) + 1
+        steps += min(start + sampler.last_num_chunks * sampler.chunk_size, length - 1) - start
+    torch.cuda.synchronize()
+    return out, {"total_s": time.perf_counter() - t0, "decode_steps": steps}
+
+
+def prefill_ms(model, view, primes: list[str]) -> list[float]:
+    """Each prime's prefill (SAMPLES_PER_PRIME rows, BOS-prefixed) alone,
+    synchronized, after one warm call."""
+    c = model.config
+    prefill = make_prefiller(model, view)
+    out = []
+    for text in primes:
+        p = len(text) + 1
+        p_pad = pad_prime_length(p, c.window_size, c.seq_len)
+        tokens = torch.zeros(SAMPLES_PER_PRIME, p_pad, dtype=torch.long, device="cuda")
+        tokens[:, 1:p] = torch.tensor(encode_tokens(text), device="cuda")
+        lengths = torch.full((SAMPLES_PER_PRIME,), p, device="cuda")
+        prefill(tokens, lengths, decode_len=c.seq_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(tokens, lengths, decode_len=c.seq_len)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def mesh_prefill_vs_unmeshed(bf16: bool) -> dict:
+    """The prefill's last logits of ProGen-small on each world-1 mesh
+    against the unmeshed model's (both through the kernels; K1 through its
+    halo entry on the mesh), at the longest prime's padded length, at the
+    whole-model bars (f32 1e-3, bf16 0.1)."""
+    c = SMALL
+    rng = np.random.default_rng(SEED + 40)
+    p = PRIME_LENGTHS[-1] + 1
+    p_pad = pad_prime_length(p, c.window_size, c.seq_len)
+    tokens = torch.tensor(rng.integers(1, c.num_tokens, size=(2, p_pad)), device="cuda")
+    lengths = torch.tensor([p, p // 2], device="cuda")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    want, _ = make_prefiller(ProGen(c, make_policy(bf16), device="cuda", seed=SEED).eval())(
+        tokens, lengths, decode_len=c.seq_len)
+    out = {"dtype": str(dtype)}
+    for label, strategies in DECODE_MESH_RUNS:
+        model, _, _ = mesh_model(bf16, strategies)
+        got, _ = make_prefiller(model, decode_view(model))(tokens, lengths, decode_len=c.seq_len)
+        out[label] = compare(got, want, TOL_MODEL[dtype])
+        require(bool(torch.isfinite(got).all()) and out[label]["ok"],
+                f"the meshed prefill ({label}, {dtype}) is off the unmeshed one: {out[label]}")
+        del model
+        gc.collect()
+    return out
+
+
+def param_bytes(model) -> int:
+    """The bytes of the parameters this rank holds (its shards)."""
+    return sum(local(p).numel() * local(p).element_size() for p in model.parameters())
+
+
+def step_bytes(model, view) -> dict:
+    """One decode step of 8 rows at position 600 after a prefill: the
+    parameter bytes the rank holds, and the step's peak above the bytes live
+    before it (the blocks' unsharded copies under ``fsdp``, the
+    activations)."""
+    c = model.config
+    prefill = make_prefiller(model, view)
+    tokens = torch.randint(1, 25, (8, 768), device="cuda")
+    lengths = torch.full((8,), 600, device="cuda")
+    _, caches = prefill(tokens, lengths, decode_len=c.seq_len)
+    step = incremental.ProGenDecodeStep(model, view)
+    step(tokens[:, 599], lengths, caches)
+    gc.collect()  # no garbage of earlier work freed inside the measured step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    step(tokens[:, 599], lengths, caches)
+    torch.cuda.synchronize()
+    return {"param_bytes": param_bytes(model),
+            "step_peak_above_start_bytes": torch.cuda.max_memory_allocated() - start}
+
+
+def rank_shape_rows(gen) -> list[dict]:
+    """The kernels of the meshed path at the shapes a rank of a ``tensor``
+    RANK_TENSOR mesh gives them at ProGen-small, bf16: K1-fwd through its
+    halo entry with the zero window on 4 of 8 heads (B 4, L 1024, D 128),
+    K2-fwd on 1024 of 2048 gate channels (B 4, n 1024), K3 and K3-q8 at d
+    1024 (the engine's 8 ragged rows, page 16); each against its plain
+    version at its row's bars, twice for the same bits and on the route of
+    the whole width, then timed with its bound, plain version and library
+    call.  ``launches`` is left to the caller."""
+    c = SMALL
+    h, half, wsz = c.heads // RANK_TENSOR, c.dim * c.ff_mult // 2 // RANK_TENSOR, c.window_size
+    b, n, d = 4, c.seq_len, c.dim_head
+    q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    zero = torch.zeros(b, h, wsz, d, device="cuda", dtype=torch.bfloat16)
+    before = dict(cuda_attention.fwd_route_launches)
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, zero, zero)
+    again = cuda_attention.local_attention_fwd(q, k, v, wsz, None, zero, zero)
+    torch.cuda.synchronize()
+    routed = {r: cuda_attention.fwd_route_launches[r] - before[r] for r in before}
+    want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
+                                     k_halo=zero, v_halo=zero)
+    res = {"out": compare(out, want, TOL_ATTN_OUT[torch.bfloat16]),
+           "lse": compare(lse, want_lse, TOL[torch.float32]),
+           "second_run_same_bits": torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+           "launches_by_route": routed}
+    emit("kernel_check", kernel="local_attention_fwd_halo", shape=[b, h, n, d],
+         halo="zero window", **res)
+    require(res["out"]["ok"] and res["lse"]["ok"] and res["second_run_same_bits"]
+            and routed == {**dict.fromkeys(routed, 0), "wgmma": 2},
+            f"K1 with a zero halo at a rank's heads disagrees with its plain version: {res}")
+    w = n // wsz
+    qw = q.reshape(b, h * w, wsz, d)
+    kw = concat_previous_window(k.reshape(b, h, w, wsz, d), zero).reshape(b, h * w, 2 * wsz, d)
+    vw = concat_previous_window(v.reshape(b, h, w, wsz, d), zero).reshape(b, h * w, 2 * wsz, d)
+    mask = window_mask(wsz, q.device)
+    pairs = real_visible(n, wsz, halo=True) * b * h
+    nbytes = 4.0 * b * h * n * d * 2 + 2 * b * h * wsz * d * 2 + 4.0 * b * h * n
+    bound_ms, bound_by = bound(nbytes, 4.0 * d * pairs, torch.bfloat16)
+    k1 = {"name": f"local_attention_fwd_halo_tp{RANK_TENSOR}", "route": "cuda",
+          "k1_route": cuda_attention.fwd_route(torch.bfloat16, d, wsz),
+          "source": "progen_tpu_torch/kernels/csrc/local_attention_fwd.cu",
+          "replaces": "progen_tpu/ops/pallas_attention.py:258",
+          "launches": None,
+          "max_abs_err": max(res["out"]["max_abs_err"], res["lse"]["max_abs_err"]),
+          "ms": time_ms(lambda: cuda_attention.local_attention_fwd(q, k, v, wsz, None,
+                                                                   zero, zero)),
+          "plain_ms": time_ms(lambda: local_attention(q, k, v, window_size=wsz,
+                                                      return_lse=True, k_halo=zero,
+                                                      v_halo=zero)),
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+              qw, kw, vw, attn_mask=mask, scale=d ** -0.5)),
+          "timed_shape": [b, h, n, d], "window": wsz, "halo": "zero window",
+          "timed_dtype": str(torch.bfloat16), "bytes": nbytes, "flops": 4.0 * d * pairs}
+    emit("kernel_time", **k1)
+    del q, k, v, qw, kw, vw, out, again, want
+    inputs, err = sgu_case(gen, b, n, half, "normal", torch.bfloat16)
+    k2 = {**sgu_fwd_row(inputs, err, [err]), "name": f"sgu_fwd_tp{RANK_TENSOR}"}
+    emit("kernel_time", **k2)
+    del inputs
+    case = paged_case(gen, n, half, ENGINE_PAGE, PAGED_POS, torch.bfloat16)
+    k3 = [paged_check(f"rank_of_tp{RANK_TENSOR}", case, "f32_w", "paged_gate_mix")]
+    q8 = [paged_check(f"rank_of_tp{RANK_TENSOR}", case, "int8_w_int8_pool",
+                      "paged_gate_mix_q8")]
+    rows = [k1, k2,
+            {**paged_row(f"paged_gate_mix_tp{RANK_TENSOR}", 54, case, "f32_w", k3)},
+            {**paged_row(f"paged_gate_mix_q8_tp{RANK_TENSOR}", 81, case,
+                         "int8_w_int8_pool", q8)}]
+    return rows
+
+
+def _two_rank_worker(rank: int, store: str, prime: str, length: int, bf16: bool,
+                     queue) -> None:
+    """One of two ranks on ``cuda:0`` meeting over gloo (NCCL refuses two
+    ranks on one GPU): ProGen-small placed on ``(1, 1, 2, 1)`` under ``tp``,
+    ``prime`` through the meshed sampler as phase 4 samples it, then phase
+    7's first two requests (16 new tokens each) through a paged and an
+    8-bit paged engine; puts its tokens, the sampler's seconds and the
+    launch counts of these runs.  Each stage is noted on stderr."""
+    def note(stage: str) -> None:
+        print(f"two ranks: rank {rank}: {stage}", file=sys.stderr, flush=True)
+
+    try:
+        note("started")
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2,
+                                rank=rank, timeout=datetime.timedelta(seconds=300))
+        note("process group")
+        mesh = make_mesh(MeshConfig(1, 1, 2, 1), "cuda")
+        model = ProGen(SMALL, make_policy(bf16), device="cuda", seed=SEED).eval()
+        # the 8-bit engine's int8 model, quantized whole on each rank (its
+        # scales the whole weights') and then placed, as a user would
+        quantized = ServingEngine._quantize_variables(model)
+        plans = {"paged": parallelize(model, mesh, ("tp",)),
+                 "paged_q8": parallelize(quantized, mesh, ("tp",))}
+        plan = plans["paged"]
+        note("placed")
+        sampler = make_sampler(model, 64, mesh=mesh, strategies=("tp",), params_shardings=plan)
+        reset_counts()
+        got, run = sample_primes(sampler, [prime], length)
+        note("sampled")
+        # every K1-fwd and K2-fwd launch of the sampler on its dtype's route
+        require_forward_routes(read_routes(), read_counts(), bf16, f"tp rank {rank}")
+        routes = read_routes()
+        engines = {}
+        for mode, kwargs in DECODE_MESH_MODES[1:]:
+            served = quantized if mode == "paged_q8" else model
+            engine = ServingEngine(served, num_slots=2, chunk_size=16, max_len=SMALL.seq_len,
+                                   page_size=ENGINE_PAGE, mesh=mesh, strategies=("tp",),
+                                   params_shardings=plans[mode], **kwargs)
+            for r in engine_requests(SMALL)[:2]:
+                engine.submit(Request(**{**r, "max_new_tokens": 16}))
+            engines[mode] = {c.uid: c.tokens.tolist() for c in engine.run_until_idle()}
+            engine.close()
+            note(f"served {mode}")
+        # plain lists: a tensor crosses the queue as shared memory that dies
+        # with this process
+        queue.put((rank, {"tokens": got[0].tolist(), "engines": engines,
+                          "launches": read_counts(),
+                          "routes": routes, **run, "param_bytes": param_bytes(model)}))
+        dist.destroy_process_group()
+    except BaseException as e:
+        note(f"failed: {type(e).__name__}: {e}")
+        queue.put((rank, {"error": f"{type(e).__name__}: {e}"[-2000:]}))
+
+
+def two_rank_decode(prime: str, want: torch.Tensor, length: int, bf16: bool) -> dict:
+    """Two processes on the one card, each a rank of a ``(1, 1, 2, 1)``
+    mesh under ``tp`` meeting over gloo (its collectives on CUDA tensors):
+    the sampler at a tensor rank's real shapes end to end, eager.  Both
+    ranks' tokens equal, at least ENGINE_TOKEN_MATCH of ``want`` (the
+    unmeshed sampler's on the same prime and noise), every K1-fwd launch
+    through the halo entry and every K1/K2-fwd launch on ``wgmma``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = tempfile.mktemp(prefix="progen-smoke-gloo-")
+    procs = [ctx.Process(target=_two_rank_worker,
+                         args=(r, store, prime, length, bf16, queue))
+             for r in range(RANK_TENSOR)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + TWO_RANK_SECONDS
+    try:
+        while len(got) < len(procs) and time.monotonic() < deadline:
+            with contextlib.suppress(queue_module.Empty):
+                rank, out = queue.get(timeout=5)
+                got[rank] = out
+            if any("error" in g for g in got.values()):
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=5 if len(got) < len(procs) else 60)
+            if p.is_alive():
+                p.kill()
+    errors = {r: g["error"] for r, g in got.items() if "error" in g}
+    require(not errors and len(got) == len(procs),
+            f"two gloo ranks on the card failed or took over {TWO_RANK_SECONDS} s: "
+            f"{errors or sorted(got)}")
+    tokens = [torch.tensor(got[r].pop("tokens")) for r in range(RANK_TENSOR)]
+    result = {**got[0], "ranks": RANK_TENSOR, "backend": "gloo", "length": length,
+              "dtype": "bf16 compute" if bf16 else "f32",
+              "every_rank_equal": all(torch.equal(t, tokens[0]) for t in tokens)
+              and all(got[r]["engines"] == got[0]["engines"] for r in got),
+              "token_match_vs_unmeshed": float((tokens[0] == want[:, :length].cpu())
+                                               .float().mean()),
+              "min_token_match": ENGINE_TOKEN_MATCH}
+    launches = result["launches"]
+    require(result["every_rank_equal"], "the two tp ranks sampled different tokens")
+    require(result["token_match_vs_unmeshed"] >= ENGINE_TOKEN_MATCH,
+            f"the two tp ranks kept {result['token_match_vs_unmeshed']} of the unmeshed tokens")
+    require(launches["local_attention_fwd"] == launches["local_attention_fwd_halo"] > 0
+            and launches["sgu_fwd"] > 0 and launches["paged_gate_mix"] > 0
+            and launches["paged_gate_mix_q8"] > 0,
+            f"the two tp ranks did not launch K1 through its halo entry, K2, K3 and K3-q8: "
+            f"{launches}")
+    return result
+
+
+def step_vs_unmeshed(model, base) -> dict:
+    """One bf16 decode step of the placed ``model`` on the caches of the
+    unmeshed ``base``'s prefill (8 rows at ragged positions 37-600) against
+    ``base``'s step on the same caches: the meshed step reads the same
+    weights (FSDP2's unsharded copies under ``fsdp``), so bit-equal."""
+    c = model.config
+    rng = np.random.default_rng(SEED + 42)
+    tokens = torch.tensor(rng.integers(1, 25, size=(8, 768)), device="cuda")
+    lengths = torch.tensor([37, 100, 256, 257, 300, 511, 512, 600], device="cuda")
+    _, caches = make_prefiller(base)(tokens, lengths, decode_len=c.seq_len)
+    tok = tokens[torch.arange(8, device="cuda"), lengths - 1]
+    want, _ = incremental.ProGenDecodeStep(base)(tok, lengths, incremental.copy_caches(caches))
+    got, _ = incremental.ProGenDecodeStep(model, decode_view(model))(
+        tok, lengths, incremental.copy_caches(caches))
+    return {"bit_equal": torch.equal(got, want),
+            "max_abs_err": float((got.float() - want.float()).abs().max())}
+
+
+def sampled_match(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Share of equal tokens of two samplers' ``(B, length)`` outputs."""
+    return float((got == want).float().mean())
+
+
+def decode_rate(run: dict) -> float:
+    """A sampler run's decode tokens/s: its rows' decode steps over its
+    seconds less its prefill's (``prefill_ms``, timed alone)."""
+    return (run["decode_steps"] * SAMPLES_PER_PRIME
+            / (run["total_s"] - sum(run["prefill_ms"]) / 1e3))
+
+
+def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
+    """Phase 17 (after ``trainer_mesh``): decode under a world-1 NCCL mesh
+    at ProGen-small's full width and depth under ``(fsdp, tp)`` and ``(dp,
+    tp, sp)``.  In bf16 compute over f32 params (the serving configuration):
+    (a) the prefill's logits against the unmeshed model's (0.1; and in f32,
+    1e-3); a decode step on the unmeshed prefill's caches bit-equal to the
+    unmeshed step (:func:`step_vs_unmeshed`); the parameter bytes on the
+    rank and a decode step's peak; (b) the sampler on phase 4's first prime
+    x 2 samples to DECODE_MESH_LENGTH with phase 4's noise, under ``(fsdp,
+    tp)`` twice, bit-equal, with prefill ms and decode tokens/s beside the
+    unmeshed sampler's on the same prime and length, and once under ``(dp,
+    tp, sp)``; (c) under ``(fsdp, tp)`` the engine on phase 7's 12
+    requests cut to DECODE_MESH_NEW_TOKENS new tokens, dense, paged and
+    8-bit pages, eager and warmed by ``aot_warmup``: warmed bit-equal to
+    eager, tokens/s beside the unmeshed engine's.  The meshed bf16 tokens
+    are held, at least ENGINE_TOKEN_MATCH, to unmeshed runs with K1
+    through its halo entry (:func:`k1_zero_halo`), which every meshed
+    prefill takes: that entry is one bf16 ulp from K1's plain launch, and
+    a random-weight model's near-tied logits turn that into other tokens
+    within a few steps, so the match with the plain unmeshed runs (phase
+    4's sampler and phase 7's engines, ``unmeshed_engine``, else run here)
+    is printed, not held.  (d) Two ranks on the one card meeting over gloo
+    (:func:`two_rank_decode`), f32, held to the plain unmeshed f32
+    sampler, and (e) the kernels at a tensor rank's shapes
+    (:func:`rank_shape_rows`).  The launch counts are set to 0 at the
+    start of (b) and summed over (b) and (c)."""
+    t_phase = time.perf_counter()
+    c = SMALL
+    seconds = {}
+    primes = mesh_primes()
+    requests = capped(engine_requests(c), DECODE_MESH_NEW_TOKENS)
+    t0 = time.perf_counter()
+    base = ProGen(c, make_policy(True), device="cuda", seed=SEED).eval()
+    if unmeshed_engine is None:
+        unmeshed_engine = {}
+        for mode, kwargs in DECODE_MESH_MODES:
+            unmeshed_engine[mode], _, engine = run_engine(f"engine_{mode}_unmeshed", base,
+                                                          requests, **kwargs)
+            engine.close()
+    # the references of the meshed bf16 tokens: K1 through its halo entry
+    zero_halo_engine = {}
+    for mode, kwargs in DECODE_MESH_MODES:
+        zero_halo_engine[mode], _, engine = run_engine(
+            f"decode_mesh_engine_{mode}_zero_halo_unmeshed", base, requests,
+            zero_halo=True, **kwargs)
+        engine.close()
+    with k1_zero_halo():
+        want, _ = sample_primes(make_sampler(base, 64), primes[:1], DECODE_MESH_LENGTH)
+    plain, base_run = sample_primes(make_sampler(base, 64), primes[:1], DECODE_MESH_LENGTH)
+    base_run.update(prefill_ms=prefill_ms(base, None, primes[:1]), **step_bytes(base, None))
+    base_run["decode_tokens_per_s"] = decode_rate(base_run)
+    base32 = ProGen(c, make_policy(False), device="cuda", seed=SEED).eval()
+    want32, _ = sample_primes(make_sampler(base32, 64), primes[:1], TWO_RANK_LENGTH)
+    del base32
+    gc.collect()
+    seconds["unmeshed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two_ranks = two_rank_decode(primes[0], want32[0], TWO_RANK_LENGTH, False)
+    seconds["two_ranks"] = time.perf_counter() - t0
+    emit("decode_mesh_two_ranks", nvidia_smi=smi,
+         **{k: v for k, v in two_ranks.items() if k != "routes"})
+    initialize_distributed("cuda")  # a world of one, NCCL
+    try:
+        t0 = time.perf_counter()
+        prefill_checks = {"f32": mesh_prefill_vs_unmeshed(False),
+                          "bf16": mesh_prefill_vs_unmeshed(True)}
+        emit("decode_mesh_prefill_vs_unmeshed", **prefill_checks)
+        seconds["prefill_checks"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        reset_counts()
+        sampled, launches, steps = {}, {name: 0 for name in COUNTERS}, {}
+        for label, strategies in DECODE_MESH_RUNS:
+            model, mesh, plan = mesh_model(True, strategies)
+            steps[label] = step_vs_unmeshed(model, base)
+            require(steps[label]["bit_equal"],
+                    f"the meshed decode step ({label}) is off the unmeshed one: {steps[label]}")
+            run = step_bytes(model, decode_view(model))
+            reset_counts()
+            sampler = make_sampler(model, 64, mesh=mesh, strategies=strategies,
+                                   params_shardings=plan)
+            got, timed = sample_primes(sampler, primes[:1], DECODE_MESH_LENGTH)
+            require(bool(((got[0] >= 0) & (got[0] < c.num_tokens)).all())
+                    and tuple(got[0].shape) == (SAMPLES_PER_PRIME, DECODE_MESH_LENGTH),
+                    f"the meshed sampler ({label}) gave tokens out of shape or range")
+            run.update(timed, token_match_vs_zero_halo_unmeshed=sampled_match(got[0], want[0]),
+                       bit_equal_to_zero_halo_unmeshed=torch.equal(got[0], want[0]),
+                       min_token_match=ENGINE_TOKEN_MATCH,
+                       bf16_token_match_vs_unmeshed=sampled_match(got[0], plain[0]))
+            require(run["token_match_vs_zero_halo_unmeshed"] >= ENGINE_TOKEN_MATCH,
+                    f"the meshed bf16 sampler ({label}) kept "
+                    f"{run['token_match_vs_zero_halo_unmeshed']} of the unmeshed tokens "
+                    "with K1 through its halo entry")
+            if label == "fsdp_tp":  # twice bit-equal; the sampler's time
+                again, _ = sample_primes(sampler, primes[:1], DECODE_MESH_LENGTH)
+                run["repeat_bit_equal"] = torch.equal(again[0], got[0])
+                require(run["repeat_bit_equal"],
+                        f"two meshed samplers ({label}) gave other tokens")
+                run["prefill_ms"] = prefill_ms(model, decode_view(model), primes[:1])
+                run["decode_tokens_per_s"] = decode_rate(run)
+                del again
+            del model, sampler, got
+            gc.collect()
+            for name, n in read_counts().items():
+                launches[name] += n
+            run["unmeshed"] = base_run
+            run["step_vs_unmeshed"] = steps[label]
+            sampled[label] = run
+            emit("decode_mesh_sampler", mesh=label, strategies=strategies, nvidia_smi=smi,
+                 **run)
+        require(launches["local_attention_fwd"] == launches["local_attention_fwd_halo"] > 0
+                and launches["sgu_fwd"] > 0,
+                f"the meshed prefills did not all go through K1's halo entry and K2: {launches}")
+        seconds["sampler"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        engines = {}
+        model, mesh, plan = mesh_model(True, ("fsdp", "tp"))
+        placed = dict(mesh=mesh, strategies=("fsdp", "tp"), params_shardings=plan)
+        for mode, kwargs in DECODE_MESH_MODES:
+            runs = {}
+            for run_label, aot in (("eager", False), ("warmed", True)):
+                phase = f"decode_mesh_engine_{mode}_{run_label}"
+                tokens, counts, engine = run_engine(phase, model, requests, aot=aot,
+                                                    **kwargs, **placed)
+                engine.close()
+                del engine
+                runs[run_label] = tokens
+                for name in COUNTERS:
+                    launches[name] += counts[name]
+                engines[f"{mode}_{run_label}"] = ENGINE_FIELDS[phase]
+            equal = runs["warmed"] == runs["eager"]
+            engines[f"{mode}_warmed"]["bit_equal_to_eager"] = equal
+            eager = engines[f"{mode}_eager"]
+            # phase 7's runs cut to this phase's cap (printed, not held)
+            eager["bf16_token_match_vs_unmeshed"] = token_match(
+                runs["eager"], {u: t[:DECODE_MESH_NEW_TOKENS]
+                                for u, t in unmeshed_engine[mode].items()})
+            eager["token_match_vs_zero_halo_unmeshed"] = token_match(
+                runs["eager"], zero_halo_engine[mode])
+            eager["min_token_match"] = ENGINE_TOKEN_MATCH
+            eager["unmeshed_zero_halo_tokens_per_s"] = ENGINE_FIELDS[
+                f"decode_mesh_engine_{mode}_zero_halo_unmeshed"]["tokens_per_s"]
+            require(equal, f"the meshed {mode} engine's warmed run gave other tokens "
+                           "than its eager run")
+            require(eager["token_match_vs_zero_halo_unmeshed"] >= ENGINE_TOKEN_MATCH,
+                    f"the meshed bf16 {mode} engine kept "
+                    f"{eager['token_match_vs_zero_halo_unmeshed']} of the unmeshed "
+                    "tokens with K1 through its halo entry")
+        del model
+        gc.collect()
+        seconds["engine"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    del base
+    gc.collect()
+    t0 = time.perf_counter()
+    rows = rank_shape_rows(torch.Generator(device="cuda").manual_seed(SEED + 41))
+    seconds["rank_shapes"] = time.perf_counter() - t0
+    for row in rows:  # the launches at these shapes: the two f32 ranks' (rank 0's)
+        kernel = row["name"].removesuffix(f"_tp{RANK_TENSOR}")
+        row["launches"] = two_ranks["launches"][kernel]
+        row["launches_of"] = ("the two gloo tp ranks' f32 run, rank 0: K1 and K2-fwd on "
+                              "their f32 routes (wmma, fma), K3 and K3-q8 on bulk; the "
+                              "times are the bf16 routes'")
+        row["launches_by_path"] = {"decode_mesh_two_ranks_f32": two_ranks["launches"][kernel],
+                                   "decode_mesh_world_1_whole_width": launches[kernel]}
+    return {"config": "small", "prefill_vs_unmeshed": prefill_checks, "sampler": sampled,
+            "engine": engines, "two_ranks": two_ranks, "launches": launches,
+            "rank_shape_rows": rows, "nvidia_smi": smi,
+            "seconds": time.perf_counter() - t_phase, "seconds_by_part": seconds}
+
+
+def decode_mesh_summary(result: dict) -> dict:
+    """The phase's result without the rows (they go into the kernels line)."""
+    return {k: v for k, v in result.items() if k != "rank_shape_rows"}
+
+
+def decode_mesh_alone() -> dict:
+    """Phase 17 on its own, with the build and its own unmeshed engine runs:
+    ``python3 -c "import chip_smoke as cs; cs.decode_mesh_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    result = decode_mesh_phase(smi_name_power())
+    emit("decode_mesh", **decode_mesh_summary(result))
+    return result
+
+
 def memory_fit_alone() -> dict:
     """The memory calibration of phase 16 with the points the activation
     model's factors were fitted to (MEMORY_FIT_BATCHES), measured here:
@@ -4383,7 +4983,7 @@ def main() -> int:
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
     served = serve(model)
     emit("main_path", config="small", params=sum(p.numel() for p in model.parameters()),
-         **served)
+         **{k: v for k, v in served.items() if k != "tokens"})
     emit("prefill_vs_plain", **check_prefill_against_plain(model))
     reference = ProGen(SMALL, make_policy(False), device="cuda", seed=SEED).eval()
     emit("prefill_vs_plain", **check_prefill_against_plain(reference))
@@ -4454,6 +5054,10 @@ def main() -> int:
                                              True: parallel["unmeshed_bf16"]},
                               remat=superstep["remat"])
     emit("trainer_mesh", **trainer_mesh_summary(mesh))
+    gc.collect()
+    decode = decode_mesh_phase(smi, unmeshed_engine={"dense": dense, "paged": full,
+                                                     "paged_q8": q8})
+    emit("decode_mesh", **decode_mesh_summary(decode))
 
     for row in rows:
         by_path = {"serve": served["launches"][row["name"]],
@@ -4463,6 +5067,7 @@ def main() -> int:
                    "lora_train": lora["launches"][row["name"]],
                    "parallel": parallel["launches"][row["name"]],
                    "trainer_mesh": mesh["launches"][row["name"]],
+                   "decode_mesh": decode["launches"][row["name"]],
                    **{phase: counts[row["name"]]
                       for phase, counts in engine_launches.items()}}
         row["launches"] = sum(by_path.values())
@@ -4477,8 +5082,10 @@ def main() -> int:
         bf16 = counter == row["name"]
         row["launches_by_path"]["trainer_mesh"] = (
             mesh["launches_by_precision"]["bf16" if bf16 else "f32"][counter])
+        if bf16:  # the meshed decode's prefills: K1 through its halo entry, bf16
+            row["launches_by_path"]["decode_mesh"] = decode["launches"][counter]
         row["launches"] = sum(row["launches_by_path"].values())
-    rows += halo_kernel_rows
+    rows += halo_kernel_rows + decode["rank_shape_rows"]
     print(json.dumps({"kernels": rows}), flush=True)
     emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (
         "step_ms_median", "tokens_per_s", "mfu", "host_batch_ms", "data_wait_ms_median",

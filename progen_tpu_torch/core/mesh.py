@@ -124,7 +124,7 @@ def process_batch_shards(mesh, me: int | None = None) -> tuple[int, int]:
 
 def mesh_sizes(mesh: DeviceMesh) -> dict[str, int]:
     """``{axis: size}`` of a four-axis mesh, JAX's ``mesh.shape``."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 def make_mesh(config: MeshConfig | None = None,

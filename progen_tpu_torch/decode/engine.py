@@ -123,8 +123,23 @@ device tensors; the host's numpy arguments are staged by the dispatch (a
 copy into a warmed program's static buffers, or onto the device for an
 eager call), never inside a body.
 
+**Under a mesh** (``mesh``, ``strategies``, ``params_shardings``: the JAX
+engine's names; ``parallel/decode.py``) the engine serves a model that
+``parallel/sharding.parallelize`` placed, in its training shardings.  There
+is one engine per rank, each fed the same requests in lockstep: every rank
+holds the same host state (queue, QoS, pages, prefix index) and decodes
+every row, so the tokens come out the same on every rank.  Under ``tp`` the
+rings hold the rank's heads and the gate caches or the page pool its
+channels; K3 and K3-q8 run at the rank's width.  A draft model of its own
+stays whole on every rank with whole caches (JAX constrains only the
+target's); the identity draft is the target, in its shardings.  int8
+weights take their scales from the whole weights before ``parallelize``
+gives each rank its part, and a LoRA bank is the rank's part
+(``shard_bank``).  ``reload_weights`` under a mesh builds and places a
+model of the engine's own.
+
 Not ported yet (each raises ``NotImplementedError``): remote prefill (the
-handoff's wire format), meshes.
+handoff's wire format).
 """
 
 from __future__ import annotations
@@ -184,6 +199,9 @@ from progen_tpu_torch.observe import metrics as _metrics
 from progen_tpu_torch.observe import trace as _obs_trace
 from progen_tpu_torch.observe.robustness import RobustnessCounters
 from progen_tpu_torch.ops.quant import quantize_params
+from progen_tpu_torch.parallel import tensor as tensor_parallel
+from progen_tpu_torch.parallel.decode import check_placed, decode_mesh, refresh, shard_bank
+from progen_tpu_torch.parallel.sharding import full_tensor, load_placed, parallelize
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.retry import RetryError, default_classifier
 from progen_tpu_torch.resilience.watchdog import Watchdog
@@ -208,9 +226,6 @@ _MAX_DEFER_STREAK = 16
 _NOT_PORTED = {
     "remote_prefill": "remote prefill over the handoff's wire format "
                       "(ROADMAP.md Queue 1, the multi-process fleet)",
-    "mesh": "an engine per rank, fed in lockstep (ROADMAP.md Queue 1, the multi-process fleet)",
-    "strategies": "an engine per rank, fed in lockstep (ROADMAP.md Queue 1, the multi-process fleet)",
-    "params_shardings": "an engine per rank, fed in lockstep (ROADMAP.md Queue 1, the multi-process fleet)",
     "paged_impl": "an impl switch: the port has none, a CUDA tensor always "
                   "takes the hand-written kernel (PERF.md, the dropped degrade path)",
 }
@@ -307,6 +322,24 @@ def _host_fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
     return [t.cpu().numpy() for t in tensors]
 
 
+def _flat_bank(bank: dict) -> dict:
+    """A LoRA bank's tensors under ``layer.site.factor`` keys."""
+    return {f"{layer}.{site}.{k}": t for layer, sites in bank.items()
+            for site, ts in sites.items() for k, t in ts.items()}
+
+
+def _whole_state(model: ProGen) -> dict:
+    """``model``'s state dict with every tensor whole, in the store's
+    layout: a placed model's shards gathered (a collective: every rank
+    calls it, in one order)."""
+    plan = getattr(model, "parallel_plan", None)
+    state = model.state_dict()
+    if plan is None:
+        return state
+    with torch.no_grad():
+        return {k: full_tensor(v.detach(), plan.pieces(k)) for k, v in state.items()}
+
+
 def _merge(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """``new`` for rows where ``mask``, else ``old``."""
     return torch.where(mask.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
@@ -366,6 +399,12 @@ class ServingEngine:
     explicit draft keeps its own weights (full precision unless given
     quantized), the identity draft the target's.
 
+    ``mesh``, ``strategies`` and ``params_shardings`` (the ``ParallelPlan``
+    that ``parallelize`` returned): see the module docstring.  A
+    ``ProGenConfig`` with a ``mesh`` builds the model and places it here;
+    a given model must be placed on ``mesh`` under ``strategies`` already
+    (``parallel/decode.py:check_placed``).
+
     ``watchdog`` (``resilience/watchdog.py``) gets a beat per ``step()`` and
     is paused around the first dispatch of each program (an admit or
     prefill bucket, the decode chunk, the merge, an embed bucket).  The
@@ -388,6 +427,7 @@ class ServingEngine:
                  draft_params: ProGen | None = None, disagg: bool = False,
                  prefill_batch: int | None = None, handoff_depth: int = 2,
                  lora_bank: dict | None = None, watchdog: Watchdog | None = None,
+                 mesh=None, strategies=("dp",), params_shardings=None,
                  **not_ported):
         if spec and lora_bank is not None:
             # the draft and commit steps carry no tenant state (as in JAX)
@@ -403,6 +443,9 @@ class ServingEngine:
         self._owns_model = isinstance(model, ProGenConfig)
         if isinstance(model, ProGenConfig):
             model = ProGen(model, policy, device=device, seed=seed)
+            if mesh is not None:
+                parallelize(model, mesh, strategies)
+        check_placed(model, mesh, strategies, params_shardings)
         model = model.eval()
         self.config = config = model.config
         self.policy = model.policy
@@ -474,6 +517,10 @@ class ServingEngine:
             self._owns_model = True
         self.model = model
         self._rows = torch.arange(num_slots, device=self.device)
+        # decode's view of the mesh (None without one): the rank's heads and
+        # channels (``_tensor`` of them) and the tensor group
+        self._view = decode_mesh(model)
+        self._tensor, self._group = tensor_parallel.tensor_split(self._view)
 
         self.lora = lora_bank is not None
         self._bank = None
@@ -481,7 +528,9 @@ class ServingEngine:
         self._row_keys = _ROW_KEYS
         if self.lora:
             self.num_tenants = validate_lora_bank(config, lora_bank)
-            self._bank = cast_bank(lora_bank, self.policy.compute_dtype, self.device)
+            bank = cast_bank(lora_bank, self.policy.compute_dtype, self.device)
+            self._bank_spec = {k: (tuple(t.shape), t.dtype) for k, t in _flat_bank(bank).items()}
+            self._bank = shard_bank(bank, self._view)
             self._row_keys = _ROW_KEYS + ("tenant",)
         # embeddings: a request class of its own, served by the base model's
         # pooled forward in batches of up to num_slots rows; no slot taken
@@ -496,7 +545,10 @@ class ServingEngine:
             self._draft = self._draft_model(draft_config, draft_params, seed)
             self.draft_config = self._draft.config
             check_draft_config(config, self.draft_config)
-            self._draft_step = ProGenDecodeStep(self._draft)
+            # the draft's view of the mesh: the target's for the identity
+            # draft, none for a draft of its own (whole on every rank)
+            self._draft_view = self._view if self._draft is self.model else None
+            self._draft_step = ProGenDecodeStep(self._draft, self._draft_view)
             # rounds per chunk: a fully-accepted round advances k + 1
             # positions, so the chunk's budget is kept in emitted tokens
             self._spec_rounds = max(1, chunk_size // (self.spec_k + 1))
@@ -534,7 +586,7 @@ class ServingEngine:
             self._decode_chunk = (self._decode_chunk_spec_impl if spec
                                   else self._decode_chunk_impl)
             self._admit = self._admit_impl
-        self._bind_model(model)
+        self._bind_model(model, self._view)
         self.disagg = disagg
         if disagg:
             self.prefill_batch = max(1, min(prefill_batch or num_slots, num_slots))
@@ -545,14 +597,34 @@ class ServingEngine:
             self._handoff = None
         self.state = self._init_state()
 
-    def _bind_model(self, model: ProGen) -> None:
+    def _bind_model(self, model: ProGen, view) -> None:
         """Serve ``model``: the decode step and the embedding program run
-        it (the admit programs and the prefill worker read ``self.model``)."""
+        it (the admit programs and the prefill worker read ``self.model``);
+        under a mesh, in decode's ``view`` of it (``decode_mesh``)."""
         self.model = model
+        self._view = view
         self._step_model = (ProGenPagedDecodeStep(model, n_rows=self.max_len,
-                                                  gate_dtype=self.gate_dtype)
-                            if self.paged else ProGenDecodeStep(model))
-        self._embedder = make_embedder(model)
+                                                  gate_dtype=self.gate_dtype,
+                                                  mesh=self._view)
+                            if self.paged else ProGenDecodeStep(model, self._view))
+        self._embedder = make_embedder(model, self._view)
+
+    def _own_copy(self, state: dict) -> ProGen:
+        """A model of the engine's own with the whole weights ``state``
+        (the store's layout): a copy of the served one, or under a mesh a
+        model placed on it as the served one is (int8 buffers loaded whole
+        before ``parallelize`` gives each rank its part)."""
+        if self._view is None:
+            own = copy.deepcopy(self.model)
+            with torch.no_grad():
+                own.load_state_dict(state)
+            return own
+        plan = self.model.parallel_plan
+        own = ProGen(self.config, self.policy, device=self.device,
+                     weights=self.model.weights)
+        own.load_state_dict(state)
+        parallelize(own, plan.mesh, plan.strategies)
+        return own.eval()
 
     def _draft_model(self, draft_config, draft_params, seed: int) -> ProGen:
         """The speculative draft: the target itself when neither argument
@@ -578,26 +650,28 @@ class ServingEngine:
     def _init_state(self) -> dict:
         s, L, dev = self.num_slots, self.max_len, self.device
         caches = init_caches(self.config, s, self.policy, decode_len=L,
-                             device=dev, with_sgu=not self.paged)
+                             device=dev, with_sgu=not self.paged, tensor=self._tensor)
         if self.paged:
             caches.pop("sgu_gate")
             caches["sgu_pool"] = init_gate_pool(
                 self.config, self._pool.num_pages, self.page_size, self.policy,
-                gate_dtype=self.gate_dtype, device=dev)
+                gate_dtype=self.gate_dtype, device=dev, tensor=self._tensor)
             if self.gate_dtype == "int8":
                 caches["sgu_pool_scale"] = init_gate_scale(
                     self.config, self._pool.num_pages, self.page_size, device=dev)
         zeros = lambda dtype: torch.zeros(s, dtype=dtype, device=dev)
+        # token ids and positions are int32, as the JAX engine holds them
+        # (the serving plan prices 4 bytes a position)
         state = {
-            "seq": torch.zeros(s, L, dtype=torch.long, device=dev),
+            "seq": torch.zeros(s, L, dtype=torch.int32, device=dev),
             "caches": caches,
-            "pos": zeros(torch.long),      # index of the newest token
-            "start": zeros(torch.long),    # prime length
-            "stop": zeros(torch.long),     # start + max_new (<= L)
+            "pos": zeros(torch.int32),      # index of the newest token
+            "start": zeros(torch.int32),    # prime length
+            "stop": zeros(torch.int32),     # start + max_new (<= L)
             "active": zeros(torch.bool),
             "done": zeros(torch.bool),
             "keys": rng.key(zeros(torch.long)),  # raw key data (S, 2)
-            "top_k": zeros(torch.long),    # 0 = disabled
+            "top_k": zeros(torch.int32),    # 0 = disabled
             "temp": torch.ones(s, dtype=torch.float32, device=dev),
             # per-slot logit mask indexed by WRITE position; all-true rows
             # are bit-identical to no masking at all
@@ -609,8 +683,9 @@ class ServingEngine:
         if self.spec:
             # the draft's caches stay DENSE per slot, paged mode included:
             # the draft is small, paging it would buy nothing
-            state["draft_caches"] = init_caches(self.draft_config, s, self.policy,
-                                                decode_len=L, device=dev)
+            state["draft_caches"] = init_caches(
+                self.draft_config, s, self.policy, decode_len=L, device=dev,
+                tensor=self._tensor if self._draft_view is not None else 1)
         return state
 
     @staticmethod
@@ -719,10 +794,15 @@ class ServingEngine:
 
     @classmethod
     def _quantize_variables(cls, model: ProGen) -> ProGen:
-        """The int8 serving model of a full-precision ``model``."""
+        """The int8 serving model of a full-precision ``model``: under a
+        mesh the scales come from the whole weights (gathered on every
+        rank), and the int8 model is placed as ``model`` is."""
         quantized = ProGen(model.config, model.policy, device=model.device,
                            weights="int8")
-        quantized.load_state_dict(cls._quantize_state(model.state_dict()))
+        quantized.load_state_dict(cls._quantize_state(_whole_state(model)))
+        plan = getattr(model, "parallel_plan", None)
+        if plan is not None:
+            parallelize(quantized, plan.mesh, plan.strategies)
         return quantized.eval()
 
     # ------------------------------------------------------------- decoding
@@ -739,7 +819,7 @@ class ServingEngine:
         mrow = st["lmask"][rows, writepos]
         nxt = gumbel_topk_sample_batched(sub, logits, st["top_k"], st["temp"],
                                          mask=mrow)
-        val = torch.where(live, nxt, st["seq"][rows, writepos])
+        val = torch.where(live, nxt.int(), st["seq"][rows, writepos])
         st["seq"][rows, writepos] = val
         new_pos = torch.where(live, pos + 1, pos)
         done_now = live & ((val == EOS_ID) | (new_pos + 1 >= st["stop"]))
@@ -775,13 +855,13 @@ class ServingEngine:
         arguments are device tensors of the host arrays' dtypes
         (``_admit_arrays``)."""
         dev, L = self.device, self.max_len
-        tokens, lengths, stops = tokens.long(), lengths.long(), stops.long()
-        seeds, top_k, temp = seeds.long(), top_k.long(), temp.float()
+        tokens, lengths, stops = tokens.long(), lengths.long(), stops.int()
+        seeds, top_k, temp = seeds.long(), top_k.int(), temp.float()
         rows = self._rows
 
         tenant = tenant.long() if self.lora else None
         logits, sown = self.model(tokens, return_cache=True, adapters=self._bank,
-                                  tenant=tenant)
+                                  tenant=tenant, mesh=self._view)
         caches = harvest_caches(self.config, sown, lengths, self.policy, L,
                                 with_sgu=with_sgu)
         last = logits[rows, lengths - 1].float()
@@ -794,8 +874,9 @@ class ServingEngine:
         # p_pad is window-aligned and may overshoot L; real tokens never do
         # (submit enforces prime + 1 <= max_len), so the cut drops pad only
         tok_L = tokens[:, :L] if p_pad >= L else F.pad(tokens, (0, L - p_pad))
-        seq = tok_L * (torch.arange(L, device=dev)[None, :] < lengths[:, None])
-        seq[rows, lengths] = first
+        seq = (tok_L * (torch.arange(L, device=dev)[None, :] < lengths[:, None])).int()
+        seq[rows, lengths] = first.int()
+        lengths = lengths.int()
         out = {"seq": seq, "caches": caches, "pos": lengths, "start": lengths,
                "stop": stops, "done": (first == EOS_ID) | (lengths + 1 >= stops),
                "keys": split[:, 0], "top_k": top_k, "temp": temp, "lmask": lmask}
@@ -805,7 +886,7 @@ class ServingEngine:
             # one padded prime batch primes both models (they share the
             # window, so the bucket suits both); the draft's gate rows stay
             # dense
-            _, dsown = self._draft(tokens, return_cache=True)
+            _, dsown = self._draft(tokens, return_cache=True, mesh=self._draft_view)
             out["draft_caches"] = harvest_caches(self.draft_config, dsown,
                                                  lengths, self.policy, L)
         return out, sown
@@ -869,7 +950,7 @@ class ServingEngine:
         if self.gate_dtype == "int8":
             pool_new, scale_new = harvest_gate_pages(
                 self.config, sown, rows["pos"], old["sgu_pool"], wtable,
-                self.policy, pool_scale=old["sgu_pool_scale"])
+                self.policy, pool_scale=old["sgu_pool_scale"], group=self._group)
             pools = {"sgu_pool": pool_new, "sgu_pool_scale": scale_new}
         else:
             pools = {"sgu_pool": harvest_gate_pages(
@@ -969,7 +1050,7 @@ class ServingEngine:
             if self.gate_dtype == "int8":
                 pool, scale = scatter_gate_rows(
                     self.config, gates, hstate["start"], old["sgu_pool"],
-                    row_wtable, pool_scale=old["sgu_pool_scale"])
+                    row_wtable, pool_scale=old["sgu_pool_scale"], group=self._group)
                 pools = {"sgu_pool": pool, "sgu_pool_scale": scale}
             else:
                 pools = {"sgu_pool": scatter_gate_rows(
@@ -2124,14 +2205,17 @@ class ServingEngine:
         weights are written into the engine's own model: a model the caller
         passed in is copied first and keeps its weights.  In-flight
         slots continue on the new weights from their next step.  Under
-        speculation only the target is swapped: the identity draft is first
-        given its own copy of the old weights (the JAX engine keeps them as
-        its draft), an explicit draft keeps its own.  Returns the new
-        generation (``generation`` when given, else the old one + 1), which
-        the completions finishing after the swap carry.  A swap that
-        rebinds a model, the draft or the bank (rather than writing into
-        the tensors served) captures every warmed program again before it
-        returns."""
+        speculation only the target is swapped: the identity draft keeps
+        the old weights (the JAX engine keeps them as its draft) and the
+        engine serves a copy on the new ones, an explicit draft keeps its
+        own.  Returns the new generation (``generation`` when given, else
+        the old one + 1), which the completions finishing after the swap
+        carry.  A swap that rebinds a model, the draft or the bank (rather
+        than writing into the tensors served) captures every warmed program
+        again before it returns.  Under a mesh every rank calls it with the
+        same weights, whole (a placed ``ProGen`` is gathered); each rank
+        writes its part into the served model's shards, and a copy, where
+        one is kept, is placed on the mesh as the served model is."""
         if params is None and lora_bank is None:
             raise ValueError("reload_weights needs params and/or lora_bank")
         if lora_bank is not None and not self.lora:
@@ -2150,37 +2234,33 @@ class ServingEngine:
                         f"{tuple(v.shape)}/{v.dtype} vs {shape}/{dtype}")
 
         if params is not None:
-            state = params.state_dict() if isinstance(params, torch.nn.Module) \
+            state = _whole_state(params) if isinstance(params, torch.nn.Module) \
                 else dict(params)
             check(state, self._weights_spec, "params")
         if lora_bank is not None:
             validate_lora_bank(self.config, lora_bank)
             bank = cast_bank(lora_bank, self.policy.compute_dtype, self.device)
-            flat = lambda b: {f"{layer}.{site}.{k}": t for layer, sites in b.items()
-                              for site, ts in sites.items() for k, t in ts.items()}
-            check(flat(bank), {k: (tuple(t.shape), t.dtype)
-                               for k, t in flat(self._bank).items()}, "lora_bank")
+            check(_flat_bank(bank), self._bank_spec, "lora_bank")
         # whether a model, the draft or the bank the programs read is
         # replaced by another tensor (not written in place)
         rebound = lora_bank is not None
         if params is not None:
-            if not self._owns_model:
-                # the engine serves the caller's model: write into a copy,
-                # so the caller's keeps its weights (an identity draft goes
-                # on drafting with them)
-                self._bind_model(copy.deepcopy(self.model))
-                self._owns_model = rebound = True
-            elif self.spec and self._draft is self.model:
-                # the identity draft keeps the weights it was built on
-                self._draft = copy.deepcopy(self.model)
-                self._draft_step = ProGenDecodeStep(self._draft)
-                rebound = True
             if self._requantize:
                 state = self._quantize_state(state)
-            with torch.no_grad():
-                self.model.load_state_dict(state)
+            if not self._owns_model or (self.spec and self._draft is self.model):
+                # the caller's model, or the identity draft, keeps the
+                # weights it was built on: the engine serves a copy of its own
+                own = self._own_copy(state)
+                self._bind_model(own, decode_mesh(own))
+                self._owns_model = rebound = True
+            elif self._view is None:
+                with torch.no_grad():
+                    self.model.load_state_dict(state)
+            else:  # each rank writes its part, the decode view gathers anew
+                load_placed(self.model, state)
+                refresh(self._view, self.model)
         if lora_bank is not None:
-            self._bank = bank
+            self._bank = shard_bank(bank, self._view)
         if rebound:
             # a warmed program holds the addresses it was captured with: it
             # is captured again before the first request on the new weights
@@ -2266,7 +2346,7 @@ class ServingEngine:
         for name in ("_decode_chunk", "_admit", "_prefill_worker", "_merge"):
             self.__dict__.pop(name, None)
         self.model = self._draft = self._step_model = self._embedder = None
-        self._draft_step = self._bank = None
+        self._draft_step = self._bank = self._view = None
 
     # -------------------------------------------------------------- status
 

@@ -40,6 +40,20 @@ Both steps take an optional LoRA bank (``adapters``, ``workloads/lora.py``)
 and a ``(B,)`` ``tenant`` vector: each row adds its own tenant's delta at
 every adapter site, as the parallel forward does; tenant-0 rows keep the
 bankless step's bits.
+
+Under a mesh (``mesh=``, the ``DecodeMesh`` of ``parallel/decode.py`` of a
+model that ``parallelize`` placed) each layer does what the parallel forward
+does there: under ``tp`` a layer runs its rank's heads and gate channels,
+enters ``to_qkv`` and ``ff.proj_in`` through ``copy_to``, sums ``to_out``
+and ``ff.proj_out`` over the tensor ranks, takes the SGU's LayerNorm over
+every rank's channels and gathers the gated mix before ``sgu.proj_out``;
+the k/v rings hold the rank's heads and the gate caches or the pool the
+rank's channels (``init_caches(tensor=)``, ``init_gate_pool(tensor=)``),
+an int8 pool row's scale the whole row's.  Under ``fsdp`` each block's
+computation, and the root's embedding and logits head, runs through the
+module's ``run`` (``models/progen.py:Runs``, an FSDP2 forward method), so
+FSDP2 unshards the module around it and reshards it after.  Every rank
+decodes every row.
 """
 
 from __future__ import annotations
@@ -60,6 +74,8 @@ from progen_tpu_torch.models.progen import (
 from progen_tpu_torch.ops.cuda_paged_gate_mix import paged_gate_mix, write_gate_row
 from progen_tpu_torch.ops.local_attention import ATTN_MASK_VALUE
 from progen_tpu_torch.ops.rotary import fixed_pos_embedding, rotate_every_two
+from progen_tpu_torch.parallel import tensor
+from progen_tpu_torch.parallel.sharding import local
 
 
 def _shift_with_carry(h: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
@@ -76,11 +92,13 @@ def _rotate_at(x, sin_row, cos_row):
 
 def init_caches(config: ProGenConfig, batch_size: int,
                 policy: Policy | None = None, decode_len: int | None = None,
-                device=None, with_sgu: bool = True) -> dict:
+                device=None, with_sgu: bool = True, tensor: int = 1) -> dict:
     """Zero caches for a fresh decode, on ``device`` (default ``cuda``).
     ``decode_len`` (default ``seq_len``) sizes the SGU gate cache, the one
     seq_len-sized buffer.  ``with_sgu=False`` leaves that cache out: the
-    paged engine keeps gate rows in a page pool (:func:`init_gate_pool`)."""
+    paged engine keeps gate rows in a page pool (:func:`init_gate_pool`).
+    ``tensor``: the ranks of a mesh's ``tensor`` dim; the rings hold a
+    rank's heads and the gate caches its channels."""
     c = config
     device = resolve_device(device)
     dt = (policy or make_policy()).compute_dtype
@@ -93,11 +111,11 @@ def init_caches(config: ProGenConfig, batch_size: int,
     return {
         "attn_prev": [zeros(batch_size, c.dim) for _ in range(c.depth)],
         "ff_prev": [zeros(batch_size, c.dim) for _ in range(c.depth)],
-        "k": [zeros(batch_size, c.heads, ring, c.dim_head)
+        "k": [zeros(batch_size, c.heads // tensor, ring, c.dim_head)
               for _ in range(c.depth)],
-        "v": [zeros(batch_size, c.heads, ring, c.dim_head)
+        "v": [zeros(batch_size, c.heads // tensor, ring, c.dim_head)
               for _ in range(c.depth)],
-        "sgu_gate": {str(i): zeros(batch_size, n_rows, (c.dim * c.ff_mult) // 2)
+        "sgu_gate": {str(i): zeros(batch_size, n_rows, (c.dim * c.ff_mult) // 2 // tensor)
                      for i in range(c.depth) if c.layer_uses_gmlp(i)}
         if with_sgu else {},
     }
@@ -105,13 +123,14 @@ def init_caches(config: ProGenConfig, batch_size: int,
 
 def init_gate_pool(config: ProGenConfig, num_pages: int, page_size: int,
                    policy: Policy | None = None, gate_dtype: str = "bf16",
-                   device=None) -> dict:
+                   device=None, tensor: int = 1) -> dict:
     """Zero global gate-row pool, one ``(num_pages, page_size, hidden/2)``
     tensor per gMLP layer (keyed like ``sgu_gate``).  Page 0 is the all-zeros
     NULL page and stays zero; page 1 is the write-sink DUMP page.
     ``gate_dtype="bf16"`` means the compute dtype; ``"int8"`` the 8-bit page
     format, whose rows are quantized per row on scatter against the f32
-    scale pool of :func:`init_gate_scale`."""
+    scale pool of :func:`init_gate_scale`.  ``tensor``: as in
+    :func:`init_caches`, a row holds the rank's channels."""
     c = config
     if gate_dtype == "int8":
         dt = torch.int8
@@ -120,7 +139,7 @@ def init_gate_pool(config: ProGenConfig, num_pages: int, page_size: int,
     else:
         raise ValueError(f"unknown gate_dtype {gate_dtype!r}; use 'bf16' or 'int8'")
     device = resolve_device(device)
-    half = (c.dim * c.ff_mult) // 2
+    half = (c.dim * c.ff_mult) // 2 // tensor
     return {str(i): torch.zeros(num_pages, page_size, half, dtype=dt, device=device)
             for i in range(c.depth) if c.layer_uses_gmlp(i)}
 
@@ -160,19 +179,22 @@ def _keep_live(new, old, write_ok):
 
 def local_attention_decode(block: LocalAttention, x, sin_row, cos_row, slot,
                            valid, prev, k_cache, v_cache, write_ok=None,
-                           adapters=None, tenant=None):
+                           adapters=None, tenant=None, mesh=None):
     """One-position attention of ``block`` against its k/v ring (the JAX
     ``LocalAttentionDecode``).  Writes this position's k/v into ring slot
     ``slot`` in place; returns ``(out, new_prev)``.  With ``write_ok``
     ``(B,)`` bool, rows where it is false write nothing: their ring slot and
     their carry stay as they were (and their output is not to be used).
-    ``adapters`` is the layer's ``{"qkv", "out"}`` sites."""
+    ``adapters`` is the layer's ``{"qkv", "out"}`` sites.  Under a tensor
+    split of ``mesh`` the ring and the projections are the rank's heads'."""
     b = x.shape[0]
-    h, d = block.heads, block.dim_head
+    ranks, group = tensor.tensor_split(mesh)
+    h, d = block.heads // ranks, block.dim_head
     normed = block.norm(x)
     new_prev = _keep_live(normed, prev, write_ok)
     if block.shift:
         normed = _shift_with_carry(normed, prev)
+    normed = tensor.copy_to(normed, group)
     qkv = block.to_qkv(normed)
     if adapters is not None:  # the delta reads the SHIFTED input
         qkv = apply_lora(qkv, normed, adapters["qkv"], tenant)
@@ -187,47 +209,58 @@ def local_attention_decode(block: LocalAttention, x, sin_row, cos_row, slot,
     attn = torch.softmax(sim, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bhs,bhsd->bhd", attn.float(), v_cache.float())
     out = out.to(v_cache.dtype).reshape(b, h * d)
-    proj = block.to_out(out)
+    proj = block.to_out(out, reduce_group=group)
     if adapters is not None:
-        proj = apply_lora(proj, out, adapters["out"], tenant)
+        proj = apply_lora(proj, out, adapters["out"], tenant, group)
     return proj, new_prev
 
 
-def _proj_out(block: SGU, x, adapters, tenant):
-    """The SGU's output projection of the gated mix ``x``, plus the LoRA
-    delta of its site when ``adapters`` is given."""
+def _proj_out(block: SGU, x, adapters, tenant, group=None):
+    """The SGU's output projection of the gated mix ``x`` (a rank's
+    channels, gathered over a tensor ``group`` first: ``sgu.proj_out``
+    reads every channel), plus the LoRA delta of its site when
+    ``adapters`` is given."""
+    x = tensor.gather_from(x, group)
     y = block.proj_out(x)
     if adapters is not None:
         y = apply_lora(y, x, adapters, tenant)
     return y
 
 
+def _sgu_gate(block: SGU, x, mesh):
+    """``(res, normed gate)`` of the SGU input ``x``: under a tensor split
+    the rank's channels of each, the gate normed over every rank's."""
+    res, gate = x.chunk(2, dim=-1)
+    _, group = tensor.tensor_split(mesh)
+    return res, block.norm(gate, group, tensor.rank_slice(block.norm.scale.shape[0], mesh))
+
+
 def sgu_decode(block: SGU, x, pos, gate_cache, write_ok=None, adapters=None,
-               tenant=None):
+               tenant=None, mesh=None):
     """One-position spatial gate (the JAX ``SGUDecode``): write this
     position's normed gate row into ``gate_cache`` in place, contract the
     cache with weight row ``pos`` (f32 weights masked to ``n <= pos``, f32
     product, ``+ bias`` in f32, cast), then ``res * mixed``.  Rows where
     ``write_ok`` is false keep their cache row (their output is not to be
     used)."""
-    res, gate = x.chunk(2, dim=-1)
-    gate = block.norm(gate)
+    res, gate = _sgu_gate(block, x, mesh)
     n_cache = gate_cache.shape[1]
     rows = torch.arange(x.shape[0], device=x.device)
     gate_cache[rows, pos] = _keep_live(gate, gate_cache[rows, pos], write_ok)
-    w_rows = block.spatial_weights[pos].float()[:, :n_cache]  # (B, n_cache)
+    weights, biases = block.whole(mesh)
+    w_rows = weights[pos].float()[:, :n_cache]  # (B, n_cache)
     if block.spatial_weights_scale is not None:
         # int8 weights: each batch row reads weight row pos[b] and its scale
         w_rows = w_rows * block.spatial_weights_scale[pos][:, None]
     causal = torch.arange(n_cache, device=x.device)[None, :] <= pos[:, None]
     w_rows = w_rows * causal.float()
     mixed = torch.einsum("bnd,bn->bd", gate_cache.float(), w_rows)
-    mixed = (mixed + block.spatial_biases.float()[pos]).to(res.dtype)
-    return _proj_out(block, res * mixed, adapters, tenant)
+    mixed = (mixed + biases.float()[pos]).to(res.dtype)
+    return _proj_out(block, res * mixed, adapters, tenant, tensor.tensor_split(mesh)[1])
 
 
 def sgu_decode_paged(block: SGU, x, pos, pos32, pool, table, write_ok, n_rows,
-                     pool_scale=None, adapters=None, tenant=None):
+                     pool_scale=None, adapters=None, tenant=None, mesh=None):
     """One-position spatial gate against the global page pool (the JAX
     ``SGUDecodePaged``): scatter this position's normed gate row into the
     row's current page (rows with ``write_ok`` false go to the dump page;
@@ -235,19 +268,21 @@ def sgu_decode_paged(block: SGU, x, pos, pos32, pool, table, write_ok, n_rows,
     ``pool_scale``), then the ragged paged contraction.  Under
     ``weights="int8"`` the int8 weight rows and their scales go INTO the
     kernel, not dequantized outside it.  ``pos`` is int64, ``pos32`` and
-    ``table`` int32 (what the kernel takes)."""
-    res, gate = x.chunk(2, dim=-1)
-    gate = block.norm(gate)
-    write_gate_row(pool, table, pos, gate, write_ok, scale=pool_scale)
-    mixed = paged_gate_mix(block.spatial_weights, block.spatial_biases, pool,
-                           table, pos32, n_rows=n_rows,
+    ``table`` int32 (what the kernel takes).  Under a tensor split the pool
+    rows are the rank's channels (K3 and K3-q8 run at its width)."""
+    res, gate = _sgu_gate(block, x, mesh)
+    _, group = tensor.tensor_split(mesh)
+    write_gate_row(pool, table, pos, gate, write_ok, scale=pool_scale, group=group)
+    weights, biases = block.whole(mesh)
+    mixed = paged_gate_mix(weights, biases, pool, table, pos32, n_rows=n_rows,
                            w_scale=block.spatial_weights_scale,
                            pool_scale=pool_scale)
-    return _proj_out(block, res * mixed.to(res.dtype), adapters, tenant)
+    return _proj_out(block, res * mixed.to(res.dtype), adapters, tenant, group)
 
 
 def feed_forward_decode(block: FeedForward, x, pos, prev, gate_cache,
-                        write_ok=None, paged=None, adapters=None, tenant=None):
+                        write_ok=None, paged=None, adapters=None, tenant=None,
+                        mesh=None):
     """One-position feed-forward (the JAX ``FeedForwardDecode`` and
     ``FeedForwardDecodePaged``); returns ``(out, new_prev)``.  ``paged``
     (a gMLP layer of the paged step) holds ``pos32``, ``pool``, ``table``,
@@ -257,7 +292,8 @@ def feed_forward_decode(block: FeedForward, x, pos, prev, gate_cache,
     new_prev = _keep_live(normed, prev, write_ok)
     if block.shift:
         normed = _shift_with_carry(normed, prev)
-    h = block.proj_in(normed)
+    _, group = tensor.tensor_split(mesh)
+    h = block.proj_in(tensor.copy_to(normed, group))
     if block.glu:
         h, gate = h.chunk(2, dim=-1)
         h = h * F.gelu(gate, approximate="tanh")
@@ -266,10 +302,20 @@ def feed_forward_decode(block: FeedForward, x, pos, prev, gate_cache,
     site = None if adapters is None else adapters["sgu"]
     if block.sgu is not None and paged is not None:
         h = sgu_decode_paged(block.sgu, h, pos, write_ok=write_ok, **paged,
-                             adapters=site, tenant=tenant)
+                             adapters=site, tenant=tenant, mesh=mesh)
     elif block.sgu is not None:
-        h = sgu_decode(block.sgu, h, pos, gate_cache, write_ok, site, tenant)
-    return block.proj_out(h), new_prev
+        h = sgu_decode(block.sgu, h, pos, gate_cache, write_ok, site, tenant, mesh)
+    return block.proj_out(h, reduce_group=group), new_prev
+
+
+def _embed_rows(model: ProGen, tok):
+    """The embedding rows of ``tok`` in the compute dtype."""
+    return F.embedding(tok, local(model.embed.weight).to(model.policy.compute_dtype))
+
+
+def _logits_head(model: ProGen, x):
+    """``to_logits(norm_out(x))``."""
+    return model.to_logits(model.norm_out(x))
 
 
 class ProGenDecodeStep:
@@ -284,11 +330,19 @@ class ProGenDecodeStep:
     caches are values and a caller merges the old ones back; the caches here
     are written in place, so a step that must leave a row untouched (a
     rejected speculative step) has to say so.  The rotary tables are built
-    once, for all ``seq_len`` positions.
+    once, for all ``seq_len`` positions.  ``mesh``: the ``DecodeMesh`` of
+    a placed ``model`` (``parallel/decode.py``; the caller builds it, and
+    builds it anew when the weights change under ``sp``); the caches are
+    then the rank's (``init_caches(tensor=)``, the ranks of the mesh's
+    ``tensor`` dim).
     """
 
-    def __init__(self, model: ProGen):
+    def __init__(self, model: ProGen, mesh=None):
+        if mesh is None and getattr(model, "parallel_plan", None) is not None:
+            raise ValueError("the model is placed on a mesh: give the step its "
+                             "DecodeMesh (parallel/decode.py:decode_mesh)")
         self.model = model
+        self.mesh = mesh
         cfg = model.config
         self.sin, self.cos = fixed_pos_embedding(cfg.seq_len, cfg.dim_head,
                                                  device=model.device)
@@ -313,7 +367,8 @@ class ProGenDecodeStep:
         ring = 2 * wsz
         b = tok.shape[0]
         dev = tok.device
-        x = F.embedding(tok, model.embed.weight.to(pol.compute_dtype))
+        mesh = self.mesh
+        x = model.run(_embed_rows, tok)
         pos = torch.as_tensor(pos, dtype=torch.long, device=dev).expand(b)
         pos32 = pos.to(torch.int32)
         sin_row = self.sin[pos].to(pol.compute_dtype)
@@ -330,19 +385,19 @@ class ProGenDecodeStep:
             attn_ad = ff_ad = None
             if adapters is not None:
                 attn_ad, ff_ad = adapters.get(f"attn{i}"), adapters.get(f"ff{i}")
-            attn_out, caches["attn_prev"][i] = local_attention_decode(
-                model.attn[i], x, sin_row, cos_row, slot, valid,
+            attn_out, caches["attn_prev"][i] = model.attn[i].run(
+                local_attention_decode, x, sin_row, cos_row, slot, valid,
                 caches["attn_prev"][i], caches["k"][i], caches["v"][i],
-                write_ok, attn_ad, tenant)
+                write_ok, attn_ad, tenant, mesh)
             x = x + attn_out
             paged = (self._paged_layer(i, caches, pos32, table)
                      if cfg.layer_uses_gmlp(i) else None)
-            ff_out, caches["ff_prev"][i] = feed_forward_decode(
-                model.ff[i], x, pos, caches["ff_prev"][i],
+            ff_out, caches["ff_prev"][i] = model.ff[i].run(
+                feed_forward_decode, x, pos, caches["ff_prev"][i],
                 caches.get("sgu_gate", {}).get(str(i)), write_ok, paged,
-                ff_ad, tenant)
+                ff_ad, tenant, mesh)
             x = x + ff_out
-        logits = model.to_logits(model.norm_out(x))
+        logits = model.run(_logits_head, x)
         return pol.cast_to_output(logits), caches
 
 
@@ -361,8 +416,9 @@ class ProGenPagedDecodeStep(ProGenDecodeStep):
     it bit-identical to the dense step on the CPU.
     """
 
-    def __init__(self, model: ProGen, n_rows: int, gate_dtype: str = "bf16"):
-        super().__init__(model)
+    def __init__(self, model: ProGen, n_rows: int, gate_dtype: str = "bf16",
+                 mesh=None):
+        super().__init__(model, mesh)
         if gate_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown gate_dtype {gate_dtype!r}; use 'bf16' or 'int8'")
         self.n_rows = n_rows

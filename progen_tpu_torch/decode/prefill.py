@@ -20,6 +20,12 @@ different prime lengths.  ``P_pad`` is a multiple of ``window_size`` and
 :func:`make_embedder` is the embeddings endpoint's program on the same
 ragged contract: one forward to the final hidden states, mean-pooled over
 each row's real positions.
+
+Under a mesh (``mesh=``, the ``DecodeMesh`` of ``parallel/decode.py``) the
+forward runs in the model's shardings with no sequence split: the whole
+prime on every rank, K1 through its halo entry (the zero window) and K2 on
+the rank's gate channels under ``tp``; the harvested caches are then the
+rank's heads and channels, as JAX's ``_constrain_caches`` lays them out.
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ def harvest_caches(config: ProGenConfig, sown: dict, lengths: torch.Tensor,
     cd = policy.compute_dtype
     ring = 2 * c.window_size
     n_rows = min(decode_len, c.seq_len)
+    lengths = lengths.long()
     last = lengths - 1  # (B,)
     dev = lengths.device
 
@@ -117,7 +124,7 @@ def harvest_caches(config: ProGenConfig, sown: dict, lengths: torch.Tensor,
 
 def harvest_gate_pages(config: ProGenConfig, sown: dict,
                        lengths: torch.Tensor, pool: dict, wtable: torch.Tensor,
-                       policy: Policy, pool_scale: dict | None = None):
+                       policy: Policy, pool_scale: dict | None = None, group=None):
     """Scatter the prefill's gate rows into a copy of the page pool.
 
     Prime row ``i`` of request ``b`` goes to pool page
@@ -131,7 +138,9 @@ def harvest_gate_pages(config: ProGenConfig, sown: dict,
 
     With ``pool_scale`` (the f32 twin of an int8 pool) each gate row is
     quantized per row before the scatter and the call returns
-    ``(new_pool, new_scale)``.  The given pools are left untouched."""
+    ``(new_pool, new_scale)``.  The given pools are left untouched.
+    ``group``: the gate rows are a rank's channels over a tensor group; an
+    int8 row's scale is the whole row's."""
     new_pool = dict(pool)
     new_scale = dict(pool_scale) if pool_scale is not None else None
     lengths = lengths.long()
@@ -152,7 +161,7 @@ def harvest_gate_pages(config: ProGenConfig, sown: dict,
         if new_scale is None:
             layer_pool[tgt, off] = gate.to(layer_pool.dtype).reshape(-1, half)
         else:
-            q, s = quantize_rows(gate)
+            q, s = quantize_rows(gate, group)
             layer_pool[tgt, off] = q.reshape(-1, half)
             layer_scale = pool_scale[str(i)].clone()
             layer_scale[tgt, off] = s.reshape(-1)
@@ -165,7 +174,7 @@ def harvest_gate_pages(config: ProGenConfig, sown: dict,
 
 def scatter_gate_rows(config: ProGenConfig, gate_rows: dict,
                       lengths: torch.Tensor, pool: dict, wtable: torch.Tensor,
-                      pool_scale: dict | None = None):
+                      pool_scale: dict | None = None, group=None):
     """Scatter DENSE per-row gate slabs into a copy of the page pool.
 
     The disaggregated admission path (``decode/handoff.py``): the prefill
@@ -180,7 +189,7 @@ def scatter_gate_rows(config: ProGenConfig, gate_rows: dict,
     The slabs ride the handoff in the compute dtype whatever the pool's
     format; with ``pool_scale`` the rows are quantized here, at the pool
     boundary, and the call returns ``(new_pool, new_scale)``.  The given
-    pools are left untouched."""
+    pools are left untouched.  ``group`` as in :func:`harvest_gate_pages`."""
     new_pool = dict(pool)
     new_scale = dict(pool_scale) if pool_scale is not None else None
     lengths = lengths.long()
@@ -201,7 +210,7 @@ def scatter_gate_rows(config: ProGenConfig, gate_rows: dict,
         if new_scale is None:
             layer_pool[tgt, off] = gate.to(layer_pool.dtype).reshape(-1, half)
         else:
-            q, s = quantize_rows(gate)
+            q, s = quantize_rows(gate, group)
             layer_pool[tgt, off] = q.reshape(-1, half)
             layer_scale = pool_scale[str(i)].clone()
             layer_scale[tgt, off] = s.reshape(-1)
@@ -212,7 +221,7 @@ def scatter_gate_rows(config: ProGenConfig, gate_rows: dict,
     return new_pool
 
 
-def make_prefiller(model: ProGen):
+def make_prefiller(model: ProGen, mesh=None):
     """Build ``prefill(tokens, lengths, decode_len, adapters=None,
     tenant=None) -> (last_logits, caches)``.
 
@@ -222,6 +231,8 @@ def make_prefiller(model: ProGen):
     decode will visit (sizes the SGU caches).  ``adapters`` (a LoRA bank)
     with ``tenant (B,)`` runs each row as its tenant.  ``last_logits``
     ``(B, V)`` f32 are the logits at each row's last prime position.
+    ``mesh``: the ``DecodeMesh`` of a placed ``model`` (see the module
+    docstring).
     """
     config = model.config
 
@@ -235,7 +246,7 @@ def make_prefiller(model: ProGen):
             tenant = torch.as_tensor(tenant, dtype=torch.long,
                                      device=tokens.device)
         logits, sown = model(tokens, return_cache=True, adapters=adapters,
-                             tenant=tenant)
+                             tenant=tenant, mesh=mesh)
         caches = harvest_caches(config, sown, lengths, model.policy,
                                 decode_len)
         return _take_row(logits, lengths - 1).float(), caches
@@ -243,7 +254,7 @@ def make_prefiller(model: ProGen):
     return prefill
 
 
-def make_embedder(model: ProGen):
+def make_embedder(model: ProGen, mesh=None):
     """Build ``embed(tokens, lengths) -> (B, dim) f32``: the embeddings
     endpoint's program.
 
@@ -252,7 +263,10 @@ def make_embedder(model: ProGen):
     f32 and mean-pooled over each row's real positions ``< lengths[b]``
     (divided by ``max(lengths, 1)``); the window-aligned pad tail never
     contributes.  Same ragged ``(B, P_pad)`` + ``lengths`` contract as
-    :func:`make_prefiller`.  Always the base model: no adapters.
+    :func:`make_prefiller`.  Always the base model: no adapters.  ``mesh``
+    as in :func:`make_prefiller`; ``final_hidden`` runs through the root's
+    ``run`` (``models/progen.py:Runs``), so under ``fsdp`` the root's
+    parameters (``embed``, ``norm_out``) are whole while it runs.
     """
     config = model.config
 
@@ -262,7 +276,7 @@ def make_embedder(model: ProGen):
         p_pad = tokens.shape[1]
         lengths = torch.as_tensor(lengths, dtype=torch.long,
                                   device=tokens.device)
-        h = model.final_hidden(tokens).float()
+        h = model.run(lambda m: m.final_hidden(tokens, mesh=mesh)).float()
         keep = torch.arange(p_pad, device=tokens.device)[None, :] < lengths[:, None]
         pooled = torch.sum(h * keep[:, :, None].float(), dim=1)
         return pooled / lengths.clamp_min(1).float()[:, None]

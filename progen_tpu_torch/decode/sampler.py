@@ -12,6 +12,13 @@ once a step and draws each step's ``(B, V)`` noise from one subkey, as
 instead it draws its noise from that (not JAX's stream).  The serving
 engine's per-row sampling (:func:`gumbel_topk_sample_batched`,
 :func:`split_keys_batched`) runs on the JAX key chain too.
+
+Under a mesh (``mesh``, ``strategies``, ``params_shardings``: JAX's names)
+the sampler runs a model that ``parallel/sharding.parallelize`` placed, in
+its training shardings, as one SPMD decode (``parallel/decode.py``): every
+rank calls it with the same prime and key, draws the same noise from the
+host's key chain, and gets the same ``(B, length)`` tokens, as JAX's
+replicated output.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from progen_tpu_torch.decode import rng
 from progen_tpu_torch.decode.incremental import ProGenDecodeStep, init_caches
 from progen_tpu_torch.decode.prefill import make_prefiller, pad_prime_length
 from progen_tpu_torch.models.progen import ProGen
+from progen_tpu_torch.parallel.decode import check_placed, decode_mesh
 
 
 def apply_logit_mask(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -126,14 +134,25 @@ class ChunkedSampler:
     add_bos=..., temperature=...)`` with ``prime`` ``(B, P)`` int on the
     model's device and ``key`` raw key data ``(2,)`` (``rng.KeySeq``), or
     with ``generator=`` a ``torch.Generator`` in place of the key; it
-    returns ``(B, length)`` EOS-truncated sequences.
+    returns ``(B, length)`` EOS-truncated int32 sequences.
+
+    ``mesh``, ``strategies`` and ``params_shardings`` (the ``ParallelPlan``
+    that ``parallelize`` returned) name where ``model`` is placed; a model
+    the mesh has not placed, and a mesh, strategies or plan other than the
+    model's, raise ``ValueError`` (``parallel/decode.py:check_placed``).
+    Each call decodes in the weights as they are then: under ``sp`` it
+    gathers the SGU's spatial weights once.
     """
 
-    def __init__(self, model: ProGen, chunk_size: int = 64):
+    def __init__(self, model: ProGen, chunk_size: int = 64, mesh=None,
+                 strategies=("dp",), params_shardings=None):
+        check_placed(model, mesh, strategies, params_shardings)
         self.model = model
         self.chunk_size = chunk_size
-        self.step = ProGenDecodeStep(model)
-        self.prefill = make_prefiller(model)
+        # under a mesh each call builds them on its decode view
+        self.placed = mesh is not None
+        self.step = None if self.placed else ProGenDecodeStep(model)
+        self.prefill = None if self.placed else make_prefiller(model)
         self.last_num_chunks = 0
 
     @torch.no_grad()
@@ -148,7 +167,11 @@ class ChunkedSampler:
         if prime.dim() != 2:
             raise ValueError(f"prime must be (B, P), got {tuple(prime.shape)}")
         b, p = prime.shape
-        prime = prime.long()
+        if self.placed:  # the weights as they are now
+            view = decode_mesh(self.model)
+            self.step = ProGenDecodeStep(self.model, view)
+            self.prefill = make_prefiller(self.model, view)
+        prime = prime.int()
         if add_bos:
             prime = torch.cat([prime.new_zeros((b, 1)), prime[:, :length - 1]], dim=1)
             p = min(p + 1, length)
@@ -183,7 +206,7 @@ class ChunkedSampler:
             return gumbel_topk_sample(logits, top_k, temperature,
                                       generator=generator, noise=noise)
 
-        seq = torch.zeros(b, length, dtype=torch.long, device=prime.device)
+        seq = torch.zeros(b, length, dtype=torch.int32, device=prime.device)
         seq[:, :start_pos] = prime
         zcount = (prime == 0).sum(dim=1)
         if start_pos < length:
@@ -209,17 +232,19 @@ class ChunkedSampler:
         return truncate_after_eos(seq)
 
 
-def make_chunked_sampler(model: ProGen, chunk_size: int = 64) -> ChunkedSampler:
-    """The JAX package's name for ``ChunkedSampler(model, chunk_size)``."""
-    return ChunkedSampler(model, chunk_size)
+def make_chunked_sampler(model: ProGen, chunk_size: int = 64, mesh=None,
+                         strategies=("dp",), params_shardings=None) -> ChunkedSampler:
+    """The JAX package's name for ``ChunkedSampler``."""
+    return ChunkedSampler(model, chunk_size, mesh, strategies, params_shardings)
 
 
-def make_sampler(model: ProGen, chunk_size: int = 64) -> ChunkedSampler:
+def make_sampler(model: ProGen, chunk_size: int = 64, mesh=None,
+                 strategies=("dp",), params_shardings=None) -> ChunkedSampler:
     """The JAX package's name for its sequential sampler.  The port serves
     it through :class:`ChunkedSampler`, which gives the sequential
     sampler's tokens for the same key (the JAX package's own contract for
     ``make_chunked_sampler``) and stops early once every row has ended."""
-    return ChunkedSampler(model, chunk_size)
+    return ChunkedSampler(model, chunk_size, mesh, strategies, params_shardings)
 
 
 @torch.no_grad()

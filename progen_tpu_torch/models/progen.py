@@ -39,7 +39,11 @@ before the bias is added once, the SGU's LayerNorm takes its statistics over
 every rank's gate channels, the spatial mix (K2) runs on the rank's
 channels, and the gated product is gathered before ``sgu.proj_out``, which
 reads every channel.  K1 and K2 run on the rank's heads and channels, each a
-contiguous tensor.
+contiguous tensor.  A LoRA bank under ``tp`` is the rank's part of it
+(``parallel/decode.py:shard_bank``), its row-parallel ``out`` site summed
+over the tensor ranks.  Decode runs the forward under ``forward(mesh=)``, a
+view of the model's mesh in which the ``seq`` ranks are replicas
+(``parallel/decode.py``).
 
 ``remat=True`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant, no RNG stash: the forward draws
@@ -74,7 +78,12 @@ applies where gradients are recorded and no decode cache is filled.
 every dense site but ``to_logits`` holds an int8 weight and an f32 scale per
 output channel, and the SGU an int8 ``spatial_weights`` with an f32 scale per
 ROW.  Quantized tensors are buffers, not parameters; they start as zeros
-(scales as ones) and are loaded from ``quantize_params``' output.
+(scales as ones) and are loaded from ``quantize_params``' output.  Under
+``tp`` ``parallelize`` gives each rank its part of every int8 weight, its
+scales taken from the whole weight first (:class:`QuantDense`).
+
+The token embedding's weight gradient is a one-hot product
+(:func:`embed_tokens`), deterministic on the card.
 """
 
 from __future__ import annotations
@@ -157,29 +166,57 @@ class ProGenConfig:
         return (self.depth - i) <= self.global_mlp_depth
 
 
-def lora_delta(x: torch.Tensor, site: dict, tenant: torch.Tensor) -> torch.Tensor:
+def lora_delta(x: torch.Tensor, site: dict, tenant: torch.Tensor,
+               reduce_group=None) -> torch.Tensor:
     """Batched multi-tenant LoRA delta for one adapter site.
 
     ``x``: the dense layer's input ``(B, ..., Din)``; ``site``: stacked
     per-tenant factors ``{"a": (T, Din, r), "b": (T, r, Dout)}`` (any
     scale already folded into ``b``); ``tenant``: ``(B,)`` int tenant ids.
     Each row gathers ITS tenant's factors, cast to the activations' dtype,
-    so one step serves every tenant in the batch."""
+    so one step serves every tenant in the batch.  ``reduce_group``: a
+    row-parallel site, whose ``x`` and ``a`` are a rank's rows of the
+    contraction; the rank-``r`` partial products are summed over the group."""
     a = site["a"].index_select(0, tenant).to(x.dtype)
     b = site["b"].index_select(0, tenant).to(x.dtype)
-    h = torch.einsum("b...d,bdr->b...r", x, a)
+    h = tensor.reduce_from(torch.einsum("b...d,bdr->b...r", x, a), reduce_group)
     return torch.einsum("b...r,bro->b...o", h, b)
 
 
 def apply_lora(base: torch.Tensor, x: torch.Tensor, site: dict,
-               tenant: torch.Tensor) -> torch.Tensor:
+               tenant: torch.Tensor, reduce_group=None) -> torch.Tensor:
     """``base + lora_delta`` for rows with ``tenant > 0``; rows with tenant
     0 return ``base`` BIT-identically.  The guard is a ``where`` on the
     output, not a zero delta: ``base + 0.0`` turns ``-0.0`` outputs into
     ``+0.0``."""
-    delta = lora_delta(x, site, tenant)
+    delta = lora_delta(x, site, tenant, reduce_group)
     live = (tenant > 0).reshape((-1,) + (1,) * (base.dim() - 1))
     return torch.where(live, base + delta, base)
+
+
+class _EmbedTokens(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient is the one-hot product
+    ``onehot(tokens)^T @ grad`` over the vocabulary: a fixed order of sums,
+    so the same step gives the same bits on the card, where
+    ``F.embedding``'s backward adds rows with atomics."""
+
+    @staticmethod
+    def forward(ctx, tokens, weight):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = weight.shape[0]
+        return F.embedding(tokens, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        onehot = F.one_hot(tokens.reshape(-1).long(), ctx.vocab).to(grad.dtype)
+        return None, onehot.T @ grad.reshape(-1, grad.shape[-1])
+
+
+def embed_tokens(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``, with a deterministic backward
+    (:class:`_EmbedTokens`)."""
+    return _EmbedTokens.apply(tokens, weight)
 
 
 class LayerNorm(nn.Module):
@@ -257,11 +294,18 @@ class QuantDense(nn.Module):
             dout, dtype=policy.param_dtype, device=device)) if bias else None)
 
     def forward(self, x: torch.Tensor, reduce_group=None) -> torch.Tensor:
-        if reduce_group is not None:
-            raise ValueError("int8 serving weights are not sharded over a tensor axis")
+        """Under ``tp`` (``parallel/sharding.py``) the int8 weight is a
+        rank's part and its scales were taken from the whole weight: a
+        column-parallel layer holds its channels' scales; a row-parallel
+        one (``reduce_group``) sums the unscaled partial products over the
+        group and then applies the whole scale."""
         cd = self.compute_dtype
-        y = int8_matmul(x.to(cd), self.weight.T, self.weight_scale).to(cd)
-        return y if self.bias is None else y + self.bias.to(cd)
+        if reduce_group is None:
+            y = int8_matmul(x.to(cd), self.weight.T, self.weight_scale).to(cd)
+        else:
+            part = torch.matmul(x.to(cd), self.weight.T.to(cd)).float()
+            y = (tensor.reduce_from(part, reduce_group) * self.weight_scale).to(cd)
+        return y if self.bias is None else y + local(self.bias).to(cd)
 
 
 def seq_split(mesh) -> tuple[int, int]:
@@ -290,7 +334,20 @@ def _dense(din: int, dout: int, *, bias: bool, policy: Policy, device=None,
     return Dense(din, dout, bias=bias, policy=policy, device=device)
 
 
-class LocalAttention(nn.Module):
+class Runs:
+    """``run(fn, ...)``: a computation of this module's other than its
+    ``forward`` (the decode step's).  ``parallel/sharding.parallelize``
+    registers ``run`` with FSDP2 as a forward method, so under ``fsdp`` the
+    module's parameters are whole while ``fn`` runs, through FSDP2's own
+    pre- and post-forward (its unshard, stream ordering and reshard), as in
+    ``forward``."""
+
+    def run(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``."""
+        return fn(self, *args, **kwargs)
+
+
+class LocalAttention(Runs, nn.Module):
     """Pre-LN windowed attention block: fused bias-free QKV projection,
     output projection with bias."""
 
@@ -358,9 +415,10 @@ class LocalAttention(nn.Module):
         rank's heads under ``tp``: row-parallel)."""
         b, h, n, d = out.shape
         out = out.transpose(1, 2).reshape(b, n, h * d)
-        y = self.to_out(out, reduce_group=tensor.tensor_split(mesh)[1])
+        group = tensor.tensor_split(mesh)[1]
+        y = self.to_out(out, reduce_group=group)
         if adapters is not None:
-            y = apply_lora(y, out, adapters["out"], tenant)
+            y = apply_lora(y, out, adapters["out"], tenant, group)
         return y
 
 
@@ -408,12 +466,12 @@ class SGU(nn.Module):
         else:
             # an input shorter than seq_len (a prefill) uses the leading L
             # rows and columns: exact, since row m only reads columns <= m < L
-            # under sp with one seq rank the weights are a DTensor of one shard
-            w = tensor.copy_to(local(self.spatial_weights), group)[:n, :n]
+            w, b = (tensor.copy_to(t, group) for t in self.whole(mesh))
+            w = w[:n, :n]
             if self.spatial_weights_scale is not None:
                 w = w.float() * self.spatial_weights_scale[:n, None]
             w = w.to(cd).contiguous()
-            b = tensor.copy_to(local(self.spatial_biases), group)[:n].to(cd).contiguous()
+            b = b[:n].to(cd).contiguous()
             mix = cuda_sgu.gated_mix if mesh is None else functools.partial(
                 context.sharded_spatial_gate, mesh=mesh)
             x = mix(res.contiguous(), gate.contiguous(), w, b)
@@ -424,6 +482,16 @@ class SGU(nn.Module):
             y = apply_lora(y, x, adapters, tenant)
         return y
 
+    def whole(self, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole spatial weights and biases: under decode's view of a
+        mesh (``parallel/decode.py``) the copies it gathered from their
+        ``seq`` shards, else the local tensors (under ``sp`` with one seq
+        rank a DTensor of one shard; under ``fsdp`` the unsharded
+        parameters while the block runs)."""
+        spatial = getattr(mesh, "spatial", None)
+        if spatial and id(self) in spatial:
+            return spatial[id(self)]
+        return local(self.spatial_weights), local(self.spatial_biases)
 
     def _rows(self, n: int, slices: int, me: int, cd: torch.dtype):
         """This rank's rows of the spatial weights and biases in the compute
@@ -442,7 +510,7 @@ class SGU(nn.Module):
         return w.to(cd), b.to(cd)
 
 
-class FeedForward(nn.Module):
+class FeedForward(Runs, nn.Module):
     """Pre-LN MLP: GEGLU, or GELU then the SGU in the gMLP layers."""
 
     def __init__(self, config: ProGenConfig, use_sgu: bool, policy: Policy,
@@ -487,7 +555,7 @@ class FeedForward(nn.Module):
         return self.proj_out(x, reduce_group=group)
 
 
-class ProGen(nn.Module):
+class ProGen(Runs, nn.Module):
     """Embed -> depth x [LocalAttention, FeedForward] -> LN + logits head.
 
     ``device=None`` means ``cuda`` (raising without a card); the tests pass
@@ -566,7 +634,8 @@ class ProGen(nn.Module):
         load_full(self.embed.weight, w)
 
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
-                adapters: dict | None = None, tenant: torch.Tensor | None = None):
+                adapters: dict | None = None, tenant: torch.Tensor | None = None,
+                mesh=None):
         """``tokens (B, L)`` int -> logits ``(B, L, V)`` in the output dtype;
         with ``return_cache=True``, ``(logits, cache)`` where ``cache`` holds
         per layer the intermediates prefill harvests: ``cache["attn{i}"]``
@@ -574,42 +643,51 @@ class ProGen(nn.Module):
         ``(B, H, L, Dh)``); ``cache["ff{i}"]`` has ``prev`` and, in the gMLP
         layers, ``sgu: {gate}`` (the normed gate).  ``adapters`` (a LoRA
         bank, ``workloads/lora.py``) with ``tenant (B,)`` adds each row's
-        tenant's delta at every adapter site."""
+        tenant's delta at every adapter site.  ``mesh``: a view of the
+        model's own mesh to run under (decode's ``DecodeMesh``,
+        ``parallel/decode.py``); the model's mesh by default."""
         cache: dict[str, dict] | None = {} if return_cache else None
-        x = self._trunk(tokens, cache, adapters, tenant)
+        x = self._trunk(tokens, cache, adapters, tenant, mesh)
         logits = self.policy.cast_to_output(self.to_logits(self.norm_out(x)))
         if return_cache:
             return logits, cache
         return logits
 
     def final_hidden(self, tokens: torch.Tensor, adapters: dict | None = None,
-                     tenant: torch.Tensor | None = None) -> torch.Tensor:
+                     tenant: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
         """The final post-``norm_out`` hidden states ``(B, L, dim)`` in the
         compute dtype: the embeddings path, with no logits head and no
-        per-layer caches."""
-        return self.norm_out(self._trunk(tokens, None, adapters, tenant))
+        per-layer caches.  ``mesh`` as in :meth:`forward`."""
+        return self.norm_out(self._trunk(tokens, None, adapters, tenant, mesh))
 
-    def _trunk(self, tokens, cache, adapters, tenant) -> torch.Tensor:
+    def _trunk(self, tokens, cache, adapters, tenant, mesh=None) -> torch.Tensor:
         """Embed and run every block; the residual stream before
         ``norm_out``.  Fills ``cache`` when given."""
         cfg = self.config
+        mesh = self.mesh if mesh is None else mesh
         if adapters is not None and tenant is None:
             raise ValueError("adapters require a (B,) tenant-id tensor")
-        if adapters is not None and tensor.tensor_split(self.mesh)[0] > 1:
-            raise ValueError("LoRA adapters are not sharded over a tensor axis")
+        ranks = tensor.tensor_split(mesh)[0]
+        if adapters is not None and ranks > 1:
+            inner = 3 * cfg.heads * cfg.dim_head // ranks
+            if adapters["attn0"]["qkv"]["b"].shape[-1] != inner:
+                raise ValueError(
+                    f"under a tensor axis of {ranks} a LoRA bank must be the rank's "
+                    "part (parallel/decode.py:shard_bank): its qkv site is "
+                    f"{adapters['attn0']['qkv']['b'].shape[-1]} wide, not {inner}")
         if tokens.dim() != 2:
             raise ValueError(
                 f"ProGen takes batched (B, L) int tokens, got shape "
                 f"{tuple(tokens.shape)}")
         n = tokens.shape[1]
-        slices, me = seq_split(self.mesh)
+        slices, me = seq_split(mesh)
         if cfg.global_mlp_depth > 0 and n * slices > cfg.seq_len:
             raise ValueError(
                 f"input length {n} > config.seq_len {cfg.seq_len}: the gMLP "
                 "layers' learned (seq_len, seq_len) spatial weights have no "
                 "rows past seq_len")
         cd = self.policy.compute_dtype
-        x = F.embedding(tokens, self.embed.weight.to(cd))
+        x = embed_tokens(tokens, self.embed.weight.to(cd))
         # rotary tables computed once, shared by all layers; f32, cast inside;
         # a slice of the sequence takes its rows at their global positions
         sin, cos = fixed_pos_embedding(n * slices, cfg.dim_head, device=tokens.device)
@@ -624,14 +702,14 @@ class ProGen(nn.Module):
             attn_ad = ff_ad = None
             if adapters is not None:
                 attn_ad, ff_ad = adapters.get(f"attn{i}"), adapters.get(f"ff{i}")
-            attn_args = (x, sin, cos, attn_c, attn_ad, tenant, self.mesh)
+            attn_args = (x, sin, cos, attn_c, attn_ad, tenant, mesh)
             if remat == "attn":
                 x = x + self.attn[i](*attn_args, remat="attn")
             elif remat is not None:
                 x = x + remat_call(self.attn[i], *attn_args, policy=remat)
             else:
                 x = x + self.attn[i](*attn_args)
-            ff_args = (x, ff_c, ff_ad, tenant, self.mesh)
+            ff_args = (x, ff_c, ff_ad, tenant, mesh)
             if remat is not None:  # "attn" keeps nothing of the feed-forward
                 x = x + remat_call(self.ff[i], *ff_args, policy=remat)
             else:

@@ -67,7 +67,7 @@ def paged_gate_mix(weights: torch.Tensor, biases: torch.Tensor,
 
 def write_gate_row(pool: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
                    gate: torch.Tensor, write_ok: torch.Tensor,
-                   scale: torch.Tensor | None = None):
+                   scale: torch.Tensor | None = None, group=None):
     """Scatter each live row's fresh gate row into its page, IN PLACE.
 
     Rows with ``write_ok`` false (done, inactive, paused) and rows whose
@@ -77,7 +77,9 @@ def write_gate_row(pool: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
     ``(num_pages, page_size)`` f32 scale pool of an int8 gate pool) the row
     is quantized per row on the way: its int8 code and its scale land
     through the same redirected target, and the call returns ``(pool,
-    scale)`` instead of ``pool``."""
+    scale)`` instead of ``pool``.  ``group``: the pool holds a rank's
+    channels of each row; the row's scale is the whole row's
+    (``quantize_rows``)."""
     page_size = pool.shape[1]
     pos = pos.long()
     tgt = torch.gather(table.long(), 1, (pos // page_size)[:, None])[:, 0]
@@ -86,7 +88,7 @@ def write_gate_row(pool: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
     if scale is None:
         pool[tgt, off] = gate.to(pool.dtype)
         return pool
-    q, s = quantize_rows(gate)
+    q, s = quantize_rows(gate, group)
     pool[tgt, off] = q
     scale[tgt, off] = s
     return pool, scale

@@ -22,6 +22,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # +-127 keeps the code symmetric around zero (-128 is never produced), and
 # both endpoints are exact in bf16
@@ -66,11 +67,16 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
     return y * scale.float()
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, group=None):
     """Per-row (last axis) absmax int8 quantization of cache rows.  Returns
-    ``(q, scale)`` with ``scale`` f32 of ``x.shape[:-1]``."""
+    ``(q, scale)`` with ``scale`` f32 of ``x.shape[:-1]``.  ``group``: ``x``
+    holds a rank's channels of each row, split over a tensor group; the
+    absmax is then the whole row's (a max over the group), so each rank's
+    codes and the scale are those of the whole row."""
     x32 = x.float()
     absmax = x32.abs().amax(dim=-1)
+    if group is not None:
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.where(absmax > 0.0, absmax / QMAX, torch.ones_like(absmax))
     q = torch.round(x32 / scale[..., None]).clamp(-QMAX, QMAX)
     return q.to(torch.int8), scale

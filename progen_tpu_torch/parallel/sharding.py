@@ -256,7 +256,7 @@ def parallelize(model: torch.nn.Module, mesh: DeviceMesh,
     ``tp``, its heads and channels then run through ``parallel/context.py``
     and ``parallel/tensor.py``).  Every rank must hold the same full values
     first."""
-    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
     strategies = check_strategies(strategies, mesh)
     seq_at, fsdp_at = MESH_AXES.index("seq"), MESH_AXES.index("fsdp")
@@ -280,6 +280,7 @@ def parallelize(model: torch.nn.Module, mesh: DeviceMesh,
             else:
                 continue
             setattr(module, attr, torch.nn.Parameter(sharded))
+    _place_int8(model, mesh, strategies)
     fsdp_params: set[str] = set()
     if "fsdp" in strategies:
         shards = mesh_sizes(mesh)["fsdp"]
@@ -291,12 +292,74 @@ def parallelize(model: torch.nn.Module, mesh: DeviceMesh,
         for block in (*model.attn, *model.ff):
             fully_shard(block, **kwargs)
         fully_shard(model, **kwargs)
+        # the decode step's computations run through FSDP2's forward hooks
+        # (models/progen.py:Runs)
+        for module in (*model.attn, *model.ff, model):
+            register_fsdp_forward_method(module, "run")
         fsdp_params = {n for n in by_id.values() if n not in seq_params}
     model.mesh = mesh
     plan = ParallelPlan(mesh, strategies, frozenset(fsdp_params), frozenset(seq_params),
                         packed)
     model.parallel_plan = plan
     return plan
+
+
+def _place_int8(model: torch.nn.Module, mesh: DeviceMesh, strategies) -> None:
+    """Under ``tp``, each rank's part of every int8 serving weight
+    (``models/progen.py:QuantDense``, buffers that the loop over parameters
+    does not see), with the float weight's placement: a column-parallel
+    layer keeps its rows (in the packed rank-grouped layout) and their
+    scales; a row-parallel one its columns and the whole scale, which it
+    applies after the sum.  The scales were taken from the whole weight.
+    A plain tensor, not a DTensor: no gradient, no checkpoint reads it."""
+    if mesh_sizes(mesh)["tensor"] == 1:
+        return
+    for name, module in model.named_modules():
+        if hasattr(module, "weight_scale"):
+            for attr in ("weight", "weight_scale"):
+                setattr(module, attr, _int8_part(module, f"{name}.{attr}",
+                                                 getattr(module, attr), mesh, strategies))
+
+
+def _int8_part(module: torch.nn.Module, name: str, whole: torch.Tensor,
+               mesh: DeviceMesh, strategies) -> torch.Tensor:
+    """A rank's part of the whole int8 buffer ``name`` (``weight`` or
+    ``weight_scale``) of ``module``, as :func:`_place_int8` cuts it."""
+    ranks = mesh_sizes(mesh)["tensor"]
+    if not hasattr(module, "weight_scale") or ranks == 1:
+        return whole
+    placement = param_placements(name.removesuffix("_scale"), mesh,
+                                 strategies)[MESH_AXES.index("tensor")]
+    if not placement.is_shard():
+        return whole
+    dim = placement.dim
+    if name.endswith("_scale") and dim != 0:  # a row-parallel layer's whole scale
+        return whole
+    pieces = getattr(module, "packed", 1) if dim == 0 else 1
+    me = mesh.get_local_rank("tensor")
+    return regroup(whole, pieces, ranks).chunk(ranks, dim)[me].contiguous()
+
+
+@torch.no_grad()
+def load_placed(model: torch.nn.Module, state: dict) -> None:
+    """Write the whole weights ``state`` (the store's layout, every name of
+    ``model.state_dict()``) into the placed ``model`` in place: each
+    parameter's shard takes its part (:func:`load_full`), each int8 buffer
+    its rank's part (:func:`_place_int8`'s cut).  A collective: every rank
+    calls it with the same weights."""
+    plan = model.parallel_plan
+    params = dict(model.named_parameters())
+    buffers = {n: b for n, b in model.named_buffers() if n in state}
+    if set(state) != set(params) | set(buffers):
+        raise ValueError(f"the weights' names differ from the model's: missing "
+                         f"{sorted(set(params) | set(buffers) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(params) - set(buffers))}")
+    for name, p in params.items():
+        load_full(p, state[name], plan.pieces(name))
+    modules = dict(model.named_modules())
+    for name, b in buffers.items():
+        module = modules[name.rpartition(".")[0]]
+        b.copy_(_int8_part(module, name, state[name], plan.mesh, plan.strategies))
 
 
 def regroup(t: torch.Tensor, pieces: int, parts: int, inverse: bool = False) -> torch.Tensor:

@@ -67,21 +67,42 @@ Otherwise ``--params`` takes an ``.npz`` of flat flax keys
 (``compat/convert.py``), and without either the weights are drawn from
 ``--seed``.  Compute is bf16 over f32 parameters, as the JAX CLI's.  The
 device is ``cuda`` unless ``--device cpu`` is given.
+
+``--mesh data,fsdp,tensor,seq`` decodes across ranks under ``--strategies``
+(``fsdp`` by default, as the JAX CLI's; comma separated): each rank builds
+the weights whole (``--checkpoint_path``, ``--params`` or ``--seed``) and
+places them with ``parallelize``, and the sampler, or with ``--serve`` one
+engine per rank fed the same requests, decodes in those shardings
+(``parallel/decode.py``); rank 0 prints.  The ranks start under
+``torchrun``, or by hand with ``RANK`` and ``WORLD_SIZE`` set and
+``--init_method file:///shared/path``; with ``--device cpu`` they meet over
+gloo.  ``--serve`` composes with ``--disagg``, ``--spec`` and
+``--aot_warmup`` as it does without a mesh:
+
+    torchrun --nproc_per_node 2 -m progen_tpu_torch.sample --config default \
+        --prime MKV --mesh 1,1,2,1 --strategies tp --device cpu
+
+``--xprof_dir DIR`` records a ``torch.profiler`` trace of the decode (the
+sampler's call, or the serve loop) into ``DIR/trace.json`` (under a mesh
+each rank into ``DIR/rank{r}``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from progen_tpu_torch.checkpoint.store import CheckpointStore
 from progen_tpu_torch.compat.convert import load_npz
 from progen_tpu_torch.core.device import resolve_device
+from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed, make_mesh
 from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.tokenizer import decode_tokens, encode_tokens
 from progen_tpu_torch.decode.engine import Request, ServingEngine, run_with_restarts
@@ -89,12 +110,14 @@ from progen_tpu_torch.decode.rng import KeySeq
 from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.configs import CONFIGS
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
+from progen_tpu_torch.observe.meter import profile_trace
 from progen_tpu_torch.observe.trace import (
     configure_tracing,
     get_tracer,
     merge_trace_dir,
     trace_dump_path,
 )
+from progen_tpu_torch.parallel.sharding import parallelize, validate_tp_divisibility
 from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.workloads.infill import ScaffoldSpec
 
@@ -159,7 +182,31 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(admit or prefill and merge per bucket, the decode "
                         "chunk, with --embed the embed programs) as a CUDA "
                         "graph before serving")
+    p.add_argument("--mesh", default=None,
+                   help="decode across ranks on this mesh, data,fsdp,tensor,seq "
+                        "(-1 = the remaining ranks)")
+    p.add_argument("--strategies", default="fsdp",
+                   help="with --mesh: comma list of dp, fsdp, tp, sp")
+    p.add_argument("--init_method", default=None,
+                   help="with --mesh: where ranks started by hand meet (file:// "
+                        "or tcp://), with RANK and WORLD_SIZE set")
+    p.add_argument("--xprof_dir", default=None, metavar="DIR",
+                   help="record a torch.profiler trace of the decode into "
+                        "DIR/trace.json")
+    # "--mesh -1,1,1,1": argparse reads a value that starts with "-" as an
+    # option unless it is glued on
+    argv = list(sys.argv[1:] if argv is None else argv)
+    for i in range(len(argv) - 1):
+        if argv[i] == "--mesh":
+            argv[i:i + 2] = [f"--mesh={argv[i + 1]}"]
+            break
     args = p.parse_args(argv)
+    args.strategies = tuple(args.strategies.split(","))
+    if args.mesh is not None:
+        try:
+            args.mesh = MeshConfig.parse(args.mesh)
+        except ValueError as e:
+            p.error(f"--mesh: {e}")
     if args.aot_warmup and not args.serve:
         p.error("--aot_warmup warms the engine; add --serve")
     if (args.embed or args.infill is not None) and not args.serve:
@@ -192,10 +239,13 @@ def scaffold_from_template(template: str, vocab: int) -> ScaffoldSpec:
     return ScaffoldSpec(template=[0] + [entry(s) for s in segs], vocab=vocab)
 
 
-def serve(args, model, seq_len: int) -> list[dict]:
+def serve(args, model, seq_len: int, placed: dict | None = None) -> list[dict]:
     """Answer the primes (or the ``--infill`` samples, or the ``--embed``
-    requests) through the engine; prints and returns one record per
-    completion, in uid order."""
+    requests) through the engine; prints (rank 0) and returns one record
+    per completion, in uid order.  ``placed``: the engine's ``mesh``,
+    ``strategies`` and ``params_shardings`` under ``--mesh``."""
+    placed = placed or {}
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     primes = (args.prime.split("|") if "|" in args.prime
               else [args.prime] * args.num_samples)
     knobs = dict(top_k=args.top_k or None, temperature=args.temperature)
@@ -224,11 +274,12 @@ def serve(args, model, seq_len: int) -> list[dict]:
                                max_len=seq_len, paged=args.paged,
                                page_size=args.page_size, quantize=args.quantize,
                                spec=args.spec, spec_k=args.spec_k,
-                               disagg=args.disagg, watchdog=watchdog)
+                               disagg=args.disagg, watchdog=watchdog, **placed)
         if args.aot_warmup:
             stats = engine.aot_warmup(embed=args.embed)
-            print(f"aot warmup: {stats['programs']} programs in "
-                  f"{stats['seconds']:.1f} s", file=sys.stderr, flush=True)
+            if rank0:
+                print(f"aot warmup: {stats['programs']} programs in "
+                      f"{stats['seconds']:.1f} s", file=sys.stderr, flush=True)
         return engine
 
     try:
@@ -247,17 +298,18 @@ def serve(args, model, seq_len: int) -> list[dict]:
     finally:
         if watchdog is not None:
             watchdog.stop()
-    if args.trace:
+    if args.trace and rank0:
         get_tracer().dump(trace_dump_path(args.trace_out, "serve"))
         print(json.dumps({"trace": merge_trace_dir(args.trace_out)}), flush=True)
     records = []
+    say = print if rank0 else (lambda *a, **k: None)
     for comp in sorted(completions, key=lambda c: c.uid):
         if comp.embedding is not None:
             v = comp.embedding
             records.append({"uid": comp.uid, "prime": primes[comp.uid],
                             "embedding": [float(x) for x in v],
                             "status": comp.status, "latency_s": comp.latency})
-            print(f"\n {primes[comp.uid]} \n", "*" * 40,
+            say(f"\n {primes[comp.uid]} \n", "*" * 40,
                   f"[embed, dim={v.shape[0]}, norm={float(np.linalg.norm(v)):.4f}, "
                   f"{comp.latency:.2f}s]\n", np.round(v[:8], 4).tolist(), flush=True)
             continue
@@ -267,17 +319,29 @@ def serve(args, model, seq_len: int) -> list[dict]:
             "tokens": [int(t) for t in comp.tokens],
             "finish_reason": comp.finish_reason, "status": comp.status,
             "latency_s": comp.latency})
-        print(json.dumps(records[-1]), flush=True)
+        say(json.dumps(records[-1]), flush=True)
     return records
 
 
 def main(argv=None) -> list:
-    """Run the CLI; returns the decoded samples it printed (with
-    ``--serve``: the completion records)."""
+    """Run the CLI; returns the decoded samples (with ``--serve``: the
+    completion records); rank 0 prints them."""
     args = parse_args(argv)
     if args.checkpoint_path and args.params:
         raise SystemExit("give --checkpoint_path or --params, not both")
     device = resolve_device(args.device)
+    owned = args.mesh is not None and not dist.is_initialized()
+    if owned:  # torchrun's environment, ranks started by hand, or one rank
+        initialize_distributed(device, init_method=args.init_method)
+    try:
+        return _run(args, device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> list:
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     config = CONFIGS[args.config]
     if args.checkpoint_path:
         store = CheckpointStore(args.checkpoint_path)
@@ -285,7 +349,8 @@ def main(argv=None) -> list:
         if meta is None:
             raise SystemExit(f"no checkpoints found at {args.checkpoint_path}")
         config = ProGenConfig.from_dict(meta["model_config"])
-        print(f"trained for {max(meta['next_seq_index'], 0)} sequences")
+        if rank0:
+            print(f"trained for {max(meta['next_seq_index'], 0)} sequences")
     seq_len = min(args.seq_len or config.seq_len, config.seq_len)
     model = ProGen(config, make_policy(True), device=device, seed=args.seed)
     if args.checkpoint_path:
@@ -293,8 +358,20 @@ def main(argv=None) -> list:
     elif args.params:
         load_npz(args.params, model)
     model.eval()
+    placed = {}
+    if args.mesh is not None:
+        mesh = make_mesh(args.mesh, device.type)
+        validate_tp_divisibility(config, mesh.size(2), args.strategies)
+        plan = parallelize(model, mesh, args.strategies)
+        placed = dict(mesh=mesh, strategies=args.strategies, params_shardings=plan)
+    profile = contextlib.nullcontext()
+    if args.xprof_dir is not None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        profile = profile_trace(args.xprof_dir if args.mesh is None
+                                else os.path.join(args.xprof_dir, f"rank{rank}"))
     if args.serve:
-        return serve(args, model, seq_len)
+        with profile:
+            return serve(args, model, seq_len, placed)
 
     prime_tokens = encode_tokens(args.prime)
     # add_bos prepends the BOS/pad column; an empty prime is that column alone
@@ -302,15 +379,17 @@ def main(argv=None) -> list:
                          device=device).repeat(args.num_samples, 1)
     add_bos = bool(prime_tokens)
     prime_length = len(prime_tokens) + 1
-    sampler = make_sampler(model, chunk_size=args.chunk)
-    sampled = sampler(prime, seq_len, key=next(KeySeq(args.seed)), top_k=args.top_k,
-                      add_bos=add_bos, temperature=args.temperature)
+    sampler = make_sampler(model, chunk_size=args.chunk, **placed)
+    with profile:
+        sampled = sampler(prime, seq_len, key=next(KeySeq(args.seed)), top_k=args.top_k,
+                          add_bos=add_bos, temperature=args.temperature)
 
     texts = []
     for row in sampled.cpu().numpy():
         text = decode_tokens(row[prime_length:])
         texts.append(text)
-        print("\n", args.prime, "\n", "*" * 40, "\n", text)
+        if rank0:
+            print("\n", args.prime, "\n", "*" * 40, "\n", text)
     return texts
 
 

@@ -52,9 +52,14 @@ boundaries.  With ``--data_path`` the superstep runs the meshed step under
 any ``--mesh`` and ``--strategies``.  Without ``--data_path`` each dispatch
 takes up to K optimizer steps of synthetic rows and prints one line.
 
-Not accepted: the kernel-choice, profiling-service and wandb flags.  The
-device is ``cuda`` unless ``--device cpu`` is given (then the ranks meet
-over gloo).
+``--wandb_off`` keeps the tracker to its JSONL file; otherwise it mirrors
+to wandb, when the package is importable, under ``--wandb_project_name``
+(JAX's default ``progen-training``).  ``--profile_dir DIR`` records a
+``torch.profiler`` trace of the training loop into ``DIR/trace.json``
+(``observe/meter.py:profile_trace``).
+
+Not accepted: the kernel-choice flags.  The device is ``cuda`` unless
+``--device cpu`` is given (then the ranks meet over gloo).
 """
 
 from __future__ import annotations
@@ -163,6 +168,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no_warm_sampler", dest="warm_sampler", action="store_false")
     p.add_argument("--runs_dir", default="./runs",
                    help="where the tracker writes metrics.jsonl per run")
+    p.add_argument("--wandb_off", action="store_true",
+                   help="no wandb mirror: the tracker's JSONL file only")
+    p.add_argument("--wandb_project_name", default="progen-training",
+                   help="the wandb project the tracker mirrors to")
+    p.add_argument("--profile_dir", default=None, metavar="DIR",
+                   help="record a torch.profiler trace of the training loop "
+                        "into DIR/trace.json")
     p.add_argument("--inject-faults", dest="inject_faults", default=None,
                    help="arm the fault-injection harness, e.g. "
                         "'ckpt.save:io_error:times=2;train.step:preempt:at=5'")
@@ -243,10 +255,11 @@ def train_tfrecords(args, device: torch.device) -> dict:
         run_attempts=args.run_attempts, watchdog_timeout=args.watchdog_timeout,
         warm_sampler=args.warm_sampler, mesh=args.mesh, strategies=args.strategies,
         statusz_port=args.statusz_port, remat=args.remat, remat_policy=args.remat_policy,
-        superstep=args.superstep)
+        superstep=args.superstep, profile_dir=args.profile_dir)
     config = {k: v for k, v in vars(args).items() if k != "new"}
     config["mesh"] = ",".join(str(v) for v in dataclasses.astuple(args.mesh))
-    tracker = Tracker(out_dir=args.runs_dir, run_id=(meta or {}).get("run_id"),
+    tracker = Tracker(project=args.wandb_project_name, out_dir=args.runs_dir,
+                      run_id=(meta or {}).get("run_id"), use_wandb=not args.wandb_off,
                       config={**model_kwargs, **config}, disabled=rank != 0)
     trainer = Trainer(ProGenConfig.from_dict(model_kwargs), cfg, args.data_path,
                       args.checkpoint_path, tracker=tracker, device=device)

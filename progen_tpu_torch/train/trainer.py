@@ -35,7 +35,10 @@ from the same seed, then ``parallel/sharding.parallelize`` places it, and
 each rank reads
 its own batch shard of the records (``process_batch_shards``: ``batch_size``
 rows per shard, so the shards' rows together are the global batch, as in
-JAX).  Only rank 0 writes the tracker, prints and samples; a checkpoint is
+JAX).  Every rank samples, through the meshed sampler on the training
+model in its training shardings (``parallel/decode.py``; JAX's sample hook
+never gathers the params to one chip), and only rank 0 writes the tracker
+and prints; a checkpoint is
 gathered one whole tensor at a time into rank 0's host memory and written
 by rank 0 alone, in the store's one layout (a packed ``tp`` parameter's
 pieces put back in order), so it restores at any world size and without a
@@ -352,11 +355,11 @@ class Trainer:
         self.store = CheckpointStore(checkpoint_path, cfg.checkpoint_keep_n)
         # one writer: rank 0
         self.tracker = (tracker if self.rank == 0 else None) or Tracker(disabled=True)
-        # under a mesh rank 0 samples from a whole copy of the parameters
-        # (gathered at each sample hook) in a model of its own, built at the
-        # first sample (or its warm-up)
-        self.sample_model = self.model if self.mesh is None else None
-        self.sampler = make_sampler(self.model) if self.mesh is None else None
+        # under a mesh the sampler decodes the training model in its
+        # training shardings, never gathered: every rank calls it
+        self.sampler = make_sampler(
+            self.model, mesh=self.mesh, strategies=cfg.strategies,
+            params_shardings=getattr(self.model, "parallel_plan", None))
         self.keys = KeySeq(cfg.seed)
         # 12 sync intervals: long enough to be sustained, short enough to
         # slide past cold-start artifacts
@@ -415,7 +418,7 @@ class Trainer:
                     pass  # not the main thread
             self._took_sigterm = False
             self._prev_sigterm = None
-            self.model = self.sample_model = self.sampler = None
+            self.model = self.sampler = None
             self.fns = self.optimizer = None
 
     def _request_preempt_checkpoint(self, signum=None, frame=None) -> None:
@@ -473,27 +476,18 @@ class Trainer:
         allocations)."""
         cfg = self.cfg
         next_hook = (global_step // cfg.sample_every + 1) * cfg.sample_every
-        if not cfg.warm_sampler or self.rank != 0 or (
+        if not cfg.warm_sampler or (
                 cfg.max_steps is not None and next_hook > cfg.max_steps):
             return
         prime = torch.zeros((1, cfg.prime_length), dtype=torch.long,
                             device=self.device)
-        self._sampler()(prime, cfg.prime_length + 1,
-                        key=torch.zeros(2, dtype=torch.int64), top_k=cfg.sample_top_k)
+        self.sampler(prime, cfg.prime_length + 1,
+                     key=torch.zeros(2, dtype=torch.int64), top_k=cfg.sample_top_k)
 
     def _pieces(self, name: str) -> int:
         """The packed pieces of parameter ``name`` under ``tp`` (1 else)."""
         plan = getattr(self.model, "parallel_plan", None)
         return 1 if plan is None else plan.pieces(name)
-
-    def _sampler(self):
-        """The sampler; under a mesh rank 0's, of a model of its own that is
-        built here at first use."""
-        if self.sampler is None:
-            self.sample_model = ProGen(self.model_config, self.policy, device=self.device,
-                                       seed=self.cfg.seed).eval()
-            self.sampler = make_sampler(self.sample_model)
-        return self.sampler
 
     # -- state ---------------------------------------------------------------
 
@@ -921,27 +915,18 @@ class Trainer:
     def _sample_and_log(self, valid_batch, step: int) -> None:
         """Prime with the first ``prime_length`` tokens of a validation row,
         decode to ``seq_len`` on the JAX key chain, log.  Under a mesh every
-        rank gathers the parameters and rank 0 samples from them."""
+        rank decodes, in the training shardings, rank 0's prime (each rank
+        reads its own validation rows), and rank 0 logs."""
         cfg = self.cfg
-        if self.mesh is not None:
-            # every rank gathers one whole parameter at a time; rank 0
-            # copies each into its sampling model
-            mine = {}
-            if self.rank == 0:
-                self._sampler()  # builds the sampling model at first use
-                mine = dict(self.sample_model.named_parameters())
-            with torch.no_grad():
-                for name, p in self.model.named_parameters():
-                    whole = full_tensor(p.detach(), self._pieces(name))
-                    if mine:
-                        mine[name].copy_(whole)
-            if self.rank != 0:
-                return
         prime = torch.as_tensor(np.asarray(valid_batch[:1, :cfg.prime_length]),
                                 dtype=torch.long, device=self.device)
+        if self.mesh is not None:
+            dist.broadcast(prime, src=0)
         t0 = time.perf_counter()
-        sampled = self._sampler()(prime, self.model_config.seq_len, key=next(self.keys),
-                                  top_k=cfg.sample_top_k)
+        sampled = self.sampler(prime, self.model_config.seq_len, key=next(self.keys),
+                               top_k=cfg.sample_top_k)
+        if self.rank != 0:
+            return
         prime_str = decode_tokens(prime[0].cpu().numpy())
         sampled_str = decode_tokens(sampled[0, cfg.prime_length:].cpu().numpy())
         self._note_phase("train.sample", t0, step=step)

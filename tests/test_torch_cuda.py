@@ -757,3 +757,102 @@ def test_the_captured_meshed_step_is_the_eager_steps(gen, strategies):
         assert all(torch.equal(p0[n], p1[n]) for n in p0)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kernel", ["k1_zero_halo", "k2_fwd", "k3", "k3_q8"])
+def test_the_kernels_at_a_tensor_rank_of_two(gen, kernel):
+    """The kernels of decode under a mesh at the shapes a rank of a
+    ``tensor`` 2 mesh gives them at ProGen-small, bf16 (the Hopper routes):
+    K1-fwd through its halo entry with the zero window on 4 of 8 heads,
+    K2-fwd on 1024 of 2048 gate channels, K3 and K3-q8 at ``d`` 1024 over
+    8 ragged rows; each against its plain version at its bars, twice for
+    the same bits, on the route of the whole width."""
+    if kernel == "k1_zero_halo":
+        q, k, v = (torch.randn(4, 4, 1024, 128, device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        zero = torch.zeros(4, 4, 256, 128, device="cuda", dtype=torch.bfloat16)
+        before = dict(cuda_attention.fwd_route_launches)
+        out, lse = cuda_attention.local_attention_fwd(q, k, v, 256, None, zero, zero)
+        again = cuda_attention.local_attention_fwd(q, k, v, 256, None, zero, zero)
+        torch.cuda.synchronize()
+        assert cuda_attention.fwd_route_launches["wgmma"] == before["wgmma"] + 2
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        want, want_lse = local_attention(q, k, v, window_size=256, return_lse=True,
+                                         k_halo=zero, v_halo=zero)
+        _close(out, want, torch.bfloat16, TOL_ATTN_OUT)
+        _close(lse, want_lse, torch.float32)
+    elif kernel == "k2_fwd":
+        res, gate = (torch.randn(4, 1024, 1024, device="cuda", generator=gen).bfloat16()
+                     for _ in range(2))
+        w = (torch.randn(1024, 1024, device="cuda", generator=gen) * 0.05).bfloat16()
+        bias = torch.ones(1024, 1, device="cuda", dtype=torch.bfloat16)
+        before = dict(cuda_sgu.fwd_route_launches)
+        out, again = (cuda_sgu.spatial_gate_fwd(res, gate, w, bias) for _ in range(2))
+        torch.cuda.synchronize()
+        assert cuda_sgu.fwd_route_launches["wgmma"] == before["wgmma"] + 2
+        assert torch.equal(out, again)
+        _close(out, gated_mix(res, gate, w, bias), torch.bfloat16)
+    else:
+        c = _paged_case(gen, 1024, 1024, 16, list(PAGED_POS), torch.bfloat16)
+        w, pool, w_scale, pool_scale = _k3_args(c, "f32_w" if kernel == "k3" else "w8_p8")
+        before = dict(cuda_paged_gate_mix.route_launches)
+        got, again = (cuda_paged_gate_mix.paged_gate_mix(
+            w, c["bias"], pool, c["table"], c["pos"], n_rows=1024, w_scale=w_scale,
+            pool_scale=pool_scale) for _ in range(2))
+        torch.cuda.synchronize()
+        assert cuda_paged_gate_mix.route_launches == {**before, "bulk": before["bulk"] + 2}
+        assert torch.equal(got, again)
+        want = plain_paged.paged_gate_mix(w, c["bias"], pool, c["table"], c["pos"],
+                                          n_rows=1024, w_scale=w_scale, pool_scale=pool_scale)
+        _close_paged(got, want)
+
+
+def test_the_f32_step_is_deterministic_on_the_card(gen):
+    """Two f32 backward passes of one model and batch (batch 8, 256 tokens
+    a row of a 256-token vocabulary: every embedding row is hit many times)
+    give every gradient bit for bit; the embedding's weight gradient is a
+    one-hot product, not ``F.embedding``'s atomic sum."""
+    from progen_tpu_torch.train.loss import batch_loss
+
+    cfg = ProGenConfig(num_tokens=256, dim=256, seq_len=256, depth=2, window_size=128,
+                       global_mlp_depth=1, heads=2, dim_head=128)
+    batch = torch.randint(1, 256, (8, cfg.seq_len + 1), device="cuda", generator=gen)
+    grads = []
+    for _ in range(2):
+        model = ProGen(cfg, make_policy(False), device="cuda", seed=5)
+        batch_loss(model(batch[:, :-1]), batch[:, 1:]).backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        assert torch.equal(grads[1][name], g), name
+
+
+def test_a_world_1_meshed_sampler_is_the_unmeshed_one(gen):
+    """The sampler on a world-1 NCCL mesh under ``(fsdp, tp)`` and
+    ``(dp, tp, sp)`` (f32, a 2-layer model): at least 0.98 of the unmeshed
+    sampler's tokens for the same key (K1 runs its halo entry there, so
+    bit equality is not owed), and a second meshed call bit-equal."""
+    import torch.distributed as dist
+
+    from progen_tpu_torch.core.mesh import MeshConfig, initialize_distributed, make_mesh
+    from progen_tpu_torch.decode.sampler import make_sampler
+    from progen_tpu_torch.parallel.sharding import parallelize
+
+    cfg = ProGenConfig(num_tokens=256, dim=256, seq_len=256, depth=2, window_size=128,
+                       global_mlp_depth=1, heads=2, dim_head=128)
+    prime = torch.randint(1, 25, (2, 20), device="cuda", generator=gen)
+    key = torch.tensor([0, 11])
+    want = make_sampler(ProGen(cfg, make_policy(False), device="cuda", seed=2))(
+        prime, cfg.seq_len, key=key, top_k=25)
+    initialize_distributed("cuda")
+    try:
+        for strategies in (("fsdp", "tp"), ("dp", "tp", "sp")):
+            mesh = make_mesh(MeshConfig(1, 1, 1, 1))
+            model = ProGen(cfg, make_policy(False), device="cuda", seed=2)
+            plan = parallelize(model, mesh, strategies)
+            sampler = make_sampler(model, mesh=mesh, strategies=strategies,
+                                   params_shardings=plan)
+            got = sampler(prime, cfg.seq_len, key=key, top_k=25)
+            assert torch.equal(sampler(prime, cfg.seq_len, key=key, top_k=25), got)
+            assert float((got == want).float().mean()) >= 0.98, strategies
+    finally:
+        dist.destroy_process_group()

@@ -378,9 +378,13 @@ def test_a_fatal_prefill_fault_sheds_exactly_its_batch(model):
 
 
 def test_modes_that_are_not_ported_are_refused_by_name(model):
-    for name in ("remote_prefill", "mesh", "paged_impl"):
+    for name in ("remote_prefill", "paged_impl"):
         with pytest.raises(NotImplementedError, match=name):
             ServingEngine(model, **ENGINE, **{name: True})
+    for name in ("mesh", "strategies", "params_shardings"):  # ported: accepted
+        assert name not in engine_module._NOT_PORTED
+    with pytest.raises(ValueError, match="not placed"):  # a mesh needs a placed model
+        ServingEngine(model, **ENGINE, mesh=True)
     assert "watchdog" not in engine_module._NOT_PORTED  # ported: accepted
     assert ServingEngine(model, **ENGINE, watchdog=None)._watchdog is None
     with pytest.raises(NotImplementedError, match="remote_prefill"):

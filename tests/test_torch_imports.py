@@ -59,7 +59,8 @@ def test_scan_sees_the_whole_port():
                 "core/mesh.py", "parallel/__init__.py", "parallel/sharding.py",
                 "parallel/context.py", "observe/metrics.py", "observe/trace.py",
                 "observe/statusz.py", "observe/__init__.py", "compat/reference.py",
-                "convert_checkpoint.py", "train/memory.py", "parallel/tensor.py"):
+                "convert_checkpoint.py", "train/memory.py", "parallel/tensor.py",
+                "parallel/decode.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
@@ -88,6 +89,17 @@ def test_sample_cli_prints_samples_on_cpu(capsys):
                          "--num_samples", "2", "--seq_len", "40", "--chunk", "8",
                          "--device", "cpu"])
     assert again == texts  # seeded weights and noise
+
+
+def test_sample_cli_records_a_profile_of_the_decode(tmp_path, capsys):
+    """``--xprof_dir``: a ``torch.profiler`` trace of the decode, the
+    samples unchanged."""
+    argv = ["--config", "default", "--seed", "0", "--prime", "MKV", "--seq_len", "24",
+            "--chunk", "8", "--device", "cpu"]
+    texts = sample.main(argv + ["--xprof_dir", str(tmp_path / "prof")])
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert sample.main(argv) == texts
 
 
 def test_sample_cli_needs_a_card_unless_told_cpu(monkeypatch):
@@ -157,6 +169,44 @@ def test_train_cli_takes_supersteps_with_remat_on_cpu():
     assert [r["step"] for r in fused] == [2, 4]
     per_step = {r["step"]: r["loss"] for r in run()}
     assert [r["loss"] for r in fused] == [per_step[2], per_step[4]]
+
+
+@pytest.mark.parametrize("flags,project,use_wandb,profile_dir", [
+    ([], "progen-training", True, None),
+    (["--wandb_off", "--wandb_project_name", "mine", "--profile_dir", "prof"],
+     "mine", False, "prof")])
+def test_train_cli_takes_the_wandb_and_profile_flags(tmp_path, monkeypatch, flags,
+                                                      project, use_wandb, profile_dir):
+    """``--wandb_off``, ``--wandb_project_name`` (JAX's default
+    ``progen-training``) reach the Tracker and ``--profile_dir`` the
+    TrainerConfig, as ``train.py:224-228`` hands them on."""
+    seen = {}
+
+    class FakeTracker:
+        def __init__(self, **kwargs):
+            seen["tracker"] = kwargs
+
+        def finish(self):
+            pass
+
+    class FakeTrainer:
+        def __init__(self, model_config, cfg, *args, **kwargs):
+            seen["cfg"] = cfg
+
+        def run(self):
+            return {}
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(train_cli, "Tracker", FakeTracker)
+    monkeypatch.setattr(train_cli, "Trainer", FakeTrainer)
+    train_cli.main(["--data_path", str(tmp_path), "--checkpoint_path", str(tmp_path / "ck"),
+                    "--config_path", str(ROOT / "configs" / "model"), "--device", "cpu",
+                    *flags])
+    assert seen["tracker"]["project"] == project
+    assert seen["tracker"]["use_wandb"] is use_wandb
+    assert seen["cfg"].profile_dir == profile_dir
 
 
 def test_train_cli_needs_a_card_unless_told_cpu(monkeypatch):

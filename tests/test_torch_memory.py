@@ -231,9 +231,8 @@ def test_serving_plan_is_the_engines_state(mode):
     """Each field of the plan against the port engine's own state built on
     the CPU (f32): rings, carries, gate slabs or the pool (with its int8
     scales), the host page table, the logit mask, the draft's caches, the
-    bank.  The token ids: JAX holds them int32 and the plan prices 4 bytes a
-    position; the port holds int64, so its ``seq`` has the plan's element
-    count at twice the bytes.  The handoff queue is empty at build: its
+    bank.  The token ids are int32, as JAX holds them, at the plan's 4 bytes
+    a position.  The handoff queue is empty at build: its
     field is the plan's worst case, JAX's formula."""
     spec = dict(MODES[mode])
     lora = spec.pop("lora", None)
@@ -252,8 +251,8 @@ def test_serving_plan_is_the_engines_state(mode):
     assert _nbytes(*pool) == plan.pool_bytes
     assert st["lmask"].numel() * st["lmask"].element_size() == \
         slots * plan.lmask_bytes_per_slot
-    assert st["seq"].numel() * 4 == slots * plan.seq_bytes_per_slot
-    assert st["seq"].dtype == torch.int64
+    assert st["seq"].numel() * st["seq"].element_size() == slots * plan.seq_bytes_per_slot
+    assert st["seq"].dtype == torch.int32
     if plan.table_bytes:
         assert engine._page_table.nbytes == plan.table_bytes
     draft = st.get("draft_caches")
