@@ -61,8 +61,10 @@ non-zero without its last line:
    them equal): speculative decoding (spec_k 4) paged with a
    ``draft_config_for`` draft (random weights from the seed) and dense with
    the identity draft (more than one token a round), prefill disaggregated
-   (paged), and both with int8 weights and 8-bit pages; each run's
-   acceptance counters, prefill and merge seconds, handoff stats and
+   (paged), and both with int8 weights and 8-bit pages (the speculative
+   runs on the requests cut to 64 new tokens, against the plain runs'
+   first 64); each run's acceptance counters, prefill and merge seconds,
+   handoff stats and
    launches (the draft's K1-fwd/K2-fwd in every prefill program, on the
    Hopper route; K3 or K3-q8 twice per verify step);
 8. trainer path: ProGen-small (bf16, batch 8, accumulation 1) trains
@@ -169,13 +171,14 @@ non-zero without its last line:
    their inputs (K3 and K3-q8: new positions, tables and pool rows), each
    replay bit-equal to an eager launch; then the 12 requests of phase 7
    through a warmed engine, dense, paged, 8-bit pages, speculative paged
-   (the ``draft_config_for`` draft) and disaggregated paged, and the
-   workloads queue of phase 9 (the embedding programs warmed too): tokens,
+   (the ``draft_config_for`` draft, the requests cut to 64 new tokens) and
+   disaggregated paged, and the workloads queue of phase 9 (the embedding programs warmed too): tokens,
    statuses and embeddings identical to the eager runs', the launches the
    smoke's formula (a replay counts what its capture launched); the
    programs, warm-up seconds and bytes the grid holds, the host's launches
    per warmed chunk, tokens/s and the time from the first submit to the
-   first chunk, eager and warmed.  On the paged engine a reload P0 -> P1
+   first chunk, eager and warmed.  On the paged engine (the requests cut
+   to 64 new tokens) a reload P0 -> P1
    captures the grid again and answers as a fresh warmed engine on P1, an
    injected decode fault changes nothing, and after the engines are closed
    and deleted the live memory is back within 256 MB of the phase's start;
@@ -223,11 +226,11 @@ non-zero without its last line:
    ``(dp, tp, sp)``.  In bf16 compute: the prefill's logits against the
    unmeshed model's (0.1; f32 1e-3), a decode step on the unmeshed
    prefill's caches bit-equal to the unmeshed step; the sampler on phase
-   4's first prime and noise (2 samples to 512) under both meshes, under
+   4's first prime and noise (2 samples to 256) under both meshes, under
    ``(fsdp, tp)`` twice bit-equal, prefill ms and decode tokens/s beside
    the unmeshed sampler's on the same prime and length, the rank's
    parameter bytes and a decode step's peak; the engine under ``(fsdp,
-   tp)`` on phase 7's 12 requests cut to 64 new tokens, dense, paged and
+   tp)`` on phase 7's 12 requests cut to 32 new tokens, dense, paged and
    8-bit, eager and warmed by ``aot_warmup``, warmed bit-equal to eager,
    tokens/s beside the unmeshed engine's.  The bf16 tokens are
    held, at least 0.98, to unmeshed runs whose K1 takes its halo entry
@@ -236,13 +239,29 @@ non-zero without its last line:
    ulp from the plain launch and random weights' near-tied logits turn
    that into other tokens.  In f32 (the halo entry gives the plain
    launch's logits) the prefill's logits are held at 1e-3.  Two ranks on
-   the one card meeting over gloo (``(1, 1, 2, 1)`` under ``tp``, f32: the
-   sampler on the first prime to 128, a paged and an 8-bit engine on two
-   requests, at a rank's real shapes, both ranks' tokens equal, at least
+   the one card meeting over gloo (``(1, 1, 2, 1)`` under ``tp``, f32, 6
+   layers: the sampler on the first prime to 64, a paged and an 8-bit
+   engine on two requests, at a rank's real widths, both ranks' tokens equal, at least
    0.98 of the unmeshed tokens); K1 with the zero halo (B 4, H 4), K2-fwd
    on 1024 channels, K3 and K3-q8 at d 1024 against their plain versions
    and timed in bf16, rows of the ``kernels`` line with the two f32 ranks'
    launches (``launches_of`` says so);
+18. the multi-process fleet (``serve_fleet``, after phase 12): ProGen-small
+   at full width and depth (the seeded init), one prefill worker and one
+   decode replica of ``serve/``, each its own process on ``cuda:0``,
+   answer phase 7's 12 requests cut to 64 new tokens (paged, 8 slots,
+   chunk 32, page 16, the ``engine_disagg_paged`` prefill batch and
+   handoff depth), the handles crossing as PGHF frames over loopback
+   sockets: in f32 the tokens identical to the in-process disaggregated
+   engine's that ``build_engine_from_spec`` makes of the same spec; in
+   bf16 compute with int8 weights and 8-bit pages, both workers warmed by
+   ``aot_warmup``, at least 0.98 of them (the identical share printed).
+   Each worker's kernels come from its exit line: K1-fwd 12 and K2-fwd 2
+   a handle in the prefill worker only (f32 on ``wmma``/``fma``, bf16 on
+   ``wgmma``), K3 or K3-q8 twice a decode step on ``bulk`` in the replica
+   only; no CRC failure or desync, no prefill in the replica; worker
+   start-up, tokens/s, median time to first token, frames, bytes, ``ser_s``
+   and ``de_s`` a frame, handle bytes a request, peak memory per process;
 15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
@@ -257,14 +276,20 @@ with phase 17: phase 12 at 3 layers and its requests cut to 64 new tokens
 (64-192 before), phase 14's Trainers at 6 layers and its timed runs at 8
 steps, one traced repeat in phases 14 and 16 (three before), and phase
 14's superstep and remat checks one eager run fewer each (the f32 step is
-deterministic: no spread to measure).
+deterministic: no spread to measure); and four made with phase 18: phase
+7's speculative runs and phase 13's speculative, reload and fault runs on
+the requests cut to 64 new tokens (64-192 before), phase 17's samplers to
+256 (512 before), its engines' requests to 32 new tokens (64 before), its
+two ranks at 6 layers (12 before) and their sampler to 64 (128 before);
+phase 18's in-process references run while its workers start.
 The whole takes fifteen to twenty minutes on an H100 (by the host's
 pace), the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
 ``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
 with the eager runs it compares against, ``trainer_superstep_alone()``
 phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs,
-``decode_mesh_alone()`` phase 17 with its own unmeshed runs.
+``decode_mesh_alone()`` phase 17 with its own unmeshed runs,
+``serve_fleet_alone()`` phase 18.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -272,6 +297,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -327,6 +353,7 @@ from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.watchdog import Watchdog
+from progen_tpu_torch.serve import ServeCluster, build_engine_from_spec, make_spec
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch import trace_main_path
 from progen_tpu_torch.parallel.decode import decode_mesh as decode_view
@@ -418,6 +445,7 @@ ENGINE_REQUESTS = 12
 ENGINE_TIGHT_PAGES = 2 + 96    # pool pages of the tight run, 2 reserved
 ENGINE_TOKEN_MATCH = 0.98      # the JAX package's accuracy gate (bench_serving.py)
 ENGINE_SPEC_K = 4              # draft tokens a speculative round (the CLI's default)
+SPEC_NEW_TOKENS = 64           # the speculative runs' cap on the requests (64-192 before phase 18)
 SPIN_CYCLES = 40_000_000       # ~20 ms of device spin ahead of a timed run
 FLUSH_BYTES = 256 << 20        # written before each cold call: five times L2
 # The served workloads: a bank of 4 tenants (0 = the base) at rank 8, a
@@ -442,8 +470,14 @@ SAMPLES_PER_PRIME = 2
 AMINO = "ACDEFGHIKLMNPQRSTVWY"
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase; ``t`` is the seconds since the script
+    started (a phase's time is the difference of two lines' ``t``)."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 1),
+                      **fields}), flush=True)
 
 
 def smi_name_power() -> str:
@@ -1730,6 +1764,13 @@ def capped(requests: list[dict], new_tokens: int) -> list[dict]:
     return [{**r, "max_new_tokens": min(r["max_new_tokens"], new_tokens)} for r in requests]
 
 
+def cut(tokens: dict, new_tokens: int) -> dict:
+    """Tokens by uid cut to their first ``new_tokens``: what the same
+    requests capped at ``new_tokens`` answer (a request's tokens depend on
+    its prime, seed and knobs, not on its cap)."""
+    return {u: t[:new_tokens] for u, t in tokens.items()}
+
+
 def engine_requests(c, greedy: bool = False) -> list[dict]:
     """12 requests from the seed: prime lengths 37-511, ``max_new_tokens``
     64-192, half greedy and half top-k 25 at temperature 1, each its own
@@ -1976,15 +2017,16 @@ def engine_modes(model, requests, dense: dict, paged: dict, q8: dict,
     draft = ProGen(draft_config_for(model.config), make_policy(True), device="cuda",
                    seed=SEED).eval()
     out = {}
+    spec_requests = capped(requests, SPEC_NEW_TOKENS)
     tokens, out["engine_spec_paged"], engine = run_engine(
-        "engine_spec_paged", model, requests, want=paged, paged=True, spec=True,
-        spec_k=ENGINE_SPEC_K, draft_params=draft)
+        "engine_spec_paged", model, spec_requests, want=cut(paged, SPEC_NEW_TOKENS),
+        paged=True, spec=True, spec_k=ENGINE_SPEC_K, draft_params=draft)
     require(engine.draft_config.dim == model.config.dim // 4, "not the draft config")
     if runs is not None:
         runs["engine_spec_paged"] = (tokens, out["engine_spec_paged"])
     tokens, out["engine_spec_identity"], engine = run_engine(
-        "engine_spec_identity", model, requests, want=dense, spec=True,
-        spec_k=ENGINE_SPEC_K)
+        "engine_spec_identity", model, spec_requests, want=cut(dense, SPEC_NEW_TOKENS),
+        spec=True, spec_k=ENGINE_SPEC_K)
     if runs is not None:
         runs["engine_spec_identity"] = (tokens, out["engine_spec_identity"])
     counters = engine.spec_counters()
@@ -1999,8 +2041,8 @@ def engine_modes(model, requests, dense: dict, paged: dict, q8: dict,
     require(handoff["puts"] == handoff["gets"] > 0 and engine.stage_seconds["merge_s"] > 0,
             f"engine_disagg_paged: handoff {handoff}")
     _, out["engine_spec_disagg_q8"], engine = run_engine(
-        "engine_spec_disagg_q8", model, requests, want=q8, paged=True,
-        quantize="weights+pages", spec=True, spec_k=ENGINE_SPEC_K, disagg=True)
+        "engine_spec_disagg_q8", model, spec_requests, want=cut(q8, SPEC_NEW_TOKENS),
+        paged=True, quantize="weights+pages", spec=True, spec_k=ENGINE_SPEC_K, disagg=True)
     del engine, draft
     return out
 
@@ -3000,6 +3042,7 @@ def engine_lifecycle_alone() -> dict:
 # is the route of one of the meshed Trainer's runs.
 GRAPH_REPLAYS = 3                  # replays of each kernel's captured launch
 GRAPHS_FAULT = "serve.decode_chunk:io_error:at=1"
+GRAPHS_NEW_TOKENS = 64             # the reload and fault runs' cap (64-192 before phase 18)
 # mode -> the eager run's phase and the engine's arguments (the draft is
 # filled in by the phase)
 GRAPH_MODES = {
@@ -3158,7 +3201,10 @@ def engine_graphs(model, requests: list[dict], eager: dict, workloads: tuple) ->
     for mode, (eager_phase, kwargs) in GRAPH_MODES.items():
         phase = f"engine_graphs_{mode.replace('+', '_')}"
         kwargs = {**kwargs, "draft_params": draft} if kwargs.get("spec") else kwargs
-        tokens, launches[phase], engine = run_engine(phase, model, requests, aot=True, **kwargs)
+        # the speculative runs are on the requests cut to SPEC_NEW_TOKENS
+        mode_requests = capped(requests, SPEC_NEW_TOKENS) if kwargs.get("spec") else requests
+        tokens, launches[phase], engine = run_engine(phase, model, mode_requests, aot=True,
+                                                     **kwargs)
         differ = [u for u in eager[eager_phase] if tokens.get(u) != eager[eager_phase][u]]
         require(not differ, f"{phase}: tokens of {differ} differ from the eager engine's")
         summary[mode] = graph_vs_eager(ENGINE_FIELDS[phase], ENGINE_FIELDS[eager_phase])
@@ -3181,8 +3227,10 @@ def engine_graphs(model, requests: list[dict], eager: dict, workloads: tuple) ->
     engine.close()
     del engine, bank
 
-    # on the paged engine: a reload, a fault
-    paged = eager["engine_paged"]
+    # on the paged engine: a reload, a fault, on the requests cut to
+    # GRAPHS_NEW_TOKENS
+    paged = cut(eager["engine_paged"], GRAPHS_NEW_TOKENS)
+    requests = capped(requests, GRAPHS_NEW_TOKENS)
     p1 = ProGen(c, make_policy(True), device="cuda", seed=SEED + 1).eval()
     engine = graph_engine(model, paged=True)
     t0 = time.perf_counter()
@@ -4415,9 +4463,10 @@ DECODE_MESH_MODES = (("dense", {}), ("paged", {"paged": True}),
                      ("paged_q8", {"paged": True, "quantize": "weights+pages"}))
 RANK_TENSOR = 2  # the tensor split whose rank shapes the kernels are held at
 TWO_RANK_SECONDS = 300  # the two gloo ranks' budget, their start included
-TWO_RANK_LENGTH = 128   # the two ranks' sampler: the first prime to this length
-DECODE_MESH_LENGTH = 512  # the meshed samplers' length (the first prime; 1024 in phase 4)
-DECODE_MESH_NEW_TOKENS = 64  # the meshed engines' cap on phase 7's requests (64-192 there)
+TWO_RANK_LENGTH = 64    # the two ranks' sampler: the first prime to this length (128 before phase 18)
+DECODE_MESH_LENGTH = 256  # the meshed samplers' length (the first prime; 512 before phase 18, 1024 in phase 4)
+DECODE_MESH_NEW_TOKENS = 32  # the meshed engines' cap on phase 7's requests (64-192 there; 64 before phase 18)
+TWO_RANK_DEPTH = 6  # the two ranks' ProGen-small layers (12 before phase 18)
 
 
 def mesh_model(dtype_bf16: bool, strategies):
@@ -4603,10 +4652,16 @@ def rank_shape_rows(gen) -> list[dict]:
     return rows
 
 
+def two_rank_config():
+    """ProGen-small at TWO_RANK_DEPTH layers: a rank's real widths."""
+    return dataclasses.replace(SMALL, depth=TWO_RANK_DEPTH)
+
+
 def _two_rank_worker(rank: int, store: str, prime: str, length: int, bf16: bool,
                      queue) -> None:
     """One of two ranks on ``cuda:0`` meeting over gloo (NCCL refuses two
-    ranks on one GPU): ProGen-small placed on ``(1, 1, 2, 1)`` under ``tp``,
+    ranks on one GPU): ProGen-small (TWO_RANK_DEPTH layers) placed on
+    ``(1, 1, 2, 1)`` under ``tp``,
     ``prime`` through the meshed sampler as phase 4 samples it, then phase
     7's first two requests (16 new tokens each) through a paged and an
     8-bit paged engine; puts its tokens, the sampler's seconds and the
@@ -4622,7 +4677,7 @@ def _two_rank_worker(rank: int, store: str, prime: str, length: int, bf16: bool,
                                 rank=rank, timeout=datetime.timedelta(seconds=300))
         note("process group")
         mesh = make_mesh(MeshConfig(1, 1, 2, 1), "cuda")
-        model = ProGen(SMALL, make_policy(bf16), device="cuda", seed=SEED).eval()
+        model = ProGen(two_rank_config(), make_policy(bf16), device="cuda", seed=SEED).eval()
         # the 8-bit engine's int8 model, quantized whole on each rank (its
         # scales the whole weights') and then placed, as a user would
         quantized = ServingEngine._quantize_variables(model)
@@ -4794,7 +4849,7 @@ def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
     plain, base_run = sample_primes(make_sampler(base, 64), primes[:1], DECODE_MESH_LENGTH)
     base_run.update(prefill_ms=prefill_ms(base, None, primes[:1]), **step_bytes(base, None))
     base_run["decode_tokens_per_s"] = decode_rate(base_run)
-    base32 = ProGen(c, make_policy(False), device="cuda", seed=SEED).eval()
+    base32 = ProGen(two_rank_config(), make_policy(False), device="cuda", seed=SEED).eval()
     want32, _ = sample_primes(make_sampler(base32, 64), primes[:1], TWO_RANK_LENGTH)
     del base32
     gc.collect()
@@ -4959,6 +5014,222 @@ def trainer_mesh_alone() -> dict:
     return result
 
 
+# -- phase 18: the multi-process fleet ----------------------------------------
+
+FLEET_NEW_TOKENS = 64  # the fleet's cap on phase 7's requests (64-192 there)
+FLEET_RUNS = (("f32", False, None, False), ("bf16_q8_warmed", True, "weights+pages", True))
+FLEET_TIMEOUT_S = 300.0
+
+
+def fleet_spec(bf16: bool, quantize: str | None, aot: bool) -> dict:
+    """The fleet's worker spec: ProGen-small at full width and depth, the
+    port's seeded init (seed 0), paged with 8 slots, chunk 32, page 16 and
+    the in-process ``engine_disagg_paged`` phase's ``prefill_batch`` (the
+    default, 8) and ``handoff_depth`` (2); every worker on ``cuda:0``."""
+    return make_spec(SMALL, mixed_precision=bf16, init_seed=SEED, device="cuda",
+                     engine=dict(num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                                 max_len=SMALL.seq_len, paged=True,
+                                 page_size=ENGINE_PAGE, quantize=quantize),
+                     aot_warmup=aot)
+
+
+def fleet_reference(spec: dict, requests: list[dict]) -> dict:
+    """Tokens by uid of the in-process disaggregated engine that
+    ``build_engine_from_spec`` makes of ``spec`` (eager)."""
+    engine = build_engine_from_spec(spec)
+    for r in requests:
+        engine.submit(Request(**r))
+    done = engine.run_until_idle(max_chunks=400)
+    require(all(c.ok for c in done) and len(done) == len(requests),
+            "the in-process reference did not answer every request")
+    out = {c.uid: c.tokens.tolist() for c in done}
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def worker_exits(log_dir: Path) -> dict:
+    """Each worker's exit line (``serve/worker.py``), by ``role:index``."""
+    out = {}
+    for log in sorted(log_dir.glob("*.log")):
+        for line in log.read_text().splitlines():
+            if line.startswith('{"worker_exit"'):
+                rec = json.loads(line)
+                out[rec["worker_exit"]] = rec
+    return out
+
+
+def fleet_counts(launches: dict) -> dict:
+    """A worker's exit-line launches under the smoke's counter names, with
+    the paged gate mix's launches by route."""
+    short = lambda module, attr: f"{module.__name__.rsplit('.', 1)[1]}.{attr}"
+    out = {name: launches[short(module, attr)] for name, (module, attr) in COUNTERS.items()}
+    routes = {}
+    for name, (module, attr) in ROUTE_COUNTERS.items():
+        prefix = short(module, attr) + "."
+        routes[name] = {k[len(prefix):]: n for k, n in launches.items() if k.startswith(prefix)}
+    return out, routes
+
+
+def fleet_run(label: str, bf16: bool, quantize, aot: bool, requests: list[dict],
+              root: Path) -> dict:
+    """One prefill worker and one decode replica answer ``requests``, held
+    to the in-process engine of the same spec (eager), which runs on a
+    thread of this process while the workers start; the workers' kernels
+    are read from their exit lines."""
+    spec = fleet_spec(bf16, quantize, aot)
+    log_dir = root / label
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        reference = pool.submit(fleet_reference, fleet_spec(bf16, quantize, False), requests)
+        t0 = time.perf_counter()
+        try:
+            cluster = ServeCluster(spec, log_dir=str(log_dir),
+                                   spawn_timeout=FLEET_TIMEOUT_S)
+        finally:
+            want = reference.result()
+    hello_s = time.perf_counter() - t0
+    handle_bytes = []
+    relay = cluster._on_handle
+
+    def counted(peer, header, frame):
+        handle_bytes.append(len(frame))
+        return relay(peer, header, frame)
+
+    cluster._on_handle = counted
+    try:
+        cluster.wait_ready(FLEET_TIMEOUT_S)
+        t1 = time.perf_counter()
+        for r in requests:
+            cluster.submit(Request(**r))
+        done = cluster.drain(timeout=FLEET_TIMEOUT_S)
+        serve_s = time.perf_counter() - t1
+    finally:
+        stats = cluster.shutdown()
+    exits = worker_exits(log_dir)
+    require(set(exits) == {"prefill:0", "decode:0"},
+            f"{label}: worker exit lines {sorted(exits)}; logs in {log_dir}")
+    require(sorted(c.uid for c in done) == list(range(len(requests)))
+            and all(c.ok for c in done),
+            f"{label}: statuses {[(c.uid, c.status) for c in done]}")
+    got = {c.uid: c.tokens.tolist() for c in done}
+    share = token_match(got, want)
+    identical = share == 1.0 and got == want
+    (pre, pre_routes), (dec, dec_routes) = (fleet_counts(exits[w]["launches"])
+                                            for w in ("prefill:0", "decode:0"))
+    dstats = stats["workers"]["decode:0"]
+    frames = dstats["robust"]["handoff"]["puts"]
+    steps = dstats["chunks_run"] * ENGINE_CHUNK
+    mix = "paged_gate_mix_q8" if quantize == "weights+pages" else "paged_gate_mix"
+    fwd_route = ("wgmma", "wgmma") if bf16 else ("wmma", "fma")
+    # K1-fwd/K2-fwd in every layer of every prefill program, in the prefill
+    # worker only; K3 (or K3-q8) twice a decode step, in the replica only
+    want_pre = {**dict.fromkeys(COUNTERS, 0), "local_attention_fwd": SMALL.depth * frames,
+                "sgu_fwd": SMALL.global_mlp_depth * frames}
+    want_dec = {**dict.fromkeys(COUNTERS, 0), mix: SMALL.global_mlp_depth * steps}
+    require(pre == want_pre, f"{label}: prefill worker launches {pre}, want {want_pre}")
+    require(dec == want_dec, f"{label}: replica launches {dec}, want {want_dec}")
+    for name, route in zip(("local_attention_fwd", "sgu_fwd"), fwd_route):
+        require(pre_routes[name].get(route) == pre[name] > 0,
+                f"{label}: {name} by route {pre_routes[name]}, want all on {route}")
+    require(dec_routes["paged_gate_mix"].get("bulk") == dec[mix] > 0,
+            f"{label}: K3 by route {dec_routes['paged_gate_mix']}, want all on bulk")
+    tt = stats["transport_total"]
+    require(tt["crc_failures"] == 0 and tt["desyncs"] == 0, f"{label}: transport {tt}")
+    require(dstats["stage_seconds"]["prefill_s"] == 0.0,
+            f"{label}: the replica ran a prefill: {dstats['stage_seconds']}")
+    pstats = stats["workers"]["prefill:0"]
+    # spawn to hello (or to the reference's end, if later), then each
+    # worker's own build (and warm-up), the two in parallel
+    startup_s = hello_s + max(exits[w]["build_s"] for w in exits)
+    generated = sum(len(v) for v in got.values())
+    ttft = [c.ttft for c in done if c.ttft is not None]
+    result = {
+        "precision": "bf16 compute" if bf16 else "f32", "quantize": quantize,
+        "aot_warmup": aot, "requests": len(requests),
+        "token_match_vs_in_process": share, "identical": identical,
+        "startup_s": startup_s,
+        "worker_build_s": {w: exits[w]["build_s"] for w in exits},
+        "warmup": {w: exits[w]["warmup"] for w in exits},
+        "serve_s": serve_s, "generated_tokens": generated,
+        "tokens_per_s": generated / serve_s,
+        "ttft_s_median": float(np.median(ttft)) if ttft else None,
+        "latency_s_median": float(np.median([c.latency for c in done])),
+        "handle_frames": frames, "handle_bytes": sum(handle_bytes),
+        "handle_bytes_per_request": sum(handle_bytes) / len(requests),
+        "frames_total": tt["frames_out"], "bytes_total": tt["bytes_out"],
+        "ser_s_per_frame": pstats["transport"]["ser_s"] / max(frames, 1),
+        "de_s_per_frame": dstats["transport"]["de_s"] / max(frames, 1),
+        "peak_bytes": {w: exits[w]["peak_bytes"] for w in exits},
+        "stage_seconds": {w: stats["workers"][w]["stage_seconds"] for w in exits},
+        "decode_steps": steps,
+        "launches": {"prefill:0": {k: v for k, v in pre.items() if v},
+                     "decode:0": {k: v for k, v in dec.items() if v}},
+        "routes": {"prefill:0": {k: pre_routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
+                   "decode:0": dec_routes["paged_gate_mix"]},
+    }
+    counts = {name: pre[name] + dec[name] for name in COUNTERS}
+    counts["paged_gate_mix_by_route"] = {
+        route: dec_routes["paged_gate_mix"].get(route, 0)
+        for route in cuda_paged_gate_mix.route_launches}
+    return result, counts
+
+
+def serve_fleet(smi: str) -> tuple[dict, dict]:
+    """The multi-process fleet at ProGen-small (full width and depth, the
+    seeded init): one prefill worker and one decode replica, both processes
+    on ``cuda:0``, answer phase 7's 12 requests cut to 64 new tokens.  f32:
+    tokens identical to the in-process disaggregated paged engine's built
+    by ``build_engine_from_spec`` from the same spec; bf16 compute with
+    int8 weights and 8-bit pages, every worker warmed by ``aot_warmup``: at
+    least 0.98 of that engine's tokens (the router may batch prefills
+    otherwise than the in-process engine, and another batch size may change
+    a bf16 product's bits).  Each worker's kernels from its exit line:
+    K1-fwd and K2-fwd in the prefill worker only (12 and 2 a program), K3
+    or K3-q8 in the replica only (2 a decode step, on ``bulk``).  Returns
+    the phase's fields and the launches of both runs."""
+    requests = capped(engine_requests(SMALL), FLEET_NEW_TOKENS)
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers' memory is their own processes'
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-fleet-"))
+    runs, launches = {}, {}
+    try:
+        for label, bf16, quantize, aot in FLEET_RUNS:
+            runs[label], counts = fleet_run(label, bf16, quantize, aot, requests, root)
+            for k, v in counts.items():
+                launches[k] = (v if k not in launches else
+                               ({r: launches[k][r] + n for r, n in v.items()}
+                                if isinstance(v, dict) else launches[k] + v))
+            emit("serve_fleet_run", run=label, nvidia_smi=smi, **runs[label])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(runs["f32"]["identical"], "serve_fleet: the f32 fleet's tokens differ "
+            "from the in-process engine's")
+    share = runs["bf16_q8_warmed"]["token_match_vs_in_process"]
+    require(share >= ENGINE_TOKEN_MATCH,
+            f"serve_fleet: {share} of the in-process bf16 8-bit tokens, "
+            f"want >= {ENGINE_TOKEN_MATCH}")
+    result = {"config": "small", "nvidia_smi": smi, "min_token_match": ENGINE_TOKEN_MATCH,
+              **{label: {k: runs[label][k] for k in (
+                  "token_match_vs_in_process", "identical", "startup_s", "tokens_per_s",
+                  "ttft_s_median", "handle_frames", "handle_bytes_per_request",
+                  "ser_s_per_frame", "de_s_per_frame", "peak_bytes")}
+                 for label in runs}}
+    return result, launches
+
+
+def serve_fleet_alone() -> dict:
+    """Phase 18 on its own, with the build:
+    ``python3 -c "import chip_smoke as cs; cs.serve_fleet_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    result, _ = serve_fleet(smi_name_power())
+    emit("serve_fleet", **result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU",
@@ -5026,6 +5297,9 @@ def main() -> int:
     del model
     gc.collect()
     engine_launches.update(engine_lifecycle(lifecycle_model(), requests))
+    gc.collect()
+    fleet, engine_launches["serve_fleet"] = serve_fleet(smi)
+    emit("serve_fleet", **fleet)
     gc.collect()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)

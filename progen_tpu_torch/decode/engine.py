@@ -77,7 +77,11 @@ over FIFO batches of up to ``prefill_batch`` requests sharing a bucket and
 produces cache handles into a bounded queue of ``handoff_depth``
 (``decode/handoff.py``); the decode stage admits by merging handles into
 free slots.  ``step()`` runs the decode chunk before the round's prefill,
-so in-flight decode does not wait behind a long prefill.
+so in-flight decode does not wait behind a long prefill.  With
+``remote_prefill=True`` the engine is a decode replica of the multi-process
+fleet (``serve/``): it never runs a prefill round, and handles arrive
+through :meth:`ServingEngine.admit_handle` from another process, over the
+handoff's wire format (``decode/handoff.py:deserialize_handle``).
 
 The JAX engine's state is a value and its rejected speculative steps are
 merged away; here the caches are written in place, so every step that must
@@ -215,6 +219,7 @@ EOS_ID = 0
 STATUS_OK = "ok"
 SHED_QUEUE_FULL = "shed_queue_full"
 SHED_DEADLINE = "shed_deadline"
+DRAIN_TIMEOUT = "drain_timeout"  # the fleet's drain answered it at its bound
 FAILED_FAULT = "failed_fault"
 
 # consecutive rounds a phase may defer (fatal-fault containment) before the
@@ -224,8 +229,6 @@ _MAX_DEFER_STREAK = 16
 # constructor arguments of the JAX engine whose modes are not ported yet,
 # with the ROADMAP.md item that holds each
 _NOT_PORTED = {
-    "remote_prefill": "remote prefill over the handoff's wire format "
-                      "(ROADMAP.md Queue 1, the multi-process fleet)",
     "paged_impl": "an impl switch: the port has none, a CUDA tensor always "
                   "takes the hand-written kernel (PERF.md, the dropped degrade path)",
 }
@@ -300,6 +303,10 @@ class Completion:
     first_token_time: float | None = None
     embedding: np.ndarray | None = None
     generation: int = 0
+    # latency on the WORKER's clock (submit to finish inside the remote
+    # engine) for a completion of the multi-process fleet; 0.0 for local
+    # completions, whose ``latency`` is that number
+    worker_latency: float = 0.0
 
     @property
     def latency(self) -> float:
@@ -391,7 +398,8 @@ class ServingEngine:
     exact FIFO by default.
 
     ``spec=True`` (``spec_k``, ``draft_config``, ``draft_params``),
-    ``disagg=True`` (``prefill_batch``, ``handoff_depth``) and ``lora_bank``
+    ``disagg=True`` (``prefill_batch``, ``handoff_depth``, and
+    ``remote_prefill``, which needs ``disagg``) and ``lora_bank``
     (``workloads/lora.py``; validated, then cast once to the compute dtype
     on the engine's device; under ``quantize`` the base turns int8 and the
     bank stays full precision): see the module docstring.  ``draft_config``
@@ -426,6 +434,7 @@ class ServingEngine:
                  draft_config: ProGenConfig | None = None,
                  draft_params: ProGen | None = None, disagg: bool = False,
                  prefill_batch: int | None = None, handoff_depth: int = 2,
+                 remote_prefill: bool = False,
                  lora_bank: dict | None = None, watchdog: Watchdog | None = None,
                  mesh=None, strategies=("dp",), params_shardings=None,
                  **not_ported):
@@ -587,6 +596,9 @@ class ServingEngine:
                                   else self._decode_chunk_impl)
             self._admit = self._admit_impl
         self._bind_model(model, self._view)
+        if remote_prefill and not disagg:
+            raise ValueError("remote_prefill requires disagg=True")
+        self.remote_prefill = remote_prefill
         self.disagg = disagg
         if disagg:
             self.prefill_batch = max(1, min(prefill_batch or num_slots, num_slots))
@@ -2020,8 +2032,11 @@ class ServingEngine:
         if self.disagg and not self._draining:
             # prefill AFTER the decode chunk: in-flight decode never waits
             # behind a long prefill; with no slot in flight there is nothing
-            # to protect, so admit at once rather than a step later
-            self._prefill_round()
+            # to protect, so admit at once rather than a step later.  A
+            # remote-prefill replica never runs the prefill stage: handles
+            # arrive through admit_handle() from the transport
+            if not self.remote_prefill:
+                self._prefill_round()
             if not self._inflight and self._handoff:
                 self._admit_from_handoff()
                 completed += self._drain_pending()
@@ -2281,7 +2296,9 @@ class ServingEngine:
         of those programs is one replay, so serving launches no program
         from Python and builds nothing.  A program already warmed is not
         captured again.  The grid and the return value are the JAX
-        method's: ``{"programs": captured now, "seconds": wall}``.  On the
+        method's: ``{"programs": captured now, "seconds": wall}``, but for a
+        ``remote_prefill`` replica, which holds no prefill program (its
+        merge is captured on a handle of one eager prefill).  On the
         CPU the programs stage their arguments the same way and call their
         bodies (there is no graph).  A capture that fails raises."""
         t0 = time.perf_counter()
@@ -2312,8 +2329,12 @@ class ServingEngine:
                             np.ones((self.embed_batch,), np.int32))
                 a = self._admit_arrays(p_pad)
                 if self.disagg:
-                    del a["mask"]
-                    capture(("prefill", p_pad), self._prefill_worker, *a.values(), lmask)
+                    # a remote-prefill replica never dispatches a prefill
+                    # program, so it holds none of them
+                    if not self.remote_prefill:
+                        del a["mask"]
+                        capture(("prefill", p_pad), self._prefill_worker,
+                                *a.values(), lmask)
                     continue
                 capture(("admit", p_pad), self._admit, self.state, *a.values(), lmask,
                         *wtable)

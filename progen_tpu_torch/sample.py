@@ -85,6 +85,26 @@ gloo.  ``--serve`` composes with ``--disagg``, ``--spec`` and
 ``--xprof_dir DIR`` records a ``torch.profiler`` trace of the decode (the
 sampler's call, or the serve loop) into ``DIR/trace.json`` (under a mesh
 each rank into ``DIR/rank{r}``).
+
+``--serve --serve_procs`` serves through the multi-process fleet
+(``serve/``): ``--prefill_procs`` prefill worker processes and
+``--replicas`` decode replica processes behind a router in this process,
+the handles crossing between them as CRC-framed PGHF frames over loopback
+sockets.  Every worker builds the weights of ``--checkpoint_path`` (made
+absolute) or of ``--seed``, as the in-process engine does, so the fleet
+prints the JSON lines of ``--serve --disagg``, latencies aside.  On the
+card every worker runs on ``cuda:0``.  ``--trace`` reaches every worker
+(their dumps merge into one ``trace.json``) and ``--statusz`` starts a
+loopback introspection server in every process, printing
+``{"statusz": {"driver": PORT, "prefill:0": PORT, ...}}`` first:
+
+    python -m progen_tpu_torch.sample --serve --serve_procs --prime "MKV|MALW" \
+        --paged --prefill_procs 1 --replicas 1 [--statusz] [--trace]
+
+The elastic flags of the JAX CLI (``--autoscale``, ``--min_prefill``,
+``--max_prefill``, ``--min_replicas``, ``--max_replicas``, ``--swap_at``)
+are refused by name: the elastic control plane is not ported yet
+(``ROADMAP.md`` Queue 1).
 """
 
 from __future__ import annotations
@@ -119,7 +139,12 @@ from progen_tpu_torch.observe.trace import (
 )
 from progen_tpu_torch.parallel.sharding import parallelize, validate_tp_divisibility
 from progen_tpu_torch.resilience.watchdog import Watchdog
+from progen_tpu_torch.serve.worker import ELASTIC_ITEM
 from progen_tpu_torch.workloads.infill import ScaffoldSpec
+
+# the JAX CLI's flags of the elastic control plane, refused by name
+ELASTIC_FLAGS = ("autoscale", "min_prefill", "max_prefill", "min_replicas",
+                 "max_replicas", "swap_at")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -193,6 +218,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--xprof_dir", default=None, metavar="DIR",
                    help="record a torch.profiler trace of the decode into "
                         "DIR/trace.json")
+    p.add_argument("--serve_procs", action="store_true",
+                   help="with --serve: serve through prefill worker and decode "
+                        "replica PROCESSES behind a router; handles cross as "
+                        "CRC-framed frames over loopback sockets")
+    p.add_argument("--prefill_procs", type=int, default=1,
+                   help="prefill worker processes (with --serve_procs)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="decode replica processes (with --serve_procs)")
+    p.add_argument("--statusz", action="store_true",
+                   help="with --serve_procs: a loopback statusz server in every "
+                        "process; the ports are printed first")
+    for flag in ELASTIC_FLAGS:
+        p.add_argument(f"--{flag}", default=None, nargs="?", const=True,
+                       help=f"not ported ({ELASTIC_ITEM})")
     # "--mesh -1,1,1,1": argparse reads a value that starts with "-" as an
     # option unless it is glued on
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -213,6 +252,22 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--embed/--infill are serving workloads; add --serve")
     if args.embed and args.infill is not None:
         p.error("pick ONE of --embed / --infill")
+    for flag in ELASTIC_FLAGS:
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag}: the port does not have it yet ({ELASTIC_ITEM})")
+    if (args.serve_procs or args.statusz) and not args.serve:
+        p.error("--serve_procs/--statusz run the serving fleet; add --serve")
+    if args.statusz and not args.serve_procs:
+        p.error("--statusz is the fleet's; add --serve_procs")
+    if args.serve_procs:
+        if args.mesh is not None:
+            p.error("--mesh shards ONE process's decode over ranks; "
+                    "--serve_procs spawns single-device workers: pick one")
+        if args.embed:
+            p.error(f"--embed through the fleet is not ported ({ELASTIC_ITEM})")
+        if args.params:
+            p.error("--serve_procs workers load --checkpoint_path or draw the "
+                    "weights from --seed, not --params")
     return args
 
 
@@ -239,19 +294,15 @@ def scaffold_from_template(template: str, vocab: int) -> ScaffoldSpec:
     return ScaffoldSpec(template=[0] + [entry(s) for s in segs], vocab=vocab)
 
 
-def serve(args, model, seq_len: int, placed: dict | None = None) -> list[dict]:
-    """Answer the primes (or the ``--infill`` samples, or the ``--embed``
-    requests) through the engine; prints (rank 0) and returns one record
-    per completion, in uid order.  ``placed``: the engine's ``mesh``,
-    ``strategies`` and ``params_shardings`` under ``--mesh``."""
-    placed = placed or {}
-    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+def serve_requests(args, config: ProGenConfig, seq_len: int) -> tuple[list, list]:
+    """The served primes and their requests, uid ``i`` with seed
+    ``--seed + i``: one per prime, or the ``--infill`` samples."""
     primes = (args.prime.split("|") if "|" in args.prime
               else [args.prime] * args.num_samples)
     knobs = dict(top_k=args.top_k or None, temperature=args.temperature)
     requests = []
     if args.infill is not None:
-        scaffold = scaffold_from_template(args.infill, model.config.num_tokens)
+        scaffold = scaffold_from_template(args.infill, config.num_tokens)
         primes = [args.infill] * args.num_samples
         for i in range(args.num_samples):
             requests.append(Request(uid=i, seed=args.seed + i, workload="infill",
@@ -262,6 +313,17 @@ def serve(args, model, seq_len: int, placed: dict | None = None) -> list[dict]:
                                 max_new_tokens=seq_len - len(tokens),
                                 seed=args.seed + i, **knobs,
                                 workload="embed" if args.embed else "generate"))
+    return primes, requests
+
+
+def serve(args, model, seq_len: int, placed: dict | None = None) -> list[dict]:
+    """Answer the primes (or the ``--infill`` samples, or the ``--embed``
+    requests) through the engine; prints (rank 0) and returns one record
+    per completion, in uid order.  ``placed``: the engine's ``mesh``,
+    ``strategies`` and ``params_shardings`` under ``--mesh``."""
+    placed = placed or {}
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    primes, requests = serve_requests(args, model.config, seq_len)
     if args.trace:
         os.makedirs(args.trace_out, exist_ok=True)
         configure_tracing(enabled=True, process="serve")
@@ -301,6 +363,53 @@ def serve(args, model, seq_len: int, placed: dict | None = None) -> list[dict]:
     if args.trace and rank0:
         get_tracer().dump(trace_dump_path(args.trace_out, "serve"))
         print(json.dumps({"trace": merge_trace_dir(args.trace_out)}), flush=True)
+    return serve_records(completions, primes, rank0)
+
+
+def serve_fleet(args, config: ProGenConfig, seq_len: int) -> list[dict]:
+    """``--serve --serve_procs``: answer the primes through a
+    ``ServeCluster`` of ``--prefill_procs`` prefill workers and
+    ``--replicas`` decode replicas (each a process on ``--device``, every
+    one building the weights of ``--checkpoint_path`` or ``--seed``);
+    prints and returns the records as :func:`serve` does."""
+    from progen_tpu_torch.serve import ServeCluster, make_spec
+
+    primes, requests = serve_requests(args, config, seq_len)
+    trace_dir = os.path.abspath(args.trace_out) if args.trace else None
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        configure_tracing(enabled=True, process="driver")
+    spec = make_spec(
+        config, mixed_precision=True, init_seed=args.seed,
+        checkpoint_path=(os.path.abspath(args.checkpoint_path)
+                         if args.checkpoint_path else None),
+        engine=dict(num_slots=args.slots, chunk_size=args.chunk, max_len=seq_len,
+                    paged=args.paged, page_size=args.page_size,
+                    quantize=args.quantize, spec=args.spec, spec_k=args.spec_k),
+        trace={"dir": trace_dir} if trace_dir else None, statusz=args.statusz,
+        aot_warmup=args.aot_warmup, device=args.device)
+    cluster = ServeCluster(spec, prefill_procs=args.prefill_procs,
+                           replicas=args.replicas)
+    try:
+        if args.statusz:
+            print(json.dumps({"statusz": cluster.stats()["statusz_ports"]}),
+                  flush=True)
+        profile = (profile_trace(args.xprof_dir) if args.xprof_dir is not None
+                   else contextlib.nullcontext())
+        with profile:
+            for r in requests:
+                cluster.submit(r)
+            completions = cluster.drain()
+    finally:
+        cluster.shutdown()
+    if trace_dir:
+        print(json.dumps({"trace": merge_trace_dir(trace_dir)}), flush=True)
+    return serve_records(completions, primes, True)
+
+
+def serve_records(completions, primes: list, rank0: bool) -> list[dict]:
+    """One record per completion in uid order, printed (on rank 0) as a
+    JSON line, or for an embedding as its summary."""
     records = []
     say = print if rank0 else (lambda *a, **k: None)
     for comp in sorted(completions, key=lambda c: c.uid):
@@ -352,6 +461,8 @@ def _run(args, device) -> list:
         if rank0:
             print(f"trained for {max(meta['next_seq_index'], 0)} sequences")
     seq_len = min(args.seq_len or config.seq_len, config.seq_len)
+    if args.serve_procs:  # the workers build the model, not this process
+        return serve_fleet(args, config, seq_len)
     model = ProGen(config, make_policy(True), device=device, seed=args.seed)
     if args.checkpoint_path:
         model.load_state_dict(store.restore_params(map_location=device))

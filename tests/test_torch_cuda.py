@@ -856,3 +856,48 @@ def test_a_world_1_meshed_sampler_is_the_unmeshed_one(gen):
             assert float((got == want).float().mean()) >= 0.98, strategies
     finally:
         dist.destroy_process_group()
+
+
+def test_a_fleet_on_the_card_gives_the_in_process_engines_tokens(gen, tmp_path):
+    """One prefill worker and one decode replica, both processes on
+    ``cuda:0``, at a small f32 config: the fleet's tokens equal the
+    in-process disaggregated engine's built from the same spec, and the
+    workers' exit lines show the kernels: K1-fwd and K2-fwd in the prefill
+    worker only, K3 in the replica only."""
+    import json
+
+    from progen_tpu_torch.serve import ServeCluster, build_engine_from_spec, make_spec
+
+    cfg = ProGenConfig(num_tokens=32, dim=64, seq_len=64, depth=3, window_size=16,
+                       global_mlp_depth=2, heads=2, dim_head=32, ff_mult=2)
+    spec = make_spec(cfg, mixed_precision=False, init_seed=2, device="cuda",
+                     engine=dict(num_slots=4, chunk_size=4, max_len=64, paged=True,
+                                 page_size=8, prefill_batch=2, handoff_depth=2))
+    rng = np.random.default_rng(0)
+    requests = [dict(uid=i, tokens=[int(t) for t in rng.integers(1, 32, 5 + 7 * i)],
+                     max_new_tokens=12, top_k=None if i % 2 else 8,
+                     temperature=0.0 if i % 2 else 1.0, seed=i) for i in range(5)]
+    engine = build_engine_from_spec(spec)
+    for r in requests:
+        engine.submit(Request(**r))
+    want = {c.uid: c.tokens.tolist() for c in engine.run_until_idle()}
+    cluster = ServeCluster(spec, log_dir=str(tmp_path))
+    try:
+        for r in requests:
+            cluster.submit(Request(**r))
+        done = cluster.drain(timeout=600.0)
+    finally:
+        stats = cluster.shutdown()
+    assert all(c.ok for c in done)
+    assert {c.uid: c.tokens.tolist() for c in done} == want
+    assert stats["workers"]["decode:0"]["stage_seconds"]["prefill_s"] == 0.0
+    exits = {}
+    for log in tmp_path.glob("*.log"):
+        for line in log.read_text().splitlines():
+            if line.startswith('{"worker_exit"'):
+                exits[log.stem] = json.loads(line)["launches"]
+    pre, dec = exits["prefill_0"], exits["decode_0"]
+    assert pre["cuda_attention.launches"] > 0 and pre["cuda_sgu.launches"] > 0
+    assert pre["cuda_paged_gate_mix.launches"] == 0
+    assert dec["cuda_paged_gate_mix.launches"] > 0
+    assert dec["cuda_attention.launches"] == dec["cuda_sgu.launches"] == 0

@@ -213,9 +213,14 @@ def test_the_sampler_refuses_what_the_mesh_has_not_placed(world, name, words):
 
 
 def test_remote_prefill_and_paged_impl_stay_refused():
-    for name in ("remote_prefill", "paged_impl"):
-        with pytest.raises(NotImplementedError, match=name):
-            ServingEngine(ProGenConfig(**CFG), device="cpu", **{name: object()})
+    """``paged_impl`` stays refused; ``remote_prefill`` came with the fleet
+    and, as in JAX, needs ``disagg``."""
+    with pytest.raises(NotImplementedError, match="paged_impl"):
+        ServingEngine(ProGenConfig(**CFG), device="cpu", paged_impl=object())
+    with pytest.raises(ValueError, match="remote_prefill requires disagg"):
+        ServingEngine(ProGenConfig(**CFG), device="cpu", remote_prefill=True)
+    assert ServingEngine(ProGenConfig(**CFG), device="cpu", disagg=True,
+                         remote_prefill=True).remote_prefill
 
 
 @pytest.mark.parametrize("mode", list(worker.ENGINE_MODES))

@@ -378,17 +378,19 @@ def test_a_fatal_prefill_fault_sheds_exactly_its_batch(model):
 
 
 def test_modes_that_are_not_ported_are_refused_by_name(model):
-    for name in ("remote_prefill", "paged_impl"):
-        with pytest.raises(NotImplementedError, match=name):
-            ServingEngine(model, **ENGINE, **{name: True})
+    with pytest.raises(NotImplementedError, match="paged_impl"):
+        ServingEngine(model, **ENGINE, paged_impl=True)
     for name in ("mesh", "strategies", "params_shardings"):  # ported: accepted
         assert name not in engine_module._NOT_PORTED
     with pytest.raises(ValueError, match="not placed"):  # a mesh needs a placed model
         ServingEngine(model, **ENGINE, mesh=True)
     assert "watchdog" not in engine_module._NOT_PORTED  # ported: accepted
     assert ServingEngine(model, **ENGINE, watchdog=None)._watchdog is None
-    with pytest.raises(NotImplementedError, match="remote_prefill"):
-        ServingEngine(model, **ENGINE, disagg=True, remote_prefill=True)
+    # ported with the fleet: accepted with disagg, refused without it as JAX does
+    assert "remote_prefill" not in engine_module._NOT_PORTED
+    assert ServingEngine(model, **ENGINE, disagg=True, remote_prefill=True).remote_prefill
+    with pytest.raises(ValueError, match="remote_prefill requires disagg"):
+        ServingEngine(model, **ENGINE, remote_prefill=True)
     for name in ("spec", "disagg"):  # ported: accepted
         eng = ServingEngine(model, **ENGINE, **{name: True})
         assert getattr(eng, name) and eng.status()[name]

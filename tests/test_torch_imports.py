@@ -1,9 +1,13 @@
-"""The port stands alone: no module of ``progen_tpu_torch``, not
+"""The port stands alone: no module of ``progen_tpu_torch`` (the serving
+fleet's ``serve/*`` and its worker module among them), not
 ``chip_smoke.py`` and not the ranks' worker of the multi-rank tests
 (``tests/_torch_parallel_worker.py``) imports JAX, flax, optax, orbax,
 TensorFlow, ``google_crc32c``, safetensors, click or the JAX package, and
 the port's sampling, serving and training CLIs run on the CPU when asked
-to."""
+to.  The fleet's framework-neutral copies (``observe/transport.py``,
+``observe/slo.py``, ``resilience/supervise.py``, ``serve/transport.py``,
+``serve/router.py``) are pinned to their originals on scripted runs, and
+what the fleet does not port yet is refused by name."""
 
 import ast
 import json
@@ -60,7 +64,9 @@ def test_scan_sees_the_whole_port():
                 "parallel/context.py", "observe/metrics.py", "observe/trace.py",
                 "observe/statusz.py", "observe/__init__.py", "compat/reference.py",
                 "convert_checkpoint.py", "train/memory.py", "parallel/tensor.py",
-                "parallel/decode.py"):
+                "parallel/decode.py", "serve/__init__.py", "serve/transport.py",
+                "serve/router.py", "serve/worker.py", "serve/cluster.py",
+                "observe/transport.py", "observe/slo.py", "resilience/supervise.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
@@ -227,3 +233,239 @@ def test_trace_refuses_an_unknown_phase():
     from progen_tpu_torch import trace_main_path
     with pytest.raises(SystemExit):
         trace_main_path.main(["--phases", "decode_only"])
+
+
+# ------------------------------------------------- the serving fleet's copies
+
+
+def _counters_script(mod):
+    a, b = mod.TransportCounters(), mod.TransportCounters()
+    a.sent(100), a.sent(7), b.received(40)
+    b.crc_failures += 2
+    b.desyncs += 1
+    b.ser_s, b.de_s = 0.25, 0.5
+    a.merge(b)
+    a.merge({"frames_in": 3, "bytes_in": 9, "de_s": 1.0})
+    return [a.as_dict(), b.as_dict()]
+
+
+def _supervisor_script(mod, monkeypatch):
+    clock = iter(float(t) for t in range(0, 1000, 5))
+    monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
+    seen = []
+    sup = mod.StageSupervisor(max_restarts=2, min_interval_s=7.0)
+    for role, idx in [("prefill", 0), ("prefill", 0), ("decode", 1), ("prefill", 0),
+                      ("prefill", 0), ("decode", 1), ("decode", 1)]:
+        seen.append(sup.request_restart(role, idx, "eof"))
+    sup.forget("decode", 1)
+    seen.append(sup.restarts_used("decode", 1))
+    seen.append(sup.request_restart("decode", 1))
+    seen.append(sup.stats())
+    seen.append([(e.role, e.index, e.granted, e.reason) for e in sup.events])
+    try:
+        mod.StageSupervisor(max_restarts=-1)
+    except ValueError as e:
+        seen.append(str(e))
+    return seen
+
+
+def _router_script(mod, paging):
+    """One scripted life of the router: placement with priorities, cache
+    scoring on advertised and optimistic digests, credits, failures,
+    membership and generations."""
+    from progen_tpu_torch.decode.engine import Request
+
+    seen = []
+    rt = mod.Router(2, 3, digest_ttl=5.0, cache_imbalance_tokens=16)
+    reqs = {i: Request(uid=i, tokens=[1 + (i % 3)] * 8 + [i], max_new_tokens=4 + i,
+                       priority=i % 3) for i in range(10)}
+    for i in range(6):
+        w = rt.pick_prefill(priority=reqs[i].priority)
+        rt.assign_prefill(i, reqs[i], w, now=float(i))
+        seen.append(("place", i, w))
+    digest = {"page_size": 4, "free": 3, "cached": 2, "capacity": 9,
+              "keys": [[8, 4, paging.token_span_digest(reqs[0].tokens, 4), 2],
+                       [8, 8, paging.token_span_digest(reqs[0].tokens, 8), 1]]}
+    rt.note_digest(1, digest, now=10.0)
+    rt.note_handle("0.0:0", [0, 3], src=0)
+    seen.append(("pick", rt.pick_replica(0, tokens_batch=[reqs[0].tokens], now=11.0)))
+    rt.forward("0.0:0", 1, now=11.0)
+    rt.note_handle("1.0:0", [1, 4], src=1)
+    seen.append(("pick", rt.pick_replica(0, tokens_batch=[reqs[1].tokens], now=12.0)))
+    rt.forward("1.0:0", 2, now=12.0)
+    seen.append(("stale", rt.pick_replica(0, tokens_batch=[reqs[0].tokens], now=40.0)))
+    seen.append(("ack", rt.ack("0.0:0"), rt.ack("0.0:0"), rt.unacked_batches(2)))
+    seen.append(("complete", rt.complete(0), rt.complete(0), rt.complete("nope")))
+    seen.append(("fail", rt.fail_worker("decode", 2), rt.fail_worker("prefill", 1)))
+    seen.append(("requeue", rt.requeue([3, 5, 99])))
+    rt.revive_worker("prefill", 1)
+    rt.add_worker("decode", 7, generation=1)
+    rt.fence_worker("decode", 0)
+    seen.append(("gen", rt.pick_replica(1), rt.pick_replica(0), rt.generation_of(4)))
+    rt.assign_prefill(6, reqs[6], rt.pick_prefill(priority=2), now=20.0)
+    seen.append(("uids", rt.uids_on("prefill", 0), rt.uids_on("prefill", 1),
+                 rt.generation_in_flight(0), rt.queued_by_class()))
+    seen.append(("summary", rt.cache_summary(now=13.0)))
+    rt.retire_worker("decode", 1)
+    seen.append(("stats", rt.stats()))
+    return seen
+
+
+def _serve_transport_script(mod, handoff):
+    """Frames over a socket pair: sent, received, peeked; a reader thread's
+    events; a short read and a bad header."""
+    import queue
+    import socket
+
+    seen = []
+    a, b = socket.socketpair()
+    try:
+        frame = handoff.pack_frame({"type": "hello", "index": 3}, [b"xyz"])
+        mod.send_frame(a, frame)
+        got = mod.recv_frame(b)
+        seen.append((got == frame, mod.peek_header(got)))
+        try:
+            mod.peek_header(frame[:30] + b"!" + frame[31:])
+        except handoff.FrameDesync as e:
+            seen.append(("desync", str(e)))
+        peer = mod.Peer(b)
+        events = queue.Queue()
+        peer.start_reader(events)
+        mod.send_frame(a, handoff.pack_frame({"type": "hb"}))
+        a.sendall(frame[:10])
+        a.shutdown(socket.SHUT_WR)
+        ev1, ev2 = events.get(timeout=10), events.get(timeout=10)
+        seen.append((ev1[0], ev1[2], ev2[0], ev2[2], peer.name, peer.alive))
+    finally:
+        a.close()
+        b.close()
+    return seen
+
+
+def _slo_script(mod, metrics):
+    reg = metrics.MetricsRegistry()
+    lat = reg.histogram("cluster.latency_s")
+    ok, shed = reg.counter("cluster.completions_ok"), reg.counter("cluster.completions_shed")
+    tr = mod.BurnRateTracker((mod.SLOSpec(name="p95", target=0.95, threshold_s=0.5),
+                              mod.SLOSpec(name="goodput", target=0.99, kind="ratio")),
+                             windows=(10.0, 60.0), registry=reg)
+    out = [tr.evaluate(0.0)]
+    for t in range(0, 40, 4):
+        for v in (0.1, 0.2, 0.7 + t / 100):
+            lat.observe(v)
+        ok.inc(3)
+        shed.inc(t % 8 == 0)
+        tr.sample(float(t), reg.snapshot())
+    out.append(tr.evaluate(40.0))
+    out.append(mod.burn_rate(0.9, 0.95))
+    out.append(mod.frac_within(lat.snapshot(), 0.3))
+    return out
+
+
+def test_copied_transport_counters_behave_as_the_original():
+    from progen_tpu.observe import transport as jax_mod
+    from progen_tpu_torch.observe import transport as mod
+    assert _counters_script(mod) == _counters_script(jax_mod)
+
+
+def test_copied_supervisor_behaves_as_the_original(monkeypatch):
+    from progen_tpu.resilience import supervise as jax_mod
+    from progen_tpu_torch.resilience import supervise as mod
+    assert _supervisor_script(mod, monkeypatch) == _supervisor_script(jax_mod, monkeypatch)
+
+
+def test_copied_router_behaves_as_the_original():
+    from progen_tpu.decode import paging as jax_paging
+    from progen_tpu.serve import router as jax_mod
+    from progen_tpu_torch.decode import paging
+    from progen_tpu_torch.serve import router as mod
+    assert _router_script(mod, paging) == _router_script(jax_mod, jax_paging)
+
+
+def test_copied_socket_transport_behaves_as_the_original():
+    from progen_tpu.decode import handoff as jax_handoff
+    from progen_tpu.serve import transport as jax_mod
+    from progen_tpu_torch.decode import handoff
+    from progen_tpu_torch.serve import transport as mod
+    assert _serve_transport_script(mod, handoff) == \
+        _serve_transport_script(jax_mod, jax_handoff)
+    assert mod.MAX_FRAME_BYTES == jax_mod.MAX_FRAME_BYTES
+
+
+def test_copied_slo_behaves_as_the_original():
+    from progen_tpu.observe import metrics as jax_metrics
+    from progen_tpu.observe import slo as jax_mod
+    from progen_tpu_torch.observe import metrics
+    from progen_tpu_torch.observe import slo as mod
+    assert _slo_script(mod, metrics) == _slo_script(jax_mod, jax_metrics)
+
+
+# --------------------------------------------- what the fleet refuses, by name
+
+
+ROADMAP_ITEM = "ROADMAP.md Queue 1 item 1"
+
+
+@pytest.mark.parametrize("name", ["begin_generation", "add_worker", "wait_routable",
+                                  "fence_worker", "retire_worker", "_finalize_retire",
+                                  "submit_embed"])
+def test_the_fleets_elastic_verbs_are_refused_by_name(name):
+    from progen_tpu_torch.serve.cluster import ServeCluster
+    cluster = ServeCluster.__new__(ServeCluster)  # no processes
+    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM) as e:
+        getattr(cluster, name)("decode")
+    assert name in str(e.value)
+
+
+def test_tensor_parallel_replica_groups_are_refused_by_name(monkeypatch):
+    from progen_tpu_torch.models import ProGenConfig
+    from progen_tpu_torch.serve import worker
+    from progen_tpu_torch.serve.cluster import ServeCluster
+    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
+        ServeCluster({}, tp_group=2)
+    spec = worker.make_spec(ProGenConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
+        worker.build_engine_from_spec(spec, group_size=2)
+    monkeypatch.setenv("PROGEN_TPU_TP_GROUP_SIZE", "2")
+    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
+        worker.main(["decode", "0", "1", "spec.json"])
+
+
+@pytest.mark.parametrize("flag", [["--autoscale"], ["--min_prefill", "1"],
+                                  ["--max_prefill", "3"], ["--min_replicas", "1"],
+                                  ["--max_replicas", "3"], ["--swap_at", "2"]])
+def test_sample_refuses_the_elastic_flags_by_name(flag, capsys):
+    with pytest.raises(SystemExit):
+        sample.main(["--serve", "--serve_procs", *flag, "--device", "cpu"])
+    assert ROADMAP_ITEM in capsys.readouterr().err
+
+
+def test_a_cuda_worker_without_a_card_exits_nonzero(tmp_path):
+    """A worker told ``cuda`` on a machine without a card exits nonzero: it
+    never falls back to the CPU on its own."""
+    from progen_tpu_torch.models import ProGenConfig
+    from progen_tpu_torch.serve.cluster import ServeCluster
+    from progen_tpu_torch.serve.worker import make_spec
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    spec = make_spec(ProGenConfig(num_tokens=32, dim=16, seq_len=24, depth=1,
+                                  window_size=4, global_mlp_depth=1, heads=2,
+                                  dim_head=8, ff_mult=2), device="cuda")
+    with pytest.raises(RuntimeError, match="exited rc=1 before hello"):
+        ServeCluster(spec, log_dir=str(tmp_path), spawn_timeout=120.0)
+    assert "no CUDA device" in "".join(p.read_text() for p in tmp_path.glob("*.log"))
+
+
+def test_sample_serve_procs_prints_the_disagg_engines_lines(capsys):
+    """``--serve --serve_procs --device cpu``: a one-prefill, one-replica
+    fleet prints the JSON lines of ``--serve --disagg``, latencies aside."""
+    argv = SERVE + ["--paged", "--page_size", "4", "--device", "cpu"]
+    strip = lambda rows: [{k: v for k, v in r.items() if k != "latency_s"} for r in rows]
+    local = sample.main(argv + ["--disagg"])
+    local_lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    fleet = sample.main(argv + ["--serve_procs", "--prefill_procs", "1", "--replicas", "1"])
+    fleet_lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert fleet_lines == fleet and local_lines == local
+    assert strip(fleet) == strip(local) and [r["uid"] for r in fleet] == [0, 1, 2]
+    assert all(r["status"] == "ok" for r in fleet)
