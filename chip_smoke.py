@@ -249,19 +249,48 @@ non-zero without its last line:
 18. the multi-process fleet (``serve_fleet``, after phase 12): ProGen-small
    at full width and depth (the seeded init), one prefill worker and one
    decode replica of ``serve/``, each its own process on ``cuda:0``,
-   answer phase 7's 12 requests cut to 64 new tokens (paged, 8 slots,
+   answer phase 7's first requests cut to 64 new tokens (paged, 8 slots,
    chunk 32, page 16, the ``engine_disagg_paged`` prefill batch and
    handoff depth), the handles crossing as PGHF frames over loopback
-   sockets: in f32 the tokens identical to the in-process disaggregated
+   sockets: in f32, on 3 requests, the tokens identical to the in-process disaggregated
    engine's that ``build_engine_from_spec`` makes of the same spec; in
    bf16 compute with int8 weights and 8-bit pages, both workers warmed by
-   ``aot_warmup``, at least 0.98 of them (the identical share printed).
-   Each worker's kernels come from its exit line: K1-fwd 12 and K2-fwd 2
-   a handle in the prefill worker only (f32 on ``wmma``/``fma``, bf16 on
-   ``wgmma``), K3 or K3-q8 twice a decode step on ``bulk`` in the replica
-   only; no CRC failure or desync, no prefill in the replica; worker
-   start-up, tokens/s, median time to first token, frames, bytes, ``ser_s``
-   and ``de_s`` a frame, handle bytes a request, peak memory per process;
+   ``aot_warmup``, on 6, at least 0.98 of them
+   (the identical share printed).  Each worker's kernels come from its
+   exit line: K1-fwd 12 and K2-fwd 2 a handle in the prefill worker only
+   (f32 on ``wmma``/``fma``, bf16 on ``wgmma``), K3 or K3-q8 twice a
+   decode step on ``bulk`` in the replica only; no CRC failure or desync,
+   no prefill in the replica; worker start-up, tokens/s, median time to
+   first token, frames, bytes, ``ser_s`` and ``de_s`` a frame, handle
+   bytes a request, peak memory per process.  The bf16 fleet lives on
+   into phase 19, which reads its workers' exit lines;
+19. the elastic control plane (``serve_elastic``): phase 18's bf16 fleet,
+   handed on alive, answers phase 7's 12 requests again (uids + 100): 6
+   submitted, and after the 4th completion ``ControlPlane.swap_weights``
+   rolls it to weight generation 1 (the same spec with ``init_seed`` + 1:
+   a new decode replica warmed and routable, the prefill worker replaced,
+   the old replica retired once its requests finished), the other 6 after
+   it, then one ``tick`` with a forced scale-down (which must retire
+   nothing: the sole instance of a stage stays).  Held: no request shed
+   or dropped, every completion tagged with the generation that primed
+   it, each generation's tokens at least 0.98 of an in-process engine on
+   its weights (generation 0: phase 18's; generation 1: one run while the
+   new workers warm), the identical shares printed, and every worker's
+   launches, phase 18's bf16 runs included, by phase 18's formula;
+   printed: the swap's seconds (new replica routable, prefill rolled, old
+   retired), sheds, replays, ``controlz`` entries, peak memory per process;
+20. a tensor-parallel replica group (``serve_tp_group``): ProGen-small at
+   full width and 6 of its 12 layers (the seeded init), f32, eager, paged,
+   8 slots, chunk 32, page 16, one prefill worker and one decode replica
+   made of two processes on ``cuda:0`` meeting over gloo, each with its
+   half of the heads and gate channels; phase 7's first 8 requests cut to
+   32 new tokens.  Held: at least 0.98 of the in-process disaggregated
+   engine's tokens (identical share printed), every slab frame the
+   replicated leaves plus half the split ones, no CRC failure, desync or
+   ``bad_frame``, both members at the same decode steps, the prefill
+   worker's K1-fwd and K2-fwd per handle and each member's K3 twice a
+   decode step on ``bulk`` at d 1024; printed: start-up, tokens/s, median
+   time to first token, ``de_s`` a slab, peak memory per process;
 15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
@@ -281,7 +310,16 @@ deterministic: no spread to measure); and four made with phase 18: phase
 the requests cut to 64 new tokens (64-192 before), phase 17's samplers to
 256 (512 before), its engines' requests to 32 new tokens (64 before), its
 two ranks at 6 layers (12 before) and their sampler to 64 (128 before);
-phase 18's in-process references run while its workers start.
+phase 18's in-process references run while its workers start; and nine
+made with phases 19 and 20: phase 8's Trainer runs at 3 layers (12
+before), phase 14's superstep Trainers and phase 16's meshed superstep
+Trainers at 3 layers (6 before), phase 18's fleets on phase 7's first 3
+(f32) and 6 (bf16) requests (12 before) and its bf16 fleet handed to
+phase 19 instead of shut down and started again, the speculative runs of
+phases 7 and 13 cut to 32 new tokens (64 before), phase 17's samplers to
+64 (256 before), phase 9's LoRA decode step timed in two runs in turns (four
+before), phase 20 at 6 layers; phases 19 and 20 run their in-process
+references while their workers start.
 The whole takes fifteen to twenty minutes on an H100 (by the host's
 pace), the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
@@ -289,7 +327,8 @@ pace), the build included.
 with the eager runs it compares against, ``trainer_superstep_alone()``
 phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs,
 ``decode_mesh_alone()`` phase 17 with its own unmeshed runs,
-``serve_fleet_alone()`` phase 18.
+``serve_fleet_alone()`` phase 18, ``serve_elastic_alone()`` phases 18
+and 19, ``serve_tp_group_alone()`` phase 20.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -329,6 +368,7 @@ from progen_tpu_torch.data.tfrecord import iterator_from_tfrecords_folder
 from progen_tpu_torch.data.tokenizer import encode_tokens
 from progen_tpu_torch.decode import graphs, incremental
 from progen_tpu_torch.decode.engine import Request, ServingEngine, run_with_restarts
+from progen_tpu_torch.decode.handoff import FRAME_PREFIX_LEN, parse_prefix
 from progen_tpu_torch.decode.prefill import make_embedder, make_prefiller, pad_prime_length
 from progen_tpu_torch.decode.sampler import (
     make_chunked_sampler,
@@ -354,6 +394,9 @@ from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.resilience.watchdog import Watchdog
 from progen_tpu_torch.serve import ServeCluster, build_engine_from_spec, make_spec
+from progen_tpu_torch.serve import cluster as cluster_module
+from progen_tpu_torch.serve.control import ControlPlane
+from progen_tpu_torch.serve.policy import BurnRatePolicy, ScaleDecision
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch import trace_main_path
 from progen_tpu_torch.parallel.decode import decode_mesh as decode_view
@@ -420,6 +463,7 @@ TRAINER_DATA = Path(__file__).resolve().parent / "train_data_synth"
 TRAINER_STEPS = 8   # optimizer steps of run (a); run (b) stops at half, then resumes
 TRAINER_EVERY = 4   # checkpoint and validation cadence of the trainer phase
 TRAINER_HOST_BATCHES = 20  # batches timed on the host alone
+TRAINER_DEPTH = 3   # the trainer phase's ProGen-small layers (12 before phase 19)
 FEED_DEPTHS = (0, 2)  # the feed comparison's prefetch depths (0, 2, 0, 2 before phase 14)
 FEED_STEPS = 12     # steps of each run of the feed comparison
 # Resume skips timed on the reader alone: none, the largest an unshuffled
@@ -445,7 +489,7 @@ ENGINE_REQUESTS = 12
 ENGINE_TIGHT_PAGES = 2 + 96    # pool pages of the tight run, 2 reserved
 ENGINE_TOKEN_MATCH = 0.98      # the JAX package's accuracy gate (bench_serving.py)
 ENGINE_SPEC_K = 4              # draft tokens a speculative round (the CLI's default)
-SPEC_NEW_TOKENS = 64           # the speculative runs' cap on the requests (64-192 before phase 18)
+SPEC_NEW_TOKENS = 32           # the speculative runs' cap on the requests (64 before phase 19, 64-192 before phase 18)
 SPIN_CYCLES = 40_000_000       # ~20 ms of device spin ahead of a timed run
 FLUSH_BYTES = 256 << 20        # written before each cold call: five times L2
 # The served workloads: a bank of 4 tenants (0 = the base) at rank 8, a
@@ -2387,7 +2431,7 @@ def check_embeddings(model, reference, queue: dict, got: dict) -> dict:
 def decode_step_cost(model, bank) -> dict:
     """Launches and wall time of one paged decode step with and without the
     bank, from one admitted state: 32 teacher-forced steps timed on the host
-    clock (four runs in turns, medians), and two steps each under
+    clock (two runs in turns, medians), and two steps each under
     ``torch.profiler``, whose device kernels are counted."""
     c = model.config
     engine = ServingEngine(model, num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
@@ -2409,7 +2453,7 @@ def decode_step_cost(model, bank) -> dict:
             engine._step_model(forced[j], st["pos"] + j, st["caches"], table, live, *ad)
 
     walls = {True: [], False: []}
-    for with_bank in (False, True) * 4:
+    for with_bank in (False, True) * 2:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps(with_bank, ENGINE_CHUNK)
@@ -3297,7 +3341,7 @@ SUPERSTEP_K = 4                   # the superstep Trainer's span
 SUPERSTEP_SCHEDULE = dict(name="constant", base_lr=TRAIN_LR, warmup_steps=32)
 SUPERSTEP_RUNS = ((4, 1, 2), (2, 2, 2))  # (K, accumulation, dispatches) against eager steps
 SUPERSTEP_TIMED_STEPS = 8         # steps of each timed Trainer run (16 before phase 17)
-SUPERSTEP_TRAINER_DEPTH = 6       # the superstep Trainers' layers (12 before phase 17)
+SUPERSTEP_TRAINER_DEPTH = 3       # the superstep Trainers' layers (6 before phase 19, 12 before phase 17)
 SUPERSTEP_TRACES = 1              # bare and profiled runs of each traced span (3 before phase 17)
 SUPERSTEP_TRACED_STEPS = 2        # steps of each traced span (the profiler is slow)
 SUPERSTEP_CADENCES = dict(validate_every=3, checkpoint_every=4, log_every=2,
@@ -4093,7 +4137,7 @@ MEMORY_FIT_BATCHES = ((16, None), (16, "full"), (16, "attn"), (16, "dots"), (48,
                       (32, "attn"))
 TOL_MEMORY_PLAN = 0.05         # plan against the measured peak
 MESH_SUPERSTEP_STEPS = 8       # each superstep Trainer's steps (spans of 4, log 4)
-MESH_SUPERSTEP_DEPTH = 6       # their ProGen-small's layers (bf16 compute)
+MESH_SUPERSTEP_DEPTH = 3       # their ProGen-small's layers (bf16 compute; 6 before phase 19)
 # the tp runs: label, strategies, bf16 compute; each held to the unmeshed run
 # of its precision at the readings of phase 11's meshed runs
 TP_RUNS = (("fsdp_tp", ("fsdp", "tp"), False), ("dp_tp_sp", ("dp", "tp", "sp"), False),
@@ -4464,7 +4508,7 @@ DECODE_MESH_MODES = (("dense", {}), ("paged", {"paged": True}),
 RANK_TENSOR = 2  # the tensor split whose rank shapes the kernels are held at
 TWO_RANK_SECONDS = 300  # the two gloo ranks' budget, their start included
 TWO_RANK_LENGTH = 64    # the two ranks' sampler: the first prime to this length (128 before phase 18)
-DECODE_MESH_LENGTH = 256  # the meshed samplers' length (the first prime; 512 before phase 18, 1024 in phase 4)
+DECODE_MESH_LENGTH = 64  # the meshed samplers' length (the first prime; 256 before phase 19, 512 before phase 18, 1024 in phase 4)
 DECODE_MESH_NEW_TOKENS = 32  # the meshed engines' cap on phase 7's requests (64-192 there; 64 before phase 18)
 TWO_RANK_DEPTH = 6  # the two ranks' ProGen-small layers (12 before phase 18)
 
@@ -5017,6 +5061,8 @@ def trainer_mesh_alone() -> dict:
 # -- phase 18: the multi-process fleet ----------------------------------------
 
 FLEET_NEW_TOKENS = 64  # the fleet's cap on phase 7's requests (64-192 there)
+FLEET_REQUESTS = 6  # the bf16 fleet's requests: phase 7's first (12 before phase 19)
+FLEET_F32_REQUESTS = 3  # the f32 fleet's (12 before phase 19)
 FLEET_RUNS = (("f32", False, None, False), ("bf16_q8_warmed", True, "weights+pages", True))
 FLEET_TIMEOUT_S = 300.0
 
@@ -5073,12 +5119,57 @@ def fleet_counts(launches: dict) -> dict:
     return out, routes
 
 
+def worker_launch_checks(label: str, exits: dict, workers: dict, bf16: bool,
+                         quantize, depth: int = SMALL.depth) -> tuple[dict, dict]:
+    """Each worker's exit-line launches held to its formula: a prefill
+    worker K1-fwd ``depth`` and K2-fwd 2 times a handle it made (f32 on
+    ``wmma``/``fma``, bf16 on ``wgmma``), a decode replica (or each member
+    of a replica group, at its rank's width) K3 or K3-q8 twice a decode
+    step, all on ``bulk``; nothing else anywhere.  ``workers``: each
+    worker's last stats frame.  Returns the launches and K3's routes summed
+    over the workers, and each worker's launches."""
+    mix = "paged_gate_mix_q8" if quantize == "weights+pages" else "paged_gate_mix"
+    fwd_route = ("wgmma", "wgmma") if bf16 else ("wmma", "fma")
+    gmlp = SMALL.global_mlp_depth
+    total = dict.fromkeys(COUNTERS, 0)
+    by_route = dict.fromkeys(cuda_paged_gate_mix.route_launches, 0)
+    each = {}
+    for w, rec in sorted(exits.items()):
+        got, routes = fleet_counts(rec["launches"])
+        st = workers[w]
+        if w.startswith("prefill"):
+            frames = st["robust"]["handoff"]["puts"]
+            want = {**dict.fromkeys(COUNTERS, 0), "local_attention_fwd": depth * frames,
+                    "sgu_fwd": gmlp * frames}
+            for name, route in zip(("local_attention_fwd", "sgu_fwd"), fwd_route):
+                require(routes[name].get(route) == got[name] > 0,
+                        f"{label} {w}: {name} by route {routes[name]}, want all on {route}")
+        else:
+            steps = st["chunks_run"] * ENGINE_CHUNK
+            want = {**dict.fromkeys(COUNTERS, 0), mix: gmlp * steps}
+            require(routes["paged_gate_mix"].get("bulk") == got[mix] > 0,
+                    f"{label} {w}: K3 by route {routes['paged_gate_mix']}, want all on bulk")
+            require(st["stage_seconds"]["prefill_s"] == 0.0,
+                    f"{label} {w}: a replica ran a prefill: {st['stage_seconds']}")
+        require(got == want, f"{label} {w}: launches {got}, want {want}")
+        each[w] = {k: v for k, v in got.items() if v}
+        for k, v in got.items():
+            total[k] += v
+        for r, n in routes["paged_gate_mix"].items():
+            by_route[r] += n
+    total["paged_gate_mix_by_route"] = by_route
+    return total, each
+
+
 def fleet_run(label: str, bf16: bool, quantize, aot: bool, requests: list[dict],
-              root: Path) -> dict:
+              root: Path, keep: bool = False) -> tuple:
     """One prefill worker and one decode replica answer ``requests``, held
     to the in-process engine of the same spec (eager), which runs on a
     thread of this process while the workers start; the workers' kernels
-    are read from their exit lines."""
+    are read from their exit lines.  ``keep``: the fleet lives on for
+    phase 19, which reads the exit lines and holds the launches when it
+    shuts the fleet down; the result then carries ``cluster``, ``log_dir``
+    and the reference tokens ``want``."""
     spec = fleet_spec(bf16, quantize, aot)
     log_dir = root / label
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -5099,59 +5190,37 @@ def fleet_run(label: str, bf16: bool, quantize, aot: bool, requests: list[dict],
 
     cluster._on_handle = counted
     try:
+        t_ready = time.perf_counter()
         cluster.wait_ready(FLEET_TIMEOUT_S)
+        ready_s = time.perf_counter() - t_ready
         t1 = time.perf_counter()
         for r in requests:
             cluster.submit(Request(**r))
         done = cluster.drain(timeout=FLEET_TIMEOUT_S)
         serve_s = time.perf_counter() - t1
+        stats = cluster.stats()
     finally:
-        stats = cluster.shutdown()
-    exits = worker_exits(log_dir)
-    require(set(exits) == {"prefill:0", "decode:0"},
-            f"{label}: worker exit lines {sorted(exits)}; logs in {log_dir}")
+        if not keep:
+            stats = cluster.shutdown()
+    cluster._on_handle = relay
     require(sorted(c.uid for c in done) == list(range(len(requests)))
             and all(c.ok for c in done),
             f"{label}: statuses {[(c.uid, c.status) for c in done]}")
     got = {c.uid: c.tokens.tolist() for c in done}
     share = token_match(got, want)
     identical = share == 1.0 and got == want
-    (pre, pre_routes), (dec, dec_routes) = (fleet_counts(exits[w]["launches"])
-                                            for w in ("prefill:0", "decode:0"))
     dstats = stats["workers"]["decode:0"]
     frames = dstats["robust"]["handoff"]["puts"]
     steps = dstats["chunks_run"] * ENGINE_CHUNK
-    mix = "paged_gate_mix_q8" if quantize == "weights+pages" else "paged_gate_mix"
-    fwd_route = ("wgmma", "wgmma") if bf16 else ("wmma", "fma")
-    # K1-fwd/K2-fwd in every layer of every prefill program, in the prefill
-    # worker only; K3 (or K3-q8) twice a decode step, in the replica only
-    want_pre = {**dict.fromkeys(COUNTERS, 0), "local_attention_fwd": SMALL.depth * frames,
-                "sgu_fwd": SMALL.global_mlp_depth * frames}
-    want_dec = {**dict.fromkeys(COUNTERS, 0), mix: SMALL.global_mlp_depth * steps}
-    require(pre == want_pre, f"{label}: prefill worker launches {pre}, want {want_pre}")
-    require(dec == want_dec, f"{label}: replica launches {dec}, want {want_dec}")
-    for name, route in zip(("local_attention_fwd", "sgu_fwd"), fwd_route):
-        require(pre_routes[name].get(route) == pre[name] > 0,
-                f"{label}: {name} by route {pre_routes[name]}, want all on {route}")
-    require(dec_routes["paged_gate_mix"].get("bulk") == dec[mix] > 0,
-            f"{label}: K3 by route {dec_routes['paged_gate_mix']}, want all on bulk")
     tt = stats["transport_total"]
     require(tt["crc_failures"] == 0 and tt["desyncs"] == 0, f"{label}: transport {tt}")
-    require(dstats["stage_seconds"]["prefill_s"] == 0.0,
-            f"{label}: the replica ran a prefill: {dstats['stage_seconds']}")
     pstats = stats["workers"]["prefill:0"]
-    # spawn to hello (or to the reference's end, if later), then each
-    # worker's own build (and warm-up), the two in parallel
-    startup_s = hello_s + max(exits[w]["build_s"] for w in exits)
     generated = sum(len(v) for v in got.values())
     ttft = [c.ttft for c in done if c.ttft is not None]
     result = {
         "precision": "bf16 compute" if bf16 else "f32", "quantize": quantize,
         "aot_warmup": aot, "requests": len(requests),
         "token_match_vs_in_process": share, "identical": identical,
-        "startup_s": startup_s,
-        "worker_build_s": {w: exits[w]["build_s"] for w in exits},
-        "warmup": {w: exits[w]["warmup"] for w in exits},
         "serve_s": serve_s, "generated_tokens": generated,
         "tokens_per_s": generated / serve_s,
         "ttft_s_median": float(np.median(ttft)) if ttft else None,
@@ -5161,49 +5230,64 @@ def fleet_run(label: str, bf16: bool, quantize, aot: bool, requests: list[dict],
         "frames_total": tt["frames_out"], "bytes_total": tt["bytes_out"],
         "ser_s_per_frame": pstats["transport"]["ser_s"] / max(frames, 1),
         "de_s_per_frame": dstats["transport"]["de_s"] / max(frames, 1),
+        "decode_steps": steps,
+    }
+    if keep:
+        # spawn to hello, then the wait for both ready frames (the builds
+        # and warm-ups, in parallel); the exit lines come with phase 19
+        result["startup_s"] = hello_s + ready_s
+        return result, None, {"cluster": cluster, "log_dir": log_dir, "want": want}
+    exits = worker_exits(log_dir)
+    require(set(exits) == {"prefill:0", "decode:0"},
+            f"{label}: worker exit lines {sorted(exits)}; logs in {log_dir}")
+    counts, each = worker_launch_checks(label, exits, stats["workers"], bf16, quantize)
+    # spawn to hello (or to the reference's end, if later), then each
+    # worker's own build (and warm-up), the two in parallel
+    result.update({
+        "startup_s": hello_s + max(exits[w]["build_s"] for w in exits),
+        "worker_build_s": {w: exits[w]["build_s"] for w in exits},
+        "warmup": {w: exits[w]["warmup"] for w in exits},
         "peak_bytes": {w: exits[w]["peak_bytes"] for w in exits},
         "stage_seconds": {w: stats["workers"][w]["stage_seconds"] for w in exits},
-        "decode_steps": steps,
-        "launches": {"prefill:0": {k: v for k, v in pre.items() if v},
-                     "decode:0": {k: v for k, v in dec.items() if v}},
-        "routes": {"prefill:0": {k: pre_routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
-                   "decode:0": dec_routes["paged_gate_mix"]},
-    }
-    counts = {name: pre[name] + dec[name] for name in COUNTERS}
-    counts["paged_gate_mix_by_route"] = {
-        route: dec_routes["paged_gate_mix"].get(route, 0)
-        for route in cuda_paged_gate_mix.route_launches}
-    return result, counts
+        "launches": each})
+    return result, counts, None
 
 
-def serve_fleet(smi: str) -> tuple[dict, dict]:
+def serve_fleet(smi: str, keep: bool = True) -> tuple[dict, dict, dict | None]:
     """The multi-process fleet at ProGen-small (full width and depth, the
     seeded init): one prefill worker and one decode replica, both processes
-    on ``cuda:0``, answer phase 7's 12 requests cut to 64 new tokens.  f32:
-    tokens identical to the in-process disaggregated paged engine's built
-    by ``build_engine_from_spec`` from the same spec; bf16 compute with
-    int8 weights and 8-bit pages, every worker warmed by ``aot_warmup``: at
-    least 0.98 of that engine's tokens (the router may batch prefills
-    otherwise than the in-process engine, and another batch size may change
-    a bf16 product's bits).  Each worker's kernels from its exit line:
-    K1-fwd and K2-fwd in the prefill worker only (12 and 2 a program), K3
-    or K3-q8 in the replica only (2 a decode step, on ``bulk``).  Returns
-    the phase's fields and the launches of both runs."""
+    on ``cuda:0``, answer phase 7's first requests cut to 64 new tokens
+    (FLEET_F32_REQUESTS and FLEET_REQUESTS of them).  f32: tokens identical to the in-process disaggregated
+    paged engine's built by ``build_engine_from_spec`` from the same spec;
+    bf16 compute with int8 weights and 8-bit pages, every worker warmed by
+    ``aot_warmup``: at least 0.98 of that engine's tokens (the router may
+    batch prefills otherwise than the in-process engine, and another batch
+    size may change a bf16 product's bits).  Each worker's
+    kernels from its exit line: K1-fwd and K2-fwd in the prefill worker
+    only (12 and 2 a program), K3 or K3-q8 in the replica only (2 a decode
+    step, on ``bulk``).  With ``keep`` the bf16 fleet lives on for phase 19
+    (returned third), which holds its workers' launches.  Returns the
+    phase's fields, the launches of the runs held here, and the kept
+    fleet."""
     requests = capped(engine_requests(SMALL), FLEET_NEW_TOKENS)
     gc.collect()
     torch.cuda.empty_cache()  # the workers' memory is their own processes'
     root = Path(tempfile.mkdtemp(prefix="progen-smoke-fleet-"))
-    runs, launches = {}, {}
+    runs, launches, kept = {}, {}, None
     try:
         for label, bf16, quantize, aot in FLEET_RUNS:
-            runs[label], counts = fleet_run(label, bf16, quantize, aot, requests, root)
-            for k, v in counts.items():
+            last = label == FLEET_RUNS[-1][0]
+            n = FLEET_REQUESTS if bf16 else FLEET_F32_REQUESTS
+            runs[label], counts, kept = fleet_run(label, bf16, quantize, aot, requests[:n],
+                                                  root, keep=keep and last)
+            for k, v in (counts or {}).items():
                 launches[k] = (v if k not in launches else
                                ({r: launches[k][r] + n for r, n in v.items()}
                                 if isinstance(v, dict) else launches[k] + v))
             emit("serve_fleet_run", run=label, nvidia_smi=smi, **runs[label])
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if kept is None:
+            shutil.rmtree(root, ignore_errors=True)
     require(runs["f32"]["identical"], "serve_fleet: the f32 fleet's tokens differ "
             "from the in-process engine's")
     share = runs["bf16_q8_warmed"]["token_match_vs_in_process"]
@@ -5211,11 +5295,265 @@ def serve_fleet(smi: str) -> tuple[dict, dict]:
             f"serve_fleet: {share} of the in-process bf16 8-bit tokens, "
             f"want >= {ENGINE_TOKEN_MATCH}")
     result = {"config": "small", "nvidia_smi": smi, "min_token_match": ENGINE_TOKEN_MATCH,
-              **{label: {k: runs[label][k] for k in (
+              **{label: {k: runs[label].get(k) for k in (
                   "token_match_vs_in_process", "identical", "startup_s", "tokens_per_s",
                   "ttft_s_median", "handle_frames", "handle_bytes_per_request",
                   "ser_s_per_frame", "de_s_per_frame", "peak_bytes")}
                  for label in runs}}
+    if kept is not None:
+        kept.update(root=root, requests=requests)
+    return result, launches, kept
+
+
+ELASTIC_FIRST = 6       # phase 19's requests submitted before the swap (the rest after)
+ELASTIC_SWAP_AFTER = 4  # completions before phase 19's swap
+ELASTIC_UID = 100       # phase 19's uids: phase 7's plus this (beside phase 18's)
+
+
+class ForcedScaleDown(BurnRatePolicy):
+    """A policy that asks to scale both stages down on every tick: the
+    control plane's victim picker still decides whether anything can go."""
+
+    def decide(self, inputs):
+        return [ScaleDecision("scale_down", role, "forced", 0.0, 0.0)
+                for role in ("prefill", "decode")]
+
+
+def serve_elastic(smi: str, kept: dict) -> tuple[dict, dict]:
+    """Phase 19: the elastic control plane on phase 18's bf16 fleet (int8
+    weights, 8-bit pages, warmed), handed on alive.  Phase 7's 12 requests
+    cut to 64 new tokens (uids + 100): the first 6 submitted, and after
+    the 4th completion ``ControlPlane.swap_weights`` rolls the fleet to
+    generation 1 (the same spec with ``init_seed`` + 1: a new decode
+    replica warm and routable, the prefill worker replaced, the old
+    replica retired once its requests finished); the other 6 are submitted
+    after it, then one ``tick`` with a forced scale-down.  No request is
+    shed or dropped, every completion carries the generation that primed
+    it, each generation's tokens at least 0.98 of the in-process engine's
+    on its weights (generation 0: phase 18's reference; generation 1: an
+    engine on the new weights, run while the new workers warm).  Every
+    worker's launches from its exit line, phase 18's bf16 runs included:
+    the formula of phase 18.  Returns the phase's fields and launches."""
+    cluster, log_dir = kept["cluster"], kept["log_dir"]
+    reqs = [{**r, "uid": ELASTIC_UID + r["uid"]} for r in kept["requests"]]
+    want0 = {ELASTIC_UID + u: v for u, v in kept["want"].items()
+             if u < ELASTIC_FIRST}
+    spec1 = {**cluster.spec, "init_seed": SEED + 1}
+    control = ControlPlane(cluster, BurnRatePolicy(
+        min_prefill=1, max_prefill=2, min_replicas=1, max_replicas=2), slo_specs=())
+    dispatches: dict = {}
+    dispatch = cluster._dispatch
+
+    def counted(uid, now):
+        dispatches[uid] = dispatches.get(uid, 0) + 1
+        return dispatch(uid, now)
+
+    cluster._dispatch = counted
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            t0 = time.perf_counter()
+            for r in reqs[:ELASTIC_FIRST]:
+                cluster.submit(Request(**r))
+            done = []
+            while len(done) < ELASTIC_SWAP_AFTER:
+                require(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+                        f"serve_elastic: {len(done)} completions before the swap")
+                # (phase 18's completions are still to collect: not these)
+                done += [c for c in cluster.poll(0.1) if c.uid >= ELASTIC_UID]
+            # the generation-1 reference runs while the new workers warm
+            reference = pool.submit(fleet_reference, {**fleet_spec(True, "weights+pages", False),
+                                                      "init_seed": SEED + 1},
+                                    reqs[ELASTIC_FIRST:])
+            t_swap = time.perf_counter()
+            gen = control.swap_weights(spec1, timeout=FLEET_TIMEOUT_S)
+            swap_s = time.perf_counter() - t_swap
+            for r in reqs[ELASTIC_FIRST:]:
+                cluster.submit(Request(**r))
+            sizes = (cluster.prefill_procs, cluster.replicas)
+            control.policy = ForcedScaleDown(min_prefill=1, min_replicas=1)
+            tick = control.tick()
+            done = [c for c in cluster.drain(timeout=FLEET_TIMEOUT_S) if c.uid >= ELASTIC_UID]
+            want1 = reference.result()
+            serve_s = time.perf_counter() - t0
+            controlz = control.controlz()
+    finally:
+        cluster._dispatch = dispatch
+        stats = cluster.shutdown()
+        exits = worker_exits(log_dir)
+        shutil.rmtree(kept["root"], ignore_errors=True)
+    require(set(exits) == {"prefill:0", "decode:0", "prefill:1", "decode:1"},
+            f"serve_elastic: worker exit lines {sorted(exits)}")
+    require(sorted(c.uid for c in done) == [r["uid"] for r in reqs]
+            and all(c.ok for c in done),
+            f"serve_elastic: statuses {[(c.uid, c.status) for c in done]}")
+    gens = {c.uid: c.generation for c in done}
+    require(gen == 1 and all(gens[r["uid"]] == int(i >= ELASTIC_FIRST)
+                             for i, r in enumerate(reqs)),
+            f"serve_elastic: generations {gens}")
+    got = {c.uid: c.tokens.tolist() for c in done}
+    got0 = {u: got[u] for u in want0}
+    got1 = {u: got[u] for u in want1}
+    share0, share1 = token_match(got0, want0), token_match(got1, want1)
+    require(share0 >= ENGINE_TOKEN_MATCH and share1 >= ENGINE_TOKEN_MATCH,
+            f"serve_elastic: generation 0 {share0}, generation 1 {share1} of the "
+            f"in-process tokens, want >= {ENGINE_TOKEN_MATCH}")
+    require(tick == [] and (cluster.prefill_procs, cluster.replicas) == sizes == (1, 1),
+            f"serve_elastic: the forced scale-down retired {tick} from a fleet of "
+            f"{sizes}: the sole instance of a stage must stay")
+    tt = stats["transport_total"]
+    require(tt["crc_failures"] == 0 and tt["desyncs"] == 0, f"serve_elastic: transport {tt}")
+    launches, each = worker_launch_checks("serve_elastic", exits, stats["workers"], True,
+                                          "weights+pages")
+    events = {e["event"]: e for e in controlz["journal"]}
+    rolls = [e for e in controlz["journal"] if e["event"] == "swap_roll"]
+    begin = events["swap_begin"]["at"]
+    generated = sum(len(v) for v in got.values())
+    result = {
+        "config": "small", "nvidia_smi": smi, "precision": "bf16 compute",
+        "quantize": "weights+pages", "requests": len(reqs), "generation": gen,
+        "min_token_match": ENGINE_TOKEN_MATCH,
+        "token_match_generation_0": share0, "identical_generation_0": got0 == want0,
+        "token_match_generation_1": share1, "identical_generation_1": got1 == want1,
+        "generations": {str(u): g for u, g in sorted(gens.items())},
+        "sheds": sum(not c.ok for c in done),
+        "replays": sum(n - 1 for n in dispatches.values()),
+        "swap_s": swap_s,
+        "swap_steps_s": {f"{e['role']}_routable" if e["role"] == "decode" else "prefill_rolled":
+                         e["at"] - begin for e in rolls}
+                        | {"old_retired": events["swap_done"]["duration_s"]},
+        "forced_scale_down": {"journaled": tick, "fleet": list(sizes)},
+        "controlz_journal_entries": len(controlz["journal"]),
+        "controlz_events": [e["event"] for e in controlz["journal"]],
+        "serve_s": serve_s, "tokens_per_s": generated / serve_s,
+        "peak_bytes": {w: exits[w]["peak_bytes"] for w in exits},
+        "worker_build_s": {w: exits[w]["build_s"] for w in exits},
+        "launches": each,
+    }
+    return result, launches
+
+
+GROUP_SIZE = 2          # phase 20's decode replica: a group of this many processes
+GROUP_REQUESTS = 8      # phase 7's first requests, cut to GROUP_NEW_TOKENS
+GROUP_NEW_TOKENS = 32
+GROUP_DEPTH = 6         # phase 20's ProGen-small layers (of 12; the time needs it)
+
+
+def serve_tp_group(smi: str) -> tuple[dict, dict]:
+    """Phase 20: a tensor-parallel replica group.  ProGen-small at full
+    width (GROUP_DEPTH layers, the seeded init), f32, eager, paged, 8
+    slots, chunk 32, page 16: one prefill worker and one decode replica
+    made of GROUP_SIZE processes on ``cuda:0`` meeting over gloo (NCCL
+    refuses two ranks on one card), each holding its half of the heads and
+    gate channels; phase 7's first 8 requests cut to 32 new tokens.  Held:
+    at least 0.98 of the in-process disaggregated engine's tokens on the
+    same spec (the identical share printed: the ``tp`` split changes the
+    order of sums), every slab frame the replicated leaves plus half the
+    split ones, no CRC failure, desync or ``bad_frame``, and the launches:
+    the prefill worker's K1-fwd and K2-fwd per handle, each member's K3
+    twice a decode step on ``bulk`` at its rank's width (d 1024).  Printed:
+    the members' start-up, tokens/s, median time to first token, peak
+    memory per process."""
+    cfg = dataclasses.replace(SMALL, depth=GROUP_DEPTH)
+    spec = make_spec(cfg, mixed_precision=False, init_seed=SEED, device="cuda",
+                     engine=dict(num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
+                                 max_len=cfg.seq_len, paged=True, page_size=ENGINE_PAGE))
+    requests = capped(engine_requests(SMALL)[:GROUP_REQUESTS], GROUP_NEW_TOKENS)
+    root = Path(tempfile.mkdtemp(prefix="progen-smoke-group-"))
+    slabs, bad_frames = [], []
+    split = cluster_module._split_group_frame
+
+    def header_of(frame) -> tuple[dict, int]:
+        """A frame's header and payload length, from its prefix (the relay
+        has checked both CRCs)."""
+        hlen, plen, _, _ = parse_prefix(frame[:FRAME_PREFIX_LEN])
+        return json.loads(frame[FRAME_PREFIX_LEN:FRAME_PREFIX_LEN + hlen]), plen
+
+    def measured(frame, group_size):
+        out = split(frame, group_size)
+        whole = {path: nbytes for path, _, _, _, nbytes in header_of(frame)[0]["manifest"]}
+        cut = header_of(out[0])[0]["slab"]["split"]
+        slabs.append({"frame": len(frame),
+                      "split_bytes": sum(whole[p] for p in cut),
+                      "replicated_bytes": sum(n for p, n in whole.items() if p not in cut),
+                      "slab_payloads": [header_of(f)[1] for f in out]})
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        with mock.patch.object(cluster_module, "_split_group_frame", measured), \
+                concurrent.futures.ThreadPoolExecutor(1) as pool:
+            reference = pool.submit(fleet_reference, spec, requests)
+            t0 = time.perf_counter()
+            try:
+                cluster = ServeCluster(spec, tp_group=GROUP_SIZE, log_dir=str(root),
+                                       spawn_timeout=FLEET_TIMEOUT_S)
+            finally:
+                want = reference.result()
+            handle = cluster._handle_event
+
+            def watched(ev):
+                if ev[0] != "dead" and ev[2].get("type") == "bad_frame":
+                    bad_frames.append(ev[2])
+                return handle(ev)
+
+            cluster._handle_event = watched
+            try:
+                cluster.wait_ready(FLEET_TIMEOUT_S)
+                startup_s = time.perf_counter() - t0
+                t1 = time.perf_counter()
+                for r in requests:
+                    cluster.submit(Request(**r))
+                done = cluster.drain(timeout=FLEET_TIMEOUT_S)
+                serve_s = time.perf_counter() - t1
+            finally:
+                stats = cluster.shutdown()
+        exits = worker_exits(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    members = ["decode:0"] + [f"dshard{k}:0" for k in range(1, GROUP_SIZE)]
+    require(set(exits) == {"prefill:0", *members},
+            f"serve_tp_group: worker exit lines {sorted(exits)}")
+    require(sorted(c.uid for c in done) == list(range(len(requests)))
+            and all(c.ok for c in done),
+            f"serve_tp_group: statuses {[(c.uid, c.status) for c in done]}")
+    got = {c.uid: c.tokens.tolist() for c in done}
+    share = token_match(got, want)
+    require(share >= ENGINE_TOKEN_MATCH,
+            f"serve_tp_group: {share} of the in-process tokens, want >= {ENGINE_TOKEN_MATCH}")
+    tt = stats["transport_total"]
+    require(tt["crc_failures"] == 0 and tt["desyncs"] == 0 and not bad_frames,
+            f"serve_tp_group: transport {tt}, bad frames {bad_frames}")
+    require(slabs and all(s["slab_payloads"] == [s["replicated_bytes"]
+                                                 + s["split_bytes"] // GROUP_SIZE] * GROUP_SIZE
+                          for s in slabs),
+            f"serve_tp_group: slab payloads {slabs}")
+    steps = {w: stats["workers"][w]["chunks_run"] for w in members}
+    require(len(set(steps.values())) == 1, f"serve_tp_group: members' chunks {steps}")
+    launches, each = worker_launch_checks("serve_tp_group", exits, stats["workers"], False,
+                                          None, depth=cfg.depth)
+    generated = sum(len(v) for v in got.values())
+    ttft = [c.ttft for c in done if c.ttft is not None]
+    result = {
+        "config": "small", "depth": cfg.depth, "nvidia_smi": smi, "precision": "f32",
+        "group_size": GROUP_SIZE, "backend": "gloo", "requests": len(requests),
+        "new_tokens": GROUP_NEW_TOKENS, "min_token_match": ENGINE_TOKEN_MATCH,
+        "token_match_vs_in_process": share, "identical": got == want,
+        "startup_s": startup_s,
+        "worker_build_s": {w: exits[w]["build_s"] for w in exits},
+        "serve_s": serve_s, "generated_tokens": generated,
+        "tokens_per_s": generated / serve_s,
+        "ttft_s_median": float(np.median(ttft)) if ttft else None,
+        "handle_frames": len(slabs), "frame_bytes": [s["frame"] for s in slabs],
+        "slab_payload_bytes": [s["slab_payloads"][0] for s in slabs],
+        "split_bytes": [s["split_bytes"] for s in slabs],
+        "replicated_bytes": [s["replicated_bytes"] for s in slabs],
+        "de_s_per_frame": {w: stats["workers"][w]["transport"]["de_s"] / max(len(slabs), 1)
+                           for w in members},
+        "decode_steps": {w: n * ENGINE_CHUNK for w, n in steps.items()},
+        "peak_bytes": {w: exits[w]["peak_bytes"] for w in exits},
+        "launches": each,
+    }
     return result, launches
 
 
@@ -5225,8 +5563,33 @@ def serve_fleet_alone() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("build", per_source=kernels.build())
-    result, _ = serve_fleet(smi_name_power())
+    result, _, _ = serve_fleet(smi_name_power(), keep=False)
     emit("serve_fleet", **result)
+    return result
+
+
+def serve_elastic_alone() -> dict:
+    """Phases 18 and 19 on their own (19 continues 18's bf16 fleet), with
+    the build: ``python3 -c "import chip_smoke as cs; cs.serve_elastic_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    smi = smi_name_power()
+    fleet, _, kept = serve_fleet(smi)
+    emit("serve_fleet", **fleet)
+    result, _ = serve_elastic(smi, kept)
+    emit("serve_elastic", **result)
+    return result
+
+
+def serve_tp_group_alone() -> dict:
+    """Phase 20 on its own, with the build:
+    ``python3 -c "import chip_smoke as cs; cs.serve_tp_group_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    result, _ = serve_tp_group(smi_name_power())
+    emit("serve_tp_group", **result)
     return result
 
 
@@ -5298,8 +5661,13 @@ def main() -> int:
     gc.collect()
     engine_launches.update(engine_lifecycle(lifecycle_model(), requests))
     gc.collect()
-    fleet, engine_launches["serve_fleet"] = serve_fleet(smi)
+    fleet, engine_launches["serve_fleet"], kept = serve_fleet(smi)
     emit("serve_fleet", **fleet)
+    elastic, engine_launches["serve_elastic"] = serve_elastic(smi, kept)
+    emit("serve_elastic", **elastic)
+    del kept
+    group, engine_launches["serve_tp_group"] = serve_tp_group(smi)
+    emit("serve_tp_group", **group)
     gc.collect()
 
     model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED)
@@ -5312,8 +5680,9 @@ def main() -> int:
     gc.collect()
     emit("lora_train_vs_plain", **check_train_against_plain(lora=True))
     gc.collect()
-    trainer = trainer_phase()
-    require_trainer_launches(trainer, SMALL)
+    trainer_small = dataclasses.replace(SMALL, depth=TRAINER_DEPTH)
+    trainer = trainer_phase(trainer_small)
+    require_trainer_launches(trainer, trainer_small)
     emit("trainer", config="small", dtype="bf16 compute, f32 params", nvidia_smi=smi,
          **{k: v for k, v in trainer.items() if k != "per_step_launches"},
          launches_per_step=trainer["per_step_launches"][0],

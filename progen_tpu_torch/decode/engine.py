@@ -142,8 +142,13 @@ gives each rank its part, and a LoRA bank is the rank's part
 (``shard_bank``).  ``reload_weights`` under a mesh builds and places a
 model of the engine's own.
 
-Not ported yet (each raises ``NotImplementedError``): remote prefill (the
-handoff's wire format).
+A decode replica of the fleet may be a tensor-parallel GROUP of processes
+(``serve/worker.py``): one engine per member under a ``tensor`` mesh, fed
+in lockstep, each admitting its part of every handle
+(``decode/handoff.py:deserialize_handle_sharded``).  Every rank's slot
+state other than its rank-width caches is a plain tensor of its own, the
+same on every rank, so a host read of it (``_host_fetch``) needs no
+collective.
 """
 
 from __future__ import annotations
@@ -525,6 +530,7 @@ class ServingEngine:
             model = self._quantize_variables(model)
             self._owns_model = True
         self.model = model
+        self.mesh = mesh  # the DeviceMesh the model is placed on (None: unmeshed)
         self._rows = torch.arange(num_slots, device=self.device)
         # decode's view of the mesh (None without one): the rank's heads and
         # channels (``_tensor`` of them) and the tensor group
@@ -547,6 +553,7 @@ class ServingEngine:
         self.embed_batch = num_slots
 
         self.spec = spec
+        self.draft_whole = False
         if spec:
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
@@ -557,6 +564,9 @@ class ServingEngine:
             # the draft's view of the mesh: the target's for the identity
             # draft, none for a draft of its own (whole on every rank)
             self._draft_view = self._view if self._draft is self.model else None
+            # a draft of its own keeps whole caches on every rank (what a
+            # replica group's member rebuilds from its slabs)
+            self.draft_whole = self._draft_view is None
             self._draft_step = ProGenDecodeStep(self._draft, self._draft_view)
             # rounds per chunk: a fully-accepted round advances k + 1
             # positions, so the chunk's budget is kept in emitted tokens

@@ -51,10 +51,18 @@ truncated read raises :class:`FrameDesync`: the stream can no longer be
 trusted and the connection is poisoned (the supervisor restarts the
 stage).  Both are typed: a corrupt frame sheds, never crashes.
 
+A decode replica that is a tensor-parallel GROUP of ``G`` processes
+(``serve/worker.py``) gets each handle as ``G`` slab frames: the driver
+splits a frame with :func:`split_handle_frame` (the JAX package's bytes,
+one shard's slice of every leaf :func:`slab_axis` splits, the rest whole,
+each frame with its own CRC), and each member rebuilds its part of the
+state with :func:`deserialize_handle_sharded`: one all-gather of the slab
+payloads over the group, then the rank's part of each leaf in the layout
+its engine holds (:func:`rank_axis`: a k/v ring's heads, a gate row's
+channels; everything else whole), in ONE host-to-device copy.
+
 The wire half is ported from ``progen_tpu/decode/handoff.py:141-392`` and
-``:527-576``; the tensor-parallel slab frames (``slab_axis``,
-``split_handle_frame``, ``deserialize_handle_sharded``) wait for the
-replica groups (``ROADMAP.md`` Queue 1).
+``:527-576``, the slab half from ``:393-526``.
 """
 
 from __future__ import annotations
@@ -187,6 +195,12 @@ class FrameCorrupt(FrameError):
     def __init__(self, msg: str, header: dict | None = None):
         super().__init__(msg)
         self.header = header
+
+
+class SlabDropped(FrameCorrupt):
+    """This member's slab was sound, but another member of its replica
+    group could not read its own slab of the batch: the group drops the
+    batch as one (:func:`deserialize_handle_sharded`'s vote)."""
 
 
 class FrameDesync(FrameError):
@@ -389,19 +403,31 @@ def _to_wire(path: str, leaf: torch.Tensor) -> tuple[str, torch.Tensor]:
     return name, t.to(torch.int32)
 
 
-def _from_wire(path: str, name: str, raw: torch.Tensor, shape) -> torch.Tensor:
-    """The bytes ``raw`` (uint8, on the engine's device) as the port's leaf
-    at ``path``."""
+def _wire_typed(name: str, raw: torch.Tensor) -> torch.Tensor:
+    """The bytes ``raw`` (uint8) as the tensor dtype that holds wire dtype
+    ``name`` (a uint32 as the int32 of the same bits)."""
     if name == "uint32":
-        t = _view(raw, torch.int32).to(torch.int64) & _UINT32
-    elif name in _TORCH_DTYPES:
-        t = _view(raw, _TORCH_DTYPES[name])
-    else:
-        raise ValueError(f"unknown wire dtype {name!r}")
+        return _view(raw, torch.int32)
+    if name in _TORCH_DTYPES:
+        return _view(raw, _TORCH_DTYPES[name])
+    raise ValueError(f"unknown wire dtype {name!r}")
+
+
+def _to_port(path: str, name: str, t: torch.Tensor) -> torch.Tensor:
+    """A leaf of wire dtype ``name`` (as :func:`_wire_typed` holds it) in the
+    port's dtype for ``path``."""
+    if name == "uint32":
+        t = t.to(torch.int64) & _UINT32
     want = _PORT_DTYPES.get(path.rsplit("/", 1)[-1])
     if want is not None and t.dtype != want:
         t = t.to(want)
-    return t.reshape(shape)
+    return t
+
+
+def _from_wire(path: str, name: str, raw: torch.Tensor, shape) -> torch.Tensor:
+    """The bytes ``raw`` (uint8, on the engine's device) as the port's leaf
+    at ``path``."""
+    return _to_port(path, name, _wire_typed(name, raw)).reshape(shape)
 
 
 def _view(raw: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -500,5 +526,226 @@ def deserialize_handle(buf, *, header: dict | None = None, payload=None,
     if counters is not None:
         counters.de_s += dt
     _trace.get_tracer().add("handoff.deserialize", t0, dt,
+                            uids=[r.uid for r in reqs])
+    return h
+
+
+# ------------------------------------------------------------ slab frames
+#
+# A tensor-parallel decode replica is a group of processes; each gets its
+# own slab of every handle (serve/cluster.py splits, serve/worker.py reads).
+
+# bytes an element of each wire dtype takes (the split moves bytes only)
+_ITEMSIZE = {"bool": 1, "int8": 1, "uint8": 1, "int16": 2, "float16": 2,
+             "bfloat16": 2, "int32": 4, "uint32": 4, "float32": 4,
+             "int64": 8, "float64": 8}
+
+
+def slab_axis(path: str, shape, group_size: int) -> int | None:
+    """The slab rule for tensor-parallel decode groups: which axis of a
+    handle-state leaf is split across the group's shards (the JAX
+    package's rule, so the frames are its bytes).
+
+    One pure function IS the wire contract: the driver applies it when
+    fanning a prefill frame out into per-shard slabs, and every member
+    applies the inverse when it rebuilds its part.  Rule: a leaf of rank
+    >= 2 whose LAST axis divides by ``group_size`` splits on that axis;
+    everything else replicates.  ``path`` is part of the signature so a
+    future format revision can special-case leaves without changing call
+    sites.
+    """
+    del path  # today's rule is shape-only; see docstring
+    if group_size <= 1 or len(shape) < 2:
+        return None
+    last = len(shape) - 1
+    if shape[last] >= group_size and shape[last] % group_size == 0:
+        return last
+    return None
+
+
+def split_handle_frame(header: dict, payload, group_size: int) -> list[bytes]:
+    """Fan one full handle frame out into ``group_size`` per-shard slab
+    frames for a multi-process tensor-parallel decode replica.
+
+    Numpy on the already-received payload bytes (each leaf as unsigned
+    integers of its element's width: the slices move bytes, whatever the
+    dtype), no tensor and no device work; this runs on the driver's relay
+    path.  Every slab frame carries the SAME header (requests, batch id,
+    routing tags) plus a ``slab`` section naming this shard's rank, the
+    group size and the per-leaf split axes; its manifest describes the
+    shard's slab shapes, so :func:`unpack_frame` parses it like any other
+    frame.  Byte for byte the JAX package's frames.
+    """
+    import numpy as np
+
+    if group_size <= 1:
+        raise ValueError(f"group_size must be > 1, got {group_size}")
+    view = memoryview(payload).cast("B")
+    leaves = []
+    split: dict[str, int] = {}
+    for path, dtype, shape, off, nbytes in header["manifest"]:
+        arr = np.frombuffer(view[off:off + nbytes],
+                            dtype=np.dtype(f"u{_ITEMSIZE[dtype]}")).reshape(shape)
+        axis = slab_axis(path, shape, group_size)
+        if axis is not None:
+            split[path] = axis
+        leaves.append((path, dtype, arr, axis))
+    base = {k: v for k, v in header.items() if k != "manifest"}
+    frames = []
+    for shard in range(group_size):
+        manifest = []
+        parts = []
+        off = 0
+        for path, dtype, arr, axis in leaves:
+            if axis is None:
+                part = arr
+            else:
+                w = arr.shape[axis] // group_size
+                sl = [slice(None)] * arr.ndim
+                sl[axis] = slice(shard * w, (shard + 1) * w)
+                part = np.ascontiguousarray(arr[tuple(sl)])
+            manifest.append([path, dtype, list(part.shape), off, part.nbytes])
+            parts.append(memoryview(
+                np.ascontiguousarray(part).reshape(-1).view(np.uint8)))
+            off += part.nbytes
+        hdr = dict(base)
+        hdr["manifest"] = manifest
+        hdr["slab"] = {"shard": shard, "group_size": group_size, "split": split}
+        frames.append(pack_frame(hdr, parts))
+    return frames
+
+
+def rank_axis(path: str, draft_whole: bool = False) -> int | None:
+    """The axis of a handle-state leaf of which a tensor-parallel rank of
+    the port holds its part (the rank-width caches of decode under a mesh,
+    ``parallel/decode.py``): the heads of a k/v ring (axis 1), the channels
+    of a gate row (the last); ``None``: the rank holds the leaf whole.
+    ``draft_whole``: the speculative draft is a model of its own, whole on
+    every rank with whole caches."""
+    parts = path.split("/")
+    if parts[0] == "caches" or (parts[0] == "draft_caches" and not draft_whole):
+        if parts[1] in ("k", "v"):
+            return 1
+        if parts[1] == "sgu_gate":
+            return -1
+    return None
+
+
+def group_device(group=None) -> torch.device:
+    """Where the collectives of ``group`` (default: the process group) take
+    their tensors: the card under NCCL, the host under gloo (which takes
+    host tensors as they are)."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def deserialize_handle_sharded(buf, mesh, *, header: dict | None = None,
+                               payload=None, counters=None, device=None,
+                               vote=None, draft_whole: bool = False) -> Handle:
+    """One per-shard slab frame -> a :class:`Handle` of this rank's state
+    on ``device``, for the engine of one member of a tensor-parallel decode
+    group (``mesh``: the group's mesh, or decode's view of it; its
+    ``tensor`` dim is the group, and slab ``k`` is tensor rank ``k``'s).
+
+    The counterpart of the JAX package's reader, which rebuilds global
+    arrays over the group's mesh: here the members all-gather their slab
+    payloads once over the ``tensor`` group (on the host under gloo), put
+    each split leaf back together, and keep what the rank's engine holds
+    (:func:`rank_axis`: its heads of a k/v ring, its channels of a gate
+    row, every other leaf whole).  The rank's leaves are packed into one
+    buffer and copied to ``device`` in ONE host-to-device copy; each leaf
+    is a view into it (re-typed where the port holds another dtype).
+
+    ``vote`` (``ok -> all_ok``, a collective over the group) runs after
+    this member parsed its slab and before any other collective: a slab
+    that fails its CRC or its header on ANY member raises
+    :class:`FrameCorrupt` on every member (:class:`SlabDropped` on those
+    whose own slab was sound), so the group drops the batch as one.  Pass
+    either the slab frame ``buf`` or its unpacked ``(header,
+    payload)``.
+    """
+    import torch.distributed as dist
+
+    from progen_tpu_torch.parallel.tensor import tensor_split
+
+    t0 = time.perf_counter()
+    ranks, group = tensor_split(mesh)
+    me = mesh.get_local_rank("tensor") if ranks > 1 else 0
+    err = None
+    try:
+        if header is None:
+            header, payload = unpack_frame(buf)
+        slab = header.get("slab") or {}
+        if int(slab.get("group_size", 1)) != ranks or int(slab.get("shard", 0)) != me:
+            raise ValueError(f"slab {slab.get('shard')} of {slab.get('group_size')} "
+                             f"reached tensor rank {me} of {ranks}")
+        split = {k: int(v) for k, v in (slab.get("split") or {}).items()}
+        view = memoryview(payload).cast("B")
+        entries = []
+        for path, dtype, shape, off, nbytes in header["manifest"]:
+            if off < 0 or off + nbytes > view.nbytes or dtype not in _ITEMSIZE:
+                raise ValueError(f"leaf {path!r} runs past the payload or has "
+                                 f"dtype {dtype!r}")
+            entries.append((path, dtype, tuple(shape), off, nbytes))
+        # the vocabulary of an infill request's mask: the lmask leaf's
+        # last axis, whole (split or not)
+        vocab = next((shape[-1] * (ranks if path in split else 1)
+                      for path, _, shape, _, _ in entries if path == "lmask"), None)
+        reqs = [request_from_wire(d, vocab=vocab) for d in header["reqs"]]
+        p_pad = int(header["p_pad"])
+    except FrameCorrupt as e:
+        err = e
+    except (KeyError, TypeError, ValueError) as e:
+        err = FrameCorrupt(f"malformed slab frame header: {e}", header=header)
+    if vote is not None and not vote(err is None):
+        raise err or SlabDropped("another member of the group could not read "
+                                 "its slab of this batch", header=header)
+    if err is not None:
+        raise err
+    comm = group_device(group) if group is not None else torch.device("cpu")
+    with warnings.catch_warnings():
+        # a received frame is immutable bytes; the copy below is ours
+        warnings.simplefilter("ignore", UserWarning)
+        local = (torch.frombuffer(view, dtype=torch.uint8) if view.nbytes
+                 else torch.zeros(0, dtype=torch.uint8))
+    local = local.to(comm, copy=True)
+    if group is not None:
+        slabs = [torch.empty_like(local) for _ in range(ranks)]
+        dist.all_gather(slabs, local, group=group)
+    else:
+        slabs = [local]
+    # the rank's leaves, in the wire's dtypes, packed at 16-byte offsets
+    mine, layout, off = [], [], 0
+    for path, dtype, shape, at, nbytes in entries:
+        axis = split.get(path)
+        if axis is None:
+            t = _wire_typed(dtype, slabs[me][at:at + nbytes]).reshape(shape)
+        else:
+            t = torch.cat([_wire_typed(dtype, p[at:at + nbytes]).reshape(shape)
+                           for p in slabs], axis)
+        ax = rank_axis(path, draft_whole)
+        if ax is not None and ranks > 1:
+            ax %= t.dim()
+            width = t.shape[ax] // ranks
+            t = t.narrow(ax, me * width, width)
+        t = t.contiguous()
+        size = t.numel() * t.element_size()
+        layout.append((path, dtype, tuple(t.shape), off, size))
+        mine.append((off, t.reshape(-1).view(torch.uint8)))
+        off += -(-size // 16) * 16
+    packed = torch.zeros(off, dtype=torch.uint8, device=comm)
+    for at, raw in mine:
+        packed[at:at + raw.numel()] = raw
+    dev = packed.to(device or "cpu")
+    pairs = [(path, _from_wire(path, dtype, dev[at:at + size], shape))
+             for path, dtype, shape, at, size in layout]
+    h = Handle(requests=reqs, state=_unflatten_state(pairs), p_pad=p_pad)
+    dt = time.perf_counter() - t0
+    if counters is not None:
+        counters.de_s += dt
+    _trace.get_tracer().add("handoff.deserialize_sharded", t0, dt,
                             uids=[r.uid for r in reqs])
     return h

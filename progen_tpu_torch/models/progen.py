@@ -607,7 +607,11 @@ class ProGen(Runs, nn.Module):
         ``N(0, 1/dim)`` embedding, ``U(+-1e-3/n)`` spatial weights, ones for
         spatial biases and norm scales.  Drawn on the CPU from ``seed``, so
         every device gets the same weights, and a sharded parameter its
-        part of them."""
+        part of them.  A ``meta`` model (a skeleton to place, then fill with
+        ``parallel/sharding.load_placed``) holds no values: nothing is
+        drawn."""
+        if self.device.type == "meta":
+            return
         gen = torch.Generator().manual_seed(seed)
         for module in self.modules():
             if isinstance(module, Dense):

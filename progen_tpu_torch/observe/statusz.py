@@ -1,5 +1,5 @@
 """Live per-process introspection plane: /healthz /statusz /metricsz
-/tracez /flightz on a loopback port.
+/tracez /flightz /controlz on a loopback port.
 
 Every serving/training process (router, prefill worker, decode replica,
 trainer) can run one :class:`StatuszServer` — a stdlib ``http.server``
@@ -31,11 +31,16 @@ Endpoints:
   ``metrics`` provider's registry snapshot.
 - ``/tracez``   — recent span ring (JSON), ``/flightz`` — flight
   recorder events (JSON).
+- ``/controlz`` — elastic control-plane journal (JSON): every
+  scale/swap/retire decision with its cause signal, plus policy config
+  and live fleet state.  Served only when a control plane registered
+  its ``control`` provider (``serve/control.py``); 404 otherwise.
 
 Copied from progen_tpu/observe/statusz.py (standard library only, on the
 port's copy of the metrics registry); the port keeps its own copy because
-it imports nothing of the JAX package.  The JAX package's ``/controlz``
-(its elastic control plane's journal) is left out with that control plane.
+it imports nothing of the JAX package.  ``/controlz`` serves the elastic
+control plane's journal (``serve/control.py`` registers its ``control``
+provider on the driver's server; 404 until it does).
 """
 
 from __future__ import annotations
@@ -141,7 +146,8 @@ class StatuszServer:
         self.role = role
         self.index = index
         # held by REFERENCE: the owner may register providers after
-        # start()
+        # start() (the serving control plane adds "control" when it
+        # attaches to a running cluster)
         self.providers = providers if providers is not None else {}
         self._want_port = port
         self.port: int | None = None
@@ -225,6 +231,13 @@ class StatuszServer:
                                "spans": tracer.ring()[-512:]})
         if path == "/flightz":
             return self._json({"events": self._call("flight", [])})
+        if path == "/controlz":
+            # elastic control plane: journal of scale/swap/retire decisions,
+            # policy config and the live fleet (serve/control.py); 404 when
+            # no control plane is attached
+            if "control" not in self.providers:
+                raise KeyError(path)
+            return self._json(self._call("control", {}))
         raise KeyError(path)
 
     @staticmethod

@@ -101,10 +101,20 @@ loopback introspection server in every process, printing
     python -m progen_tpu_torch.sample --serve --serve_procs --prime "MKV|MALW" \
         --paged --prefill_procs 1 --replicas 1 [--statusz] [--trace]
 
-The elastic flags of the JAX CLI (``--autoscale``, ``--min_prefill``,
-``--max_prefill``, ``--min_replicas``, ``--max_replicas``, ``--swap_at``)
-are refused by name: the elastic control plane is not ported yet
-(``ROADMAP.md`` Queue 1).
+With ``--serve_procs``, ``--embed`` goes through the fleet
+(``ServeCluster.submit_embed``: the prefill workers answer it), and the
+elastic control plane (``serve/control.py``) drives the fleet with the JAX
+CLI's flags and defaults: ``--autoscale`` ticks a ``BurnRatePolicy``
+between polls, within ``--min_prefill`` (default ``--prefill_procs``) and
+``--max_prefill`` (``--prefill_procs + 2``), ``--min_replicas``
+(``--replicas``) and ``--max_replicas`` (``--replicas + 2``); ``--swap_at
+N`` rolls the fleet to a new weight generation of the same weights after
+``N`` completions (no request dropped; every record carries its
+``generation``).  Each decision is printed as a ``{"control": ...}`` JSON
+line:
+
+    python -m progen_tpu_torch.sample --serve --serve_procs --autoscale \
+        --swap_at 2 --prime "MKV|MALWTR|M" --config default --device cpu
 """
 
 from __future__ import annotations
@@ -139,12 +149,7 @@ from progen_tpu_torch.observe.trace import (
 )
 from progen_tpu_torch.parallel.sharding import parallelize, validate_tp_divisibility
 from progen_tpu_torch.resilience.watchdog import Watchdog
-from progen_tpu_torch.serve.worker import ELASTIC_ITEM
 from progen_tpu_torch.workloads.infill import ScaffoldSpec
-
-# the JAX CLI's flags of the elastic control plane, refused by name
-ELASTIC_FLAGS = ("autoscale", "min_prefill", "max_prefill", "min_replicas",
-                 "max_replicas", "swap_at")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -229,9 +234,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--statusz", action="store_true",
                    help="with --serve_procs: a loopback statusz server in every "
                         "process; the ports are printed first")
-    for flag in ELASTIC_FLAGS:
-        p.add_argument(f"--{flag}", default=None, nargs="?", const=True,
-                       help=f"not ported ({ELASTIC_ITEM})")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --serve_procs: run the elastic control plane; "
+                        "scale the fleet between the min/max bounds on SLO "
+                        "burn rate and queue depth; decisions are journaled "
+                        "and printed")
+    p.add_argument("--min_prefill", type=int, default=None,
+                   help="autoscale floor for prefill workers "
+                        "(default: --prefill_procs)")
+    p.add_argument("--max_prefill", type=int, default=None,
+                   help="autoscale ceiling for prefill workers "
+                        "(default: --prefill_procs + 2)")
+    p.add_argument("--min_replicas", type=int, default=None,
+                   help="autoscale floor for decode replicas (default: --replicas)")
+    p.add_argument("--max_replicas", type=int, default=None,
+                   help="autoscale ceiling for decode replicas "
+                        "(default: --replicas + 2)")
+    p.add_argument("--swap_at", type=int, default=None,
+                   help="with --serve_procs: after N completions, swap the "
+                        "weights by a zero-downtime rolling worker upgrade (a "
+                        "new generation of the same weights); no request is "
+                        "dropped, completions report their generation")
     # "--mesh -1,1,1,1": argparse reads a value that starts with "-" as an
     # option unless it is glued on
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -252,9 +275,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--embed/--infill are serving workloads; add --serve")
     if args.embed and args.infill is not None:
         p.error("pick ONE of --embed / --infill")
-    for flag in ELASTIC_FLAGS:
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag}: the port does not have it yet ({ELASTIC_ITEM})")
+    elastic = [f for f in ("min_prefill", "max_prefill", "min_replicas",
+                           "max_replicas", "swap_at") if getattr(args, f) is not None]
+    if (args.autoscale or elastic) and not args.serve_procs:
+        p.error(f"--{'autoscale' if args.autoscale else elastic[0]} drives the "
+                "serving fleet; add --serve --serve_procs")
     if (args.serve_procs or args.statusz) and not args.serve:
         p.error("--serve_procs/--statusz run the serving fleet; add --serve")
     if args.statusz and not args.serve_procs:
@@ -263,8 +288,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.mesh is not None:
             p.error("--mesh shards ONE process's decode over ranks; "
                     "--serve_procs spawns single-device workers: pick one")
-        if args.embed:
-            p.error(f"--embed through the fleet is not ported ({ELASTIC_ITEM})")
         if args.params:
             p.error("--serve_procs workers load --checkpoint_path or draw the "
                     "weights from --seed, not --params")
@@ -366,13 +389,58 @@ def serve(args, model, seq_len: int, placed: dict | None = None) -> list[dict]:
     return serve_records(completions, primes, rank0)
 
 
+def fleet_policy(args):
+    """The control plane's ``BurnRatePolicy`` of the elastic flags, with the
+    JAX CLI's defaults (``sample.py:320-324``): the floors at the fleet's
+    starting size, the ceilings two above it."""
+    from progen_tpu_torch.serve import BurnRatePolicy
+
+    return BurnRatePolicy(
+        min_prefill=args.min_prefill or args.prefill_procs,
+        max_prefill=args.max_prefill or args.prefill_procs + 2,
+        min_replicas=args.min_replicas or args.replicas,
+        max_replicas=args.max_replicas or args.replicas + 2)
+
+
+def drive_fleet(cluster, control, requests, args) -> list:
+    """Submit ``requests`` (``--embed``: as embedding requests) and collect
+    every completion.  Without a control plane the cluster drains; with one
+    the loop is the JAX CLI's: ``tick()`` between polls under
+    ``--autoscale``, and one rolling ``swap_weights()`` after ``--swap_at``
+    completions.  Each journaled decision is printed as a JSON line."""
+    for r in requests:
+        if args.embed:
+            cluster.submit_embed(r)
+        else:
+            cluster.submit(r)
+    if control is None:
+        return cluster.drain()
+    completions, swapped, shown = [], False, 0
+    while cluster.pending:
+        completions.extend(cluster.poll(timeout=0.2))
+        if (args.swap_at is not None and not swapped
+                and len(completions) >= args.swap_at):
+            swapped = True
+            control.swap_weights()
+        if args.autoscale:
+            control.tick()
+        for entry in control.journal[shown:]:
+            print(json.dumps({"control": entry}), flush=True)
+        shown = len(control.journal)
+    # a swap pumps the fleet while it rolls: what completed inside the last
+    # one is still to collect (the JAX CLI's loop drops it)
+    return completions + cluster.poll()
+
+
 def serve_fleet(args, config: ProGenConfig, seq_len: int) -> list[dict]:
     """``--serve --serve_procs``: answer the primes through a
     ``ServeCluster`` of ``--prefill_procs`` prefill workers and
     ``--replicas`` decode replicas (each a process on ``--device``, every
-    one building the weights of ``--checkpoint_path`` or ``--seed``);
-    prints and returns the records as :func:`serve` does."""
-    from progen_tpu_torch.serve import ServeCluster, make_spec
+    one building the weights of ``--checkpoint_path`` or ``--seed``),
+    driven by the elastic control plane under ``--autoscale`` or
+    ``--swap_at`` (:func:`drive_fleet`); prints and returns the records as
+    :func:`serve` does, each with its weight ``generation``."""
+    from progen_tpu_torch.serve import ControlPlane, ServeCluster, make_spec
 
     primes, requests = serve_requests(args, config, seq_len)
     trace_dir = os.path.abspath(args.trace_out) if args.trace else None
@@ -391,15 +459,15 @@ def serve_fleet(args, config: ProGenConfig, seq_len: int) -> list[dict]:
     cluster = ServeCluster(spec, prefill_procs=args.prefill_procs,
                            replicas=args.replicas)
     try:
+        control = (ControlPlane(cluster, fleet_policy(args))
+                   if args.autoscale or args.swap_at is not None else None)
         if args.statusz:
             print(json.dumps({"statusz": cluster.stats()["statusz_ports"]}),
                   flush=True)
         profile = (profile_trace(args.xprof_dir) if args.xprof_dir is not None
                    else contextlib.nullcontext())
         with profile:
-            for r in requests:
-                cluster.submit(r)
-            completions = cluster.drain()
+            completions = drive_fleet(cluster, control, requests, args)
     finally:
         cluster.shutdown()
     if trace_dir:
@@ -417,7 +485,8 @@ def serve_records(completions, primes: list, rank0: bool) -> list[dict]:
             v = comp.embedding
             records.append({"uid": comp.uid, "prime": primes[comp.uid],
                             "embedding": [float(x) for x in v],
-                            "status": comp.status, "latency_s": comp.latency})
+                            "status": comp.status, "latency_s": comp.latency,
+                            "generation": comp.generation})
             say(f"\n {primes[comp.uid]} \n", "*" * 40,
                   f"[embed, dim={v.shape[0]}, norm={float(np.linalg.norm(v)):.4f}, "
                   f"{comp.latency:.2f}s]\n", np.round(v[:8], 4).tolist(), flush=True)
@@ -427,7 +496,7 @@ def serve_records(completions, primes: list, rank0: bool) -> list[dict]:
             "text": decode_tokens(comp.tokens),
             "tokens": [int(t) for t in comp.tokens],
             "finish_reason": comp.finish_reason, "status": comp.status,
-            "latency_s": comp.latency})
+            "latency_s": comp.latency, "generation": comp.generation})
         say(json.dumps(records[-1]), flush=True)
     return records
 

@@ -23,16 +23,28 @@ Placement is invisible in the tokens: a multi-process cluster produces the
 single-process engine's completions on the same request set, greedy and
 sampled (``tests/test_torch_serve_multiproc.py``).
 
-The elastic control plane (``ControlPlane`` and its policy classes) and
-tensor-parallel replica groups are not ported yet (``ROADMAP.md`` Queue 1).
+The **elastic control plane** (``control.py`` + ``policy.py``) makes the
+fleet itself dynamic: SLO-burn-driven autoscaling between min/max bounds,
+zero-downtime rolling weight swaps (generation-tagged), and graceful
+scale-down with zero sheds that never retires the sole holder of a hot
+prefix, all journaled on ``/controlz`` (``tests/test_torch_elastic.py``,
+``tests/test_torch_fleetcache.py``).  A decode replica may be a
+tensor-parallel GROUP of processes (``ServeCluster(tp_group=G)``, handles
+as slab frames; ``tests/test_torch_serve_groups.py``).
 """
 
 from progen_tpu_torch.serve.cluster import ServeCluster
+from progen_tpu_torch.serve.control import ControlPlane
+from progen_tpu_torch.serve.policy import BurnRatePolicy, PolicyInputs, ScaleDecision
 from progen_tpu_torch.serve.router import Router
 from progen_tpu_torch.serve.worker import build_engine_from_spec, make_spec
 
 __all__ = [
+    "BurnRatePolicy",
+    "ControlPlane",
+    "PolicyInputs",
     "Router",
+    "ScaleDecision",
     "ServeCluster",
     "build_engine_from_spec",
     "make_spec",

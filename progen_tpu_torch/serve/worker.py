@@ -39,10 +39,21 @@ JSON line to its log, ``{"worker_exit": "ROLE:INDEX", "launches": {...},
 life and its build seconds.  Nothing of it goes on the wire, so the frames
 stay JAX's.
 
-Not ported: a decode replica as a multi-process tensor-parallel group
-(``group_size > 1``, ``_group_decode_loop``) raises
-``NotImplementedError`` (:data:`GROUPS_NOT_PORTED`); the JAX-only
-compilation cache has no counterpart.
+A decode replica may also be a multi-process TENSOR-PARALLEL GROUP
+(``PROGEN_TPU_TP_GROUP_SIZE``, ``_RANK`` and ``_PORT`` in the environment,
+as the JAX package sets them; docs/SERVING.md §13): member 0 is the leader
+(role ``decode``), members 1..G-1 are followers (role ``dshard<k>``, same
+replica index).  After its hello each member joins the group's private
+``torch.distributed`` process group on a fresh TCP store port: NCCL where
+every member has a card of its own, gloo where they share ``cuda:0`` (NCCL
+refuses two ranks on one card) or run on the CPU, chosen before the group
+forms.  A member that cannot join raises, and the driver reaps and
+respawns the whole group.  The group's engine runs under a ``tensor=G``
+mesh (``("tp",)``, decode under a mesh, ``parallel/decode.py``), its
+weights placed rank by rank (:func:`build_engine_from_spec`), and every
+step is driven in lockstep by a plan the leader broadcasts
+(:func:`_group_decode_loop`).  The JAX-only compilation cache has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -54,11 +65,12 @@ import sys
 import time
 from collections import deque
 
-# the ROADMAP.md item that holds what the fleet does not port yet
-ELASTIC_ITEM = ("ROADMAP.md Queue 1 item 1: the elastic control plane, the "
-                "fleet prefix cache and the tensor-parallel replica groups")
-GROUPS_NOT_PORTED = ("the port does not have a decode replica as a "
-                     f"multi-process tensor-parallel group ({ELASTIC_ITEM})")
+import torch
+
+# seconds a group member waits to join its group, and for any collective
+# of the group after (a member whose sibling died is reaped by the driver
+# before that)
+GROUP_TIMEOUT_S = 600.0
 
 
 def make_spec(config, *, mixed_precision: bool = True, init_seed: int = 0,
@@ -115,24 +127,11 @@ def make_spec(config, *, mixed_precision: bool = True, init_seed: int = 0,
     return spec
 
 
-def build_engine_from_spec(spec: dict, *, remote_prefill: bool = False,
-                           group_size: int = 1):
-    """Construct the ServingEngine a worker spec describes; also used by
-    tests and the smoke to build the in-process REFERENCE engine with the
-    exact same weight recipe, which makes token identity a hard assert.
-    ``group_size > 1`` (a tensor-parallel replica group) raises
-    ``NotImplementedError`` (:data:`GROUPS_NOT_PORTED`)."""
-    if group_size > 1:
-        raise NotImplementedError(
-            f"build_engine_from_spec(group_size={group_size}): {GROUPS_NOT_PORTED}")
-    from progen_tpu_torch.core.device import resolve_device
-    from progen_tpu_torch.core.precision import make_policy
-    from progen_tpu_torch.decode.engine import ServingEngine
-    from progen_tpu_torch.models.progen import ProGen, ProGenConfig
+def _spec_model(spec: dict, cfg, policy, device):
+    """The spec's weights in a ``ProGen`` on ``device``: the port's seeded
+    init of ``init_seed``, or the checkpoint at ``checkpoint_path``."""
+    from progen_tpu_torch.models.progen import ProGen
 
-    device = resolve_device(spec.get("device", "cuda"))
-    cfg = ProGenConfig.from_dict(spec["config"])
-    policy = make_policy(bool(spec.get("mixed_precision", True)))
     model = ProGen(cfg, policy, device=device, seed=int(spec.get("init_seed", 0)))
     if spec.get("checkpoint_path"):
         from progen_tpu_torch.checkpoint.store import CheckpointStore
@@ -143,7 +142,72 @@ def build_engine_from_spec(spec: dict, *, remote_prefill: bool = False,
             raise FileNotFoundError(
                 f"no checkpoint in {spec['checkpoint_path']}")
         model.load_state_dict(params)
+    return model
+
+
+def _group_model(spec: dict, cfg, policy, device, group_size: int, quantize):
+    """A tensor-parallel group member's model: placed on a ``tensor=G``
+    mesh of the group's process group under ``("tp",)``, rank by rank.  The
+    whole weights are built on the host (int8 there under ``quantize``,
+    their scales the whole weights'), a ``meta`` skeleton is placed on the
+    mesh and given the member's device, and ``load_placed`` writes each
+    parameter's part into it: no member holds the whole model on its card.
+    Returns ``(model, mesh)``."""
+    import torch.distributed as dist
+
+    from progen_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from progen_tpu_torch.decode.engine import ServingEngine
+    from progen_tpu_torch.models.progen import ProGen
+    from progen_tpu_torch.parallel.sharding import (
+        load_placed,
+        parallelize,
+        validate_tp_divisibility,
+    )
+
+    validate_tp_divisibility(cfg, group_size, strategies=("tp",))
+    if not dist.is_initialized() or dist.get_world_size() != group_size:
+        raise RuntimeError(
+            f"a tensor-parallel group of {group_size} builds its engine inside "
+            "its process group: join it first (serve/worker.py:join_group)")
+    mesh = make_mesh(MeshConfig(1, 1, group_size, 1), device.type)
+    whole = _spec_model(spec, cfg, policy, "cpu")
+    if quantize:
+        whole = ServingEngine._quantize_variables(whole)
+    model = ProGen(cfg, policy, device="meta", weights=whole.weights)
+    parallelize(model, mesh, ("tp",))
+    model.to_empty(device=device)
+    load_placed(model, whole.state_dict())
+    return model, mesh
+
+
+def build_engine_from_spec(spec: dict, *, remote_prefill: bool = False,
+                           group_size: int = 1):
+    """Construct the ServingEngine a worker spec describes; also used by
+    tests and the smoke to build the in-process REFERENCE engine with the
+    exact same weight recipe, which makes token identity a hard assert.
+
+    ``group_size > 1`` builds the TP-GROUP flavor, inside the group's
+    process group (:func:`join_group`): the engine runs under a
+    ``tensor=group_size`` mesh with the ``tp`` rule set, after
+    ``validate_tp_divisibility``, on weights placed rank by rank
+    (:func:`_group_model`).  Every member calls this with the same spec, so
+    the group's weights, like a single-process replica's, depend only on
+    (init seed | checkpoint)."""
+    from progen_tpu_torch.core.device import resolve_device
+    from progen_tpu_torch.core.precision import make_policy
+    from progen_tpu_torch.decode.engine import ServingEngine
+    from progen_tpu_torch.models.progen import ProGenConfig
+
+    device = resolve_device(spec.get("device", "cuda"))
+    cfg = ProGenConfig.from_dict(spec["config"])
+    policy = make_policy(bool(spec.get("mixed_precision", True)))
     kw = dict(spec.get("engine", {}))
+    if group_size > 1:
+        model, kw["mesh"] = _group_model(spec, cfg, policy, device, group_size,
+                                         kw.get("quantize"))
+        kw["strategies"] = ("tp",)
+    else:
+        model = _spec_model(spec, cfg, policy, device)
     kw["disagg"] = True
     if kw.get("spec") and "draft_config" in spec:
         kw["draft_config"] = ProGenConfig.from_dict(spec["draft_config"])
@@ -156,7 +220,7 @@ def build_engine_from_spec(spec: dict, *, remote_prefill: bool = False,
         kw["lora_bank"] = random_lora_bank(
             cfg, int(lcfg["tenants"]), int(lcfg["rank"]),
             seed=int(lcfg.get("seed", 0)),
-            scale=float(lcfg.get("scale", 1e-2)))
+            scale=float(lcfg.get("scale", 1e-2)), device=device)
     return ServingEngine(model.eval(), remote_prefill=remote_prefill, **kw)
 
 
@@ -388,18 +452,226 @@ def _decode_loop(eng, peer, inbox, counters, *, heartbeat_s: float) -> None:
                                 max_handoff_backlog=max_backlog))
 
 
+# --- tp-group lockstep ------------------------------------------------
+#
+# A tp-group engine's programs hold collectives: every member must issue
+# the SAME sequence of admit/step calls or the group deadlocks.  The engine
+# itself is deterministic (identical inputs in identical order produce
+# identical host state on every member), so only the leader's
+# nondeterministic inputs (which handle frames arrived, and whether
+# shutdown was requested) need broadcasting.  Each loop iteration the
+# leader publishes a small JSON plan; everything after it is deterministic
+# replay.
+
+_PLAN_BYTES = 16384  # fixed-size plan buffer (a broadcast needs one shape)
+
+
+def join_group(device: torch.device, group_size: int, group_rank: int,
+               port: int) -> torch.device:
+    """Join this member's replica group: a private ``torch.distributed``
+    process group of ``group_size`` ranks meeting on the loopback TCP store
+    at ``port`` (hosted by rank 0; a fresh port per incarnation).  The
+    backend is chosen before the group forms, never on a failure: NCCL
+    where every member has a card of its own (member ``k`` takes card
+    ``k``), gloo where the members share ``cuda:0`` or run on the CPU.
+    Raises when the group does not form within :data:`GROUP_TIMEOUT_S`.
+    Returns the member's device."""
+    import datetime
+
+    import torch.distributed as dist
+
+    backend = "gloo"
+    if device.type == "cuda" and torch.cuda.device_count() >= group_size:
+        backend = "nccl"
+        torch.cuda.set_device(group_rank)
+        device = torch.device("cuda", group_rank)
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=group_size,
+        rank=group_rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return device
+
+
+def _group_plan_exchange(plan: dict | None) -> dict:
+    """Leader -> members broadcast of one lockstep plan dict, as JSON in a
+    fixed :data:`_PLAN_BYTES` buffer.  Followers pass ``None``; every
+    member returns the leader's plan."""
+    import torch.distributed as dist
+
+    from progen_tpu_torch.decode.handoff import group_device
+
+    buf = torch.zeros(_PLAN_BYTES, dtype=torch.uint8)
+    if plan is not None:
+        raw = json.dumps(plan).encode()
+        if len(raw) >= _PLAN_BYTES:
+            raise ValueError(
+                f"tp-group plan overflows {_PLAN_BYTES}B: {len(raw)}B")
+        buf[:len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    buf = buf.to(group_device())
+    dist.broadcast(buf, src=0)
+    return json.loads(bytes(buf.cpu().numpy()).rstrip(b"\x00").decode())
+
+
+def _group_all_ok(flag: bool) -> bool:
+    """Group consensus by an all-gather of every member's vote: True iff
+    EVERY member voted True."""
+    import torch.distributed as dist
+
+    from progen_tpu_torch.decode.handoff import group_device
+
+    mine = torch.tensor([1 if flag else 0], dtype=torch.int32, device=group_device())
+    votes = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(votes, mine)
+    return bool(min(int(v.item()) for v in votes) > 0)
+
+
+def _claim_slab(slabs: dict, batch_id: str, inbox, eng, peer, counters,
+                *, deadline_s: float = 120.0):
+    """Take ``batch_id``'s slab frame, waiting for late delivery.
+
+    The leader only announces batch ids it has already received, but a
+    follower's slab rides a separate TCP stream and may trail the plan
+    broadcast.  Returns ``[header, frame, recv_clock]`` or None when the
+    router died; a slab that never arrives is a wiring bug, not a transient:
+    raise rather than desync the group."""
+    deadline = time.perf_counter() + deadline_s
+    while batch_id not in slabs:
+        msgs, dead = _drain_inbox(inbox, timeout=0.2)
+        if dead:
+            return None
+        for header, frame in msgs:
+            t = header.get("type")
+            if t == "handle":
+                slabs[header.get("batch_id")] = [
+                    header, frame, time.perf_counter()]
+            elif t == "stats_req":
+                peer.send_json(_stats_frame(eng, counters))
+            # shutdown is leader-planned; a follower's copy is ignored
+        if time.perf_counter() > deadline:
+            raise RuntimeError(
+                f"tp-group slab for batch {batch_id!r} never arrived")
+    return slabs.pop(batch_id)
+
+
+def _group_decode_loop(eng, peer, inbox, counters, *, heartbeat_s: float,
+                       group_rank: int, group_size: int) -> None:
+    """Decode loop for one member of a tp-group replica.
+
+    Mirrors :func:`_decode_loop` exactly (same admit-then-step order, same
+    at-depth backpressure), but frame arrival and shutdown flow through the
+    leader's plan, each slab's parse takes a group vote inside
+    :func:`deserialize_handle_sharded` (a batch enters the engine only when
+    EVERY member could parse its slab, else the group drops it as one), and
+    only the leader speaks results (ack / bad_frame / completion) to the
+    router.  Heartbeats and stats stay per-member, tagged with
+    ``group_rank`` and ``group_size``: the driver supervises each process."""
+    from progen_tpu_torch.decode.handoff import (
+        FrameCorrupt,
+        SlabDropped,
+        deserialize_handle_sharded,
+    )
+    from progen_tpu_torch.observe.metrics import get_registry
+    from progen_tpu_torch.observe.trace import get_tracer
+
+    leader = group_rank == 0
+    tag = {"group_rank": group_rank, "group_size": group_size}
+    tracer = get_tracer()
+    backlog: deque = deque()  # [header, frame, handle|None, recv_clock]
+    slabs: dict = {}          # batch_id -> [header, frame, recv_clock]
+    announce: list = []       # leader: arrived, not yet planned
+    running = True
+    max_backlog = 0
+    last_hb = time.perf_counter()
+    while running or eng.has_work or backlog:
+        idle = not (eng.has_work or backlog)
+        msgs, dead = _drain_inbox(inbox, timeout=0.1 if idle else 0.0)
+        if dead:
+            return
+        for header, frame in msgs:
+            t = header.get("type")
+            if t == "handle":
+                bid = header.get("batch_id")
+                slabs[bid] = [header, frame, time.perf_counter()]
+                if leader:
+                    announce.append(bid)
+            elif t == "shutdown":
+                if leader:
+                    running = False
+            elif t == "stats_req":
+                peer.send_json(_stats_frame(
+                    eng, counters, max_handoff_backlog=max_backlog, **tag))
+        plan = _group_plan_exchange(
+            {"admit": announce, "running": running} if leader else None)
+        running = bool(plan["running"])
+        announce = []
+        for bid in plan["admit"]:
+            entry = _claim_slab(slabs, bid, inbox, eng, peer, counters)
+            if entry is None:
+                return
+            backlog.append([entry[0], entry[1], None, entry[2]])
+            max_backlog = max(max_backlog, len(backlog))
+        while backlog:
+            entry = backlog[0]
+            if entry[2] is None:
+                try:
+                    entry[2] = deserialize_handle_sharded(
+                        entry[1], eng.mesh, counters=counters, device=eng.device,
+                        vote=_group_all_ok, draft_whole=eng.draft_whole)
+                except FrameCorrupt as e:
+                    # some member's slab was corrupt: the whole group drops
+                    # the batch, so the engines' states stay identical
+                    if not isinstance(e, SlabDropped):
+                        counters.crc_failures += 1
+                    backlog.popleft()
+                    if leader:
+                        peer.send_json({
+                            "type": "bad_frame",
+                            "batch_id": entry[0].get("batch_id"),
+                            "uids": [d["uid"] for d in entry[0].get("reqs", [])]})
+                    continue
+            if not eng.admit_handle(entry[2]):
+                break  # handoff at depth: step() below frees it
+            backlog.popleft()
+            now = time.perf_counter()
+            tracer.add("worker.queue_wait", entry[3], now - entry[3],
+                       uids=[d["uid"] for d in entry[0].get("reqs", [])],
+                       batch_id=entry[0].get("batch_id"))
+            if leader:
+                peer.send_json({"type": "ack",
+                                "batch_id": entry[0].get("batch_id")})
+        if eng.has_work:
+            for c in eng.step():
+                if leader:
+                    peer.send_json(_completion_to_wire(c))
+        now = time.perf_counter()
+        if now - last_hb >= heartbeat_s:
+            last_hb = now
+            hb_msg = {
+                "type": "hb", "inflight": eng.num_active,
+                "handoff_backlog": len(backlog),
+                "clock": now,
+                "stage_seconds": eng.stage_seconds,
+                "metrics": get_registry().snapshot(), **tag}
+            if leader:
+                dig = eng.prefix_digest()
+                if dig is not None:
+                    hb_msg["digest"] = dig
+            peer.send_json(hb_msg)
+    peer.send_json(_stats_frame(eng, counters,
+                                max_handoff_backlog=max_backlog, **tag))
+
+
 def main(argv) -> int:
     role, index, port, spec_path = (
         argv[0], int(argv[1]), int(argv[2]), argv[3])
     incarnation = int(argv[4]) if len(argv) > 4 else 0
     generation = int(argv[5]) if len(argv) > 5 else 0
+    # tp-group membership (docs/SERVING.md §13): the G member processes of
+    # one decode replica form a private torch.distributed group, joined
+    # after the hello (so a member that cannot join dies as a known peer)
     group_size = int(os.environ.get("PROGEN_TPU_TP_GROUP_SIZE", "1"))
-    if group_size > 1:
-        raise NotImplementedError(f"worker {role}:{index}: {GROUPS_NOT_PORTED}")
+    group_rank = int(os.environ.get("PROGEN_TPU_TP_GROUP_RANK", "0"))
     with open(spec_path) as fh:
         spec = json.load(fh)
-
-    import torch
 
     from progen_tpu_torch.core.device import resolve_device
     from progen_tpu_torch.decode.graphs import launch_counts
@@ -413,7 +685,8 @@ def main(argv) -> int:
 
     # a worker told "cuda" on a machine without a card exits here, before
     # its hello: it never runs on the CPU on its own
-    if resolve_device(spec.get("device", "cuda")).type == "cpu":
+    device = resolve_device(spec.get("device", "cuda"))
+    if device.type == "cpu":
         torch.set_num_threads(1)
     tcfg = spec.get("trace")
     if tcfg:
@@ -461,17 +734,29 @@ def main(argv) -> int:
         hello["statusz_port"] = statusz_srv.port
     peer.send_json(hello)
 
+    t0 = time.perf_counter()
+    if group_size > 1:
+        holder["phase"] = "joining"
+        device = join_group(device, group_size, group_rank,
+                            int(os.environ["PROGEN_TPU_TP_GROUP_PORT"]))
+        print(f"worker {role}:{index} joined its group as rank {group_rank} of "
+              f"{group_size} ({torch.distributed.get_backend()})", flush=True)
     print(f"worker {role}:{index} building engine", flush=True)
     holder["phase"] = "building"
-    t0 = time.perf_counter()
-    eng = build_engine_from_spec(spec, remote_prefill=(role == "decode"))
+    eng = build_engine_from_spec(
+        spec, remote_prefill=(role == "decode" or role.startswith("dshard")),
+        group_size=group_size)
     eng.generation = generation
     warm = {}
     if spec.get("aot_warmup"):
-        # warm-before-ready: every capture lands before the worker is sent
-        # traffic
+        # warm-before-routable: the ready frame is what makes a scaled-up
+        # worker placeable, so every capture lands before it
         holder["phase"] = "warming"
         warm = eng.aot_warmup(max_prime=spec.get("warmup_max_prime"))
+    if group_size > 1:
+        # group barrier before ANY member reports ready: the leader's ready
+        # frame means the whole replica can run its collectives
+        _group_all_ok(True)
     build_s = time.perf_counter() - t0
     print(f"worker {role}:{index} engine ready in {build_s:.1f}s", flush=True)
     holder["eng"] = eng
@@ -492,6 +777,9 @@ def main(argv) -> int:
         _prefill_loop(eng, peer, inbox, counters,
                       heartbeat_s=hb, window=window,
                       incarnation=incarnation, generation=generation)
+    elif group_size > 1:
+        _group_decode_loop(eng, peer, inbox, counters, heartbeat_s=hb,
+                           group_rank=group_rank, group_size=group_size)
     else:
         _decode_loop(eng, peer, inbox, counters, heartbeat_s=hb)
     if tcfg and tcfg.get("dir"):
@@ -504,6 +792,8 @@ def main(argv) -> int:
     print(json.dumps({
         "worker_exit": f"{role}:{index}",
         "device": str(eng.device),
+        **({"group_rank": group_rank, "group_size": group_size}
+           if group_size > 1 else {}),
         "launches": kernel_launches(served_from),
         "peak_bytes": torch.cuda.max_memory_allocated(eng.device) if on_card else None,
         "build_s": build_s,
@@ -514,6 +804,8 @@ def main(argv) -> int:
     if statusz_srv is not None:
         statusz_srv.stop()
     peer.close()
+    if group_size > 1:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -1,12 +1,13 @@
-"""The ranks of one CPU ``gloo`` world for ``tests/test_torch_parallel.py``
-and ``tests/test_torch_decode_mesh.py``.
+"""The ranks of one CPU ``gloo`` world for ``tests/test_torch_parallel.py``,
+``tests/test_torch_decode_mesh.py`` and ``tests/test_torch_serve_groups.py``.
 
     python tests/_torch_parallel_worker.py JOB.npz OUT.npz WORLD STORE [KIND]
 
 starts WORLD ranks with ``torch.multiprocessing``, their process group at
 ``file://STORE``, and runs every case of the job of KIND.  A ``decode``
 job (:func:`decode_job`) runs the meshed sampler, decode step, engine and
-Trainer sample hook.  A ``train`` job (the default) runs on the meshes
+Trainer sample hook; a ``slabs`` job (:func:`slabs_job`) reads a replica
+group's slab frames.  A ``train`` job (the default) runs on the meshes
 (1,1,1,4), (2,1,1,2), (1,4,1,1), (4,1,1,1), (1,2,1,2), (1,1,4,1), (1,2,2,1)
 and (1,1,2,2): the sequence-parallel attention (forward, its gradients
 through the halo, partial windows refused) and SGU mix, the sharded SGU's
@@ -404,7 +405,48 @@ def decode_job(job, out) -> None:
     trainer_case(job, out)
 
 
-JOBS = {"train": train_job, "decode": decode_job}
+def slabs_job(job, out) -> None:
+    """A replica group's slab frames: each rank of a ``tensor`` = WORLD mesh
+    reads its shard's slab of every frame of the job
+    (``deserialize_handle_sharded``, with the group's vote); every rank's
+    leaves are gathered to rank 0 as ``MODE/FRAME/RANK/PATH``.  Then the
+    last rank alone gets a corrupt slab: ``corrupt/RANK`` records that the
+    vote made every rank raise ``FrameCorrupt``."""
+    from progen_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from progen_tpu_torch.decode.handoff import (
+        FrameCorrupt,
+        _flatten_state,
+        deserialize_handle_sharded,
+    )
+    from progen_tpu_torch.serve.worker import _group_all_ok
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh(MeshConfig(1, 1, world, 1))
+    frames = sorted({k.rsplit("/", 1)[0] for k in job if k.startswith("slab/")})
+    for name in frames:
+        h = deserialize_handle_sharded(bytes(job[f"{name}/{rank}"]), mesh,
+                                       vote=_group_all_ok)
+        mine = {p: t.numpy() for p, t in _flatten_state(h.state)}
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        for r, leaves in enumerate(every):
+            for p, a in leaves.items():
+                out[f"{name[len('slab/'):]}/{r}/{p}"] = a
+    slab = bytearray(job[f"{frames[0]}/{rank}"])
+    if rank == world - 1:
+        slab[-1] ^= 0xFF  # the payload's last byte: its CRC fails
+    try:
+        deserialize_handle_sharded(bytes(slab), mesh, vote=_group_all_ok)
+        raised = False
+    except FrameCorrupt:
+        raised = True
+    every = [None] * world
+    dist.all_gather_object(every, raised)
+    for r, flag in enumerate(every):
+        out[f"corrupt/{r}"] = np.array(flag)
+
+
+JOBS = {"train": train_job, "decode": decode_job, "slabs": slabs_job}
 
 
 def rank_main(rank: int, job_path: str, out_path: str, world: int, store: str,

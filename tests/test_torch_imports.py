@@ -6,8 +6,11 @@ TensorFlow, ``google_crc32c``, safetensors, click or the JAX package, and
 the port's sampling, serving and training CLIs run on the CPU when asked
 to.  The fleet's framework-neutral copies (``observe/transport.py``,
 ``observe/slo.py``, ``resilience/supervise.py``, ``serve/transport.py``,
-``serve/router.py``) are pinned to their originals on scripted runs, and
-what the fleet does not port yet is refused by name."""
+``serve/router.py``, ``serve/policy.py``) are pinned to their originals
+on scripted runs; the fleet's elastic verbs keep the JAX cluster's
+bookkeeping, a replica group checks the model's tensor dims, and the
+sampling CLI's elastic flags parse to the JAX CLI's policy bounds and
+drive a fleet on the CPU."""
 
 import ast
 import json
@@ -66,7 +69,8 @@ def test_scan_sees_the_whole_port():
                 "convert_checkpoint.py", "train/memory.py", "parallel/tensor.py",
                 "parallel/decode.py", "serve/__init__.py", "serve/transport.py",
                 "serve/router.py", "serve/worker.py", "serve/cluster.py",
-                "observe/transport.py", "observe/slo.py", "resilience/supervise.py"):
+                "observe/transport.py", "observe/slo.py", "resilience/supervise.py",
+                "serve/policy.py", "serve/control.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
@@ -400,44 +404,215 @@ def test_copied_slo_behaves_as_the_original():
     assert _slo_script(mod, metrics) == _slo_script(jax_mod, jax_metrics)
 
 
-# --------------------------------------------- what the fleet refuses, by name
+def _policy_script(mod):
+    pol = mod.BurnRatePolicy(min_prefill=1, max_prefill=3, min_replicas=1,
+                             max_replicas=2, cooldown_s=2.0)
+    out = [pol.config()]
+    for t in range(12):
+        inputs = mod.PolicyInputs(
+            now=float(t), prefill_workers=1 + t % 3, decode_replicas=1 + t % 2,
+            burn_rates={"p95": [0.1, 3.0, 1.0, float("inf")][t % 4]},
+            prefill_queue={0: t % 5}, replica_outstanding={0: 9 - t}, queued_uids=t % 2)
+        out.append([(d.action, d.role, d.cause, d.observed, d.threshold)
+                    for d in pol.decide(inputs)])
+    return out
 
 
-ROADMAP_ITEM = "ROADMAP.md Queue 1 item 1"
+def test_copied_policy_behaves_as_the_original():
+    from progen_tpu.serve import policy as jax_mod
+    from progen_tpu_torch.serve import policy as mod
+    assert _policy_script(mod) == _policy_script(jax_mod)
 
 
-@pytest.mark.parametrize("name", ["begin_generation", "add_worker", "wait_routable",
+# ------------------------------------------- the fleet's elastic verbs, tp groups
+
+
+def _bare():
+    """A fleet of fake peers (prefill 0 and 1, decode 0) whose spawns are
+    recorded, with a spec file of its own."""
+    import tempfile
+
+    from tests.test_torch_serve_multiproc import _bare_cluster
+
+    c = _bare_cluster(prefill=2, replicas=1)
+    c.spawned = []
+    c._spawn = lambda role, idx, group=None: c.spawned.append((role, idx))
+    c._tmp = tempfile.TemporaryDirectory()
+    c.log_dir = Path(c._tmp.name)
+    c._spec_path = Path(c._tmp.name) / "spec.json"
+    c.spec = {"engine": {"paged": True}}
+    c._spec_path.write_text(json.dumps(c.spec))
+    c._spec_paths = {0: c._spec_path}
+    return c
+
+
+def _request(uid):
+    from progen_tpu_torch.decode.engine import Request
+    return Request(uid=uid, tokens=[1, 2, 3], max_new_tokens=4)
+
+
+def _verb_begin_generation(c):
+    gen = c.begin_generation({"engine": {"paged": True}, "init_seed": 1})
+    assert gen == 1 and c.generation == 1
+    assert json.loads(c._spec_paths[1].read_text())["init_seed"] == 1
+    assert c._worker_gen[("prefill", 0)] == 0  # running workers keep theirs
+
+
+def _verb_add_worker(c):
+    idx = c.add_worker("prefill")
+    assert idx == 2 and c.spawned == [("prefill", 2)] and c.prefill_procs == 3
+    assert ("prefill", 2) in c._pending_routable        # not routable yet
+    assert 2 not in c.router.prefill_alive
+    warm = json.loads(c._worker_spec[("prefill", 2)].read_text())
+    assert warm["aot_warmup"] is True and warm["engine"] == {"paged": True}
+    assert c.add_worker("decode") == 1 and c.replicas == 2
+
+
+def _verb_wait_routable(c):
+    from tests.test_torch_serve_multiproc import _FakePeer
+
+    idx = c.add_worker("decode")
+    peer = _FakePeer("decode", idx)
+    c._events.put(("frame", peer, {"type": "ready", "build_s": 1.0}, b""))
+    c.wait_routable("decode", idx, timeout=5.0)
+    assert ("decode", idx) not in c._pending_routable
+    assert idx in c.router.replica_alive and c.router.replica_gen[idx] == 0
+    c.add_worker("prefill")
+    with pytest.raises(RuntimeError, match="not routable"):
+        c.wait_routable("prefill", 2, timeout=0.05)
+
+
+def _verb_fence_worker(c):
+    c.fence_worker("prefill", 0)
+    c.submit(_request(0))
+    c.submit(_request(1))
+    assert c._peers[("prefill", 0)].reqs() == []          # fenced: no new work
+    assert len(c._peers[("prefill", 1)].reqs()) == 2
+
+
+def _verb_retire_worker(c):
+    c.submit(_request(0))                                 # prefill 0 holds uid 0
+    peer = c._peers[("prefill", 0)]
+    c._events.put(("dead", peer, "eof"))                  # its planned exit
+    c.retire_worker("prefill", 0, timeout=5.0)
+    assert {"type": "shutdown"} in peer.sent
+    assert c.prefill_procs == 1 and 0 not in c.router.prefill_alive
+    assert c._retiring == set() and ("prefill", 0) not in c._worker_gen
+    assert [m["req"]["uid"] for m in c._peers[("prefill", 1)].reqs()] == [0]  # replayed
+    assert c.completions == {}                            # zero sheds
+
+
+def _verb_finalize_retire(c):
+    c.submit(_request(0))
+    c.supervisor.request_restart("prefill", 0, "eof")
+    c._retiring.add(("prefill", 0))
+    c._finalize_retire("prefill", 0)
+    assert c.supervisor.stats()["restarts"].get("prefill:0") is None  # forgotten
+    assert c.prefill_procs == 1 and c._retiring == set()
+    assert [m["req"]["uid"] for m in c._peers[("prefill", 1)].reqs()] == [0]
+
+
+def _verb_submit_embed(c):
+    r = _request(5)
+    c.submit_embed(r)
+    sent = [m for p in c._peers.values() for m in p.sent if m.get("type") == "embed_req"]
+    assert r.workload == "embed" and [m["req"]["uid"] for m in sent] == [5]
+
+
+@pytest.mark.parametrize("verb", ["begin_generation", "add_worker", "wait_routable",
                                   "fence_worker", "retire_worker", "_finalize_retire",
                                   "submit_embed"])
-def test_the_fleets_elastic_verbs_are_refused_by_name(name):
-    from progen_tpu_torch.serve.cluster import ServeCluster
-    cluster = ServeCluster.__new__(ServeCluster)  # no processes
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM) as e:
-        getattr(cluster, name)("decode")
-    assert name in str(e.value)
+def test_the_fleets_elastic_verbs_keep_jax_bookkeeping(verb):
+    """Each elastic verb of ``ServeCluster`` does the JAX cluster's
+    bookkeeping on a fleet of fake peers (no process starts)."""
+    c = _bare()
+    try:
+        globals()[f"_verb{verb if verb.startswith('_') else '_' + verb}"](c)
+    finally:
+        c._tmp.cleanup()
 
 
-def test_tensor_parallel_replica_groups_are_refused_by_name(monkeypatch):
+def test_tp_group_checks_the_models_tensor_dims(tmp_path):
+    """``ServeCluster(tp_group=G)`` refuses a ``G`` that does not divide the
+    model's tensor-split dims before any process starts; a member's engine
+    is built only inside its group's process group."""
     from progen_tpu_torch.models import ProGenConfig
     from progen_tpu_torch.serve import worker
     from progen_tpu_torch.serve.cluster import ServeCluster
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
-        ServeCluster({}, tp_group=2)
-    spec = worker.make_spec(ProGenConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
-        worker.build_engine_from_spec(spec, group_size=2)
-    monkeypatch.setenv("PROGEN_TPU_TP_GROUP_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=ROADMAP_ITEM):
-        worker.main(["decode", "0", "1", "spec.json"])
+
+    spec = worker.make_spec(ProGenConfig(num_tokens=32, dim=24, seq_len=24, depth=1,
+                                         window_size=4, global_mlp_depth=1, heads=3,
+                                         dim_head=8, ff_mult=2), device="cpu")
+    with pytest.raises(ValueError, match="tensor axis size 2 does not divide"):
+        ServeCluster(spec, tp_group=2, log_dir=str(tmp_path))
+    assert not list(tmp_path.iterdir())  # nothing spawned
+    with pytest.raises(RuntimeError, match="join it first"):
+        worker.build_engine_from_spec(worker.make_spec(ProGenConfig(), device="cpu"),
+                                      group_size=2)
 
 
-@pytest.mark.parametrize("flag", [["--autoscale"], ["--min_prefill", "1"],
-                                  ["--max_prefill", "3"], ["--min_replicas", "1"],
-                                  ["--max_replicas", "3"], ["--swap_at", "2"]])
-def test_sample_refuses_the_elastic_flags_by_name(flag, capsys):
-    with pytest.raises(SystemExit):
-        sample.main(["--serve", "--serve_procs", *flag, "--device", "cpu"])
-    assert ROADMAP_ITEM in capsys.readouterr().err
+@pytest.mark.parametrize("flag,want", [
+    ([], {}),
+    (["--autoscale"], {}),
+    (["--min_prefill", "2", "--max_prefill", "4"], {"min_prefill": 2, "max_prefill": 4}),
+    (["--max_prefill", "5"], {"max_prefill": 5}),
+    (["--min_replicas", "2", "--max_replicas", "4"], {"min_replicas": 2, "max_replicas": 4}),
+    (["--max_replicas", "6"], {"max_replicas": 6}),
+    (["--swap_at", "3"], {})])
+def test_sample_parses_the_elastic_flags_to_jax_bounds(flag, want):
+    """Each elastic flag parses to the ``BurnRatePolicy`` bounds the JAX CLI
+    builds (``sample.py:320-324``: floors default to the starting fleet,
+    ceilings to two above it), or to ``swap_at``."""
+    from progen_tpu.serve.policy import BurnRatePolicy as JaxPolicy
+
+    args = sample.parse_args(["--serve", "--serve_procs", "--prefill_procs", "2",
+                              "--replicas", "1", *flag, "--device", "cpu"])
+    jax_kw = dict(min_prefill=2, max_prefill=4, min_replicas=1, max_replicas=3)
+    jax_kw.update(want)
+    assert sample.fleet_policy(args).config() == JaxPolicy(**jax_kw).config()
+    assert args.autoscale == ("--autoscale" in flag)
+    assert args.swap_at == (3 if "--swap_at" in flag else None)
+
+
+def test_the_elastic_flags_need_the_fleet(capsys):
+    for flag in (["--autoscale"], ["--swap_at", "2"], ["--max_replicas", "3"]):
+        with pytest.raises(SystemExit):
+            sample.main(["--serve", *flag, "--device", "cpu"])
+        assert "add --serve --serve_procs" in capsys.readouterr().err
+
+
+def test_sample_fleet_swaps_weights_and_autoscales(capsys):
+    """``--serve --serve_procs --autoscale --swap_at 1``: the fleet rolls to
+    generation 1 after the first completion, prints each control decision
+    as a JSON line, and answers with the in-process engine's tokens (the
+    new generation is the same weights); the later requests carry
+    generation 1."""
+    argv = SERVE + ["--paged", "--page_size", "4", "--device", "cpu"]
+    strip = lambda rows: [{k: v for k, v in r.items()
+                           if k not in ("latency_s", "generation")} for r in rows]
+    local = sample.main(argv + ["--disagg"])
+    capsys.readouterr()
+    fleet = sample.main(argv + ["--serve_procs", "--autoscale", "--swap_at", "1"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    events = [line["control"]["event"] for line in lines if "control" in line]
+    assert events.index("swap_begin") < events.index("swap_done")
+    assert set(events) <= {"swap_begin", "swap_roll", "swap_done", "scale_up", "scale_down"}
+    assert strip(fleet) == strip(local) and all(r["status"] == "ok" for r in fleet)
+    assert {r["generation"] for r in fleet} <= {0, 1} and fleet[0]["generation"] == 0
+
+
+def test_sample_embeds_through_the_fleet(capsys):
+    """``--serve --serve_procs --embed``: the prefill workers answer each
+    prime's embedding (``ServeCluster.submit_embed``), equal to the
+    in-process engine's."""
+    argv = SERVE + ["--embed", "--device", "cpu"]
+    local = sample.main(argv)
+    fleet = sample.main(argv + ["--serve_procs"])
+    capsys.readouterr()
+    assert [r["uid"] for r in fleet] == [0, 1, 2] and all(r["status"] == "ok" for r in fleet)
+    for a, b in zip(fleet, local):
+        assert torch.allclose(torch.tensor(a["embedding"]), torch.tensor(b["embedding"]),
+                              rtol=1e-5, atol=1e-6)
 
 
 def test_a_cuda_worker_without_a_card_exits_nonzero(tmp_path):

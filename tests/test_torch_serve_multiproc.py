@@ -236,6 +236,12 @@ def _bare_cluster(prefill=1, replicas=1, max_restarts=0):
     c._stats_age, c._clock_offsets = {}, {}
     c._ttft, c._cache_counts = {}, {}
     c.generation = 0
+    c._worker_gen = {("prefill", i): 0 for i in range(prefill)}
+    c._worker_gen.update({("decode", i): 0 for i in range(replicas)})
+    c._worker_spec = {}
+    c._retiring, c._pending_routable = set(), set()
+    c._next_idx = {"prefill": prefill, "decode": replicas}
+    c._spec_paths = {}
     c._statusz_providers = {}
     c._tracer = _trace.get_tracer()
     c._lat = _metrics.get_registry().histogram("cluster.latency_s")
