@@ -25,8 +25,9 @@ non-zero without its last line:
    run twice for the same bits and held to the route it must take; K2-dgate
    and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each run twice
    for the same bits;
-4. serving path: ProGen-small (weights drawn from a seed, bf16 compute)
-   serves four primes through the chunked sampler (one parallel prefill
+4. serving path: ProGen-small at its full width and SERVE_DEPTH (3) of
+   its 12 layers, the served model of phases 4-20 (weights drawn from a
+   seed, bf16 compute), serves four primes through the chunked sampler (one parallel prefill
    through the kernels, then cached decode steps); the kernels' launch
    counts over that run (every K1-fwd and K2-fwd launch on the Hopper
    route), prefill logits through the kernels against the
@@ -47,12 +48,13 @@ non-zero without its last line:
    pool), every case held to its route (the bulk kernel at the engine's
    shapes) and run twice for the same bits; timed warm and with L2 cold,
    beside the first kernel (the simt route) at the same shape;
-7. engine path: ProGen-small (bf16) answers 12 requests through the
+7. engine path: the served ProGen-small (bf16) answers 12 requests through the
    continuous-batching ``ServingEngine`` with 8 slots, dense, paged and
    paged with 8-bit pages, then paged again with a pool small enough to
    force pauses and evictions; each run's launch counts (K3 or K3-q8 twice
-   per decode step, all on the bulk route, K1-fwd/K2-fwd 12/2 per admit
-   program, on the Hopper route in bf16 and the first kernels in f32), pages returned,
+   per decode step, all on the bulk route, K1-fwd/K2-fwd 3/2 (the layers
+   and the gMLP layers) per admit program, on the Hopper route in bf16
+   and the first kernels in f32), pages returned,
    prefix-cache hits, tokens/s and peak memory; 32 teacher-forced paged
    steps through K3 and K3-q8 against the same steps through the plain
    version; and, in f32 and greedy, the paged engine's tokens against the
@@ -83,7 +85,7 @@ non-zero without its last line:
    the batch was queued when the loop took it); and the reader's time to
    its first batch after resume skips up to 200,000 records.  It runs in a
    temporary directory it deletes;
-9. served workloads: ProGen-small (bf16) with a LoRA bank of 4 tenants at
+9. served workloads: the served ProGen-small (bf16) with a LoRA bank of 4 tenants at
    rank 8 (random from the seed) serves one mixed queue through the paged
    engine (8 slots, chunk 32, page 16): 4 generate requests on tenant 0, 3
    LoRA requests on tenants 1-3, 2 infill requests under a scaffold (a
@@ -97,7 +99,7 @@ non-zero without its last line:
    versions' within 0.05 of each row's largest value, and each row's pooled
    final hidden states no farther from the f32 model's than the plain
    versions' are, within half again (RMS and max); launches per program
-   (K1-fwd/K2-fwd 12/2 per admit and per embed program, K3 twice per
+   (K1-fwd/K2-fwd 3/2 per admit and per embed program, K3 twice per
    decode step, all on the Hopper routes); tokens/s and median latency per
    workload, ``embed_s``, embed ms per bucket, the decode step's launches
    and device time (``torch.profiler``) and wall with and without the bank,
@@ -221,8 +223,8 @@ non-zero without its last line:
    per-step meshed run (logged losses and grad norms, every parameter),
    the captured ``fsdp`` step traced against its eager step, and K1 with a
    halo captured alone and replayed with new data, bit-equal;
-17. decode under a mesh (``decode_mesh``, after phase 16): ProGen-small at
-   full width and depth on world-1 NCCL meshes under ``(fsdp, tp)`` and
+17. decode under a mesh (``decode_mesh``, after phase 16): the served
+   ProGen-small (full width, 3 layers) on world-1 NCCL meshes under ``(fsdp, tp)`` and
    ``(dp, tp, sp)``.  In bf16 compute: the prefill's logits against the
    unmeshed model's (0.1; f32 1e-3), a decode step on the unmeshed
    prefill's caches bit-equal to the unmeshed step; the sampler on phase
@@ -239,15 +241,16 @@ non-zero without its last line:
    ulp from the plain launch and random weights' near-tied logits turn
    that into other tokens.  In f32 (the halo entry gives the plain
    launch's logits) the prefill's logits are held at 1e-3.  Two ranks on
-   the one card meeting over gloo (``(1, 1, 2, 1)`` under ``tp``, f32, 6
+   the one card meeting over gloo (``(1, 1, 2, 1)`` under ``tp``, f32, 3
    layers: the sampler on the first prime to 64, a paged and an 8-bit
    engine on two requests, at a rank's real widths, both ranks' tokens equal, at least
-   0.98 of the unmeshed tokens); K1 with the zero halo (B 4, H 4), K2-fwd
+   0.98 of the unmeshed tokens; spawned at the phase's start, they run
+   beside the meshed runs of this process); K1 with the zero halo (B 4, H 4), K2-fwd
    on 1024 channels, K3 and K3-q8 at d 1024 against their plain versions
    and timed in bf16, rows of the ``kernels`` line with the two f32 ranks'
    launches (``launches_of`` says so);
-18. the multi-process fleet (``serve_fleet``, after phase 12): ProGen-small
-   at full width and depth (the seeded init), one prefill worker and one
+18. the multi-process fleet (``serve_fleet``, after phase 12): the served
+   ProGen-small (full width, 3 layers; the seeded init), one prefill worker and one
    decode replica of ``serve/``, each its own process on ``cuda:0``,
    answer phase 7's first requests cut to 64 new tokens (paged, 8 slots,
    chunk 32, page 16, the ``engine_disagg_paged`` prefill batch and
@@ -257,7 +260,7 @@ non-zero without its last line:
    bf16 compute with int8 weights and 8-bit pages, both workers warmed by
    ``aot_warmup``, on 6, at least 0.98 of them
    (the identical share printed).  Each worker's kernels come from its
-   exit line: K1-fwd 12 and K2-fwd 2 a handle in the prefill worker only
+   exit line: K1-fwd 3 and K2-fwd 2 a handle in the prefill worker only
    (f32 on ``wmma``/``fma``, bf16 on ``wgmma``), K3 or K3-q8 twice a
    decode step on ``bulk`` in the replica only; no CRC failure or desync,
    no prefill in the replica; worker start-up, tokens/s, median time to
@@ -279,11 +282,11 @@ non-zero without its last line:
    launches, phase 18's bf16 runs included, by phase 18's formula;
    printed: the swap's seconds (new replica routable, prefill rolled, old
    retired), sheds, replays, ``controlz`` entries, peak memory per process;
-20. a tensor-parallel replica group (``serve_tp_group``): ProGen-small at
-   full width and 6 of its 12 layers (the seeded init), f32, eager, paged,
+20. a tensor-parallel replica group (``serve_tp_group``): the served
+   ProGen-small (full width, 3 layers; the seeded init), f32, eager, paged,
    8 slots, chunk 32, page 16, one prefill worker and one decode replica
    made of two processes on ``cuda:0`` meeting over gloo, each with its
-   half of the heads and gate channels; phase 7's first 8 requests cut to
+   half of the heads and gate channels; phase 7's first 4 requests cut to
    32 new tokens.  Held: at least 0.98 of the in-process disaggregated
    engine's tokens (identical share printed), every slab frame the
    replicated leaves plus half the split ones, no CRC failure, desync or
@@ -291,6 +294,12 @@ non-zero without its last line:
    worker's K1-fwd and K2-fwd per handle and each member's K3 twice a
    decode step on ``bulk`` at d 1024; printed: start-up, tokens/s, median
    time to first token, ``de_s`` a slab, peak memory per process;
+21. the port's static analyzer (``analysis``): ``python -m
+   progen_tpu_torch.analysis progen_tpu_torch chip_smoke.py`` in a
+   subprocess on the card's host, which has no JAX, started before the
+   build so that it runs beside it and the phases after it.  Held: exit
+   code 0 and zero findings with the empty baseline; printed: the rule
+   count, the finding count and the analyzer's seconds;
 15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
@@ -319,8 +328,15 @@ phase 19 instead of shut down and started again, the speculative runs of
 phases 7 and 13 cut to 32 new tokens (64 before), phase 17's samplers to
 64 (256 before), phase 9's LoRA decode step timed in two runs in turns (four
 before), phase 20 at 6 layers; phases 19 and 20 run their in-process
-references while their workers start.
-The whole takes fifteen to twenty minutes on an H100 (by the host's
+references while their workers start; and one made with phase 21, after a
+run of the whole passed 1200 s on a host slower than the one that timed it
+at 954 s: the served model of phases 4, 7, 9, 13 and 17-20 at 3 of
+ProGen-small's 12 layers (``SERVE_DEPTH``; 12 before, 6 in phase 17's two
+ranks and phase 20), the width unchanged, since the eager engine's steps
+are bound by the host's launches, a number per layer; phase 17's two ranks
+run beside its meshed runs (after them before); phase 20 on phase 7's
+first 4 requests (8 before).
+The whole takes ten to sixteen minutes on an H100 (by the host's
 pace), the build included.
 ``engine_workloads_alone()`` runs phases 9 and 10 on their own,
 ``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
@@ -336,6 +352,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import ctypes
@@ -349,6 +366,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -509,6 +527,11 @@ LORA_TRAIN_LR = 1e-3
 TOL_EMBED = 0.05
 TOL_LORA_SERVE = 1e-5
 SEED = 0
+# The served ProGen-small's layers (of 12): phases 4, 7, 9, 13 and 17-20
+# serve this cut of the model at its full width (12 layers before phase 21's
+# cuts, 6 in phase 17's two ranks and phase 20 before them)
+SERVE_DEPTH = 3
+SERVED = dataclasses.replace(SMALL, depth=SERVE_DEPTH)
 PRIME_LENGTHS = (37, 200, 300, 511)
 SAMPLES_PER_PRIME = 2
 AMINO = "ACDEFGHIKLMNPQRSTVWY"
@@ -2096,8 +2119,8 @@ def engine_modes_alone() -> dict:
     (the build, the model, the plain dense, paged and 8-bit runs), on their
     own: ``python3 -c "import chip_smoke as cs; cs.engine_modes_alone()"``."""
     kernels.build()
-    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
-    requests = engine_requests(SMALL)
+    model = ProGen(SERVED, make_policy(True), device="cuda", seed=SEED).eval()
+    requests = engine_requests(SERVED)
     dense, _, _ = run_engine("engine_dense", model, requests)
     paged, _, _ = run_engine("engine_paged", model, requests, paged=True)
     q8, _, _ = run_engine("engine_paged_q8", model, requests, paged=True,
@@ -2637,8 +2660,8 @@ def engine_workloads_alone() -> dict:
     need (the build, the bf16 and f32 models), on their own:
     ``python3 -c "import chip_smoke as cs; cs.engine_workloads_alone()"``."""
     kernels.build()
-    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
-    reference = ProGen(SMALL, make_policy(False), device="cuda", seed=SEED).eval()
+    model = ProGen(SERVED, make_policy(True), device="cuda", seed=SEED).eval()
+    reference = ProGen(SERVED, make_policy(False), device="cuda", seed=SEED).eval()
     out = engine_workloads(model, reference)
     del model, reference
     gc.collect()
@@ -3320,17 +3343,17 @@ def engine_graphs_alone() -> dict:
     """The engine_graphs phase with the eager runs it compares against, on
     its own: ``python3 -c "import chip_smoke as cs; cs.engine_graphs_alone()"``."""
     kernels.build()
-    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
-    requests = engine_requests(SMALL)
-    draft = ProGen(draft_config_for(SMALL), make_policy(True), device="cuda", seed=SEED).eval()
+    model = ProGen(SERVED, make_policy(True), device="cuda", seed=SEED).eval()
+    requests = engine_requests(SERVED)
+    draft = ProGen(draft_config_for(SERVED), make_policy(True), device="cuda", seed=SEED).eval()
     eager = {}
     for mode, (phase, kwargs) in GRAPH_MODES.items():
         kwargs = {**kwargs, "draft_params": draft} if kwargs.get("spec") else kwargs
         eager[phase], _, engine = run_engine(phase, model, requests, **kwargs)
         engine.close()
     del draft, engine
-    bank = random_lora_bank(SMALL, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
-    got, fields, _, engine = run_workloads("engine_workloads", model, workload_queue(SMALL),
+    bank = random_lora_bank(SERVED, LORA_TENANTS, LORA_RANK, seed=SEED, device="cuda")
+    got, fields, _, engine = run_workloads("engine_workloads", model, workload_queue(SERVED),
                                            bank, True)
     engine.close()
     del engine, bank
@@ -4510,14 +4533,14 @@ TWO_RANK_SECONDS = 300  # the two gloo ranks' budget, their start included
 TWO_RANK_LENGTH = 64    # the two ranks' sampler: the first prime to this length (128 before phase 18)
 DECODE_MESH_LENGTH = 64  # the meshed samplers' length (the first prime; 256 before phase 19, 512 before phase 18, 1024 in phase 4)
 DECODE_MESH_NEW_TOKENS = 32  # the meshed engines' cap on phase 7's requests (64-192 there; 64 before phase 18)
-TWO_RANK_DEPTH = 6  # the two ranks' ProGen-small layers (12 before phase 18)
+TWO_RANK_DEPTH = SERVE_DEPTH  # the two ranks' ProGen-small layers (6 before phase 21, 12 before phase 18)
 
 
 def mesh_model(dtype_bf16: bool, strategies):
     """ProGen-small (seed SEED) placed on a world-1 NCCL mesh under
     ``strategies``; returns the model, its mesh and its plan."""
     mesh = make_mesh(MeshConfig(1, 1, 1, 1), "cuda")
-    model = ProGen(SMALL, make_policy(dtype_bf16), device="cuda", seed=SEED).eval()
+    model = ProGen(SERVED, make_policy(dtype_bf16), device="cuda", seed=SEED).eval()
     plan = parallelize(model, mesh, strategies)
     return model, mesh, plan
 
@@ -4576,7 +4599,7 @@ def mesh_prefill_vs_unmeshed(bf16: bool) -> dict:
     against the unmeshed model's (both through the kernels; K1 through its
     halo entry on the mesh), at the longest prime's padded length, at the
     whole-model bars (f32 1e-3, bf16 0.1)."""
-    c = SMALL
+    c = SERVED
     rng = np.random.default_rng(SEED + 40)
     p = PRIME_LENGTHS[-1] + 1
     p_pad = pad_prime_length(p, c.window_size, c.seq_len)
@@ -4758,24 +4781,35 @@ def _two_rank_worker(rank: int, store: str, prime: str, length: int, bf16: bool,
         queue.put((rank, {"error": f"{type(e).__name__}: {e}"[-2000:]}))
 
 
-def two_rank_decode(prime: str, want: torch.Tensor, length: int, bf16: bool) -> dict:
-    """Two processes on the one card, each a rank of a ``(1, 1, 2, 1)``
-    mesh under ``tp`` meeting over gloo (its collectives on CUDA tensors):
-    the sampler at a tensor rank's real shapes end to end, eager.  Both
-    ranks' tokens equal, at least ENGINE_TOKEN_MATCH of ``want`` (the
-    unmeshed sampler's on the same prime and noise), every K1-fwd launch
-    through the halo entry and every K1/K2-fwd launch on ``wgmma``."""
+def start_two_ranks(prime: str, length: int, bf16: bool) -> dict:
+    """Spawn the two ranks of :func:`two_rank_decode`; they run while this
+    process goes on, and :func:`two_rank_decode` collects them."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     store = tempfile.mktemp(prefix="progen-smoke-gloo-")
+    # daemons: a failure of this process's phase ends them with it
     procs = [ctx.Process(target=_two_rank_worker,
-                         args=(r, store, prime, length, bf16, queue))
+                         args=(r, store, prime, length, bf16, queue), daemon=True)
              for r in range(RANK_TENSOR)]
     for p in procs:
         p.start()
-    got, deadline = {}, time.monotonic() + TWO_RANK_SECONDS
+    return {"procs": procs, "queue": queue, "length": length, "bf16": bf16,
+            "t0": time.perf_counter(), "deadline": time.monotonic() + TWO_RANK_SECONDS}
+
+
+def two_rank_decode(started: dict, want: torch.Tensor) -> dict:
+    """Two processes on the one card, each a rank of a ``(1, 1, 2, 1)``
+    mesh under ``tp`` meeting over gloo (its collectives on CUDA tensors),
+    spawned by :func:`start_two_ranks`: the sampler at a tensor rank's real
+    shapes end to end, eager.  Both ranks' tokens equal, at least
+    ENGINE_TOKEN_MATCH of ``want`` (the unmeshed sampler's on the same
+    prime and noise), every K1-fwd launch through the halo entry and every
+    K1/K2-fwd launch on ``wgmma``."""
+    procs, queue, deadline = started["procs"], started["queue"], started["deadline"]
+    length, bf16 = started["length"], started["bf16"]
+    got = {}
     try:
         while len(got) < len(procs) and time.monotonic() < deadline:
             with contextlib.suppress(queue_module.Empty):
@@ -4794,6 +4828,7 @@ def two_rank_decode(prime: str, want: torch.Tensor, length: int, bf16: bool) -> 
             f"{errors or sorted(got)}")
     tokens = [torch.tensor(got[r].pop("tokens")) for r in range(RANK_TENSOR)]
     result = {**got[0], "ranks": RANK_TENSOR, "backend": "gloo", "length": length,
+              "seconds": time.perf_counter() - started["t0"],
               "dtype": "bf16 compute" if bf16 else "f32",
               "every_rank_equal": all(torch.equal(t, tokens[0]) for t in tokens)
               and all(got[r]["engines"] == got[0]["engines"] for r in got),
@@ -4844,7 +4879,7 @@ def decode_rate(run: dict) -> float:
 
 def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
     """Phase 17 (after ``trainer_mesh``): decode under a world-1 NCCL mesh
-    at ProGen-small's full width and depth under ``(fsdp, tp)`` and ``(dp,
+    at ProGen-small's full width and SERVE_DEPTH layers under ``(fsdp, tp)`` and ``(dp,
     tp, sp)``.  In bf16 compute over f32 params (the serving configuration):
     (a) the prefill's logits against the unmeshed model's (0.1; and in f32,
     1e-3); a decode step on the unmeshed prefill's caches bit-equal to the
@@ -4865,14 +4900,18 @@ def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
     4's sampler and phase 7's engines, ``unmeshed_engine``, else run here)
     is printed, not held.  (d) Two ranks on the one card meeting over gloo
     (:func:`two_rank_decode`), f32, held to the plain unmeshed f32
-    sampler, and (e) the kernels at a tensor rank's shapes
+    sampler; spawned first, they run beside (a)-(c), whose times they
+    share the card and the host with; and (e) the kernels at a tensor rank's shapes
     (:func:`rank_shape_rows`).  The launch counts are set to 0 at the
     start of (b) and summed over (b) and (c)."""
     t_phase = time.perf_counter()
-    c = SMALL
+    c = SERVED
     seconds = {}
     primes = mesh_primes()
     requests = capped(engine_requests(c), DECODE_MESH_NEW_TOKENS)
+    # (d) runs beside (a)-(c): its two processes start here, are collected
+    # after the engines
+    ranks = start_two_ranks(primes[0], TWO_RANK_LENGTH, False)
     t0 = time.perf_counter()
     base = ProGen(c, make_policy(True), device="cuda", seed=SEED).eval()
     if unmeshed_engine is None:
@@ -4898,11 +4937,6 @@ def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
     del base32
     gc.collect()
     seconds["unmeshed"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    two_ranks = two_rank_decode(primes[0], want32[0], TWO_RANK_LENGTH, False)
-    seconds["two_ranks"] = time.perf_counter() - t0
-    emit("decode_mesh_two_ranks", nvidia_smi=smi,
-         **{k: v for k, v in two_ranks.items() if k != "routes"})
     initialize_distributed("cuda")  # a world of one, NCCL
     try:
         t0 = time.perf_counter()
@@ -4997,6 +5031,12 @@ def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+    t0 = time.perf_counter()
+    two_ranks = two_rank_decode(ranks, want32[0])
+    seconds["two_ranks_wait"] = time.perf_counter() - t0
+    seconds["two_ranks"] = two_ranks["seconds"]
+    emit("decode_mesh_two_ranks", nvidia_smi=smi,
+         **{k: v for k, v in two_ranks.items() if k != "routes"})
     del base
     gc.collect()
     t0 = time.perf_counter()
@@ -5068,13 +5108,13 @@ FLEET_TIMEOUT_S = 300.0
 
 
 def fleet_spec(bf16: bool, quantize: str | None, aot: bool) -> dict:
-    """The fleet's worker spec: ProGen-small at full width and depth, the
-    port's seeded init (seed 0), paged with 8 slots, chunk 32, page 16 and
+    """The fleet's worker spec: ProGen-small at full width and SERVE_DEPTH
+    layers, the port's seeded init (seed 0), paged with 8 slots, chunk 32, page 16 and
     the in-process ``engine_disagg_paged`` phase's ``prefill_batch`` (the
     default, 8) and ``handoff_depth`` (2); every worker on ``cuda:0``."""
-    return make_spec(SMALL, mixed_precision=bf16, init_seed=SEED, device="cuda",
+    return make_spec(SERVED, mixed_precision=bf16, init_seed=SEED, device="cuda",
                      engine=dict(num_slots=ENGINE_SLOTS, chunk_size=ENGINE_CHUNK,
-                                 max_len=SMALL.seq_len, paged=True,
+                                 max_len=SERVED.seq_len, paged=True,
                                  page_size=ENGINE_PAGE, quantize=quantize),
                      aot_warmup=aot)
 
@@ -5120,7 +5160,7 @@ def fleet_counts(launches: dict) -> dict:
 
 
 def worker_launch_checks(label: str, exits: dict, workers: dict, bf16: bool,
-                         quantize, depth: int = SMALL.depth) -> tuple[dict, dict]:
+                         quantize, depth: int = SERVED.depth) -> tuple[dict, dict]:
     """Each worker's exit-line launches held to its formula: a prefill
     worker K1-fwd ``depth`` and K2-fwd 2 times a handle it made (f32 on
     ``wmma``/``fma``, bf16 on ``wgmma``), a decode replica (or each member
@@ -5130,7 +5170,7 @@ def worker_launch_checks(label: str, exits: dict, workers: dict, bf16: bool,
     over the workers, and each worker's launches."""
     mix = "paged_gate_mix_q8" if quantize == "weights+pages" else "paged_gate_mix"
     fwd_route = ("wgmma", "wgmma") if bf16 else ("wmma", "fma")
-    gmlp = SMALL.global_mlp_depth
+    gmlp = SERVED.global_mlp_depth
     total = dict.fromkeys(COUNTERS, 0)
     by_route = dict.fromkeys(cuda_paged_gate_mix.route_launches, 0)
     each = {}
@@ -5254,7 +5294,7 @@ def fleet_run(label: str, bf16: bool, quantize, aot: bool, requests: list[dict],
 
 
 def serve_fleet(smi: str, keep: bool = True) -> tuple[dict, dict, dict | None]:
-    """The multi-process fleet at ProGen-small (full width and depth, the
+    """The multi-process fleet at ProGen-small (full width, SERVE_DEPTH layers, the
     seeded init): one prefill worker and one decode replica, both processes
     on ``cuda:0``, answer phase 7's first requests cut to 64 new tokens
     (FLEET_F32_REQUESTS and FLEET_REQUESTS of them).  f32: tokens identical to the in-process disaggregated
@@ -5264,7 +5304,7 @@ def serve_fleet(smi: str, keep: bool = True) -> tuple[dict, dict, dict | None]:
     batch prefills otherwise than the in-process engine, and another batch
     size may change a bf16 product's bits).  Each worker's
     kernels from its exit line: K1-fwd and K2-fwd in the prefill worker
-    only (12 and 2 a program), K3 or K3-q8 in the replica only (2 a decode
+    only (SERVE_DEPTH and 2 a program), K3 or K3-q8 in the replica only (2 a decode
     step, on ``bulk``).  With ``keep`` the bf16 fleet lives on for phase 19
     (returned third), which holds its workers' launches.  Returns the
     phase's fields, the launches of the runs held here, and the kept
@@ -5433,9 +5473,9 @@ def serve_elastic(smi: str, kept: dict) -> tuple[dict, dict]:
 
 
 GROUP_SIZE = 2          # phase 20's decode replica: a group of this many processes
-GROUP_REQUESTS = 8      # phase 7's first requests, cut to GROUP_NEW_TOKENS
+GROUP_REQUESTS = 4      # phase 7's first requests, cut to GROUP_NEW_TOKENS (8 before phase 21)
 GROUP_NEW_TOKENS = 32
-GROUP_DEPTH = 6         # phase 20's ProGen-small layers (of 12; the time needs it)
+GROUP_DEPTH = SERVE_DEPTH  # phase 20's ProGen-small layers (of 12; 6 before phase 21)
 
 
 def serve_tp_group(smi: str) -> tuple[dict, dict]:
@@ -5444,7 +5484,7 @@ def serve_tp_group(smi: str) -> tuple[dict, dict]:
     slots, chunk 32, page 16: one prefill worker and one decode replica
     made of GROUP_SIZE processes on ``cuda:0`` meeting over gloo (NCCL
     refuses two ranks on one card), each holding its half of the heads and
-    gate channels; phase 7's first 8 requests cut to 32 new tokens.  Held:
+    gate channels; phase 7's first 4 requests cut to 32 new tokens.  Held:
     at least 0.98 of the in-process disaggregated engine's tokens on the
     same spec (the identical share printed: the ``tp`` split changes the
     order of sums), every slab frame the replicated leaves plus half the
@@ -5593,6 +5633,57 @@ def serve_tp_group_alone() -> dict:
     return result
 
 
+ANALYSIS = [sys.executable, "-m", "progen_tpu_torch.analysis", "progen_tpu_torch",
+            "chip_smoke.py"]
+ANALYSIS_TIMEOUT_S = 600
+
+
+def start_analysis() -> dict:
+    """Phase 21 begins: the port's static analyzer over the port and this
+    script, in a subprocess from the root of the checkout; a thread waits
+    for it and notes its seconds.  :func:`analysis_phase` collects it."""
+    root = Path(__file__).resolve().parent
+    run = {"t0": time.perf_counter(),
+           "proc": subprocess.Popen(ANALYSIS, cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)}
+
+    def wait():
+        run["out"], run["err"] = run["proc"].communicate()
+        run["seconds"] = time.perf_counter() - run["t0"]
+
+    run["thread"] = threading.Thread(target=wait, daemon=True)
+    run["thread"].start()
+    # a phase that raises first leaves no analyzer running behind the script
+    atexit.register(lambda: run["proc"].poll() is None and run["proc"].kill())
+    return run
+
+
+def analysis_phase(run: dict) -> dict:
+    """Phase 21's result: exit code 0 and no finding, else it raises."""
+    run["thread"].join(timeout=ANALYSIS_TIMEOUT_S)
+    if run["thread"].is_alive():
+        run["proc"].kill()
+        run["thread"].join()
+        raise AssertionError(f"the analyzer ran past {ANALYSIS_TIMEOUT_S} s")
+    rules = subprocess.run([*ANALYSIS[:3], "--list-rules"], cwd=Path(__file__).resolve().parent,
+                           capture_output=True, text=True, check=True).stdout.split()
+    lines = run["out"].strip().splitlines()
+    findings = int(lines[-1].split()[0]) if lines and lines[-1].endswith("finding(s)") else None
+    result = {"command": " ".join(["python", *ANALYSIS[1:]]), "rc": run["proc"].returncode,
+              "rules": len(rules), "findings": findings, "seconds": run["seconds"]}
+    require(result["rc"] == 0 and findings == 0,
+            f"the analyzer failed: {result}\n{run['out'][-4000:]}\n{run['err'][-4000:]}")
+    return result
+
+
+def analysis_alone() -> dict:
+    """Phase 21 on its own, no card needed:
+    ``python3 -c "import chip_smoke as cs; cs.analysis_alone()"``."""
+    result = analysis_phase(start_analysis())
+    emit("analysis", **result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU",
@@ -5608,23 +5699,24 @@ def main() -> int:
          cuda=torch.version.cuda, nvcc=nvcc.stdout.strip().splitlines()[-1],
          python=sys.version.split()[0])
 
+    analyzer = start_analysis()  # on the host's CPU, beside the build and the phases
     t0 = time.perf_counter()
     built = kernels.build()
     emit("build", seconds=time.perf_counter() - t0, per_source=built)
 
     rows = check_kernels() + check_backward_kernels() + check_paged_kernels()
 
-    model = ProGen(SMALL, make_policy(True), device="cuda", seed=SEED).eval()
+    model = ProGen(SERVED, make_policy(True), device="cuda", seed=SEED).eval()
     served = serve(model)
     emit("main_path", config="small", params=sum(p.numel() for p in model.parameters()),
          **{k: v for k, v in served.items() if k != "tokens"})
     emit("prefill_vs_plain", **check_prefill_against_plain(model))
-    reference = ProGen(SMALL, make_policy(False), device="cuda", seed=SEED).eval()
+    reference = ProGen(SERVED, make_policy(False), device="cuda", seed=SEED).eval()
     emit("prefill_vs_plain", **check_prefill_against_plain(reference))
     emit("decode_vs_forward", **check_decode_against_forward(reference))
     emit("bf16_decode_vs_f32", **check_bf16_decode_against_f32(model, reference))
 
-    requests = engine_requests(SMALL)
+    requests = engine_requests(SERVED)
     engine_launches = {}
     runs = {}  # uninterrupted engine runs the lifecycle phase replays against
     dense, engine_launches["engine_dense"], _ = run_engine("engine_dense", model, requests)
@@ -5709,7 +5801,8 @@ def main() -> int:
                    "trainer_superstep": superstep["launches"][row["name"]],
                    "lora_train": lora["launches"][row["name"]],
                    "parallel": parallel["launches"][row["name"]],
-                   "trainer_mesh": mesh["launches"][row["name"]],
+                   # the trainer_mesh phase's result, not a DeviceMesh
+                   "trainer_mesh": mesh["launches"][row["name"]],  # graftcheck: disable=mesh-axis
                    "decode_mesh": decode["launches"][row["name"]],
                    **{phase: counts[row["name"]]
                       for phase, counts in engine_launches.items()}}
@@ -5724,11 +5817,12 @@ def main() -> int:
         counter = row["name"].removesuffix(HALO_ROW_SUFFIX[torch.float32])
         bf16 = counter == row["name"]
         row["launches_by_path"]["trainer_mesh"] = (
-            mesh["launches_by_precision"]["bf16" if bf16 else "f32"][counter])
+            mesh["launches_by_precision"]["bf16" if bf16 else "f32"][counter])  # graftcheck: disable=mesh-axis
         if bf16:  # the meshed decode's prefills: K1 through its halo entry, bf16
             row["launches_by_path"]["decode_mesh"] = decode["launches"][counter]
         row["launches"] = sum(row["launches_by_path"].values())
     rows += halo_kernel_rows + decode["rank_shape_rows"]
+    emit("analysis", **analysis_phase(analyzer))
     print(json.dumps({"kernels": rows}), flush=True)
     emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (
         "step_ms_median", "tokens_per_s", "mfu", "host_batch_ms", "data_wait_ms_median",

@@ -1311,7 +1311,8 @@ class ServingEngine:
             self.robust.failed_faults += 1
         comp = Completion(
             uid=r.uid, prime=np.asarray(r.tokens, np.int32),
-            tokens=np.asarray([] if tokens is None else tokens, np.int32),
+            tokens=np.asarray(  # graftcheck: disable=host-sync
+                [] if tokens is None else tokens, np.int32),
             finish_reason=status, status=status,
             submit_time=r.submit_time, finish_time=time.perf_counter(),
             first_token_time=self._ttft.pop(r.uid, None),
@@ -1672,7 +1673,11 @@ class ServingEngine:
                            for _, r in live_rows)
                 if not self._pool.can_allocate(need):
                     return
-            self._handoff.get()  # the handle peeked above, now committed
+            # peek-then-pop: ``h`` above came from peek() without
+            # consuming; this get() pops that same handle now that
+            # admission is committed — ownership continues in ``h``
+            # graftcheck: disable=resource-leak
+            self._handoff.get()
             if live_rows:
                 self._merge_handle(h, free, live_rows)
             for r in expired:

