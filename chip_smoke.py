@@ -16,15 +16,22 @@ non-zero without its last line:
    the same function; K1-fwd also at the phantom window alone, the main
    path's largest prefill, ProGen-tiny's head, ProGen-base's window, a
    window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
-   route (f32, dim_head 32, a window of 64); K2-fwd in bf16 (the "wgmma"
-   route) at both weight scales, batch 1 and 8, n = 1000, 512 and 100, and
-   in f32; each forward case held to its route and run twice for the same
-   bits; K1-dq and K1-dkv also at the phantom window alone, ProGen-tiny's head,
-   ProGen-base's window, a window of 128 (all on the Hopper "wgmma" route
-   in bf16) and on the WMMA route (f32, dim_head 32, a window of 64), each
+   route (dim_head 32, a window of 64), and in f32 on the 3xTF32 route
+   ("tf32x3": the serving and training shapes, the phantom window, the
+   largest prefill) and the WMMA route (dim_head 32); K2-fwd in bf16 (the
+   "wgmma" route) at both weight scales, batch 1 and 8, n = 1000, 512 and
+   100, and in f32; each forward case held to its route and run twice for
+   the same bits; K1-dq and K1-dkv also at the phantom window alone,
+   ProGen-tiny's head, ProGen-base's window, a window of 128 (all on the
+   Hopper "wgmma" route in bf16) and on the WMMA route (dim_head 32, a
+   window of 64), and in f32 (K1-dkv on "tf32x3", K1-dq on WMMA) at the
+   training shape and the phantom window and on WMMA at dim_head 32, each
    run twice for the same bits and held to the route it must take; K2-dgate
    and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each run twice
-   for the same bits;
+   for the same bits.  Every kernel is timed in bf16 and in f32, each f32
+   row with its bound restated for f32-accurate products (3 x FLOPs / 495
+   TFLOP/s) beside the CUDA cores' 67 TFLOP/s, and the tf32x3 rows beside
+   the WMMA kernel on the same inputs;
 4. serving path: ProGen-small at its full width and SERVE_DEPTH (3) of
    its 12 layers, the served model of phases 4-20 (weights drawn from a
    seed, bf16 compute), serves four primes through the chunked sampler (one parallel prefill
@@ -123,7 +130,8 @@ non-zero without its last line:
    version with the same halo, ``dk_halo``/``dv_halo`` included: bf16 on the
    Hopper route at the training shape (B 8, H 8, L 1024, D 128, window 256)
    and at ProGen-base's window, bf16 on the WMMA route (dim_head 32; a
-   window of 64) and f32 (WMMA) at the training shape, each run twice for
+   window of 64) and f32 (K1-fwd and K1-dkv on "tf32x3", K1-dq on WMMA) at
+   the training shape, each run twice for
    the same bits, held to its route and at K1's bars; at the training shape
    in bf16 and in f32, timed with and without the halo, with their bounds,
    the plain version and SDPA on the ``[halo ‖ own]`` layout; (b) the
@@ -135,7 +143,8 @@ non-zero without its last line:
    (the f32 runs at 6 of its 12 layers since phase 16),
    batch 8, 4 steps: without a mesh in f32 and in bf16 compute, then on a
    mesh of one rank (NCCL, ``-1,1,1,1``) in f32 under ``dp`` and under
-   ``fsdp`` (K1 on the WMMA route) and in bf16 compute under ``fsdp`` (K1
+   ``fsdp`` (K1-fwd and K1-dkv on "tf32x3", K1-dq on WMMA) and in bf16
+   compute under ``fsdp`` (K1
    on the Hopper route): each meshed run's losses against the unmeshed
    run's of its precision (1e-4 relative in f32, 1e-2 in bf16), every
    step's launches (12/12/12 of K1 through the halo entry, 4/2/2 of K2)
@@ -261,7 +270,7 @@ non-zero without its last line:
    ``aot_warmup``, on 6, at least 0.98 of them
    (the identical share printed).  Each worker's kernels come from its
    exit line: K1-fwd 3 and K2-fwd 2 a handle in the prefill worker only
-   (f32 on ``wmma``/``fma``, bf16 on ``wgmma``), K3 or K3-q8 twice a
+   (f32 on ``tf32x3``/``fma``, bf16 on ``wgmma``), K3 or K3-q8 twice a
    decode step on ``bulk`` in the replica only; no CRC failure or desync,
    no prefill in the replica; worker start-up, tokens/s, median time to
    first token, frames, bytes, ``ser_s`` and ``de_s`` a frame, handle
@@ -300,7 +309,9 @@ non-zero without its last line:
    build so that it runs beside it and the phases after it.  Held: exit
    code 0 and zero findings with the empty baseline; printed: the rule
    count, the finding count and the analyzer's seconds;
-15. the ``kernels`` line (the six halo rows included: bf16 and f32), a short
+15. a ``routes_whole_smoke`` line (every launch of the smoke by kernel and
+   route, the checks' included), the ``kernels`` line (bf16 rows and f32
+   rows, ``_f32``, the six halo rows included), a short
    ``trainer_summary`` line; then the card's ``nvidia-smi`` name and power
    limit and, last, ``{"ok": true, "device": {...}}``.
 
@@ -309,7 +320,9 @@ but for three cuts made with phase 14 to keep the whole near 900 s: phase
 12 at half depth, the resumed runs of phase 8 without a sample hook and
 its feed comparison at prefetch depths 0 and 2 once each (0, 2, 0, 2
 before); one made with phase 16: phase 11's f32 Trainer runs at 6
-layers (the K1 WMMA route's f32 step is the phase's time); and five made
+layers (the K1 WMMA route's f32 step was the phase's time; since K1-fwd
+and K1-dkv in f32 took the 3xTF32 route the cut stays, so that its step
+times compare); and five made
 with phase 17: phase 12 at 3 layers and its requests cut to 64 new tokens
 (64-192 before), phase 14's Trainers at 6 layers and its timed runs at 8
 steps, one traced repeat in phases 14 and 16 (three before), and phase
@@ -437,7 +450,12 @@ from progen_tpu_torch.workloads import (
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32: the least time the card can take for f32-accurate products is that of
+# three TF32 products each (3xTF32, as the tf32x3 kernels form them), 495 / 3
+# TFLOP/s; at the CUDA cores' 67 TFLOP/s a kernel on the tensor cores would
+# read over 100% of its roofline.  The CUDA cores' figure is printed beside.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+PEAK_F32_CUDA_CORES = 67e12
 # Tolerances, as atol = rtol.  One kernel: f32 differs from the plain
 # version only in summation order (up to 1024 products per sum).  In bf16
 # the outputs round to bf16 in different places (K1 rounds unnormalised
@@ -612,10 +630,23 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, dtype, peak: float | None = None
+          ) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (PEAK_FLOPS[dtype] if peak is None else peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_fields(nbytes: float, flops: float, dtype) -> dict:
+    """``bound_ms`` and ``bound_by`` of a row; an f32 row also gives the
+    bound at the CUDA cores' 67 TFLOP/s beside the restated one."""
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    fields = {"bound_ms": bound_ms, "bound_by": bound_by}
+    if dtype == torch.float32:
+        cores_ms, cores_by = bound(nbytes, flops, dtype, PEAK_F32_CUDA_CORES)
+        fields.update(bound_basis="f32-accurate products: 3 x FLOPs / 495 TFLOP/s (3xTF32)",
+                      bound_ms_cuda_cores=cores_ms, bound_by_cuda_cores=cores_by)
+    return fields
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
@@ -623,11 +654,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 def attention_case(gen, b, h, n, d, wsz, dtype):
     """K1-fwd against its plain version; the launch must take the route
-    the shape is meant for (the Hopper kernel for bf16, dim_head 64/128 and
-    windows that are multiples of 128) and a second run must give the same
-    bits (no atomics)."""
-    route = ("wgmma" if dtype == torch.bfloat16 and d in (64, 128) and wsz % 128 == 0
-             else "wmma")
+    the shape is meant for (``k1_route``: the Hopper kernels for dim_head
+    64/128 and windows that are multiples of 128, ``wgmma`` in bf16 and
+    ``tf32x3`` in f32) and a second run must give the same bits (no
+    atomics)."""
+    route = k1_route("fwd", dtype, d, wsz)
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
     before = dict(cuda_attention.fwd_route_launches)
@@ -646,7 +677,7 @@ def attention_case(gen, b, h, n, d, wsz, dtype):
               "second_run_same_bits": same}
     emit("kernel_check", kernel="local_attention_fwd", **fields)
     require(res_out["ok"] and res_lse["ok"] and same
-            and routed == {"wgmma": 0, "wmma": 0, route: 1},
+            and routed == {"wgmma": 0, "tf32x3": 0, "wmma": 0, route: 1},
             f"local_attention_fwd disagrees with its plain version: {fields}")
     return (q, k, v), max(res_out["max_abs_err"], res_lse["max_abs_err"])
 
@@ -680,8 +711,10 @@ def sgu_case(gen, b, n, d, weights, dtype):
 
 # K1-fwd's cases (b, h, n, d, wsz): in bf16 the first seven take the Hopper
 # kernel (the "wgmma" route), the last two the WMMA kernel; f32 takes the
-# WMMA kernel at the serving shape, the phantom window and the largest
-# prefill.  The first two are timed (serving and training shapes).
+# 3xTF32 kernel (the "tf32x3" route) at the serving and training shapes,
+# the phantom window and the largest prefill, and the WMMA kernel at
+# ProGen-default's head.  The first two of each are timed (serving and
+# training shapes).
 K1_FWD_CASES = (
     (4, 8, 1024, 128, 256),             # ProGen-small's serving shape
     (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
@@ -693,12 +726,13 @@ K1_FWD_CASES = (
     (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
     (2, 8, 1024, 128, 64),              # a window under 128: WMMA
 )
-K1_FWD_F32_CASES = (K1_FWD_CASES[0], K1_FWD_CASES[2], K1_FWD_CASES[3])
+K1_FWD_F32_CASES = (K1_FWD_CASES[0], K1_FWD_CASES[1], K1_FWD_CASES[2], K1_FWD_CASES[3],
+                    K1_FWD_CASES[7])
 # K2-fwd's cases (b, n, d, weights) at ProGen-small's gMLP width d = 2048
 # unless given: both weight scales, batch 1 and 8, a ragged n (1000), the
 # main path's largest prefill (512), n = 100 under one tile with d = 520
 # (W padded to 16-byte rows on the Hopper route).  The second and third
-# are timed (serving and training shapes).
+# are timed (serving and training shapes), in bf16 and in f32.
 K2_FWD_CASES = (
     (4, 1024, None, "init"),
     (4, 1024, None, "normal"),
@@ -708,12 +742,20 @@ K2_FWD_CASES = (
     (SAMPLES_PER_PRIME, 512, None, "normal"),
     (3, 100, 520, "normal"),
 )
-K2_FWD_F32_CASES = (K2_FWD_CASES[0], K2_FWD_CASES[1], K2_FWD_CASES[4], K2_FWD_CASES[5])
+K2_FWD_F32_CASES = (K2_FWD_CASES[0], K2_FWD_CASES[1], K2_FWD_CASES[2], K2_FWD_CASES[4],
+                    K2_FWD_CASES[5])
+# an f32 row's name: the kernel's counter and this suffix
+F32_SUFFIX = "_f32"
+
+
+def row_name(kernel: str, dtype) -> str:
+    return kernel + (F32_SUFFIX if dtype == torch.float32 else "")
 
 
 def attention_fwd_row(inputs, err, errs) -> dict:
     """CUDA-event times of K1-fwd, its plain version and one SDPA call on
-    the masked ``[prev ‖ own]`` layout, with the bound, on ``inputs``."""
+    the masked ``[prev ‖ own]`` layout, with the bound, on ``inputs``; in
+    f32 also the first (``wmma``) kernel's time on the same inputs."""
     q, k, v = inputs
     b, h, n, d = q.shape
     wsz = SMALL.window_size
@@ -722,32 +764,36 @@ def attention_fwd_row(inputs, err, errs) -> dict:
     kw = concat_previous_window(k.reshape(b, h, w, wsz, d)).reshape(b, h * w, 2 * wsz, d)
     vw = concat_previous_window(v.reshape(b, h, w, wsz, d)).reshape(b, h * w, 2 * wsz, d)
     mask = window_mask(wsz, q.device)
+    route = cuda_attention.fwd_route(q.dtype, d, wsz)
     ms = time_ms(lambda: cuda_attention.local_attention_fwd(q, k, v, wsz))
     plain_ms = time_ms(lambda: local_attention(q, k, v, window_size=wsz,
                                                return_lse=True))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qw, kw, vw, attn_mask=mask, scale=d ** -0.5))
     esize = q.element_size()
-    visible = sum(wsz + (i % wsz) + 1 for i in range(n))  # keys per (b, h)
-    flops = 4.0 * d * visible * b * h
+    flops = 4.0 * d * real_visible(n, wsz) * b * h  # the phantom's keys need none
     nbytes = 4.0 * b * h * n * d * esize + 4.0 * b * h * n
-    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
-    return {
-        "name": "local_attention_fwd", "route": "cuda",
-        "fwd_route": cuda_attention.fwd_route(q.dtype, d, wsz),
+    row = {
+        "name": row_name("local_attention_fwd", q.dtype), "route": "cuda",
+        "fwd_route": route, "kernel_route": route,
         "source": "progen_tpu_torch/kernels/csrc/local_attention_fwd.cu",
         "replaces": "progen_tpu/ops/pallas_attention.py:65",
         "launches": None, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": plain_ms, **bound_fields(nbytes, flops, q.dtype),
         "library_ms": library_ms,
         "timed_shape": [b, h, n, d], "timed_dtype": str(q.dtype),
         "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
     }
+    if route == "tf32x3":
+        row["wmma_route_ms"] = time_ms(
+            lambda: cuda_attention.local_attention_fwd(q, k, v, wsz, route="wmma"))
+    return row
 
 
 def sgu_fwd_row(inputs, err, errs) -> dict:
     """CUDA-event times of K2-fwd, its plain version and the library call
-    ``res * (matmul(tril(W), gate) + b)``, with the bound, on ``inputs``."""
+    ``res * (matmul(tril(W), gate) + b)`` (in f32 with TF32 off), with the
+    bound, on ``inputs``."""
     res, gate, wts, bias = inputs
     b, n, dd = gate.shape
     ms = time_ms(lambda: cuda_sgu.spatial_gate_fwd(res, gate, wts, bias))
@@ -758,14 +804,16 @@ def sgu_fwd_row(inputs, err, errs) -> dict:
     tri = n * (n + 1) / 2
     flops = 2.0 * b * dd * tri + 2.0 * b * n * dd
     nbytes = (3.0 * b * n * dd + tri + n) * esize
-    bound_ms, bound_by = bound(nbytes, flops, gate.dtype)
+    route = cuda_sgu.fwd_route(gate.dtype)
     return {
-        "name": "sgu_fwd", "route": "cuda", "fwd_route": cuda_sgu.fwd_route(gate.dtype),
+        "name": row_name("sgu_fwd", gate.dtype), "route": "cuda", "fwd_route": route,
+        "kernel_route": route,
         "source": "progen_tpu_torch/kernels/csrc/sgu_fwd.cu",
         "replaces": "progen_tpu/ops/pallas_sgu.py:128",
         "launches": None, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "plain_ms": plain_ms, **bound_fields(nbytes, flops, gate.dtype),
         "library_ms": library_ms,
+        "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "timed_shape": [b, n, dd], "timed_dtype": str(gate.dtype),
         "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
     }
@@ -773,32 +821,37 @@ def sgu_fwd_row(inputs, err, errs) -> dict:
 
 def check_kernels() -> list[dict]:
     """K1-fwd and K2-fwd against their plain versions in every case above,
-    each timed at the serving shape (the row of the ``kernels`` line) and
-    at the training shape (under ``at_train_shape``)."""
+    each timed in bf16 and in f32 at the serving shape (the row of the
+    ``kernels`` line) and at the training shape (under
+    ``at_train_shape``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     half = SMALL.dim * SMALL.ff_mult // 2
+    k2 = lambda cases: [(b, n, d or half, w) for b, n, d, w in cases]
     rows = []
-    for case_fn, row_fn, cases, f32_cases, timed in (
-            (attention_case, attention_fwd_row, K1_FWD_CASES, K1_FWD_F32_CASES, (0, 1)),
+    for case_fn, row_fn, per_dtype, timed in (
+            (attention_case, attention_fwd_row,
+             ((torch.bfloat16, K1_FWD_CASES), (torch.float32, K1_FWD_F32_CASES)), (0, 1)),
             (sgu_case, sgu_fwd_row,
-             [(b, n, d or half, w) for b, n, d, w in K2_FWD_CASES],
-             [(b, n, d or half, w) for b, n, d, w in K2_FWD_F32_CASES], (1, 2))):
-        errs, kept = [], {}
-        for dtype, todo in ((torch.bfloat16, cases), (torch.float32, f32_cases)):
-            for i, case in enumerate(todo):
+             ((torch.bfloat16, k2(K2_FWD_CASES)), (torch.float32, k2(K2_FWD_F32_CASES))),
+             (1, 2))):
+        for dtype, cases in per_dtype:
+            errs, kept = [], {}
+            for i, case in enumerate(cases):
                 inputs, err = case_fn(gen, *case, dtype)
                 errs.append(err)
-                if dtype == torch.bfloat16 and i in timed:
+                if i in timed:
                     kept[i] = (inputs, err)
                 else:
                     del inputs
-        serving, training = (row_fn(*kept[i], errs) for i in timed)
-        emit("kernel_time", **serving)
-        emit("kernel_time", **training)
-        serving["at_train_shape"] = {key: training[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
-            "max_abs_err")}
-        rows.append(serving)
+            serving, training = (row_fn(*kept[i], errs) for i in timed)
+            del kept
+            emit("kernel_time", **serving)
+            emit("kernel_time", **training)
+            serving["at_train_shape"] = {key: training[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
+                "max_abs_err", *(k for k in ("bound_ms_cuda_cores", "wmma_route_ms")
+                                 if k in training))}
+            rows.append(serving)
     return rows
 
 
@@ -829,19 +882,22 @@ def real_visible(n: int, wsz: int, halo: bool = False) -> int:
     return sum(min(wsz + i % wsz + 1, i + 1) for i in range(n))
 
 
-def attention_bwd_case(gen, b, h, n, d, wsz, dtype, route):
-    """K1-dq and K1-dkv against the plain backward; ``route`` is the one the
-    shape must take (``cuda_attention.bwd_route``), and a second run must
-    give the same bits (no atomics)."""
+def attention_bwd_case(gen, b, h, n, d, wsz, dtype):
+    """K1-dq and K1-dkv against the plain backward, each on the route the
+    shape must take (``k1_route``), and a second run must give the same
+    bits (no atomics)."""
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
     dd = (do.float() * out.float()).sum(-1)
-    before = dict(cuda_attention.bwd_route_launches)
+    before = {name: read_routes()[name] for name in K1_BWD_ROUTES}
     dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz)
     dk, dv = cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz)
     torch.cuda.synchronize()
-    routed = {r: cuda_attention.bwd_route_launches[r] - before[r] for r in before}
+    after = read_routes()
+    routed = {name: {r: after[name][r] - before[name][r] for r in before[name]}
+              for name in K1_BWD_ROUTES}
+    route = {name: k1_route(kernel, dtype, d, wsz) for name, kernel in K1_BWD_ROUTES.items()}
     want = local_attention_bwd(q, k, v, out, lse, do, wsz)
     res = {name: close_scaled(g, w, dtype)
            for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
@@ -849,11 +905,14 @@ def attention_bwd_case(gen, b, h, n, d, wsz, dtype, route):
              *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz))
     same = all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
     fields = {"shape": [b, h, n, d], "window": wsz, "dtype": str(dtype),
-              "route": cuda_attention.bwd_route(dtype, d, wsz), "want_route": route,
-              "launches_by_route": routed, **res, "second_run_same_bits": same}
+              "route": {"dq": cuda_attention.dq_route(dtype, d, wsz),
+                        "dkv": cuda_attention.dkv_route(dtype, d, wsz)},
+              "want_route": route, "launches_by_route": routed, **res,
+              "second_run_same_bits": same}
     emit("kernel_check", kernel="local_attention_bwd", **fields)
     require(all(r["ok"] for r in res.values()) and same
-            and routed == {"wgmma": 0, "wmma": 0, route: 2},
+            and all(routed[name] == {**dict.fromkeys(routed[name], 0), route[name]: 1}
+                    for name in K1_BWD_ROUTES),
             f"local_attention_bwd disagrees with its plain version: {fields}")
     return (q, k, v, do, out, lse, dd), res
 
@@ -881,7 +940,9 @@ def sgu_bwd_case(gen, b, n, d, dtype):
 
 # K1's backward cases (b, h, n, d, wsz): in bf16 the first five take the
 # Hopper kernels (the "wgmma" route), the last two the WMMA kernels; f32
-# takes the WMMA kernels at the training shape and the phantom window.
+# takes the 3xTF32 kernel for K1-dkv ("tf32x3") and the WMMA kernel for
+# K1-dq at the training shape and the phantom window, and the WMMA kernels
+# at ProGen-default's head.  The first of each is timed.
 K1_BWD_CASES = (
     (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
     (2, 8, 256, 128, 256),              # one window: the phantom window only
@@ -891,102 +952,81 @@ K1_BWD_CASES = (
     (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
     (2, 8, 1024, 128, 64),              # a window under 128: WMMA
 )
-K1_BWD_F32_CASES = K1_BWD_CASES[:2]
+K1_BWD_F32_CASES = (K1_BWD_CASES[0], K1_BWD_CASES[1], K1_BWD_CASES[5])
 
 
-def check_backward_kernels() -> list[dict]:
-    """K1-dq, K1-dkv, K2-dgate and K2-dW against their plain versions, at
-    the training path's shapes, the single-window phantom case and other
-    configs' heads and windows (K1), a ragged n and d (K2), in bf16 and f32;
-    timed in bf16 at the training shapes."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    c = SMALL
-    d, h, wsz, b = c.dim_head, c.heads, c.window_size, TRAIN_BATCH
-    rows = []
-
-    errs = {"dq": [], "dk": [], "dv": []}
-    for dtype, cases in ((torch.bfloat16, K1_BWD_CASES),
-                         (torch.float32, K1_BWD_F32_CASES)):
-        for case in cases:
-            route = ("wgmma" if dtype == torch.bfloat16 and case[4] % 128 == 0
-                     and case[3] in (64, 128) else "wmma")
-            inputs, res = attention_bwd_case(gen, *case, dtype, route)
-            if dtype == torch.bfloat16 and case == K1_BWD_CASES[0]:
-                timed, timed_res = inputs, res
-            for name in errs:
-                errs[name].append(res[name]["max_abs_err"])
-    q, k, v, do, out, lse, dd = timed
-    n = q.shape[2]
-    ms_dq = time_ms(lambda: cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz))
-    ms_dkv = time_ms(lambda: cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz))
+def k1_bwd_rows(inputs, res, errs) -> list[dict]:
+    """CUDA-event times of K1-dq and K1-dkv at one timed case, beside the
+    plain backward and one SDPA backward (dq, dk and dv in one call each),
+    with the bounds; K1-dkv on ``tf32x3`` also on the first (``wmma``)
+    kernel."""
+    q, k, v, do, out, lse, dd = inputs
+    b, h, n, d = q.shape
+    wsz = SMALL.window_size
+    dq_fn = lambda: cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz)
+    dkv_fn = lambda route=None: cuda_attention.local_attention_bwd_dkv(
+        q, k, v, do, lse, dd, wsz, route=route)
     plain_ms = time_ms(lambda: local_attention_bwd(q, k, v, out, lse, do, wsz), iters=5)
     library_ms = sdpa_backward_ms(q, k, v, do, wsz)
     esize = q.element_size()
     pairs = real_visible(n, wsz) * b * h
     vec = b * h * n * d * esize       # one (B, H, L, D) tensor
     rowvec = 4.0 * b * h * n          # one (B, H, L) f32 tensor
-    for name, ms, flops, nbytes, line, grads in (
-            ("local_attention_bwd_dq", ms_dq, 6.0 * d * pairs, 5 * vec + 2 * rowvec,
-             126, ("dq",)),
-            ("local_attention_bwd_dkv", ms_dkv, 8.0 * d * pairs, 6 * vec + 2 * rowvec,
-             152, ("dk", "dv"))):
-        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    rows = []
+    for name, fn, route, flops, nbytes, line, grads in (
+            ("local_attention_bwd_dq", dq_fn, cuda_attention.dq_route(q.dtype, d, wsz),
+             6.0 * d * pairs, 5 * vec + 2 * rowvec, 126, ("dq",)),
+            ("local_attention_bwd_dkv", dkv_fn, cuda_attention.dkv_route(q.dtype, d, wsz),
+             8.0 * d * pairs, 6 * vec + 2 * rowvec, 152, ("dk", "dv"))):
         rows.append({
-            "name": name, "route": "cuda",
-            "bwd_route": cuda_attention.bwd_route(q.dtype, d, wsz),
+            "name": row_name(name, q.dtype), "route": "cuda", "kernel_route": route,
             "source": "progen_tpu_torch/kernels/csrc/local_attention_bwd.cu",
             "replaces": f"progen_tpu/ops/pallas_attention.py:{line}",
             "launches": None,
-            "max_abs_err": max(timed_res[g]["max_abs_err"] for g in grads),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max(res[g]["max_abs_err"] for g in grads),
+            "ms": time_ms(fn), "plain_ms": plain_ms, **bound_fields(nbytes, flops, q.dtype),
             "library_ms": library_ms,
             "plain_and_library_compute": "dq, dk and dv in one call",
             "timed_shape": [b, h, n, d], "timed_dtype": str(q.dtype),
             "bytes": nbytes, "flops": flops,
             "max_abs_err_all_checks": max(e for g in grads for e in errs[g]),
         })
+        if route == "tf32x3":
+            rows[-1]["wmma_route_ms"] = time_ms(lambda: dkv_fn("wmma"))
         emit("kernel_time", **rows[-1])
+    return rows
 
-    half = c.dim * c.ff_mult // 2
-    errs = {"dgate": [], "dw": []}
-    # besides the training shape: batch 1, a ragged n, n = 100 (under one
-    # tile, W padded to 16-byte rows), d = 520 (a ragged channel step)
-    edges = ((1, c.seq_len, half), (b, 1000, half), (3, 100, 520), (2, 1000, 520))
-    for dtype in (torch.bfloat16, torch.float32):
-        inputs, res = sgu_bwd_case(gen, b, c.seq_len, half, dtype)
-        if dtype == torch.bfloat16:
-            timed, timed_res = inputs, res
-        for name in errs:
-            errs[name].append(res[name]["max_abs_err"])
-        for shape in edges:
-            edge = sgu_bwd_case(gen, *shape, dtype)[1]
-            for name in errs:
-                errs[name].append(edge[name]["max_abs_err"])
-    res, gate, dout, w = timed
+
+def sgu_bwd_rows(inputs, res, errs) -> list[dict]:
+    """CUDA-event times of K2-dgate and K2-dW at one timed case, beside
+    their plain versions and one library call each (in f32 with TF32 off),
+    with the bounds."""
+    res_, gate, dout, w = inputs
     b, n, dd_ = gate.shape
     esize = gate.element_size()
     tri = n * (n + 1) / 2
     flops = 2.0 * b * dd_ * tri + 1.0 * b * n * dd_
-    dmix_flat = lambda: (dout * res).transpose(0, 1).reshape(n, b * dd_)
+    dmix_flat = lambda: (dout * res_).transpose(0, 1).reshape(n, b * dd_)
     gate_flat = gate.transpose(0, 1).reshape(n, b * dd_)
+    rows = []
     for name, fn, plain, library, nbytes, line in (
-            ("sgu_bwd_dgate", lambda: cuda_sgu.spatial_gate_dgate(w, dout, res),
-             lambda: spatial_gate_dgate(w, dout, res),
-             lambda: torch.matmul(torch.tril(w).T, dout * res),
+            ("sgu_bwd_dgate", lambda: cuda_sgu.spatial_gate_dgate(w, dout, res_),
+             lambda: spatial_gate_dgate(w, dout, res_),
+             lambda: torch.matmul(torch.tril(w).T, dout * res_),
              (3.0 * b * n * dd_ + tri) * esize, 150),
-            ("sgu_bwd_dw", lambda: cuda_sgu.spatial_gate_dw(dout, res, gate),
-             lambda: spatial_gate_dw(dout, res, gate),
+            ("sgu_bwd_dw", lambda: cuda_sgu.spatial_gate_dw(dout, res_, gate),
+             lambda: spatial_gate_dw(dout, res_, gate),
              lambda: torch.tril(dmix_flat() @ gate_flat.T),
              (3.0 * b * n * dd_ + n * n) * esize, 170)):
         key = name.split("_")[-1]
-        bound_ms, bound_by = bound(nbytes, flops, gate.dtype)
         rows.append({
-            "name": name, "route": "cuda",
+            "name": row_name(name, gate.dtype), "route": "cuda",
             "source": "progen_tpu_torch/kernels/csrc/sgu_bwd.cu",
             "replaces": f"progen_tpu/ops/pallas_sgu.py:{line}",
-            "launches": None, "max_abs_err": timed_res[key]["max_abs_err"],
-            "ms": time_ms(fn), "plain_ms": time_ms(plain), "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": time_ms(library),
+            "launches": None, "max_abs_err": res[key]["max_abs_err"],
+            "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            **bound_fields(nbytes, flops, gate.dtype), "library_ms": time_ms(library),
+            "library_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "timed_shape": [b, n, dd_], "timed_dtype": str(gate.dtype),
             "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs[key]),
         })
@@ -996,6 +1036,46 @@ def check_backward_kernels() -> list[dict]:
             rows[-1].update(splits=splits, sms=sms,
                             workspace_bytes=4 * cuda_sgu.dw_workspace_numel(n, splits))
         emit("kernel_time", **rows[-1])
+    return rows
+
+
+def check_backward_kernels() -> list[dict]:
+    """K1-dq, K1-dkv, K2-dgate and K2-dW against their plain versions, at
+    the training path's shapes, the single-window phantom case and other
+    configs' heads and windows (K1), a ragged n and d (K2), in bf16 and f32;
+    timed in both at the training shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    c = SMALL
+    b = TRAIN_BATCH
+    rows = []
+    for dtype, cases in ((torch.bfloat16, K1_BWD_CASES),
+                         (torch.float32, K1_BWD_F32_CASES)):
+        errs = {"dq": [], "dk": [], "dv": []}
+        for i, case in enumerate(cases):
+            inputs, res = attention_bwd_case(gen, *case, dtype)
+            if i == 0:
+                timed, timed_res = inputs, res
+            del inputs
+            for name in errs:
+                errs[name].append(res[name]["max_abs_err"])
+        rows += k1_bwd_rows(timed, timed_res, errs)
+        del timed
+
+    half = c.dim * c.ff_mult // 2
+    # besides the training shape: batch 1, a ragged n, n = 100 (under one
+    # tile, W padded to 16-byte rows), d = 520 (a ragged channel step)
+    edges = ((1, c.seq_len, half), (b, 1000, half), (3, 100, 520), (2, 1000, 520))
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = {"dgate": [], "dw": []}
+        timed, timed_res = sgu_bwd_case(gen, b, c.seq_len, half, dtype)
+        for name in errs:
+            errs[name].append(timed_res[name]["max_abs_err"])
+        for shape in edges:
+            edge = sgu_bwd_case(gen, *shape, dtype)[1]
+            for name in errs:
+                errs[name].append(edge[name]["max_abs_err"])
+        rows += sgu_bwd_rows(timed, timed_res, errs)
+        del timed
     return rows
 
 
@@ -1050,21 +1130,51 @@ COUNTERS = {
 }
 
 
-# launches by route ("wgmma" and "bulk": the Hopper kernels, "wmma", "fma"
-# and "simt": the first ones)
+# launches by route ("wgmma", "tf32x3" and "bulk": the Hopper kernels,
+# "wmma", "fma" and "simt": the first ones)
 ROUTE_COUNTERS = {
     "local_attention_fwd": (cuda_attention, "fwd_route_launches"),
-    "local_attention_bwd": (cuda_attention, "bwd_route_launches"),
+    "local_attention_bwd_dq": (cuda_attention, "dq_route_launches"),
+    "local_attention_bwd_dkv": (cuda_attention, "dkv_route_launches"),
     "sgu_fwd": (cuda_sgu, "fwd_route_launches"),
     "paged_gate_mix": (cuda_paged_gate_mix, "route_launches"),
 }
+# every launch by route over the whole smoke, the checks' included: each
+# reset folds the counts it drops in here (route_totals())
+ROUTE_TOTALS = {name: {} for name in ROUTE_COUNTERS}
+
+
+def k1_route(kernel: str, dtype, d: int, wsz: int) -> str:
+    """The route a K1 launch must take: dim_head 64 or 128 and a window that
+    is a multiple of 128 take the Hopper kernels (bf16 ``wgmma``; f32
+    ``tf32x3`` for K1-fwd and K1-dkv, K1-dq keeping ``wmma``), the rest
+    ``wmma``.  ``kernel``: ``"fwd"``, ``"dq"`` or ``"dkv"``."""
+    if d not in (64, 128) or wsz % 128 != 0:
+        return "wmma"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "wmma" if kernel == "dq" else "tf32x3"
+
+
+def fold_routes() -> None:
+    for name, (module, attr) in ROUTE_COUNTERS.items():
+        for route, n in getattr(module, attr).items():
+            ROUTE_TOTALS[name][route] = ROUTE_TOTALS[name].get(route, 0) + n
 
 
 def reset_counts() -> None:
+    fold_routes()
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
     for module, attr in ROUTE_COUNTERS.values():
         setattr(module, attr, dict.fromkeys(getattr(module, attr), 0))
+
+
+def route_totals() -> dict[str, dict[str, int]]:
+    """Every launch of the smoke so far by kernel and route."""
+    now = read_routes()
+    return {name: {r: ROUTE_TOTALS[name].get(r, 0) + n for r, n in now[name].items()}
+            for name in ROUTE_COUNTERS}
 
 
 def read_routes() -> dict[str, dict[str, int]]:
@@ -1073,13 +1183,34 @@ def read_routes() -> dict[str, dict[str, int]]:
 
 
 def require_forward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
-    """Every K1-fwd and K2-fwd launch of a run went through the Hopper
-    kernels (``hopper``, bf16 at ProGen-small) or through the first ones."""
-    for name, first in (("local_attention_fwd", "wmma"), ("sgu_fwd", "fma")):
-        route = "wgmma" if hopper else first
+    """Every K1-fwd and K2-fwd launch of a run went through the bf16 Hopper
+    kernels (``hopper``, bf16 at ProGen-small) or through the f32 ones
+    (K1-fwd on ``tf32x3`` at ProGen-small's head and window, K2-fwd on
+    ``fma``)."""
+    for name, f32 in (("local_attention_fwd", "tf32x3"), ("sgu_fwd", "fma")):
+        route = "wgmma" if hopper else f32
         want = {**dict.fromkeys(routes[name], 0), route: launches[name]}
         require(routes[name] == want,
                 f"{what}: {name} launches by route {routes[name]}, want {want}")
+
+
+K1_BWD_ROUTES = {"local_attention_bwd_dq": "dq", "local_attention_bwd_dkv": "dkv"}
+
+
+def require_backward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
+    """Every K1-dq and K1-dkv launch of a run at ProGen-small's head and
+    window went through the route of its precision: bf16 ``wgmma`` for
+    both, f32 ``wmma`` for K1-dq and ``tf32x3`` for K1-dkv."""
+    for name, kernel in K1_BWD_ROUTES.items():
+        route = k1_route(kernel, torch.bfloat16 if hopper else torch.float32,
+                         SMALL.dim_head, SMALL.window_size)
+        want = {**dict.fromkeys(routes[name], 0), route: launches[name]}
+        require(routes[name] == want,
+                f"{what}: {name} launches by route {routes[name]}, want {want}")
+
+
+def k1_bwd_routes(routes: dict) -> dict:
+    return {"dq": routes["local_attention_bwd_dq"], "dkv": routes["local_attention_bwd_dkv"]}
 
 
 def read_counts() -> dict[str, int]:
@@ -1276,7 +1407,6 @@ def train(model) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     all_routes = read_routes()
-    routes = all_routes["local_attention_bwd"]
     peak = torch.cuda.max_memory_allocated()
 
     per_step = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
@@ -1285,8 +1415,7 @@ def train(model) -> dict:
     want = {name: per_step.get(name, 0) * TRAIN_STEPS for name in COUNTERS}
     require(launches == want, f"training launches {launches}, want {want}")
     # every K1 backward launch of the bf16 step on the Hopper kernels
-    want_routes = {"wgmma": 2 * c.depth * TRAIN_STEPS, "wmma": 0}
-    require(routes == want_routes, f"K1 backward routes {routes}, want {want_routes}")
+    require_backward_routes(all_routes, launches, True, "train")
     # and every K1-fwd and K2-fwd launch (d_res included) on the Hopper kernels
     require_forward_routes(all_routes, launches, True, "train")
     require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
@@ -1297,7 +1426,7 @@ def train(model) -> dict:
     params = sum(p.numel() for p in model.parameters())
     rate = tokens / (step_ms / 1e3)
     return {"launches": launches, "launches_per_step": per_step,
-            "k1_bwd_launches_by_route": routes,
+            "k1_bwd_launches_by_route": k1_bwd_routes(all_routes),
             "fwd_launches_by_route": {k: all_routes[k]
                                       for k in ("local_attention_fwd", "sgu_fwd")},
             "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
@@ -1629,9 +1758,7 @@ def require_trainer_launches(result: dict, c) -> None:
     launches, routes = result["launches"], result["routes"]
     require(all(launches[k] > 0 for k in per_step),
             f"a kernel of the trainer path was not launched: {launches}")
-    want_bwd = {"wgmma": 2 * c.depth * TRAINER_STEPS, "wmma": 0}
-    require(routes["local_attention_bwd"] == want_bwd,
-            f"trainer K1 backward routes {routes['local_attention_bwd']}, want {want_bwd}")
+    require_backward_routes(routes, launches, True, "trainer")
     require_forward_routes(routes, launches, True, "trainer")
 
 
@@ -1739,7 +1866,7 @@ def paged_row(name: str, line: int, case: dict, variant: str, errs: list) -> dic
     if kwargs["w_scale"] is not None:
         nbytes += batch * 4
     flops = 2.0 * rows * d
-    bound_ms, bound_by = bound(nbytes, flops, torch.float32)  # f32 FMAs
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32, PEAK_F32_CUDA_CORES)  # FMAs
 
     def library():
         # gather the rows, then one batched product
@@ -2602,9 +2729,7 @@ def lora_train(full_step_ms: float | None) -> dict:
                 local_attention_bwd_dkv=c.depth, sgu_fwd=2 * c.global_mlp_depth,
                 sgu_bwd_dgate=c.global_mlp_depth, sgu_bwd_dw=c.global_mlp_depth)
     require(all(s == want for s in per_step), f"LoRA train steps launched {per_step}, want {want}")
-    want_bwd = {"wgmma": 2 * c.depth * LORA_TRAIN_STEPS, "wmma": 0}
-    require(routes["local_attention_bwd"] == want_bwd,
-            f"LoRA K1 backward routes {routes['local_attention_bwd']}, want {want_bwd}")
+    require_backward_routes(routes, launches, True, "lora_train")
     require_forward_routes(routes, launches, True, "lora_train")
     require(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
             f"non-finite LoRA loss or grad norm: {losses}, {grad_norms}")
@@ -2643,7 +2768,7 @@ def lora_train(full_step_ms: float | None) -> dict:
               "steps": LORA_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": c.seq_len,
               "lr": LORA_TRAIN_LR, "losses": losses, "grad_norms": grad_norms,
               "launches": launches, "launches_per_step": per_step[0],
-              "k1_bwd_launches_by_route": routes["local_attention_bwd"],
+              "k1_bwd_launches_by_route": k1_bwd_routes(routes),
               "fwd_launches_by_route": {k: routes[k] for k in ("local_attention_fwd", "sgu_fwd")},
               "base_bit_unchanged": base_same, "adapters_moved": len(moved),
               "step_ms_median": step_ms, "step_ms": [t * 1e3 for t in step_s],
@@ -3104,7 +3229,8 @@ def engine_lifecycle_alone() -> dict:
 
 # K1 with a halo (b, h, n, d, wsz), dtype, timed: bf16 on the Hopper route
 # at the training shape and ProGen-base's window, on the WMMA route at
-# dim_head 32 and a window of 64; f32 (WMMA) at the training shape, the
+# dim_head 32 and a window of 64; f32 (K1-fwd and K1-dkv on the 3xTF32
+# route, K1-dq on WMMA) at the training shape, the
 # meshed f32 Trainer's own.  The two at the training shape are timed: each
 # is the route of one of the meshed Trainer's runs.
 GRAPH_REPLAYS = 3                  # replays of each kernel's captured launch
@@ -3833,8 +3959,6 @@ PARALLEL_TOL_LOSS = {False: 1e-4,  # f32: the f32 train step's bar (TOL_TRAIN_LO
                      True: 1e-2}   # bf16 compute: a mean over 8 x 1024 bf16 logits
 HALO_COUNTERS = ("local_attention_fwd_halo", "local_attention_bwd_dq_halo",
                  "local_attention_bwd_dkv_halo")
-# the halo rows' names by the dtype (and so the route) they time
-HALO_ROW_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}
 
 
 def halo_inputs(gen, b, h, n, d, wsz, dtype):
@@ -3860,8 +3984,8 @@ def halo_case(gen, shape, dtype) -> tuple:
     the same halo, on the route the shape must take, twice for the same
     bits; returns the inputs and the errors."""
     b, h, n, d, wsz = shape
-    route = ("wgmma" if dtype == torch.bfloat16 and d in (64, 128) and wsz % 128 == 0
-             else "wmma")
+    route = {name: k1_route(kernel, dtype, d, wsz) for name, kernel in
+             (("local_attention_fwd", "fwd"), *K1_BWD_ROUTES.items())}
     inputs = halo_inputs(gen, *shape, dtype)
     q, k, v, do, kh, vh = inputs
     before = read_routes()
@@ -3869,7 +3993,7 @@ def halo_case(gen, shape, dtype) -> tuple:
     torch.cuda.synchronize()
     after = read_routes()
     routed = {name: {r: after[name][r] - before[name][r] for r in after[name]}
-              for name in ("local_attention_fwd", "local_attention_bwd")}
+              for name in route}
     want_out, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
                                          k_halo=kh, v_halo=vh)
     want = local_attention_bwd(q, k, v, got[0], got[1], do, wsz, k_halo=kh, v_halo=vh)
@@ -3878,8 +4002,7 @@ def halo_case(gen, shape, dtype) -> tuple:
            **{name: close_scaled(g, w, dtype) for name, g, w in
               zip(("dq", "dk", "dv", "dk_halo", "dv_halo"), got[2:], want)}}
     same = all(torch.equal(a, g) for a, g in zip(halo_kernels(*inputs, wsz), got))
-    want_routes = {name: {**dict.fromkeys(routed[name], 0), route: n_}
-                   for name, n_ in (("local_attention_fwd", 1), ("local_attention_bwd", 2))}
+    want_routes = {name: {**dict.fromkeys(routed[name], 0), route[name]: 1} for name in route}
     fields = {"shape": list(shape), "dtype": str(dtype), "route": route,
               "launches_by_route": routed, **res, "second_run_same_bits": same}
     emit("kernel_check", kernel="local_attention_halo", **fields)
@@ -3948,40 +4071,45 @@ def halo_rows(inputs, errs: dict, all_errs: dict) -> list[dict]:
     vec = b * h * n * d * esize
     halo = b * h * wsz * d * esize  # one halo tensor
     rowvec = 4.0 * b * h * n
-    suffix = HALO_ROW_SUFFIX[q.dtype]
     fwd = cuda_attention.local_attention_fwd
     dq = cuda_attention.local_attention_bwd_dq
     dkv = cuda_attention.local_attention_bwd_dkv
     rows = []
-    for name, fn, flops, nbytes, grads, plain_ms, library_ms in (
+    for name, fn, route, flops, nbytes, grads, plain_ms, library_ms in (
             ("local_attention_fwd_halo",
-             lambda *halo: fwd(q, k, v, wsz, None, *halo),
+             lambda *halo, route=None: fwd(q, k, v, wsz, None, *halo, route=route),
+             cuda_attention.fwd_route(q.dtype, d, wsz),
              4.0 * d * pairs, 4 * vec + 2 * halo + rowvec, ("out", "lse"), plain_fwd, sdpa_fwd),
             ("local_attention_bwd_dq_halo",
              lambda *halo: dq(q, k, v, do, lse, dd, wsz, None, *halo),
+             cuda_attention.dq_route(q.dtype, d, wsz),
              6.0 * d * pairs, 5 * vec + 2 * halo + 2 * rowvec, ("dq",), plain_bwd, sdpa_bwd),
             ("local_attention_bwd_dkv_halo",
-             lambda *halo: dkv(q, k, v, do, lse, dd, wsz, None, *halo),
+             lambda *halo, route=None: dkv(q, k, v, do, lse, dd, wsz, None, *halo, route=route),
+             cuda_attention.dkv_route(q.dtype, d, wsz),
              8.0 * d * pairs, 6 * vec + 4 * halo + 2 * rowvec,
              ("dk", "dv", "dk_halo", "dv_halo"), plain_bwd, sdpa_bwd)):
-        bound_ms, bound_by = bound(nbytes, flops, q.dtype)
         source = "local_attention_fwd.cu" if name.startswith("local_attention_fwd") \
             else "local_attention_bwd.cu"
         rows.append({
-            "name": name + suffix, "route": "cuda",
-            "k1_route": cuda_attention.fwd_route(q.dtype, d, wsz),
+            "name": row_name(name, q.dtype), "route": "cuda", "k1_route": route,
+            "kernel_route": route,
             "source": f"progen_tpu_torch/kernels/csrc/{source}",
             "replaces": "progen_tpu/ops/pallas_attention.py:258",
             "launches": None, "max_abs_err": max(errs[g] for g in grads),
             "ms": time_ms(lambda: fn(kh, vh)), "ms_without_halo": time_ms(lambda: fn(None, None)),
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "plain_ms": plain_ms, **bound_fields(nbytes, flops, q.dtype),
+            "library_ms": library_ms,
             "timed_shape": [b, h, n, d], "window": wsz, "timed_dtype": str(q.dtype),
             "bytes": nbytes, "flops": flops,
             "max_abs_err_all_checks": max(e for g in grads for e in all_errs[q.dtype][g]),
         })
         if name != "local_attention_fwd_halo":
             rows[-1]["plain_and_library_compute"] = "dq, dk and dv in one call"
+        if route == "tf32x3":  # the first (wmma) kernel on the same inputs
+            rows[-1]["wmma_route_ms"] = time_ms(lambda: fn(kh, vh, route="wmma"))
+            rows[-1]["wmma_route_ms_without_halo"] = time_ms(
+                lambda: fn(None, None, route="wmma"))
         emit("kernel_time", **rows[-1])
     return rows
 
@@ -4019,7 +4147,8 @@ def meshed_trainer(c, root: Path, label: str, mixed_precision: bool = False,
 
 def parallel_config(bf16: bool):
     """ProGen-small for the bf16 runs, at PARALLEL_F32_DEPTH layers for the
-    f32 ones (K1 on its slow WMMA route: the phase's time)."""
+    f32 ones (cut when K1's f32 route was the WMMA kernels', the phase's
+    time; kept so that the f32 step times compare across PRs)."""
     return SMALL if bf16 else dataclasses.replace(SMALL, depth=PARALLEL_F32_DEPTH)
 
 
@@ -4040,14 +4169,15 @@ MESHED_RUNS = (("dp", "dp", False), ("fsdp", "fsdp", False), ("fsdp_bf16", "fsdp
 def parallel_phase(smi: str) -> tuple[list[dict], dict]:
     """Phase 11: (a) the halo kernels against the plain version, (b) the
     split-sequence identity, (c) the Trainer on a mesh of one rank against
-    the Trainer without one, in f32 (``dp``, ``fsdp``: K1 on the WMMA
-    route) and in bf16 compute (``fsdp``: K1 on the Hopper route).  The
+    the Trainer without one, in f32 (``dp``, ``fsdp``: K1-fwd and K1-dkv
+    on the 3xTF32 route, K1-dq on WMMA) and in bf16 compute (``fsdp``: K1
+    on the Hopper route).  The
     launch counts are set to 0 just before each precision's meshed runs and
     read just after; each timed halo row takes the launches of its route's
     runs.  Returns the six halo rows and the phase's result."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     names = ("out", "lse", "dq", "dk", "dv", "dk_halo", "dv_halo")
-    errs = {dtype: {name: [] for name in names} for dtype in HALO_ROW_SUFFIX}
+    errs = {dtype: {name: [] for name in names} for dtype in (torch.bfloat16, torch.float32)}
     timed_cases = []
     for shape, dtype, timed in HALO_CASES:
         inputs, case_errs = halo_case(gen, shape, dtype)
@@ -4093,7 +4223,9 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
               "depth": {"f32": PARALLEL_F32_DEPTH, "bf16": c.depth},
               "unmeshed": unmeshed[False], "unmeshed_bf16": unmeshed[True],
               "launches_by_precision": {("bf16" if bf16 else "f32"): p["launches"]
-                                        for bf16, p in by_precision.items()}}
+                                        for bf16, p in by_precision.items()},
+              "routes_by_precision": {("bf16" if bf16 else "f32"): p["routes"]
+                                      for bf16, p in by_precision.items()}}
     for label, _, bf16 in MESHED_RUNS:
         run, base = meshed[label], unmeshed[bf16]
         rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"])]
@@ -4114,15 +4246,10 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
         require(all(p["launches"][name] > 0 for name in HALO_COUNTERS),
                 f"{what} did not launch the halo kernels: {p['launches']}")
         require_forward_routes(p["routes"], p["launches"], bf16, what)
-        bwd = p["launches"]["local_attention_bwd_dq"] + p["launches"]["local_attention_bwd_dkv"]
-        route = "wgmma" if bf16 else "wmma"
-        want_bwd = {**dict.fromkeys(p["routes"]["local_attention_bwd"], 0), route: bwd}
-        require(p["routes"]["local_attention_bwd"] == want_bwd,
-                f"{what}: K1's backward by route {p['routes']['local_attention_bwd']}, "
-                f"want {want_bwd}")
+        require_backward_routes(p["routes"], p["launches"], bf16, what)
     for row in rows:
-        bf16 = not row["name"].endswith(HALO_ROW_SUFFIX[torch.float32])
-        counter = row["name"].removesuffix(HALO_ROW_SUFFIX[torch.float32])
+        bf16 = not row["name"].endswith(F32_SUFFIX)
+        counter = row["name"].removesuffix(F32_SUFFIX)
         row["launches"] = by_precision[bf16]["launches"][counter]
         row["launches_by_path"] = {"parallel_bf16" if bf16 else "parallel_f32": row["launches"]}
     return rows, result
@@ -4499,11 +4626,15 @@ def trainer_mesh_phase(smi: str, unmeshed: dict | None = None, remat: dict | Non
     for precision, p in by_precision.items():
         require_forward_routes(p["routes"], p["launches"], precision,
                                f"trainer_mesh ({'bf16' if precision else 'f32'})")
+        require_backward_routes(p["routes"], p["launches"], precision,
+                                f"trainer_mesh ({'bf16' if precision else 'f32'})")
     result = {"config": "small", "batch": TRAIN_BATCH, "memory": mem, "tp": tp,
               "superstep": superstep, "traced": traced, "halo_capture_checks": halo_checks,
               "launches": launches, "nvidia_smi": smi,
               "launches_by_precision": {("bf16" if k else "f32"): p["launches"]
                                         for k, p in by_precision.items()},
+              "routes_by_precision": {("bf16" if k else "f32"): p["routes"]
+                                      for k, p in by_precision.items()},
               "seconds": time.perf_counter() - t_phase, "seconds_by_part": seconds}
     return result
 
@@ -5046,7 +5177,7 @@ def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
         kernel = row["name"].removesuffix(f"_tp{RANK_TENSOR}")
         row["launches"] = two_ranks["launches"][kernel]
         row["launches_of"] = ("the two gloo tp ranks' f32 run, rank 0: K1 and K2-fwd on "
-                              "their f32 routes (wmma, fma), K3 and K3-q8 on bulk; the "
+                              "their f32 routes (tf32x3, fma), K3 and K3-q8 on bulk; the "
                               "times are the bf16 routes'")
         row["launches_by_path"] = {"decode_mesh_two_ranks_f32": two_ranks["launches"][kernel],
                                    "decode_mesh_world_1_whole_width": launches[kernel]}
@@ -5163,13 +5294,13 @@ def worker_launch_checks(label: str, exits: dict, workers: dict, bf16: bool,
                          quantize, depth: int = SERVED.depth) -> tuple[dict, dict]:
     """Each worker's exit-line launches held to its formula: a prefill
     worker K1-fwd ``depth`` and K2-fwd 2 times a handle it made (f32 on
-    ``wmma``/``fma``, bf16 on ``wgmma``), a decode replica (or each member
+    ``tf32x3``/``fma``, bf16 on ``wgmma``), a decode replica (or each member
     of a replica group, at its rank's width) K3 or K3-q8 twice a decode
     step, all on ``bulk``; nothing else anywhere.  ``workers``: each
     worker's last stats frame.  Returns the launches and K3's routes summed
     over the workers, and each worker's launches."""
     mix = "paged_gate_mix_q8" if quantize == "weights+pages" else "paged_gate_mix"
-    fwd_route = ("wgmma", "wgmma") if bf16 else ("wmma", "fma")
+    fwd_route = ("wgmma", "wgmma") if bf16 else ("tf32x3", "fma")
     gmlp = SERVED.global_mlp_depth
     total = dict.fromkeys(COUNTERS, 0)
     by_route = dict.fromkeys(cuda_paged_gate_mix.route_launches, 0)
@@ -5684,6 +5815,21 @@ def analysis_alone() -> dict:
     return result
 
 
+def f32_row_launches(row: dict, phases: dict) -> None:
+    """An f32 row's launches: its kernel's launches on the row's route in
+    the f32 runs of the meshed Trainer (phases 11 and 16, ProGen-small's
+    head and window; K2-dgate and K2-dW have one f32 kernel each)."""
+    counter = row["name"].removesuffix(F32_SUFFIX)
+    by_path = {}
+    for path, result in phases.items():
+        if counter in ROUTE_COUNTERS:
+            by_path[path] = result["routes_by_precision"]["f32"][counter][row["kernel_route"]]
+        else:
+            by_path[path] = result["launches_by_precision"]["f32"][counter]
+    row["launches"] = sum(by_path.values())
+    row["launches_by_path"] = by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU",
@@ -5795,6 +5941,9 @@ def main() -> int:
     emit("decode_mesh", **decode_mesh_summary(decode))
 
     for row in rows:
+        if row["name"].endswith(F32_SUFFIX):
+            f32_row_launches(row, {"parallel_f32": parallel, "trainer_mesh_f32": mesh})
+            continue
         by_path = {"serve": served["launches"][row["name"]],
                    "train": trained["launches"][row["name"]],
                    "trainer": trainer["launches"][row["name"]],
@@ -5814,7 +5963,7 @@ def main() -> int:
                            for counts in engine_launches.values() if counts[row["name"]])
                 for route in cuda_paged_gate_mix.route_launches}
     for row in halo_kernel_rows:
-        counter = row["name"].removesuffix(HALO_ROW_SUFFIX[torch.float32])
+        counter = row["name"].removesuffix(F32_SUFFIX)
         bf16 = counter == row["name"]
         row["launches_by_path"]["trainer_mesh"] = (
             mesh["launches_by_precision"]["bf16" if bf16 else "f32"][counter])  # graftcheck: disable=mesh-axis
@@ -5822,6 +5971,7 @@ def main() -> int:
             row["launches_by_path"]["decode_mesh"] = decode["launches"][counter]
         row["launches"] = sum(row["launches_by_path"].values())
     rows += halo_kernel_rows + decode["rank_shape_rows"]
+    emit("routes_whole_smoke", checks_included=True, **route_totals())
     emit("analysis", **analysis_phase(analyzer))
     print(json.dumps({"kernels": rows}), flush=True)
     emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (

@@ -56,6 +56,21 @@ __device__ __forceinline__ int dkv_kind(int r0, int t0) {
   return t0 > r0 ? FULL : (t0 == r0 ? DIAGONAL : SKIPPED);
 }
 
+// K1-fwd's blocks (both Hopper routes, 128 rows each): the first row of the
+// block of rank `rank` in the longest-first order (mirrored by
+// cuda_attention.k1_fwd_tiles).  A row block at place p of window w >= 1
+// walks wsz / 64 + 2 p + 2 key tiles, one of window 0 only 2 p + 2 (no
+// previous window): so first the blocks of windows 1.. by place, the last
+// place first, then window 0's, the last place first.
+__device__ __forceinline__ int block_row(int rank, int seq, int wsz) {
+  const int wins = seq / wsz, places = wsz / ROWS;
+  const int later = (wins - 1) * places;  // blocks outside window 0
+  if (rank < later) {
+    return (wins - 1 - rank % (wins - 1)) * wsz + (places - 1 - rank / (wins - 1)) * ROWS;
+  }
+  return (places - 1 - (rank - later)) * ROWS;
+}
+
 // Each stage's `full` barrier takes the producer's one arrival (and the
 // bytes of its copies), its `empty` barrier one arrival per consumer
 // warpgroup, which a warpgroup that skips the tile makes too; `resident`

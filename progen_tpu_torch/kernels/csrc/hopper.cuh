@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers (with a
 // bounded wait that traps), TMA tile loads with 128-byte swizzle and plain
-// bulk copies, wgmma shared-memory descriptors, the bf16 m64n128k16 and
+// bulk copies, cp.async copies in groups, wgmma shared-memory descriptors,
+// the bf16 m64n128k16 and
 // m64n64k16 products with f32 accumulators (operand A from shared memory or
 // from registers), and, on the host, the driver's tensor-map encoder reached
 // through the runtime, so a kernel's library builds with one plain nvcc and
@@ -114,6 +115,25 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// One 16-byte asynchronous copy from device to shared memory (cp.async,
+// bypassing L1), both addresses 16-byte aligned; it joins the thread's
+// current group, which cp_async_commit closes.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // `p` rounded up to the next 1024-byte boundary: where a block's dynamic

@@ -32,8 +32,9 @@
 // flops/byte ridge, so the bound is the bytes, if not by much.  The 64-row
 // tiles execute ~10% more (the diagonal tiles' masked half).
 //
-// Two routes, chosen before the launch by cuda_attention.bwd_route from the
-// dtype, dim_head and window alone, each under its own extern "C" names:
+// Three routes, chosen before the launch by cuda_attention.dq_route and
+// dkv_route from the dtype, dim_head and window alone, each under its own
+// extern "C" names:
 //
 // "wgmma" (local_attention_bwd_{dq,dkv}_wgmma): bf16, dim_head 64 or 128,
 // windows that are multiples of 128 (every shipped config but `default`).
@@ -56,8 +57,28 @@
 // Every output element is written by one block, once: no atomics, the same
 // bits every run.
 //
-// "wmma" (local_attention_bwd_{dq,dkv}): f32 (the comparison path),
-// dim_head 32 and the other windows.  One block of 4 warps owns 64 rows,
+// "tf32x3" (local_attention_bwd_dkv_tf32x3), K1-dkv only: f32 with
+// dim_head 64 or 128 and windows that are multiples of 128 (the "wgmma"
+// route's shapes; f32 is the default of both training CLIs).  It replaced
+// the "wmma" kernel's f32 FMA loops for K1-dkv (2.56 ms at B 8 with a halo;
+// with K1-dq, 3.3x one scaled_dot_product_attention backward).  What bounds
+// it: 25.8 GFLOP at B 8 with the halo, each product f32-accurate as three
+// TF32 products (attention_tf32x3.cuh), so at least 3 x FLOPs / 495 TFLOP/s
+// = 0.156 ms, over ~235 MB (0.070 ms): the operations.  A block of eight warps owns
+// 128 keys of one window (or of the halo), k and v resident in shared
+// memory; the 32-query tiles of q and dout, with their lse and D, stream
+// through a two-stage cp.async ring into padded f32 rows.  Each warp owns
+// 16 keys: s^T = k.q^T and dp^T = v.dout^T by mma.sync m16n8k8 TF32, each
+// operand split into hi + lo in registers as its fragment is loaded; p^T
+// and ds^T on the f32 fragments; dv += p^T.dout and dk += ds^T.q with p^T
+// and ds^T split in registers and dout and q read N-major.  One pass: dk
+// and dv (2 x D / 2 registers a thread at D = 128) stay in registers beside
+// a tile's s^T and dp^T (32), since a 32-query tile keeps those small.  A
+// warp skips what its keys do not see; every output element is written by
+// one thread, once: the same bits every run.  K1-dq in f32 keeps "wmma".
+//
+// "wmma" (local_attention_bwd_{dq,dkv}): f32 at dim_head 32 and the other
+// windows (K1-dq: every f32 shape), and bf16 at those.  One block of 4 warps owns 64 rows,
 // each warp 16 of them.  The block streams tiles of the other side (64 rows
 // in bf16, 32 in f32, so the f32 tiles fit in shared memory at D = 128) and
 // skips the tiles that no row of the block sees; visibility is decided per
@@ -75,6 +96,7 @@
 
 #include <cstdint>
 
+#include "attention_tf32x3.cuh"
 #include "attention_tile.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
@@ -317,6 +339,206 @@ local_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     store_rows<T, D>(dk + base, dks, k0, seq, scale, warp);
     store_rows<T, D>(dv + base, dvs, k0, seq, 1.0f, warp);
   }
+}
+
+// -- K1-dkv in f32 on the tensor cores: 3xTF32 (the "tf32x3" route) ----------
+
+namespace t3 = progen::attention::tf32x3;
+
+// Shared memory: the block's 128 key rows of k and of v, then the ring's
+// stages of a 32-query q tile, its dout tile and its 32 lse and D values;
+// every row D + 4 words.
+template <int D>
+struct Dkv3Layout {
+  static constexpr int LD = D + 4;
+  static constexpr size_t K = 0;
+  static constexpr size_t V = K + sizeof(float) * t3::ROWS * LD;
+  static constexpr size_t RING = V + sizeof(float) * t3::ROWS * LD;
+  static constexpr size_t STAGE = sizeof(float) * (2 * t3::QUERIES * LD + 2 * t3::QUERIES);
+  static constexpr size_t SMEM = RING + t3::STAGES * STAGE;
+};
+
+// K1-dkv, f32: block (x, b*h) owns key rows [b0, b0 + 128) (b0 = 128 x) and
+// streams the 32-query tiles of their users, from b0 to the end of the next
+// window; with a halo, the blocks past the sequence's own own the halo's
+// keys (b0 < 0) and stream the queries of window 0, every pair visible.
+// Each warp owns 16 keys and, per tile, forms s^T = k.q^T and dp^T =
+// v.dout^T (16 x 32) in registers, p^T = exp(s^T scale - lse) and ds^T =
+// p^T (dp^T - D) there, then dv += p^T.dout and dk += ds^T.q with p^T and
+// ds^T as split A fragments; dk and dv (16 x D each) stay in registers for
+// the whole walk, every product 3xTF32.  A warp skips the tiles its keys
+// have no user in; the diagonal tile is masked in registers.
+template <int D>
+__global__ void __launch_bounds__(t3::THREADS, 1)
+local_attention_dkv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ k_halo,
+                                  const float* __restrict__ v_halo,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ dd,
+                                  float* __restrict__ dk, float* __restrict__ dv,
+                                  float* __restrict__ dk_halo, float* __restrict__ dv_halo,
+                                  int seq, int wsz, float scale) {
+  using S = Dkv3Layout<D>;
+  constexpr int LD = S::LD;
+  constexpr int QT = t3::QUERIES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem + S::K);
+  float* vs = reinterpret_cast<float*>(smem + S::V);
+
+  const int own_blocks = seq / t3::ROWS;
+  const bool hb = static_cast<int>(blockIdx.x) >= own_blocks;
+  const int b0 = hb ? (static_cast<int>(blockIdx.x) - own_blocks) * t3::ROWS - wsz
+                    : static_cast<int>(blockIdx.x) * t3::ROWS;
+  const size_t row0 = static_cast<size_t>(blockIdx.y) * seq;
+  // the first row of this block's keys in k (or in the halo)
+  const size_t krow = hb ? static_cast<size_t>(blockIdx.y) * wsz + wsz + b0 : row0 + b0;
+  const int i_first = hb ? 0 : b0;
+  const int i_end = hb ? wsz : min((b0 / wsz + 2) * wsz, seq);
+  const int tiles = (i_end - i_first) / QT;
+
+  auto stage = [&](int it) {
+    return reinterpret_cast<float*>(smem + S::RING + (it % t3::STAGES) * S::STAGE);
+  };
+  auto load = [&](int it) {  // q, dout, lse and D of query tile it
+    const size_t at = row0 + i_first + QT * it;
+    float* qs = stage(it);
+    t3::copy_rows<D, QT>(qs, q + at * D);
+    t3::copy_rows<D, QT>(qs + QT * LD, dout + at * D);
+    float* rowv = qs + 2 * QT * LD;
+    if (threadIdx.x < QT / 2) {  // 2 x 32 values, 16 bytes a thread
+      const int w = threadIdx.x / (QT / 4), c = (threadIdx.x % (QT / 4)) * 4;
+      progen::hopper::cp_async_16(rowv + w * QT + c, (w == 0 ? lse : dd) + at + c);
+    }
+  };
+  const float* ksrc = hb ? k_halo : k;
+  const float* vsrc = hb ? v_halo : v;
+  t3::copy_rows<D, t3::ROWS>(ks, ksrc + krow * D);
+  t3::copy_rows<D, t3::ROWS>(vs, vsrc + krow * D);
+  load(0);
+  progen::hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = b0 + 16 * warp;           // this warp's keys; the thread's: r0 + g (+ 8)
+  const float scale2 = scale * t3::LOG2E;  // p = 2^(s scale log2 e - lse log2 e)
+  const float* kw = ks + 16 * warp * LD;
+  const float* vw = vs + 16 * warp * LD;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.0f;
+  }
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) load(it + 1);
+    progen::hopper::cp_async_commit();  // an empty group at the end keeps the count
+    progen::hopper::cp_async_wait<1>();  // tile it (and k, v) have landed
+    __syncthreads();
+    const int i0 = i_first + QT * it;
+    // a warp skips a tile whose queries all come before its keys; the
+    // diagonal tile is computed whole and masked
+    if (hb || i0 + QT - 1 >= r0) {
+      const float* qs = stage(it);
+      const float* dos = qs + QT * LD;
+      const float* rowv = qs + 2 * QT * LD;
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {  // s^T = k.q^T
+        t3::FragA a;
+        t3::FragB b[4];
+        t3::load_a(a, kw + 8 * kk, LD);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t3::load_b_rows(b[j], qs + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<4>(st, a, b);
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {  // dp^T = v.dout^T
+        t3::FragA a;
+        t3::FragB b[4];
+        t3::load_a(a, vw + 8 * kk, LD);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t3::load_b_rows(b[j], dos + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<4>(dpt, a, b);
+      }
+      // element (j, 2 h + x): key r0 + g + 8 h, query c = 8 j + 2 t + x of
+      // the tile, a user if it is at or after the key (own window; every
+      // query of the next window and of window 0 for a halo key is)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int c = 8 * j + 2 * t + x;
+          const float lse2 = rowv[c] * t3::LOG2E, dd_c = rowv[QT + c];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + x;
+            const bool user = hb || i0 + c >= r0 + g + 8 * h;
+            const float p = user ? exp2f(fmaf(st[j][e], scale2, -lse2)) : 0.0f;
+            st[j][e] = p;
+            dpt[j][e] = p * (dpt[j][e] - dd_c);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        t3::FragA pa, da;
+        t3::a_from_c(pa, st[j]);
+        t3::a_from_c(da, dpt[j]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 8; n0 += 8) {
+          t3::FragB b[8];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) t3::load_b_cols(b[n], dos + 8 * j * LD + 8 * (n0 + n), LD);
+          t3::mma3<8>(acc_v + n0, pa, b);  // dv += p^T.dout
+#pragma unroll
+          for (int n = 0; n < 8; ++n) t3::load_b_cols(b[n], qs + 8 * j * LD + 8 * (n0 + n), LD);
+          t3::mma3<8>(acc_k + n0, da, b);  // dk += ds^T.q
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  float* dk_out = (hb ? dk_halo : dk) + krow * D;
+  float* dv_out = (hb ? dv_halo : dv) + krow * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t at = static_cast<size_t>(16 * warp + g + 8 * h) * D + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dk_out + at) =
+          make_float2(acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv_out + at) = make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32x3(const void* q, const void* k, const void* v, const void* k_halo,
+                              const void* v_halo, const void* dout, const void* lse,
+                              const void* dd, void* dk, void* dv, void* dk_halo,
+                              void* dv_halo, int bh, int seq, int wsz, float scale,
+                              cudaStream_t stream) {
+  constexpr size_t bytes = Dkv3Layout<D>::SMEM;
+  auto kernel = local_attention_dkv_tf32x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (seq + (k_halo != nullptr ? wsz : 0)) / t3::ROWS;
+  kernel<<<dim3(blocks, bh), t3::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(k_halo), static_cast<const float*>(v_halo),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dk_halo), static_cast<float*>(dv_halo), seq, wsz, scale);
+  return cudaGetLastError();
 }
 
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
@@ -945,5 +1167,30 @@ extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const
   cudaError_t err = dim_head == 64
       ? launch_dkv_wgmma<64>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
       : launch_dkv_wgmma<128>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+  return static_cast<int>(err);
+}
+
+// The tf32x3 route of K1-dkv: float32 only (dtype 0), dim_head 64 or 128,
+// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
+// local_attention_bwd_dkv.  Returns the CUDA error code of the launch.
+extern "C" int local_attention_bwd_dkv_tf32x3(const void* q, const void* k, const void* v,
+                                              const void* k_halo, const void* v_halo,
+                                              const void* dout, const void* lse,
+                                              const void* dd, void* dk, void* dv,
+                                              void* dk_halo, void* dv_halo, int bh, int seq,
+                                              int dim_head, int wsz, float scale, int dtype,
+                                              void* stream) {
+  const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
+  if (bad_shape(bh, seq, wsz) || bad_halo(halo, true) || dtype != 0 ||
+      wsz % t3::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
+      static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dim_head == 64
+      ? launch_dkv_tf32x3<64>(q, k, v, k_halo, v_halo, dout, lse, dd, dk, dv, dk_halo,
+                              dv_halo, bh, seq, wsz, scale, s)
+      : launch_dkv_tf32x3<128>(q, k, v, k_halo, v_halo, dout, lse, dd, dk, dv, dk_halo,
+                               dv_halo, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }

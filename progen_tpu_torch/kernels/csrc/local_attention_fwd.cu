@@ -21,8 +21,8 @@
 // ridge, so the bound is the bytes (33.6 MB, 0.0101 ms at B = 4), if not by
 // much (6.45 GFLOP, 0.0065 ms at the bf16 peak).
 //
-// Two routes, chosen before the launch by cuda_attention.fwd_route from the
-// dtype, dim_head and window alone, each under its own extern "C" name:
+// Three routes, chosen before the launch by cuda_attention.fwd_route from
+// the dtype, dim_head and window alone, each under its own extern "C" name:
 //
 // "wgmma" (local_attention_fwd_wgmma): bf16, dim_head 64 or 128, windows
 // that are multiples of 128 (every shipped config but `default`).  It walks
@@ -46,8 +46,28 @@
 // element is written by one block, once: no atomics, the same bits every
 // run; every mbarrier wait traps rather than hangs.
 //
-// "wmma" (local_attention_fwd): f32 (the comparison path), dim_head 32 and
-// the other windows.  Flash-style, one block of 4 warps per (b*h, 64 query
+// "tf32x3" (local_attention_fwd_tf32x3): f32 with dim_head 64 or 128 and
+// windows that are multiples of 128, the shapes of the "wgmma" route (f32
+// is the default of both training CLIs; f32 prefill workers).  It replaced
+// the "wmma" kernel's f32 FMA loops (one shared-memory load an FMA, no
+// tensor core: 2.16 ms at B 8, 4.6x one scaled_dot_product_attention call).
+// What bounds it: the bf16 route's work, 12.9 GFLOP at B 8 with the halo, each
+// product f32-accurate as three TF32 products (attention_tf32x3.cuh): the
+// least time is 3 x FLOPs / 495 TFLOP/s, 0.078 ms, over ~151 MB (0.045 ms),
+// so the operations.  A block of eight warps owns 128 query rows of one
+// window (the bf16 route's blocks, walks and longest-first order), q
+// resident in shared memory; the k and v tiles of 64 keys stream through a
+// two-stage cp.async ring (one tile in use, the next in flight) into padded
+// f32 rows.  Each warp owns 16 rows: s = q.k^T by mma.sync m16n8k8 TF32,
+// each operand split into hi + lo in registers as its fragment is loaded;
+// the online softmax on the f32 fragment (a row's values across a quad of
+// threads, exp2 with the scale folded in); o += p.v with p's fragment split
+// in registers and v read N-major, the f32 o in registers for the whole
+// walk.  The phantom window is the bf16 route's exact term.  Every output
+// element is written by one thread, once: the same bits every run.
+//
+// "wmma" (local_attention_fwd): f32 at dim_head 32 and the other windows,
+// and bf16 at those.  Flash-style, one block of 4 warps per (b*h, 64 query
 // rows); each warp owns 16 rows.  The block walks 64-key tiles over the
 // extended key range [window start of its first row - wsz, its last row];
 // a key tile row before position 0 is loaded as zeros (the phantom
@@ -67,6 +87,7 @@
 
 #include <cstdint>
 
+#include "attention_tf32x3.cuh"
 #include "attention_tile.cuh"
 #include "attention_wgmma.cuh"
 #include "common.cuh"
@@ -222,6 +243,195 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* kh
   }
 }
 
+// -- f32 on the tensor cores: 3xTF32 from a cp.async ring (the "tf32x3" route)
+
+namespace t3 = progen::attention::tf32x3;
+namespace wg = progen::attention::wgmma;
+
+// Shared memory: the block's 128 query rows, then the ring's stages of a
+// 64-key k tile and its v tile, every row D + 4 words.
+template <int D>
+struct F3Layout {
+  static constexpr int LD = D + 4;
+  static constexpr size_t Q = 0;
+  static constexpr size_t RING = Q + sizeof(float) * t3::ROWS * LD;
+  static constexpr size_t STAGE = sizeof(float) * 2 * t3::KEYS * LD;
+  static constexpr size_t SMEM = RING + t3::STAGES * STAGE;
+};
+
+// K1-fwd, f32: block blk owns query rows [b0, b0 + 128) of row block
+// blk / bh (wg::block_row, longest walk first) of sequence blk % bh, and
+// walks what the bf16 route walks (wg::dq_first, wg::dq_tiles): the 64-key
+// tiles from the previous window's first (the halo's, at t0 < 0, when one
+// is given) to b0 + 64.  Each warp owns 16 rows: per tile s = q.k^T (16 x 64)
+// in registers, the online softmax there, and o += p.v (16 x D, f32 in
+// registers for the whole walk), every product 3xTF32.  A warp skips the
+// tiles its rows do not see; the diagonal tile is masked in registers.  The phantom window is the bf16 route's exact term.
+template <int D>
+__global__ void __launch_bounds__(t3::THREADS, 1)
+local_attention_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ k_halo,
+                                  const float* __restrict__ v_halo, float* __restrict__ out,
+                                  float* __restrict__ lse, int bh, int seq, int wsz,
+                                  float scale) {
+  using S = F3Layout<D>;
+  constexpr int LD = S::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + S::Q);
+
+  const int b0 = wg::block_row(blockIdx.x / bh, seq, wsz);
+  const int sq = blockIdx.x % bh;
+  const size_t row0 = static_cast<size_t>(sq) * seq;
+  const bool halo = k_halo != nullptr;
+  const float* kh = halo ? k_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const float* vh = halo ? v_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const int first = wg::dq_first(b0, wsz, halo);
+  const int tiles = wg::dq_tiles(b0, wsz, halo);
+
+  auto stage = [&](int it) {
+    return reinterpret_cast<float*>(smem + S::RING + (it % t3::STAGES) * S::STAGE);
+  };
+  auto load = [&](int it) {  // tile it into its stage (window 0's previous: the halo)
+    const int t0 = first + t3::KEYS * it;
+    float* ks = stage(it);
+    const float* ksrc = t0 < 0 ? kh + static_cast<size_t>(wsz + t0) * D : k + (row0 + t0) * D;
+    const float* vsrc = t0 < 0 ? vh + static_cast<size_t>(wsz + t0) * D : v + (row0 + t0) * D;
+    t3::copy_rows<D, t3::KEYS>(ks, ksrc);
+    t3::copy_rows<D, t3::KEYS>(ks + t3::KEYS * LD, vsrc);
+  };
+  t3::copy_rows<D, t3::ROWS>(qs, q + (row0 + b0) * D);
+  load(0);
+  progen::hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = b0 + 16 * warp;              // this warp's rows; the thread's: r0 + g (+ 8)
+  const float scale2 = scale * t3::LOG2E;     // logits in log2 units
+  const bool phantom = b0 < wsz && !halo;     // window 0: wsz zero logits too
+  const float* qw = qs + 16 * warp * LD;
+  float mx[2], den[2] = {0.0f, 0.0f};
+  mx[0] = mx[1] = phantom ? 0.0f : -1e30f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) load(it + 1);
+    progen::hopper::cp_async_commit();  // an empty group at the end keeps the count
+    progen::hopper::cp_async_wait<1>();  // tile it (and q) have landed
+    __syncthreads();
+    const int t0 = first + t3::KEYS * it;
+    // a warp skips a tile whose keys all come after its rows; the diagonal
+    // tile is computed whole and masked
+    if (t0 <= r0 + 15) {
+      const float* ks = stage(it);
+      const float* vs = ks + t3::KEYS * LD;
+      float sc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll 2
+      for (int kk = 0; kk < D / 8; ++kk) {
+        t3::FragA a;
+        t3::FragB b[8];
+        t3::load_a(a, qw + 8 * kk, LD);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) t3::load_b_rows(b[j], ks + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<8>(sc, a, b);
+      }
+      // element (j, 2 h + x): row r0 + g + 8 h, key t0 + 8 j + 2 t + x,
+      // seen if the key is at or before the row
+      float top[2] = {mx[0], mx[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const bool seen = t0 + 8 * j + 2 * t + x <= r0 + g + 8 * h;
+            const float s = seen ? sc[j][2 * h + x] * scale2 : -INFINITY;
+            sc[j][2 * h + x] = s;
+            top[h] = fmaxf(top[h], s);
+          }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 1));
+        top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 2));
+        alpha[h] = exp2f(mx[h] - top[h]);
+        mx[h] = top[h];
+        den[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2f(sc[j][e] - mx[e / 2]);
+          den[e / 2] += sc[j][e];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        t3::FragA p;
+        t3::a_from_c(p, sc[j]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 8; n0 += 8) {
+          t3::FragB b[8];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) t3::load_b_cols(b[n], vs + 8 * j * LD + 8 * (n0 + n), LD);
+          t3::mma3<8>(acc + n0, p, b);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // the quad's shares of each denominator, the phantom's wsz zero logits
+  // (2^(0 - max) each), then out = o / denominator and lse = max + log
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+    if (phantom) den[h] += static_cast<float>(wsz) * exp2f(-mx[h]);
+    inv[h] = 1.0f / den[h];
+    if (t == 0) lse[row0 + r0 + g + 8 * h] = mx[h] * t3::LN2 + logf(den[h]);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(out + (row0 + r0 + g + 8 * h) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, const void* k_halo,
+                          const void* v_halo, void* out, void* lse, int bh, int seq, int wsz,
+                          float scale, cudaStream_t stream) {
+  constexpr size_t bytes = F3Layout<D>::SMEM;
+  auto kernel = local_attention_fwd_tf32x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<(seq / t3::ROWS) * bh, t3::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(k_halo), static_cast<const float*>(v_halo),
+      static_cast<float*>(out), static_cast<float*>(lse), bh, seq, wsz, scale);
+  return cudaGetLastError();
+}
+
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
 
 namespace fwg {
@@ -243,20 +453,6 @@ struct Layout {
   static constexpr size_t SMEM = 1024 + BARS + (2 * STAGES + 1) * sizeof(uint64_t);
 };
 
-// The first row of the block of rank `rank` in the longest-first order
-// (mirrored by cuda_attention.k1_fwd_tiles).  A row block at place p of
-// window w >= 1 walks wsz / 64 + 2 p + 2 key tiles, one of window 0 only
-// 2 p + 2 (no previous window): so first the blocks of windows 1.. by place,
-// the last place first, then window 0's, the last place first.
-__device__ __forceinline__ int block_row(int rank, int seq, int wsz) {
-  const int wins = seq / wsz, places = wsz / ROWS;
-  const int later = (wins - 1) * places;  // blocks outside window 0
-  if (rank < later) {
-    return (wins - 1 - rank % (wins - 1)) * wsz + (places - 1 - rank / (wins - 1)) * ROWS;
-  }
-  return (places - 1 - (rank - later)) * ROWS;
-}
-
 // Byte offset of element (row r, column c) of a 64-row tile of D columns in
 // the 128-byte swizzle (16-byte chunk j of row r at j ^ (r % 8)).
 __device__ __forceinline__ int swizzled(int r, int c) {
@@ -266,7 +462,7 @@ __device__ __forceinline__ int swizzled(int r, int c) {
 }  // namespace fwg
 
 // K1-fwd, bf16: block blk owns query rows [b0, b0 + 128) of row block
-// blk / bh (fwg::block_row) of sequence blk % bh.  The producer loads the
+// blk / bh (block_row) of sequence blk % bh.  The producer loads the
 // block's q once and streams the k and v tiles of the walk (window 0's
 // previous-window tiles from the halo's maps when `halo` is set); a consumer
 // warpgroup forms s = q.k^T for its 64 rows by wgmma from shared memory, p
@@ -510,5 +706,25 @@ extern "C" int local_attention_fwd_wgmma(const void* q, const void* k, const voi
   cudaError_t err = dim_head == 64
       ? launch_wgmma<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
       : launch_wgmma<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
+  return static_cast<int>(err);
+}
+
+// The tf32x3 route of K1-fwd: float32 only (dtype 0), dim_head 64 or 128,
+// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
+// local_attention_fwd.  Returns the CUDA error code of the launch (0 = ok).
+extern "C" int local_attention_fwd_tf32x3(const void* q, const void* k, const void* v,
+                                          const void* k_halo, const void* v_halo, void* out,
+                                          void* lse, int bh, int seq, int dim_head, int wsz,
+                                          float scale, int dtype, void* stream) {
+  if (bh <= 0 || seq <= 0 || wsz <= 0 || seq % wsz != 0 || dtype != 0 ||
+      (k_halo == nullptr) != (v_halo == nullptr) ||
+      wsz % t3::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
+      static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dim_head == 64
+      ? launch_tf32x3<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
+      : launch_tf32x3<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }

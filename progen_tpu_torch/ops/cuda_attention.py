@@ -12,14 +12,17 @@ build at first use.  On a CUDA tensor they launch the kernels or raise;
 they never fall back.  ``launches``, ``dq_launches`` and ``dkv_launches``
 count the launches of K1-fwd, K1-dq and K1-dkv, and nothing else.
 
-Every kernel has two routes, chosen before the launch by :func:`fwd_route`
-and :func:`bwd_route` from the dtype, ``dim_head`` and the window alone:
-bf16 with ``dim_head`` 64 or 128 and windows that are multiples of 128 take
-the Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32,
-``dim_head`` 32 and other windows take the WMMA kernels (``"wmma"``).  A
-failure on one route raises; it never tries the other.
-``fwd_route_launches`` and ``bwd_route_launches`` count the launches of each
-route.
+Each kernel's route is chosen before the launch by :func:`fwd_route`,
+:func:`dq_route` and :func:`dkv_route` from the dtype, ``dim_head`` and the
+window alone.  ``dim_head`` 64 or 128 with a window that is a multiple of
+128 (every shipped config but ``default``) takes the Hopper kernels: in
+bf16 a TMA ring into ``wgmma`` (``"wgmma"``, all three kernels), in f32
+K1-fwd and K1-dkv on the tensor cores as three TF32 products a product
+(``"tf32x3"``, a ``cp.async`` ring into ``mma.sync``).  Everything else,
+and K1-dq in f32, takes the WMMA kernels (``"wmma"``; their f32 products
+are FMA loops).  A failure on one route raises; it never tries another.
+``fwd_route_launches``, ``dq_route_launches`` and ``dkv_route_launches``
+count the launches of each route.
 
 :func:`local_attention` is what the model calls: K1-fwd once, and under
 autograd K1-dq and K1-dkv in the backward, from the saved q, k, v, out and
@@ -51,21 +54,25 @@ BWD = "local_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DIM_HEADS = (32, 64, 128)
 
-# the bf16 Hopper kernels' tiling (attention_wgmma.cuh): a block owns 128
-# rows of one window, two warpgroups of 64, and streams 64-row tiles of the
-# other side
+# the Hopper kernels' tiling (attention_wgmma.cuh, attention_tf32x3.cuh): a
+# block owns 128 rows of one window (two warpgroups of 64 in bf16, eight
+# warps of 16 in f32) and streams tiles of the other side (64 rows in bf16;
+# in f32 64 keys for K1-fwd, 32 queries for K1-dkv)
 BWD_ROWS = 128
 BWD_TILE = 64
 WGMMA_DIM_HEADS = (64, 128)
+# each route's extern "C" suffix
+SUFFIX = {"wmma": "", "wgmma": "_wgmma", "tf32x3": "_tf32x3"}
 
 launches = 0
-fwd_route_launches = {"wgmma": 0, "wmma": 0}
+fwd_route_launches = {"wgmma": 0, "tf32x3": 0, "wmma": 0}
 dq_launches = 0
 dkv_launches = 0
 halo_launches = 0
 halo_dq_launches = 0
 halo_dkv_launches = 0
-bwd_route_launches = {"wgmma": 0, "wmma": 0}
+dq_route_launches = {"wgmma": 0, "wmma": 0}
+dkv_route_launches = {"wgmma": 0, "tf32x3": 0, "wmma": 0}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -118,14 +125,25 @@ def _check(q, k, v, window_size, *more):
         raise ValueError("the kernel's tensors must be on one device")
 
 
+def _forced(route: str | None, chosen: str) -> str:
+    """The route to launch: ``chosen``, or a forced ``route`` that is
+    ``"wmma"`` (which takes every shape the kernels take) or ``chosen``."""
+    if route not in (None, "wmma", chosen):
+        raise ValueError(f"route {route!r} does not take this launch (its route is "
+                         f"{chosen!r}; 'wmma' takes any)")
+    return route or chosen
+
+
 def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window_size: int, scale: float | None = None,
                         k_halo: torch.Tensor | None = None,
-                        v_halo: torch.Tensor | None = None):
+                        v_halo: torch.Tensor | None = None, route: str | None = None):
     """Windowed attention over ``(B, H, L, D)`` -> ``(out, lse)``: ``out``
     ``(B, H, L, D)`` in q's dtype and the per-row logsumexp ``lse``
     ``(B, H, L)`` in f32; window 0's previous window is the halo when one is
-    given, else the phantom zeros."""
+    given, else the phantom zeros.  ``route`` forces a CUDA launch onto
+    ``"wmma"`` instead of :func:`fwd_route`'s (to time the first kernel on
+    the same inputs)."""
     global launches, halo_launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
@@ -136,9 +154,9 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window_size)
     _check_halo(q, window_size, k_halo, v_halo)
     b, h, n, d = q.shape
-    route = fwd_route(q.dtype, d, window_size)
-    name = KERNEL if route == "wmma" else f"{KERNEL}_wgmma"
-    if route == "wgmma":
+    route = _forced(route, fwd_route(q.dtype, d, window_size))
+    name = KERNEL + SUFFIX[route]
+    if route != "wmma":
         kernels.check_aligned(q, k, v, *(t for t in (k_halo, v_halo) if t is not None))
     fn = _kernel_fn(name, KERNEL, 7)
     out = torch.empty_like(q)
@@ -154,28 +172,39 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def bwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which backward kernels take these shapes: ``"wgmma"`` (the Hopper
-    kernels) for bf16, ``dim_head`` in (64, 128) and a window that is a
-    multiple of 128; ``"wmma"`` for everything else the kernels take."""
-    if (dtype == torch.bfloat16 and dim_head in WGMMA_DIM_HEADS
-            and window_size > 0 and window_size % BWD_ROWS == 0):
-        return "wgmma"
-    return "wmma"
+def _hopper_shape(dim_head: int, window_size: int) -> bool:
+    """``dim_head`` 64 or 128 and a window that is a multiple of 128: the
+    shapes the Hopper kernels' 128-row blocks take."""
+    return dim_head in WGMMA_DIM_HEADS and window_size > 0 and window_size % BWD_ROWS == 0
 
 
 def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-fwd kernel takes these shapes: the same rule as
-    :func:`bwd_route` (the Hopper forward walks what K1-dq walks)."""
-    return bwd_route(dtype, dim_head, window_size)
+    """Which K1-fwd kernel takes these shapes: on Hopper shapes
+    ``"wgmma"`` in bf16 and ``"tf32x3"`` in f32; ``"wmma"`` for everything
+    else the kernels take."""
+    if not _hopper_shape(dim_head, window_size):
+        return "wmma"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def dkv_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
+    """Which K1-dkv kernel takes these shapes: :func:`fwd_route`'s rule."""
+    return fwd_route(dtype, dim_head, window_size)
+
+
+def dq_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
+    """Which K1-dq kernel takes these shapes: ``"wgmma"`` in bf16 on
+    Hopper shapes, ``"wmma"`` for everything else (f32 included)."""
+    return "wgmma" if dtype == torch.bfloat16 and _hopper_shape(dim_head, window_size) \
+        else "wmma"
 
 
 def k1_fwd_tiles(n: int, window_size: int,
                  halo: bool = False) -> list[tuple[int, list[tuple[int, int, str]]]]:
-    """The bf16 K1-fwd kernel's blocks and walks, the formulas of
-    ``local_attention_fwd.cu`` (``fwg::block_row``) and
-    ``attention_wgmma.cuh`` (``dq_first``, ``dq_tiles``, ``dq_kind``): for
-    each block of one (b, h) in launch order, longest walk first, its first
+    """The Hopper K1-fwd kernels' blocks and walks (both routes: the f32
+    one's warps cut each warpgroup's 64 rows in four), the formulas of
+    ``attention_wgmma.cuh`` (``block_row``, ``dq_first``, ``dq_tiles``,
+    ``dq_kind``): for each block of one (b, h) in launch order, longest walk first, its first
     query row ``b0`` and, for each streamed 64-key tile ``t0`` in order and
     each of its two warpgroups' rows ``r0``, ``(r0, t0, kind)``.  Rows of
     window 0 also count the phantom window's ``wsz`` zero logits, as an
@@ -267,8 +296,8 @@ def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
     halo = [t for t in (k_halo, v_halo) if t is not None]
     kernels.check_aligned(q, k, v, do, lse, dd, *halo)
     b, h, n, d = q.shape
-    route = bwd_route(q.dtype, d, window_size)
-    name = f"{BWD}_dq" if route == "wmma" else f"{BWD}_dq_wgmma"
+    route = dq_route(q.dtype, d, window_size)
+    name = f"{BWD}_dq{SUFFIX[route]}"
     fn = _kernel_fn(name, BWD, 9)
     dq = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_halo), _ptr(v_halo),
@@ -279,16 +308,18 @@ def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dq_launches += 1
     halo_dq_launches += bool(halo)
-    bwd_route_launches[route] += 1
+    dq_route_launches[route] += 1
     return dq
 
 
 def local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size: int,
-                            scale: float | None = None, k_halo=None, v_halo=None):
+                            scale: float | None = None, k_halo=None, v_halo=None,
+                            route: str | None = None):
     """K1-dkv on CUDA tensors: ``(dk, dv)`` of the real keys, each
     ``(B, H, L, D)`` in q's dtype, and with a halo also ``(dk_halo,
     dv_halo)``, each ``(B, H, wsz, D)``; arguments as for
-    :func:`local_attention_bwd_dq`."""
+    :func:`local_attention_bwd_dq`.  ``route`` forces ``"wmma"`` instead of
+    :func:`dkv_route`'s, as :func:`local_attention_fwd`'s does."""
     global dkv_launches, halo_dkv_launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     _check(q, k, v, window_size, do)
@@ -297,8 +328,8 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size: int,
     halo = [t for t in (k_halo, v_halo) if t is not None]
     kernels.check_aligned(q, k, v, do, lse, dd, *halo)
     b, h, n, d = q.shape
-    route = bwd_route(q.dtype, d, window_size)
-    name = f"{BWD}_dkv" if route == "wmma" else f"{BWD}_dkv_wgmma"
+    route = _forced(route, dkv_route(q.dtype, d, window_size))
+    name = f"{BWD}_dkv{SUFFIX[route]}"
     fn = _kernel_fn(name, BWD, 12)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dk_halo = torch.empty_like(k_halo) if halo else None
@@ -311,7 +342,7 @@ def local_attention_bwd_dkv(q, k, v, do, lse, dd, window_size: int,
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dkv_launches += 1
     halo_dkv_launches += bool(halo)
-    bwd_route_launches[route] += 1
+    dkv_route_launches[route] += 1
     return (dk, dv, dk_halo, dv_halo) if halo else (dk, dv)
 
 

@@ -40,6 +40,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 TOL_ATTN_OUT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_ATTN_GRAD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_GRAD_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the f32 route of K1-fwd and K1-dkv where bf16 takes each route
+F32_ROUTE = {"wgmma": "tf32x3", "wmma": "wmma"}
 
 
 @pytest.fixture
@@ -100,9 +102,10 @@ def test_sgu_kernel_matches_plain(gen, dtype, b, n, d):
 ])
 def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
         gen, dtype, b, h, n, d, wsz, bf16_route):
-    """K1-fwd on the route each case must take (f32 always on the WMMA
-    kernel), against the plain version; a second run gives the same bits."""
-    route = bf16_route if dtype == torch.bfloat16 else "wmma"
+    """K1-fwd on the route each case must take (f32 on the 3xTF32 kernel
+    where bf16 takes the wgmma one, else on the WMMA kernel), against the
+    plain version; a second run gives the same bits."""
+    route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
     assert cuda_attention.fwd_route(dtype, d, wsz) == route
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
@@ -110,7 +113,7 @@ def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
     torch.cuda.synchronize()
     routed = {r: cuda_attention.fwd_route_launches[r] - before[r] for r in before}
-    assert routed == {"wgmma": 0, "wmma": 0, route: 1}
+    assert routed == {"wgmma": 0, "tf32x3": 0, "wmma": 0, route: 1}
     want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True)
     _close(out, want, dtype, TOL_ATTN_OUT)
     _close(lse, want_lse, torch.float32)
@@ -192,21 +195,26 @@ def _close_scaled(got, want, dtype):
     (1, 3, 512, 128, 128, "wgmma"),   # the smallest window the wgmma route takes
 ])
 def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf16_route):
-    """Each case on the route it must take (f32 always on the WMMA
-    kernels); a second run gives the same bits (no atomics)."""
-    route = bf16_route if dtype == torch.bfloat16 else "wmma"
-    assert cuda_attention.bwd_route(dtype, d, wsz) == route
+    """Each case on the routes it must take (f32: K1-dq on the WMMA
+    kernel, K1-dkv on the 3xTF32 kernel where bf16 takes the wgmma one);
+    a second run gives the same bits (no atomics)."""
+    dq_route = bf16_route if dtype == torch.bfloat16 else "wmma"
+    dkv_route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
+    assert cuda_attention.dq_route(dtype, d, wsz) == dq_route
+    assert cuda_attention.dkv_route(dtype, d, wsz) == dkv_route
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                    for _ in range(4))
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz)
     before = (cuda_attention.dq_launches, cuda_attention.dkv_launches,
-              dict(cuda_attention.bwd_route_launches))
+              dict(cuda_attention.dq_route_launches), dict(cuda_attention.dkv_route_launches))
     got = cuda_attention.local_attention_bwd(q, k, v, out, lse, do, wsz)
     torch.cuda.synchronize()
     assert (cuda_attention.dq_launches, cuda_attention.dkv_launches) == \
         (before[0] + 1, before[1] + 1)
-    routed = {r: cuda_attention.bwd_route_launches[r] - before[2][r] for r in before[2]}
-    assert routed == {"wgmma": 0, "wmma": 0, route: 2}
+    routed = ({r: cuda_attention.dq_route_launches[r] - before[2][r] for r in before[2]},
+              {r: cuda_attention.dkv_route_launches[r] - before[3][r] for r in before[3]})
+    assert routed == ({"wgmma": 0, "wmma": 0, dq_route: 1},
+                      {"wgmma": 0, "tf32x3": 0, "wmma": 0, dkv_route: 1})
     want = local_attention_bwd(q, k, v, out, lse, do, wsz)
     for g, w in zip(got, want):
         assert g.dtype == dtype
@@ -214,6 +222,81 @@ def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf1
     again = cuda_attention.local_attention_bwd(q, k, v, out, lse, do, wsz)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+# f32 on the 3xTF32 route (K1-fwd, K1-dkv): ProGen-small's serving and
+# training shapes, one window (the phantom window alone), ProGen-tiny's
+# head, ProGen-base's window, the smallest window the route takes
+TF32X3_CASES = [
+    (4, 8, 1024, 128, 256),
+    (8, 8, 1024, 128, 256),
+    (4, 8, 256, 128, 256),
+    (2, 8, 1024, 64, 256),
+    (1, 12, 2048, 128, 512),
+    (1, 3, 512, 128, 128),
+]
+
+
+def _tf32x3_launch(q, k, v, do, wsz, kh, vh):
+    """K1-fwd, then K1-dkv from its lse and D (K1-dq is not on the route)."""
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
+    dd = (do * out).sum(-1)
+    return (out, lse, *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz,
+                                                               None, kh, vh))
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("b,h,n,d,wsz", TF32X3_CASES)
+def test_the_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
+    """K1-fwd and K1-dkv in f32 on the 3xTF32 route, with and without a
+    random halo, against the plain version at the f32 bars (``out`` and
+    ``lse`` 1e-4; ``dk``, ``dv`` and the halo's at the scaled gradient bars);
+    every launch on ``tf32x3`` by the counters; a second run gives the same
+    bits."""
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen) for _ in range(4))
+    kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen) for _ in range(2))
+              if halo else (None, None))
+    assert cuda_attention.fwd_route(torch.float32, d, wsz) == "tf32x3"
+    assert cuda_attention.dkv_route(torch.float32, d, wsz) == "tf32x3"
+    before = dict(cuda_attention.fwd_route_launches), dict(cuda_attention.dkv_route_launches)
+    got = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+    torch.cuda.synchronize()
+    assert cuda_attention.fwd_route_launches == {**before[0], "tf32x3": before[0]["tf32x3"] + 1}
+    assert cuda_attention.dkv_route_launches == {**before[1], "tf32x3": before[1]["tf32x3"] + 1}
+    want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
+                                     k_halo=kh, v_halo=vh)
+    _close(got[0], want, torch.float32, TOL_ATTN_OUT)
+    _close(got[1], want_lse, torch.float32)
+    grads = local_attention_bwd(q, k, v, got[0], got[1], do, wsz, k_halo=kh, v_halo=vh)
+    assert len(got) == (6 if halo else 4)
+    for g, w in zip(got[2:], grads[1:]):
+        _close_scaled(g, w, torch.float32)
+    for a, g in zip(_tf32x3_launch(q, k, v, do, wsz, kh, vh), got):
+        assert torch.equal(a, g)
+
+
+def test_the_tf32x3_kernels_replay_in_a_cuda_graph(gen):
+    """K1-fwd and K1-dkv on the 3xTF32 route captured in one CUDA graph
+    (with a halo, at ProGen-small's head and window) and replayed 3 times
+    after new inputs are copied in: each replay bit-equal to eager launches
+    on the same inputs."""
+    shape, wsz = (2, 4, 1024, 128), 256
+    static = [torch.randn(*shape, device="cuda", generator=gen) for _ in range(4)]
+    static += [torch.randn(2, 4, wsz, 128, device="cuda", generator=gen) for _ in range(2)]
+    q, k, v, do, kh, vh = static
+    _tf32x3_launch(q, k, v, do, wsz, kh, vh)  # build and load before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+    for _ in range(3):
+        for t in static:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen))
+        graph.replay()
+        want = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+        torch.cuda.synchronize()
+        for a, g in zip(outs, want):
+            assert torch.equal(a, g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -661,6 +744,46 @@ def test_the_captured_optimizer_step_is_the_eager_steps(gen, dtype, accum, k):
     state = fns.init_state()  # new moments: other addresses
     fns.train_multi_step(state, micros[0])
     assert fns.captured_program() is not program
+
+
+def test_the_captured_f32_step_on_tf32x3_is_the_eager_steps(gen):
+    """The f32 optimizer step at a head and window the 3xTF32 kernels take
+    (dim_head 64, window 128): captured and replayed by ``train_multi_step``
+    it gives the eager steps' losses, grad norms and parameters bit for bit,
+    every K1-fwd and K1-dkv launch on ``tf32x3``, every K1-dq on ``wmma``."""
+    cfg = ProGenConfig(num_tokens=256, dim=128, seq_len=256, depth=2, window_size=128,
+                       global_mlp_depth=1, heads=2, dim_head=64)
+    micros = torch.randint(1, 256, (2, 2, 1, 2, cfg.seq_len + 1), device="cuda",
+                           generator=gen)
+    runs = []
+    for fused in (False, True):
+        model = ProGen(cfg, make_policy(False), device="cuda", seed=6)
+        fns = make_train_functions(model, make_optimizer())
+        state = fns.init_state()
+        before = (dict(cuda_attention.fwd_route_launches),
+                  dict(cuda_attention.dq_route_launches),
+                  dict(cuda_attention.dkv_route_launches))
+        losses = []
+        for sb in micros:
+            if fused:
+                state, m = fns.train_multi_step(state, sb)
+                losses.append(m["loss"].reshape(-1))
+            else:
+                for i in range(sb.shape[0]):
+                    state, m = fns.train_step(state, sb[i, 0])
+                    losses.append(m["loss"].reshape(-1))
+        torch.cuda.synchronize()
+        after = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
+                 cuda_attention.dkv_route_launches)
+        routed = [{r: a[r] - b[r] for r in b if a[r] != b[r]} for a, b in zip(after, before)]
+        assert routed == [{"tf32x3": 4 * cfg.depth}, {"wmma": 4 * cfg.depth},
+                          {"tf32x3": 4 * cfg.depth}]
+        if fused:
+            assert fns.captured_program().captured
+        runs.append((torch.cat(losses), _state_tensors(state)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name, t in runs[0][1].items():
+        assert torch.equal(runs[1][1][name], t), name
 
 
 @pytest.mark.parametrize("policy", ["full", "dots", "attn"])

@@ -34,11 +34,13 @@ def _np(t):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_fwd_route_for_every_shipped_config(name):
     """bf16 takes the Hopper kernels in every config (K1-fwd but for
-    ``default``'s dim_head 32); f32 takes the first kernels everywhere."""
+    ``default``'s dim_head 32); f32 takes K1-fwd's 3xTF32 kernel where bf16
+    takes its wgmma one, K2-fwd's first kernel everywhere."""
     c = CONFIGS[name]
     want = "wmma" if name == "default" else "wgmma"
+    want_f32 = "wmma" if name == "default" else "tf32x3"
     assert cuda_attention.fwd_route(torch.bfloat16, c.dim_head, c.window_size) == want
-    assert cuda_attention.fwd_route(torch.float32, c.dim_head, c.window_size) == "wmma"
+    assert cuda_attention.fwd_route(torch.float32, c.dim_head, c.window_size) == want_f32
     assert cuda_sgu.fwd_route(torch.bfloat16) == "wgmma"
     assert cuda_sgu.fwd_route(torch.float32) == "fma"
 
@@ -52,8 +54,13 @@ def test_fwd_route_for_every_shipped_config(name):
     (torch.float32, 128, 256, "wmma"),
 ])
 def test_fwd_route_follows_the_backward_rule(dtype, d, wsz, route):
-    assert cuda_attention.fwd_route(dtype, d, wsz) == route
-    assert cuda_attention.bwd_route(dtype, d, wsz) == route
+    """``route`` is K1-dq's; K1-fwd takes K1-dkv's, which differs from it
+    only in f32 on the Hopper shapes (the 3xTF32 kernels)."""
+    assert cuda_attention.dq_route(dtype, d, wsz) == route
+    hopper = d in (64, 128) and wsz % 128 == 0
+    want = "tf32x3" if dtype == torch.float32 and hopper else route
+    assert cuda_attention.fwd_route(dtype, d, wsz) == want
+    assert cuda_attention.dkv_route(dtype, d, wsz) == want
 
 
 def _visible(n, wsz):
@@ -175,7 +182,10 @@ def _pick(name, library, n_tensors):
     (torch.bfloat16, 64, 256, "local_attention_fwd_wgmma"),
     (torch.bfloat16, 32, 128, "local_attention_fwd"),
     (torch.bfloat16, 128, 64, "local_attention_fwd"),
-    (torch.float32, 128, 128, "local_attention_fwd"),
+    (torch.float32, 128, 128, "local_attention_fwd_tf32x3"),
+    (torch.float32, 64, 256, "local_attention_fwd_tf32x3"),
+    (torch.float32, 32, 128, "local_attention_fwd"),
+    (torch.float32, 128, 64, "local_attention_fwd"),
 ])
 def test_k1_fwd_wrapper_picks_its_kernel_before_the_launch(monkeypatch, dtype, d, wsz, name):
     """On a CUDA tensor the wrapper asks for the kernel of its route, and
@@ -187,6 +197,32 @@ def test_k1_fwd_wrapper_picks_its_kernel_before_the_launch(monkeypatch, dtype, d
     with pytest.raises(_Picked, match=f"^{name}$"):
         cuda_attention.local_attention_fwd(q, q, q, wsz)
     assert (cuda_attention.launches, cuda_attention.fwd_route_launches) == before
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+def test_k1_wrappers_force_only_the_wmma_route(monkeypatch, kernel):
+    """``route="wmma"`` sends an f32 launch that ``tf32x3`` takes to the
+    first kernel (the smoke times it on the same inputs); a route that is
+    neither ``"wmma"`` nor the shape's own is refused before any launch."""
+    monkeypatch.setattr(cuda_attention, "_kernel_fn", _pick)
+    with FakeTensorMode():
+        q = torch.empty(1, 2, 256, 128, device="cuda")
+        lse = torch.empty(1, 2, 256, device="cuda")
+
+    def launch(route):
+        if kernel == "fwd":
+            return cuda_attention.local_attention_fwd(q, q, q, 128, route=route)
+        return cuda_attention.local_attention_bwd_dkv(q, q, q, q, lse, lse, 128, route=route)
+
+    name = "local_attention_fwd" if kernel == "fwd" else "local_attention_bwd_dkv"
+    for route, picked in ((None, name + "_tf32x3"), ("tf32x3", name + "_tf32x3"),
+                          ("wmma", name)):
+        with pytest.raises(_Picked, match=f"^{picked}$"):
+            launch(route)
+    before = (cuda_attention.launches, cuda_attention.dkv_launches)
+    with pytest.raises(ValueError, match="does not take this launch"):
+        launch("wgmma")
+    assert (cuda_attention.launches, cuda_attention.dkv_launches) == before
 
 
 @pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "sgu_fwd_wgmma"),

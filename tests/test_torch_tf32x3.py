@@ -1,0 +1,209 @@
+"""The design of K1's f32 route on the tensor cores (``"tf32x3"``: K1-fwd
+and K1-dkv, ``kernels/csrc/attention_tf32x3.cuh``), checked on the CPU.
+
+The kernels form every f32 product as three TF32 products: each operand
+``x`` split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, rounded as
+``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero, 10 mantissa
+bits), and ``a.b = lo_a.hi_b + hi_a.lo_b + hi_a.hi_b`` summed in f32.  Here
+that rounding and that split are emulated in torch, and put in place of
+every product of the plain K1-fwd and K1-dkv (``ops/local_attention.py``,
+whose twins stay plain f32): the emulated results, at 2 windows of 64 and
+``dim_head`` 64, with and without a halo, against JAX's
+``pallas_local_attention`` and its VJP in the Pallas interpreter, at the
+port's f32 bars (``out`` and ``lse`` 1e-4; ``dk`` and ``dv`` 1e-4 of their
+largest magnitude plus 1e-4 relative, and an RMS error within 1e-4 of
+their RMS, ``chip_smoke.py``'s ``TOL_GRAD`` and ``TOL_GRAD_RMS``).  One TF32
+product alone misses those bars.  The route functions are pinned for every
+shipped config, in f32 and bf16."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from progen_tpu.ops.pallas_attention import _forward_ext, pallas_local_attention_ext
+from progen_tpu_torch.models.configs import CONFIGS
+from progen_tpu_torch.ops import cuda_attention
+from progen_tpu_torch.ops.local_attention import (
+    ATTN_MASK_VALUE,
+    concat_previous_window,
+    window_mask,
+)
+
+torch.set_num_threads(1)
+
+B, H, N, WSZ, D = 2, 2, 128, 64, 64   # 2 windows of 64, dim_head 64
+TOL = 1e-4                             # the port's f32 bar
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: f32 rounded to 10 mantissa bits, to nearest,
+    ties away from zero (half an ulp added to the magnitude, the 13 low bits
+    cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels form it: three TF32 products, the small ones
+    first, summed in f32."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as one TF32 product."""
+    return tf32(a) @ tf32(b)
+
+
+def emulated_fwd(q, k, v, mm, k_halo=None, v_halo=None):
+    """The plain K1-fwd (``local_attention``) with its two products through
+    ``mm``: ``(out, lse)``."""
+    b, h, n, d = q.shape
+    w = n // WSZ
+    qw = q.reshape(b, h, w, WSZ, d)
+    kw = concat_previous_window(k.reshape(b, h, w, WSZ, d), k_halo)
+    vw = concat_previous_window(v.reshape(b, h, w, WSZ, d), v_halo)
+    sim = mm(qw, kw.transpose(-1, -2)) * d ** -0.5
+    sim = sim.masked_fill(~window_mask(WSZ), ATTN_MASK_VALUE)
+    out = mm(torch.softmax(sim, dim=-1), vw).reshape(b, h, n, d)
+    return out, torch.logsumexp(sim, dim=-1).reshape(b, h, n)
+
+
+def emulated_dkv(q, k, v, do, out, lse, mm, k_halo=None, v_halo=None):
+    """The plain K1-dkv (``local_attention_bwd``'s dk and dv) with its four
+    products through ``mm``: ``(dk, dv)``, with a halo ``(dk, dv, dk_halo,
+    dv_halo)``."""
+    b, h, n, d = q.shape
+    w, scale = n // WSZ, d ** -0.5
+    qw = q.reshape(b, h, w, WSZ, d)
+    dow = do.reshape(b, h, w, WSZ, d)
+    kw = concat_previous_window(k.reshape(b, h, w, WSZ, d), k_halo)
+    vw = concat_previous_window(v.reshape(b, h, w, WSZ, d), v_halo)
+    dd = (do * out).sum(-1).reshape(b, h, w, WSZ, 1)
+    sim = mm(kw, qw.transpose(-1, -2)).transpose(-1, -2) * scale    # s^T = k.q^T
+    sim = sim.masked_fill(~window_mask(WSZ), ATTN_MASK_VALUE)
+    p = torch.exp(sim - lse.reshape(b, h, w, WSZ, 1))
+    dp = mm(vw, dow.transpose(-1, -2)).transpose(-1, -2)            # dp^T = v.dout^T
+    ds = p * (dp - dd)
+    dkw = mm(ds.transpose(-1, -2), qw)                               # ds^T.q
+    dvw = mm(p.transpose(-1, -2), dow)                               # p^T.dout
+
+    def fold(t):  # key window m: its own half of query window m, the previous of m + 1
+        own, prev = t[..., WSZ:, :], t[..., :WSZ, :]
+        return own + torch.nn.functional.pad(prev[:, :, 1:], (0, 0, 0, 0, 0, 1))
+
+    dk = (fold(dkw) * scale).reshape(b, h, n, d)
+    dv = fold(dvw).reshape(b, h, n, d)
+    if k_halo is None:
+        return dk, dv
+    return dk, dv, dkw[:, :, 0, :WSZ] * scale, dvw[:, :, 0, :WSZ]
+
+
+def _inputs(halo: bool, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    names = ["q", "k", "v", "do"] + (["kh", "vh"] if halo else [])
+    shapes = [(B, H, N, D)] * 4 + [(B, H, WSZ, D)] * 2
+    return {name: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for name, s in zip(names, shapes)}
+
+
+def _jax(t: dict) -> dict:
+    """JAX's forward (out, lse) and VJP (dk, dv and the halo's) in the
+    Pallas interpreter, on ``[halo or the phantom zeros ‖ k]``."""
+    j = {name: jnp.asarray(x.numpy()) for name, x in t.items()}
+    front = [(j["kh"], j["vh"])] if "kh" in j else [(jnp.zeros((B, H, WSZ, D)),) * 2]
+    k_ext = jnp.concatenate([front[0][0], j["k"]], axis=2)
+    v_ext = jnp.concatenate([front[0][1], j["v"]], axis=2)
+    _, lse = _forward_ext(j["q"], k_ext, v_ext, WSZ, D ** -0.5, True)
+    f = lambda q, ke, ve: pallas_local_attention_ext(q, ke, ve, WSZ, D ** -0.5, True)
+    out, vjp = jax.vjp(f, j["q"], k_ext, v_ext)
+    _, dk_ext, dv_ext = vjp(j["do"])
+    got = {"out": out, "lse": lse, "dk": dk_ext[:, :, WSZ:], "dv": dv_ext[:, :, WSZ:]}
+    if "kh" in j:
+        got.update(dk_halo=dk_ext[:, :, :WSZ], dv_halo=dv_ext[:, :, :WSZ])
+    return {name: torch.from_numpy(np.array(x, np.float32)) for name, x in got.items()}
+
+
+def _emulated(t: dict, mm) -> dict:
+    halo = (t["kh"], t["vh"]) if "kh" in t else (None, None)
+    out, lse = emulated_fwd(t["q"], t["k"], t["v"], mm, *halo)
+    grads = emulated_dkv(t["q"], t["k"], t["v"], t["do"], out, lse, mm, *halo)
+    return {"out": out, "lse": lse, **dict(zip(("dk", "dv", "dk_halo", "dv_halo"), grads))}
+
+
+def _misses(got: dict, want: dict) -> dict:
+    """Each output's largest error over its bar (above 1 misses): ``out``
+    and ``lse`` at 1e-4 absolute plus 1e-4 relative; the gradients at 1e-4
+    of their largest magnitude plus 1e-4 relative, and their RMS error over
+    1e-4 of their RMS."""
+    ratios = {}
+    for name, w in want.items():
+        err = (got[name] - w).abs()
+        floor = TOL * (w.abs().max() if name not in ("out", "lse") else 1.0)
+        ratios[name] = float((err / (floor + TOL * w.abs())).max())
+        if name not in ("out", "lse"):
+            rms = lambda x: float(x.pow(2).mean().sqrt())
+            ratios[name + "_rms"] = rms(got[name] - w) / (TOL * rms(w))
+    return ratios
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_three_tf32_products_meet_the_f32_bars(halo):
+    """K1-fwd and K1-dkv with every product 3xTF32 against JAX's f32
+    kernels: every output within the port's f32 bars."""
+    t = _inputs(halo)
+    ratios = _misses(_emulated(t, mm3), _jax(t))
+    assert len(ratios) == (10 if halo else 6)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_one_tf32_product_misses_the_f32_bars(halo):
+    """The same with one TF32 product a product: some output misses."""
+    t = _inputs(halo)
+    ratios = _misses(_emulated(t, mm1), _jax(t))
+    assert max(ratios.values()) > 1.0, ratios
+
+
+def test_the_tf32_rounding_is_cvt_rna():
+    """To nearest with ties away from zero, at 10 mantissa bits: 1 + 2^-11
+    (a tie) goes up to 1 + 2^-10, as does its negative in magnitude; just
+    under a tie goes down; a TF32 value is kept; the split is exact."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 - 2 ** -20,
+                      1 + 3 * one_ulp, 3.0, 0.0, 1e-30])
+    want = torch.tensor([1 + one_ulp, -(1 + one_ulp), 1.0, 1 + 3 * one_ulp, 3.0, 0.0,
+                         float(tf32(torch.tensor([1e-30])))])
+    assert torch.equal(tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(1).normal(size=4096).astype(np.float32))
+    hi, lo = split(r)
+    assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
+    assert ((r - hi).abs() <= r.abs() * 2.0 ** -11).all()
+    assert ((r - hi - lo).abs() <= r.abs() * 2.0 ** -22).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_the_k1_routes_of_every_shipped_config(name, dtype):
+    """Every config but ``default`` (dim_head 32) has dim_head 64 or 128
+    and a window that is a multiple of 128: bf16 takes ``wgmma`` for all
+    three kernels, f32 ``tf32x3`` for K1-fwd and K1-dkv and ``wmma`` for
+    K1-dq; ``default`` takes ``wmma`` for all three in both."""
+    c = CONFIGS[name]
+    assert (c.dim_head in (64, 128) and c.window_size % 128 == 0) == (name != "default")
+    if name == "default":
+        want = ("wmma", "wmma", "wmma")
+    elif dtype == torch.bfloat16:
+        want = ("wgmma", "wgmma", "wgmma")
+    else:
+        want = ("tf32x3", "wmma", "tf32x3")
+    got = tuple(route(dtype, c.dim_head, c.window_size) for route in (
+        cuda_attention.fwd_route, cuda_attention.dq_route, cuda_attention.dkv_route))
+    assert got == want

@@ -316,11 +316,14 @@ def test_resource_report_needs_nvcc(monkeypatch):
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_bwd_route_of_every_shipped_config(config, dtype):
     """bf16 takes the Hopper kernels wherever dim_head is 64 or 128 and the
-    window a multiple of 128 (every config but ``default``); f32 always
-    takes the WMMA kernels."""
+    window a multiple of 128 (every config but ``default``); f32 takes the
+    3xTF32 kernel there for K1-dkv, and the WMMA kernels for K1-dq and
+    everywhere else."""
     c = CONFIGS[config]
     want = "wgmma" if dtype == torch.bfloat16 and config != "default" else "wmma"
-    assert cuda_attention.bwd_route(dtype, c.dim_head, c.window_size) == want
+    want_dkv = "tf32x3" if dtype == torch.float32 and config != "default" else want
+    assert cuda_attention.dq_route(dtype, c.dim_head, c.window_size) == want
+    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want_dkv
 
 
 @pytest.mark.parametrize("dtype,d,wsz,want", [
@@ -335,7 +338,12 @@ def test_bwd_route_of_every_shipped_config(config, dtype):
     (torch.float32, 64, 512, "wmma"),
 ])
 def test_bwd_route_of_odd_shapes(dtype, d, wsz, want):
-    assert cuda_attention.bwd_route(dtype, d, wsz) == want
+    """``want`` is K1-dq's route; K1-dkv's is the same but for f32 on the
+    Hopper shapes (dim_head 64 or 128, a window a multiple of 128)."""
+    assert cuda_attention.dq_route(dtype, d, wsz) == want
+    hopper = d in (64, 128) and wsz % 128 == 0
+    want_dkv = "tf32x3" if dtype == torch.float32 and hopper else want
+    assert cuda_attention.dkv_route(dtype, d, wsz) == want_dkv
 
 
 def _visible(n, wsz):
@@ -394,8 +402,9 @@ def test_k1_bwd_tile_walk_at_progen_small():
 @pytest.mark.parametrize("bad", ["q", "do", "lse"])
 def test_attention_backward_wrappers_refuse_misaligned_tensors(route, dtype, d, wsz, bad):
     """TMA copies and 16-byte loads need 16-byte-aligned tensors: a view one
-    element off is refused before any launch, on either route."""
-    assert cuda_attention.bwd_route(dtype, d, wsz) == route
+    element off is refused before any launch, on every route (``route`` is
+    K1-dq's; f32 at dim_head 128 sends K1-dkv on ``tf32x3``)."""
+    assert cuda_attention.dq_route(dtype, d, wsz) == route
     shape = (1, 2, 256, d)
     q, = _fake_cuda(shape, dtype=dtype)
     lse, = _fake_cuda(shape[:3])
@@ -404,7 +413,7 @@ def test_attention_backward_wrappers_refuse_misaligned_tensors(route, dtype, d, 
                                  torch.float32 if bad == "lse" else dtype)
     assert args[bad].is_contiguous() and args[bad].data_ptr() % 16 != 0
     before = (cuda_attention.dq_launches, cuda_attention.dkv_launches,
-              dict(cuda_attention.bwd_route_launches))
+              dict(cuda_attention.dq_route_launches), dict(cuda_attention.dkv_route_launches))
     with pytest.raises(ValueError, match="16-byte aligned"):
         cuda_attention.local_attention_bwd_dq(args["q"], q, q, args["do"], args["lse"],
                                               lse, wsz)
@@ -412,7 +421,7 @@ def test_attention_backward_wrappers_refuse_misaligned_tensors(route, dtype, d, 
         cuda_attention.local_attention_bwd_dkv(args["q"], q, q, args["do"], args["lse"],
                                                lse, wsz)
     assert (cuda_attention.dq_launches, cuda_attention.dkv_launches,
-            cuda_attention.bwd_route_launches) == before
+            cuda_attention.dq_route_launches, cuda_attention.dkv_route_launches) == before
 
 
 def check_ablation_applies(source: str, variant: str) -> None:
