@@ -20,18 +20,20 @@ non-zero without its last line:
    ("tf32x3": the serving and training shapes, the phantom window, the
    largest prefill) and the WMMA route (dim_head 32); K2-fwd in bf16 (the
    "wgmma" route) at both weight scales, batch 1 and 8, n = 1000, 512 and
-   100, and in f32; each forward case held to its route and run twice for
-   the same bits; K1-dq and K1-dkv also at the phantom window alone,
-   ProGen-tiny's head, ProGen-base's window, a window of 128 (all on the
-   Hopper "wgmma" route in bf16) and on the WMMA route (dim_head 32, a
-   window of 64), and in f32 (K1-dkv on "tf32x3", K1-dq on WMMA) at the
+   100, and in f32 on the 3xTF32 route ("tf32x3"); each forward case held
+   to its route and run twice for the same bits; K1-dq and K1-dkv also at
+   the phantom window alone, ProGen-tiny's head, ProGen-base's window, a
+   window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
+   route (dim_head 32, a window of 64), and in f32 (K1-dkv on "tf32x3", K1-dq on WMMA) at the
    training shape and the phantom window and on WMMA at dim_head 32, each
    run twice for the same bits and held to the route it must take; K2-dgate
    and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each run twice
-   for the same bits.  Every kernel is timed in bf16 and in f32, each f32
-   row with its bound restated for f32-accurate products (3 x FLOPs / 495
-   TFLOP/s) beside the CUDA cores' 67 TFLOP/s, and the tf32x3 rows beside
-   the WMMA kernel on the same inputs;
+   for the same bits and held to its route (bf16 "wgmma"; f32 K2-dW
+   "tf32x3", K2-dgate the FMA kernel), dW's strict upper triangle 0.  Every
+   kernel is timed in bf16 and in f32, each f32 row with its bound restated
+   for f32-accurate products (3 x FLOPs / 495 TFLOP/s) beside the CUDA
+   cores' 67 TFLOP/s, and the tf32x3 rows beside the first kernel (WMMA for
+   K1, FMA for K2) on the same inputs, K2-dW's with its split plan;
 4. serving path: ProGen-small at its full width and SERVE_DEPTH (3) of
    its 12 layers, the served model of phases 4-20 (weights drawn from a
    seed, bf16 compute), serves four primes through the chunked sampler (one parallel prefill
@@ -61,7 +63,7 @@ non-zero without its last line:
    force pauses and evictions; each run's launch counts (K3 or K3-q8 twice
    per decode step, all on the bulk route, K1-fwd/K2-fwd 3/2 (the layers
    and the gMLP layers) per admit program, on the Hopper route in bf16
-   and the first kernels in f32), pages returned,
+   and the tf32x3 kernels in f32), pages returned,
    prefix-cache hits, tokens/s and peak memory; 32 teacher-forced paged
    steps through K3 and K3-q8 against the same steps through the plain
    version; and, in f32 and greedy, the paged engine's tokens against the
@@ -270,7 +272,7 @@ non-zero without its last line:
    ``aot_warmup``, on 6, at least 0.98 of them
    (the identical share printed).  Each worker's kernels come from its
    exit line: K1-fwd 3 and K2-fwd 2 a handle in the prefill worker only
-   (f32 on ``tf32x3``/``fma``, bf16 on ``wgmma``), K3 or K3-q8 twice a
+   (f32 on ``tf32x3``, bf16 on ``wgmma``), K3 or K3-q8 twice a
    decode step on ``bulk`` in the replica only; no CRC failure or desync,
    no prefill in the replica; worker start-up, tokens/s, median time to
    first token, frames, bytes, ``ser_s`` and ``de_s`` a frame, handle
@@ -684,8 +686,9 @@ def attention_case(gen, b, h, n, d, wsz, dtype):
 
 def sgu_case(gen, b, n, d, weights, dtype):
     """K2-fwd against its plain version, on the route of its dtype (the
-    Hopper kernel for bf16), a second run the same bits."""
-    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    Hopper kernels: bf16 ``wgmma``, f32 ``tf32x3``), a second run the same
+    bits."""
+    route = k2_route("sgu_fwd", dtype)
     res, gate = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                  for _ in range(2))
     if weights == "init":  # the model's init scale U(+-1e-3/n): mix ~ bias
@@ -704,7 +707,7 @@ def sgu_case(gen, b, n, d, weights, dtype):
               "route": cuda_sgu.fwd_route(dtype), "want_route": route,
               "launches_by_route": routed, "out": result, "second_run_same_bits": same}
     emit("kernel_check", kernel="sgu_fwd", **fields)
-    require(result["ok"] and same and routed == {"wgmma": 0, "fma": 0, route: 1},
+    require(result["ok"] and same and routed == {**dict.fromkeys(routed, 0), route: 1},
             f"sgu_fwd disagrees with its plain version: {fields}")
     return (res, gate, w, bias), result["max_abs_err"]
 
@@ -731,8 +734,9 @@ K1_FWD_F32_CASES = (K1_FWD_CASES[0], K1_FWD_CASES[1], K1_FWD_CASES[2], K1_FWD_CA
 # K2-fwd's cases (b, n, d, weights) at ProGen-small's gMLP width d = 2048
 # unless given: both weight scales, batch 1 and 8, a ragged n (1000), the
 # main path's largest prefill (512), n = 100 under one tile with d = 520
-# (W padded to 16-byte rows on the Hopper route).  The second and third
-# are timed (serving and training shapes), in bf16 and in f32.
+# (W padded to 16-byte rows on the Hopper routes).  The second and third
+# are timed (serving and training shapes), in bf16 and in f32; f32 (the
+# tf32x3 route since PR 21) also takes batch 1 and the n = 100 case.
 K2_FWD_CASES = (
     (4, 1024, None, "init"),
     (4, 1024, None, "normal"),
@@ -743,7 +747,7 @@ K2_FWD_CASES = (
     (3, 100, 520, "normal"),
 )
 K2_FWD_F32_CASES = (K2_FWD_CASES[0], K2_FWD_CASES[1], K2_FWD_CASES[2], K2_FWD_CASES[4],
-                    K2_FWD_CASES[5])
+                    K2_FWD_CASES[5], K2_FWD_CASES[3], K2_FWD_CASES[6])
 # an f32 row's name: the kernel's counter and this suffix
 F32_SUFFIX = "_f32"
 
@@ -793,7 +797,8 @@ def attention_fwd_row(inputs, err, errs) -> dict:
 def sgu_fwd_row(inputs, err, errs) -> dict:
     """CUDA-event times of K2-fwd, its plain version and the library call
     ``res * (matmul(tril(W), gate) + b)`` (in f32 with TF32 off), with the
-    bound, on ``inputs``."""
+    bound, on ``inputs``; in f32 also the first (``fma``) kernel's time on
+    the same inputs."""
     res, gate, wts, bias = inputs
     b, n, dd = gate.shape
     ms = time_ms(lambda: cuda_sgu.spatial_gate_fwd(res, gate, wts, bias))
@@ -805,7 +810,7 @@ def sgu_fwd_row(inputs, err, errs) -> dict:
     flops = 2.0 * b * dd * tri + 2.0 * b * n * dd
     nbytes = (3.0 * b * n * dd + tri + n) * esize
     route = cuda_sgu.fwd_route(gate.dtype)
-    return {
+    row = {
         "name": row_name("sgu_fwd", gate.dtype), "route": "cuda", "fwd_route": route,
         "kernel_route": route,
         "source": "progen_tpu_torch/kernels/csrc/sgu_fwd.cu",
@@ -817,6 +822,10 @@ def sgu_fwd_row(inputs, err, errs) -> dict:
         "timed_shape": [b, n, dd], "timed_dtype": str(gate.dtype),
         "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
     }
+    if route == "tf32x3":
+        row["fma_route_ms"] = time_ms(
+            lambda: cuda_sgu.spatial_gate_fwd(res, gate, wts, bias, route="fma"))
+    return row
 
 
 def check_kernels() -> list[dict]:
@@ -849,8 +858,8 @@ def check_kernels() -> list[dict]:
             emit("kernel_time", **training)
             serving["at_train_shape"] = {key: training[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
-                "max_abs_err", *(k for k in ("bound_ms_cuda_cores", "wmma_route_ms")
-                                 if k in training))}
+                "max_abs_err", *(k for k in ("bound_ms_cuda_cores", "wmma_route_ms",
+                                             "fma_route_ms") if k in training))}
             rows.append(serving)
     return rows
 
@@ -917,23 +926,38 @@ def attention_bwd_case(gen, b, h, n, d, wsz, dtype):
     return (q, k, v, do, out, lse, dd), res
 
 
+K2_BWD_ROUTES = {"sgu_bwd_dgate": "dgate", "sgu_bwd_dw": "dw"}
+
+
 def sgu_bwd_case(gen, b, n, d, dtype):
+    """K2-dgate and K2-dW against their plain versions, each on the route
+    its dtype must take (``k2_route``), dW's strict upper triangle 0, and a
+    second run the same bits (no atomics)."""
     res, gate, dout = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
     w = (torch.randn(n, n, device="cuda", generator=gen) * 0.05).to(dtype)
+    before = {name: read_routes()[name] for name in K2_BWD_ROUTES}
     dgate = cuda_sgu.spatial_gate_dgate(w, dout, res)
     dw = cuda_sgu.spatial_gate_dw(dout, res, gate)
     torch.cuda.synchronize()
+    after = read_routes()
+    routed = {name: {r: after[name][r] - before[name][r] for r in before[name]}
+              for name in K2_BWD_ROUTES}
+    route = {name: k2_route(name, dtype) for name in K2_BWD_ROUTES}
     checks = {"dgate": close_scaled(dgate, spatial_gate_dgate(w, dout, res), dtype),
               "dw": close_scaled(dw, spatial_gate_dw(dout, res, gate), dtype)}
     upper = int(torch.count_nonzero(torch.triu(dw, 1)))
     # no atomics and a fixed order of every sum: a second run, same bits
     same = (torch.equal(cuda_sgu.spatial_gate_dgate(w, dout, res), dgate)
             and torch.equal(cuda_sgu.spatial_gate_dw(dout, res, gate), dw))
-    fields = {"shape": [b, n, d], "dtype": str(dtype), **checks,
+    fields = {"shape": [b, n, d], "dtype": str(dtype),
+              "route": {"dgate": cuda_sgu.dgate_route(dtype), "dw": cuda_sgu.dw_route(dtype)},
+              "want_route": route, "launches_by_route": routed, **checks,
               "dw_nonzero_above_diagonal": upper, "second_run_same_bits": same}
     emit("kernel_check", kernel="sgu_bwd", **fields)
-    require(checks["dgate"]["ok"] and checks["dw"]["ok"] and upper == 0 and same,
+    require(checks["dgate"]["ok"] and checks["dw"]["ok"] and upper == 0 and same
+            and all(routed[name] == {**dict.fromkeys(routed[name], 0), route[name]: 1}
+                    for name in K2_BWD_ROUTES),
             f"sgu_bwd disagrees with its plain version: {fields}")
     return (res, gate, dout, w), checks
 
@@ -1000,7 +1024,8 @@ def k1_bwd_rows(inputs, res, errs) -> list[dict]:
 def sgu_bwd_rows(inputs, res, errs) -> list[dict]:
     """CUDA-event times of K2-dgate and K2-dW at one timed case, beside
     their plain versions and one library call each (in f32 with TF32 off),
-    with the bounds."""
+    with the bounds; K2-dW on ``tf32x3`` also on the first (``fma``)
+    kernel, and its split plan on its route."""
     res_, gate, dout, w = inputs
     b, n, dd_ = gate.shape
     esize = gate.element_size()
@@ -1010,17 +1035,20 @@ def sgu_bwd_rows(inputs, res, errs) -> list[dict]:
     gate_flat = gate.transpose(0, 1).reshape(n, b * dd_)
     rows = []
     for name, fn, plain, library, nbytes, line in (
-            ("sgu_bwd_dgate", lambda: cuda_sgu.spatial_gate_dgate(w, dout, res_),
+            ("sgu_bwd_dgate", lambda route=None: cuda_sgu.spatial_gate_dgate(
+                w, dout, res_, route=route),
              lambda: spatial_gate_dgate(w, dout, res_),
              lambda: torch.matmul(torch.tril(w).T, dout * res_),
              (3.0 * b * n * dd_ + tri) * esize, 150),
-            ("sgu_bwd_dw", lambda: cuda_sgu.spatial_gate_dw(dout, res_, gate),
+            ("sgu_bwd_dw", lambda route=None: cuda_sgu.spatial_gate_dw(
+                dout, res_, gate, route=route),
              lambda: spatial_gate_dw(dout, res_, gate),
              lambda: torch.tril(dmix_flat() @ gate_flat.T),
              (3.0 * b * n * dd_ + n * n) * esize, 170)):
-        key = name.split("_")[-1]
+        key = K2_BWD_ROUTES[name]
+        route = k2_route(name, gate.dtype)
         rows.append({
-            "name": row_name(name, gate.dtype), "route": "cuda",
+            "name": row_name(name, gate.dtype), "route": "cuda", "kernel_route": route,
             "source": "progen_tpu_torch/kernels/csrc/sgu_bwd.cu",
             "replaces": f"progen_tpu/ops/pallas_sgu.py:{line}",
             "launches": None, "max_abs_err": res[key]["max_abs_err"],
@@ -1030,10 +1058,14 @@ def sgu_bwd_rows(inputs, res, errs) -> list[dict]:
             "timed_shape": [b, n, dd_], "timed_dtype": str(gate.dtype),
             "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs[key]),
         })
+        if route == "tf32x3":
+            rows[-1]["fma_route_ms"] = time_ms(lambda: fn("fma"))
         if key == "dw":  # the split reduction's plan and workspace at this shape
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            splits, _ = cuda_sgu.dw_split(b, n, dd_, sms)
-            rows[-1].update(splits=splits, sms=sms,
+            splits, _ = cuda_sgu.dw_split(b, n, dd_, sms, route)
+            side = -(-n // cuda_sgu.DW_TILE)
+            rows[-1].update(splits=splits, sms=sms, blocks=splits * side * (side + 1) // 2,
+                            channel_step=cuda_sgu.DW_PLAN[route][0],
                             workspace_bytes=4 * cuda_sgu.dw_workspace_numel(n, splits))
         emit("kernel_time", **rows[-1])
     return rows
@@ -1063,8 +1095,10 @@ def check_backward_kernels() -> list[dict]:
 
     half = c.dim * c.ff_mult // 2
     # besides the training shape: batch 1, a ragged n, n = 100 (under one
-    # tile, W padded to 16-byte rows), d = 520 (a ragged channel step)
-    edges = ((1, c.seq_len, half), (b, 1000, half), (3, 100, 520), (2, 1000, 520))
+    # tile, W padded to 16-byte rows), d = 520 (a ragged channel step), the
+    # ragged ones at batch 1 too
+    edges = ((1, c.seq_len, half), (b, 1000, half), (3, 100, 520), (2, 1000, 520),
+             (1, 100, 520), (1, 1000, half))
     for dtype in (torch.bfloat16, torch.float32):
         errs = {"dgate": [], "dw": []}
         timed, timed_res = sgu_bwd_case(gen, b, c.seq_len, half, dtype)
@@ -1137,6 +1171,8 @@ ROUTE_COUNTERS = {
     "local_attention_bwd_dq": (cuda_attention, "dq_route_launches"),
     "local_attention_bwd_dkv": (cuda_attention, "dkv_route_launches"),
     "sgu_fwd": (cuda_sgu, "fwd_route_launches"),
+    "sgu_bwd_dgate": (cuda_sgu, "dgate_route_launches"),
+    "sgu_bwd_dw": (cuda_sgu, "dw_route_launches"),
     "paged_gate_mix": (cuda_paged_gate_mix, "route_launches"),
 }
 # every launch by route over the whole smoke, the checks' included: each
@@ -1154,6 +1190,17 @@ def k1_route(kernel: str, dtype, d: int, wsz: int) -> str:
     if dtype == torch.bfloat16:
         return "wgmma"
     return "wmma" if kernel == "dq" else "tf32x3"
+
+
+# the route each K2 kernel must take in f32 (bf16: "wgmma" for all three)
+K2_F32_ROUTES = {"sgu_fwd": "tf32x3", "sgu_bwd_dgate": "fma", "sgu_bwd_dw": "tf32x3"}
+
+
+def k2_route(kernel: str, dtype) -> str:
+    """The route a K2 launch must take: ``wgmma`` in bf16; in f32
+    ``tf32x3`` for K2-fwd and K2-dW, ``fma`` for K2-dgate.  ``kernel``: a
+    counter name (``"sgu_fwd"``, ``"sgu_bwd_dgate"``, ``"sgu_bwd_dw"``)."""
+    return "wgmma" if dtype == torch.bfloat16 else K2_F32_ROUTES[kernel]
 
 
 def fold_routes() -> None:
@@ -1186,8 +1233,8 @@ def require_forward_routes(routes: dict, launches: dict, hopper: bool, what: str
     """Every K1-fwd and K2-fwd launch of a run went through the bf16 Hopper
     kernels (``hopper``, bf16 at ProGen-small) or through the f32 ones
     (K1-fwd on ``tf32x3`` at ProGen-small's head and window, K2-fwd on
-    ``fma``)."""
-    for name, f32 in (("local_attention_fwd", "tf32x3"), ("sgu_fwd", "fma")):
+    ``tf32x3``)."""
+    for name, f32 in (("local_attention_fwd", "tf32x3"), ("sgu_fwd", "tf32x3")):
         route = "wgmma" if hopper else f32
         want = {**dict.fromkeys(routes[name], 0), route: launches[name]}
         require(routes[name] == want,
@@ -1198,12 +1245,14 @@ K1_BWD_ROUTES = {"local_attention_bwd_dq": "dq", "local_attention_bwd_dkv": "dkv
 
 
 def require_backward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
-    """Every K1-dq and K1-dkv launch of a run at ProGen-small's head and
-    window went through the route of its precision: bf16 ``wgmma`` for
-    both, f32 ``wmma`` for K1-dq and ``tf32x3`` for K1-dkv."""
-    for name, kernel in K1_BWD_ROUTES.items():
-        route = k1_route(kernel, torch.bfloat16 if hopper else torch.float32,
-                         SMALL.dim_head, SMALL.window_size)
+    """Every K1-dq, K1-dkv, K2-dgate and K2-dW launch of a run at
+    ProGen-small's head and window went through the route of its precision:
+    bf16 ``wgmma`` for all four; f32 ``wmma`` for K1-dq, ``tf32x3`` for
+    K1-dkv and K2-dW, ``fma`` for K2-dgate."""
+    dtype = torch.bfloat16 if hopper else torch.float32
+    for name in (*K1_BWD_ROUTES, *K2_BWD_ROUTES):
+        route = (k1_route(K1_BWD_ROUTES[name], dtype, SMALL.dim_head, SMALL.window_size)
+                 if name in K1_BWD_ROUTES else k2_route(name, dtype))
         want = {**dict.fromkeys(routes[name], 0), route: launches[name]}
         require(routes[name] == want,
                 f"{what}: {name} launches by route {routes[name]}, want {want}")
@@ -5177,7 +5226,7 @@ def decode_mesh_phase(smi: str, unmeshed_engine: dict | None = None) -> dict:
         kernel = row["name"].removesuffix(f"_tp{RANK_TENSOR}")
         row["launches"] = two_ranks["launches"][kernel]
         row["launches_of"] = ("the two gloo tp ranks' f32 run, rank 0: K1 and K2-fwd on "
-                              "their f32 routes (tf32x3, fma), K3 and K3-q8 on bulk; the "
+                              "their f32 routes (tf32x3), K3 and K3-q8 on bulk; the "
                               "times are the bf16 routes'")
         row["launches_by_path"] = {"decode_mesh_two_ranks_f32": two_ranks["launches"][kernel],
                                    "decode_mesh_world_1_whole_width": launches[kernel]}
@@ -5294,13 +5343,13 @@ def worker_launch_checks(label: str, exits: dict, workers: dict, bf16: bool,
                          quantize, depth: int = SERVED.depth) -> tuple[dict, dict]:
     """Each worker's exit-line launches held to its formula: a prefill
     worker K1-fwd ``depth`` and K2-fwd 2 times a handle it made (f32 on
-    ``tf32x3``/``fma``, bf16 on ``wgmma``), a decode replica (or each member
+    ``tf32x3``, bf16 on ``wgmma``), a decode replica (or each member
     of a replica group, at its rank's width) K3 or K3-q8 twice a decode
     step, all on ``bulk``; nothing else anywhere.  ``workers``: each
     worker's last stats frame.  Returns the launches and K3's routes summed
     over the workers, and each worker's launches."""
     mix = "paged_gate_mix_q8" if quantize == "weights+pages" else "paged_gate_mix"
-    fwd_route = ("wgmma", "wgmma") if bf16 else ("tf32x3", "fma")
+    fwd_route = ("wgmma", "wgmma") if bf16 else ("tf32x3", "tf32x3")
     gmlp = SERVED.global_mlp_depth
     total = dict.fromkeys(COUNTERS, 0)
     by_route = dict.fromkeys(cuda_paged_gate_mix.route_launches, 0)
@@ -5818,7 +5867,7 @@ def analysis_alone() -> dict:
 def f32_row_launches(row: dict, phases: dict) -> None:
     """An f32 row's launches: its kernel's launches on the row's route in
     the f32 runs of the meshed Trainer (phases 11 and 16, ProGen-small's
-    head and window; K2-dgate and K2-dW have one f32 kernel each)."""
+    head and window)."""
     counter = row["name"].removesuffix(F32_SUFFIX)
     by_path = {}
     for path, result in phases.items():

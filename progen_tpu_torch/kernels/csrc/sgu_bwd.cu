@@ -6,10 +6,15 @@
 // dout * res rounded to the compute dtype before the f32 product
 // (pallas_sgu.py:162) and the sum cast once to dout's dtype.
 //
-// sgu_bwd_dw_split (bf16) and sgu_bwd_dw (f32) replace pallas_sgu.py:
-// _dw_kernel (launched by _backward_dw): d_W = tril(sum_b (dout * res)_b .
-// gate_b^T), the sum in f32 and cast once to W's dtype, the whole strict
-// upper triangle exactly 0 (pallas_sgu.py:298-300).
+// sgu_bwd_dw_wgmma (bf16), sgu_bwd_dw_tf32x3 (f32) and sgu_bwd_dw (f32, the
+// first kernel) replace pallas_sgu.py:_dw_kernel (launched by
+// _backward_dw): d_W = tril(sum_b (dout * res)_b . gate_b^T), the sum in
+// f32 and cast once to W's dtype, the whole strict upper triangle exactly 0
+// (pallas_sgu.py:298-300).
+//
+// Each route has its own extern "C" name (K2-dgate: sgu_bwd_dgate_wgmma
+// for bf16, sgu_bwd_dgate for f32); cuda_sgu.dgate_route and dw_route pick
+// one from the dtype before the launch, and none falls back to another.
 //
 // d_res is the forward kernel with dout in place of res and d_b a plain
 // reduction, as in the TPU package (pallas_sgu.py:316-335).
@@ -54,8 +59,28 @@
 //    staged in shared memory and written in 16-byte stores.
 // W's rows are ceil8(n) elements apart (the wrapper pads W when n % 8 != 0:
 // TMA needs 16-byte strides); d % 8 == 0 and 16-byte-aligned tensors are
-// required.  The f32 path, which serves the comparisons, keeps FMA loops
-// over the forward's tiles (sgu_tile.cuh) and one block per d_W tile.
+// required.
+//
+// f32 d_W on the tensor cores (the "tf32x3" route): every product as three
+// TF32 products (tf32x3.cuh), so the bound is 3 x FLOPs / 495 TFLOP/s
+// (0.104 ms at ProGen-small, B = 8), and the bf16 route's split reduction:
+// one 128 x 128 tile of the lower triangle per block, the (batch, channel)
+// axis in `splits` ranges of 32-channel steps so that tiles * splits blocks
+// fill the SMs at two blocks an SM (7 splits, 252 blocks at ProGen-small),
+// the f32 partials into the workspace and the same ordered sum
+// (sgu_dw_reduce_kernel<float>): no atomics, the same bits every run.  256
+// threads; a ring of 2 cp.async stages of dout's, res's and gate's (128,
+// 32) tiles in rows of 36 words, rows past n and channels past d
+// zero-filled.  Each warp owns 64 rows m x 32 columns k: per 8-deep slice
+// it splits 4 B fragments of gate (load_b_rows, K-major) and, one at a
+// time, 4 A fragments of dout * res, the product formed in f32 as the
+// fragment loads (rounded to f32 before it is split, as JAX forms dmix),
+// each A feeding 12 mma.sync.  In a diagonal tile the two warps whose
+// columns all lie past their rows skip the products and write zeros.
+//
+// The f32 "fma" kernels, K2-dgate's route and K2-dW's first kernel (timed
+// beside tf32x3), keep FMA loops over the forward's tiles (sgu_tile.cuh),
+// one block per d_W tile.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -65,6 +90,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "sgu_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -196,9 +222,10 @@ sgu_dw_partial_kernel(const __grid_constant__ CUtensorMap dout_map,
   }
 }
 
-// d_W[m][k] = bf16(sum over splits s, in order, of the partials), 0 where
+// d_W[m][k] = T(sum over splits s, in order, of the partials), 0 where
 // k > m; one thread per 4 neighbouring entries of a row.
-__global__ void sgu_dw_reduce_kernel(const float* __restrict__ work, bf16* __restrict__ dw,
+template <typename T>
+__global__ void sgu_dw_reduce_kernel(const float* __restrict__ work, T* __restrict__ dw,
                                      int n, int tiles, int splits) {
   using dwk::TILE;
   const int quads = (n + 3) / 4;
@@ -221,12 +248,130 @@ __global__ void sgu_dw_reduce_kernel(const float* __restrict__ work, bf16* __res
     }
   }
   const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
-  bf16* row = dw + static_cast<size_t>(m) * n;
+  T* row = dw + static_cast<size_t>(m) * n;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int k = k0 + e;
-    if (k < n) row[k] = __float2bfloat16(k <= m ? vals[e] : 0.0f);
+    if (k < n) row[k] = from_f<T>(k <= m ? vals[e] : 0.0f);
   }
+}
+
+template <typename T>
+cudaError_t launch_dw_reduce(const void* work, void* dw, int n, int tiles, int splits,
+                             cudaStream_t stream) {
+  const long long quads = static_cast<long long>(n) * ((n + 3) / 4);
+  sgu_dw_reduce_kernel<T><<<static_cast<unsigned>((quads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(work), static_cast<T*>(dw), n, tiles, splits);
+  return cudaGetLastError();
+}
+
+// -- f32 d_W on the tensor cores: 3xTF32 (the "tf32x3" route) ------------------
+
+namespace dw3 {
+namespace t3 = progen::tf32x3;
+constexpr int TILE = 128;                  // d_W tile: rows m, columns k
+constexpr int STEP = 32;                   // channels per step
+constexpr int THREADS = 256;               // 8 warps: 2 (rows m) x 4 (columns k)
+constexpr int STAGES = 2;
+constexpr int LD = STEP + 4;               // tile rows, words: loads in distinct banks
+constexpr int OPERAND = TILE * LD;         // words of one (128, 32) tile
+constexpr int STAGE = 3 * OPERAND;         // dout, res, gate
+constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;  // 110,592 B
+
+// A from 16 rows of dout's and res's tiles: (dout * res) rounded to f32,
+// then split.
+__device__ __forceinline__ void load_a_mul(t3::FragA& f, const float* a, const float* r,
+                                           int ld) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int at[4] = {g * ld + t, (g + 8) * ld + t, g * ld + t + 4, (g + 8) * ld + t + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) t3::split(a[at[e]] * r[at[e]], f.hi[e], f.lo[e]);
+}
+}  // namespace dw3
+
+// Block (tile t, split s) as the bf16 kernel's: t = mi (mi + 1) / 2 + ki,
+// blockIdx.x = s * tiles + t, split s takes the 32-channel steps
+// [s * steps / splits, (s + 1) * steps / splits), step j reading batch row
+// j / chunks, channels (j % chunks) * 32 on.  Writes its f32 partial tile
+// to work[(s * tiles + t) * 128 * 128 ...], row-major.
+__global__ void __launch_bounds__(dw3::THREADS, 2)
+sgu_dw_tf32x3_kernel(const float* __restrict__ dout, const float* __restrict__ res,
+                     const float* __restrict__ gate, float* __restrict__ work, int n, int d,
+                     int tiles, int chunks, int steps, int splits) {
+  using namespace dw3;
+  extern __shared__ __align__(16) float smem_f[];
+
+  const int t = blockIdx.x % tiles;
+  const int split = blockIdx.x / tiles;
+  int mi = 0;
+  while ((mi + 1) * (mi + 2) / 2 <= t) ++mi;
+  const int ki = t - mi * (mi + 1) / 2;
+  const int m0 = mi * TILE, k0 = ki * TILE;
+  const int first = static_cast<int>(static_cast<long long>(split) * steps / splits);
+  const int last = static_cast<int>(static_cast<long long>(split + 1) * steps / splits);
+
+  auto load = [&](int j) {  // step j into its stage
+    float* st = smem_f + ((j - first) % STAGES) * STAGE;
+    const size_t off = static_cast<size_t>(j / chunks) * n * d;
+    const int c0 = (j % chunks) * STEP;
+    t3::copy_tile<TILE, STEP, LD, THREADS>(st, dout + off, d, m0, c0, n, d);
+    t3::copy_tile<TILE, STEP, LD, THREADS>(st + OPERAND, res + off, d, m0, c0, n, d);
+    t3::copy_tile<TILE, STEP, LD, THREADS>(st + 2 * OPERAND, gate + off, d, k0, c0, n, d);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (first + s < last) load(first + s);
+    progen::hopper::cp_async_commit();  // empty groups keep the count
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = 64 * (warp / 4);  // the warp's first row m in the tile
+  const int wc = 32 * (warp % 4);  // its first column k
+  // nothing to compute: every column past every row (in a diagonal tile),
+  // or rows or columns all past n
+  const bool idle = (mi == ki && wc > wr + 63) || m0 + wr >= n || k0 + wc >= n;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+  for (int j = first; j < last; ++j) {
+    progen::hopper::cp_async_wait<STAGES - 2>();  // step j has landed (this thread's part)
+    __syncthreads();  // every part has; every warp is done with step j - 1's stage
+    if (j + STAGES - 1 < last) load(j + STAGES - 1);
+    progen::hopper::cp_async_commit();
+    if (idle) continue;
+    const float* st = smem_f + ((j - first) % STAGES) * STAGE;
+    const float* as = st + wr * LD;
+    const float* rs = st + OPERAND + wr * LD;
+    const float* gs = st + 2 * OPERAND + wc * LD;
+#pragma unroll
+    for (int kk = 0; kk < STEP / 8; ++kk) {
+      t3::FragB bf[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t3::load_b_rows(bf[c], gs + 8 * c * LD + 8 * kk, LD);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        t3::FragA af;
+        load_a_mul(af, as + 16 * i * LD + 8 * kk, rs + 16 * i * LD + 8 * kk, LD);
+        t3::mma3<4>(acc[i], af, bf);
+      }
+    }
+  }
+  progen::hopper::cp_async_wait<0>();
+
+  // element (i, c, 2 h + x): row wr + 16 i + g + 8 h, column wc + 8 c + 2 t + x
+  float* out = work + (static_cast<size_t>(split) * tiles + t) * TILE * TILE;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        *reinterpret_cast<float2*>(out + (wr + 16 * i + g + 8 * h) * TILE + wc + 8 * c + 2 * q) =
+            make_float2(acc[i][c][2 * h], acc[i][c][2 * h + 1]);
+      }
 }
 
 // -- bf16 d_gate ----------------------------------------------------------------
@@ -557,10 +702,28 @@ cudaError_t launch_dw_bf16(const void* dout, const void* res, const void* gate, 
       dout_map, res_map, gate_map, static_cast<float*>(work), tiles, chunks, steps, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long quads = static_cast<long long>(n) * ((n + 3) / 4);
-  sgu_dw_reduce_kernel<<<static_cast<unsigned>((quads + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(work), static_cast<bf16*>(dw), n, tiles, splits);
-  return cudaGetLastError();
+  return launch_dw_reduce<bf16>(work, dw, n, tiles, splits, stream);
+}
+
+cudaError_t launch_dw_tf32x3(const void* dout, const void* res, const void* gate, void* work,
+                             void* dw, int batch, int n, int d, int splits,
+                             cudaStream_t stream) {
+  const int side = ceil_div(n, dw3::TILE);
+  const int tiles = side * (side + 1) / 2;
+  const int chunks = ceil_div(d, dw3::STEP);
+  const int steps = batch * chunks;
+  if (splits < 1 || splits > steps) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(sgu_dw_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(dw3::SMEM));
+  if (err != cudaSuccess) return err;
+  sgu_dw_tf32x3_kernel<<<tiles * splits, dw3::THREADS, dw3::SMEM, stream>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(res),
+      static_cast<const float*>(gate), static_cast<float*>(work), n, d, tiles, chunks, steps,
+      splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dw_reduce<float>(work, dw, n, tiles, splits, stream);
 }
 
 cudaError_t launch_dw_f32(const void* dout, const void* res, const void* gate, void* dw,
@@ -582,28 +745,29 @@ bool bad_shape(int batch, int n, int d) {
 
 }  // namespace
 
-// w: (n, n) with rows ceil8(n) elements apart; dout, res, dgate: (batch, n, d)
-// contiguous; one dtype, 0 = float32, 1 = bfloat16; d a multiple of 8, every
-// pointer 16-byte aligned.  Returns the CUDA error code of the launch (0 = ok).
-extern "C" int sgu_bwd_dgate(const void* w, const void* dout, const void* res,
-                             void* dgate, int batch, int n, int d, int dtype,
-                             void* stream) {
-  if (bad_shape(batch, n, d)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_dgate_f32(w, dout, res, dgate, batch, n, d, s);
-  } else if (dtype == 1) {
-    err = launch_dgate_bf16(w, dout, res, dgate, batch, n, d, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+// The wgmma route of K2-dgate: bfloat16 only (dtype 1); w (n, n) with rows
+// ceil8(n) elements apart; dout, res, dgate (batch, n, d) contiguous; d a
+// multiple of 8, every pointer 16-byte aligned.  Returns the CUDA error code
+// of the launch (0 = ok).
+extern "C" int sgu_bwd_dgate_wgmma(const void* w, const void* dout, const void* res,
+                                   void* dgate, int batch, int n, int d, int dtype,
+                                   void* stream) {
+  if (bad_shape(batch, n, d) || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dgate_bf16(w, dout, res, dgate, batch, n, d,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
-// dout, res, gate: (batch, n, d) contiguous; dw: (n, n); float32 only
-// (dtype 0; bfloat16 takes a workspace: sgu_bwd_dw_split).  Returns the CUDA
-// error code of the launch (0 = ok).
+// The fma route of K2-dgate: float32 only (dtype 0), the same layout.
+extern "C" int sgu_bwd_dgate(const void* w, const void* dout, const void* res, void* dgate,
+                             int batch, int n, int d, int dtype, void* stream) {
+  if (bad_shape(batch, n, d) || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dgate_f32(w, dout, res, dgate, batch, n, d,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// The fma route of K2-dW: dout, res, gate (batch, n, d) contiguous; dw
+// (n, n); float32 only (dtype 0).  Returns the CUDA error code of the
+// launch (0 = ok).
 extern "C" int sgu_bwd_dw(const void* dout, const void* res, const void* gate,
                           void* dw, int batch, int n, int d, int dtype,
                           void* stream) {
@@ -612,16 +776,25 @@ extern "C" int sgu_bwd_dw(const void* dout, const void* res, const void* gate,
       launch_dw_f32(dout, res, gate, dw, batch, n, d, static_cast<cudaStream_t>(stream)));
 }
 
-// bfloat16 d_W over `splits` ranges of the (batch, channel) axis: dout, res,
-// gate (batch, n, d) contiguous, 16-byte aligned, d a multiple of 8; work an
-// f32 workspace of splits * T * 128 * 128 entries, T = t (t + 1) / 2 and
-// t = ceil(n / 128); dw (n, n).  1 <= splits <= batch * ceil(d / 64).  Two
-// launches: the partial products, then their sum.  Returns the CUDA error
-// code (0 = ok).
-extern "C" int sgu_bwd_dw_split(const void* dout, const void* res, const void* gate,
+// The wgmma (bfloat16) and tf32x3 (float32) routes of K2-dW, over `splits`
+// ranges of the (batch, channel) axis: dout, res, gate (batch, n, d)
+// contiguous, 16-byte aligned, d a multiple of 8; work an f32 workspace of
+// splits * T * 128 * 128 entries, T = t (t + 1) / 2 and t = ceil(n / 128);
+// dw (n, n) in the inputs' dtype.  1 <= splits <= batch * ceil(d / step),
+// step 64 (wgmma) or 32 (tf32x3).  Two launches: the partial products,
+// then their sum.  Return the CUDA error code (0 = ok).
+extern "C" int sgu_bwd_dw_wgmma(const void* dout, const void* res, const void* gate,
                                 void* work, void* dw, int batch, int n, int d,
                                 int splits, void* stream) {
   if (bad_shape(batch, n, d)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_dw_bf16(dout, res, gate, work, dw, batch, n, d, splits,
                                          static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int sgu_bwd_dw_tf32x3(const void* dout, const void* res, const void* gate,
+                                 void* work, void* dw, int batch, int n, int d,
+                                 int splits, void* stream) {
+  if (bad_shape(batch, n, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dw_tf32x3(dout, res, gate, work, dw, batch, n, d, splits,
+                                           static_cast<cudaStream_t>(stream)));
 }

@@ -15,8 +15,8 @@
 // flops/byte ridge, so the bound is the bytes (0.0153 ms at B = 4), if only
 // just (8.6 GFLOP, 0.0087 ms at the bf16 peak).
 //
-// Two routes, chosen before the launch by cuda_sgu.fwd_route from the dtype,
-// each under its own extern "C" name:
+// Three routes, under their own extern "C" names; cuda_sgu.fwd_route picks
+// one from the dtype before the launch (bf16 "wgmma", f32 "tf32x3"):
 //
 // "wgmma" (sgu_fwd_wgmma, bf16): K2-dgate's machinery (sgu_bwd.cu) pointed
 // the other way.  288 threads: two consumer warpgroups of 64 output rows m
@@ -43,11 +43,31 @@
 // pads W), d % 8 == 0 and 16-byte-aligned tensors are required.  Each
 // output element is written once: no atomics, the same bits every run.
 //
-// "fma" (sgu_fwd, f32: the comparison path): one block of 4 warps per (64
-// output rows, 128 columns, batch row) walking the column tiles k <= its
-// own; the tril predicate zeroes W above the diagonal as the tile is
-// loaded; FMA loops with an 8x8 register tile per thread.  Nothing is
-// pipelined.
+// "tf32x3" (sgu_fwd_tf32x3, f32): the product on the tensor cores to close
+// to f32 accuracy as three TF32 products (tf32x3.cuh), so its bound is
+// 3 x FLOPs / 495 TFLOP/s (0.104 ms at B = 8), not the bytes.  256 threads,
+// two blocks an SM; a block owns the bf16 route's (batch row, 128 rows m,
+// 128 channels) tile in the same longest-first order (fw::block_tile) and
+// walks the 32-deep k steps of the triangle, k < min(m0 + 128, n): a ring
+// of 2 cp.async stages, W's (128 m, 32 k) tile in rows of 36 words and
+// gate's (32 k, 128 channels) tile in rows of 136 (so that the (k, n) B
+// loads, rows t and t + 4, fall in distinct banks), rows past n and
+// channels past d zero-filled.  Each warp owns 64 rows x 32 channels: per
+// 8-deep slice it splits 4 B fragments and, one at a time, 4 A fragments,
+// each feeding 12 mma.sync m16n8k8 (three products on four accumulators),
+// so a split value feeds 4 (A) or 12 (B) products.  A warp's steps wholly
+// below its rows' diagonal run unmasked; the two that cross it (k0 = r0,
+// r0 + 32) zero W's entries k > m in registers as the fragments load; the
+// steps past its rows are skipped.  The epilogue runs in registers in the
+// TPU's order, res * (acc + b[m]), one 8-byte store of each pair of output
+// elements.  No atomics: the same bits every run.  W's rows must be ceil8(n)
+// elements apart (the wrapper pads W), d % 8 == 0, 16-byte-aligned tensors.
+//
+// "fma" (sgu_fwd, f32: the first kernel, timed beside tf32x3): one block
+// of 4 warps per (64 output rows, 128 columns, batch row) walking the
+// column tiles k <= its own; the tril predicate zeroes W above the
+// diagonal as the tile is loaded; FMA loops with an 8x8 register tile per
+// thread.  Nothing is pipelined.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -57,6 +77,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "sgu_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -333,6 +354,156 @@ cudaError_t launch_wgmma(const void* res, const void* gate, const void* w, const
   return cudaGetLastError();
 }
 
+
+// -- f32 on the tensor cores: 3xTF32 from a cp.async ring (the "tf32x3" route)
+
+namespace f3 {
+
+namespace t3 = progen::tf32x3;
+
+constexpr int ROWS = 128;                // output rows m per block, 64 per warp row
+constexpr int COLS = 128;                // channels per block, 32 per warp column
+constexpr int STEP = 32;                 // positions k per stage
+constexpr int THREADS = 256;             // 8 warps: 2 (rows) x 4 (channels)
+constexpr int RING = 2;                  // cp.async stages
+constexpr int LDW = STEP + 4;            // W tile rows, words: A loads in distinct banks
+constexpr int LDG = COLS + 8;            // gate tile rows, words: (k, n) B loads likewise
+constexpr int W_WORDS = ROWS * LDW;
+constexpr int STAGE_WORDS = W_WORDS + STEP * LDG;
+constexpr size_t SMEM = sizeof(float) * RING * STAGE_WORDS;  // 71,680 B
+
+// A from 16 rows of W's tile with W[m][k] = 0 for k > m: `diag` is the
+// fragment's first row m less its first column k.
+__device__ __forceinline__ void load_a_tril(t3::FragA& f, const float* m, int ld, int diag) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const float x0 = t <= g + diag ? m[g * ld + t] : 0.0f;
+  const float x1 = t <= g + 8 + diag ? m[(g + 8) * ld + t] : 0.0f;
+  const float x2 = t + 4 <= g + diag ? m[g * ld + t + 4] : 0.0f;
+  const float x3 = t + 4 <= g + 8 + diag ? m[(g + 8) * ld + t + 4] : 0.0f;
+  t3::split(x0, f.hi[0], f.lo[0]);
+  t3::split(x1, f.hi[1], f.lo[1]);
+  t3::split(x2, f.hi[2], f.lo[2]);
+  t3::split(x3, f.hi[3], f.lo[3]);
+}
+
+}  // namespace f3
+
+__global__ void __launch_bounds__(f3::THREADS, 2)
+sgu_fwd_tf32x3_kernel(const float* __restrict__ res, const float* __restrict__ gate,
+                      const float* __restrict__ w, const float* __restrict__ bias,
+                      float* __restrict__ out, int batch, int n, int d, int ldw,
+                      int row_tiles, int col_tiles) {
+  using namespace f3;
+  extern __shared__ __align__(16) float smem_f[];
+
+  int b, row_tile, col_tile;
+  fw::block_tile(blockIdx.x, batch, row_tiles, col_tiles, b, row_tile, col_tile);
+  const int m0 = row_tile * ROWS, c0 = col_tile * COLS;
+  const int steps = fw::ceil_div(min(m0 + ROWS, n), STEP);  // k < min(m0 + 128, n)
+  const float* g_rows = gate + static_cast<size_t>(b) * n * d;
+
+  auto load = [&](int it) {  // step it into its stage
+    float* ws = smem_f + (it % RING) * STAGE_WORDS;
+    const int k0 = it * STEP;
+    t3::copy_tile<ROWS, STEP, LDW, THREADS>(ws, w, ldw, m0, k0, n, n);
+    t3::copy_tile<STEP, COLS, LDG, THREADS>(ws + W_WORDS, g_rows, d, k0, c0, n, d);
+  };
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < steps) load(s);
+    progen::hopper::cp_async_commit();  // empty groups keep the count
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = m0 + 64 * (warp / 4);  // the warp's first row m
+  const int wc = 32 * (warp % 4);       // its first channel in the tile
+  // a warp whose rows or channels all lie past the edge computes nothing
+  const bool idle = r0 >= n || c0 + wc >= d;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+  for (int it = 0; it < steps; ++it) {
+    progen::hopper::cp_async_wait<RING - 2>();  // step it has landed (this thread's part)
+    __syncthreads();  // every part has; every warp is done with step it - 1's stage
+    if (it + RING - 1 < steps) load(it + RING - 1);
+    progen::hopper::cp_async_commit();
+    const int k0 = it * STEP;
+    if (idle || k0 >= r0 + 64) continue;  // past the warp's rows: all zero
+    const float* ws = smem_f + (it % RING) * STAGE_WORDS;
+    const float* gs = ws + W_WORDS + wc;
+    const float* wr = ws + (r0 - m0) * LDW;
+    if (k0 + STEP <= r0) {  // wholly below the diagonal
+#pragma unroll
+      for (int kk = 0; kk < STEP / 8; ++kk) {
+        t3::FragB bf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t3::load_b_kn(bf[j], gs + 8 * kk * LDG + 8 * j, LDG);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          t3::FragA af;
+          t3::load_a(af, wr + 16 * i * LDW + 8 * kk, LDW);
+          t3::mma3<4>(acc[i], af, bf);
+        }
+      }
+    } else {  // crossing it: W[m][k] = 0 for k > m
+#pragma unroll
+      for (int kk = 0; kk < STEP / 8; ++kk) {
+        t3::FragB bf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t3::load_b_kn(bf[j], gs + 8 * kk * LDG + 8 * j, LDG);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int diag = r0 + 16 * i - (k0 + 8 * kk);
+          if (diag + 15 < 0) continue;  // every k of the slice is past every row
+          t3::FragA af;
+          load_a_tril(af, wr + 16 * i * LDW + 8 * kk, LDW, diag);
+          t3::mma3<4>(acc[i], af, bf);
+        }
+      }
+    }
+  }
+  progen::hopper::cp_async_wait<0>();
+
+  // epilogue: element (i, j, 2 h + x) is row r0 + 16 i + g + 8 h, channel
+  // c0 + wc + 8 j + 2 t + x; out = res * (acc + b[m]), the TPU's order
+  if (idle) return;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 16 * i + g + 8 * h;
+      if (m >= n) continue;
+      const float bm = bias[m];
+      const size_t row = (static_cast<size_t>(b) * n + m) * d;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + wc + 8 * j + 2 * t;
+        if (c >= d) continue;
+        const float2 r = *reinterpret_cast<const float2*>(res + row + c);
+        *reinterpret_cast<float2*>(out + row + c) =
+            make_float2(r.x * (acc[i][j][2 * h] + bm), r.y * (acc[i][j][2 * h + 1] + bm));
+      }
+    }
+  }
+}
+
+cudaError_t launch_tf32x3(const void* res, const void* gate, const void* w, const void* b,
+                          void* out, int batch, int n, int d, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(sgu_fwd_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(f3::SMEM));
+  if (err != cudaSuccess) return err;
+  const int row_tiles = fw::ceil_div(n, f3::ROWS), col_tiles = fw::ceil_div(d, f3::COLS);
+  sgu_fwd_tf32x3_kernel<<<batch * row_tiles * col_tiles, f3::THREADS, f3::SMEM, stream>>>(
+      static_cast<const float*>(res), static_cast<const float*>(gate),
+      static_cast<const float*>(w), static_cast<const float*>(b), static_cast<float*>(out),
+      batch, n, d, (n + 7) / 8 * 8, row_tiles, col_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The fma route of K2-fwd: res, gate, out (batch, n, d) contiguous; w
@@ -360,4 +531,19 @@ extern "C" int sgu_fwd_wgmma(const void* res, const void* gate, const void* w,
   }
   return static_cast<int>(launch_wgmma(res, gate, w, b, out, batch, n, d,
                                        static_cast<cudaStream_t>(stream)));
+}
+
+// The tf32x3 route of K2-fwd: float32 only (dtype 0); res, gate, out
+// (batch, n, d) contiguous, w (n, n) with rows ceil8(n) elements apart, b
+// (n, 1); d a multiple of 8, every pointer 16-byte aligned.  Returns the
+// CUDA error code of the launch (0 = ok).
+extern "C" int sgu_fwd_tf32x3(const void* res, const void* gate, const void* w,
+                              const void* b, void* out, int batch, int n, int d, int dtype,
+                              void* stream) {
+  if (batch <= 0 || n <= 0 || d <= 0 || d % 8 != 0 || dtype != 0 ||
+      static_cast<long long>(batch) * ((n + 127) / 128) * ((d + 127) / 128) > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_tf32x3(res, gate, w, b, out, batch, n, d,
+                                        static_cast<cudaStream_t>(stream)));
 }

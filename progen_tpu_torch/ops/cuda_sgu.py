@@ -9,13 +9,19 @@ through the kernels (``kernels/csrc/sgu_fwd.cu`` and ``sgu_bwd.cu``), which
 they build at first use.  On a CUDA tensor they launch the kernels or
 raise; they never fall back.  ``launches``, ``dgate_launches`` and
 ``dw_launches`` count the calls that launch K2-fwd, K2-dgate and K2-dW, and
-nothing else (in bf16 a K2-dW call is two launches: the split partial
-products, then their ordered sum, see :func:`dw_split`).
+nothing else (a K2-dW call on ``wgmma`` or ``tf32x3`` is two launches: the
+split partial products, then their ordered sum, see :func:`dw_split`).
 
-K2-fwd has two routes, chosen before the launch by :func:`fwd_route` from
-the dtype alone: bf16 takes the Hopper kernel (a TMA ring into ``wgmma``,
-``"wgmma"``), f32 the first kernel (FMA loops, ``"fma"``).
-``fwd_route_launches`` counts the launches of each.
+Each kernel's route is chosen before the launch by :func:`fwd_route`,
+:func:`dgate_route` and :func:`dw_route` from the dtype alone: bf16 takes
+the Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32 takes, for
+K2-fwd and K2-dW, the 3xTF32 kernels on the tensor cores (a ``cp.async``
+ring into ``mma.sync``, three TF32 products a product, ``"tf32x3"``) and,
+for K2-dgate, the first kernel (FMA loops, ``"fma"``).  Each route is its
+own ``extern "C"`` entry; a failure on one raises, it never tries another.
+``fwd_route_launches``, ``dgate_route_launches`` and ``dw_route_launches``
+count the launches of each, and ``route="fma"`` forces an f32 launch onto
+the first kernel (to time it on the same inputs).
 
 :func:`gated_mix` is what the model calls: K2-fwd once, and under autograd
 the backward of ``pallas_sgu.py:316-335``: d_res is K2-fwd again with dout
@@ -36,23 +42,34 @@ KERNEL = "sgu_fwd"
 BWD = "sgu_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# each route's extern "C" suffix
+SUFFIX = {"fma": "", "wgmma": "_wgmma", "tf32x3": "_tf32x3"}
+
 launches = 0
-fwd_route_launches = {"wgmma": 0, "fma": 0}
+fwd_route_launches = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 dgate_launches = 0
+dgate_route_launches = {"wgmma": 0, "fma": 0}
 dw_launches = 0
+dw_route_launches = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
-# K2-dW's bf16 tiling (kernels/csrc/sgu_bwd.cu): 128 x 128 tiles of the
-# lower triangle, 64 channels per step of the (batch, channel) axis
+# K2-dW's tiling on its split routes (kernels/csrc/sgu_bwd.cu): 128 x 128
+# tiles of the lower triangle; per route the channels per step of the
+# (batch, channel) axis and the blocks an SM holds (bf16 one of 384
+# threads, f32 two of 256)
 DW_TILE = 128
 DW_STEP = 64
+DW_PLAN = {"wgmma": (DW_STEP, 1), "tf32x3": (32, 2)}
 # bf16 K2-fwd's tiling (kernels/csrc/sgu_fwd.cu, namespace fw): a block owns
 # 128 output rows (two warpgroups of 64) and 128 channels of one batch row
 # and walks 64-deep steps of k
 FWD_ROWS = 128
 FWD_COLS = 128
 FWD_STEP = 64
+# f32 K2-fwd (namespace f3): the same blocks, 32-deep steps of k, each warp
+# 64 rows x 32 channels
+FWD_STEP_TF32X3 = 32
 
 
 def _kernel_fn(name: str, library: str, n_tensors: int):
@@ -115,18 +132,31 @@ def _run(fn, name: str, ptrs, rows: torch.Tensor) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _forced(route: str | None, chosen: str) -> str:
+    """The route to launch: ``chosen``, or a forced ``route`` that is
+    ``chosen`` or, for an f32 launch, ``"fma"`` (the first kernel, which
+    takes every f32 shape the wrappers take)."""
+    if route not in (None, chosen) and not (route == "fma" and chosen != "wgmma"):
+        raise ValueError(f"route {route!r} does not take this launch (its route is "
+                         f"{chosen!r}; 'fma' takes any f32 launch)")
+    return route or chosen
+
+
 def spatial_gate_fwd(res: torch.Tensor, gate: torch.Tensor,
-                     weights: torch.Tensor, biases: torch.Tensor) -> torch.Tensor:
+                     weights: torch.Tensor, biases: torch.Tensor,
+                     route: str | None = None) -> torch.Tensor:
     """``res * cast(tril(weights) @ gate + biases)`` over ``res``/``gate``
-    ``(..., n, d)``, ``weights`` ``(n, n)``, ``biases`` ``(n, 1)``."""
+    ``(..., n, d)``, ``weights`` ``(n, n)``, ``biases`` ``(n, 1)``.
+    ``route`` forces a CUDA launch onto ``"fma"`` instead of
+    :func:`fwd_route`'s (to time the first kernel on the same inputs)."""
     global launches
     if _device(gate) == "cpu":
         return plain.gated_mix(res, gate, weights, biases)
     _check_rows(res, gate)
     _check_weights(weights, gate, biases)
-    route = fwd_route(gate.dtype)
-    name = KERNEL if route == "fma" else f"{KERNEL}_wgmma"
-    if route == "wgmma":
+    route = _forced(route, fwd_route(gate.dtype))
+    name = KERNEL + SUFFIX[route]
+    if route != "fma":
         weights = _padded_weights(weights)
         kernels.check_aligned(res, gate, weights)
     fn = _kernel_fn(name, KERNEL, 5)
@@ -140,17 +170,32 @@ def spatial_gate_fwd(res: torch.Tensor, gate: torch.Tensor,
 
 def fwd_route(dtype: torch.dtype) -> str:
     """Which K2-fwd kernel takes this dtype: ``"wgmma"`` (the Hopper
-    kernel) for bf16, ``"fma"`` (the first kernel) for f32."""
+    kernel) for bf16, ``"tf32x3"`` (3xTF32 on the tensor cores) for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def dgate_route(dtype: torch.dtype) -> str:
+    """Which K2-dgate kernel takes this dtype: ``"wgmma"`` for bf16,
+    ``"fma"`` (the first kernel) for f32."""
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
-def k2_fwd_tiles(batch: int, n: int, d: int) -> list[tuple[int, int, int, list]]:
-    """The bf16 K2-fwd kernel's blocks and walks, the formulas of
-    ``sgu_fwd.cu`` (``fw::block_tile`` and the step kinds): for each block
-    in launch order, longest walk first, ``(b, m0, c0, walk)`` with ``walk``
-    the ``(r0, k0, kind)`` of each 64-deep step ``k0`` and each of its two
-    warpgroups' rows ``r0``, ``kind`` one of ``"full"``, ``"diagonal"``
-    (the strict upper part of W's box zeroed) and ``"skipped"``."""
+def dw_route(dtype: torch.dtype) -> str:
+    """Which K2-dW kernel takes this dtype: ``"wgmma"`` for bf16,
+    ``"tf32x3"`` for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def k2_fwd_tiles(batch: int, n: int, d: int, step: int = FWD_STEP
+                 ) -> list[tuple[int, int, int, list]]:
+    """K2-fwd's blocks and walks on its Hopper routes, the formulas of
+    ``sgu_fwd.cu`` (``fw::block_tile``, the walk's length and the step
+    kinds): for each block in launch order, longest walk first,
+    ``(b, m0, c0, walk)`` with ``walk`` the ``(r0, k0, kind)`` of each
+    ``step``-deep step ``k0`` (64 on ``wgmma``, 32 on ``tf32x3``) and each
+    of the block's two 64-row halves ``r0`` (a warpgroup in bf16, a row of
+    four warps in f32), ``kind`` one of ``"full"`` (every k below every
+    row), ``"diagonal"`` (W's entries k > m zeroed) and ``"skipped"``."""
     row_tiles, col_tiles = -(-n // FWD_ROWS), -(-d // FWD_COLS)
     blocks = []
     for blk in range(batch * row_tiles * col_tiles):
@@ -158,10 +203,11 @@ def k2_fwd_tiles(batch: int, n: int, d: int) -> list[tuple[int, int, int, list]]
         b, mi = rest % batch, row_tiles - 1 - rest // batch
         m0 = mi * FWD_ROWS
         walk = []
-        for it in range(-(-min(m0 + FWD_ROWS, n) // FWD_STEP)):
-            k0 = it * FWD_STEP
-            for r0 in (m0, m0 + FWD_STEP):
-                kind = "full" if k0 < r0 else "diagonal" if k0 == r0 else "skipped"
+        for it in range(-(-min(m0 + FWD_ROWS, n) // step)):
+            k0 = it * step
+            for r0 in (m0, m0 + 64):
+                kind = ("full" if k0 + step <= r0 else "diagonal" if k0 < r0 + 64
+                        else "skipped")
                 walk.append((r0, k0, kind))
         blocks.append((b, m0, ct * FWD_COLS, walk))
     return blocks
@@ -169,7 +215,8 @@ def k2_fwd_tiles(batch: int, n: int, d: int) -> list[tuple[int, int, int, list]]
 
 def _padded_weights(weights: torch.Tensor) -> torch.Tensor:
     """``weights`` with its rows ``ceil8(n)`` elements apart, as K2-dgate
-    and bf16 K2-fwd read them (TMA needs 16-byte row strides): itself when
+    and K2-fwd's Hopper routes read them (TMA and cp.async need 16-byte row
+    strides): itself when
     ``n % 8 == 0``, else a zero-padded ``(n, ceil8(n))`` copy (the zeros
     lie outside the ``(n, n)`` square the kernel reads)."""
     n = weights.shape[0]
@@ -182,76 +229,87 @@ def _padded_weights(weights: torch.Tensor) -> torch.Tensor:
 
 
 def spatial_gate_dgate(weights: torch.Tensor, dout: torch.Tensor,
-                       res: torch.Tensor) -> torch.Tensor:
-    """``tril(weights)^T . (dout * res)``, ``(..., n, d)`` in dout's dtype."""
+                       res: torch.Tensor, route: str | None = None) -> torch.Tensor:
+    """``tril(weights)^T . (dout * res)``, ``(..., n, d)`` in dout's dtype.
+    ``route`` names :func:`dgate_route`'s route (no other kernel takes
+    it)."""
     global dgate_launches
     if _device(dout) == "cpu":
         return plain.spatial_gate_dgate(weights, dout, res)
     _check_rows(dout, res)
     _check_weights(weights, dout)
     kernels.check_aligned(weights, dout, res)
-    fn = _kernel_fn(f"{BWD}_dgate", BWD, 4)
+    route = _forced(route, dgate_route(dout.dtype))
+    name = f"{BWD}_dgate{SUFFIX[route]}"
+    fn = _kernel_fn(name, BWD, 4)
     w = _padded_weights(weights)
     dgate = torch.empty_like(dout)
-    _run(fn, f"{BWD}_dgate", (w.data_ptr(), dout.data_ptr(),
-                              res.data_ptr(), dgate.data_ptr()), dout)
+    _run(fn, name, (w.data_ptr(), dout.data_ptr(), res.data_ptr(), dgate.data_ptr()), dout)
     dgate_launches += 1
+    dgate_route_launches[route] += 1
     return dgate
 
 
-def dw_split(batch: int, n: int, d: int, sms: int) -> tuple[int, list[range]]:
-    """How bf16 K2-dW splits its reduction axis over the card's ``sms``
-    streaming multiprocessors.
+def dw_split(batch: int, n: int, d: int, sms: int, route: str = "wgmma"
+             ) -> tuple[int, list[range]]:
+    """How K2-dW on ``route`` (``"wgmma"`` or ``"tf32x3"``) splits its
+    reduction axis over the card's ``sms`` streaming multiprocessors.
 
-    The axis is ``batch * ceil(d / 64)`` steps of 64 channels of one batch
-    row (step ``j``: row ``j // ceil(d / 64)``).  Each of the ``T`` tiles of
+    The axis is ``batch * ceil(d / step)`` steps of ``step`` channels of one
+    batch row (step ``j``: row ``j // ceil(d / step)``; ``step`` and the
+    blocks an SM holds from :data:`DW_PLAN`).  Each of the ``T`` tiles of
     the lower triangle (128 x 128) gets ``splits`` blocks, one per range of
     steps, so ``T * splits`` blocks fill the SMs in one wave; split ``s``
     takes steps ``[s * steps // splits, (s + 1) * steps // splits)``, the
-    formula the kernel uses.  Returns ``(splits, ranges)``."""
+    formula the kernels use.  Returns ``(splits, ranges)``."""
+    step, per_sm = DW_PLAN[route]
     side = -(-n // DW_TILE)
     tiles = side * (side + 1) // 2
-    steps = batch * -(-d // DW_STEP)
-    splits = max(1, min(steps, sms // tiles))
+    steps = batch * -(-d // step)
+    splits = max(1, min(steps, per_sm * sms // tiles))
     return splits, [range(s * steps // splits, (s + 1) * steps // splits)
                     for s in range(splits)]
 
 
 def dw_workspace_numel(n: int, splits: int) -> int:
-    """f32 entries of bf16 K2-dW's workspace: one partial 128 x 128 tile per
-    (split, tile of the lower triangle)."""
+    """f32 entries of K2-dW's workspace on a split route: one partial
+    128 x 128 tile per (split, tile of the lower triangle)."""
     side = -(-n // DW_TILE)
     return splits * side * (side + 1) // 2 * DW_TILE * DW_TILE
 
 
 def spatial_gate_dw(dout: torch.Tensor, res: torch.Tensor,
-                    gate: torch.Tensor) -> torch.Tensor:
+                    gate: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """``tril(sum_b (dout * res)_b . gate_b^T)``, ``(n, n)`` in the inputs'
-    dtype, the strict upper triangle exactly 0."""
+    dtype, the strict upper triangle exactly 0.  ``route`` forces a CUDA
+    launch onto ``"fma"`` instead of :func:`dw_route`'s (to time the first
+    kernel on the same inputs)."""
     global dw_launches
     if _device(gate) == "cpu":
         return plain.spatial_gate_dw(dout, res, gate)
     _check_rows(dout, res, gate)
     kernels.check_aligned(dout, res, gate)
+    route = _forced(route, dw_route(gate.dtype))
+    name = f"{BWD}_dw{SUFFIX[route]}"
     n, d = gate.shape[-2], gate.shape[-1]
     batch = gate.numel() // (n * d)
-    f32 = gate.dtype == torch.float32
-    fn = _kernel_fn(f"{BWD}_dw" if f32 else f"{BWD}_dw_split", BWD, 4 if f32 else 5)
+    fn = _kernel_fn(name, BWD, 4 if route == "fma" else 5)
     dw = torch.empty((n, n), dtype=gate.dtype, device=gate.device)
-    stream = torch.cuda.current_stream(gate.device).cuda_stream
-    if f32:
-        err = fn(dout.data_ptr(), res.data_ptr(), gate.data_ptr(), dw.data_ptr(),
-                 batch, n, d, DTYPES[gate.dtype], stream)
+    if route == "fma":
+        _run(fn, name, (dout.data_ptr(), res.data_ptr(), gate.data_ptr(), dw.data_ptr()),
+             gate)
     else:
         sms = torch.cuda.get_device_properties(gate.device).multi_processor_count
-        splits, _ = dw_split(batch, n, d, sms)
+        splits, _ = dw_split(batch, n, d, sms, route)
         work = torch.empty(dw_workspace_numel(n, splits), dtype=torch.float32,
                            device=gate.device)
         err = fn(dout.data_ptr(), res.data_ptr(), gate.data_ptr(), work.data_ptr(),
-                 dw.data_ptr(), batch, n, d, splits, stream)
-    if err != 0:
-        raise RuntimeError(f"{BWD}_dw launch failed with CUDA error {err}")
+                 dw.data_ptr(), batch, n, d, splits,
+                 torch.cuda.current_stream(gate.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     dw_launches += 1
+    dw_route_launches[route] += 1
     return dw
 
 

@@ -133,9 +133,9 @@ def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
 ])
 def test_sgu_kernel_takes_its_route_and_gives_the_same_bits(gen, dtype, b, n, d, weights):
     """K2-fwd on the route of its dtype (bf16 on the Hopper kernel, f32 on
-    the FMA one), against the plain version; a second run gives the same
+    the 3xTF32 one), against the plain version; a second run gives the same
     bits."""
-    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert cuda_sgu.fwd_route(dtype) == route
     res, gate = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                  for _ in range(2))
@@ -149,7 +149,7 @@ def test_sgu_kernel_takes_its_route_and_gives_the_same_bits(gen, dtype, b, n, d,
     out = cuda_sgu.spatial_gate_fwd(res, gate, w, bias)
     torch.cuda.synchronize()
     routed = {r: cuda_sgu.fwd_route_launches[r] - before[r] for r in before}
-    assert routed == {"wgmma": 0, "fma": 0, route: 1}
+    assert routed == {**dict.fromkeys(routed, 0), route: 1}
     _close(out, gated_mix(res, gate, w, bias), dtype)
     assert torch.equal(cuda_sgu.spatial_gate_fwd(res, gate, w, bias), out)
 
@@ -299,6 +299,78 @@ def test_the_tf32x3_kernels_replay_in_a_cuda_graph(gen):
             assert torch.equal(a, g)
 
 
+# f32 K2-fwd and K2-dW on the 3xTF32 route: ProGen-small's training shape,
+# batch 1, a ragged n, the main path's largest prefill, under one tile
+# with a ragged channel tile (W padded to 16-byte rows), ragged n and d
+K2_TF32X3_CASES = [
+    (8, 1024, 2048),
+    (1, 1024, 2048),
+    (4, 1000, 2048),
+    (2, 512, 2048),
+    (3, 100, 520),
+    (2, 1000, 520),
+]
+
+
+def _k2_tf32x3_launch(res, gate, w, bias, dout, route=None):
+    """K2-fwd, d_res (K2-fwd with dout in place of res) and K2-dW."""
+    return (cuda_sgu.spatial_gate_fwd(res, gate, w, bias, route=route),
+            cuda_sgu.spatial_gate_fwd(dout, gate, w, bias, route=route),
+            cuda_sgu.spatial_gate_dw(dout, res, gate, route=route))
+
+
+def _k2_inputs(gen, b, n, d):
+    res, gate, dout = (torch.randn(b, n, d, device="cuda", generator=gen) for _ in range(3))
+    w = torch.randn(n, n, device="cuda", generator=gen) * 0.05
+    bias = torch.randn(n, 1, device="cuda", generator=gen)
+    return res, gate, w, bias, dout
+
+
+@pytest.mark.parametrize("b,n,d", K2_TF32X3_CASES)
+def test_the_k2_tf32x3_kernels_match_plain(gen, b, n, d):
+    """K2-fwd and K2-dW in f32 on the 3xTF32 route against the plain
+    versions at the f32 bars (``out`` 1e-4, ``dW`` at the scaled gradient
+    bars), every launch on ``tf32x3``, a second run the same bits, dW's
+    strict upper triangle 0; the first (``fma``) kernels, forced on the
+    same inputs, within the same bars."""
+    res, gate, w, bias, dout = _k2_inputs(gen, b, n, d)
+    assert cuda_sgu.fwd_route(torch.float32) == cuda_sgu.dw_route(torch.float32) == "tf32x3"
+    before = dict(cuda_sgu.fwd_route_launches), dict(cuda_sgu.dw_route_launches)
+    got = _k2_tf32x3_launch(res, gate, w, bias, dout)
+    torch.cuda.synchronize()
+    assert cuda_sgu.fwd_route_launches == {**before[0], "tf32x3": before[0]["tf32x3"] + 2}
+    assert cuda_sgu.dw_route_launches == {**before[1], "tf32x3": before[1]["tf32x3"] + 1}
+    want = (gated_mix(res, gate, w, bias), gated_mix(dout, gate, w, bias),
+            spatial_gate_dw(dout, res, gate))
+    for first in (got, _k2_tf32x3_launch(res, gate, w, bias, dout, route="fma")):
+        _close(first[0], want[0], torch.float32)
+        _close(first[1], want[1], torch.float32)
+        _close_scaled(first[2], want[2], torch.float32)
+    assert torch.count_nonzero(torch.triu(got[2], 1)) == 0
+    for a, g in zip(_k2_tf32x3_launch(res, gate, w, bias, dout), got):
+        assert torch.equal(a, g)
+
+
+def test_the_k2_tf32x3_kernels_replay_in_a_cuda_graph(gen):
+    """K2-fwd, d_res and K2-dW on the 3xTF32 route captured in one CUDA graph
+    at ProGen-small's gMLP width, a ragged n, and replayed 3 times after new
+    inputs are copied in: each replay bit-equal to eager launches."""
+    static = list(_k2_inputs(gen, 2, 1000, 2048))
+    _k2_tf32x3_launch(*static)  # build and load before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _k2_tf32x3_launch(*static)
+    for _ in range(3):
+        for t in static:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen))
+        graph.replay()
+        want = _k2_tf32x3_launch(*static)
+        torch.cuda.synchronize()
+        for a, g in zip(outs, want):
+            assert torch.equal(a, g)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,d,small", [
     (2, 100, 16, True),     # n < one tile and n % 8 != 0: W padded
@@ -311,17 +383,26 @@ def test_the_tf32x3_kernels_replay_in_a_cuda_graph(gen):
 ])
 def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d, small):
     """Each at the scaled bars of the other backward kernels; the small
-    cases also at the plain 1e-4 / 0.05 bars they always had.  Two runs give
-    the same bits; d_W's strict upper triangle is exactly 0."""
+    cases also at the plain 1e-4 / 0.05 bars they always had.  Each launch
+    on the route of its dtype (bf16 ``wgmma``; f32 K2-dgate ``fma``, K2-dW
+    ``tf32x3``).  Two runs give the same bits; d_W's strict upper triangle
+    is exactly 0."""
     res, gate, dout = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
     w = (torch.randn(n, n, device="cuda", generator=gen) * 0.05).to(dtype)
     before = cuda_sgu.dgate_launches, cuda_sgu.dw_launches
+    routes = dict(cuda_sgu.dgate_route_launches), dict(cuda_sgu.dw_route_launches)
     dgate = cuda_sgu.spatial_gate_dgate(w, dout, res)
     dw = cuda_sgu.spatial_gate_dw(dout, res, gate)
     torch.cuda.synchronize()
     assert (cuda_sgu.dgate_launches, cuda_sgu.dw_launches) == \
         (before[0] + 1, before[1] + 1)
+    bf16 = dtype == torch.bfloat16
+    for counter, was, route in ((cuda_sgu.dgate_route_launches, routes[0],
+                                 "wgmma" if bf16 else "fma"),
+                                (cuda_sgu.dw_route_launches, routes[1],
+                                 "wgmma" if bf16 else "tf32x3")):
+        assert counter == {**was, route: was[route] + 1}
     want_dgate = spatial_gate_dgate(w, dout, res)
     want_dw = spatial_gate_dw(dout, res, gate)
     _close_scaled(dgate, want_dgate, dtype)
@@ -750,7 +831,8 @@ def test_the_captured_f32_step_on_tf32x3_is_the_eager_steps(gen):
     """The f32 optimizer step at a head and window the 3xTF32 kernels take
     (dim_head 64, window 128): captured and replayed by ``train_multi_step``
     it gives the eager steps' losses, grad norms and parameters bit for bit,
-    every K1-fwd and K1-dkv launch on ``tf32x3``, every K1-dq on ``wmma``."""
+    every K1-fwd and K1-dkv launch on ``tf32x3``, every K1-dq on ``wmma``;
+    every K2-fwd and K2-dW launch on ``tf32x3``, every K2-dgate on ``fma``."""
     cfg = ProGenConfig(num_tokens=256, dim=128, seq_len=256, depth=2, window_size=128,
                        global_mlp_depth=1, heads=2, dim_head=64)
     micros = torch.randint(1, 256, (2, 2, 1, 2, cfg.seq_len + 1), device="cuda",
@@ -760,9 +842,10 @@ def test_the_captured_f32_step_on_tf32x3_is_the_eager_steps(gen):
         model = ProGen(cfg, make_policy(False), device="cuda", seed=6)
         fns = make_train_functions(model, make_optimizer())
         state = fns.init_state()
-        before = (dict(cuda_attention.fwd_route_launches),
-                  dict(cuda_attention.dq_route_launches),
-                  dict(cuda_attention.dkv_route_launches))
+        counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
+                    cuda_attention.dkv_route_launches, cuda_sgu.fwd_route_launches,
+                    cuda_sgu.dgate_route_launches, cuda_sgu.dw_route_launches)
+        before = tuple(dict(c) for c in counters)
         losses = []
         for sb in micros:
             if fused:
@@ -774,10 +857,13 @@ def test_the_captured_f32_step_on_tf32x3_is_the_eager_steps(gen):
                     losses.append(m["loss"].reshape(-1))
         torch.cuda.synchronize()
         after = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
-                 cuda_attention.dkv_route_launches)
+                 cuda_attention.dkv_route_launches, cuda_sgu.fwd_route_launches,
+                 cuda_sgu.dgate_route_launches, cuda_sgu.dw_route_launches)
         routed = [{r: a[r] - b[r] for r in b if a[r] != b[r]} for a, b in zip(after, before)]
+        gmlp = cfg.global_mlp_depth
         assert routed == [{"tf32x3": 4 * cfg.depth}, {"wmma": 4 * cfg.depth},
-                          {"tf32x3": 4 * cfg.depth}]
+                          {"tf32x3": 4 * cfg.depth}, {"tf32x3": 8 * gmlp},
+                          {"fma": 4 * gmlp}, {"tf32x3": 4 * gmlp}]
         if fused:
             assert fns.captured_program().captured
         runs.append((torch.cat(losses), _state_tensors(state)))

@@ -35,14 +35,14 @@ def _np(t):
 def test_fwd_route_for_every_shipped_config(name):
     """bf16 takes the Hopper kernels in every config (K1-fwd but for
     ``default``'s dim_head 32); f32 takes K1-fwd's 3xTF32 kernel where bf16
-    takes its wgmma one, K2-fwd's first kernel everywhere."""
+    takes its wgmma one, K2-fwd's 3xTF32 kernel everywhere."""
     c = CONFIGS[name]
     want = "wmma" if name == "default" else "wgmma"
     want_f32 = "wmma" if name == "default" else "tf32x3"
     assert cuda_attention.fwd_route(torch.bfloat16, c.dim_head, c.window_size) == want
     assert cuda_attention.fwd_route(torch.float32, c.dim_head, c.window_size) == want_f32
     assert cuda_sgu.fwd_route(torch.bfloat16) == "wgmma"
-    assert cuda_sgu.fwd_route(torch.float32) == "fma"
+    assert cuda_sgu.fwd_route(torch.float32) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype,d,wsz,route", [
@@ -225,8 +225,9 @@ def test_k1_wrappers_force_only_the_wmma_route(monkeypatch, kernel):
     assert (cuda_attention.launches, cuda_attention.dkv_launches) == before
 
 
-@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "sgu_fwd_wgmma"),
-                                        (torch.float32, "sgu_fwd")])
+@pytest.mark.parametrize("dtype,name", [
+    (torch.bfloat16, "sgu_fwd_wgmma"),
+    pytest.param(torch.float32, "sgu_fwd_tf32x3", id="dtype1-sgu_fwd")])
 def test_k2_fwd_wrapper_picks_its_kernel_before_the_launch(monkeypatch, dtype, name):
     monkeypatch.setattr(cuda_sgu, "_kernel_fn", _pick)
     with FakeTensorMode():
@@ -237,6 +238,61 @@ def test_k2_fwd_wrapper_picks_its_kernel_before_the_launch(monkeypatch, dtype, n
     with pytest.raises(_Picked, match=f"^{name}$"):
         cuda_sgu.spatial_gate_fwd(rows, rows, w, b)
     assert (cuda_sgu.launches, cuda_sgu.fwd_route_launches) == before
+
+
+def _k2_fakes(dtype, n=16):
+    with FakeTensorMode():
+        rows = torch.empty(2, n, 8, device="cuda", dtype=dtype)
+        w = torch.empty(n, n, device="cuda", dtype=dtype)
+        b = torch.empty(n, 1, device="cuda", dtype=dtype)
+    return rows, w, b
+
+
+K2_CALLS = {
+    "fwd": lambda rows, w, b, route: cuda_sgu.spatial_gate_fwd(rows, rows, w, b, route=route),
+    "dgate": lambda rows, w, b, route: cuda_sgu.spatial_gate_dgate(w, rows, rows, route=route),
+    "dw": lambda rows, w, b, route: cuda_sgu.spatial_gate_dw(rows, rows, rows, route=route),
+}
+
+
+@pytest.mark.parametrize("kernel,dtype,route,name", [
+    ("fwd", torch.float32, "fma", "sgu_fwd"),
+    ("fwd", torch.float32, "tf32x3", "sgu_fwd_tf32x3"),
+    ("dgate", torch.bfloat16, None, "sgu_bwd_dgate_wgmma"),
+    ("dgate", torch.float32, None, "sgu_bwd_dgate"),
+    ("dw", torch.bfloat16, None, "sgu_bwd_dw_wgmma"),
+    ("dw", torch.float32, None, "sgu_bwd_dw_tf32x3"),
+    ("dw", torch.float32, "fma", "sgu_bwd_dw"),
+])
+def test_k2_wrappers_pick_the_entry_of_their_route(monkeypatch, kernel, dtype, route, name):
+    """Each K2 route is its own C entry, asked for before any launch: the
+    route function's by default, the first (``fma``) kernel when an f32
+    launch forces it."""
+    monkeypatch.setattr(cuda_sgu, "_kernel_fn", _pick)
+    rows, w, b = _k2_fakes(dtype)
+    counters = (cuda_sgu.launches, cuda_sgu.dgate_launches, cuda_sgu.dw_launches,
+                dict(cuda_sgu.fwd_route_launches), dict(cuda_sgu.dgate_route_launches),
+                dict(cuda_sgu.dw_route_launches))
+    with pytest.raises(_Picked, match=f"^{name}$"):
+        K2_CALLS[kernel](rows, w, b, route)
+    assert (cuda_sgu.launches, cuda_sgu.dgate_launches, cuda_sgu.dw_launches,
+            cuda_sgu.fwd_route_launches, cuda_sgu.dgate_route_launches,
+            cuda_sgu.dw_route_launches) == counters
+
+
+@pytest.mark.parametrize("kernel,dtype,route", [
+    ("fwd", torch.bfloat16, "fma"), ("fwd", torch.float32, "wgmma"),
+    ("dgate", torch.bfloat16, "fma"), ("dgate", torch.float32, "tf32x3"),
+    ("dw", torch.bfloat16, "tf32x3"), ("dw", torch.bfloat16, "fma"),
+])
+def test_k2_wrappers_refuse_a_route_their_launch_cannot_take(monkeypatch, kernel, dtype,
+                                                             route):
+    """A forced route must be the launch's own or, in f32, ``fma``: any
+    other raises before a kernel is asked for."""
+    monkeypatch.setattr(cuda_sgu, "_kernel_fn", _pick)
+    rows, w, b = _k2_fakes(dtype)
+    with pytest.raises(ValueError, match="does not take this launch"):
+        K2_CALLS[kernel](rows, w, b, route)
 
 
 def _misaligned_cuda(shape, dtype):

@@ -14,7 +14,16 @@ port's f32 bars (``out`` and ``lse`` 1e-4; ``dk`` and ``dv`` 1e-4 of their
 largest magnitude plus 1e-4 relative, and an RMS error within 1e-4 of
 their RMS, ``chip_smoke.py``'s ``TOL_GRAD`` and ``TOL_GRAD_RMS``).  One TF32
 product alone misses those bars.  The route functions are pinned for every
-shipped config, in f32 and bf16."""
+shipped config, in f32 and bf16.
+
+K2's f32 route (K2-fwd and K2-dW, ``sgu_fwd.cu`` and ``sgu_bwd.cu``) the
+same way: the kernels' own plans emulated (K2-fwd's tile walk at 32-deep
+steps, ``cuda_sgu.k2_fwd_tiles``; K2-dW's split ranges and their ordered
+sum, ``cuda_sgu.dw_split``) with every product 3xTF32, against JAX's
+``pallas_spatial_gate`` and its VJP in the Pallas interpreter: ``out`` at
+1e-4, ``dW`` at the scaled f32 bar, and at least 10x under the error of
+one TF32 product a product.  The K2 route functions are pinned for both
+dtypes."""
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +32,9 @@ import pytest
 import torch
 
 from progen_tpu.ops.pallas_attention import _forward_ext, pallas_local_attention_ext
+from progen_tpu.ops.pallas_sgu import pallas_spatial_gate
 from progen_tpu_torch.models.configs import CONFIGS
-from progen_tpu_torch.ops import cuda_attention
+from progen_tpu_torch.ops import cuda_attention, cuda_sgu
 from progen_tpu_torch.ops.local_attention import (
     ATTN_MASK_VALUE,
     concat_previous_window,
@@ -207,3 +217,199 @@ def test_the_k1_routes_of_every_shipped_config(name, dtype):
     got = tuple(route(dtype, c.dim_head, c.window_size) for route in (
         cuda_attention.fwd_route, cuda_attention.dq_route, cuda_attention.dkv_route))
     assert got == want
+
+
+# -- K2: K2-fwd and K2-dW on "tf32x3" ----------------------------------------
+
+K2_ROWS = 64        # a 64-row half of a K2-fwd block (a row of four warps)
+
+
+def emulated_k2_fwd(res, gate, w, bias, mm):
+    """K2-fwd as the f32 kernel walks it: per block of
+    ``cuda_sgu.k2_fwd_tiles(..., FWD_STEP_TF32X3)`` and per step of each
+    64-row half, ``W[rows, k0:k0 + 32] . gate[k0:k0 + 32, channels]``
+    through ``mm``, W's entries k > m zeroed on a diagonal step, nothing on
+    a skipped one; then ``res * (acc + b)``."""
+    batch, n, d = gate.shape
+    step = cuda_sgu.FWD_STEP_TF32X3
+    rows_pad = -(-n // cuda_sgu.FWD_ROWS) * cuda_sgu.FWD_ROWS
+    kpad = rows_pad + step
+    wz = torch.zeros(rows_pad, kpad)
+    wz[:n, :n] = w
+    gz = torch.zeros(batch, kpad, d)
+    gz[:, :n] = gate
+    acc = torch.zeros(batch, rows_pad, d)
+    m_idx = torch.arange(K2_ROWS)[:, None]
+    k_idx = torch.arange(step)[None, :]
+    for b, _, c0, walk in cuda_sgu.k2_fwd_tiles(batch, n, d, step):
+        cols = slice(c0, c0 + cuda_sgu.FWD_COLS)
+        for r0, k0, kind in walk:
+            if kind == "skipped":
+                continue
+            tile = wz[r0:r0 + K2_ROWS, k0:k0 + step]
+            if kind == "diagonal":
+                tile = tile * (k0 + k_idx <= r0 + m_idx)
+            else:
+                assert k0 + step <= r0
+            acc[b, r0:r0 + K2_ROWS, cols] += mm(tile, gz[b, k0:k0 + step, cols])
+    return res * (acc[:, :n] + bias)
+
+
+def emulated_k2_dw(dout, res, gate, mm, sms):
+    """K2-dW as the f32 kernel splits it: ``cuda_sgu.dw_split(...,
+    "tf32x3")``'s ranges of 32-channel steps, each split's partial
+    ``sum_j dmix_j . gate_j^T`` through ``mm`` (``dmix = dout * res``
+    rounded to f32 first), the partials summed in split order, the strict
+    upper triangle 0."""
+    batch, n, d = gate.shape
+    step = cuda_sgu.DW_PLAN["tf32x3"][0]
+    chunks = -(-d // step)
+    splits, ranges = cuda_sgu.dw_split(batch, n, d, sms, "tf32x3")
+    dmix = dout * res
+    partials = []
+    for steps in ranges:
+        part = torch.zeros(n, n)
+        for j in steps:
+            b, c0 = j // chunks, (j % chunks) * step
+            part += mm(dmix[b, :, c0:c0 + step], gate[b, :, c0:c0 + step].T)
+        partials.append(part)
+    total = partials[0]
+    for part in partials[1:]:
+        total = total + part
+    return torch.tril(total), splits
+
+
+def _k2_inputs(n: int, d: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    t = {name: rng.normal(size=(B, n, d)).astype(np.float32)
+         for name in ("res", "gate", "dout")}
+    t["w"] = rng.normal(0, 0.05, size=(n, n)).astype(np.float32)
+    t["b"] = rng.normal(size=(n, 1)).astype(np.float32)
+    return {name: torch.from_numpy(x) for name, x in t.items()}
+
+
+def _k2_jax(t: dict) -> dict:
+    """JAX's K2 forward and its VJP's dW, the Pallas kernels in the
+    interpreter, f32."""
+    args = [jnp.asarray(t[name].numpy()) for name in ("res", "gate", "w", "b")]
+    f = lambda *a: pallas_spatial_gate(*a, interpret=True)
+    out, vjp = jax.vjp(f, *args)
+    dw = vjp(jnp.asarray(t["dout"].numpy()))[2]
+    return {name: torch.from_numpy(np.array(x, np.float32))
+            for name, x in (("out", out), ("dw", dw))}
+
+
+def _k2_ratios(got: dict, want: dict) -> dict:
+    """Each output's error over its bar (above 1 misses): ``out`` 1e-4
+    absolute plus 1e-4 relative; ``dw`` 1e-4 of its largest magnitude plus
+    1e-4 relative, and its RMS error over 1e-4 of its RMS."""
+    err = (got["out"] - want["out"]).abs()
+    ratios = {"out": float((err / (TOL + TOL * want["out"].abs())).max())}
+    w = want["dw"]
+    err = (got["dw"] - w).abs()
+    ratios["dw"] = float((err / (TOL * w.abs().max() + TOL * w.abs())).max())
+    rms = lambda x: float(x.pow(2).mean().sqrt())
+    ratios["dw_rms"] = rms(got["dw"] - w) / (TOL * rms(w))
+    return ratios
+
+
+K2_SHAPES = [(256, 64), (200, 136), (128, 256)]  # (n, d): whole tiles, ragged n and d
+
+
+@pytest.mark.parametrize("n,d", K2_SHAPES)
+def test_k2_three_tf32_products_meet_the_f32_bars(n, d):
+    """K2-fwd through its f32 tile walk and K2-dW through its split plan,
+    every product 3xTF32, against JAX's f32 kernels: within the bars, and
+    at least 10x under one TF32 product's error in each output."""
+    t = _k2_inputs(n, d, seed=n + d)
+    want = _k2_jax(t)
+    got, one = {}, {}
+    for mm, into in ((mm3, got), (mm1, one)):
+        into["out"] = emulated_k2_fwd(t["res"], t["gate"], t["w"], t["b"], mm)
+        into["dw"], splits = emulated_k2_dw(t["dout"], t["res"], t["gate"], mm, sms=4)
+    assert splits > 1  # the ordered sum of more than one partial
+    ratios = _k2_ratios(got, want)
+    assert max(ratios.values()) <= 1.0, ratios
+    for name in ("out", "dw"):
+        err3 = float((got[name] - want[name]).abs().max())
+        err1 = float((one[name] - want[name]).abs().max())
+        assert 10 * err3 <= err1, (name, err3, err1)
+    assert not torch.triu(got["dw"], 1).any()
+
+
+@pytest.mark.parametrize("batch,n,d", [(2, 256, 256), (2, 1000, 256), (3, 100, 520),
+                                       (1, 60, 16), (4, 1024, 2048)])
+def test_k2_fwd_f32_walk_covers_the_triangle_once(batch, n, d):
+    """At 32-deep steps each 64-row half's walk meets every (64 m, 32 k)
+    tile of the lower triangle exactly once, the two per half that cross
+    the diagonal masked, none above it; the blocks are the bf16 route's, in
+    its longest-first order."""
+    step = cuda_sgu.FWD_STEP_TF32X3
+    blocks = cuda_sgu.k2_fwd_tiles(batch, n, d, step)
+    assert [blk[:3] for blk in blocks] == [blk[:3] for blk in cuda_sgu.k2_fwd_tiles(batch, n, d)]
+    lengths = [len(walk) for _, _, _, walk in blocks]
+    assert lengths == sorted(lengths, reverse=True)
+    halves = -(-n // 64)
+    want = {(h, k): ("diagonal" if 64 * h <= step * k < 64 * h + 64 else "full")
+            for h in range(halves) for k in range(-(-min(64 * h + 64, n) // step))}
+    col_tiles = -(-d // 128)
+    for b in range(batch):
+        for ct in range(col_tiles):
+            got = {}
+            for bb, m0, c0, walk in blocks:
+                if (bb, c0) != (b, 128 * ct):
+                    continue
+                for r0, k0, kind in walk:
+                    assert 0 <= k0 < n
+                    if kind == "skipped" or r0 >= n:
+                        continue
+                    key = (r0 // 64, k0 // step)
+                    assert key not in got
+                    got[key] = kind
+            assert got == want
+
+
+@pytest.mark.parametrize("batch,d", [(1, 8), (1, 520), (8, 2048), (2, 8192)])
+@pytest.mark.parametrize("n", [100, 1000, 1024, 4096])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_k2_dw_f32_split_covers_the_reduction_axis_once(batch, d, n, sms):
+    """f32 K2-dW's plan: 32-channel steps, every (batch row, channel) pair
+    in exactly one split, no split empty, and the blocks at two an SM in
+    one wave where the axis is long enough."""
+    step, per_sm = cuda_sgu.DW_PLAN["tf32x3"]
+    splits, ranges = cuda_sgu.dw_split(batch, n, d, sms, "tf32x3")
+    chunks = -(-d // step)
+    seen = np.zeros((batch, chunks * step), dtype=int)
+    for steps in ranges:
+        assert len(steps) > 0
+        for j in steps:
+            c0 = (j % chunks) * step
+            seen[j // chunks, c0:c0 + step] += 1
+    assert (seen == 1).all() and splits == len(ranges)
+    side = -(-n // cuda_sgu.DW_TILE)
+    tiles = side * (side + 1) // 2
+    assert tiles * splits <= max(per_sm * sms, tiles)
+    assert splits == min(batch * chunks, max(1, per_sm * sms // tiles))
+
+
+def test_k2_dw_f32_plan_at_progen_small():
+    """B 8, n 1024, d 2048 on 132 SMs: 512 steps of 32 channels in 7
+    splits, 252 blocks (two an SM), a 16.5 MB workspace."""
+    splits, ranges = cuda_sgu.dw_split(8, 1024, 2048, 132, "tf32x3")
+    assert splits == 7 and [len(r) for r in ranges] == [73, 73, 73, 73, 73, 73, 74]
+    assert 36 * splits == 252
+    assert cuda_sgu.dw_workspace_numel(1024, splits) * 4 == 16_515_072
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (torch.float32, ("tf32x3", "fma", "tf32x3")),
+])
+def test_the_k2_routes_of_each_dtype(dtype, want):
+    """K2-fwd, K2-dgate and K2-dW: bf16 on ``wgmma``; f32 on ``tf32x3``
+    but K2-dgate, which keeps ``fma``; each route its own C entry."""
+    got = (cuda_sgu.fwd_route(dtype), cuda_sgu.dgate_route(dtype), cuda_sgu.dw_route(dtype))
+    assert got == want
+    for counter, route in zip((cuda_sgu.fwd_route_launches, cuda_sgu.dgate_route_launches,
+                               cuda_sgu.dw_route_launches), got):
+        assert route in counter and route in cuda_sgu.SUFFIX
