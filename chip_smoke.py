@@ -24,12 +24,13 @@ non-zero without its last line:
    to its route and run twice for the same bits; K1-dq and K1-dkv also at
    the phantom window alone, ProGen-tiny's head, ProGen-base's window, a
    window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
-   route (dim_head 32, a window of 64), and in f32 (K1-dkv on "tf32x3", K1-dq on WMMA) at the
-   training shape and the phantom window and on WMMA at dim_head 32, each
-   run twice for the same bits and held to the route it must take; K2-dgate
-   and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each run twice
-   for the same bits and held to its route (bf16 "wgmma"; f32 K2-dW
-   "tf32x3", K2-dgate the FMA kernel), dW's strict upper triangle 0.  Every
+   route (dim_head 32, a window of 64), and in f32 (both on "tf32x3") at
+   the training shape, the phantom window, ProGen-tiny's head,
+   ProGen-base's window and a window of 128, and on WMMA at dim_head 32,
+   each run twice for the same bits and held to the route it must take;
+   K2-dgate and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each
+   run twice for the same bits and held to its route (bf16 "wgmma", f32
+   "tf32x3"), dW's strict upper triangle 0.  Every
    kernel is timed in bf16 and in f32, each f32 row with its bound restated
    for f32-accurate products (3 x FLOPs / 495 TFLOP/s) beside the CUDA
    cores' 67 TFLOP/s, and the tf32x3 rows beside the first kernel (WMMA for
@@ -132,7 +133,7 @@ non-zero without its last line:
    version with the same halo, ``dk_halo``/``dv_halo`` included: bf16 on the
    Hopper route at the training shape (B 8, H 8, L 1024, D 128, window 256)
    and at ProGen-base's window, bf16 on the WMMA route (dim_head 32; a
-   window of 64) and f32 (K1-fwd and K1-dkv on "tf32x3", K1-dq on WMMA) at
+   window of 64) and f32 (all three on "tf32x3") at
    the training shape, each run twice for
    the same bits, held to its route and at K1's bars; at the training shape
    in bf16 and in f32, timed with and without the halo, with their bounds,
@@ -145,7 +146,7 @@ non-zero without its last line:
    (the f32 runs at 6 of its 12 layers since phase 16),
    batch 8, 4 steps: without a mesh in f32 and in bf16 compute, then on a
    mesh of one rank (NCCL, ``-1,1,1,1``) in f32 under ``dp`` and under
-   ``fsdp`` (K1-fwd and K1-dkv on "tf32x3", K1-dq on WMMA) and in bf16
+   ``fsdp`` (K1's three kernels on "tf32x3") and in bf16
    compute under ``fsdp`` (K1
    on the Hopper route): each meshed run's losses against the unmeshed
    run's of its precision (1e-4 relative in f32, 1e-2 in bf16), every
@@ -353,7 +354,8 @@ run beside its meshed runs (after them before); phase 20 on phase 7's
 first 4 requests (8 before).
 The whole takes ten to sixteen minutes on an H100 (by the host's
 pace), the build included.
-``engine_workloads_alone()`` runs phases 9 and 10 on their own,
+``kernels_alone()`` runs phase 3 on its own, ``parallel_alone()`` phase
+11, ``engine_workloads_alone()`` phases 9 and 10 on their own,
 ``engine_lifecycle_alone()`` phase 12, ``engine_graphs_alone()`` phase 13
 with the eager runs it compares against, ``trainer_superstep_alone()``
 phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs,
@@ -964,9 +966,8 @@ def sgu_bwd_case(gen, b, n, d, dtype):
 
 # K1's backward cases (b, h, n, d, wsz): in bf16 the first five take the
 # Hopper kernels (the "wgmma" route), the last two the WMMA kernels; f32
-# takes the 3xTF32 kernel for K1-dkv ("tf32x3") and the WMMA kernel for
-# K1-dq at the training shape and the phantom window, and the WMMA kernels
-# at ProGen-default's head.  The first of each is timed.
+# takes the 3xTF32 kernels ("tf32x3") in the first five and the WMMA
+# kernels at ProGen-default's head.  The first of each is timed.
 K1_BWD_CASES = (
     (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
     (2, 8, 256, 128, 256),              # one window: the phantom window only
@@ -976,18 +977,19 @@ K1_BWD_CASES = (
     (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
     (2, 8, 1024, 128, 64),              # a window under 128: WMMA
 )
-K1_BWD_F32_CASES = (K1_BWD_CASES[0], K1_BWD_CASES[1], K1_BWD_CASES[5])
+K1_BWD_F32_CASES = K1_BWD_CASES[:6]
 
 
 def k1_bwd_rows(inputs, res, errs) -> list[dict]:
     """CUDA-event times of K1-dq and K1-dkv at one timed case, beside the
     plain backward and one SDPA backward (dq, dk and dv in one call each),
-    with the bounds; K1-dkv on ``tf32x3`` also on the first (``wmma``)
+    with the bounds; each on ``tf32x3`` also on the first (``wmma``)
     kernel."""
     q, k, v, do, out, lse, dd = inputs
     b, h, n, d = q.shape
     wsz = SMALL.window_size
-    dq_fn = lambda: cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz)
+    dq_fn = lambda route=None: cuda_attention.local_attention_bwd_dq(
+        q, k, v, do, lse, dd, wsz, route=route)
     dkv_fn = lambda route=None: cuda_attention.local_attention_bwd_dkv(
         q, k, v, do, lse, dd, wsz, route=route)
     plain_ms = time_ms(lambda: local_attention_bwd(q, k, v, out, lse, do, wsz), iters=5)
@@ -1016,7 +1018,7 @@ def k1_bwd_rows(inputs, res, errs) -> list[dict]:
             "max_abs_err_all_checks": max(e for g in grads for e in errs[g]),
         })
         if route == "tf32x3":
-            rows[-1]["wmma_route_ms"] = time_ms(lambda: dkv_fn("wmma"))
+            rows[-1]["wmma_route_ms"] = time_ms(lambda: fn("wmma"))
         emit("kernel_time", **rows[-1])
     return rows
 
@@ -1024,8 +1026,8 @@ def k1_bwd_rows(inputs, res, errs) -> list[dict]:
 def sgu_bwd_rows(inputs, res, errs) -> list[dict]:
     """CUDA-event times of K2-dgate and K2-dW at one timed case, beside
     their plain versions and one library call each (in f32 with TF32 off),
-    with the bounds; K2-dW on ``tf32x3`` also on the first (``fma``)
-    kernel, and its split plan on its route."""
+    with the bounds; each on ``tf32x3`` also on the first (``fma``)
+    kernel, and K2-dW's split plan on its route."""
     res_, gate, dout, w = inputs
     b, n, dd_ = gate.shape
     esize = gate.element_size()
@@ -1130,6 +1132,19 @@ def sdpa_backward_ms(q, k, v, do, wsz) -> float:
                                                retain_graph=True))
 
 
+def kernels_alone() -> list[dict]:
+    """Phase 3 on its own, with the build: every kernel against its plain
+    version at every case, timed in bf16 and f32 (the rows' launches stay
+    null: they come from the main path's runs):
+    ``python3 -c "import chip_smoke as cs; cs.kernels_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    rows = check_kernels() + check_backward_kernels() + check_paged_kernels()
+    print(json.dumps({"kernels": rows}), flush=True)
+    return rows
+
+
 # -- phase 4: the serving path ------------------------------------------------
 
 
@@ -1182,23 +1197,21 @@ ROUTE_TOTALS = {name: {} for name in ROUTE_COUNTERS}
 
 def k1_route(kernel: str, dtype, d: int, wsz: int) -> str:
     """The route a K1 launch must take: dim_head 64 or 128 and a window that
-    is a multiple of 128 take the Hopper kernels (bf16 ``wgmma``; f32
-    ``tf32x3`` for K1-fwd and K1-dkv, K1-dq keeping ``wmma``), the rest
-    ``wmma``.  ``kernel``: ``"fwd"``, ``"dq"`` or ``"dkv"``."""
+    is a multiple of 128 take the Hopper kernels (bf16 ``wgmma``, f32
+    ``tf32x3``), the rest ``wmma``.  ``kernel`` (``"fwd"``, ``"dq"`` or
+    ``"dkv"``): the three kernels share the rule."""
     if d not in (64, 128) or wsz % 128 != 0:
         return "wmma"
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    return "wmma" if kernel == "dq" else "tf32x3"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 # the route each K2 kernel must take in f32 (bf16: "wgmma" for all three)
-K2_F32_ROUTES = {"sgu_fwd": "tf32x3", "sgu_bwd_dgate": "fma", "sgu_bwd_dw": "tf32x3"}
+K2_F32_ROUTES = {"sgu_fwd": "tf32x3", "sgu_bwd_dgate": "tf32x3", "sgu_bwd_dw": "tf32x3"}
 
 
 def k2_route(kernel: str, dtype) -> str:
-    """The route a K2 launch must take: ``wgmma`` in bf16; in f32
-    ``tf32x3`` for K2-fwd and K2-dW, ``fma`` for K2-dgate.  ``kernel``: a
+    """The route a K2 launch must take: ``wgmma`` in bf16, ``tf32x3`` in
+    f32 (the three kernels share the rule).  ``kernel``: a
     counter name (``"sgu_fwd"``, ``"sgu_bwd_dgate"``, ``"sgu_bwd_dw"``)."""
     return "wgmma" if dtype == torch.bfloat16 else K2_F32_ROUTES[kernel]
 
@@ -1247,8 +1260,7 @@ K1_BWD_ROUTES = {"local_attention_bwd_dq": "dq", "local_attention_bwd_dkv": "dkv
 def require_backward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
     """Every K1-dq, K1-dkv, K2-dgate and K2-dW launch of a run at
     ProGen-small's head and window went through the route of its precision:
-    bf16 ``wgmma`` for all four; f32 ``wmma`` for K1-dq, ``tf32x3`` for
-    K1-dkv and K2-dW, ``fma`` for K2-dgate."""
+    bf16 ``wgmma`` for all four, f32 ``tf32x3`` for all four."""
     dtype = torch.bfloat16 if hopper else torch.float32
     for name in (*K1_BWD_ROUTES, *K2_BWD_ROUTES):
         route = (k1_route(K1_BWD_ROUTES[name], dtype, SMALL.dim_head, SMALL.window_size)
@@ -3278,8 +3290,8 @@ def engine_lifecycle_alone() -> dict:
 
 # K1 with a halo (b, h, n, d, wsz), dtype, timed: bf16 on the Hopper route
 # at the training shape and ProGen-base's window, on the WMMA route at
-# dim_head 32 and a window of 64; f32 (K1-fwd and K1-dkv on the 3xTF32
-# route, K1-dq on WMMA) at the training shape, the
+# dim_head 32 and a window of 64; f32 (all three on the 3xTF32 route) at
+# the training shape, the
 # meshed f32 Trainer's own.  The two at the training shape are timed: each
 # is the route of one of the meshed Trainer's runs.
 GRAPH_REPLAYS = 3                  # replays of each kernel's captured launch
@@ -4130,7 +4142,7 @@ def halo_rows(inputs, errs: dict, all_errs: dict) -> list[dict]:
              cuda_attention.fwd_route(q.dtype, d, wsz),
              4.0 * d * pairs, 4 * vec + 2 * halo + rowvec, ("out", "lse"), plain_fwd, sdpa_fwd),
             ("local_attention_bwd_dq_halo",
-             lambda *halo: dq(q, k, v, do, lse, dd, wsz, None, *halo),
+             lambda *halo, route=None: dq(q, k, v, do, lse, dd, wsz, None, *halo, route=route),
              cuda_attention.dq_route(q.dtype, d, wsz),
              6.0 * d * pairs, 5 * vec + 2 * halo + 2 * rowvec, ("dq",), plain_bwd, sdpa_bwd),
             ("local_attention_bwd_dkv_halo",
@@ -4218,9 +4230,8 @@ MESHED_RUNS = (("dp", "dp", False), ("fsdp", "fsdp", False), ("fsdp_bf16", "fsdp
 def parallel_phase(smi: str) -> tuple[list[dict], dict]:
     """Phase 11: (a) the halo kernels against the plain version, (b) the
     split-sequence identity, (c) the Trainer on a mesh of one rank against
-    the Trainer without one, in f32 (``dp``, ``fsdp``: K1-fwd and K1-dkv
-    on the 3xTF32 route, K1-dq on WMMA) and in bf16 compute (``fsdp``: K1
-    on the Hopper route).  The
+    the Trainer without one, in f32 (``dp``, ``fsdp``: K1 on the 3xTF32
+    route) and in bf16 compute (``fsdp``: K1 on the Hopper route).  The
     launch counts are set to 0 just before each precision's meshed runs and
     read just after; each timed halo row takes the launches of its route's
     runs.  Returns the six halo rows and the phase's result."""

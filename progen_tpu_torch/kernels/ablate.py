@@ -8,8 +8,9 @@ positions, n = 1024, d = 2048, page 16; a bf16 pool, and int8 weights with
 an int8 pool), warm in L2 and cold.
 
     python -m progen_tpu_torch.kernels.ablate [local_attention_bwd
+                                               local_attention_bwd_f32
                                                local_attention_fwd sgu_fwd
-                                               paged_gate_mix]
+                                               sgu_bwd paged_gate_mix]
 
 Variants, made from the source by text substitution (each substitution
 checked; the results are wrong, only the times count, except ``overlap``'s):
@@ -33,6 +34,15 @@ checked; the results are wrong, only the times count, except ``overlap``'s):
   order, not longest walk first), ``batch_major`` (batch row by batch row,
   longest walk first within each) and ``one_block`` (a producer warpgroup
   and 4 stages: one block an SM, the first design).
+- f32 K1-dq on the tf32x3 route (``local_attention_bwd.cu`` as the source
+  ``local_attention_bwd_f32``, at B = 8 in f32, without and with a halo):
+  ``whole`` (ds.k four output fragments at a time); ``b8`` and ``b2``
+  (eight, the first design, or two at a time); ``unroll_2`` (the s and
+  dp loops unrolled twice, not four times); all right, and bit-equal to
+  ``whole``.
+- f32 K2-dgate on the tf32x3 route (``sgu_bwd.cu``, at B = 8 in f32):
+  ``whole`` (two blocks an SM, registers capped at 128) and ``one_block``
+  (one block an SM, the cap lifted); both right.
 - K3 and K3-q8 on the bulk route (``paged_gate_mix.cu``): ``whole``;
   ``copies_only`` (the ring fills and drains, no products); ``no_sum``
   (each split writes its partial, no cross-block sum); ``one_split`` (the
@@ -220,6 +230,27 @@ BATCH_MAJOR = ("block_tile(blockIdx.x, batch, row_tiles, col_tiles, b, mi, ct);"
                " mi = row_tiles - 1 - (blockIdx.x / col_tiles) % row_tiles;"
                " b = blockIdx.x / (col_tiles * row_tiles);", 1)
 
+# f32 K1-dq's product ds.k, four output fragments at a time, and the
+# ``b8`` and ``b2`` variants' eight and two
+DQ_B8 = """        for (int n0 = 0; n0 < D / 8; n0 += 8) {
+          t3::FragB b[8];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) t3::load_b_cols(b[n], ks + 8 * j * LD + 8 * (n0 + n), LD);
+          t3::mma3<8>(acc + n0, da, b);  // dq += ds.k"""
+DQ_B4 = """        for (int n0 = 0; n0 < D / 8; n0 += 4) {
+          t3::FragB b[4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) t3::load_b_cols(b[n], ks + 8 * j * LD + 8 * (n0 + n), LD);
+          t3::mma3<4>(acc + n0, da, b);  // dq += ds.k"""
+
+DQ_B2 = DQ_B4.replace("n0 += 4", "n0 += 2").replace("b[4]", "b[2]").replace(
+    "n < 4", "n < 2").replace("mma3<4>", "mma3<2>")
+DQ_UNROLL_2 = ("#pragma unroll 4\n      for (int kk = 0; kk < D / 8; ++kk) {  // ",
+               "#pragma unroll 2\n      for (int kk = 0; kk < D / 8; ++kk) {  // ", 2)
+
+# a source that is another file's part -> that file
+FILES = {"local_attention_bwd_f32": "local_attention_bwd"}
+
 # source -> (the text the Hopper kernels start at, stubs, variants); a
 # variant is a list of (text, replacement, occurrences after the start), or
 # of (start, end, replacement) spans
@@ -251,6 +282,17 @@ SOURCES = {
         "one_block": [("constexpr int STAGES = 2;", "constexpr int STAGES = 4;", 1),
                       ("constexpr int THREADS = 288;", "constexpr int THREADS = 384;", 1),
                       ("__launch_bounds__(fw::THREADS, 2)", "__launch_bounds__(fw::THREADS, 1)",
+                       1)],
+    }),
+    "local_attention_bwd_f32": ("// -- K1-dq in f32 on the tensor cores", "", {
+        "whole": [],
+        "b8": [(DQ_B4, DQ_B8, 1)],
+        "b2": [(DQ_B4, DQ_B2, 1)],
+        "unroll_2": [DQ_UNROLL_2],
+    }),
+    "sgu_bwd": ("namespace dg3 {", "", {
+        "whole": [],
+        "one_block": [("__launch_bounds__(dg3::THREADS, 2)", "__launch_bounds__(dg3::THREADS, 1)",
                        1)],
     }),
     "paged_gate_mix": ("namespace bk {", PAGED_STUBS, {
@@ -291,6 +333,8 @@ ENTRIES = {
                             ("local_attention_bwd_dkv_wgmma", 12)),
     "local_attention_fwd": (("local_attention_fwd_wgmma", 7),),
     "sgu_fwd": (("sgu_fwd_wgmma", 5),),
+    "sgu_bwd": (("sgu_bwd_dgate_tf32x3", 4),),
+    "local_attention_bwd_f32": (("local_attention_bwd_dq_tf32x3", 9),),
     "paged_gate_mix": (("paged_gate_mix_bulk", 8, 8), ("paged_gate_mix_q8_bulk", 10, 9),
                        ("paged_gate_mix", 6, 7), ("paged_gate_mix_q8", 8, 8)),
 }
@@ -300,7 +344,7 @@ PAGED_TYPES = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
 
 def variant_source(source: str, variant: str) -> str:
     start, stubs, variants = SOURCES[source]
-    src = (kernels.CSRC / f"{source}.cu").read_text()
+    src = (kernels.CSRC / f"{FILES.get(source, source)}.cu").read_text()
     head, part = src.split(start, 1)
     for edit in variants[variant]:
         if len(edit) == 3 and isinstance(edit[2], int):
@@ -324,7 +368,7 @@ def variant_source(source: str, variant: str) -> str:
 def kernel_key(line: str) -> str | None:
     """The Hopper kernel a ptxas line names, with its dim_head or its
     element types (``paged_gate_mix_bulk_kernel<int8,int8,scaled>``)."""
-    if entry := re.search(r"\d([a-z][a-z_]*_wgmma_kernel)(ILi(\d+)E)?", line):
+    if entry := re.search(r"\d([a-z][a-z_0-9]*_(?:wgmma|tf32x3)_kernel)(ILi(\d+)E)?", line):
         return entry.group(1) + (f"<{entry.group(3)}>" if entry.group(3) else "")
     if entry := re.search(r"\d(paged_gate_mix(?:_bulk)?_kernel)I((?:f|a|13__nv_bfloat16)+)"
                           r"Lb([01])E", line):
@@ -370,7 +414,7 @@ def build(variants: list[tuple[str, str]]) -> dict[tuple[str, str], tuple]:
         for name, n_tensors, *n_ints in ENTRIES[source]:
             fn = getattr(lib, name)
             tail = ([ctypes.c_int] * n_ints[0] + [ctypes.c_void_p] if n_ints
-                    else [ctypes.c_int] * 4 + [ctypes.c_void_p] if source == "sgu_fwd"
+                    else [ctypes.c_int] * 4 + [ctypes.c_void_p] if source.startswith("sgu")
                     else [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.argtypes = [ctypes.c_void_p] * n_tensors + tail
             fn.restype = ctypes.c_int
@@ -476,6 +520,44 @@ def time_sgu(lib, gen) -> list[dict]:
     return rows
 
 
+def time_bwd_f32(lib, gen) -> list[dict]:
+    """f32 K1-dq on the tf32x3 route at B = 8, without and with a halo, and
+    whether its result is the library's own route's, bit for bit."""
+    q, k, v, do = (t.float() for t in attention_inputs(gen, 8))
+    rows = []
+    for halo in (False, True):
+        kh, vh = ((torch.randn(8, HEADS, WINDOW, DIM_HEAD, device="cuda", generator=gen)
+                   for _ in range(2)) if halo else (None, None))
+        out, lse = cuda_attention.local_attention_fwd(q, k, v, WINDOW, None, kh, vh)
+        dd = (do * out).sum(-1)
+        dq = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if kh is None else kh.data_ptr(),
+                None if vh is None else vh.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dd.data_ptr(), dq.data_ptr(), 8 * HEADS, SEQ, DIM_HEAD, WINDOW,
+                DIM_HEAD ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+        check(lib.local_attention_bwd_dq_tf32x3(*args))
+        want = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, WINDOW, None, kh, vh)
+        rows.append({"shape": list(q.shape), "window": WINDOW, "dtype": "float32",
+                     "halo": halo,
+                     "ms": time_ms(lambda: check(lib.local_attention_bwd_dq_tf32x3(*args))),
+                     "same_as_whole": torch.equal(dq, want)})
+    return rows
+
+
+def time_sgu_bwd(lib, gen) -> list[dict]:
+    """f32 K2-dgate on the tf32x3 route at B = 8, and whether its result is
+    the library's own route's, bit for bit."""
+    dout, res = (torch.randn(8, SGU_N, SGU_D, device="cuda", generator=gen) for _ in range(2))
+    w = torch.randn(SGU_N, SGU_N, device="cuda", generator=gen) * 0.05
+    out = torch.empty_like(dout)
+    args = (w.data_ptr(), dout.data_ptr(), res.data_ptr(), out.data_ptr(), 8, SGU_N, SGU_D, 0,
+            torch.cuda.current_stream().cuda_stream)
+    check(lib.sgu_bwd_dgate_tf32x3(*args))
+    return [{"shape": [8, SGU_N, SGU_D], "dtype": "float32",
+             "ms": time_ms(lambda: check(lib.sgu_bwd_dgate_tf32x3(*args))),
+             "same_as_whole": torch.equal(out, cuda_sgu.spatial_gate_dgate(w, dout, res))}]
+
+
 def paged_inputs(gen) -> dict:
     """The engine's shapes at ProGen-small: 8 rows at ``PAGED_POS``, tables
     naming random pages up to each row's last, a bf16 pool and the int8
@@ -543,7 +625,8 @@ def time_paged(lib, gen, variant: str) -> list[dict]:
 
 
 TIMERS = {"local_attention_bwd": time_bwd, "local_attention_fwd": time_fwd,
-          "sgu_fwd": time_sgu, "paged_gate_mix": time_paged}
+          "sgu_fwd": time_sgu, "sgu_bwd": time_sgu_bwd,
+          "local_attention_bwd_f32": time_bwd_f32, "paged_gate_mix": time_paged}
 
 
 def main(argv: list[str]) -> int:

@@ -57,14 +57,17 @@
 // Every output element is written by one block, once: no atomics, the same
 // bits every run.
 //
-// "tf32x3" (local_attention_bwd_dkv_tf32x3), K1-dkv only: f32 with
-// dim_head 64 or 128 and windows that are multiples of 128 (the "wgmma"
-// route's shapes; f32 is the default of both training CLIs).  It replaced
-// the "wmma" kernel's f32 FMA loops for K1-dkv (2.56 ms at B 8 with a halo;
-// with K1-dq, 3.3x one scaled_dot_product_attention backward).  What bounds
-// it: 25.8 GFLOP at B 8 with the halo, each product f32-accurate as three
-// TF32 products (attention_tf32x3.cuh), so at least 3 x FLOPs / 495 TFLOP/s
-// = 0.156 ms, over ~235 MB (0.070 ms): the operations.  A block of eight warps owns
+// "tf32x3" (local_attention_bwd_{dq,dkv}_tf32x3): f32 with dim_head 64 or
+// 128 and windows that are multiples of 128 (the "wgmma" route's shapes;
+// f32 is the default of both training CLIs).  They replaced the "wmma"
+// kernels' f32 FMA loops (K1-dkv 2.56 ms and K1-dq 2.36 ms at B 8 with a
+// halo; together 3.3x one scaled_dot_product_attention backward).  What
+// bounds them: 25.8 and 19.4 GFLOP at B 8 with the halo, each product
+// f32-accurate as three TF32 products (attention_tf32x3.cuh), so at least
+// 3 x FLOPs / 495 TFLOP/s = 0.156 and 0.117 ms, over ~235 and ~185 MB
+// (0.070 and 0.055 ms): the operations.
+//
+// K1-dkv: a block of eight warps owns
 // 128 keys of one window (or of the halo), k and v resident in shared
 // memory; the 32-query tiles of q and dout, with their lse and D, stream
 // through a two-stage cp.async ring into padded f32 rows.  Each warp owns
@@ -75,10 +78,25 @@
 // and dv (2 x D / 2 registers a thread at D = 128) stay in registers beside
 // a tile's s^T and dp^T (32), since a 32-query tile keeps those small.  A
 // warp skips what its keys do not see; every output element is written by
-// one thread, once: the same bits every run.  K1-dq in f32 keeps "wmma".
+// one thread, once: the same bits every run.
+//
+// K1-dq: K1-dkv turned round.  A block of eight warps owns 128 query rows
+// of one window, in K1-fwd's longest-walk-first order (block_row), q and
+// dout resident in shared memory (rows of D + 4 words: 135 KB at D = 128);
+// the 32-key tiles of k and v stream through the two-stage cp.async ring
+// (67.6 KB), from the previous window's first key (the halo's, at
+// t0 < 0, when one is given; none for window 0 without one, whose phantom
+// keys add nothing to dq) to the block's last row.  Each warp owns 16
+// rows, whose lse and D it reads once: per tile s = q.k^T and dp =
+// dout.v^T (16 x 32) in registers, p = exp(s scale - lse) and ds = p (dp -
+// D) there, then dq += ds.k with ds as split A fragments and k read
+// N-major, as K1-fwd's p.v.  dq (16 x D) stays in registers for the whole
+// walk and is scaled and written once.  A warp skips the tiles whose keys
+// all come after its rows; the diagonal tile is masked in registers.  No
+// atomics: the same bits every run.
 //
 // "wmma" (local_attention_bwd_{dq,dkv}): f32 at dim_head 32 and the other
-// windows (K1-dq: every f32 shape), and bf16 at those.  One block of 4 warps owns 64 rows,
+// windows, and bf16 at those.  One block of 4 warps owns 64 rows,
 // each warp 16 of them.  The block streams tiles of the other side (64 rows
 // in bf16, 32 in f32, so the f32 tiles fit in shared memory at D = 128) and
 // skips the tiles that no row of the block sees; visibility is decided per
@@ -538,6 +556,177 @@ cudaError_t launch_dkv_tf32x3(const void* q, const void* k, const void* v, const
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<float*>(dk), static_cast<float*>(dv),
       static_cast<float*>(dk_halo), static_cast<float*>(dv_halo), seq, wsz, scale);
+  return cudaGetLastError();
+}
+
+// -- K1-dq in f32 on the tensor cores: 3xTF32 (the "tf32x3" route) -----------
+
+// Shared memory: the block's 128 query rows of q and of dout, then the
+// ring's stages of a 32-key k tile and its v tile; every row D + 4 words.
+template <int D>
+struct Dq3Layout {
+  static constexpr int LD = D + 4;
+  static constexpr size_t Q = 0;
+  static constexpr size_t DOUT = Q + sizeof(float) * t3::ROWS * LD;
+  static constexpr size_t RING = DOUT + sizeof(float) * t3::ROWS * LD;
+  static constexpr size_t STAGE = sizeof(float) * 2 * t3::DQ_KEYS * LD;
+  static constexpr size_t SMEM = RING + t3::STAGES * STAGE;
+};
+
+// K1-dq, f32: block blk owns query rows [b0, b0 + 128) of row block
+// blk / bh (block_row, longest walk first) of sequence blk % bh and walks
+// the 32-key tiles from dq_first (the halo's first, at t0 < 0, when one is
+// given) to b0 + 128, as cuda_attention.k1_bwd_tiles(side="dq", tile=32)
+// lists them.  Each warp owns 16 rows: per tile s = q.k^T and dp =
+// dout.v^T (16 x 32) in registers, p and ds there, and dq += ds.k (16 x D,
+// f32 in registers for the whole walk), every product 3xTF32.
+template <int D>
+__global__ void __launch_bounds__(t3::THREADS, 1)
+local_attention_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ k_halo,
+                                 const float* __restrict__ v_halo,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ dd,
+                                 float* __restrict__ dq, int bh, int seq, int wsz,
+                                 float scale) {
+  namespace awg = progen::attention::wgmma;
+  using S = Dq3Layout<D>;
+  constexpr int LD = S::LD;
+  constexpr int KT = t3::DQ_KEYS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + S::Q);
+  float* dos = reinterpret_cast<float*>(smem + S::DOUT);
+
+  const int b0 = awg::block_row(blockIdx.x / bh, seq, wsz);
+  const int sq = blockIdx.x % bh;
+  const size_t row0 = static_cast<size_t>(sq) * seq;
+  const bool halo = k_halo != nullptr;
+  const float* kh = halo ? k_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const float* vh = halo ? v_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const int first = awg::dq_first(b0, wsz, halo);
+  const int tiles = (b0 + t3::ROWS - first) / KT;
+
+  auto stage = [&](int it) {
+    return reinterpret_cast<float*>(smem + S::RING + (it % t3::STAGES) * S::STAGE);
+  };
+  auto load = [&](int it) {  // tile it into its stage (window 0's previous: the halo)
+    const int t0 = first + KT * it;
+    float* ks = stage(it);
+    const float* ksrc = t0 < 0 ? kh + static_cast<size_t>(wsz + t0) * D : k + (row0 + t0) * D;
+    const float* vsrc = t0 < 0 ? vh + static_cast<size_t>(wsz + t0) * D : v + (row0 + t0) * D;
+    t3::copy_rows<D, KT>(ks, ksrc);
+    t3::copy_rows<D, KT>(ks + KT * LD, vsrc);
+  };
+  t3::copy_rows<D, t3::ROWS>(qs, q + (row0 + b0) * D);
+  t3::copy_rows<D, t3::ROWS>(dos, dout + (row0 + b0) * D);
+  load(0);
+  progen::hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = b0 + 16 * warp;  // this warp's rows; the thread's: r0 + g (+ 8)
+  const size_t at = row0 + r0 + g;
+  const float lse2[2] = {lse[at] * t3::LOG2E, lse[at + 8] * t3::LOG2E};
+  const float dd_r[2] = {dd[at], dd[at + 8]};
+  const float scale2 = scale * t3::LOG2E;  // p = 2^(s scale log2 e - lse log2 e)
+  const float* qw = qs + 16 * warp * LD;
+  const float* dow = dos + 16 * warp * LD;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) load(it + 1);
+    progen::hopper::cp_async_commit();  // an empty group at the end keeps the count
+    progen::hopper::cp_async_wait<1>();  // tile it (and q, dout) have landed
+    __syncthreads();
+    const int t0 = first + KT * it;
+    // a warp skips a tile whose keys all come after its rows; the diagonal
+    // tile is computed whole and masked
+    if (t0 <= r0 + 15) {
+      const float* ks = stage(it);
+      const float* vs = ks + KT * LD;
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {  // s = q.k^T
+        t3::FragA a;
+        t3::FragB b[4];
+        t3::load_a(a, qw + 8 * kk, LD);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t3::load_b_rows(b[j], ks + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<4>(sc, a, b);
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {  // dp = dout.v^T
+        t3::FragA a;
+        t3::FragB b[4];
+        t3::load_a(a, dow + 8 * kk, LD);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t3::load_b_rows(b[j], vs + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<4>(dp, a, b);
+      }
+      // element (j, 2 h + x): row r0 + g + 8 h, key t0 + 8 j + 2 t + x of
+      // the tile, seen if the key is at or before the row
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int e = 2 * h + x;
+            const bool seen = t0 + 8 * j + 2 * t + x <= r0 + g + 8 * h;
+            const float p = seen ? exp2f(fmaf(sc[j][e], scale2, -lse2[h])) : 0.0f;
+            dp[j][e] = p * (dp[j][e] - dd_r[h]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        t3::FragA da;
+        t3::a_from_c(da, dp[j]);
+#pragma unroll
+        for (int n0 = 0; n0 < D / 8; n0 += 4) {
+          t3::FragB b[4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n) t3::load_b_cols(b[n], ks + 8 * j * LD + 8 * (n0 + n), LD);
+          t3::mma3<4>(acc + n0, da, b);  // dq += ds.k
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(dq + (at + 8 * h) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_tf32x3(const void* q, const void* k, const void* v, const void* k_halo,
+                             const void* v_halo, const void* dout, const void* lse,
+                             const void* dd, void* dq, int bh, int seq, int wsz, float scale,
+                             cudaStream_t stream) {
+  constexpr size_t bytes = Dq3Layout<D>::SMEM;
+  auto kernel = local_attention_dq_tf32x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<(seq / t3::ROWS) * bh, t3::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(k_halo), static_cast<const float*>(v_halo),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<float*>(dq), bh, seq, wsz, scale);
   return cudaGetLastError();
 }
 
@@ -1167,6 +1356,29 @@ extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const
   cudaError_t err = dim_head == 64
       ? launch_dkv_wgmma<64>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
       : launch_dkv_wgmma<128>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+  return static_cast<int>(err);
+}
+
+// The tf32x3 route of K1-dq: float32 only (dtype 0), dim_head 64 or 128,
+// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
+// local_attention_bwd_dq.  Returns the CUDA error code of the launch.
+extern "C" int local_attention_bwd_dq_tf32x3(const void* q, const void* k, const void* v,
+                                             const void* k_halo, const void* v_halo,
+                                             const void* dout, const void* lse,
+                                             const void* dd, void* dq, int bh, int seq,
+                                             int dim_head, int wsz, float scale, int dtype,
+                                             void* stream) {
+  const Halo halo{k_halo, v_halo, nullptr, nullptr};
+  if (bad_shape(bh, seq, wsz) || bad_halo(halo, false) || dtype != 0 ||
+      wsz % t3::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
+      static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dim_head == 64
+      ? launch_dq_tf32x3<64>(q, k, v, k_halo, v_halo, dout, lse, dd, dq, bh, seq, wsz, scale, s)
+      : launch_dq_tf32x3<128>(q, k, v, k_halo, v_halo, dout, lse, dd, dq, bh, seq, wsz, scale,
+                              s);
   return static_cast<int>(err);
 }
 

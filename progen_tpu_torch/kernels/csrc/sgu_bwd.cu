@@ -1,7 +1,8 @@
 // Causal spatial gating unit, backward, for Hopper (sm_90a): the gradients
 // of out = res * cast(tril(W) . gate + b) that the TPU computes in kernels.
 //
-// sgu_bwd_dgate replaces progen_tpu/ops/pallas_sgu.py:_dgate_kernel
+// sgu_bwd_dgate_wgmma (bf16), sgu_bwd_dgate_tf32x3 (f32) and sgu_bwd_dgate
+// (f32, the first kernel) replace progen_tpu/ops/pallas_sgu.py:_dgate_kernel
 // (launched by _backward_dgate):  d_gate = tril(W)^T . (dout * res), with
 // dout * res rounded to the compute dtype before the f32 product
 // (pallas_sgu.py:162) and the sum cast once to dout's dtype.
@@ -12,9 +13,9 @@
 // f32 and cast once to W's dtype, the whole strict upper triangle exactly 0
 // (pallas_sgu.py:298-300).
 //
-// Each route has its own extern "C" name (K2-dgate: sgu_bwd_dgate_wgmma
-// for bf16, sgu_bwd_dgate for f32); cuda_sgu.dgate_route and dw_route pick
-// one from the dtype before the launch, and none falls back to another.
+// Each route has its own extern "C" name; cuda_sgu.dgate_route and
+// dw_route pick one from the dtype before the launch (bf16 "wgmma", f32
+// "tf32x3"), and none falls back to another.
 //
 // d_res is the forward kernel with dout in place of res and d_b a plain
 // reduction, as in the TPU package (pallas_sgu.py:316-335).
@@ -78,9 +79,28 @@
 // each A feeding 12 mma.sync.  In a diagonal tile the two warps whose
 // columns all lie past their rows skip the products and write zeros.
 //
-// The f32 "fma" kernels, K2-dgate's route and K2-dW's first kernel (timed
-// beside tf32x3), keep FMA loops over the forward's tiles (sgu_tile.cuh),
-// one block per d_W tile.
+// f32 d_gate on the tensor cores (the "tf32x3" route): every product as
+// three TF32 products, so the bound is 3 x FLOPs / 495 TFLOP/s (0.104 ms at
+// ProGen-small, B = 8).  K2-fwd's f32 kernel (sgu_fwd.cu, namespace f3)
+// with the triangle's two axes swapped: 256 threads, two blocks an SM; a
+// block owns (batch row, 128 gate rows j, 128 channels), the row tiles in
+// longest-walk-first order (dg3::block_tile, mirrored by
+// cuda_sgu.k2_dgate_tiles), and walks the 32-deep steps of positions i
+// from j0 to n through a ring of 2 cp.async stages: W's (32 i, 128 j) tile
+// as it lies in W, and dout's and res's (32 i, 128 channels) tiles, all in
+// rows of 136 words, rows past n and channels past d zero-filled.  Each
+// warp owns 64 rows j x 32 channels: per 8-deep slice it splits 4 B
+// fragments of dout * res (the product rounded to f32 as the fragment
+// loads, then split, as JAX forms dmix) and, one at a time, 4 A fragments
+// of W^T read M-major (load_a_km), each feeding 12 mma.sync.  A warp's
+// steps wholly past its rows' diagonal run unmasked; the two that cross it
+// (i0 = r0, r0 + 32) zero W's entries j > i in registers as the fragments
+// load; the steps before its rows are skipped.  Each output element is
+// written once, from registers: no atomics, the same bits every run.
+//
+// The f32 "fma" kernels (K2-dgate's and K2-dW's first, timed beside
+// tf32x3) keep FMA loops over the forward's tiles (sgu_tile.cuh), one
+// block per d_gate or d_W tile.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -510,6 +530,163 @@ sgu_dgate_kernel(const __grid_constant__ CUtensorMap w_map,
   }
 }
 
+// -- f32 d_gate on the tensor cores: 3xTF32 (the "tf32x3" route) --------------
+
+namespace dg3 {
+namespace t3 = progen::tf32x3;
+constexpr int ROWS = 128;                  // gate rows j per block, 64 per warp row
+constexpr int COLS = 128;                  // channels per block, 32 per warp column
+constexpr int STEP = 32;                   // positions i per stage
+constexpr int THREADS = 256;               // 8 warps: 2 (rows j) x 4 (channels)
+constexpr int STAGES = 2;
+constexpr int LD = 128 + 8;                // tile rows, words: (k, m) and (k, n) loads
+                                           // in distinct banks
+constexpr int OPERAND = STEP * LD;         // words of one (32, 128) tile
+constexpr int STAGE = 3 * OPERAND;         // W, dout, res
+constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;  // 104,448 B
+
+// Block blk of the longest-first order (mirrored by cuda_sgu.k2_dgate_tiles):
+// channel tile ct fastest, then batch row b, then row tile jt from the first
+// (the longest walk, j0 = 0 to n) to the last.
+__device__ __forceinline__ void block_tile(int blk, int batch, int col_tiles, int& b, int& jt,
+                                           int& ct) {
+  ct = blk % col_tiles;
+  const int rest = blk / col_tiles;
+  b = rest % batch;
+  jt = rest / batch;
+}
+
+// A = W^T from W's (i, j) tile with W[i][j] = 0 for j > i: `diag` is the
+// fragment's first row j less its first column i (load_a_km's reads).
+__device__ __forceinline__ void load_a_km_triu(t3::FragA& f, const float* m, int ld,
+                                               int diag) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const float x0 = t >= g + diag ? m[t * ld + g] : 0.0f;
+  const float x1 = t >= g + 8 + diag ? m[t * ld + g + 8] : 0.0f;
+  const float x2 = t + 4 >= g + diag ? m[(t + 4) * ld + g] : 0.0f;
+  const float x3 = t + 4 >= g + 8 + diag ? m[(t + 4) * ld + g + 8] : 0.0f;
+  t3::split(x0, f.hi[0], f.lo[0]);
+  t3::split(x1, f.hi[1], f.lo[1]);
+  t3::split(x2, f.hi[2], f.lo[2]);
+  t3::split(x3, f.hi[3], f.lo[3]);
+}
+
+// B = dout * res from their (k, n) tiles (load_b_kn's reads): the product
+// rounded to f32, then split.
+__device__ __forceinline__ void load_b_kn_mul(t3::FragB& f, const float* a, const float* r,
+                                              int ld) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int at0 = t * ld + g, at1 = (t + 4) * ld + g;
+  t3::split(a[at0] * r[at0], f.hi[0], f.lo[0]);
+  t3::split(a[at1] * r[at1], f.hi[1], f.lo[1]);
+}
+}  // namespace dg3
+
+__global__ void __launch_bounds__(dg3::THREADS, 2)
+sgu_dgate_tf32x3_kernel(const float* __restrict__ w, const float* __restrict__ dout,
+                        const float* __restrict__ res, float* __restrict__ dgate, int batch,
+                        int n, int d, int ldw, int col_tiles) {
+  using namespace dg3;
+  extern __shared__ __align__(16) float smem_f[];
+
+  int b, jt, ct;
+  block_tile(blockIdx.x, batch, col_tiles, b, jt, ct);
+  const int j0 = jt * ROWS, c0 = ct * COLS;
+  const int steps = ceil_div(n - j0, STEP);  // positions i from j0 to n
+  const size_t off = static_cast<size_t>(b) * n * d;
+
+  auto load = [&](int it) {  // step it into its stage
+    float* st = smem_f + (it % STAGES) * STAGE;
+    const int i0 = j0 + it * STEP;
+    t3::copy_tile<STEP, ROWS, LD, THREADS>(st, w, ldw, i0, j0, n, n);
+    t3::copy_tile<STEP, COLS, LD, THREADS>(st + OPERAND, dout + off, d, i0, c0, n, d);
+    t3::copy_tile<STEP, COLS, LD, THREADS>(st + 2 * OPERAND, res + off, d, i0, c0, n, d);
+  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    progen::hopper::cp_async_commit();  // empty groups keep the count
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = j0 + 64 * (warp / 4);  // the warp's first row j
+  const int wc = 32 * (warp % 4);       // its first channel in the tile
+  // a warp whose rows or channels all lie past the edge computes nothing
+  const bool idle = r0 >= n || c0 + wc >= d;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+  for (int it = 0; it < steps; ++it) {
+    progen::hopper::cp_async_wait<STAGES - 2>();  // step it has landed (this thread's part)
+    __syncthreads();  // every part has; every warp is done with step it - 1's stage
+    if (it + STAGES - 1 < steps) load(it + STAGES - 1);
+    progen::hopper::cp_async_commit();
+    const int i0 = j0 + it * STEP;
+    if (idle || i0 + STEP <= r0) continue;  // before the warp's rows: all zero
+    const float* st = smem_f + (it % STAGES) * STAGE;
+    const float* ws = st + (r0 - j0);
+    const float* as = st + OPERAND + wc;
+    const float* rs = st + 2 * OPERAND + wc;
+    if (i0 >= r0 + 64) {  // wholly past the diagonal
+#pragma unroll
+      for (int kk = 0; kk < STEP / 8; ++kk) {
+        t3::FragB bf[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          load_b_kn_mul(bf[c], as + 8 * kk * LD + 8 * c, rs + 8 * kk * LD + 8 * c, LD);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          t3::FragA af;
+          t3::load_a_km(af, ws + 8 * kk * LD + 16 * i, LD);
+          t3::mma3<4>(acc[i], af, bf);
+        }
+      }
+    } else {  // crossing it: W[i][j] = 0 for j > i
+#pragma unroll
+      for (int kk = 0; kk < STEP / 8; ++kk) {
+        t3::FragB bf[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          load_b_kn_mul(bf[c], as + 8 * kk * LD + 8 * c, rs + 8 * kk * LD + 8 * c, LD);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int diag = r0 + 16 * i - (i0 + 8 * kk);
+          if (diag > 7) continue;  // every row of the fragment is past every i of the slice
+          t3::FragA af;
+          load_a_km_triu(af, ws + 8 * kk * LD + 16 * i, LD, diag);
+          t3::mma3<4>(acc[i], af, bf);
+        }
+      }
+    }
+  }
+  progen::hopper::cp_async_wait<0>();
+
+  // element (i, c, 2 h + x): row r0 + 16 i + g + 8 h, channel
+  // c0 + wc + 8 c + 2 t + x
+  if (idle) return;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = r0 + 16 * i + g + 8 * h;
+      if (j >= n) continue;
+      float* row = dgate + off + static_cast<size_t>(j) * d;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + wc + 8 * c + 2 * t;
+        if (col >= d) continue;
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(acc[i][c][2 * h], acc[i][c][2 * h + 1]);
+      }
+    }
+  }
+}
+
 // -- f32: FMA loops over the forward's tiles, for the comparisons --------------
 
 // Copy a (ROWS, COLS) tile of dout * res (or of one tensor, when b is
@@ -680,6 +857,20 @@ cudaError_t launch_dgate_f32(const void* w, const void* dout, const void* res, v
   return cudaGetLastError();
 }
 
+cudaError_t launch_dgate_tf32x3(const void* w, const void* dout, const void* res,
+                                void* dgate, int batch, int n, int d, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(sgu_dgate_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(dg3::SMEM));
+  if (err != cudaSuccess) return err;
+  const int row_tiles = ceil_div(n, dg3::ROWS), col_tiles = ceil_div(d, dg3::COLS);
+  sgu_dgate_tf32x3_kernel<<<batch * row_tiles * col_tiles, dg3::THREADS, dg3::SMEM, stream>>>(
+      static_cast<const float*>(w), static_cast<const float*>(dout),
+      static_cast<const float*>(res), static_cast<float*>(dgate), batch, n, d, ceil8(n),
+      col_tiles);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dw_bf16(const void* dout, const void* res, const void* gate, void* work,
                            void* dw, int batch, int n, int d, int splits,
                            cudaStream_t stream) {
@@ -755,6 +946,19 @@ extern "C" int sgu_bwd_dgate_wgmma(const void* w, const void* dout, const void* 
   if (bad_shape(batch, n, d) || dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_dgate_bf16(w, dout, res, dgate, batch, n, d,
                                             static_cast<cudaStream_t>(stream)));
+}
+
+// The tf32x3 route of K2-dgate: float32 only (dtype 0), the same layout.
+extern "C" int sgu_bwd_dgate_tf32x3(const void* w, const void* dout, const void* res,
+                                    void* dgate, int batch, int n, int d, int dtype,
+                                    void* stream) {
+  if (bad_shape(batch, n, d) || dtype != 0 ||
+      static_cast<long long>(batch) * ceil_div(n, dg3::ROWS) * ceil_div(d, dg3::COLS) >
+          0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_dgate_tf32x3(w, dout, res, dgate, batch, n, d,
+                                              static_cast<cudaStream_t>(stream)));
 }
 
 // The fma route of K2-dgate: float32 only (dtype 0), the same layout.

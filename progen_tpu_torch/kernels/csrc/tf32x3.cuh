@@ -1,7 +1,7 @@
 // f32 products on the tensor cores to close to f32 accuracy (3xTF32), shared
-// by the port's f32 "tf32x3" routes: K1-fwd and K1-dkv
-// (attention_tf32x3.cuh adds what is about attention), K2-fwd (sgu_fwd.cu)
-// and K2-dW (sgu_bwd.cu).  mma.sync m16n8k8 with operands streamed through
+// by the port's f32 "tf32x3" routes: K1-fwd, K1-dq and K1-dkv
+// (attention_tf32x3.cuh adds what is about attention), K2-fwd (sgu_fwd.cu),
+// K2-dgate and K2-dW (sgu_bwd.cu).  mma.sync m16n8k8 with operands streamed through
 // a cp.async ring into padded f32 rows of shared memory.
 //
 // The split.  An f32 operand x is hi = tf32(x) and lo = tf32(x - hi), each
@@ -87,6 +87,17 @@ __device__ __forceinline__ void load_a(FragA& f, const float* m, int ld) {
   split(m[(g + 8) * ld + t], f.hi[1], f.lo[1]);
   split(m[g * ld + t + 4], f.hi[2], f.lo[2]);
   split(m[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+}
+
+// A = M^T for a row-major (k, m) tile M whose rows are A's k (M-major, as
+// K2-dgate reads W^T): `m` points at (row k0, column m0).  Rows ld = 8
+// (mod 32) words apart put the 32 reads in distinct banks (8 t + g).
+__device__ __forceinline__ void load_a_km(FragA& f, const float* m, int ld) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  split(m[t * ld + g], f.hi[0], f.lo[0]);
+  split(m[t * ld + g + 8], f.hi[1], f.lo[1]);
+  split(m[(t + 4) * ld + g], f.hi[2], f.lo[2]);
+  split(m[(t + 4) * ld + g + 8], f.hi[3], f.lo[3]);
 }
 
 // A from a first product's C fragment (16 x 8), k permuted as above.

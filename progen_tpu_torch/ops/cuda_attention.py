@@ -16,13 +16,14 @@ Each kernel's route is chosen before the launch by :func:`fwd_route`,
 :func:`dq_route` and :func:`dkv_route` from the dtype, ``dim_head`` and the
 window alone.  ``dim_head`` 64 or 128 with a window that is a multiple of
 128 (every shipped config but ``default``) takes the Hopper kernels: in
-bf16 a TMA ring into ``wgmma`` (``"wgmma"``, all three kernels), in f32
-K1-fwd and K1-dkv on the tensor cores as three TF32 products a product
-(``"tf32x3"``, a ``cp.async`` ring into ``mma.sync``).  Everything else,
-and K1-dq in f32, takes the WMMA kernels (``"wmma"``; their f32 products
-are FMA loops).  A failure on one route raises; it never tries another.
-``fwd_route_launches``, ``dq_route_launches`` and ``dkv_route_launches``
-count the launches of each route.
+bf16 a TMA ring into ``wgmma`` (``"wgmma"``), in f32 the tensor cores as
+three TF32 products a product (``"tf32x3"``, a ``cp.async`` ring into
+``mma.sync``), all three kernels in both.  Everything else takes the WMMA
+kernels (``"wmma"``; their f32 products are FMA loops).  A failure on one
+route raises; it never tries another.  ``fwd_route_launches``,
+``dq_route_launches`` and ``dkv_route_launches`` count the launches of each
+route, and ``route="wmma"`` forces a launch onto the first kernel (to time
+it on the same inputs).
 
 :func:`local_attention` is what the model calls: K1-fwd once, and under
 autograd K1-dq and K1-dkv in the backward, from the saved q, k, v, out and
@@ -57,9 +58,11 @@ DIM_HEADS = (32, 64, 128)
 # the Hopper kernels' tiling (attention_wgmma.cuh, attention_tf32x3.cuh): a
 # block owns 128 rows of one window (two warpgroups of 64 in bf16, eight
 # warps of 16 in f32) and streams tiles of the other side (64 rows in bf16;
-# in f32 64 keys for K1-fwd, 32 queries for K1-dkv)
+# in f32 64 keys for K1-fwd, 32 keys for K1-dq, 32 queries for K1-dkv)
 BWD_ROWS = 128
 BWD_TILE = 64
+TF32X3_WARP_ROWS = 16
+TF32X3_BWD_TILE = 32
 WGMMA_DIM_HEADS = (64, 128)
 # each route's extern "C" suffix
 SUFFIX = {"wmma": "", "wgmma": "_wgmma", "tf32x3": "_tf32x3"}
@@ -71,7 +74,7 @@ dkv_launches = 0
 halo_launches = 0
 halo_dq_launches = 0
 halo_dkv_launches = 0
-dq_route_launches = {"wgmma": 0, "wmma": 0}
+dq_route_launches = {"wgmma": 0, "tf32x3": 0, "wmma": 0}
 dkv_route_launches = {"wgmma": 0, "tf32x3": 0, "wmma": 0}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -193,10 +196,8 @@ def dkv_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
 
 
 def dq_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-dq kernel takes these shapes: ``"wgmma"`` in bf16 on
-    Hopper shapes, ``"wmma"`` for everything else (f32 included)."""
-    return "wgmma" if dtype == torch.bfloat16 and _hopper_shape(dim_head, window_size) \
-        else "wmma"
+    """Which K1-dq kernel takes these shapes: :func:`fwd_route`'s rule."""
+    return fwd_route(dtype, dim_head, window_size)
 
 
 def k1_fwd_tiles(n: int, window_size: int,
@@ -232,19 +233,24 @@ def k1_fwd_tiles(n: int, window_size: int,
     return blocks
 
 
-def k1_bwd_tiles(n: int, window_size: int, side: str,
-                 halo: bool = False) -> list[tuple[int, int, str]]:
-    """The bf16 backward kernels' tile walk, the formulas of
-    ``attention_wgmma.cuh`` (``dq_tiles``, ``dq_kind``, ``dkv_tiles``,
-    ``dkv_kind``): for each block, in order, each of its two warpgroups'
-    ``(r0, t0, kind)`` with every streamed tile, ``kind`` one of ``"full"``,
-    ``"diagonal"`` (causal mask inside the tile) and ``"skipped"``.
-    ``side="dq"``: rows r0.. are queries, tiles t0.. keys; ``side="dkv"``:
-    rows are keys, tiles queries (K1-dkv walks them twice, once for dv and
-    once for dk).  Every tile is 64 rows.  With a ``halo`` the halo's rows
-    are ``[-wsz, 0)``: K1-dq's window-0 blocks stream them first, and K1-dkv
-    runs ``wsz / 128`` more blocks after the others, for the halo's keys,
-    which stream the queries of window 0."""
+def k1_bwd_tiles(n: int, window_size: int, side: str, halo: bool = False,
+                 tile: int = BWD_TILE, rows: int = BWD_TILE) -> list[tuple[int, int, str]]:
+    """The Hopper backward kernels' tile walk, the formulas of
+    ``attention_wgmma.cuh`` (``dq_first``, ``dq_tiles``, ``dq_kind``,
+    ``dkv_tiles``, ``dkv_kind``) and of ``local_attention_bwd.cu``'s
+    ``tf32x3`` kernels: for each block (128 rows), in order of its first
+    row, each of its row groups' ``(r0, t0, kind)`` with every streamed
+    tile, ``kind`` one of ``"full"``, ``"diagonal"`` (causal mask inside
+    the tile) and ``"skipped"``.  ``side="dq"``: rows r0.. are queries,
+    tiles t0.. keys; ``side="dkv"``: rows are keys, tiles queries (K1-dkv
+    walks them twice in bf16, once for dv and once for dk).  bf16 streams
+    ``tile`` = 64 rows to two warpgroups of ``rows`` = 64; f32 streams
+    tiles of 32 (:data:`TF32X3_BWD_TILE`) to eight warps of 16
+    (:data:`TF32X3_WARP_ROWS`), and its K1-dq launches the blocks in
+    K1-fwd's longest-first order (:func:`k1_fwd_tiles`).  With a ``halo``
+    the halo's rows are ``[-wsz, 0)``: K1-dq's window-0 blocks stream them
+    first, and K1-dkv runs ``wsz / 128`` more blocks after the others, for
+    the halo's keys, which stream the queries of window 0."""
     if side not in ("dq", "dkv"):
         raise ValueError(f"side must be 'dq' or 'dkv', got {side!r}")
     wsz, pairs = window_size, []
@@ -254,17 +260,20 @@ def k1_bwd_tiles(n: int, window_size: int, side: str,
     for b0 in blocks:
         if side == "dq":
             first = (b0 // wsz - 1) * wsz if halo else max(0, (b0 // wsz - 1) * wsz)
-            tiles = (b0 + BWD_TILE - first) // BWD_TILE + 1
+            tiles = (b0 + BWD_ROWS - first) // tile
         elif b0 < 0:
-            first, tiles = 0, wsz // BWD_TILE
+            first, tiles = 0, wsz // tile
         else:
             first = b0
-            tiles = (min((b0 // wsz + 2) * wsz, n) - b0) // BWD_TILE
+            tiles = (min((b0 // wsz + 2) * wsz, n) - b0) // tile
         for it in range(tiles):
-            t0 = first + BWD_TILE * it
-            for r0 in (b0, b0 + BWD_TILE):
-                below = t0 < r0 if side == "dq" else t0 > r0
-                kind = "full" if below else "diagonal" if t0 == r0 else "skipped"
+            t0 = first + tile * it
+            for r0 in range(b0, b0 + BWD_ROWS, rows):
+                if side == "dq":
+                    full, seen = t0 + tile <= r0, t0 <= r0 + rows - 1
+                else:
+                    full, seen = t0 >= r0 + rows, t0 + tile - 1 >= r0
+                kind = "full" if full else "diagonal" if seen else "skipped"
                 pairs.append((r0, t0, kind))
     return pairs
 
@@ -284,10 +293,11 @@ def _check_rows(q, *rows):
 
 def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
                            scale: float | None = None, k_halo=None,
-                           v_halo=None) -> torch.Tensor:
+                           v_halo=None, route: str | None = None) -> torch.Tensor:
     """K1-dq on CUDA tensors: ``dq`` ``(B, H, L, D)`` in q's dtype, from the
     forward's f32 ``lse`` and ``dd = rowsum(do * out)`` in f32, ``(B, H, L)``
-    each; the halo as the forward took it."""
+    each; the halo as the forward took it.  ``route`` forces ``"wmma"``
+    instead of :func:`dq_route`'s, as :func:`local_attention_fwd`'s does."""
     global dq_launches, halo_dq_launches
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     _check(q, k, v, window_size, do)
@@ -296,7 +306,7 @@ def local_attention_bwd_dq(q, k, v, do, lse, dd, window_size: int,
     halo = [t for t in (k_halo, v_halo) if t is not None]
     kernels.check_aligned(q, k, v, do, lse, dd, *halo)
     b, h, n, d = q.shape
-    route = dq_route(q.dtype, d, window_size)
+    route = _forced(route, dq_route(q.dtype, d, window_size))
     name = f"{BWD}_dq{SUFFIX[route]}"
     fn = _kernel_fn(name, BWD, 9)
     dq = torch.empty_like(q)

@@ -14,14 +14,13 @@ split partial products, then their ordered sum, see :func:`dw_split`).
 
 Each kernel's route is chosen before the launch by :func:`fwd_route`,
 :func:`dgate_route` and :func:`dw_route` from the dtype alone: bf16 takes
-the Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32 takes, for
-K2-fwd and K2-dW, the 3xTF32 kernels on the tensor cores (a ``cp.async``
-ring into ``mma.sync``, three TF32 products a product, ``"tf32x3"``) and,
-for K2-dgate, the first kernel (FMA loops, ``"fma"``).  Each route is its
-own ``extern "C"`` entry; a failure on one raises, it never tries another.
+the Hopper kernels (a TMA ring into ``wgmma``, ``"wgmma"``); f32 takes the
+3xTF32 kernels on the tensor cores (a ``cp.async`` ring into ``mma.sync``,
+three TF32 products a product, ``"tf32x3"``).  Each route is its own
+``extern "C"`` entry; a failure on one raises, it never tries another.
 ``fwd_route_launches``, ``dgate_route_launches`` and ``dw_route_launches``
 count the launches of each, and ``route="fma"`` forces an f32 launch onto
-the first kernel (to time it on the same inputs).
+the first kernel (FMA loops; to time it on the same inputs).
 
 :func:`gated_mix` is what the model calls: K2-fwd once, and under autograd
 the backward of ``pallas_sgu.py:316-335``: d_res is K2-fwd again with dout
@@ -48,7 +47,7 @@ SUFFIX = {"fma": "", "wgmma": "_wgmma", "tf32x3": "_tf32x3"}
 launches = 0
 fwd_route_launches = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 dgate_launches = 0
-dgate_route_launches = {"wgmma": 0, "fma": 0}
+dgate_route_launches = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 dw_launches = 0
 dw_route_launches = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -70,6 +69,11 @@ FWD_STEP = 64
 # f32 K2-fwd (namespace f3): the same blocks, 32-deep steps of k, each warp
 # 64 rows x 32 channels
 FWD_STEP_TF32X3 = 32
+# f32 K2-dgate (sgu_bwd.cu, namespace dg3): a block owns 128 gate rows j
+# and 128 channels of one batch row and walks 32-deep steps of positions i
+DGATE_ROWS = 128
+DGATE_COLS = 128
+DGATE_STEP = 32
 
 
 def _kernel_fn(name: str, library: str, n_tensors: int):
@@ -176,8 +180,8 @@ def fwd_route(dtype: torch.dtype) -> str:
 
 def dgate_route(dtype: torch.dtype) -> str:
     """Which K2-dgate kernel takes this dtype: ``"wgmma"`` for bf16,
-    ``"fma"`` (the first kernel) for f32."""
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+    ``"tf32x3"`` for f32."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def dw_route(dtype: torch.dtype) -> str:
@@ -213,6 +217,31 @@ def k2_fwd_tiles(batch: int, n: int, d: int, step: int = FWD_STEP
     return blocks
 
 
+def k2_dgate_tiles(batch: int, n: int, d: int) -> list[tuple[int, int, int, list]]:
+    """f32 K2-dgate's blocks and walks, the formulas of ``sgu_bwd.cu``
+    (``dg3::block_tile``, the walk's length and the step kinds): for each
+    block in launch order, longest walk first, ``(b, j0, c0, walk)`` with
+    ``walk`` the ``(r0, i0, kind)`` of each 32-deep step of positions ``i0``
+    (from ``j0`` to ``n``) and each of the block's two 64-row halves ``r0``
+    (a row of four warps), ``kind`` one of ``"full"`` (every i past every
+    row j), ``"diagonal"`` (W's entries j > i zeroed) and ``"skipped"``."""
+    row_tiles, col_tiles = -(-n // DGATE_ROWS), -(-d // DGATE_COLS)
+    blocks = []
+    for blk in range(batch * row_tiles * col_tiles):
+        ct, rest = blk % col_tiles, blk // col_tiles
+        b, jt = rest % batch, rest // batch
+        j0 = jt * DGATE_ROWS
+        walk = []
+        for it in range(-(-(n - j0) // DGATE_STEP)):
+            i0 = j0 + it * DGATE_STEP
+            for r0 in (j0, j0 + 64):
+                kind = ("full" if i0 >= r0 + 64 else "diagonal" if i0 + DGATE_STEP > r0
+                        else "skipped")
+                walk.append((r0, i0, kind))
+        blocks.append((b, j0, ct * DGATE_COLS, walk))
+    return blocks
+
+
 def _padded_weights(weights: torch.Tensor) -> torch.Tensor:
     """``weights`` with its rows ``ceil8(n)`` elements apart, as K2-dgate
     and K2-fwd's Hopper routes read them (TMA and cp.async need 16-byte row
@@ -231,8 +260,8 @@ def _padded_weights(weights: torch.Tensor) -> torch.Tensor:
 def spatial_gate_dgate(weights: torch.Tensor, dout: torch.Tensor,
                        res: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """``tril(weights)^T . (dout * res)``, ``(..., n, d)`` in dout's dtype.
-    ``route`` names :func:`dgate_route`'s route (no other kernel takes
-    it)."""
+    ``route`` forces a CUDA launch onto ``"fma"`` instead of
+    :func:`dgate_route`'s (to time the first kernel on the same inputs)."""
     global dgate_launches
     if _device(dout) == "cpu":
         return plain.spatial_gate_dgate(weights, dout, res)

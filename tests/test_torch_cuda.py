@@ -40,7 +40,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 TOL_ATTN_OUT = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_ATTN_GRAD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_GRAD_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# the f32 route of K1-fwd and K1-dkv where bf16 takes each route
+# the f32 route of K1's three kernels where bf16 takes each route
 F32_ROUTE = {"wgmma": "tf32x3", "wmma": "wmma"}
 
 
@@ -195,11 +195,11 @@ def _close_scaled(got, want, dtype):
     (1, 3, 512, 128, 128, "wgmma"),   # the smallest window the wgmma route takes
 ])
 def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf16_route):
-    """Each case on the routes it must take (f32: K1-dq on the WMMA
-    kernel, K1-dkv on the 3xTF32 kernel where bf16 takes the wgmma one);
-    a second run gives the same bits (no atomics)."""
-    dq_route = bf16_route if dtype == torch.bfloat16 else "wmma"
-    dkv_route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
+    """Each case on the routes it must take (f32: K1-dq and K1-dkv on the
+    3xTF32 kernels where bf16 takes the wgmma ones); a second run gives the
+    same bits (no atomics)."""
+    dq_route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
+    dkv_route = dq_route
     assert cuda_attention.dq_route(dtype, d, wsz) == dq_route
     assert cuda_attention.dkv_route(dtype, d, wsz) == dkv_route
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
@@ -213,7 +213,7 @@ def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf1
         (before[0] + 1, before[1] + 1)
     routed = ({r: cuda_attention.dq_route_launches[r] - before[2][r] for r in before[2]},
               {r: cuda_attention.dkv_route_launches[r] - before[3][r] for r in before[3]})
-    assert routed == ({"wgmma": 0, "wmma": 0, dq_route: 1},
+    assert routed == ({"wgmma": 0, "tf32x3": 0, "wmma": 0, dq_route: 1},
                       {"wgmma": 0, "tf32x3": 0, "wmma": 0, dkv_route: 1})
     want = local_attention_bwd(q, k, v, out, lse, do, wsz)
     for g, w in zip(got, want):
@@ -224,7 +224,7 @@ def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf1
         assert torch.equal(g, a)
 
 
-# f32 on the 3xTF32 route (K1-fwd, K1-dkv): ProGen-small's serving and
+# f32 on the 3xTF32 route (K1-fwd, K1-dq, K1-dkv): ProGen-small's serving and
 # training shapes, one window (the phantom window alone), ProGen-tiny's
 # head, ProGen-base's window, the smallest window the route takes
 TF32X3_CASES = [
@@ -238,45 +238,49 @@ TF32X3_CASES = [
 
 
 def _tf32x3_launch(q, k, v, do, wsz, kh, vh):
-    """K1-fwd, then K1-dkv from its lse and D (K1-dq is not on the route)."""
+    """K1-fwd, then K1-dq and K1-dkv from its lse and D."""
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
     dd = (do * out).sum(-1)
-    return (out, lse, *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz,
-                                                               None, kh, vh))
+    dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None, kh, vh)
+    return (out, lse, dq, *cuda_attention.local_attention_bwd_dkv(
+        q, k, v, do, lse, dd, wsz, None, kh, vh))
 
 
 @pytest.mark.parametrize("halo", [False, True])
 @pytest.mark.parametrize("b,h,n,d,wsz", TF32X3_CASES)
 def test_the_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
-    """K1-fwd and K1-dkv in f32 on the 3xTF32 route, with and without a
-    random halo, against the plain version at the f32 bars (``out`` and
-    ``lse`` 1e-4; ``dk``, ``dv`` and the halo's at the scaled gradient bars);
-    every launch on ``tf32x3`` by the counters; a second run gives the same
-    bits."""
+    """K1-fwd, K1-dq and K1-dkv in f32 on the 3xTF32 route, with and
+    without a random halo, against the plain version at the f32 bars
+    (``out`` and ``lse`` 1e-4; ``dq``, ``dk``, ``dv`` and the halo's at the
+    scaled gradient bars); every launch on ``tf32x3`` by the counters; a
+    second run gives the same bits."""
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen) for _ in range(4))
     kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen) for _ in range(2))
               if halo else (None, None))
     assert cuda_attention.fwd_route(torch.float32, d, wsz) == "tf32x3"
     assert cuda_attention.dkv_route(torch.float32, d, wsz) == "tf32x3"
-    before = dict(cuda_attention.fwd_route_launches), dict(cuda_attention.dkv_route_launches)
+    assert cuda_attention.dq_route(torch.float32, d, wsz) == "tf32x3"
+    counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
+                cuda_attention.dkv_route_launches)
+    before = [dict(c) for c in counters]
     got = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
     torch.cuda.synchronize()
-    assert cuda_attention.fwd_route_launches == {**before[0], "tf32x3": before[0]["tf32x3"] + 1}
-    assert cuda_attention.dkv_route_launches == {**before[1], "tf32x3": before[1]["tf32x3"] + 1}
+    for counter, was in zip(counters, before):
+        assert counter == {**was, "tf32x3": was["tf32x3"] + 1}
     want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
                                      k_halo=kh, v_halo=vh)
     _close(got[0], want, torch.float32, TOL_ATTN_OUT)
     _close(got[1], want_lse, torch.float32)
     grads = local_attention_bwd(q, k, v, got[0], got[1], do, wsz, k_halo=kh, v_halo=vh)
-    assert len(got) == (6 if halo else 4)
-    for g, w in zip(got[2:], grads[1:]):
+    assert len(got) == (7 if halo else 5)
+    for g, w in zip(got[2:], grads):
         _close_scaled(g, w, torch.float32)
     for a, g in zip(_tf32x3_launch(q, k, v, do, wsz, kh, vh), got):
         assert torch.equal(a, g)
 
 
 def test_the_tf32x3_kernels_replay_in_a_cuda_graph(gen):
-    """K1-fwd and K1-dkv on the 3xTF32 route captured in one CUDA graph
+    """K1-fwd, K1-dq and K1-dkv on the 3xTF32 route captured in one CUDA graph
     (with a halo, at ProGen-small's head and window) and replayed 3 times
     after new inputs are copied in: each replay bit-equal to eager launches
     on the same inputs."""
@@ -299,7 +303,7 @@ def test_the_tf32x3_kernels_replay_in_a_cuda_graph(gen):
             assert torch.equal(a, g)
 
 
-# f32 K2-fwd and K2-dW on the 3xTF32 route: ProGen-small's training shape,
+# f32 K2-fwd, K2-dgate and K2-dW on the 3xTF32 route: ProGen-small's training shape,
 # batch 1, a ragged n, the main path's largest prefill, under one tile
 # with a ragged channel tile (W padded to 16-byte rows), ragged n and d
 K2_TF32X3_CASES = [
@@ -313,10 +317,12 @@ K2_TF32X3_CASES = [
 
 
 def _k2_tf32x3_launch(res, gate, w, bias, dout, route=None):
-    """K2-fwd, d_res (K2-fwd with dout in place of res) and K2-dW."""
+    """K2-fwd, d_res (K2-fwd with dout in place of res), K2-dW and
+    K2-dgate."""
     return (cuda_sgu.spatial_gate_fwd(res, gate, w, bias, route=route),
             cuda_sgu.spatial_gate_fwd(dout, gate, w, bias, route=route),
-            cuda_sgu.spatial_gate_dw(dout, res, gate, route=route))
+            cuda_sgu.spatial_gate_dw(dout, res, gate, route=route),
+            cuda_sgu.spatial_gate_dgate(w, dout, res, route=route))
 
 
 def _k2_inputs(gen, b, n, d):
@@ -328,31 +334,35 @@ def _k2_inputs(gen, b, n, d):
 
 @pytest.mark.parametrize("b,n,d", K2_TF32X3_CASES)
 def test_the_k2_tf32x3_kernels_match_plain(gen, b, n, d):
-    """K2-fwd and K2-dW in f32 on the 3xTF32 route against the plain
-    versions at the f32 bars (``out`` 1e-4, ``dW`` at the scaled gradient
-    bars), every launch on ``tf32x3``, a second run the same bits, dW's
-    strict upper triangle 0; the first (``fma``) kernels, forced on the
-    same inputs, within the same bars."""
+    """K2-fwd, K2-dgate and K2-dW in f32 on the 3xTF32 route against the
+    plain versions at the f32 bars (``out`` 1e-4, ``dW`` and ``d_gate`` at
+    the scaled gradient bars), every launch on ``tf32x3``, a second run the
+    same bits, dW's strict upper triangle 0; the first (``fma``) kernels,
+    forced on the same inputs, within the same bars."""
     res, gate, w, bias, dout = _k2_inputs(gen, b, n, d)
-    assert cuda_sgu.fwd_route(torch.float32) == cuda_sgu.dw_route(torch.float32) == "tf32x3"
-    before = dict(cuda_sgu.fwd_route_launches), dict(cuda_sgu.dw_route_launches)
+    for route in (cuda_sgu.fwd_route, cuda_sgu.dgate_route, cuda_sgu.dw_route):
+        assert route(torch.float32) == "tf32x3"
+    counters = (cuda_sgu.fwd_route_launches, cuda_sgu.dw_route_launches,
+                cuda_sgu.dgate_route_launches)
+    before = [dict(c) for c in counters]
     got = _k2_tf32x3_launch(res, gate, w, bias, dout)
     torch.cuda.synchronize()
-    assert cuda_sgu.fwd_route_launches == {**before[0], "tf32x3": before[0]["tf32x3"] + 2}
-    assert cuda_sgu.dw_route_launches == {**before[1], "tf32x3": before[1]["tf32x3"] + 1}
+    for counter, was, n_launches in zip(counters, before, (2, 1, 1)):
+        assert counter == {**was, "tf32x3": was["tf32x3"] + n_launches}
     want = (gated_mix(res, gate, w, bias), gated_mix(dout, gate, w, bias),
-            spatial_gate_dw(dout, res, gate))
+            spatial_gate_dw(dout, res, gate), spatial_gate_dgate(w, dout, res))
     for first in (got, _k2_tf32x3_launch(res, gate, w, bias, dout, route="fma")):
         _close(first[0], want[0], torch.float32)
         _close(first[1], want[1], torch.float32)
         _close_scaled(first[2], want[2], torch.float32)
+        _close_scaled(first[3], want[3], torch.float32)
     assert torch.count_nonzero(torch.triu(got[2], 1)) == 0
     for a, g in zip(_k2_tf32x3_launch(res, gate, w, bias, dout), got):
         assert torch.equal(a, g)
 
 
 def test_the_k2_tf32x3_kernels_replay_in_a_cuda_graph(gen):
-    """K2-fwd, d_res and K2-dW on the 3xTF32 route captured in one CUDA graph
+    """K2-fwd, d_res, K2-dW and K2-dgate on the 3xTF32 route captured in one CUDA graph
     at ProGen-small's gMLP width, a ragged n, and replayed 3 times after new
     inputs are copied in: each replay bit-equal to eager launches."""
     static = list(_k2_inputs(gen, 2, 1000, 2048))
@@ -384,9 +394,8 @@ def test_the_k2_tf32x3_kernels_replay_in_a_cuda_graph(gen):
 def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d, small):
     """Each at the scaled bars of the other backward kernels; the small
     cases also at the plain 1e-4 / 0.05 bars they always had.  Each launch
-    on the route of its dtype (bf16 ``wgmma``; f32 K2-dgate ``fma``, K2-dW
-    ``tf32x3``).  Two runs give the same bits; d_W's strict upper triangle
-    is exactly 0."""
+    on the route of its dtype (bf16 ``wgmma``, f32 ``tf32x3``).  Two runs
+    give the same bits; d_W's strict upper triangle is exactly 0."""
     res, gate, dout = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
     w = (torch.randn(n, n, device="cuda", generator=gen) * 0.05).to(dtype)
@@ -399,7 +408,7 @@ def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d, small):
         (before[0] + 1, before[1] + 1)
     bf16 = dtype == torch.bfloat16
     for counter, was, route in ((cuda_sgu.dgate_route_launches, routes[0],
-                                 "wgmma" if bf16 else "fma"),
+                                 "wgmma" if bf16 else "tf32x3"),
                                 (cuda_sgu.dw_route_launches, routes[1],
                                  "wgmma" if bf16 else "tf32x3")):
         assert counter == {**was, route: was[route] + 1}
@@ -414,6 +423,75 @@ def test_sgu_backward_kernels_match_plain(gen, dtype, b, n, d, small):
     assert torch.count_nonzero(torch.triu(dw, 1)) == 0
     assert torch.equal(cuda_sgu.spatial_gate_dgate(w, dout, res), dgate)
     assert torch.equal(cuda_sgu.spatial_gate_dw(dout, res, gate), dw)
+
+
+# SHA-256 of bf16_backward_digests() from a build of kernels/csrc as it was
+# before K1-dq and K2-dgate had an f32 "tf32x3" route (NVIDIA H100 80GB
+# HBM3, nvcc 12.9): adding those routes moves no bf16 bit
+BF16_BWD_SHA256 = {
+    "dq": "a6d5edb4b86390d5213ae97fba291355866c5837d13f884f0dee76210aebcdb8",
+    "dq_halo": "bc034500412638fb0331b6cf363f7614546e1aa3f7b1805e7c791717c2e679d1",
+    "dgate": "d7218a506e61239705270b9725c70a62f58590d931cdc17482a3ce9695f0568b",
+    "dgate_ragged": "1ec13704d3f9886ec7a966ff29f8f31e6135e7e8d15fd7f50f6da338ce9d84b0",
+}
+
+
+def bf16_backward_digests(csrc: str | None = None) -> dict[str, str]:
+    """SHA-256 of bf16 K1-dq's output at (2, 8, 1024, 128), window 256,
+    without and with a halo (lse from the bf16 K1-fwd kernel), and of bf16
+    K2-dgate's at (2, 1024, 2048) and (1, 1000, 520): inputs drawn with
+    numpy from seed 0, so that they do not depend on torch's generators.
+    ``csrc`` builds and loads the kernels from another copy of
+    ``kernels/csrc`` for the call (how BF16_BWD_SHA256 was taken:
+    ``python tests/test_torch_cuda.py OTHER/progen_tpu_torch/kernels/csrc``)."""
+    import hashlib
+    from pathlib import Path
+
+    rng = np.random.default_rng(0)
+
+    def randn(*shape, scale=1.0):
+        x = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+        return x.to(device="cuda", dtype=torch.bfloat16).contiguous()
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+                              ).hexdigest()
+
+    saved = (kernels.CSRC, dict(kernels._loaded), dict(cuda_attention._fns),
+             dict(cuda_sgu._fns))
+    if csrc is not None:
+        kernels.CSRC = Path(csrc)
+        for cache in (kernels._loaded, cuda_attention._fns, cuda_sgu._fns):
+            cache.clear()
+    try:
+        got = {}
+        b, h, n, d, wsz = 2, 8, 1024, 128, 256
+        q, k, v, do = (randn(b, h, n, d) for _ in range(4))
+        kh, vh = randn(b, h, wsz, d), randn(b, h, wsz, d)
+        dd = torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32)).cuda()
+        for name, halo in (("dq", (None, None)), ("dq_halo", (kh, vh))):
+            _, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, *halo)
+            got[name] = digest(cuda_attention.local_attention_bwd_dq(
+                q, k, v, do, lse, dd, wsz, None, *halo))
+        for name, (b, n, d) in (("dgate", (2, 1024, 2048)), ("dgate_ragged", (1, 1000, 520))):
+            dout, res = randn(b, n, d), randn(b, n, d)
+            w = randn(n, n, scale=0.05)
+            got[name] = digest(cuda_sgu.spatial_gate_dgate(w, dout, res))
+        return got
+    finally:
+        kernels.CSRC = saved[0]
+        for cache, was in zip((kernels._loaded, cuda_attention._fns, cuda_sgu._fns),
+                              saved[1:]):
+            cache.clear()
+            cache.update(was)
+
+
+def test_bf16_dq_and_dgate_keep_their_bits(gen):
+    """bf16 K1-dq (with and without a halo) and K2-dgate give the bits of
+    the build before their f32 tf32x3 routes were added."""
+    assert cuda_attention.dq_route(torch.bfloat16, 128, 256) == "wgmma"
+    assert cuda_sgu.dgate_route(torch.bfloat16) == "wgmma"
+    assert bf16_backward_digests() == BF16_BWD_SHA256
 
 
 def test_train_step_goes_through_the_kernels(gen):
@@ -831,8 +909,7 @@ def test_the_captured_f32_step_on_tf32x3_is_the_eager_steps(gen):
     """The f32 optimizer step at a head and window the 3xTF32 kernels take
     (dim_head 64, window 128): captured and replayed by ``train_multi_step``
     it gives the eager steps' losses, grad norms and parameters bit for bit,
-    every K1-fwd and K1-dkv launch on ``tf32x3``, every K1-dq on ``wmma``;
-    every K2-fwd and K2-dW launch on ``tf32x3``, every K2-dgate on ``fma``."""
+    every launch of the six training kernels on ``tf32x3``."""
     cfg = ProGenConfig(num_tokens=256, dim=128, seq_len=256, depth=2, window_size=128,
                        global_mlp_depth=1, heads=2, dim_head=64)
     micros = torch.randint(1, 256, (2, 2, 1, 2, cfg.seq_len + 1), device="cuda",
@@ -861,9 +938,9 @@ def test_the_captured_f32_step_on_tf32x3_is_the_eager_steps(gen):
                  cuda_sgu.dgate_route_launches, cuda_sgu.dw_route_launches)
         routed = [{r: a[r] - b[r] for r in b if a[r] != b[r]} for a, b in zip(after, before)]
         gmlp = cfg.global_mlp_depth
-        assert routed == [{"tf32x3": 4 * cfg.depth}, {"wmma": 4 * cfg.depth},
+        assert routed == [{"tf32x3": 4 * cfg.depth}, {"tf32x3": 4 * cfg.depth},
                           {"tf32x3": 4 * cfg.depth}, {"tf32x3": 8 * gmlp},
-                          {"fma": 4 * gmlp}, {"tf32x3": 4 * gmlp}]
+                          {"tf32x3": 4 * gmlp}, {"tf32x3": 4 * gmlp}]
         if fused:
             assert fns.captured_program().captured
         runs.append((torch.cat(losses), _state_tensors(state)))
@@ -1019,18 +1096,26 @@ def test_the_kernels_at_a_tensor_rank_of_two(gen, kernel):
 def test_the_f32_step_is_deterministic_on_the_card(gen):
     """Two f32 backward passes of one model and batch (batch 8, 256 tokens
     a row of a 256-token vocabulary: every embedding row is hit many times)
-    give every gradient bit for bit; the embedding's weight gradient is a
-    one-hot product, not ``F.embedding``'s atomic sum."""
+    give every gradient bit for bit, with all six training kernels on
+    ``tf32x3``; the embedding's weight gradient is a one-hot product, not
+    ``F.embedding``'s atomic sum."""
     from progen_tpu_torch.train.loss import batch_loss
 
     cfg = ProGenConfig(num_tokens=256, dim=256, seq_len=256, depth=2, window_size=128,
                        global_mlp_depth=1, heads=2, dim_head=128)
     batch = torch.randint(1, 256, (8, cfg.seq_len + 1), device="cuda", generator=gen)
+    counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
+                cuda_attention.dkv_route_launches, cuda_sgu.fwd_route_launches,
+                cuda_sgu.dgate_route_launches, cuda_sgu.dw_route_launches)
     grads = []
     for _ in range(2):
+        before = [dict(c) for c in counters]
         model = ProGen(cfg, make_policy(False), device="cuda", seed=5)
         batch_loss(model(batch[:, :-1]), batch[:, 1:]).backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
+        torch.cuda.synchronize()
+        routed = [{r for r in c if c[r] != was[r]} for c, was in zip(counters, before)]
+        assert routed == [{"tf32x3"}] * 6
     for name, g in grads[0].items():
         assert torch.equal(grads[1][name], g), name
 
@@ -1110,3 +1195,10 @@ def test_a_fleet_on_the_card_gives_the_in_process_engines_tokens(gen, tmp_path):
     assert pre["cuda_paged_gate_mix.launches"] == 0
     assert dec["cuda_paged_gate_mix.launches"] > 0
     assert dec["cuda_attention.launches"] == dec["cuda_sgu.launches"] == 0
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    print(json.dumps(bf16_backward_digests(*sys.argv[1:2])))

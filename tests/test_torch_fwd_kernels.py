@@ -51,14 +51,15 @@ def test_fwd_route_for_every_shipped_config(name):
     (torch.bfloat16, 128, 64, "wmma"),    # a window under 128
     (torch.bfloat16, 128, 40, "wmma"),    # a window that is no multiple of 128
     (torch.bfloat16, 32, 512, "wmma"),    # dim_head 32
-    (torch.float32, 128, 256, "wmma"),
+    pytest.param(torch.float32, 128, 256, "tf32x3", id="dtype5-128-256-wmma"),
 ])
 def test_fwd_route_follows_the_backward_rule(dtype, d, wsz, route):
-    """``route`` is K1-dq's; K1-fwd takes K1-dkv's, which differs from it
-    only in f32 on the Hopper shapes (the 3xTF32 kernels)."""
+    """``route`` is K1-dq's; K1-fwd and K1-dkv take the same (in f32 on the
+    Hopper shapes, the 3xTF32 kernels, since K1-dq has one too)."""
     assert cuda_attention.dq_route(dtype, d, wsz) == route
     hopper = d in (64, 128) and wsz % 128 == 0
     want = "tf32x3" if dtype == torch.float32 and hopper else route
+    assert want == route
     assert cuda_attention.fwd_route(dtype, d, wsz) == want
     assert cuda_attention.dkv_route(dtype, d, wsz) == want
 
@@ -199,7 +200,7 @@ def test_k1_fwd_wrapper_picks_its_kernel_before_the_launch(monkeypatch, dtype, d
     assert (cuda_attention.launches, cuda_attention.fwd_route_launches) == before
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_k1_wrappers_force_only_the_wmma_route(monkeypatch, kernel):
     """``route="wmma"`` sends an f32 launch that ``tf32x3`` takes to the
     first kernel (the smoke times it on the same inputs); a route that is
@@ -212,17 +213,22 @@ def test_k1_wrappers_force_only_the_wmma_route(monkeypatch, kernel):
     def launch(route):
         if kernel == "fwd":
             return cuda_attention.local_attention_fwd(q, q, q, 128, route=route)
-        return cuda_attention.local_attention_bwd_dkv(q, q, q, q, lse, lse, 128, route=route)
+        bwd = (cuda_attention.local_attention_bwd_dq if kernel == "dq"
+               else cuda_attention.local_attention_bwd_dkv)
+        return bwd(q, q, q, q, lse, lse, 128, route=route)
 
-    name = "local_attention_fwd" if kernel == "fwd" else "local_attention_bwd_dkv"
+    name = ("local_attention_fwd" if kernel == "fwd"
+            else f"local_attention_bwd_{kernel}")
     for route, picked in ((None, name + "_tf32x3"), ("tf32x3", name + "_tf32x3"),
                           ("wmma", name)):
         with pytest.raises(_Picked, match=f"^{picked}$"):
             launch(route)
-    before = (cuda_attention.launches, cuda_attention.dkv_launches)
+    before = (cuda_attention.launches, cuda_attention.dq_launches,
+              cuda_attention.dkv_launches)
     with pytest.raises(ValueError, match="does not take this launch"):
         launch("wgmma")
-    assert (cuda_attention.launches, cuda_attention.dkv_launches) == before
+    assert (cuda_attention.launches, cuda_attention.dq_launches,
+            cuda_attention.dkv_launches) == before
 
 
 @pytest.mark.parametrize("dtype,name", [
@@ -259,10 +265,12 @@ K2_CALLS = {
     ("fwd", torch.float32, "fma", "sgu_fwd"),
     ("fwd", torch.float32, "tf32x3", "sgu_fwd_tf32x3"),
     ("dgate", torch.bfloat16, None, "sgu_bwd_dgate_wgmma"),
-    ("dgate", torch.float32, None, "sgu_bwd_dgate"),
+    pytest.param("dgate", torch.float32, None, "sgu_bwd_dgate_tf32x3",
+                 id="dgate-dtype3-None-sgu_bwd_dgate"),
     ("dw", torch.bfloat16, None, "sgu_bwd_dw_wgmma"),
     ("dw", torch.float32, None, "sgu_bwd_dw_tf32x3"),
     ("dw", torch.float32, "fma", "sgu_bwd_dw"),
+    ("dgate", torch.float32, "fma", "sgu_bwd_dgate"),
 ])
 def test_k2_wrappers_pick_the_entry_of_their_route(monkeypatch, kernel, dtype, route, name):
     """Each K2 route is its own C entry, asked for before any launch: the
@@ -282,7 +290,8 @@ def test_k2_wrappers_pick_the_entry_of_their_route(monkeypatch, kernel, dtype, r
 
 @pytest.mark.parametrize("kernel,dtype,route", [
     ("fwd", torch.bfloat16, "fma"), ("fwd", torch.float32, "wgmma"),
-    ("dgate", torch.bfloat16, "fma"), ("dgate", torch.float32, "tf32x3"),
+    ("dgate", torch.bfloat16, "fma"),
+    pytest.param("dgate", torch.float32, "wgmma", id="dgate-dtype3-tf32x3"),
     ("dw", torch.bfloat16, "tf32x3"), ("dw", torch.bfloat16, "fma"),
 ])
 def test_k2_wrappers_refuse_a_route_their_launch_cannot_take(monkeypatch, kernel, dtype,

@@ -1,29 +1,32 @@
-"""The design of K1's f32 route on the tensor cores (``"tf32x3"``: K1-fwd
-and K1-dkv, ``kernels/csrc/attention_tf32x3.cuh``), checked on the CPU.
+"""The design of K1's f32 route on the tensor cores (``"tf32x3"``: K1-fwd,
+K1-dq and K1-dkv, ``kernels/csrc/attention_tf32x3.cuh``), checked on the
+CPU.
 
 The kernels form every f32 product as three TF32 products: each operand
 ``x`` split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, rounded as
 ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero, 10 mantissa
 bits), and ``a.b = lo_a.hi_b + hi_a.lo_b + hi_a.hi_b`` summed in f32.  Here
 that rounding and that split are emulated in torch, and put in place of
-every product of the plain K1-fwd and K1-dkv (``ops/local_attention.py``,
-whose twins stay plain f32): the emulated results, at 2 windows of 64 and
-``dim_head`` 64, with and without a halo, against JAX's
-``pallas_local_attention`` and its VJP in the Pallas interpreter, at the
-port's f32 bars (``out`` and ``lse`` 1e-4; ``dk`` and ``dv`` 1e-4 of their
-largest magnitude plus 1e-4 relative, and an RMS error within 1e-4 of
-their RMS, ``chip_smoke.py``'s ``TOL_GRAD`` and ``TOL_GRAD_RMS``).  One TF32
-product alone misses those bars.  The route functions are pinned for every
-shipped config, in f32 and bf16.
+every product of the plain K1-fwd, K1-dq and K1-dkv
+(``ops/local_attention.py``, whose twins stay plain f32): the emulated
+results, at 2 windows of 64 and ``dim_head`` 64, with and without a halo,
+against JAX's ``pallas_local_attention`` and its VJP in the Pallas
+interpreter, at the port's f32 bars (``out`` and ``lse`` 1e-4; ``dq``,
+``dk`` and ``dv`` 1e-4 of their largest magnitude plus 1e-4 relative, and
+an RMS error within 1e-4 of their RMS, ``chip_smoke.py``'s ``TOL_GRAD`` and
+``TOL_GRAD_RMS``).  One TF32 product alone misses those bars.  K1-dq's f32
+tile walk (32-key tiles, warps of 16 rows) meets every visible pair once.
+The route functions are pinned for every shipped config, in f32 and bf16.
 
-K2's f32 route (K2-fwd and K2-dW, ``sgu_fwd.cu`` and ``sgu_bwd.cu``) the
-same way: the kernels' own plans emulated (K2-fwd's tile walk at 32-deep
-steps, ``cuda_sgu.k2_fwd_tiles``; K2-dW's split ranges and their ordered
-sum, ``cuda_sgu.dw_split``) with every product 3xTF32, against JAX's
+K2's f32 route (K2-fwd, K2-dgate and K2-dW, ``sgu_fwd.cu`` and
+``sgu_bwd.cu``) the same way: the kernels' own plans emulated (K2-fwd's and
+K2-dgate's tile walks at 32-deep steps, ``cuda_sgu.k2_fwd_tiles`` and
+``k2_dgate_tiles``; K2-dW's split ranges and their ordered sum,
+``cuda_sgu.dw_split``) with every product 3xTF32, against JAX's
 ``pallas_spatial_gate`` and its VJP in the Pallas interpreter: ``out`` at
-1e-4, ``dW`` at the scaled f32 bar, and at least 10x under the error of
-one TF32 product a product.  The K2 route functions are pinned for both
-dtypes."""
+1e-4, ``dW`` and ``d_gate`` at the scaled f32 bar, and at least 10x under
+the error of one TF32 product a product.  The K2 route functions are
+pinned for both dtypes."""
 
 import jax
 import jax.numpy as jnp
@@ -116,6 +119,23 @@ def emulated_dkv(q, k, v, do, out, lse, mm, k_halo=None, v_halo=None):
     return dk, dv, dkw[:, :, 0, :WSZ] * scale, dvw[:, :, 0, :WSZ]
 
 
+def emulated_dq(q, k, v, do, out, lse, mm, k_halo=None, v_halo=None):
+    """The plain K1-dq (``local_attention_bwd``'s dq) with its three
+    products through ``mm``: s = q.k^T, dp = dout.v^T and ds.k."""
+    b, h, n, d = q.shape
+    w, scale = n // WSZ, d ** -0.5
+    qw = q.reshape(b, h, w, WSZ, d)
+    dow = do.reshape(b, h, w, WSZ, d)
+    kw = concat_previous_window(k.reshape(b, h, w, WSZ, d), k_halo)
+    vw = concat_previous_window(v.reshape(b, h, w, WSZ, d), v_halo)
+    dd = (do * out).sum(-1).reshape(b, h, w, WSZ, 1)
+    sim = mm(qw, kw.transpose(-1, -2)) * scale
+    sim = sim.masked_fill(~window_mask(WSZ), ATTN_MASK_VALUE)
+    p = torch.exp(sim - lse.reshape(b, h, w, WSZ, 1))
+    ds = p * (mm(dow, vw.transpose(-1, -2)) - dd)
+    return (mm(ds, kw) * scale).reshape(b, h, n, d)
+
+
 def _inputs(halo: bool, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     names = ["q", "k", "v", "do"] + (["kh", "vh"] if halo else [])
@@ -125,7 +145,7 @@ def _inputs(halo: bool, seed: int = 0) -> dict:
 
 
 def _jax(t: dict) -> dict:
-    """JAX's forward (out, lse) and VJP (dk, dv and the halo's) in the
+    """JAX's forward (out, lse) and VJP (dq, dk, dv and the halo's) in the
     Pallas interpreter, on ``[halo or the phantom zeros ‖ k]``."""
     j = {name: jnp.asarray(x.numpy()) for name, x in t.items()}
     front = [(j["kh"], j["vh"])] if "kh" in j else [(jnp.zeros((B, H, WSZ, D)),) * 2]
@@ -134,8 +154,9 @@ def _jax(t: dict) -> dict:
     _, lse = _forward_ext(j["q"], k_ext, v_ext, WSZ, D ** -0.5, True)
     f = lambda q, ke, ve: pallas_local_attention_ext(q, ke, ve, WSZ, D ** -0.5, True)
     out, vjp = jax.vjp(f, j["q"], k_ext, v_ext)
-    _, dk_ext, dv_ext = vjp(j["do"])
-    got = {"out": out, "lse": lse, "dk": dk_ext[:, :, WSZ:], "dv": dv_ext[:, :, WSZ:]}
+    dq, dk_ext, dv_ext = vjp(j["do"])
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk_ext[:, :, WSZ:],
+           "dv": dv_ext[:, :, WSZ:]}
     if "kh" in j:
         got.update(dk_halo=dk_ext[:, :, :WSZ], dv_halo=dv_ext[:, :, :WSZ])
     return {name: torch.from_numpy(np.array(x, np.float32)) for name, x in got.items()}
@@ -144,8 +165,10 @@ def _jax(t: dict) -> dict:
 def _emulated(t: dict, mm) -> dict:
     halo = (t["kh"], t["vh"]) if "kh" in t else (None, None)
     out, lse = emulated_fwd(t["q"], t["k"], t["v"], mm, *halo)
+    dq = emulated_dq(t["q"], t["k"], t["v"], t["do"], out, lse, mm, *halo)
     grads = emulated_dkv(t["q"], t["k"], t["v"], t["do"], out, lse, mm, *halo)
-    return {"out": out, "lse": lse, **dict(zip(("dk", "dv", "dk_halo", "dv_halo"), grads))}
+    return {"out": out, "lse": lse, "dq": dq,
+            **dict(zip(("dk", "dv", "dk_halo", "dv_halo"), grads))}
 
 
 def _misses(got: dict, want: dict) -> dict:
@@ -166,11 +189,11 @@ def _misses(got: dict, want: dict) -> dict:
 
 @pytest.mark.parametrize("halo", [False, True])
 def test_three_tf32_products_meet_the_f32_bars(halo):
-    """K1-fwd and K1-dkv with every product 3xTF32 against JAX's f32
+    """K1-fwd, K1-dq and K1-dkv with every product 3xTF32 against JAX's f32
     kernels: every output within the port's f32 bars."""
     t = _inputs(halo)
     ratios = _misses(_emulated(t, mm3), _jax(t))
-    assert len(ratios) == (10 if halo else 6)
+    assert len(ratios) == (12 if halo else 8)
     assert max(ratios.values()) <= 1.0, ratios
 
 
@@ -204,8 +227,8 @@ def test_the_tf32_rounding_is_cvt_rna():
 def test_the_k1_routes_of_every_shipped_config(name, dtype):
     """Every config but ``default`` (dim_head 32) has dim_head 64 or 128
     and a window that is a multiple of 128: bf16 takes ``wgmma`` for all
-    three kernels, f32 ``tf32x3`` for K1-fwd and K1-dkv and ``wmma`` for
-    K1-dq; ``default`` takes ``wmma`` for all three in both."""
+    three kernels, f32 ``tf32x3`` for all three; ``default`` takes ``wmma``
+    for all three in both."""
     c = CONFIGS[name]
     assert (c.dim_head in (64, 128) and c.window_size % 128 == 0) == (name != "default")
     if name == "default":
@@ -213,13 +236,55 @@ def test_the_k1_routes_of_every_shipped_config(name, dtype):
     elif dtype == torch.bfloat16:
         want = ("wgmma", "wgmma", "wgmma")
     else:
-        want = ("tf32x3", "wmma", "tf32x3")
+        want = ("tf32x3", "tf32x3", "tf32x3")
     got = tuple(route(dtype, c.dim_head, c.window_size) for route in (
         cuda_attention.fwd_route, cuda_attention.dq_route, cuda_attention.dkv_route))
     assert got == want
 
 
-# -- K2: K2-fwd and K2-dW on "tf32x3" ----------------------------------------
+def _visible(n, wsz, halo):
+    """(query, key) visibility, keys in extended coordinates (key e is
+    position e - wsz): the query's own window up to it and all of the
+    previous one (window 0's: the halo, or the phantom, which K1-dq does
+    not walk)."""
+    i = np.arange(n)[:, None]
+    e = np.arange(n + wsz)[None, :]
+    seen = (e - wsz <= i) & (e - wsz >= (i // wsz - 1) * wsz)
+    return seen & ((e >= wsz) | halo)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("n,wsz", [(256, 128), (1024, 256), (1024, 512), (2048, 512)])
+def test_k1_dq_f32_walk_covers_each_visible_pair_once(n, wsz, halo):
+    """K1-dq's tf32x3 walk: 32-key tiles from the previous window's first
+    (the halo's, at t0 < 0) to the block's last row, met by eight warps of
+    16 rows; the diagonal tiles masked, it sees every visible (query, key)
+    pair once and no other, and its blocks are K1-fwd's (launched longest
+    walk first)."""
+    tile, rows = cuda_attention.TF32X3_BWD_TILE, cuda_attention.TF32X3_WARP_ROWS
+    seen = np.zeros((n, n + wsz), dtype=int)  # [query, extended key]
+    q_idx = np.arange(rows)[:, None]
+    k_idx = np.arange(tile)[None, :]
+    walk = cuda_attention.k1_bwd_tiles(n, wsz, "dq", halo=halo, tile=tile, rows=rows)
+    for r0, t0, kind in walk:
+        assert (-wsz if halo else 0) <= t0 and t0 + tile <= n and r0 + rows <= n
+        if kind == "skipped":
+            assert t0 > r0 + rows - 1
+            continue
+        mask = np.ones((rows, tile), dtype=int)
+        if kind == "diagonal":
+            mask = (t0 + k_idx <= r0 + q_idx).astype(int)
+        else:
+            assert t0 + tile <= r0
+        seen[r0:r0 + rows, wsz + t0:wsz + t0 + tile] += mask
+    assert seen.max() == 1
+    assert (seen.astype(bool) == _visible(n, wsz, halo)).all()
+    blocks = sorted({r0 - r0 % 128 for r0, _, _ in walk})
+    assert blocks == sorted(b0 for b0, _ in cuda_attention.k1_fwd_tiles(n, wsz, halo))
+    assert len(walk) % (128 // rows) == 0  # all eight warps of a block meet every tile
+
+
+# -- K2: K2-fwd, K2-dgate and K2-dW on "tf32x3" -------------------------------
 
 K2_ROWS = 64        # a 64-row half of a K2-fwd block (a row of four warps)
 
@@ -279,6 +344,37 @@ def emulated_k2_dw(dout, res, gate, mm, sms):
     return torch.tril(total), splits
 
 
+def emulated_k2_dgate(w, dout, res, mm):
+    """K2-dgate as the f32 kernel walks it: per block of
+    ``cuda_sgu.k2_dgate_tiles`` and per step of each 64-row half,
+    ``W[i0:i0 + 32, rows]^T . dmix[i0:i0 + 32, channels]`` through ``mm``
+    (``dmix = dout * res`` rounded to f32), W's entries j > i zeroed on a
+    diagonal step, nothing on a skipped one."""
+    batch, n, d = dout.shape
+    step = cuda_sgu.DGATE_STEP
+    rows_pad = -(-n // cuda_sgu.DGATE_ROWS) * cuda_sgu.DGATE_ROWS
+    ipad = rows_pad + step
+    wz = torch.zeros(ipad, rows_pad)
+    wz[:n, :n] = w
+    dmix = torch.zeros(batch, ipad, d)
+    dmix[:, :n] = dout * res
+    acc = torch.zeros(batch, rows_pad, d)
+    j_idx = torch.arange(K2_ROWS)[:, None]
+    i_idx = torch.arange(step)[None, :]
+    for b, _, c0, walk in cuda_sgu.k2_dgate_tiles(batch, n, d):
+        cols = slice(c0, c0 + cuda_sgu.DGATE_COLS)
+        for r0, i0, kind in walk:
+            if kind == "skipped":
+                continue
+            tile = wz[i0:i0 + step, r0:r0 + K2_ROWS].T  # (64 j, 32 i)
+            if kind == "diagonal":
+                tile = tile * (i0 + i_idx >= r0 + j_idx)
+            else:
+                assert i0 >= r0 + K2_ROWS
+            acc[b, r0:r0 + K2_ROWS, cols] += mm(tile, dmix[b, i0:i0 + step, cols])
+    return acc[:, :n]
+
+
 def _k2_inputs(n: int, d: int, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     t = {name: rng.normal(size=(B, n, d)).astype(np.float32)
@@ -289,14 +385,14 @@ def _k2_inputs(n: int, d: int, seed: int) -> dict:
 
 
 def _k2_jax(t: dict) -> dict:
-    """JAX's K2 forward and its VJP's dW, the Pallas kernels in the
-    interpreter, f32."""
+    """JAX's K2 forward and its VJP's d_gate and dW, the Pallas kernels in
+    the interpreter, f32."""
     args = [jnp.asarray(t[name].numpy()) for name in ("res", "gate", "w", "b")]
     f = lambda *a: pallas_spatial_gate(*a, interpret=True)
     out, vjp = jax.vjp(f, *args)
-    dw = vjp(jnp.asarray(t["dout"].numpy()))[2]
+    _, dgate, dw, _ = vjp(jnp.asarray(t["dout"].numpy()))
     return {name: torch.from_numpy(np.array(x, np.float32))
-            for name, x in (("out", out), ("dw", dw))}
+            for name, x in (("out", out), ("dgate", dgate), ("dw", dw))}
 
 
 def _k2_ratios(got: dict, want: dict) -> dict:
@@ -335,6 +431,66 @@ def test_k2_three_tf32_products_meet_the_f32_bars(n, d):
         err1 = float((one[name] - want[name]).abs().max())
         assert 10 * err3 <= err1, (name, err3, err1)
     assert not torch.triu(got["dw"], 1).any()
+
+
+def _scaled_ratios(got: torch.Tensor, want: torch.Tensor, name: str) -> dict:
+    """A gradient's error over the scaled f32 bar (1e-4 of its largest
+    magnitude plus 1e-4 relative) and its RMS error over 1e-4 of its RMS."""
+    err = (got - want).abs()
+    rms = lambda x: float(x.pow(2).mean().sqrt())
+    return {name: float((err / (TOL * want.abs().max() + TOL * want.abs())).max()),
+            name + "_rms": rms(got - want) / (TOL * rms(want))}
+
+
+@pytest.mark.parametrize("n,d", [(100, 520), (1000, 520), (256, 64)])
+def test_k2_dgate_three_tf32_products_meet_the_f32_bars(n, d):
+    """K2-dgate through its f32 tile walk, every product 3xTF32, against
+    the d_gate of JAX's f32 kernels' VJP: within the scaled bars, and at
+    least 10x under one TF32 product's error."""
+    t = _k2_inputs(n, d, seed=n + d + 1)
+    want = _k2_jax(t)["dgate"]
+    got = emulated_k2_dgate(t["w"], t["dout"], t["res"], mm3)
+    one = emulated_k2_dgate(t["w"], t["dout"], t["res"], mm1)
+    ratios = _scaled_ratios(got, want, "dgate")
+    assert max(ratios.values()) <= 1.0, ratios
+    assert max(_scaled_ratios(one, want, "dgate").values()) > 1.0
+    err3, err1 = float((got - want).abs().max()), float((one - want).abs().max())
+    assert 10 * err3 <= err1, (err3, err1)
+
+
+@pytest.mark.parametrize("batch,n,d", [(2, 256, 256), (2, 1000, 256), (3, 100, 520),
+                                       (1, 60, 16), (1, 1000, 520), (4, 1024, 2048)])
+def test_k2_dgate_f32_walk_covers_the_triangle_once(batch, n, d):
+    """At 32-deep steps of positions i each 64-row half's walk meets every
+    (64 j, 32 i) tile with some i >= j exactly once, the two per half that
+    cross the diagonal masked, none wholly above it (i < j); every step
+    reads rows of W inside [j0, n); the blocks run longest walk first."""
+    step = cuda_sgu.DGATE_STEP
+    blocks = cuda_sgu.k2_dgate_tiles(batch, n, d)
+    lengths = [len(walk) for _, _, _, walk in blocks]
+    assert lengths == sorted(lengths, reverse=True)
+    halves = -(-n // 64)
+    want = {(hf, i0 // step): ("diagonal" if i0 < 64 * hf + 64 else "full")
+            for hf in range(halves) for i0 in range(0, n, step) if i0 + step > 64 * hf}
+    col_tiles = -(-d // 128)
+    assert len(blocks) == batch * -(-n // 128) * col_tiles
+    for b in range(batch):
+        for ct in range(col_tiles):
+            got = {}
+            for bb, j0, c0, walk in blocks:
+                if (bb, c0) != (b, 128 * ct):
+                    continue
+                for r0, i0, kind in walk:
+                    assert j0 <= i0 < n
+                    if kind == "skipped":
+                        assert i0 + step <= r0
+                        continue
+                    if r0 >= n:
+                        continue
+                    key = (r0 // 64, i0 // step)
+                    assert key not in got
+                    got[key] = kind
+            assert got == want
 
 
 @pytest.mark.parametrize("batch,n,d", [(2, 256, 256), (2, 1000, 256), (3, 100, 520),
@@ -403,11 +559,11 @@ def test_k2_dw_f32_plan_at_progen_small():
 
 @pytest.mark.parametrize("dtype,want", [
     (torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
-    (torch.float32, ("tf32x3", "fma", "tf32x3")),
+    (torch.float32, ("tf32x3", "tf32x3", "tf32x3")),
 ])
 def test_the_k2_routes_of_each_dtype(dtype, want):
-    """K2-fwd, K2-dgate and K2-dW: bf16 on ``wgmma``; f32 on ``tf32x3``
-    but K2-dgate, which keeps ``fma``; each route its own C entry."""
+    """K2-fwd, K2-dgate and K2-dW: bf16 on ``wgmma``; f32 on ``tf32x3``;
+    each route its own C entry."""
     got = (cuda_sgu.fwd_route(dtype), cuda_sgu.dgate_route(dtype), cuda_sgu.dw_route(dtype))
     assert got == want
     for counter, route in zip((cuda_sgu.fwd_route_launches, cuda_sgu.dgate_route_launches,

@@ -317,13 +317,13 @@ def test_resource_report_needs_nvcc(monkeypatch):
 def test_bwd_route_of_every_shipped_config(config, dtype):
     """bf16 takes the Hopper kernels wherever dim_head is 64 or 128 and the
     window a multiple of 128 (every config but ``default``); f32 takes the
-    3xTF32 kernel there for K1-dkv, and the WMMA kernels for K1-dq and
+    3xTF32 kernels there for K1-dq and K1-dkv, and the WMMA kernels
     everywhere else."""
     c = CONFIGS[config]
-    want = "wgmma" if dtype == torch.bfloat16 and config != "default" else "wmma"
-    want_dkv = "tf32x3" if dtype == torch.float32 and config != "default" else want
+    hopper = config != "default"
+    want = ("wmma" if not hopper else "wgmma" if dtype == torch.bfloat16 else "tf32x3")
     assert cuda_attention.dq_route(dtype, c.dim_head, c.window_size) == want
-    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want_dkv
+    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want
 
 
 @pytest.mark.parametrize("dtype,d,wsz,want", [
@@ -334,16 +334,18 @@ def test_bwd_route_of_every_shipped_config(config, dtype):
     (torch.bfloat16, 128, 192, "wmma"),   # not a multiple of 128
     (torch.bfloat16, 64, 128, "wgmma"),   # the smallest window taken
     (torch.bfloat16, 128, 384, "wgmma"),
-    (torch.float32, 128, 256, "wmma"),    # f32: the comparison path
-    (torch.float32, 64, 512, "wmma"),
+    # f32 on the Hopper shapes: 3xTF32 (ids kept from when f32 took wmma)
+    pytest.param(torch.float32, 128, 256, "tf32x3", id="dtype7-128-256-wmma"),
+    pytest.param(torch.float32, 64, 512, "tf32x3", id="dtype8-64-512-wmma"),
+    (torch.float32, 32, 256, "wmma"),     # f32 elsewhere: the first kernels
+    (torch.float32, 128, 64, "wmma"),
 ])
 def test_bwd_route_of_odd_shapes(dtype, d, wsz, want):
-    """``want`` is K1-dq's route; K1-dkv's is the same but for f32 on the
-    Hopper shapes (dim_head 64 or 128, a window a multiple of 128)."""
+    """``want`` is K1-dq's route and K1-dkv's (the same rule: bf16 ``wgmma``
+    and f32 ``tf32x3`` on the Hopper shapes, dim_head 64 or 128 and a window
+    a multiple of 128; ``wmma`` elsewhere)."""
     assert cuda_attention.dq_route(dtype, d, wsz) == want
-    hopper = d in (64, 128) and wsz % 128 == 0
-    want_dkv = "tf32x3" if dtype == torch.float32 and hopper else want
-    assert cuda_attention.dkv_route(dtype, d, wsz) == want_dkv
+    assert cuda_attention.dkv_route(dtype, d, wsz) == want
 
 
 def _visible(n, wsz):
@@ -396,14 +398,14 @@ def test_k1_bwd_tile_walk_at_progen_small():
 @pytest.mark.parametrize("route,dtype,d,wsz", [
     ("wgmma", torch.bfloat16, 128, 128),
     ("wgmma", torch.bfloat16, 64, 256),
-    ("wmma", torch.float32, 128, 128),
+    pytest.param("tf32x3", torch.float32, 128, 128, id="wmma-dtype2-128-128"),
     ("wmma", torch.bfloat16, 32, 64),
 ])
 @pytest.mark.parametrize("bad", ["q", "do", "lse"])
 def test_attention_backward_wrappers_refuse_misaligned_tensors(route, dtype, d, wsz, bad):
     """TMA copies and 16-byte loads need 16-byte-aligned tensors: a view one
     element off is refused before any launch, on every route (``route`` is
-    K1-dq's; f32 at dim_head 128 sends K1-dkv on ``tf32x3``)."""
+    K1-dq's and K1-dkv's)."""
     assert cuda_attention.dq_route(dtype, d, wsz) == route
     shape = (1, 2, 256, d)
     q, = _fake_cuda(shape, dtype=dtype)
