@@ -18,7 +18,7 @@ non-zero without its last line:
    window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
    route (dim_head 32, a window of 64), and in f32 on the 3xTF32 route
    ("tf32x3": the serving and training shapes, the phantom window, the
-   largest prefill) and the WMMA route (dim_head 32); K2-fwd in bf16 (the
+   largest prefill, dim_head 32); K2-fwd in bf16 (the
    "wgmma" route) at both weight scales, batch 1 and 8, n = 1000, 512 and
    100, and in f32 on the 3xTF32 route ("tf32x3"); each forward case held
    to its route and run twice for the same bits; K1-dq and K1-dkv also at
@@ -26,15 +26,24 @@ non-zero without its last line:
    window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
    route (dim_head 32, a window of 64), and in f32 (both on "tf32x3") at
    the training shape, the phantom window, ProGen-tiny's head,
-   ProGen-base's window and a window of 128, and on WMMA at dim_head 32,
-   each run twice for the same bits and held to the route it must take;
+   ProGen-base's window and a window of 128, and at dim_head 32 (K1-dkv
+   on "tf32x3", K1-dq on WMMA), each run twice for the same bits and held
+   to the route it must take;
    K2-dgate and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each
    run twice for the same bits and held to its route (bf16 "wgmma", f32
    "tf32x3"), dW's strict upper triangle 0.  Every
    kernel is timed in bf16 and in f32, each f32 row with its bound restated
    for f32-accurate products (3 x FLOPs / 495 TFLOP/s) beside the CUDA
    cores' 67 TFLOP/s, and the tf32x3 rows beside the first kernel (WMMA for
-   K1, FMA for K2) on the same inputs, K2-dW's with its split plan;
+   K1, FMA for K2) on the same inputs, K2-dW's with its split plan; then
+   K1-fwd, K1-dq and K1-dkv at ProGen-default's head and window (H 3,
+   L 1024, dim_head 32, window 512: the training CLI's default run) at
+   B 4 and B 32, in f32 (K1-fwd and K1-dkv on their dim_head-32 "tf32x3"
+   kernels, timed beside WMMA on the same inputs; K1-dq on WMMA) and in
+   bf16 (all three on WMMA), each checked, held to its route, run twice for
+   the same bits and timed beside its plain version and SDPA: the
+   ``_d32_f32`` rows of the ``kernels`` line (B 4, the launches of phase
+   22's run), their B 32 and bf16 times and phase 11's with a halo inside;
 4. serving path: ProGen-small at its full width and SERVE_DEPTH (3) of
    its 12 layers, the served model of phases 4-20 (weights drawn from a
    seed, bf16 compute), serves four primes through the chunked sampler (one parallel prefill
@@ -134,7 +143,9 @@ non-zero without its last line:
    Hopper route at the training shape (B 8, H 8, L 1024, D 128, window 256)
    and at ProGen-base's window, bf16 on the WMMA route (dim_head 32; a
    window of 64) and f32 (all three on "tf32x3") at
-   the training shape, each run twice for
+   the training shape, and f32 at ProGen-default's head and window, B 4
+   (K1-fwd and K1-dkv on "tf32x3", K1-dq on WMMA, timed beside WMMA: the
+   ``with_halo`` of phase 3's D-32 rows), each run twice for
    the same bits, held to its route and at K1's bars; at the training shape
    in bf16 and in f32, timed with and without the halo, with their bounds,
    the plain version and SDPA on the ``[halo ‖ own]`` layout; (b) the
@@ -306,6 +317,22 @@ non-zero without its last line:
    worker's K1-fwd and K2-fwd per handle and each member's K3 twice a
    decode step on ``bulk`` at d 1024; printed: start-up, tokens/s, median
    time to first token, ``de_s`` a slab, peak memory per process;
+22. the training CLI's default run (``train_cli_default``, after phase 5):
+   ``progen_tpu_torch.train.cli.main`` with its own defaults
+   (ProGen-default, f32, batch 4, accumulation 4, synthetic rows, cuda)
+   but ``--max_steps 8 --log_every 4 --wandb_off``, in this process, four
+   times in turns on the same seeded model and rows: K1 on ``wmma`` forced
+   (the parent's route), on its own routes twice, on ``wmma`` again.  Held:
+   each run's loss finite and falling, its printed records the returned
+   ones, every micro-batch's launches exactly 3 K1-fwd, K1-dq and K1-dkv
+   (K1-fwd and K1-dkv on ``tf32x3``, K1-dq on ``wmma``; all on ``wmma``
+   forced), 4 K2-fwd, 2 K2-dgate and 2 K2-dW (``tf32x3``), the two routes'
+   losses within 1e-4; then one f32 step at ProGen-default, batch 4,
+   through the kernels against the plain versions at phase 5's bars (loss
+   1e-4 relative, every gradient leaf 1e-3, each leaf's update after three
+   steps 1e-2 RMS relative and 6 lr at most).  Printed: each run's
+   records, micro-batch ms (host clock, each ending in a sync) and wall,
+   beside the card's name and power limit;
 21. the port's static analyzer (``analysis``): ``python -m
    progen_tpu_torch.analysis progen_tpu_torch chip_smoke.py`` in a
    subprocess on the card's host, which has no JAX, started before the
@@ -361,7 +388,8 @@ with the eager runs it compares against, ``trainer_superstep_alone()``
 phase 14, ``trainer_mesh_alone()`` phase 16 with its own unmeshed runs,
 ``decode_mesh_alone()`` phase 17 with its own unmeshed runs,
 ``serve_fleet_alone()`` phase 18, ``serve_elastic_alone()`` phases 18
-and 19, ``serve_tp_group_alone()`` phase 20.
+and 19, ``serve_tp_group_alone()`` phase 20, ``d32_kernels_alone()``
+phase 3's dim_head-32 rows, ``train_cli_default_alone()`` phase 22.
 
 There is no CPU fallback: without CUDA the script fails.  It imports
 nothing of JAX.
@@ -375,7 +403,9 @@ import contextlib
 import ctypes
 import dataclasses
 import datetime
+import functools
 import gc
+import io
 import json
 import queue as queue_module
 import shutil
@@ -410,7 +440,7 @@ from progen_tpu_torch.decode.sampler import (
     make_sampler,
     teacher_forced_logits,
 )
-from progen_tpu_torch.models.configs import SMALL, draft_config_for
+from progen_tpu_torch.models.configs import DEFAULT, SMALL, draft_config_for
 from progen_tpu_torch.models.progen import ProGen
 from progen_tpu_torch.ops import cuda_attention, cuda_paged_gate_mix, cuda_sgu
 from progen_tpu_torch.ops import paged_gate_mix as plain_paged
@@ -432,6 +462,7 @@ from progen_tpu_torch.serve import ServeCluster, build_engine_from_spec, make_sp
 from progen_tpu_torch.serve import cluster as cluster_module
 from progen_tpu_torch.serve.control import ControlPlane
 from progen_tpu_torch.serve.policy import BurnRatePolicy, ScaleDecision
+from progen_tpu_torch.train import cli as cli_module
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch import trace_main_path
 from progen_tpu_torch.parallel.decode import decode_mesh as decode_view
@@ -716,9 +747,9 @@ def sgu_case(gen, b, n, d, weights, dtype):
 
 # K1-fwd's cases (b, h, n, d, wsz): in bf16 the first seven take the Hopper
 # kernel (the "wgmma" route), the last two the WMMA kernel; f32 takes the
-# 3xTF32 kernel (the "tf32x3" route) at the serving and training shapes,
-# the phantom window and the largest prefill, and the WMMA kernel at
-# ProGen-default's head.  The first two of each are timed (serving and
+# 3xTF32 kernels (the "tf32x3" route) at the serving and training shapes,
+# the phantom window, the largest prefill and ProGen-default's head (its
+# dim_head-32 kernel).  The first two of each are timed (serving and
 # training shapes).
 K1_FWD_CASES = (
     (4, 8, 1024, 128, 256),             # ProGen-small's serving shape
@@ -728,7 +759,7 @@ K1_FWD_CASES = (
     (2, 8, 1024, 64, 256),              # ProGen-tiny's head
     (1, 12, 2048, 128, 512),            # ProGen-base's window
     (1, 3, 512, 128, 128),              # the smallest window the route takes
-    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
+    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA (f32: tf32x3)
     (2, 8, 1024, 128, 64),              # a window under 128: WMMA
 )
 K1_FWD_F32_CASES = (K1_FWD_CASES[0], K1_FWD_CASES[1], K1_FWD_CASES[2], K1_FWD_CASES[3],
@@ -758,13 +789,14 @@ def row_name(kernel: str, dtype) -> str:
     return kernel + (F32_SUFFIX if dtype == torch.float32 else "")
 
 
-def attention_fwd_row(inputs, err, errs) -> dict:
+def attention_fwd_row(inputs, err, errs, wsz: int = SMALL.window_size,
+                      suffix: str = "") -> dict:
     """CUDA-event times of K1-fwd, its plain version and one SDPA call on
     the masked ``[prev ‖ own]`` layout, with the bound, on ``inputs``; in
-    f32 also the first (``wmma``) kernel's time on the same inputs."""
+    f32 also the first (``wmma``) kernel's time on the same inputs.  The
+    row is named for its kernel, ``suffix`` and its dtype."""
     q, k, v = inputs
     b, h, n, d = q.shape
-    wsz = SMALL.window_size
     w = n // wsz
     qw = q.reshape(b, h * w, wsz, d)
     kw = concat_previous_window(k.reshape(b, h, w, wsz, d)).reshape(b, h * w, 2 * wsz, d)
@@ -780,7 +812,7 @@ def attention_fwd_row(inputs, err, errs) -> dict:
     flops = 4.0 * d * real_visible(n, wsz) * b * h  # the phantom's keys need none
     nbytes = 4.0 * b * h * n * d * esize + 4.0 * b * h * n
     row = {
-        "name": row_name("local_attention_fwd", q.dtype), "route": "cuda",
+        "name": row_name("local_attention_fwd" + suffix, q.dtype), "route": "cuda",
         "fwd_route": route, "kernel_route": route,
         "source": "progen_tpu_torch/kernels/csrc/local_attention_fwd.cu",
         "replaces": "progen_tpu/ops/pallas_attention.py:65",
@@ -966,28 +998,29 @@ def sgu_bwd_case(gen, b, n, d, dtype):
 
 # K1's backward cases (b, h, n, d, wsz): in bf16 the first five take the
 # Hopper kernels (the "wgmma" route), the last two the WMMA kernels; f32
-# takes the 3xTF32 kernels ("tf32x3") in the first five and the WMMA
-# kernels at ProGen-default's head.  The first of each is timed.
+# takes the 3xTF32 kernels ("tf32x3") in the first five, and at
+# ProGen-default's head K1-dkv's dim_head-32 one and K1-dq's WMMA kernel.
+# The first of each is timed.
 K1_BWD_CASES = (
     (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
     (2, 8, 256, 128, 256),              # one window: the phantom window only
     (2, 8, 1024, 64, 256),              # ProGen-tiny's head
     (1, 12, 2048, 128, 512),            # ProGen-base's window
     (1, 3, 512, 128, 128),              # the smallest window the route takes
-    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA
+    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA (f32 dkv: tf32x3)
     (2, 8, 1024, 128, 64),              # a window under 128: WMMA
 )
 K1_BWD_F32_CASES = K1_BWD_CASES[:6]
 
 
-def k1_bwd_rows(inputs, res, errs) -> list[dict]:
+def k1_bwd_rows(inputs, res, errs, wsz: int = SMALL.window_size,
+                suffix: str = "") -> list[dict]:
     """CUDA-event times of K1-dq and K1-dkv at one timed case, beside the
     plain backward and one SDPA backward (dq, dk and dv in one call each),
     with the bounds; each on ``tf32x3`` also on the first (``wmma``)
-    kernel."""
+    kernel.  The rows are named as :func:`attention_fwd_row`'s."""
     q, k, v, do, out, lse, dd = inputs
     b, h, n, d = q.shape
-    wsz = SMALL.window_size
     dq_fn = lambda route=None: cuda_attention.local_attention_bwd_dq(
         q, k, v, do, lse, dd, wsz, route=route)
     dkv_fn = lambda route=None: cuda_attention.local_attention_bwd_dkv(
@@ -1005,7 +1038,8 @@ def k1_bwd_rows(inputs, res, errs) -> list[dict]:
             ("local_attention_bwd_dkv", dkv_fn, cuda_attention.dkv_route(q.dtype, d, wsz),
              8.0 * d * pairs, 6 * vec + 2 * rowvec, 152, ("dk", "dv"))):
         rows.append({
-            "name": row_name(name, q.dtype), "route": "cuda", "kernel_route": route,
+            "name": row_name(name + suffix, q.dtype), "route": "cuda",
+            "kernel_route": route,
             "source": "progen_tpu_torch/kernels/csrc/local_attention_bwd.cu",
             "replaces": f"progen_tpu/ops/pallas_attention.py:{line}",
             "launches": None,
@@ -1132,6 +1166,58 @@ def sdpa_backward_ms(q, k, v, do, wsz) -> float:
                                                retain_graph=True))
 
 
+# K1 at ProGen-default's head and window (H 3, L 1024, dim_head 32, window
+# 512): the training CLI's default run's batch (4, f32) and 32 sequences'
+# worth more (B 32), where launch overhead does not hide the kernel
+D32_BATCHES = (4, 32)
+D32_SUFFIX = "_d32"   # the rows' names: local_attention_fwd_d32_f32, ...
+# the timed fields each D-32 row keeps of its other batch and dtype
+D32_KEPT = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
+            "max_abs_err", "kernel_route", "wmma_route_ms", "bound_ms_cuda_cores")
+
+
+def check_d32_kernels() -> list[dict]:
+    """K1-fwd, K1-dq and K1-dkv at ProGen-default's head and window, each
+    against its plain version on the route it must take and run twice for
+    the same bits, then timed beside its plain version, SDPA and (on
+    ``tf32x3``) the ``wmma`` kernel, at B 4 and B 32, in f32 and bf16.
+    Returns the f32 rows at B 4 (the CLI's run), each holding its B 32
+    times (``at_batch_32``) and its bf16 twin's (``bf16``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    c = DEFAULT
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in D32_BATCHES:
+            shape = (b, c.heads, c.seq_len, c.dim_head, c.window_size)
+            inputs, err = attention_case(gen, *shape, dtype)
+            fwd = attention_fwd_row(inputs, err, [err], c.window_size, D32_SUFFIX)
+            emit("kernel_time", **fwd)
+            del inputs
+            inputs, res = attention_bwd_case(gen, *shape, dtype)
+            bwd = k1_bwd_rows(inputs, res, {g: [res[g]["max_abs_err"]] for g in res},
+                              c.window_size, D32_SUFFIX)
+            del inputs
+            timed[dtype, b] = [fwd, *bwd]
+    rows = []
+    for i, row in enumerate(timed[torch.float32, D32_BATCHES[0]]):
+        kept = lambda r: {key: r[key] for key in D32_KEPT if key in r}
+        row["at_batch_32"] = kept(timed[torch.float32, D32_BATCHES[1]][i])
+        row["bf16"] = {f"batch_{b}": kept(timed[torch.bfloat16, b][i]) for b in D32_BATCHES}
+        rows.append(row)
+    return rows
+
+
+def d32_kernels_alone() -> list[dict]:
+    """The D-32 rows of phase 3 on their own, with the build of K1's two
+    sources: ``python3 -c "import chip_smoke as cs; cs.d32_kernels_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build(("local_attention_fwd", "local_attention_bwd")))
+    rows = check_d32_kernels()
+    print(json.dumps({"kernels": rows}), flush=True)
+    return rows
+
+
 def kernels_alone() -> list[dict]:
     """Phase 3 on its own, with the build: every kernel against its plain
     version at every case, timed in bf16 and f32 (the rows' launches stay
@@ -1140,7 +1226,8 @@ def kernels_alone() -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("build", per_source=kernels.build())
-    rows = check_kernels() + check_backward_kernels() + check_paged_kernels()
+    rows = (check_kernels() + check_backward_kernels() + check_d32_kernels()
+            + check_paged_kernels())
     print(json.dumps({"kernels": rows}), flush=True)
     return rows
 
@@ -1198,11 +1285,14 @@ ROUTE_TOTALS = {name: {} for name in ROUTE_COUNTERS}
 def k1_route(kernel: str, dtype, d: int, wsz: int) -> str:
     """The route a K1 launch must take: dim_head 64 or 128 and a window that
     is a multiple of 128 take the Hopper kernels (bf16 ``wgmma``, f32
-    ``tf32x3``), the rest ``wmma``.  ``kernel`` (``"fwd"``, ``"dq"`` or
-    ``"dkv"``): the three kernels share the rule."""
-    if d not in (64, 128) or wsz % 128 != 0:
+    ``tf32x3``), the rest ``wmma``; at dim_head 32 with such a window
+    K1-fwd and K1-dkv (``kernel`` ``"fwd"``, ``"dkv"``; ``"dq"`` not) take
+    ``tf32x3`` in f32 too."""
+    if wsz % 128 != 0:
         return "wmma"
-    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    if d == 32:
+        return "tf32x3" if dtype == torch.float32 and kernel != "dq" else "wmma"
+    return ("wgmma" if dtype == torch.bfloat16 else "tf32x3") if d in (64, 128) else "wmma"
 
 
 # the route each K2 kernel must take in f32 (bf16: "wgmma" for all three)
@@ -1255,6 +1345,7 @@ def require_forward_routes(routes: dict, launches: dict, hopper: bool, what: str
 
 
 K1_BWD_ROUTES = {"local_attention_bwd_dq": "dq", "local_attention_bwd_dkv": "dkv"}
+K1_ROUTE_KERNELS = {"local_attention_fwd": "fwd", **K1_BWD_ROUTES}
 
 
 def require_backward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
@@ -1498,20 +1589,19 @@ def train(model) -> dict:
             "mfu_peak_flops": H100_PEAK_BF16_FLOPS, "peak_bytes": peak}
 
 
-def check_train_against_plain(lora: bool = False) -> dict:
-    """At f32, ProGen-small, batch 2: one train step through the kernels
-    against the same step through the plain versions (loss and every
-    gradient leaf), then each leaf's update after three steps.  With
-    ``lora``, the same for ``LoRAProGen`` at rank 8 through
-    ``train/lora.py`` (the frozen base's gradients included; its updates
-    are zero on both sides), but the loss is held at every step and the
+def check_train_against_plain(lora: bool = False, c=SMALL, batch_size: int = 2) -> dict:
+    """At f32, ProGen-small (or ``c``), batch 2 (or ``batch_size``): one train
+    step through the kernels against the same step through the plain
+    versions (loss and every gradient leaf), then each leaf's update after
+    three steps.  With ``lora``, the same for ``LoRAProGen`` at rank 8
+    through ``train/lora.py`` (the frozen base's gradients included; its
+    updates are zero on both sides), but the loss is held at every step and the
     updates by their largest difference only: ``b`` starts at zero, so
     Adam's first steps move each factor element by about +-lr whatever its
     gradient's size, and an element whose gradient sits within rounding of
     zero steps either way: one such element is 1.1% of the RMS of a leaf of
     8192, where the base model's leaves are large enough to absorb it."""
-    c = SMALL
-    batches = train_batches(c, 2, 3, SEED + 4)
+    batches = train_batches(c, batch_size, 3, SEED + 4)
     lr = LORA_TRAIN_LR if lora else TRAIN_LR
     runs = []
     for plain in (False, True):
@@ -1553,7 +1643,8 @@ def check_train_against_plain(lora: bool = False) -> dict:
     worst_grad = max(grad_err, key=grad_err.get)
     worst_update = max(update_err, key=update_err.get)
     result = {"model": "LoRAProGen rank 8" if lora else "ProGen",
-              "dtype": "torch.float32", "batch": 2, "steps": 3,
+              "config": dataclasses.asdict(c),
+              "dtype": "torch.float32", "batch": batch_size, "steps": 3,
               "losses": losses, "plain_losses": want_losses,
               "loss_rel_err": loss_err, "loss_steps_held": held,
               "loss_tol": TOL_TRAIN_LOSS,
@@ -1568,6 +1659,169 @@ def check_train_against_plain(lora: bool = False) -> dict:
             and update_max <= 6 * lr,
             f"the train step through the kernels disagrees with plain: {result}")
     return result
+
+# -- phase 22: the training CLI's default run ----------------------------------
+
+# the CLI's own defaults (ProGen-default, f32, batch 4, accumulation 4,
+# synthetic rows, cuda) but for a short run without wandb: 8 micro-batches
+CLI_DEFAULT_ARGS = ("--max_steps", "8", "--log_every", "4", "--wandb_off")
+CLI_TURNS = ("wmma", "tf32x3", "tf32x3", "wmma")  # K1's forced route, in turns
+CLI_WARMUP = 1  # micro-batches left out of each run's median
+CLI_PROFILED = 6  # the micro-batch (0-based) run under torch.profiler, out of the median
+
+
+def forced_k1_route(route: str):
+    """Patches that send every K1 launch onto ``route`` (``"wmma"``: the
+    parent's route at dim_head 32, on the same inputs)."""
+    return [mock.patch.object(cuda_attention, name, functools.partial(
+        getattr(cuda_attention, name), route=route))
+        for name in ("local_attention_fwd", "local_attention_bwd_dq",
+                     "local_attention_bwd_dkv")]
+
+
+def cli_run(route: str | None) -> dict:
+    """``progen_tpu_torch.train.cli.main`` with ``CLI_DEFAULT_ARGS``, in this
+    process; ``route`` forces K1's launches (None: their own routes).  The
+    records it prints, each micro-batch's launches and host ms (the step
+    ends in a sync: the CLI reads its loss), one micro-batch's device
+    kernels under ``torch.profiler`` (busy ms, K1's and K2's ms, launches),
+    and the launches by route; the counts are set to 0 just before and read
+    just after."""
+    per_micro, micro_ms, profiled = [], [], {}
+    made = cli_module.make_train_functions
+
+    def counted_functions(*args, **kwargs):
+        fns = made(*args, **kwargs)
+        real = fns.train_step
+
+        def counted(state, batch):
+            before = read_counts()
+            t0 = time.perf_counter()
+            if len(micro_ms) == CLI_PROFILED:
+                got = []
+                per_name, host = trace_main_path._profiled(
+                    lambda: got.append(real(state, batch)), torch.device("cuda"))
+                out = got[0]
+                kernel_ms = lambda key: sum(us for name, (_, us) in per_name.items()
+                                            if key in name) / 1e3
+                profiled.update(
+                    micro_batch=CLI_PROFILED, host_launches=host,
+                    device_launches=sum(n for n, _ in per_name.values()),
+                    device_busy_ms=sum(us for _, us in per_name.values()) / 1e3,
+                    k1_ms=kernel_ms("local_attention"), k2_ms=kernel_ms("sgu_"))
+            else:
+                out = real(state, batch)
+            torch.cuda.synchronize()
+            micro_ms.append((time.perf_counter() - t0) * 1e3)
+            after = read_counts()
+            per_micro.append({k: after[k] - before[k] for k in after})
+            return out
+        return dataclasses.replace(fns, train_step=counted)
+
+    patches = [mock.patch.object(cli_module, "make_train_functions", counted_functions),
+               *(forced_k1_route(route) if route == "wmma" else ())]
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            records = cli_module.main(list(CLI_DEFAULT_ARGS))
+        wall = time.perf_counter() - t0
+    timed = [ms for i, ms in enumerate(micro_ms) if i >= CLI_WARMUP and i != CLI_PROFILED]
+    return {"route": route or "own", "records": records,
+            "printed": [json.loads(line) for line in printed.getvalue().splitlines()],
+            "per_micro_batch_launches": per_micro, "micro_batch_ms": micro_ms,
+            "micro_batch_ms_median": float(np.median(timed)), "profiled": profiled,
+            "wall_s": wall, "launches": read_counts(), "routes": read_routes()}
+
+
+def train_cli_default(smi: str) -> dict:
+    """Phase 22: the training CLI's default run on the card.  Four runs of
+    ``CLI_DEFAULT_ARGS`` in turns, K1 on the parent's route (``wmma``
+    forced) and on its own (K1-fwd and K1-dkv ``tf32x3``, K1-dq ``wmma``),
+    on the same seeded model and rows: each run's loss finite and falling,
+    every micro-batch's launches exactly ProGen-default's (3 of each K1
+    kernel, 4 K2-fwd, 2 K2-dgate, 2 K2-dW) on the routes each must take,
+    the printed records the returned ones, the two routes' losses within
+    the f32 step's bar of each other; then one f32 step at ProGen-default,
+    batch 4, through the kernels against the plain versions at phase 5's
+    bars.  Returns the phase's result, the launches of the first run on
+    K1's own routes under ``launches``."""
+    c = DEFAULT
+    args = cli_module.parse_args(list(CLI_DEFAULT_ARGS))
+    require(args.model_name == "default" and not args.mixed_precision
+            and (args.batch_size, args.grad_accum_every) == (4, 4)
+            and args.data_path is None and args.device == "cuda",
+            f"the CLI's defaults moved: {vars(args)}")
+    per_micro = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
+                 "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
+                 "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
+    want = {name: per_micro.get(name, 0) for name in COUNTERS}
+    runs = []
+    for route in CLI_TURNS:
+        run = cli_run(None if route == "tf32x3" else route)
+        micro = args.max_steps
+        bad = [i for i, got in enumerate(run["per_micro_batch_launches"]) if got != want]
+        require(len(run["per_micro_batch_launches"]) == micro and not bad,
+                f"CLI ({route}) micro-batches {bad} launched other than {want}: "
+                f"{run['per_micro_batch_launches']}")
+        routes = {}
+        for name in per_micro:
+            if name not in K1_ROUTE_KERNELS:
+                to = k2_route(name, torch.float32)
+            elif route == "wmma":
+                to = route
+            else:
+                to = k1_route(K1_ROUTE_KERNELS[name], torch.float32, c.dim_head, c.window_size)
+            routes[name] = {**dict.fromkeys(run["routes"][name], 0), to: micro * per_micro[name]}
+        require(all(run["routes"][name] == routes[name] for name in routes),
+                f"CLI ({route}) launches by route {run['routes']}, want {routes}")
+        losses = [r["loss"] for r in run["records"]]
+        require(run["printed"] == run["records"] and len(losses) == micro // args.log_every
+                and all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"CLI ({route}): the loss is not finite and falling: {run['records']}")
+        runs.append(run)
+    own = [r for r in runs if r["route"] == "own"]
+    parent = [r for r in runs if r["route"] == "wmma"]
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(own[0]["records"], parent[0]["records"]))
+    require(loss_rel <= TOL_TRAIN_LOSS,
+            f"the CLI's losses on tf32x3 and wmma differ by {loss_rel}")
+    vs_plain = check_train_against_plain(c=c, batch_size=args.batch_size)
+    measured = own[0]["per_micro_batch_launches"][0]  # every micro-batch's, held above
+    summary = lambda run: {k: run[k] for k in ("route", "records", "micro_batch_ms",
+                                               "micro_batch_ms_median", "profiled", "wall_s")}
+    return {"command": "python -m progen_tpu_torch.train " + " ".join(CLI_DEFAULT_ARGS),
+            "nvidia_smi": smi, "config": "default", "dtype": "f32",
+            "batch": args.batch_size, "grad_accum_every": args.grad_accum_every,
+            "micro_batches": args.max_steps, "seq_len": c.seq_len,
+            "launches_per_micro_batch": {name: measured[name] for name in per_micro},
+            "launches_by_route": own[0]["routes"], "launches": own[0]["launches"],
+            "runs_in_turns": [summary(r) for r in runs],
+            "micro_batch_ms_median": {"tf32x3": [r["micro_batch_ms_median"] for r in own],
+                                      "wmma": [r["micro_batch_ms_median"] for r in parent]},
+            "profiled_micro_batch": {"tf32x3": [r["profiled"] for r in own],
+                                     "wmma": [r["profiled"] for r in parent]},
+            "step_ms": {"tf32x3": [r["records"][-1]["step_ms"] for r in own],
+                        "wmma": [r["records"][-1]["step_ms"] for r in parent]},
+            "tokens_per_s": {"tf32x3": [r["records"][-1]["tokens_per_s"] for r in own],
+                             "wmma": [r["records"][-1]["tokens_per_s"] for r in parent]},
+            "loss_rel_err_tf32x3_vs_wmma": loss_rel, "vs_plain": vs_plain}
+
+
+def train_cli_default_alone() -> dict:
+    """Phase 22 on its own, with the build:
+    ``python3 -c "import chip_smoke as cs; cs.train_cli_default_alone()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("build", per_source=kernels.build())
+    result = train_cli_default(smi_name_power())
+    emit("train_cli_default", **result)
+    return result
+
 
 # -- phase 8: the Trainer over tfrecords, checkpoints and resume ---------------
 
@@ -4020,6 +4274,10 @@ PARALLEL_TOL_LOSS = {False: 1e-4,  # f32: the f32 train step's bar (TOL_TRAIN_LO
                      True: 1e-2}   # bf16 compute: a mean over 8 x 1024 bf16 logits
 HALO_COUNTERS = ("local_attention_fwd_halo", "local_attention_bwd_dq_halo",
                  "local_attention_bwd_dkv_halo")
+# f32 at ProGen-default's head and window, the CLI's batch: K1-fwd and
+# K1-dkv on their dim_head-32 tf32x3 kernels (the meshed Trainer's sp path
+# at ProGen-default), timed beside wmma; rows folded into phase 3's D-32 rows
+D32_HALO_CASE = (4, DEFAULT.heads, DEFAULT.seq_len, DEFAULT.dim_head, DEFAULT.window_size)
 
 
 def halo_inputs(gen, b, h, n, d, wsz, dtype):
@@ -4101,12 +4359,13 @@ def split_sequence_identity(gen) -> dict:
     return {"shape": [b, h, n, d], "window": wsz, "halves": 2, **res}
 
 
-def halo_rows(inputs, errs: dict, all_errs: dict) -> list[dict]:
+def halo_rows(inputs, errs: dict, all_errs: dict, suffix: str = "") -> list[dict]:
     """CUDA-event times of the three kernels with a halo at one timed case's
     shape and dtype, beside the same kernels without it (the phantom
     window: what the halo costs a launch), their bounds, the plain version
     and SDPA on the ``[halo ‖ own]`` layout (forward; backward, dq, dk and
-    dv in one call)."""
+    dv in one call).  The rows are named for their kernel, ``suffix`` and
+    their dtype."""
     q, k, v, do, kh, vh = inputs
     b, h, n, d = q.shape
     wsz = kh.shape[2]
@@ -4153,7 +4412,7 @@ def halo_rows(inputs, errs: dict, all_errs: dict) -> list[dict]:
         source = "local_attention_fwd.cu" if name.startswith("local_attention_fwd") \
             else "local_attention_bwd.cu"
         rows.append({
-            "name": row_name(name, q.dtype), "route": "cuda", "k1_route": route,
+            "name": row_name(name + suffix, q.dtype), "route": "cuda", "k1_route": route,
             "kernel_route": route,
             "source": f"progen_tpu_torch/kernels/csrc/{source}",
             "replaces": "progen_tpu/ops/pallas_attention.py:258",
@@ -4249,6 +4508,10 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
     rows = [row for inputs, case_errs in timed_cases
             for row in halo_rows(inputs, case_errs, errs)]
     del timed_cases
+    inputs, case_errs = halo_case(gen, D32_HALO_CASE, torch.float32)
+    d32_rows = halo_rows(inputs, case_errs, {torch.float32: {
+        name: [e] for name, e in case_errs.items()}}, D32_SUFFIX)
+    del inputs
     split = split_sequence_identity(gen)
     emit("split_sequence", **split)
 
@@ -4279,6 +4542,7 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
     launches = {name: sum(p["launches"][name] for p in by_precision.values())
                 for name in COUNTERS}
     result = {"split_sequence": split, "launches": launches, "nvidia_smi": smi,
+              "d32_halo_rows": d32_rows,
               "batch": TRAIN_BATCH, "seq_len": c.seq_len, "steps": PARALLEL_STEPS,
               "depth": {"f32": PARALLEL_F32_DEPTH, "bf16": c.depth},
               "unmeshed": unmeshed[False], "unmeshed_bf16": unmeshed[True],
@@ -5875,6 +6139,26 @@ def analysis_alone() -> dict:
     return result
 
 
+def d32_row_launches(rows: list[dict], cli: dict, halo_rows: list[dict]) -> list[dict]:
+    """The D-32 rows' launches: their kernel's launches on the row's route
+    in the CLI's default run (phase 22, its first run on K1's own routes),
+    and in its first micro-batch;
+    each row also takes phase 11's time of its kernel with a halo at the
+    same shape."""
+    halo = {row["name"].replace("_halo", ""): row for row in halo_rows}
+    for row in rows:
+        counter = row["name"].removesuffix(F32_SUFFIX).removesuffix(D32_SUFFIX)
+        row["launches"] = cli["launches_by_route"][counter][row["kernel_route"]]
+        row["launches_per_micro_batch"] = cli["launches_per_micro_batch"][counter]
+        row["launches_by_path"] = {"train_cli_default": row["launches"]}
+        with_halo = halo[row["name"]]
+        row["with_halo"] = {key: with_halo[key] for key in (
+            "ms", "ms_without_halo", "wmma_route_ms", "wmma_route_ms_without_halo",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")
+            if key in with_halo}
+    return rows
+
+
 def f32_row_launches(row: dict, phases: dict) -> None:
     """An f32 row's launches: its kernel's launches on the row's route in
     the f32 runs of the meshed Trainer (phases 11 and 16, ProGen-small's
@@ -5911,6 +6195,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, per_source=built)
 
     rows = check_kernels() + check_backward_kernels() + check_paged_kernels()
+    d32_rows = check_d32_kernels()
 
     model = ProGen(SERVED, make_policy(True), device="cuda", seed=SEED).eval()
     served = serve(model)
@@ -5974,6 +6259,9 @@ def main() -> int:
     del model
     emit("train_vs_plain", **check_train_against_plain())
     gc.collect()
+    cli = train_cli_default(smi)
+    emit("train_cli_default", **cli)
+    gc.collect()
     lora = lora_train(trained["step_ms_median"])
     gc.collect()
     emit("lora_train_vs_plain", **check_train_against_plain(lora=True))
@@ -6031,6 +6319,7 @@ def main() -> int:
             row["launches_by_path"]["decode_mesh"] = decode["launches"][counter]
         row["launches"] = sum(row["launches_by_path"].values())
     rows += halo_kernel_rows + decode["rank_shape_rows"]
+    rows += d32_row_launches(d32_rows, cli, parallel["d32_halo_rows"])
     emit("routes_whole_smoke", checks_included=True, **route_totals())
     emit("analysis", **analysis_phase(analyzer))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,7 +9,8 @@ an int8 pool), warm in L2 and cold.
 
     python -m progen_tpu_torch.kernels.ablate [local_attention_bwd
                                                local_attention_bwd_f32
-                                               local_attention_fwd sgu_fwd
+                                               local_attention_fwd
+                                               local_attention_fwd_d32 sgu_fwd
                                                sgu_bwd paged_gate_mix]
 
 Variants, made from the source by text substitution (each substitution
@@ -40,6 +41,16 @@ checked; the results are wrong, only the times count, except ``overlap``'s):
   (eight, the first design, or two at a time); ``unroll_2`` (the s and
   dp loops unrolled twice, not four times); all right, and bit-equal to
   ``whole``.
+- f32 K1-fwd and K1-dkv at dim_head 32 on the tf32x3 route
+  (``local_attention_fwd.cu`` and ``local_attention_bwd.cu`` as the sources
+  ``local_attention_fwd_d32`` and ``local_attention_bwd_d32``, at
+  ProGen-default's H 3, L 1024, window 512, B = 4 and 32, and B = 4 with a
+  halo): K1-fwd ``whole`` (q's split held in registers for the whole walk,
+  three blocks an SM); ``resplit`` (q's fragments loaded and split again
+  at every key tile, as the dim_head 64/128 kernel does); ``two_blocks``
+  (registers capped for two blocks an SM, the first design); K1-dkv
+  ``whole`` (two blocks an SM) and ``three_blocks``; all right, and
+  bit-equal to ``whole``.
 - f32 K2-dgate on the tf32x3 route (``sgu_bwd.cu``, at B = 8 in f32):
   ``whole`` (two blocks an SM, registers capped at 128) and ``one_block``
   (one block an SM, the cap lifted); both right.
@@ -248,8 +259,17 @@ DQ_B2 = DQ_B4.replace("n0 += 4", "n0 += 2").replace("b[4]", "b[2]").replace(
 DQ_UNROLL_2 = ("#pragma unroll 4\n      for (int kk = 0; kk < D / 8; ++kk) {  // ",
                "#pragma unroll 2\n      for (int kk = 0; kk < D / 8; ++kk) {  // ", 2)
 
+# f32 K1-fwd at dim_head 32: the held split, and the ``resplit`` variant's
+# per-tile load and split of q's fragments
+FWD_D32_HOLD = "  for (int kk = 0; kk < D / 8; ++kk) t3::load_a(qa[kk], qw + 8 * kk, LD);\n"
+FWD_D32_MMA = "      t3::mma3<KT / 8>(sc, qa[kk], b);\n"
+FWD_D32_RESPLIT = ("      t3::FragA a;\n      t3::load_a(a, qw + 8 * kk, LD);\n"
+                   "      t3::mma3<KT / 8>(sc, a, b);\n")
+
 # a source that is another file's part -> that file
-FILES = {"local_attention_bwd_f32": "local_attention_bwd"}
+FILES = {"local_attention_bwd_f32": "local_attention_bwd",
+         "local_attention_fwd_d32": "local_attention_fwd",
+         "local_attention_bwd_d32": "local_attention_bwd"}
 
 # source -> (the text the Hopper kernels start at, stubs, variants); a
 # variant is a list of (text, replacement, occurrences after the start), or
@@ -289,6 +309,17 @@ SOURCES = {
         "b8": [(DQ_B4, DQ_B8, 1)],
         "b2": [(DQ_B4, DQ_B2, 1)],
         "unroll_2": [DQ_UNROLL_2],
+    }),
+    "local_attention_fwd_d32": ("// K1-fwd, f32, dim_head 32: block", "", {
+        "whole": [],
+        "resplit": [(FWD_D32_HOLD, "", 1), (FWD_D32_MMA, FWD_D32_RESPLIT, 1)],
+        "two_blocks": [("__launch_bounds__(d32::THREADS, 3)",
+                        "__launch_bounds__(d32::THREADS, 2)", 1)],
+    }),
+    "local_attention_bwd_d32": ("// K1-dkv, f32, dim_head 32: block", "", {
+        "whole": [],
+        "three_blocks": [("__launch_bounds__(d32::THREADS, 2)",
+                          "__launch_bounds__(d32::THREADS, 3)", 1)],
     }),
     "sgu_bwd": ("namespace dg3 {", "", {
         "whole": [],
@@ -335,6 +366,8 @@ ENTRIES = {
     "sgu_fwd": (("sgu_fwd_wgmma", 5),),
     "sgu_bwd": (("sgu_bwd_dgate_tf32x3", 4),),
     "local_attention_bwd_f32": (("local_attention_bwd_dq_tf32x3", 9),),
+    "local_attention_fwd_d32": (("local_attention_fwd_tf32x3", 7),),
+    "local_attention_bwd_d32": (("local_attention_bwd_dkv_tf32x3", 12),),
     "paged_gate_mix": (("paged_gate_mix_bulk", 8, 8), ("paged_gate_mix_q8_bulk", 10, 9),
                        ("paged_gate_mix", 6, 7), ("paged_gate_mix_q8", 8, 8)),
 }
@@ -544,6 +577,69 @@ def time_bwd_f32(lib, gen) -> list[dict]:
     return rows
 
 
+D32_CASES = ((4, False), (32, False), (4, True))  # (batch, halo)
+
+
+def d32_inputs(gen, batch: int, halo: bool):
+    """f32 q, k, v, dout (and a halo) at ProGen-default's head and window."""
+    heads, seq, dim_head, window = 3, 1024, 32, 512
+    q, k, v, do = (torch.randn(batch, heads, seq, dim_head, device="cuda", generator=gen)
+                   for _ in range(4))
+    kh, vh = ((torch.randn(batch, heads, window, dim_head, device="cuda", generator=gen)
+               for _ in range(2)) if halo else (None, None))
+    return q, k, v, do, kh, vh, window
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def time_fwd_d32(lib, gen) -> list[dict]:
+    """f32 K1-fwd at dim_head 32 on the tf32x3 route at ProGen-default's
+    head and window, B = 4 and 32 and B = 4 with a halo, and whether its
+    result is the library's own route's, bit for bit."""
+    rows = []
+    for batch, halo in D32_CASES:
+        q, k, v, _, kh, vh, window = d32_inputs(gen, batch, halo)
+        b, h, n, d = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kh), _ptr(vh), out.data_ptr(),
+                lse.data_ptr(), b * h, n, d, window, d ** -0.5, 0,
+                torch.cuda.current_stream().cuda_stream)
+        check(lib.local_attention_fwd_tf32x3(*args))
+        want_out, want_lse = cuda_attention.local_attention_fwd(q, k, v, window, None, kh, vh)
+        rows.append({"shape": list(q.shape), "window": window, "dtype": "float32",
+                     "halo": halo,
+                     "ms": time_ms(lambda: check(lib.local_attention_fwd_tf32x3(*args))),
+                     "same_as_whole": torch.equal(out, want_out) and torch.equal(lse, want_lse)})
+    return rows
+
+
+def time_dkv_d32(lib, gen) -> list[dict]:
+    """f32 K1-dkv at dim_head 32 on the tf32x3 route, as
+    :func:`time_fwd_d32` times K1-fwd."""
+    rows = []
+    for batch, halo in D32_CASES:
+        q, k, v, do, kh, vh, window = d32_inputs(gen, batch, halo)
+        b, h, n, d = q.shape
+        out, lse = cuda_attention.local_attention_fwd(q, k, v, window, None, kh, vh)
+        dd = (do * out).sum(-1)
+        grads = [torch.empty_like(k), torch.empty_like(v),
+                 *((torch.empty_like(kh), torch.empty_like(vh)) if halo else (None, None))]
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kh), _ptr(vh), do.data_ptr(),
+                lse.data_ptr(), dd.data_ptr(), *(_ptr(g) for g in grads), b * h, n, d,
+                window, d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
+        check(lib.local_attention_bwd_dkv_tf32x3(*args))
+        want = cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, window, None, kh, vh)
+        rows.append({"shape": list(q.shape), "window": window, "dtype": "float32",
+                     "halo": halo,
+                     "ms": time_ms(lambda: check(lib.local_attention_bwd_dkv_tf32x3(*args))),
+                     "same_as_whole": all(torch.equal(g, w) for g, w in
+                                          zip((g for g in grads if g is not None), want))})
+    return rows
+
+
 def time_sgu_bwd(lib, gen) -> list[dict]:
     """f32 K2-dgate on the tf32x3 route at B = 8, and whether its result is
     the library's own route's, bit for bit."""
@@ -626,7 +722,9 @@ def time_paged(lib, gen, variant: str) -> list[dict]:
 
 TIMERS = {"local_attention_bwd": time_bwd, "local_attention_fwd": time_fwd,
           "sgu_fwd": time_sgu, "sgu_bwd": time_sgu_bwd,
-          "local_attention_bwd_f32": time_bwd_f32, "paged_gate_mix": time_paged}
+          "local_attention_bwd_f32": time_bwd_f32, "local_attention_fwd_d32": time_fwd_d32,
+          "local_attention_bwd_d32": time_dkv_d32,
+          "paged_gate_mix": time_paged}
 
 
 def main(argv: list[str]) -> int:

@@ -80,6 +80,20 @@
 // warp skips what its keys do not see; every output element is written by
 // one thread, once: the same bits every run.
 //
+// K1-dkv at dim_head 32 (ProGen-default, the training CLI's default run)
+// has a kernel of its own on the same route.  It replaced the "wmma"
+// kernel's FMA loops there (0.417 ms at B 4 on an H100, 1.37x one f32
+// scaled_dot_product_attention backward of dq, dk and dv together).  What
+// bounds it: 1.612 GFLOP at B 4, 3 x FLOPs / 495 TFLOP/s = 0.0098 ms, over
+// 9.5 MB: the operations; at B 4 (192 blocks) the longest block's walk
+// bounds the launch, a key block of window 0 streaming 32 query tiles.  A
+// block is four warps of 64 keys (two resident an SM, 37 KB), launched
+// longest walk first (d32::dkv_block_row: every window but the last by
+// place, then the last; the halo's blocks after); each warp splits its
+// 16 x 32 k and v fragments into hi and lo once and holds them (64
+// registers) beside dk and dv (32) for the whole walk, so only the
+// streamed q and dout are split per tile.  193 registers, no spills.
+//
 // K1-dq: K1-dkv turned round.  A block of eight warps owns 128 query rows
 // of one window, in K1-fwd's longest-walk-first order (block_row), q and
 // dout resident in shared memory (rows of D + 4 words: 135 KB at D = 128);
@@ -95,8 +109,8 @@
 // all come after its rows; the diagonal tile is masked in registers.  No
 // atomics: the same bits every run.
 //
-// "wmma" (local_attention_bwd_{dq,dkv}): f32 at dim_head 32 and the other
-// windows, and bf16 at those.  One block of 4 warps owns 64 rows,
+// "wmma" (local_attention_bwd_{dq,dkv}): windows that are not a multiple of
+// 128, bf16 and K1-dq at dim_head 32, and what a caller forces onto it.  One block of 4 warps owns 64 rows,
 // each warp 16 of them.  The block streams tiles of the other side (64 rows
 // in bf16, 32 in f32, so the f32 tiles fit in shared memory at D = 128) and
 // skips the tiles that no row of the block sees; visibility is decided per
@@ -556,6 +570,202 @@ cudaError_t launch_dkv_tf32x3(const void* q, const void* k, const void* v, const
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<float*>(dk), static_cast<float*>(dv),
       static_cast<float*>(dk_halo), static_cast<float*>(dv_halo), seq, wsz, scale);
+  return cudaGetLastError();
+}
+
+// -- K1-dkv in f32 at dim_head 32: 3xTF32, k's and v's split held -----------
+
+namespace d32 = progen::attention::tf32x3::d32;
+
+// Shared memory: the block's 64 key rows of k and of v (read once, into the
+// held split), then the ring's stages of a 32-query q tile, its dout tile
+// and its 32 lse and D values; every row 36 words: 37,376 bytes.
+struct Dkv3D32Layout {
+  static constexpr size_t K = 0;
+  static constexpr size_t V = K + sizeof(float) * d32::ROWS * d32::LD;
+  static constexpr size_t RING = V + sizeof(float) * d32::ROWS * d32::LD;
+  static constexpr size_t STAGE =
+      sizeof(float) * (2 * d32::QUERIES * d32::LD + 2 * d32::QUERIES);
+  static constexpr size_t SMEM = RING + t3::STAGES * STAGE;
+};
+
+// K1-dkv, f32, dim_head 32: block blk owns key rows [b0, b0 + 64)
+// (d32::dkv_block_row of rank blk / bh, longest walk first) of sequence
+// blk % bh and streams the 32-query tiles of their users, from b0 to the
+// end of the next window; with a halo, the ranks past the sequence's own
+// own the halo's keys (b0 < 0) and stream window 0's queries, every pair
+// visible.  Each warp owns 16 keys: their k and v fragments are split into
+// hi and lo once, after k and v land, and held in registers (64) for the
+// whole walk; per tile only the streamed q and dout are split as their
+// fragments load.  s^T = k.q^T and dp^T = v.dout^T (16 x 32), p^T and ds^T
+// there, dv += p^T.dout and dk += ds^T.q (16 x 32 each, in registers for
+// the whole walk), every product 3xTF32.  A warp skips the tiles its keys
+// have no user in; the diagonal tiles are masked in registers.
+__global__ void __launch_bounds__(d32::THREADS, 2)
+local_attention_dkv_d32_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ k_halo,
+                                      const float* __restrict__ v_halo,
+                                      const float* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ dd, float* __restrict__ dk,
+                                      float* __restrict__ dv, float* __restrict__ dk_halo,
+                                      float* __restrict__ dv_halo, int bh, int seq, int wsz,
+                                      float scale) {
+  using S = Dkv3D32Layout;
+  constexpr int D = d32::D, LD = d32::LD, QT = d32::QUERIES, THREADS = d32::THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem + S::K);
+  float* vs = reinterpret_cast<float*>(smem + S::V);
+
+  const int b0 = d32::dkv_block_row(blockIdx.x / bh, seq, wsz);
+  const int sq = blockIdx.x % bh;
+  const bool hb = b0 < 0;
+  const size_t row0 = static_cast<size_t>(sq) * seq;
+  // the first row of this block's keys in k (or in the halo)
+  const size_t krow = hb ? static_cast<size_t>(sq) * wsz + wsz + b0 : row0 + b0;
+  const int i_first = hb ? 0 : b0;
+  const int i_end = hb ? wsz : min((b0 / wsz + 2) * wsz, seq);
+  const int tiles = (i_end - i_first) / QT;
+
+  auto stage = [&](int it) {
+    return reinterpret_cast<float*>(smem + S::RING + (it % t3::STAGES) * S::STAGE);
+  };
+  auto load = [&](int it) {  // q, dout, lse and D of query tile it
+    const size_t at = row0 + i_first + QT * it;
+    float* qs = stage(it);
+    progen::tf32x3::copy_rows<D, QT, THREADS>(qs, q + at * D);
+    progen::tf32x3::copy_rows<D, QT, THREADS>(qs + QT * LD, dout + at * D);
+    float* rowv = qs + 2 * QT * LD;
+    if (threadIdx.x < QT / 2) {  // 2 x 32 values, 16 bytes a thread
+      const int w = threadIdx.x / (QT / 4), c = (threadIdx.x % (QT / 4)) * 4;
+      progen::hopper::cp_async_16(rowv + w * QT + c, (w == 0 ? lse : dd) + at + c);
+    }
+  };
+  progen::tf32x3::copy_rows<D, d32::ROWS, THREADS>(ks, (hb ? k_halo : k) + krow * D);
+  progen::tf32x3::copy_rows<D, d32::ROWS, THREADS>(vs, (hb ? v_halo : v) + krow * D);
+  progen::hopper::cp_async_commit();
+  load(0);
+  progen::hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = b0 + 16 * warp;           // this warp's keys; the thread's: r0 + g (+ 8)
+  const float scale2 = scale * t3::LOG2E;  // p = 2^(s scale log2 e - lse log2 e)
+  progen::hopper::cp_async_wait<1>();  // k and v have landed (tile 0 may be in flight)
+  __syncthreads();
+  t3::FragA ka[D / 8], va[D / 8];  // the held split
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    t3::load_a(ka[kk], ks + 16 * warp * LD + 8 * kk, LD);
+    t3::load_a(va[kk], vs + 16 * warp * LD + 8 * kk, LD);
+  }
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.0f;
+  }
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) load(it + 1);
+    progen::hopper::cp_async_commit();  // an empty group at the end keeps the count
+    progen::hopper::cp_async_wait<1>();  // tile it has landed
+    __syncthreads();
+    const int i0 = i_first + QT * it;
+    // a warp skips a tile whose queries all come before its keys; the
+    // diagonal tiles are computed whole and masked
+    if (hb || i0 + QT - 1 >= r0) {
+      const float* qs = stage(it);
+      const float* dos = qs + QT * LD;
+      const float* rowv = qs + 2 * QT * LD;
+      float st[QT / 8][4], dpt[QT / 8][4];
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {  // s^T = k.q^T
+        t3::FragB b[QT / 8];
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j) t3::load_b_rows(b[j], qs + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<QT / 8>(st, ka[kk], b);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {  // dp^T = v.dout^T
+        t3::FragB b[QT / 8];
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j) t3::load_b_rows(b[j], dos + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<QT / 8>(dpt, va[kk], b);
+      }
+      // element (j, 2 h + x): key r0 + g + 8 h, query c = 8 j + 2 t + x of
+      // the tile, a user if it is at or after the key (own window; every
+      // query of the next window and of window 0 for a halo key is)
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int c = 8 * j + 2 * t + x;
+          const float lse2 = rowv[c] * t3::LOG2E, dd_c = rowv[QT + c];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + x;
+            const bool user = hb || i0 + c >= r0 + g + 8 * h;
+            const float p = user ? exp2f(fmaf(st[j][e], scale2, -lse2)) : 0.0f;
+            st[j][e] = p;
+            dpt[j][e] = p * (dpt[j][e] - dd_c);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        t3::FragA pa, da;
+        t3::a_from_c(pa, st[j]);
+        t3::a_from_c(da, dpt[j]);
+        t3::FragB b[D / 8];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) t3::load_b_cols(b[n], dos + 8 * j * LD + 8 * n, LD);
+        t3::mma3<D / 8>(acc_v, pa, b);  // dv += p^T.dout
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) t3::load_b_cols(b[n], qs + 8 * j * LD + 8 * n, LD);
+        t3::mma3<D / 8>(acc_k, da, b);  // dk += ds^T.q
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  float* dk_out = (hb ? dk_halo : dk) + krow * D;
+  float* dv_out = (hb ? dv_halo : dv) + krow * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t at = static_cast<size_t>(16 * warp + g + 8 * h) * D + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dk_out + at) =
+          make_float2(acc_k[n][2 * h] * scale, acc_k[n][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv_out + at) = make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+    }
+  }
+}
+
+cudaError_t launch_dkv_tf32x3_d32(const void* q, const void* k, const void* v,
+                                  const void* k_halo, const void* v_halo, const void* dout,
+                                  const void* lse, const void* dd, void* dk, void* dv,
+                                  void* dk_halo, void* dv_halo, int bh, int seq, int wsz,
+                                  float scale, cudaStream_t stream) {
+  constexpr size_t bytes = Dkv3D32Layout::SMEM;
+  auto kernel = local_attention_dkv_d32_tf32x3_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (seq + (k_halo != nullptr ? wsz : 0)) / d32::ROWS;
+  kernel<<<blocks * bh, d32::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(k_halo), static_cast<const float*>(v_halo),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dk_halo), static_cast<float*>(dv_halo), bh, seq, wsz, scale);
   return cudaGetLastError();
 }
 
@@ -1382,9 +1592,9 @@ extern "C" int local_attention_bwd_dq_tf32x3(const void* q, const void* k, const
   return static_cast<int>(err);
 }
 
-// The tf32x3 route of K1-dkv: float32 only (dtype 0), dim_head 64 or 128,
-// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
-// local_attention_bwd_dkv.  Returns the CUDA error code of the launch.
+// The tf32x3 route of K1-dkv: float32 only (dtype 0), dim_head 32, 64 or
+// 128, wsz a multiple of 128, every pointer 16-byte aligned; arguments as
+// for local_attention_bwd_dkv.  Returns the CUDA error code of the launch.
 extern "C" int local_attention_bwd_dkv_tf32x3(const void* q, const void* k, const void* v,
                                               const void* k_halo, const void* v_halo,
                                               const void* dout, const void* lse,
@@ -1394,11 +1604,16 @@ extern "C" int local_attention_bwd_dkv_tf32x3(const void* q, const void* k, cons
                                               void* stream) {
   const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
   if (bad_shape(bh, seq, wsz) || bad_halo(halo, true) || dtype != 0 ||
-      wsz % t3::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
+      wsz % t3::ROWS != 0 || (dim_head != 32 && dim_head != 64 && dim_head != 128) ||
       static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim_head == 32) {
+    return static_cast<int>(launch_dkv_tf32x3_d32(q, k, v, k_halo, v_halo, dout, lse, dd, dk,
+                                                  dv, dk_halo, dv_halo, bh, seq, wsz, scale,
+                                                  s));
+  }
   cudaError_t err = dim_head == 64
       ? launch_dkv_tf32x3<64>(q, k, v, k_halo, v_halo, dout, lse, dd, dk, dv, dk_halo,
                               dv_halo, bh, seq, wsz, scale, s)

@@ -66,8 +66,26 @@
 // walk.  The phantom window is the bf16 route's exact term.  Every output
 // element is written by one thread, once: the same bits every run.
 //
-// "wmma" (local_attention_fwd): f32 at dim_head 32 and the other windows,
-// and bf16 at those.  Flash-style, one block of 4 warps per (b*h, 64 query
+// At dim_head 32 (ProGen-default, the training CLI's default run: B 4, H 3,
+// L 1024, window 512) the same route has a kernel of its own.  It replaced
+// the "wmma" kernel's FMA loops there (0.2165 ms at B 4 on an H100, 1.31x
+// one f32 scaled_dot_product_attention call).  What bounds it: 0.806 GFLOP at B 4
+// (6,297,600 visible pairs), 3 x FLOPs / 495 TFLOP/s = 0.0049 ms, over
+// 6.3 MB (0.0019 ms): the operations; but at B 4 the whole grid is 192
+// blocks, so what it takes is the longest block's walk (16 tiles), and the
+// D = 128 design would leave it worse off: 128-row blocks of eight warps
+// at one an SM give 96 blocks for 132 SMs, and its p.v loop takes eight
+// column fragments at a time (D / 8 = 4 here).  So a block is four warps
+// of 64 query rows (46 KB of shared memory: q and a two-stage ring of
+// 64-key k and v tiles), three resident an SM (159 registers, no spills;
+// two, at 172, ran 6% slower at B 32 on an H100), longest walk first
+// (d32::fwd_block_row); each warp splits its 16 x 32 q fragments into hi
+// and lo once and holds them (32 registers) for the whole walk, so only
+// the streamed k and v are split per tile; p.v runs four column fragments
+// at a time.
+//
+// "wmma" (local_attention_fwd): windows that are not a multiple of 128,
+// bf16 at dim_head 32, and what a caller forces onto it.  Flash-style, one block of 4 warps per (b*h, 64 query
 // rows); each warp owns 16 rows.  The block walks 64-key tiles over the
 // extended key range [window start of its first row - wsz, its last row];
 // a key tile row before position 0 is loaded as zeros (the phantom
@@ -432,6 +450,190 @@ cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
+// -- f32 at dim_head 32: 3xTF32, q's split held (the "tf32x3" route) ---------
+
+namespace d32 = progen::attention::tf32x3::d32;
+
+// Shared memory: the block's 64 query rows, then the ring's stages of a
+// 64-key k tile and its v tile, every row 36 words: 46,080 bytes.
+struct F3D32Layout {
+  static constexpr size_t Q = 0;
+  static constexpr size_t RING = Q + sizeof(float) * d32::ROWS * d32::LD;
+  static constexpr size_t STAGE = sizeof(float) * 2 * d32::KEYS * d32::LD;
+  static constexpr size_t SMEM = RING + t3::STAGES * STAGE;
+};
+
+// K1-fwd, f32, dim_head 32: block blk owns query rows [b0, b0 + 64) of row
+// block blk / bh (d32::fwd_block_row, longest walk first) of sequence
+// blk % bh and walks the 64-key tiles from the previous window's first
+// (the halo's, at t0 < 0, when one is given) to b0 + 63, the last one the
+// diagonal tile, which every warp meets.  Each warp owns 16 rows: their q
+// fragments are split into hi and lo once, after q lands, and held in
+// registers (32) for the whole walk; per tile only the streamed k and v are
+// split as their fragments load.  s = q.k^T (16 x 64), the online softmax,
+// o += p.v (16 x 32, four column fragments), all in registers, every
+// product 3xTF32; the phantom window is the exact term of the other routes.
+__global__ void __launch_bounds__(d32::THREADS, 3)
+local_attention_fwd_d32_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ k_halo,
+                                      const float* __restrict__ v_halo,
+                                      float* __restrict__ out, float* __restrict__ lse, int bh,
+                                      int seq, int wsz, float scale) {
+  using S = F3D32Layout;
+  constexpr int D = d32::D, LD = d32::LD, KT = d32::KEYS, THREADS = d32::THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + S::Q);
+
+  const int b0 = d32::fwd_block_row(blockIdx.x / bh, seq, wsz);
+  const int sq = blockIdx.x % bh;
+  const size_t row0 = static_cast<size_t>(sq) * seq;
+  const bool halo = k_halo != nullptr;
+  const float* kh = halo ? k_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const float* vh = halo ? v_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const int first = wg::dq_first(b0, wsz, halo);
+  const int tiles = (b0 + d32::ROWS - first) / KT;
+
+  auto stage = [&](int it) {
+    return reinterpret_cast<float*>(smem + S::RING + (it % t3::STAGES) * S::STAGE);
+  };
+  auto load = [&](int it) {  // tile it into its stage (window 0's previous: the halo)
+    const int t0 = first + KT * it;
+    float* ks = stage(it);
+    const float* ksrc = t0 < 0 ? kh + static_cast<size_t>(wsz + t0) * D : k + (row0 + t0) * D;
+    const float* vsrc = t0 < 0 ? vh + static_cast<size_t>(wsz + t0) * D : v + (row0 + t0) * D;
+    progen::tf32x3::copy_rows<D, KT, THREADS>(ks, ksrc);
+    progen::tf32x3::copy_rows<D, KT, THREADS>(ks + KT * LD, vsrc);
+  };
+  progen::tf32x3::copy_rows<D, d32::ROWS, THREADS>(qs, q + (row0 + b0) * D);
+  progen::hopper::cp_async_commit();
+  load(0);
+  progen::hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = b0 + 16 * warp;              // this warp's rows; the thread's: r0 + g (+ 8)
+  const float scale2 = scale * t3::LOG2E;     // logits in log2 units
+  const bool phantom = b0 < wsz && !halo;     // window 0: wsz zero logits too
+  const float* qw = qs + 16 * warp * LD;
+  progen::hopper::cp_async_wait<1>();  // q has landed (tile 0 may be in flight)
+  __syncthreads();
+  t3::FragA qa[D / 8];  // the held split
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) t3::load_a(qa[kk], qw + 8 * kk, LD);
+  float mx[2], den[2] = {0.0f, 0.0f};
+  mx[0] = mx[1] = phantom ? 0.0f : -1e30f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) load(it + 1);
+    progen::hopper::cp_async_commit();  // an empty group at the end keeps the count
+    progen::hopper::cp_async_wait<1>();  // tile it has landed
+    __syncthreads();
+    const int t0 = first + KT * it;
+    const bool diagonal = t0 == b0;  // every earlier tile's keys precede every row
+    const float* ks = stage(it);
+    const float* vs = ks + KT * LD;
+    float sc[KT / 8][4];
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      t3::FragB b[KT / 8];
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) t3::load_b_rows(b[j], ks + 8 * j * LD + 8 * kk, LD);
+      t3::mma3<KT / 8>(sc, qa[kk], b);
+    }
+    // element (j, 2 h + x): row r0 + g + 8 h, key t0 + 8 j + 2 t + x, seen
+    // unless the tile is the diagonal one and the key comes after the row
+    float top[2] = {mx[0], mx[1]};
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const bool seen = !diagonal || 8 * j + 2 * t + x <= 16 * warp + g + 8 * h;
+          const float s = seen ? sc[j][2 * h + x] * scale2 : -INFINITY;
+          sc[j][2 * h + x] = s;
+          top[h] = fmaxf(top[h], s);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 1));
+      top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 2));
+      alpha[h] = exp2f(mx[h] - top[h]);
+      mx[h] = top[h];
+      den[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2f(sc[j][e] - mx[e / 2]);
+        den[e / 2] += sc[j][e];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      t3::FragA p;
+      t3::a_from_c(p, sc[j]);
+      t3::FragB b[D / 8];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) t3::load_b_cols(b[n], vs + 8 * j * LD + 8 * n, LD);
+      t3::mma3<D / 8>(acc, p, b);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // the quad's shares of each denominator, the phantom's wsz zero logits
+  // (2^(0 - max) each), then out = o / denominator and lse = max + log
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+    if (phantom) den[h] += static_cast<float>(wsz) * exp2f(-mx[h]);
+    inv[h] = 1.0f / den[h];
+    if (t == 0) lse[row0 + r0 + g + 8 * h] = mx[h] * t3::LN2 + logf(den[h]);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(out + (row0 + r0 + g + 8 * h) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+    }
+  }
+}
+
+cudaError_t launch_tf32x3_d32(const void* q, const void* k, const void* v, const void* k_halo,
+                              const void* v_halo, void* out, void* lse, int bh, int seq,
+                              int wsz, float scale, cudaStream_t stream) {
+  constexpr size_t bytes = F3D32Layout::SMEM;
+  auto kernel = local_attention_fwd_d32_tf32x3_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<(seq / d32::ROWS) * bh, d32::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(k_halo), static_cast<const float*>(v_halo),
+      static_cast<float*>(out), static_cast<float*>(lse), bh, seq, wsz, scale);
+  return cudaGetLastError();
+}
+
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
 
 namespace fwg {
@@ -709,22 +911,24 @@ extern "C" int local_attention_fwd_wgmma(const void* q, const void* k, const voi
   return static_cast<int>(err);
 }
 
-// The tf32x3 route of K1-fwd: float32 only (dtype 0), dim_head 64 or 128,
-// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
-// local_attention_fwd.  Returns the CUDA error code of the launch (0 = ok).
+// The tf32x3 route of K1-fwd: float32 only (dtype 0), dim_head 32, 64 or
+// 128, wsz a multiple of 128, every pointer 16-byte aligned; arguments as
+// for local_attention_fwd.  Returns the CUDA error code of the launch (0 = ok).
 extern "C" int local_attention_fwd_tf32x3(const void* q, const void* k, const void* v,
                                           const void* k_halo, const void* v_halo, void* out,
                                           void* lse, int bh, int seq, int dim_head, int wsz,
                                           float scale, int dtype, void* stream) {
   if (bh <= 0 || seq <= 0 || wsz <= 0 || seq % wsz != 0 || dtype != 0 ||
-      (k_halo == nullptr) != (v_halo == nullptr) ||
-      wsz % t3::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
+      (k_halo == nullptr) != (v_halo == nullptr) || wsz % t3::ROWS != 0 ||
+      (dim_head != 32 && dim_head != 64 && dim_head != 128) ||
       static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dim_head == 64
-      ? launch_tf32x3<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
-      : launch_tf32x3<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
+  cudaError_t err =
+      dim_head == 32 ? launch_tf32x3_d32(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
+      : dim_head == 64
+          ? launch_tf32x3<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
+          : launch_tf32x3<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }

@@ -18,9 +18,11 @@ window alone.  ``dim_head`` 64 or 128 with a window that is a multiple of
 128 (every shipped config but ``default``) takes the Hopper kernels: in
 bf16 a TMA ring into ``wgmma`` (``"wgmma"``), in f32 the tensor cores as
 three TF32 products a product (``"tf32x3"``, a ``cp.async`` ring into
-``mma.sync``), all three kernels in both.  Everything else takes the WMMA
-kernels (``"wmma"``; their f32 products are FMA loops).  A failure on one
-route raises; it never tries another.  ``fwd_route_launches``,
+``mma.sync``), all three kernels in both.  At ``dim_head`` 32 (``default``)
+with such a window, K1-fwd and K1-dkv in f32 take ``"tf32x3"`` too, in
+blocks of 64 rows that hold their own operand's split in registers.
+Everything else takes the WMMA kernels (``"wmma"``; their f32 products are
+FMA loops).  A failure on one route raises; it never tries another.  ``fwd_route_launches``,
 ``dq_route_launches`` and ``dkv_route_launches`` count the launches of each
 route, and ``route="wmma"`` forces a launch onto the first kernel (to time
 it on the same inputs).
@@ -64,6 +66,11 @@ BWD_TILE = 64
 TF32X3_WARP_ROWS = 16
 TF32X3_BWD_TILE = 32
 WGMMA_DIM_HEADS = (64, 128)
+# dim_head 32 in f32 (attention_tf32x3.cuh, d32): K1-fwd and K1-dkv in
+# blocks of 64 rows (four warps of 16) streaming tiles of 64 keys (K1-fwd)
+# or 32 queries (K1-dkv); K1-dq stays on "wmma"
+D32_ROWS = 64
+D32_KEYS = 64
 # each route's extern "C" suffix
 SUFFIX = {"wmma": "", "wgmma": "_wgmma", "tf32x3": "_tf32x3"}
 
@@ -181,13 +188,23 @@ def _hopper_shape(dim_head: int, window_size: int) -> bool:
     return dim_head in WGMMA_DIM_HEADS and window_size > 0 and window_size % BWD_ROWS == 0
 
 
-def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-fwd kernel takes these shapes: on Hopper shapes
-    ``"wgmma"`` in bf16 and ``"tf32x3"`` in f32; ``"wmma"`` for everything
-    else the kernels take."""
+def dq_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
+    """Which K1-dq kernel takes these shapes: on Hopper shapes ``"wgmma"``
+    in bf16 and ``"tf32x3"`` in f32; ``"wmma"`` for everything else the
+    kernels take."""
     if not _hopper_shape(dim_head, window_size):
         return "wmma"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
+    """Which K1-fwd kernel takes these shapes: :func:`dq_route`'s rule, and
+    ``"tf32x3"`` also in f32 at ``dim_head`` 32 with a window that is a
+    multiple of 128."""
+    if (dtype == torch.float32 and dim_head == 32 and window_size > 0
+            and window_size % BWD_ROWS == 0):
+        return "tf32x3"
+    return dq_route(dtype, dim_head, window_size)
 
 
 def dkv_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
@@ -195,46 +212,66 @@ def dkv_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
     return fwd_route(dtype, dim_head, window_size)
 
 
-def dq_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-dq kernel takes these shapes: :func:`fwd_route`'s rule."""
-    return fwd_route(dtype, dim_head, window_size)
-
-
-def k1_fwd_tiles(n: int, window_size: int,
-                 halo: bool = False) -> list[tuple[int, list[tuple[int, int, str]]]]:
-    """The Hopper K1-fwd kernels' blocks and walks (both routes: the f32
-    one's warps cut each warpgroup's 64 rows in four), the formulas of
+def k1_fwd_tiles(n: int, window_size: int, halo: bool = False, block: int = BWD_ROWS,
+                 rows: int = BWD_TILE,
+                 tile: int = BWD_TILE) -> list[tuple[int, list[tuple[int, int, str]]]]:
+    """The Hopper K1-fwd kernels' blocks and walks, the formulas of
     ``attention_wgmma.cuh`` (``block_row``, ``dq_first``, ``dq_tiles``,
-    ``dq_kind``): for each block of one (b, h) in launch order, longest walk first, its first
-    query row ``b0`` and, for each streamed 64-key tile ``t0`` in order and
-    each of its two warpgroups' rows ``r0``, ``(r0, t0, kind)``.  Rows of
-    window 0 also count the phantom window's ``wsz`` zero logits, as an
+    ``dq_kind``) and of ``attention_tf32x3.cuh`` (``d32::fwd_block_row``):
+    for each block of one (b, h) in launch order, longest walk first, its
+    first query row ``b0`` and, for each streamed ``tile``-key tile ``t0``
+    in order and each of its row groups' rows ``r0`` (``rows`` each),
+    ``(r0, t0, kind)``, ``kind`` one of ``"full"``, ``"diagonal"`` (the
+    causal mask inside the tile) and ``"skipped"``.  The defaults are the
+    128-row blocks of both routes at dim_head 64 and 128 (two warpgroups of
+    64 rows; the f32 route's warps cut each in four); dim_head 32 in f32
+    takes ``block=D32_ROWS, rows=TF32X3_WARP_ROWS, tile=D32_KEYS``.  Rows
+    of window 0 also count the phantom window's ``wsz`` zero logits, as an
     exact term.  A block at place p of window w >= 1 walks
-    ``wsz / 64 + 2 p + 2`` tiles, one of window 0 ``2 p + 2``.  With a
-    ``halo`` window 0 walks the halo's tiles first (``t0`` in ``[-wsz, 0)``),
-    as many tiles as any other window."""
-    wsz, wins, places = window_size, n // window_size, window_size // BWD_ROWS
+    ``(wsz + block (p + 1)) / tile`` tiles, one of window 0
+    ``block (p + 1) / tile``.  With a ``halo`` window 0 walks the halo's
+    tiles first (``t0`` in ``[-wsz, 0)``), as many tiles as any other
+    window."""
+    wsz, wins, places = window_size, n // window_size, window_size // block
     later = (wins - 1) * places  # blocks outside window 0
     blocks = []
-    for rank in range(n // BWD_ROWS):
+    for rank in range(n // block):
         if rank < later:
             b0 = ((wins - 1 - rank % (wins - 1)) * wsz
-                  + (places - 1 - rank // (wins - 1)) * BWD_ROWS)
+                  + (places - 1 - rank // (wins - 1)) * block)
         else:
-            b0 = (places - 1 - (rank - later)) * BWD_ROWS
+            b0 = (places - 1 - (rank - later)) * block
         first = (b0 // wsz - 1) * wsz if halo else max(0, (b0 // wsz - 1) * wsz)
         walk = []
-        for it in range((b0 + BWD_TILE - first) // BWD_TILE + 1):
-            t0 = first + BWD_TILE * it
-            for r0 in (b0, b0 + BWD_TILE):
-                kind = "full" if t0 < r0 else "diagonal" if t0 == r0 else "skipped"
+        for it in range((b0 + block - first) // tile):
+            t0 = first + tile * it
+            for r0 in range(b0, b0 + block, rows):
+                kind = ("full" if t0 + tile - 1 <= r0 else
+                        "skipped" if t0 > r0 + rows - 1 else "diagonal")
                 walk.append((r0, t0, kind))
         blocks.append((b0, walk))
     return blocks
 
 
+def k1_dkv_blocks(n: int, window_size: int, halo: bool = False,
+                  block: int = D32_ROWS) -> list[int]:
+    """The f32 K1-dkv kernel's key blocks at dim_head 32 in launch order
+    (``attention_tf32x3.cuh``'s ``d32::dkv_block_row``), longest walk
+    first: each block's first key row ``b0``.  A block at place p of a
+    window but the last streams ``2 wsz - block p`` queries, one of the last
+    window ``wsz - block p``; with a ``halo`` the halo's blocks
+    (``b0 < 0``, window 0's ``wsz`` queries each) come last."""
+    wsz, wins, places = window_size, n // window_size, window_size // block
+    early = (wins - 1) * places  # blocks outside the last window
+    b0s = [(r % (wins - 1)) * wsz + (r // (wins - 1)) * block for r in range(early)]
+    b0s += [(wins - 1) * wsz + p * block for p in range(places)]
+    return b0s + (list(range(-wsz, 0, block)) if halo else [])
+
+
 def k1_bwd_tiles(n: int, window_size: int, side: str, halo: bool = False,
-                 tile: int = BWD_TILE, rows: int = BWD_TILE) -> list[tuple[int, int, str]]:
+                 tile: int = BWD_TILE, rows: int = BWD_TILE,
+                 block: int = BWD_ROWS,
+                 blocks: list[int] | None = None) -> list[tuple[int, int, str]]:
     """The Hopper backward kernels' tile walk, the formulas of
     ``attention_wgmma.cuh`` (``dq_first``, ``dq_tiles``, ``dq_kind``,
     ``dkv_tiles``, ``dkv_kind``) and of ``local_attention_bwd.cu``'s
@@ -247,20 +284,25 @@ def k1_bwd_tiles(n: int, window_size: int, side: str, halo: bool = False,
     ``tile`` = 64 rows to two warpgroups of ``rows`` = 64; f32 streams
     tiles of 32 (:data:`TF32X3_BWD_TILE`) to eight warps of 16
     (:data:`TF32X3_WARP_ROWS`), and its K1-dq launches the blocks in
-    K1-fwd's longest-first order (:func:`k1_fwd_tiles`).  With a ``halo``
-    the halo's rows are ``[-wsz, 0)``: K1-dq's window-0 blocks stream them
-    first, and K1-dkv runs ``wsz / 128`` more blocks after the others, for
-    the halo's keys, which stream the queries of window 0."""
+    K1-fwd's longest-first order (:func:`k1_fwd_tiles`).  ``block`` is the
+    rows a block owns: 128, or :data:`D32_ROWS` for f32 K1-dkv at dim_head
+    32.  ``blocks`` is the blocks' first rows in launch order (f32 K1-dkv
+    at dim_head 32 passes :func:`k1_dkv_blocks`); by default they go in
+    order of their first row.  With a ``halo`` the halo's rows are
+    ``[-wsz, 0)``: K1-dq's window-0 blocks stream them first, and K1-dkv
+    runs ``wsz / block`` more blocks after the others, for the halo's keys,
+    which stream the queries of window 0."""
     if side not in ("dq", "dkv"):
         raise ValueError(f"side must be 'dq' or 'dkv', got {side!r}")
     wsz, pairs = window_size, []
-    blocks = list(range(0, n, BWD_ROWS))
-    if halo and side == "dkv":
-        blocks += list(range(-wsz, 0, BWD_ROWS))
+    if blocks is None:
+        blocks = list(range(0, n, block))
+        if halo and side == "dkv":
+            blocks += list(range(-wsz, 0, block))
     for b0 in blocks:
         if side == "dq":
             first = (b0 // wsz - 1) * wsz if halo else max(0, (b0 // wsz - 1) * wsz)
-            tiles = (b0 + BWD_ROWS - first) // tile
+            tiles = (b0 + block - first) // tile
         elif b0 < 0:
             first, tiles = 0, wsz // tile
         else:
@@ -268,7 +310,7 @@ def k1_bwd_tiles(n: int, window_size: int, side: str, halo: bool = False,
             tiles = (min((b0 // wsz + 2) * wsz, n) - b0) // tile
         for it in range(tiles):
             t0 = first + tile * it
-            for r0 in range(b0, b0 + BWD_ROWS, rows):
+            for r0 in range(b0, b0 + block, rows):
                 if side == "dq":
                     full, seen = t0 + tile <= r0, t0 <= r0 + rows - 1
                 else:

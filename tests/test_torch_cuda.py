@@ -44,6 +44,15 @@ TOL_GRAD_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 F32_ROUTE = {"wgmma": "tf32x3", "wmma": "wmma"}
 
 
+def _f32_route(kernel: str, d: int, wsz: int, bf16_route: str) -> str:
+    """K1's f32 route: ``F32_ROUTE``'s, but K1-fwd and K1-dkv (``kernel``
+    ``"fwd"``, ``"dkv"``) take their dim_head-32 ``tf32x3`` kernels at
+    dim_head 32 with a window that is a multiple of 128."""
+    if d == 32 and wsz % 128 == 0 and kernel != "dq":
+        return "tf32x3"
+    return F32_ROUTE[bf16_route]
+
+
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
@@ -97,15 +106,16 @@ def test_sgu_kernel_matches_plain(gen, dtype, b, n, d):
     (2, 8, 1024, 64, 256, "wgmma"),    # ProGen-tiny's head
     (1, 12, 2048, 128, 512, "wgmma"),  # ProGen-base's window
     (1, 3, 512, 128, 128, "wgmma"),    # the smallest window the wgmma route takes
-    (2, 3, 1024, 32, 512, "wmma"),     # ProGen-default's head
+    (2, 3, 1024, 32, 512, "wmma"),     # ProGen-default's head (f32: tf32x3)
     (2, 8, 1024, 128, 64, "wmma"),     # a window under 128
 ])
 def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
         gen, dtype, b, h, n, d, wsz, bf16_route):
-    """K1-fwd on the route each case must take (f32 on the 3xTF32 kernel
-    where bf16 takes the wgmma one, else on the WMMA kernel), against the
-    plain version; a second run gives the same bits."""
-    route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
+    """K1-fwd on the route each case must take (f32 on the 3xTF32 kernels
+    where bf16 takes the wgmma one and at dim_head 32, else on the WMMA
+    kernel), against the plain version; a second run gives the same bits."""
+    route = (bf16_route if dtype == torch.bfloat16
+             else _f32_route("fwd", d, wsz, bf16_route))
     assert cuda_attention.fwd_route(dtype, d, wsz) == route
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
@@ -199,7 +209,8 @@ def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf1
     3xTF32 kernels where bf16 takes the wgmma ones); a second run gives the
     same bits (no atomics)."""
     dq_route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
-    dkv_route = dq_route
+    dkv_route = (bf16_route if dtype == torch.bfloat16
+                 else _f32_route("dkv", d, wsz, bf16_route))
     assert cuda_attention.dq_route(dtype, d, wsz) == dq_route
     assert cuda_attention.dkv_route(dtype, d, wsz) == dkv_route
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
@@ -267,6 +278,47 @@ def test_the_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
     torch.cuda.synchronize()
     for counter, was in zip(counters, before):
         assert counter == {**was, "tf32x3": was["tf32x3"] + 1}
+    want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
+                                     k_halo=kh, v_halo=vh)
+    _close(got[0], want, torch.float32, TOL_ATTN_OUT)
+    _close(got[1], want_lse, torch.float32)
+    grads = local_attention_bwd(q, k, v, got[0], got[1], do, wsz, k_halo=kh, v_halo=vh)
+    assert len(got) == (7 if halo else 5)
+    for g, w in zip(got[2:], grads):
+        _close_scaled(g, w, torch.float32)
+    for a, g in zip(_tf32x3_launch(q, k, v, do, wsz, kh, vh), got):
+        assert torch.equal(a, g)
+
+
+# f32 at dim_head 32: the training CLI's default run (B 4, ProGen-default's
+# H 3, L 1024, window 512), the smallest window the route takes, one window
+D32_CASES = [
+    (4, 3, 1024, 32, 512),
+    (2, 3, 512, 32, 128),
+    (1, 2, 512, 32, 512),
+]
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("b,h,n,d,wsz", D32_CASES)
+def test_the_d32_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
+    """K1-fwd and K1-dkv in f32 at dim_head 32 on their 3xTF32 kernels (K1-dq
+    on WMMA), with and without a random halo, against the plain version at
+    the f32 bars; every launch on its route by the counters; a second run
+    gives the same bits."""
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen) for _ in range(4))
+    kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen) for _ in range(2))
+              if halo else (None, None))
+    routes = ("tf32x3", "wmma", "tf32x3")
+    counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
+                cuda_attention.dkv_route_launches)
+    assert tuple(f(torch.float32, d, wsz) for f in (
+        cuda_attention.fwd_route, cuda_attention.dq_route, cuda_attention.dkv_route)) == routes
+    before = [dict(c) for c in counters]
+    got = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+    torch.cuda.synchronize()
+    for counter, was, route in zip(counters, before, routes):
+        assert counter == {**was, route: was[route] + 1}
     want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
                                      k_halo=kh, v_halo=vh)
     _close(got[0], want, torch.float32, TOL_ATTN_OUT)
@@ -484,6 +536,74 @@ def bf16_backward_digests(csrc: str | None = None) -> dict[str, str]:
                               saved[1:]):
             cache.clear()
             cache.update(was)
+
+
+# SHA-256 of f32_attention_digests() from a build of kernels/csrc as it was
+# before K1-fwd and K1-dkv had their dim_head-32 tf32x3 kernels (NVIDIA
+# H100 80GB HBM3, nvcc 12.9): adding those kernels moves no bit of the
+# dim_head-128 f32 ones
+F32_ATTN_SHA256 = {
+    "out": "ad3f5274b8fd5f5b98671109b32a9b65545f12d1e4a01fe814421594c208c6b2",
+    "lse": "15d2f7fe10e1970af15bf71cab2d0cc8e410394f39036a2fcd7f8d3aa58e34a2",
+    "dq": "9d9bd419043ac6947e34455dcb61b898ea4c0b176c63aa155502c743d7f57e77",
+    "dk": "255db120e1bb839d62d927a2a284c2cd6bb77eeda46367b239231217c8d65e8e",
+    "dv": "3b1988c7f75e750715958cacb49df1a13c45242579740535ff5c55b98080220d",
+    "out_with_halo": "c4069e952c68ffe4e2695106460ab0f8b8d416377a5820876f23d37ca5050bf5",
+    "lse_with_halo": "af213ee5f1a202b5a9a678cc04892254b63867247ef140004fec18d583eea20f",
+    "dq_with_halo": "cd18ef03140686ff0fd6679b299867a86dd8c9fde9503af987923f369f9f498f",
+    "dk_with_halo": "b1caa3edfdc1b3c016d0d758058de67818d453d31b3fb19cf311b84ce4bfa32e",
+    "dv_with_halo": "e0acba0a8f94f74044a9dd2712fe7f97e598cc9f08a019f3f172dcd0616d6ae0",
+    "dk_halo_with_halo": "464a83d647919b887e6563f9226c255f4e3a80dfa8a82c0acbb6ac37dd391387",
+    "dv_halo_with_halo": "15e46aa07009cd4ca8c1254c6041c860e161825296b42affd05f65362f31b3c4",
+}
+
+
+def f32_attention_digests(csrc: str | None = None) -> dict[str, str]:
+    """SHA-256 of the f32 K1-fwd's out and lse, K1-dq's dq and K1-dkv's dk
+    and dv (and dk_halo, dv_halo) at (2, 8, 1024, 128), window 256, on the
+    tf32x3 route, without and with a halo: inputs drawn with numpy from
+    seed 1.  ``csrc`` as for :func:`bf16_backward_digests`."""
+    import hashlib
+    from pathlib import Path
+
+    rng = np.random.default_rng(1)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.int32).cpu().numpy().tobytes()
+                              ).hexdigest()
+
+    saved = (kernels.CSRC, dict(kernels._loaded), dict(cuda_attention._fns))
+    if csrc is not None:
+        kernels.CSRC = Path(csrc)
+        for cache in (kernels._loaded, cuda_attention._fns):
+            cache.clear()
+    try:
+        got = {}
+        b, h, n, d, wsz = 2, 8, 1024, 128, 256
+        q, k, v, do = (randn(b, h, n, d) for _ in range(4))
+        kh, vh = randn(b, h, wsz, d), randn(b, h, wsz, d)
+        for suffix, halo in (("", (None, None)), ("_with_halo", (kh, vh))):
+            outs = _tf32x3_launch(q, k, v, do, wsz, *halo)
+            names = ("out", "lse", "dq", "dk", "dv", "dk_halo", "dv_halo")
+            for name, t in zip(names, outs):
+                got[name + suffix] = digest(t)
+        return got
+    finally:
+        kernels.CSRC = saved[0]
+        for cache, was in zip((kernels._loaded, cuda_attention._fns), saved[1:]):
+            cache.clear()
+            cache.update(was)
+
+
+def test_the_d128_f32_kernels_keep_their_bits(gen):
+    """f32 K1-fwd, K1-dq and K1-dkv at dim_head 128 (with and without a
+    halo) give the bits of the build before the dim_head-32 kernels were
+    added."""
+    assert cuda_attention.fwd_route(torch.float32, 128, 256) == "tf32x3"
+    assert f32_attention_digests() == F32_ATTN_SHA256
 
 
 def test_bf16_dq_and_dgate_keep_their_bits(gen):
@@ -1201,4 +1321,5 @@ if __name__ == "__main__":
     import json
     import sys
 
-    print(json.dumps(bf16_backward_digests(*sys.argv[1:2])))
+    print(json.dumps({"bf16": bf16_backward_digests(*sys.argv[1:2]),
+                      "f32": f32_attention_digests(*sys.argv[1:2])}))

@@ -34,11 +34,12 @@ def _np(t):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_fwd_route_for_every_shipped_config(name):
     """bf16 takes the Hopper kernels in every config (K1-fwd but for
-    ``default``'s dim_head 32); f32 takes K1-fwd's 3xTF32 kernel where bf16
-    takes its wgmma one, K2-fwd's 3xTF32 kernel everywhere."""
+    ``default``'s dim_head 32); f32 takes K1-fwd's 3xTF32 kernels in every
+    config (``default``'s its dim_head-32 one), K2-fwd's 3xTF32 kernel
+    everywhere."""
     c = CONFIGS[name]
     want = "wmma" if name == "default" else "wgmma"
-    want_f32 = "wmma" if name == "default" else "tf32x3"
+    want_f32 = "tf32x3"
     assert cuda_attention.fwd_route(torch.bfloat16, c.dim_head, c.window_size) == want
     assert cuda_attention.fwd_route(torch.float32, c.dim_head, c.window_size) == want_f32
     assert cuda_sgu.fwd_route(torch.bfloat16) == "wgmma"
@@ -185,7 +186,9 @@ def _pick(name, library, n_tensors):
     (torch.bfloat16, 128, 64, "local_attention_fwd"),
     (torch.float32, 128, 128, "local_attention_fwd_tf32x3"),
     (torch.float32, 64, 256, "local_attention_fwd_tf32x3"),
-    (torch.float32, 32, 128, "local_attention_fwd"),
+    # dim_head 32 in f32: its 3xTF32 kernel (the id kept from when it took wmma)
+    pytest.param(torch.float32, 32, 128, "local_attention_fwd_tf32x3",
+                 id="dtype6-32-128-local_attention_fwd"),
     (torch.float32, 128, 64, "local_attention_fwd"),
 ])
 def test_k1_fwd_wrapper_picks_its_kernel_before_the_launch(monkeypatch, dtype, d, wsz, name):
@@ -374,8 +377,10 @@ def test_k2_fwd_cpu_route_matches_the_pallas_kernel(dtype, tol, n):
 
 
 @pytest.mark.parametrize("source,variant", [
-    (source, variant) for source in ("local_attention_fwd", "sgu_fwd")
+    (source, variant) for source in ("local_attention_fwd", "local_attention_fwd_d32",
+                                     "sgu_fwd")
     for variant in sorted(ablate.SOURCES[source][2])])
 def test_forward_ablation_variants_apply_to_the_source(source, variant):
-    """Each ablation of the Hopper K1-fwd and K2-fwd applies to its source."""
+    """Each ablation of the Hopper K1-fwd (dim_head 64/128 in bf16, 32 in
+    f32) and K2-fwd applies to its source."""
     check_ablation_applies(source, variant)

@@ -18,6 +18,14 @@ an RMS error within 1e-4 of their RMS, ``chip_smoke.py``'s ``TOL_GRAD`` and
 tile walk (32-key tiles, warps of 16 rows) meets every visible pair once.
 The route functions are pinned for every shipped config, in f32 and bf16.
 
+At ``dim_head`` 32 (ProGen-default) K1-fwd and K1-dkv take their own f32
+design (``attention_tf32x3.cuh``'s ``d32``: blocks of 64 rows, four warps
+of 16, each warp's own operand split once and held): it is emulated as it
+walks (``k1_fwd_tiles`` and ``k1_bwd_tiles`` with the D-32 blocks, the
+online softmax tile by tile), every product 3xTF32, against JAX's kernels
+and VJP in the interpreter at 2 windows of 128, with and without a halo;
+and its walks meet every visible pair once.
+
 K2's f32 route (K2-fwd, K2-dgate and K2-dW, ``sgu_fwd.cu`` and
 ``sgu_bwd.cu``) the same way: the kernels' own plans emulated (K2-fwd's and
 K2-dgate's tile walks at 32-deep steps, ``cuda_sgu.k2_fwd_tiles`` and
@@ -136,29 +144,30 @@ def emulated_dq(q, k, v, do, out, lse, mm, k_halo=None, v_halo=None):
     return (mm(ds, kw) * scale).reshape(b, h, n, d)
 
 
-def _inputs(halo: bool, seed: int = 0) -> dict:
+def _inputs(halo: bool, seed: int = 0, shape=(B, H, N, D), wsz: int = WSZ) -> dict:
     rng = np.random.default_rng(seed)
     names = ["q", "k", "v", "do"] + (["kh", "vh"] if halo else [])
-    shapes = [(B, H, N, D)] * 4 + [(B, H, WSZ, D)] * 2
+    shapes = [shape] * 4 + [(*shape[:2], wsz, shape[3])] * 2
     return {name: torch.from_numpy(rng.normal(size=s).astype(np.float32))
             for name, s in zip(names, shapes)}
 
 
-def _jax(t: dict) -> dict:
+def _jax(t: dict, wsz: int = WSZ) -> dict:
     """JAX's forward (out, lse) and VJP (dq, dk, dv and the halo's) in the
     Pallas interpreter, on ``[halo or the phantom zeros ‖ k]``."""
     j = {name: jnp.asarray(x.numpy()) for name, x in t.items()}
-    front = [(j["kh"], j["vh"])] if "kh" in j else [(jnp.zeros((B, H, WSZ, D)),) * 2]
+    b, h, _, d = j["q"].shape
+    front = [(j["kh"], j["vh"])] if "kh" in j else [(jnp.zeros((b, h, wsz, d)),) * 2]
     k_ext = jnp.concatenate([front[0][0], j["k"]], axis=2)
     v_ext = jnp.concatenate([front[0][1], j["v"]], axis=2)
-    _, lse = _forward_ext(j["q"], k_ext, v_ext, WSZ, D ** -0.5, True)
-    f = lambda q, ke, ve: pallas_local_attention_ext(q, ke, ve, WSZ, D ** -0.5, True)
+    _, lse = _forward_ext(j["q"], k_ext, v_ext, wsz, d ** -0.5, True)
+    f = lambda q, ke, ve: pallas_local_attention_ext(q, ke, ve, wsz, d ** -0.5, True)
     out, vjp = jax.vjp(f, j["q"], k_ext, v_ext)
     dq, dk_ext, dv_ext = vjp(j["do"])
-    got = {"out": out, "lse": lse, "dq": dq, "dk": dk_ext[:, :, WSZ:],
-           "dv": dv_ext[:, :, WSZ:]}
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk_ext[:, :, wsz:],
+           "dv": dv_ext[:, :, wsz:]}
     if "kh" in j:
-        got.update(dk_halo=dk_ext[:, :, :WSZ], dv_halo=dv_ext[:, :, :WSZ])
+        got.update(dk_halo=dk_ext[:, :, :wsz], dv_halo=dv_ext[:, :, :wsz])
     return {name: torch.from_numpy(np.array(x, np.float32)) for name, x in got.items()}
 
 
@@ -227,12 +236,15 @@ def test_the_tf32_rounding_is_cvt_rna():
 def test_the_k1_routes_of_every_shipped_config(name, dtype):
     """Every config but ``default`` (dim_head 32) has dim_head 64 or 128
     and a window that is a multiple of 128: bf16 takes ``wgmma`` for all
-    three kernels, f32 ``tf32x3`` for all three; ``default`` takes ``wmma``
-    for all three in both."""
+    three kernels, f32 ``tf32x3`` for all three; ``default`` (window 512)
+    takes ``tf32x3`` for K1-fwd and K1-dkv and ``wmma`` for K1-dq in f32,
+    ``wmma`` for all three in bf16."""
     c = CONFIGS[name]
     assert (c.dim_head in (64, 128) and c.window_size % 128 == 0) == (name != "default")
     if name == "default":
-        want = ("wmma", "wmma", "wmma")
+        assert c.dim_head == 32 and c.window_size % 128 == 0
+        want = (("tf32x3", "wmma", "tf32x3") if dtype == torch.float32
+                else ("wmma", "wmma", "wmma"))
     elif dtype == torch.bfloat16:
         want = ("wgmma", "wgmma", "wgmma")
     else:
@@ -282,6 +294,164 @@ def test_k1_dq_f32_walk_covers_each_visible_pair_once(n, wsz, halo):
     blocks = sorted({r0 - r0 % 128 for r0, _, _ in walk})
     assert blocks == sorted(b0 for b0, _ in cuda_attention.k1_fwd_tiles(n, wsz, halo))
     assert len(walk) % (128 // rows) == 0  # all eight warps of a block meet every tile
+
+
+# -- K1-fwd and K1-dkv at dim_head 32 (ProGen-default) on "tf32x3" ------------
+
+N32, WSZ32, D32 = 256, 128, 32   # 2 windows of 128, dim_head 32
+LOG2E = 1.4426950408889634
+D32_FWD = dict(block=cuda_attention.D32_ROWS, rows=cuda_attention.TF32X3_WARP_ROWS,
+               tile=cuda_attention.D32_KEYS)
+D32_DKV = dict(block=cuda_attention.D32_ROWS, rows=cuda_attention.TF32X3_WARP_ROWS,
+               tile=cuda_attention.TF32X3_BWD_TILE)
+
+
+def _rows_of(t, halo, r0, rows):
+    """Rows ``[r0, r0 + rows)`` of k or v in extended coordinates: from the
+    halo where ``r0 < 0``."""
+    return halo[:, :, halo.shape[2] + r0:halo.shape[2] + r0 + rows] if r0 < 0 \
+        else t[:, :, r0:r0 + rows]
+
+
+def emulated_fwd_d32(q, k, v, wsz, k_halo=None, v_halo=None):
+    """The dim_head-32 K1-fwd as it walks (``k1_fwd_tiles`` with the D-32
+    blocks): per warp of 16 rows and per 64-key tile in walk order, s = q.k^T
+    through ``mm3`` (q's split is the same every tile, held or not), the
+    diagonal tile masked, the online softmax in log2 units, o += p.v through
+    ``mm3``; the phantom window's wsz zero logits added at the end."""
+    b, h, n, d = q.shape
+    scale2 = d ** -0.5 * LOG2E
+    halo = k_halo is not None
+    out, lse = torch.empty_like(q), torch.empty(b, h, n)
+    for b0, walk in cuda_attention.k1_fwd_tiles(n, wsz, halo, **D32_FWD):
+        for r0 in range(b0, b0 + D32_FWD["block"], D32_FWD["rows"]):
+            rows = D32_FWD["rows"]
+            phantom = b0 < wsz and not halo
+            mx = torch.full((b, h, rows, 1), 0.0 if phantom else -1e30)
+            den = torch.zeros(b, h, rows, 1)
+            acc = torch.zeros(b, h, rows, d)
+            for r, t0, kind in walk:
+                if r != r0 or kind == "skipped":
+                    continue
+                tile = D32_FWD["tile"]
+                s = mm3(q[:, :, r0:r0 + rows], _rows_of(k, k_halo, t0, tile).transpose(-1, -2))
+                s = s * scale2
+                if kind == "diagonal":
+                    seen = (t0 + torch.arange(tile))[None, :] <= (r0 + torch.arange(rows))[:, None]
+                    s = s.masked_fill(~seen, -float("inf"))
+                top = torch.maximum(mx, s.amax(-1, keepdim=True))
+                alpha = torch.exp2(mx - top)
+                mx = top
+                p = torch.exp2(s - mx)
+                den = den * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + mm3(p, _rows_of(v, v_halo, t0, tile))
+            if phantom:
+                den = den + wsz * torch.exp2(-mx)
+            out[:, :, r0:r0 + rows] = acc / den
+            lse[:, :, r0:r0 + rows] = (mx * np.log(2.0) + torch.log(den))[..., 0]
+    return out, lse
+
+
+def emulated_dkv_d32(q, k, v, do, out, lse, wsz, k_halo=None, v_halo=None):
+    """The dim_head-32 K1-dkv as it walks (``k1_bwd_tiles(side="dkv")``
+    with the D-32 blocks): per warp of 16 keys and per 32-query tile in
+    walk order, s^T = k.q^T and dp^T = v.dout^T through ``mm3``, p^T and
+    ds^T with the diagonal tiles masked, dv += p^T.dout and dk += ds^T.q
+    through ``mm3``; dk scaled once.  ``(dk, dv)``, with a halo also
+    ``(dk_halo, dv_halo)``."""
+    b, h, n, d = q.shape
+    scale = d ** -0.5
+    halo = k_halo is not None
+    dd = (do * out).sum(-1)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    dk_h = torch.zeros_like(k_halo) if halo else None
+    dv_h = torch.zeros_like(v_halo) if halo else None
+    rows, tile = D32_DKV["rows"], D32_DKV["tile"]
+    for r0, i0, kind in cuda_attention.k1_bwd_tiles(
+            n, wsz, "dkv", halo, blocks=cuda_attention.k1_dkv_blocks(n, wsz, halo), **D32_DKV):
+        if kind == "skipped":
+            continue
+        kr, vr = _rows_of(k, k_halo, r0, rows), _rows_of(v, v_halo, r0, rows)
+        qt, dot = q[:, :, i0:i0 + tile], do[:, :, i0:i0 + tile]
+        st = mm3(kr, qt.transpose(-1, -2))
+        dpt = mm3(vr, dot.transpose(-1, -2))
+        p = torch.exp2(st * (scale * LOG2E) - lse[:, :, None, i0:i0 + tile] * LOG2E)
+        if kind == "diagonal" and r0 >= 0:
+            user = (i0 + torch.arange(tile))[None, :] >= (r0 + torch.arange(rows))[:, None]
+            p = p * user
+        ds = p * (dpt - dd[:, :, None, i0:i0 + tile])
+        gk, gv = (dk_h, dv_h) if r0 < 0 else (dk, dv)
+        at = slice(wsz + r0, wsz + r0 + rows) if r0 < 0 else slice(r0, r0 + rows)
+        gv[:, :, at] += mm3(p, dot)
+        gk[:, :, at] += mm3(ds, qt)
+    grads = (dk * scale, dv)
+    return grads + ((dk_h * scale, dv_h) if halo else ())
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_the_d32_design_meets_the_f32_bars(halo):
+    """K1-fwd and K1-dkv at dim_head 32 as their f32 kernels walk and
+    compute, every product 3xTF32, against JAX's f32 kernels and VJP:
+    ``out`` and ``lse`` at 1e-4, dk and dv (and the halo's) at the scaled
+    bars and their RMS."""
+    t = _inputs(halo, seed=32, shape=(B, H, N32, D32), wsz=WSZ32)
+    hal = (t["kh"], t["vh"]) if halo else (None, None)
+    out, lse = emulated_fwd_d32(t["q"], t["k"], t["v"], WSZ32, *hal)
+    grads = emulated_dkv_d32(t["q"], t["k"], t["v"], t["do"], out, lse, WSZ32, *hal)
+    want = _jax(t, WSZ32)
+    del want["dq"]  # K1-dq at dim_head 32 stays on "wmma"
+    got = {"out": out, "lse": lse, **dict(zip(("dk", "dv", "dk_halo", "dv_halo"), grads))}
+    ratios = _misses(got, want)
+    assert len(ratios) == (10 if halo else 6)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def _covered(walk, n, wsz, rows, tile, side):
+    """How often each (query, extended key) pair is met by ``walk``'s
+    (r0, t0, kind) entries; the diagonal tiles masked as the kernels mask
+    them, a skipped tile holding no visible pair."""
+    seen = np.zeros((n, n + wsz), dtype=int)
+    a, c = np.arange(rows)[:, None], np.arange(tile)[None, :]
+    for r0, t0, kind in walk:
+        if side == "fwd":   # rows are queries, the tile keys
+            query, key = r0 + a + 0 * c, t0 + c + 0 * a
+        else:               # rows are keys, the tile queries
+            query, key = t0 + c + 0 * a, r0 + a + 0 * c
+        visible = key <= query
+        if kind == "skipped":
+            assert not visible.any()
+            continue
+        if kind == "full":
+            assert visible.all()
+        np.add.at(seen, (query[visible], wsz + key[visible]), 1)
+    return seen
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("n,wsz", [(256, 128), (1024, 512), (2048, 512)])
+def test_the_d32_walks_cover_each_visible_pair_once(n, wsz, halo):
+    """K1-fwd's dim_head-32 walk (64-row blocks, four warps of 16, 64-key
+    tiles) and K1-dkv's (64-key blocks, four warps of 16 keys, 32-query
+    tiles) each meet every visible (query, key) pair once and no other,
+    every query row or key row in one block; without a halo both launch
+    their blocks longest walk first (with one, window 0's blocks, or the
+    halo's, come last, as long as others)."""
+    fwd = cuda_attention.k1_fwd_tiles(n, wsz, halo, **D32_FWD)
+    lengths = [len(walk) for _, walk in fwd]
+    assert halo or lengths == sorted(lengths, reverse=True)
+    assert sorted(b0 for b0, _ in fwd) == list(range(0, n, 64))
+    walk = [entry for _, w in fwd for entry in w]
+    seen = _covered(walk, n, wsz, 16, 64, "fwd")
+    assert seen.max() == 1 and (seen.astype(bool) == _visible(n, wsz, halo)).all()
+
+    blocks = cuda_attention.k1_dkv_blocks(n, wsz, halo)
+    assert sorted(blocks) == list(range(-wsz if halo else 0, n, 64))
+    ends = [wsz if b0 < 0 else min((b0 // wsz + 2) * wsz, n) - b0 for b0 in blocks]
+    assert halo or ends == sorted(ends, reverse=True)
+    walk = cuda_attention.k1_bwd_tiles(n, wsz, "dkv", halo, blocks=blocks, **D32_DKV)
+    assert list(dict.fromkeys(r0 - r0 % 64 for r0, _, _ in walk)) == blocks
+    seen = _covered(walk, n, wsz, 16, 32, "dkv")
+    assert seen.max() == 1 and (seen.astype(bool) == _visible(n, wsz, halo)).all()
 
 
 # -- K2: K2-fwd, K2-dgate and K2-dW on "tf32x3" -------------------------------

@@ -317,13 +317,14 @@ def test_resource_report_needs_nvcc(monkeypatch):
 def test_bwd_route_of_every_shipped_config(config, dtype):
     """bf16 takes the Hopper kernels wherever dim_head is 64 or 128 and the
     window a multiple of 128 (every config but ``default``); f32 takes the
-    3xTF32 kernels there for K1-dq and K1-dkv, and the WMMA kernels
-    everywhere else."""
+    3xTF32 kernels there for K1-dq and K1-dkv, and at ``default``'s
+    dim_head 32 for K1-dkv alone; the WMMA kernels everywhere else."""
     c = CONFIGS[config]
     hopper = config != "default"
     want = ("wmma" if not hopper else "wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    want_dkv = "tf32x3" if dtype == torch.float32 else want
     assert cuda_attention.dq_route(dtype, c.dim_head, c.window_size) == want
-    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want
+    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want_dkv
 
 
 @pytest.mark.parametrize("dtype,d,wsz,want", [
@@ -341,11 +342,13 @@ def test_bwd_route_of_every_shipped_config(config, dtype):
     (torch.float32, 128, 64, "wmma"),
 ])
 def test_bwd_route_of_odd_shapes(dtype, d, wsz, want):
-    """``want`` is K1-dq's route and K1-dkv's (the same rule: bf16 ``wgmma``
-    and f32 ``tf32x3`` on the Hopper shapes, dim_head 64 or 128 and a window
-    a multiple of 128; ``wmma`` elsewhere)."""
+    """``want`` is K1-dq's route, and K1-dkv's but at dim_head 32 in f32
+    (bf16 ``wgmma`` and f32 ``tf32x3`` on the Hopper shapes, dim_head 64 or
+    128 and a window a multiple of 128; ``wmma`` elsewhere; K1-dkv in f32
+    also ``tf32x3`` at dim_head 32 with such a window)."""
     assert cuda_attention.dq_route(dtype, d, wsz) == want
-    assert cuda_attention.dkv_route(dtype, d, wsz) == want
+    d32 = dtype == torch.float32 and d == 32 and wsz % 128 == 0
+    assert cuda_attention.dkv_route(dtype, d, wsz) == ("tf32x3" if d32 else want)
 
 
 def _visible(n, wsz):
@@ -431,7 +434,7 @@ def check_ablation_applies(source: str, variant: str) -> None:
     source edit that moves one fails here, not on the card), and only the
     whole source comes back unchanged."""
     start, _, variants = ablate.SOURCES[source]
-    text = (kernels.CSRC / f"{source}.cu").read_text()
+    text = (kernels.CSRC / f"{ablate.FILES.get(source, source)}.cu").read_text()
     part = ablate.variant_source(source, variant).split(start, 1)[1]
     assert (part == text.split(start, 1)[1]) == (variant == "whole")
     for edit in variants[variant]:
@@ -443,3 +446,9 @@ def check_ablation_applies(source: str, variant: str) -> None:
 def test_k1_bwd_ablation_variants_apply_to_the_source(variant):
     """Each ablation of the Hopper K1 backward applies to its source."""
     check_ablation_applies("local_attention_bwd", variant)
+
+
+@pytest.mark.parametrize("variant", sorted(ablate.SOURCES["local_attention_bwd_d32"][2]))
+def test_k1_dkv_d32_ablation_variants_apply_to_the_source(variant):
+    """Each ablation of the f32 K1-dkv at dim_head 32 applies to its source."""
+    check_ablation_applies("local_attention_bwd_d32", variant)
