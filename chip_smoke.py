@@ -37,13 +37,16 @@ non-zero without its last line:
    cores' 67 TFLOP/s, and the tf32x3 rows beside the first kernel (WMMA for
    K1, FMA for K2) on the same inputs, K2-dW's with its split plan; then
    K1-fwd, K1-dq and K1-dkv at ProGen-default's head and window (H 3,
-   L 1024, dim_head 32, window 512: the training CLI's default run) at
+   L 1024, dim_head 32, window 512: the CLIs' ProGen-default runs) at
    B 4 and B 32, in f32 (K1-fwd and K1-dkv on their dim_head-32 "tf32x3"
-   kernels, timed beside WMMA on the same inputs; K1-dq on WMMA) and in
-   bf16 (all three on WMMA), each checked, held to its route, run twice for
-   the same bits and timed beside its plain version and SDPA: the
-   ``_d32_f32`` rows of the ``kernels`` line (B 4, the launches of phase
-   22's run), their B 32 and bf16 times and phase 11's with a halo inside;
+   kernels) and in bf16 (K1-fwd and K1-dkv on their dim_head-32 "wgmma"
+   kernels), each of these timed beside WMMA on the same inputs, K1-dq on
+   WMMA in both; each checked, held to its route, run twice for the same
+   bits and timed beside its plain version, SDPA, its bound and the ex2
+   term (one exponential a visible pair at 16 a clock on 132 SMs at
+   1.98 GHz): the ``_d32_f32`` and ``_d32`` rows of the ``kernels`` line
+   (B 4, the launches of phase 22's runs), their B 32 times and phase
+   11's with a halo inside;
 4. serving path: ProGen-small at its full width and SERVE_DEPTH (3) of
    its 12 layers, the served model of phases 4-20 (weights drawn from a
    seed, bf16 compute), serves four primes through the chunked sampler (one parallel prefill
@@ -192,7 +195,9 @@ non-zero without its last line:
 13. captured programs (``engine_graphs``, run after phase 9 on its model):
    ``ServingEngine.aot_warmup`` makes every program of the engine's grid
    one captured CUDA graph.  K1-fwd, K2-fwd, K3 and K3-q8 are each captured
-   alone at the engine's shapes and replayed three times with new data in
+   alone at the engine's shapes, and bf16 K1-fwd and K1-dkv at
+   ProGen-default's head and window with a halo (their dim_head-32 wgmma
+   kernels), and replayed three times with new data in
    their inputs (K3 and K3-q8: new positions, tables and pool rows), each
    replay bit-equal to an eager launch; then the 12 requests of phase 7
    through a warmed engine, dense, paged, 8-bit pages, speculative paged
@@ -317,22 +322,33 @@ non-zero without its last line:
    worker's K1-fwd and K2-fwd per handle and each member's K3 twice a
    decode step on ``bulk`` at d 1024; printed: start-up, tokens/s, median
    time to first token, ``de_s`` a slab, peak memory per process;
-22. the training CLI's default run (``train_cli_default``, after phase 5):
-   ``progen_tpu_torch.train.cli.main`` with its own defaults
+22. ProGen-default through the CLIs (``train_cli_default``, after phase
+   5): ``progen_tpu_torch.train.cli.main`` with its own defaults
    (ProGen-default, f32, batch 4, accumulation 4, synthetic rows, cuda)
    but ``--max_steps 8 --log_every 4 --wandb_off``, in this process, four
    times in turns on the same seeded model and rows: K1 on ``wmma`` forced
-   (the parent's route), on its own routes twice, on ``wmma`` again.  Held:
+   (the parent's route), on its own routes twice, on ``wmma`` again; then
+   the same four with ``--mixed_precision`` (bf16 compute).  Held:
    each run's loss finite and falling, its printed records the returned
    ones, every micro-batch's launches exactly 3 K1-fwd, K1-dq and K1-dkv
-   (K1-fwd and K1-dkv on ``tf32x3``, K1-dq on ``wmma``; all on ``wmma``
-   forced), 4 K2-fwd, 2 K2-dgate and 2 K2-dW (``tf32x3``), the two routes'
-   losses within 1e-4; then one f32 step at ProGen-default, batch 4,
+   (K1-fwd and K1-dkv on ``tf32x3`` in f32 and ``wgmma`` in bf16, K1-dq on
+   ``wmma``; all on ``wmma`` forced), 4 K2-fwd, 2 K2-dgate and 2 K2-dW
+   (``tf32x3`` in f32, ``wgmma`` in bf16), the two routes' losses within
+   1e-4 in f32 and 1e-2 in bf16; then one f32 step at ProGen-default, batch 4,
    through the kernels against the plain versions at phase 5's bars (loss
    1e-4 relative, every gradient leaf 1e-3, each leaf's update after three
-   steps 1e-2 RMS relative and 6 lr at most).  Printed: each run's
-   records, micro-batch ms (host clock, each ending in a sync) and wall,
-   beside the card's name and power limit;
+   steps 1e-2 RMS relative and 6 lr at most); then
+   ``progen_tpu_torch.sample.main`` with ``--config default --seed 0
+   --num_samples 2`` and a 19-residue prime (bf16 compute), in this
+   process, twice in turns (K1 on its own routes, then on ``wmma``
+   forced): held, the one prefill of each run launches exactly
+   3 K1-fwd (``wgmma``, or ``wmma`` forced) and 2 K2-fwd (``wgmma``) and
+   the decode none, and the prefill logits through the kernels within the
+   whole-model bf16 bar (0.1) of the plain versions.  Printed: each
+   training run's records, micro-batch ms (host clock, each ending in a
+   sync), one profiled micro-batch (device busy, K1's and K2's ms,
+   launches) and wall; the sampler's prefill ms, decode tokens/s and token
+   agreement between the routes; beside the card's name and power limit;
 21. the port's static analyzer (``analysis``): ``python -m
    progen_tpu_torch.analysis progen_tpu_torch chip_smoke.py`` in a
    subprocess on the card's host, which has no JAX, started before the
@@ -463,6 +479,7 @@ from progen_tpu_torch.serve import cluster as cluster_module
 from progen_tpu_torch.serve.control import ControlPlane
 from progen_tpu_torch.serve.policy import BurnRatePolicy, ScaleDecision
 from progen_tpu_torch.train import cli as cli_module
+from progen_tpu_torch import sample as sample_module
 from progen_tpu_torch.train import trainer as trainer_module
 from progen_tpu_torch import trace_main_path
 from progen_tpu_torch.parallel.decode import decode_mesh as decode_view
@@ -491,6 +508,9 @@ PEAK_BYTES_S = 3.35e12
 # read over 100% of its roofline.  The CUDA cores' figure is printed beside.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_F32_CUDA_CORES = 67e12
+# ex2 (MUFU) issue: 16 a clock on each of the 132 SMs at the 1.98 GHz boost
+# clock (the H100 SXM's), the exponentials' own floor beside a K1 row's bound
+SFU_EX2_PER_S = 16 * 132 * 1.98e9
 # Tolerances, as atol = rtol.  One kernel: f32 differs from the plain
 # version only in summation order (up to 1024 products per sum).  In bf16
 # the outputs round to bf16 in different places (K1 rounds unnormalised
@@ -822,10 +842,25 @@ def attention_fwd_row(inputs, err, errs, wsz: int = SMALL.window_size,
         "timed_shape": [b, h, n, d], "timed_dtype": str(q.dtype),
         "bytes": nbytes, "flops": flops, "max_abs_err_all_checks": max(errs),
     }
-    if route == "tf32x3":
+    if times_old_route(route, d):
         row["wmma_route_ms"] = time_ms(
             lambda: cuda_attention.local_attention_fwd(q, k, v, wsz, route="wmma"))
+    if d == 32:
+        row["ex2_ms"] = ex2_ms(real_visible(n, wsz) * b * h)
     return row
+
+
+def times_old_route(route: str, d: int) -> bool:
+    """Whether a K1 row also times the first (``wmma``) kernel on its
+    inputs: every ``tf32x3`` row, and the bf16 ``wgmma`` rows at dim_head
+    32, whose kernels replaced ``wmma`` there."""
+    return route == "tf32x3" or (route == "wgmma" and d == 32)
+
+
+def ex2_ms(pairs: float) -> float:
+    """The least time the card's SFUs take for one ex2 a visible pair (the
+    work that bounds K1 at dim_head 32 before its bytes or products do)."""
+    return pairs / SFU_EX2_PER_S * 1e3
 
 
 def sgu_fwd_row(inputs, err, errs) -> dict:
@@ -1051,8 +1086,10 @@ def k1_bwd_rows(inputs, res, errs, wsz: int = SMALL.window_size,
             "bytes": nbytes, "flops": flops,
             "max_abs_err_all_checks": max(e for g in grads for e in errs[g]),
         })
-        if route == "tf32x3":
+        if times_old_route(route, d):
             rows[-1]["wmma_route_ms"] = time_ms(lambda: fn("wmma"))
+        if d == 32:
+            rows[-1]["ex2_ms"] = ex2_ms(pairs)
         emit("kernel_time", **rows[-1])
     return rows
 
@@ -1173,16 +1210,17 @@ D32_BATCHES = (4, 32)
 D32_SUFFIX = "_d32"   # the rows' names: local_attention_fwd_d32_f32, ...
 # the timed fields each D-32 row keeps of its other batch and dtype
 D32_KEPT = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
-            "max_abs_err", "kernel_route", "wmma_route_ms", "bound_ms_cuda_cores")
+            "max_abs_err", "kernel_route", "wmma_route_ms", "bound_ms_cuda_cores", "ex2_ms")
 
 
 def check_d32_kernels() -> list[dict]:
     """K1-fwd, K1-dq and K1-dkv at ProGen-default's head and window, each
     against its plain version on the route it must take and run twice for
-    the same bits, then timed beside its plain version, SDPA and (on
-    ``tf32x3``) the ``wmma`` kernel, at B 4 and B 32, in f32 and bf16.
-    Returns the f32 rows at B 4 (the CLI's run), each holding its B 32
-    times (``at_batch_32``) and its bf16 twin's (``bf16``)."""
+    the same bits, then timed beside its plain version, SDPA, the ex2 term
+    and (on ``tf32x3``, and on ``wgmma`` in bf16) the ``wmma`` kernel, at
+    B 4 and B 32, in f32 and bf16.  Returns the rows at B 4 (the CLI's
+    run), the f32 ones first, each holding its B 32 times
+    (``at_batch_32``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
     c = DEFAULT
     timed = {}
@@ -1199,11 +1237,11 @@ def check_d32_kernels() -> list[dict]:
             del inputs
             timed[dtype, b] = [fwd, *bwd]
     rows = []
-    for i, row in enumerate(timed[torch.float32, D32_BATCHES[0]]):
-        kept = lambda r: {key: r[key] for key in D32_KEPT if key in r}
-        row["at_batch_32"] = kept(timed[torch.float32, D32_BATCHES[1]][i])
-        row["bf16"] = {f"batch_{b}": kept(timed[torch.bfloat16, b][i]) for b in D32_BATCHES}
-        rows.append(row)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, row in enumerate(timed[dtype, D32_BATCHES[0]]):
+            row["at_batch_32"] = {key: timed[dtype, D32_BATCHES[1]][i][key]
+                                  for key in D32_KEPT if key in timed[dtype, D32_BATCHES[1]][i]}
+            rows.append(row)
     return rows
 
 
@@ -1287,12 +1325,10 @@ def k1_route(kernel: str, dtype, d: int, wsz: int) -> str:
     is a multiple of 128 take the Hopper kernels (bf16 ``wgmma``, f32
     ``tf32x3``), the rest ``wmma``; at dim_head 32 with such a window
     K1-fwd and K1-dkv (``kernel`` ``"fwd"``, ``"dkv"``; ``"dq"`` not) take
-    ``tf32x3`` in f32 too."""
-    if wsz % 128 != 0:
+    them too."""
+    if wsz % 128 != 0 or d not in (32, 64, 128) or (d == 32 and kernel == "dq"):
         return "wmma"
-    if d == 32:
-        return "tf32x3" if dtype == torch.float32 and kernel != "dq" else "wmma"
-    return ("wgmma" if dtype == torch.bfloat16 else "tf32x3") if d in (64, 128) else "wmma"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 # the route each K2 kernel must take in f32 (bf16: "wgmma" for all three)
@@ -1660,14 +1696,23 @@ def check_train_against_plain(lora: bool = False, c=SMALL, batch_size: int = 2) 
             f"the train step through the kernels disagrees with plain: {result}")
     return result
 
-# -- phase 22: the training CLI's default run ----------------------------------
+# -- phase 22: ProGen-default through the training and sample CLIs ------------
 
 # the CLI's own defaults (ProGen-default, f32, batch 4, accumulation 4,
-# synthetic rows, cuda) but for a short run without wandb: 8 micro-batches
+# synthetic rows, cuda) but for a short run without wandb: 8 micro-batches;
+# run again with --mixed_precision (bf16 compute over f32 parameters)
 CLI_DEFAULT_ARGS = ("--max_steps", "8", "--log_every", "4", "--wandb_off")
-CLI_TURNS = ("wmma", "tf32x3", "tf32x3", "wmma")  # K1's forced route, in turns
+CLI_TURNS = ("wmma", "own", "own", "wmma")  # K1's forced route ("own": its routes), in turns
 CLI_WARMUP = 1  # micro-batches left out of each run's median
 CLI_PROFILED = 6  # the micro-batch (0-based) run under torch.profiler, out of the median
+# the two routes' losses: the f32 step's bar; in bf16 compute PERF.md §2's
+# bar for a mean over bf16 logits
+TOL_CLI_LOSS = {False: TOL_TRAIN_LOSS, True: 1e-2}
+# the sample CLI at ProGen-default (it always computes in bf16 over f32
+# parameters), a short prime, decoded to the config's 1024
+SAMPLE_CLI_ARGS = ("--config", "default", "--seed", "0", "--num_samples", "2",
+                   "--prime", "MKVLAAGIVALLLAAGCSS")
+SAMPLE_TURNS = ("own", "wmma")  # K1's forced route, in turns
 
 
 def forced_k1_route(route: str):
@@ -1679,14 +1724,14 @@ def forced_k1_route(route: str):
                      "local_attention_bwd_dkv")]
 
 
-def cli_run(route: str | None) -> dict:
-    """``progen_tpu_torch.train.cli.main`` with ``CLI_DEFAULT_ARGS``, in this
-    process; ``route`` forces K1's launches (None: their own routes).  The
-    records it prints, each micro-batch's launches and host ms (the step
-    ends in a sync: the CLI reads its loss), one micro-batch's device
-    kernels under ``torch.profiler`` (busy ms, K1's and K2's ms, launches),
-    and the launches by route; the counts are set to 0 just before and read
-    just after."""
+def cli_run(route: str | None, extra: tuple = ()) -> dict:
+    """``progen_tpu_torch.train.cli.main`` with ``CLI_DEFAULT_ARGS`` and
+    ``extra``, in this process; ``route`` forces K1's launches (None: their
+    own routes).  The records it prints, each micro-batch's launches and
+    host ms (the step ends in a sync: the CLI reads its loss), one
+    micro-batch's device kernels under ``torch.profiler`` (busy ms, K1's
+    and K2's ms, launches), and the launches by route; the counts are set to
+    0 just before and read just after."""
     per_micro, micro_ms, profiled = [], [], {}
     made = cli_module.make_train_functions
 
@@ -1728,7 +1773,7 @@ def cli_run(route: str | None) -> dict:
             stack.enter_context(patch)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
-            records = cli_module.main(list(CLI_DEFAULT_ARGS))
+            records = cli_module.main([*CLI_DEFAULT_ARGS, *extra])
         wall = time.perf_counter() - t0
     timed = [ms for i, ms in enumerate(micro_ms) if i >= CLI_WARMUP and i != CLI_PROFILED]
     return {"route": route or "own", "records": records,
@@ -1738,78 +1783,207 @@ def cli_run(route: str | None) -> dict:
             "wall_s": wall, "launches": read_counts(), "routes": read_routes()}
 
 
-def train_cli_default(smi: str) -> dict:
-    """Phase 22: the training CLI's default run on the card.  Four runs of
-    ``CLI_DEFAULT_ARGS`` in turns, K1 on the parent's route (``wmma``
-    forced) and on its own (K1-fwd and K1-dkv ``tf32x3``, K1-dq ``wmma``),
-    on the same seeded model and rows: each run's loss finite and falling,
-    every micro-batch's launches exactly ProGen-default's (3 of each K1
-    kernel, 4 K2-fwd, 2 K2-dgate, 2 K2-dW) on the routes each must take,
-    the printed records the returned ones, the two routes' losses within
-    the f32 step's bar of each other; then one f32 step at ProGen-default,
-    batch 4, through the kernels against the plain versions at phase 5's
-    bars.  Returns the phase's result, the launches of the first run on
-    K1's own routes under ``launches``."""
-    c = DEFAULT
-    args = cli_module.parse_args(list(CLI_DEFAULT_ARGS))
-    require(args.model_name == "default" and not args.mixed_precision
-            and (args.batch_size, args.grad_accum_every) == (4, 4)
-            and args.data_path is None and args.device == "cuda",
-            f"the CLI's defaults moved: {vars(args)}")
+def cli_turns(args, mixed: bool) -> dict:
+    """``CLI_DEFAULT_ARGS`` (and ``--mixed_precision`` with ``mixed``) four
+    times in turns, K1 on ``wmma`` forced and on its own routes, on the same
+    seeded model and rows: each run's loss finite and falling, its printed
+    records the returned ones, every micro-batch's launches exactly
+    ProGen-default's (3 of each K1 kernel, 4 K2-fwd, 2 K2-dgate, 2 K2-dW)
+    on the routes each must take in its precision, the two routes' losses
+    within ``TOL_CLI_LOSS``.  Returns the runs' summary, the launches of the
+    first run on K1's own routes."""
+    c, dtype = DEFAULT, torch.bfloat16 if mixed else torch.float32
+    own = k1_route("fwd", dtype, c.dim_head, c.window_size)  # K1-fwd's and K1-dkv's
     per_micro = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
                  "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
                  "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
     want = {name: per_micro.get(name, 0) for name in COUNTERS}
     runs = []
     for route in CLI_TURNS:
-        run = cli_run(None if route == "tf32x3" else route)
+        label = f"{'bf16' if mixed else 'f32'} {route}"
+        run = cli_run(None if route == "own" else route,
+                      ("--mixed_precision",) if mixed else ())
         micro = args.max_steps
         bad = [i for i, got in enumerate(run["per_micro_batch_launches"]) if got != want]
         require(len(run["per_micro_batch_launches"]) == micro and not bad,
-                f"CLI ({route}) micro-batches {bad} launched other than {want}: "
+                f"CLI ({label}) micro-batches {bad} launched other than {want}: "
                 f"{run['per_micro_batch_launches']}")
         routes = {}
         for name in per_micro:
             if name not in K1_ROUTE_KERNELS:
-                to = k2_route(name, torch.float32)
+                to = k2_route(name, dtype)
             elif route == "wmma":
                 to = route
             else:
-                to = k1_route(K1_ROUTE_KERNELS[name], torch.float32, c.dim_head, c.window_size)
+                to = k1_route(K1_ROUTE_KERNELS[name], dtype, c.dim_head, c.window_size)
             routes[name] = {**dict.fromkeys(run["routes"][name], 0), to: micro * per_micro[name]}
         require(all(run["routes"][name] == routes[name] for name in routes),
-                f"CLI ({route}) launches by route {run['routes']}, want {routes}")
+                f"CLI ({label}) launches by route {run['routes']}, want {routes}")
         losses = [r["loss"] for r in run["records"]]
         require(run["printed"] == run["records"] and len(losses) == micro // args.log_every
                 and all(np.isfinite(losses)) and losses[-1] < losses[0],
-                f"CLI ({route}): the loss is not finite and falling: {run['records']}")
+                f"CLI ({label}): the loss is not finite and falling: {run['records']}")
         runs.append(run)
-    own = [r for r in runs if r["route"] == "own"]
+    mine = [r for r in runs if r["route"] == "own"]
     parent = [r for r in runs if r["route"] == "wmma"]
     loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                   for a, b in zip(own[0]["records"], parent[0]["records"]))
-    require(loss_rel <= TOL_TRAIN_LOSS,
-            f"the CLI's losses on tf32x3 and wmma differ by {loss_rel}")
-    vs_plain = check_train_against_plain(c=c, batch_size=args.batch_size)
-    measured = own[0]["per_micro_batch_launches"][0]  # every micro-batch's, held above
+                   for a, b in zip(mine[0]["records"], parent[0]["records"]))
+    require(loss_rel <= TOL_CLI_LOSS[mixed],
+            f"the CLI's losses on {own} and wmma differ by {loss_rel} (mixed: {mixed})")
+    measured = mine[0]["per_micro_batch_launches"][0]  # every micro-batch's, held above
     summary = lambda run: {k: run[k] for k in ("route", "records", "micro_batch_ms",
                                                "micro_batch_ms_median", "profiled", "wall_s")}
-    return {"command": "python -m progen_tpu_torch.train " + " ".join(CLI_DEFAULT_ARGS),
-            "nvidia_smi": smi, "config": "default", "dtype": "f32",
+    by_route = lambda key: {own: [r[key] for r in mine], "wmma": [r[key] for r in parent]}
+    last = lambda key: {own: [r["records"][-1][key] for r in mine],
+                        "wmma": [r["records"][-1][key] for r in parent]}
+    return {"command": " ".join(["python -m progen_tpu_torch.train", *CLI_DEFAULT_ARGS,
+                                 *(("--mixed_precision",) if mixed else ())]),
+            "dtype": "bf16 compute, f32 params" if mixed else "f32",
             "batch": args.batch_size, "grad_accum_every": args.grad_accum_every,
             "micro_batches": args.max_steps, "seq_len": c.seq_len,
             "launches_per_micro_batch": {name: measured[name] for name in per_micro},
-            "launches_by_route": own[0]["routes"], "launches": own[0]["launches"],
+            "launches_by_route": mine[0]["routes"], "launches": mine[0]["launches"],
             "runs_in_turns": [summary(r) for r in runs],
-            "micro_batch_ms_median": {"tf32x3": [r["micro_batch_ms_median"] for r in own],
-                                      "wmma": [r["micro_batch_ms_median"] for r in parent]},
-            "profiled_micro_batch": {"tf32x3": [r["profiled"] for r in own],
-                                     "wmma": [r["profiled"] for r in parent]},
-            "step_ms": {"tf32x3": [r["records"][-1]["step_ms"] for r in own],
-                        "wmma": [r["records"][-1]["step_ms"] for r in parent]},
-            "tokens_per_s": {"tf32x3": [r["records"][-1]["tokens_per_s"] for r in own],
-                             "wmma": [r["records"][-1]["tokens_per_s"] for r in parent]},
-            "loss_rel_err_tf32x3_vs_wmma": loss_rel, "vs_plain": vs_plain}
+            "micro_batch_ms_median": by_route("micro_batch_ms_median"),
+            "profiled_micro_batch": by_route("profiled"),
+            "step_ms": last("step_ms"), "tokens_per_s": last("tokens_per_s"),
+            f"loss_rel_err_{own}_vs_wmma": loss_rel, "loss_tol": TOL_CLI_LOSS[mixed]}
+
+
+def sample_cli_run(route: str | None) -> dict:
+    """``progen_tpu_torch.sample.main`` with ``SAMPLE_CLI_ARGS``, in this
+    process; ``route`` forces K1's launches (None: their own routes).  The
+    samples, each prefill's launches and ms (host clock, synced), the
+    decode steps and tokens/s, the launches by route and the model it
+    built; the counts are set to 0 just before and read just after."""
+    made_sampler, made_model = sample_module.make_sampler, sample_module.ProGen
+    prefill_ms, per_prefill, steps, calls, models = [], [], [0], [], []
+
+    def sampler_factory(*args, **kwargs):
+        sampler = made_sampler(*args, **kwargs)
+        prefill, step = sampler.prefill, sampler.step
+
+        def timed_prefill(*a, **kw):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(*a, **kw)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            after = read_counts()
+            per_prefill.append({k: after[k] - before[k] for k in after})
+            return out
+
+        def counted_step(*a, **kw):
+            steps[0] += 1
+            return step(*a, **kw)
+
+        def timed_call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sampler(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+            return out
+
+        sampler.prefill, sampler.step = timed_prefill, counted_step
+        return timed_call
+
+    def model_factory(*args, **kwargs):
+        models.append(made_model(*args, **kwargs))
+        return models[-1]
+
+    patches = [mock.patch.object(sample_module, "make_sampler", sampler_factory),
+               mock.patch.object(sample_module, "ProGen", model_factory),
+               *(forced_k1_route(route) if route == "wmma" else ())]
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        with contextlib.redirect_stdout(printed):
+            texts = sample_module.main(list(SAMPLE_CLI_ARGS))
+    samples = len(texts)
+    decode_s = sum(calls) - sum(prefill_ms) / 1e3
+    return {"route": route or "own", "texts": texts, "prefill_ms": prefill_ms,
+            "per_prefill_launches": per_prefill, "decode_steps": steps[0],
+            "decode_tokens_per_s": steps[0] * samples / decode_s, "sampler_s": sum(calls),
+            "launches": read_counts(), "routes": read_routes(), "model": models[0]}
+
+
+def sample_cli_turns() -> dict:
+    """The sample CLI at ProGen-default in turns, K1 on its own routes and on
+    ``wmma`` forced: each run's one prefill launches exactly 3 K1-fwd (on
+    ``wgmma``, or ``wmma`` forced) and 2 K2-fwd (``wgmma``) and decode
+    launches none; the samples' shape; the prefill logits through the
+    kernels against the plain versions at the whole-model bf16 bar.
+    Printed: the routes' token agreement, prefill ms and decode tokens/s."""
+    c = DEFAULT
+    own = k1_route("fwd", torch.bfloat16, c.dim_head, c.window_size)
+    want = {name: 0 for name in COUNTERS}
+    want.update(local_attention_fwd=c.depth, sgu_fwd=c.global_mlp_depth)
+    runs = []
+    for route in SAMPLE_TURNS:
+        run = sample_cli_run(None if route == "own" else route)
+        to = {"local_attention_fwd": route if route == "wmma" else own, "sgu_fwd": "wgmma"}
+        got = {name: run["routes"][name] for name in to}
+        routes = {name: {**dict.fromkeys(got[name], 0), to[name]: want[name]} for name in to}
+        require(run["per_prefill_launches"] == [want] and run["launches"] == want
+                and got == routes,
+                f"sample CLI ({route}): prefills launched {run['per_prefill_launches']}, "
+                f"the run {run['launches']} by route {got}; want one prefill of {want} "
+                f"on {routes}")
+        require(len(run["texts"]) == 2 and all(isinstance(t, str) for t in run["texts"]),
+                f"sample CLI ({route}): samples {run['texts']}")
+        runs.append(run)
+    model = runs[0].pop("model")
+    vs_plain = check_prefill_against_plain(model)
+    del model
+    for run in runs[1:]:
+        del run["model"]
+    mine = [r for r in runs if r["route"] == "own"]
+    parent = [r for r in runs if r["route"] == "wmma"]
+
+    def agreement(a: list[str], b: list[str]) -> float:
+        same = sum(x == y for s, t in zip(a, b) for x, y in zip(s, t))
+        return same / max(1, sum(max(len(s), len(t)) for s, t in zip(a, b)))
+
+    return {"command": "python -m progen_tpu_torch.sample " + " ".join(SAMPLE_CLI_ARGS),
+            "dtype": "bf16 compute, f32 params",
+            "launches_per_prefill": mine[0]["per_prefill_launches"][0],
+            "launches_by_route": mine[0]["routes"], "launches": mine[0]["launches"],
+            "prefill_ms": {own: [r["prefill_ms"][0] for r in mine],
+                           "wmma": [r["prefill_ms"][0] for r in parent]},
+            "decode_tokens_per_s": {own: [r["decode_tokens_per_s"] for r in mine],
+                                    "wmma": [r["decode_tokens_per_s"] for r in parent]},
+            "decode_steps": [r["decode_steps"] for r in runs],
+            "token_agreement_own_vs_wmma": agreement(mine[0]["texts"], parent[0]["texts"]),
+            "samples": [t[:48] for t in mine[0]["texts"]], "prefill_vs_plain": vs_plain}
+
+
+def train_cli_default(smi: str) -> dict:
+    """Phase 22: ProGen-default through the CLIs on the card.  The training
+    CLI's default run (f32) and its ``--mixed_precision`` run, each four
+    times in turns with K1 on the parent's route (``wmma`` forced) and on
+    its own (K1-fwd and K1-dkv ``tf32x3`` in f32 and ``wgmma`` in bf16,
+    K1-dq ``wmma``; :func:`cli_turns`); then one f32 step at ProGen-default,
+    batch 4, through the kernels against the plain versions at phase 5's
+    bars; then the sample CLI at ProGen-default (:func:`sample_cli_turns`).
+    Returns the phase's result: the f32 runs' at the top (the launches of
+    the first run on K1's own routes under ``launches``), the bf16 runs'
+    under ``mixed_precision``, the sampler's under ``sample_cli``."""
+    args = cli_module.parse_args(list(CLI_DEFAULT_ARGS))
+    require(args.model_name == "default" and not args.mixed_precision
+            and (args.batch_size, args.grad_accum_every) == (4, 4)
+            and args.data_path is None and args.device == "cuda",
+            f"the CLI's defaults moved: {vars(args)}")
+    f32 = cli_turns(args, False)
+    mixed = cli_turns(args, True)
+    vs_plain = check_train_against_plain(c=DEFAULT, batch_size=args.batch_size)
+    sampled = sample_cli_turns()
+    return {**f32, "nvidia_smi": smi, "config": "default", "vs_plain": vs_plain,
+            "mixed_precision": mixed, "sample_cli": sampled}
 
 
 def train_cli_default_alone() -> dict:
@@ -3596,8 +3770,11 @@ def graph_capture_checks(gen) -> list[dict]:
     shapes (an admit program of bucket 512 at 8 slots: K1-fwd (8, 8, 512,
     128) bf16 over windows of 256, K2-fwd (8, 512, 2048) bf16; the paged
     decode step's K3 over a bf16 pool with f32 weights and K3-q8 over int8
-    ones, 8 rows, n = 1024, page 16) and replayed with new data: new inputs
-    for K1 and K2, new positions, tables and pool rows for K3 and K3-q8."""
+    ones, 8 rows, n = 1024, page 16), and bf16 K1-fwd and K1-dkv at
+    ProGen-default's head and window (their dim_head-32 kernels, the
+    mixed-precision CLI's batch 4, with a halo), and replayed with new data:
+    new inputs for K1 and K2, new positions, tables and pool rows for K3 and
+    K3-q8."""
     c, bf16 = SMALL, torch.bfloat16
 
     def renew(*tensors):
@@ -3612,6 +3789,22 @@ def graph_capture_checks(gen) -> list[dict]:
     out.append(capture_replay_check(
         "local_attention_fwd",
         lambda: cuda_attention.local_attention_fwd(q, k, v, c.window_size), renew(q, k, v)))
+    dc, wsz = DEFAULT, DEFAULT.window_size
+    q32, k32, v32, do32 = (torch.randn(4, dc.heads, dc.seq_len, dc.dim_head, device="cuda",
+                                       generator=gen).to(bf16) for _ in range(4))
+    kh32, vh32 = (torch.randn(4, dc.heads, wsz, dc.dim_head, device="cuda",
+                              generator=gen).to(bf16) for _ in range(2))
+    o32, lse32 = cuda_attention.local_attention_fwd(q32, k32, v32, wsz, None, kh32, vh32)
+    dd32 = (do32.float() * o32.float()).sum(-1)
+    out.append(capture_replay_check(
+        "local_attention_fwd" + D32_SUFFIX,
+        lambda: cuda_attention.local_attention_fwd(q32, k32, v32, wsz, None, kh32, vh32),
+        renew(q32, k32, v32, kh32, vh32)))
+    out.append(capture_replay_check(
+        "local_attention_bwd_dkv" + D32_SUFFIX,
+        lambda: cuda_attention.local_attention_bwd_dkv(q32, k32, v32, do32, lse32, dd32, wsz,
+                                                       None, kh32, vh32),
+        renew(q32, k32, v32, do32, kh32, vh32)))
     half = c.dim * c.ff_mult // 2
     res, gate = (torch.randn(ENGINE_SLOTS, 512, half, device="cuda",
                              generator=gen).to(bf16) for _ in range(2))
@@ -4274,9 +4467,10 @@ PARALLEL_TOL_LOSS = {False: 1e-4,  # f32: the f32 train step's bar (TOL_TRAIN_LO
                      True: 1e-2}   # bf16 compute: a mean over 8 x 1024 bf16 logits
 HALO_COUNTERS = ("local_attention_fwd_halo", "local_attention_bwd_dq_halo",
                  "local_attention_bwd_dkv_halo")
-# f32 at ProGen-default's head and window, the CLI's batch: K1-fwd and
-# K1-dkv on their dim_head-32 tf32x3 kernels (the meshed Trainer's sp path
-# at ProGen-default), timed beside wmma; rows folded into phase 3's D-32 rows
+# f32 and bf16 at ProGen-default's head and window, the CLI's batch: K1-fwd
+# and K1-dkv on their dim_head-32 kernels (tf32x3, wgmma; the meshed
+# Trainer's sp path at ProGen-default), timed beside wmma; rows folded into
+# phase 3's D-32 rows
 D32_HALO_CASE = (4, DEFAULT.heads, DEFAULT.seq_len, DEFAULT.dim_head, DEFAULT.window_size)
 
 
@@ -4426,7 +4620,7 @@ def halo_rows(inputs, errs: dict, all_errs: dict, suffix: str = "") -> list[dict
         })
         if name != "local_attention_fwd_halo":
             rows[-1]["plain_and_library_compute"] = "dq, dk and dv in one call"
-        if route == "tf32x3":  # the first (wmma) kernel on the same inputs
+        if times_old_route(route, d):  # the first (wmma) kernel on the same inputs
             rows[-1]["wmma_route_ms"] = time_ms(lambda: fn(kh, vh, route="wmma"))
             rows[-1]["wmma_route_ms_without_halo"] = time_ms(
                 lambda: fn(None, None, route="wmma"))
@@ -4508,10 +4702,12 @@ def parallel_phase(smi: str) -> tuple[list[dict], dict]:
     rows = [row for inputs, case_errs in timed_cases
             for row in halo_rows(inputs, case_errs, errs)]
     del timed_cases
-    inputs, case_errs = halo_case(gen, D32_HALO_CASE, torch.float32)
-    d32_rows = halo_rows(inputs, case_errs, {torch.float32: {
-        name: [e] for name, e in case_errs.items()}}, D32_SUFFIX)
-    del inputs
+    d32_rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs, case_errs = halo_case(gen, D32_HALO_CASE, dtype)
+        d32_rows += halo_rows(inputs, case_errs, {dtype: {
+            name: [e] for name, e in case_errs.items()}}, D32_SUFFIX)
+        del inputs
     split = split_sequence_identity(gen)
     emit("split_sequence", **split)
 
@@ -6141,16 +6337,23 @@ def analysis_alone() -> dict:
 
 def d32_row_launches(rows: list[dict], cli: dict, halo_rows: list[dict]) -> list[dict]:
     """The D-32 rows' launches: their kernel's launches on the row's route
-    in the CLI's default run (phase 22, its first run on K1's own routes),
-    and in its first micro-batch;
-    each row also takes phase 11's time of its kernel with a halo at the
-    same shape."""
+    in phase 22's runs on K1's own routes (each CLI's first; f32 rows: the
+    training CLI's default run; bf16 rows: its ``--mixed_precision`` run
+    and, for K1-fwd, the sample CLI's), and per micro-batch; each row also
+    takes phase 11's time of its kernel with a halo at the same shape and
+    dtype."""
     halo = {row["name"].replace("_halo", ""): row for row in halo_rows}
     for row in rows:
+        f32 = row["name"].endswith(F32_SUFFIX)
         counter = row["name"].removesuffix(F32_SUFFIX).removesuffix(D32_SUFFIX)
-        row["launches"] = cli["launches_by_route"][counter][row["kernel_route"]]
-        row["launches_per_micro_batch"] = cli["launches_per_micro_batch"][counter]
-        row["launches_by_path"] = {"train_cli_default": row["launches"]}
+        paths = ({"train_cli_default": cli} if f32 else
+                 {"train_cli_mixed_precision": cli["mixed_precision"],
+                  "sample_cli": cli["sample_cli"]})
+        row["launches_by_path"] = {path: run["launches_by_route"][counter][row["kernel_route"]]
+                                   for path, run in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        train_run = cli if f32 else cli["mixed_precision"]
+        row["launches_per_micro_batch"] = train_run["launches_per_micro_batch"][counter]
         with_halo = halo[row["name"]]
         row["with_halo"] = {key: with_halo[key] for key in (
             "ms", "ms_without_halo", "wmma_route_ms", "wmma_route_ms_without_halo",

@@ -10,8 +10,10 @@ an int8 pool), warm in L2 and cold.
     python -m progen_tpu_torch.kernels.ablate [local_attention_bwd
                                                local_attention_bwd_f32
                                                local_attention_fwd
-                                               local_attention_fwd_d32 sgu_fwd
-                                               sgu_bwd paged_gate_mix]
+                                               local_attention_fwd_d32
+                                               local_attention_fwd_d32_bf16
+                                               local_attention_bwd_d32_bf16
+                                               sgu_fwd sgu_bwd paged_gate_mix]
 
 Variants, made from the source by text substitution (each substitution
 checked; the results are wrong, only the times count, except ``overlap``'s):
@@ -51,6 +53,17 @@ checked; the results are wrong, only the times count, except ``overlap``'s):
   (registers capped for two blocks an SM, the first design); K1-dkv
   ``whole`` (two blocks an SM) and ``three_blocks``; all right, and
   bit-equal to ``whole``.
+- bf16 K1-fwd and K1-dkv at dim_head 32 on the wgmma route (the sources
+  ``local_attention_fwd_d32_bf16`` and ``local_attention_bwd_d32_bf16``, at
+  the shapes of the f32 ones, in bf16): ``whole`` (a 4-stage ring; K1-dkv
+  three blocks an SM); ``stages_2`` and ``stages_6`` (a ring of 2 stages,
+  one tile in use and one in flight, or of 6); K1-dkv also ``two_blocks``
+  (registers capped for two blocks an SM, not three) and the two rings
+  under that cap (``two_blocks_stages_2``, ``two_blocks_stages_6``: at
+  three blocks an SM the ring's depth moves ptxas's spills), and
+  ``maxnreg_136`` (three blocks an SM with 136 registers a thread, the
+  most they leave, where the bound's 3 gives 128); all right, and
+  bit-equal to ``whole``.
 - f32 K2-dgate on the tf32x3 route (``sgu_bwd.cu``, at B = 8 in f32):
   ``whole`` (two blocks an SM, registers capped at 128) and ``one_block``
   (one block an SM, the cap lifted); both right.
@@ -83,6 +96,7 @@ JSON line of CUDA-event times (ms, ``chip_smoke.time_ms``'s and
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -269,7 +283,12 @@ FWD_D32_RESPLIT = ("      t3::FragA a;\n      t3::load_a(a, qw + 8 * kk, LD);\n"
 # a source that is another file's part -> that file
 FILES = {"local_attention_bwd_f32": "local_attention_bwd",
          "local_attention_fwd_d32": "local_attention_fwd",
-         "local_attention_bwd_d32": "local_attention_bwd"}
+         "local_attention_bwd_d32": "local_attention_bwd",
+         "local_attention_fwd_d32_bf16": "local_attention_fwd",
+         "local_attention_bwd_d32_bf16": "local_attention_bwd"}
+W32_STAGES_2 = [("constexpr int W32_STAGES = 4;", "constexpr int W32_STAGES = 2;", 1)]
+W32_STAGES_6 = [("constexpr int W32_STAGES = 4;", "constexpr int W32_STAGES = 6;", 1)]
+W32_TWO_BLOCKS = [("__launch_bounds__(w32::THREADS, 3)", "__launch_bounds__(w32::THREADS, 2)", 1)]
 
 # source -> (the text the Hopper kernels start at, stubs, variants); a
 # variant is a list of (text, replacement, occurrences after the start), or
@@ -321,6 +340,20 @@ SOURCES = {
         "three_blocks": [("__launch_bounds__(d32::THREADS, 2)",
                           "__launch_bounds__(d32::THREADS, 3)", 1)],
     }),
+    "local_attention_fwd_d32_bf16": ("// -- bf16 at dim_head 32: 64-byte-swizzled", "", {
+        "whole": [],
+        "stages_2": W32_STAGES_2,
+        "stages_6": W32_STAGES_6,
+    }),
+    "local_attention_bwd_d32_bf16": ("// -- K1-dkv in bf16 at dim_head 32", "", {
+        "whole": [],
+        "stages_2": W32_STAGES_2,
+        "stages_6": W32_STAGES_6,
+        "two_blocks": W32_TWO_BLOCKS,
+        "two_blocks_stages_2": W32_TWO_BLOCKS + W32_STAGES_2,
+        "two_blocks_stages_6": W32_TWO_BLOCKS + W32_STAGES_6,
+        "maxnreg_136": [("__launch_bounds__(w32::THREADS, 3)", "__maxnreg__(136)", 1)],
+    }),
     "sgu_bwd": ("namespace dg3 {", "", {
         "whole": [],
         "one_block": [("__launch_bounds__(dg3::THREADS, 2)", "__launch_bounds__(dg3::THREADS, 1)",
@@ -368,6 +401,8 @@ ENTRIES = {
     "local_attention_bwd_f32": (("local_attention_bwd_dq_tf32x3", 9),),
     "local_attention_fwd_d32": (("local_attention_fwd_tf32x3", 7),),
     "local_attention_bwd_d32": (("local_attention_bwd_dkv_tf32x3", 12),),
+    "local_attention_fwd_d32_bf16": (("local_attention_fwd_wgmma", 7),),
+    "local_attention_bwd_d32_bf16": (("local_attention_bwd_dkv_wgmma", 12),),
     "paged_gate_mix": (("paged_gate_mix_bulk", 8, 8), ("paged_gate_mix_q8_bulk", 10, 9),
                        ("paged_gate_mix", 6, 7), ("paged_gate_mix_q8", 8, 8)),
 }
@@ -578,15 +613,17 @@ def time_bwd_f32(lib, gen) -> list[dict]:
 
 
 D32_CASES = ((4, False), (32, False), (4, True))  # (batch, halo)
+D32_ROUTES = {torch.float32: "tf32x3", torch.bfloat16: "wgmma"}  # their entries' suffixes
 
 
-def d32_inputs(gen, batch: int, halo: bool):
-    """f32 q, k, v, dout (and a halo) at ProGen-default's head and window."""
+def d32_inputs(gen, batch: int, halo: bool, dtype=torch.float32):
+    """q, k, v, dout (and a halo) at ProGen-default's head and window."""
     heads, seq, dim_head, window = 3, 1024, 32, 512
-    q, k, v, do = (torch.randn(batch, heads, seq, dim_head, device="cuda", generator=gen)
-                   for _ in range(4))
-    kh, vh = ((torch.randn(batch, heads, window, dim_head, device="cuda", generator=gen)
-               for _ in range(2)) if halo else (None, None))
+    q, k, v, do = (torch.randn(batch, heads, seq, dim_head, device="cuda",
+                               generator=gen).to(dtype) for _ in range(4))
+    kh, vh = ((torch.randn(batch, heads, window, dim_head, device="cuda",
+                           generator=gen).to(dtype) for _ in range(2))
+              if halo else (None, None))
     return q, k, v, do, kh, vh, window
 
 
@@ -594,47 +631,49 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def time_fwd_d32(lib, gen) -> list[dict]:
-    """f32 K1-fwd at dim_head 32 on the tf32x3 route at ProGen-default's
-    head and window, B = 4 and 32 and B = 4 with a halo, and whether its
-    result is the library's own route's, bit for bit."""
+def time_fwd_d32(lib, gen, dtype=torch.float32) -> list[dict]:
+    """K1-fwd at dim_head 32 on its Hopper route (f32 ``tf32x3``, bf16
+    ``wgmma``) at ProGen-default's head and window, B = 4 and 32 and B = 4
+    with a halo, and whether its result is the library's own route's, bit
+    for bit."""
+    fn = getattr(lib, f"local_attention_fwd_{D32_ROUTES[dtype]}")
     rows = []
     for batch, halo in D32_CASES:
-        q, k, v, _, kh, vh, window = d32_inputs(gen, batch, halo)
+        q, k, v, _, kh, vh, window = d32_inputs(gen, batch, halo, dtype)
         b, h, n, d = q.shape
         out = torch.empty_like(q)
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kh), _ptr(vh), out.data_ptr(),
-                lse.data_ptr(), b * h, n, d, window, d ** -0.5, 0,
+                lse.data_ptr(), b * h, n, d, window, d ** -0.5, cuda_attention.DTYPES[dtype],
                 torch.cuda.current_stream().cuda_stream)
-        check(lib.local_attention_fwd_tf32x3(*args))
+        check(fn(*args))
         want_out, want_lse = cuda_attention.local_attention_fwd(q, k, v, window, None, kh, vh)
-        rows.append({"shape": list(q.shape), "window": window, "dtype": "float32",
-                     "halo": halo,
-                     "ms": time_ms(lambda: check(lib.local_attention_fwd_tf32x3(*args))),
+        rows.append({"shape": list(q.shape), "window": window, "dtype": str(dtype)[6:],
+                     "halo": halo, "ms": time_ms(lambda: check(fn(*args))),
                      "same_as_whole": torch.equal(out, want_out) and torch.equal(lse, want_lse)})
     return rows
 
 
-def time_dkv_d32(lib, gen) -> list[dict]:
-    """f32 K1-dkv at dim_head 32 on the tf32x3 route, as
-    :func:`time_fwd_d32` times K1-fwd."""
+def time_dkv_d32(lib, gen, dtype=torch.float32) -> list[dict]:
+    """K1-dkv at dim_head 32 on its Hopper route, as :func:`time_fwd_d32`
+    times K1-fwd."""
+    fn = getattr(lib, f"local_attention_bwd_dkv_{D32_ROUTES[dtype]}")
     rows = []
     for batch, halo in D32_CASES:
-        q, k, v, do, kh, vh, window = d32_inputs(gen, batch, halo)
+        q, k, v, do, kh, vh, window = d32_inputs(gen, batch, halo, dtype)
         b, h, n, d = q.shape
         out, lse = cuda_attention.local_attention_fwd(q, k, v, window, None, kh, vh)
-        dd = (do * out).sum(-1)
+        dd = (do.float() * out.float()).sum(-1)
         grads = [torch.empty_like(k), torch.empty_like(v),
                  *((torch.empty_like(kh), torch.empty_like(vh)) if halo else (None, None))]
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kh), _ptr(vh), do.data_ptr(),
                 lse.data_ptr(), dd.data_ptr(), *(_ptr(g) for g in grads), b * h, n, d,
-                window, d ** -0.5, 0, torch.cuda.current_stream().cuda_stream)
-        check(lib.local_attention_bwd_dkv_tf32x3(*args))
+                window, d ** -0.5, cuda_attention.DTYPES[dtype],
+                torch.cuda.current_stream().cuda_stream)
+        check(fn(*args))
         want = cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, window, None, kh, vh)
-        rows.append({"shape": list(q.shape), "window": window, "dtype": "float32",
-                     "halo": halo,
-                     "ms": time_ms(lambda: check(lib.local_attention_bwd_dkv_tf32x3(*args))),
+        rows.append({"shape": list(q.shape), "window": window, "dtype": str(dtype)[6:],
+                     "halo": halo, "ms": time_ms(lambda: check(fn(*args))),
                      "same_as_whole": all(torch.equal(g, w) for g, w in
                                           zip((g for g in grads if g is not None), want))})
     return rows
@@ -724,6 +763,8 @@ TIMERS = {"local_attention_bwd": time_bwd, "local_attention_fwd": time_fwd,
           "sgu_fwd": time_sgu, "sgu_bwd": time_sgu_bwd,
           "local_attention_bwd_f32": time_bwd_f32, "local_attention_fwd_d32": time_fwd_d32,
           "local_attention_bwd_d32": time_dkv_d32,
+          "local_attention_fwd_d32_bf16": functools.partial(time_fwd_d32, dtype=torch.bfloat16),
+          "local_attention_bwd_d32_bf16": functools.partial(time_dkv_d32, dtype=torch.bfloat16),
           "paged_gate_mix": time_paged}
 
 

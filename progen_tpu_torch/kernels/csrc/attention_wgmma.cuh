@@ -4,7 +4,9 @@
 // window, two consumer warpgroups of 64 rows and a producer whose one
 // thread streams 64-row tiles of the other side through a ring of
 // 128-byte-swizzled TMA stages; the tile walk; the products (s = A.B^T
-// from shared memory, acc += P.B with P as the register A operand).
+// from shared memory, acc += P.B with P as the register A operand).  At
+// dim_head 32 (`d32`: K1-fwd and K1-dkv) a bf16 row is 64 bytes, so the
+// tiles are 64-byte swizzled and a block is one consumer warpgroup.
 #pragma once
 
 #include <cuda.h>
@@ -138,6 +140,89 @@ inline bool tile_map(CUtensorMap* map, const void* base, long long rows, int d) 
   const cuuint32_t box[2] = {64, 64};
   return bf16_tensor_map(map, base, 2, dims, strides, box);
 }
+
+// dim_head 32 (ProGen-default), K1-fwd and K1-dkv in bf16: a bf16 row is
+// 64 bytes, so a tile is one (32 columns, 64 rows) box, 4 KB, with 64-byte
+// swizzle (the 128-byte maps above need 64 columns); a block is one
+// consumer warpgroup of 64 rows and one producer warp, several resident on
+// an SM, and its blocks run in the f32 route's longest-walk-first order
+// (attention_tf32x3.cuh, d32::fwd_block_row and d32::dkv_block_row: the
+// same 64-row blocks).
+namespace d32 {
+
+constexpr int D = 32;
+constexpr int ROWS = 64;              // rows a block owns, and of a streamed tile
+constexpr int TILE = ROWS * D * 2;    // one 64-row bf16 tile, 4 KB
+constexpr int CONSUMERS = 128;        // threads 0-127 consume, 128-159 produce
+constexpr int THREADS = CONSUMERS + 32;
+constexpr int SWIZZLE = 512;          // bytes of a 64-byte-swizzle atom (8 rows)
+constexpr float LN2 = 0.6931471805599453f;
+
+// Each of the ring's `stages` `full` barriers takes the producer's one
+// arrival (and the bytes of its copies), each `empty` barrier the consumer
+// warpgroup's one; `resident` takes the block's own tiles.
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty,
+                                              uint64_t* resident, int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init(resident, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// s[64 x 64] = A_rows . B_rows^T over D = 32: both tiles K-major, two
+// k-steps of 16 columns (32 bytes) inside each 64-byte row.
+__device__ __forceinline__ void scores(float (&s)[32], const unsigned char* a,
+                                       const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_m64n64k16<0, 0>(s, sw64_desc(a + 32 * kk, 16, SWIZZLE),
+                          sw64_desc(b + 32 * kk, 16, SWIZZLE), 1);
+  }
+}
+
+// acc[64 x 32] += P[64 x 64] . B_tile[64 x 32]: P from registers (four
+// 16-wide slices), the tile an N-major operand one swizzle atom wide, its
+// 16-row slice k at 1024 k bytes.
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&p)[4][4],
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    wgmma_m64n32k16_rs<1>(acc, p[k], sw64_desc(b + 16 * D * 2 * k, TILE, SWIZZLE), 1);
+  }
+}
+
+// A warpgroup's 64 x 32 f32 fragment (rows lr and lr + 8, columns
+// 8 i + 2 (lane % 4) and the next) times mul[h] for row lr + 8 h, cast once
+// and written to the 64 rows at `dst` (32 bf16 each).
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
+                                           const float (&acc)[D / 2], const float (&mul)[2]) {
+  const int lane = threadIdx.x % 32;
+  const int lr = 16 * ((threadIdx.x % CONSUMERS) / 32) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + (lr + 8 * h) * D + 8 * i + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * h] * mul[h], acc[4 * i + 2 * h + 1] * mul[h]);
+    }
+  }
+}
+
+// (rows, 32) bf16 as a tensor map of (32 columns, 64 rows) boxes, 64-byte
+// swizzled.
+inline bool tile_map(CUtensorMap* map, const void* base, long long rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {D, ROWS};
+  return bf16_tensor_map(map, base, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+}  // namespace d32
 
 }  // namespace wgmma
 }  // namespace attention

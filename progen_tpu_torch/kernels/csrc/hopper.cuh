@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers (with a
-// bounded wait that traps), TMA tile loads with 128-byte swizzle and plain
-// bulk copies, cp.async copies in groups, wgmma shared-memory descriptors,
-// the bf16 m64n128k16 and
-// m64n64k16 products with f32 accumulators (operand A from shared memory or
-// from registers), and, on the host, the driver's tensor-map encoder reached
-// through the runtime, so a kernel's library builds with one plain nvcc and
-// no -lcuda.
+// bounded wait that traps), TMA tile loads with 128-byte (or 64-byte)
+// swizzle and plain bulk copies, cp.async copies in groups, wgmma
+// shared-memory descriptors, the bf16 m64n128k16 and m64n64k16 products
+// with f32 accumulators (operand A from shared memory or from registers)
+// and m64n32k16 with A from registers, and, on the host, the driver's
+// tensor-map encoder reached through the runtime, so a kernel's library
+// builds with one plain nvcc and no -lcuda.
 #pragma once
 
 #include <cuda.h>
@@ -191,6 +191,20 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
   return desc;
 }
 
+// The wgmma descriptor of an operand laid out by a TMA copy with 64-byte
+// swizzle (rows of 64 bytes, 8-row atoms of 512 bytes, the atom 512-byte
+// aligned; 16-byte chunk j of row r at j ^ ((r / 2) % 4)).  sbo: bytes
+// between 8-row groups along the strided dimension; lbo: bytes between
+// 32-element blocks along MN of an MN-major operand (unused by a K-major
+// one, and by an MN-major one 32 elements wide).
+__device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  uint64_t desc = (smem_addr(p) & 0x3FFFF) >> 4;
+  desc |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  desc |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  desc |= static_cast<uint64_t>(2) << 62;  // 64-byte swizzle
+  return desc;
+}
+
 // d[64x128] += A[64x16] . B[16x128], bf16 operands from shared memory, f32
 // accumulators in the warpgroup's registers.  TRANS_A = 0: A is K-major
 // (K contiguous), 1: M-major; TRANS_B = 0: B is K-major, 1: N-major.
@@ -310,6 +324,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "r"(accumulate));
 }
 
+// d[64x32] += A[64x16] . B[16x32], A from registers as above; the fragment is
+// m64n128k16's for i < 4 (columns c = 8 i + 2 (t % 4)).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %21;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B),
+        "r"(accumulate));
+}
+
 // Two f32 values as one register of bf16 (round to nearest even), lo in the
 // low half: an element pair of a register-A operand.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -349,16 +383,18 @@ inline EncodeTiled tensor_map_encoder() {
 // A tensor map of a bf16 tensor of `rank` dimensions (innermost first, the
 // innermost contiguous), `strides` the bytes between neighbours along each
 // dimension but the innermost (multiples of 16), copied as `box` tiles with
-// 128-byte swizzle (box[0] * 2 == 128) and zeros outside the tensor.
+// 128-byte swizzle (box[0] * 2 == 128; or `swizzle` 64-byte, box[0] * 2 ==
+// 64) and zeros outside the tensor.
 inline bool bf16_tensor_map(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+                            const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -37,7 +37,8 @@
 // extern "C" names:
 //
 // "wgmma" (local_attention_bwd_{dq,dkv}_wgmma): bf16, dim_head 64 or 128,
-// windows that are multiples of 128 (every shipped config but `default`).
+// windows that are multiples of 128 (every shipped config but `default`;
+// K1-dkv at dim_head 32 below).
 // A block of three warpgroups owns 128 rows of one window: query rows for
 // dq, key rows for dkv.  One producer thread keeps their own tiles resident
 // in shared memory (q and dout, or k and v) and streams 64-row tiles of the
@@ -56,6 +57,28 @@
 // registers) or skipped, and only the tiles some warpgroup sees are loaded.
 // Every output element is written by one block, once: no atomics, the same
 // bits every run.
+//
+// K1-dkv in bf16 at dim_head 32 (ProGen-default under `train
+// --mixed_precision`) has a kernel of its own on the same route, reached
+// through local_attention_bwd_dkv_wgmma (K1-dq's wgmma entry refuses
+// dim_head 32: it stays on "wmma").  It replaced the "wmma" kernel there
+// (0.0998 ms at B 4 and 0.3642 at B 32 on an H100, 1.85x and 1.30x one
+// scaled_dot_product_attention backward of dq, dk and dv together).  What
+// bounds it: 1.61 GFLOP at B 4 (0.0016 ms at the bf16 peak) over 4.8 MB,
+// and one ex2 a visible pair (0.0015 ms at B 4 on the SFUs).  At dim_head
+// 32 dk and dv take 32 registers a thread beside 64 for a tile's s^T and
+// dp^T, so one pass fits (the dim_head-128 design makes two, one ex2 a pair
+// each): a block is one consumer warpgroup of 64 keys and one producer
+// warp (attention_wgmma.cuh, d32), 44 KB of shared memory, launched longest
+// walk first (d32::dkv_block_row: the f32 route's 64-key blocks, the
+// halo's last); k and v arrive once, and the 64-query tiles of q and dout
+// with their lse and D values through a 4-stage ring of 64-byte-swizzled
+// TMA boxes.  Per tile s^T = k.q^T and dp^T = v.dout^T by wgmma m64n64k16
+// from shared memory, p^T and ds^T in registers, then dv += p^T.dout and
+// dk += ds^T.q by wgmma m64n32k16 with p^T and ds^T as bf16 register A
+// operands and dout and q N-major; dk is scaled once.  A block's first tile
+// is its diagonal one (masked in registers); every output element is
+// written by one thread, once.
 //
 // "tf32x3" (local_attention_bwd_{dq,dkv}_tf32x3): f32 with dim_head 64 or
 // 128 and windows that are multiples of 128 (the "wgmma" route's shapes;
@@ -110,7 +133,7 @@
 // atomics: the same bits every run.
 //
 // "wmma" (local_attention_bwd_{dq,dkv}): windows that are not a multiple of
-// 128, bf16 and K1-dq at dim_head 32, and what a caller forces onto it.  One block of 4 warps owns 64 rows,
+// 128, K1-dq at dim_head 32, and what a caller forces onto it.  One block of 4 warps owns 64 rows,
 // each warp 16 of them.  The block streams tiles of the other side (64 rows
 // in bf16, 32 in f32, so the f32 tiles fit in shared memory at D = 128) and
 // skips the tiles that no row of the block sees; visibility is decided per
@@ -940,6 +963,155 @@ cudaError_t launch_dq_tf32x3(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+// -- K1-dkv in bf16 at dim_head 32: 64-byte-swizzled TMA into wgmma ---------
+
+namespace w32 = progen::attention::wgmma::d32;
+
+constexpr int W32_STAGES = 4;  // the ring's depth
+
+// Shared memory: the block's 64-row k and v tiles, then the ring's stages of
+// a q and a dout tile (one 64-byte-swizzled box each), then each stage's 64
+// lse and 64 D values, then the barriers: 44,104 bytes with the alignment
+// slack.
+struct Dkv32Layout {
+  static constexpr int RES = 0;
+  static constexpr int RING = RES + 2 * w32::TILE;
+  static constexpr int STAGE = 2 * w32::TILE;
+  static constexpr int ROWV = 2 * w32::ROWS * 4;
+  static constexpr int ROWVALS = RING + W32_STAGES * STAGE;
+  static constexpr int BARS = ROWVALS + W32_STAGES * ROWV;
+  static constexpr size_t SMEM = 1024 + BARS + (2 * W32_STAGES + 1) * sizeof(uint64_t);
+};
+
+// K1-dkv, bf16, dim_head 32: block blk owns key rows [b0, b0 + 64)
+// (d32::dkv_block_row of rank blk / bh, longest walk first; the halo's
+// blocks, b0 < 0, last) of sequence blk % bh, and computes their dk and dv in
+// one pass over the 64-query tiles of their users, from b0 to the end of
+// the next window (a halo block: window 0's queries, every pair visible).
+// The producer warp's first thread loads k and v once and streams the q and
+// dout tiles with their 64 lse and D values; per tile the consumer
+// warpgroup forms s^T = k.q^T and dp^T = v.dout^T by wgmma from shared
+// memory, p^T = 2^(s^T scale log2 e - lse log2 e) and ds^T = p^T (dp^T - D)
+// in registers, and dv += p^T.dout and dk += ds^T.q with p^T and ds^T as
+// bf16 register A operands (the casts the TPU kernel makes); dk and dv stay
+// in registers and dk is scaled once.  The first tile of a block of real
+// keys is its diagonal tile, masked in registers.
+__global__ void __launch_bounds__(w32::THREADS, 3)
+local_attention_dkv_d32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const __grid_constant__ CUtensorMap do_map,
+                                     const __grid_constant__ CUtensorMap kh_map,
+                                     const __grid_constant__ CUtensorMap vh_map,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ dd, bf16* __restrict__ dk,
+                                     bf16* __restrict__ dv, bf16* __restrict__ dk_halo,
+                                     bf16* __restrict__ dv_halo, int bh, int seq, int wsz,
+                                     float scale) {
+  using S = Dkv32Layout;
+  constexpr int STAGES = W32_STAGES, TILE = w32::TILE, ROWS = w32::ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
+
+  const int b0 = d32::dkv_block_row(blockIdx.x / bh, seq, wsz);
+  const bool hb = b0 < 0;
+  const int row0 = (blockIdx.x % bh) * seq;
+  const int krow = hb ? (blockIdx.x % bh) * wsz + wsz + b0 : row0 + b0;  // k's (or the halo's)
+  const int i_first = hb ? 0 : b0;
+  const int i_end = hb ? wsz : min((b0 / wsz + 2) * wsz, seq);
+  const int tiles = (i_end - i_first) / ROWS;
+  w32::init_barriers(full, empty, resident, STAGES);
+
+  if (threadIdx.x >= w32::CONSUMERS) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == w32::CONSUMERS) {
+      mbar_expect_tx(resident, 2 * TILE);
+      tma_load_2d(smem + S::RES, hb ? &kh_map : &k_map, resident, 0, krow);
+      tma_load_2d(smem + S::RES + TILE, hb ? &vh_map : &v_map, resident, 0, krow);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % STAGES, row = row0 + i_first + ROWS * it;
+        mbar_wait_or_trap(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* buf = smem + S::RING + s * S::STAGE;
+        float* rowv = reinterpret_cast<float*>(smem + S::ROWVALS + s * S::ROWV);
+        mbar_expect_tx(&full[s], S::STAGE + S::ROWV);
+        tma_load_2d(buf, &q_map, &full[s], 0, row);
+        tma_load_2d(buf + TILE, &do_map, &full[s], 0, row);
+        bulk_load(rowv, lse + row, ROWS * 4, &full[s]);
+        bulk_load(rowv + ROWS, dd + row, ROWS * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int lr = 16 * (tid / 32) + lane / 4;  // this thread's key rows: lr, lr + 8
+  const float scale2 = scale * wgmma::LOG2E;
+  const unsigned char* ks = smem + S::RES;
+  const unsigned char* vs = ks + TILE;
+  float acc_k[w32::D / 2], acc_v[w32::D / 2];
+#pragma unroll
+  for (int i = 0; i < w32::D / 2; ++i) acc_k[i] = acc_v[i] = 0.0f;
+  mbar_wait_or_trap(resident, 0);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % STAGES;
+    const bool diagonal = !hb && it == 0;  // queries i0 + c see key b0 + r only if c >= r
+    mbar_wait_or_trap(&full[s], (it / STAGES) & 1);
+    const unsigned char* qs = smem + S::RING + s * S::STAGE;
+    const unsigned char* dos = qs + TILE;
+    const float* rowv = reinterpret_cast<const float*>(smem + S::ROWVALS + s * S::ROWV);
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
+    wgmma_fence();
+    w32::scores(st, ks, qs);
+    w32::scores(dpt, vs, dos);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+    // fragment element 4 i + 2 h + x: key row lr + 8 h, query column
+    // c = 8 i + 2 (lane % 4) + x of the tile
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = 8 * i + 2 * (lane % 4);
+      const float2 l = *reinterpret_cast<const float2*>(rowv + c);
+      const float2 d = *reinterpret_cast<const float2*>(rowv + ROWS + c);
+      const float lse2[2] = {l.x * wgmma::LOG2E, l.y * wgmma::LOG2E}, dd_c[2] = {d.x, d.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 4 * i + 2 * h + x;
+          p[x] = ds[x] = 0.0f;
+          if (!diagonal || c + x >= lr + 8 * h) {
+            p[x] = exp2f(fmaf(st[e], scale2, -lse2[x]));
+            ds[x] = p[x] * (dpt[e] - dd_c[x]);
+          }
+        }
+        wgmma::a_slot(pa, i, h) = pack_bf16(p[0], p[1]);
+        wgmma::a_slot(da, i, h) = pack_bf16(ds[0], ds[1]);
+      }
+    }
+    wgmma_fence();
+    w32::accumulate(acc_v, pa, dos);
+    w32::accumulate(acc_k, da, qs);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc_v);
+    fence_operands(acc_k);
+    if (tid == 0) mbar_arrive(&empty[s]);
+  }
+
+  const float by_scale[2] = {scale, scale}, by_one[2] = {1.0f, 1.0f};
+  w32::store_rows((hb ? dk_halo : dk) + static_cast<size_t>(krow) * w32::D, acc_k, by_scale);
+  w32::store_rows((hb ? dv_halo : dv) + static_cast<size_t>(krow) * w32::D, acc_v, by_one);
+}
+
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
 
 namespace wg {
@@ -1467,11 +1639,43 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, Halo h
   return cudaGetLastError();
 }
 
-// The wgmma route takes bf16, dim_head 64 or 128 and windows that are
-// multiples of 128 (cuda_attention.bwd_route decides before the launch).
-bool bad_wgmma_shape(int bh, int seq, int dim_head, int wsz, int dtype) {
+cudaError_t launch_dkv_wgmma_d32(const void* q, const void* k, const void* v, Halo halo,
+                                 const void* dout, const void* lse, const void* dd, void* dk,
+                                 void* dv, int bh, int seq, int wsz, float scale,
+                                 cudaStream_t stream) {
+  const long long rows = static_cast<long long>(bh) * seq;
+  const long long halo_rows = static_cast<long long>(bh) * wsz;
+  CUtensorMap m[6];
+  if (!(w32::tile_map(&m[0], q, rows) && w32::tile_map(&m[1], k, rows) &&
+        w32::tile_map(&m[2], v, rows) && w32::tile_map(&m[3], dout, rows))) {
+    return cudaErrorInvalidValue;
+  }
+  m[4] = m[1];  // k's and v's own when there is no halo, never read
+  m[5] = m[2];
+  if (halo.on() && !(w32::tile_map(&m[4], halo.k, halo_rows) &&
+                     w32::tile_map(&m[5], halo.v, halo_rows))) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t bytes = Dkv32Layout::SMEM;
+  auto kernel = local_attention_dkv_d32_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (seq + (halo.on() ? wsz : 0)) / w32::ROWS;
+  kernel<<<blocks * bh, w32::THREADS, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<bf16*>(halo.dk), static_cast<bf16*>(halo.dv), bh, seq, wsz, scale);
+  return cudaGetLastError();
+}
+
+// The wgmma route takes bf16, dim_head 64 or 128 (and 32 for K1-dkv,
+// `d32`) and windows that are multiples of 128 (cuda_attention.dq_route and
+// dkv_route decide before the launch).
+bool bad_wgmma_shape(int bh, int seq, int dim_head, int wsz, int dtype,
+                     bool takes_d32 = false) {
   return bad_shape(bh, seq, wsz) || dtype != 1 || wsz % wg::ROWS != 0 ||
-         (dim_head != 64 && dim_head != 128) ||
+         (dim_head != 64 && dim_head != 128 && !(takes_d32 && dim_head == 32)) ||
          static_cast<long long>(bh) * seq > 0x7FFFFFFF;
 }
 
@@ -1550,7 +1754,8 @@ extern "C" int local_attention_bwd_dq_wgmma(const void* q, const void* k, const 
   return static_cast<int>(err);
 }
 
-// The wgmma route of K1-dkv, as above.
+// The wgmma route of K1-dkv, as above, and dim_head 32 too (its own kernel,
+// 64-key blocks in one pass).
 extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                                              const void* k_halo, const void* v_halo,
                                              const void* dout, const void* lse,
@@ -1559,13 +1764,16 @@ extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const
                                              int dim_head, int wsz, float scale, int dtype,
                                              void* stream) {
   const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
-  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype) || bad_halo(halo, true)) {
+  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype, true) || bad_halo(halo, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dim_head == 64
-      ? launch_dkv_wgmma<64>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
-      : launch_dkv_wgmma<128>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
+  cudaError_t err =
+      dim_head == 32
+          ? launch_dkv_wgmma_d32(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
+      : dim_head == 64
+          ? launch_dkv_wgmma<64>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s)
+          : launch_dkv_wgmma<128>(q, k, v, halo, dout, lse, dd, dk, dv, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }
 

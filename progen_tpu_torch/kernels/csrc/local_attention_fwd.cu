@@ -25,7 +25,8 @@
 // the dtype, dim_head and window alone, each under its own extern "C" name:
 //
 // "wgmma" (local_attention_fwd_wgmma): bf16, dim_head 64 or 128, windows
-// that are multiples of 128 (every shipped config but `default`).  It walks
+// that are multiples of 128 (every shipped config but `default`; dim_head
+// 32 has a kernel of its own, below).  It walks
 // exactly what K1-dq walks (attention_wgmma.cuh): a block of three
 // warpgroups owns 128 query rows of one window, q resident in shared memory
 // by TMA; the producer's one thread streams the 64-key k and v tiles the
@@ -45,6 +46,32 @@
 // TPU's.  Blocks run longest walk first (k1_fwd_block).  Every output
 // element is written by one block, once: no atomics, the same bits every
 // run; every mbarrier wait traps rather than hangs.
+//
+// At dim_head 32 (ProGen-default: the sample CLI, which computes in bf16,
+// and `train --mixed_precision`; H 3, L 1024, window 512) the same route
+// has a kernel of its own, reached through the same extern "C" name.  It
+// replaced the "wmma" kernel there (0.0788 ms at B 4 and 0.2707 at B 32 on
+// an H100, 2.56x and 2.22x one bf16 scaled_dot_product_attention call).
+// What bounds it: not the bytes (3.2 MB at B 4, 0.00095 ms) nor the products
+// (0.81 GFLOP, 0.0008 ms at the bf16 peak) but the exponentials: one ex2 a
+// visible pair, 6,297,600 pairs at B 4 and 50.4 M at B 32, at 16 a clock
+// on each of 132 SMs at 1.98 GHz are 0.0015 and 0.0121 ms; a 64 x 64 tile
+// costs 4,096 ex2 (256 clocks of one SM's SFUs) against 0.5 MFLOP of
+// products (~128 clocks of wgmma).  So the design keeps the SFUs fed: a
+// block is one consumer warpgroup of 64 query rows and one producer warp
+// (attention_wgmma.cuh, d32), 37 KB of shared memory, four resident on an
+// SM (192 blocks at B 4 where 128-row blocks would leave 96 for 132 SMs),
+// launched longest walk first (d32::fwd_block_row, the f32 route's 64-row
+// walk); q arrives once and the 64-key k and v tiles through a 4-stage
+// ring, each a (32, 64) TMA box with 64-byte swizzle (a bf16 row of
+// dim_head 32 is 64 bytes: the 128-byte maps need 64 columns).  Per tile
+// s = q.k^T is two wgmma m64n64k16 from shared memory (64-byte-swizzle
+// descriptors), the online softmax runs on the f32 fragment in registers
+// (exp2 with the scale folded in), and o += p.v is four wgmma m64n32k16
+// with p as the bf16 register A operand and v N-major.  Only the last tile
+// of a walk is the diagonal one, masked in registers; the phantom window is
+// the exact term above, and with a halo window 0 streams the halo's tiles
+// first.  Every output element is written by one thread, once.
 //
 // "tf32x3" (local_attention_fwd_tf32x3): f32 with dim_head 64 or 128 and
 // windows that are multiples of 128, the shapes of the "wgmma" route (f32
@@ -85,7 +112,7 @@
 // at a time.
 //
 // "wmma" (local_attention_fwd): windows that are not a multiple of 128,
-// bf16 at dim_head 32, and what a caller forces onto it.  Flash-style, one block of 4 warps per (b*h, 64 query
+// and what a caller forces onto it.  Flash-style, one block of 4 warps per (b*h, 64 query
 // rows); each warp owns 16 rows.  The block walks 64-key tiles over the
 // extended key range [window start of its first row - wsz, its last row];
 // a key tile row before position 0 is loaded as zeros (the phantom
@@ -634,6 +661,196 @@ cudaError_t launch_tf32x3_d32(const void* q, const void* k, const void* v, const
   return cudaGetLastError();
 }
 
+// -- bf16 at dim_head 32: 64-byte-swizzled TMA into wgmma (the "wgmma" route)
+
+namespace w32 = progen::attention::wgmma::d32;
+
+constexpr int W32_STAGES = 4;  // the ring's depth
+
+// Shared memory: the block's 64-row q tile, then the ring's stages of a k
+// and a v tile (one 64-byte-swizzled box each), then the barriers: 37,960
+// bytes with the alignment slack.
+struct W32Layout {
+  static constexpr int RES = 0;
+  static constexpr int RING = RES + w32::TILE;
+  static constexpr int STAGE = 2 * w32::TILE;
+  static constexpr int BARS = RING + W32_STAGES * STAGE;
+  static constexpr size_t SMEM = 1024 + BARS + (2 * W32_STAGES + 1) * sizeof(uint64_t);
+};
+
+// K1-fwd, bf16, dim_head 32: block blk owns query rows [b0, b0 + 64) of row
+// block blk / bh (d32::fwd_block_row, longest walk first) of sequence
+// blk % bh.  The producer warp's first thread loads q once and streams the
+// 64-key k and v tiles from the previous window's first (the halo's maps at
+// t0 < 0 when `halo` is set) to b0, the last one the diagonal tile; the
+// consumer warpgroup forms s = q.k^T by wgmma from shared memory, p in
+// registers by an online softmax (exp2 with the scale folded in), and
+// o += p.v with p as the register A operand; o stays in registers.
+__global__ void __launch_bounds__(w32::THREADS, 4)
+local_attention_fwd_d32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const __grid_constant__ CUtensorMap kh_map,
+                                     const __grid_constant__ CUtensorMap vh_map,
+                                     bf16* __restrict__ out, float* __restrict__ lse, int bh,
+                                     int seq, int wsz, float scale, int halo) {
+  using namespace progen::hopper;
+  using S = W32Layout;
+  constexpr int STAGES = W32_STAGES, TILE = w32::TILE, ROWS = w32::ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
+
+  const int b0 = d32::fwd_block_row(blockIdx.x / bh, seq, wsz);
+  const int row0 = (blockIdx.x % bh) * seq;
+  const int hrow0 = (blockIdx.x % bh) * wsz;  // this sequence's halo rows
+  const int first = wg::dq_first(b0, wsz, halo);
+  const int tiles = (b0 + ROWS - first) / ROWS;
+  w32::init_barriers(full, empty, resident, STAGES);
+
+  if (threadIdx.x >= w32::CONSUMERS) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == w32::CONSUMERS) {
+      mbar_expect_tx(resident, TILE);
+      tma_load_2d(smem + S::RES, &q_map, resident, 0, row0 + b0);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % STAGES, t0 = first + ROWS * it;
+        mbar_wait_or_trap(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* buf = smem + S::RING + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::STAGE);
+        const bool from_halo = t0 < 0;  // window 0's previous window: the halo
+        const int row = from_halo ? hrow0 + wsz + t0 : row0 + t0;
+        tma_load_2d(buf, from_halo ? &kh_map : &k_map, &full[s], 0, row);
+        tma_load_2d(buf + TILE, from_halo ? &vh_map : &v_map, &full[s], 0, row);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int lr = 16 * (tid / 32) + lane / 4;  // this thread's rows: lr, lr + 8
+  const float scale2 = scale * wg::LOG2E;     // logits in log2 units
+  const bool phantom = b0 < wsz && !halo;     // window 0: wsz zero logits too
+  const unsigned char* qs = smem + S::RES;
+  // the running max of each row (log2 units), and this thread's share of
+  // each row's denominator at that max
+  float mx[2], den[2] = {0.0f, 0.0f};
+  mx[0] = mx[1] = phantom ? 0.0f : -1e30f;
+  float acc[w32::D / 2];
+#pragma unroll
+  for (int i = 0; i < w32::D / 2; ++i) acc[i] = 0.0f;
+  mbar_wait_or_trap(resident, 0);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % STAGES;
+    const bool diagonal = it == tiles - 1;  // every earlier tile's keys precede every row
+    mbar_wait_or_trap(&full[s], (it / STAGES) & 1);
+    const unsigned char* ks = smem + S::RING + s * S::STAGE;
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    wgmma_fence();
+    w32::scores(sc, qs, ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    // fragment element 4 i + 2 h + x: row lr + 8 h, key column
+    // 8 i + 2 (lane % 4) + x; on the diagonal tile key c sees row r only if
+    // c <= r
+    float top[2] = {mx[0], mx[1]};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 4 * i + 2 * h + x;
+          const bool seen = !diagonal || 8 * i + 2 * (lane % 4) + x <= lr + 8 * h;
+          const float v = seen ? sc[e] * scale2 : -INFINITY;
+          sc[e] = v;
+          top[h] = fmaxf(top[h], v);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 1));
+      top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 2));
+      alpha[h] = exp2f(mx[h] - top[h]);
+      mx[h] = top[h];
+      den[h] *= alpha[h];
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = exp2f(sc[4 * i + 2 * h] - mx[h]);
+        const float p1 = exp2f(sc[4 * i + 2 * h + 1] - mx[h]);
+        den[h] += p0 + p1;
+        wg::a_slot(pa, i, h) = pack_bf16(p0, p1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < w32::D / 8; ++i) {
+      acc[4 * i] *= alpha[0];
+      acc[4 * i + 1] *= alpha[0];
+      acc[4 * i + 2] *= alpha[1];
+      acc[4 * i + 3] *= alpha[1];
+    }
+    wgmma_fence();
+    w32::accumulate(acc, pa, ks + TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (tid == 0) mbar_arrive(&empty[s]);
+  }
+
+  // the quad's shares of each denominator, the phantom's wsz zero logits
+  // (2^(0 - max) each), then out = o / denominator and lse = max + log
+  float inv[2];
+  const size_t at = static_cast<size_t>(row0) + b0 + lr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 1);
+    den[h] += __shfl_xor_sync(0xffffffffu, den[h], 2);
+    if (phantom) den[h] += static_cast<float>(wsz) * exp2f(-mx[h]);
+    inv[h] = 1.0f / den[h];
+    if (lane % 4 == 0) lse[at + 8 * h] = mx[h] * w32::LN2 + logf(den[h]);
+  }
+  w32::store_rows(out + (static_cast<size_t>(row0) + b0) * w32::D, acc, inv);
+}
+
+cudaError_t launch_wgmma_d32(const void* q, const void* k, const void* v, const void* k_halo,
+                             const void* v_halo, void* out, void* lse, int bh, int seq,
+                             int wsz, float scale, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(bh) * seq;
+  const long long halo_rows = static_cast<long long>(bh) * wsz;
+  const int halo = k_halo != nullptr;
+  CUtensorMap q_map, k_map, v_map, kh_map, vh_map;
+  if (!w32::tile_map(&q_map, q, rows) || !w32::tile_map(&k_map, k, rows) ||
+      !w32::tile_map(&v_map, v, rows)) {
+    return cudaErrorInvalidValue;
+  }
+  kh_map = k_map;  // never read without a halo
+  vh_map = v_map;
+  if (halo && (!w32::tile_map(&kh_map, k_halo, halo_rows) ||
+               !w32::tile_map(&vh_map, v_halo, halo_rows))) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr size_t bytes = W32Layout::SMEM;
+  auto kernel = local_attention_fwd_d32_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<(seq / w32::ROWS) * bh, w32::THREADS, bytes, stream>>>(
+      q_map, k_map, v_map, kh_map, vh_map, static_cast<bf16*>(out), static_cast<float*>(lse),
+      bh, seq, wsz, scale, halo);
+  return cudaGetLastError();
+}
+
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
 
 namespace fwg {
@@ -891,23 +1108,26 @@ extern "C" int local_attention_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-// The wgmma route of K1-fwd: bfloat16 only (dtype 1), dim_head 64 or 128,
-// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
-// local_attention_fwd.  Returns the CUDA error code of the launch (0 = ok).
+// The wgmma route of K1-fwd: bfloat16 only (dtype 1), dim_head 32, 64 or
+// 128 (32: its own kernel, 64-row blocks), wsz a multiple of 128, every
+// pointer 16-byte aligned; arguments as for local_attention_fwd.  Returns
+// the CUDA error code of the launch (0 = ok).
 extern "C" int local_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* k_halo, const void* v_halo, void* out,
                                          void* lse, int bh, int seq, int dim_head, int wsz,
                                          float scale, int dtype, void* stream) {
   if (bh <= 0 || seq <= 0 || wsz <= 0 || seq % wsz != 0 || dtype != 1 ||
-      (k_halo == nullptr) != (v_halo == nullptr) ||
-      wsz % fwg::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
+      (k_halo == nullptr) != (v_halo == nullptr) || wsz % fwg::ROWS != 0 ||
+      (dim_head != 32 && dim_head != 64 && dim_head != 128) ||
       static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dim_head == 64
-      ? launch_wgmma<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
-      : launch_wgmma<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
+  cudaError_t err =
+      dim_head == 32 ? launch_wgmma_d32(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
+      : dim_head == 64
+          ? launch_wgmma<64>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s)
+          : launch_wgmma<128>(q, k, v, k_halo, v_halo, out, lse, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }
 

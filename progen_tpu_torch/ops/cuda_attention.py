@@ -19,8 +19,10 @@ window alone.  ``dim_head`` 64 or 128 with a window that is a multiple of
 bf16 a TMA ring into ``wgmma`` (``"wgmma"``), in f32 the tensor cores as
 three TF32 products a product (``"tf32x3"``, a ``cp.async`` ring into
 ``mma.sync``), all three kernels in both.  At ``dim_head`` 32 (``default``)
-with such a window, K1-fwd and K1-dkv in f32 take ``"tf32x3"`` too, in
-blocks of 64 rows that hold their own operand's split in registers.
+with such a window, K1-fwd and K1-dkv take the Hopper kernels too, in
+blocks of 64 rows: in bf16 one consumer warpgroup fed by 64-byte-swizzled
+TMA copies (``"wgmma"``), in f32 four warps that hold their own operand's
+split in registers (``"tf32x3"``); K1-dq there stays on ``"wmma"``.
 Everything else takes the WMMA kernels (``"wmma"``; their f32 products are
 FMA loops).  A failure on one route raises; it never tries another.  ``fwd_route_launches``,
 ``dq_route_launches`` and ``dkv_route_launches`` count the launches of each
@@ -66,9 +68,10 @@ BWD_TILE = 64
 TF32X3_WARP_ROWS = 16
 TF32X3_BWD_TILE = 32
 WGMMA_DIM_HEADS = (64, 128)
-# dim_head 32 in f32 (attention_tf32x3.cuh, d32): K1-fwd and K1-dkv in
-# blocks of 64 rows (four warps of 16) streaming tiles of 64 keys (K1-fwd)
-# or 32 queries (K1-dkv); K1-dq stays on "wmma"
+# dim_head 32: K1-fwd and K1-dkv in blocks of 64 rows, in f32
+# (attention_tf32x3.cuh, d32) four warps of 16 streaming tiles of 64 keys
+# (K1-fwd) or 32 queries (K1-dkv), in bf16 (attention_wgmma.cuh, d32) one
+# warpgroup streaming tiles of 64 keys or 64 queries; K1-dq stays on "wmma"
 D32_ROWS = 64
 D32_KEYS = 64
 # each route's extern "C" suffix
@@ -199,11 +202,10 @@ def dq_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
 
 def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
     """Which K1-fwd kernel takes these shapes: :func:`dq_route`'s rule, and
-    ``"tf32x3"`` also in f32 at ``dim_head`` 32 with a window that is a
-    multiple of 128."""
-    if (dtype == torch.float32 and dim_head == 32 and window_size > 0
-            and window_size % BWD_ROWS == 0):
-        return "tf32x3"
+    at ``dim_head`` 32 with a window that is a multiple of 128 also the
+    Hopper kernels (``"wgmma"`` in bf16, ``"tf32x3"`` in f32)."""
+    if dim_head == 32 and window_size > 0 and window_size % BWD_ROWS == 0:
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return dq_route(dtype, dim_head, window_size)
 
 
@@ -224,8 +226,9 @@ def k1_fwd_tiles(n: int, window_size: int, halo: bool = False, block: int = BWD_
     ``(r0, t0, kind)``, ``kind`` one of ``"full"``, ``"diagonal"`` (the
     causal mask inside the tile) and ``"skipped"``.  The defaults are the
     128-row blocks of both routes at dim_head 64 and 128 (two warpgroups of
-    64 rows; the f32 route's warps cut each in four); dim_head 32 in f32
-    takes ``block=D32_ROWS, rows=TF32X3_WARP_ROWS, tile=D32_KEYS``.  Rows
+    64 rows; the f32 route's warps cut each in four); dim_head 32 takes
+    ``block=D32_ROWS, tile=D32_KEYS`` with ``rows=TF32X3_WARP_ROWS`` in f32
+    (four warps) and ``rows=D32_ROWS`` in bf16 (one warpgroup).  Rows
     of window 0 also count the phantom window's ``wsz`` zero logits, as an
     exact term.  A block at place p of window w >= 1 walks
     ``(wsz + block (p + 1)) / tile`` tiles, one of window 0
@@ -255,8 +258,8 @@ def k1_fwd_tiles(n: int, window_size: int, halo: bool = False, block: int = BWD_
 
 def k1_dkv_blocks(n: int, window_size: int, halo: bool = False,
                   block: int = D32_ROWS) -> list[int]:
-    """The f32 K1-dkv kernel's key blocks at dim_head 32 in launch order
-    (``attention_tf32x3.cuh``'s ``d32::dkv_block_row``), longest walk
+    """The K1-dkv kernels' key blocks at dim_head 32 in launch order, f32
+    and bf16 (``attention_tf32x3.cuh``'s ``d32::dkv_block_row``), longest walk
     first: each block's first key row ``b0``.  A block at place p of a
     window but the last streams ``2 wsz - block p`` queries, one of the last
     window ``wsz - block p``; with a ``halo`` the halo's blocks
@@ -280,15 +283,16 @@ def k1_bwd_tiles(n: int, window_size: int, side: str, halo: bool = False,
     tile, ``kind`` one of ``"full"``, ``"diagonal"`` (causal mask inside
     the tile) and ``"skipped"``.  ``side="dq"``: rows r0.. are queries,
     tiles t0.. keys; ``side="dkv"``: rows are keys, tiles queries (K1-dkv
-    walks them twice in bf16, once for dv and once for dk).  bf16 streams
-    ``tile`` = 64 rows to two warpgroups of ``rows`` = 64; f32 streams
-    tiles of 32 (:data:`TF32X3_BWD_TILE`) to eight warps of 16
-    (:data:`TF32X3_WARP_ROWS`), and its K1-dq launches the blocks in
-    K1-fwd's longest-first order (:func:`k1_fwd_tiles`).  ``block`` is the
-    rows a block owns: 128, or :data:`D32_ROWS` for f32 K1-dkv at dim_head
-    32.  ``blocks`` is the blocks' first rows in launch order (f32 K1-dkv
-    at dim_head 32 passes :func:`k1_dkv_blocks`); by default they go in
-    order of their first row.  With a ``halo`` the halo's rows are
+    walks them twice in bf16 at dim_head 64 and 128, once for dv and once
+    for dk; once at dim_head 32).  bf16 streams ``tile`` = 64 rows to two
+    warpgroups of ``rows`` = 64 (one at dim_head 32); f32 streams tiles of
+    32 (:data:`TF32X3_BWD_TILE`) to eight warps of 16
+    (:data:`TF32X3_WARP_ROWS`; four at dim_head 32), and its K1-dq launches
+    the blocks in K1-fwd's longest-first order (:func:`k1_fwd_tiles`).
+    ``block`` is the rows a block owns: 128, or :data:`D32_ROWS` for K1-dkv
+    at dim_head 32.  ``blocks`` is the blocks' first rows in launch order
+    (K1-dkv at dim_head 32 passes :func:`k1_dkv_blocks`); by default they
+    go in order of their first row.  With a ``halo`` the halo's rows are
     ``[-wsz, 0)``: K1-dq's window-0 blocks stream them first, and K1-dkv
     runs ``wsz / block`` more blocks after the others, for the halo's keys,
     which stream the queries of window 0."""

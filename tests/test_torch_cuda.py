@@ -106,7 +106,9 @@ def test_sgu_kernel_matches_plain(gen, dtype, b, n, d):
     (2, 8, 1024, 64, 256, "wgmma"),    # ProGen-tiny's head
     (1, 12, 2048, 128, 512, "wgmma"),  # ProGen-base's window
     (1, 3, 512, 128, 128, "wgmma"),    # the smallest window the wgmma route takes
-    (2, 3, 1024, 32, 512, "wmma"),     # ProGen-default's head (f32: tf32x3)
+    # ProGen-default's head: its own wgmma kernel (f32: tf32x3; the ids kept
+    # from when it took wmma)
+    pytest.param(2, 3, 1024, 32, 512, "wgmma", id="2-3-1024-32-512-wmma"),
     (2, 8, 1024, 128, 64, "wmma"),     # a window under 128
 ])
 def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
@@ -249,9 +251,9 @@ TF32X3_CASES = [
 
 
 def _tf32x3_launch(q, k, v, do, wsz, kh, vh):
-    """K1-fwd, then K1-dq and K1-dkv from its lse and D."""
+    """K1-fwd, then K1-dq and K1-dkv from its lse and D (in f32)."""
     out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
-    dd = (do * out).sum(-1)
+    dd = (do.float() * out.float()).sum(-1)
     dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None, kh, vh)
     return (out, lse, dq, *cuda_attention.local_attention_bwd_dkv(
         q, k, v, do, lse, dd, wsz, None, kh, vh))
@@ -329,6 +331,68 @@ def test_the_d32_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
         _close_scaled(g, w, torch.float32)
     for a, g in zip(_tf32x3_launch(q, k, v, do, wsz, kh, vh), got):
         assert torch.equal(a, g)
+
+
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("b,h,n,d,wsz", D32_CASES)
+def test_the_d32_bf16_wgmma_kernels_match_plain(gen, b, h, n, d, wsz, halo):
+    """K1-fwd and K1-dkv in bf16 at dim_head 32 on their wgmma kernels
+    (64-row blocks, 64-byte-swizzled TMA; K1-dq on WMMA), with and without
+    a random halo, against the plain version at the bf16 bars (``out``
+    1e-2, ``lse`` 1e-4; dk, dv and the halo's 2e-2 of their largest plus
+    2e-2 relative, RMS 1e-2); every launch on its route by the counters; a
+    second run gives the same bits."""
+    bf16 = torch.bfloat16
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(bf16)
+                   for _ in range(4))
+    kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen).to(bf16)
+               for _ in range(2)) if halo else (None, None))
+    routes = ("wgmma", "wmma", "wgmma")
+    counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
+                cuda_attention.dkv_route_launches)
+    assert tuple(f(bf16, d, wsz) for f in (
+        cuda_attention.fwd_route, cuda_attention.dq_route, cuda_attention.dkv_route)) == routes
+    before = [dict(c) for c in counters]
+    got = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+    torch.cuda.synchronize()
+    for counter, was, route in zip(counters, before, routes):
+        assert counter == {**was, route: was[route] + 1}
+    want, want_lse = local_attention(q, k, v, window_size=wsz, return_lse=True,
+                                     k_halo=kh, v_halo=vh)
+    _close(got[0], want, bf16, TOL_ATTN_OUT)
+    _close(got[1], want_lse, torch.float32)
+    grads = local_attention_bwd(q, k, v, got[0], got[1], do, wsz, k_halo=kh, v_halo=vh)
+    assert len(got) == (7 if halo else 5)
+    for g, w in zip(got[2:], grads):
+        assert g.dtype == bf16
+        _close_scaled(g, w, bf16)
+    for a, g in zip(_tf32x3_launch(q, k, v, do, wsz, kh, vh), got):
+        assert torch.equal(a, g)
+
+
+def test_the_d32_bf16_kernels_replay_in_a_cuda_graph(gen):
+    """bf16 K1-fwd, K1-dq and K1-dkv at dim_head 32 (K1-fwd and K1-dkv on
+    their wgmma kernels) captured in one CUDA graph with a halo at
+    ProGen-default's head and window, replayed 3 times after new inputs are
+    copied in: each replay bit-equal to eager launches on the same inputs."""
+    shape, wsz, bf16 = (2, 3, 1024, 32), 512, torch.bfloat16
+    static = [torch.randn(*shape, device="cuda", generator=gen).to(bf16) for _ in range(4)]
+    static += [torch.randn(2, 3, wsz, 32, device="cuda", generator=gen).to(bf16)
+               for _ in range(2)]
+    q, k, v, do, kh, vh = static
+    _tf32x3_launch(q, k, v, do, wsz, kh, vh)  # build and load before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+    for _ in range(3):
+        for t in static:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(bf16))
+        graph.replay()
+        want = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
+        torch.cuda.synchronize()
+        for a, g in zip(outs, want):
+            assert torch.equal(a, g)
 
 
 def test_the_tf32x3_kernels_replay_in_a_cuda_graph(gen):
@@ -596,6 +660,186 @@ def f32_attention_digests(csrc: str | None = None) -> dict[str, str]:
         for cache, was in zip((kernels._loaded, cuda_attention._fns), saved[1:]):
             cache.clear()
             cache.update(was)
+
+
+# SHA-256 of kept_digests() from a build of kernels/csrc as it was before
+# K1-fwd and K1-dkv had their bf16 dim_head-32 kernels (NVIDIA H100 80GB
+# HBM3, nvcc 12.9): adding those kernels moves no bit of the bf16 K1 at
+# dim_head 64 and 128, of K2 and of any f32 output
+KEPT_SHA256 = {
+    "k1_bfloat16_d128_out":
+        "764c6a71c3788b052625a177dfef9bfff69219bd64c5f6ee90ffa4eb3f8b9f50",
+    "k1_bfloat16_d128_lse":
+        "9fc2d1aca927399ae247a1402fc391742e55f0d5b795a67a0bbc7f0deb793b81",
+    "k1_bfloat16_d128_dq":
+        "3e4e8353246e603b760cae9b8f560f983c638177a4e500f20ba15944f90f195c",
+    "k1_bfloat16_d128_dk":
+        "e0d4468486fadb66cc0e62d1d0ae3ee0e770227bdf5759fb5f1838fae016ec25",
+    "k1_bfloat16_d128_dv":
+        "3058db164026a1e4d005ad427a285a49163a204da8568d402f682111de879bb2",
+    "k1_bfloat16_d128_out_with_halo":
+        "3cde280378a2398bba3620569b9b4a2bd5dc8af73e343d2f21772e2c791ce3e8",
+    "k1_bfloat16_d128_lse_with_halo":
+        "aa3a4716fc088d78e9398ddd80523e42308b48a4f4cbbcb19d2f59905a75ccef",
+    "k1_bfloat16_d128_dq_with_halo":
+        "d4540a9656b461dfc7c36b9e1cc1c754ee44b66b1f5f53436b279a3593f92e39",
+    "k1_bfloat16_d128_dk_with_halo":
+        "5cfa2e9971aaf9128035e4707092cf4a4f684329ad4007f58a917faaa491b07f",
+    "k1_bfloat16_d128_dv_with_halo":
+        "fa936f68eaf7715b078bd31f1e92ff5991b0dbd2732ed87005579b488c8e88e6",
+    "k1_bfloat16_d128_dk_halo_with_halo":
+        "31601a01b08194c7702f08a6552b8bda17dd1f1846d3cc92acb10d0f91827ba0",
+    "k1_bfloat16_d128_dv_halo_with_halo":
+        "2c534ee78b302b993ad927e0cb382d4f99e22100de94cf5644e2d2e479d27319",
+    "k1_bfloat16_d64_out":
+        "08d04ca24ad6af33d86e1afef46d716d718a4768081f26c3b46e411056913130",
+    "k1_bfloat16_d64_lse":
+        "2ebc9fad1acab8c67d5e2db95e6810056f853e3b63670009ea95f3b06e222c6a",
+    "k1_bfloat16_d64_dq":
+        "acf7c8cfc44c10ebf6f987123447b0ddbdbe53951c46e0eec38d2ace89f34732",
+    "k1_bfloat16_d64_dk":
+        "bbc45bb3fa35634058b23309909ea8f5a15d469ff55a5e1c161b0fff2e83d4d2",
+    "k1_bfloat16_d64_dv":
+        "7383a8763d10a3d9e619232731a961a1b5fee55225b63780b14aa22e4e85e78a",
+    "k1_bfloat16_d64_out_with_halo":
+        "74fedd811660955a27e77e15723193ed878dd1d1006e9ea56d4ee530fa87a2f4",
+    "k1_bfloat16_d64_lse_with_halo":
+        "f4b72b5f57a8683eafc249f98911cbb7753a079e1c0ab6df8fe53a6bc482d74a",
+    "k1_bfloat16_d64_dq_with_halo":
+        "9fd46d9c2863f8c9f7051386e42398bba4bf646d8a2b9efbb1fbf22fe64ed659",
+    "k1_bfloat16_d64_dk_with_halo":
+        "eac097c94fbbfd63f3067b616740a436abeefd2139b686ac7a9fffc0dcab062b",
+    "k1_bfloat16_d64_dv_with_halo":
+        "07ae23511c45adff8e85ce35c3e068af6a89c87e722b0a577cbd7008c121f0c3",
+    "k1_bfloat16_d64_dk_halo_with_halo":
+        "0fe3aa5a48367447d2a025efc7f188277ca2303e325505a2227beed3bfd047a6",
+    "k1_bfloat16_d64_dv_halo_with_halo":
+        "2f7f6d099a6af0851cd7d6af6497d144b9e5b57645851518fd22e48950fcd171",
+    "k1_float32_d32_out":
+        "3477b52f588928502d66c60692115b7c7134d08bc7b24b3923ca623793f4efb4",
+    "k1_float32_d32_lse":
+        "c70b17c005cd379a58b5df2e3902677baee2303c9ff0376fdd62b7b34ff40917",
+    "k1_float32_d32_dq":
+        "62777df39ca153208aeef14f74b022c690e431de3c2daa3dc855e95162e15b86",
+    "k1_float32_d32_dk":
+        "83245ce153b9512636e25142d3c02386e8c608563fe886808a1ea4fa1e8f9518",
+    "k1_float32_d32_dv":
+        "9071b27848f5fccca6d38219d0fc13f247b44b10811053f7e8ebca928bf6c7fa",
+    "k1_float32_d32_out_with_halo":
+        "fd84df7264e85948d7ed8daaff395a93f7792da64f65876adc8fec92fe579eb3",
+    "k1_float32_d32_lse_with_halo":
+        "b262e5d9b21fa1a133b9a362d418fdb62174c3fcee27d0f118a363de71641964",
+    "k1_float32_d32_dq_with_halo":
+        "14a505bc33437b8ce947b8e68d9ca58010aeb435e7e7024e0910dc339f2b73cb",
+    "k1_float32_d32_dk_with_halo":
+        "a9b479dbb4e481d755d25f486002f58b33fe112a0158fa83cfca433cd60d4908",
+    "k1_float32_d32_dv_with_halo":
+        "3a4a0ff0c57b3e7f3424d7616013d23251a358701458928f581c05e26cb30c41",
+    "k1_float32_d32_dk_halo_with_halo":
+        "20bdcaefdd41539e221f7bbcd987e698819acb2848a2d27eadd3b0d852aa8daf",
+    "k1_float32_d32_dv_halo_with_halo":
+        "b266c61e3ec370df81c37e3196f80f6e011fc1b68c60ad64495a6003e1d1ec9b",
+    "k1_float32_d64_out":
+        "e0f91e8e8a809a2961b964c03a87549ced33b7e1f2a949d80c2af05ada137e48",
+    "k1_float32_d64_lse":
+        "f5f961429ace9cdd412917f361390f8503fedc3e5a1ae2a2abd40b55335aaf1e",
+    "k1_float32_d64_dq":
+        "89c2008c57a71707338ca16f2af2cb62273a9a8292a6cb0830fcf6abc8ecf22e",
+    "k1_float32_d64_dk":
+        "6a6d1485a552d1607805ffcb98717669cbff2140b329783b33a581662462ffb6",
+    "k1_float32_d64_dv":
+        "10bc3bf28a5b0089070984971a92a372c910ec05d7ea0f234e2df4016927ddd4",
+    "k1_float32_d64_out_with_halo":
+        "e031655522fed9596a7b3f4e2746cb055613b8fca133286958993b670da6deec",
+    "k1_float32_d64_lse_with_halo":
+        "b5abdec7f732027bcb3f540c60de0a16d2173768668c60cd003bdca3a0dc85be",
+    "k1_float32_d64_dq_with_halo":
+        "3904e39088ce721d3009fb7ed0ae1ace97af60f18ce66d593e4a22739e5aa416",
+    "k1_float32_d64_dk_with_halo":
+        "99bb1b0bf4886ca5e0652b1492c29bc141ca2a77f488ac5804cfd28ed071eeb0",
+    "k1_float32_d64_dv_with_halo":
+        "4002f6bdd04a3ef7bf8fa5f1c6a37e3bcdd05059d988ed0ccd3a0f323e4d7c60",
+    "k1_float32_d64_dk_halo_with_halo":
+        "e23153bcc3200139e0040ee6ad55bf297a426625530c999fa9cca7a8917b6c95",
+    "k1_float32_d64_dv_halo_with_halo":
+        "a3e804ebfccc563985968dc9911fd956fd83c55f59794f5395fad19e8a91c21c",
+    "k2_bfloat16_fwd": "1584334438700e9cfa0caffbb01b9c2a61f8ed460584ac1ef0a15517ae91c4c9",
+    "k2_bfloat16_dgate":
+        "3cc5e00ac9bf61738cb4e455fc35c86828b0283fd42cc86ab99b577bd41c0385",
+    "k2_bfloat16_dw": "c461a1cc2c3d6628ac1c0d6628312d8f997ed2ffa6866d612a99c57210d13ed8",
+    "k2_float32_fwd": "72c1ba7fe05f76bdc5002550bf2656f10f4b596850599b994041568150774aef",
+    "k2_float32_dgate": "b15610f8d35bf49b8902e290631f899e5a44f0c3fdb8cabf8102edb58ed2050e",
+    "k2_float32_dw": "47647b9e9de89462bcf4082a26d1b9e31c97a91ae4cd2037c0c968798e157aba",
+}
+
+
+def kept_digests(csrc: str | None = None) -> dict[str, str]:
+    """SHA-256 of the outputs that the bf16 dim_head-32 kernels must leave
+    alone: bf16 K1-fwd's out and lse, K1-dq's dq and K1-dkv's dk and dv at
+    (2, 3, 1024, 128) and (2, 3, 1024, 64), window 256, without and with a
+    halo; bf16 K2-fwd, K2-dgate and K2-dW at (2, 1024, 2048); the same K1
+    outputs in f32 at dim_head 32 (window 512) and 64; f32 K2's three.
+    Inputs drawn with numpy from seed 7.  ``csrc`` as for
+    :func:`bf16_backward_digests`."""
+    import hashlib
+    from pathlib import Path
+
+    rng = np.random.default_rng(7)
+
+    def randn(*shape, dtype, scale=1.0):
+        x = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+        return x.to(device="cuda", dtype=dtype).contiguous()
+
+    def digest(t):
+        t = t.contiguous()
+        view = t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+        return hashlib.sha256(view.cpu().numpy().tobytes()).hexdigest()
+
+    saved = (kernels.CSRC, dict(kernels._loaded), dict(cuda_attention._fns),
+             dict(cuda_sgu._fns))
+    if csrc is not None:
+        kernels.CSRC = Path(csrc)
+        for cache in (kernels._loaded, cuda_attention._fns, cuda_sgu._fns):
+            cache.clear()
+    try:
+        got = {}
+        names = ("out", "lse", "dq", "dk", "dv", "dk_halo", "dv_halo")
+        for dtype, d, wsz in ((torch.bfloat16, 128, 256), (torch.bfloat16, 64, 256),
+                              (torch.float32, 32, 512), (torch.float32, 64, 256)):
+            q, k, v, do = (randn(2, 3, 1024, d, dtype=dtype) for _ in range(4))
+            kh, vh = (randn(2, 3, wsz, d, dtype=dtype) for _ in range(2))
+            for suffix, halo in (("", (None, None)), ("_with_halo", (kh, vh))):
+                out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, *halo)
+                dd = (do.float() * out.float()).sum(-1)
+                outs = (out, lse,
+                        cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None,
+                                                              *halo),
+                        *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz,
+                                                                None, *halo))
+                for name, t in zip(names, outs):
+                    got[f"k1_{str(dtype)[6:]}_d{d}_{name}{suffix}"] = digest(t)
+        for dtype in (torch.bfloat16, torch.float32):
+            res, gate, dout = (randn(2, 1024, 2048, dtype=dtype) for _ in range(3))
+            w = randn(1024, 1024, dtype=dtype, scale=0.05)
+            bias = randn(1024, 1, dtype=dtype)
+            got[f"k2_{str(dtype)[6:]}_fwd"] = digest(cuda_sgu.spatial_gate_fwd(res, gate, w, bias))
+            got[f"k2_{str(dtype)[6:]}_dgate"] = digest(cuda_sgu.spatial_gate_dgate(w, dout, res))
+            got[f"k2_{str(dtype)[6:]}_dw"] = digest(cuda_sgu.spatial_gate_dw(dout, res, gate))
+        return got
+    finally:
+        kernels.CSRC = saved[0]
+        for cache, was in zip((kernels._loaded, cuda_attention._fns, cuda_sgu._fns),
+                              saved[1:]):
+            cache.clear()
+            cache.update(was)
+
+
+def test_the_kernels_beside_the_bf16_d32_ones_keep_their_bits(gen):
+    """bf16 K1 at dim_head 64 and 128 (with and without a halo), bf16 K2,
+    f32 K1 at dim_head 32 and 64 and f32 K2 give the bits of the build
+    before the bf16 dim_head-32 kernels were added."""
+    assert cuda_attention.fwd_route(torch.bfloat16, 32, 512) == "wgmma"
+    assert kept_digests() == KEPT_SHA256
 
 
 def test_the_d128_f32_kernels_keep_their_bits(gen):
@@ -1322,4 +1566,5 @@ if __name__ == "__main__":
     import sys
 
     print(json.dumps({"bf16": bf16_backward_digests(*sys.argv[1:2]),
-                      "f32": f32_attention_digests(*sys.argv[1:2])}))
+                      "f32": f32_attention_digests(*sys.argv[1:2]),
+                      "kept": kept_digests(*sys.argv[1:2])}))

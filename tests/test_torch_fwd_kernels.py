@@ -33,12 +33,12 @@ def _np(t):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_fwd_route_for_every_shipped_config(name):
-    """bf16 takes the Hopper kernels in every config (K1-fwd but for
-    ``default``'s dim_head 32); f32 takes K1-fwd's 3xTF32 kernels in every
-    config (``default``'s its dim_head-32 one), K2-fwd's 3xTF32 kernel
-    everywhere."""
+    """bf16 takes the Hopper kernels in every config (``default``'s
+    dim_head 32 its own ``wgmma`` kernel for K1-fwd); f32 takes K1-fwd's
+    3xTF32 kernels in every config (``default``'s its dim_head-32 one),
+    K2-fwd's 3xTF32 kernel everywhere."""
     c = CONFIGS[name]
-    want = "wmma" if name == "default" else "wgmma"
+    want = "wgmma"
     want_f32 = "tf32x3"
     assert cuda_attention.fwd_route(torch.bfloat16, c.dim_head, c.window_size) == want
     assert cuda_attention.fwd_route(torch.float32, c.dim_head, c.window_size) == want_f32
@@ -51,16 +51,19 @@ def test_fwd_route_for_every_shipped_config(name):
     (torch.bfloat16, 64, 128, "wgmma"),
     (torch.bfloat16, 128, 64, "wmma"),    # a window under 128
     (torch.bfloat16, 128, 40, "wmma"),    # a window that is no multiple of 128
-    (torch.bfloat16, 32, 512, "wmma"),    # dim_head 32
+    (torch.bfloat16, 32, 512, "wmma"),    # dim_head 32: K1-dq's
     pytest.param(torch.float32, 128, 256, "tf32x3", id="dtype5-128-256-wmma"),
 ])
 def test_fwd_route_follows_the_backward_rule(dtype, d, wsz, route):
     """``route`` is K1-dq's; K1-fwd and K1-dkv take the same (in f32 on the
-    Hopper shapes, the 3xTF32 kernels, since K1-dq has one too)."""
+    Hopper shapes, the 3xTF32 kernels, since K1-dq has one too), but at
+    dim_head 32 with a window that is a multiple of 128, where K1-dq stays
+    on ``wmma`` and they take their own Hopper kernels (bf16 ``wgmma``)."""
     assert cuda_attention.dq_route(dtype, d, wsz) == route
     hopper = d in (64, 128) and wsz % 128 == 0
-    want = "tf32x3" if dtype == torch.float32 and hopper else route
-    assert want == route
+    assert ("tf32x3" if dtype == torch.float32 and hopper else route) == route
+    d32 = d == 32 and wsz % 128 == 0
+    want = ("wgmma" if dtype == torch.bfloat16 else "tf32x3") if d32 else route
     assert cuda_attention.fwd_route(dtype, d, wsz) == want
     assert cuda_attention.dkv_route(dtype, d, wsz) == want
 
@@ -182,7 +185,9 @@ def _pick(name, library, n_tensors):
 @pytest.mark.parametrize("dtype,d,wsz,name", [
     (torch.bfloat16, 128, 128, "local_attention_fwd_wgmma"),
     (torch.bfloat16, 64, 256, "local_attention_fwd_wgmma"),
-    (torch.bfloat16, 32, 128, "local_attention_fwd"),
+    # dim_head 32 in bf16: its wgmma kernel (the id kept from when it took wmma)
+    pytest.param(torch.bfloat16, 32, 128, "local_attention_fwd_wgmma",
+                 id="dtype2-32-128-local_attention_fwd"),
     (torch.bfloat16, 128, 64, "local_attention_fwd"),
     (torch.float32, 128, 128, "local_attention_fwd_tf32x3"),
     (torch.float32, 64, 256, "local_attention_fwd_tf32x3"),
@@ -378,9 +383,9 @@ def test_k2_fwd_cpu_route_matches_the_pallas_kernel(dtype, tol, n):
 
 @pytest.mark.parametrize("source,variant", [
     (source, variant) for source in ("local_attention_fwd", "local_attention_fwd_d32",
-                                     "sgu_fwd")
+                                     "local_attention_fwd_d32_bf16", "sgu_fwd")
     for variant in sorted(ablate.SOURCES[source][2])])
 def test_forward_ablation_variants_apply_to_the_source(source, variant):
     """Each ablation of the Hopper K1-fwd (dim_head 64/128 in bf16, 32 in
-    f32) and K2-fwd applies to its source."""
+    f32 and in bf16) and K2-fwd applies to its source."""
     check_ablation_applies(source, variant)

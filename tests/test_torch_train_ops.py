@@ -317,12 +317,13 @@ def test_resource_report_needs_nvcc(monkeypatch):
 def test_bwd_route_of_every_shipped_config(config, dtype):
     """bf16 takes the Hopper kernels wherever dim_head is 64 or 128 and the
     window a multiple of 128 (every config but ``default``); f32 takes the
-    3xTF32 kernels there for K1-dq and K1-dkv, and at ``default``'s
-    dim_head 32 for K1-dkv alone; the WMMA kernels everywhere else."""
+    3xTF32 kernels there for K1-dq and K1-dkv; at ``default``'s dim_head 32
+    K1-dkv alone takes them (bf16 ``wgmma``, f32 ``tf32x3``) and K1-dq the
+    WMMA kernels."""
     c = CONFIGS[config]
     hopper = config != "default"
     want = ("wmma" if not hopper else "wgmma" if dtype == torch.bfloat16 else "tf32x3")
-    want_dkv = "tf32x3" if dtype == torch.float32 else want
+    want_dkv = "tf32x3" if dtype == torch.float32 else "wgmma"
     assert cuda_attention.dq_route(dtype, c.dim_head, c.window_size) == want
     assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want_dkv
 
@@ -342,13 +343,15 @@ def test_bwd_route_of_every_shipped_config(config, dtype):
     (torch.float32, 128, 64, "wmma"),
 ])
 def test_bwd_route_of_odd_shapes(dtype, d, wsz, want):
-    """``want`` is K1-dq's route, and K1-dkv's but at dim_head 32 in f32
-    (bf16 ``wgmma`` and f32 ``tf32x3`` on the Hopper shapes, dim_head 64 or
-    128 and a window a multiple of 128; ``wmma`` elsewhere; K1-dkv in f32
-    also ``tf32x3`` at dim_head 32 with such a window)."""
+    """``want`` is K1-dq's route, and K1-dkv's but at dim_head 32 (bf16
+    ``wgmma`` and f32 ``tf32x3`` on the Hopper shapes, dim_head 64 or 128
+    and a window a multiple of 128; ``wmma`` elsewhere; K1-dkv also
+    ``wgmma`` in bf16 and ``tf32x3`` in f32 at dim_head 32 with such a
+    window)."""
     assert cuda_attention.dq_route(dtype, d, wsz) == want
-    d32 = dtype == torch.float32 and d == 32 and wsz % 128 == 0
-    assert cuda_attention.dkv_route(dtype, d, wsz) == ("tf32x3" if d32 else want)
+    d32 = d == 32 and wsz % 128 == 0
+    want_dkv = ("wgmma" if dtype == torch.bfloat16 else "tf32x3") if d32 else want
+    assert cuda_attention.dkv_route(dtype, d, wsz) == want_dkv
 
 
 def _visible(n, wsz):
@@ -452,3 +455,9 @@ def test_k1_bwd_ablation_variants_apply_to_the_source(variant):
 def test_k1_dkv_d32_ablation_variants_apply_to_the_source(variant):
     """Each ablation of the f32 K1-dkv at dim_head 32 applies to its source."""
     check_ablation_applies("local_attention_bwd_d32", variant)
+
+
+@pytest.mark.parametrize("variant", sorted(ablate.SOURCES["local_attention_bwd_d32_bf16"][2]))
+def test_k1_dkv_d32_bf16_ablation_variants_apply_to_the_source(variant):
+    """Each ablation of the bf16 K1-dkv at dim_head 32 applies to its source."""
+    check_ablation_applies("local_attention_bwd_d32_bf16", variant)
