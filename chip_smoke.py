@@ -26,9 +26,9 @@ non-zero without its last line:
    window of 128 (all on the Hopper "wgmma" route in bf16) and on the WMMA
    route (dim_head 32, a window of 64), and in f32 (both on "tf32x3") at
    the training shape, the phantom window, ProGen-tiny's head,
-   ProGen-base's window and a window of 128, and at dim_head 32 (K1-dkv
-   on "tf32x3", K1-dq on WMMA), each run twice for the same bits and held
-   to the route it must take;
+   ProGen-base's window and a window of 128, and at dim_head 32 (both on
+   their dim_head-32 "tf32x3" kernels), each run twice for the same bits
+   and held to the route it must take;
    K2-dgate and K2-dW also at batch 1, n = 1000, n = 100 and d = 520, each
    run twice for the same bits and held to its route (bf16 "wgmma", f32
    "tf32x3"), dW's strict upper triangle 0.  Every
@@ -38,10 +38,10 @@ non-zero without its last line:
    K1, FMA for K2) on the same inputs, K2-dW's with its split plan; then
    K1-fwd, K1-dq and K1-dkv at ProGen-default's head and window (H 3,
    L 1024, dim_head 32, window 512: the CLIs' ProGen-default runs) at
-   B 4 and B 32, in f32 (K1-fwd and K1-dkv on their dim_head-32 "tf32x3"
-   kernels) and in bf16 (K1-fwd and K1-dkv on their dim_head-32 "wgmma"
-   kernels), each of these timed beside WMMA on the same inputs, K1-dq on
-   WMMA in both; each checked, held to its route, run twice for the same
+   B 4 and B 32, in f32 (all three on their dim_head-32 "tf32x3" kernels)
+   and in bf16 (all three on their dim_head-32 "wgmma" kernels), each timed
+   beside WMMA on the same inputs; each checked, held to its route, run
+   twice for the same
    bits and timed beside its plain version, SDPA, its bound and the ex2
    term (one exponential a visible pair at 16 a clock on 132 SMs at
    1.98 GHz): the ``_d32_f32`` and ``_d32`` rows of the ``kernels`` line
@@ -146,9 +146,9 @@ non-zero without its last line:
    Hopper route at the training shape (B 8, H 8, L 1024, D 128, window 256)
    and at ProGen-base's window, bf16 on the WMMA route (dim_head 32; a
    window of 64) and f32 (all three on "tf32x3") at
-   the training shape, and f32 at ProGen-default's head and window, B 4
-   (K1-fwd and K1-dkv on "tf32x3", K1-dq on WMMA, timed beside WMMA: the
-   ``with_halo`` of phase 3's D-32 rows), each run twice for
+   the training shape, and f32 and bf16 at ProGen-default's head and
+   window, B 4 (all three on "tf32x3" and on "wgmma", timed beside WMMA:
+   the ``with_halo`` of phase 3's D-32 rows), each run twice for
    the same bits, held to its route and at K1's bars; at the training shape
    in bf16 and in f32, timed with and without the halo, with their bounds,
    the plain version and SDPA on the ``[halo ‖ own]`` layout; (b) the
@@ -195,9 +195,9 @@ non-zero without its last line:
 13. captured programs (``engine_graphs``, run after phase 9 on its model):
    ``ServingEngine.aot_warmup`` makes every program of the engine's grid
    one captured CUDA graph.  K1-fwd, K2-fwd, K3 and K3-q8 are each captured
-   alone at the engine's shapes, and bf16 K1-fwd and K1-dkv at
-   ProGen-default's head and window with a halo (their dim_head-32 wgmma
-   kernels), and replayed three times with new data in
+   alone at the engine's shapes, and bf16 K1-fwd, K1-dq and K1-dkv and f32
+   K1-dq at ProGen-default's head and window with a halo (their dim_head-32
+   wgmma and tf32x3 kernels), and replayed three times with new data in
    their inputs (K3 and K3-q8: new positions, tables and pool rows), each
    replay bit-equal to an eager launch; then the 12 requests of phase 7
    through a warmed engine, dense, paged, 8-bit pages, speculative paged
@@ -331,8 +331,8 @@ non-zero without its last line:
    the same four with ``--mixed_precision`` (bf16 compute).  Held:
    each run's loss finite and falling, its printed records the returned
    ones, every micro-batch's launches exactly 3 K1-fwd, K1-dq and K1-dkv
-   (K1-fwd and K1-dkv on ``tf32x3`` in f32 and ``wgmma`` in bf16, K1-dq on
-   ``wmma``; all on ``wmma`` forced), 4 K2-fwd, 2 K2-dgate and 2 K2-dW
+   (all three on ``tf32x3`` in f32 and ``wgmma`` in bf16; on ``wmma``
+   forced), 4 K2-fwd, 2 K2-dgate and 2 K2-dW
    (``tf32x3`` in f32, ``wgmma`` in bf16), the two routes' losses within
    1e-4 in f32 and 1e-2 in bf16; then one f32 step at ProGen-default, batch 4,
    through the kernels against the plain versions at phase 5's bars (loss
@@ -713,7 +713,7 @@ def attention_case(gen, b, h, n, d, wsz, dtype):
     64/128 and windows that are multiples of 128, ``wgmma`` in bf16 and
     ``tf32x3`` in f32) and a second run must give the same bits (no
     atomics)."""
-    route = k1_route("fwd", dtype, d, wsz)
+    route = k1_route(dtype, d, wsz)
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
     before = dict(cuda_attention.fwd_route_launches)
@@ -975,7 +975,7 @@ def attention_bwd_case(gen, b, h, n, d, wsz, dtype):
     after = read_routes()
     routed = {name: {r: after[name][r] - before[name][r] for r in before[name]}
               for name in K1_BWD_ROUTES}
-    route = {name: k1_route(kernel, dtype, d, wsz) for name, kernel in K1_BWD_ROUTES.items()}
+    route = dict.fromkeys(K1_BWD_ROUTES, k1_route(dtype, d, wsz))
     want = local_attention_bwd(q, k, v, out, lse, do, wsz)
     res = {name: close_scaled(g, w, dtype)
            for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
@@ -1031,18 +1031,17 @@ def sgu_bwd_case(gen, b, n, d, dtype):
     return (res, gate, dout, w), checks
 
 
-# K1's backward cases (b, h, n, d, wsz): in bf16 the first five take the
-# Hopper kernels (the "wgmma" route), the last two the WMMA kernels; f32
-# takes the 3xTF32 kernels ("tf32x3") in the first five, and at
-# ProGen-default's head K1-dkv's dim_head-32 one and K1-dq's WMMA kernel.
-# The first of each is timed.
+# K1's backward cases (b, h, n, d, wsz): in bf16 the first six take the
+# Hopper kernels (the "wgmma" route; at ProGen-default's head the
+# dim_head-32 ones), the last the WMMA kernels; f32 takes the 3xTF32
+# kernels ("tf32x3") in all six.  The first of each is timed.
 K1_BWD_CASES = (
     (TRAIN_BATCH, 8, 1024, 128, 256),   # ProGen-small's training shape
     (2, 8, 256, 128, 256),              # one window: the phantom window only
     (2, 8, 1024, 64, 256),              # ProGen-tiny's head
     (1, 12, 2048, 128, 512),            # ProGen-base's window
     (1, 3, 512, 128, 128),              # the smallest window the route takes
-    (2, 3, 1024, 32, 512),              # ProGen-default's head: WMMA (f32 dkv: tf32x3)
+    (2, 3, 1024, 32, 512),              # ProGen-default's head: the dim_head-32 kernels
     (2, 8, 1024, 128, 64),              # a window under 128: WMMA
 )
 K1_BWD_F32_CASES = K1_BWD_CASES[:6]
@@ -1215,10 +1214,10 @@ D32_KEPT = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape
 
 def check_d32_kernels() -> list[dict]:
     """K1-fwd, K1-dq and K1-dkv at ProGen-default's head and window, each
-    against its plain version on the route it must take and run twice for
-    the same bits, then timed beside its plain version, SDPA, the ex2 term
-    and (on ``tf32x3``, and on ``wgmma`` in bf16) the ``wmma`` kernel, at
-    B 4 and B 32, in f32 and bf16.  Returns the rows at B 4 (the CLI's
+    against its plain version on the route it must take (all three on their
+    dim_head-32 kernels: ``tf32x3`` in f32, ``wgmma`` in bf16) and run twice
+    for the same bits, then timed beside its plain version, SDPA, the ex2
+    term and the ``wmma`` kernel, at B 4 and B 32, in f32 and bf16.  Returns the rows at B 4 (the CLI's
     run), the f32 ones first, each holding its B 32 times
     (``at_batch_32``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
@@ -1320,13 +1319,12 @@ ROUTE_COUNTERS = {
 ROUTE_TOTALS = {name: {} for name in ROUTE_COUNTERS}
 
 
-def k1_route(kernel: str, dtype, d: int, wsz: int) -> str:
-    """The route a K1 launch must take: dim_head 64 or 128 and a window that
-    is a multiple of 128 take the Hopper kernels (bf16 ``wgmma``, f32
-    ``tf32x3``), the rest ``wmma``; at dim_head 32 with such a window
-    K1-fwd and K1-dkv (``kernel`` ``"fwd"``, ``"dkv"``; ``"dq"`` not) take
-    them too."""
-    if wsz % 128 != 0 or d not in (32, 64, 128) or (d == 32 and kernel == "dq"):
+def k1_route(dtype, d: int, wsz: int) -> str:
+    """The route a K1 launch (K1-fwd, K1-dq or K1-dkv: they share the rule)
+    must take: dim_head 32, 64 or 128 and a window that is a multiple of 128
+    take the Hopper kernels (bf16 ``wgmma``, f32 ``tf32x3``), the rest
+    ``wmma``."""
+    if wsz % 128 != 0 or d not in (32, 64, 128):
         return "wmma"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
@@ -1380,8 +1378,8 @@ def require_forward_routes(routes: dict, launches: dict, hopper: bool, what: str
                 f"{what}: {name} launches by route {routes[name]}, want {want}")
 
 
-K1_BWD_ROUTES = {"local_attention_bwd_dq": "dq", "local_attention_bwd_dkv": "dkv"}
-K1_ROUTE_KERNELS = {"local_attention_fwd": "fwd", **K1_BWD_ROUTES}
+K1_BWD_ROUTES = ("local_attention_bwd_dq", "local_attention_bwd_dkv")
+K1_ROUTE_KERNELS = ("local_attention_fwd", *K1_BWD_ROUTES)
 
 
 def require_backward_routes(routes: dict, launches: dict, hopper: bool, what: str) -> None:
@@ -1390,7 +1388,7 @@ def require_backward_routes(routes: dict, launches: dict, hopper: bool, what: st
     bf16 ``wgmma`` for all four, f32 ``tf32x3`` for all four."""
     dtype = torch.bfloat16 if hopper else torch.float32
     for name in (*K1_BWD_ROUTES, *K2_BWD_ROUTES):
-        route = (k1_route(K1_BWD_ROUTES[name], dtype, SMALL.dim_head, SMALL.window_size)
+        route = (k1_route(dtype, SMALL.dim_head, SMALL.window_size)
                  if name in K1_BWD_ROUTES else k2_route(name, dtype))
         want = {**dict.fromkeys(routes[name], 0), route: launches[name]}
         require(routes[name] == want,
@@ -1793,7 +1791,7 @@ def cli_turns(args, mixed: bool) -> dict:
     within ``TOL_CLI_LOSS``.  Returns the runs' summary, the launches of the
     first run on K1's own routes."""
     c, dtype = DEFAULT, torch.bfloat16 if mixed else torch.float32
-    own = k1_route("fwd", dtype, c.dim_head, c.window_size)  # K1-fwd's and K1-dkv's
+    own = k1_route(dtype, c.dim_head, c.window_size)
     per_micro = {"local_attention_fwd": c.depth, "local_attention_bwd_dq": c.depth,
                  "local_attention_bwd_dkv": c.depth, "sgu_fwd": 2 * c.global_mlp_depth,
                  "sgu_bwd_dgate": c.global_mlp_depth, "sgu_bwd_dw": c.global_mlp_depth}
@@ -1815,7 +1813,7 @@ def cli_turns(args, mixed: bool) -> dict:
             elif route == "wmma":
                 to = route
             else:
-                to = k1_route(K1_ROUTE_KERNELS[name], dtype, c.dim_head, c.window_size)
+                to = own
             routes[name] = {**dict.fromkeys(run["routes"][name], 0), to: micro * per_micro[name]}
         require(all(run["routes"][name] == routes[name] for name in routes),
                 f"CLI ({label}) launches by route {run['routes']}, want {routes}")
@@ -1920,7 +1918,7 @@ def sample_cli_turns() -> dict:
     kernels against the plain versions at the whole-model bf16 bar.
     Printed: the routes' token agreement, prefill ms and decode tokens/s."""
     c = DEFAULT
-    own = k1_route("fwd", torch.bfloat16, c.dim_head, c.window_size)
+    own = k1_route(torch.bfloat16, c.dim_head, c.window_size)
     want = {name: 0 for name in COUNTERS}
     want.update(local_attention_fwd=c.depth, sgu_fwd=c.global_mlp_depth)
     runs = []
@@ -1965,9 +1963,9 @@ def sample_cli_turns() -> dict:
 def train_cli_default(smi: str) -> dict:
     """Phase 22: ProGen-default through the CLIs on the card.  The training
     CLI's default run (f32) and its ``--mixed_precision`` run, each four
-    times in turns with K1 on the parent's route (``wmma`` forced) and on
-    its own (K1-fwd and K1-dkv ``tf32x3`` in f32 and ``wgmma`` in bf16,
-    K1-dq ``wmma``; :func:`cli_turns`); then one f32 step at ProGen-default,
+    times in turns with K1 on the first kernels' route (``wmma`` forced)
+    and on its own (all three ``tf32x3`` in f32 and ``wgmma`` in bf16;
+    :func:`cli_turns`); then one f32 step at ProGen-default,
     batch 4, through the kernels against the plain versions at phase 5's
     bars; then the sample CLI at ProGen-default (:func:`sample_cli_turns`).
     Returns the phase's result: the f32 runs' at the top (the launches of
@@ -3770,9 +3768,9 @@ def graph_capture_checks(gen) -> list[dict]:
     shapes (an admit program of bucket 512 at 8 slots: K1-fwd (8, 8, 512,
     128) bf16 over windows of 256, K2-fwd (8, 512, 2048) bf16; the paged
     decode step's K3 over a bf16 pool with f32 weights and K3-q8 over int8
-    ones, 8 rows, n = 1024, page 16), and bf16 K1-fwd and K1-dkv at
-    ProGen-default's head and window (their dim_head-32 kernels, the
-    mixed-precision CLI's batch 4, with a halo), and replayed with new data:
+    ones, 8 rows, n = 1024, page 16), and bf16 K1-fwd, K1-dq and K1-dkv and
+    f32 K1-dq at ProGen-default's head and window (their dim_head-32
+    kernels, the CLIs' batch 4, with a halo), and replayed with new data:
     new inputs for K1 and K2, new positions, tables and pool rows for K3 and
     K3-q8."""
     c, bf16 = SMALL, torch.bfloat16
@@ -3805,6 +3803,19 @@ def graph_capture_checks(gen) -> list[dict]:
         lambda: cuda_attention.local_attention_bwd_dkv(q32, k32, v32, do32, lse32, dd32, wsz,
                                                        None, kh32, vh32),
         renew(q32, k32, v32, do32, kh32, vh32)))
+    out.append(capture_replay_check(
+        "local_attention_bwd_dq" + D32_SUFFIX,
+        lambda: cuda_attention.local_attention_bwd_dq(q32, k32, v32, do32, lse32, dd32, wsz,
+                                                      None, kh32, vh32),
+        renew(q32, k32, v32, do32, kh32, vh32)))
+    f32 = [t.float() for t in (q32, k32, v32, do32, kh32, vh32)]
+    o32f, lse32f = cuda_attention.local_attention_fwd(*f32[:3], wsz, None, *f32[4:])
+    dd32f = (f32[3] * o32f).sum(-1)
+    out.append(capture_replay_check(
+        "local_attention_bwd_dq" + D32_SUFFIX + F32_SUFFIX,
+        lambda: cuda_attention.local_attention_bwd_dq(*f32[:4], lse32f, dd32f, wsz, None,
+                                                      *f32[4:]),
+        renew(*f32)))
     half = c.dim * c.ff_mult // 2
     res, gate = (torch.randn(ENGINE_SLOTS, 512, half, device="cuda",
                              generator=gen).to(bf16) for _ in range(2))
@@ -4457,7 +4468,7 @@ def trainer_superstep_alone() -> dict:
 HALO_CASES = (
     ((TRAIN_BATCH, 8, 1024, 128, 256), torch.bfloat16, True),
     ((1, 12, 2048, 128, 512), torch.bfloat16, False),
-    ((2, 3, 1024, 32, 512), torch.bfloat16, False),
+    ((2, 3, 1024, 32, 512), torch.bfloat16, False),   # the dim_head-32 kernels
     ((2, 8, 1024, 128, 64), torch.bfloat16, False),
     ((TRAIN_BATCH, 8, 1024, 128, 256), torch.float32, True),
 )
@@ -4467,8 +4478,8 @@ PARALLEL_TOL_LOSS = {False: 1e-4,  # f32: the f32 train step's bar (TOL_TRAIN_LO
                      True: 1e-2}   # bf16 compute: a mean over 8 x 1024 bf16 logits
 HALO_COUNTERS = ("local_attention_fwd_halo", "local_attention_bwd_dq_halo",
                  "local_attention_bwd_dkv_halo")
-# f32 and bf16 at ProGen-default's head and window, the CLI's batch: K1-fwd
-# and K1-dkv on their dim_head-32 kernels (tf32x3, wgmma; the meshed
+# f32 and bf16 at ProGen-default's head and window, the CLI's batch: K1-fwd,
+# K1-dq and K1-dkv on their dim_head-32 kernels (tf32x3, wgmma; the meshed
 # Trainer's sp path at ProGen-default), timed beside wmma; rows folded into
 # phase 3's D-32 rows
 D32_HALO_CASE = (4, DEFAULT.heads, DEFAULT.seq_len, DEFAULT.dim_head, DEFAULT.window_size)
@@ -4497,8 +4508,7 @@ def halo_case(gen, shape, dtype) -> tuple:
     the same halo, on the route the shape must take, twice for the same
     bits; returns the inputs and the errors."""
     b, h, n, d, wsz = shape
-    route = {name: k1_route(kernel, dtype, d, wsz) for name, kernel in
-             (("local_attention_fwd", "fwd"), *K1_BWD_ROUTES.items())}
+    route = dict.fromkeys(K1_ROUTE_KERNELS, k1_route(dtype, d, wsz))
     inputs = halo_inputs(gen, *shape, dtype)
     q, k, v, do, kh, vh = inputs
     before = read_routes()

@@ -13,6 +13,8 @@ an int8 pool), warm in L2 and cold.
                                                local_attention_fwd_d32
                                                local_attention_fwd_d32_bf16
                                                local_attention_bwd_d32_bf16
+                                               local_attention_bwd_dq_d32
+                                               local_attention_bwd_dq_d32_bf16
                                                sgu_fwd sgu_bwd paged_gate_mix]
 
 Variants, made from the source by text substitution (each substitution
@@ -63,6 +65,14 @@ checked; the results are wrong, only the times count, except ``overlap``'s):
   three blocks an SM the ring's depth moves ptxas's spills), and
   ``maxnreg_136`` (three blocks an SM with 136 registers a thread, the
   most they leave, where the bound's 3 gives 128); all right, and
+  bit-equal to ``whole``.
+- K1-dq at dim_head 32 on its Hopper routes (the sources
+  ``local_attention_bwd_dq_d32``, f32 ``tf32x3``, and
+  ``local_attention_bwd_dq_d32_bf16``, bf16 ``wgmma``, at the shapes of the
+  K1-fwd ones): f32 ``whole`` (32-key tiles, registers capped for three
+  blocks an SM), ``two_blocks``, ``keys_64`` (64-key tiles) and
+  ``keys_64_two_blocks`` (the first design); bf16 ``whole`` (a 4-stage ring, three blocks
+  an SM), ``stages_2``, ``stages_6`` and ``four_blocks``; all right, and
   bit-equal to ``whole``.
 - f32 K2-dgate on the tf32x3 route (``sgu_bwd.cu``, at B = 8 in f32):
   ``whole`` (two blocks an SM, registers capped at 128) and ``one_block``
@@ -285,10 +295,14 @@ FILES = {"local_attention_bwd_f32": "local_attention_bwd",
          "local_attention_fwd_d32": "local_attention_fwd",
          "local_attention_bwd_d32": "local_attention_bwd",
          "local_attention_fwd_d32_bf16": "local_attention_fwd",
-         "local_attention_bwd_d32_bf16": "local_attention_bwd"}
+         "local_attention_bwd_d32_bf16": "local_attention_bwd",
+         "local_attention_bwd_dq_d32": "local_attention_bwd",
+         "local_attention_bwd_dq_d32_bf16": "local_attention_bwd"}
 W32_STAGES_2 = [("constexpr int W32_STAGES = 4;", "constexpr int W32_STAGES = 2;", 1)]
 W32_STAGES_6 = [("constexpr int W32_STAGES = 4;", "constexpr int W32_STAGES = 6;", 1)]
 W32_TWO_BLOCKS = [("__launch_bounds__(w32::THREADS, 3)", "__launch_bounds__(w32::THREADS, 2)", 1)]
+DQ32_KEYS_64 = [("constexpr int DQ32_KEYS = 32;", "constexpr int DQ32_KEYS = 64;", 1)]
+DQ32_TWO_BLOCKS = [("constexpr int DQ32_F32_BLOCKS = 3;", "constexpr int DQ32_F32_BLOCKS = 2;", 1)]
 
 # source -> (the text the Hopper kernels start at, stubs, variants); a
 # variant is a list of (text, replacement, occurrences after the start), or
@@ -354,6 +368,18 @@ SOURCES = {
         "two_blocks_stages_6": W32_TWO_BLOCKS + W32_STAGES_6,
         "maxnreg_136": [("__launch_bounds__(w32::THREADS, 3)", "__maxnreg__(136)", 1)],
     }),
+    "local_attention_bwd_dq_d32": ("// -- K1-dq in f32 at dim_head 32", "", {
+        "whole": [],
+        "two_blocks": DQ32_TWO_BLOCKS,
+        "keys_64": DQ32_KEYS_64,
+        "keys_64_two_blocks": DQ32_KEYS_64 + DQ32_TWO_BLOCKS,
+    }),
+    "local_attention_bwd_dq_d32_bf16": ("// -- K1-dq in bf16 at dim_head 32", "", {
+        "whole": [],
+        "stages_2": [("constexpr int DQ32_STAGES = 4;", "constexpr int DQ32_STAGES = 2;", 1)],
+        "stages_6": [("constexpr int DQ32_STAGES = 4;", "constexpr int DQ32_STAGES = 6;", 1)],
+        "four_blocks": [("constexpr int DQ32_BLOCKS = 3;", "constexpr int DQ32_BLOCKS = 4;", 1)],
+    }),
     "sgu_bwd": ("namespace dg3 {", "", {
         "whole": [],
         "one_block": [("__launch_bounds__(dg3::THREADS, 2)", "__launch_bounds__(dg3::THREADS, 1)",
@@ -403,6 +429,8 @@ ENTRIES = {
     "local_attention_bwd_d32": (("local_attention_bwd_dkv_tf32x3", 12),),
     "local_attention_fwd_d32_bf16": (("local_attention_fwd_wgmma", 7),),
     "local_attention_bwd_d32_bf16": (("local_attention_bwd_dkv_wgmma", 12),),
+    "local_attention_bwd_dq_d32": (("local_attention_bwd_dq_tf32x3", 9),),
+    "local_attention_bwd_dq_d32_bf16": (("local_attention_bwd_dq_wgmma", 9),),
     "paged_gate_mix": (("paged_gate_mix_bulk", 8, 8), ("paged_gate_mix_q8_bulk", 10, 9),
                        ("paged_gate_mix", 6, 7), ("paged_gate_mix_q8", 8, 8)),
 }
@@ -679,6 +707,28 @@ def time_dkv_d32(lib, gen, dtype=torch.float32) -> list[dict]:
     return rows
 
 
+def time_dq_d32(lib, gen, dtype=torch.float32) -> list[dict]:
+    """K1-dq at dim_head 32 on its Hopper route, as :func:`time_fwd_d32`
+    times K1-fwd."""
+    fn = getattr(lib, f"local_attention_bwd_dq_{D32_ROUTES[dtype]}")
+    rows = []
+    for batch, halo in D32_CASES:
+        q, k, v, do, kh, vh, window = d32_inputs(gen, batch, halo, dtype)
+        b, h, n, d = q.shape
+        out, lse = cuda_attention.local_attention_fwd(q, k, v, window, None, kh, vh)
+        dd = (do.float() * out.float()).sum(-1)
+        dq = torch.empty_like(q)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kh), _ptr(vh), do.data_ptr(),
+                lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), b * h, n, d, window, d ** -0.5,
+                cuda_attention.DTYPES[dtype], torch.cuda.current_stream().cuda_stream)
+        check(fn(*args))
+        want = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, window, None, kh, vh)
+        rows.append({"shape": list(q.shape), "window": window, "dtype": str(dtype)[6:],
+                     "halo": halo, "ms": time_ms(lambda: check(fn(*args))),
+                     "same_as_whole": torch.equal(dq, want)})
+    return rows
+
+
 def time_sgu_bwd(lib, gen) -> list[dict]:
     """f32 K2-dgate on the tf32x3 route at B = 8, and whether its result is
     the library's own route's, bit for bit."""
@@ -765,6 +815,8 @@ TIMERS = {"local_attention_bwd": time_bwd, "local_attention_fwd": time_fwd,
           "local_attention_bwd_d32": time_dkv_d32,
           "local_attention_fwd_d32_bf16": functools.partial(time_fwd_d32, dtype=torch.bfloat16),
           "local_attention_bwd_d32_bf16": functools.partial(time_dkv_d32, dtype=torch.bfloat16),
+          "local_attention_bwd_dq_d32": time_dq_d32,
+          "local_attention_bwd_dq_d32_bf16": functools.partial(time_dq_d32, dtype=torch.bfloat16),
           "paged_gate_mix": time_paged}
 
 

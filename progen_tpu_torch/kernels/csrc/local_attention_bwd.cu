@@ -38,7 +38,7 @@
 //
 // "wgmma" (local_attention_bwd_{dq,dkv}_wgmma): bf16, dim_head 64 or 128,
 // windows that are multiples of 128 (every shipped config but `default`;
-// K1-dkv at dim_head 32 below).
+// dim_head 32, `default`, has kernels of its own, below).
 // A block of three warpgroups owns 128 rows of one window: query rows for
 // dq, key rows for dkv.  One producer thread keeps their own tiles resident
 // in shared memory (q and dout, or k and v) and streams 64-row tiles of the
@@ -60,8 +60,7 @@
 //
 // K1-dkv in bf16 at dim_head 32 (ProGen-default under `train
 // --mixed_precision`) has a kernel of its own on the same route, reached
-// through local_attention_bwd_dkv_wgmma (K1-dq's wgmma entry refuses
-// dim_head 32: it stays on "wmma").  It replaced the "wmma" kernel there
+// through local_attention_bwd_dkv_wgmma.  It replaced the "wmma" kernel there
 // (0.0998 ms at B 4 and 0.3642 at B 32 on an H100, 1.85x and 1.30x one
 // scaled_dot_product_attention backward of dq, dk and dv together).  What
 // bounds it: 1.61 GFLOP at B 4 (0.0016 ms at the bf16 peak) over 4.8 MB,
@@ -79,6 +78,24 @@
 // operands and dout and q N-major; dk is scaled once.  A block's first tile
 // is its diagonal one (masked in registers); every output element is
 // written by one thread, once.
+//
+// K1-dq in bf16 at dim_head 32 has one too, reached through
+// local_attention_bwd_dq_wgmma: K1-fwd's dim_head-32 kernel turned into dq,
+// with no online softmax since the lse is known.  It replaced the "wmma"
+// kernel there (0.0780 ms at B 4 and 0.3059 at B 32 on an H100, 1.43x and
+// 1.09x one scaled_dot_product_attention backward of dq, dk and dv
+// together).  What bounds it: 1.21 GFLOP at B 4 (0.0012 ms at the bf16
+// peak) over 4.0 MB, and one ex2 a visible pair (0.0015 ms at B 4 on the
+// SFUs).  A block is one consumer warpgroup of 64 query rows and one
+// producer warp, 42 KB of shared memory, launched in K1-fwd's
+// longest-walk-first order (d32::fwd_block_row); q and dout arrive once,
+// each row's lse and D are read once into registers, and the 64-key k and v
+// tiles stream through a 4-stage ring of 64-byte-swizzled TMA boxes.  Per
+// tile s = q.k^T and dp = dout.v^T by wgmma m64n64k16 from shared memory,
+// p and ds in registers, then dq += ds.k by wgmma m64n32k16 with ds as the
+// bf16 register A operand and k N-major.  Only the last tile of a walk is
+// the diagonal one (masked in registers); dq is scaled once and every
+// element written by one thread, once.
 //
 // "tf32x3" (local_attention_bwd_{dq,dkv}_tf32x3): f32 with dim_head 64 or
 // 128 and windows that are multiples of 128 (the "wgmma" route's shapes;
@@ -117,6 +134,19 @@
 // registers) beside dk and dv (32) for the whole walk, so only the
 // streamed q and dout are split per tile.  193 registers, no spills.
 //
+// K1-dq at dim_head 32 has one too: K1-fwd's dim_head-32 kernel turned
+// into dq.  It replaced the "wmma" kernel's FMA loops there (0.2275 ms at B
+// 4 and 0.9714 at B 32 on an H100).  What bounds it: 1.21 GFLOP at B 4,
+// 3 x FLOPs / 495 TFLOP/s = 0.0073 ms, over 8 MB: the operations.  A block
+// is four warps of 64 query rows (37 KB), launched in K1-fwd's
+// longest-walk-first order; the k and v tiles of 32 keys stream through the
+// two-stage cp.async ring; each warp splits its 16 x 32 q and dout
+// fragments into hi and lo once and holds them (64 registers) beside dq
+// (16) for the whole walk, so only the streamed k and v are split per
+// tile.  Three blocks an SM (168 registers, 8 B of spills) ran 1-5% and
+// 5-7% faster at B 4 and B 32 on an H100 than two with 64-key tiles (253
+// registers, the first design; kernels.ablate local_attention_bwd_dq_d32).
+//
 // K1-dq: K1-dkv turned round.  A block of eight warps owns 128 query rows
 // of one window, in K1-fwd's longest-walk-first order (block_row), q and
 // dout resident in shared memory (rows of D + 4 words: 135 KB at D = 128);
@@ -133,7 +163,7 @@
 // atomics: the same bits every run.
 //
 // "wmma" (local_attention_bwd_{dq,dkv}): windows that are not a multiple of
-// 128, K1-dq at dim_head 32, and what a caller forces onto it.  One block of 4 warps owns 64 rows,
+// 128, and what a caller forces onto it.  One block of 4 warps owns 64 rows,
 // each warp 16 of them.  The block streams tiles of the other side (64 rows
 // in bf16, 32 in f32, so the f32 tiles fit in shared memory at D = 128) and
 // skips the tiles that no row of the block sees; visibility is decided per
@@ -792,6 +822,180 @@ cudaError_t launch_dkv_tf32x3_d32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// -- K1-dq in f32 at dim_head 32: 3xTF32, q's and dout's split held --------
+
+constexpr int DQ32_KEYS = 32;        // keys of a streamed tile
+constexpr int DQ32_F32_BLOCKS = 3;   // blocks an SM the registers are capped for
+
+// Shared memory: the block's 64 query rows of q and of dout (read once, into
+// the held split), then the ring's stages of a k tile and its v tile; every
+// row 36 words: 36,864 bytes.
+struct Dq3D32Layout {
+  static constexpr size_t Q = 0;
+  static constexpr size_t DOUT = Q + sizeof(float) * d32::ROWS * d32::LD;
+  static constexpr size_t RING = DOUT + sizeof(float) * d32::ROWS * d32::LD;
+  static constexpr size_t STAGE = sizeof(float) * 2 * DQ32_KEYS * d32::LD;
+  static constexpr size_t SMEM = RING + t3::STAGES * STAGE;
+};
+
+// K1-dq, f32, dim_head 32: block blk owns query rows [b0, b0 + 64) of row
+// block blk / bh (d32::fwd_block_row, K1-fwd's longest-walk-first order) of
+// sequence blk % bh and walks the key tiles from the previous window's
+// first (the halo's, at t0 < 0, when one is given; window 0 without one
+// from key 0) to b0 + 63.  Each warp owns 16 rows, whose lse and D it reads
+// once: their q and dout fragments are split into hi and lo once, after q
+// and dout land, and held in registers (64) for the whole walk; per tile
+// only the streamed k and v are split as their fragments load.  s = q.k^T
+// and dp = dout.v^T (16 x DQ32_KEYS), p = 2^(s scale log2 e - lse log2 e)
+// and ds = p (dp - D) there, dq += ds.k with ds as split A fragments and k
+// read N-major (16 x 32, in registers for the whole walk), every product
+// 3xTF32.  A warp skips the tiles whose keys all come after its rows; the
+// tiles that reach past its first row are masked in registers.
+__global__ void __launch_bounds__(d32::THREADS, DQ32_F32_BLOCKS)
+local_attention_dq_d32_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     const float* __restrict__ k_halo,
+                                     const float* __restrict__ v_halo,
+                                     const float* __restrict__ dout,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ dd, float* __restrict__ dq,
+                                     int bh, int seq, int wsz, float scale) {
+  using S = Dq3D32Layout;
+  constexpr int D = d32::D, LD = d32::LD, KT = DQ32_KEYS, THREADS = d32::THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + S::Q);
+  float* dos = reinterpret_cast<float*>(smem + S::DOUT);
+
+  const int b0 = d32::fwd_block_row(blockIdx.x / bh, seq, wsz);
+  const int sq = blockIdx.x % bh;
+  const size_t row0 = static_cast<size_t>(sq) * seq;
+  const bool halo = k_halo != nullptr;
+  const float* kh = halo ? k_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const float* vh = halo ? v_halo + static_cast<size_t>(sq) * wsz * D : nullptr;
+  const int first = wgmma::dq_first(b0, wsz, halo);
+  const int tiles = (b0 + d32::ROWS - first) / KT;
+
+  auto stage = [&](int it) {
+    return reinterpret_cast<float*>(smem + S::RING + (it % t3::STAGES) * S::STAGE);
+  };
+  auto load = [&](int it) {  // tile it into its stage (window 0's previous: the halo)
+    const int t0 = first + KT * it;
+    float* ks = stage(it);
+    const float* ksrc = t0 < 0 ? kh + static_cast<size_t>(wsz + t0) * D : k + (row0 + t0) * D;
+    const float* vsrc = t0 < 0 ? vh + static_cast<size_t>(wsz + t0) * D : v + (row0 + t0) * D;
+    progen::tf32x3::copy_rows<D, KT, THREADS>(ks, ksrc);
+    progen::tf32x3::copy_rows<D, KT, THREADS>(ks + KT * LD, vsrc);
+  };
+  progen::tf32x3::copy_rows<D, d32::ROWS, THREADS>(qs, q + (row0 + b0) * D);
+  progen::tf32x3::copy_rows<D, d32::ROWS, THREADS>(dos, dout + (row0 + b0) * D);
+  progen::hopper::cp_async_commit();
+  load(0);
+  progen::hopper::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = b0 + 16 * warp;  // this warp's rows; the thread's: r0 + g (+ 8)
+  const size_t at = row0 + r0 + g;
+  const float lse2[2] = {lse[at] * t3::LOG2E, lse[at + 8] * t3::LOG2E};
+  const float dd_r[2] = {dd[at], dd[at + 8]};
+  const float scale2 = scale * t3::LOG2E;  // p = 2^(s scale log2 e - lse log2 e)
+  progen::hopper::cp_async_wait<1>();  // q and dout have landed (tile 0 may be in flight)
+  __syncthreads();
+  t3::FragA qa[D / 8], da[D / 8];  // the held split
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    t3::load_a(qa[kk], qs + 16 * warp * LD + 8 * kk, LD);
+    t3::load_a(da[kk], dos + 16 * warp * LD + 8 * kk, LD);
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    if (it + 1 < tiles) load(it + 1);
+    progen::hopper::cp_async_commit();  // an empty group at the end keeps the count
+    progen::hopper::cp_async_wait<1>();  // tile it has landed
+    __syncthreads();
+    const int t0 = first + KT * it;
+    if (t0 <= r0 + 15) {  // some key of the tile is at or before some row of the warp
+      const bool diagonal = t0 + KT - 1 > r0;  // ... and some key after some row
+      const float* ks = stage(it);
+      const float* vs = ks + KT * LD;
+      float sc[KT / 8][4], dp[KT / 8][4];
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {  // s = q.k^T
+        t3::FragB b[KT / 8];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) t3::load_b_rows(b[j], ks + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<KT / 8>(sc, qa[kk], b);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {  // dp = dout.v^T
+        t3::FragB b[KT / 8];
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) t3::load_b_rows(b[j], vs + 8 * j * LD + 8 * kk, LD);
+        t3::mma3<KT / 8>(dp, da[kk], b);
+      }
+      // element (j, 2 h + x): row r0 + g + 8 h, key t0 + 8 j + 2 t + x of
+      // the tile, seen if the key is at or before the row
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int e = 2 * h + x;
+            const bool seen = !diagonal || t0 + 8 * j + 2 * t + x <= r0 + g + 8 * h;
+            const float p = seen ? exp2f(fmaf(sc[j][e], scale2, -lse2[h])) : 0.0f;
+            dp[j][e] = p * (dp[j][e] - dd_r[h]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {  // dq += ds.k
+        t3::FragA dsa;
+        t3::a_from_c(dsa, dp[j]);
+        t3::FragB b[D / 8];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) t3::load_b_cols(b[n], ks + 8 * j * LD + 8 * n, LD);
+        t3::mma3<D / 8>(acc, dsa, b);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(dq + (at + 8 * h) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+    }
+  }
+}
+
+cudaError_t launch_dq_tf32x3_d32(const void* q, const void* k, const void* v,
+                                 const void* k_halo, const void* v_halo, const void* dout,
+                                 const void* lse, const void* dd, void* dq, int bh, int seq,
+                                 int wsz, float scale, cudaStream_t stream) {
+  constexpr size_t bytes = Dq3D32Layout::SMEM;
+  auto kernel = local_attention_dq_d32_tf32x3_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<(seq / d32::ROWS) * bh, d32::THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(k_halo), static_cast<const float*>(v_halo),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<float*>(dq), bh, seq, wsz, scale);
+  return cudaGetLastError();
+}
+
 // -- K1-dq in f32 on the tensor cores: 3xTF32 (the "tf32x3" route) -----------
 
 // Shared memory: the block's 128 query rows of q and of dout, then the
@@ -1110,6 +1314,138 @@ local_attention_dkv_d32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float by_scale[2] = {scale, scale}, by_one[2] = {1.0f, 1.0f};
   w32::store_rows((hb ? dk_halo : dk) + static_cast<size_t>(krow) * w32::D, acc_k, by_scale);
   w32::store_rows((hb ? dv_halo : dv) + static_cast<size_t>(krow) * w32::D, acc_v, by_one);
+}
+
+// -- K1-dq in bf16 at dim_head 32: 64-byte-swizzled TMA into wgmma ----------
+
+constexpr int DQ32_STAGES = 4;  // the ring's depth
+constexpr int DQ32_BLOCKS = 3;  // blocks an SM the registers are capped for
+
+// Shared memory: the block's 64-row q and dout tiles, then the ring's stages
+// of a k and a v tile (one 64-byte-swizzled box each), then the barriers:
+// 42,056 bytes with the alignment slack.
+struct Dq32Layout {
+  static constexpr int RES = 0;
+  static constexpr int RING = RES + 2 * w32::TILE;
+  static constexpr int STAGE = 2 * w32::TILE;
+  static constexpr int BARS = RING + DQ32_STAGES * STAGE;
+  static constexpr size_t SMEM = 1024 + BARS + (2 * DQ32_STAGES + 1) * sizeof(uint64_t);
+};
+
+// K1-dq, bf16, dim_head 32: block blk owns query rows [b0, b0 + 64) of row
+// block blk / bh (d32::fwd_block_row, K1-fwd's longest-walk-first order) of
+// sequence blk % bh.  The producer warp's first thread loads q and dout once
+// and streams the 64-key k and v tiles from the previous window's first (the
+// halo's maps at t0 < 0 when `halo` is set; window 0 without one from key
+// 0) to b0, the last one the diagonal tile; the consumer warpgroup reads its
+// rows' lse and D once, forms s = q.k^T and dp = dout.v^T by wgmma from
+// shared memory, p = 2^(s scale log2 e - lse log2 e) and ds = p (dp - D) in
+// registers, and dq += ds.k with ds as the bf16 register A operand (the cast
+// the TPU kernel makes) and k N-major; dq stays in registers and is scaled
+// once.
+__global__ void __launch_bounds__(w32::THREADS, DQ32_BLOCKS)
+local_attention_dq_d32_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    const __grid_constant__ CUtensorMap do_map,
+                                    const __grid_constant__ CUtensorMap kh_map,
+                                    const __grid_constant__ CUtensorMap vh_map,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ dd, bf16* __restrict__ dq,
+                                    int bh, int seq, int wsz, float scale, int halo) {
+  using S = Dq32Layout;
+  constexpr int STAGES = DQ32_STAGES, TILE = w32::TILE, ROWS = w32::ROWS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
+
+  const int b0 = d32::fwd_block_row(blockIdx.x / bh, seq, wsz);
+  const int row0 = (blockIdx.x % bh) * seq;
+  const int hrow0 = (blockIdx.x % bh) * wsz;  // this sequence's halo rows
+  const int first = wgmma::dq_first(b0, wsz, halo);
+  const int tiles = (b0 + ROWS - first) / ROWS;
+  w32::init_barriers(full, empty, resident, STAGES);
+
+  if (threadIdx.x >= w32::CONSUMERS) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == w32::CONSUMERS) {
+      mbar_expect_tx(resident, 2 * TILE);
+      tma_load_2d(smem + S::RES, &q_map, resident, 0, row0 + b0);
+      tma_load_2d(smem + S::RES + TILE, &do_map, resident, 0, row0 + b0);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % STAGES, t0 = first + ROWS * it;
+        mbar_wait_or_trap(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* buf = smem + S::RING + s * S::STAGE;
+        mbar_expect_tx(&full[s], S::STAGE);
+        const bool from_halo = t0 < 0;  // window 0's previous window: the halo
+        const int row = from_halo ? hrow0 + wsz + t0 : row0 + t0;
+        tma_load_2d(buf, from_halo ? &kh_map : &k_map, &full[s], 0, row);
+        tma_load_2d(buf + TILE, from_halo ? &vh_map : &v_map, &full[s], 0, row);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int lr = 16 * (tid / 32) + lane / 4;  // this thread's rows: lr, lr + 8
+  const size_t at = static_cast<size_t>(row0) + b0 + lr;
+  const float lse2[2] = {lse[at] * wgmma::LOG2E, lse[at + 8] * wgmma::LOG2E};
+  const float dd_r[2] = {dd[at], dd[at + 8]};
+  const float scale2 = scale * wgmma::LOG2E;  // p = 2^(s scale log2 e - lse log2 e)
+  const unsigned char* qs = smem + S::RES;
+  const unsigned char* dos = qs + TILE;
+  float acc[w32::D / 2];
+#pragma unroll
+  for (int i = 0; i < w32::D / 2; ++i) acc[i] = 0.0f;
+  mbar_wait_or_trap(resident, 0);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % STAGES;
+    const bool diagonal = it == tiles - 1;  // every earlier tile's keys precede every row
+    mbar_wait_or_trap(&full[s], (it / STAGES) & 1);
+    const unsigned char* ks = smem + S::RING + s * S::STAGE;
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    wgmma_fence();
+    w32::scores(sc, qs, ks);
+    w32::scores(dp, dos, ks + TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    fence_operands(dp);
+    // fragment element 4 i + 2 h + x: row lr + 8 h, key column
+    // 8 i + 2 (lane % 4) + x; on the diagonal tile key c sees row r only if
+    // c <= r (p = 0 is what the -1e10 fill gives)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int e = 4 * i + 2 * h + x;
+          ds[x] = 0.0f;
+          if (!diagonal || 8 * i + 2 * (lane % 4) + x <= lr + 8 * h) {
+            const float p = exp2f(fmaf(sc[e], scale2, -lse2[h]));
+            ds[x] = p * (dp[e] - dd_r[h]);
+          }
+        }
+        wgmma::a_slot(a, i, h) = pack_bf16(ds[0], ds[1]);
+      }
+    }
+    wgmma_fence();
+    w32::accumulate(acc, a, ks);  // dq += ds.k
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (tid == 0) mbar_arrive(&empty[s]);
+  }
+
+  const float by_scale[2] = {scale, scale};
+  w32::store_rows(dq + (static_cast<size_t>(row0) + b0) * w32::D, acc, by_scale);
 }
 
 // -- bf16 on Hopper: a TMA ring into wgmma (the "wgmma" route) ----------------
@@ -1639,23 +1975,44 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, Halo h
   return cudaGetLastError();
 }
 
+// maps() at dim_head 32: (32 columns, 64 rows) boxes, 64-byte swizzled.
+bool maps_d32(CUtensorMap (&m)[6], const void* q, const void* k, const void* v, Halo halo,
+              const void* dout, int bh, int seq, int wsz) {
+  const long long rows = static_cast<long long>(bh) * seq;
+  if (!(w32::tile_map(&m[0], q, rows) && w32::tile_map(&m[1], k, rows) &&
+        w32::tile_map(&m[2], v, rows) && w32::tile_map(&m[3], dout, rows))) {
+    return false;
+  }
+  m[4] = m[1];  // k's and v's own when there is no halo, never read
+  m[5] = m[2];
+  const long long halo_rows = static_cast<long long>(bh) * wsz;
+  return !halo.on() ||
+         (w32::tile_map(&m[4], halo.k, halo_rows) && w32::tile_map(&m[5], halo.v, halo_rows));
+}
+
+cudaError_t launch_dq_wgmma_d32(const void* q, const void* k, const void* v, Halo halo,
+                                const void* dout, const void* lse, const void* dd, void* dq,
+                                int bh, int seq, int wsz, float scale, cudaStream_t stream) {
+  CUtensorMap m[6];
+  if (!maps_d32(m, q, k, v, halo, dout, bh, seq, wsz)) return cudaErrorInvalidValue;
+  constexpr size_t bytes = Dq32Layout::SMEM;
+  auto kernel = local_attention_dq_d32_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<(seq / w32::ROWS) * bh, w32::THREADS, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<bf16*>(dq), bh, seq, wsz, scale,
+      halo.on() ? 1 : 0);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dkv_wgmma_d32(const void* q, const void* k, const void* v, Halo halo,
                                  const void* dout, const void* lse, const void* dd, void* dk,
                                  void* dv, int bh, int seq, int wsz, float scale,
                                  cudaStream_t stream) {
-  const long long rows = static_cast<long long>(bh) * seq;
-  const long long halo_rows = static_cast<long long>(bh) * wsz;
   CUtensorMap m[6];
-  if (!(w32::tile_map(&m[0], q, rows) && w32::tile_map(&m[1], k, rows) &&
-        w32::tile_map(&m[2], v, rows) && w32::tile_map(&m[3], dout, rows))) {
-    return cudaErrorInvalidValue;
-  }
-  m[4] = m[1];  // k's and v's own when there is no halo, never read
-  m[5] = m[2];
-  if (halo.on() && !(w32::tile_map(&m[4], halo.k, halo_rows) &&
-                     w32::tile_map(&m[5], halo.v, halo_rows))) {
-    return cudaErrorInvalidValue;
-  }
+  if (!maps_d32(m, q, k, v, halo, dout, bh, seq, wsz)) return cudaErrorInvalidValue;
   constexpr size_t bytes = Dkv32Layout::SMEM;
   auto kernel = local_attention_dkv_d32_wgmma_kernel;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1669,13 +2026,12 @@ cudaError_t launch_dkv_wgmma_d32(const void* q, const void* k, const void* v, Ha
   return cudaGetLastError();
 }
 
-// The wgmma route takes bf16, dim_head 64 or 128 (and 32 for K1-dkv,
-// `d32`) and windows that are multiples of 128 (cuda_attention.dq_route and
-// dkv_route decide before the launch).
-bool bad_wgmma_shape(int bh, int seq, int dim_head, int wsz, int dtype,
-                     bool takes_d32 = false) {
-  return bad_shape(bh, seq, wsz) || dtype != 1 || wsz % wg::ROWS != 0 ||
-         (dim_head != 64 && dim_head != 128 && !(takes_d32 && dim_head == 32)) ||
+// The Hopper routes take dim_head 32, 64 or 128 and windows that are
+// multiples of 128 (cuda_attention.dq_route and dkv_route decide before the
+// launch), bf16 on "wgmma" (dtype 1) and f32 on "tf32x3" (dtype 0).
+bool bad_hopper_shape(int bh, int seq, int dim_head, int wsz, int dtype, int want_dtype) {
+  return bad_shape(bh, seq, wsz) || dtype != want_dtype || wsz % wg::ROWS != 0 ||
+         (dim_head != 32 && dim_head != 64 && dim_head != 128) ||
          static_cast<long long>(bh) * seq > 0x7FFFFFFF;
 }
 
@@ -1734,8 +2090,9 @@ extern "C" int local_attention_bwd_dkv(const void* q, const void* k, const void*
   return static_cast<int>(err);
 }
 
-// The wgmma route of K1-dq: bfloat16 only (dtype 1), dim_head 64 or 128,
-// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
+// The wgmma route of K1-dq: bfloat16 only (dtype 1), dim_head 32, 64 or
+// 128 (32 its own kernel, 64-row blocks of one warpgroup), wsz a multiple
+// of 128, every pointer 16-byte aligned; arguments as for
 // local_attention_bwd_dq.  Returns the CUDA error code of the launch.
 extern "C" int local_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
                                             const void* k_halo, const void* v_halo,
@@ -1744,18 +2101,21 @@ extern "C" int local_attention_bwd_dq_wgmma(const void* q, const void* k, const 
                                             int dim_head, int wsz, float scale, int dtype,
                                             void* stream) {
   const Halo halo{k_halo, v_halo, nullptr, nullptr};
-  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype) || bad_halo(halo, false)) {
+  if (bad_hopper_shape(bh, seq, dim_head, wsz, dtype, 1) || bad_halo(halo, false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dim_head == 64
-      ? launch_dq_wgmma<64>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s)
-      : launch_dq_wgmma<128>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s);
+  cudaError_t err =
+      dim_head == 32
+          ? launch_dq_wgmma_d32(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s)
+      : dim_head == 64
+          ? launch_dq_wgmma<64>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s)
+          : launch_dq_wgmma<128>(q, k, v, halo, dout, lse, dd, dq, bh, seq, wsz, scale, s);
   return static_cast<int>(err);
 }
 
-// The wgmma route of K1-dkv, as above, and dim_head 32 too (its own kernel,
-// 64-key blocks in one pass).
+// The wgmma route of K1-dkv, as above (dim_head 32 its own kernel, 64-key
+// blocks in one pass).
 extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                                              const void* k_halo, const void* v_halo,
                                              const void* dout, const void* lse,
@@ -1764,7 +2124,7 @@ extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const
                                              int dim_head, int wsz, float scale, int dtype,
                                              void* stream) {
   const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
-  if (bad_wgmma_shape(bh, seq, dim_head, wsz, dtype, true) || bad_halo(halo, true)) {
+  if (bad_hopper_shape(bh, seq, dim_head, wsz, dtype, 1) || bad_halo(halo, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1777,8 +2137,9 @@ extern "C" int local_attention_bwd_dkv_wgmma(const void* q, const void* k, const
   return static_cast<int>(err);
 }
 
-// The tf32x3 route of K1-dq: float32 only (dtype 0), dim_head 64 or 128,
-// wsz a multiple of 128, every pointer 16-byte aligned; arguments as for
+// The tf32x3 route of K1-dq: float32 only (dtype 0), dim_head 32, 64 or
+// 128 (32 its own kernel, 64-row blocks of four warps), wsz a multiple of
+// 128, every pointer 16-byte aligned; arguments as for
 // local_attention_bwd_dq.  Returns the CUDA error code of the launch.
 extern "C" int local_attention_bwd_dq_tf32x3(const void* q, const void* k, const void* v,
                                              const void* k_halo, const void* v_halo,
@@ -1787,12 +2148,14 @@ extern "C" int local_attention_bwd_dq_tf32x3(const void* q, const void* k, const
                                              int dim_head, int wsz, float scale, int dtype,
                                              void* stream) {
   const Halo halo{k_halo, v_halo, nullptr, nullptr};
-  if (bad_shape(bh, seq, wsz) || bad_halo(halo, false) || dtype != 0 ||
-      wsz % t3::ROWS != 0 || (dim_head != 64 && dim_head != 128) ||
-      static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
+  if (bad_hopper_shape(bh, seq, dim_head, wsz, dtype, 0) || bad_halo(halo, false)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim_head == 32) {
+    return static_cast<int>(launch_dq_tf32x3_d32(q, k, v, k_halo, v_halo, dout, lse, dd, dq,
+                                                 bh, seq, wsz, scale, s));
+  }
   cudaError_t err = dim_head == 64
       ? launch_dq_tf32x3<64>(q, k, v, k_halo, v_halo, dout, lse, dd, dq, bh, seq, wsz, scale, s)
       : launch_dq_tf32x3<128>(q, k, v, k_halo, v_halo, dout, lse, dd, dq, bh, seq, wsz, scale,
@@ -1811,9 +2174,7 @@ extern "C" int local_attention_bwd_dkv_tf32x3(const void* q, const void* k, cons
                                               int dim_head, int wsz, float scale, int dtype,
                                               void* stream) {
   const Halo halo{k_halo, v_halo, dk_halo, dv_halo};
-  if (bad_shape(bh, seq, wsz) || bad_halo(halo, true) || dtype != 0 ||
-      wsz % t3::ROWS != 0 || (dim_head != 32 && dim_head != 64 && dim_head != 128) ||
-      static_cast<long long>(bh) * seq > 0x7FFFFFFF) {
+  if (bad_hopper_shape(bh, seq, dim_head, wsz, dtype, 0) || bad_halo(halo, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -14,17 +14,16 @@ count the launches of K1-fwd, K1-dq and K1-dkv, and nothing else.
 
 Each kernel's route is chosen before the launch by :func:`fwd_route`,
 :func:`dq_route` and :func:`dkv_route` from the dtype, ``dim_head`` and the
-window alone.  ``dim_head`` 64 or 128 with a window that is a multiple of
-128 (every shipped config but ``default``) takes the Hopper kernels: in
-bf16 a TMA ring into ``wgmma`` (``"wgmma"``), in f32 the tensor cores as
-three TF32 products a product (``"tf32x3"``, a ``cp.async`` ring into
-``mma.sync``), all three kernels in both.  At ``dim_head`` 32 (``default``)
-with such a window, K1-fwd and K1-dkv take the Hopper kernels too, in
-blocks of 64 rows: in bf16 one consumer warpgroup fed by 64-byte-swizzled
-TMA copies (``"wgmma"``), in f32 four warps that hold their own operand's
-split in registers (``"tf32x3"``); K1-dq there stays on ``"wmma"``.
-Everything else takes the WMMA kernels (``"wmma"``; their f32 products are
-FMA loops).  A failure on one route raises; it never tries another.  ``fwd_route_launches``,
+window alone; the three share one rule.  ``dim_head`` 32, 64 or 128 with a
+window that is a multiple of 128 (every shipped config) takes the Hopper
+kernels: in bf16 a TMA ring into ``wgmma`` (``"wgmma"``), in f32 the
+tensor cores as three TF32 products a product (``"tf32x3"``, a
+``cp.async`` ring into ``mma.sync``), all three kernels in both.  At
+``dim_head`` 32 (``default``) they are kernels of their own, in blocks of
+64 rows: in bf16 one consumer warpgroup fed by 64-byte-swizzled TMA copies,
+in f32 four warps that hold their own operands' split in registers.
+Everything else (a window that is no multiple of 128) takes the WMMA
+kernels (``"wmma"``; their f32 products are FMA loops).  A failure on one route raises; it never tries another.  ``fwd_route_launches``,
 ``dq_route_launches`` and ``dkv_route_launches`` count the launches of each
 route, and ``route="wmma"`` forces a launch onto the first kernel (to time
 it on the same inputs).
@@ -67,11 +66,11 @@ BWD_ROWS = 128
 BWD_TILE = 64
 TF32X3_WARP_ROWS = 16
 TF32X3_BWD_TILE = 32
-WGMMA_DIM_HEADS = (64, 128)
-# dim_head 32: K1-fwd and K1-dkv in blocks of 64 rows, in f32
+# dim_head 32: all three kernels in blocks of 64 rows, in f32
 # (attention_tf32x3.cuh, d32) four warps of 16 streaming tiles of 64 keys
-# (K1-fwd) or 32 queries (K1-dkv), in bf16 (attention_wgmma.cuh, d32) one
-# warpgroup streaming tiles of 64 keys or 64 queries; K1-dq stays on "wmma"
+# (K1-fwd), 32 keys (K1-dq: TF32X3_BWD_TILE) or 32 queries (K1-dkv), in bf16
+# (attention_wgmma.cuh, d32) one warpgroup streaming tiles of 64 keys or 64
+# queries
 D32_ROWS = 64
 D32_KEYS = 64
 # each route's extern "C" suffix
@@ -185,33 +184,24 @@ def local_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def _hopper_shape(dim_head: int, window_size: int) -> bool:
-    """``dim_head`` 64 or 128 and a window that is a multiple of 128: the
-    shapes the Hopper kernels' 128-row blocks take."""
-    return dim_head in WGMMA_DIM_HEADS and window_size > 0 and window_size % BWD_ROWS == 0
-
-
 def dq_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-dq kernel takes these shapes: on Hopper shapes ``"wgmma"``
-    in bf16 and ``"tf32x3"`` in f32; ``"wmma"`` for everything else the
-    kernels take."""
-    if not _hopper_shape(dim_head, window_size):
+    """Which K1-dq kernel takes these shapes: ``dim_head`` 32, 64 or 128 and
+    a window that is a multiple of 128 (the Hopper kernels' blocks of 128
+    rows, 64 at dim_head 32) take ``"wgmma"`` in bf16 and ``"tf32x3"`` in
+    f32; everything else the kernels take ``"wmma"``."""
+    if dim_head not in DIM_HEADS or window_size <= 0 or window_size % BWD_ROWS != 0:
         return "wmma"
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def fwd_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-fwd kernel takes these shapes: :func:`dq_route`'s rule, and
-    at ``dim_head`` 32 with a window that is a multiple of 128 also the
-    Hopper kernels (``"wgmma"`` in bf16, ``"tf32x3"`` in f32)."""
-    if dim_head == 32 and window_size > 0 and window_size % BWD_ROWS == 0:
-        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    """Which K1-fwd kernel takes these shapes: :func:`dq_route`'s rule."""
     return dq_route(dtype, dim_head, window_size)
 
 
 def dkv_route(dtype: torch.dtype, dim_head: int, window_size: int) -> str:
-    """Which K1-dkv kernel takes these shapes: :func:`fwd_route`'s rule."""
-    return fwd_route(dtype, dim_head, window_size)
+    """Which K1-dkv kernel takes these shapes: :func:`dq_route`'s rule."""
+    return dq_route(dtype, dim_head, window_size)
 
 
 def k1_fwd_tiles(n: int, window_size: int, halo: bool = False, block: int = BWD_ROWS,
@@ -228,7 +218,9 @@ def k1_fwd_tiles(n: int, window_size: int, halo: bool = False, block: int = BWD_
     128-row blocks of both routes at dim_head 64 and 128 (two warpgroups of
     64 rows; the f32 route's warps cut each in four); dim_head 32 takes
     ``block=D32_ROWS, tile=D32_KEYS`` with ``rows=TF32X3_WARP_ROWS`` in f32
-    (four warps) and ``rows=D32_ROWS`` in bf16 (one warpgroup).  Rows
+    (four warps) and ``rows=D32_ROWS`` in bf16 (one warpgroup), for K1-fwd
+    and for K1-dq, which walks K1-fwd's blocks (its f32 kernel in tiles of
+    :data:`TF32X3_BWD_TILE` keys).  Rows
     of window 0 also count the phantom window's ``wsz`` zero logits, as an
     exact term.  A block at place p of window w >= 1 walks
     ``(wsz + block (p + 1)) / tile`` tiles, one of window 0
@@ -289,9 +281,11 @@ def k1_bwd_tiles(n: int, window_size: int, side: str, halo: bool = False,
     32 (:data:`TF32X3_BWD_TILE`) to eight warps of 16
     (:data:`TF32X3_WARP_ROWS`; four at dim_head 32), and its K1-dq launches
     the blocks in K1-fwd's longest-first order (:func:`k1_fwd_tiles`).
-    ``block`` is the rows a block owns: 128, or :data:`D32_ROWS` for K1-dkv
-    at dim_head 32.  ``blocks`` is the blocks' first rows in launch order
-    (K1-dkv at dim_head 32 passes :func:`k1_dkv_blocks`); by default they
+    ``block`` is the rows a block owns: 128, or :data:`D32_ROWS` at
+    dim_head 32 (where K1-dq streams tiles of :data:`D32_KEYS` keys in bf16
+    and of :data:`TF32X3_BWD_TILE` in f32).  ``blocks`` is the blocks' first rows in launch order (K1-dkv
+    at dim_head 32 passes :func:`k1_dkv_blocks`, K1-dq K1-fwd's order from
+    :func:`k1_fwd_tiles`); by default they
     go in order of their first row.  With a ``halo`` the halo's rows are
     ``[-wsz, 0)``: K1-dq's window-0 blocks stream them first, and K1-dkv
     runs ``wsz / block`` more blocks after the others, for the halo's keys,

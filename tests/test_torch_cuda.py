@@ -44,11 +44,11 @@ TOL_GRAD_RMS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 F32_ROUTE = {"wgmma": "tf32x3", "wmma": "wmma"}
 
 
-def _f32_route(kernel: str, d: int, wsz: int, bf16_route: str) -> str:
-    """K1's f32 route: ``F32_ROUTE``'s, but K1-fwd and K1-dkv (``kernel``
-    ``"fwd"``, ``"dkv"``) take their dim_head-32 ``tf32x3`` kernels at
-    dim_head 32 with a window that is a multiple of 128."""
-    if d == 32 and wsz % 128 == 0 and kernel != "dq":
+def _f32_route(d: int, wsz: int, bf16_route: str) -> str:
+    """K1's f32 route: ``F32_ROUTE``'s, but every K1 kernel takes its
+    dim_head-32 ``tf32x3`` kernel at dim_head 32 with a window that is a
+    multiple of 128."""
+    if d == 32 and wsz % 128 == 0:
         return "tf32x3"
     return F32_ROUTE[bf16_route]
 
@@ -117,7 +117,7 @@ def test_attention_kernel_takes_its_route_and_gives_the_same_bits(
     where bf16 takes the wgmma one and at dim_head 32, else on the WMMA
     kernel), against the plain version; a second run gives the same bits."""
     route = (bf16_route if dtype == torch.bfloat16
-             else _f32_route("fwd", d, wsz, bf16_route))
+             else _f32_route(d, wsz, bf16_route))
     assert cuda_attention.fwd_route(dtype, d, wsz) == route
     q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
@@ -212,7 +212,7 @@ def test_attention_backward_kernels_match_plain(gen, dtype, b, h, n, d, wsz, bf1
     same bits (no atomics)."""
     dq_route = bf16_route if dtype == torch.bfloat16 else F32_ROUTE[bf16_route]
     dkv_route = (bf16_route if dtype == torch.bfloat16
-                 else _f32_route("dkv", d, wsz, bf16_route))
+                 else _f32_route(d, wsz, bf16_route))
     assert cuda_attention.dq_route(dtype, d, wsz) == dq_route
     assert cuda_attention.dkv_route(dtype, d, wsz) == dkv_route
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
@@ -304,14 +304,14 @@ D32_CASES = [
 @pytest.mark.parametrize("halo", [False, True])
 @pytest.mark.parametrize("b,h,n,d,wsz", D32_CASES)
 def test_the_d32_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
-    """K1-fwd and K1-dkv in f32 at dim_head 32 on their 3xTF32 kernels (K1-dq
-    on WMMA), with and without a random halo, against the plain version at
+    """K1-fwd, K1-dq and K1-dkv in f32 at dim_head 32 on their 3xTF32
+    kernels, with and without a random halo, against the plain version at
     the f32 bars; every launch on its route by the counters; a second run
     gives the same bits."""
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen) for _ in range(4))
     kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen) for _ in range(2))
               if halo else (None, None))
-    routes = ("tf32x3", "wmma", "tf32x3")
+    routes = ("tf32x3", "tf32x3", "tf32x3")
     counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
                 cuda_attention.dkv_route_launches)
     assert tuple(f(torch.float32, d, wsz) for f in (
@@ -336,18 +336,18 @@ def test_the_d32_tf32x3_kernels_match_plain(gen, b, h, n, d, wsz, halo):
 @pytest.mark.parametrize("halo", [False, True])
 @pytest.mark.parametrize("b,h,n,d,wsz", D32_CASES)
 def test_the_d32_bf16_wgmma_kernels_match_plain(gen, b, h, n, d, wsz, halo):
-    """K1-fwd and K1-dkv in bf16 at dim_head 32 on their wgmma kernels
-    (64-row blocks, 64-byte-swizzled TMA; K1-dq on WMMA), with and without
-    a random halo, against the plain version at the bf16 bars (``out``
-    1e-2, ``lse`` 1e-4; dk, dv and the halo's 2e-2 of their largest plus
-    2e-2 relative, RMS 1e-2); every launch on its route by the counters; a
-    second run gives the same bits."""
+    """K1-fwd, K1-dq and K1-dkv in bf16 at dim_head 32 on their wgmma
+    kernels (64-row blocks, 64-byte-swizzled TMA), with and without a random
+    halo, against the plain version at the bf16 bars (``out`` 1e-2, ``lse``
+    1e-4; dq, dk, dv and the halo's 2e-2 of their largest plus 2e-2
+    relative, RMS 1e-2); every launch on its route by the counters; a second
+    run gives the same bits."""
     bf16 = torch.bfloat16
     q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(bf16)
                    for _ in range(4))
     kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen).to(bf16)
                for _ in range(2)) if halo else (None, None))
-    routes = ("wgmma", "wmma", "wgmma")
+    routes = ("wgmma", "wgmma", "wgmma")
     counters = (cuda_attention.fwd_route_launches, cuda_attention.dq_route_launches,
                 cuda_attention.dkv_route_launches)
     assert tuple(f(bf16, d, wsz) for f in (
@@ -370,14 +370,57 @@ def test_the_d32_bf16_wgmma_kernels_match_plain(gen, b, h, n, d, wsz, halo):
         assert torch.equal(a, g)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("b,h,n,d,wsz", D32_CASES)
+def test_the_d32_dq_kernels_match_plain_and_wmma(gen, b, h, n, d, wsz, halo, dtype):
+    """K1-dq at dim_head 32 on its Hopper kernel (f32 ``tf32x3``, bf16
+    ``wgmma``), with and without a random halo, from the lse of K1-fwd's
+    kernel: against the plain K1-dq and the first (``wmma``) kernel forced
+    on the same inputs, each at the scaled gradient bars; one launch on its
+    route by the counters; a second run gives the same bits."""
+    q, k, v, do = (torch.randn(b, h, n, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    kh, vh = ((torch.randn(b, h, wsz, d, device="cuda", generator=gen).to(dtype)
+               for _ in range(2)) if halo else (None, None))
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    assert cuda_attention.dq_route(dtype, d, wsz) == route
+    out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, kh, vh)
+    dd = (do.float() * out.float()).sum(-1)
+    before = dict(cuda_attention.dq_route_launches)
+    dq = cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None, kh, vh)
+    torch.cuda.synchronize()
+    assert cuda_attention.dq_route_launches == {**before, route: before[route] + 1}
+    assert dq.dtype == dtype
+    _close_scaled(dq, local_attention_bwd(q, k, v, out, lse, do, wsz, k_halo=kh,
+                                          v_halo=vh)[0], dtype)
+    _close_scaled(dq, cuda_attention.local_attention_bwd_dq(
+        q, k, v, do, lse, dd, wsz, None, kh, vh, route="wmma"), dtype)
+    assert torch.equal(
+        cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None, kh, vh), dq)
+
+
 def test_the_d32_bf16_kernels_replay_in_a_cuda_graph(gen):
-    """bf16 K1-fwd, K1-dq and K1-dkv at dim_head 32 (K1-fwd and K1-dkv on
-    their wgmma kernels) captured in one CUDA graph with a halo at
-    ProGen-default's head and window, replayed 3 times after new inputs are
-    copied in: each replay bit-equal to eager launches on the same inputs."""
-    shape, wsz, bf16 = (2, 3, 1024, 32), 512, torch.bfloat16
-    static = [torch.randn(*shape, device="cuda", generator=gen).to(bf16) for _ in range(4)]
-    static += [torch.randn(2, 3, wsz, 32, device="cuda", generator=gen).to(bf16)
+    """bf16 K1-fwd, K1-dq and K1-dkv at dim_head 32 on their wgmma kernels
+    captured in one CUDA graph with a halo at ProGen-default's head and
+    window, replayed 3 times after new inputs are copied in: each replay
+    bit-equal to eager launches on the same inputs."""
+    _d32_graph_replay(gen, torch.bfloat16)
+
+
+def test_the_d32_tf32x3_kernels_replay_in_a_cuda_graph(gen):
+    """f32 K1-fwd, K1-dq and K1-dkv at dim_head 32 on their tf32x3 kernels,
+    as the bf16 ones replay."""
+    _d32_graph_replay(gen, torch.float32)
+
+
+def _d32_graph_replay(gen, dtype):
+    assert {f(dtype, 32, 512) for f in (cuda_attention.fwd_route, cuda_attention.dq_route,
+                                        cuda_attention.dkv_route)} == \
+        {"wgmma" if dtype == torch.bfloat16 else "tf32x3"}
+    shape, wsz = (2, 3, 1024, 32), 512
+    static = [torch.randn(*shape, device="cuda", generator=gen).to(dtype) for _ in range(4)]
+    static += [torch.randn(2, 3, wsz, 32, device="cuda", generator=gen).to(dtype)
                for _ in range(2)]
     q, k, v, do, kh, vh = static
     _tf32x3_launch(q, k, v, do, wsz, kh, vh)  # build and load before the capture
@@ -387,7 +430,7 @@ def test_the_d32_bf16_kernels_replay_in_a_cuda_graph(gen):
         outs = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
     for _ in range(3):
         for t in static:
-            t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(bf16))
+            t.copy_(torch.randn(t.shape, device="cuda", generator=gen).to(dtype))
         graph.replay()
         want = _tf32x3_launch(q, k, v, do, wsz, kh, vh)
         torch.cuda.synchronize()
@@ -665,7 +708,10 @@ def f32_attention_digests(csrc: str | None = None) -> dict[str, str]:
 # SHA-256 of kept_digests() from a build of kernels/csrc as it was before
 # K1-fwd and K1-dkv had their bf16 dim_head-32 kernels (NVIDIA H100 80GB
 # HBM3, nvcc 12.9): adding those kernels moves no bit of the bf16 K1 at
-# dim_head 64 and 128, of K2 and of any f32 output
+# dim_head 64 and 128, of K2 and of any f32 output.  The k1_bfloat16_d32
+# entries from a build as it was before K1-dq had its dim_head-32 Hopper
+# kernels: adding those moves no bit of the others (K1-dq at dim_head 32
+# is taken on the "wmma" kernel, which they left alone).
 KEPT_SHA256 = {
     "k1_bfloat16_d128_out":
         "764c6a71c3788b052625a177dfef9bfff69219bd64c5f6ee90ffa4eb3f8b9f50",
@@ -770,17 +816,42 @@ KEPT_SHA256 = {
     "k2_float32_fwd": "72c1ba7fe05f76bdc5002550bf2656f10f4b596850599b994041568150774aef",
     "k2_float32_dgate": "b15610f8d35bf49b8902e290631f899e5a44f0c3fdb8cabf8102edb58ed2050e",
     "k2_float32_dw": "47647b9e9de89462bcf4082a26d1b9e31c97a91ae4cd2037c0c968798e157aba",
+    "k1_bfloat16_d32_out":
+        "1a64b56eabf0d1e4e8e9cb4e3aa5861c95fb0dd0084cb29cdedfc81266874019",
+    "k1_bfloat16_d32_lse":
+        "f9137ee8696f9cba3c17a20c1ca15c7823c057f8fe142181a25a5f8a10f51d9f",
+    "k1_bfloat16_d32_dq":
+        "0d7578df6f97f33d79704957007cab9fb76574f0dbb4ca33d38510e0be4d4501",
+    "k1_bfloat16_d32_dk":
+        "85175f5e5cb7ca31bca415bd6990d9b6879781da1aff29bea35efb28ce9ab54b",
+    "k1_bfloat16_d32_dv":
+        "0b4e982ada8a83c533cef7d84ca06c3ad79f0fa64ba8deca2203f629e834e6dd",
+    "k1_bfloat16_d32_out_with_halo":
+        "7a643ba7f577836c51f42371ff4ed00247221bd6382dc25e5c0e37a471dd45d3",
+    "k1_bfloat16_d32_lse_with_halo":
+        "466a5e5b17d6b0a4dda773e693a2d2cf959bb22c490ffade7cfc1ffb430835ec",
+    "k1_bfloat16_d32_dq_with_halo":
+        "be8773608dcaa4ed7daa7e9c1c70d5b02f661d5105137638c9e98b85633c8de6",
+    "k1_bfloat16_d32_dk_with_halo":
+        "0aa571ca5b91480326cdfba90a9d123d74aaa0820745d2361cb893a4372ef1ae",
+    "k1_bfloat16_d32_dv_with_halo":
+        "84d9c989dcde1216e1093f658932f5a294f573a379027bb9416cd77f2802f00b",
+    "k1_bfloat16_d32_dk_halo_with_halo":
+        "b25819bdc93b28ba9a7f8e6caab5feb39a61908187b784d591036c3d391bbc68",
+    "k1_bfloat16_d32_dv_halo_with_halo":
+        "dc7eb6a33ead884c668923d505b434beae2ab1c41f0b3d43334c45ebe578b3b2",
 }
 
 
 def kept_digests(csrc: str | None = None) -> dict[str, str]:
-    """SHA-256 of the outputs that the bf16 dim_head-32 kernels must leave
+    """SHA-256 of the outputs that the dim_head-32 Hopper kernels must leave
     alone: bf16 K1-fwd's out and lse, K1-dq's dq and K1-dkv's dk and dv at
     (2, 3, 1024, 128) and (2, 3, 1024, 64), window 256, without and with a
     halo; bf16 K2-fwd, K2-dgate and K2-dW at (2, 1024, 2048); the same K1
-    outputs in f32 at dim_head 32 (window 512) and 64; f32 K2's three.
-    Inputs drawn with numpy from seed 7.  ``csrc`` as for
-    :func:`bf16_backward_digests`."""
+    outputs in f32 at dim_head 32 (window 512) and 64 and in bf16 at
+    dim_head 32 (window 512); f32 K2's three.  At dim_head 32 K1-dq runs the
+    first (``wmma``) kernel, forced.  Inputs drawn with numpy from seed 7.
+    ``csrc`` as for :func:`bf16_backward_digests`."""
     import hashlib
     from pathlib import Path
 
@@ -804,20 +875,25 @@ def kept_digests(csrc: str | None = None) -> dict[str, str]:
     try:
         got = {}
         names = ("out", "lse", "dq", "dk", "dv", "dk_halo", "dv_halo")
-        for dtype, d, wsz in ((torch.bfloat16, 128, 256), (torch.bfloat16, 64, 256),
-                              (torch.float32, 32, 512), (torch.float32, 64, 256)):
+
+        def k1(dtype, d, wsz):
             q, k, v, do = (randn(2, 3, 1024, d, dtype=dtype) for _ in range(4))
             kh, vh = (randn(2, 3, wsz, d, dtype=dtype) for _ in range(2))
+            dq_route = "wmma" if d == 32 else None
             for suffix, halo in (("", (None, None)), ("_with_halo", (kh, vh))):
                 out, lse = cuda_attention.local_attention_fwd(q, k, v, wsz, None, *halo)
                 dd = (do.float() * out.float()).sum(-1)
                 outs = (out, lse,
                         cuda_attention.local_attention_bwd_dq(q, k, v, do, lse, dd, wsz, None,
-                                                              *halo),
+                                                              *halo, route=dq_route),
                         *cuda_attention.local_attention_bwd_dkv(q, k, v, do, lse, dd, wsz,
                                                                 None, *halo))
                 for name, t in zip(names, outs):
                     got[f"k1_{str(dtype)[6:]}_d{d}_{name}{suffix}"] = digest(t)
+
+        for case in ((torch.bfloat16, 128, 256), (torch.bfloat16, 64, 256),
+                     (torch.float32, 32, 512), (torch.float32, 64, 256)):
+            k1(*case)
         for dtype in (torch.bfloat16, torch.float32):
             res, gate, dout = (randn(2, 1024, 2048, dtype=dtype) for _ in range(3))
             w = randn(1024, 1024, dtype=dtype, scale=0.05)
@@ -825,6 +901,7 @@ def kept_digests(csrc: str | None = None) -> dict[str, str]:
             got[f"k2_{str(dtype)[6:]}_fwd"] = digest(cuda_sgu.spatial_gate_fwd(res, gate, w, bias))
             got[f"k2_{str(dtype)[6:]}_dgate"] = digest(cuda_sgu.spatial_gate_dgate(w, dout, res))
             got[f"k2_{str(dtype)[6:]}_dw"] = digest(cuda_sgu.spatial_gate_dw(dout, res, gate))
+        k1(torch.bfloat16, 32, 512)  # drawn last: the earlier inputs stay as they were
         return got
     finally:
         kernels.CSRC = saved[0]
@@ -837,8 +914,11 @@ def kept_digests(csrc: str | None = None) -> dict[str, str]:
 def test_the_kernels_beside_the_bf16_d32_ones_keep_their_bits(gen):
     """bf16 K1 at dim_head 64 and 128 (with and without a halo), bf16 K2,
     f32 K1 at dim_head 32 and 64 and f32 K2 give the bits of the build
-    before the bf16 dim_head-32 kernels were added."""
+    before the bf16 dim_head-32 kernels were added; bf16 K1 at dim_head 32
+    those of the build before K1-dq's dim_head-32 kernels were added
+    (K1-dq at dim_head 32 on the ``wmma`` kernel, forced)."""
     assert cuda_attention.fwd_route(torch.bfloat16, 32, 512) == "wgmma"
+    assert cuda_attention.dq_route(torch.float32, 32, 512) == "tf32x3"
     assert kept_digests() == KEPT_SHA256
 
 

@@ -51,21 +51,21 @@ def test_fwd_route_for_every_shipped_config(name):
     (torch.bfloat16, 64, 128, "wgmma"),
     (torch.bfloat16, 128, 64, "wmma"),    # a window under 128
     (torch.bfloat16, 128, 40, "wmma"),    # a window that is no multiple of 128
-    (torch.bfloat16, 32, 512, "wmma"),    # dim_head 32: K1-dq's
+    # dim_head 32: K1-dq's own Hopper kernel too (the id kept from when it
+    # took wmma)
+    pytest.param(torch.bfloat16, 32, 512, "wgmma", id="dtype4-32-512-wmma"),
     pytest.param(torch.float32, 128, 256, "tf32x3", id="dtype5-128-256-wmma"),
 ])
 def test_fwd_route_follows_the_backward_rule(dtype, d, wsz, route):
-    """``route`` is K1-dq's; K1-fwd and K1-dkv take the same (in f32 on the
-    Hopper shapes, the 3xTF32 kernels, since K1-dq has one too), but at
-    dim_head 32 with a window that is a multiple of 128, where K1-dq stays
-    on ``wmma`` and they take their own Hopper kernels (bf16 ``wgmma``)."""
+    """``route`` is K1-dq's; K1-fwd and K1-dkv take the same: the Hopper
+    kernels (bf16 ``wgmma``, f32 ``tf32x3``) at dim_head 32, 64 or 128 with
+    a window that is a multiple of 128, ``wmma`` elsewhere."""
     assert cuda_attention.dq_route(dtype, d, wsz) == route
-    hopper = d in (64, 128) and wsz % 128 == 0
-    assert ("tf32x3" if dtype == torch.float32 and hopper else route) == route
-    d32 = d == 32 and wsz % 128 == 0
-    want = ("wgmma" if dtype == torch.bfloat16 else "tf32x3") if d32 else route
-    assert cuda_attention.fwd_route(dtype, d, wsz) == want
-    assert cuda_attention.dkv_route(dtype, d, wsz) == want
+    hopper = d in (32, 64, 128) and wsz % 128 == 0
+    assert route == ("wmma" if not hopper else
+                     "wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    assert cuda_attention.fwd_route(dtype, d, wsz) == route
+    assert cuda_attention.dkv_route(dtype, d, wsz) == route
 
 
 def _visible(n, wsz):

@@ -235,17 +235,14 @@ def test_the_tf32_rounding_is_cvt_rna():
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_the_k1_routes_of_every_shipped_config(name, dtype):
     """Every config but ``default`` (dim_head 32) has dim_head 64 or 128
-    and a window that is a multiple of 128: bf16 takes ``wgmma`` for all
-    three kernels, f32 ``tf32x3`` for all three; ``default`` (window 512)
-    takes ``tf32x3`` for K1-fwd and K1-dkv and ``wmma`` for K1-dq in f32,
-    ``wgmma`` for K1-fwd and K1-dkv and ``wmma`` for K1-dq in bf16."""
+    and a window that is a multiple of 128, ``default`` dim_head 32 and a
+    window of 512: bf16 takes ``wgmma`` for all three kernels, f32
+    ``tf32x3`` for all three (at dim_head 32 their own 64-row kernels)."""
     c = CONFIGS[name]
     assert (c.dim_head in (64, 128) and c.window_size % 128 == 0) == (name != "default")
     if name == "default":
         assert c.dim_head == 32 and c.window_size % 128 == 0
-        want = (("tf32x3", "wmma", "tf32x3") if dtype == torch.float32
-                else ("wgmma", "wmma", "wgmma"))
-    elif dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         want = ("wgmma", "wgmma", "wgmma")
     else:
         want = ("tf32x3", "tf32x3", "tf32x3")

@@ -315,21 +315,19 @@ def test_resource_report_needs_nvcc(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_bwd_route_of_every_shipped_config(config, dtype):
-    """bf16 takes the Hopper kernels wherever dim_head is 64 or 128 and the
-    window a multiple of 128 (every config but ``default``); f32 takes the
-    3xTF32 kernels there for K1-dq and K1-dkv; at ``default``'s dim_head 32
-    K1-dkv alone takes them (bf16 ``wgmma``, f32 ``tf32x3``) and K1-dq the
-    WMMA kernels."""
+    """Every config has dim_head 32, 64 or 128 and a window that is a
+    multiple of 128, so K1-dq and K1-dkv both take the Hopper kernels: bf16
+    ``wgmma``, f32 ``tf32x3`` (at ``default``'s dim_head 32 their own
+    64-row kernels, K1-dq's since it left the WMMA kernels)."""
     c = CONFIGS[config]
-    hopper = config != "default"
-    want = ("wmma" if not hopper else "wgmma" if dtype == torch.bfloat16 else "tf32x3")
-    want_dkv = "tf32x3" if dtype == torch.float32 else "wgmma"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert cuda_attention.dq_route(dtype, c.dim_head, c.window_size) == want
-    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want_dkv
+    assert cuda_attention.dkv_route(dtype, c.dim_head, c.window_size) == want
 
 
 @pytest.mark.parametrize("dtype,d,wsz,want", [
-    (torch.bfloat16, 32, 256, "wmma"),    # dim_head 32
+    # dim_head 32: its own Hopper kernels (ids kept from when K1-dq took wmma)
+    pytest.param(torch.bfloat16, 32, 256, "wgmma", id="dtype0-32-256-wmma"),
     (torch.bfloat16, 128, 8, "wmma"),     # windows under one block of rows
     (torch.bfloat16, 128, 40, "wmma"),
     (torch.bfloat16, 64, 64, "wmma"),
@@ -339,19 +337,15 @@ def test_bwd_route_of_every_shipped_config(config, dtype):
     # f32 on the Hopper shapes: 3xTF32 (ids kept from when f32 took wmma)
     pytest.param(torch.float32, 128, 256, "tf32x3", id="dtype7-128-256-wmma"),
     pytest.param(torch.float32, 64, 512, "tf32x3", id="dtype8-64-512-wmma"),
-    (torch.float32, 32, 256, "wmma"),     # f32 elsewhere: the first kernels
-    (torch.float32, 128, 64, "wmma"),
+    pytest.param(torch.float32, 32, 256, "tf32x3", id="dtype9-32-256-wmma"),
+    (torch.float32, 128, 64, "wmma"),     # f32 elsewhere: the first kernels
 ])
 def test_bwd_route_of_odd_shapes(dtype, d, wsz, want):
-    """``want`` is K1-dq's route, and K1-dkv's but at dim_head 32 (bf16
-    ``wgmma`` and f32 ``tf32x3`` on the Hopper shapes, dim_head 64 or 128
-    and a window a multiple of 128; ``wmma`` elsewhere; K1-dkv also
-    ``wgmma`` in bf16 and ``tf32x3`` in f32 at dim_head 32 with such a
-    window)."""
+    """``want`` is K1-dq's route and K1-dkv's: bf16 ``wgmma`` and f32
+    ``tf32x3`` on the Hopper shapes (dim_head 32, 64 or 128 and a window a
+    multiple of 128), ``wmma`` elsewhere."""
     assert cuda_attention.dq_route(dtype, d, wsz) == want
-    d32 = d == 32 and wsz % 128 == 0
-    want_dkv = ("wgmma" if dtype == torch.bfloat16 else "tf32x3") if d32 else want
-    assert cuda_attention.dkv_route(dtype, d, wsz) == want_dkv
+    assert cuda_attention.dkv_route(dtype, d, wsz) == want
 
 
 def _visible(n, wsz):
@@ -461,3 +455,13 @@ def test_k1_dkv_d32_ablation_variants_apply_to_the_source(variant):
 def test_k1_dkv_d32_bf16_ablation_variants_apply_to_the_source(variant):
     """Each ablation of the bf16 K1-dkv at dim_head 32 applies to its source."""
     check_ablation_applies("local_attention_bwd_d32_bf16", variant)
+
+
+@pytest.mark.parametrize("source,variant", [
+    (source, variant) for source in ("local_attention_bwd_dq_d32",
+                                     "local_attention_bwd_dq_d32_bf16")
+    for variant in sorted(ablate.SOURCES[source][2])])
+def test_k1_dq_d32_ablation_variants_apply_to_the_source(source, variant):
+    """Each ablation of K1-dq at dim_head 32, f32 and bf16, applies to its
+    source."""
+    check_ablation_applies(source, variant)
