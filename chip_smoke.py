@@ -4,10 +4,16 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure raises and the script exits
-non-zero without its last line:
+Phases, one JSON line each, stamped with ``git_sha`` (null in a tree
+unpacked from ``git archive``) and ``wall_time``
+(``observe.platform.stamp_record``); any failure raises and the script
+exits non-zero without its last line.  First the card is probed in a
+subprocess (``observe.platform.probe_backend``, retried under
+``PROGEN_BENCH_RETRY_*``); when it does not come up the probe's JSON
+error record is printed and the script exits 1.
 
-1. device: the card's name and power limit, CUDA and nvcc versions;
+1. device: the probe's seconds and attempts, the card's name and power
+   limit, CUDA and nvcc versions;
 2. build: the hand-written CUDA kernels, built from ``kernels/csrc`` by nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    ProGen-small shapes (serving and training shapes for the forward
@@ -460,7 +466,12 @@ from progen_tpu_torch.models.configs import DEFAULT, SMALL, draft_config_for
 from progen_tpu_torch.models.progen import ProGen
 from progen_tpu_torch.ops import cuda_attention, cuda_paged_gate_mix, cuda_sgu
 from progen_tpu_torch.ops import paged_gate_mix as plain_paged
-from progen_tpu_torch.observe.flops import H100_PEAK_BF16_FLOPS, mfu, model_flops_per_token
+from progen_tpu_torch.observe.flops import (
+    H100_PEAK_BF16_FLOPS,
+    mfu,
+    model_flops_per_token,
+    peak_flops_per_chip,
+)
 from progen_tpu_torch.ops.local_attention import (
     concat_previous_window,
     local_attention,
@@ -469,6 +480,7 @@ from progen_tpu_torch.ops.local_attention import (
 )
 from progen_tpu_torch.ops.quant import quantize_rows, quantize_w
 from progen_tpu_torch.observe.metrics import get_registry
+from progen_tpu_torch.observe.platform import LAST_PROBE, probe_backend, stamp_record
 from progen_tpu_torch.observe.trace import configure_tracing, merge_trace_dir, trace_dump_path
 from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.ops.sgu import gated_mix, spatial_gate_dgate, spatial_gate_dw
@@ -616,8 +628,8 @@ T0 = time.perf_counter()
 def emit(phase: str, **fields) -> None:
     """One JSON line of a phase; ``t`` is the seconds since the script
     started (a phase's time is the difference of two lines' ``t``)."""
-    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 1),
-                      **fields}), flush=True)
+    print(json.dumps(stamp_record({"phase": phase, "t": round(time.perf_counter() - T0, 1),
+                                   **fields})), flush=True)
 
 
 def smi_name_power() -> str:
@@ -1251,7 +1263,7 @@ def d32_kernels_alone() -> list[dict]:
     torch.backends.cudnn.allow_tf32 = False
     emit("build", per_source=kernels.build(("local_attention_fwd", "local_attention_bwd")))
     rows = check_d32_kernels()
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps(stamp_record({"kernels": rows})), flush=True)
     return rows
 
 
@@ -1265,7 +1277,7 @@ def kernels_alone() -> list[dict]:
     emit("build", per_source=kernels.build())
     rows = (check_kernels() + check_backward_kernels() + check_d32_kernels()
             + check_paged_kernels())
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps(stamp_record({"kernels": rows})), flush=True)
     return rows
 
 
@@ -1611,6 +1623,7 @@ def train(model) -> dict:
     tokens = TRAIN_BATCH * c.seq_len
     params = sum(p.numel() for p in model.parameters())
     rate = tokens / (step_ms / 1e3)
+    peak_flops = peak_flops_per_chip()
     return {"launches": launches, "launches_per_step": per_step,
             "k1_bwd_launches_by_route": k1_bwd_routes(all_routes),
             "fwd_launches_by_route": {k: all_routes[k]
@@ -1619,8 +1632,8 @@ def train(model) -> dict:
             "params": params, "losses": losses, "grad_norms": grad_norms,
             "step_ms_median": step_ms, "step_ms": [s * 1e3 for s in step_s],
             "tokens_per_s": rate,
-            "mfu": mfu(rate, model_flops_per_token(c, params)),
-            "mfu_peak_flops": H100_PEAK_BF16_FLOPS, "peak_bytes": peak}
+            "mfu": mfu(rate, model_flops_per_token(c, params), peak_flops),
+            "mfu_peak_flops": peak_flops, "peak_bytes": peak}
 
 
 def check_train_against_plain(lora: bool = False, c=SMALL, batch_size: int = 2) -> dict:
@@ -2203,7 +2216,8 @@ def trainer_phase(c=SMALL, device="cuda") -> dict:
         "step_ms": step_ms, "step_ms_median": float(np.median(step_ms[steady])),
         "tokens_per_s": TRAIN_BATCH * c.seq_len / (float(np.median(step_ms[steady])) / 1e3),
         "mfu": mfu(TRAIN_BATCH * c.seq_len / (float(np.median(step_ms[steady])) / 1e3),
-                   model_flops_per_token(c, sum(p.numel() for p in final_a.values()))),
+                   model_flops_per_token(c, sum(p.numel() for p in final_a.values())),
+                   peak_flops_per_chip()),
         # the meter's window at the last logged step (hooks excluded, the
         # steps a background save slows included)
         "meter_tokens_per_s": next((r["tokens_per_sec_per_chip"] for r in reversed(rows_a)
@@ -2229,6 +2243,14 @@ def trainer_phase(c=SMALL, device="cuda") -> dict:
     require(not differ, f"resumed final params differ from the uninterrupted: {differ[:8]}")
     require(restored_equal, "restored params give other prefill logits")
     require(all(np.isfinite(result["losses"])), f"non-finite losses {result['losses']}")
+    # the Trainer's MFU from the peak of the card's name: on the H100 80GB
+    # HBM3 the meter's rate over 989e12, as before the peak table; none on
+    # a card the table does not know
+    fpt = model_flops_per_token(c, sum(p.numel() for p in final_a.values()))
+    result["meter_mfu_at_h100_peak"] = fpt * result["meter_tokens_per_s"] / H100_PEAK_BF16_FLOPS
+    want = result["meter_mfu_at_h100_peak"] if peak_flops_per_chip() is not None else None
+    require(result["meter_mfu"] == want,
+            f"the Trainer logged mfu {result['meter_mfu']}, want {want}")
     return result
 
 
@@ -4803,7 +4825,7 @@ def parallel_alone() -> dict:
     emit("build", per_source=kernels.build())
     rows, result = parallel_phase(smi_name_power())
     emit("parallel", **parallel_summary(result))
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps(stamp_record({"kernels": rows})), flush=True)
     return result
 
 
@@ -6388,8 +6410,8 @@ def f32_row_launches(row: dict, phases: dict) -> None:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke runs only on a GPU",
+    if not probe_backend(script="chip_smoke.py"):  # the error record is on stdout
+        print("chip_smoke: the card did not come up; the port's smoke runs only on a GPU",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6397,7 +6419,8 @@ def main() -> int:
     smi = smi_name_power()
     nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
-    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+    emit("device", probe_s=LAST_PROBE["seconds"], probe_attempts=LAST_PROBE["attempts"],
+         nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc.stdout.strip().splitlines()[-1],
          python=sys.version.split()[0])
@@ -6535,12 +6558,12 @@ def main() -> int:
     rows += d32_row_launches(d32_rows, cli, parallel["d32_halo_rows"])
     emit("routes_whole_smoke", checks_included=True, **route_totals())
     emit("analysis", **analysis_phase(analyzer))
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps(stamp_record({"kernels": rows})), flush=True)
     emit("trainer_summary", nvidia_smi=smi, **{k: trainer[k] for k in (
-        "step_ms_median", "tokens_per_s", "mfu", "host_batch_ms", "data_wait_ms_median",
-        "feed", "resume_open", "checkpoint_bytes", "restore_state_s", "restore_params_s",
-        "peak_bytes", "resumed_losses_equal", "resumed_params_equal",
-        "restored_logits_equal")},
+        "step_ms_median", "tokens_per_s", "mfu", "meter_mfu", "host_batch_ms",
+        "data_wait_ms_median", "feed", "resume_open", "checkpoint_bytes",
+        "restore_state_s", "restore_params_s", "peak_bytes", "resumed_losses_equal",
+        "resumed_params_equal", "restored_logits_equal")},
          parallel={label: {k: parallel[label][k] for k in (
              "step_ms_median", "tokens_per_s", "peak_above_start_bytes", "loss_rel_err")}
              for label, _, _ in MESHED_RUNS},

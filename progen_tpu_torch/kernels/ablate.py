@@ -116,6 +116,7 @@ import numpy as np
 import torch
 
 from progen_tpu_torch import kernels
+from progen_tpu_torch.observe.platform import stamp_record
 from progen_tpu_torch.ops import cuda_attention, cuda_sgu
 from progen_tpu_torch.ops import paged_gate_mix as plain_paged
 from progen_tpu_torch.ops.quant import quantize_rows, quantize_w
@@ -831,12 +832,14 @@ def main(argv: list[str]) -> int:
     libs = build([(s, v) for s in sources for v in SOURCES[s][2]])
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (source, variant), (_, ptxas) in libs.items():
-        print(json.dumps({"source": source, "variant": variant, "ptxas": ptxas}), flush=True)
+        print(json.dumps(stamp_record({"source": source, "variant": variant, "ptxas": ptxas})),
+              flush=True)
     for (source, variant), (lib, _) in libs.items():
         timer = TIMERS[source]
         for row in (timer(lib, gen, variant) if source == "paged_gate_mix"
                     else timer(lib, gen)):
-            print(json.dumps({"source": source, "variant": variant, **row}), flush=True)
+            print(json.dumps(stamp_record({"source": source, "variant": variant, **row})),
+                  flush=True)
     return 0
 
 

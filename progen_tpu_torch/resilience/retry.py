@@ -26,6 +26,7 @@ import dataclasses
 import functools
 import queue
 import random
+import sys
 import threading
 import time
 from typing import Any, Callable, Iterator
@@ -232,8 +233,11 @@ def retry_call(
 
 
 def _announce(attempt: int, exc: BaseException, delay: float) -> None:
-    print(f"transient failure (attempt {attempt}): {exc!r}; "
-          f"retrying in {delay:.2f}s", flush=True)
+    # the line and its newline in one write: a retry on the Trainer's save
+    # thread never splits a JSON line the main thread writes
+    sys.stdout.write(f"transient failure (attempt {attempt}): {exc!r}; "
+                     f"retrying in {delay:.2f}s\n")
+    sys.stdout.flush()
 
 
 def retriable(policy: RetryPolicy | None = None, label: str | None = None):

@@ -36,7 +36,8 @@ With ``--superstep K`` the train step is traced twice, eager and then
 captured (``train_multi_step``: one captured optimizer step replayed K
 times a traced run), each line per optimizer step; under ``mesh`` the
 meshed step too (its collectives inside the graph).
-Needs a GPU.
+Every line carries the ``git_sha`` and ``wall_time`` stamps
+(``observe.platform.stamp_record``).  Needs a GPU.
 
     python -m progen_tpu_torch.trace_main_path --phases engine spec --aot_warmup
     python -m progen_tpu_torch.trace_main_path --phases train --superstep 4
@@ -66,6 +67,7 @@ from progen_tpu_torch.decode.prefill import pad_prime_length
 from progen_tpu_torch.decode.sampler import make_chunked_sampler
 from progen_tpu_torch.models.configs import SMALL, draft_config_for
 from progen_tpu_torch.models.progen import ProGen
+from progen_tpu_torch.observe.platform import stamp_record
 from progen_tpu_torch.train.optimizer import make_optimizer
 from progen_tpu_torch.train.step import make_train_functions
 
@@ -215,12 +217,14 @@ def _trace_serving(device, config, phases, aot_warmup: bool = False) -> None:
     meta = {"config": "small", "batch": 2, "prime_len": p_len,
             "p_pad": p_pad, "device": torch.cuda.get_device_name(device)}
     if "serve" in phases:
-        print(json.dumps({"phase": "prefill", **meta, **_traced(prefill, device)}))
+        print(json.dumps(stamp_record({"phase": "prefill", **meta,
+                                       **_traced(prefill, device)})), flush=True)
         steps = decode_len - p_len
         result = _traced(lambda: decode(caches), device)
         result["per_step_wall_ms"] = result["wall_ms"] / steps
         result["per_step_device_ms"] = result["device_busy_ms"] / steps
-        print(json.dumps({"phase": "decode", **meta, "steps": steps, **result}))
+        print(json.dumps(stamp_record({"phase": "decode", **meta, "steps": steps, **result})),
+              flush=True)
     del sampler, caches
     modes = []
     if "engine" in phases:
@@ -255,10 +259,11 @@ def _trace_serving(device, config, phases, aot_warmup: bool = False) -> None:
                 engine._dispatch_chunk()
             result = _trace_chunk(engine, device)
             live = int((engine.state["active"] & ~engine.state["done"]).sum())
-            print(json.dumps({"phase": "engine_chunk", "mode": mode, "dispatch": dispatch,
-                              "config": "small", "slots": ENGINE_SLOTS,
-                              "live_rows_at_end": live, "prime_len": p_len,
-                              "device": meta["device"], **extra, **result}), flush=True)
+            print(json.dumps(stamp_record({
+                "phase": "engine_chunk", "mode": mode, "dispatch": dispatch,
+                "config": "small", "slots": ENGINE_SLOTS, "live_rows_at_end": live,
+                "prime_len": p_len, "device": meta["device"], **extra, **result})),
+                flush=True)
             engine.close()
             del engine
             gc.collect()
@@ -339,7 +344,7 @@ def _trace_train(device, config, mixed_precision: bool = True, mesh=None,
         dispatch_field = {"dispatch": dispatch, "steps": steps} if superstep > 1 else {}
         lines.append({"phase": label, **dispatch_field, **meta, **extra, **result,
                       **per_step})
-        print(json.dumps(lines[-1]), flush=True)
+        print(json.dumps(stamp_record(lines[-1])), flush=True)
     del model, fns, state
     return lines
 

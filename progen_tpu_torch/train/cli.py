@@ -13,8 +13,8 @@ record cursor (the stored model config wins over ``--model_name``).
 ``--new`` wipes the checkpoints after a y/n confirm.  The model config is
 ``{--config_path}/{--model_name}.toml``.  One JSON line is printed per
 logged step (step, loss, grad_norm, lr, step_ms, data_wait_ms,
-tokens_per_sec_per_chip and, on the card, mfu against the H100's bf16
-peak) and per hook.
+tokens_per_sec_per_chip and, on a card whose bf16 peak
+``observe.flops.peak_flops_per_chip`` knows, mfu) and per hook.
 
 Without ``--data_path`` it trains on synthetic Uniref50-shaped rows made
 from ``--seed`` (``data/synthetic.py``) for ``--max_steps`` micro-batches
@@ -83,7 +83,7 @@ from progen_tpu_torch.core.precision import make_policy
 from progen_tpu_torch.data.synthetic import synthetic_uniref_batch
 from progen_tpu_torch.models.configs import CONFIGS
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
-from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
+from progen_tpu_torch.observe.flops import mfu, model_flops_per_token, peak_flops_per_chip
 from progen_tpu_torch.observe.tracker import Tracker
 from progen_tpu_torch.resilience import faults
 from progen_tpu_torch.train.optimizer import make_optimizer
@@ -288,6 +288,7 @@ def train_synthetic(args, device: torch.device) -> list[dict]:
     state = fns.init_state()
     num_params = sum(p.numel() for p in model.parameters())
     flops_per_token = model_flops_per_token(config, num_params)
+    peak = peak_flops_per_chip(device)  # None off the H100: mfu reads None
     rng = np.random.default_rng(args.seed)
     tokens_per_step = args.batch_size * config.seq_len
 
@@ -326,7 +327,7 @@ def train_synthetic(args, device: torch.device) -> list[dict]:
             "grad_norm": float(metrics["grad_norm"]),
             "lr": lr_at(schedule, count), "step_ms": seconds / micro * 1e3,
             "tokens_per_s": rate,
-            "mfu": mfu(rate, flops_per_token) if device.type == "cuda" else None,
+            "mfu": mfu(rate, flops_per_token, peak),
         }
         print(json.dumps(record), flush=True)
         records.append(record)

@@ -90,6 +90,7 @@ import json
 import math
 import os
 import signal
+import sys
 import threading
 import time
 from typing import Any, Sequence
@@ -114,7 +115,7 @@ from progen_tpu_torch.data.tokenizer import decode_tokens
 from progen_tpu_torch.decode.rng import KeySeq
 from progen_tpu_torch.decode.sampler import make_sampler
 from progen_tpu_torch.models.progen import ProGen, ProGenConfig
-from progen_tpu_torch.observe.flops import mfu, model_flops_per_token
+from progen_tpu_torch.observe.flops import mfu, model_flops_per_token, peak_flops_per_chip
 from progen_tpu_torch.observe.meter import ThroughputMeter, profile_trace
 from progen_tpu_torch.observe.metrics import get_registry
 from progen_tpu_torch.observe.statusz import StatuszServer
@@ -136,6 +137,19 @@ from progen_tpu_torch.train.step import TrainState, make_train_functions
 
 # TrainerConfig fields the port refuses away from their defaults
 NOT_PORTED = ("attn_impl", "sgu_impl")
+
+# the Trainer's records come from the main thread and the background save's
+_STDOUT_LOCK = threading.Lock()
+
+
+def write_json_line(record: dict) -> None:
+    """``record`` as one JSON line on stdout: the line and its newline in one
+    write under a lock, so records from two threads never share a line
+    (``print`` writes the newline on its own)."""
+    line = json.dumps(record) + "\n"
+    with _STDOUT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def superstep_span(global_step: int, k_max: int, cadences: Sequence[int],
@@ -426,7 +440,7 @@ class Trainer:
 
     def _emit(self, **record: Any) -> None:
         if self.rank == 0:
-            print(json.dumps(record), flush=True)
+            write_json_line(record)
 
     def _note_phase(self, name: str, t0: float, **fields: Any) -> None:
         """One loop phase -> a trace span AND a flight-recorder event, so a
@@ -634,6 +648,7 @@ class Trainer:
         seq_len = self.model_config.seq_len
         num_params = sum(p.numel() for p in state.params.values())
         flops_per_token = model_flops_per_token(self.model_config, num_params)
+        peak = peak_flops_per_chip(self.device)  # None off the H100 -> mfu not logged
         watchdog = self._watchdog
         cadences = (cfg.log_every, cfg.checkpoint_every, cfg.validate_every,
                     cfg.sample_every)
@@ -704,8 +719,9 @@ class Trainer:
                         tps = self.meter.tokens_per_sec_per_chip
                         if tps is not None:
                             log["tokens_per_sec_per_chip"] = tps
-                            if self.device.type == "cuda":
-                                log["mfu"] = mfu(tps, flops_per_token)
+                            util = mfu(tps, flops_per_token, peak)
+                            if util is not None:
+                                log["mfu"] = util
                         self.tracker.log(log, global_step)
                         self._recorder.record("step", step=global_step, **log)
                         self._note_phase("train.log", t0, step=global_step)

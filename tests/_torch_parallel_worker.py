@@ -13,8 +13,10 @@ and (1,1,2,2): the sequence-parallel attention (forward, its gradients
 through the halo, partial windows refused) and SGU mix, the sharded SGU's
 weight gradients, and one f32 train step of the whole model per strategy
 (its parameters after the step and their reduced gradients; the ``tp``
-meshes on the job's ``train_tp`` model, whose heads divide by 4).  Rank 0 writes every result, whole
-(gathered over the ranks), to OUT.npz.  It imports torch and the port only:
+meshes on the job's ``train_tp`` model, whose heads divide by 4; under
+``(fsdp, tp)`` every rank's gathered parameters too), and ``full_tensor``
+of a ``(Replicate, Shard(0), Shard(0))`` tensor on every rank.  Rank 0
+writes every result, whole (gathered over the ranks), to OUT.npz.  It imports torch and the port only:
 no JAX and no ``conftest.py``, so its ranks start in seconds.
 """
 
@@ -143,11 +145,41 @@ def train_step_case(job, mesh, label, strategies, out, key="train"):
     out[f"train/{label}/loss"] = metrics["loss"]
     out[f"train/{label}/grad_norm"] = metrics["grad_norm"]
     plan = model.parallel_plan
+    placements, differ = {}, []
     for name, p in state.params.items():  # every rank gathers, in one order
         pieces = plan.pieces(name)
         out[f"train/{label}/params/{name}"] = full_tensor(p.detach(), pieces)
         # the gradient reduced over the ranks, before the clip
         out[f"train/{label}/grads/{name}"] = full_tensor(p.grad, pieces)
+        if label == "fsdp2_tp2":  # every rank's gathered value, against rank 0's
+            placements[name] = [str(q) for q in getattr(p, "placements", ())]
+            every = gather(out[f"train/{label}/params/{name}"][None], None, 0)
+            differ += [name] if not all(torch.equal(every[0], v) for v in every) else []
+    if label == "fsdp2_tp2":
+        out[f"train/{label}/placements"] = np.array(json.dumps(placements))
+        out[f"train/{label}/ranks_differ"] = np.array(json.dumps(differ))
+
+
+# rows of the (Replicate, Shard(0), Shard(0)) case: even over its 4 ranks, and not
+FULL_TENSOR_ROWS = (8, 7)
+
+
+def full_tensor_case(job, out) -> None:
+    """``full_tensor`` of a ``(Replicate, Shard(0), Shard(0))`` DTensor on
+    the ``(data, fsdp, tensor)`` view of the ``(1, 2, 2, 1)`` mesh (torch
+    gathers it in two all_gathers, one a mesh dim), with rows even and
+    uneven over the ranks: every rank's gathered value and local rows, to
+    rank 0 as ``full/ROWS`` and ``full/ROWS/local_rows`` (ranks first)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from progen_tpu_torch.parallel.sharding import full_tensor
+
+    mesh = MESH_CACHE["fsdp2_tp2"]["data", "fsdp", "tensor"]
+    for rows in FULL_TENSOR_ROWS:
+        t = distribute_tensor(torch.from_numpy(job[f"full/{rows}"]), mesh,
+                              [Replicate(), Shard(0), Shard(0)])
+        out[f"full/{rows}/local_rows"] = gather(torch.tensor([t.to_local().shape[0]]), None, 0)
+        out[f"full/{rows}"] = gather(full_tensor(t)[None], None, 0)
 
 
 MESH_CACHE: dict = {}
@@ -164,6 +196,7 @@ def train_job(job, out) -> None:
         sharded_sgu_case(job, MESH_CACHE[label], label, out)
     for label, (strategies, key) in TRAIN_STEPS.items():
         train_step_case(job, MESH_CACHE[label], label, strategies, out, key)
+    full_tensor_case(job, out)
 
 
 # the decode job's meshes: label -> (data, fsdp, tensor, seq), strategies

@@ -1641,6 +1641,20 @@ def test_a_fleet_on_the_card_gives_the_in_process_engines_tokens(gen, tmp_path):
     assert dec["cuda_attention.launches"] == dec["cuda_sgu.launches"] == 0
 
 
+
+def test_probe_backend_finds_the_card(gen, capsys):
+    """``observe.platform.probe_backend`` (``chip_smoke.py``'s first call)
+    brings the card up in its subprocess at the first attempt and prints
+    nothing; the peak behind MFU is known for the H100 80GB HBM3 only."""
+    from progen_tpu_torch.observe import platform
+    from progen_tpu_torch.observe.flops import PEAK_BF16_FLOPS, peak_flops_per_chip
+
+    assert platform.probe_backend() is True
+    assert capsys.readouterr().out == ""
+    assert platform.LAST_PROBE["attempts"] == 1 and platform.LAST_PROBE["ok"]
+    assert peak_flops_per_chip() == PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(0))
+
+
 if __name__ == "__main__":
     import json
     import sys

@@ -14,6 +14,7 @@ drive a fleet on the CPU."""
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -71,7 +72,8 @@ def test_scan_sees_the_whole_port():
                 "serve/router.py", "serve/worker.py", "serve/cluster.py",
                 "observe/transport.py", "observe/slo.py", "resilience/supervise.py",
                 "serve/policy.py", "serve/control.py", "analysis/engine.py",
-                "analysis/capturegraph.py", "analysis/rules_kernel.py"):
+                "analysis/capturegraph.py", "analysis/rules_kernel.py",
+                "observe/gitinfo.py", "observe/platform.py"):
         assert f"progen_tpu_torch/{new}" in names
 
 
@@ -196,7 +198,8 @@ def test_train_cli_takes_steps_on_cpu():
         [sys.executable, "-m", "progen_tpu_torch.train", "--model_name", "default",
          "--batch_size", "1", "--grad_accum_every", "1", "--max_steps", "2",
          "--log_every", "1", "--device", "cpu"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
+        cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=300, check=True)
     records = [json.loads(line) for line in run.stdout.splitlines()]
     assert [r["step"] for r in records] == [1, 2]
     for r in records:
@@ -215,7 +218,8 @@ def test_train_cli_takes_supersteps_with_remat_on_cpu():
             [sys.executable, "-m", "progen_tpu_torch.train", "--model_name", "default",
              "--batch_size", "1", "--grad_accum_every", "1", "--max_steps", "4",
              "--log_every", "1", "--device", "cpu", *extra],
-            cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
+            cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"},
+            capture_output=True, text=True, timeout=300, check=True)
         return [json.loads(line) for line in out.stdout.splitlines()]
 
     fused = run("--superstep", "2", "--remat", "--remat_policy", "attn")

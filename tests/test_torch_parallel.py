@@ -31,7 +31,11 @@ under ``tmp_path``).  On the meshes (1,1,1,4), (2,1,1,2), (1,4,1,1),
   gradient, reduced over the ranks before the clip, against ``jax.grad``
   of the same loss: one Adam step from zero moments moves each element by
   about ``lr``, whatever its gradient's size, so only the gradients show a
-  leaf summed or divided over the wrong ranks.
+  leaf summed or divided over the wrong ranks;
+* ``parallel/sharding.full_tensor`` of a dim sharded twice (a
+  ``(Replicate, Shard(0), Shard(0))`` tensor at rows even and uneven over
+  the ranks, and every parameter of the ``("fsdp", "tp")`` step), bit-equal
+  on every rank.
 """
 
 import json
@@ -65,6 +69,9 @@ GATE_CASES = [16, 32]
 CFG = dict(num_tokens=64, dim=16, seq_len=32, depth=2, window_size=8,
            global_mlp_depth=1, heads=2, dim_head=8, ff_mult=2)
 LR = 1e-3
+# the (Replicate, Shard(0), Shard(0)) tensor's rows (the worker's
+# FULL_TENSOR_ROWS) -> each rank's local rows: even, and uneven
+FULL_TENSOR_ROWS = {8: [2, 2, 2, 2], 7: [2, 2, 2, 1]}
 # the tp meshes' model: 4 heads, so (1,1,4,1) divides them
 TP_CFG = dict(CFG, heads=4, dim_head=4)
 TRAIN = {"dp2_sp2": "train", "fsdp4": "train", "dp4": "train", "fsdp2_sp2": "train",
@@ -145,6 +152,10 @@ def world(tmp_path_factory):
     """The worker's results and JAX's answers."""
     tmp = tmp_path_factory.mktemp("gloo_world")
     job, want = _references(np.random.default_rng(0))
+    full_rng = np.random.default_rng(1)
+    for rows in FULL_TENSOR_ROWS:
+        job[f"full/{rows}"] = want[f"full/{rows}"] = \
+            full_rng.standard_normal((rows, 5)).astype(np.float32)
     np.savez(tmp / "job.npz", **job)
     run = subprocess.run(
         [sys.executable, str(ROOT / "tests" / "_torch_parallel_worker.py"),
@@ -221,3 +232,31 @@ def test_gradients_across_ranks_match_jax_per_leaf(world, label):
         np.testing.assert_allclose(got[prefix + name], value, rtol=1e-4,
                                    atol=1e-4 * np.abs(value).max(),
                                    err_msg=f"{label}: d{name}")
+
+
+@pytest.mark.parametrize("rows", list(FULL_TENSOR_ROWS))
+def test_full_tensor_of_a_twice_sharded_dim_is_bit_equal_on_every_rank(world, rows):
+    """``parallel/sharding.full_tensor`` of a ``(Replicate, Shard(0),
+    Shard(0))`` DTensor on the ``(data, fsdp, tensor)`` view of the
+    ``(1, 2, 2, 1)`` mesh, which torch gathers in two sequential all_gathers
+    and warns "may give inconsistent results between ranks": every rank's
+    value is bit-equal to the unsharded one, at rows even and uneven over
+    the ranks."""
+    got, want = world
+    assert got[f"full/{rows}/local_rows"].tolist() == FULL_TENSOR_ROWS[rows]
+    for rank, value in enumerate(got[f"full/{rows}"]):
+        np.testing.assert_array_equal(value, want[f"full/{rows}"], err_msg=f"rank {rank}")
+
+
+def test_fsdp_tp_parameters_gather_bit_equal_on_every_rank(world):
+    """Under ``("fsdp", "tp")`` the tensor-split parameters are FSDP2 shards
+    of a tensor shard on three mesh dims; the column-split biases have dim 0
+    split twice, ``(Replicate, _StridedShard(0), Shard(0))``, the placement
+    torch warns about.  After the step every rank's ``full_tensor`` of every
+    parameter equals rank 0's bit for bit."""
+    got, _ = world
+    placements = json.loads(str(got["train/fsdp2_tp2/placements"]))
+    twice = [name for name, p in placements.items()
+             if len(p) == 3 and p[0].startswith("R") and all("(0" in q for q in p[1:])]
+    assert "ff.0.proj_in.bias" in twice, placements
+    assert json.loads(str(got["train/fsdp2_tp2/ranks_differ"])) == []
